@@ -39,3 +39,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test, excluded from the tier-1 lane"
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (a hand-written kernel); skips without one",
+    )
