@@ -4,23 +4,39 @@
     python3 chip_smoke.py
 
 Phases, each printing its own line; any failure exits non-zero:
-  1. the card's name and power limit (nvidia-smi), then build the kernels
-     from paddle_tpu_torch/ops/csrc/ with nvcc;
+  1. the card's name and power limit (nvidia-smi), then build every kernel
+     of paddle_tpu_torch/ops/csrc/ with nvcc, one process per source, all
+     at once;
   2. each kernel against its plain torch version at the full-width shapes
-     of the main path (decode q [8, 768] / table [8, 64]; prefill chunk
-     q [32, 768] / table [64]), on seeded random inputs with pos < 0 rows,
-     rows on a page boundary and partly filled last pages; max abs error
-     against atol = rtol = 1e-5, and kernel / plain times in ms;
-  3. the main path: a GenerationEngine over GPTDecoder at GPT-2 small's
-     widths (12 layers, 12 heads, d_model 768, d_inner 3072, vocab 50257,
-     1024 positions; random weights from a seed), warmup(), then a
+     of the main paths, with max abs error against its tolerance and the
+     kernel / plain / library-call times in ms:
+     - paged flash (decode q [8, 768] / table [8, 64]; prefill chunk
+       q [32, 768] / table [64]), seeded inputs with pos < 0 rows, rows on a
+       page boundary and partly filled last pages; atol = rtol = 1e-5;
+     - the GEMM epilogue at Transformer base's FFN shapes (4096 x 512 @
+       512 x 2048 + relu, 4096 x 2048 @ 2048 x 512); atol = rtol = 1e-4;
+     - layer_norm forward (4096 x 512, with and without the residual), 1e-5;
+       backward, dx 1e-5, dscale / dbias rtol 1e-4 atol 1e-3;
+     - multi-tensor Adam over the model's 183 tensors (f32 moments, bit for
+       bit; bf16 moments, one bf16 ulp) and a ragged-tail set (bit for bit);
+  3. serving: a GenerationEngine over GPTDecoder at GPT-2 small's widths
+     (12 layers, 12 heads, d_model 768, d_inner 3072, vocab 50257, 1024
+     positions; random weights from a seed), warmup(), then a
      GenerationScheduler answering 8 concurrent greedy requests with prompts
      of 40-700 tokens and 32 new tokens each. Every request must finish,
-     no variant may be rebuilt after warmup, both kernel launch counters
-     must move, and two requests must match serial engine.generate;
+     no variant may be rebuilt after warmup, both paged kernel launch
+     counters must move, and two requests must match serial engine.generate;
   4. paged vs dense: the engine's prefill and decode logits against the
      whole-sequence program build_forward(1, 64) on the same parameters;
-  5. a `kernels` JSON line (launches, error, times, bound per kernel).
+  5. training: Transformer base (6 layers, d_model 512, d_ff 2048, 8 heads,
+     vocab 37000, batches of 16 x 256 tokens, dropout 0.1, f32; random
+     weights from a seed) trained by Executor.run under the training_fused
+     pass preset for 6 steps: every loss finite, every training kernel
+     launched by the expected count each step, then the first 3 losses
+     against an unfused run (no pass pipeline) from the same seed within
+     rtol 2e-3, atol 2e-4; step wall p50, target tokens/s, the device's
+     busy share and its launches a step;
+  6. a `kernels` JSON line (launches, error, times, bound per kernel).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -29,7 +45,6 @@ the script exits non-zero and prints no result.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -53,6 +68,14 @@ KERNEL_META = {
     "paged_flash_shared": ("paddle_tpu/ops/pallas_kernels.py:1505", True),
 }
 
+# training kernels: tolerances against the plain versions
+GEMM_TOL = 1e-4  # k up to 2048, sums in another order
+LN_TOL = 1e-5  # f32 statistics
+LN_SUM_RTOL, LN_SUM_ATOL = 1e-4, 1e-3  # dscale / dbias: sums over 4096 rows
+TRAIN_STEPS = 6  # fused steps of the training phase
+COMPARE_STEPS = 3  # of them compared with the unfused run
+FUSED_RTOL, FUSED_ATOL = 2e-3, 2e-4  # the JAX package's fused-vs-unfused bar
+
 
 def log(msg):
     print(msg, flush=True)
@@ -71,14 +94,6 @@ class Phase:
         if ev is None:
             log("[%s] ok %.1f s" % (self.name, time.perf_counter() - self.t0))
         return False
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------- phase 2
@@ -120,6 +135,13 @@ def paged_case(torch, device, shared, seed):
     return args, dict(n_head=n_head, page_size=ps)
 
 
+def _bound(nbytes, flops):
+    """(ms, what bounds it): the larger of the bytes over the HBM rate and
+    the f32 operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def bound(pos, shared, rows, feat, ps, n_pages):
     """Least time for the work these inputs need: each input byte read
     once (only the K/V pages up to pos), each output byte written once,
@@ -131,12 +153,28 @@ def bound(pos, shared, rows, feat, ps, n_pages):
         kv_rows = sum((n + ps - 1) // ps * ps for n in live)
     table = (n_pages if shared else rows * n_pages) * 4
     nbytes = 2 * kv_rows * feat * 4 + 2 * rows * feat * 4 + table + rows * 4
-    flops = sum(4 * n * feat for n in live)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return _bound(nbytes, sum(4 * n * feat for n in live))
 
 
 GATE_CYCLES = 400_000_000  # a sleep kernel of ~0.2 s at the H100's clocks
+
+
+def profiled_device_ms(torch, fn, n):
+    """Mean device ms per call over n calls: the summed time of the kernels
+    and copies torch.profiler records. For a function of thousands of
+    launches, which cannot be queued behind a gate (the launch queue fills
+    and the host waits on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return sum(e.device_time_total for e in dev) / 1e3 / n
 
 
 def time_ms(torch, fn, n, flush, gated):
@@ -211,6 +249,221 @@ def check_kernels(torch, pf, device):
                 name, tuple(q.shape), tuple(bt.shape), err, ATOL, ms, call_ms, plain_ms,
                 bound_ms, bound_by))
     return results
+
+
+def _entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms):
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def _close(torch, name, got, want, atol, rtol):
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        raise AssertionError("%s: kernel vs plain max abs err %g (atol %g rtol %g)"
+                             % (name, err, atol, rtol))
+    return err
+
+
+def _within_bf16_ulp(torch, name, got, want):
+    want = want.float()
+    ulp = torch.pow(2.0, torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    err = (got.float() - want).abs()
+    if bool((err > ulp).any()):
+        raise AssertionError("%s: %d values more than one bf16 ulp from the plain version"
+                             % (name, int((err > ulp).sum())))
+    return float(err.max())
+
+
+def check_gemm(torch, ge, device, flush):
+    """The two FFN GEMMs of Transformer base (m = 16 x 256 tokens). The
+    kernels-line entry is the second (act none), for which torch.addmm
+    computes the same function."""
+    rng = np.random.RandomState(SEED + 11)
+    out = {}
+    for case, (m, k, n, act) in (("ffn1", (4096, 512, 2048, "relu")),
+                                 ("ffn2", (4096, 2048, 512, None))):
+        x = torch.from_numpy(rng.randn(m, k).astype("float32")).to(device)
+        w = torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype("float32")).to(device)
+        b = torch.from_numpy(rng.randn(n).astype("float32")).to(device)
+        z, y = ge.gemm_bias_act(x, w, b, act)
+        zp, yp = ge.gemm_bias_act_plain(x, w, b, act)
+        torch.cuda.synchronize()
+        err = _close(torch, "gemm_epilogue " + case, z, zp, GEMM_TOL, GEMM_TOL)
+        if act:
+            err = max(err, _close(torch, "gemm_epilogue " + case, y, yp, GEMM_TOL, GEMM_TOL))
+        ms = time_ms(torch, lambda: ge.gemm_bias_act(x, w, b, act), 20, flush, gated=True)
+        plain_ms = time_ms(torch, lambda: ge.gemm_bias_act_plain(x, w, b, act), 10, flush,
+                           gated=True)
+        lib_ms = None
+        if act is None:
+            lib_ms = time_ms(torch, lambda: torch.addmm(b, x, w), 20, flush, gated=True)
+        bound_ms, bound_by = _bound((m * k + k * n + n + (2 if act else 1) * m * n) * 4,
+                                    2 * m * n * k)
+        log("kernel gemm_epilogue %s: x %s @ w %s act %s max_abs_err %.3g (atol=rtol=%g) "
+            "kernel %.4f ms (device); plain %.4f ms; torch.addmm %s; bound %.4f ms (%s)" % (
+                case, (m, k), (k, n), act, err, GEMM_TOL, ms, plain_ms,
+                "%.4f ms" % lib_ms if lib_ms is not None else "n/a (act)",
+                bound_ms, bound_by))
+        out[case] = _entry("gemm_epilogue", "paddle_tpu_torch/ops/csrc/gemm_epilogue.cu",
+                           "paddle_tpu/ops/pallas_kernels.py:1121", err, ms, plain_ms,
+                           bound_ms, bound_by, lib_ms)
+    return out["ffn2"]
+
+
+def check_layer_norm(torch, ln, device, flush):
+    """layer_norm at (4096, 512): forward with the residual (the main
+    path's form and the kernels-line entry) and without (a side reading
+    against torch.native_layer_norm, which computes that form), then the
+    backward against native_layer_norm_backward."""
+    rng = np.random.RandomState(SEED + 12)
+    rows, cols, eps = 4096, 512, 1e-5
+
+    def t(a):
+        return torch.from_numpy(a.astype("float32")).to(device)
+
+    x, r, dy = t(rng.randn(rows, cols) * 2 + 0.5), t(rng.randn(rows, cols)), t(rng.randn(rows, cols))
+    scale, bias = t(rng.rand(cols) + 0.5), t(rng.randn(cols))
+    entries = {}
+    for form, res in (("residual", r), ("plain", None)):
+        got = ln.fused_layer_norm(x, res, scale, bias, eps)
+        want = ln.fused_layer_norm_plain(x, res, scale, bias, eps)
+        torch.cuda.synchronize()
+        if res is not None and not torch.equal(got[0], want[0]):
+            raise AssertionError("layer_norm: the residual sum differs from x + r")
+        err = max(_close(torch, "layer_norm " + form, g, w_, LN_TOL, LN_TOL)
+                  for g, w_ in zip(got[1:], want[1:]))
+        ms = time_ms(torch, lambda: ln.fused_layer_norm(x, res, scale, bias, eps), 50, flush,
+                     gated=True)
+        plain_ms = time_ms(torch, lambda: ln.fused_layer_norm_plain(x, res, scale, bias, eps),
+                           20, flush, gated=True)
+        lib_ms = None
+        if res is None:
+            lib_ms = time_ms(torch, lambda: torch.native_layer_norm(x, [cols], scale, bias, eps),
+                             50, flush, gated=True)
+        n_in = 2 if res is not None else 1
+        n_out = 2 if res is not None else 1
+        bound_ms, bound_by = _bound(((n_in + n_out) * rows * cols + 2 * cols + 2 * rows) * 4,
+                                    8 * rows * cols)
+        log("kernel layer_norm (%s): (%d, %d) max_abs_err %.3g (atol=rtol=%g) kernel %.4f ms "
+            "(device); plain %.4f ms; torch.native_layer_norm %s; bound %.4f ms (%s)" % (
+                form, rows, cols, err, LN_TOL, ms, plain_ms,
+                "%.4f ms" % lib_ms if lib_ms is not None
+                else "none (no single call returns both s and y)",
+                bound_ms, bound_by))
+        entries[form] = _entry("layer_norm", "paddle_tpu_torch/ops/csrc/layer_norm.cu",
+                               "paddle_tpu/ops/pallas_kernels.py:1802", err, ms, plain_ms,
+                               bound_ms, bound_by, lib_ms)
+    _, _, mean, var = ln.fused_layer_norm_plain(x, None, scale, bias, eps)
+    got = ln.fused_layer_norm_grad(x, scale, mean, var, dy, eps)
+    want = ln.fused_layer_norm_grad_plain(x, scale, mean, var, dy, eps)
+    torch.cuda.synchronize()
+    err = _close(torch, "layer_norm_grad dx", got[0], want[0], LN_TOL, LN_TOL)
+    for name, g, w_ in (("dscale", got[1], want[1]), ("dbias", got[2], want[2])):
+        err = max(err, _close(torch, "layer_norm_grad " + name, g, w_, LN_SUM_ATOL, LN_SUM_RTOL))
+    again = ln.fused_layer_norm_grad(x, scale, mean, var, dy, eps)
+    if not (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
+        raise AssertionError("layer_norm_grad: dscale / dbias differ from run to run")
+    rstd = torch.rsqrt(var + eps)[:, None]
+    mask = [True, True, True]
+    ms = time_ms(torch, lambda: ln.fused_layer_norm_grad(x, scale, mean, var, dy, eps), 50,
+                 flush, gated=True)
+    plain_ms = time_ms(torch, lambda: ln.fused_layer_norm_grad_plain(x, scale, mean, var, dy, eps),
+                       20, flush, gated=True)
+    lib_ms = time_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [cols], mean[:, None], rstd, scale, bias, mask), 50, flush, gated=True)
+    bound_ms, bound_by = _bound((3 * rows * cols + 3 * cols + 2 * rows) * 4, 12 * rows * cols)
+    log("kernel layer_norm_grad: (%d, %d) max_abs_err %.3g (dx atol=rtol=%g; dscale/dbias "
+        "rtol %g atol %g; the sums repeat bit for bit) kernel %.4f ms (device); plain %.4f ms; "
+        "native_layer_norm_backward %.4f ms; bound %.4f ms (%s)" % (
+            rows, cols, err, LN_TOL, LN_SUM_RTOL, LN_SUM_ATOL, ms, plain_ms, lib_ms,
+            bound_ms, bound_by))
+    entries["grad"] = _entry("layer_norm_grad", "paddle_tpu_torch/ops/csrc/layer_norm.cu",
+                             "paddle_tpu/ops/pallas_kernels.py:1899", err, ms, plain_ms,
+                             bound_ms, bound_by, lib_ms)
+    return entries["residual"], entries["grad"]
+
+
+def _adam_set(torch, device, shapes, moment_dtype, seed):
+    rng = np.random.RandomState(seed)
+    mdt = torch.bfloat16 if moment_dtype == "bfloat16" else torch.float32
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(a.astype("float32")).to(device=device, dtype=dt)
+
+    params = [t(rng.randn(*s) * 0.05) for s in shapes]
+    grads = [t(rng.randn(*s) * 1e-3) for s in shapes]
+    m1s = [t(rng.randn(*s) * 1e-4, mdt) for s in shapes]
+    m2s = [t(np.abs(rng.randn(*s)) * 1e-7, mdt) for s in shapes]
+    lr_t = torch.from_numpy((1e-3 * (1 + rng.rand(len(shapes)))).astype("float32")).to(device)
+    return params, grads, m1s, m2s, lr_t
+
+
+def _adam_check(torch, ma, name, device, shapes, moment_dtype, seed):
+    kern = _adam_set(torch, device, shapes, moment_dtype, seed)
+    plain = _adam_set(torch, device, shapes, moment_dtype, seed)
+    ma.multi_tensor_adam(*kern, 0.9, 0.999, 1e-8)
+    ma.multi_tensor_adam_plain(*plain, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    err = 0.0
+    for slot in (0, 2, 3):
+        for got, want in zip(kern[slot], plain[slot]):
+            if got.dtype == torch.bfloat16:
+                err = max(err, _within_bf16_ulp(torch, name, got, want))
+                continue
+            # the same f32 expressions, rounded the same way: bit for bit
+            err = max(err, float((got - want).abs().max()) if got.numel() else 0.0)
+            if not torch.equal(got, want):
+                raise AssertionError("%s: f32 output differs from the plain version, max abs "
+                                     "err %g" % (name, err))
+    return err, kern
+
+
+def check_adam(torch, ma, device, flush, shapes):
+    """Adam over the model's parameter shapes, f32 and bf16 moments, and a
+    ragged-tail set; the f32 set is the kernels-line entry, against
+    torch._fused_adam_ over the same list."""
+    ragged = [(7, 13), (4097,), (1,), (3 * 4096 + 5,), (33, 4095)]
+    err_r, _ = _adam_check(torch, ma, "multi_adam ragged", device, ragged, "float32", SEED + 13)
+    err_b, bset = _adam_check(torch, ma, "multi_adam bf16", device, shapes, "bfloat16", SEED + 14)
+    bf16_ms = time_ms(torch, lambda: ma.multi_tensor_adam(*bset, 0.9, 0.999, 1e-8), 10, flush,
+                      gated=True)
+    del bset
+    err, kset = _adam_check(torch, ma, "multi_adam", device, shapes, "float32", SEED + 15)
+    ms = time_ms(torch, lambda: ma.multi_tensor_adam(*kset, 0.9, 0.999, 1e-8), 10, flush,
+                 gated=True)
+    # the plain version is ~2700 launches a call: summed device time instead
+    plain_ms = profiled_device_ms(
+        torch, lambda: ma.multi_tensor_adam_plain(*kset, 0.9, 0.999, 1e-8), 2)
+    p, g, m1, m2, _ = kset
+    steps = [torch.ones((), device=device) for _ in p]
+    lib_ms = time_ms(torch, lambda: torch._fused_adam_(
+        p, g, m1, m2, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0,
+        eps=1e-8, amsgrad=False, maximize=False), 10, flush, gated=True)
+    elems = sum(int(np.prod(s)) for s in shapes)
+    bound_ms, bound_by = _bound(elems * 28 + len(shapes) * 4, 12 * elems)
+    log("kernel multi_adam: %d tensors, %d elements, f32 moments and the ragged set equal "
+        "to the plain version bit for bit; bf16 moments max err %.3g (one bf16 ulp) %.4f ms; "
+        "kernel %.4f ms (device); plain %.4f ms (profiler, device); torch._fused_adam_ "
+        "%.4f ms; bound %.4f ms (%s)"
+        % (len(shapes), elems, err_b, bf16_ms, ms, plain_ms, lib_ms, bound_ms, bound_by))
+    return _entry("multi_adam", "paddle_tpu_torch/ops/csrc/multi_adam.cu",
+                  "paddle_tpu/ops/pallas_kernels.py:1993", max(err, err_r), ms, plain_ms,
+                  bound_ms, bound_by, lib_ms)
+
+
+def check_training_kernels(torch, device, shapes):
+    from paddle_tpu_torch.ops import gemm_epilogue as ge
+    from paddle_tpu_torch.ops import layer_norm as ln
+    from paddle_tpu_torch.ops import multi_adam as ma
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    out = {"gemm_epilogue": check_gemm(torch, ge, device, flush)}
+    out["layer_norm"], out["layer_norm_grad"] = check_layer_norm(torch, ln, device, flush)
+    out["multi_adam"] = check_adam(torch, ma, device, flush, shapes)
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -314,6 +567,101 @@ def paged_vs_dense(engine):
         "(atol=rtol=%g)" % (len(rows), T, err, LOGIT_ATOL))
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_check):
+    """Steps of the training program from a fresh scope seeded with SEED
+    under `pipeline`; returns (losses, walls, scope, exe, step)."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
+
+    flags.set_flags({"pass_pipeline": pipeline})
+    place = CUDAPlace(0)
+    scope, exe = Scope(seed=SEED, place=place), Executor(place)
+
+    def step(batch):
+        with scope_guard(scope):
+            (lv,) = exe.run(main_prog, feed=batch, fetch_list=[loss.name])
+        return float(lv.reshape(-1)[0])
+
+    with scope_guard(scope):
+        exe.run(startup)
+    torch.cuda.synchronize()
+    losses, walls = [], []
+    for i, b in enumerate(batches):
+        before = fused.stats()
+        t0 = time.perf_counter()
+        losses.append(step(b))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        step_check(i, before, fused.stats())
+        if not np.isfinite(losses[-1]):
+            raise AssertionError("%s step %d: loss %r" % (pipeline or "unfused", i, losses[-1]))
+    return losses, walls, scope, step
+
+
+def train(torch, card):
+    """Transformer base under training_fused for TRAIN_STEPS steps, then an
+    unfused run from the same seed; returns the training kernels' launches
+    over the fused steps."""
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    cfg = prof.BASE
+    t0 = time.perf_counter()
+    main_prog, startup, loss = prof.build(cfg)
+    n_adam = sum(op.type == "adam" for op in main_prog.global_block().ops)
+    batches = [prof.make_batch(cfg, SEED + i) for i in range(TRAIN_STEPS)]
+    # per step: two GEMMs in each FFN, a residual layer_norm after each
+    # sublayer (2 in an encoder layer, 3 in a decoder layer) and its grad,
+    # one Adam launch for the whole (f32) parameter set
+    want = {"gemm_epilogue": 4 * cfg["n_layer"], "layer_norm": 5 * cfg["n_layer"],
+            "layer_norm_grad": 5 * cfg["n_layer"], "multi_adam": 1}
+
+    def fused_check(i, before, after):
+        for k, n in want.items():
+            got = after["launches"][k] - before["launches"][k]
+            disp = after["dispatches"].get(k, 0) - before["dispatches"].get(k, 0)
+            if got != n or disp != n:
+                raise AssertionError("step %d: %s launched %d times, dispatched %d, want %d"
+                                     % (i, k, got, disp, n))
+
+    def unfused_check(i, before, after):
+        if after != before:
+            raise AssertionError("step %d of the unfused run moved the counters: %s -> %s"
+                                 % (i, before, after))
+
+    fused.reset_stats()  # the main path's counting window opens here
+    losses, walls, scope, step = _train_run(torch, main_prog, startup, loss, batches,
+                                            "training_fused", fused, fused_check)
+    launches = fused.stats()["launches"]  # and closes here
+    log("train: Transformer base %s, %d Adam ops, built and initialised in %.1f s" % (
+        json.dumps(cfg), n_adam, time.perf_counter() - t0))
+    # steps 2-6: the first applies the pass pipeline and prepares the block
+    wall_p50 = float(np.median(walls[1:]))
+    tokens_per_s = sum(prof.target_tokens(b) for b in batches[1:]) / (sum(walls[1:]) / 1e3)
+    breakdown = prof.profile_steps(step, batches[:2], registry)
+    del scope, step
+    torch.cuda.empty_cache()
+    ref, _, uscope, ustep = _train_run(torch, main_prog, startup, loss,
+                                       batches[:COMPARE_STEPS], "", fused, unfused_check)
+    del uscope, ustep
+    torch.cuda.empty_cache()
+    a, b = np.asarray(losses[:COMPARE_STEPS]), np.asarray(ref)
+    if not np.allclose(a, b, rtol=FUSED_RTOL, atol=FUSED_ATOL):
+        raise AssertionError("fused vs unfused losses differ: %s vs %s" % (a.tolist(), b.tolist()))
+    log("train: %d fused steps, losses %s; unfused %s (max abs diff %.3g, rtol %g atol %g); "
+        "step wall p50 %.3f ms over steps 2-%d (step 1 %.1f ms, with the pass pipeline); "
+        "%.1f target tokens/s (their target tokens over their summed wall); device busy %s ms "
+        "a step = %s of the wall p50 of the profiled window (%.3f ms), %s device launches a "
+        "step; kernel launches %s (per step %s); card %s" % (
+            TRAIN_STEPS, ["%.6f" % v for v in losses], ["%.6f" % v for v in ref],
+            float(np.abs(a - b).max()), FUSED_RTOL, FUSED_ATOL, wall_p50, TRAIN_STEPS,
+            walls[0], tokens_per_s, breakdown["device_busy_ms_per_step"],
+            breakdown["device_busy_share"], breakdown["wall_ms_p50"],
+            breakdown["device_launches_per_step"], json.dumps(launches), json.dumps(want), card))
+    return launches
+
+
 def main():
     import torch
 
@@ -324,8 +672,10 @@ def main():
     try:
         from paddle_tpu_torch import CUDAPlace
         from paddle_tpu_torch.models import GPTDecoder
+        from paddle_tpu_torch.ops import _build
         from paddle_tpu_torch.ops import paged_flash as pf
         from paddle_tpu_torch.serving import GenerationEngine
+        from paddle_tpu_torch.tools import profile_training as prof
     except ImportError as e:
         print("chip_smoke: the paddle_tpu_torch package is missing: %s" % e, file=sys.stderr)
         return 2
@@ -335,15 +685,22 @@ def main():
     device = torch.device("cuda", 0)
 
     with Phase("build"):
-        card = card_line()
+        card = prof.card_line()
         log(card)
         t0 = time.perf_counter()
-        pf.build()
-        ptxas = [ln.strip() for ln in pf.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log("nvcc sm_90a build %.1f s; %s" % (time.perf_counter() - t0, " | ".join(ptxas)))
+        _build.build_all()  # one nvcc per source, all at once
+        log("nvcc sm_90a build of %s in %.1f s" % (sorted(_build.build_logs), time.perf_counter() - t0))
+        for stem, text in sorted(_build.build_logs.items()):
+            ptxas = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            log("ptxas %s: %s" % (stem, " | ".join(ptxas)))
     with Phase("kernels vs plain"):
         kernels = check_kernels(torch, pf, device)
+        main_prog = prof.build(prof.BASE)[0]
+        shapes = [tuple(p.shape) for p in main_prog.global_block().all_parameters()
+                  if p.trainable]
+        del main_prog
+        kernels.update(check_training_kernels(torch, device, shapes))
     with Phase("serve"):
         t0 = time.perf_counter()
         engine = GenerationEngine(GPTDecoder(**GPT2_SMALL), name="gpt2_small",
@@ -355,8 +712,15 @@ def main():
         launches = serve(torch, pf, engine, card)
     with Phase("paged vs dense"):
         paged_vs_dense(engine)
+    del engine
+    torch.cuda.empty_cache()
+    with Phase("train"):
+        launches.update(train(torch, card))
     for name, n in launches.items():
         kernels[name]["launches"] = n
+    if not all(k["launches"] for k in kernels.values()):
+        raise AssertionError("a kernel never launched on its main path: %s"
+                             % {k: v["launches"] for k, v in kernels.items()})
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)
     log(json.dumps({"ok": True, "device": {

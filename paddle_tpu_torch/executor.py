@@ -39,7 +39,7 @@ __all__ = [
 
 class Scope:
     """name -> device tensor store (reference scope.h:134, flat) on one
-    device, plus the torch.Generator that stochastic ops draw from."""
+    device, plus the torch.Generators that random ops draw from."""
 
     _uid_counter = itertools.count()
 
@@ -48,6 +48,7 @@ class Scope:
         self.vars = {}
         self._seed = seed
         self._generator = None  # lazy, like the JAX package's rng key
+        self._device_generator = None
         self._uid = next(Scope._uid_counter)
 
     @property
@@ -61,6 +62,23 @@ class Scope:
     @generator.setter
     def generator(self, value):
         self._generator = value
+
+    @property
+    def device_generator(self):
+        """torch.Generator on the scope's device, seeded from the scope
+        seed: stochastic ops of a training step (dropout) draw their masks
+        on the device, with no host round trip."""
+        if self._device_generator is None:
+            self._device_generator = torch.Generator(device=self.device).manual_seed(
+                int(self._seed)
+            )
+        return self._device_generator
+
+    def reseed(self, seed):
+        """Restart both generators from `seed` (an explicit
+        program.random_seed, as the JAX package rekeys its rng)."""
+        self._seed = int(seed)
+        self._generator = self._device_generator = None
 
     def find_var(self, name):
         return self.vars.get(name)
@@ -128,6 +146,27 @@ def to_tensor(value, device, dtype=None):
     return value.to(device=device, dtype=dtype)
 
 
+def _apply_pass_pipeline(program, scope, feed_names, fetch_names, pipeline=None):
+    """The single choke point where graph passes rewrite a program before it
+    runs (paddle_tpu_torch/passes). `pipeline` None defers to
+    FLAGS_pass_pipeline; ""/"off"/() returns the program untouched. The
+    rewritten program is memoized per (program version, pipeline, scope,
+    feed/fetch), so repeated runs hand the executor the SAME object and its
+    block cache stays hot."""
+    if pipeline is None:
+        from . import flags as _flags
+
+        pipeline = _flags.get_flags("pass_pipeline")["pass_pipeline"]
+    from .passes import manager as _pm
+
+    if not _pm.resolve_pipeline(pipeline):
+        return program
+    return _pm.apply_cached(
+        program, pipeline, scope=scope,
+        feed_names=feed_names, fetch_names=fetch_names,
+    )
+
+
 class _CompiledBlock:
     """A block prepared for straight-line execution: the op list, the state
     split (read-only vs written persistables), the persistables the block
@@ -179,6 +218,26 @@ class _CompiledBlock:
         self.created_persistables = sorted((persistable & produced) - set(state_names) - fed)
         self.feed_dtypes = {n: _var_dtype(block, n) for n in self.feed_names}
 
+        # cross-check against the inplace_donation_plan pass when one rode in
+        # on this program AND it analyzed this exact run (same scope, feed,
+        # fetch, nothing unanalyzable): divergence means a pass corrupted
+        # def-use, so fail loudly
+        plan = getattr(block.program, "_donation_plan", None)
+        if (
+            plan
+            and not plan.get("unknown")
+            and plan.get("scope_uid") == scope._uid
+            and plan.get("feed") == sorted(self.feed_names)
+            and list(plan.get("fetch", ())) == list(self.fetch_names)
+            and (plan["mut"] != self.mut_names or plan["ro"] != self.ro_names)
+        ):
+            raise RuntimeError(
+                "inplace_donation_plan disagrees with the block's state "
+                "classification: plan mut=%s ro=%s vs mut=%s ro=%s — a pass "
+                "likely corrupted def-use edges"
+                % (plan["mut"], plan["ro"], self.mut_names, self.ro_names)
+            )
+
     def fn(self, feeds, ro_state, mut_state, ctx):
         """Run the block: (fetches, new_mut, created). `feeds` are tensors on
         ctx.device in their declared dtypes."""
@@ -202,7 +261,10 @@ class _CompiledBlock:
     def __call__(self, scope, feeds):
         ro = {n: scope.vars[n] for n in self.ro_names}
         mut = {n: scope.vars[n] for n in self.mut_names}
-        ctx = registry.LowerCtx(scope.device, generator=scope.generator)
+        ctx = registry.LowerCtx(
+            scope.device, generator=scope.generator,
+            device_generator=scope.device_generator,
+        )
         fetches, new_mut, created = self.fn(
             self.cast_feeds(feeds, scope.device), ro, mut, ctx
         )
@@ -224,9 +286,9 @@ def aot_serve_lowering(program, feed_names, fetch_names, scope,
     ([fetches], new_mut)`. kv_cache_write updates the pools in place, so
     new_mut holds the same tensors the caller passed in.
 
-    The JAX package runs its "inference" pass preset here; the port has no
-    pass framework yet and lowers the Program verbatim (the preset's
-    fold/DCE/fusion tagging do not change the math). Any pipeline other than
+    The JAX package runs its "inference" pass preset here; the port's
+    serving path lowers the Program verbatim (the preset's fold/DCE/fusion
+    tagging do not change the math). Any pipeline other than
     None/""/"off"/"inference" raises."""
     if pass_pipeline not in (None, "", "off", "inference"):
         raise NotImplementedError(
@@ -290,14 +352,18 @@ class Executor:
                 "scope lives on %s but the executor runs on %s"
                 % (scope.device, self.device)
             )
-        # an explicit program.random_seed reseeds the scope's generator once,
-        # like the JAX package's rng key
+        # an explicit program.random_seed reseeds the scope's generators
+        # once, like the JAX package's rng key
         if program.random_seed and not getattr(scope, "_seeded", False):
-            scope.generator = torch.Generator().manual_seed(int(program.random_seed))
+            scope.reseed(program.random_seed)
             scope._seeded = True
         fetch_names = [
             f.name if isinstance(f, Variable) else str(f) for f in fetch_list
         ]
+        # graph-pass choke point: FLAGS_pass_pipeline rewrites the program
+        # here, before the block below is prepared; the cache keys on the
+        # (memoized) rewritten program
+        program = _apply_pass_pipeline(program, scope, list(feed), fetch_names)
         block = program.global_block()
         key = (
             program._uid,
@@ -313,5 +379,18 @@ class Executor:
                 self._cache[key] = compiled
         fetches = compiled(scope, feed)
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            # copies: a fetched CPU tensor may be state that a later step
+            # updates in place (the fused Adam does)
+            return [f.detach().to("cpu", copy=True).numpy() for f in fetches]
         return fetches
+
+    @staticmethod
+    def stats():
+        """Kernel counters of the training path: `dispatches`, the runs each
+        fused family took (ops/fused.py, the JAX package's
+        KERNEL_DISPATCHES), and `launches`, the hand-written kernels each
+        wrapper launched on the card (a CPU run takes the plain versions
+        and launches none)."""
+        from .ops import fused
+
+        return fused.stats()

@@ -1,5 +1,5 @@
 """Runtime flags (reference gflags tier: FLAGS_* environment variables plus
-set_flags), the subset the serving slice reads.
+set_flags), the subset the serving and training slices read.
 
 - paged_flash: dispatch tier of the paged_attention op. "auto" (default)
   launches the hand-written CUDA kernel (ops/paged_flash.py) for tensors on
@@ -7,6 +7,9 @@ set_flags), the subset the serving slice reads.
   "off" runs the plain torch version everywhere (the parity tests' switch).
   There is no silent decline: on CUDA a kernel build or launch failure
   raises.
+- pass_pipeline: the graph-pass pipeline Executor.run applies before a
+  program runs (passes/manager.py PRESETS, e.g. "training_fused", or a
+  comma-separated pass list); "" (default) runs the program as built.
 - serving_cache_dir: the JAX package's persistent compile-cache directory.
   The port has no compile cache; a GenerationEngine raises when one is set.
 - trace_dir / trace_sample / trace_slow_ms / trace_ring / flightrec_dir: the
@@ -19,6 +22,7 @@ __all__ = ["get_flags", "set_flags"]
 
 _DEFAULTS = {
     "paged_flash": "auto",
+    "pass_pipeline": "",
     "serving_cache_dir": "",
     "trace_dir": "",
     "trace_sample": 1.0,

@@ -1,5 +1,6 @@
 """Neural-network layers: the subset of paddle_tpu/layers/nn.py that the
-GPTDecoder programs use (reference python/paddle/fluid/layers/nn.py). Each
+GPTDecoder programs and the Transformer training program use (reference
+python/paddle/fluid/layers/nn.py). Each
 layer appends the same ops with the same attrs as the JAX package's, so a
 model builder yields the same Program in both packages."""
 
@@ -18,7 +19,14 @@ __all__ = [
     "reshape",
     "transpose",
     "elementwise_add",
+    "elementwise_sub",
+    "elementwise_mul",
+    "elementwise_div",
     "elementwise_min",
+    "dropout",
+    "softmax_with_cross_entropy",
+    "reduce_sum",
+    "mean",
     "gather",
     "relu",
     "kv_cache_write",
@@ -226,8 +234,103 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
 def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def dropout(
+    x,
+    dropout_prob,
+    is_test=False,
+    seed=None,
+    name=None,
+    dropout_implementation="downgrade_in_infer",
+):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(dtype=x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name], "Mask": [mask.name]},
+        attrs={
+            "dropout_prob": dropout_prob,
+            "is_test": is_test,
+            "seed": seed if seed is not None else 0,
+            "dropout_implementation": dropout_implementation,
+        },
+    )
+    return out
+
+
+def softmax_with_cross_entropy(
+    logits,
+    label,
+    soft_label=False,
+    ignore_index=-100,
+    numeric_stable_mode=True,
+    return_softmax=False,
+    smooth_eps=0.0,
+):
+    """smooth_eps (hard labels only): uniform label smoothing fused into the
+    CE — identical to label_smooth(one_hot(label, V), eps) + soft_label CE,
+    without materializing the [N, V] one-hot."""
+    if smooth_eps and soft_label:
+        raise ValueError("smooth_eps applies to hard labels only")
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits.name], "Label": [label.name]},
+        outputs={"Softmax": [softmax_out.name], "Loss": [loss.name]},
+        attrs={
+            "soft_label": soft_label,
+            "ignore_index": ignore_index,
+            "numeric_stable_mode": numeric_stable_mode,
+            "smooth_eps": float(smooth_eps),
+        },
+    )
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    helper.append_op(
+        type="reduce_sum",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={
+            "dim": dim if dim is not None else [0],
+            "keep_dim": keep_dim,
+            "reduce_all": dim is None,
+        },
+    )
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x.name]}, outputs={"Out": [out.name]})
+    return out
 
 
 def gather(input, index):

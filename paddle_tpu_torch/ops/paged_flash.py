@@ -1,5 +1,5 @@
 """Paged flash attention: the hand-written CUDA kernel (csrc/paged_flash.cu),
-its loader, its launch counter and its plain torch version.
+its launch counter and its plain torch version.
 
 Replaces paddle_tpu/ops/pallas_kernels.py paged_flash_attention (the
 _paged_flash_decode_kernel and _paged_flash_shared_kernel Pallas bodies).
@@ -14,35 +14,21 @@ version only for tensors on the CPU (or on the meta device, during shape
 inference). Nothing falls back silently.
 
 Build: `nvcc` for sm_90a at first use, from the source in this checkout,
-into paddle_tpu_torch/_build/ as a shared library with a plain C interface,
-loaded with ctypes. The library name carries a hash of the source, so an
-edited kernel never loads a stale build.
+into a shared library with a plain C interface loaded with ctypes
+(ops/_build.py).
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
+from . import _build
+
 __all__ = [
-    "build",
     "kernel_launches",
     "paged_attention_plain",
     "paged_flash_attention",
     "reset_kernel_launches",
-]
-
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "paged_flash.cu")
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
-)
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # table entries one CTA walks: a decode row's 64-entry table at page_size 16
@@ -53,10 +39,6 @@ PAGES_PER_SPLIT = 4
 # kernel launches by form, counted where the wrapper launches its kernel and
 # nowhere else (the plain version does not count)
 _LAUNCHES = {"paged_flash": 0, "paged_flash_shared": 0}
-
-_lib = None
-_lib_lock = threading.Lock()
-build_log = ""  # nvcc's output of the build this process loaded (ptxas -v)
 
 
 def kernel_launches():
@@ -70,50 +52,18 @@ def reset_kernel_launches():
         _LAUNCHES[k] = 0
 
 
-def _nvcc():
-    from torch.utils.cpp_extension import CUDA_HOME
+def _bind(lib):
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn in (lib.paged_flash_decode, lib.paged_flash_shared):
+        fn.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
+        fn.restype = i32
+    lib.paged_flash_n_splits.argtypes = [i32, i32]
+    lib.paged_flash_n_splits.restype = i32
+    lib.paged_flash_error_string.argtypes = [i32]
+    lib.paged_flash_error_string.restype = ctypes.c_char_p
 
-    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    cands.append(shutil.which("nvcc"))
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("paged_flash: nvcc not found (CUDA_HOME=%r)" % CUDA_HOME)
 
-
-def build():
-    """Compile (if needed) and load the kernel library; returns the ctypes
-    handle. Raises with nvcc's output when the build fails."""
-    global _lib, build_log
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(_BUILD_DIR, "libpaged_flash-%s.so" % tag)
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = "%s.%d.tmp" % (so, os.getpid())
-            proc = subprocess.run(
-                [_nvcc()] + NVCC_FLAGS + ["-o", tmp, _SRC],
-                capture_output=True, text=True,
-            )
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError("paged_flash: nvcc failed:\n" + build_log)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for fn in (lib.paged_flash_decode, lib.paged_flash_shared):
-            fn.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
-            fn.restype = i32
-        lib.paged_flash_n_splits.argtypes = [i32, i32]
-        lib.paged_flash_n_splits.restype = i32
-        lib.paged_flash_error_string.argtypes = [i32]
-        lib.paged_flash_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+_build.register("paged_flash", _bind)
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, pos, *, n_head,
@@ -207,7 +157,7 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
     if pv.shape[0] != rows:
         raise ValueError("paged_flash: %d positions for %d rows" % (pv.shape[0], rows))
     out = torch.empty_like(qc)
-    lib = build()
+    lib = _build.load("paged_flash")
     # per-split (acc, m, l) scratch that the merge kernel reads back
     splits = lib.paged_flash_n_splits(n_pages, PAGES_PER_SPLIT)
     part_acc = torch.empty((splits, rows, n_head, d), dtype=torch.float32, device=q.device)

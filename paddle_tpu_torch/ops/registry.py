@@ -1,5 +1,5 @@
-"""Operator registry: lowering and shape inference (the torch counterpart of
-paddle_tpu/ops/registry.py).
+"""Operator registry: lowering, shape inference and gradients (the torch
+counterpart of paddle_tpu/ops/registry.py).
 
 - **lowering**: `lower(ctx, ins, attrs) -> outs` maps slot-name -> [torch
   tensors] to slot-name -> [torch tensors]. The executor (executor.py)
@@ -8,10 +8,14 @@ paddle_tpu/ops/registry.py).
 - **shape inference**: the lowering itself, run on ``device="meta"`` tensors
   (shapes and dtypes, no data), where the JAX package uses jax.eval_shape. A
   dynamic (-1) dim is substituted with a sentinel extent and mapped back.
-
-The generic vjp-derived `{type}_grad` ops, the fused-kernel run dispatch and
-the fusion-group scopes of the JAX registry belong to the training slice and
-are not here yet.
+- **gradients**: unless an op registers a custom grad maker or an explicit
+  `{type}_grad` lowering, `{type}_grad` is derived with `torch.func.vjp`
+  over the forward lowering, where the JAX package uses jax.vjp.
+  append_backward (backward.py) emits the grad ops into the program.
+- **fused runs**: the kernel-substitution passes (passes/builtin.py) tag
+  contiguous op runs with a group id and a kernel family; lower_ops hands a
+  tagged run to the family's fused lowering (ops/fused.py), which launches a
+  hand-written kernel or declines, and a declined run lowers op by op.
 """
 
 import numpy as np
@@ -23,7 +27,42 @@ from .. import framework
 # inference; any output dim equal to it is mapped back to -1.
 _DYN_SENTINEL = 8191
 
+_GRAD_SUFFIX = "@GRAD"
+
+# meta attrs attached by backward.py to generic grad ops
+FWD_IN_SLOTS_ATTR = "__fwd_in_slots__"
+FWD_OUT_SLOTS_ATTR = "__fwd_out_slots__"
+
+_META_ATTRS = (
+    FWD_IN_SLOTS_ATTR,
+    FWD_OUT_SLOTS_ATTR,
+    framework.OpRole.OP_ROLE_KEY,
+    framework.OpRole.OP_ROLE_VAR_KEY,
+)
+
 EMPTY_VAR_NAME = "@EMPTY@"  # reference core.kEmptyVarName
+
+# passes.builtin.FuseElemwiseActPass tags matmul/conv+add[+act] chains with
+# this attr. The JAX package lowers such a run inside one named scope as an
+# XLA fusion hint; an eager interpreter has nothing to fuse, so here the run
+# lowers op by op. The attr string is program data shared with the JAX
+# package.
+FUSION_GROUP_ATTR = "__fusion_group__"
+
+# Kernel-substitution tier: the fuse_gemm_epilogue / fuse_layer_norm /
+# fuse_optimizer passes tag op runs with a group id and a kernel family name;
+# lower_ops hands a contiguous same-group run to the family's registered
+# FUSED lowering instead of lowering op by op. A fused lowering may DECLINE
+# (shapes its kernel does not cover, unsupported attrs) by returning False —
+# the run then lowers per op with identical semantics. The tags are attrs
+# only: def-use, op order and count are untouched. Same strings as the JAX
+# package (program data).
+PALLAS_GROUP_ATTR = "__pallas_group__"
+PALLAS_KERNEL_ATTR = "__pallas_kernel__"
+
+# kernel family name -> fused lowering fn(ctx, ops, env) -> bool (True when
+# the run was handled and its outputs written into env)
+FUSED_LOWERINGS = {}
 
 _TORCH_DTYPES = {
     "float32": torch.float32,
@@ -47,13 +86,22 @@ def torch_dtype(dtype):
 
 
 class OpDef:
-    def __init__(self, type, lower=None, no_grad=False, stochastic=False,
-                 skip_exec=False):
+    def __init__(self, type, lower=None, grad=None, no_grad=False,
+                 stochastic=False, skip_exec=False):
         self.type = type
         self.lower = lower
+        # grad: fn(op, block, grad_name_map) -> list of op-spec dicts, or None
+        # for the generic vjp-derived gradient
+        self.grad = grad
         self.no_grad = no_grad
         self.stochastic = stochastic
         self.skip_exec = skip_exec  # executor ignores (feed/fetch markers)
+
+    @property
+    def is_host(self):
+        # the JAX package's host ops (RPC, listen_and_serv) are not ported;
+        # the passes read this flag
+        return False
 
 
 OPS = {}
@@ -73,29 +121,114 @@ def register_no_lower(type, **kwargs):
     OPS[type] = OpDef(type, lower=None, skip_exec=True, **kwargs)
 
 
+def register_fused(family):
+    """Decorator: @register_fused("gemm_epilogue")
+    def lower_run(ctx, ops, env) -> bool: ..."""
+
+    def deco(fn):
+        FUSED_LOWERINGS[family] = fn
+        return fn
+
+    return deco
+
+
 def get(type):
     d = OPS.get(type)
-    if d is None:
-        raise KeyError("no op registered for type %r" % type)
-    return d
+    if d is not None:
+        return d
+    if type.endswith("_grad"):
+        base = OPS.get(type[: -len("_grad")])
+        if base is not None and base.lower is not None:
+            d = OpDef(type, lower=_make_generic_grad(base), no_grad=True)
+            OPS[type] = d
+            return d
+    raise KeyError("no op registered for type %r" % type)
 
 
 def is_registered(type):
-    return type in OPS
+    try:
+        get(type)
+        return True
+    except KeyError:
+        return False
 
 
 class LowerCtx:
     """Per-run context handed to lowerings: the device new tensors go to,
-    and an explicit torch.Generator in place of the JAX package's threaded
-    PRNG key. Stochastic ops draw from `generator` (a CPU generator, so a
-    seed gives the same values whatever the device) and move the result to
-    `device`."""
+    and explicit torch.Generators in place of the JAX package's threaded
+    PRNG key. Initializers draw from `generator`, a CPU generator, so a seed
+    gives the same parameters whatever the device; stochastic ops of a
+    training step (dropout) draw on the run's device from
+    `device_generator`."""
 
-    def __init__(self, device, generator=None, is_test=False):
+    def __init__(self, device, generator=None, is_test=False,
+                 device_generator=None):
         self.device = torch.device(device)
         self.generator = generator
+        self.device_generator = device_generator
         self.is_test = is_test
         self.op = None
+        if self.device.type == "cuda":
+            # full f32 products on the card, whatever the default or a
+            # caller set: the parity tolerances assume no TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+
+def _clean_attrs(attrs):
+    return {k: v for k, v in attrs.items() if k not in _META_ATTRS}
+
+
+def _make_generic_grad(fwd_def):
+    """The vjp-derived lowering for `{type}_grad` (the JAX package's
+    _make_generic_grad with torch.func.vjp in place of jax.vjp).
+
+    The grad op's inputs follow the reference convention (grad_op_desc_maker.h
+    DefaultGradOpDescMaker): forward input slots, forward output slots, and
+    `<out-slot>@GRAD` cotangents. Outputs are `<in-slot>@GRAD`.
+    Differentiable leaves are the floating-point forward inputs; everything
+    else rides in the closure. Missing cotangents become zeros. The forward
+    is replayed inside the vjp: an eager interpreter has no CSE to share it
+    with the forward op, so a generic grad costs one more forward."""
+
+    def lower(ctx, ins, attrs):
+        in_slots = list(attrs[FWD_IN_SLOTS_ATTR])
+        out_slots = list(attrs[FWD_OUT_SLOTS_ATTR])
+        fwd_attrs = _clean_attrs(attrs)
+        fwd_ins = {s: list(ins[s]) for s in in_slots if s in ins}
+
+        leaves, spec = [], []
+        for s in in_slots:
+            for i, v in enumerate(fwd_ins.get(s, [])):
+                if v is not None and torch.is_floating_point(v):
+                    leaves.append(v)
+                    spec.append((s, i))
+
+        def f(*leaf_vals):
+            d = {s: list(vs) for s, vs in fwd_ins.items()}
+            for (s, i), v in zip(spec, leaf_vals):
+                d[s][i] = v
+            outs = fwd_def.lower(ctx, d, fwd_attrs)
+            return tuple(tuple(outs.get(s, ())) for s in out_slots)
+
+        primals, vjp_fn = torch.func.vjp(f, *leaves)
+
+        cots = []
+        for s, pvals in zip(out_slots, primals):
+            gs = ins.get(s + _GRAD_SUFFIX)
+            row = []
+            for i, p in enumerate(pvals):
+                g = gs[i] if gs is not None and i < len(gs) and gs[i] is not None else None
+                row.append(g.to(p.dtype) if g is not None else torch.zeros_like(p))
+            cots.append(tuple(row))
+        grads = vjp_fn(tuple(cots))
+
+        out = {}
+        for (s, i), g in zip(spec, grads):
+            out.setdefault(s + _GRAD_SUFFIX, {})[i] = g
+        return {s: [d.get(i) for i in range(max(d) + 1)] for s, d in out.items()}
+
+    return lower
 
 
 def gather_op_inputs(op, env):
@@ -120,17 +253,47 @@ def scatter_op_outputs(op, outs, env):
                 env[name] = val
 
 
+def _lower_one(ctx, op, env):
+    """Lower a single op into env (see lower_ops)."""
+    opdef = get(op.type)
+    if opdef.skip_exec:
+        return
+    ctx.op = op
+    outs = opdef.lower(ctx, gather_op_inputs(op, env), op.attrs)
+    ctx.op = None
+    scatter_op_outputs(op, outs, env)
+
+
+def _lower_pallas_run(ctx, run, env):
+    """Try the registered fused lowering for a tagged run; fall back to
+    per-op lowering when the family is unknown or the lowering declines."""
+    fused = FUSED_LOWERINGS.get(run[0].attrs.get(PALLAS_KERNEL_ATTR))
+    if fused is not None and fused(ctx, run, env):
+        return
+    for member in run:
+        _lower_one(ctx, member, env)
+
+
 def lower_ops(ctx, ops, env):
     """Run a list of ops over an env (name -> tensor), rebinding outputs —
-    the reference's Executor::RunPreparedContext loop (executor.cc:389-396)."""
-    for op in ops:
-        opdef = get(op.type)
-        if opdef.skip_exec:
+    the reference's Executor::RunPreparedContext loop (executor.cc:389-396).
+
+    Contiguous runs sharing a PALLAS_GROUP_ATTR value (tagged by the
+    fuse_gemm_epilogue / fuse_layer_norm / fuse_optimizer passes) are handed
+    to the family's fused lowering (FUSED_LOWERINGS); a decline falls back
+    to per-op lowering. FUSION_GROUP_ATTR runs lower op by op."""
+    i, n = 0, len(ops)
+    while i < n:
+        pg = ops[i].attrs.get(PALLAS_GROUP_ATTR)
+        if pg is None:
+            _lower_one(ctx, ops[i], env)
+            i += 1
             continue
-        ctx.op = op
-        outs = opdef.lower(ctx, gather_op_inputs(op, env), op.attrs)
-        ctx.op = None
-        scatter_op_outputs(op, outs, env)
+        j = i
+        while j < n and ops[j].attrs.get(PALLAS_GROUP_ATTR) == pg:
+            j += 1
+        _lower_pallas_run(ctx, ops[i:j], env)
+        i = j
     return env
 
 
@@ -201,6 +364,19 @@ def bcast_y(x, y, axis):
     for i, d in enumerate(yshape):
         new_shape[axis + i] = d
     return y.reshape(new_shape)
+
+
+def reduce_grad_to_shape(g, shape):
+    """Sum-reduce a broadcasted gradient back to `shape` (for custom grads)."""
+    if tuple(g.shape) == tuple(shape):
+        return g
+    extra = g.dim() - len(shape)
+    if extra > 0:
+        g = g.sum(dim=tuple(range(extra)))
+    axes = tuple(i for i, d in enumerate(shape) if d == 1 and g.shape[i] != 1)
+    if axes:
+        g = g.sum(dim=axes, keepdim=True)
+    return g.reshape(shape)
 
 
 def prod(shape):

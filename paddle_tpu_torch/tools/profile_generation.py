@@ -40,27 +40,38 @@ SEED = 0
 
 
 class _OpTimer:
-    """Wraps every registered lowering with a host clock; the totals are the
-    host time each op type takes per call of the program."""
+    """Wraps every registered lowering, and every fused family's lowering,
+    with a host clock; the totals are the host time each op type takes. A
+    lowering called from inside another (a generic grad replays its forward
+    op's lowering under torch.func.vjp) counts toward the outer op only."""
 
     def __init__(self, registry):
         self.registry = registry
         self.ms = defaultdict(float)
         self.calls = defaultdict(int)
-        self._saved = {}
+        self._depth = 0
+        self._saved_ops, self._saved_fused = {}, {}
 
     def __enter__(self):
         for name, opdef in self.registry.OPS.items():
-            if opdef.lower is None:
-                continue
-            self._saved[name] = opdef.lower
-            opdef.lower = self._timed(name, opdef.lower)
+            if opdef.lower is not None:
+                self._saved_ops[name] = opdef.lower
+                opdef.lower = self._timed(name, opdef.lower)
+        for fam, fn in self.registry.FUSED_LOWERINGS.items():
+            self._saved_fused[fam] = fn
+            self.registry.FUSED_LOWERINGS[fam] = self._timed("fused:" + fam, fn)
         return self
 
     def _timed(self, name, fn):
-        def lower(ctx, ins, attrs):
+        def lower(*args):
+            if self._depth:
+                return fn(*args)
+            self._depth += 1
             t0 = time.perf_counter()
-            out = fn(ctx, ins, attrs)
+            try:
+                out = fn(*args)
+            finally:
+                self._depth -= 1
             self.ms[name] += (time.perf_counter() - t0) * 1e3
             self.calls[name] += 1
             return out
@@ -68,14 +79,18 @@ class _OpTimer:
         return lower
 
     def __exit__(self, *exc):
-        for name, fn in self._saved.items():
+        for name, fn in self._saved_ops.items():
             self.registry.OPS[name].lower = fn
+        self.registry.FUSED_LOWERINGS.update(self._saved_fused)
         return False
 
 
-def _device_events(prof):
-    kinds = (torch.autograd.DeviceType.CUDA,)
-    return [e for e in prof.events() if e.device_type in kinds]
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def _walls(step, n_steps):
@@ -87,39 +102,41 @@ def _walls(step, n_steps):
     return walls
 
 
-def profile_steps(engine, step, n_steps, registry):
-    """Run `step()` in three windows of n_steps calls each: bare (the wall
-    time), under the op timer (the host time of each op type) and under
-    torch.profiler (the device time), so that neither instrument inflates
-    what the other reads. Returns the breakdown per step."""
-    for _ in range(3):
-        step()
-    walls = _walls(step, n_steps)
+def profile_window(run, n_steps, registry, cuda=True):
+    """Three windows of `run()`, which runs n_steps steps and returns their
+    host walls in ms: bare (the wall time), under the op timer (the host
+    time of each op type) and under torch.profiler (the device time), so
+    that neither instrument inflates what the other reads. Returns the
+    breakdown per step."""
+    walls = run()
     wall_ms = float(np.median(walls))
     with _OpTimer(registry) as ops:
-        timed_walls = _walls(step, n_steps)
+        timed_walls = run()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if engine.device.type == "cuda":
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
-        _walls(step, n_steps)
+        run()
     kernels = defaultdict(lambda: [0.0, 0])
-    for e in _device_events(prof):
-        k = kernels[e.name]
-        k[0] += e.device_time_total / 1e3  # us -> ms
-        k[1] += 1
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels[e.name]
+            k[0] += e.device_time_total / 1e3  # us -> ms
+            k[1] += 1
     device_ms = sum(k[0] for k in kernels.values()) / n_steps
     op_ms = sum(ops.ms.values()) / n_steps
     timed_ms = sum(timed_walls) / n_steps
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     return {
         "steps": n_steps,
         "wall_ms_p50": wall_ms,
         "wall_ms_min": float(np.min(walls)),
         "wall_ms_max": float(np.max(walls)),
+        "wall_ms_total": float(np.sum(walls)),
         # host time inside op lowerings, from the op-timer window; the rest
-        # of that window's wall is the feed casts, the logits copy to the
-        # host (the step's sync) and sampling
+        # of that window's wall is the executor's host work around them
+        # (feed copies, the fetch copy to the host that is the step's sync,
+        # and in serving the sampling)
         "op_timer_wall_ms_mean": timed_ms,
         "ops_host_ms_per_step": op_ms,
         "outside_ops_ms_per_step": timed_ms - op_ms,
@@ -138,6 +155,14 @@ def profile_steps(engine, step, n_steps, registry):
             name: {"ms": ms / n_steps, "launches": n / n_steps} for name, (ms, n) in top
         },
     }
+
+
+def profile_steps(engine, step, n_steps, registry):
+    """profile_window over n_steps calls of `step()`, after 3 warm calls."""
+    for _ in range(3):
+        step()
+    return profile_window(lambda: _walls(step, n_steps), n_steps, registry,
+                          cuda=engine.device.type == "cuda")
 
 
 def run(engine, n_steps, registry, seed=SEED, prompt_lens=PROMPT_LENS):
@@ -194,11 +219,7 @@ def main(argv=None):
     from ..ops import registry
     from ..serving import GenerationEngine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     engine = GenerationEngine(GPTDecoder(**GPT2_SMALL), name="gpt2_small_profile",
                               place=CUDAPlace(0), **ENGINE)
     engine.warmup()

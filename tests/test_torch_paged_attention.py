@@ -6,17 +6,16 @@ exactly on and just past a page boundary, partly filled last pages, pos < 0
 rows and scratch-page table entries.
 
 Tolerance: atol = rtol = 1e-5. All sides compute in f32; the online softmax
-of the kernels reassociates the sums, which moves results by a few ulp."""
+of the kernels reassociates the sums, which moves results by a few ulp.
+
+The JAX reference is imported inside a fixture, so that on the card, where
+JAX is not installed, the `cuda` cases run alone
+(`python -m pytest --noconftest tests/test_torch_paged_attention.py -m cuda`)."""
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from paddle_tpu import flags as jax_flags
-from paddle_tpu.ops import pallas_kernels as jax_pk
-from paddle_tpu.ops import registry as jax_registry
 from paddle_tpu_torch import flags as pt_flags
 from paddle_tpu_torch.ops import paged_flash as pf
 from paddle_tpu_torch.ops import registry as pt_registry
@@ -38,6 +37,17 @@ SHARED_CASES = {
     "padded_tail": (5, 3, 8, 4, 2, 7, [6, 7, 8, 9, -1]),
     "split_walk_chunk": (40, 2, 8, 4, 12, 14, list(range(6, 46))),
 }
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """(jax.numpy, flags, pallas_kernels, registry) of the JAX package."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_platforms", "cpu")
+    from paddle_tpu import flags
+    from paddle_tpu.ops import pallas_kernels, registry
+
+    return jax.numpy, flags, pallas_kernels, registry
 
 
 def _case(spec, shared, seed):
@@ -71,7 +81,8 @@ def _all_cases():
 @pytest.mark.parametrize(
     "name,spec,shared", _all_cases(), ids=[c[0] for c in _all_cases()]
 )
-def test_plain_matches_jax_pallas_kernel(name, spec, shared):
+def test_plain_matches_jax_pallas_kernel(jax_ref, name, spec, shared):
+    jnp, _, jax_pk, _ = jax_ref
     q, kp, vp, bt, pos, n_head, ps = _case(spec, shared, seed=len(name))
     want = jax_pk.paged_flash_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
@@ -86,9 +97,10 @@ def test_plain_matches_jax_pallas_kernel(name, spec, shared):
 @pytest.mark.parametrize(
     "name,spec,shared", _all_cases(), ids=[c[0] for c in _all_cases()]
 )
-def test_op_matches_jax_dense_lowering(name, spec, shared):
+def test_op_matches_jax_dense_lowering(jax_ref, name, spec, shared):
     """The paged_attention op of both packages with FLAGS_paged_flash="off"
     (the dense gather forms), through each package's registry."""
+    jnp, jax_flags, _, jax_registry = jax_ref
     q, kp, vp, bt, pos, n_head, ps = _case(spec, shared, seed=7 + len(name))
     attrs = {"n_head": n_head, "page_size": ps}
     jsaved = jax_flags.get_flags("paged_flash")
