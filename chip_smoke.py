@@ -19,6 +19,14 @@ Phases, each printing its own line; any failure exits non-zero:
        backward, dx 1e-5, dscale / dbias rtol 1e-4 atol 1e-3;
      - multi-tensor Adam over the model's 183 tensors (f32 moments, bit for
        bit; bf16 moments, one bf16 ulp) and a ragged-tail set (bit for bit);
+     - flash attention, forward and backward (dK/dV + dQ), at the
+       train-flash path's (16, 8, 256, 64) f32 as strided views, causal and
+       not: out and lse atol = rtol = 1e-5, grads rtol 1e-4 with atol 1e-4
+       of the largest magnitude, timed beside the plain versions and
+       scaled_dot_product_attention (forward; backward from a retained
+       graph); the same at (1, 2, 16384, 64), where the JAX package takes
+       its streamed tiers; bf16 at the main shape against the f32 plain
+       version on the same rounded inputs at 2e-2;
   3. serving: a GenerationEngine over GPTDecoder at GPT-2 small's widths
      (12 layers, 12 heads, d_model 768, d_inner 3072, vocab 50257, 1024
      positions; random weights from a seed), warmup(), then a
@@ -28,6 +36,9 @@ Phases, each printing its own line; any failure exits non-zero:
      counters must move, and two requests must match serial engine.generate;
   4. paged vs dense: the engine's prefill and decode logits against the
      whole-sequence program build_forward(1, 64) on the same parameters;
+     then that program rewritten by the fuse_attention pass (12
+     flash_attention ops, no softmax, 12 forward kernel launches) against
+     the unfused one, logits within 1e-4;
   5. training: Transformer base (6 layers, d_model 512, d_ff 2048, 8 heads,
      vocab 37000, batches of 16 x 256 tokens, dropout 0.1, f32; random
      weights from a seed) trained by Executor.run under the training_fused
@@ -36,7 +47,14 @@ Phases, each printing its own line; any failure exits non-zero:
      against an unfused run (no pass pipeline) from the same seed within
      rtol 2e-3, atol 2e-4; step wall p50, target tokens/s, the device's
      busy share and its launches a step;
-  6. a `kernels` JSON line (launches, error, times, bound per kernel).
+  6. train flash: the same model with use_flash=True, padded=False (every
+     attention block one flash_attention op, no bias feeds; batches of 16
+     pairs of exactly 256 tokens) for 6 steps: every loss finite, per step
+     12 + 6 forward and 12 + 6 backward flash launches (non-causal +
+     causal) beside the training kernels' counts, and the same readings;
+     then flash against dense (bias feeds at full length) on the same
+     weights at dropout 0 for 3 steps, losses within rtol 2e-3, atol 2e-4;
+  7. a `kernels` JSON line (launches, error, times, bound per kernel).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -466,6 +484,138 @@ def check_training_kernels(torch, device, shapes):
     return out
 
 
+FLASH_SHAPE = (16, 8, 256, 64)  # the train-flash path's (b, h, t, d)
+FLASH_LONG = (1, 2, 16384, 64)  # where the JAX package takes its streamed tiers
+FLASH_GRAD_TOL = 1e-4  # rtol, and atol as a share of the plain result's largest magnitude
+FLASH_BF16_TOL = 2e-2  # the JAX package's on-chip bar (tests/test_pallas_kernels.py:20-21)
+FLASH_SOURCE = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+
+
+def _flash_inputs(torch, device, shape, seed):
+    """q, k, v and dout as the model hands them over: (b, h, t, d) views of
+    (b, t, h, d) memory, seeded."""
+    rng = np.random.RandomState(seed)
+    b, h, t, d = shape
+    return [torch.from_numpy(rng.randn(b, t, h, d).astype("float32")).to(device).transpose(1, 2)
+            for _ in range(4)]
+
+
+def _flash_pairs(b, h, t, causal):
+    """(query, key) pairs the work needs: all of them, or the causal lower
+    triangle (tq = tk)."""
+    return b * h * (t * (t + 1) // 2 if causal else t * t)
+
+
+def _flash_compare(torch, fa, name, q, k, v, g, causal, scale, dtype):
+    """Kernel forward and backward against the plain versions; for bf16
+    against the f32 plain version on the same rounded inputs. Returns
+    (forward max abs err, backward max abs err, out, lse)."""
+    qd, kd, vd, gd = (x.to(dtype) for x in (q, k, v, g))
+    out, lse = fa.flash_forward(qd, kd, vd, causal, scale)
+    grads = fa.flash_backward(qd, kd, vd, out, lse, gd, causal, scale)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (qd, kd, vd, gd)]
+    pout, plse = fa.flash_forward_plain(*f32[:3], causal, scale)
+    pgrads = fa.flash_backward_plain(*f32[:3], out.float(), lse, f32[3], causal, scale)
+    if dtype == torch.float32:
+        err_f = max(_close(torch, name + " out", out, pout, ATOL, RTOL),
+                    _close(torch, name + " lse", lse, plse, ATOL, RTOL))
+        err_b = max(_close(torch, name + " d" + n, got, want,
+                           FLASH_GRAD_TOL * float(want.abs().max()), FLASH_GRAD_TOL)
+                    for n, got, want in zip("qkv", grads, pgrads))
+    else:
+        err_f = _close(torch, name + " out", out, pout, FLASH_BF16_TOL, FLASH_BF16_TOL)
+        err_b = 0.0
+        for n, got, want in zip("qkv", grads, pgrads):
+            m = max(1.0, float(want.abs().max()))
+            err_b = max(err_b, _close(torch, name + " d" + n, got.float() / m, want / m,
+                                      FLASH_BF16_TOL, FLASH_BF16_TOL))
+    again = fa.flash_backward(qd, kd, vd, out, lse, gd, causal, scale)
+    if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+        raise AssertionError("%s: the backward differs from run to run" % name)
+    return err_f, err_b, out, lse
+
+
+def check_flash(torch, device, flush):
+    """The flash kernels against their plain versions at the train-flash
+    path's shape, causal and not (timed, with the library call
+    scaled_dot_product_attention beside them), at t = 16384 (the JAX
+    package's streamed tiers) and in bf16; returns the four kernels-line
+    entries: forward and backward, each non-causal and causal."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, t, d = FLASH_SHAPE
+    scale = d ** -0.5
+    entries = {}
+    for causal in (False, True):
+        form = "_causal" if causal else ""
+        q, k, v, g = _flash_inputs(torch, device, FLASH_SHAPE, SEED + 20 + causal)
+        err_f, err_b, out, lse = _flash_compare(torch, fa, "flash" + form, q, k, v, g, causal,
+                                                scale, torch.float32)
+        fwd = lambda: fa.flash_forward(q, k, v, causal, scale)  # noqa: E731
+        bwd = lambda: fa.flash_backward(q, k, v, out, lse, g, causal, scale)  # noqa: E731
+        ms_f = time_ms(torch, fwd, 20, flush, gated=True)
+        ms_b = time_ms(torch, bwd, 20, flush, gated=True)
+        plain_f = time_ms(torch, lambda: fa.flash_forward_plain(q, k, v, causal, scale), 10,
+                          flush, gated=True)
+        plain_b = time_ms(torch, lambda: fa.flash_backward_plain(q, k, v, out, lse, g, causal,
+                                                                  scale), 10, flush, gated=True)
+        # the library call (never called by the port): forward, and its
+        # backward alone from a retained graph
+        lib_f = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, scale=scale), 20, flush,
+                        gated=True)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=causal, scale=scale)
+        lib_b = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                           retain_graph=True), 20, flush,
+                        gated=True)
+        del leaves, lib_out
+        pairs = _flash_pairs(b, h, t, causal)
+        elems = b * h * t * d
+        bound_f = _bound((4 * elems + b * h * t) * 4, 4 * pairs * d)
+        bound_b = _bound((8 * elems + b * h * t) * 4, 10 * pairs * d)
+        log("kernel flash%s: (b, h, t, d) %s f32 strided views; forward max_abs_err %.3g "
+            "(out, lse atol=rtol=%g) kernel %.4f ms (device); plain %.4f ms; "
+            "scaled_dot_product_attention %.4f ms; bound %.4f ms (%s) | backward (dK/dV + dQ) "
+            "max_abs_err %.3g (rtol %g, atol %g of the largest magnitude; repeats bit for bit) "
+            "kernel %.4f ms; plain %.4f ms; SDPA backward %.4f ms (forward + backward %.4f ms); "
+            "bound %.4f ms (%s)" % (
+                form, FLASH_SHAPE, err_f, ATOL, ms_f, plain_f, lib_f, bound_f[0], bound_f[1],
+                err_b, FLASH_GRAD_TOL, FLASH_GRAD_TOL, ms_b, plain_b, lib_b, lib_f + lib_b,
+                bound_b[0], bound_b[1]))
+        entries["flash_fwd" + form] = _entry(
+            "flash_fwd" + form, FLASH_SOURCE, "paddle_tpu/ops/pallas_kernels.py:129", err_f,
+            ms_f, plain_f, bound_f[0], bound_f[1], lib_f)
+        entries["flash_bwd" + form] = _entry(
+            "flash_bwd" + form, FLASH_SOURCE, "paddle_tpu/ops/pallas_kernels.py:461", err_b,
+            ms_b, plain_b, bound_b[0], bound_b[1], lib_b)
+        del q, k, v, g, out, lse
+    for causal in (False, True):
+        form = "_causal" if causal else ""
+        q, k, v, g = _flash_inputs(torch, device, FLASH_LONG, SEED + 22 + causal)
+        err_f, err_b, out, lse = _flash_compare(torch, fa, "flash_long" + form, q, k, v, g,
+                                                causal, scale, torch.float32)
+        ms_f = time_ms(torch, lambda: fa.flash_forward(q, k, v, causal, scale), 5, flush,
+                       gated=True)
+        ms_b = time_ms(torch, lambda: fa.flash_backward(q, k, v, out, lse, g, causal, scale),
+                       5, flush, gated=True)
+        log("kernel flash%s at %s (the JAX package's streamed tiers): forward max_abs_err %.3g, "
+            "backward %.3g; kernel forward %.4f ms, backward %.4f ms" % (
+                form, FLASH_LONG, err_f, err_b, ms_f, ms_b))
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+    for causal in (False, True):
+        form = "_causal" if causal else ""
+        q, k, v, g = _flash_inputs(torch, device, FLASH_SHAPE, SEED + 24 + causal)
+        err_f, err_b, _, _ = _flash_compare(torch, fa, "flash_bf16" + form, q, k, v, g, causal,
+                                            scale, torch.bfloat16)
+        log("kernel flash%s bf16 at %s against the f32 plain version on the same rounded "
+            "inputs: out max_abs_err %.3g, grads / max(1, max|want|) %.3g (atol=rtol=%g)" % (
+                form, FLASH_SHAPE, err_f, err_b, FLASH_BF16_TOL))
+    return entries
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -530,8 +680,10 @@ def serve(torch, pf, engine, card):
 # ---------------------------------------------------------------- phase 4
 
 
-def paged_vs_dense(engine):
+def paged_vs_dense(torch, engine):
     from paddle_tpu_torch.executor import aot_serve_lowering, scope_guard
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.passes import PassManager
     from paddle_tpu_torch.serving import GenRequest
 
     T = 64
@@ -566,13 +718,52 @@ def paged_vs_dense(engine):
     log("paged vs dense: %d steps (prefill + decode to %d tokens), max abs logit err %.3g "
         "(atol=rtol=%g)" % (len(rows), T, err, LOGIT_ATOL))
 
+    # the fuse_attention pass on the same dense program: one flash_attention
+    # op per layer, through the forward kernel, the same logits
+    fused = PassManager(["fuse_attention"]).apply(main, scope=engine.scope, feed_names=feeds,
+                                                  fetch_names=fetches)
+    types = [op.type for op in fused.global_block().ops]
+    n_layer = GPT2_SMALL["n_layer"]
+    if types.count("flash_attention") != n_layer or "softmax" in types:
+        raise AssertionError("fuse_attention: %d flash_attention ops, softmax %s"
+                             % (types.count("flash_attention"), "softmax" in types))
+    with scope_guard(engine.scope):
+        flash, fro, _ = aot_serve_lowering(fused, feeds, fetches, engine.scope)
+    buf = np.asarray(seq[:T], np.int64).reshape(1, T, 1)
+    (want,) = dense({"fwd_tokens": buf}, ro, {})
+    fa.reset_kernel_launches()
+    (got,) = flash({"fwd_tokens": buf}, fro, {})
+    torch.cuda.synchronize()
+    launches = fa.kernel_launches()["flash_fwd_causal"]
+    if launches != n_layer:
+        raise AssertionError("fuse_attention: the forward kernel launched %d times, want %d"
+                             % (launches, n_layer))
+    ferr = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL):
+        raise AssertionError("fuse_attention vs unfused logits: max abs err %g" % ferr)
+    log("fuse_attention: %d score chains -> flash_attention, no softmax left; %d forward "
+        "kernel launches; logits over %d positions max abs err %.3g against the unfused "
+        "program (atol=rtol=%g)" % (n_layer, launches, T, ferr, LOGIT_ATOL))
+
 
 # ---------------------------------------------------------------- phase 5
 
 
-def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_check):
+def _startup_state(startup):
+    """The persistables the startup program makes from SEED on the card."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, scope_guard
+
+    scope = Scope(seed=SEED, place=CUDAPlace(0))
+    with scope_guard(scope):
+        Executor(CUDAPlace(0)).run(startup)
+    return dict(scope.vars)
+
+
+def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_check,
+               init=None):
     """Steps of the training program from a fresh scope seeded with SEED
-    under `pipeline`; returns (losses, walls, scope, exe, step)."""
+    under `pipeline`, its startup state overwritten by name from `init`
+    where given; returns (losses, walls, scope, step)."""
     from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
 
     flags.set_flags({"pass_pipeline": pipeline})
@@ -586,6 +777,10 @@ def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_c
 
     with scope_guard(scope):
         exe.run(startup)
+    for name, value in (init or {}).items():
+        if scope.find_var(name) is None or scope.find_var(name).shape != value.shape:
+            raise AssertionError("carried state %r has no counterpart in the program" % name)
+        scope.set_var(name, value.clone())
     torch.cuda.synchronize()
     losses, walls = [], []
     for i, b in enumerate(batches):
@@ -599,67 +794,151 @@ def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_c
     return losses, walls, scope, step
 
 
-def train(torch, card):
-    """Transformer base under training_fused for TRAIN_STEPS steps, then an
-    unfused run from the same seed; returns the training kernels' launches
-    over the fused steps."""
-    from paddle_tpu_torch.ops import fused, registry
-    from paddle_tpu_torch.tools import profile_training as prof
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
-    cfg = prof.BASE
-    t0 = time.perf_counter()
-    main_prog, startup, loss = prof.build(cfg)
-    n_adam = sum(op.type == "adam" for op in main_prog.global_block().ops)
-    batches = [prof.make_batch(cfg, SEED + i) for i in range(TRAIN_STEPS)]
-    # per step: two GEMMs in each FFN, a residual layer_norm after each
-    # sublayer (2 in an encoder layer, 3 in a decoder layer) and its grad,
-    # one Adam launch for the whole (f32) parameter set
-    want = {"gemm_epilogue": 4 * cfg["n_layer"], "layer_norm": 5 * cfg["n_layer"],
-            "layer_norm_grad": 5 * cfg["n_layer"], "multi_adam": 1}
 
-    def fused_check(i, before, after):
-        for k, n in want.items():
+def _per_step(cfg):
+    """Kernel launches a training step of `cfg` makes: two GEMMs in each FFN,
+    a residual layer_norm after each sublayer (2 in an encoder layer, 3 in a
+    decoder layer) and its grad, one Adam launch for the whole (f32)
+    parameter set (each also a dispatch of its fused family); under
+    use_flash one forward and one backward (dK/dV and dQ) launch per
+    attention block: encoder self and cross attention non-causal, decoder
+    self attention causal."""
+    n = cfg["n_layer"]
+    fused_want = {"gemm_epilogue": 4 * n, "layer_norm": 5 * n, "layer_norm_grad": 5 * n,
+                  "multi_adam": 1}
+    flash = cfg.get("use_flash", False)
+    flash_want = {}
+    for kern in FLASH_KERNELS:
+        flash_want[kern] = 2 * n if flash else 0
+        flash_want[kern + "_causal"] = n if flash else 0
+    return fused_want, flash_want
+
+
+def _launch_check(cfg):
+    fused_want, flash_want = _per_step(cfg)
+
+    def check(i, before, after):
+        for k, n in fused_want.items():
             got = after["launches"][k] - before["launches"][k]
             disp = after["dispatches"].get(k, 0) - before["dispatches"].get(k, 0)
             if got != n or disp != n:
                 raise AssertionError("step %d: %s launched %d times, dispatched %d, want %d"
                                      % (i, k, got, disp, n))
+        for k, n in flash_want.items():
+            got = after["launches"][k] - before["launches"][k]
+            if got != n:
+                raise AssertionError("step %d: %s launched %d times, want %d" % (i, k, got, n))
 
-    def unfused_check(i, before, after):
-        if after != before:
-            raise AssertionError("step %d of the unfused run moved the counters: %s -> %s"
-                                 % (i, before, after))
+    return check
 
+
+def _unfused_check(i, before, after):
+    if after != before:
+        raise AssertionError("step %d of the unfused run moved the counters: %s -> %s"
+                             % (i, before, after))
+
+
+def _train_fused(torch, cfg, card, label):
+    """TRAIN_STEPS steps of `cfg` under training_fused, each step's launches
+    checked; returns (launches over the steps, losses, batches, program)."""
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    t0 = time.perf_counter()
+    main_prog, startup, loss = prof.build(cfg)
+    n_adam = sum(op.type == "adam" for op in main_prog.global_block().ops)
+    batches = [prof.make_batch(cfg, SEED + i) for i in range(TRAIN_STEPS)]
     fused.reset_stats()  # the main path's counting window opens here
     losses, walls, scope, step = _train_run(torch, main_prog, startup, loss, batches,
-                                            "training_fused", fused, fused_check)
+                                            "training_fused", fused, _launch_check(cfg))
     launches = fused.stats()["launches"]  # and closes here
-    log("train: Transformer base %s, %d Adam ops, built and initialised in %.1f s" % (
-        json.dumps(cfg), n_adam, time.perf_counter() - t0))
+    log("%s: Transformer base %s, %d Adam ops, built and initialised in %.1f s" % (
+        label, json.dumps(cfg), n_adam, time.perf_counter() - t0))
     # steps 2-6: the first applies the pass pipeline and prepares the block
     wall_p50 = float(np.median(walls[1:]))
     tokens_per_s = sum(prof.target_tokens(b) for b in batches[1:]) / (sum(walls[1:]) / 1e3)
     breakdown = prof.profile_steps(step, batches[:2], registry)
     del scope, step
     torch.cuda.empty_cache()
-    ref, _, uscope, ustep = _train_run(torch, main_prog, startup, loss,
-                                       batches[:COMPARE_STEPS], "", fused, unfused_check)
+    fused_want, flash_want = _per_step(cfg)
+    log("%s: %d fused steps, losses %s; step wall p50 %.3f ms over steps 2-%d (step 1 %.1f ms, "
+        "with the pass pipeline); %.1f target tokens/s (their target tokens over their summed "
+        "wall); device busy %s ms a step = %s of the wall p50 of the profiled window (%.3f ms), "
+        "%s device launches a step; kernel launches %s (per step %s); card %s" % (
+            label, TRAIN_STEPS, ["%.6f" % v for v in losses], wall_p50, TRAIN_STEPS, walls[0],
+            tokens_per_s, breakdown["device_busy_ms_per_step"], breakdown["device_busy_share"],
+            breakdown["wall_ms_p50"], breakdown["device_launches_per_step"],
+            json.dumps(launches), json.dumps(dict(fused_want, **flash_want)), card))
+    return launches, losses, batches, (main_prog, startup, loss)
+
+
+def train(torch, card):
+    """Transformer base under training_fused for TRAIN_STEPS steps, then an
+    unfused run from the same seed; returns the training kernels' launches
+    over the fused steps."""
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    launches, losses, batches, prog = _train_fused(torch, prof.BASE, card, "train")
+    ref, _, uscope, ustep = _train_run(torch, *prog, batches[:COMPARE_STEPS], "", fused,
+                                       _unfused_check)
     del uscope, ustep
     torch.cuda.empty_cache()
     a, b = np.asarray(losses[:COMPARE_STEPS]), np.asarray(ref)
     if not np.allclose(a, b, rtol=FUSED_RTOL, atol=FUSED_ATOL):
         raise AssertionError("fused vs unfused losses differ: %s vs %s" % (a.tolist(), b.tolist()))
-    log("train: %d fused steps, losses %s; unfused %s (max abs diff %.3g, rtol %g atol %g); "
-        "step wall p50 %.3f ms over steps 2-%d (step 1 %.1f ms, with the pass pipeline); "
-        "%.1f target tokens/s (their target tokens over their summed wall); device busy %s ms "
-        "a step = %s of the wall p50 of the profiled window (%.3f ms), %s device launches a "
-        "step; kernel launches %s (per step %s); card %s" % (
-            TRAIN_STEPS, ["%.6f" % v for v in losses], ["%.6f" % v for v in ref],
-            float(np.abs(a - b).max()), FUSED_RTOL, FUSED_ATOL, wall_p50, TRAIN_STEPS,
-            walls[0], tokens_per_s, breakdown["device_busy_ms_per_step"],
-            breakdown["device_busy_share"], breakdown["wall_ms_p50"],
-            breakdown["device_launches_per_step"], json.dumps(launches), json.dumps(want), card))
-    return launches
+    log("train: fused losses %s; unfused %s (max abs diff %.3g, rtol %g atol %g)" % (
+        ["%.6f" % v for v in a], ["%.6f" % v for v in ref], float(np.abs(a - b).max()),
+        FUSED_RTOL, FUSED_ATOL))
+    return {k: launches[k] for k in _per_step(prof.BASE)[0]}
+
+
+def train_flash(torch, card):
+    """The flash configuration (use_flash=True, padded=False, no bias feeds)
+    under training_fused for TRAIN_STEPS steps, then flash against dense on
+    the same weights at dropout 0; returns the flash kernels' launches over
+    the flash steps."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    launches, _, _, _ = _train_fused(torch, prof.BASE_FLASH, card, "train flash")
+    # the dense program cannot drop attention-weight dropout, so both run at 0
+    fcfg, dcfg = dict(prof.BASE_FLASH, dropout=0.0), dict(prof.BASE, dropout=0.0)
+    b, t, h = fcfg["batch"], fcfg["t"], fcfg["n_head"]
+    lens = [t] * b
+    biases = {"src_slf_attn_bias": transformer.make_attn_bias(lens, t, h),
+              "trg_slf_attn_bias": transformer.make_attn_bias(lens, t, h, causal=True),
+              "trg_src_attn_bias": transformer.make_attn_bias(lens, t, h)}
+    fbatches = [prof.make_batch(fcfg, SEED + 100 + i) for i in range(COMPARE_STEPS)]
+    dbatches = [dict(fb, **biases) for fb in fbatches]
+    fprog, dprog = prof.build(fcfg), prof.build(dcfg)
+    init = _startup_state(fprog[1])
+    runs = []
+    for prog, batches in ((fprog, fbatches), (dprog, dbatches)):
+        out = _train_run(torch, *prog, batches, "training_fused", fused, lambda *a: None,
+                         init=init)
+        runs.append(np.asarray(out[0]))
+        del out
+        torch.cuda.empty_cache()
+    del init
+    a, d = runs
+    if not np.allclose(a, d, rtol=FUSED_RTOL, atol=FUSED_ATOL):
+        raise AssertionError("flash vs dense losses differ: %s vs %s" % (a.tolist(), d.tolist()))
+    log("train flash: flash vs dense on the same weights at dropout 0, %d steps: losses %s vs "
+        "%s (max abs diff %.3g, rtol %g atol %g)" % (
+            COMPARE_STEPS, ["%.6f" % v for v in a], ["%.6f" % v for v in d],
+            float(np.abs(a - d).max()), FUSED_RTOL, FUSED_ATOL))
+    for form in ("", "_causal"):
+        if launches["flash_bwd_dq" + form] != launches["flash_bwd_dkv" + form]:
+            raise AssertionError("flash backward: dQ and dK/dV launch counts differ: %s"
+                                 % launches)
+    return {"flash_fwd": launches["flash_fwd"],
+            "flash_fwd_causal": launches["flash_fwd_causal"],
+            "flash_bwd": launches["flash_bwd_dkv"],
+            "flash_bwd_causal": launches["flash_bwd_dkv_causal"]}
 
 
 def main():
@@ -701,6 +980,8 @@ def main():
                   if p.trainable]
         del main_prog
         kernels.update(check_training_kernels(torch, device, shapes))
+        kernels.update(check_flash(torch, device, torch.empty(64 << 20, dtype=torch.uint8,
+                                                              device=device)))
     with Phase("serve"):
         t0 = time.perf_counter()
         engine = GenerationEngine(GPTDecoder(**GPT2_SMALL), name="gpt2_small",
@@ -711,11 +992,13 @@ def main():
             n, time.perf_counter() - t0, engine.kv_state_bytes / 1e9))
         launches = serve(torch, pf, engine, card)
     with Phase("paged vs dense"):
-        paged_vs_dense(engine)
+        paged_vs_dense(torch, engine)
     del engine
     torch.cuda.empty_cache()
     with Phase("train"):
         launches.update(train(torch, card))
+    with Phase("train flash"):
+        launches.update(train_flash(torch, card))
     for name, n in launches.items():
         kernels[name]["launches"] = n
     if not all(k["launches"] for k in kernels.values()):

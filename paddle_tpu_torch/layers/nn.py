@@ -432,9 +432,31 @@ def distributed_embedding(input, size, param_attr=None, dtype="float32",
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, name=None):
-    """Fused blockwise attention over (b, h, t, d) tensors: ported with its
-    forward and backward kernels in the training slice."""
-    raise NotImplementedError(
-        "flash_attention is ported with the training slice (ROADMAP.md "
-        "kernel table row 8)"
+    """Fused blockwise attention over (b, h, t, d) tensors: emits the
+    flash_attention op, whose lowering launches the hand-written flash
+    kernels on the card (ops/flash_attention.py)."""
+    from ..ops.flash_attention import flash_path_taken
+
+    helper = LayerHelper("flash_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    attrs = {"causal": bool(causal)}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    outputs = {"Out": [out.name]}
+    # declare the logsumexp residual exactly where the JAX package does
+    # (flash_path_taken mirrors its decision), so both packages build the
+    # same program; flash_attention_grad then reads the saved lse instead of
+    # running the forward again
+    tq = q.shape[2] if q.shape is not None and len(q.shape) == 4 else -1
+    tk = k.shape[2] if k.shape is not None and len(k.shape) == 4 else -1
+    if flash_path_taken(tq, tk, causal=bool(causal)):
+        lse = helper.create_variable_for_type_inference("float32")
+        lse.stop_gradient = True
+        outputs["Lse"] = [lse.name]
+    helper.append_op(
+        type="flash_attention",
+        inputs={"Q": [q.name], "K": [k.name], "V": [v.name]},
+        outputs=outputs,
+        attrs=attrs,
     )
+    return out

@@ -34,9 +34,9 @@ def multi_head_attention(
 ):
     """With use_flash=True and no additive bias the score→softmax→context
     chain is emitted as ONE flash_attention op (O(t) in attention memory;
-    its lowering waits for the flash-attention slice of this package).
-    `causal` replaces a triangular attn_bias; it is honored on the dense
-    path too."""
+    on the card its lowering launches the flash kernels of
+    ops/flash_attention.py). `causal` replaces a triangular attn_bias; it
+    is honored on the dense path too."""
     q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2, bias_attr=False)
     k = layers.fc(keys, size=d_key * n_head, num_flatten_dims=2, bias_attr=False)
     v = layers.fc(values, size=d_value * n_head, num_flatten_dims=2, bias_attr=False)
@@ -269,3 +269,46 @@ def make_attn_bias(lens, maxlen, n_head, causal=False, q_maxlen=None):
         tri = np.triu(np.full((maxlen, maxlen), -1e9, dtype="float32"), k=1)
         bias = bias + tri[None, None, :, :]
     return bias
+
+
+def build_tiny_flash_transformer(t=16, vocab=50, feed_prefix=""):
+    """Build a minimal use_flash=True transformer program on the current
+    program pair (the JAX package's flash build recipe, which its tests
+    share). Returns (feeds dict name->Variable, loss Variable)."""
+    from .. import layers
+
+    p = feed_prefix
+    feeds = {}
+    for name, shape, dtype in [
+        (p + "src_word", [t], "int64"),
+        (p + "src_pos", [t], "int64"),
+        (p + "trg_word", [t], "int64"),
+        (p + "trg_pos", [t], "int64"),
+        (p + "label", [t], "int64"),
+        (p + "label_weight", [t, 1], "float32"),
+    ]:
+        feeds[name] = layers.data(name=name, shape=shape, dtype=dtype)
+    loss, _logits = transformer(
+        feeds[p + "src_word"], feeds[p + "src_pos"], feeds[p + "trg_word"],
+        feeds[p + "trg_pos"], None, None, None,
+        feeds[p + "label"], feeds[p + "label_weight"],
+        src_vocab_size=vocab, trg_vocab_size=vocab,
+        n_layer=1, n_head=2, d_model=16, d_inner=32, d_key=8, d_value=8,
+        dropout=0.0, max_length=t + 1, use_flash=True, padded=False,
+    )
+    return feeds, loss
+
+
+def tiny_flash_transformer_feed(b, t=16, vocab=50, feed_prefix="", seed=5):
+    """Matching numpy feed dict for build_tiny_flash_transformer."""
+    p = feed_prefix
+    rng = np.random.RandomState(seed)
+    pos = np.tile(np.arange(t), (b, 1)).astype("int64")
+    return {
+        p + "src_word": rng.randint(0, vocab, (b, t)).astype("int64"),
+        p + "src_pos": pos,
+        p + "trg_word": rng.randint(0, vocab, (b, t)).astype("int64"),
+        p + "trg_pos": pos.copy(),
+        p + "label": rng.randint(0, vocab, (b, t)).astype("int64"),
+        p + "label_weight": np.ones((b, t, 1), "float32"),
+    }

@@ -1,0 +1,585 @@
+// Flash attention, forward and backward, over (b, h, t, d) operands, for
+// Hopper (sm_90a). f32 or bf16 operands, f32 accumulation, head width 64 or
+// 128.
+//
+// Replaces the Pallas kernels of paddle_tpu/ops/pallas_kernels.py:
+//   _flash_forward            -> _flash_kernel             (resident forward)
+//   _flash_forward_streamed   -> _flash_kernel_streamed    (K/V through the grid)
+//   _flash_backward           -> _flash_bwd_fused_kernel   (dQ, dK, dV in one)
+//   _flash_backward_streamed  -> _flash_bwd_dq_streamed, _flash_bwd_dkv_streamed
+// The TPU splits each direction into a VMEM-resident tier and a streamed one
+// for t past its VMEM budget. A CTA here streams K/V (or Q/dO) tiles through
+// shared memory at every length, so flash_fwd_kernel serves both forward
+// tiers and the flash_bwd_dkv_kernel + flash_bwd_dq_kernel pair both
+// backward tiers.
+//
+// Contract (the TPU kernel's, not the dense softmax's): s = q k^T * scale,
+// causal masking aligned bottom-right (query row i sees keys up to
+// i + tk - tq); out = softmax(s) v through an f32 online softmax, with p
+// rounded to the operand dtype before the product with v; lse = m + log(l)
+// per row, (b, h, tq) f32. A fully masked row (causal, tq > tk) gets out 0
+// and lse 0. The backward recomputes p = exp(s - lse) from the saved lse,
+// takes delta = rowsum(dO * O) inline from the saved output, and forms
+// ds = p * (dp - delta) * scale rounded to the operand dtype; dV = p^T dO,
+// dK = ds^T q, dQ = ds k, each summed in f32 and rounded once.
+//
+// Bound, at the training path's (16, 8, 256, 64) f32: operations. The
+// forward does 4 * b * h * tq * tk * d flops (2.15 GFLOP, 0.032 ms at the
+// card's 67 TFLOP/s f32 outside the tensor cores; no TF32, by the port's
+// choice) against 33.6 MB of operands (0.010 ms at 3.35 TB/s); the backward
+// needs five such products. Design: f32 products on the CUDA cores. A CTA of
+// 256 threads owns a 64 x 64 tile of scores, 4 x 4 a thread; a thread's four
+// rows sit in one half-warp, so the softmax row reductions are four shuffles.
+// Operand tiles live in shared memory with rows padded by 4 elements, so
+// the 16-byte (f32) or 8-byte (bf16) loads along d of 16 different rows hit
+// distinct banks. The forward keeps the running max, sum and the 64 x d
+// accumulator in registers and double-buffers the K/V tiles with cp.async
+// (the next tile loads while this one is multiplied); causal tiles past the
+// diagonal are never loaded, and causal CTAs start with the longest rows.
+// The backward has no float atomics: dK/dV is one CTA per K tile looping
+// over the query tiles, dQ one CTA per query tile looping over the K tiles,
+// so each sum has one owner and repeats bit for bit. The price is s and
+// dp = dO v^T computed in both kernels: seven products against the TPU
+// fused kernel's five. wgmma, TMA and a fused backward are left for later.
+//
+// Operands may be strided views (any (b, h, t) strides; d contiguous, rows
+// aligned for 4-element loads), as the model's transposes hand them over;
+// outputs are contiguous. Plain C interface, loaded with ctypes
+// (ops/flash_attention.py). Each launcher enqueues on the caller's stream,
+// does not synchronize, allocates nothing, and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+struct FlashParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;     // backward: the forward's output
+  const void* dout;  // backward: dL/dout
+  const float* lse;  // backward: the forward's lse, (b, h, tq) contiguous
+  void* out;         // forward: (b, h, tq, d) contiguous
+  float* lse_out;    // forward: (b, h, tq)
+  void* dq;          // backward outputs, contiguous
+  void* dk;
+  void* dv;
+  int64_t sq[3];  // (b, h, t) strides in elements; d is contiguous
+  int64_t sk[3];
+  int64_t sv[3];
+  int64_t so[3];
+  int64_t sdo[3];
+  int b, h, tq, tk, d, causal, dtype;  // dtype: 0 f32, 1 bf16
+  float scale;
+};
+
+namespace {
+
+constexpr int kBM = 64;  // query rows a tile
+constexpr int kBN = 64;  // keys a tile
+constexpr int kThreads = 256;
+constexpr int kPLD = kBN + 4;  // row stride of the f32 p / ds tiles
+constexpr float kNegInf = -__builtin_huge_valf();
+
+// v rounded to T and widened back
+template <typename T> __device__ __forceinline__ float round_t(float v);
+template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
+template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// four consecutive elements (16 bytes of f32, 8 of bf16) as f32
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+// cp.async of 4 elements; src-size 0 fills the destination with zeros
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(n));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [r0, r0 + R) of a (t, D) operand with row stride `st` into a
+// [R][D + 4] shared tile; rows at or past t read as zeros
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t st, int r0, int t) {
+  constexpr int G = D / 4;
+  for (int g = threadIdx.x; g < R * G; g += kThreads) {
+    const int r = g / G, c = (g % G) * 4;
+    const bool ok = r0 + r < t;
+    const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
+    cp_async<(int)(4 * sizeof(T))>(dst + r * (D + 4) + c, from, ok);
+  }
+}
+
+// reductions over the 16 threads (one half-warp) that share a row
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// s[i][j] += a_row(ty*4+i) . b_row(tx+16j) over d: the 4 x 4 part of a
+// 64 x 64 product of two [64][D + 4] shared tiles this thread owns
+template <typename T, int D>
+__device__ __forceinline__ void tile_dot(const T* a, const T* b, int tx, int ty,
+                                         float (&s)[4][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float av[4][4], bv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load4(a + (ty * 4 + i) * LD + c, av[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) load4(b + (tx + 16 * j) * LD + c, bv[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][j] = fmaf(av[i][e], bv[j][e], s[i][j]);
+  }
+}
+
+// acc[i][n][e] += sum_kk p[ty*4+i][kk] * x[kk][n*64 + tx*4 + e]: a 64-row
+// f32 tile times a [64][D + 4] operand tile
+template <typename T, int D>
+__device__ __forceinline__ void tile_pv(const float* p, const T* x, int tx, int ty,
+                                        float (&acc)[4][D / 64][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll 2
+  for (int kk = 0; kk < kBN; kk += 4) {
+    float pv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load4(p + (ty * 4 + i) * kPLD + kk, pv[i]);
+#pragma unroll
+    for (int e4 = 0; e4 < 4; ++e4) {
+#pragma unroll
+      for (int n = 0; n < D / 64; ++n) {
+        float xv[4];
+        load4(x + (kk + e4) * LD + n * 64 + tx * 4, xv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] = fmaf(pv[i][e4], xv[e], acc[i][n][e]);
+      }
+    }
+  }
+}
+
+// acc[i][n][e] += sum_r p[r][ty*4+i] * x[r][n*64 + tx*4 + e]: the transposed
+// product, for dV = p^T dO and dK = ds^T q
+template <typename T, int D>
+__device__ __forceinline__ void tile_ptx(const float* p, const T* x, int tx, int ty,
+                                         float (&acc)[4][D / 64][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll 2
+  for (int r = 0; r < kBM; ++r) {
+    float pr[4];
+    load4(p + r * kPLD + ty * 4, pr);
+#pragma unroll
+    for (int n = 0; n < D / 64; ++n) {
+      float xv[4];
+      load4(x + r * LD + n * 64 + tx * 4, xv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = fmaf(pr[i], xv[e], acc[i][n][e]);
+    }
+  }
+}
+
+// rows [row0, row0 + 64) of a contiguous (t, D) output from a thread's
+// [4][D / 64][4] accumulator, rows at or past t dropped
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, int row0, int t, int tx, int ty,
+                                           const float (&acc)[4][D / 64][4], float mul) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty * 4 + i;
+    if (row >= t) continue;
+#pragma unroll
+    for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[(int64_t)row * D + n * 64 + tx * 4 + e] = from_f32<T>(acc[i][n][e] * mul);
+  }
+}
+
+// keys a query tile needs: all of them, or (causal) up to the tile's last
+// valid row's last visible key
+__device__ __forceinline__ int key_tiles(const FlashParams& p, int q0) {
+  const int n = (p.tk + kBN - 1) / kBN;
+  if (!p.causal) return n;
+  const int last_key = min(q0 + kBM, p.tq) - 1 + (p.tk - p.tq);
+  return last_key < 0 ? 0 : min(n, last_key / kBN + 1);
+}
+
+__device__ __forceinline__ bool visible(const FlashParams& p, int row, int key) {
+  return row < p.tq && key < p.tk && (!p.causal || row + (p.tk - p.tq) >= key);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
+  constexpr int LD = D + 4, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + kBM * LD;      // two buffers
+  T* Vs = Ks + 2 * kBN * LD;  // two buffers
+  float* Ps = reinterpret_cast<float*>(Vs + 2 * kBN * LD);
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  // causal: the last query tiles have the most keys, so they start first
+  const int q0 = (p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBM;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  T* out = static_cast<T*>(p.out) + (int64_t)bh * p.tq * D;
+  float* lse = p.lse_out + (int64_t)bh * p.tq;
+
+  float acc[4][NC][4] = {};
+  const int n_kt = key_tiles(p, q0);
+  if (n_kt == 0) {  // every row of the tile fully masked: out 0, lse 0
+    store_rows<T, D>(out, q0, p.tq, tx, ty, acc, 0.0f);
+    if (tx == 0)
+      for (int i = 0; i < 4; ++i)
+        if (q0 + ty * 4 + i < p.tq) lse[q0 + ty * 4 + i] = 0.0f;
+    return;
+  }
+  load_tile<T, D, kBM>(Qs, q, p.sq[2], q0, p.tq);
+  load_tile<T, D, kBN>(Ks, k, p.sk[2], 0, p.tk);
+  load_tile<T, D, kBN>(Vs, v, p.sv[2], 0, p.tk);
+  cp_async_commit();
+
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {  // the next K/V tile loads while this one is used
+      const int nb = (kt + 1) & 1;
+      load_tile<T, D, kBN>(Ks + nb * kBN * LD, k, p.sk[2], (kt + 1) * kBN, p.tk);
+      load_tile<T, D, kBN>(Vs + nb * kBN * LD, v, p.sv[2], (kt + 1) * kBN, p.tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kb = Ks + (kt & 1) * kBN * LD;
+    const T* Vb = Vs + (kt & 1) * kBN * LD;
+    float s[4][4] = {};
+    tile_dot<T, D>(Qs, Kb, tx, ty, s);
+    const int k0 = kt * kBN;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = visible(p, row, k0 + tx + 16 * j) ? s[i][j] * p.scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      // a row masked so far must not poison the rescale
+      const float alpha = m[i] == kNegInf ? 0.0f : expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pj = s[i][j] == kNegInf ? 0.0f : expf(s[i][j] - m_new);
+        sum += pj;
+        Ps[(ty * 4 + i) * kPLD + tx + 16 * j] = round_t<T>(pj);
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] *= alpha;
+    }
+    __syncthreads();
+    tile_pv<T, D>(Ps, Vb, tx, ty, acc);
+    __syncthreads();  // Ps and this K/V buffer are rewritten next
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= p.tq) continue;
+    const float denom = fmaxf(l[i], 1e-20f);
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[(int64_t)row * D + n * 64 + tx * 4 + e] = from_f32<T>(acc[i][n][e] / denom);
+    if (tx == 0) lse[row] = m[i] == kNegInf ? 0.0f : m[i] + logf(denom);
+  }
+}
+
+// lse and delta = rowsum(dO * O) of the query tile's rows into shared
+// memory, four threads a row; rows at or past tq get 0
+template <typename T, int D>
+__device__ __forceinline__ void tile_lse_delta(const FlashParams& p, const T* o, const T* dOs,
+                                               const float* lse, int q0, float* lse_s,
+                                               float* delta_s) {
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
+  float acc = 0.0f;
+  if (row < p.tq) {
+    const T* orow = o + (int64_t)row * p.so[2];
+    for (int c = part * 4; c < D; c += 16) {
+      float a[4], b[4];
+      load4(orow + c, a);
+      load4(dOs + r * (D + 4) + c, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc = fmaf(a[e], b[e], acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  if (part == 0) {
+    delta_s[r] = acc;
+    lse_s[r] = row < p.tq ? lse[row] : 0.0f;
+  }
+}
+
+// s = q k^T and dp = dO v^T of a (query tile, key tile) pair; writes
+// ds = p * (dp - delta) * scale (rounded to T) into dSs and, when Ps is not
+// null, p (rounded to T) into Ps
+template <typename T, int D>
+__device__ __forceinline__ void tile_p_ds(const FlashParams& p, const T* Qs, const T* dOs,
+                                          const T* Ks, const T* Vs, const float* lse_s,
+                                          const float* delta_s, int q0, int k0, float* Ps,
+                                          float* dSs) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[4][4] = {}, dp[4][4] = {};
+  tile_dot<T, D>(Qs, Ks, tx, ty, s);
+  tile_dot<T, D>(dOs, Vs, tx, ty, dp);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    const float L = lse_s[r], dl = delta_s[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = tx + 16 * j;
+      const float pf = visible(p, q0 + r, k0 + kc) ? expf(s[i][j] * p.scale - L) : 0.0f;
+      if (Ps != nullptr) Ps[r * kPLD + kc] = round_t<T>(pf);
+      dSs[r * kPLD + kc] = round_t<T>(pf * (dp[i][j] - dl) * p.scale);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashParams p) {
+  constexpr int LD = D + 4, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kBN * LD;
+  T* Qs = Vs + kBN * LD;
+  T* dOs = Qs + kBM * LD;
+  float* Ps = reinterpret_cast<float*>(dOs + kBM * LD);
+  float* dSs = Ps + kBM * kPLD;
+  float* lse_s = dSs + kBM * kPLD;
+  float* delta_s = lse_s + kBM;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.x * kBN;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
+  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+  const float* lse = p.lse + (int64_t)bh * p.tq;
+
+  load_tile<T, D, kBN>(Ks, k, p.sk[2], k0, p.tk);
+  load_tile<T, D, kBN>(Vs, v, p.sv[2], k0, p.tk);
+  cp_async_commit();
+  // causal: query tiles before the first row that sees key k0 add nothing
+  int qt = 0;
+  if (p.causal) {
+    const int first_row = k0 - (p.tk - p.tq);
+    qt = first_row <= 0 ? 0 : first_row / kBM;
+  }
+  float dk[4][NC][4] = {}, dv[4][NC][4] = {};
+  for (; qt * kBM < p.tq; ++qt) {
+    const int q0 = qt * kBM;
+    load_tile<T, D, kBM>(Qs, q, p.sq[2], q0, p.tq);
+    load_tile<T, D, kBM>(dOs, dout, p.sdo[2], q0, p.tq);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    tile_lse_delta<T, D>(p, o, dOs, lse, q0, lse_s, delta_s);
+    __syncthreads();
+    tile_p_ds<T, D>(p, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, Ps, dSs);
+    __syncthreads();
+    tile_ptx<T, D>(Ps, dOs, tx, ty, dv);
+    tile_ptx<T, D>(dSs, Qs, tx, ty, dk);
+    __syncthreads();  // the next query tile overwrites Qs, dOs, Ps, dSs
+  }
+  cp_async_wait<0>();  // no query tile at all: the K/V loads still land first
+  store_rows<T, D>(static_cast<T*>(p.dk) + (int64_t)bh * p.tk * D, k0, p.tk, tx, ty, dk, 1.0f);
+  store_rows<T, D>(static_cast<T*>(p.dv) + (int64_t)bh * p.tk * D, k0, p.tk, tx, ty, dv, 1.0f);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParams p) {
+  constexpr int LD = D + 4, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + kBM * LD;
+  T* Ks = dOs + kBM * LD;
+  T* Vs = Ks + kBN * LD;
+  float* dSs = reinterpret_cast<float*>(Vs + kBN * LD);
+  float* lse_s = dSs + kBM * kPLD;
+  float* delta_s = lse_s + kBM;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = (p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBM;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
+  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+  const float* lse = p.lse + (int64_t)bh * p.tq;
+
+  float dq[4][NC][4] = {};
+  const int n_kt = key_tiles(p, q0);
+  if (n_kt > 0) {
+    load_tile<T, D, kBM>(Qs, q, p.sq[2], q0, p.tq);
+    load_tile<T, D, kBM>(dOs, dout, p.sdo[2], q0, p.tq);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    tile_lse_delta<T, D>(p, o, dOs, lse, q0, lse_s, delta_s);
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBN;
+    load_tile<T, D, kBN>(Ks, k, p.sk[2], k0, p.tk);
+    load_tile<T, D, kBN>(Vs, v, p.sv[2], k0, p.tk);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    tile_p_ds<T, D>(p, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, nullptr, dSs);
+    __syncthreads();
+    tile_pv<T, D>(dSs, Ks, tx, ty, dq);
+    __syncthreads();  // the next key tile overwrites Ks, Vs, dSs
+  }
+  store_rows<T, D>(static_cast<T*>(p.dq) + (int64_t)bh * p.tq * D, q0, p.tq, tx, ty, dq, 1.0f);
+}
+
+template <typename T, int D> constexpr size_t fwd_smem() {
+  return (size_t)(kBM + 4 * kBN) * (D + 4) * sizeof(T) + (size_t)kBM * kPLD * sizeof(float);
+}
+template <typename T, int D> constexpr size_t dkv_smem() {
+  return (size_t)(2 * kBM + 2 * kBN) * (D + 4) * sizeof(T) +
+         (size_t)(2 * kBM * kPLD + 2 * kBM) * sizeof(float);
+}
+template <typename T, int D> constexpr size_t dq_smem() {
+  return (size_t)(2 * kBM + 2 * kBN) * (D + 4) * sizeof(T) +
+         (size_t)(kBM * kPLD + 2 * kBM) * sizeof(float);
+}
+
+// every configuration fits one CTA under the card's 227 KB
+static_assert(fwd_smem<float, 128>() <= 232448, "forward tile too large");
+static_assert(dkv_smem<float, 128>() <= 232448, "dK/dV tile too large");
+
+// Opt the kernel into more than the default 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t bytes) {
+  if (bytes > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t fwd_typed(const FlashParams& p, cudaStream_t st) {
+  constexpr size_t bytes = fwd_smem<T, D>();
+  cudaError_t err = prepare(flash_fwd_kernel<T, D>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<T, D><<<dim3((p.tq + kBM - 1) / kBM, p.b * p.h), kThreads, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t bwd_typed(const FlashParams& p, cudaStream_t st) {
+  constexpr size_t kv_bytes = dkv_smem<T, D>();
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<T, D>
+      <<<dim3((p.tk + kBN - 1) / kBN, p.b * p.h), kThreads, kv_bytes, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t q_bytes = dq_smem<T, D>();
+  err = prepare(flash_bwd_dq_kernel<T, D>, q_bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, D><<<dim3((p.tq + kBM - 1) / kBM, p.b * p.h), kThreads, q_bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+bool shape_ok(const FlashParams& p) {
+  return p.b > 0 && p.h > 0 && p.tq > 0 && p.tk > 0 && p.b * p.h <= 65535 &&
+         (p.d == 64 || p.d == 128) && (p.dtype == 0 || p.dtype == 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v (b, h, t, d), strided -> out (b, h, tq, d), lse_out (b, h, tq)
+int flash_attention_fwd(const FlashParams* p, void* stream) {
+  if (p == nullptr || !shape_ok(*p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p->dtype == 0) return (int)(p->d == 64 ? fwd_typed<float, 64>(*p, st) : fwd_typed<float, 128>(*p, st));
+  return (int)(p->d == 64 ? fwd_typed<__nv_bfloat16, 64>(*p, st)
+                          : fwd_typed<__nv_bfloat16, 128>(*p, st));
+}
+
+// q, k, v, o, dout (strided), lse -> dq (b, h, tq, d), dk, dv (b, h, tk, d):
+// the dK/dV kernel, then the dQ kernel
+int flash_attention_bwd(const FlashParams* p, void* stream) {
+  if (p == nullptr || !shape_ok(*p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p->dtype == 0) return (int)(p->d == 64 ? bwd_typed<float, 64>(*p, st) : bwd_typed<float, 128>(*p, st));
+  return (int)(p->d == 64 ? bwd_typed<__nv_bfloat16, 64>(*p, st)
+                          : bwd_typed<__nv_bfloat16, 128>(*p, st));
+}
+
+const char* flash_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -23,13 +23,14 @@ failure raises.
 
 KERNEL_DISPATCHES counts the runs each family accepted (the JAX package's
 counter of the same name); `stats()` adds the kernel launches of the
-wrappers, which only a run on the card makes.
+wrappers, which only a run on the card makes, the flash attention kernels'
+(ops/flash_attention.py, reached through their own ops) among them.
 """
 
 import numpy as np
 import torch
 
-from . import gemm_epilogue, layer_norm, multi_adam
+from . import flash_attention, gemm_epilogue, layer_norm, multi_adam
 from .registry import bcast_y, gather_op_inputs, register_fused, scatter_op_outputs
 
 __all__ = [
@@ -49,18 +50,21 @@ def _note_dispatch(family):
     KERNEL_DISPATCHES[family] = KERNEL_DISPATCHES.get(family, 0) + 1
 
 
+_KERNEL_MODULES = (flash_attention, gemm_epilogue, layer_norm, multi_adam)
+
+
 def stats():
     """{"dispatches": runs accepted per family, "launches": kernel launches
     per wrapper}."""
     launches = {}
-    for mod in (gemm_epilogue, layer_norm, multi_adam):
+    for mod in _KERNEL_MODULES:
         launches.update(mod.kernel_launches())
     return {"dispatches": dict(KERNEL_DISPATCHES), "launches": launches}
 
 
 def reset_stats():
     KERNEL_DISPATCHES.clear()
-    for mod in (gemm_epilogue, layer_norm, multi_adam):
+    for mod in _KERNEL_MODULES:
         mod.reset_kernel_launches()
 
 

@@ -1,9 +1,9 @@
 """The pass battery of the training_fused preset (reference
 framework/ir/*_pass.cc equivalents), copied from paddle_tpu/passes/builtin.py:
 constant_fold, dead_op_eliminate, fuse_elemwise_act, the kernel-substitution
-taggers fuse_gemm_epilogue / fuse_layer_norm / fuse_optimizer, and
-inplace_donation_plan. The JAX package's fuse_attention pass waits for the
-flash-attention slice.
+taggers fuse_gemm_epilogue / fuse_layer_norm / fuse_optimizer,
+inplace_donation_plan, and fuse_attention (in no preset, as in the JAX
+package).
 
 Every pass here preserves the RNG stream of the block: stochastic ops are
 never folded, eliminated, or reordered, because each surviving stochastic op
@@ -17,6 +17,7 @@ from .pass_base import Pass, register_pass
 __all__ = [
     "ConstantFoldPass",
     "DeadOpEliminatePass",
+    "FuseAttentionPass",
     "FuseElemwiseActPass",
     "FuseGemmEpiloguePass",
     "FuseLayerNormPass",
@@ -383,6 +384,185 @@ class FuseGemmEpiloguePass(Pass):
             ):
                 chain.append(act)
         return chain
+
+
+def _causal_neg_mask(arr, t):
+    """True iff arr is the additive causal mask idiom: exactly 0 on and
+    below the diagonal, <= -1e8 strictly above (np.triu(full(-1e9), k=1))."""
+    import numpy as np
+
+    arr = np.asarray(arr, dtype=np.float64)
+    if arr.shape != (t, t):
+        return False
+    lower = np.tril(np.ones((t, t), dtype=bool))
+    return bool(np.all(arr[lower] == 0.0) and np.all(arr[~lower] <= -1e8))
+
+
+@register_pass("fuse_attention")
+class FuseAttentionPass(Pass):
+    """SUBSTITUTE the unfused causal-attention score chain
+
+        matmul(Q, K, transpose_Y, alpha) -> elementwise_add(. , triu -1e9)
+        -> softmax -> matmul(. , V)
+
+    with ONE flash_attention op (ops/flash_attention.py) — unlike the
+    taggers above this rewrites def-use, deleting the [b, h, t, t] score
+    materialization from the program; on the card the op launches the
+    flash kernels, on the CPU it runs their plain versions. Conservative by
+    construction:
+
+    - the additive mask must be STATICALLY the causal idiom — an
+      assign_value op whose payload is 0 on/below the diagonal and <= -1e8
+      above (the -1e9 triu the dense blocks emit), or a scope constant with
+      the same values (constant_fold may have folded the assign);
+    - every replaced intermediate (raw scores, masked scores, probs, mask)
+      must have no consumer outside the chain and must not be fetched —
+      a program reading attention probabilities (or their grads: backward
+      ops consume them) keeps the unfused form;
+    - any op between softmax and the context matmul — dropout above all —
+      breaks adjacency and declines: stochastic ops are never removed or
+      reordered (the RNG-stream contract in the module docstring).
+
+    Fused-vs-unfused parity is within one online-softmax rounding, NOT
+    bit-identical: the chain's -1e9 additive mask leaks ~e^-1e9 probability
+    mass where the kernel's where-mask drops it exactly."""
+
+    def apply(self, graph, ctx):
+        from ..framework import Operator, OpRole
+        from ..ops.flash_attention import flash_path_taken
+
+        block = graph.program.global_block()
+        fetched = set(ctx.fetch_names)
+        fused = 0
+        changed = True
+        while changed:
+            changed = False
+            ops = block.ops
+            readers = {}
+            for op in ops:
+                for n in op.input_arg_names:
+                    readers.setdefault(n, []).append(op)
+            for i, op in enumerate(ops):
+                chain = self._chain_at(block, ops, i, readers, fetched, ctx)
+                if chain is None:
+                    continue
+                members, q, k, v, out, sm_scale, t = chain
+                attrs = {
+                    "causal": True,
+                    "sm_scale": float(sm_scale),
+                    OpRole.OP_ROLE_KEY: OpRole.Forward,
+                }
+                outputs = {"Out": [out]}
+                if flash_path_taken(t, t, causal=True):
+                    # mirror layers.flash_attention: declare the logsumexp
+                    # residual exactly when the lowering takes the kernel
+                    lse = block.create_var(
+                        name=out + ".lse", shape=None, dtype="float32"
+                    )
+                    lse.stop_gradient = True
+                    outputs["Lse"] = [lse.name]
+                fa = Operator(
+                    block,
+                    "flash_attention",
+                    inputs={"Q": [q], "K": [k], "V": [v]},
+                    outputs=outputs,
+                    attrs=attrs,
+                )
+                drop = set(id(m) for m in members)
+                idx = ops.index(members[0])
+                block.ops = [o for o in ops if id(o) not in drop]
+                block.ops.insert(idx, fa)
+                fused += 1
+                changed = True
+                graph.program._bump_version()
+                graph.refresh()
+                break
+        ctx.results[self.name] = {"fused": fused}
+        if fused:
+            _prune_orphan_vars(graph, keep=fetched | set(ctx.feed_names))
+
+    @staticmethod
+    def _chain_at(block, ops, i, readers, fetched, ctx):
+        """(members, q, k, v, out_name, sm_scale, t) or None."""
+        import numpy as np
+        import torch
+
+        mm1 = ops[i]
+        if (
+            mm1.type != "matmul"
+            or not mm1.attrs.get("transpose_Y", False)
+            or mm1.attrs.get("transpose_X", False)
+            or not mm1.output("Out")
+        ):
+            return None
+        j = i + 1
+        mask_op = None
+        if j < len(ops) and ops[j].type == "assign_value":
+            mask_op = ops[j]
+            j += 1
+        if j + 2 > len(ops) - 1:
+            return None
+        add, sm, mm2 = ops[j], ops[j + 1], ops[j + 2]
+        s0 = mm1.output("Out")[0]
+        if (
+            add.type != "elementwise_add"
+            or sm.type != "softmax"
+            or mm2.type != "matmul"
+            or add.input("X") != [s0]
+            or sm.input("X") != [add.output("Out")[0]]
+            or mm2.input("X") != [sm.output("Out")[0]]
+            or mm2.attrs.get("transpose_X", False)
+            or mm2.attrs.get("transpose_Y", False)
+            or float(mm2.attrs.get("alpha", 1.0)) != 1.0
+        ):
+            return None
+        # q/k/v must be rank-4 (b, h, t, d) — the flash op contract — with a
+        # static time extent to validate the mask against
+        q_name, k_name = mm1.input("X")[0], mm1.input("Y")[0]
+        v_name = mm2.input("Y")[0]
+        shapes = []
+        for n in (q_name, k_name, v_name):
+            try:
+                vv = block._var_recursive(n)
+            except KeyError:
+                return None
+            if vv.shape is None or len(vv.shape) != 4:
+                return None
+            shapes.append(tuple(vv.shape))
+        t = shapes[0][2]
+        if not isinstance(t, int) or t <= 0 or shapes[1][2] != t:
+            return None
+        # the mask must be statically the causal triu(-1e9) idiom
+        mask_name = add.input("Y")[0]
+        if mask_op is not None:
+            if mask_op.output("Out") != [mask_name]:
+                return None
+            vals = np.asarray(mask_op.attrs.get("values", ()))
+            shp = [int(s) for s in mask_op.attrs.get("shape", ())]
+            if shp != [t, t] or not _causal_neg_mask(vals.reshape(shp), t):
+                return None
+        else:
+            val = ctx.scope.find_var(mask_name) if ctx.scope else None
+            if val is None or not _causal_neg_mask(torch.as_tensor(val).cpu().numpy(), t):
+                return None
+        # replaced intermediates must die with the chain: no outside
+        # consumers (grad ops included), nothing fetched
+        members = [mm1] + ([mask_op] if mask_op is not None else []) + [
+            add, sm, mm2
+        ]
+        inside = set(id(m) for m in members)
+        dying = [s0, add.output("Out")[0], sm.output("Out")[0]]
+        if mask_op is not None:
+            dying.append(mask_name)
+        for n in dying:
+            if n in fetched:
+                return None
+            if any(id(r) not in inside for r in readers.get(n, ())):
+                return None
+        return (
+            members, q_name, k_name, v_name, mm2.output("Out")[0],
+            float(mm1.attrs.get("alpha", 1.0)), t,
+        )
 
 
 @register_pass("fuse_layer_norm")

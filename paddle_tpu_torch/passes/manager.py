@@ -25,8 +25,9 @@ Pipeline presets (FLAGS_pass_pipeline):
   run as hand-written CUDA kernels (ops/fused.py) instead of op by op.
   Fused and unfused runs agree within rounding (one rounding per fused
   chain instead of one per op).
-The JAX package's inference_int8 preset (calibration, int8 GEMM) and its
-fuse_attention pass wait for their slices of the port.
+fuse_attention (causal score chains into one flash_attention op) is in no
+preset, as in the JAX package. The JAX package's inference_int8 preset
+(calibration, int8 GEMM) waits for its slice of the port.
 """
 
 import time

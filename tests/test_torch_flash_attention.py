@@ -1,0 +1,482 @@
+"""Flash attention in the torch port (paddle_tpu_torch/ops/flash_attention.py,
+layers.flash_attention, the fuse_attention pass, the use_flash Transformer):
+
+- the op pair flash_attention / flash_attention_grad through both packages'
+  Executor.run, the JAX side running its Pallas kernels in interpret mode
+  (or its dense form where its path predicate declines a ragged length);
+- the streamed (long-context) tiers of the JAX package, forced at a small
+  length, against the port's plain versions;
+- the path predicates and the Lse declaration equal to the JAX package's;
+- FlashAttention.apply grads against jax.grad of the JAX flash_attention;
+- the fuse_attention pass tag for tag against the JAX pass;
+- a small use_flash Transformer trained 3 steps in both packages;
+- on a CUDA card (`cuda` marker), each kernel against its plain version.
+
+Tolerances, each with its reason:
+- f32 against the JAX package: rtol 2e-4, atol 2e-5, the JAX package's own
+  CPU bar for its flash kernel (tests/test_pallas_kernels.py:20-21): online
+  vs one-pass softmax, sums in another order;
+- the small Transformer: step-1 grads rtol 1e-4 (atol 1e-4 of the largest
+  magnitude), losses and state rtol 2e-3 atol 2e-4, as in
+  tests/test_torch_training.py;
+- kernel vs plain on the card, f32: out and lse atol = rtol = 1e-5, grads
+  rtol 1e-4 with atol 1e-4 of the plain result's largest magnitude (sums
+  of up to tk terms in another order); bf16 against the f32 plain version
+  on the same bf16-rounded inputs: 2e-2, the JAX package's on-chip bar.
+
+The JAX package is imported inside fixtures, so that on the card, where JAX
+is not installed, the `cuda` cases run alone
+(`python -m pytest --noconftest tests/test_torch_flash_attention.py -m cuda`).
+"""
+
+import collections
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.ops import flash_attention as fa
+
+RTOL, ATOL = 2e-4, 2e-5
+
+
+@pytest.fixture(scope="module")
+def jax_mods():
+    """(jax, jax.numpy, paddle_tpu.fluid, pallas_kernels) on the CPU."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    import paddle_tpu.fluid as jfluid
+    from paddle_tpu.ops import pallas_kernels
+
+    return jax, jnp, jfluid, pallas_kernels
+
+
+def _qkvg(seed, b, h, tq, tk, d):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, tq, d).astype("float32")
+    k = rng.randn(b, h, tk, d).astype("float32")
+    v = rng.randn(b, h, tk, d).astype("float32")
+    g = rng.randn(b, h, tq, d).astype("float32")
+    return q, k, v, g
+
+
+# --------------------------------------------------------------------------
+# the op pair through both packages' Executor.run
+# --------------------------------------------------------------------------
+
+OP_CASES = {
+    # name: (b, h, tq, tk, d, causal)
+    "t128": (2, 2, 128, 128, 16, False),
+    "t128_causal": (2, 2, 128, 128, 16, True),
+    "t32_unpacked_lse": (2, 2, 32, 32, 16, False),
+    "t32_unpacked_lse_causal": (2, 2, 32, 32, 16, True),
+    "tq512_tk600": (1, 2, 512, 600, 16, False),
+    # 100 is one whole tile (under every block target): Lse is declared
+    "t100_whole_tile_causal": (2, 2, 100, 100, 16, True),
+    # 600 is ragged under the causal 512 target: no Lse, the JAX package
+    # runs its dense form and its recompute-vjp
+    "ragged_t600_no_lse": (1, 2, 600, 600, 16, True),
+    "causal_tq256_tk128_masked_rows": (1, 2, 256, 128, 16, True),
+}
+
+
+def _op_program(pkg, backward, b, h, tq, tk, d, causal):
+    """out = flash_attention(q, k, v); loss = sum(out * g), differentiated
+    to q, k and v."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        L = pkg.layers
+        q = L.data(name="q", shape=[h, tq, d], dtype="float32")
+        k = L.data(name="k", shape=[h, tk, d], dtype="float32")
+        v = L.data(name="v", shape=[h, tk, d], dtype="float32")
+        g = L.data(name="g", shape=[h, tq, d], dtype="float32")
+        for x in (q, k, v):
+            x.stop_gradient = False
+        out = L.flash_attention(q, k, v, causal=causal, sm_scale=d ** -0.5)
+        loss = L.reduce_sum(L.elementwise_mul(out, g))
+        backward.append_backward(loss)
+    return main, startup, [out.name, "q@GRAD", "k@GRAD", "v@GRAD"]
+
+
+@pytest.mark.parametrize("case", list(OP_CASES))
+def test_op_pair_matches_jax(jax_mods, case):
+    _, _, jfluid, _ = jax_mods
+    from paddle_tpu.executor import Scope as JScope
+    from paddle_tpu.executor import scope_guard as jscope_guard
+
+    b, h, tq, tk, d, causal = OP_CASES[case]
+    q, k, v, g = _qkvg(len(case), b, h, tq, tk, d)
+    feed = {"q": q, "k": k, "v": v, "g": g}
+
+    jmain, jstartup, fetch = _op_program(jfluid, jfluid.backward, b, h, tq, tk, d, causal)
+    with jscope_guard(JScope(seed=0)):
+        exe = jfluid.Executor()
+        exe.run(jstartup)
+        want = [np.asarray(x) for x in exe.run(jmain, feed=feed, fetch_list=fetch)]
+
+    pmain, pstartup, _ = _op_program(pt, pt.backward, b, h, tq, tk, d, causal)
+    with pt.scope_guard(pt.Scope(seed=0, place=pt.CPUPlace())):
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(pstartup)
+        got = exe.run(pmain, feed=feed, fetch_list=fetch)
+
+    def ops(prog):
+        return [(op.type, sorted(op.outputs)) for op in prog.global_block().ops]
+
+    assert ops(pmain) == ops(jmain)
+    has_lse = fa.flash_path_taken(tq, tk, causal)
+    fwd = next(op for op in pmain.global_block().ops if op.type == "flash_attention")
+    assert ("Lse" in fwd.outputs) == has_lse == (case != "ragged_t600_no_lse")
+    grad = next(op for op in pmain.global_block().ops if op.type == "flash_attention_grad")
+    assert ("Lse" in grad.inputs) == has_lse
+    assert "Lse@GRAD" not in grad.inputs  # a stop-gradient output: no cotangent
+    for name, gv, wv in zip(fetch, got, want):
+        np.testing.assert_allclose(gv, wv, rtol=RTOL, atol=ATOL, err_msg=name)
+    if tq > tk and causal:
+        masked = tq - tk  # rows that see no key
+        assert np.all(got[0][:, :, :masked] == 0.0) and np.all(got[1][:, :, :masked] == 0.0)
+        assert np.all(want[0][:, :, :masked] == 0.0)
+
+
+# --------------------------------------------------------------------------
+# the JAX package's streamed tiers against the plain versions
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_streamed_tiers_match_plain(jax_mods, monkeypatch, causal):
+    _, jnp, _, pk = jax_mods
+    monkeypatch.setattr(pk, "_resident_ok", lambda *a: False)
+    b, h, t, d = 2, 2, 256, 32
+    q, k, v, g = _qkvg(3, b, h, t, t, d)
+    scale = d ** -0.5
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    jout, jlse = pk._flash_forward(jq, jk, jv, causal, scale, None, None, True, with_lse=True)
+    jgrads = pk._flash_backward(jq, jk, jv, jout, jlse, jg, causal, scale, None, None, True)
+    tq_, tk_, tv_, tg_ = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = fa.flash_forward_plain(tq_, tk_, tv_, causal, scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=RTOL, atol=ATOL)
+    grads = fa.flash_backward_plain(tq_, tk_, tv_, out, lse, tg_, causal, scale)
+    for name, got, want in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL,
+                                   err_msg="d" + name)
+
+
+# --------------------------------------------------------------------------
+# path predicates and the Lse declaration
+# --------------------------------------------------------------------------
+
+LENGTHS = [0, 1, 8, 32, 100, 128, 256, 384, 512, 600, 640, 1024, 1100, 1536, 2048, 3000,
+           4096, 16384]
+
+
+def test_predicates_match_jax(jax_mods):
+    _, _, _, pk = jax_mods
+    for t in LENGTHS:
+        assert fa.flash_tiles_ok(t) == pk.flash_tiles_ok(t), t
+        for block in (128, 256):
+            assert fa.flash_tiles_ok(t, block) == pk.flash_tiles_ok(t, block), (t, block)
+        for tk in LENGTHS:
+            for causal in (False, True):
+                assert fa.flash_path_taken(t, tk, causal) == pk.flash_path_taken(
+                    t, tk, causal), (t, tk, causal)
+    assert fa.flash_path_taken(512, 600, False) and not fa.flash_path_taken(512, 600, True)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(512, 600, False), (512, 600, True), (32, 32, True),
+                                          (100, 100, False), (4096, 4096, True)])
+def test_lse_declared_in_the_same_programs(jax_mods, tq, tk, causal):
+    _, _, jfluid, _ = jax_mods
+
+    def declares(pkg):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            q = pkg.layers.data(name="q", shape=[2, tq, 8], dtype="float32")
+            k = pkg.layers.data(name="k", shape=[2, tk, 8], dtype="float32")
+            pkg.layers.flash_attention(q, k, k, causal=causal)
+        (op,) = [o for o in main.global_block().ops if o.type == "flash_attention"]
+        return "Lse" in op.outputs
+
+    assert declares(pt) == declares(jfluid) == fa.flash_path_taken(tq, tk, causal)
+
+
+# --------------------------------------------------------------------------
+# autograd against jax.grad
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_autograd_matches_jax_grad(jax_mods, causal):
+    jax, jnp, _, pk = jax_mods
+    q, k, v, g = _qkvg(11, 2, 2, 128, 128, 16)
+    jg = jnp.asarray(g)
+
+    def loss(a, b, c):
+        return jnp.sum(pk.flash_attention(a, b, c, causal, None) * jg)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*ts, causal=causal)
+    (out * torch.from_numpy(g)).sum().backward()
+    for name, t, w in zip("qkv", ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL,
+                                   err_msg="d" + name)
+
+
+# --------------------------------------------------------------------------
+# fuse_attention against the JAX pass
+# --------------------------------------------------------------------------
+
+
+def _tiny_decoder(models):
+    dec = models.GPTDecoder(vocab_size=64, d_model=32, n_head=4, n_layer=2, max_context=16,
+                            prefix="tfa")
+    return dec.build_forward(batch=1, t=8)
+
+
+def _op_view(program):
+    return [(op.type, sorted(op.input_arg_names), sorted(op.output_arg_names),
+             {k: v for k, v in op.attrs.items() if k in ("causal", "sm_scale")})
+            for op in program.global_block().ops]
+
+
+@pytest.mark.parametrize("pipeline", [["fuse_attention"], ["constant_fold", "fuse_attention"]],
+                         ids=["fuse_attention", "constant_fold_first"])
+def test_fuse_attention_matches_jax_pass(jax_mods, pipeline):
+    _, _, jfluid, _ = jax_mods
+    from paddle_tpu import models as jmodels
+    from paddle_tpu.executor import Scope as JScope
+    from paddle_tpu.executor import scope_guard as jscope_guard
+    from paddle_tpu.passes import PassManager as JPassManager
+
+    from paddle_tpu_torch import models as pmodels
+    from paddle_tpu_torch.passes import PassManager
+
+    toks = np.random.RandomState(3).randint(0, 64, size=(1, 8, 1)).astype("int64")
+    jmain, jstartup, feeds, fetches = _tiny_decoder(jmodels)
+    jscope = JScope(seed=11)
+    with jscope_guard(jscope):
+        jfluid.Executor().run(jstartup)
+        jfused = JPassManager(pipeline).apply(jmain, scope=jscope, feed_names=feeds,
+                                              fetch_names=fetches)
+    main, startup, pfeeds, pfetches = _tiny_decoder(pmodels)
+    assert (pfeeds, pfetches) == (feeds, fetches)
+    scope = pt.Scope(seed=11, place=pt.CPUPlace())
+    exe = pt.Executor(pt.CPUPlace())
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        (ref,) = exe.run(main, feed={feeds[0]: toks}, fetch_list=fetches)
+        fused = PassManager(pipeline).apply(main, scope=scope, feed_names=feeds,
+                                            fetch_names=fetches)
+        (got,) = exe.run(fused, feed={feeds[0]: toks}, fetch_list=fetches)
+    assert fused._pass_results["fuse_attention"] == jfused._pass_results["fuse_attention"]
+    assert fused._pass_results["fuse_attention"]["fused"] == 2
+    assert _op_view(fused) == _op_view(jfused)
+    types = [op.type for op in fused.global_block().ops]
+    assert "softmax" not in types and types.count("flash_attention") == 2
+    assert np.abs(got - ref).max() < 1e-4
+
+
+def test_fuse_attention_declines_on_fetched_softmax(jax_mods):
+    from paddle_tpu import models as jmodels
+    from paddle_tpu.passes import PassManager as JPassManager
+
+    from paddle_tpu_torch import models as pmodels
+    from paddle_tpu_torch.passes import PassManager
+
+    results = []
+    for models, manager, scope in ((jmodels, JPassManager, None),
+                                   (pmodels, PassManager, pt.Scope(place=pt.CPUPlace()))):
+        main, _, feeds, fetches = _tiny_decoder(models)
+        sm_out = [op.output("Out")[0] for op in main.global_block().ops
+                  if op.type == "softmax"][0]
+        res = manager(["fuse_attention"]).apply(main, scope=scope, feed_names=feeds,
+                                                fetch_names=list(fetches) + [sm_out])
+        results.append((res._pass_results["fuse_attention"]["fused"], _op_view(res)))
+    assert results[0][0] == results[1][0] == 1
+    assert results[0][1] == results[1][1]
+
+
+# --------------------------------------------------------------------------
+# the small use_flash Transformer trained 3 steps in both packages
+# --------------------------------------------------------------------------
+
+STEPS = 3
+
+
+@pytest.fixture(scope="module")
+def flash_runs(jax_mods):
+    from torch_transformer_case import SMALL_FLASH, jax_run, port_run
+
+    j = jax_run(SMALL_FLASH, "training_fused", STEPS)
+    p = port_run(SMALL_FLASH, "training_fused", j["init"], STEPS)
+    return j, p
+
+
+def test_flash_transformer_same_program(flash_runs):
+    j, p = flash_runs
+    assert j["grads"] == p["grads"] and j["names"] == p["names"]
+    ops = collections.Counter(op.type for op in p["program"].global_block().ops)
+    assert ops == j["ops"]
+    # encoder self, decoder self (causal) and cross attention, each one op
+    assert ops["flash_attention"] == ops["flash_attention_grad"] == 3
+    assert "softmax" not in ops
+    assert p["stats"]["dispatches"] == {k: STEPS * v for k, v in j["dispatches"].items()}
+    assert not any(p["stats"]["launches"].values())  # the CPU takes the plain versions
+
+
+def test_flash_transformer_step1_grads_match(flash_runs):
+    j, p = flash_runs
+    for g in j["grads"]:
+        want = j["step1"][g]
+        np.testing.assert_allclose(p["step1"][g], want, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(want).max()), err_msg=g)
+
+
+def test_flash_transformer_losses_and_state_match(flash_runs):
+    j, p = flash_runs
+    assert np.all(np.isfinite(p["losses"]))
+    np.testing.assert_allclose(p["losses"], j["losses"], rtol=2e-3, atol=2e-4)
+    for n in j["names"]:
+        np.testing.assert_allclose(p["final"][n], j["final"][n], rtol=2e-3, atol=2e-4,
+                                   err_msg=n)
+
+
+def test_tiny_flash_transformer_builds_the_same_program(jax_mods):
+    _, _, jfluid, _ = jax_mods
+    from paddle_tpu.models import transformer as jtransformer
+
+    from paddle_tpu_torch.models import transformer as ptransformer
+
+    views = []
+    for pkg, tr in ((jfluid, jtransformer), (pt, ptransformer)):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            feeds, loss = tr.build_tiny_flash_transformer()
+        views.append((sorted(feeds), [(op.type, sorted(op.output_arg_names))
+                                      for op in main.global_block().ops]))
+    assert views[0] == views[1]
+    feed = ptransformer.tiny_flash_transformer_feed(2)
+    want = jtransformer.tiny_flash_transformer_feed(2)
+    assert feed.keys() == want.keys()
+    assert all(np.array_equal(feed[n], want[n]) for n in feed)
+
+
+# --------------------------------------------------------------------------
+# CPU tensors take the plain versions, uncounted
+# --------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_versions_uncounted():
+    q, k, v, g = (torch.from_numpy(x) for x in _qkvg(5, 1, 2, 64, 64, 64))
+    before = fa.kernel_launches()
+    out, lse = fa.flash_forward(q, k, v, True, 0.125)
+    want = fa.flash_forward_plain(q, k, v, True, 0.125)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    got = fa.flash_backward(q, k, v, out, lse, g, True, 0.125)
+    want = fa.flash_backward_plain(q, k, v, out, lse, g, True, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert fa.kernel_launches() == before
+
+
+# --------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+CUDA_CASES = {
+    # name: (b, h, tq, tk, d, causal, dtype, strided)
+    "main": (4, 8, 256, 256, 64, False, torch.float32, True),
+    "main_causal": (4, 8, 256, 256, 64, True, torch.float32, True),
+    "ragged": (2, 3, 100, 77, 64, False, torch.float32, False),
+    "ragged_causal_tk_longer": (2, 3, 77, 200, 64, True, torch.float32, False),
+    "causal_masked_rows": (1, 2, 200, 128, 64, True, torch.float32, False),
+    "d128": (2, 4, 256, 256, 128, False, torch.float32, True),
+    "d128_causal": (2, 4, 192, 192, 128, True, torch.float32, False),
+    "bf16": (2, 8, 256, 256, 64, False, torch.bfloat16, True),
+    "bf16_causal_d128": (2, 4, 256, 256, 128, True, torch.bfloat16, False),
+}
+
+
+def _cuda_case(name, device):
+    b, h, tq, tk, d, causal, dtype, strided = CUDA_CASES[name]
+    arrs = _qkvg(len(name), b, h, tq, tk, d)
+    if strided:  # (b, t, h, d) memory seen as (b, h, t, d), as the model hands it over
+        ts = [torch.from_numpy(a.transpose(0, 2, 1, 3).copy()).to(device).transpose(1, 2)
+              for a in arrs]
+    else:
+        ts = [torch.from_numpy(a).to(device) for a in arrs]
+    return [t.to(dtype) for t in ts], causal, d ** -0.5
+
+
+def _grad_close(got, want, tol_r, tol_a):
+    atol = tol_a * float(want.abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol_r, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CUDA_CASES))
+def test_cuda_kernels_match_plain(cuda_device, name):
+    (q, k, v, g), causal, scale = _cuda_case(name, cuda_device)
+    form = "_causal" if causal else ""
+    before = fa.kernel_launches()
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    grads = fa.flash_backward(q, k, v, out, lse, g, causal, scale)
+    torch.cuda.synchronize()
+    after = fa.kernel_launches()
+    for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert after[kern + form] == before[kern + form] + 1, kern
+    # the plain version in f32 on the same (rounded) inputs
+    f32 = [t.float() for t in (q, k, v, g)]
+    pout, plse = fa.flash_forward_plain(*f32[:3], causal, scale)
+    pgrads = fa.flash_backward_plain(*f32[:3], out.float(), lse, f32[3], causal, scale)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(out, pout, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+        for got, want in zip(grads, pgrads):
+            _grad_close(got, want, 1e-4, 1e-4)
+    else:
+        torch.testing.assert_close(out.float(), pout, atol=2e-2, rtol=2e-2)
+        for got, want in zip(grads, pgrads):
+            scale_ = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got.float() / scale_, want / scale_, atol=2e-2, rtol=2e-2)
+    tq, tk = q.shape[2], k.shape[2]
+    if causal and tq > tk:
+        assert float(out[:, :, : tq - tk].abs().max()) == 0.0
+        assert float(lse[:, :, : tq - tk].abs().max()) == 0.0
+        assert float(grads[0][:, :, : tq - tk].abs().max()) == 0.0
+    # no float atomics: the backward repeats bit for bit
+    again = fa.flash_backward(q, k, v, out, lse, g, causal, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_matches_plain(cuda_device):
+    (q, k, v, g), causal, scale = _cuda_case("main_causal", cuda_device)
+    ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    (fa.flash_attention(*ts, causal=True) * g).sum().backward()
+    out, lse = fa.flash_forward_plain(q, k, v, True, scale)
+    want = fa.flash_backward_plain(q, k, v, out, lse, g, True, scale)
+    for t, w in zip(ts, want):
+        _grad_close(t.grad, w, 1e-4, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_head_width_it_does_not_take(cuda_device):
+    q = torch.randn(1, 2, 64, 32, device=cuda_device)
+    before = fa.kernel_launches()
+    with pytest.raises(ValueError, match="head width d=32"):
+        fa.flash_forward(q, q, q, False, 0.2)
+    assert fa.kernel_launches() == before

@@ -24,19 +24,9 @@ import pytest
 
 import jax
 
-import paddle_tpu.fluid as jfluid
-from paddle_tpu import flags as jflags
-from paddle_tpu.executor import Scope as JScope
-from paddle_tpu.executor import scope_guard as jscope_guard
-from paddle_tpu.models import transformer as jtransformer
-from paddle_tpu.ops import pallas_kernels as jpk
+from paddle_tpu_torch.ops import registry
 
-import paddle_tpu_torch as pt
-from paddle_tpu_torch import convert
-from paddle_tpu_torch.models import transformer as ptransformer
-from paddle_tpu_torch.ops import fused, registry
-
-from torch_transformer_case import SMALL, build, make_batch
+from torch_transformer_case import SMALL, jax_run, port_run
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -44,66 +34,10 @@ STEPS = 3
 FAMILIES = ("gemm_epilogue", "layer_norm", "layer_norm_grad", "multi_adam")
 
 
-def _jax_run(pipeline):
-    jflags.set_flags({"pass_pipeline": pipeline})
-    jpk.KERNEL_DISPATCHES.clear()
-    try:
-        main, startup, loss = build(jfluid, jtransformer, SMALL)
-        grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()
-                 if p.trainable]
-        names = convert.persistable_names(main)
-        scope = JScope(seed=7)
-        exe = jfluid.Executor()
-        losses, step1 = [], None
-        with jscope_guard(scope):
-            exe.run(startup)
-            init = {n: np.array(np.asarray(scope.vars[n])) for n in names}
-            for s in range(STEPS):
-                out = exe.run(main, feed=make_batch(SMALL, s),
-                              fetch_list=[loss.name] + grads)
-                losses.append(np.asarray(out[0]).copy())
-                if s == 0:
-                    step1 = {g: np.asarray(v).copy() for g, v in zip(grads, out[1:])}
-            final = {n: np.array(np.asarray(scope.vars[n])) for n in names}
-        ops = collections.Counter(op.type for op in main.global_block().ops)
-        return dict(losses=np.stack(losses), step1=step1, init=init, final=final,
-                    grads=grads, names=names, dispatches=dict(jpk.KERNEL_DISPATCHES),
-                    ops=ops)
-    finally:
-        jflags.set_flags({"pass_pipeline": ""})
-
-
-def _port_run(pipeline, init):
-    pt.flags.set_flags({"pass_pipeline": pipeline})
-    fused.reset_stats()
-    try:
-        main, startup, loss = build(pt, ptransformer, SMALL)
-        grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()
-                 if p.trainable]
-        names = convert.persistable_names(main)
-        scope = pt.Scope(seed=0, place=pt.CPUPlace())
-        exe = pt.Executor(pt.CPUPlace())
-        losses, step1 = [], None
-        with pt.scope_guard(scope):
-            exe.run(startup)
-            convert.load_into_scope(scope, init, names)
-            for s in range(STEPS):
-                out = exe.run(main, feed=make_batch(SMALL, s),
-                              fetch_list=[loss.name] + grads)
-                losses.append(out[0])
-                if s == 0:
-                    step1 = dict(zip(grads, out[1:]))
-            final = convert.scope_to_numpy(scope, names)
-        return dict(losses=np.stack(losses), step1=step1, final=final, grads=grads,
-                    names=names, stats=fused.stats(), program=main)
-    finally:
-        pt.flags.set_flags({"pass_pipeline": ""})
-
-
 @pytest.fixture(scope="module", params=["training_fused", ""], ids=["training_fused", "no_pipeline"])
 def runs(request):
-    j = _jax_run(request.param)
-    p = _port_run(request.param, j["init"])
+    j = jax_run(SMALL, request.param, STEPS)
+    p = port_run(SMALL, request.param, j["init"], STEPS)
     return request.param, j, p
 
 
