@@ -27,6 +27,12 @@ Phases, each printing its own line; any failure exits non-zero:
        graph); the same at (1, 2, 16384, 64), where the JAX package takes
        its streamed tiers; bf16 at the main shape against the f32 plain
        version on the same rounded inputs at 2e-2;
+     - the int8 paged flash forms at path A's shapes (decode q [16, 768] /
+       table [16, 64]; prefill chunk q [32, 768] / table [64]; int8 pools
+       with per-row f32 scales), atol = rtol = 1e-5;
+     - the quant GEMM at 1024 x 2048 @ 2048 x 2048: int8 with relu and with
+       no act, bit for bit; e4m3, rtol 1e-5 of the largest |z|; timed
+       beside torch._int_mm and torch._scaled_mm;
   3. serving: a GenerationEngine over GPTDecoder at GPT-2 small's widths
      (12 layers, 12 heads, d_model 768, d_inner 3072, vocab 50257, 1024
      positions; random weights from a seed), warmup(), then a
@@ -39,6 +45,20 @@ Phases, each printing its own line; any failure exits non-zero:
      then that program rewritten by the fuse_attention pass (12
      flash_attention ops, no softmax, 12 forward kernel launches) against
      the unfused one, logits within 1e-4;
+  4b. serve int8 KV (path A): GPT-2 small over int8 KV pools at 16 slots
+     with the f32 engine's weights, a GenerationScheduler answering 16
+     concurrent greedy requests (the serve prompts, each twice; 32 new
+     tokens each): all finish, no variant rebuilt, both int8 paged kernels
+     launched; logits against the f32 pools within a relative drift of 0.05
+     on shared contexts; the kernel path against paged_flash off on the
+     same int8 pools within 1e-4;
+  4c. serve int8 GEMM (path B): the fc head of the JAX package's int8
+     serving bench (3 x fc(2048 -> 2048, relu), fc(2048 -> 16)) fitted 30
+     steps by the port's Executor + Adam, saved by io.py, served by an f32
+     and a calibrated-int8 ServingEngine: 8 batches of 250 rows and one of
+     1024; 4 muls quantized, frozen and fused; quant GEMM launches per call
+     equal to the chains the predicate accepts; top-1 delta <= 0.005 and
+     max relative logit error < 0.05; rows/s and the single shot's wall;
   5. training: Transformer base (6 layers, d_model 512, d_ff 2048, 8 heads,
      vocab 37000, batches of 16 x 256 tokens, dropout 0.1, f32; random
      weights from a seed) trained by Executor.run under the training_fused
@@ -85,6 +105,23 @@ KERNEL_META = {
     "paged_flash": ("paddle_tpu/ops/pallas_kernels.py:1470", False),
     "paged_flash_shared": ("paddle_tpu/ops/pallas_kernels.py:1505", True),
 }
+
+# int8 serving: path A, int8 KV pools at twice the f32 engine's slots (the
+# JAX package's int8-KV recipe, bench.py:2101-2109); path B, the JAX
+# package's calibrated-int8 ServingEngine vehicle, the fc head of
+# bench.py:2031-2064 (3 x fc(2048 -> 2048, relu), fc(2048 -> 16))
+INT8_ENGINE = dict(ENGINE, max_slots=16)
+INT8_KERNEL_META = {
+    "paged_flash_int8": ("paddle_tpu/ops/pallas_kernels.py:1540", False),
+    "paged_flash_shared_int8": ("paddle_tpu/ops/pallas_kernels.py:1579", True),
+}
+INT8_DRIFT = 0.05  # int8 vs f32 pools, relative (tests/test_quant.py:271-272)
+HEAD = dict(d_model=2048, classes=16, depth=3)
+HEAD_FIT_STEPS, HEAD_FIT_ROWS = 30, 64
+HEAD_EVAL_BATCHES, HEAD_EVAL_ROWS, HEAD_SHOT_ROWS = 8, 250, 1024
+HEAD_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+TOP1_DELTA, HEAD_REL_ERR = 0.005, 0.05  # the JAX package's int8 serving gates
+INT8_TOPS = 1979e12  # H100 SXM dense int8 / fp8 tensor-core rate, NVIDIA data sheet
 
 # training kernels: tolerances against the plain versions
 GEMM_TOL = 1e-4  # k up to 2048, sums in another order
@@ -616,6 +653,164 @@ def check_flash(torch, device, flush):
     return entries
 
 
+def int8_paged_case(torch, device, shared, seed):
+    """Path A's inputs: pools of 1025 pages of 16 rows x 768 int8 levels
+    with a per-row f32 scale, decode rows of 16 slots with per-slot tables,
+    or one prefill chunk of 32 rows with a shared table."""
+    rng = np.random.RandomState(seed)
+    ps, n_head, d = INT8_ENGINE["page_size"], 12, 64
+    feat = n_head * d
+    max_pages = INT8_ENGINE["max_context"] // ps
+    pool_pages = INT8_ENGINE["max_slots"] * max_pages + 1
+    pools = []
+    for _ in range(2):
+        pools.append(rng.randint(-127, 128, (pool_pages * ps, feat)).astype(np.int8))
+        pools.append((rng.rand(pool_pages * ps) * 0.05 + 1e-3).astype("float32"))
+    pages = rng.permutation(np.arange(1, pool_pages)).astype(np.int32)
+    if shared:
+        rows = 32
+        pos = np.arange(600, 600 + rows, dtype=np.int32)
+        pos[-2:] = -1
+        bt = np.zeros(max_pages, np.int32)
+        need = pos.max() // ps + 1
+        bt[:need] = pages[:need]
+    else:
+        rows = INT8_ENGINE["max_slots"]
+        # idle slots, first row, page boundaries, partly filled last pages,
+        # the last position of the context
+        pos = np.array([-1, 0, 15, 16, 31, 32, 100, 333, 471, 569, 700, 871, 990, 1022, 1023,
+                        -1], np.int32)
+        bt = np.zeros((rows, max_pages), np.int32)
+        used = 0
+        for r in range(rows):
+            need = pos[r] // ps + 1 if pos[r] >= 0 else 0
+            bt[r, :need] = pages[used:used + need]
+            used += need
+    q = rng.randn(rows, feat).astype("float32")
+    kp, ks, vp, vs = (torch.from_numpy(a).to(device) for a in pools)
+    args = [torch.from_numpy(q).to(device), kp, vp] + [
+        torch.from_numpy(a).to(device) for a in (bt, pos)]
+    return args, dict(n_head=n_head, page_size=ps, k_scales=ks, v_scales=vs)
+
+
+def check_int8_paged(torch, pf, device, flush):
+    """Rows 3-4 at path A's shapes against the plain int8 version."""
+    results = {}
+    for name, (replaces, shared) in INT8_KERNEL_META.items():
+        args, kw = int8_paged_case(torch, device, shared, SEED + 30 + shared)
+        got = pf.paged_flash_attention(*args, **kw)
+        want = pf.paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = _close(torch, name, got, want, ATOL, RTOL)
+        dead = args[4] < 0
+        if dead.any() and float(got[dead].abs().max()) != 0.0:
+            raise AssertionError("%s: pos < 0 rows are not exact zeros" % name)
+        kernel = lambda: pf.paged_flash_attention(*args, **kw)  # noqa: E731
+        ms = time_ms(torch, kernel, 50, flush, gated=True)
+        plain_ms = time_ms(torch, lambda: pf.paged_attention_plain(*args, **kw), 10, flush,
+                           gated=True)
+        q, bt, pos = args[0], args[3], args[4].tolist()
+        rows, feat, ps, n_pages = q.shape[0], q.shape[1], kw["page_size"], bt.shape[-1]
+        live = [min(int(p) + 1, n_pages * ps) if p >= 0 else 0 for p in pos]
+        kv_rows = ((max(live) + ps - 1) // ps * ps if shared
+                   else sum((n + ps - 1) // ps * ps for n in live))
+        # K and V rows at 1 B an element plus a 4-byte scale each; q, out f32
+        nbytes = (2 * kv_rows * (feat + 4) + 2 * rows * feat * 4 + bt.numel() * 4 + rows * 4)
+        bound_ms, bound_by = _bound(nbytes, sum(4 * n * feat for n in live) + 2 * kv_rows * feat)
+        log("kernel %s: q %s table %s int8 pools, per-row scales; max_abs_err %.3g "
+            "(atol=rtol=%g) kernel %.4f ms (device); plain %.4f ms; bound %.4f ms (%s)" % (
+                name, tuple(q.shape), tuple(bt.shape), err, ATOL, ms, plain_ms, bound_ms,
+                bound_by))
+        # no single PyTorch call reads a paged pool through a block table
+        results[name] = _entry(name, "paddle_tpu_torch/ops/csrc/paged_flash.cu", replaces, err,
+                               ms, plain_ms, bound_ms, bound_by, None)
+    return results
+
+
+QGEMM_SHAPE = (1024, 2048, 2048)  # (m, k, n): path B's single shot through a hidden layer
+
+
+def check_quant_gemm(torch, device, flush):
+    """Row 7 at path B's single-shot shape: int8 with relu (the hidden
+    layers' form, the kernels-line entry) and with no act, bit for bit
+    against the plain version; e4m3 against the plain version at rtol 1e-5
+    of the largest |z|. Yardsticks: torch._int_mm (the int8 product alone,
+    no epilogue) and torch._scaled_mm (the fp8 form without an act)."""
+    from paddle_tpu_torch.ops import quant_gemm as qg
+
+    m, k, n = QGEMM_SHAPE
+    rng = np.random.RandomState(SEED + 40)
+    xi = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8)).to(device)
+    wi = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(np.int8)).to(device)
+    scale = torch.tensor(3.1e-6, device=device)
+    bias = torch.from_numpy(rng.randn(n).astype("float32")).to(device)
+    entries = {}
+    for act in ("relu", None):
+        z, y = qg.quant_gemm_bias_act(xi, wi, scale, bias, act)
+        zp, yp = qg.quant_gemm_bias_act_plain(xi, wi, scale, bias, act)
+        torch.cuda.synchronize()
+        if not torch.equal(z, zp) or (act and not torch.equal(y, yp)):
+            raise AssertionError("quant_gemm int8 %s: differs from the plain version, max abs "
+                                 "err %g" % (act, float((z - zp).abs().max())))
+        ms = time_ms(torch, lambda: qg.quant_gemm_bias_act(xi, wi, scale, bias, act), 20, flush,
+                     gated=True)
+        plain_ms = time_ms(torch, lambda: qg.quant_gemm_bias_act_plain(xi, wi, scale, bias, act),
+                           5, flush, gated=True)
+        lib_ms = time_ms(torch, lambda: torch._int_mm(xi, wi), 20, flush, gated=True)
+        bound_ms, bound_by = _qgemm_bound(m, k, n, act)
+        log("kernel quant_gemm int8 act %s: x %s @ w %s, equal to the plain version bit for bit; "
+            "kernel %.4f ms (device); plain (float64 product) %.4f ms; torch._int_mm (the int8 "
+            "product alone, no epilogue) %.4f ms; bound %.4f ms (%s)" % (
+                act, (m, k), (k, n), ms, plain_ms, lib_ms, bound_ms, bound_by))
+        if act:
+            entries["quant_gemm_int8"] = _entry(
+                "quant_gemm_int8", "paddle_tpu_torch/ops/csrc/quant_gemm.cu",
+                "paddle_tpu/ops/pallas_kernels.py:1274", 0.0, ms, plain_ms, bound_ms, bound_by,
+                lib_ms)
+    del xi, wi
+    f8 = torch.float8_e4m3fn
+    xf = torch.from_numpy(np.clip(rng.randn(m, k) * 8, -448, 448).astype("float32")).to(device).to(f8)
+    wf = torch.from_numpy(np.clip(rng.randn(k, n), -448, 448).astype("float32")).to(device).to(f8)
+    fscale = torch.tensor(0.0625, device=device)
+    z, _ = qg.quant_gemm_bias_act(xf, wf, fscale, bias, None)
+    zp, _ = qg.quant_gemm_bias_act_plain(xf, wf, fscale, bias, None)
+    torch.cuda.synchronize()
+    err = _close(torch, "quant_gemm fp8", z, zp, 1e-5 * float(zp.abs().max()), 1e-5)
+    ms = time_ms(torch, lambda: qg.quant_gemm_bias_act(xf, wf, fscale, bias, None), 20, flush,
+                 gated=True)
+    plain_ms = time_ms(torch, lambda: qg.quant_gemm_bias_act_plain(xf, wf, fscale, bias, None), 5,
+                       flush, gated=True)
+    wcol = wf.t().contiguous().t()  # _scaled_mm takes its second operand column-major
+    one = torch.ones((), device=device)
+    lib_ms = time_ms(torch, lambda: torch._scaled_mm(xf, wcol, scale_a=one, scale_b=fscale,
+                                                     out_dtype=torch.float32), 20, flush,
+                     gated=True)
+    bound_ms, bound_by = _qgemm_bound(m, k, n, None)
+    launches = qg.kernel_launches()["quant_gemm_fp8"]
+    log("kernel quant_gemm fp8 (e4m3): x %s @ w %s max_abs_err %.3g (rtol 1e-5 of max |z| %.4g) "
+        "kernel %.4f ms (device); plain (f32 product) %.4f ms; torch._scaled_mm (no bias) %.4f ms; "
+        "bound %.4f ms (%s); no path reaches it, %d launches here" % (
+            (m, k), (k, n), err, float(zp.abs().max()), ms, plain_ms, lib_ms, bound_ms, bound_by,
+            launches))
+    entry = _entry("quant_gemm_fp8", "paddle_tpu_torch/ops/csrc/quant_gemm.cu",
+                   "paddle_tpu/ops/pallas_kernels.py:1274", err, ms, plain_ms, bound_ms, bound_by,
+                   lib_ms)
+    # no main path in either package emits fp8 operands: its launches are
+    # this phase's own
+    entry["launches"] = launches
+    entry["path"] = None
+    entries["quant_gemm_fp8"] = entry
+    return entries
+
+
+def _qgemm_bound(m, k, n, act):
+    """Each 1-byte operand read once, bias and scale read once, z (and y)
+    written once; 2mnk operations at the int8 / fp8 tensor-core rate."""
+    nbytes = m * k + k * n + 4 * n + 4 + (2 if act else 1) * m * n * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * n * k / INT8_TOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -649,7 +844,7 @@ def serve(torch, pf, engine, card):
         futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=NO_EOS) for p in prompts]
         results = [f.result(600) for f in futs]
         wall = time.perf_counter() - t0
-        launches = pf.kernel_launches()
+        launches = {k: v for k, v in pf.kernel_launches().items() if k in KERNEL_META}
     finally:
         assert sched.close(drain=True)
         del engine.decode_step, engine.prefill_step
@@ -744,6 +939,260 @@ def paged_vs_dense(torch, engine):
     log("fuse_attention: %d score chains -> flash_attention, no softmax left; %d forward "
         "kernel launches; logits over %d positions max abs err %.3g against the unfused "
         "program (atol=rtol=%g)" % (n_layer, launches, T, ferr, LOGIT_ATOL))
+
+
+def _stepwise(engine, prompt, n_new):
+    """(tokens, logits of every step) of one request run alone."""
+    from paddle_tpu_torch.serving import GenRequest
+
+    run = engine.start(GenRequest(prompt, max_new_tokens=n_new, eos_id=NO_EOS))
+    rows = [np.array(engine.last_prefill_logits)]
+    try:
+        while not run.done:
+            engine.decode_step([run])
+            rows.append(np.array(engine.last_logits[run.slot]))
+    finally:
+        engine.finish(run)
+    return list(run.tokens), rows
+
+
+def serve_int8_kv(torch, pf, f32_engine, card):
+    """Path A: GPT-2 small over int8 KV pools at 16 slots, the f32 engine's
+    weights copied in by name; 16 concurrent requests through the
+    scheduler, then the last-step logits against the f32 pools and the
+    kernel path against the plain one (paged_flash off) on the same int8
+    pools. Returns the int8 paged kernels' launches over the requests."""
+    from paddle_tpu_torch import CUDAPlace, flags
+    from paddle_tpu_torch.models import GPTDecoder
+    from paddle_tpu_torch.serving import GenerationEngine, GenerationScheduler
+
+    t0 = time.perf_counter()
+    engine = GenerationEngine(GPTDecoder(kv_dtype="int8", **GPT2_SMALL), name="gpt2_small_int8",
+                              place=CUDAPlace(0), **INT8_ENGINE)
+    with torch.no_grad():
+        for name in engine.model.param_names():
+            engine.scope.vars[name].copy_(f32_engine.scope.vars[name])
+    n = engine.warmup()
+    torch.cuda.synchronize()
+    log("int8 engine: %d variants built, %d slots, params copied from the f32 engine, ready in "
+        "%.1f s; KV pools %.3f GB (int8 levels + f32 row scales) against %.3f GB of f32 pools "
+        "at %d slots" % (n, INT8_ENGINE["max_slots"], time.perf_counter() - t0,
+                         engine.kv_state_bytes / 1e9, f32_engine.kv_state_bytes / 1e9,
+                         ENGINE["max_slots"]))
+    rng = np.random.RandomState(SEED + 2)
+    prompts = [rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist()
+               for n in PROMPT_LENS * 2]
+    traces = engine.traces
+    step_ms, chunk_ms = [], []
+    engine.decode_step = timed(engine.decode_step, step_ms)
+    engine.prefill_step = timed(engine.prefill_step, chunk_ms)
+    sched = GenerationScheduler(engine, max_queue_requests=64, timeout_ms=600000.0)
+    try:
+        pf.reset_kernel_launches()  # the main path's counting window opens here
+        t0 = time.perf_counter()
+        futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=NO_EOS) for p in prompts]
+        results = [f.result(600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = pf.kernel_launches()  # and closes here
+    finally:
+        assert sched.close(drain=True)
+        del engine.decode_step, engine.prefill_step
+    for p, r in zip(prompts, results):
+        if r.finish_reason != "length" or len(r.tokens) != NEW_TOKENS:
+            raise AssertionError("int8 request of %d tokens: %r %d tokens" % (
+                len(p), r.finish_reason, len(r.tokens)))
+    if engine.traces != traces:
+        raise AssertionError("int8 variants rebuilt after warmup: %d -> %d"
+                             % (traces, engine.traces))
+    if not (launches["paged_flash_int8"] and launches["paged_flash_shared_int8"]):
+        raise AssertionError("an int8 paged kernel never launched: %s" % launches)
+    if launches["paged_flash"] or launches["paged_flash_shared"]:
+        raise AssertionError("f32 paged kernels launched on int8 pools: %s" % launches)
+    n_tok = sum(len(r.tokens) for r in results)
+    log("serve int8 KV: %d requests, %d prompt tokens, %d new tokens in %.3f s: %.1f tokens/s; "
+        "decode step (%d slots) p50 %.3f ms over %d steps; prefill chunk p50 %.3f ms over %d "
+        "chunks; kernel launches %s; card %s" % (
+            len(results), 2 * sum(PROMPT_LENS), n_tok, wall, n_tok / wall,
+            INT8_ENGINE["max_slots"], float(np.median(step_ms)), len(step_ms),
+            float(np.median(chunk_ms)), len(chunk_ms), json.dumps(launches), card))
+
+    # the same weights over f32 pools. Step i's logits have the context
+    # prompt + tokens[:i]: the two runs are compared at every step up to
+    # the last whose context they share (a near-tie can flip a greedy token,
+    # after which the streams run on different contexts)
+    drift, same, total, steps = 0.0, 0, 0, 0
+    for p in prompts[::4]:
+        t32, r32 = _stepwise(f32_engine, p, 8)
+        t8, r8 = _stepwise(engine, p, 8)
+        shared = next((i for i, (a, b) in enumerate(zip(t32, t8)) if a != b), len(t32))
+        for i in range(min(shared + 1, len(r32))):
+            drift = max(drift, float(np.abs(r32[i] - r8[i]).max() / (np.abs(r32[i]).max() + 1e-9)))
+            steps += 1
+        same += shared
+        total += len(t32)
+    if not drift < INT8_DRIFT:
+        raise AssertionError("int8 vs f32 pools: last-step logit drift %g" % drift)
+    # the kernel against the plain path on the same int8 pools
+    tok_k, rows_k = _stepwise(engine, prompts[5], 16)
+    flags.set_flags({"paged_flash": "off"})
+    try:
+        tok_p, rows_p = _stepwise(engine, prompts[5], 16)
+    finally:
+        flags.set_flags({"paged_flash": "auto"})
+    kerr = max(float(np.abs(a - b).max()) for a, b in zip(rows_k, rows_p))
+    if tok_k != tok_p or not all(np.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+                                 for a, b in zip(rows_k, rows_p)):
+        raise AssertionError("int8 pools, kernel vs plain path: max abs logit err %g" % kerr)
+    log("serve int8 KV: logits against the f32 pools on the same weights, relative drift "
+        "%.4g (< %g) over %d steps of %d prompts with a shared context; greedy tokens agree on "
+        "%d of %d before the first difference; kernel vs plain path (paged_flash off) on the "
+        "same int8 pools over %d steps max abs logit err %.3g (atol=rtol=%g)" % (
+            drift, INT8_DRIFT, steps, len(prompts[::4]), same, total, len(rows_k), kerr,
+            LOGIT_ATOL))
+    del engine
+    return {k: launches[k] for k in INT8_KERNEL_META}
+
+
+def _head_batch(means, rng, bs):
+    """bench.py:2036-2040: clustered rows around a class mean."""
+    y = rng.randint(0, HEAD["classes"], (bs, 1)).astype("int64")
+    x = (means[y.reshape(-1)] + 0.7 * rng.randn(bs, HEAD["d_model"])).astype("float32")
+    return x, y
+
+
+def _fit_head(torch, means, model_dir):
+    """Fit the fc head with the port's Executor + Adam (bench.py
+    _quant_fit_classifier) and save it with io.save_inference_model."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[HEAD["d_model"]], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        h = img
+        for _ in range(HEAD["depth"]):
+            h = pt.layers.fc(h, size=HEAD["d_model"], act="relu")
+        logits = pt.layers.fc(h, size=HEAD["classes"])
+        loss = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits, label))
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    place = pt.CUDAPlace(0)
+    exe, scope = pt.Executor(place), pt.Scope(seed=11, place=place)
+    rng = np.random.RandomState(11)
+    losses = []
+    pt.flags.set_flags({"pass_pipeline": ""})
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        for _ in range(HEAD_FIT_STEPS):
+            x, y = _head_batch(means, rng, HEAD_FIT_ROWS)
+            (lv,) = exe.run(main, feed={"img": x, "label": y}, fetch_list=[loss.name])
+            losses.append(float(lv.reshape(-1)[0]))
+        pt.io.save_inference_model(model_dir, ["img"], [logits], exe, main_program=main)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("fc head fit: losses %s" % losses)
+    return losses
+
+
+def _expected_qgemm_launches(engine, rows):
+    """Quant GEMM launches one call of `rows` rows makes: the tagged
+    gemm_int8 chains whose shape the copied predicate accepts at the
+    call's bucket."""
+    from paddle_tpu_torch.ops import fused
+
+    m = engine.bucket_batch(rows)
+    count = 0
+    for op in engine.program.global_block().ops:
+        if op.type == "int8_mul" and op.attrs.get("__pallas_kernel__") == "gemm_int8":
+            k, n = engine.scope.vars[op.input("Y")[0]].shape
+            count += fused.quant_gemm_path_taken(m, n, k, engine.scope.vars[op.input("Y")[0]].dtype)
+    return count
+
+
+def serve_int8_gemm(torch, card):
+    """Path B: the fc head fitted and saved by the port, served by an f32
+    and a calibrated-int8 ServingEngine on the card: 8 eval batches of 250
+    rows and one single shot of 1024. Returns the quant GEMM's launches
+    over the int8 engine's calls."""
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.ops import quant_gemm as qg
+    from paddle_tpu_torch.serving import ServingEngine
+
+    means = np.random.RandomState(101).randn(HEAD["classes"], HEAD["d_model"])
+    with tempfile.TemporaryDirectory(prefix="fc_head_") as tmp:
+        t0 = time.perf_counter()
+        losses = _fit_head(torch, means, tmp)
+        log("fc head %s: fitted %d steps of %d rows with Adam (loss %.4f -> %.4f) and saved in "
+            "%.1f s" % (json.dumps(HEAD), HEAD_FIT_STEPS, HEAD_FIT_ROWS, losses[0], losses[-1],
+                        time.perf_counter() - t0))
+        rng = np.random.RandomState(3)
+        calib = [{"img": _head_batch(means, rng, 16)[0]} for _ in range(8)]
+        t0 = time.perf_counter()
+        e32 = ServingEngine(tmp, name="fc_head_f32", place=CUDAPlace(0),
+                            batch_buckets=HEAD_BUCKETS)
+        e8 = ServingEngine(tmp, name="fc_head_int8", place=CUDAPlace(0),
+                           batch_buckets=HEAD_BUCKETS, precision="int8", calibration_feeds=calib)
+        n_var = e32.warmup() + e8.warmup()
+        torch.cuda.synchronize()
+    q = e8.stats()["quant"]
+    want_q = {"quantized_muls": 4, "weights_frozen": 4, "fused_groups": 4}
+    if any(q[k] != v for k, v in want_q.items()):
+        raise AssertionError("int8 engine quant stats %s, want %s" % (q, want_q))
+    log("serve int8 GEMM: engines built (calibration on 8 batches of 16 rows) and %d variants "
+        "warmed in %.1f s; quant %s" % (n_var, time.perf_counter() - t0, json.dumps(q)))
+    ok32 = ok8 = agree = tot = 0
+    drift, t32, t8 = 0.0, 0.0, 0.0
+    traces = (e32.traces, e8.traces)
+    qg.reset_kernel_launches()  # the main path's counting window opens here
+    per_call = []
+
+    def both(x):
+        nonlocal t32, t8
+        t = time.perf_counter()
+        (a,) = e32.run({"img": x})
+        t32 += time.perf_counter() - t
+        before = qg.kernel_launches()["quant_gemm_int8"]
+        t = time.perf_counter()
+        (b,) = e8.run({"img": x})
+        t8 += time.perf_counter() - t
+        per_call.append((qg.kernel_launches()["quant_gemm_int8"] - before,
+                         _expected_qgemm_launches(e8, x.shape[0])))
+        return a, b
+
+    for _ in range(HEAD_EVAL_BATCHES):
+        x, y = _head_batch(means, rng, HEAD_EVAL_ROWS)
+        a, b = both(x)
+        pa, pb, yy = np.argmax(a, -1), np.argmax(b, -1), y.reshape(-1)
+        ok32 += int((pa == yy).sum())
+        ok8 += int((pb == yy).sum())
+        agree += int((pa == pb).sum())
+        tot += x.shape[0]
+        drift = max(drift, float(np.abs(a - b).max() / (np.abs(a).max() + 1e-9)))
+    rows_s = (tot / t32, tot / t8)
+    x, _ = _head_batch(means, rng, HEAD_SHOT_ROWS)
+    t32 = t8 = 0.0
+    a, b = both(x)
+    shot = (t32 * 1e3, t8 * 1e3)
+    drift = max(drift, float(np.abs(a - b).max() / (np.abs(a).max() + 1e-9)))
+    launches = qg.kernel_launches()["quant_gemm_int8"]  # and closes here
+    if any(got != want for got, want in per_call) or not launches:
+        raise AssertionError("quant GEMM launches per call %s, want the predicate's count"
+                             % per_call)
+    if (e32.traces, e8.traces) != traces:
+        raise AssertionError("serving variants built after warmup")
+    delta = abs(ok32 - ok8) / tot
+    if not (delta <= TOP1_DELTA and drift < HEAD_REL_ERR):
+        raise AssertionError("int8 vs f32: top-1 delta %g, max relative logit error %g"
+                             % (delta, drift))
+    log("serve int8 GEMM: %d eval rows (%d x %d) + a single shot of %d: top-1 f32 %.4f, int8 "
+        "%.4f (delta %.4f <= %g), agreement %.4f, max relative logit error %.4g (< %g); quant "
+        "GEMM launches per int8 call (launched, predicate) %s; f32 engine %.1f rows/s, int8 "
+        "engine %.1f rows/s over the eval batches (host clock, each call ending in the fetch "
+        "copy); single shot f32 %.3f ms, int8 %.3f ms; card %s" % (
+            tot, HEAD_EVAL_BATCHES, HEAD_EVAL_ROWS, HEAD_SHOT_ROWS, ok32 / tot, ok8 / tot, delta,
+            TOP1_DELTA, agree / tot, drift, HEAD_REL_ERR, per_call, rows_s[0], rows_s[1],
+            shot[0], shot[1], card))
+    return {"quant_gemm_int8": launches}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -980,8 +1429,11 @@ def main():
                   if p.trainable]
         del main_prog
         kernels.update(check_training_kernels(torch, device, shapes))
-        kernels.update(check_flash(torch, device, torch.empty(64 << 20, dtype=torch.uint8,
-                                                              device=device)))
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        kernels.update(check_flash(torch, device, flush))
+        kernels.update(check_int8_paged(torch, pf, device, flush))
+        kernels.update(check_quant_gemm(torch, device, flush))
+        del flush
     with Phase("serve"):
         t0 = time.perf_counter()
         engine = GenerationEngine(GPTDecoder(**GPT2_SMALL), name="gpt2_small",
@@ -993,7 +1445,12 @@ def main():
         launches = serve(torch, pf, engine, card)
     with Phase("paged vs dense"):
         paged_vs_dense(torch, engine)
+    with Phase("serve int8 KV"):
+        launches.update(serve_int8_kv(torch, pf, engine, card))
     del engine
+    torch.cuda.empty_cache()
+    with Phase("serve int8 GEMM"):
+        launches.update(serve_int8_gemm(torch, card))
     torch.cuda.empty_cache()
     with Phase("train"):
         launches.update(train(torch, card))
@@ -1001,7 +1458,9 @@ def main():
         launches.update(train_flash(torch, card))
     for name, n in launches.items():
         kernels[name]["launches"] = n
-    if not all(k["launches"] for k in kernels.values()):
+    # quant_gemm_fp8 is on no main path (no pass of either package emits fp8
+    # operands): its launches are the kernel phase's own
+    if not all(k["launches"] for k in kernels.values() if k["name"] != "quant_gemm_fp8"):
         raise AssertionError("a kernel never launched on its main path: %s"
                              % {k: v["launches"] for k, v in kernels.items()})
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -12,12 +12,19 @@ which applies the FLAGS_pass_pipeline preset (passes/); under
 "training_fused" the GEMM epilogue, layer_norm forward and backward, and
 Adam run as hand-written CUDA kernels (ops/fused.py).
 
+Int8 serving: a GenerationEngine over a model with kv_dtype="int8" keeps
+int8 KV pools read by the int8 forms of the paged kernel, and
+serving.ServingEngine(model_dir, precision="int8", calibration_feeds=...)
+runs the inference_int8 pass pipeline (passes/quant.py) over a saved model
+(io.py), its calibrated int8 layers through a hand-written quant GEMM
+kernel (ops/quant_gemm.py).
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
 """
 
-from . import flags, framework, layers, ops, optimizer, passes, unique_name  # noqa: F401
+from . import flags, framework, io, layers, ops, optimizer, passes, unique_name  # noqa: F401
 from .backward import append_backward  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .framework import Program, default_main_program, default_startup_program, program_guard  # noqa: F401

@@ -1,0 +1,273 @@
+"""Forward abstract interpretation over the Graph IR (the torch counterpart
+of paddle_tpu/analysis/dataflow.py, as far as the calibrate pass needs it).
+
+`analyze_program` walks the global block in execution order and propagates
+a `VarFact` per variable: shape (ints plus `SymDim` symbols for dynamic
+axes), dtype, LoD level and kind ("tensor" or "opaque"). Each op's transfer
+function is its lowering run on `device="meta"` tensors, the machinery of
+ops/registry.infer_shape, where the JAX package uses jax.eval_shape; a
+dynamic axis rides through as a sentinel extent and maps back to its
+symbol. A transfer that fails degrades to opaque and is recorded as a
+problem: the analyzer never rejects a program the executor would run.
+
+Not ported yet: control-flow sub-blocks (abstract_eval hooks), sharding
+specs, backward liveness and the checkers / static-verify gate built on
+them (analysis/checkers.py, verify.py).
+"""
+
+import torch
+
+from .. import framework
+from ..ops import registry
+
+__all__ = ["SymDim", "VarFact", "OpRecord", "Analysis", "analyze_program"]
+
+# Symbolic-extent sentinels substituted for dynamic (-1) dims: the base
+# matches ops/registry._DYN_SENTINEL, and each further symbol steps down by
+# a prime stride so arithmetic on one symbol does not land on another's.
+_SYM_BASE = 8191
+_SYM_STRIDE = 101
+_SYM_MAX = 40
+
+
+class SymDim:
+    """One symbolic dynamic extent (a -1 dim). Two facts share a SymDim
+    object iff the analyzer proved the extents equal."""
+
+    __slots__ = ("name", "sentinel")
+
+    def __init__(self, name, sentinel):
+        self.name = name
+        self.sentinel = sentinel
+
+    def __repr__(self):
+        return "?%s" % self.name
+
+
+class VarFact:
+    """The abstract value of one variable: kind "tensor" (shape and dtype
+    meaningful) or "opaque" (unknown, the bottom of the lattice). shape
+    entries are ints or SymDims; writer is the producing (block_idx,
+    op_index), None for external values."""
+
+    __slots__ = ("shape", "dtype", "lod_level", "kind", "writer")
+
+    def __init__(self, shape=None, dtype=None, lod_level=0, kind="tensor", writer=None):
+        self.shape = tuple(shape) if shape is not None else None
+        self.dtype = dtype
+        self.lod_level = lod_level
+        self.kind = kind
+        self.writer = writer
+
+    @property
+    def known(self):
+        return self.kind == "tensor" and self.shape is not None and self.dtype is not None
+
+    def concrete_shape(self):
+        """Shape with SymDims replaced by -1 (the Program metadata idiom)."""
+        if self.shape is None:
+            return None
+        return tuple(-1 if isinstance(d, SymDim) else int(d) for d in self.shape)
+
+    def __repr__(self):
+        if self.kind == "opaque":
+            return "VarFact(opaque)"
+        return "VarFact(%s %s)" % (list(self.shape) if self.shape is not None else "?",
+                                   self.dtype)
+
+
+class OpRecord:
+    """One interpreted op: the facts in and out, and a note when the
+    transfer degraded ("unregistered", "skip", "no-lowering",
+    "opaque-inputs" or "transfer-error: ...")."""
+
+    __slots__ = ("op", "block_idx", "index", "opdef", "ins", "outs", "note")
+
+    def __init__(self, op, block_idx, index, opdef, ins, outs, note=None):
+        self.op = op
+        self.block_idx = block_idx
+        self.index = index
+        self.opdef = opdef
+        self.ins = ins
+        self.outs = outs
+        self.note = note
+
+
+class Analysis:
+    """The analyzer's report: final facts of the global block, per-op
+    records and problems."""
+
+    def __init__(self, program, graph, feed_names, fetch_names, scope, mode):
+        self.program = program
+        self.graph = graph
+        self.feed_names = tuple(feed_names)
+        self.fetch_names = tuple(fetch_names)
+        self.scope = scope
+        self.mode = mode
+        self.facts = {}  # name -> VarFact after the last op
+        self.records = []  # [OpRecord] in interpretation order
+        self.problems = []  # [(block_idx, op_index, op, message)]
+        self.entry_origin = {}  # external name -> "feed" | "scope" | "declared"
+
+    def problem(self, block_idx, op_index, op, message):
+        self.problems.append((block_idx, op_index, op, message))
+
+
+class _Analyzer:
+    def __init__(self, graph, feed_names, fetch_names, scope, mode, program):
+        self.program = graph.program  # the graph's shadow program
+        self.scope = scope
+        self.report = Analysis(program, graph, feed_names, fetch_names, scope, mode)
+        self._symbols = {}  # name -> SymDim
+        self._by_sentinel = {}  # sentinel -> SymDim
+
+    def _sym(self, name):
+        s = self._symbols.get(name)
+        if s is None:
+            sentinel = _SYM_BASE - _SYM_STRIDE * min(len(self._symbols), _SYM_MAX)
+            s = SymDim(name, sentinel)
+            self._symbols[name] = s
+            self._by_sentinel.setdefault(sentinel, s)
+        return s
+
+    def _shape_from_meta(self, name, shape):
+        """Program metadata shape -> fact shape; dim 0 of -1 is the shared
+        batch symbol, any other -1 its own (name, dim) symbol."""
+        if shape is None:
+            return None
+        return tuple(
+            self._sym("batch" if i == 0 else "%s.%d" % (name, i)) if d == -1 else int(d)
+            for i, d in enumerate(shape)
+        )
+
+    def _fact_from_var(self, name, v):
+        if v is None or v.shape is None or v.dtype is None:
+            return VarFact(kind="opaque")
+        return VarFact(shape=self._shape_from_meta(name, v.shape),
+                       dtype=framework.convert_np_dtype(v.dtype),
+                       lod_level=getattr(v, "lod_level", 0) or 0)
+
+    def _external_fact(self, name, block):
+        """Fact for a name read before any write: feed, scope state, or the
+        declared metadata (the executor's classification order)."""
+        declared = block._var_recursive(name) if block.has_var_recursive(name) else None
+        if name in self.report.feed_names:
+            self.report.entry_origin.setdefault(name, "feed")
+            return self._fact_from_var(name, declared)
+        val = self.scope.find_var(name) if self.scope is not None else None
+        if val is not None:
+            self.report.entry_origin.setdefault(name, "scope")
+            if isinstance(val, torch.Tensor):
+                return VarFact(shape=tuple(int(d) for d in val.shape),
+                               dtype=registry._FRAMEWORK_DTYPES.get(val.dtype))
+            return VarFact(kind="opaque")
+        self.report.entry_origin.setdefault(name, "declared")
+        return self._fact_from_var(name, declared)
+
+    def _gather(self, op, env, block):
+        ins = {}
+        for slot, names in op.inputs.items():
+            if not names:
+                continue
+            row = []
+            for n in names:
+                if n == registry.EMPTY_VAR_NAME:
+                    row.append(None)
+                    continue
+                f = env.get(n)
+                if f is None:
+                    f = env[n] = self._external_fact(n, block)
+                row.append(f)
+            ins[slot] = row
+        return ins
+
+    def _scatter(self, op, outs, env, site):
+        rec_outs = {}
+        for slot, names in op.outputs.items():
+            vals = (outs or {}).get(slot)
+            row = []
+            for i, n in enumerate(names):
+                f = vals[i] if vals is not None and i < len(vals) else None
+                if f is None:
+                    f = VarFact(kind="opaque")
+                f.writer = site
+                if n != registry.EMPTY_VAR_NAME:
+                    env[n] = f
+                row.append(f)
+            rec_outs[slot] = row
+        return rec_outs
+
+    def _default_transfer(self, op, opdef, ins):
+        """The lowering on meta tensors; SymDims ride through as sentinel
+        extents and map back on output."""
+        meta_ins = {}
+        for slot, facts in ins.items():
+            row = []
+            for f in facts:
+                if f is None:
+                    row.append(None)
+                    continue
+                if not f.known or f.dtype not in registry._TORCH_DTYPES:
+                    return None, "opaque-inputs"
+                shape = tuple(d.sentinel if isinstance(d, SymDim) else int(d) for d in f.shape)
+                row.append(torch.empty(shape, dtype=registry.torch_dtype(f.dtype),
+                                       device="meta"))
+            meta_ins[slot] = row
+        attrs = dict(op.attrs)
+        ctx = registry.LowerCtx("meta", is_test=bool(attrs.get("is_test", False)))
+        try:
+            outs = opdef.lower(ctx, meta_ins, attrs)
+        except Exception as e:  # a failed transfer degrades, never raises
+            return None, "transfer-error: %s" % (str(e).splitlines() or [""])[0]
+        facts = {}
+        for slot, vals in outs.items():
+            row = []
+            for val in vals:
+                if not isinstance(val, torch.Tensor):
+                    row.append(None)
+                    continue
+                shape = tuple(self._by_sentinel.get(int(d), int(d)) for d in val.shape)
+                row.append(VarFact(shape=shape, dtype=registry._FRAMEWORK_DTYPES.get(val.dtype)))
+            facts[slot] = row
+        return facts, None
+
+    def run(self):
+        block = self.program.global_block()
+        env = {}
+        # feeds enter up front, so a fed name never falls back to the scope
+        for n in self.report.feed_names:
+            env[n] = self._external_fact(n, block)
+        for index, op in enumerate(block.ops):
+            site = (block.idx, index)
+            try:
+                opdef = registry.get(op.type)
+            except KeyError:
+                opdef = None
+            ins = self._gather(op, env, block)
+            outs = None
+            if opdef is None:
+                note = "unregistered"
+            elif opdef.skip_exec:
+                note = "skip"
+            elif opdef.lower is None:
+                note = "no-lowering"
+            else:
+                outs, note = self._default_transfer(op, opdef, ins)
+                if note is not None and note.startswith("transfer-error"):
+                    self.report.problem(block.idx, index, op, note)
+            rec_outs = self._scatter(op, outs, env, site)
+            self.report.records.append(OpRecord(op, block.idx, index, opdef, ins, rec_outs,
+                                                note))
+        self.report.facts = env
+        return self.report
+
+
+def analyze_program(program, feed_names=(), fetch_names=(), scope=None, mode="training"):
+    """Whole-program forward abstract interpretation of the global block;
+    returns an `Analysis`. `program` is a Program or a passes.Graph; `mode`
+    ("training" / "inference" / "serving") is recorded for the checkers."""
+    from ..passes.graph import Graph
+
+    graph = program if isinstance(program, Graph) else Graph(program)
+    program = graph.program if isinstance(program, Graph) else program
+    return _Analyzer(graph, feed_names, fetch_names, scope, mode, program).run()

@@ -286,13 +286,18 @@ def aot_serve_lowering(program, feed_names, fetch_names, scope,
     ([fetches], new_mut)`. kv_cache_write updates the pools in place, so
     new_mut holds the same tensors the caller passed in.
 
-    The JAX package runs its "inference" pass preset here; the port's
-    serving path lowers the Program verbatim (the preset's fold/DCE/fusion
-    tagging do not change the math). Any pipeline other than
-    None/""/"off"/"inference" raises."""
+    The JAX package runs its "inference" pass preset here; the port lowers
+    the Program verbatim for None/""/"off"/"inference" (the preset's
+    fold/DCE/fusion tagging do not change the math). A program another
+    pipeline already rewrote is served with "off": the int8 ServingEngine
+    applies inference_int8 itself (calibration needs its feeds), then
+    lowers the rewritten program here, whose tagged gemm_int8 chains run
+    through the quant GEMM kernel (ops/fused.py). Any other pipeline
+    raises: run it with passes.PassManager first."""
     if pass_pipeline not in (None, "", "off", "inference"):
-        raise NotImplementedError(
-            "pass pipeline %r: the pass framework is not ported yet" % (pass_pipeline,)
+        raise ValueError(
+            "aot_serve_lowering: pass pipeline %r; apply it with "
+            "passes.PassManager and serve the result with 'off'" % (pass_pipeline,)
         )
     compiled = _CompiledBlock(
         program.global_block(), list(feed_names), list(fetch_names), scope

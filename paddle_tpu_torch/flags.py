@@ -7,6 +7,11 @@ set_flags), the subset the serving and training slices read.
   "off" runs the plain torch version everywhere (the parity tests' switch).
   There is no silent decline: on CUDA a kernel build or launch failure
   raises.
+- quantized_gemm: dispatch tier of the gemm_int8 fused family (the
+  quant GEMM of ops/quant_gemm.py). "auto" (default) takes the fused path
+  wherever the copied path predicate (ops/fused.py quant_gemm_path_taken)
+  accepts the shape: the kernel for tensors on a CUDA device, its plain
+  version on the CPU; "off" lowers the int8 chains op by op.
 - pass_pipeline: the graph-pass pipeline Executor.run applies before a
   program runs (passes/manager.py PRESETS, e.g. "training_fused", or a
   comma-separated pass list); "" (default) runs the program as built.
@@ -22,6 +27,7 @@ __all__ = ["get_flags", "set_flags"]
 
 _DEFAULTS = {
     "paged_flash": "auto",
+    "quantized_gemm": "auto",
     "pass_pipeline": "",
     "serving_cache_dir": "",
     "trace_dir": "",
@@ -31,7 +37,7 @@ _DEFAULTS = {
     "flightrec_dir": "",
 }
 
-_CHOICES = {"paged_flash": ("auto", "off")}
+_CHOICES = {"paged_flash": ("auto", "off"), "quantized_gemm": ("auto", "off")}
 
 _flags = {}
 

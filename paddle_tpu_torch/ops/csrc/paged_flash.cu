@@ -1,8 +1,11 @@
-// Paged flash attention over a paged KV pool, f32, for Hopper (sm_90a).
+// Paged flash attention over a paged KV pool, for Hopper (sm_90a): f32
+// pools, or int8 pools with one f32 scale per pool row.
 //
 // Replaces the Pallas kernels of paddle_tpu/ops/pallas_kernels.py:
 //   paged_flash_attention with a per-slot table -> _paged_flash_decode_kernel
 //   paged_flash_attention with a shared 1-D table -> _paged_flash_shared_kernel
+//   the same with k_scales/v_scales (int8 pools)  -> _paged_flash_decode_quant_kernel
+//                                                    _paged_flash_shared_quant_kernel
 //
 // Layout (the JAX package's): q is [rows, H*D]; each pool is [pool_rows, H*D]
 // with pool row page_id * page_size + offset holding one token's K (or V) for
@@ -31,6 +34,17 @@
 // Scores and the P.V product are plain f32 FMAs (no tensor cores): f32 in,
 // f32 out, f32 accumulation. wgmma/TMA pipelines are left for later work.
 //
+// int8 pools: the pools hold symmetric int8 levels, one row per token for
+// every head, and a [pool_rows] f32 scale pool per pool holds each row's
+// scale (shared by all heads). A CTA dequantizes its head's slice of each
+// page row as it stages it in shared memory, float(level) * scale[row]:
+// one rounding, the plain version's exact value, so the f32 rows never
+// reach device memory. A head's slice of a row is D contiguous bytes (64 at
+// GPT-2 small's widths), loaded as 16-byte vectors when D, the row width
+// and the pool's address allow. Bound: bytes, 1 byte per K/V element plus
+// 4 bytes of scale per K/V row read, a quarter of the f32 pools' traffic.
+// Everything after the page is staged is the f32 kernel's code.
+//
 // Numerics kept from the Pallas kernels: scores are dot(q, k) * scale; dead
 // entries are excluded by a where-mask (never an additive -1e9); the rescale
 // factor alpha is pinned to 0 while m_prev = -inf (in the merge too: a split
@@ -43,6 +57,7 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
@@ -89,15 +104,70 @@ __device__ __forceinline__ int pages_for(int pos, int ps, int P) {
   return pos < 0 ? 0 : min(P, pos / ps + 1);
 }
 
+// Stage one page's K and V rows of `head` into shared memory as f32:
+// f32 pools copy, int8 pools dequantize (float(level) * scale[row]; the
+// product is stored as is, so nothing contracts it). `vec`: D, the row
+// width and the pools' addresses are multiples of 16 bytes, and each
+// thread loads whole 16-byte vectors of levels.
+__device__ __forceinline__ void stage_page(const float* __restrict__ k_pool,
+                                           const float* __restrict__ v_pool, const float*,
+                                           const float*, const Smem& sm, size_t base,
+                                           size_t feat, int head, int D, int ps, bool,
+                                           int tid, int nt) {
+  for (int i = tid; i < ps * D; i += nt) {
+    const int j = i / D, d = i - j * D;
+    const size_t g = (base + j) * feat + (size_t)head * D + d;
+    sm.k[j * (D + 1) + d] = k_pool[g];
+    sm.v[j * (D + 1) + d] = v_pool[g];
+  }
+}
+
+__device__ __forceinline__ void stage_page(const int8_t* __restrict__ k_pool,
+                                           const int8_t* __restrict__ v_pool,
+                                           const float* __restrict__ k_scales,
+                                           const float* __restrict__ v_scales, const Smem& sm,
+                                           size_t base, size_t feat, int head, int D, int ps,
+                                           bool vec, int tid, int nt) {
+  if (vec) {
+    const int per_row = D / 16;
+    for (int i = tid; i < ps * per_row; i += nt) {
+      const int j = i / per_row, d0 = (i - j * per_row) * 16;
+      const size_t g = (base + j) * feat + (size_t)head * D + d0;
+      const int4 kv = *reinterpret_cast<const int4*>(k_pool + g);
+      const int4 vv = *reinterpret_cast<const int4*>(v_pool + g);
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&kv);
+      const int8_t* vb = reinterpret_cast<const int8_t*>(&vv);
+      const float ks = k_scales[base + j], vs = v_scales[base + j];
+      float* kd = sm.k + j * (D + 1) + d0;
+      float* vd = sm.v + j * (D + 1) + d0;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        kd[e] = __fmul_rn((float)kb[e], ks);
+        vd[e] = __fmul_rn((float)vb[e], vs);
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < ps * D; i += nt) {
+    const int j = i / D, d = i - j * D;
+    const size_t g = (base + j) * feat + (size_t)head * D + d;
+    sm.k[j * (D + 1) + d] = __fmul_rn((float)k_pool[g], k_scales[base + j]);
+    sm.v[j * (D + 1) + d] = __fmul_rn((float)v_pool[g], v_scales[base + j]);
+  }
+}
+
 // One CTA: `n_rows` (<= tile) query rows starting at q row `row0`, one head,
 // table entries [split * pps, (split + 1) * pps) of the page list `table`
 // (P entries). Writes the rows' unnormalized state to the split scratch:
 // part_acc [splits][rows][H][D], part_ml [splits][rows][H][2] = (m, l).
 // A split past the tile's last needed page writes nothing: the merge never
 // reads it.
+template <typename T>
 __device__ void paged_flash_tile(const float* __restrict__ q,
-                                 const float* __restrict__ k_pool,
-                                 const float* __restrict__ v_pool,
+                                 const T* __restrict__ k_pool,
+                                 const T* __restrict__ v_pool,
+                                 const float* __restrict__ k_scales,
+                                 const float* __restrict__ v_scales, bool vec,
                                  const int* __restrict__ table,
                                  const int* __restrict__ pos,
                                  float* __restrict__ part_acc,
@@ -136,12 +206,7 @@ __device__ void paged_flash_tile(const float* __restrict__ q,
     // bounds (the JAX gather clamps the same way)
     const int page = min(max(table[p], 0), n_pool_pages - 1);
     const size_t base = (size_t)page * ps;
-    for (int i = tid; i < ps * D; i += nt) {
-      const int j = i / D, d = i - j * D;
-      const size_t g = (base + j) * feat + (size_t)head * D + d;
-      sm.k[j * (D + 1) + d] = k_pool[g];
-      sm.v[j * (D + 1) + d] = v_pool[g];
-    }
+    stage_page(k_pool, v_pool, k_scales, v_scales, sm, base, feat, head, D, ps, vec, tid, nt);
     __syncthreads();
 
     for (int i = tid; i < tile * ps; i += nt) {
@@ -200,26 +265,30 @@ __device__ void paged_flash_tile(const float* __restrict__ q,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    paged_flash_decode_kernel(const float* q, const float* k_pool, const float* v_pool,
+    paged_flash_decode_kernel(const float* q, const T* k_pool, const T* v_pool,
+                              const float* k_scales, const float* v_scales, int vec,
                               const int* block_table, const int* pos, float* part_acc,
                               float* part_ml, int rows, int pps, int H, int D, int P,
                               int ps, int n_pool_pages, float scale) {
   const int slot = blockIdx.x;
-  paged_flash_tile(q, k_pool, v_pool, block_table + (size_t)slot * P, pos, part_acc,
-                   part_ml, rows, slot, 1, 1, blockIdx.y, blockIdx.z, pps, H, D, P, ps,
-                   n_pool_pages, scale);
+  paged_flash_tile<T>(q, k_pool, v_pool, k_scales, v_scales, vec != 0,
+                      block_table + (size_t)slot * P, pos, part_acc, part_ml, rows, slot, 1,
+                      1, blockIdx.y, blockIdx.z, pps, H, D, P, ps, n_pool_pages, scale);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    paged_flash_shared_kernel(const float* q, const float* k_pool, const float* v_pool,
+    paged_flash_shared_kernel(const float* q, const T* k_pool, const T* v_pool,
+                              const float* k_scales, const float* v_scales, int vec,
                               const int* block_table, const int* pos, float* part_acc,
                               float* part_ml, int rows, int tile, int pps, int H, int D,
                               int P, int ps, int n_pool_pages, float scale) {
   const int row0 = blockIdx.x * tile;
-  paged_flash_tile(q, k_pool, v_pool, block_table, pos, part_acc, part_ml, rows, row0,
-                   min(tile, rows - row0), tile, blockIdx.y, blockIdx.z, pps, H, D, P, ps,
-                   n_pool_pages, scale);
+  paged_flash_tile<T>(q, k_pool, v_pool, k_scales, v_scales, vec != 0, block_table, pos,
+                      part_acc, part_ml, rows, row0, min(tile, rows - row0), tile, blockIdx.y,
+                      blockIdx.z, pps, H, D, P, ps, n_pool_pages, scale);
 }
 
 // One CTA per (row, head): merge the row's splits into the output. Only the
@@ -264,15 +333,67 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
   return cudaSuccess;
 }
 
+__host__ inline int n_splits(int P, int pages_per_split) {
+  return (P + pages_per_split - 1) / pages_per_split;
+}
+
+template <typename T>
+int launch_decode(const float* q, const T* k_pool, const T* v_pool, const float* k_scales,
+                  const float* v_scales, int vec, const int* block_table, const int* pos,
+                  float* out, float* part_acc, float* part_ml, int S, int H, int D, int P,
+                  int page_size, int pool_rows, int pages_per_split, float scale,
+                  void* stream) {
+  if (S <= 0 || H <= 0) return cudaSuccess;
+  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0)
+    return cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(1, D, page_size);
+  cudaError_t err = prepare(paged_flash_decode_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  const int splits = n_splits(P, pages_per_split);
+  cudaStream_t st = (cudaStream_t)stream;
+  paged_flash_decode_kernel<T><<<dim3(S, H, splits), kThreads, bytes, st>>>(
+      q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos, part_acc, part_ml, S,
+      pages_per_split, H, D, P, page_size, pool_rows / page_size, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_flash_merge_kernel<<<dim3(S, H), kThreads, 0, st>>>(
+      part_acc, part_ml, pos, out, S, pages_per_split, H, D, P, page_size);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_shared(const float* q, const T* k_pool, const T* v_pool, const float* k_scales,
+                  const float* v_scales, int vec, const int* block_table, const int* pos,
+                  float* out, float* part_acc, float* part_ml, int rows, int H, int D, int P,
+                  int page_size, int pool_rows, int pages_per_split, float scale,
+                  void* stream) {
+  if (rows <= 0 || H <= 0) return cudaSuccess;
+  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0)
+    return cudaErrorInvalidValue;
+  const int tile = rows < kSharedTile ? rows : kSharedTile;
+  const size_t bytes = smem_bytes(tile, D, page_size);
+  cudaError_t err = prepare(paged_flash_shared_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (rows + tile - 1) / tile;
+  const int splits = n_splits(P, pages_per_split);
+  cudaStream_t st = (cudaStream_t)stream;
+  paged_flash_shared_kernel<T><<<dim3(n_tiles, H, splits), kThreads, bytes, st>>>(
+      q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos, part_acc, part_ml, rows,
+      tile, pages_per_split, H, D, P, page_size, pool_rows / page_size, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_flash_merge_kernel<<<dim3(rows, H), kThreads, 0, st>>>(
+      part_acc, part_ml, pos, out, rows, pages_per_split, H, D, P, page_size);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Splits of the page walk for a table of P entries (the scratch the caller
 // passes holds n_splits * rows * H * (D + 2) floats).
-int paged_flash_n_splits(int P, int pages_per_split) {
-  return (P + pages_per_split - 1) / pages_per_split;
-}
+int paged_flash_n_splits(int P, int pages_per_split) { return n_splits(P, pages_per_split); }
 
 // q [S, H*D], pools [pool_rows, H*D], block_table [S, P], pos [S] -> out [S, H*D]
 int paged_flash_decode(const float* q, const float* k_pool, const float* v_pool,
@@ -280,22 +401,9 @@ int paged_flash_decode(const float* q, const float* k_pool, const float* v_pool,
                        float* part_acc, float* part_ml, int S, int H, int D, int P,
                        int page_size, int pool_rows, int pages_per_split, float scale,
                        void* stream) {
-  if (S <= 0 || H <= 0) return cudaSuccess;
-  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0)
-    return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(1, D, page_size);
-  cudaError_t err = prepare(paged_flash_decode_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const int splits = paged_flash_n_splits(P, pages_per_split);
-  cudaStream_t st = (cudaStream_t)stream;
-  paged_flash_decode_kernel<<<dim3(S, H, splits), kThreads, bytes, st>>>(
-      q, k_pool, v_pool, block_table, pos, part_acc, part_ml, S, pages_per_split, H, D, P,
-      page_size, pool_rows / page_size, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_flash_merge_kernel<<<dim3(S, H), kThreads, 0, st>>>(
-      part_acc, part_ml, pos, out, S, pages_per_split, H, D, P, page_size);
-  return cudaGetLastError();
+  return launch_decode<float>(q, k_pool, v_pool, nullptr, nullptr, 0, block_table, pos, out,
+                              part_acc, part_ml, S, H, D, P, page_size, pool_rows,
+                              pages_per_split, scale, stream);
 }
 
 // q [rows, H*D], pools [pool_rows, H*D], block_table [P], pos [rows] -> out [rows, H*D]
@@ -304,24 +412,34 @@ int paged_flash_shared(const float* q, const float* k_pool, const float* v_pool,
                        float* part_acc, float* part_ml, int rows, int H, int D, int P,
                        int page_size, int pool_rows, int pages_per_split, float scale,
                        void* stream) {
-  if (rows <= 0 || H <= 0) return cudaSuccess;
-  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0)
-    return cudaErrorInvalidValue;
-  const int tile = rows < kSharedTile ? rows : kSharedTile;
-  const size_t bytes = smem_bytes(tile, D, page_size);
-  cudaError_t err = prepare(paged_flash_shared_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (rows + tile - 1) / tile;
-  const int splits = paged_flash_n_splits(P, pages_per_split);
-  cudaStream_t st = (cudaStream_t)stream;
-  paged_flash_shared_kernel<<<dim3(n_tiles, H, splits), kThreads, bytes, st>>>(
-      q, k_pool, v_pool, block_table, pos, part_acc, part_ml, rows, tile, pages_per_split,
-      H, D, P, page_size, pool_rows / page_size, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_flash_merge_kernel<<<dim3(rows, H), kThreads, 0, st>>>(
-      part_acc, part_ml, pos, out, rows, pages_per_split, H, D, P, page_size);
-  return cudaGetLastError();
+  return launch_shared<float>(q, k_pool, v_pool, nullptr, nullptr, 0, block_table, pos, out,
+                              part_acc, part_ml, rows, H, D, P, page_size, pool_rows,
+                              pages_per_split, scale, stream);
+}
+
+// The int8 forms: int8 pools [pool_rows, H*D] and f32 scale pools
+// [pool_rows]; vec: the wrapper found D, H*D and both pools' addresses to be
+// multiples of 16 bytes.
+int paged_flash_decode_int8(const float* q, const int8_t* k_pool, const int8_t* v_pool,
+                            const float* k_scales, const float* v_scales, int vec,
+                            const int* block_table, const int* pos, float* out,
+                            float* part_acc, float* part_ml, int S, int H, int D, int P,
+                            int page_size, int pool_rows, int pages_per_split, float scale,
+                            void* stream) {
+  return launch_decode<int8_t>(q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos,
+                               out, part_acc, part_ml, S, H, D, P, page_size, pool_rows,
+                               pages_per_split, scale, stream);
+}
+
+int paged_flash_shared_int8(const float* q, const int8_t* k_pool, const int8_t* v_pool,
+                            const float* k_scales, const float* v_scales, int vec,
+                            const int* block_table, const int* pos, float* out,
+                            float* part_acc, float* part_ml, int rows, int H, int D, int P,
+                            int page_size, int pool_rows, int pages_per_split, float scale,
+                            void* stream) {
+  return launch_shared<int8_t>(q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos,
+                               out, part_acc, part_ml, rows, H, D, P, page_size, pool_rows,
+                               pages_per_split, scale, stream);
 }
 
 const char* paged_flash_error_string(int code) {

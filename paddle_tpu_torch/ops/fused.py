@@ -10,7 +10,10 @@ fuse_layer_norm / fuse_optimizer passes to its family here:
   layer_norm.fused_layer_norm;
 - `layer_norm_grad`: layer_norm_grad through layer_norm.fused_layer_norm_grad;
 - `multi_adam`: a run of adam ops through multi_adam.multi_tensor_adam, one
-  launch per dtype group, with lr_t computed on the device.
+  launch per dtype group, with lr_t computed on the device;
+- `gemm_int8`: int8_mul -> fake_dequantize x2 [-> elementwise_add [-> act]]
+  (the inference_int8 chains) through quant_gemm.quant_gemm_bias_act, the
+  two dequant multiplies collapsed into one combined scale.
 
 A lowering declines (returns False, and the run lowers op by op) exactly
 where the JAX one does: the path predicates below are copies of the JAX
@@ -30,7 +33,8 @@ wrappers, which only a run on the card makes, the flash attention kernels'
 import numpy as np
 import torch
 
-from . import flash_attention, gemm_epilogue, layer_norm, multi_adam
+from .. import flags as _flags
+from . import flash_attention, gemm_epilogue, layer_norm, multi_adam, quant_gemm
 from .registry import bcast_y, gather_op_inputs, register_fused, scatter_op_outputs
 
 __all__ = [
@@ -38,6 +42,7 @@ __all__ = [
     "adam_path_taken",
     "gemm_path_taken",
     "ln_path_taken",
+    "quant_gemm_path_taken",
     "reset_stats",
     "stats",
 ]
@@ -50,7 +55,7 @@ def _note_dispatch(family):
     KERNEL_DISPATCHES[family] = KERNEL_DISPATCHES.get(family, 0) + 1
 
 
-_KERNEL_MODULES = (flash_attention, gemm_epilogue, layer_norm, multi_adam)
+_KERNEL_MODULES = (flash_attention, gemm_epilogue, layer_norm, multi_adam, quant_gemm)
 
 
 def stats():
@@ -123,6 +128,29 @@ def ln_path_taken(rows, cols, itemsize=4):
     return _ln_blocks(rows, cols, itemsize) > 0
 
 
+_QUANT_GEMM_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def quant_gemm_path_taken(m, n, k, dtype, block_m=None, block_n=None, block_k=None):
+    """Whether the gemm_int8 family takes an (m, k) @ (k, n) chain of
+    `dtype` operands: FLAGS_quantized_gemm "off" declines every chain;
+    otherwise int8 or e4m3 operands, the f32 GEMM's tile feasibility, and
+    the TPU's (32, 128) low-precision granule (bm % 32, bn and bk % 128),
+    exactly as the JAX package decides under "on". The granule is kept
+    although the CUDA kernel does not need it, so that both packages run
+    the same chains through their kernels (a 16-wide classifier head
+    declines in both)."""
+    if _flags.get_flags("quantized_gemm")["quantized_gemm"] == "off":
+        return False
+    if dtype not in _QUANT_GEMM_DTYPES or not gemm_path_taken(m, n, k, block_m, block_n,
+                                                              block_k):
+        return False
+    bm = _auto_block(m, block_m or _DEF_GEMM_BLOCK_M)
+    bn = _auto_block(n, block_n or _DEF_GEMM_BLOCK_N)
+    bk = _auto_block(k, block_k or _DEF_GEMM_BLOCK_K)
+    return not (bm % 32 or bn % _LANES or bk % _LANES)
+
+
 def adam_path_taken(n_params, zero1=False, sharded=False):
     """Whether the multi_adam family takes a run of n_params adam ops: a
     degenerate group and the sharded tiers (ZeRO-1, rule-sharded params)
@@ -148,7 +176,7 @@ class _Shape2:
 def _gemm_chain_views(prod, x, w):
     """(m, n, k, out_shape, split) 2-D views of the producer's operands, or
     None when the op form is outside the kernel's contract."""
-    if prod.type == "mul":
+    if prod.type in ("mul", "int8_mul"):
         xnc = int(prod.attrs.get("x_num_col_dims", 1))
         ync = int(prod.attrs.get("y_num_col_dims", 1))
         m = int(np.prod(x.shape[:xnc], dtype=np.int64)) if xnc else 1
@@ -220,6 +248,77 @@ def _fused_gemm_epilogue(ctx, ops, env):
     if act_op is not None:
         env[act_op.output("Out")[0]] = y2.reshape(out_shape)
     _note_dispatch("gemm_epilogue")
+    return True
+
+
+@register_fused("gemm_int8")
+def _fused_quant_gemm(ctx, ops, env):
+    """int8_mul -> fake_dequantize x2 [-> elementwise_add [-> act]] through
+    quant_gemm_bias_act: the two chained per-tensor dequant multiplies
+    collapse into ONE combined scale (computed on the device) applied to the
+    i32 sums, and the bias and activation ride the same epilogue. The
+    intermediate env entries are rebuilt algebraically from z (f32 inverses
+    of the epilogue), so consumers outside the run stay correct."""
+    if len(ops) not in (3, 4, 5) or ops[0].type != "int8_mul":
+        return False
+    prod, d1, d2 = ops[0], ops[1], ops[2]
+    if (
+        d1.type != "fake_dequantize_max_abs"
+        or d2.type != "fake_dequantize_max_abs"
+        or d1.input("X") != [prod.output("Out")[0]]
+        or d2.input("X") != [d1.output("Out")[0]]
+    ):
+        return False
+    add_op = act_op = None
+    if len(ops) >= 4:
+        add_op = ops[3]
+        if add_op.type != "elementwise_add" or add_op.input("X") != [d2.output("Out")[0]]:
+            return False
+    if len(ops) == 5:
+        act_op = ops[4]
+        if (act_op.type not in gemm_epilogue.ACT_F32
+                or act_op.input("X") != [add_op.output("Out")[0]]):
+            return False
+    x = env.get(prod.input("X")[0])
+    w = env.get(prod.input("Y")[0])
+    s1 = env.get(d1.input("Scale")[0])
+    s2 = env.get(d2.input("Scale")[0])
+    if x is None or w is None or s1 is None or s2 is None:
+        return False
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        return False
+    views = _gemm_chain_views(prod, x, w)
+    if views is None:
+        return False
+    m, n, k, out_shape, split = views
+    if not quant_gemm_path_taken(m, n, k, x.dtype):
+        return False
+    r1 = float(d1.attrs.get("max_range", 127.0))
+    r2 = float(d2.attrs.get("max_range", 127.0))
+    w_part = s2.reshape(()).float() / r2
+    combined = (s1.reshape(()).float() / r1) * w_part
+    brow = None
+    if add_op is not None:
+        bias = env.get(add_op.input("Y")[0])
+        if bias is None:
+            return False
+        bview = bcast_y(_Shape2(out_shape), bias, int(add_op.attrs.get("axis", -1)))
+        if any(d != 1 for d in bview.shape[:split]):
+            return False
+        brow = bview.expand((1,) * split + tuple(out_shape[split:])).reshape(1, n)
+    z2, y2 = quant_gemm.quant_gemm_bias_act(
+        x.reshape(m, k), w.reshape(k, n), combined, brow,
+        act=act_op.type if act_op is not None else None,
+    )
+    pre = z2 if brow is None else z2 - brow.float()
+    env[prod.output("Out")[0]] = (pre / combined).reshape(out_shape)
+    env[d1.output("Out")[0]] = (pre / torch.clamp(w_part, min=1e-30)).reshape(out_shape)
+    env[d2.output("Out")[0]] = pre.reshape(out_shape)
+    if add_op is not None:
+        env[add_op.output("Out")[0]] = z2.reshape(out_shape)
+    if act_op is not None:
+        env[act_op.output("Out")[0]] = y2.reshape(out_shape)
+    _note_dispatch("gemm_int8")
     return True
 
 

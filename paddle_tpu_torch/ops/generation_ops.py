@@ -16,8 +16,13 @@ Conventions (shared with the JAX package):
     one slot's list shared by every row of the chunk). It runs the CUDA
     kernel of ops/paged_flash.py for tensors on the card; FLAGS_paged_flash
     "off" selects the plain torch version instead.
-  * The int8 pool mode of the JAX package (``Scales`` / ``KScales``) is not
-    ported yet and raises NotImplementedError.
+  * **int8 pool mode** — when ``kv_cache_write`` is given a ``Scales``
+    input, the pool holds int8 levels (symmetric per-row absmax/127
+    quantization on the scatter) and a ``[pool_rows]`` f32 scale pool, one
+    scale per pool row shared by all heads, is updated in place beside it
+    and comes back as ``OutScales``. ``paged_attention`` takes the matching
+    ``KScales``/``VScales`` and its kernel dequantizes on the page walk.
+    The write itself is plain torch, as it is plain JAX in the JAX package.
 """
 
 import torch
@@ -50,25 +55,33 @@ def _flat_rows(block_table, positions, page_size):
     return page_id * page_size + torch.remainder(positions, page_size)
 
 
-def _int8_not_ported(op_type):
-    raise NotImplementedError(
-        "%s: int8 KV pools (kv_dtype='int8') are not ported to the torch "
-        "package yet; use kv_dtype='float32'" % op_type
-    )
+KV_QUANT_LEVELS = 127.0  # symmetric int8: round(x / scale), scale = absmax/127
 
 
 @register("kv_cache_write", no_grad=True)
 def _kv_cache_write(ctx, ins, attrs):
-    """Scatter K/V rows into the pool in place; Out is the pool itself."""
+    """Scatter K/V rows into the pool in place; Out is the pool itself. With
+    a Scales input each row quantizes symmetrically on the way in (scale =
+    max(absmax, 1e-8) / 127 per row, torch.round half to even like
+    jnp.round, clamped to +-127) and its f32 scale lands in the scale pool
+    at the same row, also in place (OutScales)."""
     (pool,) = ins["Pool"]
     (rows,) = ins["Rows"]
     (bt,) = ins["BlockTable"]
     (pos,) = ins["Pos"]
-    if ins.get("Scales", [None])[0] is not None:
-        _int8_not_ported("kv_cache_write")
     flat = _flat_rows(bt, pos, int(attrs["page_size"]))
-    pool.index_copy_(0, flat, rows.to(pool.dtype))
-    return {"Out": [pool]}
+    scales = ins.get("Scales", [None])[0]
+    if scales is None:
+        pool.index_copy_(0, flat, rows.to(pool.dtype))
+        return {"Out": [pool]}
+    r32 = rows.float()
+    scale = torch.clamp(r32.abs().amax(dim=-1), min=1e-8) / KV_QUANT_LEVELS
+    q = torch.clamp(
+        torch.round(r32 / scale[:, None]), -KV_QUANT_LEVELS, KV_QUANT_LEVELS
+    ).to(pool.dtype)
+    pool.index_copy_(0, flat, q)
+    scales.index_copy_(0, flat, scale.to(scales.dtype))
+    return {"Out": [pool], "OutScales": [scales]}
 
 
 @register("paged_attention", no_grad=True)
@@ -78,8 +91,6 @@ def _paged_attention(ctx, ins, attrs):
     (vp,) = ins["VPool"]
     (bt,) = ins["BlockTable"]  # [S, P] or [P] int32 page ids (0 = scratch)
     (pos,) = ins["Pos"]  # [S] position of each query (attends 0..pos)
-    if ins.get("KScales", [None])[0] is not None:
-        _int8_not_ported("paged_attention")
     fn = _pf.paged_flash_attention
     if _flags.get_flags("paged_flash")["paged_flash"] == "off":
         fn = _pf.paged_attention_plain
@@ -87,5 +98,6 @@ def _paged_attention(ctx, ins, attrs):
         q, kp, vp, bt, pos,
         n_head=int(attrs["n_head"]), page_size=int(attrs["page_size"]),
         sm_scale=attrs.get("sm_scale"),
+        k_scales=ins.get("KScales", [None])[0], v_scales=ins.get("VScales", [None])[0],
     )
     return {"Out": [out]}

@@ -1,8 +1,10 @@
-"""Paged flash attention: the hand-written CUDA kernel (csrc/paged_flash.cu),
-its launch counter and its plain torch version.
+"""Paged flash attention: the hand-written CUDA kernels (csrc/paged_flash.cu),
+their launch counters and their plain torch version.
 
 Replaces paddle_tpu/ops/pallas_kernels.py paged_flash_attention (the
-_paged_flash_decode_kernel and _paged_flash_shared_kernel Pallas bodies).
+_paged_flash_decode_kernel and _paged_flash_shared_kernel Pallas bodies, and
+for int8 pools with per-row f32 scales _paged_flash_decode_quant_kernel and
+_paged_flash_shared_quant_kernel).
 The kernel reads the paged pool through the block table with an online
 softmax and never materializes the gathered context; the plain version
 (`paged_attention_plain`) is the dense gather + where-mask safe softmax of
@@ -38,12 +40,18 @@ PAGES_PER_SPLIT = 4
 
 # kernel launches by form, counted where the wrapper launches its kernel and
 # nowhere else (the plain version does not count)
-_LAUNCHES = {"paged_flash": 0, "paged_flash_shared": 0}
+_LAUNCHES = {
+    "paged_flash": 0,
+    "paged_flash_shared": 0,
+    "paged_flash_int8": 0,
+    "paged_flash_shared_int8": 0,
+}
 
 
 def kernel_launches():
-    """Kernel launches so far, keyed "paged_flash" (per-slot decode table)
-    and "paged_flash_shared" (one table shared by a prefill chunk)."""
+    """Kernel launches so far, keyed "paged_flash" (per-slot decode table),
+    "paged_flash_shared" (one table shared by a prefill chunk) and their
+    int8-pool forms "paged_flash_int8" and "paged_flash_shared_int8"."""
     return dict(_LAUNCHES)
 
 
@@ -57,6 +65,9 @@ def _bind(lib):
     for fn in (lib.paged_flash_decode, lib.paged_flash_shared):
         fn.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
         fn.restype = i32
+    for fn in (lib.paged_flash_decode_int8, lib.paged_flash_shared_int8):
+        fn.argtypes = [ptr] * 5 + [i32] + [ptr] * 5 + [i32] * 7 + [f32, ptr]
+        fn.restype = i32
     lib.paged_flash_n_splits.argtypes = [i32, i32]
     lib.paged_flash_n_splits.restype = i32
     lib.paged_flash_error_string.argtypes = [i32]
@@ -66,12 +77,22 @@ def _bind(lib):
 _build.register("paged_flash", _bind)
 
 
+def _dequant(levels, row_scales, flat):
+    """Gathered pool rows as f32: int8 levels times their rows' scales (one
+    rounding, the kernels' own value); f32 rows as they are."""
+    x = levels.float()
+    if row_scales is None:
+        return x
+    sc = row_scales.reshape(-1).index_select(0, flat).float()
+    return x * sc.reshape(sc.shape + (1,) * (x.dim() - 1))
+
+
 def paged_attention_plain(q, k_pool, v_pool, block_table, pos, *, n_head,
-                          page_size, sm_scale=None):
-    """Dense reference: gather every table page's rows, then a causal-by-
-    position where-mask and a safe softmax. Same arguments as
-    paged_flash_attention. Dead entries get weight exactly 0 (never an
-    additive -1e9) and a row with pos < 0 emits zeros."""
+                          page_size, sm_scale=None, k_scales=None, v_scales=None):
+    """Dense reference: gather every table page's rows (dequantized for
+    int8 pools), then a causal-by-position where-mask and a safe softmax.
+    Same arguments as paged_flash_attention. Dead entries get weight exactly
+    0 (never an additive -1e9) and a row with pos < 0 emits zeros."""
     s = q.shape[0]
     p = block_table.shape[-1]
     ctx_len = p * page_size
@@ -83,13 +104,13 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, pos, *, n_head,
     if bt.dim() == 1:
         # one shared page list: gather each context row once for all queries
         flat = (bt[:, None] * page_size + offsets[None, :]).reshape(ctx_len)
-        k = k_pool.index_select(0, flat).reshape(ctx_len, n_head, d).float()
-        v = v_pool.index_select(0, flat).reshape(ctx_len, n_head, d).float()
+        k = _dequant(k_pool.index_select(0, flat), k_scales, flat).reshape(ctx_len, n_head, d)
+        v = _dequant(v_pool.index_select(0, flat), v_scales, flat).reshape(ctx_len, n_head, d)
         scores = torch.einsum("shd,chd->shc", qh, k) * scale
     else:
         flat = (bt[:, :, None] * page_size + offsets[None, None, :]).reshape(-1)
-        k = k_pool.index_select(0, flat).reshape(s, ctx_len, n_head, d).float()
-        v = v_pool.index_select(0, flat).reshape(s, ctx_len, n_head, d).float()
+        k = _dequant(k_pool.index_select(0, flat), k_scales, flat).reshape(s, ctx_len, n_head, d)
+        v = _dequant(v_pool.index_select(0, flat), v_scales, flat).reshape(s, ctx_len, n_head, d)
         scores = torch.einsum("shd,schd->shc", qh, k) * scale
     live = (
         torch.arange(ctx_len, dtype=torch.int64, device=q.device)[None, :]
@@ -110,28 +131,35 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, pos, *, n_head,
 
 
 def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
-                          page_size, sm_scale=None):
+                          page_size, sm_scale=None, k_scales=None, v_scales=None):
     """Paged attention over the KV pool. q is [rows, n_head*d] f32;
-    k_pool/v_pool [pool_rows, n_head*d] f32; block_table [rows, P] (decode:
-    one page list per row) or [P] (chunked prefill: one list shared by all
-    rows); pos[r] bounds row r's live context (positions 0..pos inclusive,
-    pos < 0 emits zeros). Returns [rows, n_head*d] f32.
+    k_pool/v_pool [pool_rows, n_head*d] f32, or int8 levels with
+    k_scales/v_scales (both or neither) the [pool_rows] f32 scale of each
+    pool row; block_table [rows, P] (decode: one page list per row) or [P]
+    (chunked prefill: one list shared by all rows); pos[r] bounds row r's
+    live context (positions 0..pos inclusive, pos < 0 emits zeros). Returns
+    [rows, n_head*d] f32.
 
     CUDA tensors launch the kernel (and raise if it cannot be built or
     launched); CPU tensors run paged_attention_plain."""
+    quant = k_scales is not None
+    if quant != (v_scales is not None):
+        raise ValueError("paged_flash: k_scales and v_scales go together")
     if q.device.type != "cuda":
         return paged_attention_plain(
-            q, k_pool, v_pool, block_table, pos,
-            n_head=n_head, page_size=page_size, sm_scale=sm_scale,
+            q, k_pool, v_pool, block_table, pos, n_head=n_head,
+            page_size=page_size, sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
         )
     rows, feat = q.shape
     d = feat // n_head
     scale = float(sm_scale or 0.0) or d ** -0.5
     if d * n_head != feat:
         raise ValueError("q width %d is not n_head=%d heads" % (feat, n_head))
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != torch.float32:
-            raise TypeError("paged_flash: %s must be float32, got %s" % (name, t.dtype))
+    pool_dtype = torch.int8 if quant else torch.float32
+    for name, t, dt in (("q", q, torch.float32), ("k_pool", k_pool, pool_dtype),
+                        ("v_pool", v_pool, pool_dtype)):
+        if t.dtype != dt:
+            raise TypeError("paged_flash: %s must be %s, got %s" % (name, dt, t.dtype))
         if t.device != q.device:
             raise ValueError("paged_flash: %s is on %s, q on %s" % (name, t.device, q.device))
     if k_pool.shape != v_pool.shape or k_pool.dim() != 2 or k_pool.shape[1] != feat:
@@ -144,6 +172,13 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
     pool_rows = k_pool.shape[0]
     if pool_rows % page_size:
         raise ValueError("pool rows %d not a multiple of page_size %d" % (pool_rows, page_size))
+    if quant:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if (t.dtype != torch.float32 or t.device != q.device or t.numel() != pool_rows
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    "paged_flash: %s must be %d contiguous float32 values on %s, got %s %s"
+                    % (name, pool_rows, q.device, tuple(t.shape), t.dtype))
     shared = block_table.dim() == 1
     if not shared and (block_table.dim() != 2 or block_table.shape[0] != rows):
         raise ValueError(
@@ -162,18 +197,26 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
     splits = lib.paged_flash_n_splits(n_pages, PAGES_PER_SPLIT)
     part_acc = torch.empty((splits, rows, n_head, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((splits, rows, n_head, 2), dtype=torch.float32, device=q.device)
-    fn = lib.paged_flash_shared if shared else lib.paged_flash_decode
+    tail = (bt.data_ptr(), pv.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), rows, n_head, d, n_pages, page_size, pool_rows,
+            PAGES_PER_SPLIT, scale, torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
-        err = fn(
-            qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
-            pv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            rows, n_head, d, n_pages, page_size, pool_rows, PAGES_PER_SPLIT, scale,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if quant:
+            # 16-byte level vectors: a head's slice and every row start on a
+            # 16-byte boundary
+            vec = int(d % 16 == 0 and feat % 16 == 0
+                      and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
+            fn = lib.paged_flash_shared_int8 if shared else lib.paged_flash_decode_int8
+            err = fn(qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                     k_scales.data_ptr(), v_scales.data_ptr(), vec, *tail)
+        else:
+            fn = lib.paged_flash_shared if shared else lib.paged_flash_decode
+            err = fn(qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *tail)
     if err:
         raise RuntimeError(
             "paged_flash kernel launch failed: %s"
             % lib.paged_flash_error_string(err).decode()
         )
-    _LAUNCHES["paged_flash_shared" if shared else "paged_flash"] += 1
+    key = "paged_flash_shared" if shared else "paged_flash"
+    _LAUNCHES[key + ("_int8" if quant else "")] += 1
     return out

@@ -24,7 +24,7 @@ from .pass_base import (
     register_pass,
     registered_passes,
 )
-from . import builtin  # noqa: F401  (self-registering pass battery)
+from . import builtin, quant  # noqa: F401  (self-registering pass battery)
 
 __all__ = [
     "Graph",

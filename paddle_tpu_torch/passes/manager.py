@@ -25,9 +25,14 @@ Pipeline presets (FLAGS_pass_pipeline):
   run as hand-written CUDA kernels (ops/fused.py) instead of op by op.
   Fused and unfused runs agree within rounding (one rounding per fused
   chain instead of one per op).
+- inference_int8: the calibrated-int8 serving pipeline (passes/quant.py):
+  calibrate records activation ranges from representative feeds riding
+  ctx.attrs["calibrate"], quantize_serving freezes weights to int8 and
+  bakes static activation scales into the scope (so it is opt-in:
+  ServingEngine(precision="int8") is the caller), and fuse_quant_gemm tags
+  the int8 chains for the quant GEMM kernel (ops/fused.py gemm_int8).
 fuse_attention (causal score chains into one flash_attention op) is in no
-preset, as in the JAX package. The JAX package's inference_int8 preset
-(calibration, int8 GEMM) waits for its slice of the port.
+preset, as in the JAX package.
 """
 
 import time
@@ -63,6 +68,14 @@ PRESETS = {
         "fuse_layer_norm",
         "fuse_optimizer",
         "inplace_donation_plan",
+    ),
+    "inference_int8": (
+        "constant_fold",
+        "dead_op_eliminate",
+        "calibrate",
+        "quantize_serving",
+        "fuse_quant_gemm",
+        "fuse_elemwise_act",
     ),
 }
 

@@ -1,9 +1,11 @@
-"""Generation serving on torch: GenerationEngine / GenerationScheduler (AOT
-prefill buckets + one fixed-shape decode step over a paged KV-cache pool,
-token-level continuous batching), the ContinuousBatcher shell they extend,
-and the host-side page allocator and prefix cache."""
+"""Serving on torch: GenerationEngine / GenerationScheduler (prefill
+buckets + one fixed-shape decode step over a paged KV-cache pool of f32 or
+int8 rows, token-level continuous batching), the ContinuousBatcher shell
+they extend, the host-side page allocator and prefix cache, and the
+ServingEngine (batch-bucketed forward serving of a saved model, native or
+calibrated int8)."""
 
-from . import batcher, generation, kv_cache  # noqa: F401
+from . import batcher, engine, generation, kv_cache  # noqa: F401
 from .batcher import (  # noqa: F401
     ContinuousBatcher,
     QueueFullError,
@@ -17,6 +19,7 @@ from .generation import (  # noqa: F401
     GenRequest,
     GenResult,
 )
+from .engine import DEFAULT_BATCH_BUCKETS, ServingEngine  # noqa: F401
 from .kv_cache import PagedKVPool, PoolExhausted, PrefixCache  # noqa: F401
 
 __all__ = [
@@ -25,6 +28,8 @@ __all__ = [
     "QueueFullError",
     "RequestTimeout",
     "ShutdownError",
+    "DEFAULT_BATCH_BUCKETS",
+    "ServingEngine",
     "GenerationEngine",
     "GenerationScheduler",
     "GenRequest",

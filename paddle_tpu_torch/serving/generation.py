@@ -22,8 +22,11 @@ whatever the prompt/output length mix (`stats()["traces"]` counts builds and
 is the proof the smoke run asserts). The KV pools are preallocated on the
 device and every variant updates them in place (kv_cache_write's
 index_copy_), the torch form of the JAX package's donated pool buffers.
-On a CUDA device paged_attention runs the hand-written kernel of
-ops/paged_flash.py; `stats()["kernel_dispatches"]` counts its launches.
+On a CUDA device paged_attention runs the hand-written kernels of
+ops/paged_flash.py, over f32 pools or, for a model with kv_dtype="int8",
+over int8 level pools with per-row f32 scale pools (about a quarter of the
+f32 bytes a cached token, so twice the slots fit in fewer bytes);
+`stats()["kernel_dispatches"]` counts the launches of each form.
 
 Admission consults a **PrefixCache** (kv_cache.py): requests whose prompt
 shares full cached pages with an earlier prompt start prefill at the first
@@ -173,10 +176,6 @@ class GenerationEngine:
                 "variants are built in-process at warmup()"
             )
         kv_dtype = getattr(model, "kv_dtype", "float32")
-        if kv_dtype != "float32":
-            raise NotImplementedError(
-                "kv_dtype %r: only float32 KV pools are ported" % kv_dtype
-            )
         self.model = model
         self.name = name
         self.max_context = int(max_context or model.max_context)
@@ -229,14 +228,24 @@ class GenerationEngine:
         pool_rows = self.pool_pages * self.page_size
         self.kv_dtype = kv_dtype
         # the pools are preallocated once on the device; every variant writes
-        # them in place
+        # them in place. int8 pool mode (model.kv_dtype == "int8"): level
+        # pools are int8 and each gains a [pool_rows] f32 per-row scale pool
+        # sibling (model.kv_scale_names)
         self._state = {}
         for pair in model.kv_pool_names():
             for n in pair:
                 arr = torch.zeros(
-                    (pool_rows, model.d_model), dtype=torch.float32,
+                    (pool_rows, model.d_model),
+                    dtype=torch.int8 if kv_dtype == "int8" else torch.float32,
                     device=self.device,
                 )
+                self.scope.vars[n] = arr
+                self._state[n] = arr
+        for pair in getattr(model, "kv_scale_names", lambda: [])():
+            for n in pair:
+                # scale 1.0 everywhere: scratch-page reads dequantize to
+                # finite values before they are masked
+                arr = torch.ones((pool_rows,), dtype=torch.float32, device=self.device)
                 self.scope.vars[n] = arr
                 self._state[n] = arr
         self.kv_state_bytes = sum(
@@ -316,7 +325,7 @@ class GenerationEngine:
             p + "/precision",
             "KV storage precision (0 = fp32, 1 = int8)",
         )
-        self._m_precision.set(0.0)
+        self._m_precision.set(1.0 if kv_dtype == "int8" else 0.0)
         # parameter hot swap (the JAX engine's set_params) is not ported:
         # the version a request was served by stays 0
         self.model_version = 0

@@ -1,13 +1,15 @@
 """Where a generation step's time goes, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_generation [--steps 20] \
-        [--out profile_generation.json]
+        [--kv-dtype float32|int8] [--out profile_generation.json]
 
 Builds the GenerationEngine at chip_smoke.py's geometry (GPTDecoder at GPT-2
-small's widths, random weights from a seed, 8 slots, page_size 16, 1024
-positions), fills all 8 slots with prompts of 40-700 tokens, and then, for
-the two step kinds of the main path (a 32-row prefill chunk and an 8-slot
-decode step), measures three steady windows, one per instrument:
+small's widths, random weights from a seed, page_size 16, 1024 positions;
+8 slots over f32 KV pools, or with --kv-dtype int8 16 slots over int8
+pools, the JAX package's int8-KV recipe), fills every slot with prompts of
+40-700 tokens (each length once per 8 slots), and then, for the two step
+kinds of the main path (a 32-row prefill chunk and a decode step over all
+slots), measures three steady windows, one per instrument:
 
 - bare: the step's host wall time (each step ends in the logits copy to
   the host, so it includes the device work);
@@ -35,6 +37,8 @@ import torch
 GPT2_SMALL = dict(vocab_size=50257, n_layer=12, n_head=12, d_model=768,
                   d_inner=3072, max_context=1024)
 ENGINE = dict(max_slots=8, page_size=16, max_context=1024)
+# int8 pools at a quarter of the f32 bytes a token: twice the slots
+INT8_ENGINE = dict(ENGINE, max_slots=16)
 PROMPT_LENS = (40, 131, 217, 305, 388, 472, 569, 700)
 SEED = 0
 
@@ -209,6 +213,7 @@ def run(engine, n_steps, registry, seed=SEED, prompt_lens=PROMPT_LENS):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--kv-dtype", choices=("float32", "int8"), default="float32")
     ap.add_argument("--out", default="profile_generation.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -220,19 +225,22 @@ def main(argv=None):
     from ..serving import GenerationEngine
 
     card = card_line()
-    engine = GenerationEngine(GPTDecoder(**GPT2_SMALL), name="gpt2_small_profile",
-                              place=CUDAPlace(0), **ENGINE)
+    geometry = INT8_ENGINE if args.kv_dtype == "int8" else ENGINE
+    engine = GenerationEngine(GPTDecoder(kv_dtype=args.kv_dtype, **GPT2_SMALL),
+                              name="gpt2_small_profile_" + args.kv_dtype,
+                              place=CUDAPlace(0), **geometry)
     engine.warmup()
-    res = run(engine, args.steps, registry)
+    lens = PROMPT_LENS * (geometry["max_slots"] // len(PROMPT_LENS))
+    res = run(engine, args.steps, registry, prompt_lens=lens)
     res["card"] = card
-    res["engine"] = dict(GPT2_SMALL, **ENGINE)
+    res["engine"] = dict(GPT2_SMALL, kv_dtype=args.kv_dtype, **geometry)
     for kind in ("prefill", "decode"):
         r = res[kind]
         top_ops = list(r["op_host_ms_per_step"].items())[:5]
-        print("%s: wall p50 %.3f ms; under the op timer %.3f ms, of it %.3f ms in op "
+        print("%s (%s KV): wall p50 %.3f ms; under the op timer %.3f ms, of it %.3f ms in op "
               "lowerings (top %s); device busy %s ms a step (%s of the wall), %s "
               "launches; card %s" % (
-                  kind, r["wall_ms_p50"], r["op_timer_wall_ms_mean"],
+                  kind, args.kv_dtype, r["wall_ms_p50"], r["op_timer_wall_ms_mean"],
                   r["ops_host_ms_per_step"],
                   ", ".join("%s %.3f" % kv for kv in top_ops),
                   r["device_busy_ms_per_step"], r["device_busy_share"],

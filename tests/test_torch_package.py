@@ -12,7 +12,7 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch import CPUPlace, Executor, Scope
 from paddle_tpu_torch.models import GPTDecoder
-from paddle_tpu_torch.serving import GenerationEngine
+from paddle_tpu_torch.serving import GenerationEngine, ServingEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
@@ -56,8 +56,12 @@ def no_cuda():
         lambda: Executor(),
         lambda: GenerationEngine(GPTDecoder(vocab_size=8, n_layer=1, n_head=1, d_model=4,
                                             d_inner=8, max_context=8)),
+        lambda: GenerationEngine(GPTDecoder(vocab_size=8, n_layer=1, n_head=1, d_model=4,
+                                            d_inner=8, max_context=8, kv_dtype="int8")),
+        # the card is taken before the model directory is read
+        lambda: ServingEngine("no_model_dir"),
     ],
-    ids=["Scope", "Executor", "GenerationEngine"],
+    ids=["Scope", "Executor", "GenerationEngine", "GenerationEngine_int8", "ServingEngine"],
 )
 def test_entry_points_without_place_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
