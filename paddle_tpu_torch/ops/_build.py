@@ -3,12 +3,12 @@
 Each source `csrc/<stem>.cu` has a plain C interface. It is compiled with
 `nvcc` for sm_90a at first use, from the source in this checkout, into
 paddle_tpu_torch/_build/ as a shared library and loaded with ctypes. The
-library name carries a hash of the source and the flags, so an edited kernel
-never loads a stale build. Each wrapper module registers its source and the
-function that declares its ctypes signatures at import (no I/O); `load`
-builds one library at its first launch, and `build_all` starts one nvcc per
-registered source at once, so the kernels of a run build in parallel. A box
-without a compiler imports the package.
+library name carries a hash of the source, the headers of csrc/ and the
+flags, so an edited kernel never loads a stale build. Each wrapper module
+registers its source and the function that declares its ctypes signatures
+at import (no I/O); `load` builds one library at its first launch, and
+`build_all` starts one nvcc per registered source at once, so the kernels of
+a run build in parallel. A box without a compiler imports the package.
 """
 
 import ctypes
@@ -46,9 +46,14 @@ def _nvcc():
 
 
 def _so_path(stem):
-    with open(os.path.join(_SRC_DIR, stem + ".cu"), "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the source, every header of csrc/ (a header a source includes changes
+    # its build) and the flags
+    names = [stem + ".cu"] + sorted(n for n in os.listdir(_SRC_DIR) if n.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in names:
+        with open(os.path.join(_SRC_DIR, name), "rb") as f:
+            digest.update(f.read())
+    tag = digest.hexdigest()[:16]
     return os.path.join(_BUILD_DIR, "lib%s-%s.so" % (stem, tag))
 
 

@@ -10,8 +10,10 @@
 // The TPU splits each direction into a VMEM-resident tier and a streamed one
 // for t past its VMEM budget. A CTA here streams K/V (or Q/dO) tiles through
 // shared memory at every length, so flash_fwd_kernel serves both forward
-// tiers and the flash_bwd_dkv_kernel + flash_bwd_dq_kernel pair both
-// backward tiers.
+// tiers. The backward keeps the JAX package's two tiers: the fused kernel
+// (flash_bwd_fused_kernel) where its per-key-tile dQ partials stay within 2x
+// dQ (at most two 128-key tiles, d = 64; the wrapper decides), and the
+// flash_bwd_dkv_kernel + flash_bwd_dq_kernel pair everywhere else.
 //
 // Contract (the TPU kernel's, not the dense softmax's): s = q k^T * scale,
 // causal masking aligned bottom-right (query row i sees keys up to
@@ -25,22 +27,50 @@
 //
 // Bound, at the training path's (16, 8, 256, 64) f32: operations. The
 // forward does 4 * b * h * tq * tk * d flops (2.15 GFLOP, 0.032 ms at the
-// card's 67 TFLOP/s f32 outside the tensor cores; no TF32, by the port's
-// choice) against 33.6 MB of operands (0.010 ms at 3.35 TB/s); the backward
-// needs five such products. Design: f32 products on the CUDA cores. A CTA of
-// 256 threads owns a 64 x 64 tile of scores, 4 x 4 a thread; a thread's four
-// rows sit in one half-warp, so the softmax row reductions are four shuffles.
-// Operand tiles live in shared memory with rows padded by 4 elements, so
-// the 16-byte (f32) or 8-byte (bf16) loads along d of 16 different rows hit
-// distinct banks. The forward keeps the running max, sum and the 64 x d
-// accumulator in registers and double-buffers the K/V tiles with cp.async
-// (the next tile loads while this one is multiplied); causal tiles past the
-// diagonal are never loaded, and causal CTAs start with the longest rows.
-// The backward has no float atomics: dK/dV is one CTA per K tile looping
-// over the query tiles, dQ one CTA per query tile looping over the K tiles,
-// so each sum has one owner and repeats bit for bit. The price is s and
-// dp = dO v^T computed in both kernels: seven products against the TPU
-// fused kernel's five. wgmma, TMA and a fused backward are left for later.
+// card's 67 TFLOP/s f32 on the CUDA cores) against 33.6 MB of operands
+// (0.010 ms at 3.35 TB/s); the backward needs five such products, 5.37
+// GFLOP: 0.0801 ms on the CUDA cores, or, f32-accurate on the tensor cores
+// as 3xTF32 (tf32_mma.cuh: three TF32 products a pair, about 2^-21 relative
+// error a product, inside the 1e-4 gradient tolerance where one TF32
+// product, about 2^-11, is not), 3 x 5.37 GFLOP at 495 TFLOP/s = 0.0325 ms
+// (causal: half the pairs, 0.0163 ms).
+//
+// Forward and the pair: f32 products on the CUDA cores. A CTA of 256
+// threads owns a 64 x 64 tile of scores, 4 x 4 a thread; a thread's four
+// rows sit in one half-warp, so the softmax row reductions are four
+// shuffles. Operand tiles live in shared memory with rows padded by 4
+// elements, so the 16-byte (f32) or 8-byte (bf16) loads along d of 16
+// different rows hit distinct banks. The forward keeps the running max, sum
+// and the 64 x d accumulator in registers and double-buffers the K/V tiles
+// with cp.async; causal tiles past the diagonal are never loaded, and causal
+// CTAs start with the longest rows. The pair has no float atomics: dK/dV is
+// one CTA per K tile looping over the query tiles, dQ one CTA per query
+// tile looping over the K tiles, so each sum has one owner; the price is s
+// and dp computed in both kernels, seven products for five.
+//
+// The fused backward: one CTA of 8 warps per (b * h, 128-key tile) keeps
+// its K and V tiles in shared memory and streams 64-row query tiles (q, dO)
+// through a two-stage cp.async ring, the next tile's O rows and lse held in
+// registers ahead of use. Each (query tile, key tile) pair runs the five
+// products once on the tensor cores (mma.sync m16n8k8 in three passes, as
+// in gemm_epilogue.cu; f32 operands split hi / lo in registers for 3xTF32,
+// the row-major side of q, dO and ds read by ldmatrix, bf16 operands exact
+// in one TF32 product): s and dp (warps 2 x 4 over 64 x 128), then p and ds in
+// registers, rounded to the operand dtype and staged in shared memory, then
+// dV += p^T dO and dK += ds^T q (warps 4 x 2 over 128 x 64; each query
+// tile's part sums in the tensor core from 0 and joins the f32 registers by
+// a rounded add, since the tensor core's own sums truncate and would drift
+// over a long tq) and this key tile's dQ partial ds k, written to an f32
+// scratch. delta is computed once per (row, key tile) from
+// the staged dO and the O rows: at most twice a row at the tier's cap. Every
+// tile is row-major with its 4-element units XOR-swizzled by row, so the
+// fragment reads of both orientations (a tile read as A, and transposed as
+// B) are free of bank conflicts. dQ has no float atomics: the last key tile
+// of each (b, h) to finish, found by an integer arrival counter, sums the
+// partials in key-tile order and rounds once, so the backward repeats bit
+// for bit (a second summing kernel measured a few microseconds less device
+// time for one more launch a backward, on a path bound by the host's launch
+// cost; PERF.md). wgmma and TMA are later work.
 //
 // Operands may be strided views (any (b, h, t) strides; d contiguous, rows
 // aligned for 4-element loads), as the model's transposes hand them over;
@@ -52,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 struct FlashParams {
   const void* q;
@@ -82,6 +114,9 @@ constexpr int kThreads = 256;
 constexpr int kPLD = kBN + 4;  // row stride of the f32 p / ds tiles
 constexpr float kNegInf = -__builtin_huge_valf();
 
+using tf32::from_f32;
+using tf32::to_f32;
+
 // v rounded to T and widened back
 template <typename T> __device__ __forceinline__ float round_t(float v);
 template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
@@ -89,11 +124,6 @@ template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // four consecutive elements (16 bytes of f32, 8 of bf16) as f32
 __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
@@ -500,6 +530,380 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
   store_rows<T, D>(static_cast<T*>(p.dq) + (int64_t)bh * p.tq * D, q0, p.tq, tx, ty, dq, 1.0f);
 }
 
+// ---------------------------------------------------------------------------
+// The fused backward tier: one CTA per (b * h, 128-key tile), five products
+// on the tensor cores (3xTF32 for f32, one exact TF32 product for bf16).
+// ---------------------------------------------------------------------------
+
+constexpr int kFD = 64;         // head width of the fused tier
+constexpr int kFBN = 128;       // keys a CTA: K and V stay resident
+constexpr int kFBM = 64;        // query rows a streamed tile
+constexpr int kFThreads = 256;  // 8 warps
+
+// Element (r, c) of a row-major tile of W columns (W a multiple of 32), its
+// 4-element units XOR-swizzled by row: the mma fragment reads of both
+// orientations (8 rows x 4 columns, and 4 rows x 8 columns, from a row that
+// is a multiple of 8) then hit 32 distinct banks for f32 and 16 distinct
+// words for bf16, and a unit stays contiguous for cp.async.
+__device__ __forceinline__ int swz(int r, int c, int w) {
+  return r * w + (c ^ ((((r & 3) << 1) | ((r >> 2) & 1)) << 2));
+}
+
+// rows [r0, r0 + R) of a (t, kFD) operand with row stride `st` into a
+// swizzled [R][kFD] tile; rows at or past t read as zeros
+template <typename T, int R>
+__device__ __forceinline__ void load_swz(T* dst, const T* src, int64_t st, int r0, int t) {
+  constexpr int G = kFD / 4;
+  for (int i = threadIdx.x; i < R * G; i += kFThreads) {
+    const int r = i / G, c = (i % G) * 4;
+    const bool ok = r0 + r < t;
+    const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
+    cp_async<(int)(4 * sizeof(T))>(dst + swz(r, c, kFD), from, ok);
+  }
+}
+
+// the first query tile whose rows see key k0 (causal); 0 otherwise
+__device__ __forceinline__ int first_query_tile(const FlashParams& p, int k0) {
+  if (!p.causal) return 0;
+  const int first_row = k0 - (p.tk - p.tq);
+  return first_row <= 0 ? 0 : first_row / kFBM;
+}
+
+// acc[i][j] = A(m0 + 16i.., k) B(k, n0 + 8j..) over k in [0, K): the warp's
+// (16 MT) x (8 NT) tile of a product whose operands are read through
+// `a(row, k)` and `b(k, col)`, each returning an f32 operand value. The
+// product sums in the tensor core from 0; a caller that carries a sum over
+// several products adds it in f32 (the tensor core's sums truncate).
+template <bool SPLIT, int MT, int NT, int K, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], int m0, int n0, FA a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < K; k += 8) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tf32::split<SPLIT>(b(k + t, n0 + 8 * j + g), bh[j][0], bl[j][0]);
+      tf32::split<SPLIT>(b(k + t + 4, n0 + 8 * j + g), bh[j][1], bl[j][1]);
+    }
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = m0 + 16 * i + g;
+      tf32::split<SPLIT>(a(r, k + t), ah[i][0], al[i][0]);
+      tf32::split<SPLIT>(a(r + 8, k + t), ah[i][1], al[i][1]);
+      tf32::split<SPLIT>(a(r, k + t + 4), ah[i][2], al[i][2]);
+      tf32::split<SPLIT>(a(r + 8, k + t + 4), ah[i][3], al[i][3]);
+    }
+    if (k == 0) tf32::mma_tiles<SPLIT, MT, NT, true>(acc, ah, al, bh, bl);
+    else tf32::mma_tiles<SPLIT>(acc, ah, al, bh, bl);
+  }
+}
+
+// warp_mma with A an f32 swizzled [*][W] tile read in place (row m, column
+// k) by ldmatrix: each lane names the 4-word unit of row (l & 7) +
+// 8 ((l >> 3) & 1), column k + 4 (l >> 4), and receives (g, t) of each of
+// the four 8 x 4 matrices, which is the A fragment
+template <bool SPLIT, int MT, int NT, int K, int W, typename FB>
+__device__ __forceinline__ void warp_mma_ldsm(float (&acc)[MT][NT][4], int m0, int n0,
+                                              const float* a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 4 * (lane >> 4);
+#pragma unroll
+  for (int k = 0; k < K; k += 8) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tf32::split<SPLIT>(b(k + t, n0 + 8 * j + g), bh[j][0], bl[j][0]);
+      tf32::split<SPLIT>(b(k + t + 4, n0 + 8 * j + g), bh[j][1], bl[j][1]);
+    }
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      uint32_t r[4];
+      tf32::ldmatrix_x4(r, a + swz(m0 + 16 * i + lrow, k + lcol, W));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32::split<SPLIT>(__uint_as_float(r[e]), ah[i][e], al[i][e]);
+    }
+    if (k == 0) tf32::mma_tiles<SPLIT, MT, NT, true>(acc, ah, al, bh, bl);
+    else tf32::mma_tiles<SPLIT>(acc, ah, al, bh, bl);
+  }
+}
+
+// acc = A B with A a row-major swizzled [*][kFD] operand tile of type T: in
+// place by ldmatrix for f32, element by element for bf16
+template <typename T, int MT, int NT, int K, typename FB>
+__device__ __forceinline__ void warp_mma_tile(float (&acc)[MT][NT][4], int m0, int n0,
+                                              const T* a, FB b) {
+  constexpr bool kSplit = tf32::needs_split<T>();
+  if constexpr (sizeof(T) == 4) {
+    warp_mma_ldsm<kSplit, MT, NT, K, kFD>(acc, m0, n0, a, b);
+  } else {
+    warp_mma<kSplit, MT, NT, K>(
+        acc, m0, n0, [&](int r, int c) { return to_f32(a[swz(r, c, kFD)]); }, b);
+  }
+}
+
+template <int MT, int NT> __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void add_to(float (&acc)[MT][NT][4], const float (&x)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += x[i][j][e];
+}
+
+// one (b, h)'s dQ: the key tiles' f32 partials summed in key-tile order (a
+// tile that skipped a row's query tile has none for it: the valid tiles of
+// a row are a prefix) and rounded once. The CTA's threads each take
+// 4-element units, four at a time, all their loads in flight together.
+template <typename T>
+__device__ __forceinline__ void sum_dq(const FlashParams& p, const float* __restrict__ dq_part,
+                                       int bh, int tid) {
+  constexpr int kU = kFD / 4;  // units a row
+  constexpr int kBatch = 4;
+  const int nk = (p.tk + kFBN - 1) / kFBN;
+  const int64_t part_stride = (int64_t)p.b * p.h * p.tq * kFD;
+  const float* src = dq_part + (int64_t)bh * p.tq * kFD;
+  T* dst = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * kFD;
+  for (int base = tid; base < p.tq * kU; base += kBatch * kFThreads) {
+    float4 s[kBatch];
+    int parts[kBatch];
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      const int u = base + e * kFThreads;
+      parts[e] = 0;
+      s[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (u >= p.tq * kU) continue;
+      while (parts[e] < nk && first_query_tile(p, parts[e] * kFBN) <= (u / kU) / kFBM) ++parts[e];
+      if (parts[e] > 0) s[e] = __ldcg(reinterpret_cast<const float4*>(src) + u);
+    }
+    for (int kb = 1; kb < nk; ++kb) {
+#pragma unroll
+      for (int e = 0; e < kBatch; ++e) {
+        if (kb >= parts[e]) continue;
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(src + kb * part_stride) +
+                                base + e * kFThreads);
+        s[e].x += v.x; s[e].y += v.y; s[e].z += v.z; s[e].w += v.w;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      const int u = base + e * kFThreads;
+      if (u >= p.tq * kU) continue;
+      T* d = dst + (int64_t)u * 4;
+      d[0] = from_f32<T>(s[e].x);
+      d[1] = from_f32<T>(s[e].y);
+      d[2] = from_f32<T>(s[e].z);
+      d[3] = from_f32<T>(s[e].w);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* arrivals) {
+  constexpr bool kSplit = tf32::needs_split<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kFBN * kFD;
+  T* Qs = Vs + kFBN * kFD;      // two stages
+  T* dOs = Qs + 2 * kFBM * kFD;  // two stages
+  float* Ps = reinterpret_cast<float*>(dOs + 2 * kFBM * kFD);
+  float* dSs = Ps + kFBM * kFBN;
+  float* lse_s = dSs + kFBM * kFBN;
+  float* delta_s = lse_s + kFBM;
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.x * kFBN;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
+  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+  const float* lse = p.lse + (int64_t)bh * p.tq;
+  float* dqp = dq_part + ((int64_t)blockIdx.x * p.b * p.h + bh) * p.tq * kFD;
+
+  const int nq = (p.tq + kFBM - 1) / kFBM;
+  const int qt0 = first_query_tile(p, k0);
+  load_swz<T, kFBN>(Ks, k, p.sk[2], k0, p.tk);
+  load_swz<T, kFBN>(Vs, v, p.sv[2], k0, p.tk);
+  if (qt0 < nq) {
+    load_swz<T, kFBM>(Qs, q, p.sq[2], qt0 * kFBM, p.tq);
+    load_swz<T, kFBM>(dOs, dout, p.sdo[2], qt0 * kFBM, p.tq);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(dO * O) and lse of a query tile: four threads a row, the
+  // O row and the lse of the next tile held in registers ahead of use
+  const int d_row = tid >> 2, d_part = tid & 3;
+  float o_pf[4][4], lse_pf = 0.0f;
+  auto prefetch = [&](int qt) {
+    const int row = qt * kFBM + d_row;
+    const bool ok = qt < nq && row < p.tq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (ok) {
+        load4(o + (int64_t)row * p.so[2] + 4 * d_part + 16 * j, o_pf[j]);
+      } else {
+        o_pf[j][0] = o_pf[j][1] = o_pf[j][2] = o_pf[j][3] = 0.0f;
+      }
+    }
+    lse_pf = ok ? lse[row] : 0.0f;
+  };
+  prefetch(qt0);
+
+  // dK, dV: warps 4 (keys) x 2 (d), 32 x 32 each
+  const int wk0 = (warp >> 1) * 32, wd0 = (warp & 1) * 32;
+  float dk[2][4][4], dv[2][4][4];
+  zero(dk);
+  zero(dv);
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * kFBM;
+    const T* Qb = Qs + ((qt - qt0) & 1) * kFBM * kFD;
+    const T* dOb = dOs + ((qt - qt0) & 1) * kFBM * kFD;
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt is here, and the previous tile is done with
+    if (qt + 1 < nq) {  // the next tile's copies run under this one's math
+      const int nb = (qt + 1 - qt0) & 1;
+      load_swz<T, kFBM>(Qs + nb * kFBM * kFD, q, p.sq[2], q0 + kFBM, p.tq);
+      load_swz<T, kFBM>(dOs + nb * kFBM * kFD, dout, p.sdo[2], q0 + kFBM, p.tq);
+    }
+    cp_async_commit();
+    {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float dov[4];
+        load4(dOb + swz(d_row, 4 * d_part + 16 * j, kFD), dov);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc = fmaf(o_pf[j][e], dov[e], acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (d_part == 0) {
+        delta_s[d_row] = acc;
+        lse_s[d_row] = lse_pf;
+      }
+    }
+    prefetch(qt + 1);
+    __syncthreads();
+
+    // s = q k^T and dp = dO v^T: warps 2 (queries) x 4 (keys), 32 x 32 each
+    {
+      const int wq0 = (warp >> 2) * 32, wn0 = (warp & 3) * 32;
+      float s[2][4][4], dp[2][4][4];
+      warp_mma_tile<T, 2, 4, kFD>(s, wq0, wn0, Qb,
+                                  [&](int c, int n) { return to_f32(Ks[swz(n, c, kFD)]); });
+      warp_mma_tile<T, 2, 4, kFD>(dp, wq0, wn0, dOb,
+                                  [&](int c, int n) { return to_f32(Vs[swz(n, c, kFD)]); });
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wq0 + 16 * i + g + 8 * h;
+          const float L = lse_s[r], dl = delta_s[r];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = wn0 + 8 * j + 2 * t;
+            float pv[2], dsv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pf = visible(p, q0 + r, k0 + c + e)
+                                   ? expf(s[i][j][2 * h + e] * p.scale - L) : 0.0f;
+              pv[e] = round_t<T>(pf);
+              dsv[e] = round_t<T>(pf * (dp[i][j][2 * h + e] - dl) * p.scale);
+            }
+            *reinterpret_cast<float2*>(Ps + swz(r, c, kFBN)) = make_float2(pv[0], pv[1]);
+            *reinterpret_cast<float2*>(dSs + swz(r, c, kFBN)) = make_float2(dsv[0], dsv[1]);
+          }
+        }
+    }
+    __syncthreads();
+
+    // dV += p^T dO, dK += ds^T q over the tile's 64 query rows, each tile's
+    // part added in f32
+    {
+      float part[2][4][4];
+      warp_mma<kSplit, 2, 4, kFBM>(
+          part, wk0, wd0, [&](int key, int r) { return Ps[swz(r, key, kFBN)]; },
+          [&](int r, int c) { return to_f32(dOb[swz(r, c, kFD)]); });
+      add_to(dv, part);
+      warp_mma<kSplit, 2, 4, kFBM>(
+          part, wk0, wd0, [&](int key, int r) { return dSs[swz(r, key, kFBN)]; },
+          [&](int r, int c) { return to_f32(Qb[swz(r, c, kFD)]); });
+      add_to(dk, part);
+    }
+    // this key tile's dQ partial, ds k: warps 2 (queries) x 4 (d), 32 x 16
+    {
+      const int wq0 = (warp >> 2) * 32, wn0 = (warp & 3) * 16;
+      float dq[2][2][4];
+      warp_mma_ldsm<kSplit, 2, 2, kFBN, kFBN>(
+          dq, wq0, wn0, dSs, [&](int key, int c) { return to_f32(Ks[swz(key, c, kFD)]); });
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = q0 + wq0 + 16 * i + g + 8 * h;
+          if (row >= p.tq) continue;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            *reinterpret_cast<float2*>(dqp + (int64_t)row * kFD + wn0 + 8 * j + 2 * t) =
+                make_float2(dq[i][j][2 * h], dq[i][j][2 * h + 1]);
+        }
+    }
+  }
+  cp_async_wait<0>();  // no query tile at all: the K/V copies still land first
+
+  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * kFD;
+  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * kFD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + wk0 + 16 * i + g + 8 * h;
+      if (key >= p.tk) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t at = (int64_t)key * kFD + wd0 + 8 * j + 2 * t + e;
+          dkp[at] = from_f32<T>(dk[i][j][2 * h + e]);
+          dvp[at] = from_f32<T>(dv[i][j][2 * h + e]);
+        }
+    }
+
+  // the last key tile of this (b, h) to finish sums its dQ: every partial
+  // is written and fenced before the count moves
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(arrivals + bh, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  sum_dq<T>(p, dq_part, bh, tid);
+  if (tid == 0) arrivals[bh] = 0;  // ready for the next launch on this stream
+}
+
+template <typename T> constexpr size_t fused_smem() {
+  return (size_t)(2 * kFBN + 4 * kFBM) * kFD * sizeof(T) +
+         (size_t)(2 * kFBM * kFBN + 2 * kFBM) * sizeof(float);
+}
+static_assert(fused_smem<float>() <= 232448 - 1024, "fused backward tile too large");
+
 template <typename T, int D> constexpr size_t fwd_smem() {
   return (size_t)(kBM + 4 * kBN) * (D + 4) * sizeof(T) + (size_t)kBM * kPLD * sizeof(float);
 }
@@ -550,6 +954,17 @@ cudaError_t bwd_typed(const FlashParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t bwd_fused_typed(const FlashParams& p, float* dq_part, int* arrivals,
+                            cudaStream_t st) {
+  constexpr size_t bytes = fused_smem<T>();
+  cudaError_t err = prepare(flash_bwd_fused_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_fused_kernel<T><<<dim3((p.tk + kFBN - 1) / kFBN, p.b * p.h), kFThreads, bytes, st>>>(
+      p, dq_part, arrivals);
+  return cudaGetLastError();
+}
+
 bool shape_ok(const FlashParams& p) {
   return p.b > 0 && p.h > 0 && p.tq > 0 && p.tk > 0 && p.b * p.h <= 65535 &&
          (p.d == 64 || p.d == 128) && (p.dtype == 0 || p.dtype == 1);
@@ -576,6 +991,19 @@ int flash_attention_bwd(const FlashParams* p, void* stream) {
   if (p->dtype == 0) return (int)(p->d == 64 ? bwd_typed<float, 64>(*p, st) : bwd_typed<float, 128>(*p, st));
   return (int)(p->d == 64 ? bwd_typed<__nv_bfloat16, 64>(*p, st)
                           : bwd_typed<__nv_bfloat16, 128>(*p, st));
+}
+
+// The fused tier (d = 64): q, k, v, o, dout (strided), lse -> dq, dk, dv, with
+// dq_part an f32 scratch of ceil(tk / 128) x (b, h, tq, 64) for the key
+// tiles' dQ partials. arrivals: b * h ints, all 0, which the last key tile
+// of each (b, h) uses to find itself and sum dQ (and leaves at 0).
+int flash_attention_bwd_fused(const FlashParams* p, float* dq_part, int* arrivals,
+                              void* stream) {
+  if (p == nullptr || !shape_ok(*p) || p->d != kFD || dq_part == nullptr || arrivals == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p->dtype == 0) return (int)bwd_fused_typed<float>(*p, dq_part, arrivals, st);
+  return (int)bwd_fused_typed<__nv_bfloat16>(*p, dq_part, arrivals, st);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -17,11 +17,15 @@ the saved out and lse; nothing of the forward is stored beside them.
 The TPU package has two tiers per direction (VMEM-resident and grid-
 streamed) and a dense fallback for ragged shapes. A CUDA kernel streams K/V
 tiles through shared memory at every length, so one forward kernel serves
-both forward tiers and one dK/dV + dQ pair both backward tiers, and on the
-card every shape takes the kernels. The path predicates below are copies of
-the JAX package's: they decide only whether a program declares the `Lse`
-output (layers.flash_attention, the fuse_attention pass), so both packages
-build the same programs; they do not decide how the CUDA kernels tile.
+both forward tiers. The backward has two tiers, as in the JAX package: the
+fused kernel (five products, one CTA per 128-key tile, per-key-tile dQ
+partials summed in a fixed order) where those partials stay within 2x dQ
+(`flash_bwd_fused_ok`: at most two key tiles, head width 64), and the
+dK/dV + dQ pair everywhere else; on the card every shape takes a kernel.
+The path predicates copied from the JAX package decide only whether a
+program declares the `Lse` output (layers.flash_attention, the
+fuse_attention pass), so both packages build the same programs; they do not
+decide how the CUDA kernels tile.
 
 Dispatch: `flash_forward` / `flash_backward` launch the kernels for tensors
 on a CUDA device and raise if they cannot be built or launched, or if the
@@ -43,6 +47,7 @@ __all__ = [
     "flash_attention",
     "flash_backward",
     "flash_backward_plain",
+    "flash_bwd_fused_ok",
     "flash_forward",
     "flash_forward_plain",
     "flash_path_taken",
@@ -153,6 +158,8 @@ _MAX_GRID_Y = 65535  # b * h rides the grid's y dimension
 _LAUNCHES = {
     "flash_fwd": 0,
     "flash_fwd_causal": 0,
+    "flash_bwd_fused": 0,
+    "flash_bwd_fused_causal": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dkv_causal": 0,
     "flash_bwd_dq": 0,
@@ -189,10 +196,12 @@ class _Params(ctypes.Structure):
 
 
 def _bind(lib):
-    i32 = ctypes.c_int
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
     for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd):
-        fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(_Params), ptr]
         fn.restype = i32
+    lib.flash_attention_bwd_fused.argtypes = [ctypes.POINTER(_Params), ptr, ptr, ptr]
+    lib.flash_attention_bwd_fused.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
@@ -261,10 +270,36 @@ def _params(causal, sm_scale, **tensors):
     return prm
 
 
-def _launch(fn_name, prm, device):
+# the fused backward tier: keys a CTA, and the cap on its dQ partials (the
+# JAX package's: at most two key blocks, so the f32 partials stay within 2x dQ)
+FUSED_BWD_KEYS = 128
+FUSED_BWD_MAX_PARTIALS = 2
+FUSED_BWD_HEAD_DIM = 64
+
+
+def flash_bwd_fused_ok(tk, d):
+    """Whether the backward at tk keys and head width d takes the fused
+    kernel (the rest take the dK/dV + dQ pair)."""
+    return d == FUSED_BWD_HEAD_DIM and tk <= FUSED_BWD_KEYS * FUSED_BWD_MAX_PARTIALS
+
+
+# per (device, stream): b * h int32 arrival counters for the fused tier's dQ
+# sum, zeroed once; each launch leaves them at 0 again
+_ARRIVALS = {}
+
+
+def _arrivals(device, stream, n):
+    key = (device, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
+def _launch(fn_name, prm, device, *ptrs):
     lib = _build.load("flash_attention")
     with torch.cuda.device(device):
-        err = getattr(lib, fn_name)(ctypes.byref(prm),
+        err = getattr(lib, fn_name)(ctypes.byref(prm), *ptrs,
                                     torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError("%s kernel launch failed: %s"
@@ -289,8 +324,10 @@ def flash_forward(q, k, v, causal, sm_scale):
 
 def flash_backward(q, k, v, out, lse, dout, causal, sm_scale):
     """(dq, dk, dv) of flash attention from the saved out and lse (each in
-    its operand's dtype, contiguous). CUDA tensors launch the dQ and the
-    dK/dV kernels; CPU and meta tensors run flash_backward_plain."""
+    its operand's dtype, contiguous). CUDA tensors launch the fused kernel
+    where flash_bwd_fused_ok holds (its dQ summed by the last key tile of
+    each (b, h)), else the dK/dV and the dQ kernels; CPU and meta tensors
+    run flash_backward_plain."""
     if q.device.type != "cuda":
         return flash_backward_plain(q, k, v, out, lse, dout, causal, sm_scale)
     b, h, tq, tk, d = _check(q, k, v)
@@ -306,10 +343,18 @@ def flash_backward(q, k, v, out, lse, dout, causal, sm_scale):
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, h, tk, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _launch("flash_attention_bwd",
-            _params(causal, sm_scale, q=q, k=k, v=v, o=out, dout=dout, lse=lse, dq=dq, dk=dk,
-                    dv=dv), q.device)
+    prm = _params(causal, sm_scale, q=q, k=k, v=v, o=out, dout=dout, lse=lse, dq=dq, dk=dk, dv=dv)
     form = "_causal" if causal else ""
+    if flash_bwd_fused_ok(tk, d):
+        parts = torch.empty((-(-tk // FUSED_BWD_KEYS), b, h, tq, d), dtype=torch.float32,
+                            device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        arrivals = _arrivals(q.device, stream, b * h)
+        _launch("flash_attention_bwd_fused", prm, q.device, parts.data_ptr(),
+                arrivals.data_ptr())
+        _LAUNCHES["flash_bwd_fused" + form] += 1
+        return dq, dk, dv
+    _launch("flash_attention_bwd", prm, q.device)
     _LAUNCHES["flash_bwd_dq" + form] += 1
     _LAUNCHES["flash_bwd_dkv" + form] += 1
     return dq, dk, dv

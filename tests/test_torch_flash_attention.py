@@ -371,6 +371,21 @@ def test_tiny_flash_transformer_builds_the_same_program(jax_mods):
 # --------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("tk, d, fused", [
+    (256, 64, True),  # the train-flash path's (16, 8, 256, 64) in chip_smoke.py
+    (16384, 64, False),  # chip_smoke.py's long case takes the dK/dV + dQ pair
+    (1, 64, True),
+    (128, 64, True),
+    (129, 64, True),  # two key tiles, the second ragged
+    (257, 64, False),  # three key tiles: dQ partials past 2x dQ
+    (256, 128, False),  # the fused tier is built for head width 64
+])
+def test_fused_backward_tier_predicate(tk, d, fused):
+    assert fa.flash_bwd_fused_ok(tk, d) is fused
+    n_parts = -(-tk // fa.FUSED_BWD_KEYS)
+    assert (n_parts <= fa.FUSED_BWD_MAX_PARTIALS) or not fused
+
+
 def test_cpu_tensors_take_the_plain_versions_uncounted():
     q, k, v, g = (torch.from_numpy(x) for x in _qkvg(5, 1, 2, 64, 64, 64))
     before = fa.kernel_launches()
@@ -407,6 +422,16 @@ CUDA_CASES = {
     "d128_causal": (2, 4, 192, 192, 128, True, torch.float32, False),
     "bf16": (2, 8, 256, 256, 64, False, torch.bfloat16, True),
     "bf16_causal_d128": (2, 4, 256, 256, 128, True, torch.bfloat16, False),
+    # either side of the fused backward tier's cap (two 128-key tiles)
+    "fused_at_cap": (2, 4, 192, 256, 64, False, torch.float32, True),
+    "pair_past_cap": (2, 4, 192, 257, 64, False, torch.float32, False),
+    "pair_past_cap_causal": (1, 4, 384, 384, 64, True, torch.float32, True),
+    # causal with tq != tk inside the fused tier, both ways
+    "fused_causal_tq_longer": (2, 3, 300, 200, 64, True, torch.float32, False),
+    "fused_causal_tk_longer": (2, 3, 130, 256, 64, True, torch.float32, True),
+    "bf16_fused_causal": (2, 4, 192, 256, 64, True, torch.bfloat16, False),
+    # a long query side in the fused tier: dK and dV sum over 4096 rows
+    "fused_long_queries": (1, 2, 4096, 128, 64, False, torch.float32, True),
 }
 
 
@@ -436,8 +461,11 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     grads = fa.flash_backward(q, k, v, out, lse, g, causal, scale)
     torch.cuda.synchronize()
     after = fa.kernel_launches()
-    for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        assert after[kern + form] == before[kern + form] + 1, kern
+    fused = fa.flash_bwd_fused_ok(k.shape[2], k.shape[3])
+    moved = ("flash_fwd", "flash_bwd_fused") if fused else (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    for kern in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert after[kern + form] == before[kern + form] + (kern in moved), kern
     # the plain version in f32 on the same (rounded) inputs
     f32 = [t.float() for t in (q, k, v, g)]
     pout, plse = fa.flash_forward_plain(*f32[:3], causal, scale)

@@ -210,6 +210,46 @@ def test_adam_predicate_matches_jax(jax_pk):
 
 
 # --------------------------------------------------------------------------
+# the kernel's 3xTF32 products (csrc/tf32_mma.cuh), emulated in plain torch
+# --------------------------------------------------------------------------
+
+GEMM_TOL = 1e-4  # the kernel against its plain version on the card (chip_smoke.py)
+
+
+def _tf32(x):
+    """x cut to TF32 as the kernel's split and the tensor core's operand
+    read do: the 13 low mantissa bits masked off."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("k", [512, 2048], ids=["ffn1_k", "ffn2_k"])
+def test_3xtf32_split_holds_the_gemm_tolerance(k):
+    """An emulation of the accuracy argument for 3xTF32, in plain torch: it
+    runs no port code, and the `cuda` GEMM cases below are what guard the
+    kernel (whose tensor-core sums truncate, which this does not model).
+    a = hi + lo cut to TF32 (hi the value masked, lo the exact rest read
+    as TF32), the three products lo.hi, hi.lo, hi.hi summed in f32 land
+    within GEMM_TOL of the float64 product at the FFN GEMMs' depths; one
+    TF32 product (the hi.hi term alone) lands outside it at k = 2048,
+    which is why the kernel pays for three."""
+    rng = np.random.RandomState(k)
+    m = n = 64
+    x = _t(_f32(rng, m, k))
+    w = _t((_f32(rng, k, n) / np.sqrt(k)).astype("float32"))
+    ref = x.double() @ w.double()
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    assert torch.equal(xh + (x - xh), x)  # the rest is exact in f32
+    split = xl @ wh + xh @ wl + xh @ wh  # f32 sums, the small terms first
+    torch.testing.assert_close(split.double(), ref, atol=GEMM_TOL, rtol=GEMM_TOL)
+    one = float((xh @ wh - ref).abs().max())
+    three = float((split - ref).abs().max())
+    assert three < one / 100
+    if k == 2048:
+        assert one > GEMM_TOL
+
+
+# --------------------------------------------------------------------------
 # wrappers on CPU tensors take the plain versions and count no launch
 # --------------------------------------------------------------------------
 
@@ -251,6 +291,14 @@ def cuda_device():
 GEMM_CUDA_CASES = {
     "ffn1_relu": (512, 512, 2048, "relu", torch.float32),
     "ffn2_none": (512, 2048, 512, None, torch.float32),
+    "ffn1_m4096": (4096, 512, 2048, "relu", torch.float32),
+    "ffn2_m4096": (4096, 2048, 512, None, torch.float32),
+    # m, n, k off the 128 x 64 CTA tile and off the k depth of 64
+    "ragged_tiles": (129, 33, 65, "relu", torch.float32),
+    "ragged_k_depth": (300, 1001, 200, "gelu", torch.float32),
+    # x rows of 2051 f32 and w rows of 131 f32: not 16-byte aligned
+    "misaligned_rows": (130, 2051, 131, None, torch.float32),
+    "bf16_misaligned_rows": (70, 75, 97, "relu", torch.bfloat16),
     "gelu": (256, 384, 256, "gelu", torch.float32),
     "tanh_sigmoid_ragged": (100, 200, 130, "tanh", torch.float32),
     "sigmoid_ragged_k": (128, 256, 77, "sigmoid", torch.float32),
@@ -278,6 +326,45 @@ def test_cuda_gemm_matches_plain(cuda_device, name):
         assert y is None
     else:
         torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_repeats_bit_for_bit(cuda_device):
+    """A shape that cuts the 128 x 64 CTA tile and the k depth of 64
+    raggedly, against the plain version; a second run equals the first bit
+    for bit (no atomics)."""
+    rng = np.random.RandomState(7)
+    m, k, n = 300, 1001, 200
+    x = _t(_f32(rng, m, k), cuda_device)
+    w = _t((_f32(rng, k, n) / np.sqrt(k)).astype("float32"), cuda_device)
+    b = _t(_f32(rng, n), cuda_device)
+    z, y = ge.gemm_bias_act(x, w, b, "tanh")
+    z2, y2 = ge.gemm_bias_act(x, w, b, "tanh")
+    torch.cuda.synchronize()
+    zp, yp = ge.gemm_bias_act_plain(x, w, b, "tanh")
+    torch.testing.assert_close(z, zp, atol=GEMM_TOL, rtol=GEMM_TOL)
+    torch.testing.assert_close(y, yp, atol=GEMM_TOL, rtol=GEMM_TOL)
+    assert torch.equal(z, z2) and torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_launches_on_every_card(cuda_device):
+    """The kernel's shared-memory opt-in is per device: a launch on each
+    card in turn, after the first card's, still matches the plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    rng = np.random.RandomState(11)
+    m, k, n = 256, 512, 192
+    x, b = _f32(rng, m, k), _f32(rng, n)
+    w = (_f32(rng, k, n) / np.sqrt(k)).astype("float32")
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        args = (_t(x, dev), _t(w, dev), _t(b, dev), "relu")
+        z, y = ge.gemm_bias_act(*args)
+        zp, yp = ge.gemm_bias_act_plain(*args)
+        assert z.device == dev
+        torch.testing.assert_close(z, zp, atol=GEMM_TOL, rtol=GEMM_TOL)
+        torch.testing.assert_close(y, yp, atol=GEMM_TOL, rtol=GEMM_TOL)
 
 
 @pytest.mark.cuda
