@@ -12,7 +12,10 @@ Phases, each printing its own line; any failure exits non-zero:
      kernel / plain / library-call times in ms:
      - paged flash (decode q [8, 768] / table [8, 64]; prefill chunk
        q [32, 768] / table [64]), seeded inputs with pos < 0 rows, rows on a
-       page boundary and partly filled last pages; atol = rtol = 1e-5;
+       page boundary and partly filled last pages; atol = rtol = 1e-5; the
+       shared (prefill) form also at chunks of 1, 17, 32 and 48 rows, across
+       a stage and a split boundary, with pos = 0 and pos < 0 rows, over f32
+       and int8 pools, each repeated bit for bit;
      - the GEMM epilogue at Transformer base's FFN shapes (4096 x 512 @
        512 x 2048 + relu, 4096 x 2048 @ 2048 x 512), beside torch.addmm
        at both shapes and both bounds (3xTF32 on the tensor cores, f32 on
@@ -30,7 +33,10 @@ Phases, each printing its own line; any failure exits non-zero:
        backward takes the dK/dV + dQ pair (as the JAX package takes its
        streamed tiers); bf16 at the main shape against the f32 plain
        version on the same rounded inputs at 2e-2; each case's launches
-       must land on its tier;
+       must land on its tier; then every head width d in {6, 8, 16, 32, 80,
+       96}, f32 and bf16, causal and not, at a length each backward tier
+       takes (d <= 64: both), and (b, h, t, d) = (65600, 1, 32, 16), past the
+       65535 of a grid's y axis; forward and backward repeat bit for bit;
      - the int8 paged flash forms at path A's shapes (decode q [16, 768] /
        table [16, 64]; prefill chunk q [32, 768] / table [64]; int8 pools
        with per-row f32 scales), atol = rtol = 1e-5;
@@ -203,18 +209,27 @@ def _bound(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound(pos, shared, rows, feat, ps, n_pages):
-    """Least time for the work these inputs need: each input byte read
-    once (only the K/V pages up to pos), each output byte written once,
-    against the f32 flops of QK^T and PV over the live entries."""
+def _paged_work(pos, shared, rows, feat, ps, n_pages, kv_bytes):
+    """(bytes, flops, K/V rows) of the work these inputs need: each input byte
+    read once (only the K/V pages up to pos, kv_bytes a K or V row), each
+    output byte written once; the flops of q k^T and p v over the live
+    entries."""
     live = [min(int(p) + 1, n_pages * ps) if p >= 0 else 0 for p in pos]
     if shared:
         kv_rows = (max(live) + ps - 1) // ps * ps
     else:
         kv_rows = sum((n + ps - 1) // ps * ps for n in live)
     table = (n_pages if shared else rows * n_pages) * 4
-    nbytes = 2 * kv_rows * feat * 4 + 2 * rows * feat * 4 + table + rows * 4
-    return _bound(nbytes, sum(4 * n * feat for n in live))
+    nbytes = 2 * kv_rows * kv_bytes + 2 * rows * feat * 4 + table + rows * 4
+    return nbytes, sum(4 * n * feat for n in live), kv_rows
+
+
+def bound(pos, shared, rows, feat, ps, n_pages):
+    """Least time for the work these inputs need (f32 pools): the bytes
+    against the flops of q k^T and p v, as f32 on the CUDA cores (the
+    decode form's) or, for the shared form, as 3xTF32 on the tensor cores."""
+    nbytes, flops, _ = _paged_work(pos, shared, rows, feat, ps, n_pages, feat * 4)
+    return (_tf32x3_bound if shared else _bound)(nbytes, flops)
 
 
 GATE_CYCLES = 400_000_000  # a sleep kernel of ~0.2 s at the H100's clocks
@@ -281,6 +296,8 @@ def check_kernels(torch, pf, device):
         dead = args[4] < 0
         if dead.any() and float(got[dead].abs().max()) != 0.0:
             raise AssertionError("%s: pos < 0 rows are not exact zeros" % name)
+        if not torch.equal(got, pf.paged_flash_attention(*args, **kw)):
+            raise AssertionError("%s: the output differs from run to run" % name)
         kernel = lambda: pf.paged_flash_attention(*args, **kw)  # noqa: E731
         ms = time_ms(torch, kernel, 50, flush, gated=True)
         call_ms = time_ms(torch, kernel, 50, flush, gated=False)
@@ -304,11 +321,12 @@ def check_kernels(torch, pf, device):
             # no single PyTorch call reads a paged pool through a block table
             "library_ms": None,
         }
-        log("kernel %s: q %s table %s max_abs_err %.3g (atol=rtol=%g) kernel %.4f ms "
-            "(device), %.4f ms a call with the wrapper's launch cost; plain %.4f ms "
-            "(device); bound %.4f ms (%s)" % (
+        log("kernel %s: q %s table %s max_abs_err %.3g (atol=rtol=%g; repeats bit for bit) "
+            "kernel %.4f ms (device), %.4f ms a call with the wrapper's launch cost; plain "
+            "%.4f ms (device); bound %.4f ms (%s%s)" % (
                 name, tuple(q.shape), tuple(bt.shape), err, ATOL, ms, call_ms, plain_ms,
-                bound_ms, bound_by))
+                bound_ms, bound_by, ", products as 3xTF32 on the tensor cores" if shared
+                else ", products as f32 on the CUDA cores"))
     return results
 
 
@@ -584,7 +602,19 @@ def _flash_compare(torch, fa, name, q, k, v, g, causal, scale, dtype):
     again = fa.flash_backward(qd, kd, vd, out, lse, gd, causal, scale)
     if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
         raise AssertionError("%s: the backward differs from run to run" % name)
+    out2, lse2 = fa.flash_forward(qd, kd, vd, causal, scale)
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        raise AssertionError("%s: the forward differs from run to run" % name)
     return err_f, err_b, out, lse
+
+
+def _flash_fwd_bounds(b, h, t, d, causal):
+    """The forward's bounds over the pairs the work needs, q, k, v read and
+    out, lse written once: 3xTF32's two products on the tensor cores (the
+    kernel's form, and the entry's bound), and one f32 product each on the
+    CUDA cores."""
+    nbytes, flops = (4 * b * h * t * d + b * h * t) * 4, 4 * _flash_pairs(b, h, t, causal) * d
+    return _tf32x3_bound(nbytes, flops), _bound(nbytes, flops)
 
 
 def _flash_bwd_bounds(b, h, t, d, causal):
@@ -649,17 +679,19 @@ def check_flash(torch, device, flush):
         lib_f = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, scale=scale), 20, flush,
                         gated=True)
         lib_b = _sdpa_bwd_ms(torch, q, k, v, g, causal, scale, 20, flush)
-        pairs = _flash_pairs(b, h, t, causal)
-        bound_f = _bound((4 * b * h * t * d + b * h * t) * 4, 4 * pairs * d)
+        bound_f, cc_f = _flash_fwd_bounds(b, h, t, d, causal)
         bound_b, cc_b = _flash_bwd_bounds(b, h, t, d, causal)
-        log("kernel flash%s: (b, h, t, d) %s f32 strided views; forward max_abs_err %.3g "
-            "(out, lse atol=rtol=%g) kernel %.4f ms (device); plain %.4f ms; "
-            "scaled_dot_product_attention %.4f ms; bound %.4f ms (%s) | backward, fused tier "
+        log("kernel flash%s: (b, h, t, d) %s f32 strided views; forward (two 3xTF32 "
+            "products) max_abs_err %.3g (out, lse atol=rtol=%g; repeats bit for bit) kernel "
+            "%.4f ms (device); plain %.4f ms; scaled_dot_product_attention %.4f ms, kernel / "
+            "SDPA %.3f; bound %.4f ms (%s, 3xTF32 on the tensor cores), f32 on the CUDA cores "
+            "%.4f ms (%s) | backward, fused tier "
             "(five products, 3xTF32) max_abs_err %.3g (rtol %g, atol %g of the largest "
             "magnitude; repeats bit for bit) kernel %.4f ms; plain %.4f ms; SDPA backward "
             "%.4f ms (forward + backward %.4f ms), kernel / SDPA %.3f; bound %.4f ms (%s, 3xTF32 "
             "on the tensor cores), f32 on the CUDA cores %.4f ms (%s)" % (
-                form, FLASH_SHAPE, err_f, ATOL, ms_f, plain_f, lib_f, bound_f[0], bound_f[1],
+                form, FLASH_SHAPE, err_f, ATOL, ms_f, plain_f, lib_f, ms_f / lib_f, bound_f[0],
+                bound_f[1], cc_f[0], cc_f[1],
                 err_b, FLASH_GRAD_TOL, FLASH_GRAD_TOL, ms_b, plain_b, lib_b,
                 lib_f + lib_b, ms_b / lib_b, bound_b[0], bound_b[1], cc_b[0], cc_b[1]))
         entries["flash_fwd" + form] = _entry(
@@ -689,14 +721,17 @@ def check_flash(torch, device, flush):
         lib_f = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, scale=scale), 5, flush,
                         gated=True)
         lib_b = _sdpa_bwd_ms(torch, q, k, v, g, causal, scale, 5, flush)
+        bound_f, cc_f = _flash_fwd_bounds(lb, lh, lt, ld, causal)
         bound_b, cc_b = _flash_bwd_bounds(lb, lh, lt, ld, causal)
         log("kernel flash%s at %s (the dK/dV + dQ pair, as the JAX package takes its streamed "
             "tiers; launches %s): forward max_abs_err %.3g, backward %.3g; kernel forward %.4f "
             "ms, backward %.4f ms; plain forward %.4f ms, backward %.4f ms; SDPA forward %.4f "
-            "ms, backward %.4f ms; backward bound %.4f ms (%s, 3xTF32), f32 on the CUDA cores "
+            "ms, backward %.4f ms; forward bound %.4f ms (%s, 3xTF32), f32 on the CUDA cores "
+            "%.4f ms (%s); backward bound %.4f ms (%s, 3xTF32), f32 on the CUDA cores "
             "%.4f ms (%s)" % (
                 form, FLASH_LONG, json.dumps(moved), err_f, err_b, ms_f, ms_b, plain_f, plain_b,
-                lib_f, lib_b, bound_b[0], bound_b[1], cc_b[0], cc_b[1]))
+                lib_f, lib_b, bound_f[0], bound_f[1], cc_f[0], cc_f[1], bound_b[0], bound_b[1],
+                cc_b[0], cc_b[1]))
         entry = _entry("flash_bwd_streamed" + form, FLASH_SOURCE,
                        "paddle_tpu/ops/pallas_kernels.py:679", err_b, ms_b, plain_b, bound_b[0],
                        bound_b[1], lib_b)
@@ -717,7 +752,60 @@ def check_flash(torch, device, flush):
         log("kernel flash%s bf16 at %s (fused backward tier) against the f32 plain version on "
             "the same rounded inputs: out max_abs_err %.3g, grads / max(1, max|want|) %.3g "
             "(atol=rtol=%g)" % (form, FLASH_SHAPE, err_f, err_b, FLASH_BF16_TOL))
+    check_flash_widths(torch, fa, device)
     return entries
+
+
+FLASH_WIDTHS = (6, 8, 16, 32, 80, 96)  # head widths off the 64 / 128 the kernels once took
+FLASH_WIDTH_SHAPES = ((2, 4, 200), (1, 4, 300))  # (b, h, t): the fused tier's and the pair's
+FLASH_MANY_HEADS = (65600, 1, 32, 16)  # b * h past the 65535 of a grid's y axis
+
+
+def check_flash_widths(torch, fa, device):
+    """Forward and backward against the plain versions at every head width
+    of FLASH_WIDTHS (rows of d % 4 != 0 elements load element by element),
+    f32 and bf16, causal and not, at a length each backward tier takes (d <=
+    64: the fused tier at t = 200, the pair at t = 300; wider: the pair at
+    both), then at FLASH_MANY_HEADS; each case's launches must land on its
+    tier, and both directions repeat bit for bit."""
+    seed = SEED + 40
+    for d in FLASH_WIDTHS:
+        errs, tiers = {}, set()
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                form = "_causal" if causal else ""
+                for b, h, t in FLASH_WIDTH_SHAPES:
+                    seed += 1
+                    q, k, v, g = _flash_inputs(torch, device, (b, h, t, d), seed)
+                    tier = "fused" if fa.flash_bwd_fused_ok(t, d) else "pair"
+                    before = fa.kernel_launches()
+                    name = "flash d=%d %s%s t=%d" % (d, str(dtype)[6:], form, t)
+                    err = _flash_compare(torch, fa, name, q, k, v, g, causal, d ** -0.5, dtype)
+                    _tier_moved(fa, before, tier, form, 2)
+                    tiers.add(tier)
+                    key = str(dtype)[6:]
+                    errs[key] = max(errs.get(key, 0.0), err[0], err[1])
+        if tiers != ({"fused", "pair"} if d <= fa.FUSED_BWD_HEAD_DIM else {"pair"}):
+            raise AssertionError("flash d=%d: backward tiers %s" % (d, sorted(tiers)))
+        log("kernel flash at head width d=%d ((b, h, t) %s, causal and not, backward tiers %s): "
+            "max_abs_err f32 %.3g (out, lse atol=rtol=%g; grads rtol %g, atol %g of the largest "
+            "magnitude), bf16 %.3g (against the f32 plain version, %g); forward and backward "
+            "repeat bit for bit" % (d, FLASH_WIDTH_SHAPES, sorted(tiers), errs["float32"], ATOL,
+                                    FLASH_GRAD_TOL, FLASH_GRAD_TOL, errs["bfloat16"],
+                                    FLASH_BF16_TOL))
+    for causal in (False, True):
+        form = "_causal" if causal else ""
+        q, k, v, g = _flash_inputs(torch, device, FLASH_MANY_HEADS, SEED + 60 + causal)
+        before = fa.kernel_launches()
+        err_f, err_b, _, _ = _flash_compare(torch, fa, "flash many heads" + form, q, k, v, g,
+                                            causal, 0.25, torch.float32)
+        moved = _tier_moved(fa, before, "fused", form, 2)
+        log("kernel flash%s at (b, h, t, d) %s, b * h = %d: forward max_abs_err %.3g, backward "
+            "%.3g (launches %s); repeats bit for bit" % (
+                form, FLASH_MANY_HEADS, FLASH_MANY_HEADS[0] * FLASH_MANY_HEADS[1], err_f, err_b,
+                json.dumps(moved)))
+        del q, k, v, g
+        torch.cuda.empty_cache()
 
 
 def int8_paged_case(torch, device, shared, seed):
@@ -772,26 +860,96 @@ def check_int8_paged(torch, pf, device, flush):
         dead = args[4] < 0
         if dead.any() and float(got[dead].abs().max()) != 0.0:
             raise AssertionError("%s: pos < 0 rows are not exact zeros" % name)
+        if not torch.equal(got, pf.paged_flash_attention(*args, **kw)):
+            raise AssertionError("%s: the output differs from run to run" % name)
         kernel = lambda: pf.paged_flash_attention(*args, **kw)  # noqa: E731
         ms = time_ms(torch, kernel, 50, flush, gated=True)
         plain_ms = time_ms(torch, lambda: pf.paged_attention_plain(*args, **kw), 10, flush,
                            gated=True)
         q, bt, pos = args[0], args[3], args[4].tolist()
         rows, feat, ps, n_pages = q.shape[0], q.shape[1], kw["page_size"], bt.shape[-1]
-        live = [min(int(p) + 1, n_pages * ps) if p >= 0 else 0 for p in pos]
-        kv_rows = ((max(live) + ps - 1) // ps * ps if shared
-                   else sum((n + ps - 1) // ps * ps for n in live))
         # K and V rows at 1 B an element plus a 4-byte scale each; q, out f32
-        nbytes = (2 * kv_rows * (feat + 4) + 2 * rows * feat * 4 + bt.numel() * 4 + rows * 4)
-        bound_ms, bound_by = _bound(nbytes, sum(4 * n * feat for n in live) + 2 * kv_rows * feat)
+        nbytes, flops, kv_rows = _paged_work(pos, shared, rows, feat, ps, n_pages, feat + 4)
+        deq = 2 * kv_rows * feat  # one multiply an element, on the CUDA cores
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        if shared:  # the products as 3xTF32 on the tensor cores
+            t_ops = (3 * flops / TF32_FLOPS + deq / F32_FLOPS) * 1e3
+        else:
+            t_ops = (flops + deq) / F32_FLOPS * 1e3
+        bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
         log("kernel %s: q %s table %s int8 pools, per-row scales; max_abs_err %.3g "
-            "(atol=rtol=%g) kernel %.4f ms (device); plain %.4f ms; bound %.4f ms (%s)" % (
+            "(atol=rtol=%g; repeats bit for bit) kernel %.4f ms (device); plain %.4f ms; bound "
+            "%.4f ms (%s): bytes %.5f ms, operations %.5f ms (%s)" % (
                 name, tuple(q.shape), tuple(bt.shape), err, ATOL, ms, plain_ms, bound_ms,
-                bound_by))
+                bound_by, t_bytes, t_ops, "q k^T and p v as 3xTF32 on the tensor cores" if shared
+                else "f32 on the CUDA cores"))
         # no single PyTorch call reads a paged pool through a block table
         results[name] = _entry(name, "paddle_tpu_torch/ops/csrc/paged_flash.cu", replaces, err,
                                ms, plain_ms, bound_ms, bound_by, None)
     return results
+
+
+# prefill chunks for the shared form at GPT-2 small's widths: name ->
+# positions of the chunk's rows (page size 16, a 64-entry table; a stage of
+# the kernel is 64 positions, a split two stages)
+PAGED_CHUNKS = {
+    "rows1": [600],
+    "rows17": list(range(600, 617)),
+    "rows32_dead_tail": list(range(600, 630)) + [-1, -1],
+    "rows48": list(range(580, 628)),
+    "across_stage": list(range(56, 72)),
+    "across_split": list(range(112, 144)),
+    "pos0": [0, 0, 1, -1],
+    "dead_rows": [-1, 300, -1, 1023],
+}
+
+
+def check_paged_chunks(torch, pf, device):
+    """The shared-table kernel against the plain version at every chunk of
+    PAGED_CHUNKS, over f32 pools (the serve engine's 513 pages) and int8
+    pools with per-row scales (the int8 engine's 1025 pages): atol = rtol =
+    1e-5, pos < 0 rows exact zeros, the output repeated bit for bit."""
+    ps, n_head, d = ENGINE["page_size"], 12, 64
+    feat, n_pages = n_head * d, ENGINE["max_context"] // ps
+    for quant, eng in ((False, ENGINE), (True, INT8_ENGINE)):
+        rng = np.random.RandomState(SEED + 70 + quant)
+        pool_pages = eng["max_slots"] * n_pages + 1
+        kw = dict(n_head=n_head, page_size=ps)
+        if quant:
+            pools = [torch.from_numpy(rng.randint(-127, 128, (pool_pages * ps, feat))
+                                      .astype(np.int8)).to(device) for _ in range(2)]
+            kw.update({n: torch.from_numpy((rng.rand(pool_pages * ps) * 0.05 + 1e-3)
+                                           .astype("float32")).to(device)
+                       for n in ("k_scales", "v_scales")})
+        else:
+            pools = [torch.from_numpy(rng.randn(pool_pages * ps, feat).astype("float32"))
+                     .to(device) for _ in range(2)]
+        key = "paged_flash_shared" + ("_int8" if quant else "")
+        errs = {}
+        for name, pos in PAGED_CHUNKS.items():
+            pos = np.asarray(pos, np.int32)
+            bt = np.zeros(n_pages, np.int32)
+            need = max(int(pos.max()) // ps + 1, 0)
+            bt[:need] = rng.permutation(np.arange(1, pool_pages))[:need]
+            q = rng.randn(len(pos), feat).astype("float32")
+            args = [torch.from_numpy(q).to(device)] + pools + [
+                torch.from_numpy(a).to(device) for a in (bt, pos)]
+            before = pf.kernel_launches()[key]
+            got = pf.paged_flash_attention(*args, **kw)
+            torch.cuda.synchronize()
+            if pf.kernel_launches()[key] != before + 1:
+                raise AssertionError("%s %s: the kernel did not launch" % (key, name))
+            want = pf.paged_attention_plain(*args, **kw)
+            errs[name] = _close(torch, "%s %s" % (key, name), got, want, ATOL, RTOL)
+            dead = args[4] < 0
+            if dead.any() and float(got[dead].abs().max()) != 0.0:
+                raise AssertionError("%s %s: pos < 0 rows are not exact zeros" % (key, name))
+            if not torch.equal(got, pf.paged_flash_attention(*args, **kw)):
+                raise AssertionError("%s %s: the output differs from run to run" % (key, name))
+        chunks = {n: "%d: %d..%d" % (len(p), min(p), max(p)) for n, p in PAGED_CHUNKS.items()}
+        log("kernel %s at prefill chunks (rows: positions) %s: max_abs_err %s (atol=rtol=%g); "
+            "pos < 0 rows exact zeros; each repeats bit for bit" % (
+                key, chunks, json.dumps({n: float("%.3g" % e) for n, e in errs.items()}), ATOL))
 
 
 QGEMM_SHAPE = (1024, 2048, 2048)  # (m, k, n): path B's single shot through a hidden layer
@@ -1497,6 +1655,7 @@ def main():
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
         kernels.update(check_flash(torch, device, flush))
         kernels.update(check_int8_paged(torch, pf, device, flush))
+        check_paged_chunks(torch, pf, device)
         kernels.update(check_quant_gemm(torch, device, flush))
         del flush
     with Phase("serve"):

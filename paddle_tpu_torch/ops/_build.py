@@ -9,6 +9,12 @@ registers its source and the function that declares its ctypes signatures
 at import (no I/O); `load` builds one library at its first launch, and
 `build_all` starts one nvcc per registered source at once, so the kernels of
 a run build in parallel. A box without a compiler imports the package.
+
+`arrival_counters` holds the int32 counters with which a kernel's last CTA
+of a group finds itself (the fused flash backward's dQ sum, the paged
+prefill kernel's merge): one zeroed buffer per (device, stream), which
+every such launch leaves at 0 again, so kernels ordered on one stream share
+it.
 """
 
 import ctypes
@@ -18,7 +24,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["NVCC_FLAGS", "build_all", "build_logs", "load", "register"]
+__all__ = ["NVCC_FLAGS", "arrival_counters", "build_all", "build_logs", "load", "register"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, "csrc")
@@ -109,3 +115,18 @@ def build_all():
     with _lock:
         _compile([s for s in _binders if s not in _libs])
     return {stem: load(stem) for stem in list(_binders)}
+
+
+_counters = {}  # (device, stream) -> int32 arrival counters, all 0 between launches
+
+
+def arrival_counters(device, stream, n):
+    """At least n int32 arrival counters on `device` for kernels launched on
+    `stream`, all 0 (each launch that counts resets what it used)."""
+    key = (device, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        import torch
+
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf

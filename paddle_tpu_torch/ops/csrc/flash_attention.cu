@@ -1,6 +1,6 @@
 // Flash attention, forward and backward, over (b, h, t, d) operands, for
-// Hopper (sm_90a). f32 or bf16 operands, f32 accumulation, head width 64 or
-// 128.
+// Hopper (sm_90a). f32 or bf16 operands, f32 accumulation, any head width d
+// from 1 to 128 and any number of (b, h) pairs.
 //
 // Replaces the Pallas kernels of paddle_tpu/ops/pallas_kernels.py:
 //   _flash_forward            -> _flash_kernel             (resident forward)
@@ -12,8 +12,20 @@
 // shared memory at every length, so flash_fwd_kernel serves both forward
 // tiers. The backward keeps the JAX package's two tiers: the fused kernel
 // (flash_bwd_fused_kernel) where its per-key-tile dQ partials stay within 2x
-// dQ (at most two 128-key tiles, d = 64; the wrapper decides), and the
+// dQ (at most two 128-key tiles, d <= 64; the wrapper decides), and the
 // flash_bwd_dkv_kernel + flash_bwd_dq_kernel pair everywhere else.
+//
+// Head widths: each kernel is built for a few padded widths DP (the forward
+// 32, 64 and 128; the fused tier 64; the pair 64 and 128) and takes the
+// smallest DP >= d. Columns past d are zero-filled as each tile is loaded
+// (cp.async with source size 0, or element by element where rows are not
+// aligned for 4-element loads): zero columns change no q k^T, give zero
+// dQ / dK / dV columns, and are never stored. Outputs are (b, h, t, d)
+// with row stride d. The (b, h) pair rides grid x (the forward: x = tile *
+// b * h + bh, so the longest causal tiles of every (b, h) start first; the
+// pair and the fused backward: x = bh, y = the tile, read from special
+// registers, not kept live), so b * h is bounded only by grid x's 2^31 - 1
+// (and t by grid y's 65535 tiles).
 //
 // Contract (the TPU kernel's, not the dense softmax's): s = q k^T * scale,
 // causal masking aligned bottom-right (query row i sees keys up to
@@ -26,27 +38,44 @@
 // dK = ds^T q, dQ = ds k, each summed in f32 and rounded once.
 //
 // Bound, at the training path's (16, 8, 256, 64) f32: operations. The
-// forward does 4 * b * h * tq * tk * d flops (2.15 GFLOP, 0.032 ms at the
-// card's 67 TFLOP/s f32 on the CUDA cores) against 33.6 MB of operands
-// (0.010 ms at 3.35 TB/s); the backward needs five such products, 5.37
+// forward does 4 * b * h * tq * tk * d flops (2.15 GFLOP: 0.0130 ms as
+// 3xTF32 on the tensor cores at 495 TFLOP/s, 0.032 ms on the CUDA cores'
+// 67 TFLOP/s) against 33.6 MB of operands (0.010 ms at 3.35 TB/s); the
+// backward needs five such products, 5.37
 // GFLOP: 0.0801 ms on the CUDA cores, or, f32-accurate on the tensor cores
 // as 3xTF32 (tf32_mma.cuh: three TF32 products a pair, about 2^-21 relative
 // error a product, inside the 1e-4 gradient tolerance where one TF32
 // product, about 2^-11, is not), 3 x 5.37 GFLOP at 495 TFLOP/s = 0.0325 ms
 // (causal: half the pairs, 0.0163 ms).
 //
-// Forward and the pair: f32 products on the CUDA cores. A CTA of 256
-// threads owns a 64 x 64 tile of scores, 4 x 4 a thread; a thread's four
-// rows sit in one half-warp, so the softmax row reductions are four
-// shuffles. Operand tiles live in shared memory with rows padded by 4
-// elements, so the 16-byte (f32) or 8-byte (bf16) loads along d of 16
-// different rows hit distinct banks. The forward keeps the running max, sum
-// and the 64 x d accumulator in registers and double-buffers the K/V tiles
-// with cp.async; causal tiles past the diagonal are never loaded, and causal
-// CTAs start with the longest rows. The pair has no float atomics: dK/dV is
-// one CTA per K tile looping over the query tiles, dQ one CTA per query
-// tile looping over the K tiles, so each sum has one owner; the price is s
-// and dp computed in both kernels, seven products for five.
+// The forward, on the tensor cores: a CTA of 4 warps owns 64 query rows,
+// 16 a warp, and streams 64-key K/V tiles through a two-stage cp.async
+// ring (one CTA barrier a key tile). Both products run as mma.sync m16n8k8
+// (3xTF32 for f32, one exact TF32 product for bf16). A warp's 16 x 64
+// scores stay in registers as C fragments: a thread holds rows g and g + 8,
+// so the row max is two quad shuffles and the row sum is kept per thread
+// and summed over the quad once at the end. p, rounded to the operand
+// dtype, becomes the A fragment of p v with no data movement: within each
+// 8-key step the k slots (t, t + 4) are taken to be keys (2t, 2t + 1),
+// which is where the C fragment already holds them, and the B fragment of
+// v reads the same keys. The softmax runs in base 2 (scores times
+// scale * log2(e), one ex2 an exponential). Each key tile's p v part sums
+// in the tensor core from 0 and joins the f32 O registers by one rounded
+// add (the tensor
+// core's own sums truncate and would drift over a long tk). Tiles are
+// row-major with 4-element units XOR-swizzled by (row & 7): q (ldmatrix)
+// and k read as fragments, and v read down its key axis, all hit 32
+// distinct banks. Causal tiles past the diagonal are never loaded, and
+// causal CTAs start with the longest rows.
+//
+// The pair: f32 products on the CUDA cores. A CTA of 256 threads owns a
+// 64 x 64 tile of scores, 4 x 4 a thread. Operand tiles live in shared
+// memory with rows padded by 4 elements, so the
+// 16-byte (f32) or 8-byte (bf16) loads along d of 16 different rows hit
+// distinct banks. The pair has no float atomics: dK/dV is one CTA per K
+// tile looping over the query tiles, dQ one CTA per query tile looping over
+// the K tiles, so each sum has one owner; the price is s and dp computed in
+// both kernels, seven products for five.
 //
 // The fused backward: one CTA of 8 warps per (b * h, 128-key tile) keeps
 // its K and V tiles in shared memory and streams 64-row query tiles (q, dO)
@@ -103,6 +132,9 @@ struct FlashParams {
   int64_t so[3];
   int64_t sdo[3];
   int b, h, tq, tk, d, causal, dtype;  // dtype: 0 f32, 1 bf16
+  // every operand row loads as aligned 4-element units: d % 4 == 0, each
+  // (b, h, t) stride a multiple of 4 and each pointer 4-element aligned
+  int vec;
   float scale;
 };
 
@@ -110,12 +142,20 @@ namespace {
 
 constexpr int kBM = 64;  // query rows a tile
 constexpr int kBN = 64;  // keys a tile
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // the pair
+constexpr int kFwdThreads = 128;  // the forward: 4 warps of 16 query rows
 constexpr int kPLD = kBN + 4;  // row stride of the f32 p / ds tiles
 constexpr float kNegInf = -__builtin_huge_valf();
 
 using tf32::from_f32;
 using tf32::to_f32;
+
+// 2^x by the SFU (ex2.approx: about 2^-22 relative error; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // v rounded to T and widened back
 template <typename T> __device__ __forceinline__ float round_t(float v);
@@ -154,29 +194,53 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [r0, r0 + R) of a (t, D) operand with row stride `st` into a
-// [R][D + 4] shared tile; rows at or past t read as zeros
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t st, int r0, int t) {
+// columns [c, c + 4) of one operand row (`row` its first element, d its
+// width) into 4 consecutive elements of shared memory; columns at or past
+// d, and every column when !ok, read as zeros. vec: one cp.async of the
+// whole aligned unit (source size 0 zero-fills; d % 4 == 0, so a unit is
+// wholly inside d or past it); else element by element, synchronously
+// (bf16 has no 2-byte cp.async), done before the barrier that follows.
+template <typename T>
+__device__ __forceinline__ void load_unit(T* dst, const T* row, bool ok, int c, int d, bool vec) {
+  if (vec) {
+    const bool live = ok && c < d;
+    cp_async<(int)(4 * sizeof(T))>(dst, live ? row + c : row, live);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dst[e] = ok && c + e < d ? row[c + e] : from_f32<T>(0.0f);
+}
+
+// four consecutive elements of a row from device memory as f32, zeros at
+// or past column d
+template <typename T>
+__device__ __forceinline__ void load4_row(const T* row, int c, int d, bool vec, float (&o)[4]) {
+  if (vec && c < d) {
+    load4(row + c, o);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = c + e < d ? to_f32(row[c + e]) : 0.0f;
+}
+
+// rows [r0, r0 + R) of a (t, d) operand with row stride `st` into a
+// [R][D + 4] shared tile (D >= d); rows at or past t, and columns at or past
+// d, read as zeros. FULL: d == D and every row aligned, so whole units copy
+// by cp.async with no column test.
+template <typename T, int D, int R, bool FULL>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t st, int r0, int t, int d,
+                                          bool vec) {
   constexpr int G = D / 4;
   for (int g = threadIdx.x; g < R * G; g += kThreads) {
     const int r = g / G, c = (g % G) * 4;
     const bool ok = r0 + r < t;
-    const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
-    cp_async<(int)(4 * sizeof(T))>(dst + r * (D + 4) + c, from, ok);
+    if constexpr (FULL) {
+      const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
+      cp_async<(int)(4 * sizeof(T))>(dst + r * (D + 4) + c, from, ok);
+    } else {
+      load_unit(dst + r * (D + 4) + c, src + (ok ? (int64_t)(r0 + r) * st : 0), ok, c, d, vec);
+    }
   }
-}
-
-// reductions over the 16 threads (one half-warp) that share a row
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // s[i][j] += a_row(ty*4+i) . b_row(tx+16j) over d: the 4 x 4 part of a
@@ -249,11 +313,13 @@ __device__ __forceinline__ void tile_ptx(const float* p, const T* x, int tx, int
   }
 }
 
-// rows [row0, row0 + 64) of a contiguous (t, D) output from a thread's
-// [4][D / 64][4] accumulator, rows at or past t dropped
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, int row0, int t, int tx, int ty,
-                                           const float (&acc)[4][D / 64][4], float mul) {
+// rows [row0, row0 + 64) of a contiguous (t, d) output from a thread's
+// [4][D / 64][4] accumulator, rows at or past t and columns at or past d
+// dropped
+template <typename T, int D, bool FULL>
+__device__ __forceinline__ void store_rows(T* dst, int row0, int t, int d, int tx, int ty,
+                                           const float (&acc)[4][D / 64][4]) {
+  if constexpr (FULL) d = D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
@@ -261,8 +327,10 @@ __device__ __forceinline__ void store_rows(T* dst, int row0, int t, int tx, int 
 #pragma unroll
     for (int n = 0; n < D / 64; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dst[(int64_t)row * D + n * 64 + tx * 4 + e] = from_f32<T>(acc[i][n][e] * mul);
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 64 + tx * 4 + e;
+        if (FULL || c < d) dst[(int64_t)row * d + c] = from_f32<T>(acc[i][n][e]);
+      }
   }
 }
 
@@ -279,108 +347,230 @@ __device__ __forceinline__ bool visible(const FlashParams& p, int row, int key) 
   return row < p.tq && key < p.tk && (!p.causal || row + (p.tk - p.tq) >= key);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
-  constexpr int LD = D + 4, NC = D / 64;
+// Element (r, c) of a row-major tile of W columns (W a multiple of 32), its
+// 4-element units XOR-swizzled by (r & 7): 8 consecutive rows read at one
+// unit (ldmatrix, and the B fragment of q k^T), and rows 2t or 2t + 1 of an
+// 8-row group read at 8 consecutive columns (the B fragment of p v), each
+// hit 32 distinct banks for f32; a unit stays contiguous for cp.async.
+__device__ __forceinline__ int sw(int r, int c, int w) { return r * w + (c ^ ((r & 7) << 2)); }
+
+// rows [r0, r0 + R) of a (t, d) operand with row stride `st` into a
+// swizzled [R][DP] tile; rows at or past t, and columns at or past d, read
+// as zeros
+template <typename T, int DP, int R, int NT>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st, int r0, int t, int d,
+                                          bool vec) {
+  constexpr int G = DP / 4;
+  for (int i = threadIdx.x; i < R * G; i += NT) {
+    const int r = i / G, c = (i % G) * 4;
+    const bool ok = r0 + r < t;
+    load_unit(dst + sw(r, c, DP), src + (ok ? (int64_t)(r0 + r) * st : 0), ok, c, d, vec);
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParams p) {
+  constexpr bool kSplit = tf32::needs_split<T>();
+  constexpr int NO = DP / 8;           // 8-column tiles of a warp's output
+  constexpr int NB = NO < 8 ? NO : 8;  // of them in one pass of p v
+  constexpr int KN = kBN / 8;          // 8-key tiles of a key tile
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kBM * LD;      // two buffers
-  T* Vs = Ks + 2 * kBN * LD;  // two buffers
-  float* Ps = reinterpret_cast<float*>(Vs + 2 * kBN * LD);
+  T* Ks = Qs + kBM * DP;      // two stages
+  T* Vs = Ks + 2 * kBN * DP;  // two stages
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int n_bh = p.b * p.h;
+  const int bh = blockIdx.x % n_bh, tile = blockIdx.x / n_bh;
+  const int bi = bh / p.h, hi = bh % p.h;
   // causal: the last query tiles have the most keys, so they start first
-  const int q0 = (p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBM;
+  const int n_qt = (p.tq + kBM - 1) / kBM;
+  const int q0 = (p.causal ? n_qt - 1 - tile : tile) * kBM;
+  const bool vec = p.vec != 0;
   const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
   const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
   const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-  T* out = static_cast<T*>(p.out) + (int64_t)bh * p.tq * D;
+  T* out = static_cast<T*>(p.out) + (int64_t)bh * p.tq * p.d;
   float* lse = p.lse_out + (int64_t)bh * p.tq;
 
-  float acc[4][NC][4] = {};
   const int n_kt = key_tiles(p, q0);
   if (n_kt == 0) {  // every row of the tile fully masked: out 0, lse 0
-    store_rows<T, D>(out, q0, p.tq, tx, ty, acc, 0.0f);
-    if (tx == 0)
-      for (int i = 0; i < 4; ++i)
-        if (q0 + ty * 4 + i < p.tq) lse[q0 + ty * 4 + i] = 0.0f;
+    for (int i = threadIdx.x; i < kBM * p.d; i += kFwdThreads)
+      if (q0 + i / p.d < p.tq) out[(int64_t)q0 * p.d + i] = from_f32<T>(0.0f);
+    for (int r = threadIdx.x; r < kBM; r += kFwdThreads)
+      if (q0 + r < p.tq) lse[q0 + r] = 0.0f;
     return;
   }
-  load_tile<T, D, kBM>(Qs, q, p.sq[2], q0, p.tq);
-  load_tile<T, D, kBN>(Ks, k, p.sk[2], 0, p.tk);
-  load_tile<T, D, kBN>(Vs, v, p.sv[2], 0, p.tk);
+  load_rows<T, DP, kBM, kFwdThreads>(Qs, q, p.sq[2], q0, p.tq, p.d, vec);
+  load_rows<T, DP, kBN, kFwdThreads>(Ks, k, p.sk[2], 0, p.tk, p.d, vec);
+  load_rows<T, DP, kBN, kFwdThreads>(Vs, v, p.sv[2], 0, p.tk, p.d, vec);
   cp_async_commit();
 
-  float m[4], l[4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = warp * 16;                   // the warp's first row in the tile
+  const int row[2] = {q0 + w0 + g, q0 + w0 + g + 8};  // the thread's two rows
+  // ldmatrix: lane l names row (l & 7) + 8 ((l >> 3) & 1), column 4 (l >> 4)
+  // of the A fragment's four 8 x 4 matrices; for the B fragments of k, row
+  // (l & 7) + 8 (l >> 4), column 4 ((l >> 3) & 1): b0, b1 of two 8-key tiles
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 4 * (lane >> 4);
+  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 4 * ((lane >> 3) & 1);
+
+  float o[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-  }
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  // the softmax runs in base 2: m and the scores are s * scale * log2(e), so
+  // each exponential is one ex2; lse = m ln(2) + log(l)
+  const float scale2 = p.scale * 1.4426950408889634f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // l: this thread's share
+
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {  // the next K/V tile loads while this one is used
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt is here, and every warp is done with tile kt - 1
+    if (kt + 1 < n_kt) {  // the next tile's copies run under this one's math
       const int nb = (kt + 1) & 1;
-      load_tile<T, D, kBN>(Ks + nb * kBN * LD, k, p.sk[2], (kt + 1) * kBN, p.tk);
-      load_tile<T, D, kBN>(Vs + nb * kBN * LD, v, p.sv[2], (kt + 1) * kBN, p.tk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+      load_rows<T, DP, kBN, kFwdThreads>(Ks + nb * kBN * DP, k, p.sk[2], (kt + 1) * kBN, p.tk,
+                                         p.d, vec);
+      load_rows<T, DP, kBN, kFwdThreads>(Vs + nb * kBN * DP, v, p.sv[2], (kt + 1) * kBN, p.tk,
+                                         p.d, vec);
     }
-    __syncthreads();
-    const T* Kb = Ks + (kt & 1) * kBN * LD;
-    const T* Vb = Vs + (kt & 1) * kBN * LD;
-    float s[4][4] = {};
-    tile_dot<T, D>(Qs, Kb, tx, ty, s);
-    const int k0 = kt * kBN;
+    cp_async_commit();
+    const T* Kb = Ks + (kt & 1) * kBN * DP;
+    const T* Vb = Vs + (kt & 1) * kBN * DP;
+
+    // s = q k^T: the warp's 16 rows x 64 keys, summed over DP from 0
+    float s[1][KN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int kk = 0; kk < DP; kk += 8) {
+      uint32_t ah[1][4], al[1][4], bh[KN][2], bl[KN][2];
+      if constexpr (sizeof(T) == 4) {
+        uint32_t r[4];
+        tf32::ldmatrix_x4(r, Qs + sw(w0 + arow, kk + acol, DP));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32::split<kSplit>(__uint_as_float(r[e]), ah[0][e], al[0][e]);
+#pragma unroll
+        for (int j = 0; j < KN; j += 2) {
+          tf32::ldmatrix_x4(r, Kb + sw(8 * j + brow, kk + bcol, DP));
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tf32::split<kSplit>(__uint_as_float(r[e]), bh[j + e / 2][e & 1], bl[j + e / 2][e & 1]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tf32::split<kSplit>(to_f32(Qs[sw(w0 + g + 8 * (e & 1), kk + t + 4 * (e >> 1), DP)]),
+                              ah[0][e], al[0][e]);
+#pragma unroll
+        for (int j = 0; j < KN; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tf32::split<kSplit>(to_f32(Kb[sw(8 * j + g, kk + t + 4 * e, DP)]), bh[j][e], bl[j][e]);
+      }
+      if (kk == 0) tf32::mma_tiles<kSplit, 1, KN, true>(s, ah, al, bh, bl);
+      else tf32::mma_tiles<kSplit, 1, KN>(s, ah, al, bh, bl);
+    }
+
+    // the online softmax on the C fragments: s[0][j][2h + e] is row row[h],
+    // key k0 + 8j + 2t + e
+    const int k0 = kt * kBN;
+    const bool edge = k0 + kBN > p.tk || q0 + w0 + 16 > p.tq ||
+                      (p.causal && k0 + kBN - 1 > q0 + w0 + (p.tk - p.tq));
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = visible(p, row, k0 + tx + 16 * j) ? s[i][j] * p.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
+      for (int j = 0; j < KN; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[0][j][2 * h + e];
+          x = !edge || visible(p, row[h], k0 + 8 * j + 2 * t + e) ? x * scale2 : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
       // a row masked so far must not poison the rescale
-      const float alpha = m[i] == kNegInf ? 0.0f : expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pj = s[i][j] == kNegInf ? 0.0f : expf(s[i][j] - m_new);
-        sum += pj;
-        Ps[(ty * 4 + i) * kPLD + tx + 16 * j] = round_t<T>(pj);
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] *= alpha;
+      alpha[h] = m[h] == kNegInf ? 0.0f : ex2(m[h] - m_new);
+      m[h] = m_new;
     }
-    __syncthreads();
-    tile_pv<T, D>(Ps, Vb, tx, ty, acc);
-    __syncthreads();  // Ps and this K/V buffer are rewritten next
+    // p (kept in s), its sum unrounded, then rounded to T for p v
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[0][j][2 * h + e];
+          const float pf = x == kNegInf ? 0.0f : ex2(x - m[h]);
+          sum[h] += pf;
+          x = round_t<T>(pf);
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // o += p v, NB output tiles a pass, the tile's part summed from 0. p is
+    // the A fragment as it stands: k slots (t, t + 4) of 8-key step j are
+    // keys 8j + 2t and 8j + 2t + 1, split as they are used
+#pragma unroll
+    for (int n0 = 0; n0 < NO; n0 += NB) {
+      float part[1][NB][4];
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        uint32_t ah[1][4], al[1][4], bh[NB][2], bl[NB][2];
+        tf32::split<kSplit>(s[0][j][0], ah[0][0], al[0][0]);  // (g, key 2t)
+        tf32::split<kSplit>(s[0][j][2], ah[0][1], al[0][1]);  // (g + 8, key 2t)
+        tf32::split<kSplit>(s[0][j][1], ah[0][2], al[0][2]);  // (g, key 2t + 1)
+        tf32::split<kSplit>(s[0][j][3], ah[0][3], al[0][3]);  // (g + 8, key 2t + 1)
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tf32::split<kSplit>(to_f32(Vb[sw(8 * j + 2 * t + e, 8 * (n0 + c) + g, DP)]), bh[c][e],
+                                bl[c][e]);
+        if (j == 0) tf32::mma_tiles<kSplit, 1, NB, true>(part, ah, al, bh, bl);
+        else tf32::mma_tiles<kSplit, 1, NB>(part, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n0 + c][e] += part[0][c][e];
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.tq) continue;
-    const float denom = fmaxf(l[i], 1e-20f);
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= p.tq) continue;
+    const float denom = fmaxf(l[h], 1e-20f);
+    T* orow = out + (int64_t)row[h] * p.d;
 #pragma unroll
-    for (int n = 0; n < NC; ++n)
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        out[(int64_t)row * D + n * 64 + tx * 4 + e] = from_f32<T>(acc[i][n][e] / denom);
-    if (tx == 0) lse[row] = m[i] == kNegInf ? 0.0f : m[i] + logf(denom);
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c < p.d) orow[c] = from_f32<T>(o[n][2 * h + e] / denom);
+      }
+    if (t == 0) lse[row[h]] = m[h] == kNegInf ? 0.0f : m[h] * 0.6931471805599453f + logf(denom);
   }
 }
 
 // lse and delta = rowsum(dO * O) of the query tile's rows into shared
 // memory, four threads a row; rows at or past tq get 0
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __device__ __forceinline__ void tile_lse_delta(const FlashParams& p, const T* o, const T* dOs,
                                                const float* lse, int q0, float* lse_s,
                                                float* delta_s) {
@@ -390,7 +580,8 @@ __device__ __forceinline__ void tile_lse_delta(const FlashParams& p, const T* o,
     const T* orow = o + (int64_t)row * p.so[2];
     for (int c = part * 4; c < D; c += 16) {
       float a[4], b[4];
-      load4(orow + c, a);
+      if constexpr (FULL) load4(orow + c, a);
+      else load4_row(orow, c, p.d, p.vec != 0, a);
       load4(dOs + r * (D + 4) + c, b);
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc = fmaf(a[e], b[e], acc);
@@ -430,7 +621,8 @@ __device__ __forceinline__ void tile_p_ds(const FlashParams& p, const T* Qs, con
   }
 }
 
-template <typename T, int D>
+// FULL: d == D and every operand row aligned (FlashParams.vec)
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashParams p) {
   constexpr int LD = D + 4, NC = D / 64;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -444,8 +636,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
   float* delta_s = lse_s + kBM;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int k0 = blockIdx.x * kBN;
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, key tiles)
+  const int k0 = blockIdx.y * kBN;
+  const bool vec = p.vec != 0;
   const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
   const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
   const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
@@ -453,8 +646,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
   const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
   const float* lse = p.lse + (int64_t)bh * p.tq;
 
-  load_tile<T, D, kBN>(Ks, k, p.sk[2], k0, p.tk);
-  load_tile<T, D, kBN>(Vs, v, p.sv[2], k0, p.tk);
+  load_tile<T, D, kBN, FULL>(Ks, k, p.sk[2], k0, p.tk, p.d, vec);
+  load_tile<T, D, kBN, FULL>(Vs, v, p.sv[2], k0, p.tk, p.d, vec);
   cp_async_commit();
   // causal: query tiles before the first row that sees key k0 add nothing
   int qt = 0;
@@ -465,12 +658,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
   float dk[4][NC][4] = {}, dv[4][NC][4] = {};
   for (; qt * kBM < p.tq; ++qt) {
     const int q0 = qt * kBM;
-    load_tile<T, D, kBM>(Qs, q, p.sq[2], q0, p.tq);
-    load_tile<T, D, kBM>(dOs, dout, p.sdo[2], q0, p.tq);
+    load_tile<T, D, kBM, FULL>(Qs, q, p.sq[2], q0, p.tq, p.d, vec);
+    load_tile<T, D, kBM, FULL>(dOs, dout, p.sdo[2], q0, p.tq, p.d, vec);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    tile_lse_delta<T, D>(p, o, dOs, lse, q0, lse_s, delta_s);
+    tile_lse_delta<T, D, FULL>(p, o, dOs, lse, q0, lse_s, delta_s);
     __syncthreads();
     tile_p_ds<T, D>(p, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, Ps, dSs);
     __syncthreads();
@@ -479,11 +672,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
     __syncthreads();  // the next query tile overwrites Qs, dOs, Ps, dSs
   }
   cp_async_wait<0>();  // no query tile at all: the K/V loads still land first
-  store_rows<T, D>(static_cast<T*>(p.dk) + (int64_t)bh * p.tk * D, k0, p.tk, tx, ty, dk, 1.0f);
-  store_rows<T, D>(static_cast<T*>(p.dv) + (int64_t)bh * p.tk * D, k0, p.tk, tx, ty, dv, 1.0f);
+  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * p.d;
+  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * p.d;
+  store_rows<T, D, FULL>(dkp, k0, p.tk, p.d, tx, ty, dk);
+  store_rows<T, D, FULL>(dvp, k0, p.tk, p.d, tx, ty, dv);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParams p) {
   constexpr int LD = D + 4, NC = D / 64;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -496,8 +691,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
   float* delta_s = lse_s + kBM;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int q0 = (p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBM;
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, query tiles)
+  // causal: the last query tiles have the most keys, so they start first
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBM;
+  const bool vec = p.vec != 0;
   const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
   const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
   const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
@@ -508,17 +705,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
   float dq[4][NC][4] = {};
   const int n_kt = key_tiles(p, q0);
   if (n_kt > 0) {
-    load_tile<T, D, kBM>(Qs, q, p.sq[2], q0, p.tq);
-    load_tile<T, D, kBM>(dOs, dout, p.sdo[2], q0, p.tq);
+    load_tile<T, D, kBM, FULL>(Qs, q, p.sq[2], q0, p.tq, p.d, vec);
+    load_tile<T, D, kBM, FULL>(dOs, dout, p.sdo[2], q0, p.tq, p.d, vec);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    tile_lse_delta<T, D>(p, o, dOs, lse, q0, lse_s, delta_s);
+    tile_lse_delta<T, D, FULL>(p, o, dOs, lse, q0, lse_s, delta_s);
   }
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBN;
-    load_tile<T, D, kBN>(Ks, k, p.sk[2], k0, p.tk);
-    load_tile<T, D, kBN>(Vs, v, p.sv[2], k0, p.tk);
+    load_tile<T, D, kBN, FULL>(Ks, k, p.sk[2], k0, p.tk, p.d, vec);
+    load_tile<T, D, kBN, FULL>(Vs, v, p.sv[2], k0, p.tk, p.d, vec);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -527,7 +724,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
     tile_pv<T, D>(dSs, Ks, tx, ty, dq);
     __syncthreads();  // the next key tile overwrites Ks, Vs, dSs
   }
-  store_rows<T, D>(static_cast<T*>(p.dq) + (int64_t)bh * p.tq * D, q0, p.tq, tx, ty, dq, 1.0f);
+  T* dqp = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * p.d;
+  store_rows<T, D, FULL>(dqp, q0, p.tq, p.d, tx, ty, dq);
 }
 
 // ---------------------------------------------------------------------------
@@ -535,7 +733,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
 // on the tensor cores (3xTF32 for f32, one exact TF32 product for bf16).
 // ---------------------------------------------------------------------------
 
-constexpr int kFD = 64;         // head width of the fused tier
+constexpr int kFD = 64;         // padded head width of the fused tier (d <= 64)
 constexpr int kFBN = 128;       // keys a CTA: K and V stay resident
 constexpr int kFBM = 64;        // query rows a streamed tile
 constexpr int kFThreads = 256;  // 8 warps
@@ -549,16 +747,24 @@ __device__ __forceinline__ int swz(int r, int c, int w) {
   return r * w + (c ^ ((((r & 3) << 1) | ((r >> 2) & 1)) << 2));
 }
 
-// rows [r0, r0 + R) of a (t, kFD) operand with row stride `st` into a
-// swizzled [R][kFD] tile; rows at or past t read as zeros
-template <typename T, int R>
-__device__ __forceinline__ void load_swz(T* dst, const T* src, int64_t st, int r0, int t) {
+// rows [r0, r0 + R) of a (t, d) operand with row stride `st` into a
+// swizzled [R][kFD] tile; rows at or past t, and columns at or past d, read
+// as zeros
+// FULL: d == kFD and every row aligned (FlashParams.vec), so whole units
+// copy by cp.async with no column test
+template <typename T, int R, bool FULL>
+__device__ __forceinline__ void load_swz(T* dst, const T* src, int64_t st, int r0, int t, int d,
+                                         bool vec) {
   constexpr int G = kFD / 4;
   for (int i = threadIdx.x; i < R * G; i += kFThreads) {
     const int r = i / G, c = (i % G) * 4;
     const bool ok = r0 + r < t;
-    const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
-    cp_async<(int)(4 * sizeof(T))>(dst + swz(r, c, kFD), from, ok);
+    if constexpr (FULL) {
+      const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
+      cp_async<(int)(4 * sizeof(T))>(dst + swz(r, c, kFD), from, ok);
+    } else {
+      load_unit(dst + swz(r, c, kFD), src + (ok ? (int64_t)(r0 + r) * st : 0), ok, c, d, vec);
+    }
   }
 }
 
@@ -662,19 +868,21 @@ __device__ __forceinline__ void add_to(float (&acc)[MT][NT][4], const float (&x)
       for (int e = 0; e < 4; ++e) acc[i][j][e] += x[i][j][e];
 }
 
-// one (b, h)'s dQ: the key tiles' f32 partials summed in key-tile order (a
-// tile that skipped a row's query tile has none for it: the valid tiles of
-// a row are a prefix) and rounded once. The CTA's threads each take
+// one (b, h)'s dQ: the key tiles' f32 partials (kFD wide) summed in
+// key-tile order (a tile that skipped a row's query tile has none for it:
+// the valid tiles of a row are a prefix), rounded once and stored at row
+// stride d, the columns past d dropped. The CTA's threads each take
 // 4-element units, four at a time, all their loads in flight together.
-template <typename T>
+template <typename T, bool FULL>
 __device__ __forceinline__ void sum_dq(const FlashParams& p, const float* __restrict__ dq_part,
                                        int bh, int tid) {
+  const int d = FULL ? kFD : p.d;
   constexpr int kU = kFD / 4;  // units a row
   constexpr int kBatch = 4;
   const int nk = (p.tk + kFBN - 1) / kFBN;
   const int64_t part_stride = (int64_t)p.b * p.h * p.tq * kFD;
   const float* src = dq_part + (int64_t)bh * p.tq * kFD;
-  T* dst = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * kFD;
+  T* dst = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * d;
   for (int base = tid; base < p.tq * kU; base += kBatch * kFThreads) {
     float4 s[kBatch];
     int parts[kBatch];
@@ -700,16 +908,20 @@ __device__ __forceinline__ void sum_dq(const FlashParams& p, const float* __rest
     for (int e = 0; e < kBatch; ++e) {
       const int u = base + e * kFThreads;
       if (u >= p.tq * kU) continue;
-      T* d = dst + (int64_t)u * 4;
-      d[0] = from_f32<T>(s[e].x);
-      d[1] = from_f32<T>(s[e].y);
-      d[2] = from_f32<T>(s[e].z);
-      d[3] = from_f32<T>(s[e].w);
+      const int c = (u % kU) * 4;
+      T* row = dst + (int64_t)(u / kU) * d + c;
+      const float x[4] = {s[e].x, s[e].y, s[e].z, s[e].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (FULL || c + i < d) row[i] = from_f32<T>(x[i]);
     }
   }
 }
 
-template <typename T>
+// FULL: d == kFD and every operand row loads as aligned 4-element units
+// (FlashParams.vec), the training path's case, built without the column
+// tests and the element-by-element loads of other widths
+template <typename T, bool FULL>
 __global__ void __launch_bounds__(kFThreads, 1)
 flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* arrivals) {
   constexpr bool kSplit = tf32::needs_split<T>();
@@ -726,23 +938,28 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int k0 = blockIdx.x * kFBN;
+  // grid (b * h, key tiles): every (b, h)'s first key tile (causal: the
+  // one with the most query tiles) starts before any second one
+  const int n_bh = gridDim.x, nk = gridDim.y;
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;
+  const int kt = blockIdx.y, k0 = kt * kFBN;
+  const int d = FULL ? kFD : p.d;  // the output rows' stride
+  const bool vec = p.vec != 0;
   const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
   const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
   const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
   const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
   const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
   const float* lse = p.lse + (int64_t)bh * p.tq;
-  float* dqp = dq_part + ((int64_t)blockIdx.x * p.b * p.h + bh) * p.tq * kFD;
+  float* dqp = dq_part + ((int64_t)kt * n_bh + bh) * p.tq * kFD;
 
   const int nq = (p.tq + kFBM - 1) / kFBM;
   const int qt0 = first_query_tile(p, k0);
-  load_swz<T, kFBN>(Ks, k, p.sk[2], k0, p.tk);
-  load_swz<T, kFBN>(Vs, v, p.sv[2], k0, p.tk);
+  load_swz<T, kFBN, FULL>(Ks, k, p.sk[2], k0, p.tk, d, vec);
+  load_swz<T, kFBN, FULL>(Vs, v, p.sv[2], k0, p.tk, d, vec);
   if (qt0 < nq) {
-    load_swz<T, kFBM>(Qs, q, p.sq[2], qt0 * kFBM, p.tq);
-    load_swz<T, kFBM>(dOs, dout, p.sdo[2], qt0 * kFBM, p.tq);
+    load_swz<T, kFBM, FULL>(Qs, q, p.sq[2], qt0 * kFBM, p.tq, d, vec);
+    load_swz<T, kFBM, FULL>(dOs, dout, p.sdo[2], qt0 * kFBM, p.tq, d, vec);
   }
   cp_async_commit();
 
@@ -756,7 +973,9 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (ok) {
-        load4(o + (int64_t)row * p.so[2] + 4 * d_part + 16 * j, o_pf[j]);
+        const T* orow = o + (int64_t)row * p.so[2];
+        if constexpr (FULL) load4(orow + 4 * d_part + 16 * j, o_pf[j]);
+        else load4_row(orow, 4 * d_part + 16 * j, d, vec, o_pf[j]);
       } else {
         o_pf[j][0] = o_pf[j][1] = o_pf[j][2] = o_pf[j][3] = 0.0f;
       }
@@ -779,8 +998,8 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
     __syncthreads();  // tile qt is here, and the previous tile is done with
     if (qt + 1 < nq) {  // the next tile's copies run under this one's math
       const int nb = (qt + 1 - qt0) & 1;
-      load_swz<T, kFBM>(Qs + nb * kFBM * kFD, q, p.sq[2], q0 + kFBM, p.tq);
-      load_swz<T, kFBM>(dOs + nb * kFBM * kFD, dout, p.sdo[2], q0 + kFBM, p.tq);
+      load_swz<T, kFBM, FULL>(Qs + nb * kFBM * kFD, q, p.sq[2], q0 + kFBM, p.tq, d, vec);
+      load_swz<T, kFBM, FULL>(dOs + nb * kFBM * kFD, dout, p.sdo[2], q0 + kFBM, p.tq, d, vec);
     }
     cp_async_commit();
     {
@@ -868,8 +1087,8 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
   }
   cp_async_wait<0>();  // no query tile at all: the K/V copies still land first
 
-  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * kFD;
-  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * kFD;
+  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * d;
+  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * d;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -880,7 +1099,9 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int64_t at = (int64_t)key * kFD + wd0 + 8 * j + 2 * t + e;
+          const int c = wd0 + 8 * j + 2 * t + e;
+          if (!FULL && c >= d) continue;
+          const int64_t at = (int64_t)key * d + c;
           dkp[at] = from_f32<T>(dk[i][j][2 * h + e]);
           dvp[at] = from_f32<T>(dv[i][j][2 * h + e]);
         }
@@ -890,11 +1111,11 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
   // is written and fenced before the count moves
   __threadfence();
   __syncthreads();
-  if (tid == 0) is_last = atomicAdd(arrivals + bh, 1) == (int)gridDim.x - 1;
+  if (tid == 0) is_last = atomicAdd(arrivals + bh, 1) == nk - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  sum_dq<T>(p, dq_part, bh, tid);
+  sum_dq<T, FULL>(p, dq_part, bh, tid);
   if (tid == 0) arrivals[bh] = 0;  // ready for the next launch on this stream
 }
 
@@ -904,8 +1125,8 @@ template <typename T> constexpr size_t fused_smem() {
 }
 static_assert(fused_smem<float>() <= 232448 - 1024, "fused backward tile too large");
 
-template <typename T, int D> constexpr size_t fwd_smem() {
-  return (size_t)(kBM + 4 * kBN) * (D + 4) * sizeof(T) + (size_t)kBM * kPLD * sizeof(float);
+template <typename T, int DP> constexpr size_t fwd_smem() {
+  return (size_t)(kBM + 4 * kBN) * DP * sizeof(T);
 }
 template <typename T, int D> constexpr size_t dkv_smem() {
   return (size_t)(2 * kBM + 2 * kBN) * (D + 4) * sizeof(T) +
@@ -929,45 +1150,80 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
   return cudaSuccess;
 }
 
-template <typename T, int D>
-cudaError_t fwd_typed(const FlashParams& p, cudaStream_t st) {
-  constexpr size_t bytes = fwd_smem<T, D>();
-  cudaError_t err = prepare(flash_fwd_kernel<T, D>, bytes);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D><<<dim3((p.tq + kBM - 1) / kBM, p.b * p.h), kThreads, bytes, st>>>(p);
-  return cudaGetLastError();
+// the forward's grid: its 64-row query tiles for each (b, h) pair
+inline unsigned grid_x(const FlashParams& p) {
+  return (unsigned)(((p.tq + kBM - 1) / kBM) * (int64_t)p.b * p.h);
 }
 
-template <typename T, int D>
-cudaError_t bwd_typed(const FlashParams& p, cudaStream_t st) {
-  constexpr size_t kv_bytes = dkv_smem<T, D>();
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D>, kv_bytes);
+template <typename T, int DP>
+cudaError_t fwd_typed(const FlashParams& p, cudaStream_t st) {
+  constexpr size_t bytes = fwd_smem<T, DP>();
+  cudaError_t err = prepare(flash_fwd_kernel<T, DP>, bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D>
-      <<<dim3((p.tk + kBN - 1) / kBN, p.b * p.h), kThreads, kv_bytes, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr size_t q_bytes = dq_smem<T, D>();
-  err = prepare(flash_bwd_dq_kernel<T, D>, q_bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D><<<dim3((p.tq + kBM - 1) / kBM, p.b * p.h), kThreads, q_bytes, st>>>(p);
+  flash_fwd_kernel<T, DP><<<grid_x(p), kFwdThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t bwd_fused_typed(const FlashParams& p, float* dq_part, int* arrivals,
-                            cudaStream_t st) {
-  constexpr size_t bytes = fused_smem<T>();
-  cudaError_t err = prepare(flash_bwd_fused_kernel<T>, bytes);
+cudaError_t fwd_width(const FlashParams& p, cudaStream_t st) {
+  if (p.d <= 32) return fwd_typed<T, 32>(p, st);
+  if (p.d <= 64) return fwd_typed<T, 64>(p, st);
+  return fwd_typed<T, 128>(p, st);
+}
+
+template <typename T, int D, bool FULL>
+cudaError_t bwd_typed(const FlashParams& p, cudaStream_t st) {
+  constexpr size_t kv_bytes = dkv_smem<T, D>();
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D, FULL>, kv_bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_fused_kernel<T><<<dim3((p.tk + kFBN - 1) / kFBN, p.b * p.h), kFThreads, bytes, st>>>(
-      p, dq_part, arrivals);
+  flash_bwd_dkv_kernel<T, D, FULL>
+      <<<dim3(p.b * p.h, (p.tk + kBN - 1) / kBN), kThreads, kv_bytes, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t q_bytes = dq_smem<T, D>();
+  err = prepare(flash_bwd_dq_kernel<T, D, FULL>, q_bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, D, FULL>
+      <<<dim3(p.b * p.h, (p.tq + kBM - 1) / kBM), kThreads, q_bytes, st>>>(p);
   return cudaGetLastError();
 }
 
+// the built width D >= d; FULL where d == D and every row is aligned
+template <typename T, int D>
+cudaError_t bwd_full(const FlashParams& p, cudaStream_t st) {
+  return p.d == D && p.vec ? bwd_typed<T, D, true>(p, st) : bwd_typed<T, D, false>(p, st);
+}
+
+template <typename T>
+cudaError_t bwd_width(const FlashParams& p, cudaStream_t st) {
+  return p.d <= 64 ? bwd_full<T, 64>(p, st) : bwd_full<T, 128>(p, st);
+}
+
+template <typename T, bool FULL>
+cudaError_t bwd_fused_typed(const FlashParams& p, float* dq_part, int* arrivals,
+                            cudaStream_t st) {
+  constexpr size_t bytes = fused_smem<T>();
+  cudaError_t err = prepare(flash_bwd_fused_kernel<T, FULL>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.b * p.h, (p.tk + kFBN - 1) / kFBN);
+  flash_bwd_fused_kernel<T, FULL><<<grid, kFThreads, bytes, st>>>(p, dq_part, arrivals);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_fused_rows(const FlashParams& p, float* dq_part, int* arrivals,
+                           cudaStream_t st) {
+  return p.d == kFD && p.vec ? bwd_fused_typed<T, true>(p, dq_part, arrivals, st)
+                             : bwd_fused_typed<T, false>(p, dq_part, arrivals, st);
+}
+
+// any d in [1, 128]; the forward's grid x, its 64-row tiles x (b * h),
+// within 2^31 - 1, and the backward's 64-row tiles within grid y's 65535
 bool shape_ok(const FlashParams& p) {
-  return p.b > 0 && p.h > 0 && p.tq > 0 && p.tk > 0 && p.b * p.h <= 65535 &&
-         (p.d == 64 || p.d == 128) && (p.dtype == 0 || p.dtype == 1);
+  if (p.b <= 0 || p.h <= 0 || p.tq <= 0 || p.tk <= 0 || p.d < 1 || p.d > 128) return false;
+  const int64_t q_tiles = (p.tq + kBM - 1) / kBM, k_tiles = (p.tk + kBN - 1) / kBN;
+  return q_tiles * p.b * p.h <= 2147483647LL && q_tiles <= 65535 && k_tiles <= 65535 &&
+         (p.dtype == 0 || p.dtype == 1);
 }
 
 }  // namespace
@@ -978,9 +1234,8 @@ extern "C" {
 int flash_attention_fwd(const FlashParams* p, void* stream) {
   if (p == nullptr || !shape_ok(*p)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0) return (int)(p->d == 64 ? fwd_typed<float, 64>(*p, st) : fwd_typed<float, 128>(*p, st));
-  return (int)(p->d == 64 ? fwd_typed<__nv_bfloat16, 64>(*p, st)
-                          : fwd_typed<__nv_bfloat16, 128>(*p, st));
+  if (p->dtype == 0) return (int)fwd_width<float>(*p, st);
+  return (int)fwd_width<__nv_bfloat16>(*p, st);
 }
 
 // q, k, v, o, dout (strided), lse -> dq (b, h, tq, d), dk, dv (b, h, tk, d):
@@ -988,22 +1243,21 @@ int flash_attention_fwd(const FlashParams* p, void* stream) {
 int flash_attention_bwd(const FlashParams* p, void* stream) {
   if (p == nullptr || !shape_ok(*p)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0) return (int)(p->d == 64 ? bwd_typed<float, 64>(*p, st) : bwd_typed<float, 128>(*p, st));
-  return (int)(p->d == 64 ? bwd_typed<__nv_bfloat16, 64>(*p, st)
-                          : bwd_typed<__nv_bfloat16, 128>(*p, st));
+  if (p->dtype == 0) return (int)bwd_width<float>(*p, st);
+  return (int)bwd_width<__nv_bfloat16>(*p, st);
 }
 
-// The fused tier (d = 64): q, k, v, o, dout (strided), lse -> dq, dk, dv, with
+// The fused tier (d <= 64): q, k, v, o, dout (strided), lse -> dq, dk, dv, with
 // dq_part an f32 scratch of ceil(tk / 128) x (b, h, tq, 64) for the key
 // tiles' dQ partials. arrivals: b * h ints, all 0, which the last key tile
 // of each (b, h) uses to find itself and sum dQ (and leaves at 0).
 int flash_attention_bwd_fused(const FlashParams* p, float* dq_part, int* arrivals,
                               void* stream) {
-  if (p == nullptr || !shape_ok(*p) || p->d != kFD || dq_part == nullptr || arrivals == nullptr)
+  if (p == nullptr || !shape_ok(*p) || p->d > kFD || dq_part == nullptr || arrivals == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0) return (int)bwd_fused_typed<float>(*p, dq_part, arrivals, st);
-  return (int)bwd_fused_typed<__nv_bfloat16>(*p, dq_part, arrivals, st);
+  if (p->dtype == 0) return (int)bwd_fused_rows<float>(*p, dq_part, arrivals, st);
+  return (int)bwd_fused_rows<__nv_bfloat16>(*p, dq_part, arrivals, st);
 }
 
 const char* flash_attention_error_string(int code) {

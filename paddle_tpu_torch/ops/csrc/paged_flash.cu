@@ -15,24 +15,34 @@
 //
 // Bound: bytes. A query row does 2*D flops per K/V row it reads (4 bytes per
 // element), so both forms sit far below the card's flop/byte balance; the
-// least time is the K/V pages read up to pos over the HBM rate. Each needed
-// K/V page of a head is read once per CTA, and the page walk is split across
-// CTAs so that enough of them are in flight to keep HBM busy (one CTA per
-// (slot, head) gives only 96 CTAs at 8 slots x 12 heads, each walking up to
-// 64 pages one after another; a prefill chunk gave 12):
-//   decode: one CTA per (slot, head, split), walking the slot's table only up
-//           to its pos (pages wholly past pos are never loaded);
-//   shared: one CTA per (tile of up to 32 query rows, head, split); each page
-//           is staged in shared memory once and reused by every row of the
-//           tile, the walk stops at the tile's max(pos), and a per-row
-//           offs <= pos[r] mask applies inside the page.
-// A split covers `pages_per_split` consecutive table entries. Each CTA keeps
-// its rows' online-softmax state (m, l, acc[D]) in shared memory and writes
-// it, unnormalized, to a scratch buffer; a second kernel merges a row's
-// splits (flash-decoding): M = max m_s, L = sum l_s e^(m_s - M),
-// out = sum acc_s e^(m_s - M) / L.
-// Scores and the P.V product are plain f32 FMAs (no tensor cores): f32 in,
-// f32 out, f32 accumulation. wgmma/TMA pipelines are left for later work.
+// least time is the K/V pages read up to pos over the HBM rate. The work is
+// split across CTAs so that enough of them are in flight to keep HBM busy.
+//
+// Decode (one query row a slot): one CTA per (slot, head, split) walks
+// `pages_per_split` consecutive table entries of the slot's table, only up
+// to its pos, one page at a time. Each CTA keeps its row's online-softmax
+// state (m, l, acc[D]) in shared memory and writes it, unnormalized, to a
+// scratch buffer; a second kernel merges a row's splits (flash-decoding):
+// M = max m_s, L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / L.
+// Scores and P.V are plain f32 FMAs.
+//
+// Shared table (a prefill chunk's rows over one page list), head width up
+// to 128: one CTA per (tile of up to 32 query rows, head, split of
+// 64 * stages_per_split context positions), cut at the tile's max(pos).
+// The CTA gathers each 64-key stage row by row through the table with
+// 16-byte cp.async into a two-stage ring, so the next stage's copies run
+// under this one's math (int8 levels land raw with their rows' scales and
+// are dequantized into an f32 stage, one rounding, before use). q k^T and
+// p v run on the tensor cores as 3xTF32 mma.sync m16n8k8 (tf32_mma.cuh)
+// with the row state (m, l) and the accumulator in registers; four warps
+// take 16 rows x 32 keys of each stage and merge their two key halves in
+// shared memory at the end. A tile whose live keys fit one split writes its
+// output; otherwise the last split of each (tile, head) to finish, found by
+// an integer arrival counter that it resets, merges the splits in order
+// (no second launch, no float atomics: the output repeats bit for bit).
+// Wider heads take the decode form's per-page body with a 32-row tile and
+// its merge kernel.
+// wgmma/TMA pipelines are left for later work.
 //
 // int8 pools: the pools hold symmetric int8 levels, one row per token for
 // every head, and a [pool_rows] f32 scale pool per pool holds each row's
@@ -42,8 +52,10 @@
 // reach device memory. A head's slice of a row is D contiguous bytes (64 at
 // GPT-2 small's widths), loaded as 16-byte vectors when D, the row width
 // and the pool's address allow. Bound: bytes, 1 byte per K/V element plus
-// 4 bytes of scale per K/V row read, a quarter of the f32 pools' traffic.
-// Everything after the page is staged is the f32 kernel's code.
+// 4 bytes of scale per K/V row read, a quarter of the f32 pools' traffic
+// (the shared form's 3xTF32 products take about as long at GPT-2 small's
+// widths: its bound is the larger of the two). Everything after the rows
+// are dequantized is the f32 kernel's code.
 //
 // Numerics kept from the Pallas kernels: scores are dot(q, k) * scale; dead
 // entries are excluded by a where-mask (never an additive -1e9); the rescale
@@ -58,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -322,6 +336,574 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The shared-table form on the tensor cores (head width up to kSMaxD)
+// ---------------------------------------------------------------------------
+
+constexpr int kSRows = 32;      // query rows a CTA
+constexpr int kSKeys = 64;      // keys a stage
+constexpr int kSThreads = 128;  // 4 warps: 2 (16 rows each) x 2 (32 keys of each stage)
+constexpr int kSMaxD = 128;     // the widest head the tensor-core form takes
+
+struct SharedArgs {
+  const float* q;         // [rows, H * D]
+  const void* k_pool;     // [pool_rows, H * D], f32 or int8 levels
+  const void* v_pool;
+  const float* k_scales;  // int8: [pool_rows]
+  const float* v_scales;
+  const int* table;       // [P]
+  const int* pos;         // [rows]
+  float* out;             // [rows, H * D]
+  float* part_acc;        // [splits][rows][H][D]
+  float* part_ml;         // [splits][rows][H][2]
+  int* arrivals;          // [tiles * H], all 0; left at 0
+  int rows, H, D, P, ps, n_pool_pages, stages_per_split, vec;
+  float scale;
+};
+
+// Element (r, c) of a row-major tile of W columns (W a multiple of 32), its
+// 4-element units XOR-swizzled by (r & 7): q (ldmatrix) and k read as
+// fragments, and v read down its key axis, hit 32 distinct banks.
+__device__ __forceinline__ int sw(int r, int c, int w) { return r * w + (c ^ ((r & 7) << 2)); }
+
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool live, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = live ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// pool row of the key at context position kpos, or -1 past n_keys (a
+// corrupt table entry is clamped into the pool, as the JAX gather clamps)
+__device__ __forceinline__ int pool_row(const SharedArgs& a, int kpos, int n_keys) {
+  if (kpos >= n_keys) return -1;
+  const int entry = kpos / a.ps;
+  const int page = min(max(a.table[entry], 0), a.n_pool_pages - 1);
+  return page * a.ps + (kpos - entry * a.ps);
+}
+
+// Issue the copies of one stage: the 64 keys whose pool rows are rows[]
+// (-1: a dead key), `head`'s slice of each; dead keys, and columns past D,
+// read as zeros. f32 pools land in swizzled [64][DP] tiles; int8 pools
+// land as raw levels [64][DP] with their rows' scales (dequantized later).
+template <int DP>
+__device__ __forceinline__ void issue_stage(const SharedArgs& a, int head, const int* rows,
+                                            float* kd, float* vd, float*, float*) {
+  constexpr int U = DP / 4;
+  const size_t feat = (size_t)a.H * a.D;
+  const float* kp = static_cast<const float*>(a.k_pool);
+  const float* vp = static_cast<const float*>(a.v_pool);
+#pragma unroll
+  for (int n = 0; n < kSKeys * U / kSThreads; ++n) {
+    const int i = threadIdx.x + n * kSThreads;
+    const int j = i / U, c = (i % U) * 4;
+    const bool live = rows[j] >= 0;
+    const size_t at = live ? (size_t)rows[j] * feat + (size_t)head * a.D : 0;
+    float* kt = kd + sw(j, c, DP);
+    float* vt = vd + sw(j, c, DP);
+    if (a.vec) {
+      const bool ok = live && c < a.D;
+      cp_async_zfill(kt, ok ? kp + at + c : kp, ok, 16);
+      cp_async_zfill(vt, ok ? vp + at + c : vp, ok, 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = live && c + e < a.D;
+        kt[e] = ok ? kp[at + c + e] : 0.0f;
+        vt[e] = ok ? vp[at + c + e] : 0.0f;
+      }
+    }
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void issue_stage(const SharedArgs& a, int head, const int* rows,
+                                            int8_t* kd, int8_t* vd, float* ksc, float* vsc) {
+  constexpr int U = DP / 16;
+  const size_t feat = (size_t)a.H * a.D;
+  const int8_t* kp = static_cast<const int8_t*>(a.k_pool);
+  const int8_t* vp = static_cast<const int8_t*>(a.v_pool);
+  for (int i = threadIdx.x; i < kSKeys * U; i += kSThreads) {
+    const int j = i / U, c = (i % U) * 16;
+    const bool live = rows[j] >= 0;
+    const size_t at = live ? (size_t)rows[j] * feat + (size_t)head * a.D : 0;
+    if (a.vec) {
+      const bool ok = live && c < a.D;
+      cp_async_zfill(kd + j * DP + c, ok ? kp + at + c : kp, ok, 16);
+      cp_async_zfill(vd + j * DP + c, ok ? vp + at + c : vp, ok, 16);
+    } else {
+      for (int e = 0; e < 16; ++e) {
+        const bool ok = live && c + e < a.D;
+        kd[j * DP + c + e] = ok ? kp[at + c + e] : int8_t(0);
+        vd[j * DP + c + e] = ok ? vp[at + c + e] : int8_t(0);
+      }
+    }
+  }
+  for (int j = threadIdx.x; j < kSKeys; j += kSThreads) {
+    const bool live = rows[j] >= 0;
+    const size_t r = live ? rows[j] : 0;
+    cp_async_zfill(ksc + j, a.k_scales + r, live, 4);
+    cp_async_zfill(vsc + j, a.v_scales + r, live, 4);
+  }
+}
+
+// A CTA's shared memory: the query tile, the two-stage ring and, for int8
+// pools, the one stage dequantized to f32
+template <typename T, int DP> struct SharedSmem {
+  static constexpr size_t q = (size_t)kSRows * DP * 4;
+  static constexpr size_t stage = 2 * (size_t)kSKeys * DP * sizeof(T) +
+                                  (sizeof(T) == 1 ? 2 * kSKeys * 4 : 0);
+  static constexpr size_t deq = sizeof(T) == 1 ? 2 * (size_t)kSKeys * DP * 4 : 0;
+  static constexpr size_t bytes = q + 2 * stage + deq;
+};
+
+constexpr int kSMergeChunk = 32;  // splits whose weights a merge holds at once
+
+// 2^x by the SFU (ex2.approx: about 2^-22 relative error; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The last split's merge of a (tile, head), in the base-2 domain of the
+// splits' m: per row M = max m_s and L = sum l_s 2^(m_s - M) (four threads a
+// row, each over every fourth split, joined in a fixed order), then out =
+// sum acc_s 2^(m_s - M) / L in split order, four columns a thread. The
+// splits' weights are staged in shared memory kSMergeChunk at a time, and a
+// thread's loads of four splits for all its columns are in flight together.
+// `buf` holds (8 + 2 + kSMergeChunk) * 32 floats.
+template <int DP>
+__device__ __forceinline__ void merge_splits(const SharedArgs& a, float* buf, int row0,
+                                             int n_rows, int head, int n_live) {
+  constexpr int U = DP / 4, UPT = kSRows * U / kSThreads, SB = UPT >= 8 ? 2 : 4;
+  const float neg_inf = -CUDART_INF_F;
+  float* red = buf;                // [4][32] (m, l) pairs
+  float* M = red + 8 * kSRows;     // [32]
+  float* inv = M + kSRows;         // [32]
+  float* wts = inv + kSRows;       // [kSMergeChunk][32]
+  const int tid = threadIdx.x, r = tid % kSRows, qd = tid / kSRows;
+  auto ml = [&](int s, int row) {
+    return a.part_ml + (((size_t)s * a.rows + row0 + row) * a.H + head) * 2;
+  };
+  // this thread's share of row r: every fourth split, four loads at a time
+  float mq = neg_inf, lq = 0.0f;
+  if (r < n_rows) {
+    for (int s0 = qd; s0 < n_live; s0 += 16) {
+      float2 x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = s0 + 4 * i < n_live ? __ldcg(reinterpret_cast<const float2*>(ml(s0 + 4 * i, r)))
+                                   : make_float2(neg_inf, 0.0f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (x[i].x == neg_inf) continue;
+        const float mn = fmaxf(mq, x[i].x);
+        lq = (mq == neg_inf ? 0.0f : lq * ex2(mq - mn)) + x[i].y * ex2(x[i].x - mn);
+        mq = mn;
+      }
+    }
+  }
+  red[2 * (qd * kSRows + r)] = mq;
+  red[2 * (qd * kSRows + r) + 1] = lq;
+  __syncthreads();
+  if (qd == 0) {
+    float mm = neg_inf;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mm = fmaxf(mm, red[2 * (i * kSRows + r)]);
+    float lsum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mi = red[2 * (i * kSRows + r)];
+      if (mi != neg_inf) lsum += red[2 * (i * kSRows + r) + 1] * ex2(mi - mm);
+    }
+    M[r] = mm;
+    inv[r] = 1.0f / (lsum > 0.0f ? lsum : 1.0f);
+  }
+  float acc[UPT][4];
+#pragma unroll
+  for (int u = 0; u < UPT; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[u][e] = 0.0f;
+  const bool vec4 = a.D % 4 == 0;
+  for (int c0 = 0; c0 < n_live; c0 += kSMergeChunk) {
+    const int nc = min(kSMergeChunk, n_live - c0);
+    __syncthreads();  // M is set, and the last chunk's weights are used
+    for (int i = tid; i < nc * kSRows; i += kSThreads) {
+      const int s = c0 + i / kSRows, row = i % kSRows;
+      const float ms = row < n_rows ? __ldcg(ml(s, row)) : neg_inf;
+      wts[i] = ms == neg_inf ? 0.0f : ex2(ms - M[row]);
+    }
+    __syncthreads();
+    for (int s0 = 0; s0 < nc; s0 += SB) {
+      float4 x[SB][UPT];
+#pragma unroll
+      for (int i = 0; i < SB; ++i)
+#pragma unroll
+        for (int u = 0; u < UPT; ++u) {
+          const int unit = tid + u * kSThreads, row = unit / U, c = (unit % U) * 4;
+          x[i][u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (s0 + i >= nc || row >= n_rows || c >= a.D) continue;
+          const float* src =
+              a.part_acc + (((size_t)(c0 + s0 + i) * a.rows + row0 + row) * a.H + head) * a.D + c;
+          if (vec4) {
+            x[i][u] = __ldcg(reinterpret_cast<const float4*>(src));
+          } else {
+            x[i][u].x = __ldcg(src);
+            x[i][u].y = c + 1 < a.D ? __ldcg(src + 1) : 0.0f;
+            x[i][u].z = c + 2 < a.D ? __ldcg(src + 2) : 0.0f;
+            x[i][u].w = c + 3 < a.D ? __ldcg(src + 3) : 0.0f;
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < SB; ++i)
+#pragma unroll
+        for (int u = 0; u < UPT; ++u) {
+          const int row = (tid + u * kSThreads) / U;
+          if (s0 + i >= nc || row >= n_rows) continue;
+          const float w = wts[(s0 + i) * kSRows + row];
+          acc[u][0] = fmaf(x[i][u].x, w, acc[u][0]);
+          acc[u][1] = fmaf(x[i][u].y, w, acc[u][1]);
+          acc[u][2] = fmaf(x[i][u].z, w, acc[u][2]);
+          acc[u][3] = fmaf(x[i][u].w, w, acc[u][3]);
+        }
+    }
+  }
+  const size_t feat = (size_t)a.H * a.D;
+#pragma unroll
+  for (int u = 0; u < UPT; ++u) {
+    const int unit = tid + u * kSThreads, row = unit / U, c = (unit % U) * 4;
+    if (row >= n_rows) continue;
+    float* dst = a.out + (size_t)(row0 + row) * feat + (size_t)head * a.D;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < a.D) dst[c + e] = acc[u][e] * inv[row];
+  }
+}
+
+// One CTA: rows [row0, row0 + 32) (those under `rows`), one head, keys
+// [split * S, (split + 1) * S) of the table's context, S = 64 *
+// stages_per_split, cut at the tile's max(pos). Warp (rh, kh) takes rows
+// 16 rh.. and keys 32 kh.. of each stage: s = q k^T and p v as 3xTF32
+// mma.sync m16n8k8 (p v's A fragment is p's C fragment as it stands, the k
+// slots (t, t + 4) read as keys (2t, 2t + 1)), an online softmax on the C
+// fragments, each stage's p v part summed from 0 and added in f32. The two
+// key halves merge in shared memory at the end. A tile whose live keys fit
+// one split writes its output; otherwise each split writes its unnormalized
+// (acc, m, l), and the last split of the (tile, head) to finish (an integer
+// arrival counter, reset after) merges them in split order, so the result
+// repeats bit for bit.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kSThreads) paged_flash_shared_tc_kernel(const SharedArgs a) {
+  using Smem = SharedSmem<T, DP>;
+  static_assert(2 * Smem::stage >= (10 + kSMergeChunk) * kSRows * sizeof(float) &&
+                    2 * Smem::stage >= kSRows * DP * sizeof(float),
+                "the ring holds the key halves' merge and the splits' merge");
+  constexpr int NO = DP / 8;           // 8-column tiles of a warp's output
+  constexpr int NB = NO < 4 ? NO : 4;  // of them in one pass of p v
+  constexpr bool kInt8 = sizeof(T) == 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + Smem::q;
+  float* deq = reinterpret_cast<float*>(ring + 2 * Smem::stage);
+  __shared__ int pos_s[kSRows];
+  __shared__ int rows_s[2][kSKeys];  // pool rows of the two ring stages' keys
+  __shared__ int max_pos_s, is_last;
+  __shared__ float ml_s[kSRows][2];
+
+  const int head = blockIdx.x % a.H, tile = blockIdx.x / a.H, split = blockIdx.y;
+  const int row0 = tile * kSRows, n_rows = min(kSRows, a.rows - row0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rh = warp & 1, kh = warp >> 1;
+  const size_t feat = (size_t)a.H * a.D;
+  // the query tile, zeros past the tile's rows and past D: in flight while
+  // the positions and the table are read
+  for (int i = tid; i < kSRows * DP / 4; i += kSThreads) {
+    const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+    const float* src = a.q + (size_t)(row0 + (r < n_rows ? r : 0)) * feat + (size_t)head * a.D;
+    float* dst = Qs + sw(r, c, DP);
+    if (a.vec) {
+      const bool ok = r < n_rows && c < a.D;
+      cp_async_zfill(dst, ok ? src + c : a.q, ok, 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = r < n_rows && c + e < a.D ? src[c + e] : 0.0f;
+    }
+  }
+  cp_async_commit();
+  // the pool rows of the split's first two stages (one key a thread), read
+  // beside the positions; keys past the tile's max(pos) are marked dead
+  // once it is known
+  static_assert(kSThreads == 2 * kSKeys, "one key a thread over two stages");
+  const int span = kSKeys * a.stages_per_split, k_begin = split * span;
+  int first_row = pool_row(a, k_begin + tid, min(k_begin + span, a.P * a.ps));
+  if (warp == 0) {
+    const int pr = lane < n_rows ? a.pos[row0 + lane] : -1;
+    pos_s[lane] = pr;
+    int mx = pr;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) max_pos_s = mx;
+  }
+  __syncthreads();
+  const int n_keys = max_pos_s < 0 ? 0 : min(max_pos_s + 1, a.P * a.ps);
+  const int n_live = (n_keys + span - 1) / span;
+  if (split >= n_live) {
+    if (split == 0) {  // no live key for any row of the tile: exact zeros
+      for (int i = tid; i < n_rows * a.D; i += kSThreads)
+        a.out[(size_t)(row0 + i / a.D) * feat + (size_t)head * a.D + i % a.D] = 0.0f;
+    }
+    cp_async_wait<0>();
+    return;
+  }
+  const int k_end = min(n_keys, k_begin + span);
+  const int n_st = (k_end - k_begin + kSKeys - 1) / kSKeys;
+
+  auto stage_ptrs = [&](int buf, T*& kd, T*& vd, float*& ksc, float*& vsc) {
+    unsigned char* base = ring + buf * Smem::stage;
+    kd = reinterpret_cast<T*>(base);
+    vd = kd + kSKeys * DP;
+    ksc = reinterpret_cast<float*>(vd + kSKeys * DP);
+    vsc = ksc + kSKeys;
+  };
+  auto issue = [&](int st) {
+    T *kd, *vd;
+    float *ksc, *vsc;
+    stage_ptrs(st & 1, kd, vd, ksc, vsc);
+    issue_stage<DP>(a, head, rows_s[st & 1], kd, vd, ksc, vsc);
+    cp_async_commit();
+  };
+  rows_s[tid / kSKeys][tid % kSKeys] = k_begin + tid < k_end ? first_row : -1;
+  __syncthreads();
+  issue(0);
+  if (n_st > 1) issue(1);
+
+  const int w0 = 16 * rh, kw0 = 32 * kh;  // the warp's rows, and its keys in a stage
+  // the last live position of the thread's two rows: pos, capped at the
+  // table's context
+  const int pr[2] = {min(pos_s[w0 + g], n_keys - 1), min(pos_s[w0 + g + 8], n_keys - 1)};
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 4 * (lane >> 4);
+  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 4 * ((lane >> 3) & 1);
+  const float neg_inf = -CUDART_INF_F;
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  // the softmax runs in base 2: m and the scores are s * scale * log2(e), so
+  // each exponential is one ex2 (the split's m is written in that domain)
+  const float scale2 = a.scale * 1.4426950408889634f;
+  float m[2] = {neg_inf, neg_inf}, l[2] = {0.0f, 0.0f};  // l: this thread's share
+
+  for (int st = 0; st < n_st; ++st) {
+    if (st + 1 < n_st) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();  // stage st is here for every thread (and the query tile)
+    // the pool rows of stage st + 2, read under this stage's math; its
+    // copies go out once every warp is done with this stage's buffer
+    if (st + 2 < n_st && tid < kSKeys)
+      rows_s[st & 1][tid] = pool_row(a, k_begin + (st + 2) * kSKeys + tid, k_end);
+    const float *Kb, *Vb;
+    if constexpr (kInt8) {
+      T *kd, *vd;
+      float *ksc, *vsc;
+      stage_ptrs(st & 1, kd, vd, ksc, vsc);
+      float* kf = deq;
+      float* vf = deq + kSKeys * DP;
+      for (int i = tid; i < kSKeys * DP; i += kSThreads) {
+        const int j = i / DP, c = i % DP;
+        // one rounding: the plain version's exact value
+        kf[sw(j, c, DP)] = __fmul_rn((float)kd[i], ksc[j]);
+        vf[sw(j, c, DP)] = __fmul_rn((float)vd[i], vsc[j]);
+      }
+      __syncthreads();
+      Kb = kf;
+      Vb = vf;
+    } else {
+      T *kd, *vd;
+      float *ksc, *vsc;
+      stage_ptrs(st & 1, kd, vd, ksc, vsc);
+      Kb = kd;
+      Vb = vd;
+    }
+
+    // s = q k^T: the warp's 16 rows x 32 keys, the even and the odd 8-deep
+    // steps in two independent sums (half the chain of dependent mma),
+    // added at the end
+    float s[1][4][4], s2[1][4][4];
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 8) {
+      float (&acc)[1][4][4] = (kk & 8) ? s2 : s;
+      uint32_t ah[1][4], al[1][4], bh[4][2], bl[4][2], r[4];
+      tf32::ldmatrix_x4(r, Qs + sw(w0 + arow, kk + acol, DP));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32::split<true>(__uint_as_float(r[e]), ah[0][e], al[0][e]);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        tf32::ldmatrix_x4(r, Kb + sw(kw0 + 8 * j + brow, kk + bcol, DP));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tf32::split<true>(__uint_as_float(r[e]), bh[j + e / 2][e & 1], bl[j + e / 2][e & 1]);
+      }
+      if (kk < 16) tf32::mma_tiles<true, 1, 4, true>(acc, ah, al, bh, bl);
+      else tf32::mma_tiles<true, 1, 4>(acc, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][j][e] += s2[0][j][e];
+
+    // where-masked online softmax on the C fragments: s[0][j][2h + e] is
+    // row w0 + g + 8h, key kpos0 + 8j + 2t + e
+    const int kpos0 = k_begin + st * kSKeys + kw0;
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = neg_inf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[0][j][2 * h + e];
+          x = kpos0 + 8 * j + 2 * t + e <= pr[h] ? x * scale2 : neg_inf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      // exp(-inf - -inf) is nan: a row that has seen nothing live yet
+      // rescales by exactly 0
+      alpha[h] = m[h] == neg_inf ? 0.0f : ex2(m[h] - m_new);
+      m[h] = m_new;
+    }
+    uint32_t ph[4][1][4], pl[4][1][4];
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[0][j][2 * h + e];
+          pv[2 * h + e] = x == neg_inf ? 0.0f : ex2(x - m[h]);
+          sum[h] += pv[2 * h + e];
+        }
+      tf32::split<true>(pv[0], ph[j][0][0], pl[j][0][0]);  // (g, key 2t)
+      tf32::split<true>(pv[2], ph[j][0][1], pl[j][0][1]);  // (g + 8, key 2t)
+      tf32::split<true>(pv[1], ph[j][0][2], pl[j][0][2]);  // (g, key 2t + 1)
+      tf32::split<true>(pv[3], ph[j][0][3], pl[j][0][3]);  // (g + 8, key 2t + 1)
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < NO; n0 += NB) {
+      float part[1][NB][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bh[NB][2], bl[NB][2];
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tf32::split<true>(Vb[sw(kw0 + 8 * j + 2 * t + e, 8 * (n0 + c) + g, DP)], bh[c][e],
+                              bl[c][e]);
+        if (j == 0) tf32::mma_tiles<true, 1, NB, true>(part, ph[j], pl[j], bh, bl);
+        else tf32::mma_tiles<true, 1, NB>(part, ph[j], pl[j], bh, bl);
+      }
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n0 + c][e] += part[0][c][e];
+    }
+    if (st + 2 < n_st) {  // the buffer this stage used takes stage st + 2
+      __syncthreads();
+      issue(st + 2);
+    }
+  }
+
+  // merge the two key halves: warps kh = 1 hand (m, l, acc) to kh = 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __syncthreads();  // every warp is done with the ring
+  float* xo = reinterpret_cast<float*>(ring);  // [32][DP]
+  if (kh == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w0 + g + 8 * h;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        xo[r * DP + 8 * n + 2 * t] = o[n][2 * h];
+        xo[r * DP + 8 * n + 2 * t + 1] = o[n][2 * h + 1];
+      }
+      if (t == 0) {
+        ml_s[r][0] = m[h];
+        ml_s[r][1] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  const bool single = n_live == 1;
+  if (kh == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w0 + g + 8 * h;
+      const float m1 = ml_s[r][0], l1 = ml_s[r][1];
+      const float mm = fmaxf(m[h], m1);
+      const float a0 = m[h] == neg_inf ? 0.0f : ex2(m[h] - mm);
+      const float a1 = m1 == neg_inf ? 0.0f : ex2(m1 - mm);
+      const float lm = l[h] * a0 + l1 * a1;
+      if (r >= n_rows) continue;
+      const size_t i = ((size_t)split * a.rows + row0 + r) * a.H + head;
+      const float inv = 1.0f / (lm > 0.0f ? lm : 1.0f);
+      float* dst = single ? a.out + (size_t)(row0 + r) * feat + (size_t)head * a.D
+                          : a.part_acc + i * a.D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c >= a.D) continue;
+          const float x = o[n][2 * h + e] * a0 + xo[r * DP + c] * a1;
+          dst[c] = single ? x * inv : x;
+        }
+      if (!single && t == 0) {
+        a.part_ml[i * 2] = mm;
+        a.part_ml[i * 2 + 1] = lm;
+      }
+    }
+  }
+  if (single) return;
+
+  // the last split of this (tile, head) to finish merges: every partial is
+  // written and fenced before the count moves
+  __threadfence();
+  __syncthreads();
+  int* counter = a.arrivals + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(counter, 1) == n_live - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  merge_splits<DP>(a, reinterpret_cast<float*>(ring), row0, n_rows, head, n_live);
+  if (tid == 0) *counter = 0;  // ready for the next launch on this stream
+}
+
 // Opt the kernel into more than the default 48 KB of dynamic shared memory
 // when a shape needs it; cudaErrorInvalidValue past the card's 227 KB.
 template <typename Kernel>
@@ -361,22 +943,55 @@ int launch_decode(const float* q, const T* k_pool, const T* v_pool, const float*
   return cudaGetLastError();
 }
 
+template <typename T, int DP>
+cudaError_t launch_shared_tc(const SharedArgs& a, int splits, cudaStream_t st) {
+  constexpr size_t bytes = SharedSmem<T, DP>::bytes;
+  cudaError_t err = prepare(paged_flash_shared_tc_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (a.rows + kSRows - 1) / kSRows;
+  paged_flash_shared_tc_kernel<T, DP><<<dim3(n_tiles * a.H, splits), kSThreads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// splits of the shared form's walk: stages_per_split 64-key stages each for
+// the tensor-core kernel (D <= kSMaxD), pages_per_split table entries each
+// for the wide-head kernel
+__host__ inline int shared_splits(int P, int page_size, int D, int pages_per_split,
+                                  int stages_per_split) {
+  if (D > kSMaxD) return n_splits(P, pages_per_split);
+  const int span = kSKeys * stages_per_split;
+  return (int)(((int64_t)P * page_size + span - 1) / span);
+}
+
+// D <= kSMaxD: the tensor-core kernel, its splits merged by the last one to
+// finish (arrivals: ceil(rows / 32) * H ints, all 0, left at 0). Wider heads
+// take the per-page kernel of the decode form and its merge kernel.
 template <typename T>
 int launch_shared(const float* q, const T* k_pool, const T* v_pool, const float* k_scales,
                   const float* v_scales, int vec, const int* block_table, const int* pos,
-                  float* out, float* part_acc, float* part_ml, int rows, int H, int D, int P,
-                  int page_size, int pool_rows, int pages_per_split, float scale,
-                  void* stream) {
+                  float* out, float* part_acc, float* part_ml, int* arrivals, int rows, int H,
+                  int D, int P, int page_size, int pool_rows, int pages_per_split,
+                  int stages_per_split, float scale, void* stream) {
   if (rows <= 0 || H <= 0) return cudaSuccess;
-  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0)
+  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0 ||
+      stages_per_split <= 0)
     return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int splits = shared_splits(P, page_size, D, pages_per_split, stages_per_split);
+  if (D <= kSMaxD) {
+    if (arrivals == nullptr || splits > 65535) return cudaErrorInvalidValue;
+    const SharedArgs a{q, k_pool, v_pool, k_scales, v_scales, block_table, pos, out,
+                       part_acc, part_ml, arrivals, rows, H, D, P, page_size,
+                       pool_rows / page_size, stages_per_split, vec, scale};
+    if (D <= 32) return launch_shared_tc<T, 32>(a, splits, st);
+    if (D <= 64) return launch_shared_tc<T, 64>(a, splits, st);
+    return launch_shared_tc<T, 128>(a, splits, st);
+  }
   const int tile = rows < kSharedTile ? rows : kSharedTile;
   const size_t bytes = smem_bytes(tile, D, page_size);
   cudaError_t err = prepare(paged_flash_shared_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
   const int n_tiles = (rows + tile - 1) / tile;
-  const int splits = n_splits(P, pages_per_split);
-  cudaStream_t st = (cudaStream_t)stream;
   paged_flash_shared_kernel<T><<<dim3(n_tiles, H, splits), kThreads, bytes, st>>>(
       q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos, part_acc, part_ml, rows,
       tile, pages_per_split, H, D, P, page_size, pool_rows / page_size, scale);
@@ -392,8 +1007,13 @@ int launch_shared(const float* q, const T* k_pool, const T* v_pool, const float*
 extern "C" {
 
 // Splits of the page walk for a table of P entries (the scratch the caller
-// passes holds n_splits * rows * H * (D + 2) floats).
+// passes holds n_splits * rows * H * (D + 2) floats): the decode form's, and
+// the shared form's.
 int paged_flash_n_splits(int P, int pages_per_split) { return n_splits(P, pages_per_split); }
+int paged_flash_shared_splits(int P, int page_size, int D, int pages_per_split,
+                              int stages_per_split) {
+  return shared_splits(P, page_size, D, pages_per_split, stages_per_split);
+}
 
 // q [S, H*D], pools [pool_rows, H*D], block_table [S, P], pos [S] -> out [S, H*D]
 int paged_flash_decode(const float* q, const float* k_pool, const float* v_pool,
@@ -406,15 +1026,17 @@ int paged_flash_decode(const float* q, const float* k_pool, const float* v_pool,
                               pages_per_split, scale, stream);
 }
 
-// q [rows, H*D], pools [pool_rows, H*D], block_table [P], pos [rows] -> out [rows, H*D]
-int paged_flash_shared(const float* q, const float* k_pool, const float* v_pool,
+// q [rows, H*D], pools [pool_rows, H*D], block_table [P], pos [rows] -> out [rows, H*D];
+// vec: the wrapper found D, H*D and both pools' addresses to allow 16-byte
+// row loads
+int paged_flash_shared(const float* q, const float* k_pool, const float* v_pool, int vec,
                        const int* block_table, const int* pos, float* out,
-                       float* part_acc, float* part_ml, int rows, int H, int D, int P,
-                       int page_size, int pool_rows, int pages_per_split, float scale,
-                       void* stream) {
-  return launch_shared<float>(q, k_pool, v_pool, nullptr, nullptr, 0, block_table, pos, out,
-                              part_acc, part_ml, rows, H, D, P, page_size, pool_rows,
-                              pages_per_split, scale, stream);
+                       float* part_acc, float* part_ml, int* arrivals, int rows, int H, int D,
+                       int P, int page_size, int pool_rows, int pages_per_split,
+                       int stages_per_split, float scale, void* stream) {
+  return launch_shared<float>(q, k_pool, v_pool, nullptr, nullptr, vec, block_table, pos, out,
+                              part_acc, part_ml, arrivals, rows, H, D, P, page_size, pool_rows,
+                              pages_per_split, stages_per_split, scale, stream);
 }
 
 // The int8 forms: int8 pools [pool_rows, H*D] and f32 scale pools
@@ -434,12 +1056,12 @@ int paged_flash_decode_int8(const float* q, const int8_t* k_pool, const int8_t* 
 int paged_flash_shared_int8(const float* q, const int8_t* k_pool, const int8_t* v_pool,
                             const float* k_scales, const float* v_scales, int vec,
                             const int* block_table, const int* pos, float* out,
-                            float* part_acc, float* part_ml, int rows, int H, int D, int P,
-                            int page_size, int pool_rows, int pages_per_split, float scale,
-                            void* stream) {
+                            float* part_acc, float* part_ml, int* arrivals, int rows, int H,
+                            int D, int P, int page_size, int pool_rows, int pages_per_split,
+                            int stages_per_split, float scale, void* stream) {
   return launch_shared<int8_t>(q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos,
-                               out, part_acc, part_ml, rows, H, D, P, page_size, pool_rows,
-                               pages_per_split, scale, stream);
+                               out, part_acc, part_ml, arrivals, rows, H, D, P, page_size,
+                               pool_rows, pages_per_split, stages_per_split, scale, stream);
 }
 
 const char* paged_flash_error_string(int code) {

@@ -20,8 +20,11 @@ tiles through shared memory at every length, so one forward kernel serves
 both forward tiers. The backward has two tiers, as in the JAX package: the
 fused kernel (five products, one CTA per 128-key tile, per-key-tile dQ
 partials summed in a fixed order) where those partials stay within 2x dQ
-(`flash_bwd_fused_ok`: at most two key tiles, head width 64), and the
+(`flash_bwd_fused_ok`: at most two key tiles, head width up to 64), and the
 dK/dV + dQ pair everywhere else; on the card every shape takes a kernel.
+The kernels take any head width d from 1 to MAX_HEAD_DIM (128): each is
+built for a few padded widths and zero-fills the columns past d as it
+loads a tile, so the operands reach it as they are, without a padded copy.
 The path predicates copied from the JAX package decide only whether a
 program declares the `Lse` output (layers.flash_attention, the
 fuse_attention pass), so both packages build the same programs; they do not
@@ -29,7 +32,7 @@ decide how the CUDA kernels tile.
 
 Dispatch: `flash_forward` / `flash_backward` launch the kernels for tensors
 on a CUDA device and raise if they cannot be built or launched, or if the
-head width is one the kernels do not take; they run the plain versions for
+head width is past MAX_HEAD_DIM; they run the plain versions for
 tensors on the CPU and on the meta device (shape inference). Nothing falls
 back silently.
 """
@@ -52,6 +55,7 @@ __all__ = [
     "flash_forward_plain",
     "flash_path_taken",
     "flash_tiles_ok",
+    "MAX_HEAD_DIM",
     "kernel_launches",
     "reset_kernel_launches",
 ]
@@ -150,8 +154,7 @@ def flash_backward_plain(q, k, v, out, lse, dout, causal, sm_scale):
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)  # head widths the kernels are built for
-_MAX_GRID_Y = 65535  # b * h rides the grid's y dimension
+MAX_HEAD_DIM = 128  # the widest padded head width the kernels are built for
 
 # launches, counted where the wrapper launches each kernel and nowhere else,
 # per kernel and per form
@@ -191,7 +194,7 @@ class _Params(ctypes.Structure):
         ("sdo", _Strides),
         ("b", ctypes.c_int), ("h", ctypes.c_int), ("tq", ctypes.c_int),
         ("tk", ctypes.c_int), ("d", ctypes.c_int), ("causal", ctypes.c_int),
-        ("dtype", ctypes.c_int), ("scale", ctypes.c_float),
+        ("dtype", ctypes.c_int), ("vec", ctypes.c_int), ("scale", ctypes.c_float),
     ]
 
 
@@ -222,14 +225,12 @@ def _check(q, k, v):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share f32 or bf16, got %s %s %s"
                         % (q.dtype, k.dtype, v.dtype))
-    if d not in HEAD_DIMS:
-        raise ValueError("flash_attention: head width d=%d is not one the CUDA kernels "
-                         "take (%s)" % (d, ", ".join(map(str, HEAD_DIMS))))
-    if tq <= 0 or tk <= 0 or b * h <= 0:
+    if d > MAX_HEAD_DIM:
+        raise ValueError("flash_attention: head width d=%d is past the CUDA kernels' limit "
+                         "of %d" % (d, MAX_HEAD_DIM))
+    if tq <= 0 or tk <= 0 or b * h <= 0 or d <= 0:
         raise ValueError("flash_attention: empty operands %s, %s" % (tuple(q.shape),
                                                                     tuple(k.shape)))
-    if b * h > _MAX_GRID_Y:
-        raise ValueError("flash_attention: b * h = %d exceeds %d" % (b * h, _MAX_GRID_Y))
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError("flash_attention: %s is on %s, q on %s" % (name, t.device, q.device))
@@ -237,18 +238,24 @@ def _check(q, k, v):
 
 
 def _operand(x):
-    """x as the kernels read it: any (b, h, t) strides, the d axis
-    contiguous, rows aligned for 4-element loads (16 bytes of f32, 8 of
-    bf16). The views the model hands over (a transpose of (b, t, h, d)
-    memory) already are, and pass without a copy; anything else is copied
-    into a contiguous tensor."""
-    if (
-        x.stride(3) == 1
-        and all(s % 4 == 0 for s in x.stride()[:3])
-        and x.data_ptr() % (4 * x.element_size()) == 0
-    ):
+    """x as the kernels read it: any (b, h, t) strides with the d axis
+    contiguous. The views the model hands over (a transpose of (b, t, h, d)
+    memory) are, and pass without a copy at every head width; a view whose
+    d axis is strided is copied into a contiguous tensor."""
+    if x.stride(3) == 1 or x.shape[3] == 1:
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def _rows_aligned(x):
+    """Whether every row of x starts on a 4-element boundary, so the kernels
+    copy it in 4-element units (16 bytes of f32, 8 of bf16); otherwise they
+    load it element by element."""
+    return (
+        x.shape[3] % 4 == 0
+        and all(s % 4 == 0 for s in x.stride()[:3])
+        and x.data_ptr() % (4 * x.element_size()) == 0
+    )
 
 
 _STRIDE_FIELDS = {"q": "sq", "k": "sk", "v": "sv", "o": "so", "dout": "sdo"}
@@ -256,12 +263,14 @@ _STRIDE_FIELDS = {"q": "sq", "k": "sk", "v": "sv", "o": "so", "dout": "sdo"}
 
 def _params(causal, sm_scale, **tensors):
     """FlashParams over the named tensors (q, k, v always; the others per
-    direction): their pointers, and the (b, h, t) strides of the operands."""
+    direction): their pointers, the (b, h, t) strides of the operands and
+    whether all of those load in aligned 4-element units."""
     q, k = tensors["q"], tensors["k"]
     b, h, tq, d = q.shape
+    vec = all(_rows_aligned(t) for slot, t in tensors.items() if slot in _STRIDE_FIELDS)
     prm = _Params(
         b=b, h=h, tq=tq, tk=k.shape[2], d=d, causal=int(bool(causal)),
-        dtype=_DTYPE_CODE[q.dtype], scale=float(sm_scale),
+        dtype=_DTYPE_CODE[q.dtype], vec=int(vec), scale=float(sm_scale),
     )
     for slot, t in tensors.items():
         setattr(prm, slot, t.data_ptr())
@@ -270,8 +279,9 @@ def _params(causal, sm_scale, **tensors):
     return prm
 
 
-# the fused backward tier: keys a CTA, and the cap on its dQ partials (the
-# JAX package's: at most two key blocks, so the f32 partials stay within 2x dQ)
+# the fused backward tier: keys a CTA, the cap on its dQ partials (the JAX
+# package's: at most two key blocks, so the f32 partials stay within 2x dQ)
+# and the padded head width it is built for (any d up to it)
 FUSED_BWD_KEYS = 128
 FUSED_BWD_MAX_PARTIALS = 2
 FUSED_BWD_HEAD_DIM = 64
@@ -280,20 +290,7 @@ FUSED_BWD_HEAD_DIM = 64
 def flash_bwd_fused_ok(tk, d):
     """Whether the backward at tk keys and head width d takes the fused
     kernel (the rest take the dK/dV + dQ pair)."""
-    return d == FUSED_BWD_HEAD_DIM and tk <= FUSED_BWD_KEYS * FUSED_BWD_MAX_PARTIALS
-
-
-# per (device, stream): b * h int32 arrival counters for the fused tier's dQ
-# sum, zeroed once; each launch leaves them at 0 again
-_ARRIVALS = {}
-
-
-def _arrivals(device, stream, n):
-    key = (device, stream)
-    buf = _ARRIVALS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _ARRIVALS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-    return buf
+    return 1 <= d <= FUSED_BWD_HEAD_DIM and tk <= FUSED_BWD_KEYS * FUSED_BWD_MAX_PARTIALS
 
 
 def _launch(fn_name, prm, device, *ptrs):
@@ -346,10 +343,10 @@ def flash_backward(q, k, v, out, lse, dout, causal, sm_scale):
     prm = _params(causal, sm_scale, q=q, k=k, v=v, o=out, dout=dout, lse=lse, dq=dq, dk=dk, dv=dv)
     form = "_causal" if causal else ""
     if flash_bwd_fused_ok(tk, d):
-        parts = torch.empty((-(-tk // FUSED_BWD_KEYS), b, h, tq, d), dtype=torch.float32,
-                            device=q.device)
+        parts = torch.empty((-(-tk // FUSED_BWD_KEYS), b, h, tq, FUSED_BWD_HEAD_DIM),
+                            dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        arrivals = _arrivals(q.device, stream, b * h)
+        arrivals = _build.arrival_counters(q.device, stream, b * h)
         _launch("flash_attention_bwd_fused", prm, q.device, parts.data_ptr(),
                 arrivals.data_ptr())
         _LAUNCHES["flash_bwd_fused" + form] += 1

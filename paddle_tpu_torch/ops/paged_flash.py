@@ -5,10 +5,15 @@ Replaces paddle_tpu/ops/pallas_kernels.py paged_flash_attention (the
 _paged_flash_decode_kernel and _paged_flash_shared_kernel Pallas bodies, and
 for int8 pools with per-row f32 scales _paged_flash_decode_quant_kernel and
 _paged_flash_shared_quant_kernel).
-The kernel reads the paged pool through the block table with an online
-softmax and never materializes the gathered context; the plain version
-(`paged_attention_plain`) is the dense gather + where-mask safe softmax of
-the JAX dense lowering (paddle_tpu/ops/generation_ops.py:134-183).
+The kernels read the paged pool through the block table with an online
+softmax and never materialize the gathered context: the decode form a page
+at a time on the CUDA cores, its splits merged by a second kernel; the
+shared-table (prefill chunk) form, for head widths up to 128, 64-key
+stages through a cp.async ring with both products on the tensor cores
+(3xTF32), its splits merged by the last one to finish (an arrival counter
+per (32-row tile, head)). The plain version (`paged_attention_plain`) is the dense
+gather + where-mask safe softmax of the JAX dense lowering
+(paddle_tpu/ops/generation_ops.py:134-183).
 
 Dispatch: `paged_flash_attention` launches the kernel for tensors on a CUDA
 device and raises if it cannot be built or launched; it runs the plain
@@ -33,10 +38,17 @@ __all__ = [
     "reset_kernel_launches",
 ]
 
-# table entries one CTA walks: a decode row's 64-entry table at page_size 16
-# spreads over 16 CTAs per (slot, head), so 8 slots x 12 heads put 1536 CTAs
-# on the card's 132 SMs instead of 96 (and a prefill chunk 192 instead of 12)
+# decode: table entries one CTA walks; a decode row's 64-entry table at
+# page_size 16 spreads over 16 CTAs per (slot, head), so 8 slots x 12 heads
+# put 1536 CTAs on the card's 132 SMs instead of 96. The shared form's heads
+# wider than 128 walk the same way.
 PAGES_PER_SPLIT = 4
+# shared table (prefill chunk), head width up to 128: 64-key stages a CTA
+# takes (timed on the card at the prefill chunk: 2 beat 1 and 4); a chunk's
+# context of about 640 positions spreads over 5 splits per (32-row tile,
+# head), 60 CTAs at 12 heads
+SHARED_STAGES_PER_SPLIT = 2
+SHARED_TILE_ROWS = 32
 
 # kernel launches by form, counted where the wrapper launches its kernel and
 # nowhere else (the plain version does not count)
@@ -62,14 +74,17 @@ def reset_kernel_launches():
 
 def _bind(lib):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.paged_flash_decode, lib.paged_flash_shared):
-        fn.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
-        fn.restype = i32
-    for fn in (lib.paged_flash_decode_int8, lib.paged_flash_shared_int8):
-        fn.argtypes = [ptr] * 5 + [i32] + [ptr] * 5 + [i32] * 7 + [f32, ptr]
+    lib.paged_flash_decode.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
+    lib.paged_flash_decode_int8.argtypes = [ptr] * 5 + [i32] + [ptr] * 5 + [i32] * 7 + [f32, ptr]
+    lib.paged_flash_shared.argtypes = [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 8 + [f32, ptr]
+    lib.paged_flash_shared_int8.argtypes = [ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 8 + [f32, ptr]
+    for fn in (lib.paged_flash_decode, lib.paged_flash_decode_int8, lib.paged_flash_shared,
+               lib.paged_flash_shared_int8):
         fn.restype = i32
     lib.paged_flash_n_splits.argtypes = [i32, i32]
     lib.paged_flash_n_splits.restype = i32
+    lib.paged_flash_shared_splits.argtypes = [i32] * 5
+    lib.paged_flash_shared_splits.restype = i32
     lib.paged_flash_error_string.argtypes = [i32]
     lib.paged_flash_error_string.restype = ctypes.c_char_p
 
@@ -193,25 +208,40 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
         raise ValueError("paged_flash: %d positions for %d rows" % (pv.shape[0], rows))
     out = torch.empty_like(qc)
     lib = _build.load("paged_flash")
-    # per-split (acc, m, l) scratch that the merge kernel reads back
-    splits = lib.paged_flash_n_splits(n_pages, PAGES_PER_SPLIT)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # per-split (acc, m, l) scratch that the merge reads back
+    if shared:
+        splits = lib.paged_flash_shared_splits(n_pages, page_size, d, PAGES_PER_SPLIT,
+                                               SHARED_STAGES_PER_SPLIT)
+    else:
+        splits = lib.paged_flash_n_splits(n_pages, PAGES_PER_SPLIT)
     part_acc = torch.empty((splits, rows, n_head, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((splits, rows, n_head, 2), dtype=torch.float32, device=q.device)
-    tail = (bt.data_ptr(), pv.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), rows, n_head, d, n_pages, page_size, pool_rows,
-            PAGES_PER_SPLIT, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    # 16-byte row loads: a head's slice and every row of the pools (4 f32
+    # values, 16 int8 levels) and of q start on a 16-byte boundary
+    unit = 16 if quant else 4
+    vec = int(d % unit == 0 and feat % unit == 0 and qc.data_ptr() % 16 == 0
+              and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
+    pools = (k_pool.data_ptr(), v_pool.data_ptr())
+    if quant:
+        pools += (k_scales.data_ptr(), v_scales.data_ptr())
     with torch.cuda.device(q.device):
-        if quant:
-            # 16-byte level vectors: a head's slice and every row start on a
-            # 16-byte boundary
-            vec = int(d % 16 == 0 and feat % 16 == 0
-                      and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
-            fn = lib.paged_flash_shared_int8 if shared else lib.paged_flash_decode_int8
-            err = fn(qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                     k_scales.data_ptr(), v_scales.data_ptr(), vec, *tail)
+        if shared:
+            tiles = -(-rows // SHARED_TILE_ROWS)
+            arrivals = _build.arrival_counters(q.device, stream, tiles * n_head)
+            fn = lib.paged_flash_shared_int8 if quant else lib.paged_flash_shared
+            err = fn(qc.data_ptr(), *pools, vec, bt.data_ptr(), pv.data_ptr(), out.data_ptr(),
+                     part_acc.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(), rows,
+                     n_head, d, n_pages, page_size, pool_rows, PAGES_PER_SPLIT,
+                     SHARED_STAGES_PER_SPLIT, scale, stream)
         else:
-            fn = lib.paged_flash_shared if shared else lib.paged_flash_decode
-            err = fn(qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *tail)
+            tail = (bt.data_ptr(), pv.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+                    part_ml.data_ptr(), rows, n_head, d, n_pages, page_size, pool_rows,
+                    PAGES_PER_SPLIT, scale, stream)
+            if quant:
+                err = lib.paged_flash_decode_int8(qc.data_ptr(), *pools, vec, *tail)
+            else:
+                err = lib.paged_flash_decode(qc.data_ptr(), *pools, *tail)
     if err:
         raise RuntimeError(
             "paged_flash kernel launch failed: %s"

@@ -10,7 +10,10 @@ layers.flash_attention, the fuse_attention pass, the use_flash Transformer):
 - FlashAttention.apply grads against jax.grad of the JAX flash_attention;
 - the fuse_attention pass tag for tag against the JAX pass;
 - a small use_flash Transformer trained 3 steps in both packages;
-- on a CUDA card (`cuda` marker), each kernel against its plain version.
+- the forward kernel's 3xTF32 online softmax, emulated in plain torch;
+- on a CUDA card (`cuda` marker), each kernel against its plain version at
+  head widths from 6 to 128 and at b * h past 65535, and the tiny flash
+  Transformer (d_key 8) against its CPU run.
 
 Tolerances, each with its reason:
 - f32 against the JAX package: rtol 2e-4, atol 2e-5, the JAX package's own
@@ -22,7 +25,9 @@ Tolerances, each with its reason:
 - kernel vs plain on the card, f32: out and lse atol = rtol = 1e-5, grads
   rtol 1e-4 with atol 1e-4 of the plain result's largest magnitude (sums
   of up to tk terms in another order); bf16 against the f32 plain version
-  on the same bf16-rounded inputs: 2e-2, the JAX package's on-chip bar.
+  on the same bf16-rounded inputs: 2e-2, the JAX package's on-chip bar;
+- the tiny flash Transformer on the card against the CPU: losses rtol 2e-3,
+  atol 2e-4, the fused-vs-unfused bar of tests/test_torch_training.py.
 
 The JAX package is imported inside fixtures, so that on the card, where JAX
 is not installed, the `cuda` cases run alone
@@ -80,6 +85,11 @@ OP_CASES = {
     # runs its dense form and its recompute-vjp
     "ragged_t600_no_lse": (1, 2, 600, 600, 16, True),
     "causal_tq256_tk128_masked_rows": (1, 2, 256, 128, 16, True),
+    # head widths off 16: the kernels pad d to their built widths
+    "d8_causal": (2, 2, 128, 128, 8, True),
+    "d32": (2, 2, 128, 128, 32, False),
+    "d96": (1, 2, 128, 128, 96, False),
+    "d96_causal": (1, 2, 128, 128, 96, True),
 }
 
 
@@ -367,6 +377,74 @@ def test_tiny_flash_transformer_builds_the_same_program(jax_mods):
 
 
 # --------------------------------------------------------------------------
+# the forward kernel's 3xTF32 online softmax, emulated in plain torch
+# --------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x cut to TF32 as the kernels' split and the tensor core's operand
+    read do: the 13 low mantissa bits masked off."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as 3xTF32: hi = the value cut to TF32, lo = the exact rest read
+    as TF32, the three products lo.hi + hi.lo + hi.hi in f32 (the small
+    terms first), summed from 0."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def online_softmax_3xtf32(q, k, v, causal, scale, keys=64):
+    """(out, lse) of one (b, h) slice as the tensor-core forward computes it:
+    64-key tiles, s = q k^T by 3xTF32, an f32 online softmax, p rounded to
+    the operand dtype before p v, and each tile's p v part summed from 0 in
+    3xTF32 and added to the f32 accumulator."""
+    tq, tk = q.shape[0], k.shape[0]
+    rows = torch.arange(tq)[:, None]
+    m = torch.full((tq, 1), float("-inf"))
+    l = torch.zeros(tq, 1)
+    o = torch.zeros(tq, v.shape[1])
+    for k0 in range(0, tk, keys):
+        s = mm_3xtf32(q.float(), k[k0:k0 + keys].float().T) * scale
+        cols = torch.arange(k0, min(k0 + keys, tk))[None, :]
+        if causal:
+            s = s.masked_fill(cols > rows + (tk - tq), float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        alpha = torch.where(m == float("-inf"), torch.zeros(()), torch.exp(m - m_new))
+        p = torch.where(s == float("-inf"), torch.zeros(()), torch.exp(s - m_new))
+        l = l * alpha + p.sum(dim=1, keepdim=True)
+        o = o * alpha + mm_3xtf32(p.to(q.dtype).float(), v[k0:k0 + keys].float())
+        m = m_new
+    denom = l.clamp_min(1e-20)
+    lse = torch.where(m == float("-inf"), torch.zeros(()), m + torch.log(denom))
+    return (o / denom).to(q.dtype), lse.squeeze(1)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_3xtf32_online_softmax_holds_the_flash_tolerance(causal):
+    """An emulation of the accuracy argument for the tensor-core forward, in
+    plain torch: it runs no port kernel and guards none (the `cuda` cases
+    below and chip_smoke.py do; the tensor core's truncating sums are not
+    modelled). At (2, 2, 256, 64), the split products, p rounded to the
+    operand dtype and the per-key-tile sums from 0 land within the forward's
+    kernel-vs-plain tolerance, atol = rtol = 1e-5, of flash_forward_plain;
+    one TF32 product for each (hi.hi alone) misses it."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _qkvg(17, 2, 2, 256, 256, 64))
+    scale = 64 ** -0.5
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, causal, scale)
+    for bi in range(2):
+        for hi in range(2):
+            out, lse = online_softmax_3xtf32(q[bi, hi], k[bi, hi], v[bi, hi], causal, scale)
+            torch.testing.assert_close(out, want_out[bi, hi], atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(lse, want_lse[bi, hi], atol=1e-5, rtol=1e-5)
+    one = _tf32(q[0, 0]) @ _tf32(k[0, 0]).T * scale
+    exact = (q[0, 0].double() @ k[0, 0].double().T * scale)
+    assert float((one.double() - exact).abs().max()) > 1e-5
+
+
+# --------------------------------------------------------------------------
 # CPU tensors take the plain versions, uncounted
 # --------------------------------------------------------------------------
 
@@ -378,7 +456,11 @@ def test_tiny_flash_transformer_builds_the_same_program(jax_mods):
     (128, 64, True),
     (129, 64, True),  # two key tiles, the second ragged
     (257, 64, False),  # three key tiles: dQ partials past 2x dQ
-    (256, 128, False),  # the fused tier is built for head width 64
+    (256, 128, False),  # past the fused tier's padded head width of 64
+    (256, 8, True),  # any head width up to 64 pads to it
+    (200, 33, True),
+    (256, 65, False),
+    (257, 8, False),
 ])
 def test_fused_backward_tier_predicate(tk, d, fused):
     assert fa.flash_bwd_fused_ok(tk, d) is fused
@@ -501,10 +583,123 @@ def test_cuda_autograd_matches_plain(cuda_device):
         _grad_close(t.grad, w, 1e-4, 1e-4)
 
 
-@pytest.mark.cuda
-def test_cuda_rejects_head_width_it_does_not_take(cuda_device):
-    q = torch.randn(1, 2, 64, 32, device=cuda_device)
+# head widths other than 64 and 128: each kernel pads d to a built width and
+# zero-fills the columns past it. tk = 200 takes the fused backward tier
+# (d <= 64), tk = 300 the dK/dV + dQ pair; rows of d % 4 != 0 elements load
+# element by element
+ANY_WIDTHS = [6, 8, 16, 32, 80, 96]
+
+
+def _width_case(seed, b, h, tq, tk, d, dtype, device, strided):
+    arrs = _qkvg(seed, b, h, tq, tk, d)
+    if strided:
+        ts = [torch.from_numpy(a.transpose(0, 2, 1, 3).copy()).to(device).transpose(1, 2)
+              for a in arrs]
+    else:
+        ts = [torch.from_numpy(a).to(device) for a in arrs]
+    return [t.to(dtype) for t in ts]
+
+
+def _check_against_plain(q, k, v, g, causal, scale):
+    """Forward and backward kernels against the plain versions (bf16
+    against the f32 plain version on the same rounded inputs), and the
+    backward repeated bit for bit; returns the tier the backward took."""
+    form = "_causal" if causal else ""
     before = fa.kernel_launches()
-    with pytest.raises(ValueError, match="head width d=32"):
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    grads = fa.flash_backward(q, k, v, out, lse, g, causal, scale)
+    torch.cuda.synchronize()
+    after = fa.kernel_launches()
+    fused = fa.flash_bwd_fused_ok(k.shape[2], k.shape[3])
+    moved = ("flash_fwd", "flash_bwd_fused") if fused else (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    for kern in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert after[kern + form] == before[kern + form] + (kern in moved), kern
+    f32 = [t.float() for t in (q, k, v, g)]
+    pout, plse = fa.flash_forward_plain(*f32[:3], causal, scale)
+    pgrads = fa.flash_backward_plain(*f32[:3], out.float(), lse, f32[3], causal, scale)
+    assert out.shape == q.shape and all(a.shape == b.shape for a, b in zip(grads, (q, k, v)))
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(out, pout, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+        for got, want in zip(grads, pgrads):
+            _grad_close(got, want, 1e-4, 1e-4)
+    else:
+        torch.testing.assert_close(out.float(), pout, atol=2e-2, rtol=2e-2)
+        for got, want in zip(grads, pgrads):
+            scale_ = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got.float() / scale_, want / scale_, atol=2e-2, rtol=2e-2)
+    again = fa.flash_backward(q, k, v, out, lse, g, causal, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    return "fused" if fused else "pair"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", ANY_WIDTHS)
+def test_cuda_takes_any_head_width(cuda_device, d, dtype):
+    tiers = set()
+    for i, (tq, tk, causal, strided) in enumerate([(200, 200, False, True),
+                                                   (150, 200, True, False),
+                                                   (300, 300, False, False),
+                                                   (300, 300, True, True)]):
+        q, k, v, g = _width_case(d + i, 2, 3, tq, tk, d, dtype, cuda_device, strided)
+        tiers.add(_check_against_plain(q, k, v, g, causal, d ** -0.5))
+    assert tiers == ({"fused", "pair"} if d <= fa.FUSED_BWD_HEAD_DIM else {"pair"})
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_head_width_past_128(cuda_device):
+    q = torch.randn(1, 2, 64, 129, device=cuda_device)
+    before = fa.kernel_launches()
+    with pytest.raises(ValueError, match="d=129 is past the CUDA kernels' limit of 128"):
         fa.flash_forward(q, q, q, False, 0.2)
     assert fa.kernel_launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_cuda_takes_b_times_h_past_65535(cuda_device, causal):
+    """b * h rides grid x with the tile index, so (65600, 1, 32, 16) runs:
+    past the 65535 of grid y, where it once rode."""
+    q, k, v, g = _width_case(3, 65600, 1, 32, 32, 16, torch.float32, cuda_device, False)
+    assert _check_against_plain(q, k, v, g, causal, 0.25) == "fused"
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_flash_transformer_matches_cpu(cuda_device):
+    """build_tiny_flash_transformer (d_key 8) trained 3 Adam steps on the
+    card, through the flash kernels, against the same steps on the CPU
+    from the same weights."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import transformer as ptransformer
+
+    init, runs = None, []
+    for place in (pt.CPUPlace(), pt.CUDAPlace(0)):
+        main, startup = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            _, loss = ptransformer.build_tiny_flash_transformer()
+            pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+        names = convert.persistable_names(main)
+        scope = pt.Scope(seed=0, place=place)
+        exe = pt.Executor(place)
+        before = fa.kernel_launches()
+        with pt.scope_guard(scope):
+            exe.run(startup)
+            if init is None:
+                init = convert.scope_to_numpy(scope, names)
+            else:
+                convert.load_into_scope(scope, init, names)
+            losses = [float(np.asarray(exe.run(
+                main, feed=ptransformer.tiny_flash_transformer_feed(2, seed=s),
+                fetch_list=[loss.name])[0]).reshape(-1)[0]) for s in range(3)]
+        moved = {k: n - before[k] for k, n in fa.kernel_launches().items() if n != before[k]}
+        runs.append((np.asarray(losses), moved))
+    (cpu, cpu_moved), (card, card_moved) = runs
+    assert not cpu_moved
+    # 3 steps, each with its encoder self, decoder self (causal) and cross
+    # attention forward and backward (the fused tier: d_key 8, t = 16)
+    assert card_moved == {"flash_fwd": 6, "flash_fwd_causal": 3, "flash_bwd_fused": 6,
+                          "flash_bwd_fused_causal": 3}
+    assert np.all(np.isfinite(card))
+    np.testing.assert_allclose(card, cpu, rtol=2e-3, atol=2e-4)

@@ -1,12 +1,16 @@
 """Paged attention in the torch port (paddle_tpu_torch/ops/paged_flash.py):
 the plain torch version against the JAX package's Pallas kernel (interpret
-mode) and its dense lowering, and — on a CUDA card — the hand-written
-kernel against the plain version. Both block-table forms, rows that end
+mode) and its dense lowering, a plain-torch emulation of the shared-table
+kernel's 3xTF32 arithmetic, and — on a CUDA card — the hand-written
+kernels against the plain version. Both block-table forms, rows that end
 exactly on and just past a page boundary, partly filled last pages, pos < 0
-rows and scratch-page table entries.
+rows and scratch-page table entries; for the shared table also chunks of 1,
+17, 32 and 48 rows, chunks across a stage or a split boundary, pos = 0,
+f32 and int8 pools, head widths 6 to 160, and bit-for-bit repeats.
 
-Tolerance: atol = rtol = 1e-5. All sides compute in f32; the online softmax
-of the kernels reassociates the sums, which moves results by a few ulp.
+Tolerance: atol = rtol = 1e-5. All sides compute in f32 (the shared form's
+products as 3xTF32); the online softmax of the kernels reassociates the
+sums, which moves results by a few ulp.
 
 The JAX reference is imported inside a fixture, so that on the card, where
 JAX is not installed, the `cuda` cases run alone
@@ -135,6 +139,93 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     assert pf.kernel_launches() == before
 
 
+# --------------------------------------------------------------------------
+# the shared-table kernel's arithmetic, emulated in plain torch
+# --------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x cut to TF32 as the kernel's split and the tensor core's operand
+    read do: the 13 low mantissa bits masked off."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _shared_3xtf32(q, k, v, pos, scale, stages_per_split):
+    """One head of the shared-table kernel: splits of 64 * stages_per_split
+    positions, each stage's 64 keys halved over two warps' online softmax
+    (3xTF32 q k^T and p v, each stage's p v part summed from 0), the halves
+    merged, then the splits merged in order. q [rows, d], k/v [n_keys, d]
+    gathered up to the rows' max(pos)."""
+    neg = float("-inf")
+    live_pos = pos[:, None]
+    span = 64 * stages_per_split
+    parts = []
+    for s0 in range(0, k.shape[0], span):
+        halves = []
+        for kh in range(2):
+            m = torch.full((q.shape[0], 1), neg)
+            l = torch.zeros(q.shape[0], 1)
+            o = torch.zeros(q.shape[0], v.shape[1])
+            for k0 in range(s0 + 32 * kh, min(s0 + span, k.shape[0]), 64):
+                keys = torch.arange(k0, min(k0 + 32, k.shape[0]))
+                s = _mm_3xtf32(q, k[keys].T) * scale
+                s = torch.where(keys[None, :] <= live_pos, s, torch.full((), neg))
+                m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+                alpha = torch.where(m == neg, torch.zeros(()), torch.exp(m - m_new))
+                p = torch.where(s == neg, torch.zeros(()), torch.exp(s - m_new))
+                l = l * alpha + p.sum(dim=1, keepdim=True)
+                o = o * alpha + _mm_3xtf32(p, v[keys])
+                m = m_new
+            halves.append((m, l, o))
+        (m0, l0, o0), (m1, l1, o1) = halves
+        mm = torch.maximum(m0, m1)
+        a0 = torch.where(m0 == neg, torch.zeros(()), torch.exp(m0 - mm))
+        a1 = torch.where(m1 == neg, torch.zeros(()), torch.exp(m1 - mm))
+        parts.append((mm, l0 * a0 + l1 * a1, o0 * a0 + o1 * a1))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    w = [torch.where(m == neg, torch.zeros(()), torch.exp(m - mx)) for m, _, _ in parts]
+    lsum = sum(l * wi for (_, l, _), wi in zip(parts, w))
+    acc = sum(o * wi for (_, _, o), wi in zip(parts, w))
+    return acc / torch.where(lsum > 0, lsum, torch.ones(()))
+
+
+def test_3xtf32_shared_kernel_holds_the_paged_tolerance():
+    """An emulation of the accuracy argument for the tensor-core shared-table
+    kernel, in plain torch: it runs no port kernel and guards none (the
+    `cuda` cases below and chip_smoke.py do; the tensor core's truncating
+    sums are not modelled). At chip_smoke.py's prefill chunk (32 rows of 12
+    heads x 64 over a 64-entry table of 16-row pages, positions 600-629 and
+    two dead rows), the split products, the per-stage sums from 0 and the
+    two merges land within the paged tolerance, atol = rtol = 1e-5, of
+    paged_attention_plain."""
+    rng = np.random.RandomState(0)
+    rows, n_head, d, ps, n_pages = 32, 12, 64, 16, 64
+    feat = n_head * d
+    q = rng.randn(rows, feat).astype("float32")
+    kp = rng.randn((n_pages + 1) * ps, feat).astype("float32")
+    vp = rng.randn((n_pages + 1) * ps, feat).astype("float32")
+    pos = np.arange(600, 600 + rows, dtype=np.int32)
+    pos[-2:] = -1
+    bt = rng.permutation(np.arange(1, n_pages + 1)).astype(np.int32)
+    args = _torch_args(q, kp, vp, bt, pos)
+    want = pf.paged_attention_plain(*args, n_head=n_head, page_size=ps)
+    n_keys = int(pos.max()) + 1
+    flat = (torch.from_numpy(bt).long()[:, None] * ps + torch.arange(ps)).reshape(-1)[:n_keys]
+    got = torch.zeros(rows, feat)
+    for h in range(n_head):
+        cols = slice(h * d, (h + 1) * d)
+        got[:, cols] = _shared_3xtf32(args[0][:, cols], args[1][flat, cols], args[2][flat, cols],
+                                      args[4].long(), d ** -0.5, pf.SHARED_STAGES_PER_SPLIT)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert torch.equal(got[-2:], torch.zeros(2, feat))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -157,3 +248,63 @@ def test_cuda_kernel_matches_plain(cuda_device, name, spec, shared):
     want = pf.paged_attention_plain(*args, n_head=n_head, page_size=ps)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL, rtol=RTOL)
     assert np.all(got.cpu().numpy()[pos < 0] == 0.0)
+
+
+# the shared (prefill-chunk) form at chunk shapes: (rows, n_head, d,
+# positions); page_size 16 over a 64-entry table, as chip_smoke.py's chunk.
+# A stage is 64 positions, a split 64 * SHARED_STAGES_PER_SPLIT
+CHUNK_CASES = {
+    "rows1": (1, 4, 64, [600]),
+    "rows17": (17, 4, 64, list(range(600, 617))),
+    "rows32_dead_tail": (32, 4, 64, list(range(600, 630)) + [-1, -1]),
+    "rows48": (48, 4, 64, list(range(580, 628))),
+    "across_stage": (8, 4, 64, list(range(60, 68))),
+    "across_split": (8, 4, 64, list(range(124, 132))),
+    "one_split": (6, 4, 64, list(range(90, 96))),
+    "pos0": (4, 4, 64, [0, 0, -1, 1]),
+    "all_dead": (3, 4, 64, [-1, -1, -1]),
+    "d6_unaligned": (9, 3, 6, list(range(200, 209))),
+    "d32": (16, 4, 32, list(range(300, 316))),
+    "d128": (20, 2, 128, list(range(500, 520))),
+    "d160_wide": (12, 2, 160, list(range(300, 312))),  # past the tensor-core form
+}
+
+
+def _chunk_case(spec, quant, seed, device):
+    rows, n_head, d, pos = spec
+    ps, n_pages = 16, 64
+    rng = np.random.RandomState(seed)
+    feat = n_head * d
+    q = rng.randn(rows, feat).astype("float32")
+    pools = [rng.randn((n_pages + 1) * ps, feat).astype("float32") for _ in range(2)]
+    kw = dict(n_head=n_head, page_size=ps)
+    if quant:
+        scales = [(np.abs(x).max(axis=1) / 127.0).astype("float32") for x in pools]
+        pools = [np.clip(np.round(x / s[:, None]), -127, 127).astype(np.int8)
+                 for x, s in zip(pools, scales)]
+        kw.update(k_scales=torch.from_numpy(scales[0]).to(device),
+                  v_scales=torch.from_numpy(scales[1]).to(device))
+    bt = rng.permutation(np.arange(1, n_pages + 1)).astype(np.int32)
+    bt[-1] = 0  # the scratch page
+    args = [torch.from_numpy(a).to(device) for a in (q, pools[0], pools[1], bt,
+                                                      np.asarray(pos, np.int32))]
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_cuda_shared_kernel_at_chunk_shapes(cuda_device, name, quant):
+    args, kw = _chunk_case(CHUNK_CASES[name], quant, len(name), cuda_device)
+    key = "paged_flash_shared" + ("_int8" if quant else "")
+    before = pf.kernel_launches()[key]
+    got = pf.paged_flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pf.kernel_launches()[key] == before + 1
+    want = pf.paged_attention_plain(*args, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL, rtol=RTOL)
+    dead = args[4] < 0
+    if dead.any():
+        assert float(got[dead].abs().max()) == 0.0
+    # one owner for every sum: the output repeats bit for bit
+    assert torch.equal(got, pf.paged_flash_attention(*args, **kw))
