@@ -15,7 +15,11 @@ Phases, each printing its own line; any failure exits non-zero:
        page boundary and partly filled last pages; atol = rtol = 1e-5; the
        shared (prefill) form also at chunks of 1, 17, 32 and 48 rows, across
        a stage and a split boundary, with pos = 0 and pos < 0 rows, over f32
-       and int8 pools, each repeated bit for bit;
+       and int8 pools, each repeated bit for bit; the decode form also at
+       1, 8, 16 and 64 slots x page sizes 8, 16 and 32 x head widths 6, 64,
+       80, 128 and 160, with pos of -1, 0, page and split boundaries, the
+       table's last position and past it and a corrupt table entry, over
+       f32 and int8 pools, each repeated bit for bit;
      - the GEMM epilogue at Transformer base's FFN shapes (4096 x 512 @
        512 x 2048 + relu, 4096 x 2048 @ 2048 x 512), beside torch.addmm
        at both shapes and both bounds (3xTF32 on the tensor cores, f32 on
@@ -23,7 +27,9 @@ Phases, each printing its own line; any failure exits non-zero:
      - layer_norm forward (4096 x 512, with and without the residual), 1e-5;
        backward, dx 1e-5, dscale / dbias rtol 1e-4 atol 1e-3;
      - multi-tensor Adam over the model's 183 tensors (f32 moments, bit for
-       bit; bf16 moments, one bf16 ulp) and a ragged-tail set (bit for bit);
+       bit; bf16 moments, one bf16 ulp), a ragged-tail set and views at odd
+       element offsets (bit for bit), timed against torch._fused_adam_ in 7
+       interleaved rounds (medians);
      - flash attention, forward and backward, at the train-flash path's
        (16, 8, 256, 64) f32 as strided views, causal and not, where the
        backward takes the fused tier: out and lse atol = rtol = 1e-5, grads
@@ -36,7 +42,10 @@ Phases, each printing its own line; any failure exits non-zero:
        must land on its tier; then every head width d in {6, 8, 16, 32, 80,
        96}, f32 and bf16, causal and not, at a length each backward tier
        takes (d <= 64: both), and (b, h, t, d) = (65600, 1, 32, 16), past the
-       65535 of a grid's y axis; forward and backward repeat bit for bit;
+       65535 of a grid's y axis; then head widths past 128 (129, 160, 192,
+       256, 512: 128-wide column blocks, the backward's pair), f32 and
+       bf16, causal and not, and timed at (16, 8, 256, 256) beside SDPA;
+       forward and backward repeat bit for bit;
      - the int8 paged flash forms at path A's shapes (decode q [16, 768] /
        table [16, 64]; prefill chunk q [32, 768] / table [64]; int8 pools
        with per-row f32 scales), atol = rtol = 1e-5;
@@ -508,34 +517,73 @@ def _adam_check(torch, ma, name, device, shapes, moment_dtype, seed):
     return err, kern
 
 
+ADAM_ROUNDS = 7  # interleaved kernel / torch._fused_adam_ rounds, medians compared
+
+
+def _adam_views(torch, ma, device):
+    """Adam on views at element offsets 1-3 (a base not on 16 bytes: a
+    scalar head, then vectors) and with the parameter alone one element off
+    (element by element), bit for bit with the plain version."""
+    rng = np.random.RandomState(SEED + 16)
+    n = 3 * ma.chunk_elems() + 7
+    for offsets in ((1, 1, 1, 1), (2, 2, 2, 2), (3, 3, 3, 3), (1, 0, 0, 0)):
+        sets = []
+        for _ in range(2):
+            r = np.random.RandomState(SEED + 17)
+            views = []
+            for at, scale in zip(offsets, (0.05, 1e-3, 1e-4, 1e-7)):
+                buf = torch.zeros(n + 8, device=device)
+                x = r.randn(n).astype("float32") * scale
+                buf[at:at + n] = torch.from_numpy(np.abs(x) if scale == 1e-7 else x).to(device)
+                views.append([buf[at:at + n]])
+            sets.append(views)
+        lr = torch.from_numpy(np.float32([1e-3 * (1 + rng.rand())])).to(device)
+        ma.multi_tensor_adam(*sets[0], lr, 0.9, 0.999, 1e-8)
+        ma.multi_tensor_adam_plain(*sets[1], lr, 0.9, 0.999, 1e-8)
+        torch.cuda.synchronize()
+        for slot in (0, 2, 3):
+            if not torch.equal(sets[0][slot][0], sets[1][slot][0]):
+                raise AssertionError("multi_adam: views at offsets %s differ from the plain "
+                                     "version" % (offsets,))
+
+
 def check_adam(torch, ma, device, flush, shapes):
-    """Adam over the model's parameter shapes, f32 and bf16 moments, and a
-    ragged-tail set; the f32 set is the kernels-line entry, against
-    torch._fused_adam_ over the same list."""
-    ragged = [(7, 13), (4097,), (1,), (3 * 4096 + 5,), (33, 4095)]
+    """Adam over the model's parameter shapes, f32 and bf16 moments, a
+    ragged-tail set and views at odd offsets; the f32 set is the
+    kernels-line entry, timed against torch._fused_adam_ over the same list
+    in ADAM_ROUNDS interleaved rounds (the medians stand)."""
+    ragged = [(7, 13), (4097,), (1,), (3,), (3 * 4096 + 5,), (33, 4095), (ma.chunk_elems() + 5,)]
     err_r, _ = _adam_check(torch, ma, "multi_adam ragged", device, ragged, "float32", SEED + 13)
+    _adam_views(torch, ma, device)
     err_b, bset = _adam_check(torch, ma, "multi_adam bf16", device, shapes, "bfloat16", SEED + 14)
     bf16_ms = time_ms(torch, lambda: ma.multi_tensor_adam(*bset, 0.9, 0.999, 1e-8), 10, flush,
                       gated=True)
     del bset
     err, kset = _adam_check(torch, ma, "multi_adam", device, shapes, "float32", SEED + 15)
-    ms = time_ms(torch, lambda: ma.multi_tensor_adam(*kset, 0.9, 0.999, 1e-8), 10, flush,
-                 gated=True)
     # the plain version is ~2700 launches a call: summed device time instead
     plain_ms = profiled_device_ms(
         torch, lambda: ma.multi_tensor_adam_plain(*kset, 0.9, 0.999, 1e-8), 2)
     p, g, m1, m2, _ = kset
     steps = [torch.ones((), device=device) for _ in p]
-    lib_ms = time_ms(torch, lambda: torch._fused_adam_(
-        p, g, m1, m2, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0,
-        eps=1e-8, amsgrad=False, maximize=False), 10, flush, gated=True)
+    rounds = {"kernel": [], "fused_adam": []}
+    for _ in range(ADAM_ROUNDS):
+        rounds["kernel"].append(time_ms(
+            torch, lambda: ma.multi_tensor_adam(*kset, 0.9, 0.999, 1e-8), 10, flush, gated=True))
+        rounds["fused_adam"].append(time_ms(torch, lambda: torch._fused_adam_(
+            p, g, m1, m2, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0,
+            eps=1e-8, amsgrad=False, maximize=False), 10, flush, gated=True))
+    ms, lib_ms = (float(np.median(rounds[k])) for k in ("kernel", "fused_adam"))
     elems = sum(int(np.prod(s)) for s in shapes)
     bound_ms, bound_by = _bound(elems * 28 + len(shapes) * 4, 12 * elems)
-    log("kernel multi_adam: %d tensors, %d elements, f32 moments and the ragged set equal "
-        "to the plain version bit for bit; bf16 moments max err %.3g (one bf16 ulp) %.4f ms; "
-        "kernel %.4f ms (device); plain %.4f ms (profiler, device); torch._fused_adam_ "
-        "%.4f ms; bound %.4f ms (%s)"
-        % (len(shapes), elems, err_b, bf16_ms, ms, plain_ms, lib_ms, bound_ms, bound_by))
+    log("kernel multi_adam: %d tensors, %d elements, f32 moments, the ragged set and views at "
+        "offsets 1-3 and mixed equal to the plain version bit for bit; bf16 moments max err "
+        "%.3g (one bf16 ulp) %.4f ms; kernel %.4f ms (device; median of %d rounds "
+        "interleaved with torch._fused_adam_: %s); plain %.4f ms (profiler, device); "
+        "torch._fused_adam_ %.4f ms (median: %s), kernel / _fused_adam_ %.3f; bound %.4f ms "
+        "(%s)" % (len(shapes), elems, err_b, bf16_ms, ms, ADAM_ROUNDS,
+                  " ".join("%.4f" % x for x in rounds["kernel"]), plain_ms, lib_ms,
+                  " ".join("%.4f" % x for x in rounds["fused_adam"]), ms / lib_ms, bound_ms,
+                  bound_by))
     return _entry("multi_adam", "paddle_tpu_torch/ops/csrc/multi_adam.cu",
                   "paddle_tpu/ops/pallas_kernels.py:1993", max(err, err_r), ms, plain_ms,
                   bound_ms, bound_by, lib_ms)
@@ -753,6 +801,7 @@ def check_flash(torch, device, flush):
             "the same rounded inputs: out max_abs_err %.3g, grads / max(1, max|want|) %.3g "
             "(atol=rtol=%g)" % (form, FLASH_SHAPE, err_f, err_b, FLASH_BF16_TOL))
     check_flash_widths(torch, fa, device)
+    entries.update(check_flash_wide(torch, fa, device, flush))
     return entries
 
 
@@ -806,6 +855,84 @@ def check_flash_widths(torch, fa, device):
                 json.dumps(moved)))
         del q, k, v, g
         torch.cuda.empty_cache()
+
+
+FLASH_WIDE = (129, 160, 192, 256, 512)  # head widths past 128: 128-wide column blocks
+FLASH_WIDE_SHAPES = ((2, 2, 200, 200), (1, 3, 77, 150))  # (b, h, tq, tk)
+FLASH_WIDE_TIMED = (16, 8, 256, 256)  # the train-flash shape at d = 256
+
+
+def check_flash_wide(torch, fa, device, flush):
+    """Forward and backward (the dK/dV + dQ pair: the fused tier stops at d
+    = 64) against the plain versions at every head width of FLASH_WIDE, f32
+    and bf16, causal and not, at FLASH_WIDE_SHAPES (tq = tk, and tq < tk
+    with masked tails), each repeated bit for bit; then both directions
+    timed at FLASH_WIDE_TIMED beside SDPA. Returns the kernels-line entries
+    of the wide forward and the wide pair (no main path has heads past
+    128: their launches are this phase's own)."""
+    seed = SEED + 80
+    for d in FLASH_WIDE:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                form = "_causal" if causal else ""
+                for b, h, tq, tk in FLASH_WIDE_SHAPES:
+                    seed += 1
+                    q, _, _, g = _flash_inputs(torch, device, (b, h, tq, d), seed)
+                    _, k, v, _ = _flash_inputs(torch, device, (b, h, tk, d), seed + 1000)
+                    before = fa.kernel_launches()
+                    name = "flash d=%d %s%s tq=%d tk=%d" % (d, str(dtype)[6:], form, tq, tk)
+                    err = _flash_compare(torch, fa, name, q, k, v, g, causal, d ** -0.5, dtype)
+                    _tier_moved(fa, before, "pair", form, 2)
+                    key = str(dtype)[6:]
+                    errs[key] = max(errs.get(key, 0.0), err[0], err[1])
+        log("kernel flash at head width d=%d (128-wide column blocks; (b, h, tq, tk) %s, causal "
+            "and not, backward: the pair): max_abs_err f32 %.3g (out, lse atol=rtol=%g; grads "
+            "rtol %g, atol %g of the largest magnitude), bf16 %.3g (against the f32 plain "
+            "version, %g); forward and backward repeat bit for bit" % (
+                d, FLASH_WIDE_SHAPES, errs["float32"], ATOL, FLASH_GRAD_TOL, FLASH_GRAD_TOL,
+                errs["bfloat16"], FLASH_BF16_TOL))
+    b, h, t, d = FLASH_WIDE_TIMED
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, g = _flash_inputs(torch, device, FLASH_WIDE_TIMED, SEED + 90)
+    before = fa.kernel_launches()
+    err_f, err_b, out, lse = _flash_compare(torch, fa, "flash_wide", q, k, v, g, False, scale,
+                                            torch.float32)
+    ms_f = time_ms(torch, lambda: fa.flash_forward(q, k, v, False, scale), 10, flush, gated=True)
+    ms_b = time_ms(torch, lambda: fa.flash_backward(q, k, v, out, lse, g, False, scale), 5,
+                   flush, gated=True)
+    plain_f = time_ms(torch, lambda: fa.flash_forward_plain(q, k, v, False, scale), 5, flush,
+                      gated=True)
+    plain_b = time_ms(torch, lambda: fa.flash_backward_plain(q, k, v, out, lse, g, False, scale),
+                      5, flush, gated=True)
+    lib_f = time_ms(torch, lambda: sdpa(q, k, v, scale=scale), 10, flush, gated=True)
+    lib_b = _sdpa_bwd_ms(torch, q, k, v, g, False, scale, 5, flush)
+    moved = {k_: n - before[k_] for k_, n in fa.kernel_launches().items() if n != before[k_]}
+    bound_f, cc_f = _flash_fwd_bounds(b, h, t, d, False)
+    bound_b, cc_b = _flash_bwd_bounds(b, h, t, d, False)
+    log("kernel flash_wide at (b, h, t, d) %s f32 strided views: forward max_abs_err %.3g, "
+        "kernel %.4f ms (device); plain %.4f ms; SDPA %.4f ms, kernel / SDPA %.3f; bound %.4f "
+        "ms (%s, 3xTF32), f32 on the CUDA cores %.4f ms (%s) | backward (the pair) max_abs_err "
+        "%.3g, kernel %.4f ms; plain %.4f ms; SDPA backward %.4f ms, kernel / SDPA %.3f; bound "
+        "%.4f ms (%s, 3xTF32), f32 on the CUDA cores %.4f ms (%s)" % (
+            FLASH_WIDE_TIMED, err_f, ms_f, plain_f, lib_f, ms_f / lib_f, bound_f[0], bound_f[1],
+            cc_f[0], cc_f[1], err_b, ms_b, plain_b, lib_b, ms_b / lib_b, bound_b[0], bound_b[1],
+            cc_b[0], cc_b[1]))
+    entries = {}
+    for name, replaces, err, ms, plain, bnd, lib, n in (
+            ("flash_fwd_wide", ":129", err_f, ms_f, plain_f, bound_f, lib_f,
+             moved["flash_fwd"]),
+            ("flash_bwd_wide", ":679", err_b, ms_b, plain_b, bound_b, lib_b,
+             moved["flash_bwd_dkv"])):
+        entry = _entry(name, FLASH_SOURCE, "paddle_tpu/ops/pallas_kernels.py" + replaces, err,
+                       ms, plain, bnd[0], bnd[1], lib)
+        entry["launches"] = n
+        entry["path"] = None
+        entries[name] = entry
+    del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+    return entries
 
 
 def int8_paged_case(torch, device, shared, seed):
@@ -950,6 +1077,73 @@ def check_paged_chunks(torch, pf, device):
         log("kernel %s at prefill chunks (rows: positions) %s: max_abs_err %s (atol=rtol=%g); "
             "pos < 0 rows exact zeros; each repeats bit for bit" % (
                 key, chunks, json.dumps({n: float("%.3g" % e) for n, e in errs.items()}), ATOL))
+
+
+# the per-slot (decode) form beyond the main path's shape: slots x page
+# sizes x head widths (160 takes the per-page kernel past the decode
+# kernel's 128) over tables of 1024 positions
+DECODE_SLOTS = (1, 8, 16, 64)
+DECODE_PAGE_SIZES = (8, 16, 32)
+DECODE_WIDTHS = (6, 64, 80, 128, 160)
+
+
+def check_paged_decode(torch, pf, device):
+    """The decode form against the plain version at every DECODE_SLOTS x
+    DECODE_PAGE_SIZES x DECODE_WIDTHS, over f32 pools and int8 pools with
+    per-row scales: positions -1, 0, a page's last and the next page's
+    first, a split boundary (127, 128), the table's last position and past
+    the table, then seeded; one corrupt table entry (clamped into the pool
+    by the kernel, as the JAX gather clamps: the plain version gets the
+    clamped table); atol = rtol = 1e-5, pos < 0 rows exact zeros, each
+    output repeated bit for bit."""
+    for quant in (False, True):
+        key = "paged_flash" + ("_int8" if quant else "")
+        worst, n = {}, 0
+        for slots in DECODE_SLOTS:
+            for ps in DECODE_PAGE_SIZES:
+                for d in DECODE_WIDTHS:
+                    rng = np.random.RandomState(SEED + 100 + slots + ps + d + quant)
+                    n_head = 2 if d > 64 else 4
+                    feat, n_pages = n_head * d, 1024 // ps
+                    pool_pages = n_pages + 2
+                    pools = [rng.randn(pool_pages * ps, feat).astype("float32") for _ in range(2)]
+                    kw = dict(n_head=n_head, page_size=ps)
+                    if quant:
+                        scales = [(np.abs(x).max(axis=1) / 127.0).astype("float32") for x in pools]
+                        pools = [np.clip(np.round(x / sc[:, None]), -127, 127).astype(np.int8)
+                                 for x, sc in zip(pools, scales)]
+                        kw.update(k_scales=torch.from_numpy(scales[0]).to(device),
+                                  v_scales=torch.from_numpy(scales[1]).to(device))
+                    edges = [-1, 0, ps - 1, ps, 127, 128, n_pages * ps - 1, n_pages * ps + 40]
+                    pos = np.array([edges[r] if r < len(edges) else rng.randint(-1, n_pages * ps)
+                                    for r in range(slots)], np.int32)
+                    bt = rng.randint(1, pool_pages, size=(slots, n_pages)).astype(np.int32)
+                    bt[0, 0] = 10 ** 6  # corrupt
+                    q = rng.randn(slots, feat).astype("float32")
+                    args = [torch.from_numpy(a).to(device) for a in (q, pools[0], pools[1], bt, pos)]
+                    clamped = args[:3] + [args[3].clamp(0, pool_pages - 1), args[4]]
+                    name = "%s slots=%d page_size=%d d=%d" % (key, slots, ps, d)
+                    before = pf.kernel_launches()[key]
+                    got = pf.paged_flash_attention(*args, **kw)
+                    torch.cuda.synchronize()
+                    if pf.kernel_launches()[key] != before + 1:
+                        raise AssertionError("%s: the kernel did not launch" % name)
+                    err = _close(torch, name, got, pf.paged_attention_plain(*clamped, **kw),
+                                 ATOL, RTOL)
+                    wkey = "d=%d" % d
+                    worst[wkey] = max(worst.get(wkey, 0.0), err)
+                    dead = args[4] < 0
+                    if dead.any() and float(got[dead].abs().max()) != 0.0:
+                        raise AssertionError("%s: pos < 0 rows are not exact zeros" % name)
+                    if not torch.equal(got, pf.paged_flash_attention(*args, **kw)):
+                        raise AssertionError("%s: the output differs from run to run" % name)
+                    n += 1
+        log("kernel %s at decode steps of %s slots, page sizes %s, head widths %s (%d cases; "
+            "positions -1, 0, page and split boundaries, the table's last and past it; a "
+            "corrupt table entry): max_abs_err by width %s (atol=rtol=%g); pos < 0 rows exact "
+            "zeros; each repeats bit for bit" % (
+                key, DECODE_SLOTS, DECODE_PAGE_SIZES, DECODE_WIDTHS, n,
+                json.dumps({k: float("%.3g" % e) for k, e in worst.items()}), ATOL))
 
 
 QGEMM_SHAPE = (1024, 2048, 2048)  # (m, k, n): path B's single shot through a hidden layer
@@ -1539,6 +1733,12 @@ def _train_fused(torch, cfg, card, label):
     del scope, step
     torch.cuda.empty_cache()
     fused_want, flash_want = _per_step(cfg)
+    adam = [v for k, v in breakdown["device_ms_per_step_by_kernel"].items()
+            if "multi_adam_kernel" in k]
+    log("%s: in the profiled steps multi_adam_kernel takes %.4f ms of device time a step (%s "
+        "launches), and the fused Adam lowering %.3f ms of host time a step (op timer); card %s"
+        % (label, sum(v["ms"] for v in adam), sum(v["launches"] for v in adam),
+           breakdown["op_host_ms_per_step"].get("fused:multi_adam", 0.0), card))
     log("%s: %d fused steps, losses %s; step wall p50 %.3f ms over steps 2-%d (step 1 %.1f ms, "
         "with the pass pipeline); %.1f target tokens/s (their target tokens over their summed "
         "wall); device busy %s ms a step = %s of the wall p50 of the profiled window (%.3f ms), "
@@ -1656,6 +1856,7 @@ def main():
         kernels.update(check_flash(torch, device, flush))
         kernels.update(check_int8_paged(torch, pf, device, flush))
         check_paged_chunks(torch, pf, device)
+        check_paged_decode(torch, pf, device)
         kernels.update(check_quant_gemm(torch, device, flush))
         del flush
     with Phase("serve"):

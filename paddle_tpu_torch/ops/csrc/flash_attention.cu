@@ -1,6 +1,6 @@
 // Flash attention, forward and backward, over (b, h, t, d) operands, for
-// Hopper (sm_90a). f32 or bf16 operands, f32 accumulation, any head width d
-// from 1 to 128 and any number of (b, h) pairs.
+// Hopper (sm_90a). f32 or bf16 operands, f32 accumulation, any head width
+// d >= 1 and any number of (b, h) pairs.
 //
 // Replaces the Pallas kernels of paddle_tpu/ops/pallas_kernels.py:
 //   _flash_forward            -> _flash_kernel             (resident forward)
@@ -21,7 +21,15 @@
 // (cp.async with source size 0, or element by element where rows are not
 // aligned for 4-element loads): zero columns change no q k^T, give zero
 // dQ / dK / dV columns, and are never stored. Outputs are (b, h, t, d)
-// with row stride d. The (b, h) pair rides grid x (the forward: x = tile *
+// with row stride d. Heads wider than 128 take column blocks
+// (flash_fwd_wide_kernel, flash_bwd_dkv_wide_kernel + flash_bwd_dq_wide_kernel):
+// grid y (the forward) or z (the pair) is the output's 128-wide column
+// block; each CTA forms the scores over all of d in 128-wide chunks, in
+// chunk order, so every block sees the same p, and keeps its own 128
+// columns of p v (or of dK / dV / dQ); block 0 writes lse. A CTA's shared
+// memory stays that of a 128 build, whatever d is; the scores are formed
+// once per column block, a cost that only heads past 128 pay. The fused
+// backward tier stays at d <= 64. The (b, h) pair rides grid x (the forward: x = tile *
 // b * h + bh, so the longest causal tiles of every (b, h) start first; the
 // pair and the fused backward: x = bh, y = the tile, read from special
 // registers, not kept live), so b * h is bounded only by grid x's 2^31 - 1
@@ -145,6 +153,7 @@ constexpr int kBN = 64;  // keys a tile
 constexpr int kThreads = 256;   // the pair
 constexpr int kFwdThreads = 128;  // the forward: 4 warps of 16 query rows
 constexpr int kPLD = kBN + 4;  // row stride of the f32 p / ds tiles
+constexpr int kWide = 128;  // a wide head's column block (heads past 128)
 constexpr float kNegInf = -__builtin_huge_valf();
 
 using tf32::from_f32;
@@ -313,13 +322,13 @@ __device__ __forceinline__ void tile_ptx(const float* p, const T* x, int tx, int
   }
 }
 
-// rows [row0, row0 + 64) of a contiguous (t, d) output from a thread's
-// [4][D / 64][4] accumulator, rows at or past t and columns at or past d
-// dropped
+// rows [row0, row0 + 64) of an output with row stride ld from a thread's
+// [4][D / 64][4] accumulator, rows at or past t and columns at or past cols
+// dropped (FULL: ld == cols == D)
 template <typename T, int D, bool FULL>
-__device__ __forceinline__ void store_rows(T* dst, int row0, int t, int d, int tx, int ty,
-                                           const float (&acc)[4][D / 64][4]) {
-  if constexpr (FULL) d = D;
+__device__ __forceinline__ void store_rows(T* dst, int row0, int t, int ld, int cols, int tx,
+                                           int ty, const float (&acc)[4][D / 64][4]) {
+  if constexpr (FULL) ld = D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
@@ -329,7 +338,7 @@ __device__ __forceinline__ void store_rows(T* dst, int row0, int t, int d, int t
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 64 + tx * 4 + e;
-        if (FULL || c < d) dst[(int64_t)row * d + c] = from_f32<T>(acc[i][n][e]);
+        if (FULL || c < cols) dst[(int64_t)row * ld + c] = from_f32<T>(acc[i][n][e]);
       }
   }
 }
@@ -368,12 +377,186 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st, int 
   }
 }
 
+// s = q k^T of a warp's 16 rows (from w0 of the swizzled [*][DP] tile Qs)
+// and the 64 keys of the swizzled [64][DP] tile Kb, over DP columns, summed
+// in the tensor core from 0
 template <typename T, int DP>
-__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParams p) {
+__device__ __forceinline__ void qk_scores(float (&s)[1][kBN / 8][4], const T* Qs, const T* Kb,
+                                          int w0) {
+  constexpr bool kSplit = tf32::needs_split<T>();
+  constexpr int KN = kBN / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // ldmatrix: lane l names row (l & 7) + 8 ((l >> 3) & 1), column 4 (l >> 4)
+  // of the A fragment's four 8 x 4 matrices; for the B fragments of k, row
+  // (l & 7) + 8 (l >> 4), column 4 ((l >> 3) & 1): b0, b1 of two 8-key tiles
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 4 * (lane >> 4);
+  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 4 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < DP; kk += 8) {
+    uint32_t ah[1][4], al[1][4], bh[KN][2], bl[KN][2];
+    if constexpr (sizeof(T) == 4) {
+      uint32_t r[4];
+      tf32::ldmatrix_x4(r, Qs + sw(w0 + arow, kk + acol, DP));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32::split<kSplit>(__uint_as_float(r[e]), ah[0][e], al[0][e]);
+#pragma unroll
+      for (int j = 0; j < KN; j += 2) {
+        tf32::ldmatrix_x4(r, Kb + sw(8 * j + brow, kk + bcol, DP));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tf32::split<kSplit>(__uint_as_float(r[e]), bh[j + e / 2][e & 1], bl[j + e / 2][e & 1]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tf32::split<kSplit>(to_f32(Qs[sw(w0 + g + 8 * (e & 1), kk + t + 4 * (e >> 1), DP)]),
+                            ah[0][e], al[0][e]);
+#pragma unroll
+      for (int j = 0; j < KN; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          tf32::split<kSplit>(to_f32(Kb[sw(8 * j + g, kk + t + 4 * e, DP)]), bh[j][e], bl[j][e]);
+    }
+    if (kk == 0) tf32::mma_tiles<kSplit, 1, KN, true>(s, ah, al, bh, bl);
+    else tf32::mma_tiles<kSplit, 1, KN>(s, ah, al, bh, bl);
+  }
+}
+
+// One key tile of the forward for a warp's 16 rows: the online softmax on
+// the scores s of keys k0.. (C fragments: s[0][j][2h + e] is row row[h], key
+// k0 + 8j + 2t + e; masked here), then o += p v over the swizzled [64][DP]
+// tile Vb (DP / 8 output tiles of 8 columns), the tile's part summed from 0
+template <typename T, int DP>
+__device__ __forceinline__ void softmax_pv(const FlashParams& p, float (&s)[1][kBN / 8][4],
+                                           float (&o)[DP / 8][4], float (&m)[2], float (&l)[2],
+                                           const T* Vb, int k0, int q0, int w0,
+                                           const int (&row)[2], float scale2) {
   constexpr bool kSplit = tf32::needs_split<T>();
   constexpr int NO = DP / 8;           // 8-column tiles of a warp's output
   constexpr int NB = NO < 8 ? NO : 8;  // of them in one pass of p v
   constexpr int KN = kBN / 8;          // 8-key tiles of a key tile
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool edge = k0 + kBN > p.tk || q0 + w0 + 16 > p.tq ||
+                    (p.causal && k0 + kBN - 1 > q0 + w0 + (p.tk - p.tq));
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[0][j][2 * h + e];
+        x = !edge || visible(p, row[h], k0 + 8 * j + 2 * t + e) ? x * scale2 : kNegInf;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx);
+    // a row masked so far must not poison the rescale
+    alpha[h] = m[h] == kNegInf ? 0.0f : ex2(m[h] - m_new);
+    m[h] = m_new;
+  }
+  // p (kept in s), its sum unrounded, then rounded to T for p v
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < KN; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[0][j][2 * h + e];
+        const float pf = x == kNegInf ? 0.0f : ex2(x - m[h]);
+        sum[h] += pf;
+        x = round_t<T>(pf);
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+
+  // o += p v, NB output tiles a pass, the tile's part summed from 0. p is
+  // the A fragment as it stands: k slots (t, t + 4) of 8-key step j are
+  // keys 8j + 2t and 8j + 2t + 1, split as they are used
+#pragma unroll
+  for (int n0 = 0; n0 < NO; n0 += NB) {
+    float part[1][NB][4];
+#pragma unroll
+    for (int j = 0; j < KN; ++j) {
+      uint32_t ah[1][4], al[1][4], bh[NB][2], bl[NB][2];
+      tf32::split<kSplit>(s[0][j][0], ah[0][0], al[0][0]);  // (g, key 2t)
+      tf32::split<kSplit>(s[0][j][2], ah[0][1], al[0][1]);  // (g + 8, key 2t)
+      tf32::split<kSplit>(s[0][j][1], ah[0][2], al[0][2]);  // (g, key 2t + 1)
+      tf32::split<kSplit>(s[0][j][3], ah[0][3], al[0][3]);  // (g + 8, key 2t + 1)
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          tf32::split<kSplit>(to_f32(Vb[sw(8 * j + 2 * t + e, 8 * (n0 + c) + g, DP)]), bh[c][e],
+                              bl[c][e]);
+      if (j == 0) tf32::mma_tiles<kSplit, 1, NB, true>(part, ah, al, bh, bl);
+      else tf32::mma_tiles<kSplit, 1, NB>(part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n0 + c][e] += part[0][c][e];
+  }
+}
+
+// The forward's rows row[h] of columns [c0, c0 + cols) from a warp's
+// accumulator (row stride d), and (write_lse) their lse; l is summed over
+// the quad first
+template <typename T, int NO>
+__device__ __forceinline__ void store_fwd(const FlashParams& p, T* out, float* lse,
+                                          const float (&o)[NO][4], const float (&m)[2],
+                                          float (&l)[2], const int (&row)[2], int c0, int cols,
+                                          bool write_lse) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= p.tq) continue;
+    const float denom = fmaxf(l[h], 1e-20f);
+    T* orow = out + (int64_t)row[h] * p.d + c0;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c < cols) orow[c] = from_f32<T>(o[n][2 * h + e] / denom);
+      }
+    if (write_lse && t == 0)
+      lse[row[h]] = m[h] == kNegInf ? 0.0f : m[h] * 0.6931471805599453f + logf(denom);
+  }
+}
+
+// columns [c0, c0 + cols) of a query tile whose every row is fully masked:
+// out 0, and (write_lse) lse 0
+template <typename T>
+__device__ __forceinline__ void store_masked_tile(const FlashParams& p, T* out, float* lse,
+                                                  int q0, int c0, int cols, bool write_lse) {
+  for (int i = threadIdx.x; i < kBM * cols; i += kFwdThreads) {
+    const int r = i / cols;
+    if (q0 + r < p.tq) out[(int64_t)(q0 + r) * p.d + c0 + i % cols] = from_f32<T>(0.0f);
+  }
+  if (write_lse)
+    for (int r = threadIdx.x; r < kBM; r += kFwdThreads)
+      if (q0 + r < p.tq) lse[q0 + r] = 0.0f;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParams p) {
+  constexpr int NO = DP / 8;  // 8-column tiles of a warp's output
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + kBM * DP;      // two stages
@@ -394,10 +577,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParam
 
   const int n_kt = key_tiles(p, q0);
   if (n_kt == 0) {  // every row of the tile fully masked: out 0, lse 0
-    for (int i = threadIdx.x; i < kBM * p.d; i += kFwdThreads)
-      if (q0 + i / p.d < p.tq) out[(int64_t)q0 * p.d + i] = from_f32<T>(0.0f);
-    for (int r = threadIdx.x; r < kBM; r += kFwdThreads)
-      if (q0 + r < p.tq) lse[q0 + r] = 0.0f;
+    store_masked_tile(p, out, lse, q0, 0, p.d, true);
     return;
   }
   load_rows<T, DP, kBM, kFwdThreads>(Qs, q, p.sq[2], q0, p.tq, p.d, vec);
@@ -405,14 +585,9 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParam
   load_rows<T, DP, kBN, kFwdThreads>(Vs, v, p.sv[2], 0, p.tk, p.d, vec);
   cp_async_commit();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
   const int w0 = warp * 16;                   // the warp's first row in the tile
   const int row[2] = {q0 + w0 + g, q0 + w0 + g + 8};  // the thread's two rows
-  // ldmatrix: lane l names row (l & 7) + 8 ((l >> 3) & 1), column 4 (l >> 4)
-  // of the A fragment's four 8 x 4 matrices; for the B fragments of k, row
-  // (l & 7) + 8 (l >> 4), column 4 ((l >> 3) & 1): b0, b1 of two 8-key tiles
-  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 4 * (lane >> 4);
-  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 4 * ((lane >> 3) & 1);
 
   float o[NO][4];
 #pragma unroll
@@ -435,137 +610,95 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParam
                                          p.d, vec);
     }
     cp_async_commit();
-    const T* Kb = Ks + (kt & 1) * kBN * DP;
-    const T* Vb = Vs + (kt & 1) * kBN * DP;
-
     // s = q k^T: the warp's 16 rows x 64 keys, summed over DP from 0
-    float s[1][KN][4];
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 8) {
-      uint32_t ah[1][4], al[1][4], bh[KN][2], bl[KN][2];
-      if constexpr (sizeof(T) == 4) {
-        uint32_t r[4];
-        tf32::ldmatrix_x4(r, Qs + sw(w0 + arow, kk + acol, DP));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tf32::split<kSplit>(__uint_as_float(r[e]), ah[0][e], al[0][e]);
-#pragma unroll
-        for (int j = 0; j < KN; j += 2) {
-          tf32::ldmatrix_x4(r, Kb + sw(8 * j + brow, kk + bcol, DP));
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            tf32::split<kSplit>(__uint_as_float(r[e]), bh[j + e / 2][e & 1], bl[j + e / 2][e & 1]);
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          tf32::split<kSplit>(to_f32(Qs[sw(w0 + g + 8 * (e & 1), kk + t + 4 * (e >> 1), DP)]),
-                              ah[0][e], al[0][e]);
-#pragma unroll
-        for (int j = 0; j < KN; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            tf32::split<kSplit>(to_f32(Kb[sw(8 * j + g, kk + t + 4 * e, DP)]), bh[j][e], bl[j][e]);
-      }
-      if (kk == 0) tf32::mma_tiles<kSplit, 1, KN, true>(s, ah, al, bh, bl);
-      else tf32::mma_tiles<kSplit, 1, KN>(s, ah, al, bh, bl);
-    }
+    float s[1][kBN / 8][4];
+    qk_scores<T, DP>(s, Qs, Ks + (kt & 1) * kBN * DP, w0);
+    softmax_pv<T, DP>(p, s, o, m, l, Vs + (kt & 1) * kBN * DP, kt * kBN, q0, w0, row, scale2);
+  }
+  cp_async_wait<0>();
+  store_fwd<T, NO>(p, out, lse, o, m, l, row, 0, p.d, true);
+}
 
-    // the online softmax on the C fragments: s[0][j][2h + e] is row row[h],
-    // key k0 + 8j + 2t + e
-    const int k0 = kt * kBN;
-    const bool edge = k0 + kBN > p.tk || q0 + w0 + 16 > p.tq ||
-                      (p.causal && k0 + kBN - 1 > q0 + w0 + (p.tk - p.tq));
-    float alpha[2];
+// Heads wider than kWide: column blocks. The grid gains a y axis of
+// ceil(d / kWide) output column blocks; each CTA computes s = q k^T over
+// all of d, in kWide-wide chunks summed from 0 and added in f32 in chunk
+// order (every block sees the same s, so the same p, m and l), and keeps
+// its own kWide columns of p v. A two-stage ring carries steps of two
+// swizzled [64][kWide] tiles: for each key tile, (q chunk c, k chunk c)
+// for every c, then (v's block). Block 0 writes lse.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_wide_kernel(const FlashParams p) {
+  constexpr int DP = kWide, NO = DP / 8, KN = kBN / 8;
+  static_assert(kBM == kBN, "a ring stage holds a query chunk or a key tile");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem);  // two stages: the q chunk, or v's block
+  T* Bs = As + 2 * kBM * DP;           // two stages: the k chunk
+
+  const int n_bh = p.b * p.h;
+  const int bh = blockIdx.x % n_bh, tile = blockIdx.x / n_bh;
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int n_qt = (p.tq + kBM - 1) / kBM;
+  const int q0 = (p.causal ? n_qt - 1 - tile : tile) * kBM;
+  const int nc = (p.d + DP - 1) / DP, c0 = blockIdx.y * DP, cols = min(DP, p.d - c0);
+  const bool vec = p.vec != 0;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  T* out = static_cast<T*>(p.out) + (int64_t)bh * p.tq * p.d;
+  float* lse = p.lse_out + (int64_t)bh * p.tq;
+
+  const int n_kt = key_tiles(p, q0);
+  if (n_kt == 0) {
+    store_masked_tile(p, out, lse, q0, c0, cols, blockIdx.y == 0);
+    return;
+  }
+  const int n_steps = n_kt * (nc + 1);
+  auto issue = [&](int step) {
+    const int kt = step / (nc + 1), c = step % (nc + 1);
+    T* a = As + (step & 1) * kBM * DP;
+    if (c < nc) {
+      const int w = min(DP, p.d - c * DP);
+      load_rows<T, DP, kBM, kFwdThreads>(a, q + c * DP, p.sq[2], q0, p.tq, w, vec);
+      load_rows<T, DP, kBN, kFwdThreads>(Bs + (step & 1) * kBN * DP, k + c * DP, p.sk[2],
+                                         kt * kBN, p.tk, w, vec);
+    } else {
+      load_rows<T, DP, kBN, kFwdThreads>(a, v + c0, p.sv[2], kt * kBN, p.tk, cols, vec);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int w0 = warp * 16;
+  const int row[2] = {q0 + w0 + g, q0 + w0 + g + 8};
+  float o[NO][4], s[1][KN][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = kNegInf;
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  const float scale2 = p.scale * 1.4426950408889634f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's tiles are here; every warp is done with the last
+    if (step + 1 < n_steps) issue(step + 1);
+    cp_async_commit();
+    const int kt = step / (nc + 1), c = step % (nc + 1);
+    const T* a = As + (step & 1) * kBM * DP;
+    if (c < nc) {
+      float part[1][KN][4];
+      qk_scores<T, DP>(part, a, Bs + (step & 1) * kBN * DP, w0);
 #pragma unroll
       for (int j = 0; j < KN; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[0][j][2 * h + e];
-          x = !edge || visible(p, row[h], k0 + 8 * j + 2 * t + e) ? x * scale2 : kNegInf;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);
-      // a row masked so far must not poison the rescale
-      alpha[h] = m[h] == kNegInf ? 0.0f : ex2(m[h] - m_new);
-      m[h] = m_new;
-    }
-    // p (kept in s), its sum unrounded, then rounded to T for p v
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < KN; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[0][j][2 * h + e];
-          const float pf = x == kNegInf ? 0.0f : ex2(x - m[h]);
-          sum[h] += pf;
-          x = round_t<T>(pf);
-        }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // o += p v, NB output tiles a pass, the tile's part summed from 0. p is
-    // the A fragment as it stands: k slots (t, t + 4) of 8-key step j are
-    // keys 8j + 2t and 8j + 2t + 1, split as they are used
-#pragma unroll
-    for (int n0 = 0; n0 < NO; n0 += NB) {
-      float part[1][NB][4];
-#pragma unroll
-      for (int j = 0; j < KN; ++j) {
-        uint32_t ah[1][4], al[1][4], bh[NB][2], bl[NB][2];
-        tf32::split<kSplit>(s[0][j][0], ah[0][0], al[0][0]);  // (g, key 2t)
-        tf32::split<kSplit>(s[0][j][2], ah[0][1], al[0][1]);  // (g + 8, key 2t)
-        tf32::split<kSplit>(s[0][j][1], ah[0][2], al[0][2]);  // (g, key 2t + 1)
-        tf32::split<kSplit>(s[0][j][3], ah[0][3], al[0][3]);  // (g + 8, key 2t + 1)
-#pragma unroll
-        for (int c = 0; c < NB; ++c)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            tf32::split<kSplit>(to_f32(Vb[sw(8 * j + 2 * t + e, 8 * (n0 + c) + g, DP)]), bh[c][e],
-                                bl[c][e]);
-        if (j == 0) tf32::mma_tiles<kSplit, 1, NB, true>(part, ah, al, bh, bl);
-        else tf32::mma_tiles<kSplit, 1, NB>(part, ah, al, bh, bl);
-      }
-#pragma unroll
-      for (int c = 0; c < NB; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n0 + c][e] += part[0][c][e];
+        for (int e = 0; e < 4; ++e) s[0][j][e] = c == 0 ? part[0][j][e] : s[0][j][e] + part[0][j][e];
+    } else {
+      softmax_pv<T, DP>(p, s, o, m, l, a, kt * kBN, q0, w0, row, scale2);
     }
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= p.tq) continue;
-    const float denom = fmaxf(l[h], 1e-20f);
-    T* orow = out + (int64_t)row[h] * p.d;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * n + 2 * t + e;
-        if (c < p.d) orow[c] = from_f32<T>(o[n][2 * h + e] / denom);
-      }
-    if (t == 0) lse[row[h]] = m[h] == kNegInf ? 0.0f : m[h] * 0.6931471805599453f + logf(denom);
-  }
+  store_fwd<T, NO>(p, out, lse, o, m, l, row, c0, cols, blockIdx.y == 0);
 }
 
 // lse and delta = rowsum(dO * O) of the query tile's rows into shared
@@ -595,18 +728,15 @@ __device__ __forceinline__ void tile_lse_delta(const FlashParams& p, const T* o,
   }
 }
 
-// s = q k^T and dp = dO v^T of a (query tile, key tile) pair; writes
-// ds = p * (dp - delta) * scale (rounded to T) into dSs and, when Ps is not
-// null, p (rounded to T) into Ps
-template <typename T, int D>
-__device__ __forceinline__ void tile_p_ds(const FlashParams& p, const T* Qs, const T* dOs,
-                                          const T* Ks, const T* Vs, const float* lse_s,
+// from s = q k^T and dp = dO v^T of a (query tile, key tile) pair (a
+// thread's 4 x 4 of each), writes ds = p * (dp - delta) * scale (rounded to
+// T) into dSs and, when Ps is not null, p (rounded to T) into Ps
+template <typename T>
+__device__ __forceinline__ void p_ds_tile(const FlashParams& p, const float (&s)[4][4],
+                                          const float (&dp)[4][4], const float* lse_s,
                                           const float* delta_s, int q0, int k0, float* Ps,
                                           float* dSs) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4] = {}, dp[4][4] = {};
-  tile_dot<T, D>(Qs, Ks, tx, ty, s);
-  tile_dot<T, D>(dOs, Vs, tx, ty, dp);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -619,6 +749,20 @@ __device__ __forceinline__ void tile_p_ds(const FlashParams& p, const T* Qs, con
       dSs[r * kPLD + kc] = round_t<T>(pf * (dp[i][j] - dl) * p.scale);
     }
   }
+}
+
+// s and dp of a (query tile, key tile) pair from the four operand tiles,
+// then p_ds_tile
+template <typename T, int D>
+__device__ __forceinline__ void tile_p_ds(const FlashParams& p, const T* Qs, const T* dOs,
+                                          const T* Ks, const T* Vs, const float* lse_s,
+                                          const float* delta_s, int q0, int k0, float* Ps,
+                                          float* dSs) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[4][4] = {}, dp[4][4] = {};
+  tile_dot<T, D>(Qs, Ks, tx, ty, s);
+  tile_dot<T, D>(dOs, Vs, tx, ty, dp);
+  p_ds_tile<T>(p, s, dp, lse_s, delta_s, q0, k0, Ps, dSs);
 }
 
 // FULL: d == D and every operand row aligned (FlashParams.vec)
@@ -674,8 +818,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
   cp_async_wait<0>();  // no query tile at all: the K/V loads still land first
   T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * p.d;
   T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * p.d;
-  store_rows<T, D, FULL>(dkp, k0, p.tk, p.d, tx, ty, dk);
-  store_rows<T, D, FULL>(dvp, k0, p.tk, p.d, tx, ty, dv);
+  store_rows<T, D, FULL>(dkp, k0, p.tk, p.d, p.d, tx, ty, dk);
+  store_rows<T, D, FULL>(dvp, k0, p.tk, p.d, p.d, tx, ty, dv);
 }
 
 template <typename T, int D, bool FULL>
@@ -725,7 +869,165 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
     __syncthreads();  // the next key tile overwrites Ks, Vs, dSs
   }
   T* dqp = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * p.d;
-  store_rows<T, D, FULL>(dqp, q0, p.tq, p.d, tx, ty, dq);
+  store_rows<T, D, FULL>(dqp, q0, p.tq, p.d, p.d, tx, ty, dq);
+}
+
+// ---------------------------------------------------------------------------
+// The pair at heads wider than kWide: column blocks, as the wide forward.
+// Grid z is the output column block; s and dp walk all of d in kWide-wide
+// chunks, in chunk order (every block forms the same p and ds), and each CTA
+// stores its own kWide columns of dK and dV, or of dQ. delta = rowsum(dO * O)
+// reads both rows from device memory over all of d.
+// ---------------------------------------------------------------------------
+
+// lse and delta of the query tile's rows, both rows read from device memory
+// (four threads a row); rows at or past tq get 0
+template <typename T>
+__device__ __forceinline__ void tile_lse_delta_wide(const FlashParams& p, const T* o,
+                                                    const T* dout, const float* lse, int q0,
+                                                    float* lse_s, float* delta_s) {
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
+  const bool vec = p.vec != 0;
+  float acc = 0.0f;
+  if (row < p.tq) {
+    const T* orow = o + (int64_t)row * p.so[2];
+    const T* drow = dout + (int64_t)row * p.sdo[2];
+    for (int c = part * 4; c < p.d; c += 16) {
+      float a[4], b[4];
+      load4_row(orow, c, p.d, vec, a);
+      load4_row(drow, c, p.d, vec, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc = fmaf(a[e], b[e], acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  if (part == 0) {
+    delta_s[r] = acc;
+    lse_s[r] = row < p.tq ? lse[row] : 0.0f;
+  }
+}
+
+// s and dp of rows q0.. and keys k0.. over all of d: each kWide chunk of q,
+// dO, k and v staged in turn (Qs, dOs, Ks, Vs hold the last chunk after)
+template <typename T>
+__device__ __forceinline__ void wide_s_dp(const FlashParams& p, const T* q, const T* dout,
+                                          const T* k, const T* v, T* Qs, T* dOs, T* Ks, T* Vs,
+                                          int q0, int k0, float (&s)[4][4], float (&dp)[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const bool vec = p.vec != 0;
+  for (int c = 0; c * kWide < p.d; ++c) {
+    const int w = min(kWide, p.d - c * kWide), at = c * kWide;
+    load_tile<T, kWide, kBM, false>(Qs, q + at, p.sq[2], q0, p.tq, w, vec);
+    load_tile<T, kWide, kBM, false>(dOs, dout + at, p.sdo[2], q0, p.tq, w, vec);
+    load_tile<T, kWide, kBN, false>(Ks, k + at, p.sk[2], k0, p.tk, w, vec);
+    load_tile<T, kWide, kBN, false>(Vs, v + at, p.sv[2], k0, p.tk, w, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    tile_dot<T, kWide>(Qs, Ks, tx, ty, s);
+    tile_dot<T, kWide>(dOs, Vs, tx, ty, dp);
+    __syncthreads();  // the next chunk overwrites the tiles
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_wide_kernel(const FlashParams p) {
+  constexpr int D = kWide, LD = D + 4, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kBN * LD;
+  T* Qs = Vs + kBN * LD;
+  T* dOs = Qs + kBM * LD;
+  float* Ps = reinterpret_cast<float*>(dOs + kBM * LD);
+  float* dSs = Ps + kBM * kPLD;
+  float* lse_s = dSs + kBM * kPLD;
+  float* delta_s = lse_s + kBM;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, key tiles, blocks)
+  const int k0 = blockIdx.y * kBN, c0 = blockIdx.z * D, cols = min(D, p.d - c0);
+  const bool last_chunk = c0 + D >= p.d, vec = p.vec != 0;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
+  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+  const float* lse = p.lse + (int64_t)bh * p.tq;
+
+  int qt = 0;
+  if (p.causal) {
+    const int first_row = k0 - (p.tk - p.tq);
+    qt = first_row <= 0 ? 0 : first_row / kBM;
+  }
+  float dk[4][NC][4] = {}, dv[4][NC][4] = {};
+  for (; qt * kBM < p.tq; ++qt) {
+    const int q0 = qt * kBM;
+    float s[4][4] = {}, dp[4][4] = {};
+    wide_s_dp<T>(p, q, dout, k, v, Qs, dOs, Ks, Vs, q0, k0, s, dp);
+    if (!last_chunk) {  // this block's columns of q and dO, for dK and dV
+      load_tile<T, D, kBM, false>(Qs, q + c0, p.sq[2], q0, p.tq, cols, vec);
+      load_tile<T, D, kBM, false>(dOs, dout + c0, p.sdo[2], q0, p.tq, cols, vec);
+      cp_async_commit();
+    }
+    tile_lse_delta_wide<T>(p, o, dout, lse, q0, lse_s, delta_s);
+    cp_async_wait<0>();
+    __syncthreads();
+    p_ds_tile<T>(p, s, dp, lse_s, delta_s, q0, k0, Ps, dSs);
+    __syncthreads();
+    tile_ptx<T, D>(Ps, dOs, tx, ty, dv);
+    tile_ptx<T, D>(dSs, Qs, tx, ty, dk);
+    __syncthreads();  // the next query tile overwrites every tile
+  }
+  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * p.d + c0;
+  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * p.d + c0;
+  store_rows<T, D, false>(dkp, k0, p.tk, p.d, cols, tx, ty, dk);
+  store_rows<T, D, false>(dvp, k0, p.tk, p.d, cols, tx, ty, dv);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wide_kernel(const FlashParams p) {
+  constexpr int D = kWide, LD = D + 4, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + kBM * LD;
+  T* Ks = dOs + kBM * LD;
+  T* Vs = Ks + kBN * LD;
+  float* dSs = reinterpret_cast<float*>(Vs + kBN * LD);
+  float* lse_s = dSs + kBM * kPLD;
+  float* delta_s = lse_s + kBM;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, query tiles, blocks)
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBM;
+  const int c0 = blockIdx.z * D, cols = min(D, p.d - c0);
+  const bool last_chunk = c0 + D >= p.d, vec = p.vec != 0;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
+  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+  const float* lse = p.lse + (int64_t)bh * p.tq;
+
+  float dq[4][NC][4] = {};
+  const int n_kt = key_tiles(p, q0);
+  if (n_kt > 0) tile_lse_delta_wide<T>(p, o, dout, lse, q0, lse_s, delta_s);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBN;
+    float s[4][4] = {}, dp[4][4] = {};
+    wide_s_dp<T>(p, q, dout, k, v, Qs, dOs, Ks, Vs, q0, k0, s, dp);
+    if (!last_chunk) {  // this block's columns of k, for dQ
+      load_tile<T, D, kBN, false>(Ks, k + c0, p.sk[2], k0, p.tk, cols, vec);
+      cp_async_commit();
+    }
+    p_ds_tile<T>(p, s, dp, lse_s, delta_s, q0, k0, nullptr, dSs);
+    cp_async_wait<0>();
+    __syncthreads();
+    tile_pv<T, D>(dSs, Ks, tx, ty, dq);
+    __syncthreads();  // the next key tile overwrites Ks and dSs
+  }
+  T* dqp = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * p.d + c0;
+  store_rows<T, D, false>(dqp, q0, p.tq, p.d, cols, tx, ty, dq);
 }
 
 // ---------------------------------------------------------------------------
@@ -1137,8 +1439,14 @@ template <typename T, int D> constexpr size_t dq_smem() {
          (size_t)(kBM * kPLD + 2 * kBM) * sizeof(float);
 }
 
+// the wide forward's ring: two stages of two [64][kWide] tiles
+template <typename T> constexpr size_t fwd_wide_smem() {
+  return (size_t)4 * kBM * kWide * sizeof(T);
+}
+
 // every configuration fits one CTA under the card's 227 KB
 static_assert(fwd_smem<float, 128>() <= 232448, "forward tile too large");
+static_assert(fwd_wide_smem<float>() <= 232448, "wide forward ring too large");
 static_assert(dkv_smem<float, 128>() <= 232448, "dK/dV tile too large");
 
 // Opt the kernel into more than the default 48 KB of dynamic shared memory.
@@ -1164,11 +1472,19 @@ cudaError_t fwd_typed(const FlashParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// column blocks of a wide head (grid y of the forward, z of the pair)
+inline unsigned wide_blocks(const FlashParams& p) { return (unsigned)((p.d + kWide - 1) / kWide); }
+
 template <typename T>
 cudaError_t fwd_width(const FlashParams& p, cudaStream_t st) {
   if (p.d <= 32) return fwd_typed<T, 32>(p, st);
   if (p.d <= 64) return fwd_typed<T, 64>(p, st);
-  return fwd_typed<T, 128>(p, st);
+  if (p.d <= 128) return fwd_typed<T, 128>(p, st);
+  constexpr size_t bytes = fwd_wide_smem<T>();
+  cudaError_t err = prepare(flash_fwd_wide_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wide_kernel<T><<<dim3(grid_x(p), wide_blocks(p)), kFwdThreads, bytes, st>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, bool FULL>
@@ -1194,9 +1510,28 @@ cudaError_t bwd_full(const FlashParams& p, cudaStream_t st) {
   return p.d == D && p.vec ? bwd_typed<T, D, true>(p, st) : bwd_typed<T, D, false>(p, st);
 }
 
+// heads past kWide: the wide pair, one CTA per output column block
+template <typename T>
+cudaError_t bwd_wide(const FlashParams& p, cudaStream_t st) {
+  constexpr size_t kv_bytes = dkv_smem<T, kWide>(), q_bytes = dq_smem<T, kWide>();
+  cudaError_t err = prepare(flash_bwd_dkv_wide_kernel<T>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wide_kernel<T>
+      <<<dim3(p.b * p.h, (p.tk + kBN - 1) / kBN, wide_blocks(p)), kThreads, kv_bytes, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = prepare(flash_bwd_dq_wide_kernel<T>, q_bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wide_kernel<T>
+      <<<dim3(p.b * p.h, (p.tq + kBM - 1) / kBM, wide_blocks(p)), kThreads, q_bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t bwd_width(const FlashParams& p, cudaStream_t st) {
-  return p.d <= 64 ? bwd_full<T, 64>(p, st) : bwd_full<T, 128>(p, st);
+  if (p.d <= 64) return bwd_full<T, 64>(p, st);
+  if (p.d <= 128) return bwd_full<T, 128>(p, st);
+  return bwd_wide<T>(p, st);
 }
 
 template <typename T, bool FULL>
@@ -1217,13 +1552,14 @@ cudaError_t bwd_fused_rows(const FlashParams& p, float* dq_part, int* arrivals,
                              : bwd_fused_typed<T, false>(p, dq_part, arrivals, st);
 }
 
-// any d in [1, 128]; the forward's grid x, its 64-row tiles x (b * h),
-// within 2^31 - 1, and the backward's 64-row tiles within grid y's 65535
+// any d >= 1; the forward's grid x, its 64-row tiles x (b * h), within
+// 2^31 - 1, the backward's 64-row tiles within grid y's 65535, and a wide
+// head's column blocks within 65535
 bool shape_ok(const FlashParams& p) {
-  if (p.b <= 0 || p.h <= 0 || p.tq <= 0 || p.tk <= 0 || p.d < 1 || p.d > 128) return false;
+  if (p.b <= 0 || p.h <= 0 || p.tq <= 0 || p.tk <= 0 || p.d < 1) return false;
   const int64_t q_tiles = (p.tq + kBM - 1) / kBM, k_tiles = (p.tk + kBN - 1) / kBN;
   return q_tiles * p.b * p.h <= 2147483647LL && q_tiles <= 65535 && k_tiles <= 65535 &&
-         (p.dtype == 0 || p.dtype == 1);
+         wide_blocks(p) <= 65535 && (p.dtype == 0 || p.dtype == 1);
 }
 
 }  // namespace

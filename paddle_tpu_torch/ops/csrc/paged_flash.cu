@@ -18,13 +18,31 @@
 // least time is the K/V pages read up to pos over the HBM rate. The work is
 // split across CTAs so that enough of them are in flight to keep HBM busy.
 //
-// Decode (one query row a slot): one CTA per (slot, head, split) walks
-// `pages_per_split` consecutive table entries of the slot's table, only up
-// to its pos, one page at a time. Each CTA keeps its row's online-softmax
-// state (m, l, acc[D]) in shared memory and writes it, unnormalized, to a
-// scratch buffer; a second kernel merges a row's splits (flash-decoding):
-// M = max m_s, L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / L.
-// Scores and P.V are plain f32 FMAs.
+// Decode (one query row a slot), head width up to 128: paged_decode_kernel.
+// One query row gives the tensor cores no rows to share, so both products
+// stay on the CUDA cores and the bound is the pool bytes read. One CTA of
+// 4 warps per (slot, head, split of 128 context positions): the grid is
+// sized from the table's length (the host does not know pos), and a CTA
+// past its slot's pos exits before any load. Each warp takes 32 positions,
+// one a lane, gathered through the table position by position (so any
+// page_size), and issues its K rows, then its V rows, as two cp.async
+// groups of 16-byte copies (int8: the raw levels and each row's scale), all
+// in flight at once: 64 KB a CTA of f32 at d = 64, so 3 CTAs an SM keep
+// HBM busy; the score of lane j's key (a dot against the staged query row,
+// four partial sums) and the softmax of the warp's 32 keys, (m, l) by
+// shuffles, run while V lands. p v gives each lane d / 32 columns. The
+// warps merge in shared memory in warp order (no single-thread phase); a
+// slot whose live keys fit one split writes its output, otherwise the last
+// split of each (slot, head) to finish, found by an integer arrival counter
+// that it resets, merges the splits in split order: one launch, no float
+// atomics, bit for bit on repeat, and nothing a CUDA graph could not
+// capture. One head a CTA: a head's slice of a pool row is 256 contiguous
+// bytes (two whole 128-byte lines) at GPT-2 small's widths, and the CTAs of
+// a slot's heads run side by side over the same rows.
+// Wider heads take the per-page kernel (paged_flash_tile, one CTA per
+// (slot, head, 4 table entries)) and its merge kernel (flash-decoding:
+// M = max m_s, L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / L),
+// plain f32 FMAs.
 //
 // Shared table (a prefill chunk's rows over one page list), head width up
 // to 128: one CTA per (tile of up to 32 query rows, head, split of
@@ -40,16 +58,17 @@
 // output; otherwise the last split of each (tile, head) to finish, found by
 // an integer arrival counter that it resets, merges the splits in order
 // (no second launch, no float atomics: the output repeats bit for bit).
-// Wider heads take the decode form's per-page body with a 32-row tile and
-// its merge kernel.
+// Wider heads take the per-page body (paged_flash_tile) with a 32-row tile
+// and its merge kernel.
 // wgmma/TMA pipelines are left for later work.
 //
 // int8 pools: the pools hold symmetric int8 levels, one row per token for
 // every head, and a [pool_rows] f32 scale pool per pool holds each row's
-// scale (shared by all heads). A CTA dequantizes its head's slice of each
-// page row as it stages it in shared memory, float(level) * scale[row]:
-// one rounding, the plain version's exact value, so the f32 rows never
-// reach device memory. A head's slice of a row is D contiguous bytes (64 at
+// scale (shared by all heads). The shared form and the wide-head kernels
+// dequantize a head's slice of each row as they stage it in shared memory,
+// the decode kernel stages the raw levels and dequantizes them as it reads
+// them; either way float(level) * scale[row] is one rounding, the plain
+// version's exact value, and the f32 rows never reach device memory. A head's slice of a row is D contiguous bytes (64 at
 // GPT-2 small's widths), loaded as 16-byte vectors when D, the row width
 // and the pool's address allow. Bound: bytes, 1 byte per K/V element plus
 // 4 bytes of scale per K/V row read, a quarter of the f32 pools' traffic
@@ -904,6 +923,267 @@ __global__ void __launch_bounds__(kSThreads) paged_flash_shared_tc_kernel(const 
   if (tid == 0) *counter = 0;  // ready for the next launch on this stream
 }
 
+// ---------------------------------------------------------------------------
+// The per-slot (decode) form at head widths up to kDMaxD
+// ---------------------------------------------------------------------------
+
+constexpr int kDWarps = 4;  // timed on the card: 2 and 8 were no faster
+constexpr int kDThreads = 32 * kDWarps;
+constexpr int kDSplit = 32 * kDWarps;  // context positions a CTA: one a lane
+constexpr int kDMaxD = 128;            // the widest head this form takes
+
+struct DecodeArgs {
+  const float* q;         // [S, H * D]
+  const void* k_pool;     // [pool_rows, H * D], f32 or int8 levels
+  const void* v_pool;
+  const float* k_scales;  // int8: [pool_rows]
+  const float* v_scales;
+  const int* table;       // [S, P]
+  const int* pos;         // [S]
+  float* out;             // [S, H * D]
+  float* part_acc;        // [splits][S][H][D]
+  float* part_ml;         // [splits][S][H][2]
+  int* arrivals;          // [S * H], all 0; left at 0
+  int S, H, D, P, ps, n_pool_pages, vec;
+  float scale;
+};
+
+// A CTA's shared memory: K and V rows of its 128 positions (rows padded so
+// that the lane-per-row reads of a warp hit distinct banks: 4 f32 or 16
+// int8 levels), int8 rows' scales, the query row and the warps' merge.
+template <typename T, int DP> struct DecodeSmem {
+  static constexpr int ld = sizeof(T) == 4 ? DP + 4 : DP + 16;  // elements a row
+  static constexpr size_t kv = (size_t)kDSplit * ld * sizeof(T);
+  static constexpr size_t scales = sizeof(T) == 1 ? 2 * kDSplit * sizeof(float) : 0;
+  static constexpr size_t bytes = 2 * kv + scales + (DP + kDWarps * (DP + 2)) * sizeof(float);
+};
+
+// Issue the copies of one warp's rows (one pool row a lane, row `prow` of
+// lane j, nk live rows) of one pool into dst ([32][ld]), `head`'s slice:
+// 16-byte cp.async where the wrapper found every row aligned (vec), columns
+// past D zero-filled; else element by element. int8 pools also copy each
+// row's scale.
+template <typename T, int DP>
+__device__ __forceinline__ void decode_rows(const DecodeArgs& a, const T* pool,
+                                            const float* scales, int head, int prow, int nk,
+                                            T* dst, float* sc) {
+  constexpr int LD = DecodeSmem<T, DP>::ld, E = 16 / (int)sizeof(T), U = DP / E;
+  const int lane = threadIdx.x & 31;
+  const size_t feat = (size_t)a.H * a.D;
+#pragma unroll
+  for (int n = 0; n < U; ++n) {
+    const int i = lane + 32 * n, j = i / U, c = (i % U) * E;
+    const int r = __shfl_sync(0xffffffffu, prow, j);
+    if (j >= nk) continue;
+    const T* src = pool + (size_t)r * feat + (size_t)head * a.D;
+    T* d = dst + j * LD + c;
+    if (a.vec) {
+      const bool ok = c < a.D;
+      cp_async_zfill(d, ok ? src + c : pool, ok, 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) d[e] = c + e < a.D ? src[c + e] : T(0);
+    }
+  }
+  if (scales != nullptr && lane < nk) cp_async_zfill(sc + lane, scales + prow, true, 4);
+}
+
+// lane j's dot of the query row with its key row, f32 (four sums, one per
+// element of a 4-element unit) or int8 levels dequantized as they are read
+// (float(level) * scale, one rounding: the plain version's value)
+template <int DP>
+__device__ __forceinline__ float decode_dot(const float* qs, const float* kr, float) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < DP; c += 4) {
+    const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+    const float4 qv = *reinterpret_cast<const float4*>(qs + c);
+    acc[0] = fmaf(qv.x, kv.x, acc[0]);
+    acc[1] = fmaf(qv.y, kv.y, acc[1]);
+    acc[2] = fmaf(qv.z, kv.z, acc[2]);
+    acc[3] = fmaf(qv.w, kv.w, acc[3]);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+template <int DP>
+__device__ __forceinline__ float decode_dot(const float* qs, const int8_t* kr, float ks) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < DP; c += 16) {
+    const int4 raw = *reinterpret_cast<const int4*>(kr + c);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e & 3] = fmaf(qs[c + e], __fmul_rn((float)b[e], ks), acc[e & 3]);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// the lane's DP / 32 columns of V row vr, as f32
+template <int CPL>
+__device__ __forceinline__ void decode_vrow(const float* vr, float, float (&v)[CPL]) {
+  if constexpr (CPL == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(vr);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else if constexpr (CPL == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(vr);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    v[0] = vr[0];
+  }
+}
+template <int CPL>
+__device__ __forceinline__ void decode_vrow(const int8_t* vr, float vs, float (&v)[CPL]) {
+#pragma unroll
+  for (int e = 0; e < CPL; ++e) v[e] = __fmul_rn((float)vr[e], vs);
+}
+
+// One CTA per (slot, head, split of 128 context positions), 4 warps of 32
+// positions, one a lane, gathered through the slot's table position by
+// position. Each warp issues its K rows, then its V rows, as two cp.async
+// groups: the scores (lane j's key, a dot from shared memory) and the
+// softmax run while V lands. A warp's 32 keys are one softmax step, (m, l)
+// reduced by shuffles; p v has each lane own DP / 32 columns. The warps
+// merge in shared memory in warp order; a split that is its slot's only one
+// writes the output, otherwise the last split of the (slot, head) to
+// finish (an arrival counter, reset after) merges every split in order.
+// Scores and m are in the base-2 domain (s * scale * log2(e)).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kDThreads) paged_decode_kernel(const DecodeArgs a) {
+  using Sm = DecodeSmem<T, DP>;
+  constexpr int LD = Sm::ld, CPL = DP / 32;
+  constexpr bool kInt8 = sizeof(T) == 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = reinterpret_cast<T*>(smem + Sm::kv);
+  float* ksc = reinterpret_cast<float*>(smem + 2 * Sm::kv);
+  float* vsc = ksc + kDSplit;
+  float* qs = reinterpret_cast<float*>(smem + 2 * Sm::kv + Sm::scales);
+  float* red = qs + DP;  // [kDWarps][DP + 2]: each warp's (m, l, acc)
+  __shared__ int is_last;
+
+  const int slot = blockIdx.x / a.H, head = blockIdx.x % a.H, split = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float neg_inf = -CUDART_INF_F;
+  // the warp's positions k0.., lane j's table entry read beside pos (both
+  // loads in flight at once)
+  const int k0 = split * kDSplit + warp * 32, kpos = k0 + lane, entry = kpos / a.ps;
+  const int page = kpos < a.P * a.ps ? a.table[(size_t)slot * a.P + entry] : 0;
+  const int pos = a.pos[slot];
+  const int n_keys = pos < 0 ? 0 : min(pos + 1, a.P * a.ps);
+  const int n_live = (n_keys + kDSplit - 1) / kDSplit;
+  const size_t feat = (size_t)a.H * a.D;
+  float* out = a.out + (size_t)slot * feat + (size_t)head * a.D;
+  if (split >= n_live) {  // past the slot's pos: no pool load at all
+    if (split == 0)       // pos < 0: exact zeros
+      for (int c = tid; c < a.D; c += kDThreads) out[c] = 0.0f;
+    return;
+  }
+  // the warp's live positions, a prefix of nk; lane j's pool row (a corrupt
+  // table entry is clamped into the pool, as the JAX gather clamps)
+  const int nk = max(0, min(32, n_keys - k0));
+  const int prow = lane < nk ? min(max(page, 0), a.n_pool_pages - 1) * a.ps + (kpos - entry * a.ps)
+                             : 0;
+  T* kw = Ks + warp * 32 * LD;
+  T* vw = Vs + warp * 32 * LD;
+  decode_rows<T, DP>(a, static_cast<const T*>(a.k_pool), kInt8 ? a.k_scales : nullptr, head,
+                     prow, nk, kw, ksc + warp * 32);
+  cp_async_commit();
+  decode_rows<T, DP>(a, static_cast<const T*>(a.v_pool), kInt8 ? a.v_scales : nullptr, head,
+                     prow, nk, vw, vsc + warp * 32);
+  cp_async_commit();
+  const float* qrow = a.q + (size_t)slot * feat + (size_t)head * a.D;
+  for (int c = tid; c < DP; c += kDThreads) qs[c] = c < a.D ? qrow[c] : 0.0f;
+  __syncthreads();  // the query row is staged
+
+  const float scale2 = a.scale * 1.4426950408889634f;
+  cp_async_wait<1>();
+  __syncwarp();  // the warp's K rows are here
+  float s = neg_inf;
+  if (lane < nk) s = decode_dot<DP>(qs, kw + lane * LD, kInt8 ? ksc[warp * 32 + lane] : 0.0f) *
+                     scale2;
+  float m = s;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  // dead positions are where-masked: weight exactly 0
+  const float p = lane < nk ? ex2(s - m) : 0.0f;
+  float l = p;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+
+  cp_async_wait<0>();
+  __syncwarp();  // the warp's V rows are here
+  float acc[CPL];
+#pragma unroll
+  for (int e = 0; e < CPL; ++e) acc[e] = 0.0f;
+  for (int j = 0; j < nk; ++j) {
+    const float pj = __shfl_sync(0xffffffffu, p, j);
+    float v[CPL];
+    decode_vrow<CPL>(vw + j * LD + lane * CPL, kInt8 ? vsc[warp * 32 + j] : 0.0f, v);
+#pragma unroll
+    for (int e = 0; e < CPL; ++e) acc[e] = fmaf(pj, v[e], acc[e]);
+  }
+  float* mine = red + warp * (DP + 2);
+#pragma unroll
+  for (int e = 0; e < CPL; ++e) mine[2 + lane * CPL + e] = acc[e];
+  if (lane == 0) {
+    mine[0] = nk > 0 ? m : neg_inf;
+    mine[1] = l;
+  }
+  __syncthreads();
+
+  // the warps merged in warp order; a warp with no live key adds exactly 0
+  float M = neg_inf;
+#pragma unroll
+  for (int w = 0; w < kDWarps; ++w) M = fmaxf(M, red[w * (DP + 2)]);
+  float wt[kDWarps], L = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kDWarps; ++w) {
+    const float mw = red[w * (DP + 2)];
+    wt[w] = mw == neg_inf ? 0.0f : ex2(mw - M);
+    L += red[w * (DP + 2) + 1] * wt[w];
+  }
+  const int c = tid;  // one column a thread (DP <= kDThreads)
+  float A = 0.0f;
+  if (c < a.D) {
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) A += red[w * (DP + 2) + 2 + c] * wt[w];
+  }
+  if (n_live == 1) {
+    if (c < a.D) out[c] = A / (L > 0.0f ? L : 1.0f);
+    return;
+  }
+  const size_t i = ((size_t)split * a.S + slot) * a.H + head;
+  if (c < a.D) a.part_acc[i * a.D + c] = A;
+  if (tid == 0) {
+    a.part_ml[i * 2] = M;
+    a.part_ml[i * 2 + 1] = L;
+  }
+
+  // the last split of this (slot, head) to finish merges: every partial is
+  // written and fenced before the count moves
+  __threadfence();
+  __syncthreads();
+  int* counter = a.arrivals + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(counter, 1) == n_live - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const size_t stride = (size_t)a.S * a.H;  // one split's (slot, head) entries
+  const size_t i0 = (size_t)slot * a.H + head;
+  float Mx = neg_inf;
+  for (int sp = 0; sp < n_live; ++sp) Mx = fmaxf(Mx, __ldcg(a.part_ml + (i0 + sp * stride) * 2));
+  float Ls = 0.0f, As = 0.0f;
+  for (int sp = 0; sp < n_live; ++sp) {
+    const size_t is = i0 + sp * stride;
+    const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.part_ml + is * 2));
+    const float w = ex2(ml.x - Mx);  // every split holds a live key: ml.x is finite
+    Ls += ml.y * w;
+    if (c < a.D) As += __ldcg(a.part_acc + is * a.D + c) * w;
+  }
+  if (c < a.D) out[c] = As / (Ls > 0.0f ? Ls : 1.0f);
+  if (tid == 0) *counter = 0;  // ready for the next launch on this stream
+}
+
 // Opt the kernel into more than the default 48 KB of dynamic shared memory
 // when a shape needs it; cudaErrorInvalidValue past the card's 227 KB.
 template <typename Kernel>
@@ -919,20 +1199,49 @@ __host__ inline int n_splits(int P, int pages_per_split) {
   return (P + pages_per_split - 1) / pages_per_split;
 }
 
+// splits of the decode form's walk: 128 context positions each (D <=
+// kDMaxD), or pages_per_split table entries each (the wide-head kernel)
+__host__ inline int decode_splits(int P, int page_size, int D, int pages_per_split) {
+  if (D > kDMaxD) return n_splits(P, pages_per_split);
+  return (int)(((int64_t)P * page_size + kDSplit - 1) / kDSplit);
+}
+
+template <typename T, int DP>
+cudaError_t launch_decode_warp(const DecodeArgs& a, int splits, cudaStream_t st) {
+  constexpr size_t bytes = DecodeSmem<T, DP>::bytes;
+  cudaError_t err = prepare(paged_decode_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  paged_decode_kernel<T, DP><<<dim3(a.S * a.H, splits), kDThreads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// D <= kDMaxD: paged_decode_kernel, its splits merged by the last one to
+// finish (arrivals: S * H ints, all 0, left at 0). Wider heads take the
+// per-page kernel and its merge kernel.
 template <typename T>
 int launch_decode(const float* q, const T* k_pool, const T* v_pool, const float* k_scales,
                   const float* v_scales, int vec, const int* block_table, const int* pos,
-                  float* out, float* part_acc, float* part_ml, int S, int H, int D, int P,
-                  int page_size, int pool_rows, int pages_per_split, float scale,
+                  float* out, float* part_acc, float* part_ml, int* arrivals, int S, int H,
+                  int D, int P, int page_size, int pool_rows, int pages_per_split, float scale,
                   void* stream) {
   if (S <= 0 || H <= 0) return cudaSuccess;
   if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0)
     return cudaErrorInvalidValue;
+  const int splits = decode_splits(P, page_size, D, pages_per_split);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= kDMaxD) {
+    if (arrivals == nullptr || splits > 65535 || (int64_t)S * H > 2147483647LL)
+      return cudaErrorInvalidValue;
+    const DecodeArgs a{q, k_pool, v_pool, k_scales, v_scales, block_table, pos, out, part_acc,
+                       part_ml, arrivals, S, H, D, P, page_size, pool_rows / page_size, vec,
+                       scale};
+    if (D <= 32) return launch_decode_warp<T, 32>(a, splits, st);
+    if (D <= 64) return launch_decode_warp<T, 64>(a, splits, st);
+    return launch_decode_warp<T, 128>(a, splits, st);
+  }
   const size_t bytes = smem_bytes(1, D, page_size);
   cudaError_t err = prepare(paged_flash_decode_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  const int splits = n_splits(P, pages_per_split);
-  cudaStream_t st = (cudaStream_t)stream;
   paged_flash_decode_kernel<T><<<dim3(S, H, splits), kThreads, bytes, st>>>(
       q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos, part_acc, part_ml, S,
       pages_per_split, H, D, P, page_size, pool_rows / page_size, scale);
@@ -1006,23 +1315,27 @@ int launch_shared(const float* q, const T* k_pool, const T* v_pool, const float*
 
 extern "C" {
 
-// Splits of the page walk for a table of P entries (the scratch the caller
-// passes holds n_splits * rows * H * (D + 2) floats): the decode form's, and
+// Splits of the walk over a table of P entries (the scratch the caller
+// passes holds splits * rows * H * (D + 2) floats): the decode form's, and
 // the shared form's.
-int paged_flash_n_splits(int P, int pages_per_split) { return n_splits(P, pages_per_split); }
+int paged_flash_decode_splits(int P, int page_size, int D, int pages_per_split) {
+  return decode_splits(P, page_size, D, pages_per_split);
+}
 int paged_flash_shared_splits(int P, int page_size, int D, int pages_per_split,
                               int stages_per_split) {
   return shared_splits(P, page_size, D, pages_per_split, stages_per_split);
 }
 
-// q [S, H*D], pools [pool_rows, H*D], block_table [S, P], pos [S] -> out [S, H*D]
-int paged_flash_decode(const float* q, const float* k_pool, const float* v_pool,
+// q [S, H*D], pools [pool_rows, H*D], block_table [S, P], pos [S] -> out [S, H*D];
+// vec: the wrapper found D, H*D and both pools' addresses to allow 16-byte
+// row loads; arrivals: S * H ints, all 0 (left at 0)
+int paged_flash_decode(const float* q, const float* k_pool, const float* v_pool, int vec,
                        const int* block_table, const int* pos, float* out,
-                       float* part_acc, float* part_ml, int S, int H, int D, int P,
-                       int page_size, int pool_rows, int pages_per_split, float scale,
+                       float* part_acc, float* part_ml, int* arrivals, int S, int H, int D,
+                       int P, int page_size, int pool_rows, int pages_per_split, float scale,
                        void* stream) {
-  return launch_decode<float>(q, k_pool, v_pool, nullptr, nullptr, 0, block_table, pos, out,
-                              part_acc, part_ml, S, H, D, P, page_size, pool_rows,
+  return launch_decode<float>(q, k_pool, v_pool, nullptr, nullptr, vec, block_table, pos, out,
+                              part_acc, part_ml, arrivals, S, H, D, P, page_size, pool_rows,
                               pages_per_split, scale, stream);
 }
 
@@ -1045,12 +1358,12 @@ int paged_flash_shared(const float* q, const float* k_pool, const float* v_pool,
 int paged_flash_decode_int8(const float* q, const int8_t* k_pool, const int8_t* v_pool,
                             const float* k_scales, const float* v_scales, int vec,
                             const int* block_table, const int* pos, float* out,
-                            float* part_acc, float* part_ml, int S, int H, int D, int P,
-                            int page_size, int pool_rows, int pages_per_split, float scale,
-                            void* stream) {
+                            float* part_acc, float* part_ml, int* arrivals, int S, int H, int D,
+                            int P, int page_size, int pool_rows, int pages_per_split,
+                            float scale, void* stream) {
   return launch_decode<int8_t>(q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos,
-                               out, part_acc, part_ml, S, H, D, P, page_size, pool_rows,
-                               pages_per_split, scale, stream);
+                               out, part_acc, part_ml, arrivals, S, H, D, P, page_size,
+                               pool_rows, pages_per_split, scale, stream);
 }
 
 int paged_flash_shared_int8(const float* q, const int8_t* k_pool, const int8_t* v_pool,

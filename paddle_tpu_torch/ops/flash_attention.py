@@ -22,17 +22,19 @@ fused kernel (five products, one CTA per 128-key tile, per-key-tile dQ
 partials summed in a fixed order) where those partials stay within 2x dQ
 (`flash_bwd_fused_ok`: at most two key tiles, head width up to 64), and the
 dK/dV + dQ pair everywhere else; on the card every shape takes a kernel.
-The kernels take any head width d from 1 to MAX_HEAD_DIM (128): each is
-built for a few padded widths and zero-fills the columns past d as it
-loads a tile, so the operands reach it as they are, without a padded copy.
+The kernels take any head width d >= 1: up to 128 each is built for a few
+padded widths and zero-fills the columns past d as it loads a tile, so the
+operands reach it as they are, without a padded copy; wider heads take
+128-wide output column blocks, each CTA forming the scores over all of d
+(the reference's blocks span d whole).
 The path predicates copied from the JAX package decide only whether a
 program declares the `Lse` output (layers.flash_attention, the
 fuse_attention pass), so both packages build the same programs; they do not
 decide how the CUDA kernels tile.
 
 Dispatch: `flash_forward` / `flash_backward` launch the kernels for tensors
-on a CUDA device and raise if they cannot be built or launched, or if the
-head width is past MAX_HEAD_DIM; they run the plain versions for
+on a CUDA device and raise if they cannot be built or launched; they run
+the plain versions for
 tensors on the CPU and on the meta device (shape inference). Nothing falls
 back silently.
 """
@@ -55,7 +57,6 @@ __all__ = [
     "flash_forward_plain",
     "flash_path_taken",
     "flash_tiles_ok",
-    "MAX_HEAD_DIM",
     "kernel_launches",
     "reset_kernel_launches",
 ]
@@ -154,7 +155,6 @@ def flash_backward_plain(q, k, v, out, lse, dout, causal, sm_scale):
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128  # the widest padded head width the kernels are built for
 
 # launches, counted where the wrapper launches each kernel and nowhere else,
 # per kernel and per form
@@ -225,9 +225,6 @@ def _check(q, k, v):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share f32 or bf16, got %s %s %s"
                         % (q.dtype, k.dtype, v.dtype))
-    if d > MAX_HEAD_DIM:
-        raise ValueError("flash_attention: head width d=%d is past the CUDA kernels' limit "
-                         "of %d" % (d, MAX_HEAD_DIM))
     if tq <= 0 or tk <= 0 or b * h <= 0 or d <= 0:
         raise ValueError("flash_attention: empty operands %s, %s" % (tuple(q.shape),
                                                                     tuple(k.shape)))

@@ -6,7 +6,9 @@ Replaces paddle_tpu/ops/pallas_kernels.py multi_tensor_adam
 _adam f32 expressions rounded to the storage dtypes, with a per-parameter
 bias-corrected lr_t. The TPU kernel packs the group into chunk-padded
 slabs; the CUDA kernel reads a device table of the tensors' pointers
-instead, and updates params and moments IN PLACE.
+instead, and updates params and moments IN PLACE, in 4-element vectors
+wherever a tensor's four operands share their alignment (a view at an odd
+offset is updated element by element, still in place).
 
 Dispatch: `multi_tensor_adam` launches the kernel for tensors on a CUDA
 device and raises if it cannot be built or launched; it runs the plain
@@ -22,6 +24,7 @@ import torch
 from . import _build
 
 __all__ = [
+    "chunk_elems",
     "kernel_launches",
     "multi_tensor_adam",
     "multi_tensor_adam_plain",
@@ -53,6 +56,25 @@ def _bind(lib):
 
 
 _build.register("multi_adam", _bind)
+
+
+def chunk_elems():
+    """Elements a CTA of the kernel updates (kChunk of csrc/multi_adam.cu);
+    builds the kernel, so it needs the card."""
+    return _build.load("multi_adam").multi_adam_chunk_elems()
+
+
+def _vector_head(quad):
+    """Leading elements of a tensor updated one at a time before its first
+    4-element vector (0-3), or -1 where its four operands are not at one
+    phase mod 4 elements (the kernel then updates it element by element)."""
+    phases = set()
+    for t in quad:
+        size = t.element_size()
+        if t.data_ptr() % size:
+            return -1
+        phases.add(t.data_ptr() // size % 4)
+    return (4 - phases.pop()) % 4 if len(phases) == 1 else -1
 
 
 def multi_tensor_adam_plain(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon):
@@ -103,15 +125,16 @@ def multi_tensor_adam(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon):
     if lr.numel() != n:
         raise ValueError("multi_tensor_adam: %d lr_t values for %d params" % (lr.numel(), n))
     lib = _build.load("multi_adam")
-    chunk = lib.multi_adam_chunk_elems()
-    ptrs, sizes, starts = [], [], [0]
-    for p, g, m1, m2 in zip(params, grads, m1s, m2s):
-        ptrs += [p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr()]
-        sizes.append(p.numel())
-        starts.append(starts[-1] + -(-p.numel() // chunk))
+    chunk = chunk_elems()
+    ptrs, sizes, heads, starts = [], [], [], [0]
+    for quad in zip(params, grads, m1s, m2s):
+        ptrs += [t.data_ptr() for t in quad]
+        sizes.append(quad[0].numel())
+        heads.append(_vector_head(quad))
+        starts.append(starts[-1] + -(-quad[0].numel() // chunk))
     # the table rides a pinned buffer: the copy is queued on the stream, and
     # the caching host allocator keeps the buffer until the copy has run
-    table = torch.tensor(ptrs + sizes + starts, dtype=torch.int64).pin_memory()
+    table = torch.tensor(ptrs + sizes + heads + starts, dtype=torch.int64).pin_memory()
     table = table.to(dev, non_blocking=True)
     with torch.cuda.device(dev):
         err = lib.multi_adam(

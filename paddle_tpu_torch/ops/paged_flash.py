@@ -6,12 +6,14 @@ _paged_flash_decode_kernel and _paged_flash_shared_kernel Pallas bodies, and
 for int8 pools with per-row f32 scales _paged_flash_decode_quant_kernel and
 _paged_flash_shared_quant_kernel).
 The kernels read the paged pool through the block table with an online
-softmax and never materialize the gathered context: the decode form a page
-at a time on the CUDA cores, its splits merged by a second kernel; the
-shared-table (prefill chunk) form, for head widths up to 128, 64-key
-stages through a cp.async ring with both products on the tensor cores
-(3xTF32), its splits merged by the last one to finish (an arrival counter
-per (32-row tile, head)). The plain version (`paged_attention_plain`) is the dense
+softmax and never materialize the gathered context. For head widths up to
+128: the decode form on the CUDA cores, 128 context positions a CTA (one a
+lane of 4 warps) gathered by cp.async, its splits merged by the last one to
+finish (an arrival counter per (slot, head)); the shared-table (prefill
+chunk) form, 64-key stages through a cp.async ring with both products on
+the tensor cores (3xTF32), its splits merged the same way (a counter per
+(32-row tile, head)). Wider heads, in either form, walk a page at a time
+and merge their splits in a second kernel. The plain version (`paged_attention_plain`) is the dense
 gather + where-mask safe softmax of the JAX dense lowering
 (paddle_tpu/ops/generation_ops.py:134-183).
 
@@ -38,10 +40,9 @@ __all__ = [
     "reset_kernel_launches",
 ]
 
-# decode: table entries one CTA walks; a decode row's 64-entry table at
-# page_size 16 spreads over 16 CTAs per (slot, head), so 8 slots x 12 heads
-# put 1536 CTAs on the card's 132 SMs instead of 96. The shared form's heads
-# wider than 128 walk the same way.
+# heads wider than 128, either form: table entries one CTA of the per-page
+# kernel walks (the decode form at up to 128 takes 128 context positions a
+# CTA, fixed in the kernel)
 PAGES_PER_SPLIT = 4
 # shared table (prefill chunk), head width up to 128: 64-key stages a CTA
 # takes (timed on the card at the prefill chunk: 2 beat 1 and 4); a chunk's
@@ -74,15 +75,15 @@ def reset_kernel_launches():
 
 def _bind(lib):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_flash_decode.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
-    lib.paged_flash_decode_int8.argtypes = [ptr] * 5 + [i32] + [ptr] * 5 + [i32] * 7 + [f32, ptr]
+    lib.paged_flash_decode.argtypes = [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 7 + [f32, ptr]
+    lib.paged_flash_decode_int8.argtypes = [ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 7 + [f32, ptr]
     lib.paged_flash_shared.argtypes = [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 8 + [f32, ptr]
     lib.paged_flash_shared_int8.argtypes = [ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 8 + [f32, ptr]
     for fn in (lib.paged_flash_decode, lib.paged_flash_decode_int8, lib.paged_flash_shared,
                lib.paged_flash_shared_int8):
         fn.restype = i32
-    lib.paged_flash_n_splits.argtypes = [i32, i32]
-    lib.paged_flash_n_splits.restype = i32
+    lib.paged_flash_decode_splits.argtypes = [i32] * 4
+    lib.paged_flash_decode_splits.restype = i32
     lib.paged_flash_shared_splits.argtypes = [i32] * 5
     lib.paged_flash_shared_splits.restype = i32
     lib.paged_flash_error_string.argtypes = [i32]
@@ -214,7 +215,7 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
         splits = lib.paged_flash_shared_splits(n_pages, page_size, d, PAGES_PER_SPLIT,
                                                SHARED_STAGES_PER_SPLIT)
     else:
-        splits = lib.paged_flash_n_splits(n_pages, PAGES_PER_SPLIT)
+        splits = lib.paged_flash_decode_splits(n_pages, page_size, d, PAGES_PER_SPLIT)
     part_acc = torch.empty((splits, rows, n_head, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((splits, rows, n_head, 2), dtype=torch.float32, device=q.device)
     # 16-byte row loads: a head's slice and every row of the pools (4 f32
@@ -225,23 +226,22 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
     pools = (k_pool.data_ptr(), v_pool.data_ptr())
     if quant:
         pools += (k_scales.data_ptr(), v_scales.data_ptr())
+    # the arrival counters of the last split's merge: one per (32-row tile,
+    # head) of a chunk, one per (slot, head) of a decode step
+    groups = (-(-rows // SHARED_TILE_ROWS) if shared else rows) * n_head
+    arrivals = _build.arrival_counters(q.device, stream, groups)
     with torch.cuda.device(q.device):
         if shared:
-            tiles = -(-rows // SHARED_TILE_ROWS)
-            arrivals = _build.arrival_counters(q.device, stream, tiles * n_head)
             fn = lib.paged_flash_shared_int8 if quant else lib.paged_flash_shared
             err = fn(qc.data_ptr(), *pools, vec, bt.data_ptr(), pv.data_ptr(), out.data_ptr(),
                      part_acc.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(), rows,
                      n_head, d, n_pages, page_size, pool_rows, PAGES_PER_SPLIT,
                      SHARED_STAGES_PER_SPLIT, scale, stream)
         else:
-            tail = (bt.data_ptr(), pv.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                    part_ml.data_ptr(), rows, n_head, d, n_pages, page_size, pool_rows,
-                    PAGES_PER_SPLIT, scale, stream)
-            if quant:
-                err = lib.paged_flash_decode_int8(qc.data_ptr(), *pools, vec, *tail)
-            else:
-                err = lib.paged_flash_decode(qc.data_ptr(), *pools, *tail)
+            fn = lib.paged_flash_decode_int8 if quant else lib.paged_flash_decode
+            err = fn(qc.data_ptr(), *pools, vec, bt.data_ptr(), pv.data_ptr(), out.data_ptr(),
+                     part_acc.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(), rows,
+                     n_head, d, n_pages, page_size, pool_rows, PAGES_PER_SPLIT, scale, stream)
     if err:
         raise RuntimeError(
             "paged_flash kernel launch failed: %s"

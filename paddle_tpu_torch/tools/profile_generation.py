@@ -130,7 +130,7 @@ def profile_window(run, n_steps, registry, cuda=True):
     device_ms = sum(k[0] for k in kernels.values()) / n_steps
     op_ms = sum(ops.ms.values()) / n_steps
     timed_ms = sum(timed_walls) / n_steps
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    by_time = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return {
         "steps": n_steps,
         "wall_ms_p50": wall_ms,
@@ -155,8 +155,8 @@ def profile_window(run, n_steps, registry, cuda=True):
         "device_launches_per_step": (
             sum(k[1] for k in kernels.values()) / n_steps if kernels else None
         ),
-        "top_device_ms_per_step": {
-            name: {"ms": ms / n_steps, "launches": n / n_steps} for name, (ms, n) in top
+        "device_ms_per_step_by_kernel": {
+            name: {"ms": ms / n_steps, "launches": n / n_steps} for name, (ms, n) in by_time
         },
     }
 

@@ -12,8 +12,9 @@ layers.flash_attention, the fuse_attention pass, the use_flash Transformer):
 - a small use_flash Transformer trained 3 steps in both packages;
 - the forward kernel's 3xTF32 online softmax, emulated in plain torch;
 - on a CUDA card (`cuda` marker), each kernel against its plain version at
-  head widths from 6 to 128 and at b * h past 65535, and the tiny flash
-  Transformer (d_key 8) against its CPU run.
+  head widths from 6 to 512 and at b * h past 65535, the tiny flash
+  Transformer (d_key 8) and a small program of 160-wide heads against
+  their CPU runs.
 
 Tolerances, each with its reason:
 - f32 against the JAX package: rtol 2e-4, atol 2e-5, the JAX package's own
@@ -26,8 +27,9 @@ Tolerances, each with its reason:
   rtol 1e-4 with atol 1e-4 of the plain result's largest magnitude (sums
   of up to tk terms in another order); bf16 against the f32 plain version
   on the same bf16-rounded inputs: 2e-2, the JAX package's on-chip bar;
-- the tiny flash Transformer on the card against the CPU: losses rtol 2e-3,
-  atol 2e-4, the fused-vs-unfused bar of tests/test_torch_training.py.
+- the tiny flash Transformer and the 160-wide program on the card against
+  the CPU: losses rtol 2e-3, atol 2e-4, the fused-vs-unfused bar of
+  tests/test_torch_training.py.
 
 The JAX package is imported inside fixtures, so that on the card, where JAX
 is not installed, the `cuda` cases run alone
@@ -90,6 +92,9 @@ OP_CASES = {
     "d32": (2, 2, 128, 128, 32, False),
     "d96": (1, 2, 128, 128, 96, False),
     "d96_causal": (1, 2, 128, 128, 96, True),
+    # heads wider than 128: the kernels take 128-wide column blocks
+    "d160": (1, 2, 64, 64, 160, False),
+    "d256_causal": (1, 2, 64, 64, 256, True),
 }
 
 
@@ -583,11 +588,11 @@ def test_cuda_autograd_matches_plain(cuda_device):
         _grad_close(t.grad, w, 1e-4, 1e-4)
 
 
-# head widths other than 64 and 128: each kernel pads d to a built width and
-# zero-fills the columns past it. tk = 200 takes the fused backward tier
-# (d <= 64), tk = 300 the dK/dV + dQ pair; rows of d % 4 != 0 elements load
-# element by element
-ANY_WIDTHS = [6, 8, 16, 32, 80, 96]
+# head widths other than 64 and 128: up to 128 each kernel pads d to a built
+# width and zero-fills the columns past it; wider heads take 128-wide column
+# blocks. tk = 200 takes the fused backward tier (d <= 64), tk = 300 the
+# dK/dV + dQ pair; rows of d % 4 != 0 elements load element by element
+ANY_WIDTHS = [6, 8, 16, 32, 80, 96, 129, 160, 256, 512]
 
 
 def _width_case(seed, b, h, tq, tk, d, dtype, device, strided):
@@ -649,15 +654,6 @@ def test_cuda_takes_any_head_width(cuda_device, d, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_rejects_head_width_past_128(cuda_device):
-    q = torch.randn(1, 2, 64, 129, device=cuda_device)
-    before = fa.kernel_launches()
-    with pytest.raises(ValueError, match="d=129 is past the CUDA kernels' limit of 128"):
-        fa.flash_forward(q, q, q, False, 0.2)
-    assert fa.kernel_launches() == before
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_cuda_takes_b_times_h_past_65535(cuda_device, causal):
     """b * h rides grid x with the tile index, so (65600, 1, 32, 16) runs:
@@ -703,3 +699,70 @@ def test_cuda_tiny_flash_transformer_matches_cpu(cuda_device):
                           "flash_bwd_fused_causal": 3}
     assert np.all(np.isfinite(card))
     np.testing.assert_allclose(card, cpu, rtol=2e-3, atol=2e-4)
+
+
+def _wide_head_program(h, t, d):
+    """x [t, h * d] -> q, k, v by fc, as (1, h, t, d) heads, causal
+    flash_attention, an fc back to h * d, loss = mean of its square."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        x = L.data(name="x", shape=[t, h * d], dtype="float32", append_batch_size=False)
+        heads = [L.transpose(L.reshape(L.fc(x, h * d), [1, t, h, d]), [0, 2, 1, 3])
+                 for _ in range(3)]
+        out = L.flash_attention(*heads, causal=True, sm_scale=d ** -0.5)
+        y = L.fc(L.reshape(L.transpose(out, [0, 2, 1, 3]), [t, h * d]), h * d)
+        loss = L.mean(L.elementwise_mul(y, y))
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.cuda
+def test_cuda_wide_head_program_matches_cpu(cuda_device):
+    """A program of 160-wide heads (the kernels' column blocks, the
+    backward's dK/dV + dQ pair) trained 3 Adam steps on the card against
+    the same steps on the CPU from the same weights."""
+    from paddle_tpu_torch import convert
+
+    h, t, d = 2, 96, 160
+    feeds = [{"x": np.random.RandomState(s).randn(t, h * d).astype("float32")}
+             for s in range(3)]
+    init, runs = None, []
+    for place in (pt.CPUPlace(), pt.CUDAPlace(0)):
+        main, startup, loss = _wide_head_program(h, t, d)
+        names = convert.persistable_names(main)
+        scope = pt.Scope(seed=0, place=place)
+        exe = pt.Executor(place)
+        before = fa.kernel_launches()
+        with pt.scope_guard(scope):
+            exe.run(startup)
+            if init is None:
+                init = convert.scope_to_numpy(scope, names)
+            else:
+                convert.load_into_scope(scope, init, names)
+            losses = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss.name])[0])
+                            .reshape(-1)[0]) for f in feeds]
+        moved = {k: n - before[k] for k, n in fa.kernel_launches().items() if n != before[k]}
+        runs.append((np.asarray(losses), moved))
+    (cpu, cpu_moved), (card, card_moved) = runs
+    assert not cpu_moved
+    assert card_moved == {"flash_fwd_causal": 3, "flash_bwd_dkv_causal": 3,
+                          "flash_bwd_dq_causal": 3}
+    assert np.all(np.isfinite(card))
+    np.testing.assert_allclose(card, cpu, rtol=2e-3, atol=2e-4)
+
+
+def test_wide_head_program_trains_on_the_cpu():
+    """The 160-wide program of the card test above runs its 3 steps on the
+    CPU (the plain versions, no kernel launch) with finite, falling
+    losses."""
+    main, startup, loss = _wide_head_program(2, 96, 160)
+    before = fa.kernel_launches()
+    with pt.scope_guard(pt.Scope(seed=0, place=pt.CPUPlace())):
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(startup)
+        feed = {"x": np.random.RandomState(0).randn(96, 320).astype("float32")}
+        losses = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss.name])[0])
+                        .reshape(-1)[0]) for _ in range(3)]
+    assert fa.kernel_launches() == before
+    assert np.all(np.isfinite(losses)) and losses[2] < losses[0]

@@ -435,3 +435,54 @@ def test_cuda_multi_adam_matches_plain(cuda_device, moment_dtype):
                 _assert_within_bf16_ulp(got.cpu(), want.cpu())
             else:
                 torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+# ragged sizes around the kernel's 4-element vectors and its chunks, and
+# element offsets of a view into a larger buffer: 0 (aligned), 1-3 (a base
+# not on 16 bytes, all four operands at one phase: a scalar head, then
+# vectors), and "mixed" (the parameter one element off, the rest aligned:
+# element by element)
+def _adam_ragged():
+    chunk = ma.chunk_elems()
+    return [(7, 13), (1,), (3,), (chunk + 1,), (chunk + 5,), (33, chunk - 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, "mixed"])
+def test_cuda_multi_adam_views_and_ragged_sizes(cuda_device, offset, moment_dtype):
+    """Bit for bit with the plain version (bf16 moments: each is the
+    plain version's f32 value rounded once, so one bf16 ulp at most)."""
+    rng = np.random.RandomState(9)
+    mdt = torch.bfloat16 if moment_dtype == "bfloat16" else torch.float32
+    ragged = _adam_ragged()
+    sets = []
+    for _ in range(2):
+        rng_i = np.random.RandomState(10)
+        quads = []
+        for shape in ragged:
+            n = int(np.prod(shape))
+            views = []
+            for slot, (scale, dt) in enumerate(((0.05, torch.float32), (1e-3, torch.float32),
+                                                (1e-4, mdt), (1e-7, mdt))):
+                at = (1 if slot == 0 else 0) if offset == "mixed" else offset
+                buf = torch.zeros(n + 8, dtype=dt, device=cuda_device)
+                x = rng_i.randn(n).astype("float32") * scale
+                buf[at:at + n] = torch.from_numpy(np.abs(x) if slot == 3 else x).to(buf)
+                views.append(buf[at:at + n].view(shape))
+            quads.append(views)
+        sets.append(quads)
+    lr = torch.from_numpy((1e-3 * (1 + rng.rand(len(ragged)))).astype("float32"))
+    before = ma.kernel_launches()["multi_adam"]
+    got = [list(slot) for slot in zip(*sets[0])]
+    want = [list(slot) for slot in zip(*sets[1])]
+    ma.multi_tensor_adam(*got, lr.to(cuda_device), 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert ma.kernel_launches()["multi_adam"] == before + 1
+    ma.multi_tensor_adam_plain(*want, lr.to(cuda_device), 0.9, 0.999, 1e-8)
+    for slot in (0, 2, 3):
+        for g, w in zip(got[slot], want[slot]):
+            if g.dtype == torch.bfloat16:
+                _assert_within_bf16_ulp(g.cpu(), w.cpu())
+            else:
+                assert torch.equal(g, w)

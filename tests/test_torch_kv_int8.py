@@ -47,6 +47,11 @@ DECODE_CASES = {
     # d = 64 takes the kernel's 16-byte level vectors
     "vector_rows": (4, 2, 64, 4, 5, 30, [19, 0, 7, -1]),
     "split_walk": (4, 2, 8, 4, 10, 45, [39, 17, 16, 3]),
+    # d = 64 heads over tables longer than one 128-position split of the
+    # decode kernel, at page sizes 8 and 32
+    "ps8_long_table": (4, 2, 64, 8, 40, 90, [319, 200, 128, -1]),
+    "ps32_long_table": (3, 2, 64, 32, 12, 20, [383, 127, 129]),
+    "ps16_split_edges": (4, 3, 64, 16, 24, 60, [255, 256, 383, 0]),
 }
 SHARED_CASES = {
     "mid_page_chunk": (6, 2, 8, 4, 3, 10, list(range(5, 11))),

@@ -1,12 +1,16 @@
 """Paged attention in the torch port (paddle_tpu_torch/ops/paged_flash.py):
 the plain torch version against the JAX package's Pallas kernel (interpret
-mode) and its dense lowering, a plain-torch emulation of the shared-table
-kernel's 3xTF32 arithmetic, and — on a CUDA card — the hand-written
+mode) and its dense lowering, plain-torch emulations of the decode
+kernel's walk and of the shared-table kernel's 3xTF32 arithmetic, and — on
+a CUDA card — the hand-written
 kernels against the plain version. Both block-table forms, rows that end
 exactly on and just past a page boundary, partly filled last pages, pos < 0
 rows and scratch-page table entries; for the shared table also chunks of 1,
 17, 32 and 48 rows, chunks across a stage or a split boundary, pos = 0,
-f32 and int8 pools, head widths 6 to 160, and bit-for-bit repeats.
+f32 and int8 pools, head widths 6 to 160, and bit-for-bit repeats; for
+the per-slot table also 1 to 64 slots at page sizes 8, 16 and 32, head
+widths 6 to 160, pos of -1, 0, a page boundary, the table's last position
+and past it, and a corrupt table entry.
 
 Tolerance: atol = rtol = 1e-5. All sides compute in f32 (the shared form's
 products as 3xTF32); the online softmax of the kernels reassociates the
@@ -34,6 +38,11 @@ DECODE_CASES = {
     "single_page": (4, 1, 4, 16, 1, 3, [0, 15, -5, 9]),
     # more table entries than one CTA walks: the kernel splits the walk
     "split_walk": (4, 2, 8, 4, 10, 45, [39, 17, 16, 3]),
+    # d = 64 heads over tables longer than one 128-position split of the
+    # decode kernel, at page sizes 8 and 32
+    "ps8_long_table": (4, 2, 64, 8, 40, 90, [319, 200, 128, -1]),
+    "ps32_long_table": (3, 2, 64, 32, 12, 20, [383, 127, 129]),
+    "ps16_split_edges": (4, 3, 64, 16, 24, 60, [255, 256, 383, 0]),
 }
 SHARED_CASES = {
     "mid_page_chunk": (6, 2, 8, 4, 3, 10, list(range(5, 11))),
@@ -226,6 +235,87 @@ def test_3xtf32_shared_kernel_holds_the_paged_tolerance():
     assert torch.equal(got[-2:], torch.zeros(2, feat))
 
 
+# --------------------------------------------------------------------------
+# the decode kernel's walk, emulated in plain torch
+# --------------------------------------------------------------------------
+
+DECODE_SPLIT, DECODE_WARP = 128, 32  # context positions a CTA, and a warp
+LOG2E = 1.4426950408889634
+
+
+def _decode_walk(q, k, v, n_keys, scale):
+    """One (slot, head) of the decode kernel: splits of DECODE_SPLIT
+    positions, each of warps of DECODE_WARP positions taken as one softmax
+    step in the base-2 domain (s * scale * log2(e)), the warps merged in
+    order, then the splits merged in order; a warp with no live position
+    adds exactly 0. q [d], k/v [ctx, d] gathered in position order."""
+    neg = torch.tensor(float("-inf"))
+    parts = []
+    for s0 in range(0, n_keys, DECODE_SPLIT):
+        warps = []
+        for w0 in range(s0, s0 + DECODE_SPLIT, DECODE_WARP):
+            if w0 >= n_keys:
+                warps.append((neg, torch.zeros(()), torch.zeros(q.shape[0])))
+                continue
+            keys = torch.arange(w0, min(w0 + DECODE_WARP, n_keys))
+            s = (k[keys] @ q) * (scale * LOG2E)
+            m = s.max()
+            p = torch.exp2(s - m)
+            warps.append((m, p.sum(), p @ v[keys]))
+        parts.append(_merge_in_order(warps))
+    m, l, acc = _merge_in_order(parts)
+    return acc / l
+
+
+def _merge_in_order(states):
+    """(M, L, acc) of (m, l, acc) states, weights 2^(m - M), added in order;
+    a state with m = -inf weighs exactly 0."""
+    mx = torch.stack([m for m, _, _ in states]).max()
+    l_sum, acc = torch.zeros(()), torch.zeros_like(states[0][2])
+    for m, l, a in states:
+        w = torch.zeros(()) if m == float("-inf") else torch.exp2(m - mx)
+        l_sum = l_sum + l * w
+        acc = acc + a * w
+    return mx, l_sum, acc
+
+
+def test_decode_walk_holds_the_paged_tolerance():
+    """An emulation of the decode kernel's argument, in plain torch: it runs
+    no port kernel and guards none (the `cuda` cases below and
+    chip_smoke.py do). At chip_smoke.py's decode step (8 slots of 12 heads x
+    64 over 64-entry tables of 16-row pages, positions -1, 0, 15, 16, 333,
+    700, 871 and 1023), splits of 128 positions and warps of 32, each
+    warp's (m, l, acc), the merges in warp and split order, and a warp with
+    no live position adding exactly 0 land within the paged tolerance,
+    atol = rtol = 1e-5, of paged_attention_plain; the pos < 0 slot is exact
+    zeros."""
+    rng = np.random.RandomState(1)
+    slots, n_head, d, ps, n_pages = 8, 12, 64, 16, 64
+    feat = n_head * d
+    pos = np.array([-1, 0, 15, 16, 333, 700, 871, 1023], np.int32)
+    pool_pages = slots * n_pages + 1
+    q = rng.randn(slots, feat).astype("float32")
+    kp = rng.randn(pool_pages * ps, feat).astype("float32")
+    vp = rng.randn(pool_pages * ps, feat).astype("float32")
+    bt = rng.permutation(np.arange(1, pool_pages))[: slots * n_pages]
+    bt = bt.reshape(slots, n_pages).astype(np.int32)
+    args = _torch_args(q, kp, vp, bt, pos)
+    want = pf.paged_attention_plain(*args, n_head=n_head, page_size=ps)
+    got = torch.zeros(slots, feat)
+    for r in range(slots):
+        n_keys = min(int(pos[r]) + 1, n_pages * ps) if pos[r] >= 0 else 0
+        if n_keys == 0:
+            continue  # the kernel writes exact zeros and loads nothing
+        flat = (torch.from_numpy(bt[r]).long()[:, None] * ps + torch.arange(ps)).reshape(-1)
+        flat = flat[:n_keys]
+        for h in range(n_head):
+            cols = slice(h * d, (h + 1) * d)
+            got[r, cols] = _decode_walk(args[0][r, cols], args[1][flat, cols],
+                                        args[2][flat, cols], n_keys, d ** -0.5)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert torch.equal(want[0], torch.zeros(feat))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -308,3 +398,62 @@ def test_cuda_shared_kernel_at_chunk_shapes(cuda_device, name, quant):
         assert float(got[dead].abs().max()) == 0.0
     # one owner for every sum: the output repeats bit for bit
     assert torch.equal(got, pf.paged_flash_attention(*args, **kw))
+
+
+# the per-slot (decode) form at decode-step shapes: slots x page sizes x
+# head widths (160 takes the per-page kernel past the decode kernel's 128),
+# over tables of 1024 positions; positions -1, 0, a page's last and the
+# next page's first, a split boundary (127, 128), the table's last position
+# and past the table, then seeded; one corrupt table entry (the kernel
+# clamps it into the pool, as the JAX gather clamps: the plain version gets
+# the clamped table)
+DECODE_SLOTS = [1, 8, 16, 64]
+DECODE_PAGE_SIZES = [8, 16, 32]
+DECODE_WIDTHS = [6, 64, 80, 128, 160]
+
+
+def _decode_step_case(slots, ps, d, quant, seed, device):
+    rng = np.random.RandomState(seed)
+    n_head = 2 if d > 64 else 4
+    feat, n_pages = n_head * d, 1024 // ps
+    pool_pages = n_pages + 2
+    pools = [rng.randn(pool_pages * ps, feat).astype("float32") for _ in range(2)]
+    kw = dict(n_head=n_head, page_size=ps)
+    if quant:
+        scales = [(np.abs(x).max(axis=1) / 127.0).astype("float32") for x in pools]
+        pools = [np.clip(np.round(x / s[:, None]), -127, 127).astype(np.int8)
+                 for x, s in zip(pools, scales)]
+        kw.update(k_scales=torch.from_numpy(scales[0]).to(device),
+                  v_scales=torch.from_numpy(scales[1]).to(device))
+    edges = [-1, 0, ps - 1, ps, 127, 128, n_pages * ps - 1, n_pages * ps + 40]
+    pos = np.array([edges[r] if r < len(edges) else rng.randint(-1, n_pages * ps)
+                    for r in range(slots)], np.int32)
+    bt = rng.randint(1, pool_pages, size=(slots, n_pages)).astype(np.int32)
+    bt[0, 0] = 10 ** 6  # corrupt: clamped to the pool's last page
+    q = rng.randn(slots, feat).astype("float32")
+    args = [torch.from_numpy(a).to(device) for a in (q, pools[0], pools[1], bt, pos)]
+    clamped = list(args)
+    clamped[3] = args[3].clamp(0, pool_pages - 1)
+    return args, clamped, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("slots", DECODE_SLOTS)
+def test_cuda_decode_kernel_at_step_shapes(cuda_device, slots, quant):
+    key = "paged_flash" + ("_int8" if quant else "")
+    for ps in DECODE_PAGE_SIZES:
+        for d in DECODE_WIDTHS:
+            args, clamped, kw = _decode_step_case(slots, ps, d, quant, slots + ps + d, cuda_device)
+            before = pf.kernel_launches()[key]
+            got = pf.paged_flash_attention(*args, **kw)
+            torch.cuda.synchronize()
+            assert pf.kernel_launches()[key] == before + 1
+            want = pf.paged_attention_plain(*clamped, **kw)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL,
+                                       rtol=RTOL, err_msg="page size %d, d %d" % (ps, d))
+            dead = args[4] < 0
+            if dead.any():
+                assert float(got[dead].abs().max()) == 0.0
+            # the splits merge in a fixed order: the output repeats bit for bit
+            assert torch.equal(got, pf.paged_flash_attention(*args, **kw))
