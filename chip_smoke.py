@@ -25,7 +25,11 @@ Phases, each printing its own line; any failure exits non-zero:
        at both shapes and both bounds (3xTF32 on the tensor cores, f32 on
        the CUDA cores); atol = rtol = 1e-4;
      - layer_norm forward (4096 x 512, with and without the residual), 1e-5;
-       backward, dx 1e-5, dscale / dbias rtol 1e-4 atol 1e-3;
+       backward (one launch), dx 1e-5, dscale / dbias rtol 1e-4 atol 1e-3;
+       then both over an edge grid (cols 96-49152 x rows 1-4096, f32 and
+       bf16 at 1e-2, with and without the residual, scale and bias null and
+       set) and on views off 16-byte alignment: s bit for bit, the column
+       sums repeat bit for bit, the arrival counters back at 0;
      - multi-tensor Adam over the model's 183 tensors (f32 moments, bit for
        bit; bf16 moments, one bf16 ulp), a ragged-tail set and views at odd
        element offsets (bit for bit), timed against torch._fused_adam_ in 7
@@ -148,6 +152,13 @@ INT8_TOPS = 1979e12  # H100 SXM dense int8 / fp8 tensor-core rate, NVIDIA data s
 GEMM_TOL = 1e-4  # k up to 2048, sums in another order
 LN_TOL = 1e-5  # f32 statistics
 LN_SUM_RTOL, LN_SUM_ATOL = 1e-4, 1e-3  # dscale / dbias: sums over 4096 rows
+LN_BF16_TOL = 1e-2  # bf16 y and dx: one rounding of the output
+# the layer_norm edge grid: every register width of both kernels, the
+# chunked forward and the wide backward, up to the widest f32 row the path
+# takes (49152); rows of 1 and 7 (a CTA barely filled), 200 and 4096 (more
+# than one row run of the backward)
+LN_EDGE_COLS = (96, 128, 512, 768, 1024, 4096, 8192, 49152)
+LN_EDGE_ROWS = (1, 7, 200, 4096)
 TRAIN_STEPS = 6  # fused steps of the training phase
 COMPARE_STEPS = 3  # of them compared with the unfused run
 FUSED_RTOL, FUSED_ATOL = 2e-3, 2e-4  # the JAX package's fused-vs-unfused bar
@@ -479,7 +490,93 @@ def check_layer_norm(torch, ln, device, flush):
     entries["grad"] = _entry("layer_norm_grad", "paddle_tpu_torch/ops/csrc/layer_norm.cu",
                              "paddle_tpu/ops/pallas_kernels.py:1899", err, ms, plain_ms,
                              bound_ms, bound_by, lib_ms)
+    check_layer_norm_edges(torch, ln, device)
     return entries["residual"], entries["grad"]
+
+
+def _ln_edge_case(torch, ln, counters, worst, x, r, sc, bi, dy, name):
+    """One case of the edge grid: the forward against its plain form (s bit
+    for bit), the backward against its plain form on the kernel's stats, its
+    column sums again bit for bit, the arrival counters 0 after each call."""
+    kind = "f32" if x.dtype == torch.float32 else "bf16"
+    tol = LN_TOL if kind == "f32" else LN_BF16_TOL
+    got = ln.fused_layer_norm(x, r, sc, bi, 1e-5)
+    want = ln.fused_layer_norm_plain(x, r, sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    if r is not None and not torch.equal(got[0], want[0]):
+        raise AssertionError("layer_norm %s: the residual sum differs from x + r" % name)
+    errs = {"y " + kind: _close(torch, "layer_norm y " + name, got[1], want[1], tol, tol),
+            "mean": _close(torch, "layer_norm mean " + name, got[2], want[2], LN_TOL, LN_TOL),
+            "var": _close(torch, "layer_norm var " + name, got[3], want[3], LN_TOL, LN_TOL)}
+    mean, var = got[2], got[3]
+    dx, ds, db = ln.fused_layer_norm_grad(x, sc, mean, var, dy, 1e-5)
+    pdx, pds, pdb = ln.fused_layer_norm_grad_plain(x, sc, mean, var, dy, 1e-5)
+    again = ln.fused_layer_norm_grad(x, sc, mean, var, dy, 1e-5)
+    torch.cuda.synchronize()
+    errs["dx " + kind] = _close(torch, "layer_norm_grad dx " + name, dx, pdx, tol, tol)
+    errs["dscale"] = _close(torch, "layer_norm_grad dscale " + name, ds, pds, LN_SUM_ATOL,
+                            LN_SUM_RTOL)
+    errs["dbias"] = _close(torch, "layer_norm_grad dbias " + name, db, pdb, LN_SUM_ATOL,
+                           LN_SUM_RTOL)
+    if not (torch.equal(ds, again[1]) and torch.equal(db, again[2])):
+        raise AssertionError("layer_norm_grad %s: dscale / dbias differ from run to run" % name)
+    if int(counters.count_nonzero()):
+        raise AssertionError("layer_norm_grad %s: an arrival counter was left set" % name)
+    for k, v in errs.items():
+        worst[k] = max(worst.get(k, 0.0), v)
+
+
+def check_layer_norm_edges(torch, ln, device):
+    """Both layer_norm kernels over the edge grid (LN_EDGE_COLS x
+    LN_EDGE_ROWS, f32 and bf16, with and without the residual, scale and
+    bias null and set), then with x, r, dy, scale and bias as views one
+    element past a 16-byte boundary (element-by-element loads)."""
+    from paddle_tpu_torch.ops import _build
+
+    counters = _build.arrival_counters(device, torch.cuda.current_stream(device).cuda_stream, 1)
+    gen = torch.Generator(device=device)
+    worst, n, t0 = {}, 0, time.perf_counter()
+
+    def case(rows, cols, dtype, seed):
+        # made on the card: a 4096 x 49152 tensor is slow to make on the host
+        gen.manual_seed(seed)
+        x = (torch.randn(rows, cols, generator=gen, device=device) * 2 + 0.5).to(dtype)
+        r, dy = (torch.randn(rows, cols, generator=gen, device=device).to(dtype)
+                 for _ in range(2))
+        return (x, r, dy, torch.rand(cols, generator=gen, device=device) + 0.5,
+                torch.randn(cols, generator=gen, device=device))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for cols in LN_EDGE_COLS:
+            for rows in LN_EDGE_ROWS:
+                x, r, dy, scale, bias = case(rows, cols, dtype, SEED + rows + cols)
+                for sc, bi in ((None, None), (scale, bias)):
+                    for res in (None, r):
+                        name = "(%d, %d) %s%s%s" % (
+                            rows, cols, dtype, "" if res is None else " residual",
+                            "" if sc is None else " scale/bias")
+                        _ln_edge_case(torch, ln, counters, worst, x, res, sc, bi, dy, name)
+                        n += 1
+                del x, r, dy
+        torch.cuda.empty_cache()
+        for cols in (512, 4096):
+            views = []
+            for t in case(200, cols, dtype, SEED + 13):
+                buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+                views.append(buf[1:].view(t.shape))
+                views[-1].copy_(t)
+            x, r, dy, scale, bias = views
+            _ln_edge_case(torch, ln, counters, worst, x, r, scale, bias, dy,
+                          "(200, %d) %s off 16-byte alignment" % (cols, dtype))
+            n += 1
+    log("kernel layer_norm / layer_norm_grad edge grid: %d cases (cols %s x rows %s, f32 and "
+        "bf16, with and without the residual, scale/bias null and set; views off 16-byte "
+        "alignment at 512 and 4096 columns) in %.1f s: worst %s (f32 y, mean, var, dx "
+        "atol=rtol=%g; bf16 y, dx %g; dscale/dbias rtol %g atol %g); s bit for bit, the column "
+        "sums repeat bit for bit, the arrival counters 0 after every call" % (
+            n, list(LN_EDGE_COLS), list(LN_EDGE_ROWS), time.perf_counter() - t0,
+            json.dumps({k: float("%.3g" % v) for k, v in sorted(worst.items())}), LN_TOL,
+            LN_BF16_TOL, LN_SUM_RTOL, LN_SUM_ATOL))
 
 
 def _adam_set(torch, device, shapes, moment_dtype, seed):
@@ -1733,8 +1830,14 @@ def _train_fused(torch, cfg, card, label):
     del scope, step
     torch.cuda.empty_cache()
     fused_want, flash_want = _per_step(cfg)
-    adam = [v for k, v in breakdown["device_ms_per_step_by_kernel"].items()
-            if "multi_adam_kernel" in k]
+    by_kernel = breakdown["device_ms_per_step_by_kernel"]
+    ln_fwd = [v for k, v in by_kernel.items() if "ln_fwd_kernel" in k]
+    ln_bwd = [v for k, v in by_kernel.items() if "ln_bwd_kernel" in k]
+    log("%s: in the profiled steps ln_fwd_kernel takes %.4f ms of device time a step (%s "
+        "launches) and ln_bwd_kernel %.4f ms (%s launches); card %s" % (
+            label, sum(v["ms"] for v in ln_fwd), sum(v["launches"] for v in ln_fwd),
+            sum(v["ms"] for v in ln_bwd), sum(v["launches"] for v in ln_bwd), card))
+    adam = [v for k, v in by_kernel.items() if "multi_adam_kernel" in k]
     log("%s: in the profiled steps multi_adam_kernel takes %.4f ms of device time a step (%s "
         "launches), and the fused Adam lowering %.3f ms of host time a step (op timer); card %s"
         % (label, sum(v["ms"] for v in adam), sum(v["launches"] for v in adam),

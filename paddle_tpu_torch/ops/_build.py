@@ -12,9 +12,9 @@ a run build in parallel. A box without a compiler imports the package.
 
 `arrival_counters` holds the int32 counters with which a kernel's last CTA
 of a group finds itself (the fused flash backward's dQ sum, the paged
-kernels' merges): one zeroed buffer per (device, stream), which
-every such launch leaves at 0 again, so kernels ordered on one stream share
-it.
+kernels' merges, the layer_norm backward's column sums): one zeroed buffer
+per (device, stream), which every such launch leaves at 0 again, so kernels
+ordered on one stream share it.
 """
 
 import ctypes

@@ -4,8 +4,11 @@ torch versions.
 
 Replaces paddle_tpu/ops/pallas_kernels.py fused_layer_norm (_ln_fwd_kernel)
 and fused_layer_norm_grad (_ln_bwd_kernel). Forward: s = x + r in the input
-dtype, Welford mean and biased variance in f32, y rounded once. Backward:
-dx from the saved stats, dscale and dbias summed over all rows in f32.
+dtype, mean and biased variance in f32 (per-lane moments merged by the
+parallel combination), y rounded once. Backward, one launch: dx from the
+saved stats, dscale and dbias summed over all rows in f32 in a fixed order
+(per-CTA partials in a scratch the wrapper allocates, summed by the last
+CTAs to finish), the same bits on every run.
 
 Dispatch: `fused_layer_norm` / `fused_layer_norm_grad` launch the kernels
 for tensors on a CUDA device and raise if they cannot be built or launched;
@@ -49,8 +52,8 @@ def _bind(lib):
     lib.layer_norm_fwd.restype = i32
     lib.layer_norm_bwd.argtypes = [ptr] * 10 + [i32, i32, f32, i32, ptr]
     lib.layer_norm_bwd.restype = i32
-    lib.layer_norm_partial_rows.argtypes = []
-    lib.layer_norm_partial_rows.restype = i32
+    lib.layer_norm_bwd_partials.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.layer_norm_bwd_partials.restype = i32
     lib.layer_norm_error_string.argtypes = [i32]
     lib.layer_norm_error_string.restype = ctypes.c_char_p
 
@@ -141,8 +144,8 @@ def fused_layer_norm_grad(x2, scale, mean, var, dy2, eps):
     """Backward of the fused layer_norm over the (rows, cols) view. Returns
     (dx, dscale, dbias): dx in x2's dtype, dscale/dbias (cols,) f32 sums
     over all rows (the caller casts them to the param dtypes). scale of
-    None behaves as ones. CUDA tensors launch the kernels; CPU tensors run
-    fused_layer_norm_grad_plain."""
+    None behaves as ones. CUDA tensors launch the kernel (one launch); CPU
+    tensors run fused_layer_norm_grad_plain."""
     if x2.device.type != "cuda":
         return fused_layer_norm_grad_plain(x2, scale, mean, var, dy2, eps)
     if x2.dim() != 2 or x2.dtype not in _DTYPE_CODE:
@@ -160,17 +163,20 @@ def fused_layer_norm_grad(x2, scale, mean, var, dy2, eps):
     mc, vc = mean.reshape(-1).contiguous(), var.reshape(-1).contiguous()
     sc = _vec(scale, cols, x2.device)
     lib = _build.load("layer_norm")
-    chunks = -(-rows // lib.layer_norm_partial_rows())
+    n_counters = ctypes.c_int(0)
+    n_part = lib.layer_norm_bwd_partials(rows, cols, ctypes.byref(n_counters))
     dx = torch.empty_like(xc)
     ds = torch.empty(cols, dtype=torch.float32, device=x2.device)
     db = torch.empty_like(ds)
-    part = torch.empty((2, chunks, cols), dtype=torch.float32, device=x2.device)
+    part = torch.empty((n_part, 2, cols), dtype=torch.float32, device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    arrivals = _build.arrival_counters(x2.device, stream, n_counters.value)
     with torch.cuda.device(x2.device):
         err = lib.layer_norm_bwd(
             xc.data_ptr(), None if sc is None else sc.data_ptr(), mc.data_ptr(),
             vc.data_ptr(), dyc.data_ptr(), dx.data_ptr(), ds.data_ptr(), db.data_ptr(),
-            part[0].data_ptr(), part[1].data_ptr(), rows, cols, float(eps),
-            _DTYPE_CODE[x2.dtype], torch.cuda.current_stream(x2.device).cuda_stream,
+            part.data_ptr(), arrivals.data_ptr(), rows, cols, float(eps),
+            _DTYPE_CODE[x2.dtype], stream,
         )
     if err:
         raise RuntimeError("layer_norm_grad kernel launch failed: %s"

@@ -11,10 +11,14 @@ gemm_epilogue.py, layer_norm.py, multi_adam.py, fused.py):
 Tolerances, each with its reason:
 - GEMM epilogue vs JAX: atol = rtol = 2e-5 (f32 both sides, k up to 256,
   sums in another order); kernel vs plain on the card: 1e-4 (k up to 2048);
-- layer_norm forward: 1e-5 (f32 statistics, Welford vs two-pass);
+- layer_norm forward: 1e-5 (f32 statistics, Welford vs two-pass); the
+  kernel's statistics order, emulated in plain torch, 1e-5 relative at a
+  mean of 1e3 (a naive sum of squares misses it);
 - layer_norm backward: 2e-4, the JAX package's own bar for its kernel
-  against jax.vjp (tests/test_fused_kernels.py); on the card dx 1e-5 and the
-  column sums rtol 1e-4 / atol 1e-3 (sums over up to 4096 rows);
+  against jax.vjp (tests/test_fused_kernels.py), also for the kernel's
+  summation order of dscale / dbias emulated in plain torch; on the card dx
+  1e-5 and the column sums rtol 1e-4 / atol 1e-3 (sums over up to 4096
+  rows); bf16 outputs 1e-2 (one rounding);
 - multi-tensor Adam: atol = rtol = 1e-6 (the same f32 expressions, but
   XLA may contract a product and a sum into one FMA, and m1 cancels near
   zero, so an absolute floor is needed beside the relative one; the JAX
@@ -126,6 +130,167 @@ def test_layer_norm_grad_plain_matches_jax_kernel(jax_pk):
     )
     for g, wv in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(wv), atol=2e-4, rtol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# the layer_norm kernels' summation orders (csrc/layer_norm.cu), emulated
+# in plain torch f32 for f32 rows (16-byte vectors of E = 4 columns)
+# --------------------------------------------------------------------------
+
+LN_E = 4  # f32 columns in a 16-byte vector
+LN_RUN_MIN, LN_MAX_RUNS, LN_GROUP, LN_BWD_WARPS = 16, 256, 16, 16  # csrc constants
+
+
+def _ln_vectors_a_lane(cols, sizes):
+    """The instantiated vectors-a-lane the kernels pick for `cols` f32
+    columns: the smallest of `sizes` that holds the row, else None."""
+    need = -(-(-(-cols // LN_E)) // 32)
+    return next((nv for nv in sizes if nv >= need), None)
+
+
+def _chan(cnt, mean, m2, nb, mb, qb):
+    """The kernel's chan_merge on tensors (lanes where both counts are 0
+    keep their zeros)."""
+    tot = cnt + nb
+    live = tot > 0
+    safe = torch.where(live, tot, torch.ones_like(tot))
+    d = mb - mean
+    mean = torch.where(live, mean + d * (nb / safe), mean)
+    m2 = torch.where(live, m2 + (qb + d * d * (cnt * nb / safe)), m2)
+    return tot, mean, m2
+
+
+def _ln_fwd_stats_emulated(s32):
+    """mean and biased var of each row of an f32 [rows, cols] tensor in the
+    forward kernel's order: lane l holds vectors l, l + 32, ... (NV a lane,
+    chunks of 16 past that); each lane's mean and M2 of s - s[:, 0] over
+    its columns in two sequential passes, merged chunk by chunk, then the
+    lanes by the butterfly (xor 16, 8, 4, 2, 1), lane 0's result."""
+    rows, cols = s32.shape
+    nv = _ln_vectors_a_lane(cols, (1, 2, 4, 8)) or 16
+    chunk = 32 * nv * LN_E
+    k0 = s32[:, :1]
+    u = s32 - k0
+    zero = torch.zeros(rows, 32, dtype=torch.float32)
+    cnt, mean, m2 = zero.clone(), zero.clone(), zero.clone()
+    lanes = torch.arange(32)
+    for c0 in range(0, cols, chunk):
+        # [32, NV * E] column of each lane's registers, in register order
+        idx = torch.stack([c0 + (32 * k + lanes) * LN_E + e
+                           for k in range(nv) for e in range(LN_E)], dim=1)
+        valid = idx < cols
+        vals = torch.where(valid, u[:, idx.clamp(max=cols - 1)], torch.zeros(()))
+        n = valid.sum(dim=1).to(torch.float32).expand(rows, 32)
+        tot = zero.clone()
+        for j in range(idx.shape[1]):
+            tot = tot + vals[:, :, j]
+        bm = torch.where(n > 0, tot / n.clamp(min=1), zero)
+        bq = zero.clone()
+        for j in range(idx.shape[1]):
+            d = torch.where(valid[:, j], vals[:, :, j] - bm, zero)
+            bq = bq + d * d
+        cnt, mean, m2 = _chan(cnt, mean, m2, n, bm, bq)
+    for o in (16, 8, 4, 2, 1):
+        p = lanes ^ o
+        cnt, mean, m2 = _chan(cnt, mean, m2, cnt[:, p], mean[:, p], m2[:, p])
+    return k0[:, 0] + mean[:, 0], m2[:, 0] / cols
+
+
+@pytest.mark.parametrize("cols", [128, 512, 1024])
+def test_layer_norm_kernel_stats_order_matches_jax(jax_pk, cols):
+    """The forward kernel's statistics order holds the JAX kernel's mean
+    and var within 1e-5 relative at a mean of 1e3 and a std of 1, where a
+    naive f32 sum of squares does not; the shift by s[:, 0] keeps var
+    within 1e-6 of the f64 variance (the JAX kernel's two 512-column
+    chunks at 1024 columns are 8e-6 off it)."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(20 + cols)
+    rows = 128
+    x = (rng.randn(rows, cols) + 1e3).astype("float32")
+    assert jax_pk.ln_path_taken(rows, cols)
+    _, _, jmean, jvar = jax_pk.fused_layer_norm(jnp.asarray(x), None, None, None, 1e-5,
+                                                interpret=True)
+    mean, var = _ln_fwd_stats_emulated(_t(x))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(var.numpy(), x.astype("float64").var(axis=1), rtol=1e-6, atol=0)
+    x32 = _t(x)
+    naive = (x32 * x32).mean(dim=1) - x32.mean(dim=1) ** 2
+    assert not np.allclose(naive.numpy(), np.asarray(jvar), rtol=1e-5, atol=0)
+
+
+def _ln_bwd_run(rows):
+    run = max(LN_RUN_MIN, -(-rows // LN_MAX_RUNS))
+    return -(-run // LN_BWD_WARPS) * LN_BWD_WARPS
+
+
+def _ln_bwd_plan(rows):
+    """(run, CTAs, groups, partial rows, counters) of the backward kernel:
+    its layer_norm_bwd_partials."""
+    run = _ln_bwd_run(rows)
+    n_cta = -(-rows // run)
+    n_groups = -(-n_cta // LN_GROUP)
+    return run, n_cta, n_groups, n_cta + (n_groups if n_groups > 1 else 0), n_groups + 1
+
+
+def _ordered_sum(terms):
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
+def _ln_bwd_sums_emulated(x32, mean, var, dy32, eps):
+    """dscale and dbias of f32 rows in the backward kernel's order: CTA b
+    takes rows [b R, b R + R); in the register form (up to 32 columns a
+    lane) warp w of 16 sums its rows b R + w, + 16, ... in order and the
+    CTA sums its warps in warp order; in the wider form the CTA sums its rows in
+    order; then the partials in CTA order within each group of 16, and the
+    groups in group order."""
+    rows, cols = x32.shape
+    xhat = (x32 - mean[:, None]) * torch.rsqrt(var + eps)[:, None]
+    terms = (dy32 * xhat, dy32)
+    run, n_cta, n_groups, _, _ = _ln_bwd_plan(rows)
+    register_form = _ln_vectors_a_lane(cols, (1, 2, 4, 8)) is not None
+    out = []
+    for t in terms:
+        parts = []
+        for b in range(n_cta):
+            r0, r1 = b * run, min(rows, (b + 1) * run)
+            if not register_form:
+                parts.append(_ordered_sum([t[r] for r in range(r0, r1)]))
+                continue
+            acc = [torch.zeros(cols) for _ in range(LN_BWD_WARPS)]
+            for w in range(LN_BWD_WARPS):
+                for r in range(r0 + w, r1, LN_BWD_WARPS):
+                    acc[w] = acc[w] + t[r]
+            parts.append(_ordered_sum(acc))
+        groups = [_ordered_sum(parts[g * LN_GROUP:(g + 1) * LN_GROUP])
+                  for g in range(n_groups)]
+        out.append(groups[0] if n_groups == 1 else _ordered_sum(groups))
+    return out
+
+
+@pytest.mark.parametrize("rows,cols", [(200, 256), (1000, 256), (1024, 256), (4100, 128),
+                                       (300, 2048)])
+def test_layer_norm_grad_run_order_matches_jax(jax_pk, rows, cols):
+    """The backward kernel's summation order of dscale / dbias (row runs,
+    warps, groups; rows not a multiple of the run; the wide form at 2048
+    columns) holds the JAX kernel's sums at its 2e-4 bar."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(rows + cols)
+    x, dy = _f32(rng, rows, cols) * 2 + 0.5, _f32(rng, rows, cols)
+    scale = rng.rand(cols).astype("float32") + 0.5
+    _, _, mean, var = jax_pk.fused_layer_norm(jnp.asarray(x), None, jnp.asarray(scale), None,
+                                              1e-5, interpret=True)
+    _, jds, jdb = jax_pk.fused_layer_norm_grad(jnp.asarray(x), jnp.asarray(scale), mean, var,
+                                               jnp.asarray(dy), 1e-5, interpret=True)
+    ds, db = _ln_bwd_sums_emulated(_t(x), _t(np.asarray(mean)), _t(np.asarray(var)), _t(dy),
+                                   1e-5)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), atol=2e-4, rtol=2e-4)
 
 
 def _adam_case(rng, moment_dtype):
@@ -391,11 +556,12 @@ def test_cuda_layer_norm_matches_plain(cuda_device, residual, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("rows,cols", [(4096, 512), (200, 96)], ids=["main", "ragged"])
-def test_cuda_layer_norm_grad_matches_plain(cuda_device, rows, cols):
+def test_cuda_layer_norm_grad_matches_plain(cuda_device, rows, cols, dtype):
     rng = np.random.RandomState(7)
-    x = _t(_f32(rng, rows, cols), cuda_device)
-    dy = _t(_f32(rng, rows, cols), cuda_device)
+    x = _t(_f32(rng, rows, cols), cuda_device).to(dtype)
+    dy = _t(_f32(rng, rows, cols), cuda_device).to(dtype)
     scale = _t(rng.rand(cols).astype("float32") + 0.5, cuda_device)
     _, _, mean, var = ln.fused_layer_norm_plain(x, None, scale, None, 1e-5)
     before = ln.kernel_launches()["layer_norm_grad"]
@@ -403,12 +569,124 @@ def test_cuda_layer_norm_grad_matches_plain(cuda_device, rows, cols):
     torch.cuda.synchronize()
     assert ln.kernel_launches()["layer_norm_grad"] == before + 1
     pdx, pds, pdb = ln.fused_layer_norm_grad_plain(x, scale, mean, var, dy, 1e-5)
-    torch.testing.assert_close(dx, pdx, atol=1e-5, rtol=1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2  # bf16: dx rounded once
+    torch.testing.assert_close(dx.float(), pdx.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(ds, pds, atol=1e-3, rtol=1e-4)
     torch.testing.assert_close(db, pdb, atol=1e-3, rtol=1e-4)
     # no float atomics: the column sums repeat bit for bit
     _, ds2, db2 = ln.fused_layer_norm_grad(x, scale, mean, var, dy, 1e-5)
     assert torch.equal(ds, ds2) and torch.equal(db, db2)
+
+
+# the edge grid of both kernels: every register width, the chunked forward
+# and the wide backward, up to _ln_blocks' widest f32 row (49152); rows of
+# 1 and 7 (a CTA barely filled), 200 and 4096 (more than one row run)
+LN_EDGE_COLS = [96, 128, 512, 768, 1024, 4096, 8192, 49152]
+LN_EDGE_ROWS = [1, 7, 200, 4096]
+
+
+def _ln_edge_case(rows, cols, dtype, device, seed):
+    """x, r, dy (dtype) and scale, bias ([cols] f32), made on the card from
+    a seed (a 4096 x 49152 tensor is slow to make on the host)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(rows, cols, generator=g, device=device) * 2 + 0.5).to(dtype)
+    r = torch.randn(rows, cols, generator=g, device=device).to(dtype)
+    dy = torch.randn(rows, cols, generator=g, device=device).to(dtype)
+    scale = torch.rand(cols, generator=g, device=device) + 0.5
+    bias = torch.randn(cols, generator=g, device=device)
+    return x, r, dy, scale, bias
+
+
+def _ln_check_fwd(x, r, scale, bias, tol):
+    got = ln.fused_layer_norm(x, r, scale, bias, 1e-5)
+    want = ln.fused_layer_norm_plain(x, r, scale, bias, 1e-5)
+    if r is None:
+        assert got[0] is None
+    else:
+        assert torch.equal(got[0], want[0])  # s = x + r, bit for bit
+    torch.testing.assert_close(got[1].float(), want[1].float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[3], want[3], atol=1e-5, rtol=1e-5)
+    return got
+
+
+def _ln_check_bwd(x, scale, mean, var, dy, tol):
+    dx, ds, db = ln.fused_layer_norm_grad(x, scale, mean, var, dy, 1e-5)
+    pdx, pds, pdb = ln.fused_layer_norm_grad_plain(x, scale, mean, var, dy, 1e-5)
+    torch.testing.assert_close(dx.float(), pdx.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(ds, pds, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(db, pdb, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cols", LN_EDGE_COLS)
+def test_cuda_layer_norm_edge_grid(cuda_device, cols, dtype):
+    """Forward (with and without the residual) and backward against the
+    plain forms at every row count of the grid, scale and bias null and
+    set; one launch each."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for rows in LN_EDGE_ROWS:
+        x, r, dy, scale, bias = _ln_edge_case(rows, cols, dtype, cuda_device, rows + cols)
+        for sc, bi in ((None, None), (scale, bias)):
+            for res in (None, r):
+                before = dict(ln.kernel_launches())
+                _, _, mean, var = _ln_check_fwd(x, res, sc, bi, tol)
+                _ln_check_bwd(x, sc, mean, var, dy, tol)
+                after = ln.kernel_launches()
+                assert {k: after[k] - before[k] for k in after} == {
+                    "layer_norm": 1, "layer_norm_grad": 1}, (rows, cols, sc is None)
+        del x, r, dy
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cols", [512, 4096])
+def test_cuda_layer_norm_misaligned_views(cuda_device, cols, dtype):
+    """x, r, dy, scale and bias as views one element past a 16-byte
+    boundary: the kernels read and write them element by element."""
+    rows, tol = 200, 1e-5 if dtype == torch.float32 else 1e-2
+    tensors = _ln_edge_case(rows, cols, dtype, cuda_device, 11)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0
+        return v
+
+    x, r, dy, scale, bias = (shifted(t) for t in tensors)
+    _, _, mean, var = _ln_check_fwd(x, r, scale, bias, tol)
+    _ln_check_bwd(x, scale, mean, var, dy, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(4100, 512), (1000, 2048)], ids=["registers", "wide"])
+def test_cuda_layer_norm_grad_repeats_and_resets_its_counters(cuda_device, rows, cols):
+    """More than one row run and more than one group of partials: dscale
+    and dbias bit for bit over two calls, every arrival counter back at 0
+    after each, and the scratch the kernel asks for the emulated plan's."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+
+    x, _, dy, scale, _ = _ln_edge_case(rows, cols, torch.float32, cuda_device, 12)
+    _, _, mean, var = ln.fused_layer_norm_plain(x, None, scale, None, 1e-5)
+    counters = ctypes.c_int(0)
+    n_part = _build.load("layer_norm").layer_norm_bwd_partials(rows, cols,
+                                                               ctypes.byref(counters))
+    _, n_cta, n_groups, want_part, want_counters = _ln_bwd_plan(rows)
+    assert n_groups > 1 and (n_part, counters.value) == (want_part, want_counters)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    sums = []
+    for _ in range(2):
+        _, ds, db = ln.fused_layer_norm_grad(x, scale, mean, var, dy, 1e-5)
+        torch.cuda.synchronize()
+        arrivals = _build.arrival_counters(cuda_device, stream, counters.value)
+        assert int(arrivals[:counters.value].abs().sum()) == 0
+        sums.append((ds, db))
+    assert torch.equal(sums[0][0], sums[1][0]) and torch.equal(sums[0][1], sums[1][1])
 
 
 @pytest.mark.cuda
