@@ -41,7 +41,9 @@ Phases, each printing its own line; any failure exits non-zero:
        plain versions and scaled_dot_product_attention (forward; backward
        from a retained graph); the same at (1, 2, 16384, 64), where the
        backward takes the dK/dV + dQ pair (as the JAX package takes its
-       streamed tiers); bf16 at the main shape against the f32 plain
+       streamed tiers); the pair also in bf16 at t = 16384 (timed beside
+       SDPA's bf16 backward), at t = 4097 and causal with tq = 300, tk =
+       1000, f32 and bf16; bf16 at the main shape against the f32 plain
        version on the same rounded inputs at 2e-2; each case's launches
        must land on its tier; then every head width d in {6, 8, 16, 32, 80,
        96}, f32 and bf16, causal and not, at a length each backward tier
@@ -55,7 +57,11 @@ Phases, each printing its own line; any failure exits non-zero:
        with per-row f32 scales), atol = rtol = 1e-5;
      - the quant GEMM at 1024 x 2048 @ 2048 x 2048: int8 with relu and with
        no act, bit for bit; e4m3, rtol 1e-5 of the largest |z|; timed
-       beside torch._int_mm and torch._scaled_mm;
+       beside torch._int_mm and torch._scaled_mm, and at path B's 256-row
+       bucket (with the wrapper's host time a call); then an edge grid (m
+       1, 17, 250, 1024 x k 16, 48, 2064, 8192 x n 16, 2064, and a ragged
+       128-row tile at 1000 x 2064 x 2064; the five acts, both forms), each
+       call repeated bit for bit;
   3. serving: a GenerationEngine over GPTDecoder at GPT-2 small's widths
      (12 layers, 12 heads, d_model 768, d_inner 3072, vocab 50257, 1024
      positions; random weights from a seed), warmup(), then a
@@ -82,6 +88,8 @@ Phases, each printing its own line; any failure exits non-zero:
      1024; 4 muls quantized, frozen and fused; quant GEMM launches per call
      equal to the chains the predicate accepts; top-1 delta <= 0.005 and
      max relative logit error < 0.05; rows/s and the single shot's wall;
+     the int8 engine call's device busy time and the quant GEMM's share
+     (torch.profiler);
   5. training: Transformer base (6 layers, d_model 512, d_ff 2048, 8 heads,
      vocab 37000, batches of 16 x 256 tokens, dropout 0.1, f32; random
      weights from a seed) trained by Executor.run under the training_fused
@@ -260,6 +268,13 @@ def profiled_device_ms(torch, fn, n):
     and copies torch.profiler records. For a function of thousands of
     launches, which cannot be queued behind a gate (the launch queue fills
     and the host waits on the card)."""
+    return profiled_device_split(torch, fn, n, "")[0]
+
+
+def profiled_device_split(torch, fn, n, match):
+    """(device ms a call, of it the kernels whose name holds `match`) over n
+    calls after one warm call: the kernels and copies torch.profiler
+    records, summed."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -270,7 +285,9 @@ def profiled_device_ms(torch, fn, n):
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         raise RuntimeError("torch.profiler recorded no device time")
-    return sum(e.device_time_total for e in dev) / 1e3 / n
+    total = sum(e.device_time_total for e in dev) / 1e3 / n
+    part = sum(e.device_time_total for e in dev if match in e.name) / 1e3 / n
+    return total, part
 
 
 def time_ms(torch, fn, n, flush, gated):
@@ -703,6 +720,14 @@ FLASH_LONG = (1, 2, 16384, 64)  # where the JAX package takes its streamed tiers
 FLASH_GRAD_TOL = 1e-4  # rtol, and atol as a share of the plain result's largest magnitude
 FLASH_BF16_TOL = 2e-2  # the JAX package's on-chip bar (tests/test_pallas_kernels.py:20-21)
 FLASH_SOURCE = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+# the pair off its timed shape: (b, h, tq, tk, d), causal, dtype; tq = tk
+# past a tile boundary, and causal tq < tk (bottom-right alignment)
+FLASH_PAIR_CASES = (((1, 2, 16384, 16384, 64), False, "bfloat16"),
+                    ((1, 2, 16384, 16384, 64), True, "bfloat16"),
+                    ((1, 2, 300, 1000, 64), True, "float32"),
+                    ((1, 2, 300, 1000, 64), True, "bfloat16"),
+                    ((1, 2, 4097, 4097, 64), False, "float32"),
+                    ((1, 2, 4097, 4097, 64), True, "float32"))
 
 
 def _flash_inputs(torch, device, shape, seed):
@@ -773,10 +798,13 @@ def _flash_bwd_bounds(b, h, t, d, causal):
 
 def _tier_moved(fa, before, tier, form, n):
     """The backward launches since `before` went n times to `tier` (the
-    fused kernel or the dK/dV + dQ pair) and never to the other."""
+    fused kernel, or the pair: delta, then the dK/dV and dQ kernels) and
+    never to the other."""
     after = fa.kernel_launches()
-    want = {"fused": {"flash_bwd_fused": n, "flash_bwd_dkv": 0, "flash_bwd_dq": 0},
-            "pair": {"flash_bwd_fused": 0, "flash_bwd_dkv": n, "flash_bwd_dq": n}}[tier]
+    want = {"fused": {"flash_bwd_fused": n, "flash_bwd_delta": 0, "flash_bwd_dkv": 0,
+                      "flash_bwd_dq": 0},
+            "pair": {"flash_bwd_fused": 0, "flash_bwd_delta": n, "flash_bwd_dkv": n,
+                     "flash_bwd_dq": n}}[tier]
     got = {k: after[k + form] - before[k + form] for k in want}
     if got != want:
         raise AssertionError("flash backward%s: launches %s, want %s" % (form, got, want))
@@ -887,6 +915,7 @@ def check_flash(torch, device, flush):
         entries["flash_bwd_streamed" + form] = entry
         del q, k, v, g, out, lse
         torch.cuda.empty_cache()
+    check_flash_pair_cases(torch, fa, device, flush)
     for causal in (False, True):
         form = "_causal" if causal else ""
         q, k, v, g = _flash_inputs(torch, device, FLASH_SHAPE, SEED + 24 + causal)
@@ -900,6 +929,40 @@ def check_flash(torch, device, flush):
     check_flash_widths(torch, fa, device)
     entries.update(check_flash_wide(torch, fa, device, flush))
     return entries
+
+
+def check_flash_pair_cases(torch, fa, device, flush):
+    """The dK/dV + dQ pair at FLASH_PAIR_CASES against the plain versions
+    (bf16 against the f32 plain version on the same rounded inputs), each
+    repeated bit for bit, its launches on the pair; the bf16 cases at t =
+    16384 timed beside SDPA's bf16 backward."""
+    for (b, h, tq, tk, d), causal, dt in FLASH_PAIR_CASES:
+        form = "_causal" if causal else ""
+        dtype = getattr(torch, dt)
+        seed = SEED + 30 + tq + causal
+        q, _, _, g = _flash_inputs(torch, device, (b, h, tq, d), seed)
+        _, k, v, _ = _flash_inputs(torch, device, (b, h, tk, d), seed + 1)
+        before = fa.kernel_launches()
+        name = "flash pair %s%s (b, h, tq, tk, d) %s" % (dt, form, (b, h, tq, tk, d))
+        err_f, err_b, out, lse = _flash_compare(torch, fa, name, q, k, v, g, causal, d ** -0.5,
+                                                dtype)
+        moved = _tier_moved(fa, before, "pair", form, 2)
+        timing = ""
+        if tq >= 16384:
+            qd, kd, vd, gd = (x.to(dtype) for x in (q, k, v, g))
+            ms = time_ms(torch, lambda: fa.flash_backward(qd, kd, vd, out, lse, gd, causal,
+                                                          d ** -0.5), 5, flush, gated=True)
+            lib = _sdpa_bwd_ms(torch, qd, kd, vd, gd, causal, d ** -0.5, 5, flush)
+            timing = "; kernel %.4f ms, SDPA's backward in %s %.4f ms, kernel / SDPA %.3f" % (
+                ms, dt, lib, ms / lib)
+            del qd, kd, vd, gd
+        log("kernel %s: forward max_abs_err %.3g, backward %.3g (%s; launches %s); repeats bit "
+            "for bit%s" % (name, err_f, err_b, "out, lse atol=rtol=%g, grads rtol %g with atol "
+                           "%g of the largest magnitude" % (ATOL, FLASH_GRAD_TOL, FLASH_GRAD_TOL)
+                           if dt == "float32" else "against the f32 plain version, %g"
+                           % FLASH_BF16_TOL, json.dumps(moved), timing))
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
 
 
 FLASH_WIDTHS = (6, 8, 16, 32, 80, 96)  # head widths off the 64 / 128 the kernels once took
@@ -1244,30 +1307,121 @@ def check_paged_decode(torch, pf, device):
 
 
 QGEMM_SHAPE = (1024, 2048, 2048)  # (m, k, n): path B's single shot through a hidden layer
+QGEMM_BATCH = 256  # path B's 250-row eval batches, in their bucket
+# edge grid: one row, a ragged row tile, a bucket and a whole single shot;
+# k from one 16-byte step to past a ring's 128-byte stage (2064 = 16 stages
+# + 16) and the e4m3 long sum (8192); n one 16-column group, or 16 past a
+# 128-column tile
+QGEMM_EDGE_M = (1, 17, 250, 1024)
+QGEMM_EDGE_K = (16, 48, 2064, 8192)
+QGEMM_EDGE_N = (16, 2064)
+QGEMM_EDGE_EXTRA = ((1000, 2064, 2064),)  # a ragged 128-row CTA tile (ops/quant_gemm.py)
+QGEMM_ACTS = (None, "relu", "gelu", "tanh", "sigmoid")
+QGEMM_SOURCE = "paddle_tpu_torch/ops/csrc/quant_gemm.cu"
+QGEMM_DESIGN = ("wgmma m64nNk32 s8 from 128-byte-swizzled shared memory in a 4-stage mbarrier "
+                "ring: x and w by TMA, w transposed to K-major in shared memory by the producer "
+                "warpgroup (word reads, 4 x 4 byte __byte_perm transposes, 16-byte stores); "
+                "e4m3: both operands widened to f16 by the producer (wgmma's e4m3 sums keep "
+                "about 13 bits), m64nNk16 f16, each 64-deep stage summed from 0 and added in f32")
+
+
+def _qgemm_operands(torch, rng, form, m, k, n, device):
+    """Seeded operands of one form: int8 levels in [-127, 127], or e4m3
+    values of x ~ 8 N(0, 1) and w ~ N(0, 1); a bias; the form's scale."""
+    if form == "int8":
+        x = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8)).to(device)
+        w = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(np.int8)).to(device)
+        scale = torch.tensor(3.1e-6, device=device)
+    else:
+        f8 = torch.float8_e4m3fn
+        x = torch.from_numpy(np.clip(rng.randn(m, k) * 8, -448, 448).astype("float32")).to(
+            device).to(f8)
+        w = torch.from_numpy(np.clip(rng.randn(k, n), -448, 448).astype("float32")).to(
+            device).to(f8)
+        scale = torch.tensor(0.0625, device=device)
+    bias = torch.from_numpy(rng.randn(n).astype("float32")).to(device)
+    return x, w, scale, bias
+
+
+def _qgemm_held(torch, qg, name, form, args, act, zp):
+    """One call against the plain product zp (no act): int8 z bit for bit,
+    y bit for bit for relu and within 1e-5 for the transcendental acts (the
+    card's erff / tanhf / expf against torch's); e4m3 z and y within rtol
+    1e-5 and atol 1e-5 of max |z|; a second call equal bit for bit. Returns
+    the max abs error of z."""
+    from paddle_tpu_torch.ops.gemm_epilogue import ACT_F32
+
+    z, y = qg.quant_gemm_bias_act(*args, act=act)
+    z2, y2 = qg.quant_gemm_bias_act(*args, act=act)
+    torch.cuda.synchronize()
+    if not torch.equal(z, z2) or (act and not torch.equal(y, y2)):
+        raise AssertionError("%s act %s: differs from run to run" % (name, act))
+    yp = ACT_F32[act](zp) if act else None
+    err = float((z - zp).abs().max())
+    if form == "int8":
+        if not torch.equal(z, zp) or (act == "relu" and not torch.equal(y, yp)):
+            raise AssertionError("%s act %s: differs from the plain version, max abs err %g"
+                                 % (name, act, err))
+        if act and act != "relu":
+            _close(torch, "%s act %s y" % (name, act), y, yp, 1e-5, 1e-5)
+    else:
+        tol = 1e-5 * float(zp.abs().max())
+        _close(torch, "%s act %s z" % (name, act), z, zp, tol, 1e-5)
+        if act:
+            _close(torch, "%s act %s y" % (name, act), y, yp, tol, 1e-5)
+    return err
+
+
+def check_quant_gemm_edges(torch, qg, device):
+    """Both forms at every (m, k, n) of the edge grid and every act, held
+    against the plain version (int8 bit for bit, e4m3 rtol 1e-5 of max |z|),
+    each call repeated bit for bit."""
+    rng = np.random.RandomState(SEED + 41)
+    worst = {}
+    n_cases = 0
+    shapes = [(m, k, n) for m in QGEMM_EDGE_M for k in QGEMM_EDGE_K for n in QGEMM_EDGE_N]
+    for form in ("int8", "e4m3"):
+        for m, k, n in shapes + list(QGEMM_EDGE_EXTRA):
+            x, w, scale, bias = _qgemm_operands(torch, rng, form, m, k, n, device)
+            zp, _ = qg.quant_gemm_bias_act_plain(x, w, scale, bias, None)
+            for act in QGEMM_ACTS:
+                name = "quant_gemm %s (m, k, n) %s" % (form, (m, k, n))
+                err = _qgemm_held(torch, qg, name, form, (x, w, scale, bias), act, zp)
+                rel = err / max(float(zp.abs().max()), 1e-30)
+                worst[form] = max(worst.get(form, 0.0), rel)
+                n_cases += 1
+            del x, w, zp
+    log("kernel quant_gemm edge grid: %d cases (int8 and e4m3 x m %s x k %s x n %s, and %s; "
+        "acts %s): "
+        "int8 z bit for bit (y bit for bit at relu, 1e-5 for gelu / tanh / sigmoid), e4m3 within "
+        "rtol 1e-5 and atol 1e-5 of max |z| (worst max abs err / max |z|: int8 %.3g, e4m3 %.3g); "
+        "every call repeats bit for bit" % (
+            n_cases, QGEMM_EDGE_M, QGEMM_EDGE_K, QGEMM_EDGE_N, QGEMM_EDGE_EXTRA, list(QGEMM_ACTS),
+            worst["int8"],
+            worst["e4m3"]))
 
 
 def check_quant_gemm(torch, device, flush):
     """Row 7 at path B's single-shot shape: int8 with relu (the hidden
     layers' form, the kernels-line entry) and with no act, bit for bit
     against the plain version; e4m3 against the plain version at rtol 1e-5
-    of the largest |z|. Yardsticks: torch._int_mm (the int8 product alone,
-    no epilogue) and torch._scaled_mm (the fp8 form without an act)."""
+    of the largest |z|; both timed at m = 1024 and at path B's 256-row
+    bucket, the wrapper's host time a call there, then the edge grid.
+    Yardsticks: torch._int_mm (the int8 product alone, no epilogue) and
+    torch._scaled_mm (the fp8 form without an act)."""
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import quant_gemm as qg
 
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in _build.build_logs.get("quant_gemm", "")
+             .splitlines() if "registers" in ln or "spill" in ln]
+    log("kernel quant_gemm design: %s; ptxas: %s" % (QGEMM_DESIGN, " | ".join(ptxas[:8])))
     m, k, n = QGEMM_SHAPE
     rng = np.random.RandomState(SEED + 40)
-    xi = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8)).to(device)
-    wi = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(np.int8)).to(device)
-    scale = torch.tensor(3.1e-6, device=device)
-    bias = torch.from_numpy(rng.randn(n).astype("float32")).to(device)
+    xi, wi, scale, bias = _qgemm_operands(torch, rng, "int8", m, k, n, device)
     entries = {}
+    zp, _ = qg.quant_gemm_bias_act_plain(xi, wi, scale, bias, None)
     for act in ("relu", None):
-        z, y = qg.quant_gemm_bias_act(xi, wi, scale, bias, act)
-        zp, yp = qg.quant_gemm_bias_act_plain(xi, wi, scale, bias, act)
-        torch.cuda.synchronize()
-        if not torch.equal(z, zp) or (act and not torch.equal(y, yp)):
-            raise AssertionError("quant_gemm int8 %s: differs from the plain version, max abs "
-                                 "err %g" % (act, float((z - zp).abs().max())))
+        _qgemm_held(torch, qg, "quant_gemm int8", "int8", (xi, wi, scale, bias), act, zp)
         ms = time_ms(torch, lambda: qg.quant_gemm_bias_act(xi, wi, scale, bias, act), 20, flush,
                      gated=True)
         plain_ms = time_ms(torch, lambda: qg.quant_gemm_bias_act_plain(xi, wi, scale, bias, act),
@@ -1276,22 +1430,16 @@ def check_quant_gemm(torch, device, flush):
         bound_ms, bound_by = _qgemm_bound(m, k, n, act)
         log("kernel quant_gemm int8 act %s: x %s @ w %s, equal to the plain version bit for bit; "
             "kernel %.4f ms (device); plain (float64 product) %.4f ms; torch._int_mm (the int8 "
-            "product alone, no epilogue) %.4f ms; bound %.4f ms (%s)" % (
-                act, (m, k), (k, n), ms, plain_ms, lib_ms, bound_ms, bound_by))
+            "product alone, no epilogue) %.4f ms, kernel / _int_mm %.3f; bound %.4f ms (%s)" % (
+                act, (m, k), (k, n), ms, plain_ms, lib_ms, ms / lib_ms, bound_ms, bound_by))
         if act:
             entries["quant_gemm_int8"] = _entry(
-                "quant_gemm_int8", "paddle_tpu_torch/ops/csrc/quant_gemm.cu",
-                "paddle_tpu/ops/pallas_kernels.py:1274", 0.0, ms, plain_ms, bound_ms, bound_by,
-                lib_ms)
-    del xi, wi
-    f8 = torch.float8_e4m3fn
-    xf = torch.from_numpy(np.clip(rng.randn(m, k) * 8, -448, 448).astype("float32")).to(device).to(f8)
-    wf = torch.from_numpy(np.clip(rng.randn(k, n), -448, 448).astype("float32")).to(device).to(f8)
-    fscale = torch.tensor(0.0625, device=device)
-    z, _ = qg.quant_gemm_bias_act(xf, wf, fscale, bias, None)
+                "quant_gemm_int8", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1274", 0.0,
+                ms, plain_ms, bound_ms, bound_by, lib_ms)
+    del xi, wi, zp
+    xf, wf, fscale, _ = _qgemm_operands(torch, rng, "e4m3", m, k, n, device)
     zp, _ = qg.quant_gemm_bias_act_plain(xf, wf, fscale, bias, None)
-    torch.cuda.synchronize()
-    err = _close(torch, "quant_gemm fp8", z, zp, 1e-5 * float(zp.abs().max()), 1e-5)
+    err = _qgemm_held(torch, qg, "quant_gemm e4m3", "e4m3", (xf, wf, fscale, bias), None, zp)
     ms = time_ms(torch, lambda: qg.quant_gemm_bias_act(xf, wf, fscale, bias, None), 20, flush,
                  gated=True)
     plain_ms = time_ms(torch, lambda: qg.quant_gemm_bias_act_plain(xf, wf, fscale, bias, None), 5,
@@ -1304,19 +1452,62 @@ def check_quant_gemm(torch, device, flush):
     bound_ms, bound_by = _qgemm_bound(m, k, n, None)
     launches = qg.kernel_launches()["quant_gemm_fp8"]
     log("kernel quant_gemm fp8 (e4m3): x %s @ w %s max_abs_err %.3g (rtol 1e-5 of max |z| %.4g) "
-        "kernel %.4f ms (device); plain (f32 product) %.4f ms; torch._scaled_mm (no bias) %.4f ms; "
-        "bound %.4f ms (%s); no path reaches it, %d launches here" % (
-            (m, k), (k, n), err, float(zp.abs().max()), ms, plain_ms, lib_ms, bound_ms, bound_by,
-            launches))
-    entry = _entry("quant_gemm_fp8", "paddle_tpu_torch/ops/csrc/quant_gemm.cu",
-                   "paddle_tpu/ops/pallas_kernels.py:1274", err, ms, plain_ms, bound_ms, bound_by,
-                   lib_ms)
+        "kernel %.4f ms (device); plain (f32 product) %.4f ms; torch._scaled_mm (no bias) %.4f ms, "
+        "kernel / _scaled_mm %.3f; bound %.4f ms (%s); no path reaches it, %d launches here" % (
+            (m, k), (k, n), err, float(zp.abs().max()), ms, plain_ms, lib_ms, ms / lib_ms,
+            bound_ms, bound_by, launches))
+    entry = _entry("quant_gemm_fp8", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1274", err,
+                   ms, plain_ms, bound_ms, bound_by, lib_ms)
     # no main path in either package emits fp8 operands: its launches are
     # this phase's own
     entry["launches"] = launches
     entry["path"] = None
     entries["quant_gemm_fp8"] = entry
+    del xf, wf, zp
+    # path B's bucket (64-row CTA tiles) beside the library calls
+    mb = QGEMM_BATCH
+    xi, wi, scale, bias = _qgemm_operands(torch, rng, "int8", mb, k, n, device)
+    xf, wf, fscale, _ = _qgemm_operands(torch, rng, "e4m3", mb, k, n, device)
+    ms_i = time_ms(torch, lambda: qg.quant_gemm_bias_act(xi, wi, scale, bias, "relu"), 20, flush,
+                   gated=True)
+    ms_f = time_ms(torch, lambda: qg.quant_gemm_bias_act(xf, wf, fscale, bias, None), 20, flush,
+                   gated=True)
+    lib_i = time_ms(torch, lambda: torch._int_mm(xi, wi), 20, flush, gated=True)
+    wcol = wf.t().contiguous().t()
+    lib_f = time_ms(torch, lambda: torch._scaled_mm(xf, wcol, scale_a=one, scale_b=fscale,
+                                                    out_dtype=torch.float32), 20, flush,
+                    gated=True)
+    log("kernel quant_gemm at m = %d (path B's bucket), k = n = %d: int8 + relu %.4f ms, "
+        "torch._int_mm %.4f, bound %.4f ms; e4m3 %.4f ms, torch._scaled_mm %.4f, bound %.4f ms" % (
+            mb, k, ms_i, lib_i, _qgemm_bound(mb, k, n, "relu")[0], ms_f, lib_f,
+            _qgemm_bound(mb, k, n, None)[0]))
+    del xi, wi, xf, wf
+    log("kernel quant_gemm host time a wrapper call at m = %d, int8 + relu: %.2f us (median of "
+        "5 runs of 100 calls, host clock)" % (mb, qgemm_host_us(torch, device)))
+    check_quant_gemm_edges(torch, qg, device)
     return entries
+
+
+def qgemm_host_us(torch, device):
+    """Host microseconds a quant_gemm_bias_act call takes at path B's bucket
+    (int8 + relu, 256 x 2048 @ 2048 x 2048): the median over 5 runs of 100
+    calls queued without a sync between them (the card runs each in about
+    20 us, so the launch queue never fills and the host clock reads the
+    wrapper's own work)."""
+    from paddle_tpu_torch.ops import quant_gemm as qg
+
+    _, k, n = QGEMM_SHAPE
+    x, w, scale, bias = _qgemm_operands(torch, np.random.RandomState(SEED + 42), "int8",
+                                        QGEMM_BATCH, k, n, device)
+    runs = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(100):
+            qg.quant_gemm_bias_act(x, w, scale, bias, "relu")
+        runs.append((time.perf_counter() - t) * 1e4)
+    torch.cuda.synchronize()
+    return sorted(runs[1:])[2]  # the first run warms
 
 
 def _qgemm_bound(m, k, n, act):
@@ -1627,7 +1818,9 @@ def serve_int8_gemm(torch, card):
     """Path B: the fc head fitted and saved by the port, served by an f32
     and a calibrated-int8 ServingEngine on the card: 8 eval batches of 250
     rows and one single shot of 1024. Returns the quant GEMM's launches
-    over the int8 engine's calls."""
+    over the int8 engine's calls, and the phase's readings (rows/s, the
+    single shot's walls, the int8 engine's device busy ms a call and its
+    quant GEMM part)."""
     import tempfile
 
     from paddle_tpu_torch import CUDAPlace
@@ -1700,6 +1893,18 @@ def serve_int8_gemm(torch, card):
     if not (delta <= TOP1_DELTA and drift < HEAD_REL_ERR):
         raise AssertionError("int8 vs f32: top-1 delta %g, max relative logit error %g"
                              % (delta, drift))
+    busy = {}
+    for rows in (HEAD_EVAL_ROWS, HEAD_SHOT_ROWS):
+        xb, _ = _head_batch(means, rng, rows)
+        busy[rows] = profiled_device_split(torch, lambda: e8.run({"img": xb}), 5,
+                                           "quant_gemm_kernel")
+    log("serve int8 GEMM: the int8 engine's device busy time a call (torch.profiler, 5 calls "
+        "after a warm one): %d rows %.4f ms, of it the quant GEMM kernel %.4f ms (%.3f); %d rows "
+        "%.4f ms, quant GEMM %.4f ms (%.3f); card %s" % (
+            HEAD_EVAL_ROWS, busy[HEAD_EVAL_ROWS][0], busy[HEAD_EVAL_ROWS][1],
+            busy[HEAD_EVAL_ROWS][1] / busy[HEAD_EVAL_ROWS][0], HEAD_SHOT_ROWS,
+            busy[HEAD_SHOT_ROWS][0], busy[HEAD_SHOT_ROWS][1],
+            busy[HEAD_SHOT_ROWS][1] / busy[HEAD_SHOT_ROWS][0], card))
     log("serve int8 GEMM: %d eval rows (%d x %d) + a single shot of %d: top-1 f32 %.4f, int8 "
         "%.4f (delta %.4f <= %g), agreement %.4f, max relative logit error %.4g (< %g); quant "
         "GEMM launches per int8 call (launched, predicate) %s; f32 engine %.1f rows/s, int8 "
@@ -1708,7 +1913,11 @@ def serve_int8_gemm(torch, card):
             tot, HEAD_EVAL_BATCHES, HEAD_EVAL_ROWS, HEAD_SHOT_ROWS, ok32 / tot, ok8 / tot, delta,
             TOP1_DELTA, agree / tot, drift, HEAD_REL_ERR, per_call, rows_s[0], rows_s[1],
             shot[0], shot[1], card))
-    return {"quant_gemm_int8": launches}
+    readings = {"rows_per_s": {"f32": rows_s[0], "int8": rows_s[1]},
+                "single_shot_ms": {"f32": shot[0], "int8": shot[1]},
+                "int8_busy_ms": {str(r): {"call": b[0], "quant_gemm": b[1]}
+                                 for r, b in busy.items()}}
+    return {"quant_gemm_int8": launches}, readings
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1760,7 +1969,7 @@ def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_c
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused")  # a train_flash step's
-FLASH_PAIR = ("flash_bwd_dkv", "flash_bwd_dq")  # the long tier: no launch a step
+FLASH_PAIR = ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq")  # the long tier: none a step
 
 
 def _per_step(cfg):
@@ -1978,7 +2187,7 @@ def main():
     del engine
     torch.cuda.empty_cache()
     with Phase("serve int8 GEMM"):
-        launches.update(serve_int8_gemm(torch, card))
+        launches.update(serve_int8_gemm(torch, card)[0])
     torch.cuda.empty_cache()
     with Phase("train"):
         launches.update(train(torch, card))

@@ -22,13 +22,12 @@
 // aligned for 4-element loads): zero columns change no q k^T, give zero
 // dQ / dK / dV columns, and are never stored. Outputs are (b, h, t, d)
 // with row stride d. Heads wider than 128 take column blocks
-// (flash_fwd_wide_kernel, flash_bwd_dkv_wide_kernel + flash_bwd_dq_wide_kernel):
-// grid y (the forward) or z (the pair) is the output's 128-wide column
-// block; each CTA forms the scores over all of d in 128-wide chunks, in
-// chunk order, so every block sees the same p, and keeps its own 128
-// columns of p v (or of dK / dV / dQ); block 0 writes lse. A CTA's shared
-// memory stays that of a 128 build, whatever d is; the scores are formed
-// once per column block, a cost that only heads past 128 pay. The fused
+// (flash_fwd_wide_kernel; the pair's kernels at DP = 128 with nc > 1
+// chunks): grid y (the forward) or z (the pair) is the output's 128-wide
+// column block; each CTA forms the scores over all of d in 128-wide chunks,
+// in chunk order, so every block sees the same p, and keeps its own 128
+// columns of p v (or of dK / dV / dQ); block 0 writes lse. The scores are
+// formed once per column block, a cost that only heads past 128 pay. The fused
 // backward tier stays at d <= 64. The (b, h) pair rides grid x (the forward: x = tile *
 // b * h + bh, so the longest causal tiles of every (b, h) start first; the
 // pair and the fused backward: x = bh, y = the tile, read from special
@@ -41,7 +40,7 @@
 // rounded to the operand dtype before the product with v; lse = m + log(l)
 // per row, (b, h, tq) f32. A fully masked row (causal, tq > tk) gets out 0
 // and lse 0. The backward recomputes p = exp(s - lse) from the saved lse,
-// takes delta = rowsum(dO * O) inline from the saved output, and forms
+// takes delta = rowsum(dO * O) from the saved output, and forms
 // ds = p * (dp - delta) * scale rounded to the operand dtype; dV = p^T dO,
 // dK = ds^T q, dQ = ds k, each summed in f32 and rounded once.
 //
@@ -76,14 +75,24 @@
 // distinct banks. Causal tiles past the diagonal are never loaded, and
 // causal CTAs start with the longest rows.
 //
-// The pair: f32 products on the CUDA cores. A CTA of 256 threads owns a
-// 64 x 64 tile of scores, 4 x 4 a thread. Operand tiles live in shared
-// memory with rows padded by 4 elements, so the
-// 16-byte (f32) or 8-byte (bf16) loads along d of 16 different rows hit
-// distinct banks. The pair has no float atomics: dK/dV is one CTA per K
-// tile looping over the query tiles, dQ one CTA per query tile looping over
-// the K tiles, so each sum has one owner; the price is s and dp computed in
-// both kernels, seven products for five.
+// The pair: delta = rowsum(dO * O) once per query row, by a small kernel,
+// into an f32 (b, h, tq) scratch that both kernels read beside lse; then
+// the five products on the tensor cores with the fused tier's helpers
+// (3xTF32 mma.sync m16n8k8 for f32, one exact TF32 product for bf16; the
+// swz tile layout). The pair has no float atomics: dK/dV is one CTA of 8
+// warps per 64-key tile looping over 64-row query tiles, dQ one per query
+// tile looping over the key tiles, so each sum has one owner; the price is
+// s and dp formed in both kernels, seven products for five. Each CTA keeps
+// its own side resident in shared memory (K and V, or q and dO, over every
+// 128-wide chunk where that fits beside the ring: all of d up to 128, d =
+// 256 in f32 and 512 in bf16; else staged beside the streamed tiles, chunk
+// by chunk) and streams the other side's tiles through a cp.async ring of
+// two stages (one where shared memory allows no more), one CTA barrier a
+// step. s and dp stay in registers as C fragments (warps 2 x 4 over 64 x
+// 64); p and ds, rounded to the operand dtype, go to f32 swizzled tiles,
+// which dV = p^T dO and dK = ds^T q read transposed and dQ = ds k reads by
+// ldmatrix. Each streamed tile's part sums in the tensor core from 0 and
+// joins the f32 registers by a rounded add.
 //
 // The fused backward: one CTA of 8 warps per (b * h, 128-key tile) keeps
 // its K and V tiles in shared memory and streams 64-row query tiles (q, dO)
@@ -150,9 +159,7 @@ namespace {
 
 constexpr int kBM = 64;  // query rows a tile
 constexpr int kBN = 64;  // keys a tile
-constexpr int kThreads = 256;   // the pair
 constexpr int kFwdThreads = 128;  // the forward: 4 warps of 16 query rows
-constexpr int kPLD = kBN + 4;  // row stride of the f32 p / ds tiles
 constexpr int kWide = 128;  // a wide head's column block (heads past 128)
 constexpr float kNegInf = -__builtin_huge_valf();
 
@@ -230,117 +237,6 @@ __device__ __forceinline__ void load4_row(const T* row, int c, int d, bool vec, 
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) o[e] = c + e < d ? to_f32(row[c + e]) : 0.0f;
-}
-
-// rows [r0, r0 + R) of a (t, d) operand with row stride `st` into a
-// [R][D + 4] shared tile (D >= d); rows at or past t, and columns at or past
-// d, read as zeros. FULL: d == D and every row aligned, so whole units copy
-// by cp.async with no column test.
-template <typename T, int D, int R, bool FULL>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t st, int r0, int t, int d,
-                                          bool vec) {
-  constexpr int G = D / 4;
-  for (int g = threadIdx.x; g < R * G; g += kThreads) {
-    const int r = g / G, c = (g % G) * 4;
-    const bool ok = r0 + r < t;
-    if constexpr (FULL) {
-      const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
-      cp_async<(int)(4 * sizeof(T))>(dst + r * (D + 4) + c, from, ok);
-    } else {
-      load_unit(dst + r * (D + 4) + c, src + (ok ? (int64_t)(r0 + r) * st : 0), ok, c, d, vec);
-    }
-  }
-}
-
-// s[i][j] += a_row(ty*4+i) . b_row(tx+16j) over d: the 4 x 4 part of a
-// 64 x 64 product of two [64][D + 4] shared tiles this thread owns
-template <typename T, int D>
-__device__ __forceinline__ void tile_dot(const T* a, const T* b, int tx, int ty,
-                                         float (&s)[4][4]) {
-  constexpr int LD = D + 4;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float av[4][4], bv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) load4(a + (ty * 4 + i) * LD + c, av[i]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) load4(b + (tx + 16 * j) * LD + c, bv[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][j] = fmaf(av[i][e], bv[j][e], s[i][j]);
-  }
-}
-
-// acc[i][n][e] += sum_kk p[ty*4+i][kk] * x[kk][n*64 + tx*4 + e]: a 64-row
-// f32 tile times a [64][D + 4] operand tile
-template <typename T, int D>
-__device__ __forceinline__ void tile_pv(const float* p, const T* x, int tx, int ty,
-                                        float (&acc)[4][D / 64][4]) {
-  constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int kk = 0; kk < kBN; kk += 4) {
-    float pv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) load4(p + (ty * 4 + i) * kPLD + kk, pv[i]);
-#pragma unroll
-    for (int e4 = 0; e4 < 4; ++e4) {
-#pragma unroll
-      for (int n = 0; n < D / 64; ++n) {
-        float xv[4];
-        load4(x + (kk + e4) * LD + n * 64 + tx * 4, xv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][n][e] = fmaf(pv[i][e4], xv[e], acc[i][n][e]);
-      }
-    }
-  }
-}
-
-// acc[i][n][e] += sum_r p[r][ty*4+i] * x[r][n*64 + tx*4 + e]: the transposed
-// product, for dV = p^T dO and dK = ds^T q
-template <typename T, int D>
-__device__ __forceinline__ void tile_ptx(const float* p, const T* x, int tx, int ty,
-                                         float (&acc)[4][D / 64][4]) {
-  constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int r = 0; r < kBM; ++r) {
-    float pr[4];
-    load4(p + r * kPLD + ty * 4, pr);
-#pragma unroll
-    for (int n = 0; n < D / 64; ++n) {
-      float xv[4];
-      load4(x + r * LD + n * 64 + tx * 4, xv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] = fmaf(pr[i], xv[e], acc[i][n][e]);
-    }
-  }
-}
-
-// rows [row0, row0 + 64) of an output with row stride ld from a thread's
-// [4][D / 64][4] accumulator, rows at or past t and columns at or past cols
-// dropped (FULL: ld == cols == D)
-template <typename T, int D, bool FULL>
-__device__ __forceinline__ void store_rows(T* dst, int row0, int t, int ld, int cols, int tx,
-                                           int ty, const float (&acc)[4][D / 64][4]) {
-  if constexpr (FULL) ld = D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= t) continue;
-#pragma unroll
-    for (int n = 0; n < D / 64; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 64 + tx * 4 + e;
-        if (FULL || c < cols) dst[(int64_t)row * ld + c] = from_f32<T>(acc[i][n][e]);
-      }
-  }
 }
 
 // keys a query tile needs: all of them, or (causal) up to the tile's last
@@ -701,335 +597,6 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_wide_kernel(const Flash
   store_fwd<T, NO>(p, out, lse, o, m, l, row, c0, cols, blockIdx.y == 0);
 }
 
-// lse and delta = rowsum(dO * O) of the query tile's rows into shared
-// memory, four threads a row; rows at or past tq get 0
-template <typename T, int D, bool FULL>
-__device__ __forceinline__ void tile_lse_delta(const FlashParams& p, const T* o, const T* dOs,
-                                               const float* lse, int q0, float* lse_s,
-                                               float* delta_s) {
-  const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
-  float acc = 0.0f;
-  if (row < p.tq) {
-    const T* orow = o + (int64_t)row * p.so[2];
-    for (int c = part * 4; c < D; c += 16) {
-      float a[4], b[4];
-      if constexpr (FULL) load4(orow + c, a);
-      else load4_row(orow, c, p.d, p.vec != 0, a);
-      load4(dOs + r * (D + 4) + c, b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc = fmaf(a[e], b[e], acc);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) {
-    delta_s[r] = acc;
-    lse_s[r] = row < p.tq ? lse[row] : 0.0f;
-  }
-}
-
-// from s = q k^T and dp = dO v^T of a (query tile, key tile) pair (a
-// thread's 4 x 4 of each), writes ds = p * (dp - delta) * scale (rounded to
-// T) into dSs and, when Ps is not null, p (rounded to T) into Ps
-template <typename T>
-__device__ __forceinline__ void p_ds_tile(const FlashParams& p, const float (&s)[4][4],
-                                          const float (&dp)[4][4], const float* lse_s,
-                                          const float* delta_s, int q0, int k0, float* Ps,
-                                          float* dSs) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const float L = lse_s[r], dl = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kc = tx + 16 * j;
-      const float pf = visible(p, q0 + r, k0 + kc) ? expf(s[i][j] * p.scale - L) : 0.0f;
-      if (Ps != nullptr) Ps[r * kPLD + kc] = round_t<T>(pf);
-      dSs[r * kPLD + kc] = round_t<T>(pf * (dp[i][j] - dl) * p.scale);
-    }
-  }
-}
-
-// s and dp of a (query tile, key tile) pair from the four operand tiles,
-// then p_ds_tile
-template <typename T, int D>
-__device__ __forceinline__ void tile_p_ds(const FlashParams& p, const T* Qs, const T* dOs,
-                                          const T* Ks, const T* Vs, const float* lse_s,
-                                          const float* delta_s, int q0, int k0, float* Ps,
-                                          float* dSs) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4] = {}, dp[4][4] = {};
-  tile_dot<T, D>(Qs, Ks, tx, ty, s);
-  tile_dot<T, D>(dOs, Vs, tx, ty, dp);
-  p_ds_tile<T>(p, s, dp, lse_s, delta_s, q0, k0, Ps, dSs);
-}
-
-// FULL: d == D and every operand row aligned (FlashParams.vec)
-template <typename T, int D, bool FULL>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashParams p) {
-  constexpr int LD = D + 4, NC = D / 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kBN * LD;
-  T* Qs = Vs + kBN * LD;
-  T* dOs = Qs + kBM * LD;
-  float* Ps = reinterpret_cast<float*>(dOs + kBM * LD);
-  float* dSs = Ps + kBM * kPLD;
-  float* lse_s = dSs + kBM * kPLD;
-  float* delta_s = lse_s + kBM;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, key tiles)
-  const int k0 = blockIdx.y * kBN;
-  const bool vec = p.vec != 0;
-  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
-  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-  const float* lse = p.lse + (int64_t)bh * p.tq;
-
-  load_tile<T, D, kBN, FULL>(Ks, k, p.sk[2], k0, p.tk, p.d, vec);
-  load_tile<T, D, kBN, FULL>(Vs, v, p.sv[2], k0, p.tk, p.d, vec);
-  cp_async_commit();
-  // causal: query tiles before the first row that sees key k0 add nothing
-  int qt = 0;
-  if (p.causal) {
-    const int first_row = k0 - (p.tk - p.tq);
-    qt = first_row <= 0 ? 0 : first_row / kBM;
-  }
-  float dk[4][NC][4] = {}, dv[4][NC][4] = {};
-  for (; qt * kBM < p.tq; ++qt) {
-    const int q0 = qt * kBM;
-    load_tile<T, D, kBM, FULL>(Qs, q, p.sq[2], q0, p.tq, p.d, vec);
-    load_tile<T, D, kBM, FULL>(dOs, dout, p.sdo[2], q0, p.tq, p.d, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_lse_delta<T, D, FULL>(p, o, dOs, lse, q0, lse_s, delta_s);
-    __syncthreads();
-    tile_p_ds<T, D>(p, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, Ps, dSs);
-    __syncthreads();
-    tile_ptx<T, D>(Ps, dOs, tx, ty, dv);
-    tile_ptx<T, D>(dSs, Qs, tx, ty, dk);
-    __syncthreads();  // the next query tile overwrites Qs, dOs, Ps, dSs
-  }
-  cp_async_wait<0>();  // no query tile at all: the K/V loads still land first
-  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * p.d;
-  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * p.d;
-  store_rows<T, D, FULL>(dkp, k0, p.tk, p.d, p.d, tx, ty, dk);
-  store_rows<T, D, FULL>(dvp, k0, p.tk, p.d, p.d, tx, ty, dv);
-}
-
-template <typename T, int D, bool FULL>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParams p) {
-  constexpr int LD = D + 4, NC = D / 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kBM * LD;
-  T* Ks = dOs + kBM * LD;
-  T* Vs = Ks + kBN * LD;
-  float* dSs = reinterpret_cast<float*>(Vs + kBN * LD);
-  float* lse_s = dSs + kBM * kPLD;
-  float* delta_s = lse_s + kBM;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, query tiles)
-  // causal: the last query tiles have the most keys, so they start first
-  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBM;
-  const bool vec = p.vec != 0;
-  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
-  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-  const float* lse = p.lse + (int64_t)bh * p.tq;
-
-  float dq[4][NC][4] = {};
-  const int n_kt = key_tiles(p, q0);
-  if (n_kt > 0) {
-    load_tile<T, D, kBM, FULL>(Qs, q, p.sq[2], q0, p.tq, p.d, vec);
-    load_tile<T, D, kBM, FULL>(dOs, dout, p.sdo[2], q0, p.tq, p.d, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_lse_delta<T, D, FULL>(p, o, dOs, lse, q0, lse_s, delta_s);
-  }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBN;
-    load_tile<T, D, kBN, FULL>(Ks, k, p.sk[2], k0, p.tk, p.d, vec);
-    load_tile<T, D, kBN, FULL>(Vs, v, p.sv[2], k0, p.tk, p.d, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_p_ds<T, D>(p, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, nullptr, dSs);
-    __syncthreads();
-    tile_pv<T, D>(dSs, Ks, tx, ty, dq);
-    __syncthreads();  // the next key tile overwrites Ks, Vs, dSs
-  }
-  T* dqp = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * p.d;
-  store_rows<T, D, FULL>(dqp, q0, p.tq, p.d, p.d, tx, ty, dq);
-}
-
-// ---------------------------------------------------------------------------
-// The pair at heads wider than kWide: column blocks, as the wide forward.
-// Grid z is the output column block; s and dp walk all of d in kWide-wide
-// chunks, in chunk order (every block forms the same p and ds), and each CTA
-// stores its own kWide columns of dK and dV, or of dQ. delta = rowsum(dO * O)
-// reads both rows from device memory over all of d.
-// ---------------------------------------------------------------------------
-
-// lse and delta of the query tile's rows, both rows read from device memory
-// (four threads a row); rows at or past tq get 0
-template <typename T>
-__device__ __forceinline__ void tile_lse_delta_wide(const FlashParams& p, const T* o,
-                                                    const T* dout, const float* lse, int q0,
-                                                    float* lse_s, float* delta_s) {
-  const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
-  const bool vec = p.vec != 0;
-  float acc = 0.0f;
-  if (row < p.tq) {
-    const T* orow = o + (int64_t)row * p.so[2];
-    const T* drow = dout + (int64_t)row * p.sdo[2];
-    for (int c = part * 4; c < p.d; c += 16) {
-      float a[4], b[4];
-      load4_row(orow, c, p.d, vec, a);
-      load4_row(drow, c, p.d, vec, b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc = fmaf(a[e], b[e], acc);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) {
-    delta_s[r] = acc;
-    lse_s[r] = row < p.tq ? lse[row] : 0.0f;
-  }
-}
-
-// s and dp of rows q0.. and keys k0.. over all of d: each kWide chunk of q,
-// dO, k and v staged in turn (Qs, dOs, Ks, Vs hold the last chunk after)
-template <typename T>
-__device__ __forceinline__ void wide_s_dp(const FlashParams& p, const T* q, const T* dout,
-                                          const T* k, const T* v, T* Qs, T* dOs, T* Ks, T* Vs,
-                                          int q0, int k0, float (&s)[4][4], float (&dp)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool vec = p.vec != 0;
-  for (int c = 0; c * kWide < p.d; ++c) {
-    const int w = min(kWide, p.d - c * kWide), at = c * kWide;
-    load_tile<T, kWide, kBM, false>(Qs, q + at, p.sq[2], q0, p.tq, w, vec);
-    load_tile<T, kWide, kBM, false>(dOs, dout + at, p.sdo[2], q0, p.tq, w, vec);
-    load_tile<T, kWide, kBN, false>(Ks, k + at, p.sk[2], k0, p.tk, w, vec);
-    load_tile<T, kWide, kBN, false>(Vs, v + at, p.sv[2], k0, p.tk, w, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_dot<T, kWide>(Qs, Ks, tx, ty, s);
-    tile_dot<T, kWide>(dOs, Vs, tx, ty, dp);
-    __syncthreads();  // the next chunk overwrites the tiles
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_wide_kernel(const FlashParams p) {
-  constexpr int D = kWide, LD = D + 4, NC = D / 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kBN * LD;
-  T* Qs = Vs + kBN * LD;
-  T* dOs = Qs + kBM * LD;
-  float* Ps = reinterpret_cast<float*>(dOs + kBM * LD);
-  float* dSs = Ps + kBM * kPLD;
-  float* lse_s = dSs + kBM * kPLD;
-  float* delta_s = lse_s + kBM;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, key tiles, blocks)
-  const int k0 = blockIdx.y * kBN, c0 = blockIdx.z * D, cols = min(D, p.d - c0);
-  const bool last_chunk = c0 + D >= p.d, vec = p.vec != 0;
-  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
-  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-  const float* lse = p.lse + (int64_t)bh * p.tq;
-
-  int qt = 0;
-  if (p.causal) {
-    const int first_row = k0 - (p.tk - p.tq);
-    qt = first_row <= 0 ? 0 : first_row / kBM;
-  }
-  float dk[4][NC][4] = {}, dv[4][NC][4] = {};
-  for (; qt * kBM < p.tq; ++qt) {
-    const int q0 = qt * kBM;
-    float s[4][4] = {}, dp[4][4] = {};
-    wide_s_dp<T>(p, q, dout, k, v, Qs, dOs, Ks, Vs, q0, k0, s, dp);
-    if (!last_chunk) {  // this block's columns of q and dO, for dK and dV
-      load_tile<T, D, kBM, false>(Qs, q + c0, p.sq[2], q0, p.tq, cols, vec);
-      load_tile<T, D, kBM, false>(dOs, dout + c0, p.sdo[2], q0, p.tq, cols, vec);
-      cp_async_commit();
-    }
-    tile_lse_delta_wide<T>(p, o, dout, lse, q0, lse_s, delta_s);
-    cp_async_wait<0>();
-    __syncthreads();
-    p_ds_tile<T>(p, s, dp, lse_s, delta_s, q0, k0, Ps, dSs);
-    __syncthreads();
-    tile_ptx<T, D>(Ps, dOs, tx, ty, dv);
-    tile_ptx<T, D>(dSs, Qs, tx, ty, dk);
-    __syncthreads();  // the next query tile overwrites every tile
-  }
-  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * p.d + c0;
-  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * p.d + c0;
-  store_rows<T, D, false>(dkp, k0, p.tk, p.d, cols, tx, ty, dk);
-  store_rows<T, D, false>(dvp, k0, p.tk, p.d, cols, tx, ty, dv);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wide_kernel(const FlashParams p) {
-  constexpr int D = kWide, LD = D + 4, NC = D / 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kBM * LD;
-  T* Ks = dOs + kBM * LD;
-  T* Vs = Ks + kBN * LD;
-  float* dSs = reinterpret_cast<float*>(Vs + kBN * LD);
-  float* lse_s = dSs + kBM * kPLD;
-  float* delta_s = lse_s + kBM;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;  // grid (b * h, query tiles, blocks)
-  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBM;
-  const int c0 = blockIdx.z * D, cols = min(D, p.d - c0);
-  const bool last_chunk = c0 + D >= p.d, vec = p.vec != 0;
-  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-  const T* o = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1];
-  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-  const float* lse = p.lse + (int64_t)bh * p.tq;
-
-  float dq[4][NC][4] = {};
-  const int n_kt = key_tiles(p, q0);
-  if (n_kt > 0) tile_lse_delta_wide<T>(p, o, dout, lse, q0, lse_s, delta_s);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBN;
-    float s[4][4] = {}, dp[4][4] = {};
-    wide_s_dp<T>(p, q, dout, k, v, Qs, dOs, Ks, Vs, q0, k0, s, dp);
-    if (!last_chunk) {  // this block's columns of k, for dQ
-      load_tile<T, D, kBN, false>(Ks, k + c0, p.sk[2], k0, p.tk, cols, vec);
-      cp_async_commit();
-    }
-    p_ds_tile<T>(p, s, dp, lse_s, delta_s, q0, k0, nullptr, dSs);
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_pv<T, D>(dSs, Ks, tx, ty, dq);
-    __syncthreads();  // the next key tile overwrites Ks and dSs
-  }
-  T* dqp = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * p.d + c0;
-  store_rows<T, D, false>(dqp, q0, p.tq, p.d, cols, tx, ty, dq);
-}
-
 // ---------------------------------------------------------------------------
 // The fused backward tier: one CTA per (b * h, 128-key tile), five products
 // on the tensor cores (3xTF32 for f32, one exact TF32 product for bf16).
@@ -1050,22 +617,22 @@ __device__ __forceinline__ int swz(int r, int c, int w) {
 }
 
 // rows [r0, r0 + R) of a (t, d) operand with row stride `st` into a
-// swizzled [R][kFD] tile; rows at or past t, and columns at or past d, read
-// as zeros
-// FULL: d == kFD and every row aligned (FlashParams.vec), so whole units
-// copy by cp.async with no column test
-template <typename T, int R, bool FULL>
+// swizzled [R][W] tile, NT threads sharing the copies; rows at or past t,
+// and columns at or past d, read as zeros. FULL: d == W and every row
+// aligned (FlashParams.vec), so whole units copy by cp.async with no column
+// test
+template <typename T, int W, int R, bool FULL, int NT>
 __device__ __forceinline__ void load_swz(T* dst, const T* src, int64_t st, int r0, int t, int d,
                                          bool vec) {
-  constexpr int G = kFD / 4;
-  for (int i = threadIdx.x; i < R * G; i += kFThreads) {
+  constexpr int G = W / 4;
+  for (int i = threadIdx.x; i < R * G; i += NT) {
     const int r = i / G, c = (i % G) * 4;
     const bool ok = r0 + r < t;
     if constexpr (FULL) {
       const T* from = src + (ok ? (int64_t)(r0 + r) * st + c : 0);
-      cp_async<(int)(4 * sizeof(T))>(dst + swz(r, c, kFD), from, ok);
+      cp_async<(int)(4 * sizeof(T))>(dst + swz(r, c, W), from, ok);
     } else {
-      load_unit(dst + swz(r, c, kFD), src + (ok ? (int64_t)(r0 + r) * st : 0), ok, c, d, vec);
+      load_unit(dst + swz(r, c, W), src + (ok ? (int64_t)(r0 + r) * st : 0), ok, c, d, vec);
     }
   }
 }
@@ -1137,17 +704,17 @@ __device__ __forceinline__ void warp_mma_ldsm(float (&acc)[MT][NT][4], int m0, i
   }
 }
 
-// acc = A B with A a row-major swizzled [*][kFD] operand tile of type T: in
+// acc = A B with A a row-major swizzled [*][W] operand tile of type T: in
 // place by ldmatrix for f32, element by element for bf16
-template <typename T, int MT, int NT, int K, typename FB>
+template <typename T, int MT, int NT, int K, int W, typename FB>
 __device__ __forceinline__ void warp_mma_tile(float (&acc)[MT][NT][4], int m0, int n0,
                                               const T* a, FB b) {
   constexpr bool kSplit = tf32::needs_split<T>();
   if constexpr (sizeof(T) == 4) {
-    warp_mma_ldsm<kSplit, MT, NT, K, kFD>(acc, m0, n0, a, b);
+    warp_mma_ldsm<kSplit, MT, NT, K, W>(acc, m0, n0, a, b);
   } else {
     warp_mma<kSplit, MT, NT, K>(
-        acc, m0, n0, [&](int r, int c) { return to_f32(a[swz(r, c, kFD)]); }, b);
+        acc, m0, n0, [&](int r, int c) { return to_f32(a[swz(r, c, W)]); }, b);
   }
 }
 
@@ -1257,11 +824,11 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
 
   const int nq = (p.tq + kFBM - 1) / kFBM;
   const int qt0 = first_query_tile(p, k0);
-  load_swz<T, kFBN, FULL>(Ks, k, p.sk[2], k0, p.tk, d, vec);
-  load_swz<T, kFBN, FULL>(Vs, v, p.sv[2], k0, p.tk, d, vec);
+  load_swz<T, kFD, kFBN, FULL, kFThreads>(Ks, k, p.sk[2], k0, p.tk, d, vec);
+  load_swz<T, kFD, kFBN, FULL, kFThreads>(Vs, v, p.sv[2], k0, p.tk, d, vec);
   if (qt0 < nq) {
-    load_swz<T, kFBM, FULL>(Qs, q, p.sq[2], qt0 * kFBM, p.tq, d, vec);
-    load_swz<T, kFBM, FULL>(dOs, dout, p.sdo[2], qt0 * kFBM, p.tq, d, vec);
+    load_swz<T, kFD, kFBM, FULL, kFThreads>(Qs, q, p.sq[2], qt0 * kFBM, p.tq, d, vec);
+    load_swz<T, kFD, kFBM, FULL, kFThreads>(dOs, dout, p.sdo[2], qt0 * kFBM, p.tq, d, vec);
   }
   cp_async_commit();
 
@@ -1300,8 +867,10 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
     __syncthreads();  // tile qt is here, and the previous tile is done with
     if (qt + 1 < nq) {  // the next tile's copies run under this one's math
       const int nb = (qt + 1 - qt0) & 1;
-      load_swz<T, kFBM, FULL>(Qs + nb * kFBM * kFD, q, p.sq[2], q0 + kFBM, p.tq, d, vec);
-      load_swz<T, kFBM, FULL>(dOs + nb * kFBM * kFD, dout, p.sdo[2], q0 + kFBM, p.tq, d, vec);
+      load_swz<T, kFD, kFBM, FULL, kFThreads>(Qs + nb * kFBM * kFD, q, p.sq[2], q0 + kFBM,
+                                              p.tq, d, vec);
+      load_swz<T, kFD, kFBM, FULL, kFThreads>(dOs + nb * kFBM * kFD, dout, p.sdo[2],
+                                              q0 + kFBM, p.tq, d, vec);
     }
     cp_async_commit();
     {
@@ -1327,9 +896,9 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
     {
       const int wq0 = (warp >> 2) * 32, wn0 = (warp & 3) * 32;
       float s[2][4][4], dp[2][4][4];
-      warp_mma_tile<T, 2, 4, kFD>(s, wq0, wn0, Qb,
+      warp_mma_tile<T, 2, 4, kFD, kFD>(s, wq0, wn0, Qb,
                                   [&](int c, int n) { return to_f32(Ks[swz(n, c, kFD)]); });
-      warp_mma_tile<T, 2, 4, kFD>(dp, wq0, wn0, dOb,
+      warp_mma_tile<T, 2, 4, kFD, kFD>(dp, wq0, wn0, dOb,
                                   [&](int c, int n) { return to_f32(Vs[swz(n, c, kFD)]); });
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -1421,6 +990,409 @@ flash_bwd_fused_kernel(const FlashParams p, float* __restrict__ dq_part, int* ar
   if (tid == 0) arrivals[bh] = 0;  // ready for the next launch on this stream
 }
 
+// ---------------------------------------------------------------------------
+// The dK/dV + dQ pair: delta once, then the five products on the tensor
+// cores, with the fused tier's helpers.
+// ---------------------------------------------------------------------------
+
+constexpr int kPBM = 64;        // query rows a tile of the pair
+constexpr int kPThreads = 256;  // 8 warps
+constexpr size_t kSmemMax = 232448;  // the card's 227 KB a CTA
+
+// keys a tile of the pair at the built width DP: 128 at DP = 64 (the
+// fused tier's tile), 64 at DP = 128 (K and V of 128 keys would not leave
+// room for the ring)
+template <int DP> __host__ __device__ constexpr int pair_keys() {
+  return DP == 64 ? 128 : 64;
+}
+
+// delta = rowsum(dO * O) in f32, once per query row, into (b, h, tq):
+// four threads a row, each summing its 4-element units in column order,
+// then the quad; grid (b * h, 64-row tiles)
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const FlashParams p,
+                                                              float* __restrict__ delta) {
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;
+  const int row = blockIdx.y * 64 + (threadIdx.x >> 2), part = threadIdx.x & 3;
+  const bool vec = p.vec != 0;
+  float acc = 0.0f;
+  if (row < p.tq) {
+    const T* orow = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[1] +
+                    (int64_t)row * p.so[2];
+    const T* drow = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1] +
+                    (int64_t)row * p.sdo[2];
+    for (int c = part * 4; c < p.d; c += 16) {
+      float a[4], b[4];
+      load4_row(orow, c, p.d, vec, a);
+      load4_row(drow, c, p.d, vec, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc = fmaf(a[e], b[e], acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  if (part == 0 && row < p.tq) delta[(int64_t)bh * p.tq + row] = acc;
+}
+
+// Shared memory of a pair kernel. Its own side (the dK/dV kernel's K and
+// V, the dQ kernel's q and dO) is resident over all nc column chunks when
+// that fits beside a ring of the streamed side; otherwise each ring stage
+// carries the own side's chunk too. n_ps f32 [64][BN] tiles follow (p and
+// ds, or ds alone).
+struct PairPlan {
+  int resident, stages;
+  size_t bytes;
+};
+
+template <typename T, int DP>
+PairPlan pair_plan(int nc, int own_rows, int stream_rows, int n_ps) {
+  const size_t row = (size_t)DP * sizeof(T), own = 2 * (size_t)nc * own_rows * row;
+  const size_t ps = (size_t)n_ps * kPBM * pair_keys<DP>() * 4;
+  const size_t stage = 2 * (size_t)stream_rows * row, both = stage + 2 * (size_t)own_rows * row;
+  if (own + 2 * stage + ps <= kSmemMax) return {1, 2, own + 2 * stage + ps};
+  if (own + stage + ps <= kSmemMax) return {1, 1, own + stage + ps};
+  if (2 * both + ps <= kSmemMax) return {0, 2, 2 * both + ps};
+  return {0, 1, both + ps};
+}
+
+// s = q k^T and dp = dO v^T of a 64 x BN (query, key) tile over one
+// DP-wide column chunk, summed in the tensor core from 0: warps 2 (queries)
+// x 4 (keys), 32 x BN / 4 each
+template <typename T, int DP, int BN>
+__device__ __forceinline__ void pair_s_dp(float (&s)[2][BN / 32][4],
+                                          float (&dp)[2][BN / 32][4], const T* Qc,
+                                          const T* dOc, const T* Kc, const T* Vc) {
+  const int warp = threadIdx.x >> 5, wq0 = (warp >> 2) * 32, wn0 = (warp & 3) * (BN / 4);
+  warp_mma_tile<T, 2, BN / 32, DP, DP>(s, wq0, wn0, Qc,
+                                       [&](int c, int n) { return to_f32(Kc[swz(n, c, DP)]); });
+  warp_mma_tile<T, 2, BN / 32, DP, DP>(dp, wq0, wn0, dOc,
+                                       [&](int c, int n) { return to_f32(Vc[swz(n, c, DP)]); });
+}
+
+// the next column chunk of s and dp: summed from 0, then joined to the
+// running sums in f32, in chunk order (a single chunk goes straight in)
+template <typename T, int DP, int BN>
+__device__ __forceinline__ void pair_chunk(float (&s)[2][BN / 32][4],
+                                           float (&dp)[2][BN / 32][4], const T* Qc,
+                                           const T* dOc, const T* Kc, const T* Vc, int j,
+                                           int nc) {
+  if (DP == 64 || nc == 1) {  // d <= DP: one chunk
+    pair_s_dp<T, DP, BN>(s, dp, Qc, dOc, Kc, Vc);
+    return;
+  }
+  float ts[2][BN / 32][4], tdp[2][BN / 32][4];
+  pair_s_dp<T, DP, BN>(ts, tdp, Qc, dOc, Kc, Vc);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < BN / 32; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[i][n][e] = j == 0 ? ts[i][n][e] : s[i][n][e] + ts[i][n][e];
+        dp[i][n][e] = j == 0 ? tdp[i][n][e] : dp[i][n][e] + tdp[i][n][e];
+      }
+}
+
+// p = exp(s * scale - lse) and ds = p (dp - delta) scale of the warp's
+// fragments, rounded to T, into the f32 swizzled [64][BN] tiles Ps (when
+// not null) and dSs; L and D hold lse and delta of the thread's rows
+// wq0 + 16 i + g + 8 h
+template <typename T, int BN>
+__device__ __forceinline__ void pair_p_ds(const FlashParams& p, const float (&s)[2][BN / 32][4],
+                                          const float (&dp)[2][BN / 32][4],
+                                          const float (&L)[2][2], const float (&D)[2][2],
+                                          int q0, int k0, float* Ps, float* dSs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wq0 = (warp >> 2) * 32, wn0 = (warp & 3) * (BN / 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wq0 + 16 * i + g + 8 * h;
+#pragma unroll
+      for (int n = 0; n < BN / 32; ++n) {
+        const int c = wn0 + 8 * n + 2 * t;
+        float pv[2], dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pf = visible(p, q0 + r, k0 + c + e)
+                               ? expf(s[i][n][2 * h + e] * p.scale - L[i][h]) : 0.0f;
+          pv[e] = round_t<T>(pf);
+          dsv[e] = round_t<T>(pf * (dp[i][n][2 * h + e] - D[i][h]) * p.scale);
+        }
+        if (Ps != nullptr)
+          *reinterpret_cast<float2*>(Ps + swz(r, c, BN)) = make_float2(pv[0], pv[1]);
+        *reinterpret_cast<float2*>(dSs + swz(r, c, BN)) = make_float2(dsv[0], dsv[1]);
+      }
+    }
+}
+
+// lse and delta of the thread's fragment rows of the query tile at q0 (0
+// past tq)
+__device__ __forceinline__ void pair_rows(const FlashParams& p, const float* lse,
+                                          const float* delta, int q0, float (&L)[2][2],
+                                          float (&D)[2][2]) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, wq0 = (warp >> 2) * 32;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wq0 + 16 * i + g + 8 * h;
+      L[i][h] = row < p.tq ? lse[row] : 0.0f;
+      D[i][h] = row < p.tq ? delta[row] : 0.0f;
+    }
+}
+
+// One CTA per (b * h, BN-key tile, DP-wide output column block): dK and dV
+// of its keys over every query tile (causal: from the first that sees
+// them). Steps of a query tile: the nc column chunks of (q, dO) in order,
+// whose s and dp sum in f32 (K / V resident, or staged beside them), then,
+// when this block's chunk z is not the last, (q, dO) of chunk z again.
+// After the last chunk p and ds go to shared memory; then dV += p^T dO_z and
+// dK += ds^T q_z, each query tile's part summed from 0 and added in f32.
+// FULL: d == DP and every operand row aligned (FlashParams.vec).
+template <typename T, int DP, bool FULL>
+__global__ void __launch_bounds__(kPThreads, 1)
+flash_bwd_dkv_kernel(const FlashParams p, const float* __restrict__ delta, int resident,
+                     int stages) {
+  constexpr bool kSplit = tf32::needs_split<T>();
+  constexpr int BN = pair_keys<DP>(), QT = kPBM * DP, KT = BN * DP;
+  constexpr int MT = BN / 64, NTD = DP / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.y * BN;
+  const int nc = FULL ? 1 : (p.d + DP - 1) / DP, z = blockIdx.z;
+  const int c0 = z * DP, cols = FULL ? DP : min(DP, p.d - c0);
+  const int ns = nc + (z != nc - 1);  // steps a query tile
+  const bool vec = p.vec != 0;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+  const float* lse = p.lse + (int64_t)bh * p.tq;
+  const float* dl = delta + (int64_t)bh * p.tq;
+
+  T* own = reinterpret_cast<T*>(smem);  // resident: K chunks, then V chunks
+  T* ring = own + (resident ? 2 * nc * KT : 0);
+  const int stage_elems = 2 * QT + (resident ? 0 : 2 * KT);  // q, dO [, k, v]
+  float* Ps = reinterpret_cast<float*>(ring + stages * stage_elems);
+  float* dSs = Ps + kPBM * BN;
+
+  const int qt0 = first_query_tile(p, k0), nq = (p.tq + kPBM - 1) / kPBM;
+  const int total = (nq - qt0) * ns;
+  auto width = [&](int c) { return FULL ? DP : min(DP, p.d - c * DP); };
+  if (resident) {
+    for (int c = 0; c < nc; ++c) {
+      load_swz<T, DP, BN, FULL, kPThreads>(own + c * KT, k + c * DP, p.sk[2], k0, p.tk,
+                                           width(c), vec);
+      load_swz<T, DP, BN, FULL, kPThreads>(own + (nc + c) * KT, v + c * DP, p.sv[2], k0, p.tk,
+                                           width(c), vec);
+    }
+  }
+  auto issue = [&](int gs) {
+    const int j = gs % ns, c = j < nc ? j : z, q0 = (qt0 + gs / ns) * kPBM;
+    T* st = ring + (gs % stages) * stage_elems;
+    load_swz<T, DP, kPBM, FULL, kPThreads>(st, q + c * DP, p.sq[2], q0, p.tq, width(c), vec);
+    load_swz<T, DP, kPBM, FULL, kPThreads>(st + QT, dout + c * DP, p.sdo[2], q0, p.tq,
+                                           width(c), vec);
+    if (!resident && j < nc) {
+      load_swz<T, DP, BN, FULL, kPThreads>(st + 2 * QT, k + c * DP, p.sk[2], k0, p.tk,
+                                           width(c), vec);
+      load_swz<T, DP, BN, FULL, kPThreads>(st + 2 * QT + KT, v + c * DP, p.sv[2], k0, p.tk,
+                                           width(c), vec);
+    }
+  };
+  if (total > 0) issue(0);
+  cp_async_commit();
+
+  // dK, dV: warps 4 (keys) x 2 (columns), BN / 4 x DP / 2 each
+  const int warp = threadIdx.x >> 5, wk0 = (warp >> 1) * (BN / 4), wd0 = (warp & 1) * (DP / 2);
+  float dk[MT][NTD][4], dv[MT][NTD][4], s[2][BN / 32][4], dp[2][BN / 32][4];
+  zero(dk);
+  zero(dv);
+  for (int gs = 0; gs < total; ++gs) {
+    if (stages == 1 && gs > 0) {
+      __syncthreads();  // every warp is done with the one stage
+      issue(gs);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // step gs is here, and every warp is done with step gs - 1
+    if (stages == 2 && gs + 1 < total) issue(gs + 1);  // its copies run under this math
+    cp_async_commit();
+    const int j = gs % ns, q0 = (qt0 + gs / ns) * kPBM;
+    const T* st = ring + (gs % stages) * stage_elems;
+    if (j < nc) {
+      const T* Kc = resident ? own + j * KT : st + 2 * QT;
+      const T* Vc = resident ? own + (nc + j) * KT : st + 2 * QT + KT;
+      pair_chunk<T, DP, BN>(s, dp, st, st + QT, Kc, Vc, j, nc);
+      if (j == nc - 1) {
+        float L[2][2], D[2][2];
+        pair_rows(p, lse, dl, q0, L, D);
+        pair_p_ds<T, BN>(p, s, dp, L, D, q0, k0, Ps, dSs);
+        __syncthreads();  // p and ds are whole
+      }
+    }
+    if (j == ns - 1) {  // st holds (q, dO) of chunk z
+      const T* Qz = st;
+      const T* dOz = st + QT;
+      float part[MT][NTD][4];
+      warp_mma<kSplit, MT, NTD, kPBM>(
+          part, wk0, wd0, [&](int key, int r) { return Ps[swz(r, key, BN)]; },
+          [&](int r, int c) { return to_f32(dOz[swz(r, c, DP)]); });
+      add_to(dv, part);
+      warp_mma<kSplit, MT, NTD, kPBM>(
+          part, wk0, wd0, [&](int key, int r) { return dSs[swz(r, key, BN)]; },
+          [&](int r, int c) { return to_f32(Qz[swz(r, c, DP)]); });
+      add_to(dk, part);
+    }
+  }
+  cp_async_wait<0>();  // the resident loads land before the CTA exits
+
+  const int d = FULL ? DP : p.d;  // the outputs' row stride
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  T* dkp = static_cast<T*>(p.dk) + (int64_t)bh * p.tk * d + c0;
+  T* dvp = static_cast<T*>(p.dv) + (int64_t)bh * p.tk * d + c0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + wk0 + 16 * i + g + 8 * h;
+      if (key >= p.tk) continue;
+#pragma unroll
+      for (int n = 0; n < NTD; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = wd0 + 8 * n + 2 * t + e;
+          if (!FULL && c >= cols) continue;
+          dkp[(int64_t)key * d + c] = from_f32<T>(dk[i][n][2 * h + e]);
+          dvp[(int64_t)key * d + c] = from_f32<T>(dv[i][n][2 * h + e]);
+        }
+    }
+}
+
+// One CTA per (b * h, 64-row query tile, DP-wide output column block): dQ
+// of its rows over every BN-key tile it sees. Steps of a key tile: the nc
+// column chunks of (k, v) in order (q / dO resident, or staged beside
+// them), then, when this block's chunk z is not the last, k of chunk z
+// again. After the last chunk ds goes to shared memory; then dQ += ds k_z,
+// each key tile's part summed from 0 and added in f32.
+template <typename T, int DP, bool FULL>
+__global__ void __launch_bounds__(kPThreads, 1)
+flash_bwd_dq_kernel(const FlashParams p, const float* __restrict__ delta, int resident,
+                    int stages) {
+  constexpr bool kSplit = tf32::needs_split<T>();
+  constexpr int BN = pair_keys<DP>(), QT = kPBM * DP, KT = BN * DP, NTQ = DP / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;
+  // causal: the last query tiles have the most keys, so they start first
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kPBM;
+  const int nc = FULL ? 1 : (p.d + DP - 1) / DP, z = blockIdx.z;
+  const int c0 = z * DP, cols = FULL ? DP : min(DP, p.d - c0);
+  const int ns = nc + (z != nc - 1);  // steps a key tile
+  const bool vec = p.vec != 0;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+
+  T* own = reinterpret_cast<T*>(smem);  // resident: q chunks, then dO chunks
+  T* ring = own + (resident ? 2 * nc * QT : 0);
+  const int stage_elems = 2 * KT + (resident ? 0 : 2 * QT);  // k, v [, q, dO]
+  float* dSs = reinterpret_cast<float*>(ring + stages * stage_elems);
+
+  // key tiles the rows see: all, or (causal) up to the last valid row's
+  // last visible key
+  int n_kt = (p.tk + BN - 1) / BN;
+  if (p.causal) {
+    const int last_key = min(q0 + kPBM, p.tq) - 1 + (p.tk - p.tq);
+    n_kt = last_key < 0 ? 0 : min(n_kt, last_key / BN + 1);
+  }
+  const int total = n_kt * ns;
+  auto width = [&](int c) { return FULL ? DP : min(DP, p.d - c * DP); };
+  if (resident && total > 0) {
+    for (int c = 0; c < nc; ++c) {
+      load_swz<T, DP, kPBM, FULL, kPThreads>(own + c * QT, q + c * DP, p.sq[2], q0, p.tq,
+                                             width(c), vec);
+      load_swz<T, DP, kPBM, FULL, kPThreads>(own + (nc + c) * QT, dout + c * DP, p.sdo[2],
+                                             q0, p.tq, width(c), vec);
+    }
+  }
+  auto issue = [&](int gs) {
+    const int j = gs % ns, c = j < nc ? j : z, k0 = (gs / ns) * BN;
+    T* st = ring + (gs % stages) * stage_elems;
+    load_swz<T, DP, BN, FULL, kPThreads>(st, k + c * DP, p.sk[2], k0, p.tk, width(c), vec);
+    if (j < nc) {
+      load_swz<T, DP, BN, FULL, kPThreads>(st + KT, v + c * DP, p.sv[2], k0, p.tk, width(c),
+                                           vec);
+      if (!resident) {
+        load_swz<T, DP, kPBM, FULL, kPThreads>(st + 2 * KT, q + c * DP, p.sq[2], q0, p.tq,
+                                               width(c), vec);
+        load_swz<T, DP, kPBM, FULL, kPThreads>(st + 2 * KT + QT, dout + c * DP, p.sdo[2], q0,
+                                               p.tq, width(c), vec);
+      }
+    }
+  };
+  if (total > 0) issue(0);
+  cp_async_commit();
+
+  float L[2][2], D[2][2];
+  pair_rows(p, p.lse + (int64_t)bh * p.tq, delta + (int64_t)bh * p.tq, q0, L, D);
+  // dQ: warps 2 (queries) x 4 (columns), 32 x DP / 4 each
+  const int warp = threadIdx.x >> 5, wq0 = (warp >> 2) * 32, wc0 = (warp & 3) * (DP / 4);
+  float dq[2][NTQ][4], s[2][BN / 32][4], dp[2][BN / 32][4];
+  zero(dq);
+  for (int gs = 0; gs < total; ++gs) {
+    if (stages == 1 && gs > 0) {
+      __syncthreads();
+      issue(gs);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (stages == 2 && gs + 1 < total) issue(gs + 1);
+    cp_async_commit();
+    const int j = gs % ns, k0 = (gs / ns) * BN;
+    const T* st = ring + (gs % stages) * stage_elems;
+    if (j < nc) {
+      const T* Qc = resident ? own + j * QT : st + 2 * KT;
+      const T* dOc = resident ? own + (nc + j) * QT : st + 2 * KT + QT;
+      pair_chunk<T, DP, BN>(s, dp, Qc, dOc, st, st + KT, j, nc);
+      if (j == nc - 1) {
+        pair_p_ds<T, BN>(p, s, dp, L, D, q0, k0, nullptr, dSs);
+        __syncthreads();  // ds is whole
+      }
+    }
+    if (j == ns - 1) {  // st holds k of chunk z
+      const T* Kz = st;
+      float part[2][NTQ][4];
+      warp_mma_ldsm<kSplit, 2, NTQ, BN, BN>(
+          part, wq0, wc0, dSs, [&](int key, int c) { return to_f32(Kz[swz(key, c, DP)]); });
+      add_to(dq, part);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int d = FULL ? DP : p.d;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  T* dqp = static_cast<T*>(p.dq) + (int64_t)bh * p.tq * d + c0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wq0 + 16 * i + g + 8 * h;
+      if (row >= p.tq) continue;
+#pragma unroll
+      for (int n = 0; n < NTQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = wc0 + 8 * n + 2 * t + e;
+          if (!FULL && c >= cols) continue;
+          dqp[(int64_t)row * d + c] = from_f32<T>(dq[i][n][2 * h + e]);
+        }
+    }
+}
+
 template <typename T> constexpr size_t fused_smem() {
   return (size_t)(2 * kFBN + 4 * kFBM) * kFD * sizeof(T) +
          (size_t)(2 * kFBM * kFBN + 2 * kFBM) * sizeof(float);
@@ -1429,14 +1401,6 @@ static_assert(fused_smem<float>() <= 232448 - 1024, "fused backward tile too lar
 
 template <typename T, int DP> constexpr size_t fwd_smem() {
   return (size_t)(kBM + 4 * kBN) * DP * sizeof(T);
-}
-template <typename T, int D> constexpr size_t dkv_smem() {
-  return (size_t)(2 * kBM + 2 * kBN) * (D + 4) * sizeof(T) +
-         (size_t)(2 * kBM * kPLD + 2 * kBM) * sizeof(float);
-}
-template <typename T, int D> constexpr size_t dq_smem() {
-  return (size_t)(2 * kBM + 2 * kBN) * (D + 4) * sizeof(T) +
-         (size_t)(kBM * kPLD + 2 * kBM) * sizeof(float);
 }
 
 // the wide forward's ring: two stages of two [64][kWide] tiles
@@ -1447,7 +1411,8 @@ template <typename T> constexpr size_t fwd_wide_smem() {
 // every configuration fits one CTA under the card's 227 KB
 static_assert(fwd_smem<float, 128>() <= 232448, "forward tile too large");
 static_assert(fwd_wide_smem<float>() <= 232448, "wide forward ring too large");
-static_assert(dkv_smem<float, 128>() <= 232448, "dK/dV tile too large");
+static_assert(4 * kPBM * 128 * sizeof(float) + 2 * kPBM * pair_keys<128>() * 4 <= kSmemMax,
+              "the pair's smallest plan at DP = 128 too large");
 
 // Opt the kernel into more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
@@ -1487,51 +1452,42 @@ cudaError_t fwd_width(const FlashParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool FULL>
-cudaError_t bwd_typed(const FlashParams& p, cudaStream_t st) {
-  constexpr size_t kv_bytes = dkv_smem<T, D>();
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D, FULL>, kv_bytes);
+// The pair at the built width DP >= d (past 128: DP-wide column blocks,
+// grid z): delta first, then the dK/dV kernel and the dQ kernel
+template <typename T, int DP, bool FULL>
+cudaError_t pair_typed(const FlashParams& p, float* delta, cudaStream_t st) {
+  const int nc = (p.d + DP - 1) / DP;
+  flash_bwd_delta_kernel<T><<<dim3(p.b * p.h, (p.tq + 63) / 64), 256, 0, st>>>(p, delta);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D, FULL>
-      <<<dim3(p.b * p.h, (p.tk + kBN - 1) / kBN), kThreads, kv_bytes, st>>>(p);
+  constexpr int BN = pair_keys<DP>();
+  const PairPlan kv = pair_plan<T, DP>(nc, BN, kPBM, 2);
+  err = prepare(flash_bwd_dkv_kernel<T, DP, FULL>, kv.bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<T, DP, FULL>
+      <<<dim3(p.b * p.h, (p.tk + BN - 1) / BN, nc), kPThreads, kv.bytes, st>>>(
+          p, delta, kv.resident, kv.stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr size_t q_bytes = dq_smem<T, D>();
-  err = prepare(flash_bwd_dq_kernel<T, D, FULL>, q_bytes);
+  const PairPlan qp = pair_plan<T, DP>(nc, kPBM, BN, 1);
+  err = prepare(flash_bwd_dq_kernel<T, DP, FULL>, qp.bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D, FULL>
-      <<<dim3(p.b * p.h, (p.tq + kBM - 1) / kBM), kThreads, q_bytes, st>>>(p);
+  flash_bwd_dq_kernel<T, DP, FULL>
+      <<<dim3(p.b * p.h, (p.tq + kPBM - 1) / kPBM, nc), kPThreads, qp.bytes, st>>>(
+          p, delta, qp.resident, qp.stages);
   return cudaGetLastError();
 }
 
-// the built width D >= d; FULL where d == D and every row is aligned
-template <typename T, int D>
-cudaError_t bwd_full(const FlashParams& p, cudaStream_t st) {
-  return p.d == D && p.vec ? bwd_typed<T, D, true>(p, st) : bwd_typed<T, D, false>(p, st);
-}
-
-// heads past kWide: the wide pair, one CTA per output column block
+// DP 64 or 128 (and 128-wide blocks past it); FULL where d == DP and every
+// row is aligned
 template <typename T>
-cudaError_t bwd_wide(const FlashParams& p, cudaStream_t st) {
-  constexpr size_t kv_bytes = dkv_smem<T, kWide>(), q_bytes = dq_smem<T, kWide>();
-  cudaError_t err = prepare(flash_bwd_dkv_wide_kernel<T>, kv_bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_wide_kernel<T>
-      <<<dim3(p.b * p.h, (p.tk + kBN - 1) / kBN, wide_blocks(p)), kThreads, kv_bytes, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = prepare(flash_bwd_dq_wide_kernel<T>, q_bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_wide_kernel<T>
-      <<<dim3(p.b * p.h, (p.tq + kBM - 1) / kBM, wide_blocks(p)), kThreads, q_bytes, st>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t bwd_width(const FlashParams& p, cudaStream_t st) {
-  if (p.d <= 64) return bwd_full<T, 64>(p, st);
-  if (p.d <= 128) return bwd_full<T, 128>(p, st);
-  return bwd_wide<T>(p, st);
+cudaError_t bwd_width(const FlashParams& p, float* delta, cudaStream_t st) {
+  const bool full = p.vec != 0;
+  if (p.d <= 64)
+    return p.d == 64 && full ? pair_typed<T, 64, true>(p, delta, st)
+                             : pair_typed<T, 64, false>(p, delta, st);
+  if (p.d == 128 && full) return pair_typed<T, 128, true>(p, delta, st);
+  return pair_typed<T, 128, false>(p, delta, st);
 }
 
 template <typename T, bool FULL>
@@ -1574,13 +1530,14 @@ int flash_attention_fwd(const FlashParams* p, void* stream) {
   return (int)fwd_width<__nv_bfloat16>(*p, st);
 }
 
-// q, k, v, o, dout (strided), lse -> dq (b, h, tq, d), dk, dv (b, h, tk, d):
-// the dK/dV kernel, then the dQ kernel
-int flash_attention_bwd(const FlashParams* p, void* stream) {
-  if (p == nullptr || !shape_ok(*p)) return (int)cudaErrorInvalidValue;
+// q, k, v, o, dout (strided), lse -> dq (b, h, tq, d), dk, dv (b, h, tk, d),
+// with delta an f32 scratch of (b, h, tq): the delta kernel, the dK/dV
+// kernel, then the dQ kernel
+int flash_attention_bwd(const FlashParams* p, float* delta, void* stream) {
+  if (p == nullptr || !shape_ok(*p) || delta == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0) return (int)bwd_width<float>(*p, st);
-  return (int)bwd_width<__nv_bfloat16>(*p, st);
+  if (p->dtype == 0) return (int)bwd_width<float>(*p, delta, st);
+  return (int)bwd_width<__nv_bfloat16>(*p, delta, st);
 }
 
 // The fused tier (d <= 64): q, k, v, o, dout (strided), lse -> dq, dk, dv, with

@@ -21,7 +21,9 @@ both forward tiers. The backward has two tiers, as in the JAX package: the
 fused kernel (five products, one CTA per 128-key tile, per-key-tile dQ
 partials summed in a fixed order) where those partials stay within 2x dQ
 (`flash_bwd_fused_ok`: at most two key tiles, head width up to 64), and the
-dK/dV + dQ pair everywhere else; on the card every shape takes a kernel.
+dK/dV + dQ pair everywhere else (delta = rowsum(dO * O) once per query
+row, then both kernels' five products on the tensor cores); on the card
+every shape takes a kernel.
 The kernels take any head width d >= 1: up to 128 each is built for a few
 padded widths and zero-fills the columns past d as it loads a tile, so the
 operands reach it as they are, without a padded copy; wider heads take
@@ -52,6 +54,7 @@ __all__ = [
     "flash_attention",
     "flash_backward",
     "flash_backward_plain",
+    "flash_bwd_delta_plain",
     "flash_bwd_fused_ok",
     "flash_forward",
     "flash_forward_plain",
@@ -134,13 +137,19 @@ def flash_forward_plain(q, k, v, causal, sm_scale):
     return out.to(q.dtype), lse.squeeze(-1)
 
 
+def flash_bwd_delta_plain(out, dout):
+    """delta = rowsum(dO * O) in f32, (b, h, tq): what the pair's delta
+    kernel computes once per query row (the JAX package's expression)."""
+    return (dout.float() * out.float()).sum(dim=-1)
+
+
 def flash_backward_plain(q, k, v, out, lse, dout, causal, sm_scale):
     """(dq, dk, dv) of the flash forward from its saved out and lse, each in
     its operand's dtype; delta = rowsum(dO * O) in f32."""
     dt = q.dtype
     p = torch.exp(_scores(q, k, causal, sm_scale) - lse.float().unsqueeze(-1))
     do32 = dout.float()
-    delta = (do32 * out.float()).sum(dim=-1, keepdim=True)
+    delta = flash_bwd_delta_plain(out, dout).unsqueeze(-1)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do32)
     dp = torch.matmul(do32, v.float().transpose(-1, -2))
     ds = (p * (dp - delta) * sm_scale).to(dt).float()
@@ -163,6 +172,8 @@ _LAUNCHES = {
     "flash_fwd_causal": 0,
     "flash_bwd_fused": 0,
     "flash_bwd_fused_causal": 0,
+    "flash_bwd_delta": 0,
+    "flash_bwd_delta_causal": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dkv_causal": 0,
     "flash_bwd_dq": 0,
@@ -200,9 +211,10 @@ class _Params(ctypes.Structure):
 
 def _bind(lib):
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd):
-        fn.argtypes = [ctypes.POINTER(_Params), ptr]
-        fn.restype = i32
+    lib.flash_attention_fwd.argtypes = [ctypes.POINTER(_Params), ptr]
+    lib.flash_attention_fwd.restype = i32
+    lib.flash_attention_bwd.argtypes = [ctypes.POINTER(_Params), ptr, ptr]
+    lib.flash_attention_bwd.restype = i32
     lib.flash_attention_bwd_fused.argtypes = [ctypes.POINTER(_Params), ptr, ptr, ptr]
     lib.flash_attention_bwd_fused.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
@@ -320,8 +332,9 @@ def flash_backward(q, k, v, out, lse, dout, causal, sm_scale):
     """(dq, dk, dv) of flash attention from the saved out and lse (each in
     its operand's dtype, contiguous). CUDA tensors launch the fused kernel
     where flash_bwd_fused_ok holds (its dQ summed by the last key tile of
-    each (b, h)), else the dK/dV and the dQ kernels; CPU and meta tensors
-    run flash_backward_plain."""
+    each (b, h)), else the pair: delta once per query row into an f32
+    scratch, then the dK/dV and the dQ kernels; CPU and meta tensors run
+    flash_backward_plain."""
     if q.device.type != "cuda":
         return flash_backward_plain(q, k, v, out, lse, dout, causal, sm_scale)
     b, h, tq, tk, d = _check(q, k, v)
@@ -348,7 +361,9 @@ def flash_backward(q, k, v, out, lse, dout, causal, sm_scale):
                 arrivals.data_ptr())
         _LAUNCHES["flash_bwd_fused" + form] += 1
         return dq, dk, dv
-    _launch("flash_attention_bwd", prm, q.device)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_bwd", prm, q.device, delta.data_ptr())
+    _LAUNCHES["flash_bwd_delta" + form] += 1
     _LAUNCHES["flash_bwd_dq" + form] += 1
     _LAUNCHES["flash_bwd_dkv" + form] += 1
     return dq, dk, dv

@@ -473,6 +473,26 @@ def test_fused_backward_tier_predicate(tk, d, fused):
     assert (n_parts <= fa.FUSED_BWD_MAX_PARTIALS) or not fused
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_delta_matches_jax_expression(jax_mods, dtype):
+    """delta = rowsum(dO * O) in f32, which the pair's delta kernel computes
+    once per query row: the plain form the CPU takes against the JAX
+    package's expression (pallas_kernels.py, _flash_backward_streamed)."""
+    _, jnp, _, _ = jax_mods
+    rng = np.random.RandomState(17)
+    out = rng.randn(2, 3, 77, 96).astype("float32")
+    dout = rng.randn(2, 3, 77, 96).astype("float32")
+    to = torch.from_numpy(out).to(getattr(torch, dtype))
+    tdo = torch.from_numpy(dout).to(getattr(torch, dtype))
+    got = fa.flash_bwd_delta_plain(to, tdo)
+    jdt = getattr(jnp, dtype)
+    jo = jnp.asarray(to.float().numpy()).astype(jdt)
+    jdo = jnp.asarray(tdo.float().numpy()).astype(jdt)
+    want = np.asarray(jnp.sum(jdo.astype(jnp.float32) * jo.astype(jnp.float32), -1))
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 77)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_versions_uncounted():
     q, k, v, g = (torch.from_numpy(x) for x in _qkvg(5, 1, 2, 64, 64, 64))
     before = fa.kernel_launches()
@@ -550,8 +570,9 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     after = fa.kernel_launches()
     fused = fa.flash_bwd_fused_ok(k.shape[2], k.shape[3])
     moved = ("flash_fwd", "flash_bwd_fused") if fused else (
-        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-    for kern in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"):
+        "flash_fwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq")
+    for kern in ("flash_fwd", "flash_bwd_fused", "flash_bwd_delta", "flash_bwd_dkv",
+                 "flash_bwd_dq"):
         assert after[kern + form] == before[kern + form] + (kern in moved), kern
     # the plain version in f32 on the same (rounded) inputs
     f32 = [t.float() for t in (q, k, v, g)]
@@ -575,6 +596,36 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     # no float atomics: the backward repeats bit for bit
     again = fa.flash_backward(q, k, v, out, lse, g, causal, scale)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+# the dK/dV + dQ pair off its usual shapes: t past a 64-row tile, causal
+# with tq < tk and tq > tk, bf16, and head widths 80, 160 and 256 (the last
+# two in 128-wide column blocks: K / V, or q / dO, resident over every
+# chunk); (b, h, tq, tk, d, causal, dtype)
+PAIR_CASES = {
+    "ragged_t": (1, 2, 577, 577, 64, False, torch.float32),
+    "ragged_t_causal": (1, 2, 577, 577, 64, True, torch.float32),
+    "causal_tq_300_tk_1000": (1, 2, 300, 1000, 64, True, torch.float32),
+    "causal_tq_1000_tk_300": (1, 2, 1000, 300, 64, True, torch.float32),
+    "bf16": (2, 2, 513, 513, 64, False, torch.bfloat16),
+    "bf16_causal_tq_300_tk_1000": (1, 2, 300, 1000, 64, True, torch.bfloat16),
+    "d80": (1, 3, 333, 333, 80, False, torch.float32),
+    "d80_bf16_causal": (1, 3, 333, 333, 80, True, torch.bfloat16),
+    "d160": (1, 3, 300, 420, 160, False, torch.float32),
+    "d160_causal": (1, 3, 420, 300, 160, True, torch.float32),
+    "d256": (1, 2, 290, 290, 256, False, torch.float32),
+    "d256_bf16_causal": (1, 2, 290, 290, 256, True, torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PAIR_CASES))
+def test_cuda_pair_matches_plain(cuda_device, name):
+    """Each case takes the pair (past the fused tier's cap, or wider than
+    64), matches the plain versions and repeats bit for bit."""
+    b, h, tq, tk, d, causal, dtype = PAIR_CASES[name]
+    q, k, v, g = _width_case(len(name) + d, b, h, tq, tk, d, dtype, cuda_device, tq == tk)
+    assert _check_against_plain(q, k, v, g, causal, d ** -0.5) == "pair"
 
 
 @pytest.mark.cuda
@@ -617,8 +668,9 @@ def _check_against_plain(q, k, v, g, causal, scale):
     after = fa.kernel_launches()
     fused = fa.flash_bwd_fused_ok(k.shape[2], k.shape[3])
     moved = ("flash_fwd", "flash_bwd_fused") if fused else (
-        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-    for kern in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"):
+        "flash_fwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq")
+    for kern in ("flash_fwd", "flash_bwd_fused", "flash_bwd_delta", "flash_bwd_dkv",
+                 "flash_bwd_dq"):
         assert after[kern + form] == before[kern + form] + (kern in moved), kern
     f32 = [t.float() for t in (q, k, v, g)]
     pout, plse = fa.flash_forward_plain(*f32[:3], causal, scale)
@@ -746,8 +798,8 @@ def test_cuda_wide_head_program_matches_cpu(cuda_device):
         runs.append((np.asarray(losses), moved))
     (cpu, cpu_moved), (card, card_moved) = runs
     assert not cpu_moved
-    assert card_moved == {"flash_fwd_causal": 3, "flash_bwd_dkv_causal": 3,
-                          "flash_bwd_dq_causal": 3}
+    assert card_moved == {"flash_fwd_causal": 3, "flash_bwd_delta_causal": 3,
+                          "flash_bwd_dkv_causal": 3, "flash_bwd_dq_causal": 3}
     assert np.all(np.isfinite(card))
     np.testing.assert_allclose(card, cpu, rtol=2e-3, atol=2e-4)
 
