@@ -19,7 +19,12 @@ Phases, each printing its own line; any failure exits non-zero:
        1, 8, 16 and 64 slots x page sizes 8, 16 and 32 x head widths 6, 64,
        80, 128 and 160, with pos of -1, 0, page and split boundaries, the
        table's last position and past it and a corrupt table entry, over
-       f32 and int8 pools, each repeated bit for bit;
+       f32 and int8 pools, each repeated bit for bit; heads past 128 (the
+       wide kernel) at decode widths 256 and 512 and prefill chunks of 1,
+       32 and 48 rows at widths 160, 256 and 512, page sizes 16, 32 and
+       128, the same edge positions and a corrupt entry, both pool types,
+       then timed at Gemma 7B's attention widths (16 heads of 256, page
+       size 16: 8 decode slots, a 32-row chunk) beside the byte bound;
      - the GEMM epilogue at Transformer base's FFN shapes (4096 x 512 @
        512 x 2048 + relu, 4096 x 2048 @ 2048 x 512), beside torch.addmm
        at both shapes and both bounds (3xTF32 on the tensor cores, f32 on
@@ -49,9 +54,10 @@ Phases, each printing its own line; any failure exits non-zero:
        96}, f32 and bf16, causal and not, at a length each backward tier
        takes (d <= 64: both), and (b, h, t, d) = (65600, 1, 32, 16), past the
        65535 of a grid's y axis; then head widths past 128 (129, 160, 192,
-       256, 512: 128-wide column blocks, the backward's pair), f32 and
-       bf16, causal and not, and timed at (16, 8, 256, 256) beside SDPA;
-       forward and backward repeat bit for bit;
+       256, 512: the wide forward; 640: the chunked one; the backward's
+       pair), f32 and bf16, causal and not, and timed at (16, 8, 256, 256)
+       beside SDPA, the forward also at (16, 8, 256, 512); forward and
+       backward repeat bit for bit;
      - the int8 paged flash forms at path A's shapes (decode q [16, 768] /
        table [16, 64]; prefill chunk q [32, 768] / table [64]; int8 pools
        with per-row f32 scales), atol = rtol = 1e-5;
@@ -90,6 +96,13 @@ Phases, each printing its own line; any failure exits non-zero:
      max relative logit error < 0.05; rows/s and the single shot's wall;
      the int8 engine call's device busy time and the quant GEMM's share
      (torch.profiler);
+  4d. serve wide heads: GPTDecoder at GPT-2 medium's widths with 4 heads
+     of 256, cut to 2 layers (random weights from a seed), page_size 128,
+     4 slots, over f32 then int8 pools: 4 greedy requests of 40-700
+     prompt tokens, 16 new each; all finish, no variant rebuilt, both wide
+     paged kernels of the pool type launched and no narrow one; paged
+     against dense logits and the fuse_attention rewrite (the wide flash
+     forward) within 1e-4; the int8 kernel path against the plain path;
   5. training: Transformer base (6 layers, d_model 512, d_ff 2048, 8 heads,
      vocab 37000, batches of 16 x 256 tokens, dropout 0.1, f32; random
      weights from a seed) trained by Executor.run under the training_fused
@@ -124,6 +137,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores, NVIDIA data sheet
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores, NVIDIA data sheet
 ATOL = RTOL = 1e-5  # kernel vs plain: both f32, sums in another order
 LOGIT_ATOL = LOGIT_RTOL = 1e-4  # paged vs dense, 12 layers of f32 rounding
 
@@ -953,8 +967,12 @@ def check_flash_pair_cases(torch, fa, device, flush):
             ms = time_ms(torch, lambda: fa.flash_backward(qd, kd, vd, out, lse, gd, causal,
                                                           d ** -0.5), 5, flush, gated=True)
             lib = _sdpa_bwd_ms(torch, qd, kd, vd, gd, causal, d ** -0.5, 5, flush)
-            timing = "; kernel %.4f ms, SDPA's backward in %s %.4f ms, kernel / SDPA %.3f" % (
-                ms, dt, lib, ms / lib)
+            # the five products over the pairs the work needs at the card's
+            # dense bf16 rate (each input read once is far less time)
+            bf16_ms = 10 * _flash_pairs(b, h, tq, causal) * d / BF16_FLOPS * 1e3
+            timing = ("; kernel %.4f ms, SDPA's backward in %s %.4f ms, kernel / SDPA %.3f; "
+                      "bound %.4f ms (five products at the dense bf16 rate)" % (
+                          ms, dt, lib, ms / lib, bf16_ms))
             del qd, kd, vd, gd
         log("kernel %s: forward max_abs_err %.3g, backward %.3g (%s; launches %s); repeats bit "
             "for bit%s" % (name, err_f, err_b, "out, lse atol=rtol=%g, grads rtol %g with atol "
@@ -1017,9 +1035,37 @@ def check_flash_widths(torch, fa, device):
         torch.cuda.empty_cache()
 
 
-FLASH_WIDE = (129, 160, 192, 256, 512)  # head widths past 128: 128-wide column blocks
+# head widths past 128: the wide forward (its query tile resident) up to
+# 512, the chunked forward past it; the pair's 128-wide column blocks
+FLASH_WIDE = (129, 160, 192, 256, 512, 640)
 FLASH_WIDE_SHAPES = ((2, 2, 200, 200), (1, 3, 77, 150))  # (b, h, tq, tk)
 FLASH_WIDE_TIMED = (16, 8, 256, 256)  # the train-flash shape at d = 256
+FLASH_WIDE_TIMED_512 = (16, 8, 256, 512)  # and at d = 512 (the forward)
+
+
+def time_flash_fwd(torch, fa, device, flush, shape, seed):
+    """The forward kernel at `shape` f32 (strided views), non-causal: (max abs
+    err against the plain version, kernel ms, plain ms, SDPA ms, 3xTF32
+    bound, CUDA-core bound); the output repeats bit for bit."""
+    b, h, t, d = shape
+    scale = d ** -0.5
+    q, k, v, _ = _flash_inputs(torch, device, shape, seed)
+    out, lse = fa.flash_forward(q, k, v, False, scale)
+    pout, plse = fa.flash_forward_plain(q, k, v, False, scale)
+    torch.cuda.synchronize()
+    name = "flash forward %s" % (shape,)
+    err = max(_close(torch, name + " out", out, pout, ATOL, RTOL),
+              _close(torch, name + " lse", lse, plse, ATOL, RTOL))
+    out2, lse2 = fa.flash_forward(q, k, v, False, scale)
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        raise AssertionError("%s: the forward differs from run to run" % name)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(torch, lambda: fa.flash_forward(q, k, v, False, scale), 10, flush, gated=True)
+    plain = time_ms(torch, lambda: fa.flash_forward_plain(q, k, v, False, scale), 5, flush,
+                    gated=True)
+    lib = time_ms(torch, lambda: sdpa(q, k, v, scale=scale), 10, flush, gated=True)
+    tc, cc = _flash_fwd_bounds(b, h, t, d, False)
+    return err, ms, plain, lib, tc, cc
 
 
 def check_flash_wide(torch, fa, device, flush):
@@ -1027,9 +1073,11 @@ def check_flash_wide(torch, fa, device, flush):
     = 64) against the plain versions at every head width of FLASH_WIDE, f32
     and bf16, causal and not, at FLASH_WIDE_SHAPES (tq = tk, and tq < tk
     with masked tails), each repeated bit for bit; then both directions
-    timed at FLASH_WIDE_TIMED beside SDPA. Returns the kernels-line entries
-    of the wide forward and the wide pair (no main path has heads past
-    128: their launches are this phase's own)."""
+    timed at FLASH_WIDE_TIMED beside SDPA, and the forward at
+    FLASH_WIDE_TIMED_512. Returns the kernels-line entries of the wide
+    forward (its launches are the wide-head serve phase's) and the wide
+    pair (no main path has heads past 128 in training: its launches are
+    this phase's own)."""
     seed = SEED + 80
     for d in FLASH_WIDE:
         errs = {}
@@ -1046,11 +1094,12 @@ def check_flash_wide(torch, fa, device, flush):
                     _tier_moved(fa, before, "pair", form, 2)
                     key = str(dtype)[6:]
                     errs[key] = max(errs.get(key, 0.0), err[0], err[1])
-        log("kernel flash at head width d=%d (128-wide column blocks; (b, h, tq, tk) %s, causal "
-            "and not, backward: the pair): max_abs_err f32 %.3g (out, lse atol=rtol=%g; grads "
+        log("kernel flash at head width d=%d (the forward %s; (b, h, tq, tk) %s, causal and "
+            "not, backward: the pair's 128-wide column blocks): max_abs_err f32 %.3g (out, lse atol=rtol=%g; grads "
             "rtol %g, atol %g of the largest magnitude), bf16 %.3g (against the f32 plain "
             "version, %g); forward and backward repeat bit for bit" % (
-                d, FLASH_WIDE_SHAPES, errs["float32"], ATOL, FLASH_GRAD_TOL, FLASH_GRAD_TOL,
+                d, "query tile resident" if d <= 512 else "chunked", FLASH_WIDE_SHAPES,
+                errs["float32"], ATOL, FLASH_GRAD_TOL, FLASH_GRAD_TOL,
                 errs["bfloat16"], FLASH_BF16_TOL))
     b, h, t, d = FLASH_WIDE_TIMED
     scale = d ** -0.5
@@ -1079,17 +1128,21 @@ def check_flash_wide(torch, fa, device, flush):
             FLASH_WIDE_TIMED, err_f, ms_f, plain_f, lib_f, ms_f / lib_f, bound_f[0], bound_f[1],
             cc_f[0], cc_f[1], err_b, ms_b, plain_b, lib_b, ms_b / lib_b, bound_b[0], bound_b[1],
             cc_b[0], cc_b[1]))
-    entries = {}
-    for name, replaces, err, ms, plain, bnd, lib, n in (
-            ("flash_fwd_wide", ":129", err_f, ms_f, plain_f, bound_f, lib_f,
-             moved["flash_fwd"]),
-            ("flash_bwd_wide", ":679", err_b, ms_b, plain_b, bound_b, lib_b,
-             moved["flash_bwd_dkv"])):
-        entry = _entry(name, FLASH_SOURCE, "paddle_tpu/ops/pallas_kernels.py" + replaces, err,
-                       ms, plain, bnd[0], bnd[1], lib)
-        entry["launches"] = n
-        entry["path"] = None
-        entries[name] = entry
+    err5, ms5, plain5, lib5, tc5, cc5 = time_flash_fwd(torch, fa, device, flush,
+                                                      FLASH_WIDE_TIMED_512, SEED + 91)
+    log("kernel flash_wide forward at (b, h, t, d) %s f32 strided views: max_abs_err %.3g, "
+        "kernel %.4f ms (device); plain %.4f ms; SDPA %.4f ms, kernel / SDPA %.3f; bound %.4f "
+        "ms (%s, 3xTF32), f32 on the CUDA cores %.4f ms (%s)" % (
+            FLASH_WIDE_TIMED_512, err5, ms5, plain5, lib5, ms5 / lib5, tc5[0], tc5[1], cc5[0],
+            cc5[1]))
+    entries = {"flash_fwd_wide": _entry(
+        "flash_fwd_wide", FLASH_SOURCE, "paddle_tpu/ops/pallas_kernels.py:129", err_f, ms_f,
+        plain_f, bound_f[0], bound_f[1], lib_f)}
+    entry = _entry("flash_bwd_wide", FLASH_SOURCE, "paddle_tpu/ops/pallas_kernels.py:679",
+                   err_b, ms_b, plain_b, bound_b[0], bound_b[1], lib_b)
+    entry["launches"] = moved["flash_bwd_dkv"]
+    entry["path"] = None
+    entries["flash_bwd_wide"] = entry
     del q, k, v, g, out, lse
     torch.cuda.empty_cache()
     return entries
@@ -1240,8 +1293,8 @@ def check_paged_chunks(torch, pf, device):
 
 
 # the per-slot (decode) form beyond the main path's shape: slots x page
-# sizes x head widths (160 takes the per-page kernel past the decode
-# kernel's 128) over tables of 1024 positions
+# sizes x head widths (160 takes the wide kernel past the decode kernel's
+# 128) over tables of 1024 positions
 DECODE_SLOTS = (1, 8, 16, 64)
 DECODE_PAGE_SIZES = (8, 16, 32)
 DECODE_WIDTHS = (6, 64, 80, 128, 160)
@@ -1257,7 +1310,6 @@ def check_paged_decode(torch, pf, device):
     clamped table); atol = rtol = 1e-5, pos < 0 rows exact zeros, each
     output repeated bit for bit."""
     for quant in (False, True):
-        key = "paged_flash" + ("_int8" if quant else "")
         worst, n = {}, 0
         for slots in DECODE_SLOTS:
             for ps in DECODE_PAGE_SIZES:
@@ -1282,6 +1334,7 @@ def check_paged_decode(torch, pf, device):
                     q = rng.randn(slots, feat).astype("float32")
                     args = [torch.from_numpy(a).to(device) for a in (q, pools[0], pools[1], bt, pos)]
                     clamped = args[:3] + [args[3].clamp(0, pool_pages - 1), args[4]]
+                    key = pf.launch_key(False, d, quant)
                     name = "%s slots=%d page_size=%d d=%d" % (key, slots, ps, d)
                     before = pf.kernel_launches()[key]
                     got = pf.paged_flash_attention(*args, **kw)
@@ -1298,13 +1351,208 @@ def check_paged_decode(torch, pf, device):
                     if not torch.equal(got, pf.paged_flash_attention(*args, **kw)):
                         raise AssertionError("%s: the output differs from run to run" % name)
                     n += 1
-        log("kernel %s at decode steps of %s slots, page sizes %s, head widths %s (%d cases; "
+        log("kernel paged_flash%s at decode steps of %s slots, page sizes %s, head widths %s (%d cases; "
             "positions -1, 0, page and split boundaries, the table's last and past it; a "
             "corrupt table entry): max_abs_err by width %s (atol=rtol=%g); pos < 0 rows exact "
             "zeros; each repeats bit for bit" % (
-                key, DECODE_SLOTS, DECODE_PAGE_SIZES, DECODE_WIDTHS, n,
+                "_int8" * quant, DECODE_SLOTS, DECODE_PAGE_SIZES, DECODE_WIDTHS, n,
                 json.dumps({k: float("%.3g" % e) for k, e in worst.items()}), ATOL))
 
+
+# heads past 128 on paged pools (the wide kernel): the decode form at head
+# widths 256 and 512, the shared form at chunks of 1, 32 and 48 rows and
+# widths 160, 256 and 512, each at page sizes 16, 32 and 128 over tables of
+# 1024 positions, f32 and int8 pools. A whole page of K and V at page size
+# 128 and d = 256 (or, for a 32-row chunk, at d = 512 and page size 32)
+# passes a CTA's shared memory: the kernel gathers position by position
+WIDE_DECODE_WIDTHS = (256, 512)
+WIDE_CHUNK_WIDTHS = (160, 256, 512)
+WIDE_PAGE_SIZES = (16, 32, 128)
+WIDE_CONTEXT = 1024
+WIDE_SOURCE = "paddle_tpu_torch/ops/csrc/paged_flash.cu"
+
+
+def _wide_chunk_pos(rows):
+    """A prefill chunk's positions: one row at 1000; 32 rows across a page,
+    a split (64) and a page of 128, with a pos = 0 and a pos < 0 row; 48
+    rows up to the table's last position and past it, with pos = 0 and pos
+    < 0 rows."""
+    if rows == 1:
+        return [1000]
+    if rows == 32:
+        return list(range(50, 80)) + [0, -1]
+    return list(range(980, 1024)) + [0, -1, 1023, WIDE_CONTEXT + 40]
+
+
+def wide_paged_cases():
+    """(name, shared, rows or positions, d, page_size, quant) of every wide
+    paged edge case."""
+    cases = []
+    for quant in (False, True):
+        for ps in WIDE_PAGE_SIZES:
+            for d in WIDE_DECODE_WIDTHS:
+                cases.append(("decode d=%d page_size=%d%s" % (d, ps, " int8" * quant), False,
+                              None, d, ps, quant))
+            for rows in (1, 32, 48):
+                for d in WIDE_CHUNK_WIDTHS:
+                    cases.append(("chunk rows=%d d=%d page_size=%d%s" % (
+                        rows, d, ps, " int8" * quant), True, _wide_chunk_pos(rows), d, ps, quant))
+    return cases
+
+
+def _wide_paged_inputs(torch, device, shared, pos, d, ps, quant, seed):
+    """(args, clamped args, kwargs) of one wide case: 2 heads of d, a pool of
+    the table's pages + 2, a random table with one corrupt entry on a live
+    position (the kernel clamps it into the pool, as the JAX gather clamps:
+    the plain version gets the clamped table). Decode slots sit at -1, 0, a
+    page's last position and the next page's first, a split boundary (63,
+    64), 127, the table's last position and past it."""
+    rng = np.random.RandomState(seed)
+    n_head, n_pages = 2, WIDE_CONTEXT // ps
+    feat, pool_pages = n_head * d, n_pages + 2
+    pools = [rng.randn(pool_pages * ps, feat).astype("float32") for _ in range(2)]
+    kw = dict(n_head=n_head, page_size=ps)
+    if quant:
+        scales = [(np.abs(x).max(axis=1) / 127.0).astype("float32") for x in pools]
+        pools = [np.clip(np.round(x / sc[:, None]), -127, 127).astype(np.int8)
+                 for x, sc in zip(pools, scales)]
+        kw.update(k_scales=torch.from_numpy(scales[0]).to(device),
+                  v_scales=torch.from_numpy(scales[1]).to(device))
+    if shared:
+        pos = np.asarray(pos, np.int32)
+        bt = rng.permutation(np.arange(1, pool_pages))[:n_pages].astype(np.int32)
+        bt[1] = 10 ** 6  # corrupt: read by every chunk whose positions reach ps
+    else:
+        pos = np.array([-1, 0, ps - 1, ps, 63, 64, 127, WIDE_CONTEXT - 1, WIDE_CONTEXT + 40],
+                       np.int32)
+        bt = rng.randint(1, pool_pages, size=(len(pos), n_pages)).astype(np.int32)
+        bt[7, 1] = 10 ** 6  # corrupt, in a slot that reads every entry
+    q = rng.randn(len(pos), feat).astype("float32")
+    args = [torch.from_numpy(a).to(device) for a in (q, pools[0], pools[1], bt, pos)]
+    clamped = args[:3] + [args[3].clamp(0, pool_pages - 1), args[4]]
+    return args, clamped, kw
+
+
+def run_wide_paged_case(torch, pf, device, case, seed):
+    """One wide case against the plain version: atol = rtol = 1e-5, pos < 0
+    rows exact zeros, the output repeated bit for bit; the launch lands on
+    the form's counter. Returns the max abs error; raises on any miss (and
+    where the kernel cannot run the shape)."""
+    name, shared, pos, d, ps, quant = case
+    args, clamped, kw = _wide_paged_inputs(torch, device, shared, pos, d, ps, quant, seed)
+    before = sum(pf.kernel_launches().values())
+    got = pf.paged_flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    if sum(pf.kernel_launches().values()) != before + 1:
+        raise AssertionError("%s: the kernel did not count one launch" % name)
+    err = _close(torch, name, got, pf.paged_attention_plain(*clamped, **kw), ATOL, RTOL)
+    dead = args[4] < 0
+    if dead.any() and float(got[dead].abs().max()) != 0.0:
+        raise AssertionError("%s: pos < 0 rows are not exact zeros" % name)
+    if not torch.equal(got, pf.paged_flash_attention(*args, **kw)):
+        raise AssertionError("%s: the output differs from run to run" % name)
+    return err
+
+
+def check_paged_wide(torch, pf, device):
+    """Every wide_paged_cases() case against the plain version, each launch
+    counted under its form's wide key."""
+    worst, want = {}, {}
+    cases = wide_paged_cases()
+    before = pf.kernel_launches()
+    for i, case in enumerate(cases):
+        err = run_wide_paged_case(torch, pf, device, case, SEED + 200 + i)
+        key = ("chunk" if case[1] else "decode") + (" int8" if case[5] else "")
+        worst[key] = max(worst.get(key, 0.0), err)
+        lk = pf.launch_key(case[1], case[3], case[5])
+        want[lk] = want.get(lk, 0) + 2  # the checked call and its repeat
+    moved = {k: n - before[k] for k, n in pf.kernel_launches().items() if n != before[k]}
+    if moved != want:
+        raise AssertionError("wide paged launches %s, want %s" % (moved, want))
+    log("kernel paged_flash wide heads: %d cases (decode d %s, chunks of 1, 32, 48 rows at d "
+        "%s, page sizes %s over %d positions, f32 and int8 pools; edge positions, a corrupt "
+        "table entry): max_abs_err %s (atol=rtol=%g); pos < 0 rows exact zeros; each repeats "
+        "bit for bit" % (len(cases), WIDE_DECODE_WIDTHS, WIDE_CHUNK_WIDTHS, WIDE_PAGE_SIZES,
+                         WIDE_CONTEXT, json.dumps({k: float("%.3g" % e) for k, e in worst.items()}),
+                         ATOL))
+
+
+# the wide paged kernel's timed shapes: the attention widths of Gemma 7B
+# (16 heads of 256; Gemma Team 2024), page_size 16, 64-entry tables; decode
+# 8 slots at the serve run's last positions, prefill one 32-row chunk
+WIDE_TIMED = dict(n_head=16, d=256, page_size=16, n_pages=64)
+WIDE_TIMED_POS = tuple(n + NEW_TOKENS - 1 for n in PROMPT_LENS)  # 71..731
+WIDE_TIMED_CHUNK = tuple(range(600, 632))
+
+
+def _wide_timed_inputs(torch, device, shared, quant, seed):
+    rng = np.random.RandomState(seed)
+    n_head, d, ps, n_pages = (WIDE_TIMED[k] for k in ("n_head", "d", "page_size", "n_pages"))
+    feat = n_head * d
+    pos = np.asarray(WIDE_TIMED_CHUNK if shared else WIDE_TIMED_POS, np.int32)
+    pool_pages = (1 if shared else len(pos)) * n_pages + 1
+    pages = rng.permutation(np.arange(1, pool_pages)).astype(np.int32)
+    bt = pages[:n_pages] if shared else pages.reshape(len(pos), n_pages)
+    kw = dict(n_head=n_head, page_size=ps)
+    if quant:
+        pools = [torch.from_numpy(rng.randint(-127, 128, (pool_pages * ps, feat)).astype(np.int8))
+                 .to(device) for _ in range(2)]
+        kw.update({n: torch.from_numpy((rng.rand(pool_pages * ps) * 0.05 + 1e-3)
+                                       .astype("float32")).to(device)
+                   for n in ("k_scales", "v_scales")})
+    else:
+        pools = [torch.from_numpy(rng.randn(pool_pages * ps, feat).astype("float32")).to(device)
+                 for _ in range(2)]
+    q = torch.from_numpy(rng.randn(len(pos), feat).astype("float32")).to(device)
+    return [q] + pools + [torch.from_numpy(a).to(device) for a in (bt, pos)], kw
+
+
+def time_paged_wide(torch, pf, device, flush, strict=True):
+    """The wide kernel in both forms and both pool types at WIDE_TIMED,
+    against the plain version: (name -> kernels-line entry). Bound: bytes,
+    the K/V rows read up to pos (int8: 1 B an element and a 4-byte scale a
+    row) over the HBM rate, against q k^T and p v as f32 FMAs on the CUDA
+    cores (the kernel's form). strict=False (a tool timing another tree's
+    kernels) records the error instead of raising past the tolerance."""
+    out = {}
+    for quant in (False, True):
+        for shared in (False, True):
+            name = "paged_flash%s_wide%s" % ("_shared" if shared else "", "_int8" if quant else "")
+            args, kw = _wide_timed_inputs(torch, device, shared, quant, SEED + 300 + len(name))
+            got = pf.paged_flash_attention(*args, **kw)
+            want = pf.paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if strict:
+                err = _close(torch, name, got, want, ATOL, RTOL)
+            else:
+                err = float((got - want).abs().max())
+            if not torch.equal(got, pf.paged_flash_attention(*args, **kw)):
+                raise AssertionError("%s: the output differs from run to run" % name)
+            ms = time_ms(torch, lambda: pf.paged_flash_attention(*args, **kw), 50, flush,
+                         gated=True)
+            plain_ms = time_ms(torch, lambda: pf.paged_attention_plain(*args, **kw), 10, flush,
+                               gated=True)
+            q, bt, pos = args[0], args[3], args[4].tolist()
+            rows, feat = q.shape
+            nbytes, flops, kv_rows = _paged_work(pos, shared, rows, feat, WIDE_TIMED["page_size"],
+                                                 bt.shape[-1], feat + 4 if quant else feat * 4)
+            deq = 2 * kv_rows * feat if quant else 0  # one multiply an element
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = (flops + deq) / F32_FLOPS * 1e3
+            bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            log("kernel %s at Gemma 7B's attention widths (16 heads x 256), q %s, table %s, "
+                "page_size %d: max_abs_err %.3g (atol=rtol=%g; repeats bit for bit) kernel %.4f "
+                "ms (device); plain %.4f ms; bound %.4f ms (%s): bytes %.5f ms, f32 operations "
+                "%.5f ms" % (name, tuple(q.shape), tuple(bt.shape), WIDE_TIMED["page_size"], err,
+                             ATOL, ms, plain_ms, bound_ms, bound_by, t_bytes, t_ops))
+            replaces = INT8_KERNEL_META if quant else KERNEL_META
+            base = "paged_flash%s%s" % ("_shared" if shared else "", "_int8" if quant else "")
+            # no single PyTorch call reads a paged pool through a block table
+            out[name] = _entry(name, WIDE_SOURCE, replaces[base][0], err, ms, plain_ms,
+                               bound_ms, bound_by, None)
+            del args, kw, got, want
+    torch.cuda.empty_cache()
+    return out
 
 QGEMM_SHAPE = (1024, 2048, 2048)  # (m, k, n): path B's single shot through a hidden layer
 QGEMM_BATCH = 256  # path B's 250-row eval batches, in their bucket
@@ -1582,7 +1830,10 @@ def serve(torch, pf, engine, card):
 # ---------------------------------------------------------------- phase 4
 
 
-def paged_vs_dense(torch, engine):
+def paged_vs_dense(torch, engine, model=GPT2_SMALL):
+    """The engine's paged prefill and decode logits against the dense
+    program, then the fuse_attention rewrite against the unfused program.
+    Returns the forward kernel's launches in the rewritten program's run."""
     from paddle_tpu_torch.executor import aot_serve_lowering, scope_guard
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.passes import PassManager
@@ -1599,7 +1850,7 @@ def paged_vs_dense(torch, engine):
         (lg,) = dense({"fwd_tokens": buf}, ro, {})
         return lg[0, len(tokens) - 1].cpu().numpy()
 
-    prompt = np.random.RandomState(SEED + 1).randint(2, GPT2_SMALL["vocab_size"], 40).tolist()
+    prompt = np.random.RandomState(SEED + 1).randint(2, model["vocab_size"], 40).tolist()
     run = engine.start(GenRequest(prompt, max_new_tokens=T - len(prompt), eos_id=NO_EOS))
     rows, seq = [engine.last_prefill_logits], list(prompt)
     try:
@@ -1625,7 +1876,7 @@ def paged_vs_dense(torch, engine):
     fused = PassManager(["fuse_attention"]).apply(main, scope=engine.scope, feed_names=feeds,
                                                   fetch_names=fetches)
     types = [op.type for op in fused.global_block().ops]
-    n_layer = GPT2_SMALL["n_layer"]
+    n_layer = model["n_layer"]
     if types.count("flash_attention") != n_layer or "softmax" in types:
         raise AssertionError("fuse_attention: %d flash_attention ops, softmax %s"
                              % (types.count("flash_attention"), "softmax" in types))
@@ -1646,7 +1897,103 @@ def paged_vs_dense(torch, engine):
     log("fuse_attention: %d score chains -> flash_attention, no softmax left; %d forward "
         "kernel launches; logits over %d positions max abs err %.3g against the unfused "
         "program (atol=rtol=%g)" % (n_layer, launches, T, ferr, LOGIT_ATOL))
+    return launches
 
+
+# a wide-head model served through the normal entry point: GPT-2 medium's
+# widths (d_model 1024, d_inner 4096, vocab 50257, 1024 positions; Radford
+# et al. 2019) at 4 heads of 256 and 2 layers, page_size 128, 4 slots, f32
+# and int8 KV pools
+WIDE_MODEL = dict(vocab_size=50257, n_layer=2, n_head=4, d_model=1024, d_inner=4096,
+                  max_context=1024)
+WIDE_ENGINE = dict(max_slots=4, page_size=128, max_context=1024)
+WIDE_PROMPT_LENS = (40, 217, 472, 700)
+WIDE_NEW_TOKENS = 16
+
+
+def serve_wide(torch, pf, card):
+    """The wide-head model served by a GenerationEngine over f32 pools, then
+    over int8 pools with the same weights: 4 greedy requests each through
+    the scheduler (every request finishes, no variant rebuilt after
+    warmup, both wide paged kernels of the pool type launch and no narrow
+    one); paged against dense logits and the fuse_attention rewrite (the
+    wide flash forward) on the f32 engine; the int8 engine's kernel path
+    against the plain path (paged_flash off) on the same pools. Returns
+    the wide kernels' launches over the requests and the wide forward's in
+    the rewritten program."""
+    from paddle_tpu_torch import CUDAPlace, flags
+    from paddle_tpu_torch.models import GPTDecoder
+    from paddle_tpu_torch.serving import GenerationEngine, GenerationScheduler
+
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(2, WIDE_MODEL["vocab_size"], size=n).tolist() for n in WIDE_PROMPT_LENS]
+    launches, engines = {}, {}
+    for quant in (False, True):
+        t0 = time.perf_counter()
+        kw = dict(kv_dtype="int8") if quant else {}
+        engine = GenerationEngine(GPTDecoder(**WIDE_MODEL, **kw), place=CUDAPlace(0),
+                                  name="wide_heads" + "_int8" * quant, **WIDE_ENGINE)
+        if quant:
+            with torch.no_grad():
+                for name in engine.model.param_names():
+                    engine.scope.vars[name].copy_(engines[False].scope.vars[name])
+        n = engine.warmup()
+        torch.cuda.synchronize()
+        traces = engine.traces
+        sched = GenerationScheduler(engine, max_queue_requests=16, timeout_ms=600000.0)
+        try:
+            pf.reset_kernel_launches()  # the main path's counting window opens here
+            t1 = time.perf_counter()
+            futs = [sched.submit(p, max_new_tokens=WIDE_NEW_TOKENS, eos_id=NO_EOS)
+                    for p in prompts]
+            results = [f.result(600) for f in futs]
+            wall = time.perf_counter() - t1
+            got = pf.kernel_launches()  # and closes here
+        finally:
+            assert sched.close(drain=True)
+        for p, r in zip(prompts, results):
+            if r.finish_reason != "length" or len(r.tokens) != WIDE_NEW_TOKENS:
+                raise AssertionError("wide-head request of %d tokens: %r %d tokens" % (
+                    len(p), r.finish_reason, len(r.tokens)))
+        if engine.traces != traces:
+            raise AssertionError("wide-head variants rebuilt after warmup: %d -> %d"
+                                 % (traces, engine.traces))
+        head = WIDE_MODEL["d_model"] // WIDE_MODEL["n_head"]
+        keys = [pf.launch_key(shared, head, quant) for shared in (False, True)]
+        if not all(got[k] for k in keys) or sum(got.values()) != sum(got[k] for k in keys):
+            raise AssertionError("wide-head serve: kernel launches %s" % got)
+        if not np.all(np.isfinite(engine.last_logits)):
+            raise AssertionError("non-finite wide-head decode logits")
+        launches.update({k: got[k] for k in keys})
+        n_tok = sum(len(r.tokens) for r in results)
+        log("serve wide heads (%s pools): %d heads of %d, %d layers, page_size %d, %d slots; %d "
+            "variants built in %.1f s; %d requests, %d prompt tokens, %d new tokens in %.3f s: "
+            "%.1f tokens/s; kernel launches %s; card %s" % (
+                "int8" if quant else "f32", WIDE_MODEL["n_head"],
+                WIDE_MODEL["d_model"] // WIDE_MODEL["n_head"], WIDE_MODEL["n_layer"],
+                WIDE_ENGINE["page_size"], WIDE_ENGINE["max_slots"], n, t1 - t0, len(results),
+                sum(WIDE_PROMPT_LENS), n_tok, wall, n_tok / wall,
+                json.dumps({k: got[k] for k in keys}), card))
+        engines[quant] = engine
+    flash_launches = paged_vs_dense(torch, engines[False], WIDE_MODEL)
+    engine = engines[True]
+    tok_k, rows_k = _stepwise(engine, prompts[-1], 8)
+    flags.set_flags({"paged_flash": "off"})
+    try:
+        tok_p, rows_p = _stepwise(engine, prompts[-1], 8)
+    finally:
+        flags.set_flags({"paged_flash": "auto"})
+    kerr = max(float(np.abs(a - b).max()) for a, b in zip(rows_k, rows_p))
+    if tok_k != tok_p or not all(np.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+                                 for a, b in zip(rows_k, rows_p)):
+        raise AssertionError("wide heads, int8 pools, kernel vs plain path: max abs logit err %g"
+                             % kerr)
+    log("serve wide heads: int8 pools, kernel vs plain path (paged_flash off) over %d steps of "
+        "a %d-token prompt, max abs logit err %.3g (atol=rtol=%g)" % (
+            len(rows_k), len(prompts[-1]), kerr, LOGIT_ATOL))
+    del engines, engine
+    torch.cuda.empty_cache()
+    return launches, flash_launches
 
 def _stepwise(engine, prompt, n_new):
     """(tokens, logits of every step) of one request run alone."""
@@ -2169,6 +2516,8 @@ def main():
         kernels.update(check_int8_paged(torch, pf, device, flush))
         check_paged_chunks(torch, pf, device)
         check_paged_decode(torch, pf, device)
+        check_paged_wide(torch, pf, device)
+        kernels.update(time_paged_wide(torch, pf, device, flush))
         kernels.update(check_quant_gemm(torch, device, flush))
         del flush
     with Phase("serve"):
@@ -2189,6 +2538,9 @@ def main():
     with Phase("serve int8 GEMM"):
         launches.update(serve_int8_gemm(torch, card)[0])
     torch.cuda.empty_cache()
+    with Phase("serve wide heads"):
+        wide, launches["flash_fwd_wide"] = serve_wide(torch, pf, card)
+        launches.update(wide)
     with Phase("train"):
         launches.update(train(torch, card))
     with Phase("train flash"):

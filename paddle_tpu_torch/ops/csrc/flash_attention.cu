@@ -21,13 +21,15 @@
 // (cp.async with source size 0, or element by element where rows are not
 // aligned for 4-element loads): zero columns change no q k^T, give zero
 // dQ / dK / dV columns, and are never stored. Outputs are (b, h, t, d)
-// with row stride d. Heads wider than 128 take column blocks
-// (flash_fwd_wide_kernel; the pair's kernels at DP = 128 with nc > 1
-// chunks): grid y (the forward) or z (the pair) is the output's 128-wide
-// column block; each CTA forms the scores over all of d in 128-wide chunks,
-// in chunk order, so every block sees the same p, and keeps its own 128
-// columns of p v (or of dK / dV / dQ); block 0 writes lse. The scores are
-// formed once per column block, a cost that only heads past 128 pay. The fused
+// with row stride d. Heads of 129 to 512 take the wide forward
+// (flash_fwd_wide_kernel, below): two groups of four warps share a
+// resident query tile, each forming half of q k^T and keeping 128 output
+// columns, so the scores are formed once per 256-wide column block (grid
+// y). Wider heads take column blocks of 128 (flash_fwd_chunked_kernel), as
+// the pair does at every d past 128 (its kernels at DP = 128 with nc > 1
+// chunks, grid z): each CTA forms the scores over all of d in 128-wide
+// chunks, in chunk order, so every block sees the same p, and keeps its own
+// 128 columns of p v (or of dK / dV / dQ); block 0 writes lse. The fused
 // backward tier stays at d <= 64. The (b, h) pair rides grid x (the forward: x = tile *
 // b * h + bh, so the longest causal tiles of every (b, h) start first; the
 // pair and the fused backward: x = bh, y = the tile, read from special
@@ -161,6 +163,8 @@ constexpr int kBM = 64;  // query rows a tile
 constexpr int kBN = 64;  // keys a tile
 constexpr int kFwdThreads = 128;  // the forward: 4 warps of 16 query rows
 constexpr int kWide = 128;  // a wide head's column block (heads past 128)
+constexpr int kWideThreads = 256;  // the wide forward: two groups of 4 warps
+constexpr int kWideMaxD = 512;     // the widest head whose query tile stays resident
 constexpr float kNegInf = -__builtin_huge_valf();
 
 using tf32::from_f32;
@@ -273,14 +277,13 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st, int 
   }
 }
 
-// s = q k^T of a warp's 16 rows (from w0 of the swizzled [*][DP] tile Qs)
-// and the 64 keys of the swizzled [64][DP] tile Kb, over DP columns, summed
-// in the tensor core from 0
-template <typename T, int DP>
-__device__ __forceinline__ void qk_scores(float (&s)[1][kBN / 8][4], const T* Qs, const T* Kb,
-                                          int w0) {
+// s = q k^T of a warp's 16 rows (from w0 of the swizzled [*][LD] tile Qs)
+// and the 8 KN keys of the swizzled [8 KN][LD] tile Kb, over the DEPTH
+// columns from c0, summed in the tensor core from 0
+template <typename T, int LD, int DEPTH = LD, int KN = kBN / 8>
+__device__ __forceinline__ void qk_scores(float (&s)[1][KN][4], const T* Qs, const T* Kb, int w0,
+                                          int c0 = 0) {
   constexpr bool kSplit = tf32::needs_split<T>();
-  constexpr int KN = kBN / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   // ldmatrix: lane l names row (l & 7) + 8 ((l >> 3) & 1), column 4 (l >> 4)
   // of the A fragment's four 8 x 4 matrices; for the B fragments of k, row
@@ -288,16 +291,17 @@ __device__ __forceinline__ void qk_scores(float (&s)[1][kBN / 8][4], const T* Qs
   const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 4 * (lane >> 4);
   const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 4 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int kk = 0; kk < DP; kk += 8) {
+  for (int k8 = 0; k8 < DEPTH; k8 += 8) {
+    const int kk = c0 + k8;
     uint32_t ah[1][4], al[1][4], bh[KN][2], bl[KN][2];
     if constexpr (sizeof(T) == 4) {
       uint32_t r[4];
-      tf32::ldmatrix_x4(r, Qs + sw(w0 + arow, kk + acol, DP));
+      tf32::ldmatrix_x4(r, Qs + sw(w0 + arow, kk + acol, LD));
 #pragma unroll
       for (int e = 0; e < 4; ++e) tf32::split<kSplit>(__uint_as_float(r[e]), ah[0][e], al[0][e]);
 #pragma unroll
       for (int j = 0; j < KN; j += 2) {
-        tf32::ldmatrix_x4(r, Kb + sw(8 * j + brow, kk + bcol, DP));
+        tf32::ldmatrix_x4(r, Kb + sw(8 * j + brow, kk + bcol, LD));
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           tf32::split<kSplit>(__uint_as_float(r[e]), bh[j + e / 2][e & 1], bl[j + e / 2][e & 1]);
@@ -305,35 +309,36 @@ __device__ __forceinline__ void qk_scores(float (&s)[1][kBN / 8][4], const T* Qs
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        tf32::split<kSplit>(to_f32(Qs[sw(w0 + g + 8 * (e & 1), kk + t + 4 * (e >> 1), DP)]),
+        tf32::split<kSplit>(to_f32(Qs[sw(w0 + g + 8 * (e & 1), kk + t + 4 * (e >> 1), LD)]),
                             ah[0][e], al[0][e]);
 #pragma unroll
       for (int j = 0; j < KN; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          tf32::split<kSplit>(to_f32(Kb[sw(8 * j + g, kk + t + 4 * e, DP)]), bh[j][e], bl[j][e]);
+          tf32::split<kSplit>(to_f32(Kb[sw(8 * j + g, kk + t + 4 * e, LD)]), bh[j][e], bl[j][e]);
     }
-    if (kk == 0) tf32::mma_tiles<kSplit, 1, KN, true>(s, ah, al, bh, bl);
+    if (k8 == 0) tf32::mma_tiles<kSplit, 1, KN, true>(s, ah, al, bh, bl);
     else tf32::mma_tiles<kSplit, 1, KN>(s, ah, al, bh, bl);
   }
 }
 
 // One key tile of the forward for a warp's 16 rows: the online softmax on
 // the scores s of keys k0.. (C fragments: s[0][j][2h + e] is row row[h], key
-// k0 + 8j + 2t + e; masked here), then o += p v over the swizzled [64][DP]
-// tile Vb (DP / 8 output tiles of 8 columns), the tile's part summed from 0
-template <typename T, int DP>
-__device__ __forceinline__ void softmax_pv(const FlashParams& p, float (&s)[1][kBN / 8][4],
+// k0 + 8j + 2t + e; masked here), then o += p v over columns [vc0, vc0 + DP)
+// of the swizzled [8 KN][VW] tile Vb (DP / 8 output tiles of 8 columns), the
+// tile's part summed from 0
+template <typename T, int DP, int KN = kBN / 8, int VW = DP>
+__device__ __forceinline__ void softmax_pv(const FlashParams& p, float (&s)[1][KN][4],
                                            float (&o)[DP / 8][4], float (&m)[2], float (&l)[2],
                                            const T* Vb, int k0, int q0, int w0,
-                                           const int (&row)[2], float scale2) {
+                                           const int (&row)[2], float scale2, int vc0 = 0) {
   constexpr bool kSplit = tf32::needs_split<T>();
   constexpr int NO = DP / 8;           // 8-column tiles of a warp's output
   constexpr int NB = NO < 8 ? NO : 8;  // of them in one pass of p v
-  constexpr int KN = kBN / 8;          // 8-key tiles of a key tile
+  constexpr int BN = 8 * KN;           // keys of the tile
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bool edge = k0 + kBN > p.tk || q0 + w0 + 16 > p.tq ||
-                    (p.causal && k0 + kBN - 1 > q0 + w0 + (p.tk - p.tq));
+  const bool edge = k0 + BN > p.tk || q0 + w0 + 16 > p.tq ||
+                    (p.causal && k0 + BN - 1 > q0 + w0 + (p.tk - p.tq));
   float alpha[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -393,8 +398,8 @@ __device__ __forceinline__ void softmax_pv(const FlashParams& p, float (&s)[1][k
       for (int c = 0; c < NB; ++c)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          tf32::split<kSplit>(to_f32(Vb[sw(8 * j + 2 * t + e, 8 * (n0 + c) + g, DP)]), bh[c][e],
-                              bl[c][e]);
+          tf32::split<kSplit>(to_f32(Vb[sw(8 * j + 2 * t + e, vc0 + 8 * (n0 + c) + g, VW)]),
+                              bh[c][e], bl[c][e]);
       if (j == 0) tf32::mma_tiles<kSplit, 1, NB, true>(part, ah, al, bh, bl);
       else tf32::mma_tiles<kSplit, 1, NB>(part, ah, al, bh, bl);
     }
@@ -441,12 +446,12 @@ __device__ __forceinline__ void store_fwd(const FlashParams& p, T* out, float* l
 template <typename T>
 __device__ __forceinline__ void store_masked_tile(const FlashParams& p, T* out, float* lse,
                                                   int q0, int c0, int cols, bool write_lse) {
-  for (int i = threadIdx.x; i < kBM * cols; i += kFwdThreads) {
+  for (int i = threadIdx.x; i < kBM * cols; i += blockDim.x) {
     const int r = i / cols;
     if (q0 + r < p.tq) out[(int64_t)(q0 + r) * p.d + c0 + i % cols] = from_f32<T>(0.0f);
   }
   if (write_lse)
-    for (int r = threadIdx.x; r < kBM; r += kFwdThreads)
+    for (int r = threadIdx.x; r < kBM; r += blockDim.x)
       if (q0 + r < p.tq) lse[q0 + r] = 0.0f;
 }
 
@@ -515,7 +520,136 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParam
   store_fwd<T, NO>(p, out, lse, o, m, l, row, 0, p.d, true);
 }
 
-// Heads wider than kWide: column blocks. The grid gains a y axis of
+// a named barrier of n threads (whole warps), id 1-15 (0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// the wide forward's shared memory at BN keys a stage: the resident query
+// tile and two stages of K (DQ columns) and V (the block's 2 kWide)
+template <typename T, int DQ> __host__ __device__ constexpr size_t wide_smem(int bn) {
+  return ((size_t)kBM * DQ + 2 * (size_t)bn * (DQ + 2 * kWide)) * sizeof(T);
+}
+// keys a stage: the most of 64, 32, 16 that fit one CTA under 227 KB (f32:
+// 32 at DQ = 256, 16 at 512; bf16: 64 and 32)
+template <typename T, int DQ> __host__ __device__ constexpr int wide_keys() {
+  return wide_smem<T, DQ>(64) <= 232448 ? 64 : wide_smem<T, DQ>(32) <= 232448 ? 32 : 16;
+}
+static_assert(wide_smem<float, kWideMaxD>(wide_keys<float, kWideMaxD>()) <= 232448,
+              "the wide forward's widest f32 plan too large");
+
+
+// Heads of 129 to kWideMaxD columns: one CTA of two groups of four warps
+// per 64-row query tile (and, past 256, per 256-wide output column block,
+// grid y). The query tile stays resident in shared memory for the whole
+// walk; K (all DQ columns) and the block's 256 columns of V stream through
+// a two-stage cp.async ring of BN-key stages. Warp w of group g owns rows
+// 16w.. and output columns [128g, 128g + 128) of the block (64 registers a
+// lane of O, as in the 128 build). Each group forms the partial q k^T over
+// its own half of the DQ columns, summed in the tensor core from 0; once
+// every warp of the group is done with the stage's K half (a named barrier
+// of the group), each warp leaves its partial in that half of the K stage,
+// its pair warp of the other group reads it (a named barrier of the pair),
+// and both form s = s_0 + s_1, so both run the identical online softmax (the
+// same s, m, l and p, bit for bit) and the scores are formed once per
+// column block. Block 0's group 0 writes lse.
+template <typename T, int DQ>
+__global__ void __launch_bounds__(kWideThreads, 1) flash_fwd_wide_kernel(const FlashParams p) {
+  constexpr int BN = wide_keys<T, DQ>(), KN = BN / 8, VW = 2 * kWide, HALF = DQ / 2;
+  constexpr int RW = DQ * (int)sizeof(T) / 4;  // floats a K stage row spans
+  static_assert(RW / 2 >= kBM && RW % 64 == 0, "a K half holds a group's partial scores");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);  // [64][DQ], resident
+  T* ring = Qs + kBM * DQ;             // two stages of K [BN][DQ] and V [BN][VW]
+
+  const int n_bh = p.b * p.h;
+  const int bh = blockIdx.x % n_bh, tile = blockIdx.x / n_bh;
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int n_qt = (p.tq + kBM - 1) / kBM;
+  const int q0 = (p.causal ? n_qt - 1 - tile : tile) * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, w0 = (warp & 3) * 16;
+  const int vb = blockIdx.y * VW;                                // the CTA's output columns
+  const int c0 = vb + grp * kWide, cols = min(kWide, p.d - c0);  // the group's
+  const bool vec = p.vec != 0;
+  const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+  const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+  const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+  T* out = static_cast<T*>(p.out) + (int64_t)bh * p.tq * p.d;
+  float* lse = p.lse_out + (int64_t)bh * p.tq;
+
+  // key stages the tile needs: all, or (causal) up to its last row's last key
+  int n_st = (p.tk + BN - 1) / BN;
+  if (p.causal) {
+    const int last_key = min(q0 + kBM, p.tq) - 1 + (p.tk - p.tq);
+    n_st = last_key < 0 ? 0 : min(n_st, last_key / BN + 1);
+  }
+  if (n_st == 0) {  // every row of the tile fully masked: out 0, lse 0
+    store_masked_tile(p, out, lse, q0, vb, min(VW, p.d - vb), blockIdx.y == 0);
+    return;
+  }
+  auto issue = [&](int st) {
+    T* kd = ring + (st & 1) * BN * (DQ + VW);
+    load_rows<T, DQ, BN, kWideThreads>(kd, k, p.sk[2], st * BN, p.tk, p.d, vec);
+    load_rows<T, VW, BN, kWideThreads>(kd + BN * DQ, v + vb, p.sv[2], st * BN, p.tk, p.d - vb,
+                                       vec);
+  };
+  load_rows<T, DQ, kBM, kWideThreads>(Qs, q, p.sq[2], q0, p.tq, p.d, vec);
+  issue(0);
+  cp_async_commit();
+
+  const int row[2] = {q0 + w0 + g, q0 + w0 + g + 8};
+  float o[kWide / 8][4];
+#pragma unroll
+  for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  const float scale2 = p.scale * 1.4426950408889634f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage st is here; every warp is done with stage st - 1
+    if (st + 1 < n_st) issue(st + 1);  // its copies run under this stage's math
+    cp_async_commit();
+    T* kd = ring + (st & 1) * BN * (DQ + VW);
+    float s[1][KN][4];
+    qk_scores<T, DQ, HALF, KN>(s, Qs, kd, w0, grp * HALF);
+    // the partials meet in the K stage: element (row r, key j) of group g
+    // at float j * RW + g * RW / 2 + (r ^ 8t), t = (j >> 1) & 3, which puts a
+    // fragment's 32 values in 32 banks
+    float* xs = reinterpret_cast<float*>(kd);
+    bar_sync(1 + grp, 4 * 32);  // the group is done reading its half of K
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          xs[(8 * j + 2 * t + e) * RW + grp * (RW / 2) + ((w0 + g + 8 * h) ^ (t << 3))] =
+              s[0][j][2 * h + e];
+    bar_sync(3 + (warp & 3), 2 * 32);  // the pair's partials are both written
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x =
+              xs[(8 * j + 2 * t + e) * RW + (1 - grp) * (RW / 2) + ((w0 + g + 8 * h) ^ (t << 3))];
+          float& y = s[0][j][2 * h + e];
+          y = grp == 0 ? y + x : x + y;  // s_0 + s_1 in both groups
+        }
+    softmax_pv<T, kWide, KN, VW>(p, s, o, m, l, kd + BN * DQ, st * BN, q0, w0, row, scale2,
+                                 grp * kWide);
+  }
+  cp_async_wait<0>();
+  if (cols > 0)
+    store_fwd<T, kWide / 8>(p, out, lse, o, m, l, row, c0, cols, blockIdx.y == 0 && grp == 0);
+}
+
+// Heads too wide for flash_fwd_wide_kernel's resident query tile (d past
+// kWideMaxD): column blocks. The grid gains a y axis of
 // ceil(d / kWide) output column blocks; each CTA computes s = q k^T over
 // all of d, in kWide-wide chunks summed from 0 and added in f32 in chunk
 // order (every block sees the same s, so the same p, m and l), and keeps
@@ -523,7 +657,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashParam
 // swizzled [64][kWide] tiles: for each key tile, (q chunk c, k chunk c)
 // for every c, then (v's block). Block 0 writes lse.
 template <typename T>
-__global__ void __launch_bounds__(kFwdThreads) flash_fwd_wide_kernel(const FlashParams p) {
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_chunked_kernel(const FlashParams p) {
   constexpr int DP = kWide, NO = DP / 8, KN = kBN / 8;
   static_assert(kBM == kBN, "a ring stage holds a query chunk or a key tile");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1403,14 +1537,14 @@ template <typename T, int DP> constexpr size_t fwd_smem() {
   return (size_t)(kBM + 4 * kBN) * DP * sizeof(T);
 }
 
-// the wide forward's ring: two stages of two [64][kWide] tiles
-template <typename T> constexpr size_t fwd_wide_smem() {
+// the chunked forward's ring: two stages of two [64][kWide] tiles
+template <typename T> constexpr size_t fwd_chunked_smem() {
   return (size_t)4 * kBM * kWide * sizeof(T);
 }
 
 // every configuration fits one CTA under the card's 227 KB
 static_assert(fwd_smem<float, 128>() <= 232448, "forward tile too large");
-static_assert(fwd_wide_smem<float>() <= 232448, "wide forward ring too large");
+static_assert(fwd_chunked_smem<float>() <= 232448, "chunked forward ring too large");
 static_assert(4 * kPBM * 128 * sizeof(float) + 2 * kPBM * pair_keys<128>() * 4 <= kSmemMax,
               "the pair's smallest plan at DP = 128 too large");
 
@@ -1440,15 +1574,27 @@ cudaError_t fwd_typed(const FlashParams& p, cudaStream_t st) {
 // column blocks of a wide head (grid y of the forward, z of the pair)
 inline unsigned wide_blocks(const FlashParams& p) { return (unsigned)((p.d + kWide - 1) / kWide); }
 
+template <typename T, int DQ>
+cudaError_t fwd_wide(const FlashParams& p, cudaStream_t st) {
+  constexpr size_t bytes = wide_smem<T, DQ>(wide_keys<T, DQ>());
+  cudaError_t err = prepare(flash_fwd_wide_kernel<T, DQ>, bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((p.d + 2 * kWide - 1) / (2 * kWide));
+  flash_fwd_wide_kernel<T, DQ><<<dim3(grid_x(p), blocks), kWideThreads, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t fwd_width(const FlashParams& p, cudaStream_t st) {
   if (p.d <= 32) return fwd_typed<T, 32>(p, st);
   if (p.d <= 64) return fwd_typed<T, 64>(p, st);
   if (p.d <= 128) return fwd_typed<T, 128>(p, st);
-  constexpr size_t bytes = fwd_wide_smem<T>();
-  cudaError_t err = prepare(flash_fwd_wide_kernel<T>, bytes);
+  if (p.d <= 2 * kWide) return fwd_wide<T, 2 * kWide>(p, st);
+  if (p.d <= kWideMaxD) return fwd_wide<T, kWideMaxD>(p, st);
+  constexpr size_t bytes = fwd_chunked_smem<T>();
+  cudaError_t err = prepare(flash_fwd_chunked_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_wide_kernel<T><<<dim3(grid_x(p), wide_blocks(p)), kFwdThreads, bytes, st>>>(p);
+  flash_fwd_chunked_kernel<T><<<dim3(grid_x(p), wide_blocks(p)), kFwdThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 

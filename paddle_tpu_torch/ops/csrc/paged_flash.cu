@@ -39,14 +39,11 @@
 // capture. One head a CTA: a head's slice of a pool row is 256 contiguous
 // bytes (two whole 128-byte lines) at GPT-2 small's widths, and the CTAs of
 // a slot's heads run side by side over the same rows.
-// Wider heads take the per-page kernel (paged_flash_tile, one CTA per
-// (slot, head, 4 table entries)) and its merge kernel (flash-decoding:
-// M = max m_s, L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / L),
-// plain f32 FMAs.
+// Wider heads take paged_wide_kernel (below).
 //
 // Shared table (a prefill chunk's rows over one page list), head width up
 // to 128: one CTA per (tile of up to 32 query rows, head, split of
-// 64 * stages_per_split context positions), cut at the tile's max(pos).
+// 64 * kSStages context positions), cut at the tile's max(pos).
 // The CTA gathers each 64-key stage row by row through the table with
 // 16-byte cp.async into a two-stage ring, so the next stage's copies run
 // under this one's math (int8 levels land raw with their rows' scales and
@@ -58,17 +55,29 @@
 // output; otherwise the last split of each (tile, head) to finish, found by
 // an integer arrival counter that it resets, merges the splits in order
 // (no second launch, no float atomics: the output repeats bit for bit).
-// Wider heads take the per-page body (paged_flash_tile) with a 32-row tile
-// and its merge kernel.
 // wgmma/TMA pipelines are left for later work.
+//
+// Heads past 128, either form: paged_wide_kernel, one design for any head
+// width and any page size. One CTA of 8 warps per (slot, head, split of 64
+// context positions) for decode, or per (32-row tile, head, split) for a
+// shared table. It gathers the split's keys position by position through
+// the table, so its shared memory (about 61 KB for f32 pools, 38 KB at one
+// row) depends on neither page_size nor d: it walks d in 64-column chunks
+// through a two-stage cp.async ring, first forming the scores chunk by chunk
+// (each dot summed in chunk order), then, after one softmax a row over the
+// split's 64 keys, p v chunk by chunk. f32 FMAs on the CUDA cores: a decode
+// row gives the tensor cores nothing to share, and both forms are bound by
+// the pool bytes they read. Splits merge in the last one to finish, as
+// above: one launch, bit for bit on repeat.
 //
 // int8 pools: the pools hold symmetric int8 levels, one row per token for
 // every head, and a [pool_rows] f32 scale pool per pool holds each row's
-// scale (shared by all heads). The shared form and the wide-head kernels
-// dequantize a head's slice of each row as they stage it in shared memory,
-// the decode kernel stages the raw levels and dequantizes them as it reads
-// them; either way float(level) * scale[row] is one rounding, the plain
-// version's exact value, and the f32 rows never reach device memory. A head's slice of a row is D contiguous bytes (64 at
+// scale (shared by all heads). Every kernel stages the raw levels with their
+// rows' scales; the shared and wide kernels dequantize a staged chunk into
+// an f32 chunk in shared memory, the decode kernel as it reads them; either
+// way float(level) * scale[row] is one rounding, the plain version's exact
+// value, and the f32 rows never reach device memory. A head's slice of a
+// row is D contiguous bytes (64 at
 // GPT-2 small's widths), loaded as 16-byte vectors when D, the row width
 // and the pool's address allow. Bound: bytes, 1 byte per K/V element plus
 // 4 bytes of scale per K/V row read, a quarter of the f32 pools' traffic
@@ -94,289 +103,34 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSharedTile = 32;
-
-struct Smem {
-  float* q;      // [tile][D + 1]  (row stride padded: no bank conflicts)
-  float* k;      // [ps][D + 1]
-  float* v;      // [ps][D + 1]
-  float* s;      // [tile][ps]     scores, then probabilities
-  float* acc;    // [tile][D]
-  float* m;      // [tile]
-  float* l;      // [tile]
-  float* alpha;  // [tile]
-  int* pos;      // [tile]
-};
-
-__host__ __device__ inline size_t smem_floats(int tile, int D, int ps) {
-  return (size_t)tile * (D + 1) + 2 * (size_t)ps * (D + 1) + (size_t)tile * ps +
-         (size_t)tile * D + 3 * (size_t)tile;
-}
-
-__host__ inline size_t smem_bytes(int tile, int D, int ps) {
-  return smem_floats(tile, D, ps) * sizeof(float) + (size_t)tile * sizeof(int);
-}
-
-__device__ inline Smem carve(float* base, int tile, int D, int ps) {
-  Smem sm;
-  sm.q = base;
-  sm.k = sm.q + (size_t)tile * (D + 1);
-  sm.v = sm.k + (size_t)ps * (D + 1);
-  sm.s = sm.v + (size_t)ps * (D + 1);
-  sm.acc = sm.s + (size_t)tile * ps;
-  sm.m = sm.acc + (size_t)tile * D;
-  sm.l = sm.m + tile;
-  sm.alpha = sm.l + tile;
-  sm.pos = reinterpret_cast<int*>(sm.alpha + tile);
-  return sm;
-}
-
-// Pages row r reads: positions 0..pos[r], capped at the table's P entries.
-__device__ __forceinline__ int pages_for(int pos, int ps, int P) {
-  return pos < 0 ? 0 : min(P, pos / ps + 1);
-}
-
-// Stage one page's K and V rows of `head` into shared memory as f32:
-// f32 pools copy, int8 pools dequantize (float(level) * scale[row]; the
-// product is stored as is, so nothing contracts it). `vec`: D, the row
-// width and the pools' addresses are multiples of 16 bytes, and each
-// thread loads whole 16-byte vectors of levels.
-__device__ __forceinline__ void stage_page(const float* __restrict__ k_pool,
-                                           const float* __restrict__ v_pool, const float*,
-                                           const float*, const Smem& sm, size_t base,
-                                           size_t feat, int head, int D, int ps, bool,
-                                           int tid, int nt) {
-  for (int i = tid; i < ps * D; i += nt) {
-    const int j = i / D, d = i - j * D;
-    const size_t g = (base + j) * feat + (size_t)head * D + d;
-    sm.k[j * (D + 1) + d] = k_pool[g];
-    sm.v[j * (D + 1) + d] = v_pool[g];
-  }
-}
-
-__device__ __forceinline__ void stage_page(const int8_t* __restrict__ k_pool,
-                                           const int8_t* __restrict__ v_pool,
-                                           const float* __restrict__ k_scales,
-                                           const float* __restrict__ v_scales, const Smem& sm,
-                                           size_t base, size_t feat, int head, int D, int ps,
-                                           bool vec, int tid, int nt) {
-  if (vec) {
-    const int per_row = D / 16;
-    for (int i = tid; i < ps * per_row; i += nt) {
-      const int j = i / per_row, d0 = (i - j * per_row) * 16;
-      const size_t g = (base + j) * feat + (size_t)head * D + d0;
-      const int4 kv = *reinterpret_cast<const int4*>(k_pool + g);
-      const int4 vv = *reinterpret_cast<const int4*>(v_pool + g);
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&kv);
-      const int8_t* vb = reinterpret_cast<const int8_t*>(&vv);
-      const float ks = k_scales[base + j], vs = v_scales[base + j];
-      float* kd = sm.k + j * (D + 1) + d0;
-      float* vd = sm.v + j * (D + 1) + d0;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        kd[e] = __fmul_rn((float)kb[e], ks);
-        vd[e] = __fmul_rn((float)vb[e], vs);
-      }
-    }
-    return;
-  }
-  for (int i = tid; i < ps * D; i += nt) {
-    const int j = i / D, d = i - j * D;
-    const size_t g = (base + j) * feat + (size_t)head * D + d;
-    sm.k[j * (D + 1) + d] = __fmul_rn((float)k_pool[g], k_scales[base + j]);
-    sm.v[j * (D + 1) + d] = __fmul_rn((float)v_pool[g], v_scales[base + j]);
-  }
-}
-
-// One CTA: `n_rows` (<= tile) query rows starting at q row `row0`, one head,
-// table entries [split * pps, (split + 1) * pps) of the page list `table`
-// (P entries). Writes the rows' unnormalized state to the split scratch:
-// part_acc [splits][rows][H][D], part_ml [splits][rows][H][2] = (m, l).
-// A split past the tile's last needed page writes nothing: the merge never
-// reads it.
-template <typename T>
-__device__ void paged_flash_tile(const float* __restrict__ q,
-                                 const T* __restrict__ k_pool,
-                                 const T* __restrict__ v_pool,
-                                 const float* __restrict__ k_scales,
-                                 const float* __restrict__ v_scales, bool vec,
-                                 const int* __restrict__ table,
-                                 const int* __restrict__ pos,
-                                 float* __restrict__ part_acc,
-                                 float* __restrict__ part_ml, int rows, int row0,
-                                 int n_rows, int tile, int head, int split, int pps,
-                                 int H, int D, int P, int ps, int n_pool_pages,
-                                 float scale) {
-  extern __shared__ float smem_raw[];
-  const Smem sm = carve(smem_raw, tile, D, ps);
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const size_t feat = (size_t)H * D;
-  const float neg_inf = -CUDART_INF_F;
-
-  // pages up to the tile's max(pos), capped at the table's length
-  int max_pos = -1;
-  for (int r = 0; r < n_rows; ++r) max_pos = max(max_pos, pos[row0 + r]);
-  const int p_begin = split * pps;
-  const int p_end = min(pages_for(max_pos, ps, P), p_begin + pps);
-  if (p_begin >= p_end) return;
-
-  for (int i = tid; i < tile * D; i += nt) {
-    const int r = i / D, d = i - r * D;
-    sm.q[r * (D + 1) + d] = r < n_rows ? q[(row0 + r) * feat + (size_t)head * D + d] : 0.f;
-    sm.acc[i] = 0.f;
-  }
-  for (int r = tid; r < tile; r += nt) {
-    sm.pos[r] = r < n_rows ? pos[row0 + r] : -1;
-    sm.m[r] = neg_inf;
-    sm.l[r] = 0.f;
-  }
-  __syncthreads();
-
-  for (int p = p_begin; p < p_end; ++p) {
-    // a corrupt table entry is clamped into the pool rather than read out of
-    // bounds (the JAX gather clamps the same way)
-    const int page = min(max(table[p], 0), n_pool_pages - 1);
-    const size_t base = (size_t)page * ps;
-    stage_page(k_pool, v_pool, k_scales, v_scales, sm, base, feat, head, D, ps, vec, tid, nt);
-    __syncthreads();
-
-    for (int i = tid; i < tile * ps; i += nt) {
-      const int r = i / ps, j = i - r * ps;
-      float sc = neg_inf;
-      if (p * ps + j <= sm.pos[r]) {
-        const float* qr = sm.q + r * (D + 1);
-        const float* kj = sm.k + j * (D + 1);
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kj[d], dot);
-        sc = dot * scale;
-      }
-      sm.s[i] = sc;
-    }
-    __syncthreads();
-
-    for (int r = tid; r < tile; r += nt) {
-      float* sr = sm.s + r * ps;
-      const float m_prev = sm.m[r];
-      float m_cur = neg_inf;
-      for (int j = 0; j < ps; ++j) m_cur = fmaxf(m_cur, sr[j]);
-      const float m_new = fmaxf(m_prev, m_cur);
-      // exp(-inf - -inf) is nan: a row that has seen nothing live yet
-      // rescales by exactly 0
-      const float alpha = m_prev == neg_inf ? 0.f : expf(m_prev - m_new);
-      float sum = 0.f;
-      for (int j = 0; j < ps; ++j) {
-        const float pj = (p * ps + j <= sm.pos[r]) ? expf(sr[j] - m_new) : 0.f;
-        sr[j] = pj;
-        sum += pj;
-      }
-      sm.l[r] = sm.l[r] * alpha + sum;
-      sm.m[r] = m_new;
-      sm.alpha[r] = alpha;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < tile * D; i += nt) {
-      const int r = i / D, d = i - r * D;
-      const float* pr = sm.s + r * ps;
-      float a = sm.acc[i] * sm.alpha[r];
-      for (int j = 0; j < ps; ++j) a = fmaf(pr[j], sm.v[j * (D + 1) + d], a);
-      sm.acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < n_rows * D; i += nt) {
-    const int r = i / D, d = i - r * D;
-    part_acc[(((size_t)split * rows + row0 + r) * H + head) * D + d] = sm.acc[i];
-  }
-  for (int r = tid; r < n_rows; r += nt) {
-    float* ml = part_ml + (((size_t)split * rows + row0 + r) * H + head) * 2;
-    ml[0] = sm.m[r];
-    ml[1] = sm.l[r];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_flash_decode_kernel(const float* q, const T* k_pool, const T* v_pool,
-                              const float* k_scales, const float* v_scales, int vec,
-                              const int* block_table, const int* pos, float* part_acc,
-                              float* part_ml, int rows, int pps, int H, int D, int P,
-                              int ps, int n_pool_pages, float scale) {
-  const int slot = blockIdx.x;
-  paged_flash_tile<T>(q, k_pool, v_pool, k_scales, v_scales, vec != 0,
-                      block_table + (size_t)slot * P, pos, part_acc, part_ml, rows, slot, 1,
-                      1, blockIdx.y, blockIdx.z, pps, H, D, P, ps, n_pool_pages, scale);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_flash_shared_kernel(const float* q, const T* k_pool, const T* v_pool,
-                              const float* k_scales, const float* v_scales, int vec,
-                              const int* block_table, const int* pos, float* part_acc,
-                              float* part_ml, int rows, int tile, int pps, int H, int D,
-                              int P, int ps, int n_pool_pages, float scale) {
-  const int row0 = blockIdx.x * tile;
-  paged_flash_tile<T>(q, k_pool, v_pool, k_scales, v_scales, vec != 0, block_table, pos,
-                      part_acc, part_ml, rows, row0, min(tile, rows - row0), tile, blockIdx.y,
-                      blockIdx.z, pps, H, D, P, ps, n_pool_pages, scale);
-}
-
-// One CTA per (row, head): merge the row's splits into the output. Only the
-// splits that cover the row's own pages are read; each was written by its
-// CTA (a tile's max(pos) is at least the row's pos).
-__global__ void __launch_bounds__(kThreads)
-    paged_flash_merge_kernel(const float* __restrict__ part_acc,
-                             const float* __restrict__ part_ml,
-                             const int* __restrict__ pos, float* __restrict__ out,
-                             int rows, int pps, int H, int D, int P, int ps) {
-  const int row = blockIdx.x, head = blockIdx.y;
-  const int n_splits = (pages_for(pos[row], ps, P) + pps - 1) / pps;
-  const float neg_inf = -CUDART_INF_F;
-  float m_max = neg_inf;
-  for (int s = 0; s < n_splits; ++s)
-    m_max = fmaxf(m_max, part_ml[(((size_t)s * rows + row) * H + head) * 2]);
-  float l_sum = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float* ml = part_ml + (((size_t)s * rows + row) * H + head) * 2;
-    if (ml[0] != neg_inf) l_sum += ml[1] * expf(ml[0] - m_max);
-  }
-  const float inv = 1.f / (l_sum > 0.f ? l_sum : 1.f);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_splits; ++s) {
-      const size_t i = ((size_t)s * rows + row) * H + head;
-      const float m = part_ml[i * 2];
-      if (m != neg_inf) a = fmaf(part_acc[i * D + d], expf(m - m_max), a);
-    }
-    out[(size_t)row * H * D + (size_t)head * D + d] = a * inv;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The shared-table form on the tensor cores (head width up to kSMaxD)
 // ---------------------------------------------------------------------------
 
 constexpr int kSRows = 32;      // query rows a CTA
 constexpr int kSKeys = 64;      // keys a stage
+// stages a split (timed on the card at the prefill chunk: 2 beat 1 and 4); a
+// chunk's context of about 640 positions spreads over 5 splits per (32-row
+// tile, head), 60 CTAs at 12 heads
+constexpr int kSStages = 2;
 constexpr int kSThreads = 128;  // 4 warps: 2 (16 rows each) x 2 (32 keys of each stage)
 constexpr int kSMaxD = 128;     // the widest head the tensor-core form takes
 
-struct SharedArgs {
+// Every kernel's arguments: a decode step's slots or a prefill chunk's rows
+// ("rows"), each with its own table (decode) or all over one (shared)
+struct PagedArgs {
   const float* q;         // [rows, H * D]
   const void* k_pool;     // [pool_rows, H * D], f32 or int8 levels
   const void* v_pool;
   const float* k_scales;  // int8: [pool_rows]
   const float* v_scales;
-  const int* table;       // [P]
+  const int* table;       // [rows, P] (decode) or [P] (shared)
   const int* pos;         // [rows]
   float* out;             // [rows, H * D]
   float* part_acc;        // [splits][rows][H][D]
   float* part_ml;         // [splits][rows][H][2]
-  int* arrivals;          // [tiles * H], all 0; left at 0
-  int rows, H, D, P, ps, n_pool_pages, stages_per_split, vec;
+  int* arrivals;          // [(slots or 32-row tiles) * H], all 0; left at 0
+  int rows, H, D, P, ps, n_pool_pages, vec;
   float scale;
 };
 
@@ -400,7 +154,7 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 
 // pool row of the key at context position kpos, or -1 past n_keys (a
 // corrupt table entry is clamped into the pool, as the JAX gather clamps)
-__device__ __forceinline__ int pool_row(const SharedArgs& a, int kpos, int n_keys) {
+__device__ __forceinline__ int pool_row(const PagedArgs& a, int kpos, int n_keys) {
   if (kpos >= n_keys) return -1;
   const int entry = kpos / a.ps;
   const int page = min(max(a.table[entry], 0), a.n_pool_pages - 1);
@@ -412,7 +166,7 @@ __device__ __forceinline__ int pool_row(const SharedArgs& a, int kpos, int n_key
 // read as zeros. f32 pools land in swizzled [64][DP] tiles; int8 pools
 // land as raw levels [64][DP] with their rows' scales (dequantized later).
 template <int DP>
-__device__ __forceinline__ void issue_stage(const SharedArgs& a, int head, const int* rows,
+__device__ __forceinline__ void issue_stage(const PagedArgs& a, int head, const int* rows,
                                             float* kd, float* vd, float*, float*) {
   constexpr int U = DP / 4;
   const size_t feat = (size_t)a.H * a.D;
@@ -442,7 +196,7 @@ __device__ __forceinline__ void issue_stage(const SharedArgs& a, int head, const
 }
 
 template <int DP>
-__device__ __forceinline__ void issue_stage(const SharedArgs& a, int head, const int* rows,
+__device__ __forceinline__ void issue_stage(const PagedArgs& a, int head, const int* rows,
                                             int8_t* kd, int8_t* vd, float* ksc, float* vsc) {
   constexpr int U = DP / 16;
   const size_t feat = (size_t)a.H * a.D;
@@ -499,7 +253,7 @@ __device__ __forceinline__ float ex2(float x) {
 // thread's loads of four splits for all its columns are in flight together.
 // `buf` holds (8 + 2 + kSMergeChunk) * 32 floats.
 template <int DP>
-__device__ __forceinline__ void merge_splits(const SharedArgs& a, float* buf, int row0,
+__device__ __forceinline__ void merge_splits(const PagedArgs& a, float* buf, int row0,
                                              int n_rows, int head, int n_live) {
   constexpr int U = DP / 4, UPT = kSRows * U / kSThreads, SB = UPT >= 8 ? 2 : 4;
   const float neg_inf = -CUDART_INF_F;
@@ -619,7 +373,7 @@ __device__ __forceinline__ void merge_splits(const SharedArgs& a, float* buf, in
 // arrival counter, reset after) merges them in split order, so the result
 // repeats bit for bit.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kSThreads) paged_flash_shared_tc_kernel(const SharedArgs a) {
+__global__ void __launch_bounds__(kSThreads) paged_flash_shared_tc_kernel(const PagedArgs a) {
   using Smem = SharedSmem<T, DP>;
   static_assert(2 * Smem::stage >= (10 + kSMergeChunk) * kSRows * sizeof(float) &&
                     2 * Smem::stage >= kSRows * DP * sizeof(float),
@@ -660,7 +414,7 @@ __global__ void __launch_bounds__(kSThreads) paged_flash_shared_tc_kernel(const 
   // beside the positions; keys past the tile's max(pos) are marked dead
   // once it is known
   static_assert(kSThreads == 2 * kSKeys, "one key a thread over two stages");
-  const int span = kSKeys * a.stages_per_split, k_begin = split * span;
+  const int span = kSKeys * kSStages, k_begin = split * span;
   int first_row = pool_row(a, k_begin + tid, min(k_begin + span, a.P * a.ps));
   if (warp == 0) {
     const int pr = lane < n_rows ? a.pos[row0 + lane] : -1;
@@ -932,22 +686,6 @@ constexpr int kDThreads = 32 * kDWarps;
 constexpr int kDSplit = 32 * kDWarps;  // context positions a CTA: one a lane
 constexpr int kDMaxD = 128;            // the widest head this form takes
 
-struct DecodeArgs {
-  const float* q;         // [S, H * D]
-  const void* k_pool;     // [pool_rows, H * D], f32 or int8 levels
-  const void* v_pool;
-  const float* k_scales;  // int8: [pool_rows]
-  const float* v_scales;
-  const int* table;       // [S, P]
-  const int* pos;         // [S]
-  float* out;             // [S, H * D]
-  float* part_acc;        // [splits][S][H][D]
-  float* part_ml;         // [splits][S][H][2]
-  int* arrivals;          // [S * H], all 0; left at 0
-  int S, H, D, P, ps, n_pool_pages, vec;
-  float scale;
-};
-
 // A CTA's shared memory: K and V rows of its 128 positions (rows padded so
 // that the lane-per-row reads of a warp hit distinct banks: 4 f32 or 16
 // int8 levels), int8 rows' scales, the query row and the warps' merge.
@@ -964,7 +702,7 @@ template <typename T, int DP> struct DecodeSmem {
 // past D zero-filled; else element by element. int8 pools also copy each
 // row's scale.
 template <typename T, int DP>
-__device__ __forceinline__ void decode_rows(const DecodeArgs& a, const T* pool,
+__device__ __forceinline__ void decode_rows(const PagedArgs& a, const T* pool,
                                             const float* scales, int head, int prow, int nk,
                                             T* dst, float* sc) {
   constexpr int LD = DecodeSmem<T, DP>::ld, E = 16 / (int)sizeof(T), U = DP / E;
@@ -1048,7 +786,7 @@ __device__ __forceinline__ void decode_vrow(const int8_t* vr, float vs, float (&
 // finish (an arrival counter, reset after) merges every split in order.
 // Scores and m are in the base-2 domain (s * scale * log2(e)).
 template <typename T, int DP>
-__global__ void __launch_bounds__(kDThreads) paged_decode_kernel(const DecodeArgs a) {
+__global__ void __launch_bounds__(kDThreads) paged_decode_kernel(const PagedArgs a) {
   using Sm = DecodeSmem<T, DP>;
   constexpr int LD = Sm::ld, CPL = DP / 32;
   constexpr bool kInt8 = sizeof(T) == 1;
@@ -1152,7 +890,7 @@ __global__ void __launch_bounds__(kDThreads) paged_decode_kernel(const DecodeArg
     if (c < a.D) out[c] = A / (L > 0.0f ? L : 1.0f);
     return;
   }
-  const size_t i = ((size_t)split * a.S + slot) * a.H + head;
+  const size_t i = ((size_t)split * a.rows + slot) * a.H + head;
   if (c < a.D) a.part_acc[i * a.D + c] = A;
   if (tid == 0) {
     a.part_ml[i * 2] = M;
@@ -1168,7 +906,7 @@ __global__ void __launch_bounds__(kDThreads) paged_decode_kernel(const DecodeArg
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const size_t stride = (size_t)a.S * a.H;  // one split's (slot, head) entries
+  const size_t stride = (size_t)a.rows * a.H;  // one split's (slot, head) entries
   const size_t i0 = (size_t)slot * a.H + head;
   float Mx = neg_inf;
   for (int sp = 0; sp < n_live; ++sp) Mx = fmaxf(Mx, __ldcg(a.part_ml + (i0 + sp * stride) * 2));
@@ -1184,76 +922,492 @@ __global__ void __launch_bounds__(kDThreads) paged_decode_kernel(const DecodeArg
   if (tid == 0) *counter = 0;  // ready for the next launch on this stream
 }
 
-// Opt the kernel into more than the default 48 KB of dynamic shared memory
-// when a shape needs it; cudaErrorInvalidValue past the card's 227 KB.
+// ---------------------------------------------------------------------------
+// Heads past 128, both forms: the position-staged wide kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kWKeys = 64;      // context positions a CTA (one split)
+constexpr int kWCols = 64;      // columns of d a stage
+constexpr int kWThreads = 256;  // 8 warps
+constexpr int kWRows = 32;      // query rows a CTA of the shared form
+constexpr int kWMerge = 32;     // splits whose weights the merge holds at once
+
+// element (j, c) of a [64][kWCols] f32 stage: 16-byte units XOR-swizzled by
+// (j / 4) & 7, so the reads of keys 4x + i (x = 0..7) at one unit, and of one
+// key at 8 consecutive units, each hit 32 distinct banks
+__device__ __forceinline__ int wsw(int j, int c) { return j * kWCols + (c ^ (((j >> 2) & 7) << 2)); }
+
+// A CTA's dynamic shared memory: a two-stage ring of (q chunk [R][64] f32,
+// K chunk [64][64]) or (V chunk [64][64]) steps, for int8 pools one
+// dequantized f32 chunk, the decode form's partial p v sums, the scores
+// then probabilities [R][64] and the merge's split weights (the pool rows,
+// scales and row state are static)
+template <typename T, int R> struct WideSmem {
+  static constexpr size_t qc = (size_t)R * kWCols * 4;
+  static constexpr size_t kc = (size_t)kWKeys * kWCols * sizeof(T);
+  static constexpr size_t stage = qc + kc;
+  static constexpr size_t deq = sizeof(T) == 1 ? (size_t)kWKeys * kWCols * 4 : 0;
+  static constexpr size_t red = R == 1 ? (size_t)16 * kWCols * 4 : 0;
+  static constexpr size_t bytes = 2 * stage + deq + red + (size_t)R * (kWKeys + kWMerge) * 4;
+};
+
+// Issue step `step`'s copies into `buf`: a score step (step < nch) brings
+// columns [64 c, 64 c + 64) of the R query rows and of the 64 keys' K rows,
+// a value step those of V; dead keys, rows past n_rows and columns past D
+// read as zeros. 16-byte cp.async where the wrapper found every row aligned
+// (vec), else element by element.
+template <typename T, int R>
+__device__ __forceinline__ void wide_issue(const PagedArgs& a, int head, int row0, int n_rows,
+                                           const int* rows, unsigned char* buf, int step,
+                                           int nch) {
+  using Sm = WideSmem<T, R>;
+  constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte unit
+  const size_t feat = (size_t)a.H * a.D;
+  const bool score = step < nch;
+  const int c0 = (score ? step : step - nch) * kWCols;
+  const int tid = threadIdx.x;
+  if (score) {
+    float* qc = reinterpret_cast<float*>(buf);
+    for (int i = tid; i < R * kWCols / 4; i += kWThreads) {
+      const int r = i / (kWCols / 4), c = (i % (kWCols / 4)) * 4;
+      const bool ok = r < n_rows;
+      const float* src = a.q + (size_t)(row0 + (ok ? r : 0)) * feat + (size_t)head * a.D + c0 + c;
+      float* dst = qc + r * kWCols + c;
+      if (a.vec) {
+        const bool live = ok && c0 + c < a.D;
+        cp_async_zfill(dst, live ? src : a.q, live, 16);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = ok && c0 + c + e < a.D ? src[e] : 0.0f;
+      }
+    }
+  }
+  const T* pool = static_cast<const T*>(score ? a.k_pool : a.v_pool);
+  T* kd = reinterpret_cast<T*>(buf + Sm::qc);
+  for (int i = tid; i < kWKeys * kWCols / E; i += kWThreads) {
+    const int j = i / (kWCols / E), c = (i % (kWCols / E)) * E;
+    const bool live = rows[j] >= 0;
+    const T* src = pool + (live ? (size_t)rows[j] * feat + (size_t)head * a.D + c0 + c : 0);
+    // f32 lands swizzled for the reads; int8 lands raw for the dequantization
+    T* dst = kd + (sizeof(T) == 4 ? wsw(j, c) : j * kWCols + c);
+    if (a.vec) {
+      const bool ok = live && c0 + c < a.D;
+      cp_async_zfill(dst, ok ? src : pool, ok, 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) dst[e] = live && c0 + c + e < a.D ? src[e] : T(0);
+    }
+  }
+}
+
+// four columns [c, c + 4) of a row of d floats in device memory, zeros past
+// d, by one 16-byte load where the row allows (L2 only: another CTA wrote
+// them)
+__device__ __forceinline__ float4 wide_load4(const float* src, int c, int d, bool vec4) {
+  if (vec4) return __ldcg(reinterpret_cast<const float4*>(src));
+  return make_float4(__ldcg(src), c + 1 < d ? __ldcg(src + 1) : 0.0f,
+                     c + 2 < d ? __ldcg(src + 2) : 0.0f, c + 3 < d ? __ldcg(src + 3) : 0.0f);
+}
+
+// One CTA per (slot, head, split of 64 context positions) for the decode
+// form (R = 1, a table per slot), or per (32-row tile, head, split) for the
+// shared form (R = 32, one table). The split's keys are gathered position
+// by position through the table, so shared memory depends neither on
+// page_size nor on d: the CTA walks d in 64-column chunks, first forming s
+// = q k^T chunk by chunk (each thread's dots summed in chunk order), then,
+// after one softmax over the split's 64 keys, p v chunk by chunk, every
+// chunk's copies in flight under the previous chunk's math. f32 FMAs on the
+// CUDA cores: both forms are bound by the pool bytes they read. A split
+// that is its tile's only one writes the output; otherwise the last split
+// of each (tile, head) to finish, found by an integer arrival counter that
+// it resets, merges the splits in split order. Scores and m are in the
+// base-2 domain.
+template <typename T, int R>
+__global__ void __launch_bounds__(kWThreads) paged_wide_kernel(const PagedArgs a) {
+  using Sm = WideSmem<T, R>;
+  constexpr bool kInt8 = sizeof(T) == 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* deq = reinterpret_cast<float*>(smem + 2 * Sm::stage);
+  float* red = deq + Sm::deq / 4;  // decode: [16][64] partial p v sums
+  float* S = red + Sm::red / 4;    // [R][64]: scores, then probabilities
+  float* wts = S + R * kWKeys;     // the merge's [kWMerge][R] split weights
+  __shared__ int rows_s[kWKeys], pos_s[R];
+  __shared__ float ksc[kWKeys], vsc[kWKeys], m_s[R], l_s[R];
+  __shared__ int max_pos_s, is_last;
+
+  const int head = blockIdx.x % a.H, tile = blockIdx.x / a.H, split = blockIdx.y;
+  const int row0 = tile * R, n_rows = min(R, a.rows - row0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t feat = (size_t)a.H * a.D;
+  const float neg_inf = -CUDART_INF_F;
+  const int* table = R == 1 ? a.table + (size_t)tile * a.P : a.table;
+  if (warp == 0) {
+    int mx = -1;
+    for (int r = lane; r < R; r += 32) {
+      const int pr = r < n_rows ? a.pos[row0 + r] : -1;
+      pos_s[r] = pr;
+      mx = max(mx, pr);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) max_pos_s = mx;
+  }
+  __syncthreads();
+  const int n_keys = max_pos_s < 0 ? 0 : min(max_pos_s + 1, a.P * a.ps);
+  const int n_live = (n_keys + kWKeys - 1) / kWKeys;
+  if (split >= n_live) {  // past the tile's last key: no pool load at all
+    if (split == 0)       // no live key for any row: exact zeros
+      for (int i = tid; i < n_rows * a.D; i += kWThreads)
+        a.out[(size_t)(row0 + i / a.D) * feat + (size_t)head * a.D + i % a.D] = 0.0f;
+    return;
+  }
+  const int k_begin = split * kWKeys, nk = min(kWKeys, n_keys - k_begin);
+  if (tid < kWKeys) {
+    // a corrupt table entry is clamped into the pool, as the JAX gather clamps
+    int prow = -1;
+    if (tid < nk) {
+      const int kpos = k_begin + tid, entry = kpos / a.ps;
+      prow = min(max(table[entry], 0), a.n_pool_pages - 1) * a.ps + (kpos - entry * a.ps);
+    }
+    rows_s[tid] = prow;
+    if (kInt8) {
+      ksc[tid] = prow >= 0 ? a.k_scales[prow] : 0.0f;
+      vsc[tid] = prow >= 0 ? a.v_scales[prow] : 0.0f;
+    }
+  }
+  __syncthreads();
+  const int nch = (a.D + kWCols - 1) / kWCols, n_steps = 2 * nch;
+  wide_issue<T, R>(a, head, row0, n_rows, rows_s, ring, 0, nch);
+  cp_async_commit();
+
+  // R = 32: thread (ty, tx) takes rows 2ty, 2ty + 1 and keys 4tx.. (scores)
+  // or columns 4tx.. (p v); R = 1: key tid / 4 over every fourth unit
+  // (scores), or unit tid % 16 over every 16th key (p v)
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[2][4];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[x][e] = 0.0f;
+  const float scale2 = a.scale * 1.4426950408889634f;
+  const bool single = n_live == 1;
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();  // step's chunk is here; every thread is done with the last
+    if (step + 1 < n_steps) {
+      wide_issue<T, R>(a, head, row0, n_rows, rows_s, ring + ((step + 1) & 1) * Sm::stage,
+                       step + 1, nch);
+      cp_async_commit();
+    }
+    unsigned char* buf = ring + (step & 1) * Sm::stage;
+    const float* qc = reinterpret_cast<const float*>(buf);
+    const float* kc = reinterpret_cast<const float*>(buf + Sm::qc);
+    const bool score = step < nch;
+    if constexpr (kInt8) {
+      // one rounding, float(level) * scale[row]: the plain version's value
+      const int8_t* raw = reinterpret_cast<const int8_t*>(buf + Sm::qc);
+      const float* sc = score ? ksc : vsc;
+      for (int i = tid; i < kWKeys * kWCols / 4; i += kWThreads) {
+        const int j = i / (kWCols / 4), c = (i % (kWCols / 4)) * 4;
+        const char4 x = *reinterpret_cast<const char4*>(raw + j * kWCols + c);
+        *reinterpret_cast<float4*>(deq + wsw(j, c)) =
+            make_float4(__fmul_rn((float)x.x, sc[j]), __fmul_rn((float)x.y, sc[j]),
+                        __fmul_rn((float)x.z, sc[j]), __fmul_rn((float)x.w, sc[j]));
+      }
+      __syncthreads();
+      kc = deq;
+    }
+    if (score) {
+      if constexpr (R == 1) {
+        const int j = tid >> 2, qq = tid & 3;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 4 * (qq + 4 * i);
+          const float4 qv = *reinterpret_cast<const float4*>(qc + c);
+          const float4 kv = *reinterpret_cast<const float4*>(kc + wsw(j, c));
+          acc[0][i] = fmaf(qv.x, kv.x, acc[0][i]);
+          acc[0][i] = fmaf(qv.y, kv.y, acc[0][i]);
+          acc[0][i] = fmaf(qv.z, kv.z, acc[0][i]);
+          acc[0][i] = fmaf(qv.w, kv.w, acc[0][i]);
+        }
+      } else {
+#pragma unroll 4
+        for (int c = 0; c < kWCols; c += 4) {
+          const float4 q0 = *reinterpret_cast<const float4*>(qc + (2 * ty) * kWCols + c);
+          const float4 q1 = *reinterpret_cast<const float4*>(qc + (2 * ty + 1) * kWCols + c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 kv = *reinterpret_cast<const float4*>(kc + wsw(4 * tx + i, c));
+            acc[0][i] = fmaf(q0.x, kv.x, acc[0][i]);
+            acc[0][i] = fmaf(q0.y, kv.y, acc[0][i]);
+            acc[0][i] = fmaf(q0.z, kv.z, acc[0][i]);
+            acc[0][i] = fmaf(q0.w, kv.w, acc[0][i]);
+            acc[1][i] = fmaf(q1.x, kv.x, acc[1][i]);
+            acc[1][i] = fmaf(q1.y, kv.y, acc[1][i]);
+            acc[1][i] = fmaf(q1.z, kv.z, acc[1][i]);
+            acc[1][i] = fmaf(q1.w, kv.w, acc[1][i]);
+          }
+        }
+      }
+      if (step + 1 < nch) continue;
+      // the scores, where-masked by each row's pos, then one softmax a row
+      if constexpr (R == 1) {
+        const int j = tid >> 2;
+        float d = (acc[0][0] + acc[0][1]) + (acc[0][2] + acc[0][3]);
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        if ((tid & 3) == 0) S[j] = j < nk && k_begin + j <= pos_s[0] ? d * scale2 : neg_inf;
+      } else {
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 2 * ty + x, j = 4 * tx + i;
+            S[r * kWKeys + j] = j < nk && k_begin + j <= pos_s[r] ? acc[x][i] * scale2 : neg_inf;
+          }
+      }
+      __syncthreads();
+      for (int r = warp; r < R; r += kWThreads / 32) {
+        float* sr = S + r * kWKeys;
+        const float s0 = sr[lane], s1 = sr[lane + 32];
+        float mx = fmaxf(s0, s1);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        // dead entries weigh exactly 0; a row with none live keeps m = -inf
+        const float p0 = s0 == neg_inf ? 0.0f : ex2(s0 - mx);
+        const float p1 = s1 == neg_inf ? 0.0f : ex2(s1 - mx);
+        float sum = p0 + p1;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        sr[lane] = p0;
+        sr[lane + 32] = p1;
+        if (lane == 0) {
+          m_s[r] = mx;
+          l_s[r] = sum;
+        }
+      }
+      continue;  // the next step's barrier makes S, m and l visible
+    }
+    // p v over columns [c0, c0 + 64): the split's unnormalized sum (or, for a
+    // single split, the output)
+    const int c0 = (step - nch) * kWCols;
+    if constexpr (R == 1) {
+      const int u = tid & 15, kg = tid >> 4;
+      float o4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = kg; j < nk; j += 16) {
+        const float pj = S[j];
+        const float4 vv = *reinterpret_cast<const float4*>(kc + wsw(j, 4 * u));
+        o4[0] = fmaf(pj, vv.x, o4[0]);
+        o4[1] = fmaf(pj, vv.y, o4[1]);
+        o4[2] = fmaf(pj, vv.z, o4[2]);
+        o4[3] = fmaf(pj, vv.w, o4[3]);
+      }
+      *reinterpret_cast<float4*>(red + kg * kWCols + 4 * u) = make_float4(o4[0], o4[1], o4[2], o4[3]);
+      __syncthreads();
+      if (tid < kWCols && c0 + tid < a.D) {
+        float o = 0.0f;
+#pragma unroll
+        for (int g = 0; g < 16; ++g) o += red[g * kWCols + tid];  // key groups in order
+        const size_t i = ((size_t)split * a.rows + row0) * a.H + head;
+        if (single) a.out[(size_t)row0 * feat + (size_t)head * a.D + c0 + tid] =
+            o / (l_s[0] > 0.0f ? l_s[0] : 1.0f);
+        else a.part_acc[i * a.D + c0 + tid] = o;
+      }
+    } else {
+      float o[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[x][e] = 0.0f;
+      for (int j = 0; j < nk; ++j) {
+        const float p0 = S[(2 * ty) * kWKeys + j], p1 = S[(2 * ty + 1) * kWKeys + j];
+        const float4 vv = *reinterpret_cast<const float4*>(kc + wsw(j, 4 * tx));
+        o[0][0] = fmaf(p0, vv.x, o[0][0]);
+        o[0][1] = fmaf(p0, vv.y, o[0][1]);
+        o[0][2] = fmaf(p0, vv.z, o[0][2]);
+        o[0][3] = fmaf(p0, vv.w, o[0][3]);
+        o[1][0] = fmaf(p1, vv.x, o[1][0]);
+        o[1][1] = fmaf(p1, vv.y, o[1][1]);
+        o[1][2] = fmaf(p1, vv.z, o[1][2]);
+        o[1][3] = fmaf(p1, vv.w, o[1][3]);
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = 2 * ty + x;
+        if (r >= n_rows) continue;
+        const float inv = 1.0f / (l_s[r] > 0.0f ? l_s[r] : 1.0f);
+        const size_t i = ((size_t)split * a.rows + row0 + r) * a.H + head;
+        float* dst = single ? a.out + (size_t)(row0 + r) * feat + (size_t)head * a.D
+                            : a.part_acc + i * a.D;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 4 * tx + e;
+          if (c < a.D) dst[c] = single ? o[x][e] * inv : o[x][e];
+        }
+      }
+    }
+  }
+  if (single) return;
+  if (tid < n_rows) {
+    const size_t i = ((size_t)split * a.rows + row0 + tid) * a.H + head;
+    a.part_ml[i * 2] = m_s[tid];
+    a.part_ml[i * 2 + 1] = l_s[tid];
+  }
+
+  // the last split of this (tile, head) to finish merges: every partial is
+  // written and fenced before the count moves
+  __threadfence();
+  __syncthreads();
+  int* counter = a.arrivals + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(counter, 1) == n_live - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const size_t stride = (size_t)a.rows * a.H;  // one split's (row, head) entries
+  auto ml = [&](int sp, int r) {
+    return a.part_ml + (((size_t)row0 + r) * a.H + head + sp * stride) * 2;
+  };
+  // per row M = max m_s and 1 / L, L = sum l_s 2^(m_s - M): a warp a row,
+  // lane k over splits k, k + 32, .., joined by the same butterfly each time
+  for (int r = warp; r < n_rows; r += kWThreads / 32) {
+    float mx = neg_inf;
+    for (int sp = lane; sp < n_live; sp += 32) mx = fmaxf(mx, __ldcg(ml(sp, r)));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.0f;
+    for (int sp = lane; sp < n_live; sp += 32) {
+      const float2 x = __ldcg(reinterpret_cast<const float2*>(ml(sp, r)));
+      if (x.x != neg_inf) sum += x.y * ex2(x.x - mx);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      m_s[r] = mx;
+      l_s[r] = 1.0f / (sum > 0.0f ? sum : 1.0f);
+    }
+  }
+  // out = sum acc_s 2^(m_s - M) / L in split order, four columns a thread:
+  // the weights of kWMerge splits at a time staged in shared memory, four
+  // splits' loads in flight before their sums (past kWMerge splits the
+  // running sum waits in out, unnormalized)
+  const int U = (a.D + 3) / 4;
+  const bool vec4 = a.D % 4 == 0;
+  for (int s0 = 0; s0 < n_live; s0 += kWMerge) {
+    const int nc = min(kWMerge, n_live - s0);
+    const bool last = s0 + nc == n_live;
+    __syncthreads();  // M and 1 / L are set; the last chunk's weights are used
+    for (int i = tid; i < nc * R; i += kWThreads) {
+      const int r = i % R;
+      const float ms = r < n_rows ? __ldcg(ml(s0 + i / R, r)) : neg_inf;
+      wts[i] = ms == neg_inf ? 0.0f : ex2(ms - m_s[r]);
+    }
+    __syncthreads();
+    for (int e = tid; e < n_rows * U; e += kWThreads) {
+      const int r = e / U, c = 4 * (e - r * U);
+      float* dst = a.out + (size_t)(row0 + r) * feat + (size_t)head * a.D + c;
+      float4 acc = s0 > 0 ? wide_load4(dst, c, a.D, vec4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int j0 = 0; j0 < nc; j0 += 4) {
+        float4 x[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          x[j] = j0 + j < nc
+                     ? wide_load4(a.part_acc + (((size_t)row0 + r) * a.H + head +
+                                                (s0 + j0 + j) * stride) * a.D + c,
+                                  c, a.D, vec4)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // 0 for a split with no live key (and past nc, where x is 0 too)
+          const float w = j0 + j < nc ? wts[(j0 + j) * R + r] : 0.0f;
+          acc.x = fmaf(x[j].x, w, acc.x);
+          acc.y = fmaf(x[j].y, w, acc.y);
+          acc.z = fmaf(x[j].z, w, acc.z);
+          acc.w = fmaf(x[j].w, w, acc.w);
+        }
+      }
+      const float f = last ? l_s[r] : 1.0f;
+      acc = make_float4(acc.x * f, acc.y * f, acc.z * f, acc.w * f);
+      if (vec4) {
+        *reinterpret_cast<float4*>(dst) = acc;
+      } else {
+        dst[0] = acc.x;
+        if (c + 1 < a.D) dst[1] = acc.y;
+        if (c + 2 < a.D) dst[2] = acc.z;
+        if (c + 3 < a.D) dst[3] = acc.w;
+      }
+    }
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch on this stream
+}
+
+// Opt the kernel into more than the default 48 KB of shared memory when a
+// shape needs it: the dynamic bytes and the kernel's static arrays (under
+// 2 KB in each kernel here) count against the same limit.
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t bytes) {
-  if (bytes > 232448) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024)
+  if (bytes + 2048 > 48 * 1024)
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bytes);
   return cudaSuccess;
 }
 
-__host__ inline int n_splits(int P, int pages_per_split) {
-  return (P + pages_per_split - 1) / pages_per_split;
+// context positions one split covers: the decode kernel's 128 (D <=
+// kDMaxD), the tensor-core shared kernel's kSStages 64-key stages (D <=
+// kSMaxD), the wide kernel's 64 (either form, past 128)
+__host__ inline int split_span(int D, bool shared) {
+  if (shared) return D <= kSMaxD ? kSKeys * kSStages : kWKeys;
+  return D <= kDMaxD ? kDSplit : kWKeys;
 }
 
-// splits of the decode form's walk: 128 context positions each (D <=
-// kDMaxD), or pages_per_split table entries each (the wide-head kernel)
-__host__ inline int decode_splits(int P, int page_size, int D, int pages_per_split) {
-  if (D > kDMaxD) return n_splits(P, pages_per_split);
-  return (int)(((int64_t)P * page_size + kDSplit - 1) / kDSplit);
+__host__ inline int splits_of(int P, int page_size, int D, bool shared) {
+  const int span = split_span(D, shared);
+  return (int)(((int64_t)P * page_size + span - 1) / span);
 }
 
 template <typename T, int DP>
-cudaError_t launch_decode_warp(const DecodeArgs& a, int splits, cudaStream_t st) {
+cudaError_t launch_decode_warp(const PagedArgs& a, int splits, cudaStream_t st) {
   constexpr size_t bytes = DecodeSmem<T, DP>::bytes;
   cudaError_t err = prepare(paged_decode_kernel<T, DP>, bytes);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<T, DP><<<dim3(a.S * a.H, splits), kDThreads, bytes, st>>>(a);
+  paged_decode_kernel<T, DP><<<dim3(a.rows * a.H, splits), kDThreads, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
-// D <= kDMaxD: paged_decode_kernel, its splits merged by the last one to
-// finish (arrivals: S * H ints, all 0, left at 0). Wider heads take the
-// per-page kernel and its merge kernel.
+template <typename T, int R>
+cudaError_t launch_wide(const PagedArgs& a, int groups, int splits, cudaStream_t st) {
+  constexpr size_t bytes = WideSmem<T, R>::bytes;
+  cudaError_t err = prepare(paged_wide_kernel<T, R>, bytes);
+  if (err != cudaSuccess) return err;
+  paged_wide_kernel<T, R><<<dim3(groups * a.H, splits), kWThreads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// D <= kDMaxD: paged_decode_kernel; wider heads: paged_wide_kernel (R = 1).
+// Either merges its splits in the last one to finish (arrivals: S * H ints,
+// all 0, left at 0).
 template <typename T>
 int launch_decode(const float* q, const T* k_pool, const T* v_pool, const float* k_scales,
                   const float* v_scales, int vec, const int* block_table, const int* pos,
                   float* out, float* part_acc, float* part_ml, int* arrivals, int S, int H,
-                  int D, int P, int page_size, int pool_rows, int pages_per_split, float scale,
-                  void* stream) {
+                  int D, int P, int page_size, int pool_rows, float scale, void* stream) {
   if (S <= 0 || H <= 0) return cudaSuccess;
-  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0)
+  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || arrivals == nullptr)
     return cudaErrorInvalidValue;
-  const int splits = decode_splits(P, page_size, D, pages_per_split);
+  const int splits = splits_of(P, page_size, D, false);
+  if (splits > 65535 || (int64_t)S * H > 2147483647LL) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= kDMaxD) {
-    if (arrivals == nullptr || splits > 65535 || (int64_t)S * H > 2147483647LL)
-      return cudaErrorInvalidValue;
-    const DecodeArgs a{q, k_pool, v_pool, k_scales, v_scales, block_table, pos, out, part_acc,
-                       part_ml, arrivals, S, H, D, P, page_size, pool_rows / page_size, vec,
-                       scale};
-    if (D <= 32) return launch_decode_warp<T, 32>(a, splits, st);
-    if (D <= 64) return launch_decode_warp<T, 64>(a, splits, st);
-    return launch_decode_warp<T, 128>(a, splits, st);
-  }
-  const size_t bytes = smem_bytes(1, D, page_size);
-  cudaError_t err = prepare(paged_flash_decode_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  paged_flash_decode_kernel<T><<<dim3(S, H, splits), kThreads, bytes, st>>>(
-      q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos, part_acc, part_ml, S,
-      pages_per_split, H, D, P, page_size, pool_rows / page_size, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_flash_merge_kernel<<<dim3(S, H), kThreads, 0, st>>>(
-      part_acc, part_ml, pos, out, S, pages_per_split, H, D, P, page_size);
-  return cudaGetLastError();
+  const PagedArgs a{q, k_pool, v_pool, k_scales, v_scales, block_table, pos, out, part_acc,
+                    part_ml, arrivals, S, H, D, P, page_size, pool_rows / page_size, vec, scale};
+  if (D > kDMaxD) return launch_wide<T, 1>(a, S, splits, st);
+  if (D <= 32) return launch_decode_warp<T, 32>(a, splits, st);
+  if (D <= 64) return launch_decode_warp<T, 64>(a, splits, st);
+  return launch_decode_warp<T, 128>(a, splits, st);
 }
 
 template <typename T, int DP>
-cudaError_t launch_shared_tc(const SharedArgs& a, int splits, cudaStream_t st) {
+cudaError_t launch_shared_tc(const PagedArgs& a, int splits, cudaStream_t st) {
   constexpr size_t bytes = SharedSmem<T, DP>::bytes;
   cudaError_t err = prepare(paged_flash_shared_tc_kernel<T, DP>, bytes);
   if (err != cudaSuccess) return err;
@@ -1262,68 +1416,39 @@ cudaError_t launch_shared_tc(const SharedArgs& a, int splits, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// splits of the shared form's walk: stages_per_split 64-key stages each for
-// the tensor-core kernel (D <= kSMaxD), pages_per_split table entries each
-// for the wide-head kernel
-__host__ inline int shared_splits(int P, int page_size, int D, int pages_per_split,
-                                  int stages_per_split) {
-  if (D > kSMaxD) return n_splits(P, pages_per_split);
-  const int span = kSKeys * stages_per_split;
-  return (int)(((int64_t)P * page_size + span - 1) / span);
-}
-
-// D <= kSMaxD: the tensor-core kernel, its splits merged by the last one to
-// finish (arrivals: ceil(rows / 32) * H ints, all 0, left at 0). Wider heads
-// take the per-page kernel of the decode form and its merge kernel.
+// D <= kSMaxD: the tensor-core kernel; wider heads: paged_wide_kernel (R =
+// 32). Either merges its splits in the last one to finish (arrivals:
+// ceil(rows / 32) * H ints, all 0, left at 0).
 template <typename T>
 int launch_shared(const float* q, const T* k_pool, const T* v_pool, const float* k_scales,
                   const float* v_scales, int vec, const int* block_table, const int* pos,
                   float* out, float* part_acc, float* part_ml, int* arrivals, int rows, int H,
-                  int D, int P, int page_size, int pool_rows, int pages_per_split,
-                  int stages_per_split, float scale, void* stream) {
+                  int D, int P, int page_size, int pool_rows, float scale, void* stream) {
   if (rows <= 0 || H <= 0) return cudaSuccess;
-  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || pages_per_split <= 0 ||
-      stages_per_split <= 0)
+  if (D <= 0 || P <= 0 || page_size <= 0 || pool_rows < page_size || arrivals == nullptr)
     return cudaErrorInvalidValue;
+  const int splits = splits_of(P, page_size, D, true);
+  if (splits > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int splits = shared_splits(P, page_size, D, pages_per_split, stages_per_split);
-  if (D <= kSMaxD) {
-    if (arrivals == nullptr || splits > 65535) return cudaErrorInvalidValue;
-    const SharedArgs a{q, k_pool, v_pool, k_scales, v_scales, block_table, pos, out,
-                       part_acc, part_ml, arrivals, rows, H, D, P, page_size,
-                       pool_rows / page_size, stages_per_split, vec, scale};
-    if (D <= 32) return launch_shared_tc<T, 32>(a, splits, st);
-    if (D <= 64) return launch_shared_tc<T, 64>(a, splits, st);
-    return launch_shared_tc<T, 128>(a, splits, st);
-  }
-  const int tile = rows < kSharedTile ? rows : kSharedTile;
-  const size_t bytes = smem_bytes(tile, D, page_size);
-  cudaError_t err = prepare(paged_flash_shared_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (rows + tile - 1) / tile;
-  paged_flash_shared_kernel<T><<<dim3(n_tiles, H, splits), kThreads, bytes, st>>>(
-      q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos, part_acc, part_ml, rows,
-      tile, pages_per_split, H, D, P, page_size, pool_rows / page_size, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_flash_merge_kernel<<<dim3(rows, H), kThreads, 0, st>>>(
-      part_acc, part_ml, pos, out, rows, pages_per_split, H, D, P, page_size);
-  return cudaGetLastError();
+  static_assert(kSRows == kWRows, "both shared forms count arrivals by 32-row tile");
+  const PagedArgs a{q, k_pool, v_pool, k_scales, v_scales, block_table, pos, out, part_acc,
+                    part_ml, arrivals, rows, H, D, P, page_size, pool_rows / page_size, vec,
+                    scale};
+  if (D > kSMaxD) return launch_wide<T, kWRows>(a, (rows + kWRows - 1) / kWRows, splits, st);
+  if (D <= 32) return launch_shared_tc<T, 32>(a, splits, st);
+  if (D <= 64) return launch_shared_tc<T, 64>(a, splits, st);
+  return launch_shared_tc<T, 128>(a, splits, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Splits of the walk over a table of P entries (the scratch the caller
-// passes holds splits * rows * H * (D + 2) floats): the decode form's, and
-// the shared form's.
-int paged_flash_decode_splits(int P, int page_size, int D, int pages_per_split) {
-  return decode_splits(P, page_size, D, pages_per_split);
-}
-int paged_flash_shared_splits(int P, int page_size, int D, int pages_per_split,
-                              int stages_per_split) {
-  return shared_splits(P, page_size, D, pages_per_split, stages_per_split);
+// Splits of the walk over a table of P entries, for the per-split scratch
+// the caller passes (splits * rows * H * (D + 2) floats): shared = 1 for the
+// shared-table form, 0 for the decode form.
+int paged_flash_splits(int P, int page_size, int D, int shared) {
+  return P > 0 && page_size > 0 ? splits_of(P, page_size, D, shared != 0) : 0;
 }
 
 // q [S, H*D], pools [pool_rows, H*D], block_table [S, P], pos [S] -> out [S, H*D];
@@ -1332,24 +1457,22 @@ int paged_flash_shared_splits(int P, int page_size, int D, int pages_per_split,
 int paged_flash_decode(const float* q, const float* k_pool, const float* v_pool, int vec,
                        const int* block_table, const int* pos, float* out,
                        float* part_acc, float* part_ml, int* arrivals, int S, int H, int D,
-                       int P, int page_size, int pool_rows, int pages_per_split, float scale,
-                       void* stream) {
+                       int P, int page_size, int pool_rows, float scale, void* stream) {
   return launch_decode<float>(q, k_pool, v_pool, nullptr, nullptr, vec, block_table, pos, out,
                               part_acc, part_ml, arrivals, S, H, D, P, page_size, pool_rows,
-                              pages_per_split, scale, stream);
+                              scale, stream);
 }
 
 // q [rows, H*D], pools [pool_rows, H*D], block_table [P], pos [rows] -> out [rows, H*D];
 // vec: the wrapper found D, H*D and both pools' addresses to allow 16-byte
-// row loads
+// row loads; arrivals: ceil(rows / 32) * H ints, all 0 (left at 0)
 int paged_flash_shared(const float* q, const float* k_pool, const float* v_pool, int vec,
                        const int* block_table, const int* pos, float* out,
                        float* part_acc, float* part_ml, int* arrivals, int rows, int H, int D,
-                       int P, int page_size, int pool_rows, int pages_per_split,
-                       int stages_per_split, float scale, void* stream) {
+                       int P, int page_size, int pool_rows, float scale, void* stream) {
   return launch_shared<float>(q, k_pool, v_pool, nullptr, nullptr, vec, block_table, pos, out,
                               part_acc, part_ml, arrivals, rows, H, D, P, page_size, pool_rows,
-                              pages_per_split, stages_per_split, scale, stream);
+                              scale, stream);
 }
 
 // The int8 forms: int8 pools [pool_rows, H*D] and f32 scale pools
@@ -1359,22 +1482,21 @@ int paged_flash_decode_int8(const float* q, const int8_t* k_pool, const int8_t* 
                             const float* k_scales, const float* v_scales, int vec,
                             const int* block_table, const int* pos, float* out,
                             float* part_acc, float* part_ml, int* arrivals, int S, int H, int D,
-                            int P, int page_size, int pool_rows, int pages_per_split,
-                            float scale, void* stream) {
+                            int P, int page_size, int pool_rows, float scale, void* stream) {
   return launch_decode<int8_t>(q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos,
                                out, part_acc, part_ml, arrivals, S, H, D, P, page_size,
-                               pool_rows, pages_per_split, scale, stream);
+                               pool_rows, scale, stream);
 }
 
 int paged_flash_shared_int8(const float* q, const int8_t* k_pool, const int8_t* v_pool,
                             const float* k_scales, const float* v_scales, int vec,
                             const int* block_table, const int* pos, float* out,
                             float* part_acc, float* part_ml, int* arrivals, int rows, int H,
-                            int D, int P, int page_size, int pool_rows, int pages_per_split,
-                            int stages_per_split, float scale, void* stream) {
+                            int D, int P, int page_size, int pool_rows, float scale,
+                            void* stream) {
   return launch_shared<int8_t>(q, k_pool, v_pool, k_scales, v_scales, vec, block_table, pos,
                                out, part_acc, part_ml, arrivals, rows, H, D, P, page_size,
-                               pool_rows, pages_per_split, stages_per_split, scale, stream);
+                               pool_rows, scale, stream);
 }
 
 const char* paged_flash_error_string(int code) {

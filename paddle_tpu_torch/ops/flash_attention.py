@@ -26,9 +26,11 @@ row, then both kernels' five products on the tensor cores); on the card
 every shape takes a kernel.
 The kernels take any head width d >= 1: up to 128 each is built for a few
 padded widths and zero-fills the columns past d as it loads a tile, so the
-operands reach it as they are, without a padded copy; wider heads take
-128-wide output column blocks, each CTA forming the scores over all of d
-(the reference's blocks span d whole).
+operands reach it as they are, without a padded copy. Heads of 129 to 512
+take the wide forward (two warp groups over a resident query tile, each
+forming half of the scores, once per 256-wide column block); wider heads,
+and the backward's pair past 128, take 128-wide output column blocks, each
+CTA forming the scores over all of d (the reference's blocks span d whole).
 The path predicates copied from the JAX package decide only whether a
 program declares the `Lse` output (layers.flash_attention, the
 fuse_attention pass), so both packages build the same programs; they do not

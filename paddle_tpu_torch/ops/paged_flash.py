@@ -12,8 +12,10 @@ lane of 4 warps) gathered by cp.async, its splits merged by the last one to
 finish (an arrival counter per (slot, head)); the shared-table (prefill
 chunk) form, 64-key stages through a cp.async ring with both products on
 the tensor cores (3xTF32), its splits merged the same way (a counter per
-(32-row tile, head)). Wider heads, in either form, walk a page at a time
-and merge their splits in a second kernel. The plain version (`paged_attention_plain`) is the dense
+(32-row tile, head)). Wider heads, in either form, take one kernel that
+gathers 64 context positions a CTA through the table and walks the head in
+64-column chunks on the CUDA cores (any head width, any page size), its
+splits merged the same way. The plain version (`paged_attention_plain`) is the dense
 gather + where-mask safe softmax of the JAX dense lowering
 (paddle_tpu/ops/generation_ops.py:134-183).
 
@@ -35,36 +37,36 @@ from . import _build
 
 __all__ = [
     "kernel_launches",
+    "launch_key",
     "paged_attention_plain",
     "paged_flash_attention",
     "reset_kernel_launches",
 ]
 
-# heads wider than 128, either form: table entries one CTA of the per-page
-# kernel walks (the decode form at up to 128 takes 128 context positions a
-# CTA, fixed in the kernel)
-PAGES_PER_SPLIT = 4
-# shared table (prefill chunk), head width up to 128: 64-key stages a CTA
-# takes (timed on the card at the prefill chunk: 2 beat 1 and 4); a chunk's
-# context of about 640 positions spreads over 5 splits per (32-row tile,
-# head), 60 CTAs at 12 heads
-SHARED_STAGES_PER_SPLIT = 2
+# query rows a CTA of the shared form takes (one arrival counter per tile
+# and head)
 SHARED_TILE_ROWS = 32
+
+# the widest head the decode and shared kernels take; wider heads launch
+# the wide kernel, counted under its own keys
+MAX_NARROW_HEAD = 128
 
 # kernel launches by form, counted where the wrapper launches its kernel and
 # nowhere else (the plain version does not count)
 _LAUNCHES = {
-    "paged_flash": 0,
-    "paged_flash_shared": 0,
-    "paged_flash_int8": 0,
-    "paged_flash_shared_int8": 0,
+    "%s%s%s" % (form, wide, pool): 0
+    for form in ("paged_flash", "paged_flash_shared")
+    for wide in ("", "_wide")
+    for pool in ("", "_int8")
 }
 
 
 def kernel_launches():
     """Kernel launches so far, keyed "paged_flash" (per-slot decode table),
-    "paged_flash_shared" (one table shared by a prefill chunk) and their
-    int8-pool forms "paged_flash_int8" and "paged_flash_shared_int8"."""
+    "paged_flash_shared" (one table shared by a prefill chunk), their
+    int8-pool forms "paged_flash_int8" and "paged_flash_shared_int8", and
+    the same four with "_wide" before any "_int8" for heads past
+    MAX_NARROW_HEAD (the wide kernel)."""
     return dict(_LAUNCHES)
 
 
@@ -75,17 +77,14 @@ def reset_kernel_launches():
 
 def _bind(lib):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_flash_decode.argtypes = [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 7 + [f32, ptr]
-    lib.paged_flash_decode_int8.argtypes = [ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 7 + [f32, ptr]
-    lib.paged_flash_shared.argtypes = [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 8 + [f32, ptr]
-    lib.paged_flash_shared_int8.argtypes = [ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 8 + [f32, ptr]
-    for fn in (lib.paged_flash_decode, lib.paged_flash_decode_int8, lib.paged_flash_shared,
-               lib.paged_flash_shared_int8):
+    for fn in (lib.paged_flash_decode, lib.paged_flash_shared):
+        fn.argtypes = [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 6 + [f32, ptr]
         fn.restype = i32
-    lib.paged_flash_decode_splits.argtypes = [i32] * 4
-    lib.paged_flash_decode_splits.restype = i32
-    lib.paged_flash_shared_splits.argtypes = [i32] * 5
-    lib.paged_flash_shared_splits.restype = i32
+    for fn in (lib.paged_flash_decode_int8, lib.paged_flash_shared_int8):
+        fn.argtypes = [ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 6 + [f32, ptr]
+        fn.restype = i32
+    lib.paged_flash_splits.argtypes = [i32] * 4
+    lib.paged_flash_splits.restype = i32
     lib.paged_flash_error_string.argtypes = [i32]
     lib.paged_flash_error_string.restype = ctypes.c_char_p
 
@@ -211,11 +210,7 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
     lib = _build.load("paged_flash")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     # per-split (acc, m, l) scratch that the merge reads back
-    if shared:
-        splits = lib.paged_flash_shared_splits(n_pages, page_size, d, PAGES_PER_SPLIT,
-                                               SHARED_STAGES_PER_SPLIT)
-    else:
-        splits = lib.paged_flash_decode_splits(n_pages, page_size, d, PAGES_PER_SPLIT)
+    splits = lib.paged_flash_splits(n_pages, page_size, d, int(shared))
     part_acc = torch.empty((splits, rows, n_head, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((splits, rows, n_head, 2), dtype=torch.float32, device=q.device)
     # 16-byte row loads: a head's slice and every row of the pools (4 f32
@@ -230,23 +225,26 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
     # head) of a chunk, one per (slot, head) of a decode step
     groups = (-(-rows // SHARED_TILE_ROWS) if shared else rows) * n_head
     arrivals = _build.arrival_counters(q.device, stream, groups)
+    if shared:
+        fn = lib.paged_flash_shared_int8 if quant else lib.paged_flash_shared
+    else:
+        fn = lib.paged_flash_decode_int8 if quant else lib.paged_flash_decode
     with torch.cuda.device(q.device):
-        if shared:
-            fn = lib.paged_flash_shared_int8 if quant else lib.paged_flash_shared
-            err = fn(qc.data_ptr(), *pools, vec, bt.data_ptr(), pv.data_ptr(), out.data_ptr(),
-                     part_acc.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(), rows,
-                     n_head, d, n_pages, page_size, pool_rows, PAGES_PER_SPLIT,
-                     SHARED_STAGES_PER_SPLIT, scale, stream)
-        else:
-            fn = lib.paged_flash_decode_int8 if quant else lib.paged_flash_decode
-            err = fn(qc.data_ptr(), *pools, vec, bt.data_ptr(), pv.data_ptr(), out.data_ptr(),
-                     part_acc.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(), rows,
-                     n_head, d, n_pages, page_size, pool_rows, PAGES_PER_SPLIT, scale, stream)
+        err = fn(qc.data_ptr(), *pools, vec, bt.data_ptr(), pv.data_ptr(), out.data_ptr(),
+                 part_acc.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(), rows, n_head, d,
+                 n_pages, page_size, pool_rows, scale, stream)
     if err:
         raise RuntimeError(
             "paged_flash kernel launch failed: %s"
             % lib.paged_flash_error_string(err).decode()
         )
-    key = "paged_flash_shared" if shared else "paged_flash"
-    _LAUNCHES[key + ("_int8" if quant else "")] += 1
+    _LAUNCHES[launch_key(shared, d, quant)] += 1
     return out
+
+
+def launch_key(shared, head_dim, quant):
+    """The kernel_launches() key of a call: its table form, head width and
+    pool type."""
+    return "%s%s%s" % ("paged_flash_shared" if shared else "paged_flash",
+                       "_wide" if head_dim > MAX_NARROW_HEAD else "",
+                       "_int8" if quant else "")

@@ -22,8 +22,12 @@ import argparse
 import importlib.util
 import json
 import os
-import subprocess
 import sys
+
+if __package__:
+    from . import _ab
+else:  # run as a file: a round's process
+    import _ab
 
 
 def _child(root, smoke, mode):
@@ -52,13 +56,6 @@ def _child(root, smoke, mode):
     return 0
 
 
-def _start(root, mode):
-    return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--child", root, "--mode", mode,
-         "--smoke", os.path.join(os.getcwd(), "chip_smoke.py")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", help="root of the other checkout")
@@ -72,31 +69,7 @@ def main(argv=None):
         return _child(a.child, a.smoke, a.mode)
     if not a.base:
         ap.error("--base is required")
-    sides = {"base": os.path.abspath(a.base), "change": os.getcwd()}
-    builds = {name: _start(root, "build") for name, root in sides.items()}
-    for name, proc in builds.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            print(out, file=sys.stderr)
-            print("quant_gemm_ab: the %s build failed" % name, file=sys.stderr)
-            return proc.returncode
-    order = [("base", "change", "change", "base")[r % 4] for r in range(2 * a.rounds)]
-    readings = []
-    for name in order:
-        proc = _start(sides[name], "round")
-        out = proc.communicate()[0]
-        if proc.returncode:
-            print(out, file=sys.stderr)
-            print("quant_gemm_ab: a %s round failed" % name, file=sys.stderr)
-            return proc.returncode
-        readings.append({"side": name, **json.loads(out.strip().splitlines()[-1])})
-        print(json.dumps(readings[-1]), flush=True)
-    result = {"sides": sides, "order": order, "readings": readings}
-    os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-    with open(a.out, "w") as f:
-        json.dump(result, f, indent=1)
-    print(json.dumps(result))
-    return 0
+    return _ab.run(os.path.abspath(__file__), a.base, a.rounds, a.out)
 
 
 if __name__ == "__main__":

@@ -401,18 +401,24 @@ def mm_3xtf32(a, b):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def online_softmax_3xtf32(q, k, v, causal, scale, keys=64):
+def online_softmax_3xtf32(q, k, v, causal, scale, keys=64, halves=1):
     """(out, lse) of one (b, h) slice as the tensor-core forward computes it:
-    64-key tiles, s = q k^T by 3xTF32, an f32 online softmax, p rounded to
-    the operand dtype before p v, and each tile's p v part summed from 0 in
-    3xTF32 and added to the f32 accumulator."""
+    key tiles of `keys`, s = q k^T by 3xTF32 (over `halves` equal column
+    groups of d, each summed from 0, then added in f32 in group order, as
+    the wide forward's two warp groups do), an f32 online softmax, p rounded
+    to the operand dtype before p v, and each tile's p v part summed from 0
+    in 3xTF32 and added to the f32 accumulator."""
     tq, tk = q.shape[0], k.shape[0]
     rows = torch.arange(tq)[:, None]
     m = torch.full((tq, 1), float("-inf"))
     l = torch.zeros(tq, 1)
     o = torch.zeros(tq, v.shape[1])
+    w = q.shape[1] // halves
     for k0 in range(0, tk, keys):
-        s = mm_3xtf32(q.float(), k[k0:k0 + keys].float().T) * scale
+        s = mm_3xtf32(q[:, :w].float(), k[k0:k0 + keys, :w].float().T)
+        for c in range(w, q.shape[1], w):
+            s = s + mm_3xtf32(q[:, c:c + w].float(), k[k0:k0 + keys, c:c + w].float().T)
+        s = s * scale
         cols = torch.arange(k0, min(k0 + keys, tk))[None, :]
         if causal:
             s = s.masked_fill(cols > rows + (tk - tq), float("-inf"))
@@ -447,6 +453,28 @@ def test_3xtf32_online_softmax_holds_the_flash_tolerance(causal):
     one = _tf32(q[0, 0]) @ _tf32(k[0, 0]).T * scale
     exact = (q[0, 0].double() @ k[0, 0].double().T * scale)
     assert float((one.double() - exact).abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("d, keys", [(256, 32), (512, 16)], ids=["d256", "d512"])
+def test_wide_forward_score_halves_hold_the_flash_tolerance(d, keys):
+    """An emulation of the accuracy argument for the wide forward (heads of
+    129 to 512), in plain torch: it runs no port kernel and guards none (the
+    `cuda` cases below and chip_smoke.py do; the tensor core's truncating
+    sums are not modelled). Each of its two warp groups forms q k^T over its
+    half of d (128 columns at d = 256, 256 at d = 512) by 3xTF32 summed
+    from 0; the halves are added in f32, then the online softmax runs over
+    key stages of 32 (d = 256) or 16 (d = 512, f32) keys. At (1, 2, 128,
+    d), causal and not, this lands within the forward's kernel-vs-plain
+    tolerance, atol = rtol = 1e-5, of flash_forward_plain."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _qkvg(d, 1, 2, 128, 128, d))
+    scale = d ** -0.5
+    for causal in (False, True):
+        want_out, want_lse = fa.flash_forward_plain(q, k, v, causal, scale)
+        for hi in range(2):
+            out, lse = online_softmax_3xtf32(q[0, hi], k[0, hi], v[0, hi], causal, scale,
+                                             keys=keys, halves=2)
+            torch.testing.assert_close(out, want_out[0, hi], atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(lse, want_lse[0, hi], atol=1e-5, rtol=1e-5)
 
 
 # --------------------------------------------------------------------------
@@ -640,10 +668,11 @@ def test_cuda_autograd_matches_plain(cuda_device):
 
 
 # head widths other than 64 and 128: up to 128 each kernel pads d to a built
-# width and zero-fills the columns past it; wider heads take 128-wide column
-# blocks. tk = 200 takes the fused backward tier (d <= 64), tk = 300 the
-# dK/dV + dQ pair; rows of d % 4 != 0 elements load element by element
-ANY_WIDTHS = [6, 8, 16, 32, 80, 96, 129, 160, 256, 512]
+# width and zero-fills the columns past it; wider heads take the wide
+# forward (up to 512) or the chunked one (640), and the pair's 128-wide
+# column blocks. tk = 200 takes the fused backward tier (d <= 64), tk = 300
+# the dK/dV + dQ pair; rows of d % 4 != 0 elements load element by element
+ANY_WIDTHS = [6, 8, 16, 32, 80, 96, 129, 160, 192, 256, 512, 640]
 
 
 def _width_case(seed, b, h, tq, tk, d, dtype, device, strided):
@@ -703,6 +732,28 @@ def test_cuda_takes_any_head_width(cuda_device, d, dtype):
         q, k, v, g = _width_case(d + i, 2, 3, tq, tk, d, dtype, cuda_device, strided)
         tiers.add(_check_against_plain(q, k, v, g, causal, d ** -0.5))
     assert tiers == ({"fused", "pair"} if d <= fa.FUSED_BWD_HEAD_DIM else {"pair"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 512])
+def test_cuda_wide_forward_repeats_bit_for_bit(cuda_device, d, dtype, causal):
+    """The wide forward at a timed width: out and lse against the plain
+    version (bf16 against the f32 plain version on the same rounded
+    inputs), and both repeated bit for bit (both warp groups sum the same
+    s in the same order, no float atomics)."""
+    q, k, v, _ = _width_case(d + causal, 2, 4, 256, 256, d, dtype, cuda_device, True)
+    out, lse = fa.flash_forward(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    pout, plse = fa.flash_forward_plain(q.float(), k.float(), v.float(), causal, d ** -0.5)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), pout, atol=tol, rtol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+    for _ in range(3):
+        out2, lse2 = fa.flash_forward(q, k, v, causal, d ** -0.5)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

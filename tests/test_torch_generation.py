@@ -172,3 +172,43 @@ def test_programs_build_identically(builder):
     assert {n: (v.shape, v.dtype) for n, v in pb.vars.items()} == {
         n: (v.shape, v.dtype) for n, v in jb.vars.items()
     }
+
+
+# a head of 256 over pages of 128 rows: a whole page of K and V passes a
+# CTA's shared memory (the wide kernel gathers by position); on the CPU
+# both engines take their plain forms
+WIDE_MODEL_KW = dict(vocab_size=24, n_layer=1, n_head=1, d_model=256, d_inner=32,
+                     max_context=256)
+WIDE_ENGINE_KW = dict(max_slots=2, page_size=128, max_context=256)
+
+
+@pytest.fixture(scope="module")
+def wide_engines():
+    """(JAX engine, port engine on the CPU carrying the JAX parameters) of
+    the 256-wide-head model."""
+    jeng = JaxEngine(JaxGPTDecoder(**WIDE_MODEL_KW), name="tt_wide_jax", cache_dir=None,
+                     **WIDE_ENGINE_KW)
+    jeng.warmup()
+    model = GPTDecoder(**WIDE_MODEL_KW)
+    peng = GenerationEngine(model, name="tt_wide_port", place=CPUPlace(), **WIDE_ENGINE_KW)
+    peng.warmup()
+    arrays = {n: np.asarray(jeng.scope.vars[n]) for n in model.param_names()}
+    convert.load_into_scope(peng.scope, arrays, model.param_names())
+    return jeng, peng
+
+
+@pytest.mark.parametrize("prompt,n_new", [([3, 7, 11, 2, 9], 6),
+                                          (list(range(1, 24)) * 6, 4)],
+                         ids=["short", "past_a_page"])
+def test_wide_head_logits_and_greedy_tokens_match_jax_engine(wide_engines, prompt, n_new):
+    """Prefill and every decode step's logits of the 256-wide-head model at
+    page_size 128 match the JAX engine within atol = rtol = 1e-4, and the
+    greedy streams are equal; the second prompt (138 tokens) crosses a
+    page."""
+    jeng, peng = wide_engines
+    want, want_tokens = _stepwise_logits(jeng, JaxGenRequest, prompt, n_new)
+    got, got_tokens = _stepwise_logits(peng, GenRequest, prompt, n_new)
+    assert len(got) == len(want) == n_new
+    for step, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL, err_msg="step %d" % step)
+    assert got_tokens == want_tokens

@@ -52,12 +52,19 @@ DECODE_CASES = {
     "ps8_long_table": (4, 2, 64, 8, 40, 90, [319, 200, 128, -1]),
     "ps32_long_table": (3, 2, 64, 32, 12, 20, [383, 127, 129]),
     "ps16_split_edges": (4, 3, 64, 16, 24, 60, [255, 256, 383, 0]),
+    # a head of 256 over pages of 128 rows (a whole page of K and V passes
+    # a CTA's shared memory: the wide kernel gathers by position), across a
+    # split and a page boundary
+    "d256_ps128": (3, 1, 256, 128, 3, 6, [300, 128, -1]),
 }
 SHARED_CASES = {
     "mid_page_chunk": (6, 2, 8, 4, 3, 10, list(range(5, 11))),
     "padded_tail": (5, 3, 8, 4, 2, 7, [6, 7, 8, 9, -1]),
     "vector_chunk": (8, 2, 64, 4, 4, 9, list(range(6, 14))),
     "split_walk_chunk": (40, 2, 8, 4, 12, 14, list(range(6, 46))),
+    # a chunk of heads of 512 over pages of 32 rows (the same fault, shared
+    # form), with a dead row
+    "d512_ps32": (4, 1, 512, 32, 4, 7, [40, 70, 100, -1]),
 }
 
 
@@ -285,7 +292,7 @@ def cuda_device():
 def test_cuda_int8_kernel_matches_plain(cuda_device, name, spec, shared):
     arrays, n_head, ps = _case(spec, shared, seed=31 + len(name))
     args = _torch(arrays, cuda_device)
-    key = ("paged_flash_shared" if shared else "paged_flash") + "_int8"
+    key = pf.launch_key(shared, spec[2], True)
     before = pf.kernel_launches()[key]
     got = _call(pf.paged_flash_attention, args, n_head, ps)
     torch.cuda.synchronize()

@@ -43,12 +43,19 @@ DECODE_CASES = {
     "ps8_long_table": (4, 2, 64, 8, 40, 90, [319, 200, 128, -1]),
     "ps32_long_table": (3, 2, 64, 32, 12, 20, [383, 127, 129]),
     "ps16_split_edges": (4, 3, 64, 16, 24, 60, [255, 256, 383, 0]),
+    # a head of 256 over pages of 128 rows: a whole page of K and V passes a
+    # CTA's shared memory (the wide kernel gathers by position); a split (64
+    # positions) and a page boundary
+    "d256_ps128": (3, 1, 256, 128, 3, 6, [300, 128, -1]),
 }
 SHARED_CASES = {
     "mid_page_chunk": (6, 2, 8, 4, 3, 10, list(range(5, 11))),
     "chunk_from_zero": (8, 2, 8, 4, 4, 9, list(range(8))),
     "padded_tail": (5, 3, 8, 4, 2, 7, [6, 7, 8, 9, -1]),
     "split_walk_chunk": (40, 2, 8, 4, 12, 14, list(range(6, 46))),
+    # a chunk of heads of 512 over pages of 32 rows (the same fault, shared
+    # form), across a split and a page boundary, with a dead row
+    "d512_ps32": (4, 1, 512, 32, 4, 7, [40, 70, 100, -1]),
 }
 
 
@@ -204,6 +211,9 @@ def _shared_3xtf32(q, k, v, pos, scale, stages_per_split):
     return acc / torch.where(lsum > 0, lsum, torch.ones(()))
 
 
+SHARED_STAGES = 2  # 64-key stages a split of the shared kernel (kSStages in paged_flash.cu)
+
+
 def test_3xtf32_shared_kernel_holds_the_paged_tolerance():
     """An emulation of the accuracy argument for the tensor-core shared-table
     kernel, in plain torch: it runs no port kernel and guards none (the
@@ -230,7 +240,7 @@ def test_3xtf32_shared_kernel_holds_the_paged_tolerance():
     for h in range(n_head):
         cols = slice(h * d, (h + 1) * d)
         got[:, cols] = _shared_3xtf32(args[0][:, cols], args[1][flat, cols], args[2][flat, cols],
-                                      args[4].long(), d ** -0.5, pf.SHARED_STAGES_PER_SPLIT)
+                                      args[4].long(), d ** -0.5, SHARED_STAGES)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
     assert torch.equal(got[-2:], torch.zeros(2, feat))
 
@@ -330,7 +340,7 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, name, spec, shared):
     q, kp, vp, bt, pos, n_head, ps = _case(spec, shared, seed=31 + len(name))
     args = _torch_args(q, kp, vp, bt, pos, cuda_device)
-    key = "paged_flash_shared" if shared else "paged_flash"
+    key = pf.launch_key(shared, spec[2], False)
     before = pf.kernel_launches()[key]
     got = pf.paged_flash_attention(*args, n_head=n_head, page_size=ps)
     torch.cuda.synchronize()
@@ -342,7 +352,7 @@ def test_cuda_kernel_matches_plain(cuda_device, name, spec, shared):
 
 # the shared (prefill-chunk) form at chunk shapes: (rows, n_head, d,
 # positions); page_size 16 over a 64-entry table, as chip_smoke.py's chunk.
-# A stage is 64 positions, a split 64 * SHARED_STAGES_PER_SPLIT
+# A stage is 64 positions, a split 64 * SHARED_STAGES
 CHUNK_CASES = {
     "rows1": (1, 4, 64, [600]),
     "rows17": (17, 4, 64, list(range(600, 617))),
@@ -386,7 +396,7 @@ def _chunk_case(spec, quant, seed, device):
 @pytest.mark.parametrize("name", list(CHUNK_CASES))
 def test_cuda_shared_kernel_at_chunk_shapes(cuda_device, name, quant):
     args, kw = _chunk_case(CHUNK_CASES[name], quant, len(name), cuda_device)
-    key = "paged_flash_shared" + ("_int8" if quant else "")
+    key = pf.launch_key(True, CHUNK_CASES[name][2], quant)
     before = pf.kernel_launches()[key]
     got = pf.paged_flash_attention(*args, **kw)
     torch.cuda.synchronize()
@@ -401,7 +411,7 @@ def test_cuda_shared_kernel_at_chunk_shapes(cuda_device, name, quant):
 
 
 # the per-slot (decode) form at decode-step shapes: slots x page sizes x
-# head widths (160 takes the per-page kernel past the decode kernel's 128),
+# head widths (160 takes the wide kernel past the decode kernel's 128),
 # over tables of 1024 positions; positions -1, 0, a page's last and the
 # next page's first, a split boundary (127, 128), the table's last position
 # and past the table, then seeded; one corrupt table entry (the kernel
@@ -441,10 +451,10 @@ def _decode_step_case(slots, ps, d, quant, seed, device):
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("slots", DECODE_SLOTS)
 def test_cuda_decode_kernel_at_step_shapes(cuda_device, slots, quant):
-    key = "paged_flash" + ("_int8" if quant else "")
     for ps in DECODE_PAGE_SIZES:
         for d in DECODE_WIDTHS:
             args, clamped, kw = _decode_step_case(slots, ps, d, quant, slots + ps + d, cuda_device)
+            key = pf.launch_key(False, d, quant)
             before = pf.kernel_launches()[key]
             got = pf.paged_flash_attention(*args, **kw)
             torch.cuda.synchronize()
@@ -457,3 +467,67 @@ def test_cuda_decode_kernel_at_step_shapes(cuda_device, slots, quant):
                 assert float(got[dead].abs().max()) == 0.0
             # the splits merge in a fixed order: the output repeats bit for bit
             assert torch.equal(got, pf.paged_flash_attention(*args, **kw))
+
+
+# heads past 128 on the wide kernel, both forms, at page sizes up to 128
+# over tables of 1024 positions: the decode form at 9 slots (positions -1,
+# 0, a page's last and the next page's first, a split boundary (63, 64),
+# 127, the table's last position and past it), chunks of 1, 32 and 48 rows
+# (pos = 0 and pos < 0 rows, up to the table's last position and past it);
+# a corrupt table entry on a live position, clamped as the JAX gather
+# clamps. A whole page of K and V passes a CTA's shared memory at d = 256
+# with page size 128 and at d = 512 with page sizes 32 and 128: the kernel
+# gathers position by position.
+WIDE_PAGE_SIZES = [16, 32, 128]
+WIDE_CASES = [("decode", None, d) for d in (256, 512)] + [
+    ("chunk", rows, d) for rows in (1, 32, 48) for d in (160, 256, 512)]
+WIDE_CHUNK_POS = {1: [1000], 32: list(range(50, 80)) + [0, -1],
+                  48: list(range(980, 1024)) + [0, -1, 1023, 1064]}
+
+
+def _wide_case(form, rows, d, ps, quant, seed, device):
+    rng = np.random.RandomState(seed)
+    n_head, n_pages = 2, 1024 // ps
+    feat, pool_pages = n_head * d, n_pages + 2
+    pools = [rng.randn(pool_pages * ps, feat).astype("float32") for _ in range(2)]
+    kw = dict(n_head=n_head, page_size=ps)
+    if quant:
+        scales = [(np.abs(x).max(axis=1) / 127.0).astype("float32") for x in pools]
+        pools = [np.clip(np.round(x / s[:, None]), -127, 127).astype(np.int8)
+                 for x, s in zip(pools, scales)]
+        kw.update(k_scales=torch.from_numpy(scales[0]).to(device),
+                  v_scales=torch.from_numpy(scales[1]).to(device))
+    if form == "chunk":
+        pos = np.asarray(WIDE_CHUNK_POS[rows], np.int32)
+        bt = rng.permutation(np.arange(1, pool_pages))[:n_pages].astype(np.int32)
+        bt[1] = 10 ** 6  # corrupt: read by every chunk whose positions reach ps
+    else:
+        pos = np.array([-1, 0, ps - 1, ps, 63, 64, 127, 1023, 1064], np.int32)
+        bt = rng.randint(1, pool_pages, size=(len(pos), n_pages)).astype(np.int32)
+        bt[7, 1] = 10 ** 6  # corrupt, in the slot that reads every entry
+    q = rng.randn(len(pos), feat).astype("float32")
+    args = [torch.from_numpy(a).to(device) for a in (q, pools[0], pools[1], bt, pos)]
+    clamped = list(args)
+    clamped[3] = args[3].clamp(0, pool_pages - 1)
+    return args, clamped, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("ps", WIDE_PAGE_SIZES)
+@pytest.mark.parametrize("form,rows,d", WIDE_CASES,
+                         ids=["%s%s-d%d" % (f, r or "", d) for f, r, d in WIDE_CASES])
+def test_cuda_wide_kernel_at_any_page_size(cuda_device, form, rows, d, ps, quant):
+    args, clamped, kw = _wide_case(form, rows, d, ps, quant, (rows or 0) + d + ps, cuda_device)
+    key = pf.launch_key(form == "chunk", d, quant)
+    before = pf.kernel_launches()[key]
+    got = pf.paged_flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pf.kernel_launches()[key] == before + 1
+    want = pf.paged_attention_plain(*clamped, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL, rtol=RTOL)
+    dead = args[4] < 0
+    if dead.any():
+        assert float(got[dead].abs().max()) == 0.0
+    # the splits merge in a fixed order: the output repeats bit for bit
+    assert torch.equal(got, pf.paged_flash_attention(*args, **kw))
