@@ -68,12 +68,23 @@ Phases, each printing its own line; any failure exits non-zero:
        1, 17, 250, 1024 x k 16, 48, 2064, 8192 x n 16, 2064, and a ragged
        128-row tile at 1000 x 2064 x 2064; the five acts, both forms), each
        call repeated bit for bit;
+  Every serve and train phase runs its main path on replayed CUDA graphs
+  (a GenerationEngine captures its decode step and prefill buckets at
+  warmup(); Executor.run captures a training step at its second call) and
+  then on the op-by-op path (FLAGS_profile_ops inside profiler.profiler(),
+  a device sync after every op): the same requests give the same tokens, a
+  request run alone gives the same logits bit for bit in every prefill
+  chunk and decode step, with the same paged kernel launches; the first 3
+  training steps from one seed give the same losses bit for bit, with the
+  same launches and dispatches a step. Both paths' decode and prefill
+  p50, tokens/s, step p50 and target tokens/s (and a training step's
+  device busy time) are printed, and gathered in one `paths` JSON line;
   3. serving: a GenerationEngine over GPTDecoder at GPT-2 small's widths
      (12 layers, 12 heads, d_model 768, d_inner 3072, vocab 50257, 1024
      positions; random weights from a seed), warmup(), then a
      GenerationScheduler answering 8 concurrent greedy requests with prompts
      of 40-700 tokens and 32 new tokens each. Every request must finish,
-     no variant may be rebuilt after warmup, both paged kernel launch
+     no variant may be captured after warmup, both paged kernel launch
      counters must move, and two requests must match serial engine.generate;
   4. paged vs dense: the engine's prefill and decode logits against the
      whole-sequence program build_forward(1, 64) on the same parameters;
@@ -83,7 +94,7 @@ Phases, each printing its own line; any failure exits non-zero:
   4b. serve int8 KV (path A): GPT-2 small over int8 KV pools at 16 slots
      with the f32 engine's weights, a GenerationScheduler answering 16
      concurrent greedy requests (the serve prompts, each twice; 32 new
-     tokens each): all finish, no variant rebuilt, both int8 paged kernels
+     tokens each): all finish, no variant captured again, both int8 paged kernels
      launched; logits against the f32 pools within a relative drift of 0.05
      on shared contexts; the kernel path against paged_flash off on the
      same int8 pools within 1e-4;
@@ -99,7 +110,7 @@ Phases, each printing its own line; any failure exits non-zero:
   4d. serve wide heads: GPTDecoder at GPT-2 medium's widths with 4 heads
      of 256, cut to 2 layers (random weights from a seed), page_size 128,
      4 slots, over f32 then int8 pools: 4 greedy requests of 40-700
-     prompt tokens, 16 new each; all finish, no variant rebuilt, both wide
+     prompt tokens, 16 new each; all finish, no variant captured again, both wide
      paged kernels of the pool type launched and no narrow one; paged
      against dense logits and the fuse_attention rewrite (the wide flash
      forward) within 1e-4; the int8 kernel path against the plain path;
@@ -119,13 +130,15 @@ Phases, each printing its own line; any failure exits non-zero:
      kernels' counts, and the same readings;
      then flash against dense (bias feeds at full length) on the same
      weights at dropout 0 for 3 steps, losses within rtol 2e-3, atol 2e-4;
-  7. a `kernels` JSON line (launches, error, times, bound per kernel).
+  7. the `paths` JSON line, then a `kernels` JSON line (launches on the
+     graph path, error, times, bound per kernel).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
 the script exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -1779,36 +1792,136 @@ def timed(fn, sink):
     return wrapper
 
 
-def serve(torch, pf, engine, card):
+def op_by_op():
+    """The op-by-op path: FLAGS_profile_ops inside profiler.profiler(), the
+    only way to it on the card (every op lowered eagerly, a device sync
+    after each)."""
+    from paddle_tpu_torch.tools.profile_generation import op_by_op as ctx
+
+    return ctx()
+
+
+def _schedule(engine, pf, prompts, new_tokens, timeout=600):
+    """Every prompt through a GenerationScheduler over `engine`: every
+    request must finish with new_tokens tokens. Returns (results, their
+    reading: tokens/s over the run and the decode step and prefill chunk
+    walls, the paged kernels' launches over the run)."""
     from paddle_tpu_torch.serving import GenerationScheduler
 
-    rng = np.random.RandomState(SEED)
-    prompts = [
-        rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist() for n in PROMPT_LENS
-    ]
-    traces = engine.traces
     # per-call host wall time of the engine's two step kinds (each ends in
     # the logits copy to the host, so it includes the device work)
     step_ms, chunk_ms = [], []
     engine.decode_step = timed(engine.decode_step, step_ms)
     engine.prefill_step = timed(engine.prefill_step, chunk_ms)
-    sched = GenerationScheduler(engine, max_queue_requests=64, timeout_ms=600000.0)
+    sched = GenerationScheduler(engine, max_queue_requests=64, timeout_ms=timeout * 1e3)
     try:
-        pf.reset_kernel_launches()
+        pf.reset_kernel_launches()  # the main path's counting window opens here
         t0 = time.perf_counter()
-        futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=NO_EOS) for p in prompts]
-        results = [f.result(600) for f in futs]
+        futs = [sched.submit(p, max_new_tokens=new_tokens, eos_id=NO_EOS) for p in prompts]
+        results = [f.result(timeout) for f in futs]
         wall = time.perf_counter() - t0
-        launches = {k: v for k, v in pf.kernel_launches().items() if k in KERNEL_META}
+        launches = pf.kernel_launches()  # and closes here
     finally:
         assert sched.close(drain=True)
         del engine.decode_step, engine.prefill_step
     for p, r in zip(prompts, results):
-        if r.finish_reason != "length" or len(r.tokens) != NEW_TOKENS:
-            raise AssertionError("request of %d tokens: %r %d tokens" % (
-                len(p), r.finish_reason, len(r.tokens)))
+        if r.finish_reason != "length" or len(r.tokens) != new_tokens:
+            raise AssertionError("%s: request of %d tokens: %r %d tokens" % (
+                engine.name, len(p), r.finish_reason, len(r.tokens)))
+    n_tok = sum(len(r.tokens) for r in results)
+    reading = {"requests": len(results), "new_tokens": n_tok, "wall_s": wall,
+               "tokens_per_s": n_tok / wall, "decode_p50_ms": float(np.median(step_ms)),
+               "decode_steps": len(step_ms), "prefill_p50_ms": float(np.median(chunk_ms)),
+               "prefill_chunks": len(chunk_ms)}
+    return results, reading, launches
+
+
+def _path_line(reading):
+    return ("%d requests, %d new tokens in %.3f s: %.1f tokens/s; decode step p50 %.3f ms over "
+            "%d steps; prefill chunk p50 %.3f ms over %d chunks" % (
+                reading["requests"], reading["new_tokens"], reading["wall_s"],
+                reading["tokens_per_s"], reading["decode_p50_ms"], reading["decode_steps"],
+                reading["prefill_p50_ms"], reading["prefill_chunks"]))
+
+
+def _op_by_op_serve(engine, pf, prompts, new_tokens, results, label, card):
+    """The same requests on the op-by-op path, with no prefix-cache hits
+    (the graph run had none): the same greedy tokens. Returns its reading."""
+    saved, engine.prefix_cache = engine.prefix_cache, None
+    try:
+        with op_by_op():
+            eager, reading, _ = _schedule(engine, pf, prompts, new_tokens)
+    finally:
+        engine.prefix_cache = saved
+    for i, (a, b) in enumerate(zip(results, eager)):
+        if a.tokens != b.tokens:
+            raise AssertionError("%s: request %d: graph and op-by-op tokens differ" % (label, i))
+    log("%s, op by op: %s; the same tokens as the graph path; card %s"
+        % (label, _path_line(reading), card))
+    return reading
+
+
+def _stepwise_calls(engine, pf, prompt, n_new):
+    """One request run alone: (logits, paged kernel launches) of every engine
+    call (each prefill chunk, then each decode step)."""
+    from paddle_tpu_torch.serving import GenRequest
+
+    calls, call = [], engine._call
+
+    def recorded(variant, feeds):
+        before = pf.kernel_launches()
+        out = call(variant, feeds)
+        after = pf.kernel_launches()
+        calls.append((out[0].copy(), {k: after[k] - before[k] for k in after if after[k] - before[k]}))
+        return out
+
+    engine._call = recorded
+    run = engine.start(GenRequest(prompt, max_new_tokens=n_new, eos_id=NO_EOS))
+    try:
+        while not run.done:
+            engine.decode_step([run])
+    finally:
+        engine.finish(run)
+        del engine._call
+    return calls
+
+
+def graph_vs_op_by_op(engine, pf, prompt, n_new, label):
+    """A request run alone on the graph path and on the op-by-op path, with no
+    prefix-cache hits: every call's logits bit for bit, and its paged kernel
+    launches equal."""
+    saved, engine.prefix_cache = engine.prefix_cache, None
+    try:
+        got = _stepwise_calls(engine, pf, prompt, n_new)
+        with op_by_op():
+            want = _stepwise_calls(engine, pf, prompt, n_new)
+    finally:
+        engine.prefix_cache = saved
+    if len(got) != len(want):
+        raise AssertionError("%s: %d graph calls, %d op by op" % (label, len(got), len(want)))
+    for i, ((g, gl), (w, wl)) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError("%s: call %d: graph and op-by-op logits differ (max abs %g)" % (
+                label, i, float(np.abs(g - w).max()) if g.shape == w.shape else float("nan")))
+        if gl != wl or not gl:
+            raise AssertionError("%s: call %d: launches %s on the graph path, %s op by op"
+                                 % (label, i, gl, wl))
+    chunks = -(-len(prompt) // engine.prefill_chunk)
+    log("%s: graph vs op by op, a %d-token prompt alone: %d prefill chunks and %d decode steps, "
+        "logits bit for bit, paged kernel launches equal in every call (%s a decode step)" % (
+            label, len(prompt), chunks, len(got) - chunks, json.dumps(got[-1][1])))
+
+
+def serve(torch, pf, engine, card, readings):
+    rng = np.random.RandomState(SEED)
+    prompts = [
+        rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist() for n in PROMPT_LENS
+    ]
+    traces = engine.traces
+    results, graph, launches = _schedule(engine, pf, prompts, NEW_TOKENS)
+    launches = {k: v for k, v in launches.items() if k in KERNEL_META}
     if engine.traces != traces:
-        raise AssertionError("variants rebuilt after warmup: %d -> %d" % (traces, engine.traces))
+        raise AssertionError("variants captured after warmup: %d -> %d" % (traces, engine.traces))
     if not all(launches.values()):
         raise AssertionError("a kernel never launched on the main path: %s" % launches)
     for i in (0, len(prompts) - 1):
@@ -1817,13 +1930,12 @@ def serve(torch, pf, engine, card):
             raise AssertionError("request %d: scheduler tokens differ from serial generate" % i)
     if not np.all(np.isfinite(engine.last_logits)):
         raise AssertionError("non-finite decode logits")
-    n_tok = sum(len(r.tokens) for r in results)
-    log("serve: %d requests, %d prompt tokens, %d new tokens in %.3f s: %.1f tokens/s; "
-        "decode step p50 %.3f ms over %d steps; prefill chunk p50 %.3f ms over %d chunks; "
-        "kernel launches %s; card %s" % (
-            len(results), sum(PROMPT_LENS), n_tok, wall, n_tok / wall,
-            float(np.median(step_ms)), len(step_ms), float(np.median(chunk_ms)),
-            len(chunk_ms), json.dumps(launches), card))
+    log("serve: %d prompt tokens; graph path (%d variants captured at warmup): %s; kernel "
+        "launches %s; card %s" % (sum(PROMPT_LENS), engine.traces, _path_line(graph),
+                                  json.dumps(launches), card))
+    eager = _op_by_op_serve(engine, pf, prompts, NEW_TOKENS, results, "serve", card)
+    graph_vs_op_by_op(engine, pf, prompts[1], 8, "serve")
+    readings["serve"] = {"graph": graph, "op_by_op": eager}
     return launches
 
 
@@ -1911,19 +2023,20 @@ WIDE_PROMPT_LENS = (40, 217, 472, 700)
 WIDE_NEW_TOKENS = 16
 
 
-def serve_wide(torch, pf, card):
+def serve_wide(torch, pf, card, readings=None):
     """The wide-head model served by a GenerationEngine over f32 pools, then
     over int8 pools with the same weights: 4 greedy requests each through
-    the scheduler (every request finishes, no variant rebuilt after
-    warmup, both wide paged kernels of the pool type launch and no narrow
-    one); paged against dense logits and the fuse_attention rewrite (the
-    wide flash forward) on the f32 engine; the int8 engine's kernel path
-    against the plain path (paged_flash off) on the same pools. Returns
-    the wide kernels' launches over the requests and the wide forward's in
-    the rewritten program."""
+    the scheduler on the graph path (every request finishes, no variant
+    captured after warmup, both wide paged kernels of the pool type launch
+    and no narrow one) and on the op-by-op path, a request alone on both
+    bit for bit; paged against dense logits and the fuse_attention rewrite
+    (the wide flash forward) on the f32 engine; the int8 engine's kernel
+    path against the plain path (paged_flash off) on the same pools.
+    Returns the wide kernels' launches over the graph path's requests and
+    the wide forward's in the rewritten program."""
     from paddle_tpu_torch import CUDAPlace, flags
     from paddle_tpu_torch.models import GPTDecoder
-    from paddle_tpu_torch.serving import GenerationEngine, GenerationScheduler
+    from paddle_tpu_torch.serving import GenerationEngine
 
     rng = np.random.RandomState(SEED + 5)
     prompts = [rng.randint(2, WIDE_MODEL["vocab_size"], size=n).tolist() for n in WIDE_PROMPT_LENS]
@@ -1931,6 +2044,7 @@ def serve_wide(torch, pf, card):
     for quant in (False, True):
         t0 = time.perf_counter()
         kw = dict(kv_dtype="int8") if quant else {}
+        label = "serve wide heads (%s pools)" % ("int8" if quant else "f32")
         engine = GenerationEngine(GPTDecoder(**WIDE_MODEL, **kw), place=CUDAPlace(0),
                                   name="wide_heads" + "_int8" * quant, **WIDE_ENGINE)
         if quant:
@@ -1939,24 +2053,11 @@ def serve_wide(torch, pf, card):
                     engine.scope.vars[name].copy_(engines[False].scope.vars[name])
         n = engine.warmup()
         torch.cuda.synchronize()
+        t1 = time.perf_counter()
         traces = engine.traces
-        sched = GenerationScheduler(engine, max_queue_requests=16, timeout_ms=600000.0)
-        try:
-            pf.reset_kernel_launches()  # the main path's counting window opens here
-            t1 = time.perf_counter()
-            futs = [sched.submit(p, max_new_tokens=WIDE_NEW_TOKENS, eos_id=NO_EOS)
-                    for p in prompts]
-            results = [f.result(600) for f in futs]
-            wall = time.perf_counter() - t1
-            got = pf.kernel_launches()  # and closes here
-        finally:
-            assert sched.close(drain=True)
-        for p, r in zip(prompts, results):
-            if r.finish_reason != "length" or len(r.tokens) != WIDE_NEW_TOKENS:
-                raise AssertionError("wide-head request of %d tokens: %r %d tokens" % (
-                    len(p), r.finish_reason, len(r.tokens)))
+        results, graph, got = _schedule(engine, pf, prompts, WIDE_NEW_TOKENS)
         if engine.traces != traces:
-            raise AssertionError("wide-head variants rebuilt after warmup: %d -> %d"
+            raise AssertionError("wide-head variants captured after warmup: %d -> %d"
                                  % (traces, engine.traces))
         head = WIDE_MODEL["d_model"] // WIDE_MODEL["n_head"]
         keys = [pf.launch_key(shared, head, quant) for shared in (False, True)]
@@ -1965,15 +2066,17 @@ def serve_wide(torch, pf, card):
         if not np.all(np.isfinite(engine.last_logits)):
             raise AssertionError("non-finite wide-head decode logits")
         launches.update({k: got[k] for k in keys})
-        n_tok = sum(len(r.tokens) for r in results)
-        log("serve wide heads (%s pools): %d heads of %d, %d layers, page_size %d, %d slots; %d "
-            "variants built in %.1f s; %d requests, %d prompt tokens, %d new tokens in %.3f s: "
-            "%.1f tokens/s; kernel launches %s; card %s" % (
-                "int8" if quant else "f32", WIDE_MODEL["n_head"],
-                WIDE_MODEL["d_model"] // WIDE_MODEL["n_head"], WIDE_MODEL["n_layer"],
-                WIDE_ENGINE["page_size"], WIDE_ENGINE["max_slots"], n, t1 - t0, len(results),
-                sum(WIDE_PROMPT_LENS), n_tok, wall, n_tok / wall,
-                json.dumps({k: got[k] for k in keys}), card))
+        log("%s: %d heads of %d, %d layers, page_size %d, %d slots; %d variants captured in "
+            "%.1f s; %d prompt tokens; graph path: %s; kernel launches %s; card %s" % (
+                label, WIDE_MODEL["n_head"], head, WIDE_MODEL["n_layer"],
+                WIDE_ENGINE["page_size"], WIDE_ENGINE["max_slots"], n, t1 - t0,
+                sum(WIDE_PROMPT_LENS), _path_line(graph), json.dumps({k: got[k] for k in keys}),
+                card))
+        eager = _op_by_op_serve(engine, pf, prompts, WIDE_NEW_TOKENS, results, label, card)
+        graph_vs_op_by_op(engine, pf, prompts[1], 4, label)
+        if readings is not None:
+            readings["serve_wide_" + ("int8" if quant else "f32")] = {
+                "graph": graph, "op_by_op": eager}
         engines[quant] = engine
     flash_launches = paged_vs_dense(torch, engines[False], WIDE_MODEL)
     engine = engines[True]
@@ -2010,15 +2113,17 @@ def _stepwise(engine, prompt, n_new):
     return list(run.tokens), rows
 
 
-def serve_int8_kv(torch, pf, f32_engine, card):
+def serve_int8_kv(torch, pf, f32_engine, card, readings):
     """Path A: GPT-2 small over int8 KV pools at 16 slots, the f32 engine's
     weights copied in by name; 16 concurrent requests through the
-    scheduler, then the last-step logits against the f32 pools and the
-    kernel path against the plain one (paged_flash off) on the same int8
-    pools. Returns the int8 paged kernels' launches over the requests."""
+    scheduler on the graph path and on the op-by-op path, a request alone
+    on both bit for bit, then the last-step logits against the f32 pools
+    and the kernel path against the plain one (paged_flash off) on the
+    same int8 pools. Returns the int8 paged kernels' launches over the
+    graph path's requests."""
     from paddle_tpu_torch import CUDAPlace, flags
     from paddle_tpu_torch.models import GPTDecoder
-    from paddle_tpu_torch.serving import GenerationEngine, GenerationScheduler
+    from paddle_tpu_torch.serving import GenerationEngine
 
     t0 = time.perf_counter()
     engine = GenerationEngine(GPTDecoder(kv_dtype="int8", **GPT2_SMALL), name="gpt2_small_int8",
@@ -2028,47 +2133,29 @@ def serve_int8_kv(torch, pf, f32_engine, card):
             engine.scope.vars[name].copy_(f32_engine.scope.vars[name])
     n = engine.warmup()
     torch.cuda.synchronize()
-    log("int8 engine: %d variants built, %d slots, params copied from the f32 engine, ready in "
-        "%.1f s; KV pools %.3f GB (int8 levels + f32 row scales) against %.3f GB of f32 pools "
-        "at %d slots" % (n, INT8_ENGINE["max_slots"], time.perf_counter() - t0,
-                         engine.kv_state_bytes / 1e9, f32_engine.kv_state_bytes / 1e9,
-                         ENGINE["max_slots"]))
+    log("int8 engine: %d variants captured, %d slots, params copied from the f32 engine, ready "
+        "in %.1f s; KV pools %.3f GB (int8 levels + f32 row scales) against %.3f GB of f32 "
+        "pools at %d slots" % (n, INT8_ENGINE["max_slots"], time.perf_counter() - t0,
+                               engine.kv_state_bytes / 1e9, f32_engine.kv_state_bytes / 1e9,
+                               ENGINE["max_slots"]))
     rng = np.random.RandomState(SEED + 2)
     prompts = [rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist()
                for n in PROMPT_LENS * 2]
     traces = engine.traces
-    step_ms, chunk_ms = [], []
-    engine.decode_step = timed(engine.decode_step, step_ms)
-    engine.prefill_step = timed(engine.prefill_step, chunk_ms)
-    sched = GenerationScheduler(engine, max_queue_requests=64, timeout_ms=600000.0)
-    try:
-        pf.reset_kernel_launches()  # the main path's counting window opens here
-        t0 = time.perf_counter()
-        futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=NO_EOS) for p in prompts]
-        results = [f.result(600) for f in futs]
-        wall = time.perf_counter() - t0
-        launches = pf.kernel_launches()  # and closes here
-    finally:
-        assert sched.close(drain=True)
-        del engine.decode_step, engine.prefill_step
-    for p, r in zip(prompts, results):
-        if r.finish_reason != "length" or len(r.tokens) != NEW_TOKENS:
-            raise AssertionError("int8 request of %d tokens: %r %d tokens" % (
-                len(p), r.finish_reason, len(r.tokens)))
+    results, graph, launches = _schedule(engine, pf, prompts, NEW_TOKENS)
     if engine.traces != traces:
-        raise AssertionError("int8 variants rebuilt after warmup: %d -> %d"
+        raise AssertionError("int8 variants captured after warmup: %d -> %d"
                              % (traces, engine.traces))
     if not (launches["paged_flash_int8"] and launches["paged_flash_shared_int8"]):
         raise AssertionError("an int8 paged kernel never launched: %s" % launches)
     if launches["paged_flash"] or launches["paged_flash_shared"]:
         raise AssertionError("f32 paged kernels launched on int8 pools: %s" % launches)
-    n_tok = sum(len(r.tokens) for r in results)
-    log("serve int8 KV: %d requests, %d prompt tokens, %d new tokens in %.3f s: %.1f tokens/s; "
-        "decode step (%d slots) p50 %.3f ms over %d steps; prefill chunk p50 %.3f ms over %d "
-        "chunks; kernel launches %s; card %s" % (
-            len(results), 2 * sum(PROMPT_LENS), n_tok, wall, n_tok / wall,
-            INT8_ENGINE["max_slots"], float(np.median(step_ms)), len(step_ms),
-            float(np.median(chunk_ms)), len(chunk_ms), json.dumps(launches), card))
+    log("serve int8 KV: %d prompt tokens, %d slots; graph path: %s; kernel launches %s; card %s"
+        % (2 * sum(PROMPT_LENS), INT8_ENGINE["max_slots"], _path_line(graph),
+           json.dumps(launches), card))
+    eager = _op_by_op_serve(engine, pf, prompts, NEW_TOKENS, results, "serve int8 KV", card)
+    graph_vs_op_by_op(engine, pf, prompts[1], 8, "serve int8 KV")
+    readings["serve_int8_kv"] = {"graph": graph, "op_by_op": eager}
 
     # the same weights over f32 pools. Step i's logits have the context
     # prompt + tokens[:i]: the two runs are compared at every step up to
@@ -2280,11 +2367,18 @@ def _startup_state(startup):
     return dict(scope.vars)
 
 
+def _counter_delta(before, after):
+    return {(kind, k): after[kind][k] - before[kind].get(k, 0)
+            for kind in after for k in after[kind] if after[kind][k] != before[kind].get(k, 0)}
+
+
 def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_check,
-               init=None):
+               init=None, per_op=False):
     """Steps of the training program from a fresh scope seeded with SEED
     under `pipeline`, its startup state overwritten by name from `init`
-    where given; returns (losses, walls, scope, step)."""
+    where given, on the graph path (step 1 op by op, step 2 captured and
+    replayed, the rest replayed) or, with per_op, on the op-by-op path;
+    returns (losses, walls, scope, step, each step's counter deltas)."""
     from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
 
     flags.set_flags({"pass_pipeline": pipeline})
@@ -2294,7 +2388,7 @@ def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_c
     def step(batch):
         with scope_guard(scope):
             (lv,) = exe.run(main_prog, feed=batch, fetch_list=[loss.name])
-        return float(lv.reshape(-1)[0])
+        return lv.reshape(-1)[0]
 
     with scope_guard(scope):
         exe.run(startup)
@@ -2303,16 +2397,20 @@ def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_c
             raise AssertionError("carried state %r has no counterpart in the program" % name)
         scope.set_var(name, value.clone())
     torch.cuda.synchronize()
-    losses, walls = [], []
-    for i, b in enumerate(batches):
-        before = fused.stats()
-        t0 = time.perf_counter()
-        losses.append(step(b))
-        walls.append((time.perf_counter() - t0) * 1e3)
-        step_check(i, before, fused.stats())
-        if not np.isfinite(losses[-1]):
-            raise AssertionError("%s step %d: loss %r" % (pipeline or "unfused", i, losses[-1]))
-    return losses, walls, scope, step
+    losses, walls, deltas = [], [], []
+    with (op_by_op() if per_op else contextlib.nullcontext()):
+        for i, b in enumerate(batches):
+            before = fused.stats()
+            t0 = time.perf_counter()
+            losses.append(step(b))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            after = fused.stats()
+            step_check(i, before, after)
+            deltas.append(_counter_delta(before, after))
+            if not np.isfinite(losses[-1]):
+                raise AssertionError("%s step %d: loss %r" % (pipeline or "unfused", i,
+                                                              losses[-1]))
+    return losses, walls, scope, step, deltas
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused")  # a train_flash step's
@@ -2363,9 +2461,12 @@ def _unfused_check(i, before, after):
                              % (i, before, after))
 
 
-def _train_fused(torch, cfg, card, label):
-    """TRAIN_STEPS steps of `cfg` under training_fused, each step's launches
-    checked; returns (launches over the steps, losses, batches, program)."""
+def _train_fused(torch, cfg, card, label, readings):
+    """TRAIN_STEPS steps of `cfg` under training_fused on the graph path, each
+    step's launches checked, then COMPARE_STEPS steps on the op-by-op path
+    from the same seed: the same losses bit for bit and the same launches
+    and dispatches a step. Returns (launches over the graph steps, losses,
+    batches, program)."""
     from paddle_tpu_torch.ops import fused, registry
     from paddle_tpu_torch.tools import profile_training as prof
 
@@ -2374,51 +2475,81 @@ def _train_fused(torch, cfg, card, label):
     n_adam = sum(op.type == "adam" for op in main_prog.global_block().ops)
     batches = [prof.make_batch(cfg, SEED + i) for i in range(TRAIN_STEPS)]
     fused.reset_stats()  # the main path's counting window opens here
-    losses, walls, scope, step = _train_run(torch, main_prog, startup, loss, batches,
-                                            "training_fused", fused, _launch_check(cfg))
+    losses, walls, scope, step, deltas = _train_run(
+        torch, main_prog, startup, loss, batches, "training_fused", fused, _launch_check(cfg))
     launches = fused.stats()["launches"]  # and closes here
     log("%s: Transformer base %s, %d Adam ops, built and initialised in %.1f s" % (
         label, json.dumps(cfg), n_adam, time.perf_counter() - t0))
-    # steps 2-6: the first applies the pass pipeline and prepares the block
-    wall_p50 = float(np.median(walls[1:]))
-    tokens_per_s = sum(prof.target_tokens(b) for b in batches[1:]) / (sum(walls[1:]) / 1e3)
-    breakdown = prof.profile_steps(step, batches[:2], registry)
+    # steps 3-6 replay the graph (step 1 runs op by op and applies the pass
+    # pipeline, step 2 captures)
+    tokens = sum(prof.target_tokens(b) for b in batches[2:])
+    graph = {"step_p50_ms": float(np.median(walls[2:])),
+             "target_tokens_per_s": tokens / (sum(walls[2:]) / 1e3)}
+    breakdown = prof.profile_steps(step, batches[:2], registry, per_op=True)
     del scope, step
     torch.cuda.empty_cache()
+    e_losses, e_walls, escope, estep, e_deltas = _train_run(
+        torch, main_prog, startup, loss, batches[:COMPARE_STEPS], "training_fused", fused,
+        _launch_check(cfg), per_op=True)
+    del escope, estep
+    torch.cuda.empty_cache()
+    for i, (g, e) in enumerate(zip(losses, e_losses)):
+        if g.tobytes() != e.tobytes():
+            raise AssertionError("%s step %d: graph loss %r, op by op %r" % (label, i, g, e))
+    if deltas[:COMPARE_STEPS] != e_deltas:
+        raise AssertionError("%s: counters a step %s on the graph path, %s op by op"
+                             % (label, deltas[:COMPARE_STEPS], e_deltas))
+    e_tokens = sum(prof.target_tokens(b) for b in batches[1:COMPARE_STEPS])
+    eager = {"step_p50_ms": float(np.median(e_walls[1:])),
+             "target_tokens_per_s": e_tokens / (sum(e_walls[1:]) / 1e3)}
+    for path, d, b in (("graph", graph, breakdown), ("op_by_op", eager, breakdown["op_by_op"])):
+        d.update(device_busy_ms=b["device_busy_ms_per_step"],
+                 device_launches=b["device_launches_per_step"],
+                 profiled_wall_p50_ms=b["wall_ms_p50"])
+    readings[label.replace(" ", "_")] = {"graph": graph, "op_by_op": eager}
     fused_want, flash_want = _per_step(cfg)
     by_kernel = breakdown["device_ms_per_step_by_kernel"]
     ln_fwd = [v for k, v in by_kernel.items() if "ln_fwd_kernel" in k]
     ln_bwd = [v for k, v in by_kernel.items() if "ln_bwd_kernel" in k]
-    log("%s: in the profiled steps ln_fwd_kernel takes %.4f ms of device time a step (%s "
-        "launches) and ln_bwd_kernel %.4f ms (%s launches); card %s" % (
-            label, sum(v["ms"] for v in ln_fwd), sum(v["launches"] for v in ln_fwd),
-            sum(v["ms"] for v in ln_bwd), sum(v["launches"] for v in ln_bwd), card))
     adam = [v for k, v in by_kernel.items() if "multi_adam_kernel" in k]
-    log("%s: in the profiled steps multi_adam_kernel takes %.4f ms of device time a step (%s "
-        "launches), and the fused Adam lowering %.3f ms of host time a step (op timer); card %s"
-        % (label, sum(v["ms"] for v in adam), sum(v["launches"] for v in adam),
-           breakdown["op_host_ms_per_step"].get("fused:multi_adam", 0.0), card))
-    log("%s: %d fused steps, losses %s; step wall p50 %.3f ms over steps 2-%d (step 1 %.1f ms, "
-        "with the pass pipeline); %.1f target tokens/s (their target tokens over their summed "
-        "wall); device busy %s ms a step = %s of the wall p50 of the profiled window (%.3f ms), "
-        "%s device launches a step; kernel launches %s (per step %s); card %s" % (
-            label, TRAIN_STEPS, ["%.6f" % v for v in losses], wall_p50, TRAIN_STEPS, walls[0],
-            tokens_per_s, breakdown["device_busy_ms_per_step"], breakdown["device_busy_share"],
-            breakdown["wall_ms_p50"], breakdown["device_launches_per_step"],
-            json.dumps(launches), json.dumps(dict(fused_want, **flash_want)), card))
-    return launches, losses, batches, (main_prog, startup, loss)
+    log("%s: in the profiled graph steps ln_fwd_kernel takes %.4f ms of device time a step (%s "
+        "launches), ln_bwd_kernel %.4f ms (%s launches) and multi_adam_kernel %.4f ms (%s "
+        "launches); op by op, the fused Adam lowering takes %.3f ms of host time a step (op "
+        "timer); card %s" % (
+            label, sum(v["ms"] for v in ln_fwd), sum(v["launches"] for v in ln_fwd),
+            sum(v["ms"] for v in ln_bwd), sum(v["launches"] for v in ln_bwd),
+            sum(v["ms"] for v in adam), sum(v["launches"] for v in adam),
+            breakdown["op_by_op"]["op_host_ms_per_step"].get("fused:multi_adam", 0.0), card))
+    log("%s: %d graph steps, losses %s; step wall p50 %.3f ms over steps 3-%d (step 1 op by op "
+        "with the pass pipeline %.1f ms, step 2 captured %.1f ms); %.1f target tokens/s (their "
+        "target tokens over their summed wall); device busy %s ms a step = %s of the wall p50 of "
+        "the profiled window (%.3f ms), %s device launches a step; kernel launches %s (per step "
+        "%s); card %s" % (
+            label, TRAIN_STEPS, ["%.6f" % v for v in losses], graph["step_p50_ms"], TRAIN_STEPS,
+            walls[0], walls[1], graph["target_tokens_per_s"], breakdown["device_busy_ms_per_step"],
+            breakdown["device_busy_share"], breakdown["wall_ms_p50"],
+            breakdown["device_launches_per_step"], json.dumps(launches),
+            json.dumps(dict(fused_want, **flash_want)), card))
+    log("%s, op by op: %d steps from the same seed, losses %s bit for bit the graph path's, the "
+        "same launches and dispatches a step; step wall p50 %.3f ms over steps 2-%d; %.1f target "
+        "tokens/s; device busy %s ms a step, %s device launches a step; card %s" % (
+            label, COMPARE_STEPS, ["%.6f" % v for v in e_losses], eager["step_p50_ms"],
+            COMPARE_STEPS, eager["target_tokens_per_s"], eager["device_busy_ms"],
+            eager["device_launches"], card))
+    return launches, [float(v) for v in losses], batches, (main_prog, startup, loss)
 
 
-def train(torch, card):
-    """Transformer base under training_fused for TRAIN_STEPS steps, then an
-    unfused run from the same seed; returns the training kernels' launches
-    over the fused steps."""
+def train(torch, card, readings):
+    """Transformer base under training_fused for TRAIN_STEPS steps (and op
+    by op), then an unfused run from the same seed; returns the training
+    kernels' launches over the fused graph steps."""
     from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch.tools import profile_training as prof
 
-    launches, losses, batches, prog = _train_fused(torch, prof.BASE, card, "train")
-    ref, _, uscope, ustep = _train_run(torch, *prog, batches[:COMPARE_STEPS], "", fused,
-                                       _unfused_check)
+    launches, losses, batches, prog = _train_fused(torch, prof.BASE, card, "train", readings)
+    ref, _, uscope, ustep, _ = _train_run(torch, *prog, batches[:COMPARE_STEPS], "", fused,
+                                          _unfused_check)
+    ref = [float(v) for v in ref]
     del uscope, ustep
     torch.cuda.empty_cache()
     a, b = np.asarray(losses[:COMPARE_STEPS]), np.asarray(ref)
@@ -2430,16 +2561,16 @@ def train(torch, card):
     return {k: launches[k] for k in _per_step(prof.BASE)[0]}
 
 
-def train_flash(torch, card):
+def train_flash(torch, card, readings):
     """The flash configuration (use_flash=True, padded=False, no bias feeds)
-    under training_fused for TRAIN_STEPS steps, then flash against dense on
-    the same weights at dropout 0; returns the flash kernels' launches over
-    the flash steps."""
+    under training_fused for TRAIN_STEPS steps (and op by op), then flash
+    against dense on the same weights at dropout 0; returns the flash
+    kernels' launches over the flash graph steps."""
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch.tools import profile_training as prof
 
-    launches, _, _, _ = _train_fused(torch, prof.BASE_FLASH, card, "train flash")
+    launches, _, _, _ = _train_fused(torch, prof.BASE_FLASH, card, "train flash", readings)
     # the dense program cannot drop attention-weight dropout, so both run at 0
     fcfg, dcfg = dict(prof.BASE_FLASH, dropout=0.0), dict(prof.BASE, dropout=0.0)
     b, t, h = fcfg["batch"], fcfg["t"], fcfg["n_head"]
@@ -2455,7 +2586,7 @@ def train_flash(torch, card):
     for prog, batches in ((fprog, fbatches), (dprog, dbatches)):
         out = _train_run(torch, *prog, batches, "training_fused", fused, lambda *a: None,
                          init=init)
-        runs.append(np.asarray(out[0]))
+        runs.append(np.asarray([float(v) for v in out[0]]))
         del out
         torch.cuda.empty_cache()
     del init
@@ -2493,10 +2624,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    paths = {}  # path -> {"graph": reading, "op_by_op": reading}
 
     with Phase("build"):
         card = prof.card_line()
         log(card)
+        log("python %s, torch %s (CUDA %s); CUDAGraph.register_generator_state: %s" % (
+            sys.version.split()[0], torch.__version__, torch.version.cuda,
+            hasattr(torch.cuda.CUDAGraph, "register_generator_state")))
         t0 = time.perf_counter()
         _build.build_all()  # one nvcc per source, all at once
         log("nvcc sm_90a build of %s in %.1f s" % (sorted(_build.build_logs), time.perf_counter() - t0))
@@ -2526,25 +2661,28 @@ def main():
                                   place=CUDAPlace(0), **ENGINE)
         n = engine.warmup()
         torch.cuda.synchronize()
-        log("engine: %d variants built, params + pools ready in %.1f s; KV pools %.3f GB" % (
-            n, time.perf_counter() - t0, engine.kv_state_bytes / 1e9))
-        launches = serve(torch, pf, engine, card)
+        log("engine: %d variants built and captured, params + pools ready in %.1f s; KV pools "
+            "%.3f GB" % (n, time.perf_counter() - t0, engine.kv_state_bytes / 1e9))
+        launches = serve(torch, pf, engine, card, paths)
     with Phase("paged vs dense"):
         paged_vs_dense(torch, engine)
     with Phase("serve int8 KV"):
-        launches.update(serve_int8_kv(torch, pf, engine, card))
+        launches.update(serve_int8_kv(torch, pf, engine, card, paths))
     del engine
     torch.cuda.empty_cache()
     with Phase("serve int8 GEMM"):
         launches.update(serve_int8_gemm(torch, card)[0])
     torch.cuda.empty_cache()
     with Phase("serve wide heads"):
-        wide, launches["flash_fwd_wide"] = serve_wide(torch, pf, card)
+        wide, launches["flash_fwd_wide"] = serve_wide(torch, pf, card, paths)
         launches.update(wide)
+    torch.cuda.empty_cache()
     with Phase("train"):
-        launches.update(train(torch, card))
+        launches.update(train(torch, card, paths))
     with Phase("train flash"):
-        launches.update(train_flash(torch, card))
+        launches.update(train_flash(torch, card, paths))
+    # every main path on replayed CUDA graphs beside the op-by-op path
+    log(json.dumps({"paths": paths, "card": card}))
     for name, n in launches.items():
         kernels[name]["launches"] = n
     # an entry with "path": None is on no main path (quant_gemm_fp8: no pass

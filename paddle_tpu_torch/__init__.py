@@ -19,12 +19,18 @@ runs the inference_int8 pass pipeline (passes/quant.py) over a saved model
 (io.py), its calibrated int8 layers through a hand-written quant GEMM
 kernel (ops/quant_gemm.py).
 
+On the card a block runs as a CUDA graph: Executor.run captures a step at
+its second call on a cache key and replays it after, and a
+GenerationEngine captures its decode step and prefill buckets at warmup()
+(executor.py). The op-by-op path runs there only under the profiler with
+FLAGS_profile_ops (profiler.py), as in the JAX package.
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
 """
 
-from . import flags, framework, io, layers, ops, optimizer, passes, unique_name  # noqa: F401
+from . import flags, framework, io, layers, ops, optimizer, passes, profiler, unique_name  # noqa: F401
 from .backward import append_backward  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .framework import Program, default_main_program, default_startup_program, program_guard  # noqa: F401

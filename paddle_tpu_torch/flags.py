@@ -12,6 +12,12 @@ set_flags), the subset the serving and training slices read.
   wherever the copied path predicate (ops/fused.py quant_gemm_path_taken)
   accepts the shape: the kernel for tensors on a CUDA device, its plain
   version on the CPU; "off" lowers the int8 chains op by op.
+- profile_ops: while the profiler is on (profiler.py), Executor.run and the
+  GenerationEngine's variants run blocks op by op, with an event and a
+  device sync per op, so the profiler table attributes time per op type,
+  the reference's per-op RecordEvent tables (operator.cc:157). On the card
+  blocks otherwise run as replayed CUDA graphs; this is the only way to the
+  op-by-op path there. A diagnosis mode, never a training mode.
 - pass_pipeline: the graph-pass pipeline Executor.run applies before a
   program runs (passes/manager.py PRESETS, e.g. "training_fused", or a
   comma-separated pass list); "" (default) runs the program as built.
@@ -28,6 +34,7 @@ __all__ = ["get_flags", "set_flags"]
 _DEFAULTS = {
     "paged_flash": "auto",
     "quantized_gemm": "auto",
+    "profile_ops": False,
     "pass_pipeline": "",
     "serving_cache_dir": "",
     "trace_dir": "",
@@ -43,6 +50,8 @@ _flags = {}
 
 
 def _coerce(name, raw):
+    if isinstance(_DEFAULTS[name], bool):
+        return str(raw).lower() in ("1", "true", "yes", "on")
     value = type(_DEFAULTS[name])(raw)
     choices = _CHOICES.get(name)
     if choices is not None and value not in choices:

@@ -163,9 +163,12 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
 
 def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
               filename=None):
-    """Load variables into the current scope, as tensors on its device."""
+    """Load variables into the current scope, as tensors on its device (an
+    unbound process scope takes the executor's)."""
     program = main_program or framework.default_main_program()
     scope = global_scope()
+    if executor is not None:
+        scope.bind(executor.device)
     combined = None
     if filename is not None:
         if not filename.endswith(".npz"):

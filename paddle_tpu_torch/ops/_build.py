@@ -14,7 +14,9 @@ a run build in parallel. A box without a compiler imports the package.
 of a group finds itself (the fused flash backward's dQ sum, the paged
 kernels' merges, the layer_norm backward's column sums): one zeroed buffer
 per (device, stream), which every such launch leaves at 0 again, so kernels
-ordered on one stream share it.
+ordered on one stream share it. A CUDA graph's kernels keep the counters of
+the stream they were captured on (made by the warmup run there), whatever
+stream the graph is replayed on.
 """
 
 import ctypes
@@ -122,11 +124,18 @@ _counters = {}  # (device, stream) -> int32 arrival counters, all 0 between laun
 
 def arrival_counters(device, stream, n):
     """At least n int32 arrival counters on `device` for kernels launched on
-    `stream`, all 0 (each launch that counts resets what it used)."""
+    `stream`, all 0 (each launch that counts resets what it used). They are
+    made outside any CUDA graph capture: a graph's kernels take the counters
+    its warmup run made on the capture stream, and a capture that would have
+    to make or grow them raises."""
+    import torch
+
     key = (device, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
-        import torch
-
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "arrival counters for %d groups on stream %#x are made during a CUDA "
+                "graph capture: run the block once on the capture stream first" % (n, stream))
         buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
     return buf

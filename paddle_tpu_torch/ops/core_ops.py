@@ -103,7 +103,11 @@ def _truncated_gaussian_random(ctx, ins, attrs):
 def _assign_value(ctx, ins, attrs):
     dt = torch_dtype(attrs.get("dtype", "float32"))
     vals = np.asarray(attrs["values"]).reshape(_shape(attrs))
-    return {"Out": [torch.as_tensor(vals).to(device=ctx.device, dtype=dt)]}
+    if ctx.device.type == "meta":
+        return {"Out": [torch.empty(vals.shape, dtype=dt, device="meta")]}
+    # uploaded at the op's first run only: a replayed graph reads it there
+    return {"Out": [ctx.op_constant(
+        lambda: torch.as_tensor(vals).to(device=ctx.device, dtype=dt))]}
 
 
 @register("assign")
@@ -456,7 +460,10 @@ def _lookup_table_grad(ctx, ins, attrs):
     """Explicit grad: scatter-add of the cotangent rows accumulated in f32,
     cast once to the cotangent's dtype at the end (repeated ids stay exact
     under bf16, as in the JAX lowering). Negative and padding ids add
-    nothing. W is read for its shape only."""
+    nothing. W is read for its shape only. The accumulating index_put_
+    sums a repeated id's rows in one order every run (on the card it sorts
+    the ids first; atomic adds would sum them in the order they land), so
+    a step gives the same bits every time it runs."""
     (w,) = ins["W"]
     (ids,) = ins["Ids"]
     (dout,) = ins["Out@GRAD"]
@@ -469,7 +476,8 @@ def _lookup_table_grad(ctx, ins, attrs):
         mask = mask & (flat != pad)
     rows = torch.where(mask[:, None], d2, torch.zeros((), dtype=d2.dtype, device=d2.device))
     dw = torch.zeros(tuple(w.shape), dtype=torch.float32, device=d2.device)
-    dw.index_add_(0, torch.where(mask, flat, torch.zeros_like(flat)), rows.float())
+    dw.index_put_((torch.where(mask, flat, torch.zeros_like(flat)),), rows.float(),
+                  accumulate=True)
     return {"W@GRAD": [dw.to(d2.dtype)]}
 
 
@@ -516,7 +524,8 @@ def _dropout_grad_maker(op, block, grad_map):
 def _dropout(ctx, ins, attrs):
     """keep ~ Bernoulli(1 - p) as uniform < 1 - p (jax.random.bernoulli's
     form), drawn on the input's device from the run's device generator, or
-    from a generator of the op's own when it pins a seed."""
+    from a generator of the op's own when it pins a seed (restarted every
+    run, so every step draws the same mask, as in the JAX package)."""
     (x,) = ins["X"]
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
@@ -528,10 +537,7 @@ def _dropout(ctx, ins, attrs):
         u = torch.empty(x.shape, device="meta")
     else:
         seed = int(attrs.get("seed", 0) or 0)
-        gen = (
-            torch.Generator(device=x.device).manual_seed(seed)
-            if seed else ctx.device_generator
-        )
+        gen = ctx.seeded_generator(seed) if seed else ctx.device_generator
         u = torch.rand(x.shape, generator=gen, device=x.device)
     keep = u < (1.0 - p)
     mask = keep.to(x.dtype)

@@ -34,12 +34,13 @@ import numpy as np
 import torch
 
 from .. import flags as _flags
-from . import flash_attention, gemm_epilogue, layer_norm, multi_adam, quant_gemm
+from . import flash_attention, gemm_epilogue, layer_norm, multi_adam, paged_flash, quant_gemm
 from .registry import bcast_y, gather_op_inputs, register_fused, scatter_op_outputs
 
 __all__ = [
     "KERNEL_DISPATCHES",
     "adam_path_taken",
+    "counter_dicts",
     "gemm_path_taken",
     "ln_path_taken",
     "quant_gemm_path_taken",
@@ -71,6 +72,14 @@ def reset_stats():
     KERNEL_DISPATCHES.clear()
     for mod in _KERNEL_MODULES:
         mod.reset_kernel_launches()
+
+
+def counter_dicts():
+    """Every launch and dispatch counter of the package, as the dicts the
+    wrappers and fused lowerings increment (the paged kernels' among them):
+    a CUDA graph takes what its capture added back out, and adds it again
+    at every replay."""
+    return [KERNEL_DISPATCHES] + [m._LAUNCHES for m in _KERNEL_MODULES + (paged_flash,)]
 
 
 # ---------------------------------------------------------------------------
@@ -462,12 +471,20 @@ def _fused_multi_adam(ctx, ops, env):
                 memory_format=torch.contiguous_format))
         key = (p.dtype, g.dtype, m1.dtype, m2.dtype)
         by_dtype.setdefault(key, []).append((op, i, state, g.contiguous()))
-    for group in by_dtype.values():
-        idx = torch.tensor([r[1] for r in group], device=lr_t.device)
+    for dkey, group in by_dtype.items():
+        # a group's lr_t rows and pointer table are uploaded once, into the
+        # prepared block's cache, where a replayed CUDA graph finds them
+        cache = ctx.cache.setdefault(("multi_adam", id(ops[0]), dkey), {})
+        lr_g = lr_t
+        if len(group) != len(recs):
+            idx = cache.get("idx")
+            if idx is None:
+                idx = cache["idx"] = torch.tensor([r[1] for r in group], device=lr_t.device)
+            lr_g = lr_t[idx]
         multi_adam.multi_tensor_adam(
             [r[2][0] for r in group], [r[3] for r in group],
             [r[2][1] for r in group], [r[2][2] for r in group],
-            lr_t if len(group) == len(recs) else lr_t[idx], b1, b2, eps,
+            lr_g, b1, b2, eps, table_cache=cache.setdefault("table", {}),
         )
         for op, _, (po, m1o, m2o), _ in group:
             scatter_op_outputs(

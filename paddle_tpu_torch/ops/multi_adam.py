@@ -93,14 +93,52 @@ def multi_tensor_adam_plain(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilo
     return params, m1s, m2s
 
 
-def multi_tensor_adam(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon):
+def _table(dev, params, grads, m1s, m2s, chunk, cache):
+    """The kernel's device table (the four pointers, size, vector head and
+    first chunk of every tensor) and its chunk count. With a `cache` dict
+    (the caller's, e.g. a prepared block's) the table is uploaded once and
+    kept while the pointers, sizes and dtypes stay the same, and so is the
+    pinned buffer it is copied from: a CUDA graph captured over the upload
+    copies from that buffer at every replay, so it must outlive the graph."""
+    ptrs, sizes, heads, starts = [], [], [], [0]
+    for quad in zip(params, grads, m1s, m2s):
+        ptrs += [t.data_ptr() for t in quad]
+        sizes.append(quad[0].numel())
+        heads.append(_vector_head(quad))
+        starts.append(starts[-1] + -(-quad[0].numel() // chunk))
+    host = ptrs + sizes + heads + starts
+    key = (tuple(host), tuple(t[0].dtype for t in (params, grads, m1s)), dev)
+    cache = {} if cache is None else cache
+    if cache.get("key") == key:
+        return cache["table"], starts[-1]
+    capturing = torch.cuda.is_current_stream_capturing()
+    pinned = cache.get("pinned")
+    if pinned is None or pinned.numel() != len(host):
+        if capturing:
+            raise RuntimeError("multi_tensor_adam: the pinned table is made during a CUDA "
+                               "graph capture; run the step once before capturing it")
+        pinned = torch.empty(len(host), dtype=torch.int64, pin_memory=True)
+    elif not capturing:
+        # the buffer's last copy may still be queued (a capture began with a
+        # sync, so it needs none)
+        torch.cuda.current_stream(dev).synchronize()
+    pinned.copy_(torch.tensor(host, dtype=torch.int64))
+    table = pinned.to(dev, non_blocking=True)
+    cache.update(key=key, pinned=pinned, table=table)
+    return table, starts[-1]
+
+
+def multi_tensor_adam(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon,
+                      table_cache=None):
     """Fused Adam over a param group, in place: one kernel launch updates
     every (param, moment1, moment2). lr_ts are per-param f32 values with the
     bias correction applied (lr * sqrt(1 - beta2^t) / (1 - beta1^t)), as a
     1-D tensor on the params' device (computed there, no host sync) or a
     list. Params must share a dtype, as must grads and moments (the fused
-    lowering groups by dtype). Returns (params, m1s, m2s). CUDA tensors
-    launch the kernel; CPU tensors run multi_tensor_adam_plain."""
+    lowering groups by dtype). `table_cache`, a dict the caller keeps for
+    this group, holds the uploaded pointer table across calls (see _table).
+    Returns (params, m1s, m2s). CUDA tensors launch the kernel; CPU tensors
+    run multi_tensor_adam_plain."""
     n = len(params)
     if not (n == len(grads) == len(m1s) == len(m2s)):
         raise ValueError("multi_tensor_adam: %d params, %d grads, %d m1, %d m2"
@@ -125,20 +163,10 @@ def multi_tensor_adam(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon):
     if lr.numel() != n:
         raise ValueError("multi_tensor_adam: %d lr_t values for %d params" % (lr.numel(), n))
     lib = _build.load("multi_adam")
-    chunk = chunk_elems()
-    ptrs, sizes, heads, starts = [], [], [], [0]
-    for quad in zip(params, grads, m1s, m2s):
-        ptrs += [t.data_ptr() for t in quad]
-        sizes.append(quad[0].numel())
-        heads.append(_vector_head(quad))
-        starts.append(starts[-1] + -(-quad[0].numel() // chunk))
-    # the table rides a pinned buffer: the copy is queued on the stream, and
-    # the caching host allocator keeps the buffer until the copy has run
-    table = torch.tensor(ptrs + sizes + heads + starts, dtype=torch.int64).pin_memory()
-    table = table.to(dev, non_blocking=True)
+    table, n_chunks = _table(dev, params, grads, m1s, m2s, chunk_elems(), table_cache)
     with torch.cuda.device(dev):
         err = lib.multi_adam(
-            table.data_ptr(), lr.data_ptr(), n, starts[-1],
+            table.data_ptr(), lr.data_ptr(), n, n_chunks,
             _DTYPE_CODE[params[0].dtype], _DTYPE_CODE[grads[0].dtype],
             _DTYPE_CODE[m1s[0].dtype], float(beta1), float(1 - beta1), float(beta2),
             float(1 - beta2), float(epsilon), torch.cuda.current_stream(dev).cuda_stream,

@@ -201,7 +201,14 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
             % (tuple(block_table.shape), rows)
         )
     n_pages = block_table.shape[-1]
+    if torch.cuda.is_current_stream_capturing() and (
+            block_table.device != q.device or pos.device != q.device):
+        # a graph replays a host-to-device copy from the address it captured
+        raise ValueError("paged_flash: the block table and positions must be on %s "
+                         "during a CUDA graph capture, got %s and %s"
+                         % (q.device, block_table.device, pos.device))
     qc = q.contiguous()
+    # no-ops for the executor's feeds: int32 tensors on the card already
     bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     pv = pos.reshape(-1).to(device=q.device, dtype=torch.int32).contiguous()
     if pv.shape[0] != rows:

@@ -16,12 +16,18 @@ of paddle_tpu/serving/generation.py).
   token through `paged_attention`. Idle slots ride along pointing at the
   scratch page.
 
-Each variant is built once, at warmup(), as a Python callable over its
-lowered block; the hot loop only calls built variants, so it never rebuilds
-whatever the prompt/output length mix (`stats()["traces"]` counts builds and
-is the proof the smoke run asserts). The KV pools are preallocated on the
-device and every variant updates them in place (kv_cache_write's
-index_copy_), the torch form of the JAX package's donated pool buffers.
+Each variant is built once, at warmup(), as a callable over its lowered
+block. On the card it is captured there as a CUDA graph (the JAX engine
+compiles each variant at warmup): run once op by op and then captured, both
+on feeds that touch only the scratch page (every block table entry and
+position 0), so no real page is written; the hot loop replays the graphs,
+so it never rebuilds or captures again whatever the prompt/output length
+mix (`stats()["traces"]` counts the captures, on the CPU the builds, and is
+the proof the smoke run asserts). A variant first asked for after warmup
+is built and captured where it is asked for, on the scheduler thread. The
+KV pools are preallocated on the device and every variant updates them in
+place (kv_cache_write's index_copy_), the torch form of the JAX package's
+donated pool buffers.
 On a CUDA device paged_attention runs the hand-written kernels of
 ops/paged_flash.py, over f32 pools or, for a model with kv_dtype="int8",
 over int8 level pools with per-row f32 scale pools (about a quarter of the
@@ -368,26 +374,44 @@ class GenerationEngine:
             self._variants[kind] = v
             return v
 
-    def _build_variant(self, kind, main, feed_names, fetch_names):
-        with scope_guard(self.scope):
-            serve, ro, mut = aot_serve_lowering(
-                main, feed_names, fetch_names, self.scope, return_state=True
-            )
+    def _note_trace(self):
         self.traces += 1
         self._m_traces.inc()
-        return _Variant(serve, ro, sorted(mut), list(feed_names))
+
+    def _build_variant(self, kind, main, feed_names, fetch_names):
+        """Lower the variant's program and run it on scratch-only feeds (zero
+        tokens, positions and block tables: every row it writes lands in the
+        scratch page): on the card twice, the op-by-op warmup and then the
+        capture, on the CPU once."""
+        with scope_guard(self.scope):
+            serve, ro, mut = aot_serve_lowering(
+                main, feed_names, fetch_names, self.scope, return_state=True,
+                on_capture=self._note_trace,
+            )
+        v = _Variant(serve, ro, sorted(mut), list(feed_names))
+        block = main.global_block()
+        scratch = {n: np.zeros(block.var(n).shape, block.var(n).dtype) for n in feed_names}
+        cuda = self.device.type == "cuda"
+        for _ in range(2 if cuda else 1):
+            self._call(v, scratch)
+        if not cuda:
+            self._note_trace()
+        return v
 
     def warmup(self):
-        """Build the decode step and every prefill bucket. Returns the
-        variant count; after this the hot loop never builds."""
+        """Build the decode step and every prefill bucket (captured on the
+        card). Returns the variant count; after this the hot loop never
+        builds or captures."""
         self._variant("decode")
         for b in self.prefill_buckets:
             self._variant("prefill:%d" % b)
         return len(self._variants)
 
     def _call(self, variant, np_feeds):
-        """Run one variant; returns its fetches as host numpy arrays (the
-        copy back is the step's device sync)."""
+        """Run one variant (a graph replay on the card: the feeds are staged
+        into its static buffers); returns its fetches as host numpy arrays
+        (the copy back is the step's device sync, and ends before the next
+        replay can overwrite them)."""
         feeds = {n: np_feeds[n] for n in variant.feed_names}
         mut_in = {n: self._state[n] for n in variant.mut_names}
         fetches, new_mut = variant.fn(feeds, variant.ro, mut_in)

@@ -1,7 +1,7 @@
 """Where a generation step's time goes, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_generation [--steps 20] \
-        [--kv-dtype float32|int8] [--out profile_generation.json]
+        [--kv-dtype float32|int8] [--per-op] [--out profile_generation.json]
 
 Builds the GenerationEngine at chip_smoke.py's geometry (GPTDecoder at GPT-2
 small's widths, random weights from a seed, page_size 16, 1024 positions;
@@ -9,21 +9,27 @@ small's widths, random weights from a seed, page_size 16, 1024 positions;
 pools, the JAX package's int8-KV recipe), fills every slot with prompts of
 40-700 tokens (each length once per 8 slots), and then, for the two step
 kinds of the main path (a 32-row prefill chunk and a decode step over all
-slots), measures three steady windows, one per instrument:
+slots), measures steady windows, one per instrument, on the graph path
+(each step a replayed CUDA graph, captured at warmup):
 
 - bare: the step's host wall time (each step ends in the logits copy to
   the host, so it includes the device work);
-- op timer: the host time spent inside each op type's lowering, by timing
-  every lowering call (the executor interprets a block op by op, so this is
-  the launch cost of each op on the host);
 - torch.profiler: the device time of every kernel and copy, giving the
-  device's busy share of the bare wall time and the top kernels.
+  device's busy share of the bare wall time, the launches and the top
+  kernels.
+
+With --per-op the same two windows are also taken on the op-by-op path
+(FLAGS_profile_ops inside profiler.profiler(): every op lowered eagerly,
+with a device sync after each), and a third under the op timer: the host
+time spent inside each op type's lowering, by timing every lowering call.
 
 Prints one summary line per step kind and writes the whole breakdown as JSON.
 Exits non-zero without a CUDA device.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -45,7 +51,8 @@ SEED = 0
 
 class _OpTimer:
     """Wraps every registered lowering, and every fused family's lowering,
-    with a host clock; the totals are the host time each op type takes. A
+    with a host clock; the totals are the host time each op type takes on
+    the op-by-op path (a replayed graph calls no lowering). A
     lowering called from inside another (a generic grad replays its forward
     op's lowering under torch.func.vjp) counts toward the outer op only."""
 
@@ -106,16 +113,26 @@ def _walls(step, n_steps):
     return walls
 
 
-def profile_window(run, n_steps, registry, cuda=True):
-    """Three windows of `run()`, which runs n_steps steps and returns their
-    host walls in ms: bare (the wall time), under the op timer (the host
-    time of each op type) and under torch.profiler (the device time), so
-    that neither instrument inflates what the other reads. Returns the
-    breakdown per step."""
+@contextlib.contextmanager
+def op_by_op():
+    """The op-by-op path on the card: FLAGS_profile_ops set inside
+    profiler.profiler() (its per-op host table goes to a buffer)."""
+    from .. import flags, profiler
+
+    flags.set_flags({"profile_ops": True})
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            with profiler.profiler():
+                yield
+    finally:
+        flags.set_flags({"profile_ops": False})
+
+
+def _windows(run, n_steps, cuda):
+    """A bare window of `run()` and one under torch.profiler: the wall time
+    and the device time per step."""
     walls = run()
     wall_ms = float(np.median(walls))
-    with _OpTimer(registry) as ops:
-        timed_walls = run()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -128,8 +145,6 @@ def profile_window(run, n_steps, registry, cuda=True):
             k[0] += e.device_time_total / 1e3  # us -> ms
             k[1] += 1
     device_ms = sum(k[0] for k in kernels.values()) / n_steps
-    op_ms = sum(ops.ms.values()) / n_steps
-    timed_ms = sum(timed_walls) / n_steps
     by_time = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return {
         "steps": n_steps,
@@ -137,17 +152,6 @@ def profile_window(run, n_steps, registry, cuda=True):
         "wall_ms_min": float(np.min(walls)),
         "wall_ms_max": float(np.max(walls)),
         "wall_ms_total": float(np.sum(walls)),
-        # host time inside op lowerings, from the op-timer window; the rest
-        # of that window's wall is the executor's host work around them
-        # (feed copies, the fetch copy to the host that is the step's sync,
-        # and in serving the sampling)
-        "op_timer_wall_ms_mean": timed_ms,
-        "ops_host_ms_per_step": op_ms,
-        "outside_ops_ms_per_step": timed_ms - op_ms,
-        "op_host_ms_per_step": {
-            k: v / n_steps for k, v in sorted(ops.ms.items(), key=lambda kv: -kv[1])
-        },
-        "op_calls_per_step": {k: v / n_steps for k, v in sorted(ops.calls.items())},
         # device time (kernels and copies) from the profiler window, over
         # the bare window's wall p50
         "device_busy_ms_per_step": device_ms if kernels else None,
@@ -161,15 +165,47 @@ def profile_window(run, n_steps, registry, cuda=True):
     }
 
 
-def profile_steps(engine, step, n_steps, registry):
+def profile_window(run, n_steps, registry, cuda=True, per_op=False):
+    """Windows of `run()`, which runs n_steps steps and returns their host
+    walls in ms, so that no instrument inflates what another reads: bare
+    and under torch.profiler on the path the calls take (on the card, graph
+    replays); with per_op, the same two on the op-by-op path ("op_by_op")
+    and, there, one under the op timer (the host time of each op type).
+    Returns the breakdown per step."""
+    out = _windows(run, n_steps, cuda)
+    if per_op:
+        with op_by_op():
+            eager = _windows(run, n_steps, cuda)
+            with _OpTimer(registry) as ops:
+                timed_walls = run()
+        op_ms = sum(ops.ms.values()) / n_steps
+        timed_ms = sum(timed_walls) / n_steps
+        eager.update({
+            # host time inside op lowerings, from the op-timer window; the
+            # rest of that window's wall is the executor's host work around
+            # them (feed copies, the per-op syncs, the fetch copy to the
+            # host, and in serving the sampling)
+            "op_timer_wall_ms_mean": timed_ms,
+            "ops_host_ms_per_step": op_ms,
+            "outside_ops_ms_per_step": timed_ms - op_ms,
+            "op_host_ms_per_step": {
+                k: v / n_steps for k, v in sorted(ops.ms.items(), key=lambda kv: -kv[1])
+            },
+            "op_calls_per_step": {k: v / n_steps for k, v in sorted(ops.calls.items())},
+        })
+        out["op_by_op"] = eager
+    return out
+
+
+def profile_steps(engine, step, n_steps, registry, per_op=False):
     """profile_window over n_steps calls of `step()`, after 3 warm calls."""
     for _ in range(3):
         step()
     return profile_window(lambda: _walls(step, n_steps), n_steps, registry,
-                          cuda=engine.device.type == "cuda")
+                          cuda=engine.device.type == "cuda", per_op=per_op)
 
 
-def run(engine, n_steps, registry, seed=SEED, prompt_lens=PROMPT_LENS):
+def run(engine, n_steps, registry, seed=SEED, prompt_lens=PROMPT_LENS, per_op=False):
     """Fill every slot, then profile a prefill chunk of the engine's chunk
     size and a decode step over all slots."""
     from ..serving import GenRequest
@@ -177,8 +213,11 @@ def run(engine, n_steps, registry, seed=SEED, prompt_lens=PROMPT_LENS):
     rng = np.random.RandomState(seed)
     vocab = engine.model.vocab_size
     prompts = [rng.randint(2, vocab, size=n).tolist() for n in prompt_lens]
+    # decode steps a slot takes: 3 warm, n_steps a window (2 windows, 5
+    # with per_op), and a margin
+    n_new = 3 + (5 if per_op else 2) * n_steps + 8
     runs = [
-        engine.start(GenRequest(p, max_new_tokens=3 * n_steps + 8, eos_id=-1))
+        engine.start(GenRequest(p, max_new_tokens=n_new, eos_id=-1))
         for p in prompts[:engine.max_slots]
     ]
     try:
@@ -196,14 +235,14 @@ def run(engine, n_steps, registry, seed=SEED, prompt_lens=PROMPT_LENS):
             engine.prefill_step(pf_run)
 
         try:
-            out["prefill"] = profile_steps(engine, prefill_step, n_steps, registry)
+            out["prefill"] = profile_steps(engine, prefill_step, n_steps, registry, per_op)
         finally:
             engine.finish(pf_run)
-        runs.append(engine.start(GenRequest(prompts[-1], max_new_tokens=3 * n_steps + 8,
+        runs.append(engine.start(GenRequest(prompts[-1], max_new_tokens=n_new,
                                             eos_id=-1)))
         out["decode_slots"] = len(runs)
         out["decode"] = profile_steps(engine, lambda: engine.decode_step(runs),
-                                      n_steps, registry)
+                                      n_steps, registry, per_op)
     finally:
         for r in runs:
             engine.finish(r)
@@ -214,6 +253,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--kv-dtype", choices=("float32", "int8"), default="float32")
+    ap.add_argument("--per-op", action="store_true",
+                    help="also profile the op-by-op path (FLAGS_profile_ops under the profiler)")
     ap.add_argument("--out", default="profile_generation.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -231,20 +272,25 @@ def main(argv=None):
                               place=CUDAPlace(0), **geometry)
     engine.warmup()
     lens = PROMPT_LENS * (geometry["max_slots"] // len(PROMPT_LENS))
-    res = run(engine, args.steps, registry, prompt_lens=lens)
+    res = run(engine, args.steps, registry, prompt_lens=lens, per_op=args.per_op)
     res["card"] = card
     res["engine"] = dict(GPT2_SMALL, kv_dtype=args.kv_dtype, **geometry)
     for kind in ("prefill", "decode"):
         r = res[kind]
-        top_ops = list(r["op_host_ms_per_step"].items())[:5]
-        print("%s (%s KV): wall p50 %.3f ms; under the op timer %.3f ms, of it %.3f ms in op "
-              "lowerings (top %s); device busy %s ms a step (%s of the wall), %s "
-              "launches; card %s" % (
-                  kind, args.kv_dtype, r["wall_ms_p50"], r["op_timer_wall_ms_mean"],
-                  r["ops_host_ms_per_step"],
-                  ", ".join("%s %.3f" % kv for kv in top_ops),
-                  r["device_busy_ms_per_step"], r["device_busy_share"],
-                  r["device_launches_per_step"], card), flush=True)
+        print("%s (%s KV, graph): wall p50 %.3f ms; device busy %s ms a step (%s of the wall), "
+              "%s launches; card %s" % (
+                  kind, args.kv_dtype, r["wall_ms_p50"], r["device_busy_ms_per_step"],
+                  r["device_busy_share"], r["device_launches_per_step"], card), flush=True)
+        e = r.get("op_by_op")
+        if e is not None:
+            top_ops = list(e["op_host_ms_per_step"].items())[:5]
+            print("%s (%s KV, op by op): wall p50 %.3f ms; under the op timer %.3f ms, of it "
+                  "%.3f ms in op lowerings (top %s); device busy %s ms a step (%s of the "
+                  "wall), %s launches; card %s" % (
+                      kind, args.kv_dtype, e["wall_ms_p50"], e["op_timer_wall_ms_mean"],
+                      e["ops_host_ms_per_step"], ", ".join("%s %.3f" % kv for kv in top_ops),
+                      e["device_busy_ms_per_step"], e["device_busy_share"],
+                      e["device_launches_per_step"], card), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)

@@ -1,7 +1,7 @@
 """Where a training step's time goes, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_training [--steps 10] \
-        [--out profile_training.json]
+        [--per-op] [--out profile_training.json]
 
 Profiles the two training configurations, one after the other: the
 Transformer of models/transformer.py at the widths of Transformer base
@@ -18,21 +18,22 @@ under Adam; random weights from a seed.
   (attention-weight dropout is absent on the flash path by the model's
   design).
 Each step is one `Executor.run` under the training_fused pass pipeline that
-fetches the loss.
+fetches the loss: after two warm steps (the op-by-op warmup, then the
+capture) a replayed CUDA graph.
 
-It measures three steady windows per configuration, one per instrument:
-- bare: the step's host wall time (the loss fetch is the step's sync, so it
-  includes the device work), and the target tokens of all the steps over
-  their summed wall time;
-- op timer: the host time inside each op type's lowering and each fused
-  family's lowering (the executor interprets the block op by op, so this
-  is the launch cost of each op on the host);
-- torch.profiler: the device time of every kernel and copy, giving the
-  device's busy share of the bare wall time and the top kernels.
+It measures steady windows per configuration, one per instrument
+(tools/profile_generation.py profile_window): bare (the step's host wall,
+which includes the device work since the loss fetch is the step's sync,
+and the target tokens of all the steps over their summed wall) and under
+torch.profiler (the device time of every kernel and copy: the device's
+busy share of the bare wall, the launches and the top kernels). With
+--per-op, the same two and one under the op timer (the host time inside
+each op type's lowering and each fused family's lowering) on the op-by-op
+path: FLAGS_profile_ops inside profiler.profiler().
 
-Prints one summary line per configuration and writes both breakdowns as
-JSON, under the configurations' names. Exits non-zero without a CUDA
-device.
+Prints one summary line per configuration and path and writes both
+breakdowns as JSON, under the configurations' names. Exits non-zero
+without a CUDA device.
 """
 
 import argparse
@@ -123,7 +124,7 @@ def target_tokens(batch):
     return int(batch["lbl_weight"].sum())
 
 
-def profile_steps(step, batches, registry):
+def profile_steps(step, batches, registry, per_op=False):
     """profile_window (tools/profile_generation.py) over one `step(batch)`
     per batch. Returns the breakdown per step."""
 
@@ -135,12 +136,16 @@ def profile_steps(step, batches, registry):
             walls.append((time.perf_counter() - t0) * 1e3)
         return walls
 
-    return profile_window(run, len(batches), registry)
+    return profile_window(run, len(batches), registry, per_op=per_op)
 
 
-def profile_config(name, cfg, steps, card):
+def _tokens_per_s(res, tokens):
+    return tokens / (res["wall_ms_total"] / 1e3)
+
+
+def profile_config(name, cfg, steps, card, per_op=False):
     """The breakdown of `steps` steady training steps of one configuration
-    (after two that apply the pipeline and prepare the block)."""
+    (after two that apply the pipeline, prepare the block and capture it)."""
     from .. import CUDAPlace, Executor, Scope, flags, scope_guard
     from ..ops import registry
 
@@ -157,27 +162,37 @@ def profile_config(name, cfg, steps, card):
     with scope_guard(scope):
         exe.run(startup)
         for b in batches[:2]:
-            step(b)  # the first run applies the pipeline and prepares the block
+            step(b)  # the op-by-op warmup (which applies the pipeline), then the capture
         torch.cuda.synchronize()
-        res = profile_steps(step, batches, registry)
+        res = profile_steps(step, batches, registry, per_op)
     tokens = sum(target_tokens(b) for b in batches)
     res.update(card=card, pipeline=PIPELINE, config=cfg,
                target_tokens_per_step=tokens / len(batches),
-               target_tokens_per_s=tokens / (res["wall_ms_total"] / 1e3))
-    top_ops = list(res["op_host_ms_per_step"].items())[:6]
-    print("train step %s (%s): wall p50 %.3f ms; %.0f target tokens/s over the %d steps; "
-          "under the op timer %.3f ms, of it %.3f ms in op lowerings (top %s); device busy "
-          "%.3f ms a step (%.3f of the wall p50), %s launches; card %s" % (
+               target_tokens_per_s=_tokens_per_s(res, tokens))
+    print("train step %s (%s, graph): wall p50 %.3f ms; %.0f target tokens/s over the %d "
+          "steps; device busy %.3f ms a step (%.3f of the wall p50), %s launches; card %s" % (
               name, PIPELINE, res["wall_ms_p50"], res["target_tokens_per_s"], len(batches),
-              res["op_timer_wall_ms_mean"], res["ops_host_ms_per_step"],
-              ", ".join("%s %.3f" % kv for kv in top_ops), res["device_busy_ms_per_step"],
-              res["device_busy_share"], res["device_launches_per_step"], card), flush=True)
+              res["device_busy_ms_per_step"], res["device_busy_share"],
+              res["device_launches_per_step"], card), flush=True)
+    e = res.get("op_by_op")
+    if e is not None:
+        e["target_tokens_per_s"] = _tokens_per_s(e, tokens)
+        top_ops = list(e["op_host_ms_per_step"].items())[:6]
+        print("train step %s (%s, op by op): wall p50 %.3f ms; %.0f target tokens/s; under the "
+              "op timer %.3f ms, of it %.3f ms in op lowerings (top %s); device busy %.3f ms a "
+              "step (%.3f of the wall p50), %s launches; card %s" % (
+                  name, PIPELINE, e["wall_ms_p50"], e["target_tokens_per_s"],
+                  e["op_timer_wall_ms_mean"], e["ops_host_ms_per_step"],
+                  ", ".join("%s %.3f" % kv for kv in top_ops), e["device_busy_ms_per_step"],
+                  e["device_busy_share"], e["device_launches_per_step"], card), flush=True)
     return res
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--per-op", action="store_true",
+                    help="also profile the op-by-op path (FLAGS_profile_ops under the profiler)")
     ap.add_argument("--out", default="profile_training.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -186,7 +201,7 @@ def main(argv=None):
     card = card_line()
     res = {}
     for name, cfg in CONFIGS.items():
-        res[name] = profile_config(name, cfg, args.steps, card)
+        res[name] = profile_config(name, cfg, args.steps, card, args.per_op)
         torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

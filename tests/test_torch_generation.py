@@ -212,3 +212,80 @@ def test_wide_head_logits_and_greedy_tokens_match_jax_engine(wide_engines, promp
     for step, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL, err_msg="step %d" % step)
     assert got_tokens == want_tokens
+
+
+# ---- warmup on scratch-only feeds, prefix hits and seeded sampling --------
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_warmup_writes_only_the_scratch_page(kv_dtype):
+    """warmup() runs every variant on feeds whose rows all land in the
+    scratch page (page 0): every other page of every pool is untouched
+    (f32 levels 0; int8 levels 0 and scales 1.0)."""
+    eng = GenerationEngine(GPTDecoder(kv_dtype=kv_dtype, **MODEL_KW), name="tt_scratch",
+                           place=CPUPlace(), **ENGINE_KW)
+    eng.warmup()
+    ps = eng.page_size
+    wrote_scratch = False
+    for name, pool in eng._state.items():
+        fresh = 1.0 if pool.dim() == 1 else 0.0  # the scale pools start at 1.0
+        assert np.all(pool[ps:].numpy() == fresh), name
+        wrote_scratch |= bool(np.any(pool[:ps].numpy() != fresh))
+    assert wrote_scratch, "warmup ran no variant"
+    assert eng.traces == len(eng._variants) == 1 + len(eng.prefill_buckets)
+
+
+def _serve_pages_hit(eng, req_cls, prompt, n_new):
+    """(tokens, pages taken from the prefix cache) of one request run
+    alone."""
+    run = eng.admit(req_cls(prompt, max_new_tokens=n_new, eos_id=NO_EOS))
+    hit = run.pf_pos // eng.page_size
+    try:
+        while not eng.prefill_step(run):
+            pass
+        while not run.done:
+            eng.decode_step([run])
+    finally:
+        eng.finish(run)
+    return list(run.tokens), hit
+
+
+def test_prefix_hit_prompt_served_twice_matches_jax_engine(engines):
+    """One 9-token prompt served twice: the second admission takes its two
+    full pages (page_size 4) from the prefix cache on both sides, and both
+    passes give the JAX engine's tokens."""
+    jeng, peng = engines
+    prompt = [21, 3, 17, 5, 8, 13, 1, 22, 6]
+    got = [_serve_pages_hit(peng, GenRequest, prompt, 4) for _ in range(2)]
+    want = [_serve_pages_hit(jeng, JaxGenRequest, prompt, 4) for _ in range(2)]
+    assert got == want
+    assert [hit for _, hit in got] == [0, 2]
+
+
+@pytest.mark.parametrize("kw", [dict(temperature=0.8, seed=7),
+                                dict(temperature=1.3, top_k=5, seed=11)],
+                         ids=["t0.8_seed7", "t1.3_topk5_seed11"])
+def test_seeded_sampling_matches_jax_engine(engines, kw):
+    jeng, peng = engines
+    prompt = [4, 9, 1, 13, 2]
+    want = jeng.generate(prompt, max_new_tokens=6, eos_id=NO_EOS, **kw).tokens
+    got = peng.generate(prompt, max_new_tokens=6, eos_id=NO_EOS, **kw).tokens
+    assert got == want
+
+
+def test_default_seed_sampling_matches_jax_engine():
+    """Temperature 0.9 with no seed: each engine draws from (scope seed, its
+    count of unseeded requests), so two fresh engines on the same weights
+    give the same tokens."""
+    jeng = JaxEngine(JaxGPTDecoder(**MODEL_KW), name="tt_seed_jax", cache_dir=None,
+                     **ENGINE_KW)
+    jeng.warmup()
+    model = GPTDecoder(**MODEL_KW)
+    peng = GenerationEngine(model, name="tt_seed_port", place=CPUPlace(), **ENGINE_KW)
+    peng.warmup()
+    arrays = {n: np.asarray(jeng.scope.vars[n]) for n in model.param_names()}
+    convert.load_into_scope(peng.scope, arrays, model.param_names())
+    for prompt in ([3, 7, 11, 2, 9], [1, 2]):
+        want = jeng.generate(prompt, max_new_tokens=6, eos_id=NO_EOS, temperature=0.9).tokens
+        got = peng.generate(prompt, max_new_tokens=6, eos_id=NO_EOS, temperature=0.9).tokens
+        assert got == want
