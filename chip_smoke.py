@@ -78,7 +78,10 @@ Phases, each printing its own line; any failure exits non-zero:
   training steps from one seed give the same losses bit for bit, with the
   same launches and dispatches a step. Both paths' decode and prefill
   p50, tokens/s, step p50 and target tokens/s (and a training step's
-  device busy time) are printed, and gathered in one `paths` JSON line;
+  device busy time) are printed, and gathered in one `paths` JSON line,
+  with the memory the card reserves after the serving engine's warmup and
+  after each training phase's graph steps (graphs of one engine or one
+  executor share one memory pool);
   3. serving: a GenerationEngine over GPTDecoder at GPT-2 small's widths
      (12 layers, 12 heads, d_model 768, d_inner 3072, vocab 50257, 1024
      positions; random weights from a seed), warmup(), then a
@@ -147,6 +150,7 @@ import time
 import numpy as np
 
 SEED = 0
+GIB = float(1 << 30)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores, NVIDIA data sheet
@@ -2478,13 +2482,15 @@ def _train_fused(torch, cfg, card, label, readings):
     losses, walls, scope, step, deltas = _train_run(
         torch, main_prog, startup, loss, batches, "training_fused", fused, _launch_check(cfg))
     launches = fused.stats()["launches"]  # and closes here
+    reserved = torch.cuda.memory_reserved() / GIB  # the scope, its graph and the pool
     log("%s: Transformer base %s, %d Adam ops, built and initialised in %.1f s" % (
         label, json.dumps(cfg), n_adam, time.perf_counter() - t0))
     # steps 3-6 replay the graph (step 1 runs op by op and applies the pass
     # pipeline, step 2 captures)
     tokens = sum(prof.target_tokens(b) for b in batches[2:])
     graph = {"step_p50_ms": float(np.median(walls[2:])),
-             "target_tokens_per_s": tokens / (sum(walls[2:]) / 1e3)}
+             "target_tokens_per_s": tokens / (sum(walls[2:]) / 1e3),
+             "memory_reserved_gib_after_graph_steps": reserved}
     breakdown = prof.profile_steps(step, batches[:2], registry, per_op=True)
     del scope, step
     torch.cuda.empty_cache()
@@ -2524,12 +2530,12 @@ def _train_fused(torch, cfg, card, label, readings):
         "with the pass pipeline %.1f ms, step 2 captured %.1f ms); %.1f target tokens/s (their "
         "target tokens over their summed wall); device busy %s ms a step = %s of the wall p50 of "
         "the profiled window (%.3f ms), %s device launches a step; kernel launches %s (per step "
-        "%s); card %s" % (
+        "%s); memory reserved after the graph steps %.4f GiB; card %s" % (
             label, TRAIN_STEPS, ["%.6f" % v for v in losses], graph["step_p50_ms"], TRAIN_STEPS,
             walls[0], walls[1], graph["target_tokens_per_s"], breakdown["device_busy_ms_per_step"],
             breakdown["device_busy_share"], breakdown["wall_ms_p50"],
             breakdown["device_launches_per_step"], json.dumps(launches),
-            json.dumps(dict(fused_want, **flash_want)), card))
+            json.dumps(dict(fused_want, **flash_want)), reserved, card))
     log("%s, op by op: %d steps from the same seed, losses %s bit for bit the graph path's, the "
         "same launches and dispatches a step; step wall p50 %.3f ms over steps 2-%d; %.1f target "
         "tokens/s; device busy %s ms a step, %s device launches a step; card %s" % (
@@ -2655,15 +2661,22 @@ def main():
         kernels.update(time_paged_wide(torch, pf, device, flush))
         kernels.update(check_quant_gemm(torch, device, flush))
         del flush
+    torch.cuda.empty_cache()
     with Phase("serve"):
         t0 = time.perf_counter()
         engine = GenerationEngine(GPTDecoder(**GPT2_SMALL), name="gpt2_small",
                                   place=CUDAPlace(0), **ENGINE)
+        before = torch.cuda.memory_reserved(device) / GIB
         n = engine.warmup()
         torch.cuda.synchronize()
+        after = torch.cuda.memory_reserved(device) / GIB
         log("engine: %d variants built and captured, params + pools ready in %.1f s; KV pools "
-            "%.3f GB" % (n, time.perf_counter() - t0, engine.kv_state_bytes / 1e9))
+            "%.3f GB; memory reserved %.4f GiB with params and pools, %.4f GiB after warmup "
+            "(the variants' graphs share one pool); card %s" % (
+                n, time.perf_counter() - t0, engine.kv_state_bytes / 1e9, before, after, card))
         launches = serve(torch, pf, engine, card, paths)
+        paths["serve"]["graph"].update(memory_reserved_gib_before_warmup=before,
+                                       memory_reserved_gib_after_warmup=after)
     with Phase("paged vs dense"):
         paged_vs_dense(torch, engine)
     with Phase("serve int8 KV"):

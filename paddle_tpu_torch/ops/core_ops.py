@@ -35,23 +35,27 @@ def _shape(attrs):
     return [int(s) for s in attrs["shape"]]
 
 
-def _generator(ctx, attrs):
-    """The op's own generator when it pins a seed, else the run's."""
-    seed = int(attrs.get("seed", 0) or 0)
-    if seed:
-        return torch.Generator().manual_seed(seed)
-    return ctx.generator
-
-
 def _random(ctx, attrs, sample):
-    """Draw `sample(shape, generator)` on the CPU in f32 and move it to the
-    run's device: a seed gives the same values on every device. Shape
+    """Fill an f32 tensor by `sample(t, generator)` and cast it. In a
+    startup program (ctx.host_random) t lies on the CPU and the values move
+    to the run's device, so a seed gives the same parameters on every
+    device; the generator is the run's, or a new one when the op pins a
+    seed. In any other block t lies on the run's device and the generator
+    is the run's device generator, or the op's own when it pins a seed
+    (restarted every run), as for dropout: a replayed CUDA graph draws
+    fresh values there, where a host draw could not be copied in. Shape
     inference (meta device) draws nothing."""
     shape = _shape(attrs)
     dt = torch_dtype(attrs.get("dtype", "float32"))
     if ctx.device.type == "meta":
         return {"Out": [torch.empty(shape, dtype=dt, device="meta")]}
-    out = sample(shape, _generator(ctx, attrs))
+    seed = int(attrs.get("seed", 0) or 0)
+    if ctx.host_random:
+        gen = torch.Generator().manual_seed(seed) if seed else ctx.generator
+        out = sample(torch.empty(shape), gen)
+    else:
+        gen = ctx.seeded_generator(seed) if seed else ctx.device_generator
+        out = sample(torch.empty(shape, device=ctx.device), gen)
     return {"Out": [out.to(device=ctx.device, dtype=dt)]}
 
 
@@ -73,7 +77,7 @@ def _uniform_random(ctx, ins, attrs):
     lo, hi = float(attrs.get("min", -1.0)), float(attrs.get("max", 1.0))
     return _random(
         ctx, attrs,
-        lambda shape, g: torch.empty(shape).uniform_(lo, hi, generator=g),
+        lambda t, g: t.uniform_(lo, hi, generator=g),
     )
 
 
@@ -82,7 +86,7 @@ def _gaussian_random(ctx, ins, attrs):
     mean, std = float(attrs.get("mean", 0.0)), float(attrs.get("std", 1.0))
     return _random(
         ctx, attrs,
-        lambda shape, g: torch.empty(shape).normal_(mean, std, generator=g),
+        lambda t, g: t.normal_(mean, std, generator=g),
     )
 
 
@@ -93,8 +97,8 @@ def _truncated_gaussian_random(ctx, ins, attrs):
     mean, std = float(attrs.get("mean", 0.0)), float(attrs.get("std", 1.0))
     return _random(
         ctx, attrs,
-        lambda shape, g: mean + std * torch.nn.init.trunc_normal_(
-            torch.empty(shape), 0.0, 1.0, -2.0, 2.0, generator=g
+        lambda t, g: mean + std * torch.nn.init.trunc_normal_(
+            t, 0.0, 1.0, -2.0, 2.0, generator=g
         ),
     )
 

@@ -667,7 +667,7 @@ class InplaceDonationPlanPass(Pass):
     rewrites (written back to the scope, or updated in place) vs reads only
     — as a pass over the graph (reference memory/inplace_op_pass +
     build_strategy memory planning). The plan rides the emitted program
-    (`program._donation_plan`); executor._CompiledBlock cross-checks its own
+    (`program._donation_plan`); executor._PerOpProfiledBlock cross-checks its
     classification against it and raises on divergence."""
 
     def apply(self, graph, ctx):

@@ -25,7 +25,8 @@ so it never rebuilds or captures again whatever the prompt/output length
 mix (`stats()["traces"]` counts the captures, on the CPU the builds, and is
 the proof the smoke run asserts). A variant first asked for after warmup
 is built and captured where it is asked for, on the scheduler thread. The
-KV pools are preallocated on the device and every variant updates them in
+graphs share one memory pool: each call's fetches are copied to the host
+before the next replay. The KV pools are preallocated on the device and every variant updates them in
 place (kv_cache_write's index_copy_), the torch form of the JAX package's
 donated pool buffers.
 On a CUDA device paged_attention runs the hand-written kernels of
@@ -230,6 +231,9 @@ class GenerationEngine:
             raise ValueError("scope lives on %s, not on %r" % (scope.device, place))
         self.scope = scope
         self.device = scope.device
+        # the memory pool every variant's graph captures into
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
         model.ensure_params(self.scope, self.device)
         pool_rows = self.pool_pages * self.page_size
         self.kv_dtype = kv_dtype
@@ -277,7 +281,6 @@ class GenerationEngine:
         self._variants = {}
         self._build_lock = threading.Lock()
         self._sample_counter = 0
-        self.traces = 0
         self.tokens_generated = 0
 
         from ..observability import registry as _registry
@@ -374,9 +377,14 @@ class GenerationEngine:
             self._variants[kind] = v
             return v
 
-    def _note_trace(self):
-        self.traces += 1
-        self._m_traces.inc()
+    @property
+    def traces(self):
+        """Variants captured on the card (a lowering-flag flip captures a
+        variant again: the JAX engine's compile-cache misses), built on the
+        CPU."""
+        if self.device.type != "cuda":
+            return len(self._variants)
+        return sum(v.fn.captures() for v in self._variants.values())
 
     def _build_variant(self, kind, main, feed_names, fetch_names):
         """Lower the variant's program and run it on scratch-only feeds (zero
@@ -386,7 +394,7 @@ class GenerationEngine:
         with scope_guard(self.scope):
             serve, ro, mut = aot_serve_lowering(
                 main, feed_names, fetch_names, self.scope, return_state=True,
-                on_capture=self._note_trace,
+                graph_pool=self._graph_pool,
             )
         v = _Variant(serve, ro, sorted(mut), list(feed_names))
         block = main.global_block()
@@ -395,7 +403,7 @@ class GenerationEngine:
         for _ in range(2 if cuda else 1):
             self._call(v, scratch)
         if not cuda:
-            self._note_trace()
+            self._m_traces.inc()
         return v
 
     def warmup(self):
@@ -414,7 +422,10 @@ class GenerationEngine:
         replay can overwrite them)."""
         feeds = {n: np_feeds[n] for n in variant.feed_names}
         mut_in = {n: self._state[n] for n in variant.mut_names}
+        captured = variant.fn.captures()
         fetches, new_mut = variant.fn(feeds, variant.ro, mut_in)
+        if variant.fn.captures() != captured:
+            self._m_traces.inc(variant.fn.captures() - captured)
         self._state.update(new_mut)
         return [f.cpu().numpy() for f in fetches]
 

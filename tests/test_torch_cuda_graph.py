@@ -1,5 +1,5 @@
 """The executor's compile step on the card (paddle_tpu_torch/executor.py
-_CompiledBlock / _GraphedServe): a block captured as a CUDA graph and
+_CompiledBlock / _ServeBlock): a block captured as a CUDA graph and
 replayed against the same block run op by op (the profiler with
 FLAGS_profile_ops), at small widths. Every case needs a CUDA card and is
 marked `cuda`; on the card they run with
@@ -16,7 +16,12 @@ What is held, and how:
 - a paged_flash flip takes a graph of its own;
 - a parameter rebound in the scope between steps is followed as the
   op-by-op path follows it, and a rebinding of another shape raises;
-- return_numpy=False fetches are not overwritten by the next replay.
+- return_numpy=False fetches are not overwritten by the next replay;
+- random ops in a main program draw fresh values at every replay, the
+  same as op by op, and a pinned seed the same values;
+- the graphs of one executor (several feed shapes) and of one engine share
+  one memory pool, and interleaved replays still match op by op;
+- use_program_cache=False reaches a graph on the card as well.
 Both sides run the same kernels in the same order, so bit identity is the
 contract; a library call that differed under capture would be named here
 with its tolerance.
@@ -119,6 +124,9 @@ def test_serving_graph_matches_op_by_op(cuda_device, kv_dtype):
     with op_by_op():
         want = _serve_mix(eager_eng)
     assert graph_eng.traces == traces, "a variant was captured again"
+    pools = {c.graph.graph.pool() for v in graph_eng._variants.values()
+             for c in v.fn.compiled.values()}
+    assert len(pools) == 1, "the variants capture into one memory pool"
     assert len(got) == len(want)
     kinds = set()
     for i, ((g, gl), (w, wl)) in enumerate(zip(got, want)):
@@ -275,3 +283,74 @@ def test_return_numpy_false_fetches_survive_the_next_replay(cuda_device):
     assert len({float(v.reshape(-1)[0]) for v in seen}) == 5, "the loss did not move"
     for lv, v in zip(held, seen):
         assert np.array_equal(lv.cpu().numpy(), v)
+
+
+def _noise_program():
+    """(main, [x + gaussian noise, uniform noise with a pinned seed])."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[4, 8], dtype="float32", append_batch_size=False)
+        noise = pt.layers.gaussian_random([4, 8], mean=1.0, std=2.0)
+        pinned = pt.layers.uniform_random([4, 8], min=-1.0, max=1.0, seed=7)
+        out = pt.layers.elementwise_add(x, noise)
+    return main, [out, pinned]
+
+
+def _captured(exe):
+    return [c for c in exe._cache.values() if getattr(c, "graph", None) is not None]
+
+
+@pytest.mark.cuda
+def test_main_program_random_ops_graph_matches_op_by_op(cuda_device):
+    main, outs = _noise_program()
+    x = np.random.RandomState(0).rand(4, 8).astype("float32")
+    runs = []
+    for per_op in (False, True):
+        scope, exe = pt.Scope(seed=5, place=CUDAPlace(0)), pt.Executor(CUDAPlace(0))
+        with (op_by_op() if per_op else contextlib.nullcontext()), pt.scope_guard(scope):
+            runs.append([exe.run(main, feed={"x": x}, fetch_list=outs) for _ in range(3)])
+        if not per_op:
+            assert len(_captured(exe)) == 1
+    graph, eager = runs
+    for s, (g, e) in enumerate(zip(graph, eager)):
+        for a, b in zip(g, e):
+            assert np.array_equal(a, b), "step %d" % s
+    noise = [step[0] for step in graph]
+    assert not np.array_equal(noise[0], noise[1]) and not np.array_equal(noise[1], noise[2])
+    assert all(np.array_equal(step[1], graph[0][1]) for step in graph)
+
+
+@pytest.mark.cuda
+def test_executor_graphs_share_one_pool(cuda_device):
+    main, startup, loss = _tiny_program()
+    rng = np.random.RandomState(2)
+    feeds = [rng.rand(rows, 64).astype("float32") for rows in (16, 8, 16, 8, 16, 8, 16, 8)]
+    runs = []
+    for per_op in (False, True):
+        scope, exe = pt.Scope(seed=0, place=CUDAPlace(0)), pt.Executor(CUDAPlace(0))
+        with (op_by_op() if per_op else contextlib.nullcontext()), pt.scope_guard(scope):
+            exe.run(startup)
+            runs.append([exe.run(main, feed={"x": f}, fetch_list=[loss])[0] for f in feeds])
+        if not per_op:
+            graphs = _captured(exe)
+            assert len(graphs) == 2
+            assert graphs[0].graph.graph.pool() == graphs[1].graph.graph.pool()
+    for s, (g, e) in enumerate(zip(*runs)):
+        assert np.array_equal(g, e), "step %d" % s
+
+
+@pytest.mark.cuda
+def test_no_program_cache_still_replays(cuda_device):
+    main, startup, loss = _tiny_program()
+    x = np.random.RandomState(1).rand(16, 64).astype("float32")
+    runs = []
+    for per_op in (False, True):
+        scope, exe = pt.Scope(seed=0, place=CUDAPlace(0)), pt.Executor(CUDAPlace(0))
+        with (op_by_op() if per_op else contextlib.nullcontext()), pt.scope_guard(scope):
+            exe.run(startup)
+            runs.append([exe.run(main, feed={"x": x}, fetch_list=[loss],
+                                 use_program_cache=False)[0] for _ in range(4)])
+        if not per_op:
+            assert len(_captured(exe)) == 1
+    for s, (g, e) in enumerate(zip(*runs)):
+        assert np.array_equal(g, e), "step %d" % s

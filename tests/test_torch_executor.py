@@ -16,6 +16,10 @@ flags.py, profiler.py) against the JAX package, on the CPU.
   (nesting names, no-op when off, a stop in mid event, the sort keys).
 - Under profiler() with FLAGS_profile_ops the op-by-op block, with an event
   per op, gives the same fetches as the normal run, bit for bit.
+- Random ops in a main program draw on the run's device from the scope's
+  device generator (the form a CUDA graph replays), fresh every step, and
+  the same every step where the op pins a seed; the host generator, which
+  a startup program draws from, is left alone.
 """
 
 import contextlib
@@ -255,3 +259,45 @@ def test_feed_shapes_key_the_block_cache():
             feed = {"x": np.ones((rows, 16), "float32"), "y": np.ones((rows, 1), "float32")}
             assert np.isfinite(exe.run(main, feed=feed, fetch_list=[loss])[0]).all()
     assert len(exe._cache) == 3  # the startup block and one block a feed shape
+
+
+def _noise_program():
+    """(main, [x + gaussian noise, uniform noise with a pinned seed]): a
+    main program that draws random numbers every run."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[4, 8], dtype="float32", append_batch_size=False)
+        noise = pt.layers.gaussian_random([4, 8], mean=1.0, std=2.0)
+        pinned = pt.layers.uniform_random([4, 8], min=-1.0, max=1.0, seed=7)
+        out = pt.layers.elementwise_add(x, noise)
+    return main, [out, pinned]
+
+
+@pytest.mark.parametrize("use_program_cache", [True, False])
+def test_main_program_random_ops_draw_from_the_device_generator(use_program_cache):
+    """Outside a startup program the random ops draw on the run's device
+    from the scope's device generator (the form a CUDA graph replays): fresh
+    values every step, the same sequence from the same seed, and the same
+    values every step where the op pins a seed."""
+    main, outs = _noise_program()
+    x = np.zeros((4, 8), "float32")
+    runs = []
+    for _ in range(2):
+        scope, exe = pt.Scope(seed=5, place=pt.CPUPlace()), pt.Executor(pt.CPUPlace())
+        with pt.scope_guard(scope):
+            runs.append([exe.run(main, feed={"x": x}, fetch_list=outs,
+                                 use_program_cache=use_program_cache) for _ in range(3)])
+        # the host generator, a startup program's, drew nothing
+        assert torch.equal(scope.generator.get_state(),
+                           torch.Generator().manual_seed(5).get_state())
+    first, again = runs
+    for a, b in zip(first, again):
+        assert all(np.array_equal(u, v) for u, v in zip(a, b))
+    noise = [step[0] for step in first]
+    pinned = [step[1] for step in first]
+    want = torch.empty(4, 8).normal_(1.0, 2.0, generator=torch.Generator().manual_seed(5))
+    np.testing.assert_array_equal(noise[0], want.numpy())
+    assert not np.array_equal(noise[0], noise[1]) and not np.array_equal(noise[1], noise[2])
+    assert all(np.array_equal(p, pinned[0]) for p in pinned)
+    assert pinned[0].min() >= -1.0 and pinned[0].max() <= 1.0
+    assert not np.array_equal(pinned[0], noise[0])
