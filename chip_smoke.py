@@ -133,8 +133,35 @@ Phases, each printing its own line; any failure exits non-zero:
      kernels' counts, and the same readings;
      then flash against dense (bias feeds at full length) on the same
      weights at dropout 0 for 3 steps, losses within rtol 2e-3, atol 2e-4;
-  7. the `paths` JSON line, then a `kernels` JSON line (launches on the
-     graph path, error, times, bound per kernel).
+  7. train lenet: the fluid book script through paddle_tpu_torch.fluid
+     (tests/test_mnist.py, tests/test_book.py): batch(reader.shuffle(
+     dataset.mnist.train(), 500), 64) into a DataFeeder, LeNet-5
+     (models/lenet.py) under Adam 1e-3 and training_fused for 60 graph
+     steps, every step 3 GEMM epilogue launches (the fc chains, k = 400,
+     120, 84) and 1 multi_adam launch; the last 5 losses under 0.7x the
+     first 5 and accuracy above 0.5 (tests/test_mnist.py:64-67); the first
+     3 losses against an unfused run (rtol 2e-3, atol 2e-4) and against the
+     op-by-op path (bit for bit, the same launches and dispatches a step);
+     then at batch 16 the for_test clone (op by op, captured, replayed: the
+     same bits), save_persistables / load_persistables into a fresh scope
+     (the same test loss and logits bit for bit) and save_inference_model /
+     load_inference_model (the same logits);
+  8. train resnet50: ResNet-50 at its published widths (He et al. 2016,
+     Table 1: bottlenecks [3, 4, 6, 3], filters 64-512 (x4), 3 x 224 x 224,
+     1000 classes; random weights from a seed) under Momentum(0.1, 0.9),
+     f32, batch 256 (bench.py:23-39), synthetic batches staged on the card,
+     under training_fused: the warmup and the capture, then 6 graph steps,
+     every loss finite and no hand-written kernel launched (the one fc, n =
+     1000, is declined by the GEMM epilogue's block rule, as in the JAX
+     package); the first 3 steps op by op from the same weights give the
+     same losses and running means and variances bit for bit (cuDNN
+     restricted to deterministic algorithms); images/s, step wall p50,
+     device busy share and launches a step, memory reserved, and the
+     device time split by op type (convolution forward, dgrad and wgrad,
+     batch_norm forward and backward, pooling, momentum, elementwise, fc);
+  9. the `paths` JSON line, then a `kernels` JSON line (launches on the
+     graph path, error, times, bound per kernel; gemm_epilogue and
+     multi_adam count the Transformer's and LeNet's steps).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -2376,45 +2403,64 @@ def _counter_delta(before, after):
             for kind in after for k in after[kind] if after[kind][k] != before[kind].get(k, 0)}
 
 
-def _train_run(torch, main_prog, startup, loss, batches, pipeline, fused, step_check,
-               init=None, per_op=False):
-    """Steps of the training program from a fresh scope seeded with SEED
-    under `pipeline`, its startup state overwritten by name from `init`
-    where given, on the graph path (step 1 op by op, step 2 captured and
-    replayed, the rest replayed) or, with per_op, on the op-by-op path;
-    returns (losses, walls, scope, step, each step's counter deltas)."""
+def _fluid_run(torch, model, feeds, pipeline, fetch, per_op=False, check=None, after=None,
+               init=None):
+    """One step of `model["main"]` per feed dict (a list, or an iterator
+    that makes them, here the reader and the DataFeeder) from a fresh scope
+    seeded with SEED, its startup state overwritten by name from `init`
+    where given, under `pipeline`, on the graph path (call 1 op by op,
+    call 2 captured and replayed, the rest replayed) or with per_op on the
+    op-by-op path. `check(i, before, after)` sees each step's counters and
+    `after(i, scope)` the scope after each step. Returns (fetches a step,
+    walls, counter deltas a step, the feeds, step, scope)."""
     from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
+    from paddle_tpu_torch.ops import fused
 
     flags.set_flags({"pass_pipeline": pipeline})
     place = CUDAPlace(0)
     scope, exe = Scope(seed=SEED, place=place), Executor(place)
+    names = [v.name for v in fetch]
 
-    def step(batch):
+    def step(feed):
         with scope_guard(scope):
-            (lv,) = exe.run(main_prog, feed=batch, fetch_list=[loss.name])
-        return lv.reshape(-1)[0]
+            return exe.run(model["main"], feed=feed, fetch_list=names)
 
     with scope_guard(scope):
-        exe.run(startup)
+        exe.run(model["startup"])
     for name, value in (init or {}).items():
         if scope.find_var(name) is None or scope.find_var(name).shape != value.shape:
             raise AssertionError("carried state %r has no counterpart in the program" % name)
         scope.set_var(name, value.clone())
     torch.cuda.synchronize()
-    losses, walls, deltas = [], [], []
+    outs, walls, deltas, used = [], [], [], []
     with (op_by_op() if per_op else contextlib.nullcontext()):
-        for i, b in enumerate(batches):
+        for i, feed in enumerate(feeds):
             before = fused.stats()
             t0 = time.perf_counter()
-            losses.append(step(b))
+            out = step(feed)
             walls.append((time.perf_counter() - t0) * 1e3)
-            after = fused.stats()
-            step_check(i, before, after)
-            deltas.append(_counter_delta(before, after))
-            if not np.isfinite(losses[-1]):
+            now = fused.stats()
+            if check is not None:
+                check(i, before, now)
+            deltas.append(_counter_delta(before, now))
+            outs.append([v.reshape(-1)[0] if v.size == 1 else v for v in out])
+            used.append(feed)
+            if not np.isfinite(outs[-1][0]):
                 raise AssertionError("%s step %d: loss %r" % (pipeline or "unfused", i,
-                                                              losses[-1]))
-    return losses, walls, scope, step, deltas
+                                                              outs[-1][0]))
+            if after is not None:
+                after(i, scope)
+    return outs, walls, deltas, used, step, scope
+
+
+def _train_run(torch, main_prog, startup, loss, batches, pipeline, step_check, init=None,
+               per_op=False):
+    """_fluid_run's steps of a program that fetches its loss alone:
+    (losses, walls, scope, step, each step's counter deltas)."""
+    outs, walls, deltas, _, step, scope = _fluid_run(
+        torch, {"main": main_prog, "startup": startup}, batches, pipeline, [loss],
+        per_op=per_op, check=step_check, init=init)
+    return [o[0] for o in outs], walls, scope, step, deltas
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused")  # a train_flash step's
@@ -2459,12 +2505,6 @@ def _launch_check(cfg):
     return check
 
 
-def _unfused_check(i, before, after):
-    if after != before:
-        raise AssertionError("step %d of the unfused run moved the counters: %s -> %s"
-                             % (i, before, after))
-
-
 def _train_fused(torch, cfg, card, label, readings):
     """TRAIN_STEPS steps of `cfg` under training_fused on the graph path, each
     step's launches checked, then COMPARE_STEPS steps on the op-by-op path
@@ -2480,7 +2520,7 @@ def _train_fused(torch, cfg, card, label, readings):
     batches = [prof.make_batch(cfg, SEED + i) for i in range(TRAIN_STEPS)]
     fused.reset_stats()  # the main path's counting window opens here
     losses, walls, scope, step, deltas = _train_run(
-        torch, main_prog, startup, loss, batches, "training_fused", fused, _launch_check(cfg))
+        torch, main_prog, startup, loss, batches, "training_fused", _launch_check(cfg))
     launches = fused.stats()["launches"]  # and closes here
     reserved = torch.cuda.memory_reserved() / GIB  # the scope, its graph and the pool
     log("%s: Transformer base %s, %d Adam ops, built and initialised in %.1f s" % (
@@ -2495,7 +2535,7 @@ def _train_fused(torch, cfg, card, label, readings):
     del scope, step
     torch.cuda.empty_cache()
     e_losses, e_walls, escope, estep, e_deltas = _train_run(
-        torch, main_prog, startup, loss, batches[:COMPARE_STEPS], "training_fused", fused,
+        torch, main_prog, startup, loss, batches[:COMPARE_STEPS], "training_fused",
         _launch_check(cfg), per_op=True)
     del escope, estep
     torch.cuda.empty_cache()
@@ -2549,12 +2589,11 @@ def train(torch, card, readings):
     """Transformer base under training_fused for TRAIN_STEPS steps (and op
     by op), then an unfused run from the same seed; returns the training
     kernels' launches over the fused graph steps."""
-    from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch.tools import profile_training as prof
 
     launches, losses, batches, prog = _train_fused(torch, prof.BASE, card, "train", readings)
-    ref, _, uscope, ustep, _ = _train_run(torch, *prog, batches[:COMPARE_STEPS], "", fused,
-                                          _unfused_check)
+    ref, _, uscope, ustep, _ = _train_run(torch, *prog, batches[:COMPARE_STEPS], "",
+                                          _exact_counts({}, "unfused train"))
     ref = [float(v) for v in ref]
     del uscope, ustep
     torch.cuda.empty_cache()
@@ -2573,7 +2612,6 @@ def train_flash(torch, card, readings):
     against dense on the same weights at dropout 0; returns the flash
     kernels' launches over the flash graph steps."""
     from paddle_tpu_torch.models import transformer
-    from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch.tools import profile_training as prof
 
     launches, _, _, _ = _train_fused(torch, prof.BASE_FLASH, card, "train flash", readings)
@@ -2590,8 +2628,7 @@ def train_flash(torch, card, readings):
     init = _startup_state(fprog[1])
     runs = []
     for prog, batches in ((fprog, fbatches), (dprog, dbatches)):
-        out = _train_run(torch, *prog, batches, "training_fused", fused, lambda *a: None,
-                         init=init)
+        out = _train_run(torch, *prog, batches, "training_fused", lambda *a: None, init=init)
         runs.append(np.asarray([float(v) for v in out[0]]))
         del out
         torch.cuda.empty_cache()
@@ -2607,6 +2644,239 @@ def train_flash(torch, card, readings):
             "flash_fwd_causal": launches["flash_fwd_causal"],
             "flash_bwd": launches["flash_bwd_fused"],
             "flash_bwd_causal": launches["flash_bwd_fused_causal"]}
+
+
+# ---------------------------------------------------------------- phase 7
+
+LENET_STEPS = 60  # graph steps of the book script (tests/test_mnist.py's 60)
+LENET_TEST_BATCH = 16
+# a LeNet step: its three fc chains (k = 400, 120, 84) take the GEMM
+# epilogue, its Adam one multi_adam launch; nothing else
+LENET_PER_STEP = {"gemm_epilogue": 3, "multi_adam": 1}
+# ResNet-50 at bench.py's batch 256 (bench.py:39), the first rung of its
+# ladder (256, 128, 64, 32; bench.py:3945)
+RESNET_STEPS = 6  # graph steps after the warmup (op by op) and the capture
+
+
+def _exact_counts(want, label):
+    def check(i, before, after):
+        got = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+        disp = {k: v - before["dispatches"].get(k, 0) for k, v in after["dispatches"].items()}
+        launched = {k: v for k, v in got.items() if v}
+        dispatched = {k: v for k, v in disp.items() if v}
+        if launched != want or dispatched != want:
+            raise AssertionError("%s step %d: launches %s, dispatches %s, want %s each"
+                                 % (label, i, launched, dispatched, want))
+
+    return check
+
+
+def _same_bits(label, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if np.asarray(g).tobytes() != np.asarray(w).tobytes():
+            raise AssertionError("%s %d: %r against %r" % (label, i, g, w))
+
+
+def train_lenet(torch, card, readings):
+    """The book script through paddle_tpu_torch.fluid on CUDAPlace(0):
+    batch(reader.shuffle(dataset.mnist.train(), 500), 64) into a DataFeeder,
+    LeNet-5 under Adam 1e-3 and training_fused for LENET_STEPS graph steps
+    (every step 3 GEMM epilogue and 1 multi_adam launches), with the gates
+    of tests/test_mnist.py:64-67; the first 3 losses against an unfused run
+    and against the op-by-op path; then, at batch 16, the for_test clone,
+    a save_persistables / load_persistables round trip into a fresh scope
+    and a save_inference_model / load_inference_model round trip. Returns
+    the kernels' launches over the main path's steps."""
+    import itertools
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, fluid, scope_guard
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    place = CUDAPlace(0)
+    model = prof.build_lenet()
+    feeder = fluid.DataFeeder([model["img"], model["label"]], place=place, program=model["main"])
+    reader = prof.mnist_reader()
+    fetch = [model["loss"], model["acc"]]
+    fused.reset_stats()  # the main path's counting window opens here
+    outs, walls, deltas, feeds, step, scope = _fluid_run(
+        torch, model, (feeder.feed(b) for b in itertools.islice(reader(), LENET_STEPS)),
+        "training_fused", fetch, check=_exact_counts(LENET_PER_STEP, "lenet"))
+    launches = fused.stats()["launches"]  # and closes here
+    losses = [float(o[0]) for o in outs]
+    accs = [float(o[1]) for o in outs]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (last5 < 0.7 * first5 and np.mean(accs[-5:]) > 0.5):
+        raise AssertionError("lenet did not learn: loss %.4f -> %.4f, accuracy %.3f"
+                             % (first5, last5, np.mean(accs[-5:])))
+    graph = {"step_p50_ms": float(np.median(walls[2:])),
+             "images_per_s": prof.LENET["batch"] * (len(walls) - 2) / (sum(walls[2:]) / 1e3)}
+    breakdown = prof.profile_steps(lambda b: step(b), feeds[:4], registry)
+    graph.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                 device_launches=breakdown["device_launches_per_step"],
+                 profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+
+    # the for_test clone at batch 16: op by op, captured, replayed, the same
+    # bits; a checkpoint into a fresh scope gives them again
+    test_feed = feeder.feed(next(prof.mnist_reader(LENET_TEST_BATCH, test=True)()))
+    exe = Executor(place)
+    tfetch = [model["loss"].name, model["logits"].name]
+    with scope_guard(scope):
+        tests = [exe.run(model["test"], feed=test_feed, fetch_list=tfetch) for _ in range(3)]
+    for t in tests[1:]:
+        _same_bits("lenet test loss and logits, run", t, tests[0])
+    with tempfile.TemporaryDirectory() as d:
+        with scope_guard(scope):
+            fluid.io.save_persistables(exe, os.path.join(d, "ckpt"), model["main"])
+            fluid.io.save_inference_model(os.path.join(d, "infer"), ["img"], [model["logits"]],
+                                          exe, main_program=model["main"])
+        with scope_guard(Scope(seed=SEED + 1, place=place)):
+            fluid.io.load_persistables(exe, os.path.join(d, "ckpt"), model["main"])
+            loaded = [exe.run(model["test"], feed=test_feed, fetch_list=tfetch)
+                      for _ in range(2)]
+        with scope_guard(Scope(seed=SEED + 2, place=place)):
+            prog, feed_names, fetch_vars = fluid.io.load_inference_model(os.path.join(d, "infer"),
+                                                                         exe)
+            (infer_logits,) = exe.run(prog, feed={feed_names[0]: test_feed["img"]},
+                                      fetch_list=[v.name for v in fetch_vars])
+    for t in loaded:
+        _same_bits("lenet test loss and logits after load_persistables, run", t, tests[0])
+    _same_bits("lenet logits from load_inference_model", [infer_logits], [tests[0][1]])
+    del step, scope, exe
+    torch.cuda.empty_cache()
+
+    unfused, _, _, _, ustep, uscope = _fluid_run(torch, model, feeds[:COMPARE_STEPS], "", fetch,
+                                                 check=_exact_counts({}, "unfused lenet"))
+    ref = [float(o[0]) for o in unfused]
+    a = np.asarray(losses[:COMPARE_STEPS])
+    if not np.allclose(a, ref, rtol=FUSED_RTOL, atol=FUSED_ATOL):
+        raise AssertionError("lenet fused vs unfused losses differ: %s vs %s" % (a.tolist(), ref))
+    eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
+        torch, model, feeds[:COMPARE_STEPS], "training_fused", fetch, per_op=True,
+        check=_exact_counts(LENET_PER_STEP, "lenet op by op"))
+    _same_bits("lenet loss and accuracy, graph against op by op, step", [o for o in eager],
+               outs[:COMPARE_STEPS])
+    if e_deltas != deltas[:COMPARE_STEPS]:
+        raise AssertionError("lenet: counters a step %s on the graph path, %s op by op"
+                             % (deltas[:COMPARE_STEPS], e_deltas))
+    del ustep, uscope, estep, escope
+    torch.cuda.empty_cache()
+    readings["train_lenet"] = {"graph": graph, "op_by_op": {
+        "step_p50_ms": float(np.median(e_walls[1:])),
+        "images_per_s": prof.LENET["batch"] * (len(e_walls) - 1) / (sum(e_walls[1:]) / 1e3)}}
+    log("train lenet: the book script, %d graph steps of batch %d from reader -> DataFeeder -> "
+        "Executor.run, losses %.4f -> %.4f (first and last 5), accuracy of the last 5 %.3f; "
+        "fused vs unfused %s vs %s (rtol %g atol %g); the first %d losses and accuracies bit for "
+        "bit op by op, the same launches and dispatches a step (%s); the for_test clone at batch "
+        "%d, load_persistables into a fresh scope and load_inference_model give its loss and "
+        "logits bit for bit; step wall p50 %.3f ms, %.1f images/s over steps 3-%d, device busy "
+        "%s ms a step, %s device launches a step; op by op %.3f ms a step; kernel launches %s; "
+        "card %s" % (
+            LENET_STEPS, prof.LENET["batch"], first5, last5, float(np.mean(accs[-5:])),
+            ["%.6f" % v for v in a], ["%.6f" % v for v in ref], FUSED_RTOL, FUSED_ATOL,
+            COMPARE_STEPS, json.dumps(LENET_PER_STEP), LENET_TEST_BATCH, graph["step_p50_ms"],
+            graph["images_per_s"], LENET_STEPS, graph["device_busy_ms"],
+            graph["device_launches"], readings["train_lenet"]["op_by_op"]["step_p50_ms"],
+            json.dumps({k: v for k, v in launches.items() if v}), card))
+    return {k: launches[k] for k in LENET_PER_STEP}
+
+
+def _running_stats(model, scope):
+    """Copies of every batch_norm's running mean and variance in the scope."""
+    names = sorted({n for op in model["main"].global_block().ops if op.type == "batch_norm"
+                    for n in op.input("Mean") + op.input("Variance")})
+    return {n: scope.vars[n].detach().clone() for n in names}
+
+
+def train_resnet50(torch, card, readings):
+    """ResNet-50 at its published widths (He et al. 2016, Table 1, 50-layer:
+    bottlenecks [3, 4, 6, 3], filters 64-512 (x4), 3 x 224 x 224 inputs,
+    1000 classes; random weights from SEED) under Momentum(0.1, 0.9) in
+    f32 at batch 256 (bench.py:23-39), synthetic batches staged on the card
+    and cycled (bench.py:63-72), under training_fused: the warmup and the
+    capture, then RESNET_STEPS graph steps, every loss finite and no
+    hand-written kernel launched (its one fc has n = 1000, which the GEMM
+    epilogue's block rule declines, as in the JAX package); then the first
+    3 steps op by op from the same weights: the losses and every running
+    mean and variance bit for bit (cuDNN restricted to deterministic
+    algorithms). Logs images/s, the step wall, the device's busy share and
+    launches, the memory reserved and the busy split by op type."""
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    t0 = time.perf_counter()
+    model = prof.build_resnet50()
+    staged = prof.resnet50_feeds(torch.device("cuda", 0))
+    feeds = [staged[i % len(staged)] for i in range(2 + RESNET_STEPS)]
+    batch = prof.RESNET50["batch"]
+    snap = {}
+
+    def keep_stats(i, scope):
+        if i == COMPARE_STEPS - 1:
+            snap.update(_running_stats(model, scope))
+
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_stats()  # the main path's counting window opens here
+    outs, walls, _, _, step, scope = _fluid_run(
+        torch, model, feeds, "training_fused", [model["loss"]], check=_exact_counts({}, "resnet50"),
+        after=keep_stats)
+    stats = fused.stats()  # and closes here: nothing launched or dispatched
+    reserved = torch.cuda.max_memory_reserved() / GIB
+    losses = [float(o[0]) for o in outs]
+    graph = {"batch": batch, "step_p50_ms": float(np.median(walls[2:])),
+             "images_per_s": batch * RESNET_STEPS / (sum(walls[2:]) / 1e3),
+             "memory_max_reserved_gib": reserved}
+    breakdown = prof.profile_steps(step, feeds[2:4], registry)
+    graph.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                 device_busy_share=breakdown["device_busy_share"],
+                 device_launches=breakdown["device_launches_per_step"],
+                 profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+    top = list(breakdown["device_ms_per_step_by_kernel"].items())[:8]
+    del step, scope
+    torch.cuda.empty_cache()
+    eager, e_walls, _, _, estep, escope = _fluid_run(
+        torch, model, feeds[:COMPARE_STEPS], "training_fused", [model["loss"]], per_op=True,
+        check=_exact_counts({}, "resnet50 op by op"))
+    _same_bits("resnet50 loss, graph against op by op, step", [o[0] for o in eager],
+               [o[0] for o in outs[:COMPARE_STEPS]])
+    estats = _running_stats(model, escope)
+    if sorted(estats) != sorted(snap) or not snap:
+        raise AssertionError("resnet50: running statistics %s vs %s" % (sorted(estats),
+                                                                          sorted(snap)))
+    for n in snap:
+        if not torch.equal(estats[n], snap[n]):
+            raise AssertionError("resnet50 %s after %d steps: graph and op by op differ by %g"
+                                 % (n, COMPARE_STEPS, float((estats[n] - snap[n]).abs().max())))
+    split = prof.op_device_split(estep, feeds[:2], registry)
+    del estep, escope
+    torch.cuda.empty_cache()
+    eager_reading = {"step_p50_ms": float(np.median(e_walls[1:])),
+                     "images_per_s": batch * (len(e_walls) - 1) / (sum(e_walls[1:]) / 1e3),
+                     "device_ms_by_op_type": split["device_ms_per_step"],
+                     "split": split["by_category"],
+                     "conv_backward_by_kernel_name": split["conv_backward_by_kernel_name"]}
+    readings["train_resnet50"] = {"graph": graph, "op_by_op": eager_reading}
+    log("train resnet50, op by op: the top kernels of each category (ms a step) %s; card %s"
+        % (json.dumps({c: {k[:70]: round(v, 3) for k, v in ks.items()}
+                       for c, ks in split["top_kernels_by_category"].items()}), card))
+    log("train resnet50: ResNet-50 (bottlenecks [3, 4, 6, 3], 3 x 224 x 224, 1000 classes), "
+        "Momentum(0.1, 0.9), f32, batch %d, %d ops, built and run in %.1f s; losses %s; no "
+        "hand-written kernel launched or dispatched (%s); the first %d losses and %d running "
+        "statistics bit for bit op by op; step wall p50 %.3f ms, %.1f images/s over the %d graph "
+        "steps; device busy %s ms a step = %s of the profiled wall p50 (%.3f ms), %s device "
+        "launches a step; max memory reserved %.3f GiB; top kernels %s; op by op: step wall p50 "
+        "%.3f ms, device %.3f ms a step by op type, split %s, conv grads by kernel name %s; "
+        "card %s" % (
+            batch, len(model["main"].global_block().ops), time.perf_counter() - t0,
+            ["%.6f" % v for v in losses], json.dumps(stats), COMPARE_STEPS, len(snap),
+            graph["step_p50_ms"], graph["images_per_s"], RESNET_STEPS, graph["device_busy_ms"],
+            graph["device_busy_share"], breakdown["wall_ms_p50"], graph["device_launches"],
+            reserved, json.dumps([(k[:60], round(v["ms"], 3)) for k, v in top]),
+            eager_reading["step_p50_ms"], split["device_ms_per_step"],
+            json.dumps({k: round(v, 3) for k, v in split["by_category"].items()}),
+            json.dumps({k: round(v, 3) for k, v in split["conv_backward_by_kernel_name"].items()}),
+            card))
 
 
 def main():
@@ -2694,6 +2964,12 @@ def main():
         launches.update(train(torch, card, paths))
     with Phase("train flash"):
         launches.update(train_flash(torch, card, paths))
+    torch.cuda.empty_cache()
+    with Phase("train lenet"):
+        for name, n in train_lenet(torch, card, paths).items():
+            launches[name] += n
+    with Phase("train resnet50"):
+        train_resnet50(torch, card, paths)
     # every main path on replayed CUDA graphs beside the op-by-op path
     log(json.dumps({"paths": paths, "card": card}))
     for name, n in launches.items():

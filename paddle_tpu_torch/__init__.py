@@ -25,14 +25,55 @@ GenerationEngine captures its decode step and prefill buckets at warmup()
 (executor.py). The op-by-op path runs there only under the profiler with
 FLAGS_profile_ops (profiler.py), as in the JAX package.
 
+CNN training: `import paddle_tpu_torch.fluid as fluid` is the fluid user
+script's surface: LeNet-5 and the ResNets (models/) from conv2d, pool2d and
+batch_norm, the optimizers from SGD through Ftrl, batch(reader.shuffle(
+dataset.mnist.train())) into a DataFeeder, and checkpoints by
+io.save_persistables / load_persistables.
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
 """
 
-from . import flags, framework, io, layers, ops, optimizer, passes, profiler, unique_name  # noqa: F401
+from . import (  # noqa: F401
+    average,
+    backward,
+    clip,
+    dataset,
+    flags,
+    framework,
+    initializer,
+    io,
+    layers,
+    lod_tensor,
+    metrics,
+    nets,
+    observability,
+    ops,
+    optimizer,
+    param_attr,
+    passes,
+    profiler,
+    reader,
+    regularizer,
+    serving,
+    unique_name,
+)
 from .backward import append_backward  # noqa: F401
+from .batch import batch  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
-from .framework import Program, default_main_program, default_startup_program, program_guard  # noqa: F401
-from .param_attr import ParamAttr  # noqa: F401
-from .place import CPUPlace, CUDAPlace  # noqa: F401
+from .flags import get_flags, set_flags  # noqa: F401
+from .framework import (  # noqa: F401
+    Program,
+    Variable,
+    default_main_program,
+    default_startup_program,
+    device_guard,
+    name_scope,
+    program_guard,
+)
+from .lod_tensor import create_lod_tensor, create_random_int_lodtensor  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+from .place import CPUPlace, CUDAPlace, is_compiled_with_cuda  # noqa: F401

@@ -251,9 +251,11 @@ def _run_label(run):
 
 
 class _PerOpProfiledBlock:
-    """A block prepared for straight-line execution, op by op: the op list,
-    the state split (read-only vs written persistables), the persistables
-    the block creates, the declared feed dtypes, and the per-op values that
+    """A block prepared for straight-line execution, op by op: the op list
+    in the units a run lowers and the names each unit leaves dead (dropped
+    after their last reader, so a run holds only live intermediates), the
+    state split (read-only vs written persistables), the persistables the
+    block creates, the declared feed dtypes, and the per-op values that
     outlive a run (LowerCtx.cache). Its call is the CPU's form of a run and
     the card's diagnosis form; `per_op` brackets every op (or fused run) in
     a profiler event and, on the card, syncs the device after it, so the
@@ -306,6 +308,9 @@ class _PerOpProfiledBlock:
         self.ro_names = sorted(set(state_names) - produced)
         self.created_persistables = sorted((persistable & produced) - set(state_names) - fed)
         self.feed_dtypes = {n: _var_dtype(block, n) for n in self.feed_names}
+        self.runs = list(registry.op_runs(self.ops))
+        self.dead = registry.dead_after(
+            self.runs, set(self.fetch_names) | set(self.mut_names) | set(self.created_persistables))
 
         # cross-check against the inplace_donation_plan pass when one rode in
         # on this program AND it analyzed this exact run (same scope, feed,
@@ -334,15 +339,20 @@ class _PerOpProfiledBlock:
         env.update(ro_state)
         env.update(mut_state)
         env.update(feeds)
-        if per_op:
-            sync = ctx.device.type == "cuda"
-            for run in registry.op_runs(self.ops):
+        sync = per_op and ctx.device.type == "cuda"
+        for run, dead in zip(self.runs, self.dead):
+            if per_op:
                 with _prof.RecordEvent(_run_label(run)):
                     registry.lower_run(ctx, run, env)
                     if sync:
                         torch.cuda.synchronize(ctx.device)
-        else:
-            registry.lower_ops(ctx, self.ops, env)
+            else:
+                registry.lower_run(ctx, run, env)
+            # an intermediate is dropped after its last reader, so the
+            # step's memory (and a captured graph's pool) holds only what
+            # is live
+            for n in dead:
+                env.pop(n, None)
         fetches = [env[n] for n in self.fetch_names]
         new_mut = {n: env[n] for n in self.mut_names}
         # an op may legally omit a declared output slot — only bind names
@@ -538,6 +548,9 @@ class _CompiledBlock:
             return fetches, new_mut
         ctx = block.ctx(scope, self.is_test)
         if self.graph is None:
+            # the warmup's intermediates, cached by the allocator, go back
+            # to the card before the capture fills the graph's own pool
+            torch.cuda.empty_cache()
             self.graph = _CudaGraph(block, feeds, ro, mut, ctx, self.pool)
         elif block.stochastic and ctx.device_generator is not self.graph.device_generator:
             raise RuntimeError("the scope's device generator was replaced (reseeded) after "

@@ -1,0 +1,37 @@
+"""`import paddle_tpu_torch.fluid as fluid`: the fluid surface of the port,
+the names of paddle_tpu/fluid/__init__.py that the port has. Names the JAX
+package exports from modules not ported yet (ParallelExecutor,
+AsyncExecutor, DistributeTranspiler and the other transpilers, PyReader's
+EOFException, DataFeedDesc, BuildStrategy, ExecutionStrategy, the
+imperative, contrib, debugger, inference, evaluator, transpiler,
+distributed, resilience, embedding and native modules) are absent until
+their modules are."""
+
+from .. import *  # noqa: F401,F403
+from .. import (  # noqa: F401
+    average,
+    backward,
+    clip,
+    dataset,
+    flags,
+    framework,
+    initializer,
+    io,
+    layers,
+    lod_tensor,
+    metrics,
+    nets,
+    observability,
+    optimizer,
+    param_attr,
+    profiler,
+    reader,
+    regularizer,
+    serving,
+    unique_name,
+)
+from ..batch import batch  # noqa: F401
+from ..data_feeder import DataFeeder  # noqa: F401
+from ..executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
+from ..flags import get_flags, set_flags  # noqa: F401
+from ..lod_tensor import create_lod_tensor, create_random_int_lodtensor  # noqa: F401

@@ -1,7 +1,6 @@
 """Checkpoint and inference-model I/O (the torch counterpart of
-paddle_tpu/io.py; reference python/paddle/fluid/io.py save/load_vars and
-save/load_inference_model; the params / persistables shorthands come with
-the training checkpoints).
+paddle_tpu/io.py; reference python/paddle/fluid/io.py save/load_vars,
+save/load_params, save/load_persistables and save/load_inference_model).
 
 The on-disk layout is the JAX package's, so each package reads what the
 other writes: one `<name>.npy` per var with a `<name>.npy.dtype` sidecar
@@ -23,14 +22,19 @@ import torch
 
 from . import framework
 from .executor import global_scope
-from .framework import Program, Variable
+from .framework import Parameter, Program, Variable
 from .ops.registry import torch_dtype
 
 __all__ = [
     "save_vars",
+    "save_params",
+    "save_persistables",
     "load_vars",
+    "load_params",
+    "load_persistables",
     "save_inference_model",
     "load_inference_model",
+    "get_inference_program",
     "inference_model_fingerprint",
 ]
 
@@ -101,6 +105,22 @@ def save_arrays(dirname, arrays):
         fsync_dir(d)
 
 
+def load_arrays(dirname):
+    """Inverse of save_arrays: every `<name>.npy` under dirname (names may
+    hold path separators) as a CPU tensor, bf16 where its sidecar or a
+    legacy meta says so; orphaned atomic-write temps are skipped."""
+    meta = _load_dtype_meta(dirname)
+    out = {}
+    for root, _dirs, files in os.walk(dirname):
+        for fname in sorted(files):
+            if not fname.endswith(".npy") or ".tmp." in fname:
+                continue
+            path = os.path.join(root, fname)
+            name = os.path.relpath(path, dirname)[: -len(".npy")]
+            out[name] = _to_tensor(np.load(path), _stored_dtype(dirname, name, meta), "cpu")
+    return out
+
+
 def _load_dtype_meta(dirname):
     """Merge every legacy `__dtypes__*.json` in dirname into a name -> dtype
     map (sidecars, checked first by _stored_dtype, win over it)."""
@@ -161,6 +181,26 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
                   lambda f: f.write(json.dumps(meta).encode()))
 
 
+def _is_param(v):
+    return isinstance(v, Parameter)
+
+
+def _is_persistable(v):
+    return v.persistable and v.type not in (framework.VarType.RAW, framework.VarType.READER)
+
+
+def save_params(executor, dirname, main_program=None, filename=None):
+    return save_vars(executor, dirname, main_program, predicate=_is_param, filename=filename)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None):
+    """Every persistable var of the program (parameters, optimizer state,
+    batch_norm's running statistics, the learning rate): a training
+    checkpoint."""
+    return save_vars(executor, dirname, main_program, predicate=_is_persistable,
+                     filename=filename)
+
+
 def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
               filename=None):
     """Load variables into the current scope, as tensors on its device (an
@@ -190,6 +230,23 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
         scope.set_var(name, _to_tensor(arr, stored, scope.device))
 
 
+def load_params(executor, dirname, main_program=None, filename=None):
+    return load_vars(executor, dirname, main_program, predicate=_is_param, filename=filename)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None):
+    return load_vars(executor, dirname, main_program, predicate=_is_persistable,
+                     filename=filename)
+
+
+def get_inference_program(target_vars, main_program=None):
+    """The program pruned to what computes `target_vars`, in test mode."""
+    program = main_program or framework.default_main_program()
+    if not isinstance(target_vars, (list, tuple)):
+        target_vars = [target_vars]
+    return program.clone(for_test=True)._prune(target_vars)
+
+
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename=None, params_filename=None,
                          export_for_deployment=True):
@@ -198,7 +255,7 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     program = main_program or framework.default_main_program()
     if not isinstance(target_vars, (list, tuple)):
         target_vars = [target_vars]
-    pruned = program.clone(for_test=True)._prune(target_vars)
+    pruned = get_inference_program(target_vars, program)
     os.makedirs(dirname, exist_ok=True)
     doc = pruned.to_dict()
     doc["feed_var_names"] = list(feeded_var_names)

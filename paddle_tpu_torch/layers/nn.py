@@ -1,13 +1,14 @@
 """Neural-network layers: the subset of paddle_tpu/layers/nn.py that the
-GPTDecoder programs and the Transformer training program use (reference
-python/paddle/fluid/layers/nn.py). Each
+GPTDecoder programs, the Transformer training program and the CNNs of
+models/ and nets.py use (reference python/paddle/fluid/layers/nn.py). Each
 layer appends the same ops with the same attrs as the JAX package's, so a
 model builder yields the same Program in both packages."""
 
 import numpy as np
 
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
-from ..initializer import Constant
+from ..param_attr import ParamAttr
 
 __all__ = [
     "fc",
@@ -23,12 +24,31 @@ __all__ = [
     "elementwise_mul",
     "elementwise_div",
     "elementwise_min",
+    "elementwise_max",
+    "elementwise_pow",
     "dropout",
+    "conv2d",
+    "pool2d",
+    "batch_norm",
     "softmax_with_cross_entropy",
+    "cross_entropy",
+    "square_error_cost",
+    "topk",
     "reduce_sum",
+    "reduce_mean",
+    "reduce_max",
+    "reduce_min",
+    "reduce_prod",
     "mean",
+    "one_hot",
+    "flatten",
     "gather",
+    "shape",
+    "clip",
+    "clip_by_norm",
+    "leaky_relu",
     "relu",
+    "log",
     "kv_cache_write",
     "paged_attention",
     "distributed_embedding",
@@ -250,6 +270,14 @@ def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_min", x, y, axis, act, name)
 
 
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
 def dropout(
     x,
     dropout_prob,
@@ -273,6 +301,166 @@ def dropout(
         },
     )
     return out
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv2d(
+    input,
+    num_filters,
+    filter_size,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups=None,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+):
+    """2-D convolution, NCHW / OIHW (reference layers/nn.py conv2d): a
+    conv2d op, a bias over the channel axis, the activation. The filter
+    starts from N(0, sqrt(2 / fan_in)), as in the JAX package."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_shape[2] * filter_shape[3]
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=filter_shape,
+        dtype=dtype,
+        default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5),
+    )
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+            "use_cudnn": use_cudnn,
+        },
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(
+    input,
+    pool_size=-1,
+    pool_type="max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling=False,
+    use_cudnn=True,
+    ceil_mode=False,
+    name=None,
+    exclusive=True,
+):
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": _pair(pool_size),
+            "global_pooling": global_pooling,
+            "strides": _pair(pool_stride),
+            "paddings": _pair(pool_padding),
+            "ceil_mode": ceil_mode,
+            "exclusive": exclusive,
+        },
+    )
+    return out
+
+
+def batch_norm(
+    input,
+    act=None,
+    is_test=False,
+    momentum=0.9,
+    epsilon=1e-5,
+    param_attr=None,
+    bias_attr=None,
+    data_layout="NCHW",
+    in_place=False,
+    name=None,
+    moving_mean_name=None,
+    moving_variance_name=None,
+    do_model_average_for_mean_and_var=False,
+    use_global_stats=False,
+):
+    """Batch normalization (reference layers/nn.py batch_norm). The running
+    mean and variance are persistable parameters that are not trained; the
+    op writes them back itself (MeanOut / VarianceOut name the same
+    variables)."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    param_shape = [channels]
+    scale = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=param_shape,
+        dtype=dtype,
+        default_initializer=Constant(1.0),
+    )
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=param_shape, dtype=dtype, is_bias=True
+    )
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0), trainable=False),
+        shape=param_shape,
+        dtype=dtype,
+    )
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0), trainable=False),
+        shape=param_shape,
+        dtype=dtype,
+    )
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    saved_variance = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    out = input if in_place else helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={
+            "X": [input.name],
+            "Scale": [scale.name],
+            "Bias": [bias.name],
+            "Mean": [mean.name],
+            "Variance": [variance.name],
+        },
+        outputs={
+            "Y": [out.name],
+            "MeanOut": [mean.name],
+            "VarianceOut": [variance.name],
+            "SavedMean": [saved_mean.name],
+            "SavedVariance": [saved_variance.name],
+        },
+        attrs={
+            "momentum": momentum,
+            "epsilon": epsilon,
+            "is_test": is_test,
+            "data_layout": data_layout,
+            "use_global_stats": use_global_stats,
+        },
+    )
+    return helper.append_activation(out)
 
 
 def softmax_with_cross_entropy(
@@ -308,13 +496,51 @@ def softmax_with_cross_entropy(
     return loss
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input.name], "Label": [label.name]},
+        outputs={"Y": [out.name]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="square_error_cost",
+        inputs={"X": [input.name], "Y": [label.name]},
+        outputs={"Out": [out.name]},
+    )
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input.name]},
+        outputs={"Out": [values.name], "Indices": [indices.name]},
+        attrs={"k": int(k)},
+    )
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
+
+
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
     helper.append_op(
-        type="reduce_sum",
+        type=op_type,
         inputs={"X": [input.name]},
         outputs={"Out": [out.name]},
         attrs={
@@ -326,10 +552,55 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return out
 
 
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="mean", inputs={"X": [x.name]}, outputs={"Out": [out.name]})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="one_hot",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"depth": depth},
+    )
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="flatten2",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name], "XShape": [xshape.name]},
+        attrs={"axis": axis},
+    )
     return out
 
 
@@ -344,10 +615,62 @@ def gather(input, index):
     return out
 
 
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="shape", inputs={"Input": [input.name]}, outputs={"Out": [out.name]}
+    )
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="clip",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name]},
+        attrs={"min": float(min), "max": float(max)},
+    )
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="clip_by_norm",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name]},
+        attrs={"max_norm": float(max_norm)},
+    )
+    return out
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper("leaky_relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="leaky_relu",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name]},
+        attrs={"alpha": float(alpha)},
+    )
+    return out
+
+
 def relu(x, name=None):
     helper = LayerHelper("relu", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="relu", inputs={"X": [x.name]}, outputs={"Out": [out.name]})
+    return out
+
+
+def log(x, name=None):
+    helper = LayerHelper("log", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="log", inputs={"X": [x.name]}, outputs={"Out": [out.name]})
     return out
 
 

@@ -1,17 +1,23 @@
 """Core operator lowerings: the ops the GPTDecoder programs, the Transformer
-training program and their startup programs emit (the torch counterparts of
-paddle_tpu/ops/core_ops.py).
+and CNN training programs and their startup programs emit (the torch
+counterparts of paddle_tpu/ops/core_ops.py): dense math, the elementwise
+ops and activations, losses, metrics, tensor ops, conv2d / pool2d /
+batch_norm, and the optimizers from sgd through ftrl.
 
 Each lowering is a plain function over slot-keyed torch tensors; the
-executor calls them in program order. `mul` and `matmul` stay torch.matmul:
-the JAX package computes them outside any Pallas kernel too. They run in
-full f32: every run on the card turns TF32 off (registry.LowerCtx), and
-the parity tolerances assume it.
+executor calls them in program order. `mul`, `matmul` and `conv2d` stay
+library calls (torch.matmul, cuDNN): the JAX package computes them outside
+any Pallas kernel too. They run in full f32: every run on the card turns
+TF32 off and asks cuDNN for deterministic algorithms (registry.LowerCtx),
+and the parity tolerances and the graph-against-op-by-op bit identity
+assume it.
 
 Gradients: most ops use the registry's generic torch.func.vjp grad. Custom
 grads exist where the JAX package has them: dropout reuses its sampled Mask,
 softmax_with_cross_entropy differentiates from the saved Softmax, and
-lookup_table scatters its cotangent rows in f32.
+lookup_table scatters its cotangent rows in f32. conv2d has an explicit
+grad (dgrad and wgrad without replaying the forward), which XLA's CSE gives
+the JAX package for free.
 
 Dtype policy: float64 -> float32 and int64 -> int32 are canonicalized at the
 framework boundary, as in the JAX package, so the same Program declares the
@@ -25,7 +31,7 @@ import torch
 
 from ..framework import OpRole
 from .gemm_epilogue import ACT_F32
-from .registry import bcast_y, prod, register, register_no_lower, torch_dtype
+from .registry import EMPTY_VAR_NAME, bcast_y, prod, register, register_no_lower, torch_dtype
 
 register_no_lower("feed")
 register_no_lower("fetch")
@@ -126,6 +132,63 @@ def _fill_zeros_like(ctx, ins, attrs):
     return {"Out": [torch.zeros_like(x)]}
 
 
+@register("fill_constant_batch_size_like", no_grad=True)
+def _fill_constant_bsl(ctx, ins, attrs):
+    (ref,) = ins["Input"]
+    shape = _shape(attrs)
+    shape[int(attrs.get("output_dim_idx", 0))] = ref.shape[int(attrs.get("input_dim_idx", 0))]
+    dt = torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(shape, attrs.get("value", 0.0), dtype=dt, device=ref.device)]}
+
+
+@register("cast")
+def _cast(ctx, ins, attrs):
+    (x,) = ins["X"]
+    # a float to int cast truncates toward zero, as astype does
+    return {"Out": [x.to(torch_dtype(attrs["out_dtype"]))]}
+
+
+@register("shape", no_grad=True)
+def _shape_op(ctx, ins, attrs):
+    (x,) = ins["Input"]
+    # filled on the device, element by element: a replayed graph cannot
+    # copy a host list in
+    out = torch.empty((x.dim(),), dtype=torch.int32, device=x.device)
+    for i, d in enumerate(x.shape):
+        out[i] = int(d)
+    return {"Out": [out]}
+
+
+@register("increment")
+def _increment(ctx, ins, attrs):
+    (x,) = ins["X"]
+    step = attrs.get("step", 1.0)
+    return {"Out": [x + (step if torch.is_floating_point(x) else int(step))]}
+
+
+@register("clip")
+def _clip(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [torch.clamp(x, attrs["min"], attrs["max"])]}
+
+
+@register("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    (x,) = ins["X"]
+    max_norm = attrs["max_norm"]
+    x32 = x.float()
+    norm = torch.sqrt(torch.sum(x32 ** 2))
+    scale = torch.where(norm > max_norm, max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": [(x32 * scale).to(x.dtype)]}
+
+
+@register("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [torch.sum(x.float() ** 2).reshape((1,)).to(x.dtype)]}
+
+
 # ---------------------------------------------------------------------------
 # dense math (reference: mul_op.cc, matmul_op.cc)
 # ---------------------------------------------------------------------------
@@ -181,6 +244,11 @@ _register_elementwise("elementwise_sub", torch.sub)
 _register_elementwise("elementwise_mul", torch.mul)
 _register_elementwise("elementwise_div", torch.div)
 _register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_pow", torch.pow)
+# jnp.mod and jnp.floor_divide round toward minus infinity, as these do
+_register_elementwise("elementwise_mod", torch.remainder)
+_register_elementwise("elementwise_floordiv", torch.floor_divide)
 
 
 @register("sum")
@@ -210,32 +278,94 @@ def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(x).reshape((1,))]}
 
 
-@register("reduce_sum")
-def _reduce_sum(ctx, ins, attrs):
-    (x,) = ins["X"]
-    dims = attrs.get("dim", [0])
-    if isinstance(dims, int):
-        dims = [dims]
-    if attrs.get("reduce_all", False):
-        return {"Out": [torch.sum(x).reshape((1,))]}
-    out = torch.sum(x, dim=tuple(d % x.dim() for d in dims),
-                    keepdim=bool(attrs.get("keep_dim", False)))
-    if out.dim() == 0:
-        out = out.reshape((1,))
-    return {"Out": [out]}
+def _register_reduce(name, fn):
+    @register(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        (x,) = ins["X"]
+        dims = attrs.get("dim", [0])
+        if isinstance(dims, int):
+            dims = [dims]
+        if attrs.get("reduce_all", False):
+            return {"Out": [_fn(x, None, False).reshape((1,))]}
+        out = _fn(x, tuple(d % x.dim() for d in dims), bool(attrs.get("keep_dim", False)))
+        if out.dim() == 0:
+            out = out.reshape((1,))
+        return {"Out": [out]}
+
+
+def _reduce_prod(x, dims, keep):
+    if dims is None:
+        return torch.prod(x)
+    for d in sorted(dims, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keep)
+    return x
+
+
+def _all_dims(fn):
+    return lambda x, dims, keep: fn(x) if dims is None else fn(x, dim=dims, keepdim=keep)
+
+
+_register_reduce("reduce_sum", _all_dims(torch.sum))
+_register_reduce("reduce_mean", _all_dims(torch.mean))
+_register_reduce("reduce_max", _all_dims(torch.amax))
+_register_reduce("reduce_min", _all_dims(torch.amin))
+_register_reduce("reduce_prod", _reduce_prod)
 
 
 def _register_act(name, fn):
     @register(name)
     def _lower(ctx, ins, attrs, _fn=fn):
         (x,) = ins["X"]
-        return {"Out": [_fn(x)]}
+        return {"Out": [_fn(x, attrs)]}
 
 
 # the activations the fused GEMM epilogue also applies, from one table
 # (gelu is the erf form, jax.nn.gelu(approximate=False))
 for _name, _fn in ACT_F32.items():
-    _register_act(_name, _fn)
+    _register_act(_name, lambda x, a, _f=_fn: _f(x))
+
+
+def _where0(cond, x):
+    return torch.where(cond, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# the rest of the JAX package's _register_act table (core_ops.py:282-332),
+# the same expressions and attr defaults
+_register_act("logsigmoid", lambda x, a: torch.nn.functional.logsigmoid(x))
+_register_act("tanh_shrink", lambda x, a: x - torch.tanh(x))
+_register_act("sqrt", lambda x, a: torch.sqrt(x))
+_register_act("abs", lambda x, a: torch.abs(x))
+_register_act("ceil", lambda x, a: torch.ceil(x))
+_register_act("floor", lambda x, a: torch.floor(x))
+_register_act("cos", lambda x, a: torch.cos(x))
+_register_act("sin", lambda x, a: torch.sin(x))
+_register_act("round", lambda x, a: torch.round(x))  # half to even, as jnp.round
+_register_act("reciprocal", lambda x, a: 1.0 / x)
+_register_act("exp", lambda x, a: torch.exp(x))
+_register_act("log", lambda x, a: torch.log(x))
+_register_act("square", lambda x, a: torch.square(x))
+# jax.nn.softplus is logaddexp(x, 0), with no linear cut-off past a threshold
+_register_act("softplus", lambda x, a: torch.logaddexp(x, torch.zeros_like(x)))
+_register_act("softsign", lambda x, a: x / (1 + torch.abs(x)))
+_register_act("softshrink", lambda x, a: torch.sign(x) * torch.clamp(
+    torch.abs(x) - a.get("lambda", 0.5), min=0))
+_register_act("hard_shrink", lambda x, a: _where0(torch.abs(x) > a.get("threshold", 0.5), x))
+_register_act("brelu", lambda x, a: torch.clamp(x, a.get("t_min", 0.0), a.get("t_max", 24.0)))
+_register_act("leaky_relu", lambda x, a: torch.where(x >= 0, x, x * a.get("alpha", 0.02)))
+_register_act("soft_relu", lambda x, a: torch.log1p(torch.exp(torch.clamp(
+    x, -a.get("threshold", 40.0), a.get("threshold", 40.0)))))
+_register_act("elu", lambda x, a: torch.where(
+    x >= 0, x, a.get("alpha", 1.0) * (torch.exp(x) - 1)))
+_register_act("relu6", lambda x, a: torch.clamp(x, 0, a.get("threshold", 6.0)))
+_register_act("pow", lambda x, a: torch.pow(x, a.get("factor", 1.0)))
+_register_act("stanh", lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+    a.get("scale_a", 0.67) * x))
+_register_act("hard_sigmoid", lambda x, a: torch.clamp(
+    a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0))
+_register_act("swish", lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x))
+_register_act("thresholded_relu", lambda x, a: _where0(x > a.get("threshold", 1.0), x))
+_register_act("rsqrt", lambda x, a: torch.rsqrt(x))
+_register_act("sign", lambda x, a: torch.sign(x))
 
 
 @register("softmax")
@@ -360,6 +490,130 @@ def _softmax_with_ce_grad(ctx, ins, attrs):
     return result
 
 
+@register("log_softmax")
+def _log_softmax(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [torch.log_softmax(x, dim=int(attrs.get("axis", -1)))]}
+
+
+@register("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """-log of the probability at the label (or the soft-label sum), the
+    probabilities clamped at 1e-20 (the JAX lowering)."""
+    (x,) = ins["X"]
+    (label,) = ins["Label"]
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * torch.log(torch.clamp(x, min=1e-20)), dim=-1, keepdim=True)
+    else:
+        lbl = label.reshape(label.shape[:-1]).long()
+        picked = torch.gather(x, -1, lbl[..., None])
+        loss = -torch.log(torch.clamp(picked, min=1e-20))
+    return {"Y": [loss]}
+
+
+@register("square_error_cost")
+def _square_error_cost(ctx, ins, attrs):
+    (x,) = ins["X"]
+    (y,) = ins["Y"]
+    return {"Out": [torch.square(x - y)]}
+
+
+# ---------------------------------------------------------------------------
+# argmax / top_k / sort / cumsum and the metrics (reference arg_max_op.cc,
+# top_k_op.cc, argsort_op.cc, cumsum_op.cc, metrics/accuracy_op.cc,
+# metrics/auc_op.cc)
+# ---------------------------------------------------------------------------
+
+
+@register("arg_max", no_grad=True)
+def _arg_max(ctx, ins, attrs):
+    (x,) = ins["X"]
+    # the first index of the largest value, as jnp.argmax
+    return {"Out": [torch.argmax(x, dim=int(attrs.get("axis", -1))).to(torch.int32)]}
+
+
+@register("arg_min", no_grad=True)
+def _arg_min(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [torch.argmin(x, dim=int(attrs.get("axis", -1))).to(torch.int32)]}
+
+
+@register("top_k", no_grad=True)
+def _top_k(ctx, ins, attrs):
+    """The k largest along the last axis, tied values in index order (as
+    lax.top_k; torch.topk leaves the order of ties open), from a stable
+    descending sort."""
+    (x,) = ins["X"]
+    k = int(attrs["k"])
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int32)]}
+
+
+@register("argsort", no_grad=True)
+def _argsort(ctx, ins, attrs):
+    (x,) = ins["X"]
+    vals, idx = torch.sort(x, dim=int(attrs.get("axis", -1)), stable=True)
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
+
+
+@register("cumsum")
+def _cumsum(ctx, ins, attrs):
+    (x,) = ins["X"]
+    axis = int(attrs.get("axis", -1)) % x.dim()
+    rev = attrs.get("reverse", False)
+    out = torch.cumsum(torch.flip(x, (axis,)) if rev else x, dim=axis)
+    if rev:
+        out = torch.flip(out, (axis,))
+    if attrs.get("exclusive", False):
+        pad = [0, 0] * (x.dim() - 1 - axis) + [1, 0]
+        out = torch.nn.functional.pad(out, pad).narrow(axis, 0, x.shape[axis])
+    return {"Out": [out]}
+
+
+@register("accuracy", no_grad=True)
+def _accuracy(ctx, ins, attrs):
+    """Top-k accuracy from top_k's Indices: Accuracy (f32), Correct and
+    Total (int32), each of shape [1]."""
+    (indices,) = ins["Indices"]
+    (label,) = ins["Label"]
+    correct = torch.any(indices == label.to(indices.dtype), dim=-1)
+    num_correct = torch.sum(correct.float())
+    total = indices.shape[0]
+    return {
+        "Accuracy": [(num_correct / total).reshape((1,))],
+        "Correct": [num_correct.to(torch.int32).reshape((1,))],
+        "Total": [torch.full((1,), total, dtype=torch.int32, device=indices.device)],
+    }
+
+
+@register("auc", no_grad=True)
+def _auc(ctx, ins, attrs):
+    """Streaming AUC (reference metrics/auc_op.cc, the JAX lowering's
+    expressions): positives and negatives histogrammed into threshold
+    buckets and added to StatPos / StatNeg, the area by the trapezoidal
+    rule over the descending cumulative counts."""
+    (predict,) = ins["Predict"]
+    (label,) = ins["Label"]
+    stat_pos, stat_neg = ins["StatPos"][0], ins["StatNeg"][0]
+    n = int(attrs.get("num_thresholds", 4095))
+    bucket = torch.clamp((predict[:, -1] * n).to(torch.int32), 0, n).long()
+    is_pos = (label.reshape(-1) > 0).float()
+    zeros = torch.zeros(n + 1, dtype=torch.float32, device=predict.device)
+    pos_hist = zeros.index_put((bucket,), is_pos, accumulate=True)
+    neg_hist = zeros.index_put((bucket,), 1.0 - is_pos, accumulate=True)
+    sp = stat_pos + pos_hist
+    sn = stat_neg + neg_hist
+    tp = torch.cumsum(torch.flip(sp, (0,)), 0)
+    fp = torch.cumsum(torch.flip(sn, (0,)), 0)
+    tot_pos, tot_neg = tp[-1], fp[-1]
+    tp0 = torch.cat([zeros[:1], tp[:-1]])
+    fp0 = torch.cat([zeros[:1], fp[:-1]])
+    area = torch.sum((fp - fp0) * (tp + tp0) / 2.0)
+    auc = torch.where(tot_pos * tot_neg > 0, area / (tot_pos * tot_neg + 1e-12),
+                      torch.zeros_like(area))
+    return {"AUC": [auc.reshape((1,))], "StatPosOut": [sp], "StatNegOut": [sn]}
+
+
 # ---------------------------------------------------------------------------
 # shape manipulation and lookup (reference: reshape_op.cc, transpose_op.cc,
 # gather_op.cc, lookup_table_op.cc)
@@ -402,6 +656,45 @@ def _transpose(ctx, ins, attrs):
 def _transpose2(ctx, ins, attrs):
     (x,) = ins["X"]
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
+
+
+@register("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(list(ins["X"]), dim=int(attrs.get("axis", 0)))]}
+
+
+@register("flatten")
+def _flatten(ctx, ins, attrs):
+    (x,) = ins["X"]
+    axis = int(attrs.get("axis", 1))
+    lead = prod(x.shape[:axis]) if axis > 0 else 1
+    return {"Out": [x.reshape(lead, -1)]}
+
+
+@register("flatten2")
+def _flatten2(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": _flatten(ctx, ins, attrs)["Out"], "XShape": [_xshape(x)]}
+
+
+@register("one_hot", no_grad=True)
+def _one_hot(ctx, ins, attrs):
+    """f32 rows; an id outside [0, depth) gives a zero row, as
+    jax.nn.one_hot does."""
+    (x,) = ins["X"]
+    depth = int(attrs["depth"])
+    flat = x.reshape(x.shape[:-1]) if x.shape[-1] == 1 else x
+    iota = torch.arange(depth, device=x.device)
+    return {"Out": [(flat.long()[..., None] == iota).float()]}
+
+
+@register("reverse")
+def _reverse(ctx, ins, attrs):
+    (x,) = ins["X"]
+    axes = attrs["axis"]
+    if isinstance(axes, int):
+        axes = [axes]
+    return {"Out": [torch.flip(x, tuple(int(a) for a in axes))]}
 
 
 @register("gather")
@@ -483,6 +776,159 @@ def _lookup_table_grad(ctx, ins, attrs):
     dw.index_put_((torch.where(mask, flat, torch.zeros_like(flat)),), rows.float(),
                   accumulate=True)
     return {"W@GRAD": [dw.to(d2.dtype)]}
+
+
+# ---------------------------------------------------------------------------
+# convolution / pooling / batch_norm (reference conv_op.cc, pool_op.cc,
+# batch_norm_op.cc; the JAX package lowers them to lax.conv_general_dilated
+# and lax.reduce_window outside any Pallas kernel, so here they are library
+# calls: cuDNN on the card)
+# ---------------------------------------------------------------------------
+
+
+def _conv_args(attrs):
+    return dict(
+        stride=[int(v) for v in attrs.get("strides", [1, 1])],
+        padding=[int(v) for v in attrs.get("paddings", [0, 0])],
+        dilation=[int(v) for v in attrs.get("dilations", [1, 1])],
+        groups=int(attrs.get("groups", 1) or 1),
+    )
+
+
+@register("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """NCHW input, OIHW filter (I = C / groups), symmetric paddings."""
+    (x,) = ins["Input"]
+    (w,) = ins["Filter"]
+    return {"Output": [torch.nn.functional.conv2d(x, w, None, **_conv_args(attrs))]}
+
+
+@register("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs):
+    return _conv2d(ctx, ins, attrs)
+
+
+def _grad_wanted(ctx, slot):
+    """Whether the grad op being lowered writes `slot` (a lowering called
+    with no op, as in shape inference, computes every grad)."""
+    op = ctx.op
+    if op is None or slot not in op.outputs:
+        return op is None
+    return any(n != EMPTY_VAR_NAME for n in op.outputs[slot])
+
+
+def _conv2d_grad(ctx, ins, attrs):
+    """Explicit grad of conv2d: dgrad and wgrad from the saved input and
+    filter in one convolution_backward, without running the forward again
+    (the generic grad replays it under torch.func.vjp), and each only where
+    the grad op writes it (a first layer's input takes no dgrad)."""
+    (x,) = ins["Input"]
+    (w,) = ins["Filter"]
+    (dy,) = ins["Output@GRAD"]
+    a = _conv_args(attrs)
+    want_x, want_w = _grad_wanted(ctx, "Input@GRAD"), _grad_wanted(ctx, "Filter@GRAD")
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dy.to(x.dtype), x, w, None, a["stride"], a["padding"], a["dilation"], False,
+        [0, 0], a["groups"], [want_x, want_w, False])
+    out = {}
+    if want_x:
+        out["Input@GRAD"] = [dx]
+    if want_w:
+        out["Filter@GRAD"] = [dw]
+    return out
+
+
+register("conv2d_grad", no_grad=True)(_conv2d_grad)
+register("depthwise_conv2d_grad", no_grad=True)(_conv2d_grad)
+
+
+def _pool_window(x, attrs):
+    ksize = [int(k) for k in attrs.get("ksize", [2, 2])]
+    strides = [int(v) for v in attrs.get("strides", ksize)]
+    paddings = [int(v) for v in attrs.get("paddings", [0, 0])]
+    if attrs.get("global_pooling", False) or (
+        attrs.get("adaptive", False) and list(attrs.get("ksize")) == [1, 1]
+    ):
+        ksize = [x.shape[2], x.shape[3]]
+        strides, paddings = ksize, [0, 0]
+    return ksize, strides, paddings
+
+
+@register("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """The JAX lowering's contract (lax.reduce_window over symmetric
+    paddings, floor output sizes, no ceil_mode): max pads with -inf and its
+    grad goes to the first maximum of a window in row-major order (as the
+    select-and-scatter of reduce_window's vjp); avg divides by the window's
+    size, or by its in-bounds count when `exclusive` and padded. Global and
+    adaptive [1, 1] pooling take the whole map. Paddings past half a window,
+    which the library calls refuse, are applied explicitly first."""
+    (x,) = ins["X"]
+    F = torch.nn.functional
+    ksize, strides, paddings = _pool_window(x, attrs)
+    max_pool = attrs.get("pooling_type", "max") == "max"
+    exclusive = bool(attrs.get("exclusive", True)) and any(paddings)
+    pad = [0, 0]
+    if paddings[0] * 2 > ksize[0] or paddings[1] * 2 > ksize[1]:
+        pad = [paddings[1], paddings[1], paddings[0], paddings[0]]
+        paddings = [0, 0]
+    if max_pool:
+        if any(pad):
+            x = F.pad(x, pad, value=float("-inf"))
+        return {"Out": [F.max_pool2d(x, ksize, strides, paddings)]}
+    if not any(pad):
+        return {"Out": [F.avg_pool2d(x, ksize, strides, paddings,
+                                     count_include_pad=not exclusive)]}
+    s = F.avg_pool2d(F.pad(x, pad), ksize, strides, 0, divisor_override=1)
+    if not exclusive:
+        return {"Out": [s / (ksize[0] * ksize[1])]}
+    ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+    cnt = F.avg_pool2d(ones, ksize, strides, 0, divisor_override=1)
+    return {"Out": [s / cnt]}
+
+
+@register("batch_norm")
+def _batch_norm(ctx, ins, attrs):
+    """The JAX lowering's batch_norm (core_ops.py:1346-1390), not
+    torch.nn.functional.batch_norm: in training the batch variance is the
+    biased E[x^2] - E[x]^2 in f32, the running variance moves toward that
+    biased value, and SavedVariance is the inverse std; with is_test or
+    use_global_stats the running stats normalize and pass through.
+    MeanOut / VarianceOut are the persistable Mean / Variance, written back
+    every step."""
+    (x,) = ins["X"]
+    (scale,) = ins["Scale"]
+    (bias,) = ins["Bias"]
+    (mean,) = ins["Mean"]
+    (var,) = ins["Variance"]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    is_test = bool(attrs.get("is_test", False)) or bool(attrs.get("use_global_stats", False))
+    c_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != c_axis)
+    cshape = [1] * x.dim()
+    cshape[c_axis] = x.shape[c_axis]
+    if is_test:
+        use_mean, use_var = mean, var
+        saved_mean, saved_var, mean_out, var_out = mean, var, mean, var
+    else:
+        xf = x.float()
+        bmean = torch.mean(xf, dim=axes)
+        bvar = torch.mean(torch.square(xf), dim=axes) - torch.square(bmean)
+        use_mean, use_var = bmean, bvar
+        saved_mean = bmean
+        saved_var = 1.0 / torch.sqrt(bvar + eps)
+        mean_out = mean * momentum + bmean * (1 - momentum)
+        var_out = var * momentum + bvar * (1 - momentum)
+    inv = torch.rsqrt(use_var.reshape(cshape) + eps)
+    y = (x - use_mean.reshape(cshape)) * inv * scale.reshape(cshape) + bias.reshape(cshape)
+    return {
+        "Y": [y.to(x.dtype)],
+        "MeanOut": [mean_out],
+        "VarianceOut": [var_out],
+        "SavedMean": [saved_mean],
+        "SavedVariance": [saved_var],
+    }
 
 
 @register("layer_norm")
@@ -597,6 +1043,48 @@ def _opt_f32(fn):
     return wrapped
 
 
+def _p(ins, slot):
+    return ins[slot][0]
+
+
+@register("sgd", no_grad=True)
+@_opt_f32
+def _sgd(ctx, ins, attrs):
+    p, g, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate")
+    return {"ParamOut": [p - lr.reshape(()).to(p.dtype) * g]}
+
+
+@register("momentum", no_grad=True)
+@_opt_f32
+def _momentum(ctx, ins, attrs):
+    """v = mu v + g; p -= lr v, or with Nesterov p -= (g + mu v) lr (the
+    JAX lowering's forms and operand order)."""
+    p, g, v, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "Velocity"), _p(ins, "LearningRate")
+    mu = attrs["mu"]
+    lr = lr.reshape(()).to(p.dtype)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
+
+
+@register("lars_momentum", no_grad=True)
+@_opt_f32
+def _lars_momentum(ctx, ins, attrs):
+    p, g, v, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "Velocity"), _p(ins, "LearningRate")
+    mu = attrs["mu"]
+    lars_coeff = attrs.get("lars_coeff", 0.001)
+    lars_wd = attrs.get("lars_weight_decay", 0.0005)
+    lr = lr.reshape(()).float()
+    pn = torch.sqrt(torch.sum(torch.square(p.float())))
+    gn = torch.sqrt(torch.sum(torch.square(g.float())))
+    local_lr = torch.where((pn > 0) & (gn > 0), lr * lars_coeff * pn / (gn + lars_wd * pn), lr)
+    v_out = mu * v + local_lr * (g + lars_wd * p)
+    return {"ParamOut": [p - v_out], "VelocityOut": [v_out]}
+
+
 @register("adam", no_grad=True)
 @_opt_f32
 def _adam(ctx, ins, attrs):
@@ -612,3 +1100,91 @@ def _adam(ctx, ins, attrs):
     lr_t = lr * torch.sqrt(1 - b2p.reshape(())) / (1 - b1p.reshape(()))
     p_out = p - lr_t * m1o / (torch.sqrt(m2o) + eps)
     return {"ParamOut": [p_out], "Moment1Out": [m1o], "Moment2Out": [m2o]}
+
+
+@register("adagrad", no_grad=True)
+@_opt_f32
+def _adagrad(ctx, ins, attrs):
+    p, g, lr, mom = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate"), _p(ins, "Moment")
+    eps = attrs.get("epsilon", 1e-6)
+    mom_out = mom + torch.square(g)
+    p_out = p - lr.reshape(()) * g / (torch.sqrt(mom_out) + eps)
+    return {"ParamOut": [p_out], "MomentOut": [mom_out]}
+
+
+@register("decayed_adagrad", no_grad=True)
+@_opt_f32
+def _decayed_adagrad(ctx, ins, attrs):
+    p, g, lr, mom = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate"), _p(ins, "Moment")
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mom_out = decay * mom + (1 - decay) * torch.square(g)
+    p_out = p - lr.reshape(()) * g / (torch.sqrt(mom_out) + eps)
+    return {"ParamOut": [p_out], "MomentOut": [mom_out]}
+
+
+@register("rmsprop", no_grad=True)
+@_opt_f32
+def _rmsprop(ctx, ins, attrs):
+    p, g, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate")
+    ms, mom = _p(ins, "MeanSquare"), _p(ins, "Moment")
+    eps = attrs.get("epsilon", 1e-10)
+    decay = attrs.get("decay", 0.9)
+    momentum = attrs.get("momentum", 0.0)
+    lr = lr.reshape(())
+    ms_out = decay * ms + (1 - decay) * torch.square(g)
+    if attrs.get("centered", False):
+        mg = _p(ins, "MeanGrad")
+        mg_out = decay * mg + (1 - decay) * g
+        mom_out = momentum * mom + lr * g / torch.sqrt(ms_out - torch.square(mg_out) + eps)
+        return {"ParamOut": [p - mom_out], "MeanSquareOut": [ms_out],
+                "MomentOut": [mom_out], "MeanGradOut": [mg_out]}
+    mom_out = momentum * mom + lr * g / torch.sqrt(ms_out + eps)
+    return {"ParamOut": [p - mom_out], "MeanSquareOut": [ms_out], "MomentOut": [mom_out]}
+
+
+@register("adadelta", no_grad=True)
+@_opt_f32
+def _adadelta(ctx, ins, attrs):
+    p, g = _p(ins, "Param"), _p(ins, "Grad")
+    avg_sq_g, avg_sq_u = _p(ins, "AvgSquaredGrad"), _p(ins, "AvgSquaredUpdate")
+    rho, eps = attrs.get("rho", 0.95), attrs.get("epsilon", 1e-6)
+    asg = rho * avg_sq_g + (1 - rho) * torch.square(g)
+    update = -torch.sqrt((avg_sq_u + eps) / (asg + eps)) * g
+    asu = rho * avg_sq_u + (1 - rho) * torch.square(update)
+    return {"ParamOut": [p + update], "AvgSquaredGradOut": [asg],
+            "AvgSquaredUpdateOut": [asu]}
+
+
+@register("adamax", no_grad=True)
+@_opt_f32
+def _adamax(ctx, ins, attrs):
+    p, g, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate")
+    mom, inf_norm, b1p = _p(ins, "Moment"), _p(ins, "InfNorm"), _p(ins, "Beta1Pow")
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    mom_out = b1 * mom + (1 - b1) * g
+    inf_out = torch.maximum(b2 * inf_norm, torch.abs(g))
+    lr_t = lr.reshape(()) / (1 - b1p.reshape(()))
+    p_out = p - lr_t * mom_out / (inf_out + eps)
+    return {"ParamOut": [p_out], "MomentOut": [mom_out], "InfNormOut": [inf_out]}
+
+
+@register("ftrl", no_grad=True)
+@_opt_f32
+def _ftrl(ctx, ins, attrs):
+    p, g, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate")
+    sq_acc, lin_acc = _p(ins, "SquaredAccumulator"), _p(ins, "LinearAccumulator")
+    l1, l2 = attrs.get("l1", 0.0), attrs.get("l2", 0.0)
+    lr_power = attrs.get("lr_power", -0.5)
+    lr = lr.reshape(())
+    new_acc = sq_acc + torch.square(g)
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_acc) - torch.sqrt(sq_acc)) / lr
+        x_den = l2 + torch.sqrt(new_acc) / lr
+    else:
+        sigma = (torch.pow(new_acc, -lr_power) - torch.pow(sq_acc, -lr_power)) / lr
+        x_den = l2 + torch.pow(new_acc, -lr_power) / lr
+    lin_out = lin_acc + g - sigma * p
+    p_out = (torch.clamp(lin_out, -l1, l1) - lin_out) / x_den
+    return {"ParamOut": [p_out], "SquaredAccumOut": [new_acc], "LinearAccumOut": [lin_out]}

@@ -42,6 +42,10 @@ _META_ATTRS = (
 
 EMPTY_VAR_NAME = "@EMPTY@"  # reference core.kEmptyVarName
 
+# cuDNN restricted to deterministic algorithms on the card (LowerCtx); a
+# measurement may clear it to time what the restriction costs
+CUDNN_DETERMINISTIC = True
+
 # passes.builtin.FuseElemwiseActPass tags matmul/conv+add[+act] chains with
 # this attr. The JAX package lowers such a run inside one named scope as an
 # XLA fusion hint; an eager interpreter has nothing to fuse, so here the run
@@ -179,6 +183,12 @@ class LowerCtx:
             # caller set: the parity tolerances assume no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            # cuDNN's algorithms chosen by its heuristics, never by timing,
+            # and only deterministic ones (no atomic sums in dgrad or
+            # wgrad): a step gives the same bits on the graph path and op
+            # by op
+            torch.backends.cudnn.benchmark = False
+            torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
 
     def op_constant(self, make):
         """The current op's constant tensor, made by `make()` at the op's
@@ -333,6 +343,25 @@ def lower_run(ctx, run, env):
         _lower_one(ctx, run[0], env)
     else:
         _lower_pallas_run(ctx, run, env)
+
+
+def dead_after(runs, keep=()):
+    """For each unit of `runs` (op_runs' units), the names no later unit
+    reads or writes, so a block that runs them can drop its references
+    once the unit has run: an intermediate lives from its op to its last
+    reader, as in a compiled step's buffer assignment, and a captured
+    graph's pool reuses its memory. Names in `keep` (fetches, state written
+    back) are never dropped."""
+    last = {}
+    for i, run in enumerate(runs):
+        for op in run:
+            for n in op.input_arg_names + op.output_arg_names:
+                last[n] = i
+    dead = [[] for _ in runs]
+    for n, i in last.items():
+        if n not in keep and n != EMPTY_VAR_NAME:
+            dead[i].append(n)
+    return dead
 
 
 def lower_ops(ctx, ops, env):

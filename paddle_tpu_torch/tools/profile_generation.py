@@ -49,17 +49,15 @@ PROMPT_LENS = (40, 131, 217, 305, 388, 472, 569, 700)
 SEED = 0
 
 
-class _OpTimer:
+class _Lowerings:
     """Wraps every registered lowering, and every fused family's lowering,
-    with a host clock; the totals are the host time each op type takes on
-    the op-by-op path (a replayed graph calls no lowering). A
-    lowering called from inside another (a generic grad replays its forward
-    op's lowering under torch.func.vjp) counts toward the outer op only."""
+    in `self.around(name, call)` while entered. Only the outermost call is
+    wrapped: a lowering called from inside another (a generic grad replays
+    its forward op's lowering under torch.func.vjp) counts toward the outer
+    op."""
 
     def __init__(self, registry):
         self.registry = registry
-        self.ms = defaultdict(float)
-        self.calls = defaultdict(int)
         self._depth = 0
         self._saved_ops, self._saved_fused = {}, {}
 
@@ -67,25 +65,21 @@ class _OpTimer:
         for name, opdef in self.registry.OPS.items():
             if opdef.lower is not None:
                 self._saved_ops[name] = opdef.lower
-                opdef.lower = self._timed(name, opdef.lower)
+                opdef.lower = self._wrapped(name, opdef.lower)
         for fam, fn in self.registry.FUSED_LOWERINGS.items():
             self._saved_fused[fam] = fn
-            self.registry.FUSED_LOWERINGS[fam] = self._timed("fused:" + fam, fn)
+            self.registry.FUSED_LOWERINGS[fam] = self._wrapped("fused:" + fam, fn)
         return self
 
-    def _timed(self, name, fn):
+    def _wrapped(self, name, fn):
         def lower(*args):
             if self._depth:
                 return fn(*args)
             self._depth += 1
-            t0 = time.perf_counter()
             try:
-                out = fn(*args)
+                return self.around(name, lambda: fn(*args))
             finally:
                 self._depth -= 1
-            self.ms[name] += (time.perf_counter() - t0) * 1e3
-            self.calls[name] += 1
-            return out
 
         return lower
 
@@ -94,6 +88,23 @@ class _OpTimer:
             self.registry.OPS[name].lower = fn
         self.registry.FUSED_LOWERINGS.update(self._saved_fused)
         return False
+
+
+class _OpTimer(_Lowerings):
+    """The host time each op type's lowering takes on the op-by-op path (a
+    replayed graph calls no lowering)."""
+
+    def __init__(self, registry):
+        super().__init__(registry)
+        self.ms = defaultdict(float)
+        self.calls = defaultdict(int)
+
+    def around(self, name, call):
+        t0 = time.perf_counter()
+        out = call()
+        self.ms[name] += (time.perf_counter() - t0) * 1e3
+        self.calls[name] += 1
+        return out
 
 
 def card_line():

@@ -1,9 +1,11 @@
 """Where a training step's time goes, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_training [--steps 10] \
-        [--per-op] [--out profile_training.json]
+        [--model transformer|lenet|resnet50] [--per-op] \
+        [--out profile_training.json]
 
-Profiles the two training configurations, one after the other: the
+With --model transformer (the default), profiles the two Transformer
+configurations, one after the other: the
 Transformer of models/transformer.py at the widths of Transformer base
 (Vaswani et al. 2017, Table 3 "base": N=6, d_model=512, d_ff=2048, h=8,
 d_k=d_v=64, P_drop=0.1, eps_ls=0.1), separate source and target
@@ -31,21 +33,37 @@ busy share of the bare wall, the launches and the top kernels). With
 each op type's lowering and each fused family's lowering) on the op-by-op
 path: FLAGS_profile_ops inside profiler.profiler().
 
-Prints one summary line per configuration and path and writes both
+With --model lenet: the fluid book script's LeNet-5 (models/lenet.py)
+under Adam 1e-3 and training_fused, fed batches of 64 from
+batch(reader.shuffle(dataset.mnist.train(), 500), 64) through a
+DataFeeder. With --model resnet50: ResNet-50 at its published widths (He et
+al. 2016, Table 1, the 50-layer column: bottlenecks [3, 4, 6, 3], filters
+64-512 (x4), 3 x 224 x 224 inputs, 1000 classes; models/resnet.py) under
+Momentum(0.1, 0.9) in f32, the JAX package's headline bench (bench.py:23-37,
+63-72), on synthetic feeds from a seed staged on the card and cycled. For
+both, with --per-op, the op-by-op path's device time is also split by op
+type (each lowering in a torch.profiler range, its kernels summed under
+it), and the convolution grads by their kernels (dgrad, wgrad).
+
+Prints one summary line per configuration and path and writes the
 breakdowns as JSON, under the configurations' names. Exits non-zero
 without a CUDA device.
 """
 
 import argparse
+import bisect
+import itertools
 import json
 import os
+import random
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
 
-from .profile_generation import card_line, profile_window
+from .profile_generation import _Lowerings, card_line, op_by_op, profile_window
 
 BASE = dict(n_layer=6, n_head=8, d_model=512, d_inner=2048, d_key=64, d_value=64,
             vocab=37000, batch=16, t=256, dropout=0.1)
@@ -56,6 +74,10 @@ FEED_NAMES = ("src_word", "src_pos", "trg_word", "trg_pos", "src_slf_attn_bias",
 LEARNING_RATE = 1e-3
 SEED = 0
 PIPELINE = "training_fused"
+# the book script's LeNet-5 (tests/test_mnist.py) and the JAX package's
+# ResNet-50 bench (bench.py:23-39): batch 256, Momentum(0.1, 0.9), f32
+LENET = dict(batch=64, lr=1e-3, shuffle=500)
+RESNET50 = dict(batch=256, lr=0.1, momentum=0.9, staged=4)
 
 
 def build(cfg, lr=LEARNING_RATE):
@@ -117,6 +139,157 @@ def make_batch(cfg, seed):
         batch["trg_slf_attn_bias"] = transformer.make_attn_bias(lens, t, h, causal=True)
         batch["trg_src_attn_bias"] = transformer.make_attn_bias(lens, t, h)
     return batch
+
+
+def build_lenet(lr=LENET["lr"]):
+    """The book script: LeNet-5 of models/lenet.py through the fluid
+    surface, its for_test clone taken before Adam minimizes the loss.
+    Returns a dict of the programs and the variables a script touches."""
+    from .. import fluid
+    from ..models import lenet5
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[1, 28, 28], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        loss, acc, logits = lenet5(img, label)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return dict(main=main, startup=startup, test=test, img=img, label=label, loss=loss,
+                acc=acc, logits=logits)
+
+
+def mnist_reader(batch_size=LENET["batch"], seed=SEED, test=False):
+    """batch(reader.shuffle(dataset.mnist.train(), 500), batch_size), each
+    784-float image reshaped to the model's [1, 28, 28], shuffled from
+    `seed` (test: the test stream, unshuffled)."""
+    from .. import fluid
+
+    stream = fluid.dataset.mnist.test() if test else fluid.dataset.mnist.train()
+    samples = fluid.reader.map_readers(lambda s: (s[0].reshape(1, 28, 28), s[1]), stream)
+    if test:
+        return fluid.batch(samples, batch_size)
+    shuffled = fluid.reader.shuffle(samples, LENET["shuffle"])
+
+    def reader():
+        random.seed(seed)
+        return shuffled()
+
+    return fluid.batch(reader, batch_size)
+
+
+def lenet_feeds(model, n, place, batch_size=LENET["batch"], seed=SEED):
+    """The first n feed dicts of mnist_reader through a DataFeeder."""
+    from .. import fluid
+
+    feeder = fluid.DataFeeder([model["img"], model["label"]], place=place,
+                              program=model["main"])
+    return [feeder.feed(b) for b in itertools.islice(mnist_reader(batch_size, seed)(), n)]
+
+
+def build_resnet50(lr=RESNET50["lr"], momentum=RESNET50["momentum"]):
+    """ResNet-50 (models/resnet.py) under Momentum, as bench.py builds it."""
+    from .. import fluid
+    from ..models import resnet50
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, 224, 224], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        loss, acc, logits = resnet50(img, label)
+        fluid.optimizer.Momentum(learning_rate=lr, momentum=momentum).minimize(loss)
+    return dict(main=main, startup=startup, img=img, label=label, loss=loss, acc=acc,
+                logits=logits)
+
+
+def resnet50_feeds(device, batch=RESNET50["batch"], n=RESNET50["staged"], seed=SEED):
+    """n synthetic batches from the seed (normal images, uniform labels),
+    staged on the device once and cycled, as bench.py stages its batches:
+    a step reads them there with no host copy."""
+    rng = np.random.RandomState(seed)
+    return [{"img": torch.from_numpy(rng.randn(batch, 3, 224, 224).astype("float32")).to(device),
+             "label": torch.from_numpy(rng.randint(0, 1000, (batch, 1)).astype("int64")).to(device)}
+            for _ in range(n)]
+
+
+class _OpRanges(_Lowerings):
+    """Every lowering in a torch.profiler range named "op::<type>"."""
+
+    def around(self, name, call):
+        with torch.profiler.record_function("op::" + name):
+            return call()
+
+
+# the busy split's categories: op types whose device time each sums
+SPLIT = (
+    ("conv_forward", ("conv2d", "depthwise_conv2d")),
+    ("conv_backward", ("conv2d_grad", "depthwise_conv2d_grad")),
+    ("batch_norm_forward", ("batch_norm",)),
+    ("batch_norm_backward", ("batch_norm_grad",)),
+    ("pooling", ("pool2d", "pool2d_grad")),
+    ("optimizer", ("momentum", "adam", "fused:multi_adam", "scale")),
+    ("fc", ("mul", "mul_grad", "fused:gemm_epilogue")),
+    ("elementwise", ("relu", "relu_grad", "elementwise_add", "elementwise_add_grad", "sum",
+                     "fill_constant")),
+)
+
+
+def op_device_split(step, batches, registry):
+    """Device ms a step by op type on the op-by-op path (one step per batch,
+    every lowering in its profiler range, a device sync after each op),
+    the categories of SPLIT (the convolution grads also split by their
+    kernels' names into dgrad and wgrad) and the top kernels of each
+    category. A kernel belongs to the last op whose range began before it
+    started: the sync after each op keeps one op's kernels from running
+    into the next op's range, and a generic grad's backward kernels,
+    launched from the autograd engine's own thread, are found by time where
+    the range's own thread does not show them."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with op_by_op(), _OpRanges(registry):
+        with torch.profiler.profile(activities=acts) as prof:
+            for b in batches:
+                step(b)
+    n = len(batches)
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.name[len("op::"):]) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.startswith("op::"))
+    starts = [r[0] for r in ranges]
+    by_op = defaultdict(float)
+    kernels = defaultdict(lambda: defaultdict(float))
+    for e in events:
+        # the device timeline also carries each range as an annotation of
+        # its own: only kernels and copies count
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith("op::"):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        op = ranges[i][1] if i >= 0 else "(before the first op)"
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / n
+        by_op[op] += ms
+        kernels[op][e.name] += ms
+    split, top = {}, {}
+    for cat, ops in SPLIT:
+        split[cat] = sum(by_op.get(o, 0.0) for o in ops)
+        ks = defaultdict(float)
+        for o in ops:
+            for name, ms in kernels[o].items():
+                ks[name] += ms
+        top[cat] = dict(sorted(ks.items(), key=lambda kv: -kv[1])[:4])
+    known = {o for _, ops in SPLIT for o in ops}
+    split["other"] = sum(v for o, v in by_op.items() if o not in known)
+    conv_bwd = defaultdict(float)
+    for o in ("conv2d_grad", "depthwise_conv2d_grad"):
+        for name, ms in kernels[o].items():
+            low = name.lower()
+            conv_bwd["dgrad" if "dgrad" in low else "wgrad" if "wgrad" in low else
+                     "other kernels"] += ms
+    return {
+        "device_ms_per_step": sum(by_op.values()),
+        "by_category": split,
+        "conv_backward_by_kernel_name": dict(conv_bwd),
+        "by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
+        "top_kernels_by_category": top,
+    }
 
 
 def target_tokens(batch):
@@ -188,21 +361,93 @@ def profile_config(name, cfg, steps, card, per_op=False):
     return res
 
 
+def profile_cnn(name, steps, card, per_op=False):
+    """The breakdown of `steps` steady graph steps of LeNet-5 or ResNet-50
+    under training_fused (after the op-by-op warmup and the capture), in
+    images/s; with per_op, the op-by-op path's windows and its device time
+    split by op type (op_device_split)."""
+    from .. import CUDAPlace, Executor, Scope, flags, scope_guard
+    from ..ops import registry
+
+    place = CUDAPlace(0)
+    if name == "lenet":
+        batch = LENET["batch"]
+        model = build_lenet()
+        batches = lenet_feeds(model, steps + 2, place)
+    else:
+        batch = RESNET50["batch"]
+        model = build_resnet50()
+        batches = resnet50_feeds(torch.device("cuda", 0))
+    flags.set_flags({"pass_pipeline": PIPELINE})
+    scope, exe = Scope(seed=SEED, place=place), Executor(place)
+
+    def step(b):
+        exe.run(model["main"], feed=b, fetch_list=[model["loss"].name])
+
+    window = [batches[i % len(batches)] for i in range(2, steps + 2)]
+    with scope_guard(scope):
+        exe.run(model["startup"])
+        for b in batches[:2]:
+            step(b)  # the op-by-op warmup (which applies the pipeline), then the capture
+        torch.cuda.synchronize()
+        res = profile_steps(step, window, registry)
+        if per_op:
+            # the graph and its pool go first: ResNet-50's step does not fit
+            # twice on the card
+            exe.close()
+            torch.cuda.empty_cache()
+            with op_by_op():
+                res["op_by_op"] = profile_steps(step, window, registry)
+            res["op_by_op"]["split"] = op_device_split(step, window[:2], registry)
+    res.update(card=card, pipeline=PIPELINE, batch=batch,
+               images_per_s=batch * len(window) / (res["wall_ms_total"] / 1e3),
+               memory_max_reserved_gib=torch.cuda.max_memory_reserved() / float(1 << 30))
+    print("train step %s (%s, graph): wall p50 %.3f ms; %.1f images/s over the %d steps; device "
+          "busy %.3f ms a step (%.3f of the wall p50), %s launches; max reserved %.3f GiB; card "
+          "%s" % (name, PIPELINE, res["wall_ms_p50"], res["images_per_s"], len(window),
+                  res["device_busy_ms_per_step"], res["device_busy_share"],
+                  res["device_launches_per_step"], res["memory_max_reserved_gib"], card),
+          flush=True)
+    if per_op:
+        split = res["op_by_op"]["split"]
+        print("train step %s (op by op): device %.3f ms a step by op type, split %s; conv grads "
+              "by kernel name %s; card %s" % (
+                  name, split["device_ms_per_step"],
+                  json.dumps({k: round(v, 3) for k, v in split["by_category"].items()}),
+                  json.dumps({k: round(v, 3) for k, v in
+                              split["conv_backward_by_kernel_name"].items()}), card),
+              flush=True)
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--model", choices=("transformer", "lenet", "resnet50"),
+                    default="transformer")
     ap.add_argument("--per-op", action="store_true",
                     help="also profile the op-by-op path (FLAGS_profile_ops under the profiler)")
+    ap.add_argument("--cudnn-nondeterministic", action="store_true",
+                    help="let cuDNN take non-deterministic algorithms (to time what the "
+                         "deterministic ones cost)")
     ap.add_argument("--out", default="profile_training.json")
     args = ap.parse_args(argv)
+    if args.cudnn_nondeterministic:
+        from ..ops import registry
+
+        registry.CUDNN_DETERMINISTIC = False
     if not torch.cuda.is_available():
         print("profile_training: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
     res = {}
-    for name, cfg in CONFIGS.items():
-        res[name] = profile_config(name, cfg, args.steps, card, args.per_op)
-        torch.cuda.empty_cache()
+    if args.model == "transformer":
+        for name, cfg in CONFIGS.items():
+            res[name] = profile_config(name, cfg, args.steps, card, args.per_op)
+            torch.cuda.empty_cache()
+    else:
+        res[args.model] = profile_cnn(args.model, args.steps, card, args.per_op)
+        res[args.model]["cudnn_deterministic"] = not args.cudnn_nondeterministic
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
