@@ -159,9 +159,38 @@ Phases, each printing its own line; any failure exits non-zero:
      device busy share and launches a step, memory reserved, and the
      device time split by op type (convolution forward, dgrad and wgrad,
      batch_norm forward and backward, pooling, momentum, elementwise, fc);
-  9. the `paths` JSON line, then a `kernels` JSON line (launches on the
+  9. train lstm: the stacked dynamic-LSTM text model (models/stacked_lstm.py)
+     at the JAX bench's shape (bench.py:265-290): dict 30000, emb 512, hid
+     512, stacked_num 2, batch 64 of 100 words fed as a lod_level=1 var with
+     its @LEN companion, 2 classes, Adam(2e-3), f32, training_fused: the
+     warmup and the capture, then 6 graph steps on the full-length batch
+     and 3 on a ragged one (lengths 1-100), every loss finite, the same
+     launches and dispatches every step, 1 multi_adam launch a step; the
+     first 3 steps op by op from the same weights: the same losses bit for
+     bit and the same counters a step; tokens/s (the non-pad tokens of graph
+     steps 2-6 over their summed wall), step wall p50, device busy share,
+     launches a step, memory reserved, and the op-by-op device time split
+     into the recurrent products, the gates' elementwise work, the generic
+     grad's replayed forward, the embedding and Adam;
+ 10. train nmt: the GRU attention NMT model (models/machine_translation.py):
+     (a) the copy task of tests/test_machine_translation.py (vocab 12, 5
+     words, batch 8, Adam(1e-2), 150 graph steps; the last loss under 0.3x
+     the first) and a beam decode of the trained batch (beam 3): at least
+     4 of 8 sources copied exactly; (b) emb = hid = 512, dict 30000, 16
+     words, batch 64, Adam(1e-3): 6 graph steps, every loss finite, the
+     first 3 op by op bit for bit, the same readings as train lstm; then a
+     beam decode of one batch (beam 4, max_out_len 16) that runs op by op
+     for the stated reason open_ended_while, with finite scores and every
+     hypothesis 1-16 long, its wall and the number of ops it ran;
+ 11. schedules: each of the seven learning-rate schedules drives SGD over a
+     one-fc program for the warmup, the capture and 6 graph steps; the
+     learning rate fetched at every step equals the schedule's closed form
+     at that step (rtol 1e-6), so a replayed graph advances the step
+     counter;
+ 12. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
-     multi_adam count the Transformer's and LeNet's steps).
+     multi_adam count the Transformer's, LeNet's, the LSTM's and the NMT
+     model's steps).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -226,6 +255,10 @@ LN_BF16_TOL = 1e-2  # bf16 y and dx: one rounding of the output
 LN_EDGE_COLS = (96, 128, 512, 768, 1024, 4096, 8192, 49152)
 LN_EDGE_ROWS = (1, 7, 200, 4096)
 TRAIN_STEPS = 6  # fused steps of the training phase
+RNN_STEPS = 6  # graph steps of the LSTM and the NMT model at full width
+LSTM_RAGGED_STEPS = 3  # and the LSTM's steps on the ragged batch
+SCHEDULE_STEPS = 6  # replayed steps of each learning-rate schedule
+SCHEDULE_RTOL = 1e-6
 COMPARE_STEPS = 3  # of them compared with the unfused run
 FUSED_RTOL, FUSED_ATOL = 2e-3, 2e-4  # the JAX package's fused-vs-unfused bar
 
@@ -2879,6 +2912,291 @@ def train_resnet50(torch, card, readings):
             card))
 
 
+def _uniform_counts(label, deltas, want):
+    """Every step's counter deltas equal the first's, which hold `want`."""
+    for i, d in enumerate(deltas):
+        if d != deltas[0]:
+            raise AssertionError("%s step %d: counters %s, step 0 %s" % (label, i, d, deltas[0]))
+    for key, n in want.items():
+        if deltas[0].get(key, 0) != n:
+            raise AssertionError("%s: %s %d a step, want %d (counters %s)"
+                                 % (label, key, deltas[0].get(key, 0), n, deltas[0]))
+
+
+def _rnn_graph_reading(prof, step, walls, feeds, tokens, registry, torch):
+    """The graph path's readings of a recurrent training run: tokens/s over
+    graph steps 2-6 (walls[3:8]), the step wall p50 over the 6 graph steps
+    and the profiled busy share."""
+    window = walls[3:2 + RNN_STEPS]
+    reading = {"step_p50_ms": float(np.median(walls[2:2 + RNN_STEPS])),
+               "tokens_per_s": sum(tokens[3:2 + RNN_STEPS]) / (sum(window) / 1e3),
+               "memory_max_reserved_gib": torch.cuda.max_memory_reserved() / GIB}
+    breakdown = prof.profile_steps(step, feeds[2:4], registry)
+    reading.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                   device_busy_share=breakdown["device_busy_share"],
+                   device_launches=breakdown["device_launches_per_step"],
+                   profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+    return reading
+
+
+def _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, label):
+    """The first COMPARE_STEPS steps op by op from the same seed: the same
+    losses bit for bit and the same counters a step. Returns the op-by-op
+    reading with its device split."""
+    eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
+        torch, model, feeds[:COMPARE_STEPS], "training_fused", [model["loss"]], per_op=True)
+    _same_bits("%s loss, graph against op by op, step" % label, [o[0] for o in eager],
+               [o[0] for o in outs[:COMPARE_STEPS]])
+    if e_deltas != deltas[:COMPARE_STEPS]:
+        raise AssertionError("%s: counters a step %s on the graph path, %s op by op"
+                             % (label, deltas[:COMPARE_STEPS], e_deltas))
+    split = rnn.rnn_device_split(estep, feeds[:2], registry)
+    del estep, escope
+    torch.cuda.empty_cache()
+    return {"step_p50_ms": float(np.median(e_walls[1:])),
+            "device_ms_per_step": split["device_ms_per_step"],
+            "split": split["by_category"], "recurrent": split["recurrent"],
+            "top_ops": dict(list(split["by_op"].items())[:8])}
+
+
+def train_lstm(torch, card, readings):
+    """The stacked LSTM at the JAX bench's shape (see the module docstring,
+    phase 9). Returns the kernels' launches over the main path's steps."""
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_rnn as rnn
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    cfg = rnn.LSTM
+    t0 = time.perf_counter()
+    model = rnn.build_lstm(cfg)
+    full = rnn.lstm_feed(cfg, SEED)
+    ragged = rnn.lstm_feed(cfg, SEED + 1, ragged=True)
+    feeds = [full] * (2 + RNN_STEPS) + [ragged] * LSTM_RAGGED_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_stats()  # the main path's counting window opens here
+    t1 = time.perf_counter()
+    outs, walls, deltas, _, step, scope = _fluid_run(
+        torch, model, feeds, "training_fused", [model["loss"]])
+    launches = fused.stats()["launches"]  # and closes here
+    _uniform_counts("lstm", deltas, {("launches", "multi_adam"): 1})
+    losses = [float(o[0]) for o in outs]
+    tokens = [int(f["words@LEN"].sum()) for f in feeds]
+    t2 = time.perf_counter()
+    graph = _rnn_graph_reading(prof, step, walls, feeds, tokens, registry, torch)
+    graph["ragged_step_p50_ms"] = float(np.median(walls[2 + RNN_STEPS:]))
+    del step, scope
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    eager = _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, "lstm")
+    log("train lstm: the graph run took %.1f s (the warmup %.3f s, the capture %.3f s), its "
+        "profile %.1f s, the op-by-op run and its split %.1f s" % (
+            t2 - t1, walls[0] / 1e3, walls[1] / 1e3, t3 - t2, time.perf_counter() - t3))
+    readings["train_lstm"] = {"graph": graph, "op_by_op": eager}
+    log("train lstm: stacked dynamic LSTM %s, f32, training_fused, built and run in %.1f s; "
+        "losses (warmup, capture, %d full-length graph steps, %d ragged) %s; the same counters "
+        "every step %s; the first %d losses bit for bit op by op with the same counters; graph: "
+        "step wall p50 %.3f ms (ragged %.3f ms), %.1f tokens/s over graph steps 2-6, device "
+        "busy %s ms a step = %s of the profiled wall p50 (%.3f ms), %s launches a step, max "
+        "memory reserved %.3f GiB; op by op: step wall p50 %.3f ms, device %.3f ms a step, "
+        "split %s, recurrent %s; card %s" % (
+            json.dumps(cfg), time.perf_counter() - t0, RNN_STEPS, LSTM_RAGGED_STEPS,
+            ["%.6f" % v for v in losses], json.dumps({"%s:%s" % k: v for k, v in
+                                                      deltas[0].items()}),
+            COMPARE_STEPS, graph["step_p50_ms"], graph["ragged_step_p50_ms"],
+            graph["tokens_per_s"], graph["device_busy_ms"], graph["device_busy_share"],
+            graph["profiled_wall_p50_ms"], graph["device_launches"],
+            graph["memory_max_reserved_gib"], eager["step_p50_ms"], eager["device_ms_per_step"],
+            json.dumps({k: round(v, 3) for k, v in eager["split"].items()}),
+            json.dumps({k: round(v, 4) for k, v in eager["recurrent"].items()}), card))
+    return {k: v for k, v in launches.items() if v}
+
+
+class _CountOps:
+    """Counts every op lowered while entered, sub-block ops included (each
+    loop iteration's)."""
+
+    def __init__(self, registry):
+        self.registry = registry
+        self.n = 0
+
+    def __enter__(self):
+        self.saved = self.registry._lower_one
+
+        def lower_one(ctx, op, env):
+            self.n += 1
+            return self.saved(ctx, op, env)
+
+        self.registry._lower_one = lower_one
+        return self
+
+    def __exit__(self, *exc):
+        self.registry._lower_one = self.saved
+        return False
+
+
+def _beam_decode(torch, rnn, cfg, scope, batch):
+    """One beam decode of `batch` over the scope's trained weights with no
+    pass pipeline (its open-ended While runs op by op): (ids, scores,
+    lengths, wall ms, ops run, the op-by-op runs it added by reason)."""
+    from paddle_tpu_torch import CUDAPlace, Executor, flags, scope_guard
+    from paddle_tpu_torch.ops import registry
+
+    infer = rnn.build_nmt_infer(cfg)
+    flags.set_flags({"pass_pipeline": ""})
+    exe = Executor(CUDAPlace(0))
+    before = dict(Executor.stats()["op_by_op"])
+    with scope_guard(scope), _CountOps(registry) as count:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, scores, lens = exe.run(
+            infer["main"], feed={"src": batch["src"], "src_len": batch["src_len"]},
+            fetch_list=[infer["ids"].name, infer["scores"].name, infer["hyp_len"].name])
+        wall = (time.perf_counter() - t0) * 1e3
+    after = Executor.stats()["op_by_op"]
+    added = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    if added != {"open_ended_while": 1}:
+        raise AssertionError("beam decode: op-by-op runs added %s, want one open_ended_while"
+                             % added)
+    b, beam = cfg["batch"], cfg["beam_size"]
+    if ids.shape[:2] != (b, beam) or not np.isfinite(scores).all():
+        raise AssertionError("beam decode: ids %s, scores finite %s"
+                             % (ids.shape, np.isfinite(scores).all()))
+    if lens.min() < 1 or lens.max() > cfg["max_out_len"]:
+        raise AssertionError("beam decode: hypothesis lengths %d-%d, want 1-%d"
+                             % (lens.min(), lens.max(), cfg["max_out_len"]))
+    return ids, scores, lens, wall, count.n, added
+
+
+def train_nmt(torch, card, readings):
+    """The GRU attention NMT model (see the module docstring, phase 10).
+    Returns the kernels' launches over the full-width main path's steps."""
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_rnn as rnn
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    # (a) the copy task and its gates
+    cfg = rnn.COPY
+    t0 = time.perf_counter()
+    model = rnn.build_nmt_train(cfg)
+    batch = rnn.nmt_batch(cfg, np.random.RandomState(7))
+    outs, walls, _, _, step, scope = _fluid_run(
+        torch, model, [batch] * cfg["steps"], "training_fused", [model["loss"]])
+    losses = [float(o[0]) for o in outs]
+    if not losses[-1] < 0.3 * losses[0]:
+        raise AssertionError("nmt copy task: loss %.4f -> %.4f, want under 0.3x"
+                             % (losses[0], losses[-1]))
+    ids, scores, lens, _, _, _ = _beam_decode(torch, rnn, cfg, scope, batch)
+    n_copied = rnn.copied(batch["src"], batch["src_len"], ids, lens)
+    if n_copied < cfg["batch"] // 2:
+        raise AssertionError("nmt copy task: %d of %d sources copied" % (n_copied, cfg["batch"]))
+    log("train nmt (copy task): vocab %d, %d words, batch %d, Adam(%g), %d graph steps in "
+        "%.1f s: loss %.4f -> %.4f (< 0.3x), step wall p50 %.3f ms; beam %d decode of the "
+        "trained batch: %d of %d sources copied exactly; card %s" % (
+            cfg["dict_size"], cfg["seq_len"], cfg["batch"], cfg["lr"], cfg["steps"],
+            time.perf_counter() - t0, losses[0], losses[-1], float(np.median(walls[2:])),
+            cfg["beam_size"], n_copied, cfg["batch"], card))
+    del step, scope
+    torch.cuda.empty_cache()
+
+    # (b) full width
+    cfg = rnn.NMT
+    t0 = time.perf_counter()
+    model = rnn.build_nmt_train(cfg)
+    rng = np.random.RandomState(SEED)
+    feeds = [rnn.nmt_batch(cfg, rng) for _ in range(2 + RNN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_stats()  # the main path's counting window opens here
+    outs, walls, deltas, _, step, scope = _fluid_run(
+        torch, model, feeds, "training_fused", [model["loss"]])
+    launches = fused.stats()["launches"]  # and closes here
+    _uniform_counts("nmt", deltas, {("launches", "multi_adam"): 1})
+    losses = [float(o[0]) for o in outs]
+    tokens = [int(f["trg_len"].sum()) for f in feeds]
+    graph = _rnn_graph_reading(prof, step, walls, feeds, tokens, registry, torch)
+    ids, scores, lens, wall, n_ops, added = _beam_decode(torch, rnn, cfg, scope, feeds[0])
+    decode = {"wall_ms": wall, "ops_run": n_ops, "op_by_op": added,
+              "beam_size": cfg["beam_size"], "max_out_len": cfg["max_out_len"],
+              "hypothesis_len_min": int(lens.min()), "hypothesis_len_max": int(lens.max())}
+    del step, scope
+    torch.cuda.empty_cache()
+    eager = _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, "nmt")
+    readings["train_nmt"] = {"graph": graph, "op_by_op": eager}
+    readings["nmt_decode"] = {"op_by_op": decode}
+    log("train nmt: emb = hid = %d, dict %d, %d words, batch %d, Adam(%g), f32, "
+        "training_fused, built and run in %.1f s; losses (warmup, capture, %d graph steps) %s; "
+        "the same counters every step %s; the first %d losses bit for bit op by op with the "
+        "same counters; graph: step wall p50 %.3f ms, %.1f target tokens/s over graph steps "
+        "2-6, device busy %s ms a step = %s of the profiled wall p50 (%.3f ms), %s launches a "
+        "step, max memory reserved %.3f GiB; op by op: step wall p50 %.3f ms, device %.3f ms a "
+        "step, split %s, recurrent %s; card %s" % (
+            cfg["emb_dim"], cfg["dict_size"], cfg["seq_len"], cfg["batch"], cfg["lr"],
+            time.perf_counter() - t0, RNN_STEPS, ["%.6f" % v for v in losses],
+            json.dumps({"%s:%s" % k: v for k, v in deltas[0].items()}), COMPARE_STEPS,
+            graph["step_p50_ms"], graph["tokens_per_s"], graph["device_busy_ms"],
+            graph["device_busy_share"], graph["profiled_wall_p50_ms"], graph["device_launches"],
+            graph["memory_max_reserved_gib"], eager["step_p50_ms"], eager["device_ms_per_step"],
+            json.dumps({k: round(v, 3) for k, v in eager["split"].items()}),
+            json.dumps({k: round(v, 4) for k, v in eager["recurrent"].items()}), card))
+    log("nmt decode: beam %d, max_out_len %d, batch %d: ran op by op for %s in %.3f ms, %d ops "
+        "lowered (the While's body every step); scores finite, hypothesis lengths %d-%d; card %s"
+        % (cfg["beam_size"], cfg["max_out_len"], cfg["batch"], json.dumps(added), wall, n_ops,
+           decode["hypothesis_len_min"], decode["hypothesis_len_max"], card))
+    return {k: v for k, v in launches.items() if v}
+
+
+# (name, layer kwargs, closed form of the step counter's value k); the
+# counter starts at 0 (noam: at 1) and a run raises it first
+SCHEDULES = (
+    ("exponential_decay", dict(learning_rate=0.1, decay_steps=2, decay_rate=0.5),
+     lambda k: 0.1 * 0.5 ** (k / 2.0)),
+    ("natural_exp_decay", dict(learning_rate=0.1, decay_steps=2, decay_rate=0.5),
+     lambda k: 0.1 * np.exp(-0.5 * k / 2.0)),
+    ("inverse_time_decay", dict(learning_rate=0.1, decay_steps=2, decay_rate=0.5),
+     lambda k: 0.1 / (1.0 + 0.5 * k / 2.0)),
+    ("polynomial_decay", dict(learning_rate=0.1, decay_steps=4, end_learning_rate=0.01,
+                              power=2.0),
+     lambda k: (0.1 - 0.01) * (1.0 - min(k, 4) / 4.0) ** 2 + 0.01),
+    ("piecewise_decay", dict(boundaries=[2, 4], values=[0.1, 0.05, 0.01]),
+     lambda k: 0.1 if k < 2 else 0.05 if k < 4 else 0.01),
+    ("cosine_decay", dict(learning_rate=0.1, step_each_epoch=2, epochs=3),
+     lambda k: 0.05 * (np.cos(np.floor(k / 2.0) * np.pi / 3) + 1)),
+    ("noam_decay", dict(d_model=512, warmup_steps=3),
+     lambda k: 512 ** -0.5 * min(k ** -0.5, k * 3 ** -1.5)),
+)
+
+
+def schedules(torch, card):
+    """Each schedule drives SGD over a one-fc program: the warmup, the
+    capture and SCHEDULE_STEPS replays, the fetched learning rate against
+    the closed form at every step."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, fluid, scope_guard
+
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(4, 8).astype("float32")
+    got = {}
+    for name, kwargs, closed in SCHEDULES:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            xv = fluid.layers.data(name="x", shape=[8], dtype="float32")
+            loss = fluid.layers.mean(fluid.layers.fc(xv, size=1))
+            lr = getattr(fluid.layers, name)(**kwargs)
+            fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+        scope, exe = Scope(seed=SEED, place=CUDAPlace(0)), Executor(CUDAPlace(0))
+        with scope_guard(scope):
+            exe.run(startup)
+            lrs = [float(exe.run(main, feed={"x": x}, fetch_list=[lr.name])[0].reshape(-1)[0])
+                   for _ in range(2 + SCHEDULE_STEPS)]
+        first = 1 if name == "noam_decay" else 0
+        want = [closed(first + k) for k in range(len(lrs))]
+        if not np.allclose(lrs, want, rtol=SCHEDULE_RTOL, atol=0):
+            raise AssertionError("%s: learning rates %s, closed form %s" % (name, lrs, want))
+        got[name] = lrs
+    log("schedules: %d learning-rate schedules, each over SGD for the warmup, the capture and "
+        "%d replayed steps, equal their closed forms at every step (rtol %g): %s; card %s" % (
+            len(SCHEDULES), SCHEDULE_STEPS, SCHEDULE_RTOL,
+            json.dumps({k: ["%.7g" % v for v in vs] for k, vs in got.items()}), card))
+
+
 def main():
     import torch
 
@@ -2970,6 +3288,16 @@ def main():
             launches[name] += n
     with Phase("train resnet50"):
         train_resnet50(torch, card, paths)
+    torch.cuda.empty_cache()
+    with Phase("train lstm"):
+        for name, n in train_lstm(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    with Phase("train nmt"):
+        for name, n in train_nmt(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    with Phase("schedules"):
+        schedules(torch, card)
     # every main path on replayed CUDA graphs beside the op-by-op path
     log(json.dumps({"paths": paths, "card": card}))
     for name, n in launches.items():

@@ -31,6 +31,14 @@ batch_norm, the optimizers from SGD through Ftrl, batch(reader.shuffle(
 dataset.mnist.train())) into a DataFeeder, and checkpoints by
 io.save_persistables / load_persistables.
 
+Sequence and recurrent models: ragged inputs are padded dense with a
+`<name>@LEN` companion (layers.data(lod_level=1)); the sequence, control-
+flow, loss, decode and learning-rate layers build the stacked dynamic LSTM
+and the GRU attention NMT model (models/). Their loops run over static
+lengths on the device and capture with their step; a While without
+maximum_iterations reads its condition on the host, so its block runs op
+by op (Executor.stats()["op_by_op"]).
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
@@ -41,6 +49,7 @@ from . import (  # noqa: F401
     backward,
     clip,
     dataset,
+    evaluator,
     flags,
     framework,
     initializer,

@@ -9,10 +9,14 @@ and, on the card, captures it as a CUDA graph:
   Executor::RunPreparedContext loop, executor.cc:389-396): each op's
   lowering is one or a few eager torch calls. It runs every block on the
   CPU (which has no graphs, and is asked for explicitly), blocks that
-  create persistables (a startup program), and, on the card, only the
-  diagnosis mode: while the profiler is on and FLAGS_profile_ops is set,
-  never cached, with an event and a device sync per op (the JAX package's
-  `_PerOpProfiledBlock`, taken at the same point).
+  create persistables (a startup program), blocks that hold an open-ended
+  `while` (its condition is read on the host every iteration, which a
+  capture cannot do), and, on the card, the diagnosis mode: while the
+  profiler is on and FLAGS_profile_ops is set, never cached, with an event
+  and a device sync per op (the JAX package's `_PerOpProfiledBlock`, taken
+  at the same point). A block the card runs op by op for one of the first
+  two reasons is counted under that reason in `Executor.stats()["op_by_op"]`
+  ("creates_persistables", "open_ended_while").
 - `_CompiledBlock` is the card's form. Call 1 of a cache key runs op by op
   on a side stream: the warmup a capture needs (kernel libraries load, lazy
   buffers and the arrival counters of that stream are made, the allocator
@@ -52,6 +56,7 @@ from . import framework
 from . import profiler as _prof
 from .framework import Variable
 from .ops import registry
+from .ops.control_flow_ops import is_open_ended_while, walk_ops
 from .ops.registry import EMPTY_VAR_NAME
 from .place import to_device
 
@@ -66,6 +71,10 @@ __all__ = [
 # the place of a scope that takes its device from the first executor that
 # runs on it (the process scope)
 _UNBOUND = object()
+
+# reason -> runs of blocks the card ran op by op instead of capturing
+# (_PerOpProfiledBlock.capture_declined)
+OP_BY_OP = {}
 
 
 class Scope:
@@ -265,12 +274,13 @@ class _PerOpProfiledBlock:
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
         unknown = sorted(
-            {op.type for op in block.ops if not registry.is_registered(op.type)}
+            {op.type for op in walk_ops(block.ops) if not registry.is_registered(op.type)}
         )
         if unknown:
             raise NotImplementedError("ops without lowering: %s" % unknown)
         self.ops = [op for op in block.ops if not registry.get(op.type).skip_exec]
-        self.stochastic = any(registry.get(op.type).stochastic for op in self.ops)
+        self.stochastic = any(registry.get(op.type).stochastic for op in walk_ops(self.ops))
+        self.open_ended_while = any(is_open_ended_while(op) for op in walk_ops(self.ops))
         self.cache = {}
 
         # classify external inputs: fed names are args; persistable names found
@@ -308,6 +318,13 @@ class _PerOpProfiledBlock:
         self.ro_names = sorted(set(state_names) - produced)
         self.created_persistables = sorted((persistable & produced) - set(state_names) - fed)
         self.feed_dtypes = {n: _var_dtype(block, n) for n in self.feed_names}
+        # why the card may not capture this block (None: it captures)
+        if self.created_persistables:
+            self.capture_declined = "creates_persistables"
+        elif self.open_ended_while:
+            self.capture_declined = "open_ended_while"
+        else:
+            self.capture_declined = None
         self.runs = list(registry.op_runs(self.ops))
         self.dead = registry.dead_after(
             self.runs, set(self.fetch_names) | set(self.mut_names) | set(self.created_persistables))
@@ -527,8 +544,9 @@ class _CompiledBlock:
     capture stream (the warmup a capture needs), call 2 captures it as a
     CUDA graph in `pool` and replays it, later calls replay. The Executor
     keeps one under each cache key, a _ServeBlock one for each value of the
-    lowering flags. A block that creates persistables (a startup program)
-    is never given one: it runs op by op every call."""
+    lowering flags. A block whose capture_declined is set (a startup
+    program, a block holding an open-ended while) is never given one: it
+    runs op by op every call."""
 
     def __init__(self, block, pool, is_test=False):
         self.block = block
@@ -728,10 +746,13 @@ class Executor:
             compiled = self._cache.get(key) if cached else None
             if compiled is None:
                 compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
-                if self.device.type == "cuda" and not compiled.created_persistables:
+                if self.device.type == "cuda" and compiled.capture_declined is None:
                     compiled = _CompiledBlock(compiled, self._graph_pool())
                 if cached:
                     self._cache[key] = compiled
+            reason = getattr(compiled, "capture_declined", None)
+            if reason is not None and self.device.type == "cuda":
+                OP_BY_OP[reason] = OP_BY_OP.get(reason, 0) + 1
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed)
         replayed = getattr(compiled, "graph", None) is not None
@@ -750,7 +771,9 @@ class Executor:
         KERNEL_DISPATCHES), and `launches`, the hand-written kernels each
         wrapper launched on the card (a CPU run takes the plain versions
         and launches none). A replayed graph counts what its capture
-        counted, every replay."""
+        counted, every replay. `op_by_op`: the runs on the card of blocks
+        that were not captured, by reason ("creates_persistables",
+        "open_ended_while"); ops.fused.reset_stats() clears it too."""
         from .ops import fused
 
-        return fused.stats()
+        return dict(fused.stats(), op_by_op=dict(OP_BY_OP))

@@ -3,9 +3,9 @@ the names of paddle_tpu/fluid/__init__.py that the port has. Names the JAX
 package exports from modules not ported yet (ParallelExecutor,
 AsyncExecutor, DistributeTranspiler and the other transpilers, PyReader's
 EOFException, DataFeedDesc, BuildStrategy, ExecutionStrategy, the
-imperative, contrib, debugger, inference, evaluator, transpiler,
-distributed, resilience, embedding and native modules) are absent until
-their modules are."""
+imperative, contrib, debugger, inference, transpiler, distributed,
+resilience, embedding and native modules) are absent until their modules
+are."""
 
 from .. import *  # noqa: F401,F403
 from .. import (  # noqa: F401
@@ -13,6 +13,7 @@ from .. import (  # noqa: F401
     backward,
     clip,
     dataset,
+    evaluator,
     flags,
     framework,
     initializer,

@@ -134,7 +134,10 @@ class LayerHelper:
         block = self.main_program.global_block()
         if block.has_var(name):
             return block.var(name)
-        return block.create_var(name=name, *args, persistable=True, **kwargs)
+        # persistable, whatever the caller passed (the JAX package's copy
+        # passes it twice when the caller gives it, and raises)
+        kwargs["persistable"] = True
+        return block.create_var(name=name, *args, **kwargs)
 
     def set_variable_initializer(self, var, initializer):
         startup_block = self.startup_program.global_block()

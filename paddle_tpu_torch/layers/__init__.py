@@ -1,10 +1,27 @@
-"""Layer functions that build Programs (paddle_tpu/layers): the slice the
-GPTDecoder, the Transformer and the CNN training programs use, re-exported
-flat so that `fluid.layers.fc(...)` works unchanged."""
+"""Layer functions that build Programs (paddle_tpu/layers), re-exported
+flat so that `fluid.layers.fc(...)` works unchanged: the GPTDecoder, the
+Transformer, the CNN training programs, and the sequence, control-flow,
+loss and learning-rate layers of the recurrent models. `detection` is not
+ported yet."""
 
-from . import io, math_op_patch, metric_op, nn, ops, tensor  # noqa: F401
+from . import (  # noqa: F401
+    control_flow,
+    io,
+    learning_rate_scheduler,
+    loss,
+    math_op_patch,
+    metric_op,
+    nn,
+    ops,
+    sequence,
+    tensor,
+)
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403

@@ -18,15 +18,20 @@ def data(
     stop_gradient=True,
 ):
     """Declare a feed variable (reference layers/io.py:39). With
-    append_batch_size the leading dim is -1 and resolved at feed time."""
-    if lod_level:
-        raise NotImplementedError(
-            "ragged (lod_level > 0) feeds are ported with the sequence ops"
-        )
+    append_batch_size the leading dim is -1 and resolved at feed time.
+
+    A ragged field (lod_level > 0) is padded dense, (batch, time, *shape),
+    with a companion `<name>@LEN` int32 length vector that the DataFeeder
+    fills and the sequence layers read (the variable's `_len_name`). With
+    append_batch_size=False the shape already leads with the batch dim, and
+    the time dim goes after it."""
+    block = framework.default_main_program().current_block()
     shape = list(shape)
-    if append_batch_size:
+    if lod_level and lod_level > 0:
+        shape = [-1, -1] + shape if append_batch_size else shape[:1] + [-1] + shape[1:]
+    elif append_batch_size:
         shape = [-1] + shape
-    return framework.default_main_program().current_block().create_var(
+    v = block.create_var(
         name=name,
         shape=shape,
         dtype=dtype,
@@ -35,3 +40,9 @@ def data(
         lod_level=lod_level,
         is_data=True,
     )
+    if lod_level and lod_level > 0:
+        lv = block.create_var(
+            name=name + "@LEN", shape=[-1], dtype="int32", stop_gradient=True, is_data=True
+        )
+        v._len_name = lv.name
+    return v

@@ -53,6 +53,13 @@ __all__ = [
     "paged_attention",
     "distributed_embedding",
     "flash_attention",
+    "squeeze",
+    "unsqueeze",
+    "expand",
+    "chunk_eval",
+    "autoincreased_step_counter",
+    "beam_search",
+    "beam_search_decode",
 ]
 
 
@@ -66,27 +73,61 @@ def fc(
     is_test=False,
     name=None,
 ):
-    """Fully-connected layer (reference layers/nn.py fc): mul + bias +
-    activation. One dense input; the JAX package's multi-input sum and
-    ragged (LoD) forms come with the rest of the op library."""
+    """Fully-connected layer (reference layers/nn.py fc): one mul op per
+    input, their sum, bias and activation. A ragged input (one with a
+    `_len_name`) is padded (b, t, d), so the default num_flatten_dims=1
+    (per timestep, in the reference's packed LoD form) flattens the feature
+    dim alone, and the output keeps the length companion."""
     helper = LayerHelper("fc", **locals())
     dtype = helper.input_dtype()
-    input_var = helper.input()
-    w = helper.create_parameter(
-        attr=helper.param_attr,
-        shape=[int(np.prod(input_var.shape[num_flatten_dims:])), size],
-        dtype=dtype,
-        is_bias=False,
-    )
-    tmp = helper.create_variable_for_type_inference(dtype)
-    helper.append_op(
-        type="mul",
-        inputs={"X": [input_var.name], "Y": [w.name]},
-        outputs={"Out": [tmp.name]},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
-    )
-    pre_act = helper.append_bias_op(tmp, dim_start=num_flatten_dims)
-    return helper.append_activation(pre_act)
+    all_inputs = helper.multiple_input()
+    if num_flatten_dims == 1 and len(all_inputs) > 1:
+        # mixed ragged and dense inputs would give mul results of two ranks
+        out_ranks = {
+            (len(v.shape) if getattr(v, "_len_name", None) else 2)
+            for v in all_inputs
+        }
+        if len(out_ranks) > 1:
+            raise ValueError(
+                "fc with mixed ragged and non-ragged inputs is ambiguous; "
+                "pass an explicit num_flatten_dims"
+            )
+    mul_results = []
+    for input_var, param_attr in helper.iter_inputs_and_params():
+        input_shape = input_var.shape
+        nfd = num_flatten_dims
+        if getattr(input_var, "_len_name", None) and num_flatten_dims == 1:
+            nfd = len(input_shape) - 1
+        w = helper.create_parameter(
+            attr=param_attr,
+            shape=[int(np.prod(input_shape[nfd:])), size],
+            dtype=dtype,
+            is_bias=False,
+        )
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [input_var.name], "Y": [w.name]},
+            outputs={"Out": [tmp.name]},
+            attrs={"x_num_col_dims": nfd, "y_num_col_dims": 1},
+        )
+        if getattr(input_var, "_len_name", None):
+            tmp._len_name = input_var._len_name
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="sum",
+            inputs={"X": [v.name for v in mul_results]},
+            outputs={"Out": [pre_bias.name]},
+        )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=nfd)
+    out = helper.append_activation(pre_act)
+    from .sequence import _propagate
+
+    return _propagate(out, mul_results[0])
 
 
 def embedding(
@@ -132,6 +173,8 @@ def embedding(
             "padding_idx": padding_idx,
         },
     )
+    if getattr(input, "_len_name", None):
+        tmp._len_name = input._len_name
     return tmp
 
 
@@ -783,3 +826,182 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, name=None):
         attrs=attrs,
     )
     return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    helper.append_op(
+        type="squeeze2",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name], "XShape": [xshape.name]},
+        attrs={"axes": list(axes)},
+    )
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    helper.append_op(
+        type="unsqueeze2",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name], "XShape": [xshape.name]},
+        attrs={"axes": list(axes)},
+    )
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="expand",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name]},
+        attrs={"expand_times": list(expand_times)},
+    )
+    return out
+
+
+def chunk_eval(
+    input,
+    label,
+    chunk_scheme,
+    num_chunk_types,
+    excluded_chunk_types=None,
+    seq_length=None,
+):
+    """Chunk-level precision / recall / F1 of padded [b, t] tag grids
+    (reference layers/nn.py chunk_eval, the conlleval metric), `seq_length`
+    [b] masking the padding. Returns (precision, recall, f1,
+    num_infer_chunks, num_label_chunks, num_correct_chunks)."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_variable_for_type_inference(dtype="float32")
+    recall = helper.create_variable_for_type_inference(dtype="float32")
+    f1_score = helper.create_variable_for_type_inference(dtype="float32")
+    num_infer = helper.create_variable_for_type_inference(dtype="int64")
+    num_label = helper.create_variable_for_type_inference(dtype="int64")
+    num_correct = helper.create_variable_for_type_inference(dtype="int64")
+    inputs = {"Inference": [input.name], "Label": [label.name]}
+    if seq_length is not None:
+        inputs["SeqLength"] = [seq_length.name]
+    helper.append_op(
+        type="chunk_eval",
+        inputs=inputs,
+        outputs={
+            "Precision": [precision.name],
+            "Recall": [recall.name],
+            "F1-Score": [f1_score.name],
+            "NumInferChunks": [num_infer.name],
+            "NumLabelChunks": [num_label.name],
+            "NumCorrectChunks": [num_correct.name],
+        },
+        attrs={
+            "chunk_scheme": chunk_scheme,
+            "num_chunk_types": num_chunk_types,
+            "excluded_chunk_types": list(excluded_chunk_types or []),
+        },
+    )
+    for v in (precision, recall, f1_score, num_infer, num_label, num_correct):
+        v.stop_gradient = True
+    return precision, recall, f1_score, num_infer, num_label, num_correct
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """Global step counter (reference layers/nn.py
+    autoincreased_step_counter): a persistable int var that an increment op
+    prepended to the main program raises once per run; the learning-rate
+    schedules read it. On the card it is state a captured graph updates,
+    so every replay advances it."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype="int32", shape=[1], persistable=True
+    )
+    if not getattr(counter, "_step_counter_initialized", False):
+        helper.set_variable_initializer(counter, Constant(value=float(begin - 1)))
+        helper.main_program.global_block()._prepend_op(
+            type="increment",
+            inputs={"X": [counter.name]},
+            outputs={"Out": [counter.name]},
+            attrs={"step": float(step)},
+        )
+        counter._step_counter_initialized = True
+        counter.stop_gradient = True
+    return counter
+
+
+def beam_search(
+    pre_ids,
+    pre_scores,
+    ids,
+    scores,
+    beam_size,
+    end_id,
+    level=0,
+    name=None,
+    return_parent_idx=False,
+):
+    """One beam-search expansion step (reference layers/nn.py beam_search)
+    in the dense [batch * beam] layout, with a flat parent_idx to gather
+    the decoder state by (selected_ids._parent_idx holds it when
+    return_parent_idx is False). Start pre_scores as [0, -inf, ...] per
+    source so that identical initial beams do not crowd the beam."""
+    helper = LayerHelper("beam_search", **locals())
+    selected_ids = helper.create_variable_for_type_inference("int64")
+    selected_scores = helper.create_variable_for_type_inference("float32")
+    parent_idx = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="beam_search",
+        inputs={
+            "pre_ids": [pre_ids.name],
+            "pre_scores": [pre_scores.name],
+            "ids": [ids.name],
+            "scores": [scores.name],
+        },
+        outputs={
+            "selected_ids": [selected_ids.name],
+            "selected_scores": [selected_scores.name],
+            "parent_idx": [parent_idx.name],
+        },
+        attrs={"beam_size": beam_size, "end_id": end_id, "level": level},
+    )
+    selected_ids.stop_gradient = True
+    selected_scores.stop_gradient = True
+    parent_idx.stop_gradient = True
+    selected_ids._parent_idx = parent_idx
+    if return_parent_idx:
+        return selected_ids, selected_scores, parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, name=None, parents=None):
+    """Backtrack the per-step beam selections (tensor arrays) into whole
+    hypotheses (reference layers/nn.py beam_search_decode). Returns
+    (sentence_ids [B, beam, T] best first, sentence_scores [B, beam]); the
+    ids Variable carries each hypothesis' length in ._hyp_len."""
+    helper = LayerHelper("beam_search_decode", **locals())
+    sentence_ids = helper.create_variable_for_type_inference("int64")
+    sentence_scores = helper.create_variable_for_type_inference("float32")
+    hyp_len = helper.create_variable_for_type_inference("int32")
+    inputs = {"Ids": [ids.name], "Scores": [scores.name]}
+    if parents is not None:
+        inputs["Parents"] = [parents.name]
+    helper.append_op(
+        type="beam_search_decode",
+        inputs=inputs,
+        outputs={
+            "SentenceIds": [sentence_ids.name],
+            "SentenceScores": [sentence_scores.name],
+            "SentenceLength": [hyp_len.name],
+        },
+        attrs={"beam_size": beam_size, "end_id": end_id},
+    )
+    sentence_ids.stop_gradient = True
+    sentence_scores.stop_gradient = True
+    hyp_len.stop_gradient = True
+    sentence_ids._hyp_len = hyp_len
+    return sentence_ids, sentence_scores

@@ -1,7 +1,7 @@
 """Composite network helpers (reference python/paddle/fluid/nets.py):
-simple_img_conv_pool, img_conv_group and scaled_dot_product_attention, as
-in the JAX package. sequence_conv_pool and glu come with the sequence ops
-and split."""
+simple_img_conv_pool, img_conv_group, sequence_conv_pool and
+scaled_dot_product_attention, as in the JAX package; glu comes with
+split."""
 
 from . import layers
 
@@ -9,6 +9,7 @@ __all__ = [
     "simple_img_conv_pool",
     "scaled_dot_product_attention",
     "img_conv_group",
+    "sequence_conv_pool",
 ]
 
 
@@ -92,6 +93,19 @@ def img_conv_group(
     return layers.pool2d(
         input=tmp, pool_size=pool_size, pool_type=pool_type, pool_stride=pool_stride
     )
+
+
+def sequence_conv_pool(
+    input, num_filters, filter_size, param_attr=None, act="sigmoid", pool_type="max"
+):
+    conv_out = layers.sequence_conv(
+        input=input,
+        num_filters=num_filters,
+        filter_size=filter_size,
+        param_attr=param_attr,
+        act=act,
+    )
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1, dropout_rate=0.0):

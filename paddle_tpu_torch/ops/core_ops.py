@@ -538,15 +538,19 @@ def _arg_min(ctx, ins, attrs):
     return {"Out": [torch.argmin(x, dim=int(attrs.get("axis", -1))).to(torch.int32)]}
 
 
+def stable_top_k(x, k):
+    """(values, indices) of the k largest along the last axis, tied values
+    in index order (as lax.top_k; torch.topk leaves the order of ties
+    open), from a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 @register("top_k", no_grad=True)
 def _top_k(ctx, ins, attrs):
-    """The k largest along the last axis, tied values in index order (as
-    lax.top_k; torch.topk leaves the order of ties open), from a stable
-    descending sort."""
     (x,) = ins["X"]
-    k = int(attrs["k"])
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int32)]}
+    vals, idx = stable_top_k(x, int(attrs["k"]))
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
 
 
 @register("argsort", no_grad=True)
@@ -1188,3 +1192,175 @@ def _ftrl(ctx, ins, attrs):
     lin_out = lin_acc + g - sigma * p
     p_out = (torch.clamp(lin_out, -l1, l1) - lin_out) / x_den
     return {"ParamOut": [p_out], "SquaredAccumOut": [new_acc], "LinearAccumOut": [lin_out]}
+
+
+# ---------------------------------------------------------------------------
+# comparisons, logical ops, where and the shape ops the sequence and
+# control-flow layers emit (reference compare_op.cc, logical_op.cc,
+# squeeze_op.cc, unsqueeze_op.cc, expand_op.cc, where_op.cc) and chunk_eval
+# (chunk_eval_op.cc)
+# ---------------------------------------------------------------------------
+
+
+def _register_compare(name, fn):
+    @register(name, no_grad=True)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        (x,) = ins["X"]
+        (y,) = ins["Y"]
+        y = bcast_y(x, y, int(attrs.get("axis", -1)))
+        return {"Out": [_fn(x, y)]}
+
+
+_register_compare("less_than", torch.lt)
+_register_compare("less_equal", torch.le)
+_register_compare("greater_than", torch.gt)
+_register_compare("greater_equal", torch.ge)
+_register_compare("equal", torch.eq)
+_register_compare("not_equal", torch.ne)
+
+
+def _register_logical(name, fn, unary=False):
+    @register(name, no_grad=True)
+    def _lower(ctx, ins, attrs, _fn=fn, _unary=unary):
+        (x,) = ins["X"]
+        if _unary:
+            return {"Out": [_fn(x)]}
+        (y,) = ins["Y"]
+        return {"Out": [_fn(x, y)]}
+
+
+_register_logical("logical_and", torch.logical_and)
+_register_logical("logical_or", torch.logical_or)
+_register_logical("logical_xor", torch.logical_xor)
+_register_logical("logical_not", torch.logical_not, unary=True)
+
+
+@register("where")
+def _where(ctx, ins, attrs):
+    (cond,) = ins["Condition"]
+    (x,) = ins["X"]
+    (y,) = ins["Y"]
+    return {"Out": [torch.where(cond.to(torch.bool), x, y)]}
+
+
+def _xshape(x):
+    return torch.zeros((0,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+
+def _squeeze_axes(x, axes):
+    if axes:
+        return tuple(a % x.dim() for a in axes if x.shape[a % x.dim()] == 1)
+    return tuple(i for i, d in enumerate(x.shape) if d == 1)
+
+
+def _squeezed(x, axes):
+    keep = set(_squeeze_axes(x, axes))
+    return x.reshape(tuple(d for i, d in enumerate(x.shape) if i not in keep))
+
+
+def _unsqueezed(x, axes):
+    for a in sorted(axes):
+        x = x.unsqueeze(a)
+    return x
+
+
+@register("squeeze2")
+def _squeeze2(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [_squeezed(x, attrs.get("axes", []))], "XShape": [_xshape(x)]}
+
+
+@register("unsqueeze2")
+def _unsqueeze2(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [_unsqueezed(x, attrs["axes"])], "XShape": [_xshape(x)]}
+
+
+@register("expand")
+def _expand(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [x.repeat(*[int(t) for t in attrs["expand_times"]])]}
+
+
+def _chunk_flags(y, n_types, scheme, excluded, seqlen):
+    """Per-position chunk (start, end, type) flags of a padded [b, t] int tag
+    grid under one of the conlleval schemes (the JAX package's
+    _chunk_flags): label = chunk_type * num_tag_types + tag_type, any label
+    outside [0, n_types * num_tag_types) is the O tag."""
+    ntag = {"plain": 1, "IOB": 2, "IOE": 2, "IOBES": 4}[scheme]
+    typ = torch.div(y, ntag, rounding_mode="floor")
+    tag = torch.remainder(y, ntag)
+    valid = (y >= 0) & (y < n_types * ntag)
+    for ex in excluded:
+        valid = valid & (typ != int(ex))
+    t = y.shape[1]
+    if seqlen is not None:
+        pos = torch.arange(t, device=y.device)[None, :]
+        valid = valid & (pos < seqlen.reshape(-1, 1))
+    pad_col = torch.zeros((y.shape[0], 1), dtype=y.dtype, device=y.device)
+    pad_f = torch.zeros((y.shape[0], 1), dtype=torch.bool, device=y.device)
+    p_valid = torch.cat([pad_f, valid[:, :-1]], 1)
+    p_typ = torch.cat([pad_col, typ[:, :-1]], 1)
+    p_tag = torch.cat([pad_col, tag[:, :-1]], 1)
+    n_valid = torch.cat([valid[:, 1:], pad_f], 1)
+    n_typ = torch.cat([typ[:, 1:], pad_col], 1)
+    n_tag = torch.cat([tag[:, 1:], pad_col], 1)
+    boundary_in = ~p_valid | (p_typ != typ)
+    boundary_out = ~n_valid | (n_typ != typ)
+    if scheme == "plain":
+        start = end = valid
+    elif scheme == "IOB":
+        start = valid & ((tag == 0) | boundary_in)
+        end = valid & (boundary_out | (n_tag == 0))
+    elif scheme == "IOE":
+        start = valid & (boundary_in | (p_tag == 1))
+        end = valid & ((tag == 1) | boundary_out)
+    else:  # IOBES
+        start = valid & ((tag == 0) | (tag == 3) | boundary_in | (p_tag >= 2))
+        end = valid & ((tag >= 2) | boundary_out | (n_tag == 0) | (n_tag == 3))
+    return start, end, typ
+
+
+def _chunk_endpos(end):
+    """For each position, the index of the next chunk end at or after it."""
+    t = end.shape[1]
+    cand = torch.where(end, torch.arange(t, device=end.device)[None, :],
+                       torch.full((), t, device=end.device))
+    return torch.flip(torch.cummin(torch.flip(cand, (1,)), dim=1).values, (1,))
+
+
+@register("chunk_eval", no_grad=True)
+def _chunk_eval(ctx, ins, attrs):
+    """Chunk-level precision / recall / F1 of padded [b, t] tag grids (the
+    JAX package's vectorized conlleval count)."""
+    (inference,) = ins["Inference"]
+    (label,) = ins["Label"]
+    seqlen = (ins.get("SeqLength") or [None])[0]
+    scheme = str(attrs.get("chunk_scheme", "IOB"))
+    if scheme not in ("plain", "IOB", "IOE", "IOBES"):
+        raise ValueError("chunk_eval: unknown chunk_scheme %r" % scheme)
+    n_types = int(attrs["num_chunk_types"])
+    excluded = tuple(attrs.get("excluded_chunk_types", ()) or ())
+    inf = inference.reshape(inference.shape[0], -1).long()
+    lab = label.reshape(label.shape[0], -1).long()
+    i_start, i_end, i_typ = _chunk_flags(inf, n_types, scheme, excluded, seqlen)
+    l_start, l_end, l_typ = _chunk_flags(lab, n_types, scheme, excluded, seqlen)
+    n_inf = i_start.sum()
+    n_lab = l_start.sum()
+    n_cor = (i_start & l_start & (i_typ == l_typ)
+             & (_chunk_endpos(i_end) == _chunk_endpos(l_end))).sum()
+    fi, fl, fc = (v.float() for v in (n_inf, n_lab, n_cor))
+    zero = torch.zeros((), device=fi.device)
+    precision = torch.where(fi > 0, fc / torch.clamp(fi, min=1.0), zero)
+    recall = torch.where(fl > 0, fc / torch.clamp(fl, min=1.0), zero)
+    f1 = torch.where(precision + recall > 0,
+                     2.0 * precision * recall / torch.clamp(precision + recall, min=1e-38),
+                     zero)
+    return {
+        "Precision": [precision.reshape((1,))],
+        "Recall": [recall.reshape((1,))],
+        "F1-Score": [f1.reshape((1,))],
+        "NumInferChunks": [n_inf.to(torch.int32).reshape((1,))],
+        "NumLabelChunks": [n_lab.to(torch.int32).reshape((1,))],
+        "NumCorrectChunks": [n_cor.to(torch.int32).reshape((1,))],
+    }

@@ -69,7 +69,10 @@ def stats():
 
 
 def reset_stats():
+    from .. import executor
+
     KERNEL_DISPATCHES.clear()
+    executor.OP_BY_OP.clear()
     for mod in _KERNEL_MODULES:
         mod.reset_kernel_launches()
 

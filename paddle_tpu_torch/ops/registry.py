@@ -7,7 +7,9 @@ counterpart of paddle_tpu/ops/registry.py).
   device; PyTorch runs them eagerly.
 - **shape inference**: the lowering itself, run on ``device="meta"`` tensors
   (shapes and dtypes, no data), where the JAX package uses jax.eval_shape. A
-  dynamic (-1) dim is substituted with a sentinel extent and mapped back.
+  dynamic (-1) dim is substituted with a sentinel extent and mapped back. An
+  op that cannot be run on meta tensors (a sub-block op, a tensor-array op)
+  registers its own `infer_shape(op, block)`, as in the JAX package.
 - **gradients**: unless an op registers a custom grad maker or an explicit
   `{type}_grad` lowering, `{type}_grad` is derived with `torch.func.vjp`
   over the forward lowering, where the JAX package uses jax.vjp.
@@ -90,10 +92,12 @@ def torch_dtype(dtype):
 
 
 class OpDef:
-    def __init__(self, type, lower=None, grad=None, no_grad=False,
+    def __init__(self, type, lower=None, infer_shape=None, grad=None, no_grad=False,
                  stochastic=False, skip_exec=False):
         self.type = type
         self.lower = lower
+        # infer_shape: fn(op, block), used in place of the meta-tensor run
+        self.custom_infer_shape = infer_shape
         # grad: fn(op, block, grad_name_map) -> list of op-spec dicts, or None
         # for the generic vjp-derived gradient
         self.grad = grad
@@ -143,7 +147,8 @@ def get(type):
     if type.endswith("_grad"):
         base = OPS.get(type[: -len("_grad")])
         if base is not None and base.lower is not None:
-            d = OpDef(type, lower=_make_generic_grad(base), no_grad=True)
+            d = OpDef(type, lower=_make_generic_grad(base), infer_shape=_generic_grad_infer,
+                      no_grad=True)
             OPS[type] = d
             return d
     raise KeyError("no op registered for type %r" % type)
@@ -225,6 +230,31 @@ def _clean_attrs(attrs):
     return {k: v for k, v in attrs.items() if k not in _META_ATTRS}
 
 
+def set_var_meta(block, name, shape, dtype=None):
+    """Build-time shape (and dtype) of a var, for an op's own infer_shape;
+    the empty name and names the block lacks are skipped."""
+    if name == EMPTY_VAR_NAME or not block.has_var_recursive(name):
+        return
+    v = block._var_recursive(name)
+    if shape is not None:
+        v.shape = tuple(shape)
+    if dtype is not None:
+        v.dtype = dtype
+
+
+def _generic_grad_infer(op, block):
+    """A generic grad's `<slot>@GRAD` outputs take the shapes and dtypes of
+    the forward inputs they differentiate (no replay of the forward on meta
+    tensors: a loop over a dynamic time dim would run its sentinel extent)."""
+    for slot, names in op.outputs.items():
+        if not slot.endswith(_GRAD_SUFFIX):
+            continue
+        for name, src in zip(names, op.inputs.get(slot[: -len(_GRAD_SUFFIX)], ())):
+            if src != EMPTY_VAR_NAME and block.has_var_recursive(src):
+                s = block._var_recursive(src)
+                set_var_meta(block, name, s.shape, s.dtype)
+
+
 def _make_generic_grad(fwd_def):
     """The vjp-derived lowering for `{type}_grad` (the JAX package's
     _make_generic_grad with torch.func.vjp in place of jax.vjp).
@@ -246,27 +276,36 @@ def _make_generic_grad(fwd_def):
         leaves, spec = [], []
         for s in in_slots:
             for i, v in enumerate(fwd_ins.get(s, [])):
-                if v is not None and torch.is_floating_point(v):
+                # tensor arrays ((buffer, size) pairs) ride in the closure
+                if isinstance(v, torch.Tensor) and torch.is_floating_point(v):
                     leaves.append(v)
                     spec.append((s, i))
+
+        # the differentiable outputs: the floating ones (an int output, a
+        # length, has no cotangent)
+        out_spec = []
 
         def f(*leaf_vals):
             d = {s: list(vs) for s, vs in fwd_ins.items()}
             for (s, i), v in zip(spec, leaf_vals):
                 d[s][i] = v
             outs = fwd_def.lower(ctx, d, fwd_attrs)
-            return tuple(tuple(outs.get(s, ())) for s in out_slots)
+            flat = []
+            out_spec.clear()
+            for s in out_slots:
+                for i, v in enumerate(outs.get(s, ())):
+                    if isinstance(v, torch.Tensor) and torch.is_floating_point(v):
+                        flat.append(v)
+                        out_spec.append((s, i))
+            return tuple(flat)
 
         primals, vjp_fn = torch.func.vjp(f, *leaves)
 
         cots = []
-        for s, pvals in zip(out_slots, primals):
+        for (s, i), p in zip(out_spec, primals):
             gs = ins.get(s + _GRAD_SUFFIX)
-            row = []
-            for i, p in enumerate(pvals):
-                g = gs[i] if gs is not None and i < len(gs) and gs[i] is not None else None
-                row.append(g.to(p.dtype) if g is not None else torch.zeros_like(p))
-            cots.append(tuple(row))
+            g = gs[i] if gs is not None and i < len(gs) and gs[i] is not None else None
+            cots.append(g.to(p.dtype) if g is not None else torch.zeros_like(p))
         grads = vjp_fn(tuple(cots))
 
         out = {}
@@ -304,9 +343,13 @@ def _lower_one(ctx, op, env):
     opdef = get(op.type)
     if opdef.skip_exec:
         return
-    ctx.op = op
-    outs = opdef.lower(ctx, gather_op_inputs(op, env), op.attrs)
-    ctx.op = None
+    # a sub-block op lowers inside its parent op's lowering: restore the
+    # parent afterwards
+    parent, ctx.op = ctx.op, op
+    try:
+        outs = opdef.lower(ctx, gather_op_inputs(op, env), op.attrs)
+    finally:
+        ctx.op = parent
     scatter_op_outputs(op, outs, env)
 
 
@@ -384,6 +427,9 @@ def infer_shape(op, block):
         opdef = get(op.type)
     except KeyError:
         return  # unknown ops get shapes from custom layer code or stay None
+    if opdef.custom_infer_shape is not None:
+        opdef.custom_infer_shape(op, block)
+        return
     if opdef.lower is None or opdef.skip_exec:
         return
 

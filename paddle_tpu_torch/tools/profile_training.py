@@ -234,10 +234,10 @@ SPLIT = (
 )
 
 
-def op_device_split(step, batches, registry):
+def op_device_split(step, batches, registry, split_by=SPLIT):
     """Device ms a step by op type on the op-by-op path (one step per batch,
     every lowering in its profiler range, a device sync after each op),
-    the categories of SPLIT (the convolution grads also split by their
+    the categories of `split_by` (SPLIT: the convolution grads also split by their
     kernels' names into dgrad and wgrad) and the top kernels of each
     category. A kernel belongs to the last op whose range began before it
     started: the sync after each op keeps one op's kernels from running
@@ -268,14 +268,14 @@ def op_device_split(step, batches, registry):
         by_op[op] += ms
         kernels[op][e.name] += ms
     split, top = {}, {}
-    for cat, ops in SPLIT:
+    for cat, ops in split_by:
         split[cat] = sum(by_op.get(o, 0.0) for o in ops)
         ks = defaultdict(float)
         for o in ops:
             for name, ms in kernels[o].items():
                 ks[name] += ms
         top[cat] = dict(sorted(ks.items(), key=lambda kv: -kv[1])[:4])
-    known = {o for _, ops in SPLIT for o in ops}
+    known = {o for _, ops in split_by for o in ops}
     split["other"] = sum(v for o, v in by_op.items() if o not in known)
     conv_bwd = defaultdict(float)
     for o in ("conv2d_grad", "depthwise_conv2d_grad"):
@@ -288,6 +288,7 @@ def op_device_split(step, batches, registry):
         "by_category": split,
         "conv_backward_by_kernel_name": dict(conv_bwd),
         "by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
+        "kernels_by_op": {o: dict(ks) for o, ks in kernels.items()},
         "top_kernels_by_category": top,
     }
 

@@ -182,7 +182,7 @@ def test_book_pipeline_trains_through_the_data_feeder():
 # --------------------------------------------------------------------------
 
 MODELS = {
-    # name: (builder module attr, image shape, optimizer, builder kwargs)
+    # name: (program_fn module attr, image shape, optimizer, program_fn kwargs)
     "lenet5": ("lenet", "lenet5", [1, 28, 28], "adam", {}),
     "resnet_cifar10": ("resnet", "resnet_cifar10", [3, 16, 16], "momentum", {"depth": 8}),
     "resnet50": ("resnet", "resnet50", [3, 224, 224], "momentum", {}),
@@ -515,3 +515,125 @@ def test_load_arrays_and_get_inference_program(tmp_path):
     assert sorted(arrays) == sorted(params)
     for n in params:
         np.testing.assert_array_equal(arrays[n].numpy(), scope.vars[n].numpy())
+
+
+# --------------------------------------------------------------------------
+# the book's sequence scripts (tests/test_book.py:62, :114, :163) through
+# paddle_tpu_torch.fluid, with their gates
+# --------------------------------------------------------------------------
+
+
+def _port_exe_scope():
+    return pt.Executor(pt.CPUPlace()), pt.Scope(seed=0, place=pt.CPUPlace())
+
+
+@pytest.mark.parametrize("head", ["nce", "hsigmoid"])
+def test_word2vec_nce_and_hsigmoid(head):
+    """The N-gram language model with the NCE head and the hsigmoid head:
+    the mean of the last 10 losses under 0.7x the first 10's."""
+    rng = np.random.RandomState(3)
+    V, E, N, B = 40, 16, 4, 32
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = [fluid.layers.data(name="w%d" % i, shape=[1], dtype="int64") for i in range(N)]
+        target = fluid.layers.data(name="t", shape=[1], dtype="int64")
+        embs = [fluid.layers.embedding(w, size=[V, E], param_attr=fluid.ParamAttr(name="emb"))
+                for w in words]
+        hidden = fluid.layers.fc(fluid.layers.concat(embs, axis=1), size=32, act="relu")
+        if head == "nce":
+            cost = fluid.layers.nce(hidden, target, num_total_classes=V, num_neg_samples=8)
+        else:
+            cost = fluid.layers.hsigmoid(hidden, target, num_classes=V)
+        loss = fluid.layers.mean(cost)
+        fluid.optimizer.Adam(0.02).minimize(loss)
+    ws = rng.randint(0, V, (B, N)).astype("int64")
+    t = ((ws.sum(1) * 7 + 3) % V).astype("int64")
+    feed = {"w%d" % i: ws[:, i:i + 1] for i in range(N)}
+    feed["t"] = t[:, None]
+    exe, scope = _port_exe_scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss.name])[0].reshape(()))
+                  for _ in range(60)]
+    assert np.isfinite(losses).all(), head
+    assert np.mean(losses[-10:]) < np.mean(losses[:10]) * 0.7, (head, losses[:3], losses[-3:])
+
+
+def test_understand_sentiment_conv():
+    """embedding -> two sequence_conv_pool windows -> softmax: the last
+    loss under 0.5x the first and the last accuracy at least 0.9."""
+    rng = np.random.RandomState(5)
+    V, B, T = 30, 16, 12
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[B, T, 1], dtype="int64",
+                                  append_batch_size=False)
+        main.global_block().create_var(name="wlen", shape=(B,), dtype="int64")
+        words._len_name = "wlen"
+        label = fluid.layers.data(name="label", shape=[B, 1], dtype="int64",
+                                  append_batch_size=False)
+        emb = fluid.layers.embedding(words, size=[V, 24])
+        conv3 = fluid.nets.sequence_conv_pool(emb, num_filters=16, filter_size=3, act="tanh",
+                                              pool_type="max")
+        conv4 = fluid.nets.sequence_conv_pool(emb, num_filters=16, filter_size=4, act="tanh",
+                                              pool_type="max")
+        logits = fluid.layers.fc([conv3, conv4], size=2)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(logits, label))
+        acc = fluid.layers.accuracy(fluid.layers.softmax(logits), label)
+        fluid.optimizer.Adam(5e-3).minimize(loss)
+    ws = rng.randint(0, V, (B, T, 1)).astype("int64")
+    lens = rng.randint(5, T + 1, (B,)).astype("int64")
+    lab = np.zeros((B, 1), np.int64)
+    for b in range(B):
+        ws[b, lens[b]:] = 0
+        lab[b, 0] = int((ws[b, :lens[b], 0] == 7).any())
+    exe, scope = _port_exe_scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        vals = [exe.run(main, feed={"words": ws, "wlen": lens, "label": lab},
+                        fetch_list=[loss.name, acc.name]) for _ in range(40)]
+    losses = [float(v[0].reshape(())) for v in vals]
+    accs = [float(v[1].reshape(())) for v in vals]
+    assert losses[-1] < losses[0] * 0.5
+    assert accs[-1] >= 0.9
+
+
+def test_label_semantic_roles_crf():
+    """embedding -> GRU -> CRF, then Viterbi decoding with the trained
+    transition: the last loss under 0.3x the first, tag accuracy above
+    0.9."""
+    rng = np.random.RandomState(11)
+    V, B, T, TAGS_N = 25, 8, 7, 5
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[B, T, 1], dtype="int64",
+                                  append_batch_size=False)
+        main.global_block().create_var(name="wlen", shape=(B,), dtype="int64")
+        words._len_name = "wlen"
+        tags = fluid.layers.data(name="tags", shape=[B, T, 1], dtype="int64",
+                                 append_batch_size=False)
+        emb = fluid.layers.embedding(words, size=[V, 16])
+        proj = fluid.layers.fc(emb, size=24 * 3, num_flatten_dims=2)
+        proj._len_name = "wlen"
+        gru = fluid.layers.dynamic_gru(proj, size=24)
+        emission = fluid.layers.fc(gru, size=TAGS_N, num_flatten_dims=2)
+        emission._len_name = "wlen"
+        crf_cost = fluid.layers.linear_chain_crf(emission, tags,
+                                                 param_attr=fluid.ParamAttr(name="crfw"))
+        loss = fluid.layers.mean(crf_cost)
+        decode = fluid.layers.crf_decoding(emission, param_attr="crfw")
+        fluid.optimizer.Adam(0.02).minimize(loss)
+    ws = rng.randint(0, V, (B, T, 1)).astype("int64")
+    tg = (ws % TAGS_N).astype("int64")
+    lens = rng.randint(3, T + 1, (B,)).astype("int64")
+    feed = {"words": ws, "tags": tg, "wlen": lens}
+    exe, scope = _port_exe_scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss.name])[0].reshape(()))
+                  for _ in range(80)]
+        (dv,) = exe.run(main, feed=feed, fetch_list=[decode.name])
+    assert losses[-1] < losses[0] * 0.3
+    dv = dv.reshape(B, T)
+    acc = np.mean([np.mean(dv[b, :lens[b]] == tg[b, :lens[b], 0]) for b in range(B)])
+    assert acc > 0.9, acc
