@@ -167,7 +167,11 @@ Phases, each printing its own line; any failure exits non-zero:
      and 3 on a ragged one (lengths 1-100), every loss finite, the same
      launches and dispatches every step, 1 multi_adam launch a step; the
      first 3 steps op by op from the same weights: the same losses bit for
-     bit and the same counters a step; tokens/s (the non-pad tokens of graph
+     bit and the same counters a step; the GEMM epilogue and multi_adam
+     kernels held against their plain versions on the inputs the op-by-op
+     run's first step gives them (the path's own shapes and values); the
+     first 3 steps unfused (no kernel launched) within the fused-vs-unfused
+     bar of the fused losses; tokens/s (the non-pad tokens of graph
      steps 2-6 over their summed wall), step wall p50, device busy share,
      launches a step, memory reserved, and the op-by-op device time split
      into the recurrent products, the gates' elementwise work, the generic
@@ -178,7 +182,9 @@ Phases, each printing its own line; any failure exits non-zero:
      the first) and a beam decode of the trained batch (beam 3): at least
      4 of 8 sources copied exactly; (b) emb = hid = 512, dict 30000, 16
      words, batch 64, Adam(1e-3): 6 graph steps, every loss finite, the
-     first 3 op by op bit for bit, the same readings as train lstm; then a
+     first 3 op by op bit for bit, the kernels held against their plain
+     versions at the path's inputs and the first 3 steps unfused as in
+     train lstm, the same readings as train lstm; then a
      beam decode of one batch (beam 4, max_out_len 16) that runs op by op
      for the stated reason open_ended_while, with finite scores and every
      hypothesis 1-16 long, its wall and the number of ops it ran;
@@ -190,7 +196,8 @@ Phases, each printing its own line; any failure exits non-zero:
  12. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
      multi_adam count the Transformer's, LeNet's, the LSTM's and the NMT
-     model's steps).
+     model's steps, and their max_abs_err is the worst of their own check
+     and the LSTM's and the NMT model's path checks).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -2939,12 +2946,110 @@ def _rnn_graph_reading(prof, step, walls, feeds, tokens, registry, torch):
     return reading
 
 
+class _PathInputs:
+    """While entered, keeps copies of what the first `n_gemm` gemm_bias_act
+    calls and the first multi_tensor_adam call are given (before the
+    kernel runs: Adam updates in place), so that each kernel can be held
+    against its plain version at the main path's own shapes and values.
+    Recording launches nothing."""
+
+    def __init__(self, n_gemm):
+        from paddle_tpu_torch.ops import gemm_epilogue as ge
+        from paddle_tpu_torch.ops import multi_adam as ma
+
+        self.ge, self.ma, self.n_gemm = ge, ma, n_gemm
+        self.gemm, self.adam = [], []
+
+    def __enter__(self):
+        self.saved = gemm, adam = self.ge.gemm_bias_act, self.ma.multi_tensor_adam
+
+        def gemm_rec(x2, w2, bias_row, act=None):
+            if len(self.gemm) < self.n_gemm:
+                self.gemm.append((x2.clone(), w2.clone(), bias_row.clone(), act))
+            return gemm(x2, w2, bias_row, act=act)
+
+        def adam_rec(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon, **kw):
+            if not self.adam:
+                lists = [[t.clone() for t in ts] for ts in (params, grads, m1s, m2s)]
+                lr = lr_ts.clone() if hasattr(lr_ts, "clone") else list(lr_ts)
+                self.adam.append(lists + [lr, beta1, beta2, epsilon])
+            return adam(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon, **kw)
+
+        self.ge.gemm_bias_act, self.ma.multi_tensor_adam = gemm_rec, adam_rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ge.gemm_bias_act, self.ma.multi_tensor_adam = self.saved
+        return False
+
+    def hold(self, torch, label):
+        """Each recorded call's kernel against its plain version on the
+        same inputs: the GEMM epilogue within GEMM_TOL, Adam bit for bit
+        with f32 moments (within one bf16 ulp with bf16 ones). Returns
+        ({kernel: worst abs error}, a line that says what was held)."""
+        ge, ma = self.ge, self.ma
+        if len(self.gemm) != self.n_gemm or len(self.adam) != 1:
+            raise AssertionError("%s: recorded %d GEMM epilogue calls of %d and %d Adam calls "
+                                 "of 1" % (label, len(self.gemm), self.n_gemm, len(self.adam)))
+        errs, held = {"gemm_epilogue": 0.0, "multi_adam": 0.0}, []
+        for x, w, b, act in self.gemm:
+            name = "%s gemm_epilogue %s @ %s act %s" % (label, tuple(x.shape), tuple(w.shape), act)
+            (z, y), (zp, yp) = ge.gemm_bias_act(x, w, b, act), ge.gemm_bias_act_plain(x, w, b, act)
+            torch.cuda.synchronize()
+            err = _close(torch, name, z, zp, GEMM_TOL, GEMM_TOL)
+            if act:
+                err = max(err, _close(torch, name, y, yp, GEMM_TOL, GEMM_TOL))
+            errs["gemm_epilogue"] = max(errs["gemm_epilogue"], err)
+            held.append("%s @ %s act %s (err %.3g)" % (tuple(x.shape), tuple(w.shape), act, err))
+        p, g, m1, m2, lr, b1, b2, eps = self.adam[0]
+        plain = [[t.clone() for t in ts] for ts in (p, g, m1, m2)]
+        ma.multi_tensor_adam(p, g, m1, m2, lr, b1, b2, eps)
+        ma.multi_tensor_adam_plain(*plain, lr, b1, b2, eps)
+        torch.cuda.synchronize()
+        for slot, got_ts in ((0, p), (2, m1), (3, m2)):
+            for got, want in zip(got_ts, plain[slot]):
+                if got.dtype == torch.bfloat16:
+                    err = _within_bf16_ulp(torch, label + " multi_adam", got, want)
+                else:
+                    err = float((got - want).abs().max()) if got.numel() else 0.0
+                    if not torch.equal(got, want):
+                        raise AssertionError("%s multi_adam: a tensor of %s differs from the "
+                                             "plain version by %g" % (label, tuple(got.shape), err))
+                errs["multi_adam"] = max(errs["multi_adam"], err)
+        held.append("Adam over %d tensors, %d elements (err %.3g)" % (
+            len(p), sum(t.numel() for t in p), errs["multi_adam"]))
+        self.gemm, self.adam = [], []
+        return errs, "; ".join(held)
+
+
+def _unfused(torch, model, feeds, outs, label):
+    """The first COMPARE_STEPS steps with no pass pipeline (no kernel
+    launched or dispatched) from the same seed: their losses within
+    FUSED_RTOL / FUSED_ATOL of the fused path's. Returns them."""
+    unfused, _, _, _, ustep, uscope = _fluid_run(
+        torch, model, feeds[:COMPARE_STEPS], "", [model["loss"]],
+        check=_exact_counts({}, "unfused " + label))
+    ref = [float(o[0]) for o in unfused]
+    a = np.asarray([float(o[0]) for o in outs[:COMPARE_STEPS]])
+    if not np.allclose(a, ref, rtol=FUSED_RTOL, atol=FUSED_ATOL):
+        raise AssertionError("%s fused vs unfused losses differ: %s vs %s (rtol %g atol %g)"
+                             % (label, a.tolist(), ref, FUSED_RTOL, FUSED_ATOL))
+    del ustep, uscope
+    torch.cuda.empty_cache()
+    return ref
+
+
 def _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, label):
     """The first COMPARE_STEPS steps op by op from the same seed: the same
-    losses bit for bit and the same counters a step. Returns the op-by-op
-    reading with its device split."""
-    eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
-        torch, model, feeds[:COMPARE_STEPS], "training_fused", [model["loss"]], per_op=True)
+    losses bit for bit and the same counters a step; the GEMM epilogue and
+    Adam kernels held against their plain versions on what the first step
+    gave them; then the same steps unfused. Returns the op-by-op reading
+    with its device split, the kernels' worst errors and the unfused
+    losses."""
+    rec = _PathInputs(deltas[0].get(("launches", "gemm_epilogue"), 0))
+    with rec:
+        eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
+            torch, model, feeds[:COMPARE_STEPS], "training_fused", [model["loss"]], per_op=True)
     _same_bits("%s loss, graph against op by op, step" % label, [o[0] for o in eager],
                [o[0] for o in outs[:COMPARE_STEPS]])
     if e_deltas != deltas[:COMPARE_STEPS]:
@@ -2953,15 +3058,19 @@ def _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, label):
     split = rnn.rnn_device_split(estep, feeds[:2], registry)
     del estep, escope
     torch.cuda.empty_cache()
+    errs, held = rec.hold(torch, label)
+    log("%s: kernels against their plain versions at the path's inputs: %s" % (label, held))
+    ref = _unfused(torch, model, feeds, outs, label)
     return {"step_p50_ms": float(np.median(e_walls[1:])),
             "device_ms_per_step": split["device_ms_per_step"],
             "split": split["by_category"], "recurrent": split["recurrent"],
-            "top_ops": dict(list(split["by_op"].items())[:8])}
+            "top_ops": dict(list(split["by_op"].items())[:8])}, errs, ref
 
 
 def train_lstm(torch, card, readings):
     """The stacked LSTM at the JAX bench's shape (see the module docstring,
-    phase 9). Returns the kernels' launches over the main path's steps."""
+    phase 9). Returns the kernels' launches over the main path's steps and
+    their worst errors against their plain versions at its inputs."""
     from paddle_tpu_torch.ops import fused, registry
     from paddle_tpu_torch.tools import profile_rnn as rnn
     from paddle_tpu_torch.tools import profile_training as prof
@@ -2987,14 +3096,16 @@ def train_lstm(torch, card, readings):
     del step, scope
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
-    eager = _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, "lstm")
+    eager, errs, ref = _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, "lstm")
     log("train lstm: the graph run took %.1f s (the warmup %.3f s, the capture %.3f s), its "
-        "profile %.1f s, the op-by-op run and its split %.1f s" % (
+        "profile %.1f s, the op-by-op run, its split, the kernel checks and the unfused run "
+        "%.1f s" % (
             t2 - t1, walls[0] / 1e3, walls[1] / 1e3, t3 - t2, time.perf_counter() - t3))
     readings["train_lstm"] = {"graph": graph, "op_by_op": eager}
     log("train lstm: stacked dynamic LSTM %s, f32, training_fused, built and run in %.1f s; "
         "losses (warmup, capture, %d full-length graph steps, %d ragged) %s; the same counters "
-        "every step %s; the first %d losses bit for bit op by op with the same counters; graph: "
+        "every step %s; the first %d losses bit for bit op by op with the same counters; "
+        "unfused %s (rtol %g atol %g); graph: "
         "step wall p50 %.3f ms (ragged %.3f ms), %.1f tokens/s over graph steps 2-6, device "
         "busy %s ms a step = %s of the profiled wall p50 (%.3f ms), %s launches a step, max "
         "memory reserved %.3f GiB; op by op: step wall p50 %.3f ms, device %.3f ms a step, "
@@ -3002,13 +3113,14 @@ def train_lstm(torch, card, readings):
             json.dumps(cfg), time.perf_counter() - t0, RNN_STEPS, LSTM_RAGGED_STEPS,
             ["%.6f" % v for v in losses], json.dumps({"%s:%s" % k: v for k, v in
                                                       deltas[0].items()}),
-            COMPARE_STEPS, graph["step_p50_ms"], graph["ragged_step_p50_ms"],
+            COMPARE_STEPS, ["%.6f" % v for v in ref], FUSED_RTOL, FUSED_ATOL,
+            graph["step_p50_ms"], graph["ragged_step_p50_ms"],
             graph["tokens_per_s"], graph["device_busy_ms"], graph["device_busy_share"],
             graph["profiled_wall_p50_ms"], graph["device_launches"],
             graph["memory_max_reserved_gib"], eager["step_p50_ms"], eager["device_ms_per_step"],
             json.dumps({k: round(v, 3) for k, v in eager["split"].items()}),
             json.dumps({k: round(v, 4) for k, v in eager["recurrent"].items()}), card))
-    return {k: v for k, v in launches.items() if v}
+    return {k: v for k, v in launches.items() if v}, errs
 
 
 class _CountOps:
@@ -3069,7 +3181,8 @@ def _beam_decode(torch, rnn, cfg, scope, batch):
 
 def train_nmt(torch, card, readings):
     """The GRU attention NMT model (see the module docstring, phase 10).
-    Returns the kernels' launches over the full-width main path's steps."""
+    Returns the kernels' launches over the full-width main path's steps and
+    their worst errors against their plain versions at its inputs."""
     from paddle_tpu_torch.ops import fused, registry
     from paddle_tpu_torch.tools import profile_rnn as rnn
     from paddle_tpu_torch.tools import profile_training as prof
@@ -3119,20 +3232,22 @@ def train_nmt(torch, card, readings):
               "hypothesis_len_min": int(lens.min()), "hypothesis_len_max": int(lens.max())}
     del step, scope
     torch.cuda.empty_cache()
-    eager = _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, "nmt")
+    eager, errs, ref = _rnn_op_by_op(torch, rnn, registry, model, feeds, outs, deltas, "nmt")
     readings["train_nmt"] = {"graph": graph, "op_by_op": eager}
     readings["nmt_decode"] = {"op_by_op": decode}
     log("train nmt: emb = hid = %d, dict %d, %d words, batch %d, Adam(%g), f32, "
         "training_fused, built and run in %.1f s; losses (warmup, capture, %d graph steps) %s; "
         "the same counters every step %s; the first %d losses bit for bit op by op with the "
-        "same counters; graph: step wall p50 %.3f ms, %.1f target tokens/s over graph steps "
+        "same counters; unfused %s (rtol %g atol %g); graph: step wall p50 %.3f ms, %.1f target "
+        "tokens/s over graph steps "
         "2-6, device busy %s ms a step = %s of the profiled wall p50 (%.3f ms), %s launches a "
         "step, max memory reserved %.3f GiB; op by op: step wall p50 %.3f ms, device %.3f ms a "
         "step, split %s, recurrent %s; card %s" % (
             cfg["emb_dim"], cfg["dict_size"], cfg["seq_len"], cfg["batch"], cfg["lr"],
             time.perf_counter() - t0, RNN_STEPS, ["%.6f" % v for v in losses],
             json.dumps({"%s:%s" % k: v for k, v in deltas[0].items()}), COMPARE_STEPS,
-            graph["step_p50_ms"], graph["tokens_per_s"], graph["device_busy_ms"],
+            ["%.6f" % v for v in ref], FUSED_RTOL, FUSED_ATOL, graph["step_p50_ms"],
+            graph["tokens_per_s"], graph["device_busy_ms"],
             graph["device_busy_share"], graph["profiled_wall_p50_ms"], graph["device_launches"],
             graph["memory_max_reserved_gib"], eager["step_p50_ms"], eager["device_ms_per_step"],
             json.dumps({k: round(v, 3) for k, v in eager["split"].items()}),
@@ -3141,7 +3256,7 @@ def train_nmt(torch, card, readings):
         "lowered (the While's body every step); scores finite, hypothesis lengths %d-%d; card %s"
         % (cfg["beam_size"], cfg["max_out_len"], cfg["batch"], json.dumps(added), wall, n_ops,
            decode["hypothesis_len_min"], decode["hypothesis_len_max"], card))
-    return {k: v for k, v in launches.items() if v}
+    return {k: v for k, v in launches.items() if v}, errs
 
 
 # (name, layer kwargs, closed form of the step counter's value k); the
@@ -3288,14 +3403,14 @@ def main():
             launches[name] += n
     with Phase("train resnet50"):
         train_resnet50(torch, card, paths)
-    torch.cuda.empty_cache()
-    with Phase("train lstm"):
-        for name, n in train_lstm(torch, card, paths).items():
-            launches[name] = launches.get(name, 0) + n
-    torch.cuda.empty_cache()
-    with Phase("train nmt"):
-        for name, n in train_nmt(torch, card, paths).items():
-            launches[name] = launches.get(name, 0) + n
+    for label, phase in (("train lstm", train_lstm), ("train nmt", train_nmt)):
+        torch.cuda.empty_cache()
+        with Phase(label):
+            counts, errs = phase(torch, card, paths)
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            for name, err in errs.items():
+                kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     with Phase("schedules"):
         schedules(torch, card)
     # every main path on replayed CUDA graphs beside the op-by-op path

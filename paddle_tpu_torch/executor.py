@@ -14,10 +14,13 @@ and, on the card, captures it as a CUDA graph:
   capture cannot do), and, on the card, the diagnosis mode: while the
   profiler is on and FLAGS_profile_ops is set, never cached, with an event
   and a device sync per op (the JAX package's `_PerOpProfiledBlock`, taken
-  at the same point). A block the card runs op by op for one of the first
-  two reasons is counted under that reason in `Executor.stats()["op_by_op"]`
-  ("creates_persistables", "open_ended_while").
-- `_CompiledBlock` is the card's form. Call 1 of a cache key runs op by op
+  at the same point).
+- `_CompiledBlock` is the card's form, and the one place that decides
+  whether a block captures. A block that creates persistables or holds an
+  open-ended `while` runs op by op every call, counted under that reason
+  in `Executor.stats()["op_by_op"]` ("creates_persistables",
+  "open_ended_while"), through Executor.run and serving alike. Otherwise
+  call 1 of a cache key runs op by op
   on a side stream: the warmup a capture needs (kernel libraries load, lazy
   buffers and the arrival counters of that stream are made, the allocator
   warms). Call 2 captures the block as a CUDA graph and replays it once,
@@ -55,7 +58,7 @@ from . import flags as _flags
 from . import framework
 from . import profiler as _prof
 from .framework import Variable
-from .ops import registry
+from .ops import fused, registry
 from .ops.control_flow_ops import is_open_ended_while, walk_ops
 from .ops.registry import EMPTY_VAR_NAME
 from .place import to_device
@@ -71,11 +74,6 @@ __all__ = [
 # the place of a scope that takes its device from the first executor that
 # runs on it (the process scope)
 _UNBOUND = object()
-
-# reason -> runs of blocks the card ran op by op instead of capturing
-# (_PerOpProfiledBlock.capture_declined)
-OP_BY_OP = {}
-
 
 class Scope:
     """name -> device tensor store (reference scope.h:134, flat) on one
@@ -545,8 +543,8 @@ class _CompiledBlock:
     CUDA graph in `pool` and replays it, later calls replay. The Executor
     keeps one under each cache key, a _ServeBlock one for each value of the
     lowering flags. A block whose capture_declined is set (a startup
-    program, a block holding an open-ended while) is never given one: it
-    runs op by op every call."""
+    program, a block holding an open-ended while) runs op by op every
+    call, counted under that reason (ops.fused.OP_BY_OP)."""
 
     def __init__(self, block, pool, is_test=False):
         self.block = block
@@ -556,14 +554,18 @@ class _CompiledBlock:
         self.graph = None
 
     def run(self, scope, feeds, ro, mut):
-        """(fetches, new_mut) of one call over the state `ro` and `mut`;
-        once captured, the fetches are the graph's own tensors."""
+        """(fetches, new_mut, created) of one call over the state `ro` and
+        `mut`; once captured, the fetches are the graph's own tensors.
+        Only a block that declines capture creates persistables."""
         block = self.block
+        if block.capture_declined is not None:
+            fused.note_op_by_op(block.capture_declined)
+            return block.run(scope, feeds, ro, mut, self.is_test)
         if not self._warm:
             with _on_capture_stream(scope.device):
                 fetches, new_mut, _ = block.run(scope, feeds, ro, mut, self.is_test)
             self._warm = True
-            return fetches, new_mut
+            return fetches, new_mut, {}
         ctx = block.ctx(scope, self.is_test)
         if self.graph is None:
             # the warmup's intermediates, cached by the allocator, go back
@@ -573,14 +575,15 @@ class _CompiledBlock:
         elif block.stochastic and ctx.device_generator is not self.graph.device_generator:
             raise RuntimeError("the scope's device generator was replaced (reseeded) after "
                                "its block was captured")
-        return self.graph.replay(feeds, ro, mut)
+        return self.graph.replay(feeds, ro, mut) + ({},)
 
     def __call__(self, scope, feeds):
         """One Executor.run over the scope's state: the fetches. From the
         capture on, the scope holds the captured tensors."""
         ro, mut = self.block.state(scope)
-        fetches, new_mut = self.run(scope, feeds, ro, mut)
+        fetches, new_mut, created = self.run(scope, feeds, ro, mut)
         scope.vars.update(new_mut)
+        scope.vars.update(created)
         if self.graph is not None:
             scope.vars.update(self.graph.ro)
         return fetches
@@ -615,7 +618,7 @@ class _ServeBlock:
         compiled = self.compiled.get(key)
         if compiled is None:
             compiled = self.compiled[key] = _CompiledBlock(self.block, self.pool, is_test=True)
-        return compiled.run(self.scope, feeds, ro, mut)
+        return compiled.run(self.scope, feeds, ro, mut)[:2]
 
 
 def aot_serve_lowering(program, feed_names, fetch_names, scope,
@@ -746,13 +749,10 @@ class Executor:
             compiled = self._cache.get(key) if cached else None
             if compiled is None:
                 compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
-                if self.device.type == "cuda" and compiled.capture_declined is None:
+                if self.device.type == "cuda":
                     compiled = _CompiledBlock(compiled, self._graph_pool())
                 if cached:
                     self._cache[key] = compiled
-            reason = getattr(compiled, "capture_declined", None)
-            if reason is not None and self.device.type == "cuda":
-                OP_BY_OP[reason] = OP_BY_OP.get(reason, 0) + 1
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed)
         replayed = getattr(compiled, "graph", None) is not None
@@ -774,6 +774,4 @@ class Executor:
         counted, every replay. `op_by_op`: the runs on the card of blocks
         that were not captured, by reason ("creates_persistables",
         "open_ended_while"); ops.fused.reset_stats() clears it too."""
-        from .ops import fused
-
-        return dict(fused.stats(), op_by_op=dict(OP_BY_OP))
+        return dict(fused.stats(), op_by_op=dict(fused.OP_BY_OP))

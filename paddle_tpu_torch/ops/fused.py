@@ -39,10 +39,12 @@ from .registry import bcast_y, gather_op_inputs, register_fused, scatter_op_outp
 
 __all__ = [
     "KERNEL_DISPATCHES",
+    "OP_BY_OP",
     "adam_path_taken",
     "counter_dicts",
     "gemm_path_taken",
     "ln_path_taken",
+    "note_op_by_op",
     "quant_gemm_path_taken",
     "reset_stats",
     "stats",
@@ -52,8 +54,18 @@ __all__ = [
 KERNEL_DISPATCHES = {}
 
 
+# reason -> runs of blocks the card ran op by op instead of capturing
+# (the executor's _CompiledBlock counts them: "creates_persistables",
+# "open_ended_while")
+OP_BY_OP = {}
+
+
 def _note_dispatch(family):
     KERNEL_DISPATCHES[family] = KERNEL_DISPATCHES.get(family, 0) + 1
+
+
+def note_op_by_op(reason):
+    OP_BY_OP[reason] = OP_BY_OP.get(reason, 0) + 1
 
 
 _KERNEL_MODULES = (flash_attention, gemm_epilogue, layer_norm, multi_adam, quant_gemm)
@@ -69,10 +81,8 @@ def stats():
 
 
 def reset_stats():
-    from .. import executor
-
     KERNEL_DISPATCHES.clear()
-    executor.OP_BY_OP.clear()
+    OP_BY_OP.clear()
     for mod in _KERNEL_MODULES:
         mod.reset_kernel_launches()
 

@@ -53,12 +53,14 @@ class _Lowerings:
     """Wraps every registered lowering, and every fused family's lowering,
     in `self.around(name, call)` while entered. Only the outermost call is
     wrapped: a lowering called from inside another (a generic grad replays
-    its forward op's lowering under torch.func.vjp) counts toward the outer
-    op."""
+    its forward op's lowering under torch.func.vjp) goes through
+    `self.nested(name, call)`, which counts it toward the outer op
+    (`self.outer`)."""
 
     def __init__(self, registry):
         self.registry = registry
         self._depth = 0
+        self.outer = None
         self._saved_ops, self._saved_fused = {}, {}
 
     def __enter__(self):
@@ -74,14 +76,18 @@ class _Lowerings:
     def _wrapped(self, name, fn):
         def lower(*args):
             if self._depth:
-                return fn(*args)
+                return self.nested(name, lambda: fn(*args))
             self._depth += 1
+            self.outer = name
             try:
                 return self.around(name, lambda: fn(*args))
             finally:
                 self._depth -= 1
 
         return lower
+
+    def nested(self, name, call):
+        return call()
 
     def __exit__(self, *exc):
         for name, fn in self._saved_ops.items():

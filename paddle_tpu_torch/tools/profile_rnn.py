@@ -15,13 +15,14 @@ chip_smoke.py's train-lstm and train-nmt phases and the tests use them:
 
 rnn_device_split divides the op-by-op path's device time into the
 recurrent products, the gates' elementwise work, the generic grad's
-replayed forward, the rest of the recurrent grad, the embedding and the
-optimizer.
+replayed forward (measured in its own profiler range inside the grad op),
+the rest of the recurrent grad, the embedding and the optimizer.
 """
 
 import numpy as np
+import torch
 
-from .profile_training import op_device_split
+from .profile_training import _OpRanges, op_device_split
 
 LSTM = dict(dict_dim=30000, emb_dim=512, hid_dim=512, stacked_num=2, class_num=2, batch=64,
             seq_len=100, lr=2e-3)
@@ -31,10 +32,13 @@ COPY = dict(dict_size=12, emb_dim=32, hid_dim=32, seq_len=5, batch=8, lr=1e-2, b
             max_out_len=6, steps=150)
 START, END = 0, 1
 
+RECURRENT = ("dynamic_lstm", "dynamic_gru", "recurrent")
+REPLAY = "replay:"  # the range of a generic grad's replayed forward
 # the split's categories: op types whose device time each sums
 RNN_SPLIT = (
-    ("recurrent_forward", ("dynamic_lstm", "dynamic_gru", "recurrent")),
-    ("recurrent_grad", ("dynamic_lstm_grad", "dynamic_gru_grad", "recurrent_grad")),
+    ("recurrent_forward", RECURRENT),
+    ("recurrent_grad", tuple(t + "_grad" for t in RECURRENT)
+     + tuple(REPLAY + t for t in RECURRENT)),
     ("embedding", ("lookup_table", "lookup_table_grad")),
     ("optimizer", ("adam", "fused:multi_adam", "scale")),
     ("fc", ("mul", "mul_grad", "fused:gemm_epilogue", "elementwise_add",
@@ -154,26 +158,45 @@ def copied(src, src_len, ids, hyp_len):
     return n
 
 
+class _ReplayRanges(_OpRanges):
+    """_OpRanges, and inside a recurrent op's generic grad the replayed
+    forward in a range of its own, "op::replay:<type>", with a device sync
+    on each side so that its kernels start and end inside it; a marker
+    range of the grad's own name after it gives the vjp's backward kernels
+    back to the grad (op_device_split gives a kernel to the last range
+    begun before it)."""
+
+    def nested(self, name, call):
+        if name not in RECURRENT or self.outer != name + "_grad":
+            return call()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("op::" + REPLAY + name):
+            out = call()
+            torch.cuda.synchronize()
+        with torch.profiler.record_function("op::" + self.outer):
+            pass
+        return out
+
+
 def rnn_device_split(step, batches, registry):
     """op_device_split over RNN_SPLIT, and the recurrent ops' time further
     split: the forward's library products (kernels named as cuBLAS's and
     CUTLASS's GEMMs) and its gates' elementwise work (the rest); the
-    generic grad's replayed forward, read as the forward's own time (the
-    replay runs the forward lowering again on the same inputs), and the
+    generic grad's replayed forward, measured in its own range, and the
     rest of the grad (the vjp's backward)."""
-    split = op_device_split(step, batches, registry, RNN_SPLIT)
+    split = op_device_split(step, batches, registry, RNN_SPLIT, ranges=_ReplayRanges)
     fwd = {}
-    for op in RNN_SPLIT[0][1]:
+    for op in RECURRENT:
         for name, ms in split["kernels_by_op"].get(op, {}).items():
             fwd[name] = fwd.get(name, 0.0) + ms
     products = sum(ms for name, ms in fwd.items() if any(m in name for m in _GEMM_MARKS))
-    cats = split["by_category"]
-    forward = cats["recurrent_forward"]
+    forward = split["by_category"]["recurrent_forward"]
+    replayed = sum(split["by_op"].get(REPLAY + t, 0.0) for t in RECURRENT)
     split["recurrent"] = {
         "forward_products_ms": products,
         "forward_gates_elementwise_ms": forward - products,
-        "grad_replayed_forward_ms": forward,
-        "grad_backward_ms": cats["recurrent_grad"] - forward,
-        "replayed_forward_share_of_step": forward / split["device_ms_per_step"],
+        "grad_replayed_forward_ms": replayed,
+        "grad_backward_ms": sum(split["by_op"].get(t + "_grad", 0.0) for t in RECURRENT),
+        "replayed_forward_share_of_step": replayed / split["device_ms_per_step"],
     }
     return split

@@ -234,7 +234,7 @@ SPLIT = (
 )
 
 
-def op_device_split(step, batches, registry, split_by=SPLIT):
+def op_device_split(step, batches, registry, split_by=SPLIT, ranges=_OpRanges):
     """Device ms a step by op type on the op-by-op path (one step per batch,
     every lowering in its profiler range, a device sync after each op),
     the categories of `split_by` (SPLIT: the convolution grads also split by their
@@ -243,9 +243,10 @@ def op_device_split(step, batches, registry, split_by=SPLIT):
     started: the sync after each op keeps one op's kernels from running
     into the next op's range, and a generic grad's backward kernels,
     launched from the autograd engine's own thread, are found by time where
-    the range's own thread does not show them."""
+    the range's own thread does not show them. `ranges` puts the
+    lowerings in their ranges (_OpRanges or a subclass)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with op_by_op(), _OpRanges(registry):
+    with op_by_op(), ranges(registry):
         with torch.profiler.profile(activities=acts) as prof:
             for b in batches:
                 step(b)

@@ -4,7 +4,8 @@ card it runs with `python -m pytest --noconftest
 tests/test_torch_rnn_cuda.py -m cuda`):
 
 - the capture rule: a block holding an open-ended while runs op by op and
-  is counted under "open_ended_while", a bounded while's block is captured;
+  is counted under "open_ended_while", a bounded while's block is captured,
+  through Executor.run and through a serve lowering alike;
 - the stacked LSTM and the NMT model at small widths: 3 steps on the graph
   path against 3 op by op from the same seed, losses bit for bit with the
   same launches and dispatches a step, 1 multi_adam launch a step; the
@@ -24,6 +25,7 @@ import torch
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch import flags
+from paddle_tpu_torch.executor import aot_serve_lowering
 from paddle_tpu_torch.ops import fused
 from paddle_tpu_torch.tools import profile_rnn as rnn
 
@@ -84,6 +86,23 @@ def test_capture_rule(cuda_device, max_iters, reasons, graphs):
         assert i_v[0] == 10 and acc_v[0] == 20.0
     assert pt.Executor.stats()["op_by_op"] == reasons
     assert sum(getattr(c, "graph", None) is not None for c in exe._cache.values()) == graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iters,reasons,captures", [
+    (None, {"open_ended_while": 3}, 0), (12, {}, 1)])
+def test_capture_rule_serving(cuda_device, max_iters, reasons, captures):
+    main, startup, fetch = _counting_while(max_iters)
+    scope = pt.Scope(seed=0, place=pt.CUDAPlace(0))
+    with pt.scope_guard(scope):
+        pt.Executor(pt.CUDAPlace(0)).run(startup)
+    fused.reset_stats()
+    serve, ro, mut = aot_serve_lowering(main, [], fetch, scope, return_state=True)
+    for _ in range(3):
+        (acc_v, i_v), mut = serve({}, ro, mut)
+        assert int(i_v.reshape(-1)[0]) == 10 and float(acc_v.reshape(-1)[0]) == 20.0
+    assert pt.Executor.stats()["op_by_op"] == reasons
+    assert serve.captures() == captures
 
 
 def _run(model, feeds, per_op):
