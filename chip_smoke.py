@@ -68,6 +68,15 @@ Phases, each printing its own line; any failure exits non-zero:
        1, 17, 250, 1024 x k 16, 48, 2064, 8192 x n 16, 2064, and a ragged
        128-row tile at 1000 x 2064 x 2064; the five acts, both forms), each
        call repeated bit for bit;
+     - fp8_matmul (the cast pass and the e4m3 GEMM, batched on the grid)
+       at the bf16 Transformer's products (the attention projections, q
+       k^T and p v of 16 x 8 heads, the FFN products, the vocab projection
+       at n = 37000) and edges (m 1-1024, k 1-4096 with k % 16 != 0, n
+       1-2064, an operand broadcast over a batch), f32 and bf16 operands,
+       values past 448: NaN where the plain version has NaN, f32 within
+       rtol 1e-5 of max |out|, bf16 one bf16 ulp; the cast pass's bytes
+       against the plain rounding bit for bit; timed at (4096, 512) @
+       (512, 512) bf16 beside torch._scaled_mm;
   Every serve and train phase runs its main path on replayed CUDA graphs
   (a GenerationEngine captures its decode step and prefill buckets at
   warmup(); Executor.run captures a training step at its second call) and
@@ -193,11 +202,40 @@ Phases, each printing its own line; any failure exits non-zero:
      learning rate fetched at every step equals the schedule's closed form
      at that step (rtol 1e-6), so a replayed graph advances the step
      counter;
- 12. the `paths` JSON line, then a `kernels` JSON line (launches on the
+ 12. train deepfm: DeepFM (models/deepfm.py) at the JAX bench's recsys
+     widths (bench.py:1533-1557): a 2^20 x 32 table, 16 fields, batch 512,
+     layer_sizes (32, 16), Adam(1e-3) with bf16 moments, training_fused,
+     dense and is_sparse=True (SelectedRows grads, lazy Adam on the
+     touched rows): the warmup, the capture and 6 graph steps each, 3 GEMM
+     epilogue and 1 multi_adam launches every step, no block op by op but
+     the startup program; the first 2 steps op by op bit for bit with the
+     same counters, the kernels held at the path's inputs; step wall,
+     examples/s, embedding rows/s, busy share, launches and memory a step,
+     the sparse:dense step ratio; then sparse against dense SGD at the
+     parity leg's shape (2048 rows, 4 fields, dim 8, batch 64, 6 batches)
+     bit for bit, losses and tables; then tests/test_deepfm.py's training
+     (200 sparse Adam steps): the last 5 losses under 0.9x the first 5 and
+     the AUC of a fresh batch of 512 above 0.65;
+ 13. train bf16: ResNet-50 (batch 256, Momentum(0.1, 0.9)), the stacked
+     LSTM (Adam 2e-3) and Transformer base, each as its f32 phase builds
+     it, rewritten by Bf16Transpiler after its startup program (the JAX
+     bench's precision: f32 masters, bf16 activations and gradients) and
+     trained on CUDA graphs from the same seed and batches: the first 3
+     losses within rtol 5e-2, atol 2e-2 of the f32 phase's, every master
+     and moment still f32, the first 3 steps op by op bit for bit with the
+     same counters, the GEMM epilogue (bf16 operands, 2e-2) and Adam (bf16
+     grads, f32 masters, bit for bit) held at the path's inputs; images/s
+     or tokens/s, step wall, busy share and memory beside the f32 phase's;
+     then 3 Transformer steps with FLAGS_fp8_matmul: fp8_matmul's cast
+     pass and e4m3 GEMM launched, losses within 0.1 relative of the bf16
+     steps', bit for bit op by op, its first product held against the
+     plain version;
+ 14. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
-     multi_adam count the Transformer's, LeNet's, the LSTM's and the NMT
-     model's steps, and their max_abs_err is the worst of their own check
-     and the LSTM's and the NMT model's path checks).
+     multi_adam count the Transformer's, LeNet's, the LSTM's, the NMT
+     model's, DeepFM's and the bf16 runs' steps, and their max_abs_err is
+     the worst of their own check and the path checks; quant_gemm_fp8,
+     e4m3_cast and fp8_matmul count the fp8 steps').
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -268,6 +306,10 @@ SCHEDULE_STEPS = 6  # replayed steps of each learning-rate schedule
 SCHEDULE_RTOL = 1e-6
 COMPARE_STEPS = 3  # of them compared with the unfused run
 FUSED_RTOL, FUSED_ATOL = 2e-3, 2e-4  # the JAX package's fused-vs-unfused bar
+BF16_KERNEL_TOL = 2e-2  # a kernel with bf16 operands against its plain version
+# the f32 phases' first COMPARE_STEPS losses on the graph path, by model,
+# which the bf16 runs of the same weights and batches are held against
+F32_FIRST = {}
 
 
 def log(msg):
@@ -1785,16 +1827,14 @@ def check_quant_gemm(torch, device, flush):
     launches = qg.kernel_launches()["quant_gemm_fp8"]
     log("kernel quant_gemm fp8 (e4m3): x %s @ w %s max_abs_err %.3g (rtol 1e-5 of max |z| %.4g) "
         "kernel %.4f ms (device); plain (f32 product) %.4f ms; torch._scaled_mm (no bias) %.4f ms, "
-        "kernel / _scaled_mm %.3f; bound %.4f ms (%s); no path reaches it, %d launches here" % (
+        "kernel / _scaled_mm %.3f; bound %.4f ms (%s); %d launches here" % (
             (m, k), (k, n), err, float(zp.abs().max()), ms, plain_ms, lib_ms, ms / lib_ms,
             bound_ms, bound_by, launches))
-    entry = _entry("quant_gemm_fp8", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1274", err,
-                   ms, plain_ms, bound_ms, bound_by, lib_ms)
-    # no main path in either package emits fp8 operands: its launches are
-    # this phase's own
-    entry["launches"] = launches
-    entry["path"] = None
-    entries["quant_gemm_fp8"] = entry
+    # its launches on a main path are fp8_matmul's products in the train
+    # bf16 phase's fp8 steps
+    entries["quant_gemm_fp8"] = _entry(
+        "quant_gemm_fp8", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1274", err, ms,
+        plain_ms, bound_ms, bound_by, lib_ms)
     del xf, wf, zp
     # path B's bucket (64-row CTA tiles) beside the library calls
     mb = QGEMM_BATCH
@@ -1848,6 +1888,151 @@ def _qgemm_bound(m, k, n, act):
     nbytes = m * k + k * n + 4 * n + 4 + (2 if act else 1) * m * n * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * n * k / INT8_TOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# fp8_matmul (FLAGS_fp8_matmul's products): the bf16 Transformer base's
+# products that the flag takes (the attention projections, q k^T and p v of
+# 16 x 8 heads, the FFN products the generic grads replay, the vocab
+# projection, whose n = 37000 is 8 past a multiple of 16), then edges: m 1
+# to 1024, k 1 to 4096 (4095: k % 16 != 0), n 1 to 2064, an operand
+# broadcast over a batch
+FP8_MM_PATH = (((4096, 512), (512, 512)), ((16, 8, 256, 64), (16, 8, 64, 256)),
+               ((16, 8, 256, 256), (16, 8, 256, 64)), ((4096, 512), (512, 2048)),
+               ((4096, 2048), (2048, 512)), ((4096, 512), (512, 37000)))
+FP8_MM_EDGES = (((1, 1), (1, 1)), ((1, 4096), (4096, 2064)), ((17, 37), (37, 5)),
+                ((250, 48), (48, 2064)), ((1024, 4095), (4095, 33)),
+                ((1000, 2064), (2064, 2064)), ((3, 100, 20), (20, 130)))
+FP8_MM_TIMED = ((4096, 512), (512, 512))  # the commonest product of an fp8 step
+FP8_MM_RTOL = 1e-5  # of max |out|: the same e4m3 values, f32 sums in another order
+
+
+def _fp8_operands(torch, device, xs, ys, dtype, seed, past_448=True, scale=40.0):
+    """Seeded operands ~ scale N(0, 1) (40: across e4m3's range); with
+    past_448, x[..., 0, 0] = 500 (a NaN row) and y[..., -1, -1] = -1e4 (a
+    NaN column) where the operand keeps other rows or columns finite."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(xs, device=device, generator=gen) * scale
+    y = torch.randn(ys, device=device, generator=gen) * scale
+    if past_448 and xs[-2] > 1:
+        x[..., 0, 0] = 500.0
+    if past_448 and ys[-1] > 1:
+        y[..., -1, -1] = -1e4
+    return x.to(dtype), y.to(dtype)
+
+
+def _fp8_held(torch, qg, x, y):
+    """fp8_matmul's kernels against fp8_matmul_plain: NaN where the plain
+    version has NaN, f32 within FP8_MM_RTOL of max |out|, bf16 within one
+    bf16 ulp (or that bar where it is larger); a second call equal bit for
+    bit. Returns (the max abs error over the finite outputs, that error as
+    a share of max |out|)."""
+    got, again = qg.fp8_matmul(x, y), qg.fp8_matmul(x, y)
+    want = qg.fp8_matmul_plain(x, y)
+    torch.cuda.synchronize()
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    name = "fp8_matmul %s @ %s %s" % (tuple(x.shape), tuple(y.shape), x.dtype)
+    if got.dtype != x.dtype or got.shape != want.shape:
+        raise AssertionError("%s: %s %s, want %s %s" % (name, got.dtype, tuple(got.shape),
+                                                        x.dtype, tuple(want.shape)))
+    if not torch.equal(got.view(bits), again.view(bits)):
+        raise AssertionError("%s: differs from run to run" % name)
+    g, w = got.float(), want.float()
+    if not torch.equal(torch.isnan(g), torch.isnan(w)):
+        raise AssertionError("%s: NaN where the plain version has none, or none where it has" %
+                             name)
+    ok = ~torch.isnan(w)
+    if not bool(ok.any()):
+        return 0.0, 0.0
+    scale = float(w[ok].abs().max())
+    err = (g - w)[ok].abs()
+    bar = torch.full_like(err, FP8_MM_RTOL * scale)
+    if x.dtype == torch.bfloat16:
+        ulp = torch.pow(2.0, torch.floor(torch.log2(w[ok].abs().clamp(min=1e-30))) - 7)
+        bar = torch.maximum(bar, ulp)
+    if bool((err > bar).any()):
+        raise AssertionError("%s: %d values past the bar, max abs err %g (max |out| %g)"
+                             % (name, int((err > bar).sum()), float(err.max()), scale))
+    return float(err.max()), float(err.max()) / max(scale, 1e-30)
+
+
+def check_fp8_matmul(torch, device, flush):
+    """fp8_matmul (row 13: pallas_kernels.py:1393) on its two hand-written
+    kernels, the e4m3 cast pass and the e4m3 GEMM with the batch on the
+    grid: held against its plain version at the bf16 Transformer's products
+    and the edges, f32 and bf16 operands, values past 448; the cast pass's
+    bytes against the plain rounding bit for bit; both timed at
+    FP8_MM_TIMED in bf16 beside torch._scaled_mm (the product of operands
+    already in e4m3, no cast) and the saturating .to(float8_e4m3fn)."""
+    from paddle_tpu_torch.ops import quant_gemm as qg
+
+    worst, n_cases = {}, 0
+    for i, (xs, ys) in enumerate(FP8_MM_PATH + FP8_MM_EDGES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = _fp8_operands(torch, device, xs, ys, dtype, SEED + 60 + i)
+            rel = _fp8_held(torch, qg, x, y)[1]
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), rel)
+            n_cases += 1
+            del x, y
+    # the cast pass alone: its bytes, widened, are the plain rounding's
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    t = (torch.randn(3, 37, 45, device=device, generator=gen)
+         * torch.logspace(-4, 3, 45, device=device))
+    t[0, 0, :6] = torch.tensor([464.0, 464.01, -448.5, float("inf"), float("nan"), -0.0])
+    for dtype in (torch.float32, torch.bfloat16):
+        td = t.to(dtype)
+        staged = qg._stage_e4m3(td, 40, 48)
+        want = qg.e4m3_round_plain(td)
+        torch.cuda.synchronize()
+        got = staged.view(torch.float8_e4m3fn).float()[:, :37, :45]
+        pad_zero = bool((staged[:, 37:, :] == 0).all()) and bool((staged[:, :, 45:] == 0).all())
+        ok = ~torch.isnan(want)
+        if (not pad_zero or not torch.equal(torch.isnan(got), ~ok)
+                or not torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))):
+            raise AssertionError("e4m3_cast %s: differs from the plain rounding" % dtype)
+    log("kernel fp8_matmul: %d cases (the bf16 Transformer's products %s and the edges %s, f32 "
+        "and bf16 operands, values past 448) held against the plain version: NaN where it has "
+        "NaN, worst max abs err / max |out| %s (bar: f32 %g of max |out|, bf16 one bf16 ulp); "
+        "every call repeats bit for bit; the cast pass's e4m3 bytes equal the plain rounding's "
+        "bit for bit (f32 and bf16, ties, subnormals, 464 / 464.01, inf, NaN, -0) with its zero "
+        "padding" % (n_cases, [s for s in FP8_MM_PATH], [s for s in FP8_MM_EDGES],
+                     json.dumps(worst), FP8_MM_RTOL))
+
+    (m, k), (_, n) = FP8_MM_TIMED
+    x, y = _fp8_operands(torch, device, (m, k), (k, n), torch.bfloat16, SEED + 71,
+                         past_448=False, scale=1.0)
+    err = _fp8_held(torch, qg, x, y)[0]
+    ms = time_ms(torch, lambda: qg.fp8_matmul(x, y), 20, flush, gated=True)
+    plain_ms = time_ms(torch, lambda: qg.fp8_matmul_plain(x, y), 10, flush, gated=True)
+    x8, y8 = x.to(torch.float8_e4m3fn), y.to(torch.float8_e4m3fn)
+    ycol = y8.t().contiguous().t()  # _scaled_mm takes its second operand column-major
+    one = torch.ones((), device=device)
+    lib_ms = time_ms(torch, lambda: torch._scaled_mm(x8, ycol, scale_a=one, scale_b=one,
+                                                     out_dtype=torch.bfloat16), 20, flush,
+                     gated=True)
+    nbytes = 2 * (m * k + k * n + m * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * n * k / INT8_TOPS
+    bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    cast_ms = time_ms(torch, lambda: qg._stage_e4m3(x.reshape(1, m, k), m, k), 20, flush,
+                      gated=True)
+    cast_plain_ms = time_ms(torch, lambda: qg.e4m3_round_plain(x), 10, flush, gated=True)
+    cast_lib_ms = time_ms(torch, lambda: x.to(torch.float8_e4m3fn), 20, flush, gated=True)
+    cast_bound_ms = 3.0 * m * k / HBM_BYTES_PER_S * 1e3
+    log("kernel fp8_matmul: x %s @ y %s bf16 -> bf16, max abs err %.3g; %.4f ms (device, the "
+        "two casts and the product: 3 launches), plain (the rounding, an f32 matmul) %.4f ms; "
+        "torch._scaled_mm on operands already in e4m3 (the product alone, bf16 out) %.4f ms, "
+        "fp8_matmul / _scaled_mm %.3f; bound %.4f ms (%s: %d bytes, 2mnk at the fp8 rate); the "
+        "cast pass alone on x %.4f ms, plain %.4f ms, .to(float8_e4m3fn) (saturating) %.4f ms, "
+        "bound %.4f ms (bytes)" % (
+            (m, k), (k, n), err, ms, plain_ms, lib_ms, ms / lib_ms, bound_ms, bound_by, nbytes,
+            cast_ms, cast_plain_ms, cast_lib_ms, cast_bound_ms))
+    entries = {
+        "fp8_matmul": _entry("fp8_matmul", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1393",
+                             err, ms, plain_ms, bound_ms, bound_by, lib_ms),
+        "e4m3_cast": _entry("e4m3_cast", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1393",
+                            0.0, cast_ms, cast_plain_ms, cast_bound_ms, "bytes", cast_lib_ms),
+    }
+    del x, y, x8, y8, ycol
+    return entries
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2632,6 +2817,7 @@ def train(torch, card, readings):
     from paddle_tpu_torch.tools import profile_training as prof
 
     launches, losses, batches, prog = _train_fused(torch, prof.BASE, card, "train", readings)
+    F32_FIRST["transformer"] = losses[:COMPARE_STEPS]
     ref, _, uscope, ustep, _ = _train_run(torch, *prog, batches[:COMPARE_STEPS], "",
                                           _exact_counts({}, "unfused train"))
     ref = [float(v) for v in ref]
@@ -2864,6 +3050,7 @@ def train_resnet50(torch, card, readings):
     stats = fused.stats()  # and closes here: nothing launched or dispatched
     reserved = torch.cuda.max_memory_reserved() / GIB
     losses = [float(o[0]) for o in outs]
+    F32_FIRST["resnet50"] = losses[:COMPARE_STEPS]
     graph = {"batch": batch, "step_p50_ms": float(np.median(walls[2:])),
              "images_per_s": batch * RESNET_STEPS / (sum(walls[2:]) / 1e3),
              "memory_max_reserved_gib": reserved}
@@ -2948,20 +3135,30 @@ def _rnn_graph_reading(prof, step, walls, feeds, tokens, registry, torch):
 
 class _PathInputs:
     """While entered, keeps copies of what the first `n_gemm` gemm_bias_act
-    calls and the first multi_tensor_adam call are given (before the
-    kernel runs: Adam updates in place), so that each kernel can be held
-    against its plain version at the main path's own shapes and values.
-    Recording launches nothing."""
+    calls, the first multi_tensor_adam call and the first `n_fp8`
+    fp8_matmul calls are given (before the kernel runs: Adam updates in
+    place), so that each kernel can be held against its plain version at
+    the main path's own shapes and values. Recording launches nothing."""
 
-    def __init__(self, n_gemm):
+    def __init__(self, n_gemm, n_fp8=0, n_adam=1):
         from paddle_tpu_torch.ops import gemm_epilogue as ge
         from paddle_tpu_torch.ops import multi_adam as ma
+        from paddle_tpu_torch.ops import quant_gemm as qg
 
-        self.ge, self.ma, self.n_gemm = ge, ma, n_gemm
-        self.gemm, self.adam = [], []
+        self.ge, self.ma, self.qg = ge, ma, qg
+        self.n_gemm, self.n_fp8, self.n_adam = n_gemm, n_fp8, n_adam
+        self.gemm, self.adam, self.fp8 = [], [], []
 
     def __enter__(self):
         self.saved = gemm, adam = self.ge.gemm_bias_act, self.ma.multi_tensor_adam
+        self.saved_fp8 = fp8 = self.qg.fp8_matmul
+
+        def fp8_rec(x, y):
+            if len(self.fp8) < self.n_fp8:
+                self.fp8.append((x.detach().clone(), y.detach().clone()))
+            return fp8(x, y)
+
+        self.qg.fp8_matmul = fp8_rec
 
         def gemm_rec(x2, w2, bias_row, act=None):
             if len(self.gemm) < self.n_gemm:
@@ -2969,7 +3166,7 @@ class _PathInputs:
             return gemm(x2, w2, bias_row, act=act)
 
         def adam_rec(params, grads, m1s, m2s, lr_ts, beta1, beta2, epsilon, **kw):
-            if not self.adam:
+            if len(self.adam) < self.n_adam:
                 lists = [[t.clone() for t in ts] for ts in (params, grads, m1s, m2s)]
                 lr = lr_ts.clone() if hasattr(lr_ts, "clone") else list(lr_ts)
                 self.adam.append(lists + [lr, beta1, beta2, epsilon])
@@ -2980,27 +3177,44 @@ class _PathInputs:
 
     def __exit__(self, *exc):
         self.ge.gemm_bias_act, self.ma.multi_tensor_adam = self.saved
+        self.qg.fp8_matmul = self.saved_fp8
         return False
 
     def hold(self, torch, label):
         """Each recorded call's kernel against its plain version on the
-        same inputs: the GEMM epilogue within GEMM_TOL, Adam bit for bit
-        with f32 moments (within one bf16 ulp with bf16 ones). Returns
-        ({kernel: worst abs error}, a line that says what was held)."""
+        same inputs: the GEMM epilogue within GEMM_TOL (bf16 operands: the
+        JAX package's on-card bf16 bar, BF16_KERNEL_TOL), Adam bit for bit
+        with f32 moments (within one bf16 ulp with bf16 ones), fp8_matmul as
+        in check_fp8_matmul. Returns ({kernel: worst abs error}, a line that
+        says what was held)."""
         ge, ma = self.ge, self.ma
-        if len(self.gemm) != self.n_gemm or len(self.adam) != 1:
-            raise AssertionError("%s: recorded %d GEMM epilogue calls of %d and %d Adam calls "
-                                 "of 1" % (label, len(self.gemm), self.n_gemm, len(self.adam)))
+        if (len(self.gemm) != self.n_gemm or len(self.adam) != self.n_adam
+                or len(self.fp8) != self.n_fp8):
+            raise AssertionError("%s: recorded %d GEMM epilogue calls of %d, %d Adam calls of %d "
+                                 "and %d fp8_matmul calls of %d" % (
+                                     label, len(self.gemm), self.n_gemm, len(self.adam),
+                                     self.n_adam, len(self.fp8), self.n_fp8))
         errs, held = {"gemm_epilogue": 0.0, "multi_adam": 0.0}, []
         for x, w, b, act in self.gemm:
-            name = "%s gemm_epilogue %s @ %s act %s" % (label, tuple(x.shape), tuple(w.shape), act)
+            name = "%s gemm_epilogue %s @ %s act %s %s" % (label, tuple(x.shape), tuple(w.shape),
+                                                          act, x.dtype)
+            tol = BF16_KERNEL_TOL if x.dtype == torch.bfloat16 else GEMM_TOL
             (z, y), (zp, yp) = ge.gemm_bias_act(x, w, b, act), ge.gemm_bias_act_plain(x, w, b, act)
             torch.cuda.synchronize()
-            err = _close(torch, name, z, zp, GEMM_TOL, GEMM_TOL)
+            err = _close(torch, name, z, zp, tol, tol)
             if act:
-                err = max(err, _close(torch, name, y, yp, GEMM_TOL, GEMM_TOL))
+                err = max(err, _close(torch, name, y, yp, tol, tol))
             errs["gemm_epilogue"] = max(errs["gemm_epilogue"], err)
-            held.append("%s @ %s act %s (err %.3g)" % (tuple(x.shape), tuple(w.shape), act, err))
+            held.append("%s @ %s act %s %s (err %.3g)" % (tuple(x.shape), tuple(w.shape), act,
+                                                          str(x.dtype)[6:], err))
+        for x, y in self.fp8:
+            err, rel = _fp8_held(torch, self.qg, x, y)
+            errs["fp8_matmul"] = max(errs.get("fp8_matmul", 0.0), err)
+            held.append("fp8_matmul %s @ %s %s (err / max |out| %.3g)" % (
+                tuple(x.shape), tuple(y.shape), str(x.dtype)[6:], rel))
+        if not self.adam:
+            self.gemm, self.fp8 = [], []
+            return errs, "; ".join(held)
         p, g, m1, m2, lr, b1, b2, eps = self.adam[0]
         plain = [[t.clone() for t in ts] for ts in (p, g, m1, m2)]
         ma.multi_tensor_adam(p, g, m1, m2, lr, b1, b2, eps)
@@ -3016,9 +3230,11 @@ class _PathInputs:
                         raise AssertionError("%s multi_adam: a tensor of %s differs from the "
                                              "plain version by %g" % (label, tuple(got.shape), err))
                 errs["multi_adam"] = max(errs["multi_adam"], err)
-        held.append("Adam over %d tensors, %d elements (err %.3g)" % (
-            len(p), sum(t.numel() for t in p), errs["multi_adam"]))
-        self.gemm, self.adam = [], []
+        held.append("Adam over %d tensors, %d elements, params %s, grads %s, moments %s "
+                    "(err %.3g)" % (len(p), sum(t.numel() for t in p), str(p[0].dtype)[6:],
+                                    str(g[0].dtype)[6:], str(m1[0].dtype)[6:],
+                                    errs["multi_adam"]))
+        self.gemm, self.adam, self.fp8 = [], [], []
         return errs, "; ".join(held)
 
 
@@ -3089,6 +3305,7 @@ def train_lstm(torch, card, readings):
     launches = fused.stats()["launches"]  # and closes here
     _uniform_counts("lstm", deltas, {("launches", "multi_adam"): 1})
     losses = [float(o[0]) for o in outs]
+    F32_FIRST["lstm"] = losses[:COMPARE_STEPS]
     tokens = [int(f["words@LEN"].sum()) for f in feeds]
     t2 = time.perf_counter()
     graph = _rnn_graph_reading(prof, step, walls, feeds, tokens, registry, torch)
@@ -3261,6 +3478,351 @@ def train_nmt(torch, card, readings):
 
 # (name, layer kwargs, closed form of the step counter's value k); the
 # counter starts at 0 (noam: at 1) and a run raises it first
+# ---------------------------------------------------------------- phase 12
+
+DEEPFM_STEPS = 6  # graph steps of each DeepFM run, after the warmup and the capture
+DEEPFM_EAGER_STEPS = 2  # and op by op
+# a DeepFM step: its three fc chains (512 -> 32 relu, 32 -> 16 relu,
+# 16 -> 1) take the GEMM epilogue, its dense Adam one multi_adam launch
+DEEPFM_PER_STEP = {"gemm_epilogue": 3, "multi_adam": 1}
+
+
+def _deepfm_run(torch, recsys, prof, registry, cfg, is_sparse, batches, card, readings):
+    """One DeepFM configuration on the graph path (the warmup, the capture,
+    DEEPFM_STEPS replays), then DEEPFM_EAGER_STEPS op by op from the same
+    seed: the losses bit for bit, the same launches and dispatches a step,
+    and the GEMM epilogue and Adam kernels held against their plain
+    versions at the path's inputs. Returns (the main path's launches, the
+    kernels' worst errors, the graph reading)."""
+    from paddle_tpu_torch import Executor
+    from paddle_tpu_torch.ops import fused
+
+    label = "deepfm " + ("sparse" if is_sparse else "dense")
+    model = recsys.build_deepfm(cfg, is_sparse)
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_stats()  # the main path's counting window opens here
+    outs, walls, deltas, _, step, scope = _fluid_run(
+        torch, model, batches, "training_fused", [model["loss"]],
+        check=_exact_counts(DEEPFM_PER_STEP, label))
+    launches = fused.stats()["launches"]  # and closes here
+    reserved = torch.cuda.max_memory_reserved() / GIB
+    runs = dict(Executor.stats()["op_by_op"])
+    if runs != {"creates_persistables": 1}:
+        raise AssertionError("%s: blocks run op by op %s (only the startup program may)"
+                             % (label, runs))
+    losses = [float(o[0]) for o in outs]
+    replayed = sum(walls[2:]) / 1e3
+    rows = recsys.embedding_rows_per_step(cfg)
+    graph = {"step_p50_ms": float(np.median(walls[2:])),
+             "examples_per_s": cfg["batch"] * DEEPFM_STEPS / replayed,
+             "embedding_rows_per_s": rows * DEEPFM_STEPS / replayed,
+             "memory_max_reserved_gib": reserved}
+    breakdown = prof.profile_steps(step, batches[2:4], registry)
+    graph.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                 device_busy_share=breakdown["device_busy_share"],
+                 device_launches=breakdown["device_launches_per_step"],
+                 profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+    top = [(k[:50], round(v["ms"], 4)) for k, v in
+           list(breakdown["device_ms_per_step_by_kernel"].items())[:6]]
+    del step, scope
+    torch.cuda.empty_cache()
+    rec = _PathInputs(DEEPFM_PER_STEP["gemm_epilogue"])
+    with rec:
+        eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
+            torch, model, batches[:DEEPFM_EAGER_STEPS], "training_fused", [model["loss"]],
+            per_op=True)
+    _same_bits("%s loss, graph against op by op, step" % label, [o[0] for o in eager],
+               [o[0] for o in outs[:DEEPFM_EAGER_STEPS]])
+    if e_deltas != deltas[:DEEPFM_EAGER_STEPS]:
+        raise AssertionError("%s: counters a step %s on the graph path, %s op by op"
+                             % (label, deltas[:DEEPFM_EAGER_STEPS], e_deltas))
+    del estep, escope
+    torch.cuda.empty_cache()
+    errs, held = rec.hold(torch, label)
+    readings["train_" + label.replace(" ", "_")] = {
+        "graph": graph, "op_by_op": {"step_p50_ms": float(np.median(e_walls[1:]))}}
+    log("train %s: DeepFM %s, Adam(%g) with %s moments, training_fused; losses %s; every step "
+        "%s launches and dispatches; the first %d losses bit for bit op by op with the same "
+        "counters; kernels at the path's inputs: %s; graph: step wall p50 %.4f ms, %.1f "
+        "examples/s, %.1f embedding rows/s (%d a step) over the %d graph steps, device busy %s "
+        "ms a step = %s of the profiled wall p50 (%.4f ms), %s launches a step, top kernels %s, "
+        "max memory reserved %.3f GiB; op by op %.3f ms a step; card %s" % (
+            label, json.dumps(cfg), cfg["lr"], cfg["moment_dtype"], ["%.6f" % v for v in losses],
+            json.dumps(DEEPFM_PER_STEP), DEEPFM_EAGER_STEPS, held, graph["step_p50_ms"],
+            graph["examples_per_s"], graph["embedding_rows_per_s"], rows, DEEPFM_STEPS,
+            graph["device_busy_ms"], graph["device_busy_share"], graph["profiled_wall_p50_ms"],
+            graph["device_launches"], json.dumps(top), reserved,
+            readings["train_" + label.replace(" ", "_")]["op_by_op"]["step_p50_ms"], card))
+    return {k: launches[k] for k in DEEPFM_PER_STEP}, errs, graph
+
+
+def train_deepfm(torch, card, readings):
+    """DeepFM at the JAX bench's recsys widths (profile_recsys.RECSYS: 2^20 x
+    32 table, 16 fields, batch 512, layer_sizes (32, 16), Adam 1e-3 with
+    bf16 moments), dense and is_sparse=True (SelectedRows grads, lazy Adam),
+    each on CUDA graphs and op by op; the sparse:dense step ratio; then
+    sparse against dense SGD bit for bit at the parity leg's shape, and the
+    convergence gates of tests/test_deepfm.py. Returns the kernels' launches
+    over the two main paths' steps and their worst errors."""
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    cfg = recsys.RECSYS
+    batches = recsys.recsys_batches(np.random.RandomState(SEED), cfg["rows"], cfg["fields"],
+                                    cfg["batch"], 2 + DEEPFM_STEPS)
+    launches, errs, graphs = {}, {}, {}
+    for is_sparse in (False, True):
+        got, e, graphs[is_sparse] = _deepfm_run(torch, recsys, prof, registry, cfg, is_sparse,
+                                                batches, card, readings)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        torch.cuda.empty_cache()
+    ratio = graphs[True]["step_p50_ms"] / graphs[False]["step_p50_ms"]
+
+    # the parity leg: sparse against dense SGD, the same bits
+    pc = recsys.PARITY
+    pb = recsys.recsys_batches(np.random.RandomState(pc["seed"]), pc["rows"], pc["fields"],
+                               pc["batch"], pc["steps"])
+    par = {}
+    for is_sparse in (False, True):
+        model = recsys.build_deepfm(pc, is_sparse)
+        outs, _, _, _, step, scope = _fluid_run(torch, model, pb, "training_fused",
+                                                [model["loss"]])
+        par[is_sparse] = ([o[0] for o in outs],
+                          {n: scope.vars[n].cpu().numpy() for n in ("fm_emb", "fm_first")})
+        del step, scope
+    _same_bits("deepfm parity, sparse against dense SGD loss, step", par[True][0], par[False][0])
+    for n in par[False][1]:
+        if par[True][1][n].tobytes() != par[False][1][n].tobytes():
+            raise AssertionError("deepfm parity: %s differs between sparse and dense SGD" % n)
+
+    # convergence (tests/test_deepfm.py:29-66), sparse
+    cc = recsys.CONVERGE
+    rng = np.random.RandomState(cc["seed"])
+    feeds = [recsys.converge_batch(rng, cc) for _ in range(cc["steps"])]
+    eval_feed = recsys.converge_batch(rng, cc, cc["eval_batch"])
+    model = recsys.build_deepfm(cc, is_sparse=True)
+    outs, _, _, _, step, scope = _fluid_run(torch, model, feeds + [eval_feed], "training_fused",
+                                            [model["loss"], model["pred"]])
+    closs = [float(o[0]) for o in outs[:cc["steps"]]]
+    first5, last5 = float(np.mean(closs[:5])), float(np.mean(closs[-5:]))
+    auc = recsys.auc(outs[-1][1], eval_feed["label"])
+    del step, scope
+    torch.cuda.empty_cache()
+    if not (last5 < 0.9 * first5 and auc > 0.65):
+        raise AssertionError("deepfm did not learn: loss %.4f -> %.4f, AUC %.3f"
+                             % (first5, last5, auc))
+    log("train deepfm: sparse:dense step wall p50 %.4f (%.4f / %.4f ms); parity leg %s: sparse "
+        "and dense SGD losses %s and both tables bit for bit over %d steps; convergence %s "
+        "(sparse, %d graph steps): loss %.4f -> %.4f (first and last 5, gate 0.9x), AUC of a "
+        "fresh batch of %d %.3f (gate 0.65); card %s" % (
+            ratio, graphs[True]["step_p50_ms"], graphs[False]["step_p50_ms"], json.dumps(pc),
+            ["%.6f" % v for v in par[True][0]], pc["steps"], json.dumps(cc), cc["steps"], first5,
+            last5, cc["eval_batch"], auc, card))
+    readings["train_deepfm_sparse"]["graph"]["sparse_to_dense_step_ratio"] = ratio
+    return launches, errs
+
+
+# ---------------------------------------------------------------- phase 13
+
+BF16_RTOL, BF16_ATOL = 5e-2, 2e-2  # bf16 against f32 (tests/test_transpiler.py:515)
+FP8_STEPS = 3  # graph steps of the Transformer under FLAGS_fp8_matmul
+FP8_LOSS_RTOL = 0.1  # fp8 against bf16 losses, relative
+
+
+def _bf16_state_f32(torch, label, model, scope):
+    """Every floating persistable of the transpiled program (parameters,
+    moments, batch_norm statistics, learning rate) is still f32 in the
+    scope: the masters. Returns how many."""
+    from paddle_tpu_torch import convert
+
+    names = convert.persistable_names(model["main"])
+    bad = {n: str(scope.vars[n].dtype) for n in names
+           if torch.is_floating_point(scope.vars[n]) and scope.vars[n].dtype != torch.float32}
+    if bad:
+        raise AssertionError("%s: masters or moments not f32 after bf16 steps: %s" % (label, bad))
+    return sum(torch.is_floating_point(scope.vars[n]) for n in names)
+
+
+def _bf16_run(torch, label, model, feeds, n_eager, ref, ref_rtol, card, n_fp8=0):
+    """The transpiled `model` on the graph path over `feeds`, its first 3
+    losses against `ref` (rtol ref_rtol, atol BF16_ATOL), the masters f32;
+    then n_eager steps op by op from the same seed: the losses bit for bit
+    and the same counters a step, the kernels held at the path's inputs.
+    Returns (losses, walls, the main path's launches, per-step counters,
+    profiled breakdown, kernel errors, held line, op-by-op walls, max
+    reserved GiB, masters)."""
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_stats()  # the main path's counting window opens here
+    outs, walls, deltas, _, step, scope = _fluid_run(
+        torch, model, feeds, "training_fused", [model["loss"]])
+    launches = {k: v for k, v in fused.stats()["launches"].items() if v}  # and closes here
+    reserved = torch.cuda.max_memory_reserved() / GIB
+    _uniform_counts(label, deltas, {})
+    masters = _bf16_state_f32(torch, label, model, scope)
+    losses = [float(o[0]) for o in outs]
+    a, b = np.asarray(losses[:COMPARE_STEPS]), np.asarray(ref[:COMPARE_STEPS])
+    if not np.allclose(a, b, rtol=ref_rtol, atol=BF16_ATOL):
+        raise AssertionError("%s: losses %s against %s (rtol %g atol %g)"
+                             % (label, a.tolist(), b.tolist(), ref_rtol, BF16_ATOL))
+    breakdown = prof.profile_steps(step, feeds[2:4], registry) if len(feeds) >= 4 else None
+    del step, scope
+    torch.cuda.empty_cache()
+    rec = _PathInputs(deltas[0].get(("launches", "gemm_epilogue"), 0), n_fp8=n_fp8,
+                      n_adam=deltas[0].get(("launches", "multi_adam"), 0))
+    with rec:
+        eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
+            torch, model, feeds[:n_eager], "training_fused", [model["loss"]], per_op=True)
+    _same_bits("%s loss, graph against op by op, step" % label, [o[0] for o in eager],
+               [o[0] for o in outs[:n_eager]])
+    if e_deltas != deltas[:n_eager]:
+        raise AssertionError("%s: counters a step %s on the graph path, %s op by op"
+                             % (label, deltas[:n_eager], e_deltas))
+    del estep, escope
+    torch.cuda.empty_cache()
+    errs, held = rec.hold(torch, label)
+    return dict(losses=losses, walls=walls, launches=launches, deltas=deltas[0],
+                breakdown=breakdown, errs=errs, held=held, e_walls=e_walls,
+                reserved=reserved, masters=masters)
+
+
+def _bf16_line(label, r, rate, unit, f32, card):
+    b = r["breakdown"]
+    log("train bf16 %s: Bf16Transpiler after the startup program, training_fused, %d graph steps "
+        "(the warmup and the capture among them), losses %s, within rtol %g atol %g of the f32 "
+        "phase's first %d from the same weights and batches; %d masters and moments f32 after "
+        "the steps; the first %d losses bit for bit op by op with the same counters a step %s; "
+        "kernels at the path's inputs: %s; graph: step wall p50 %.3f ms, %.1f %s over the "
+        "replayed steps (f32: %s), device busy %s ms a step = %s of the profiled wall p50 (%s "
+        "ms), %s launches a step, max memory reserved %.3f GiB (f32: %s GiB); op by op %.3f ms a "
+        "step; cuDNN and the library products run bf16 (allow_tf32 off touches only f32); card "
+        "%s" % (
+            label, len(r["losses"]), ["%.6f" % v for v in r["losses"]], BF16_RTOL, BF16_ATOL,
+            COMPARE_STEPS, r["masters"], len(r["e_walls"]),
+            json.dumps({"%s:%s" % k: v for k, v in r["deltas"].items()}), r["held"],
+            float(np.median(r["walls"][2:])), rate, unit, f32.get("rate"),
+            b and b["device_busy_ms_per_step"], b and b["device_busy_share"],
+            b and b["wall_ms_p50"], b and b["device_launches_per_step"], r["reserved"],
+            f32.get("memory"), float(np.median(r["e_walls"][1:])), card))
+
+
+def train_bf16(torch, card, readings):
+    """The JAX bench's own precision: ResNet-50 at batch 256 under
+    Momentum(0.1, 0.9), the stacked LSTM at bench.py:265-297 (Adam 2e-3)
+    and Transformer base, each built as its f32 phase built it, rewritten by
+    Bf16Transpiler after its startup program (f32 masters, bf16 activations
+    and gradients) and trained on CUDA graphs from the same seed and
+    batches; then 3 Transformer steps with FLAGS_fp8_matmul (fp8_matmul's
+    cast pass and e4m3 GEMM), their losses within FP8_LOSS_RTOL of the bf16
+    steps'. Returns the kernels' launches over the main paths' steps and
+    their worst errors."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+    from paddle_tpu_torch.tools import profile_rnn as rnn
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    launches, errs = {}, {}
+
+    def add(r):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in r["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    # ResNet-50
+    model = prof.build_resnet50()
+    recsys.bf16_transpiled(model["main"])
+    staged = prof.resnet50_feeds(torch.device("cuda", 0))
+    feeds = [staged[i % len(staged)] for i in range(2 + RESNET_STEPS)]
+    r = _bf16_run(torch, "resnet50", model, feeds, COMPARE_STEPS, F32_FIRST["resnet50"],
+                  BF16_RTOL, card)
+    batch = prof.RESNET50["batch"]
+    rate = batch * RESNET_STEPS / (sum(r["walls"][2:]) / 1e3)
+    f32 = readings["train_resnet50"]["graph"]
+    readings["train_bf16_resnet50"] = {"graph": {
+        "step_p50_ms": float(np.median(r["walls"][2:])), "images_per_s": rate,
+        "device_busy_ms": r["breakdown"]["device_busy_ms_per_step"],
+        "device_busy_share": r["breakdown"]["device_busy_share"],
+        "memory_max_reserved_gib": r["reserved"]}}
+    _bf16_line("resnet50", r, rate, "images/s",
+               {"rate": "%.1f images/s" % f32["images_per_s"],
+                "memory": "%.3f" % f32["memory_max_reserved_gib"]}, card)
+    add(r)
+    del model, staged, feeds, r
+    torch.cuda.empty_cache()
+
+    # the stacked LSTM
+    cfg = rnn.LSTM
+    model = rnn.build_lstm(cfg)
+    recsys.bf16_transpiled(model["main"])
+    feeds = [rnn.lstm_feed(cfg, SEED)] * (2 + RNN_STEPS)
+    r = _bf16_run(torch, "lstm", model, feeds, COMPARE_STEPS, F32_FIRST["lstm"], BF16_RTOL, card)
+    tokens = int(feeds[0]["words@LEN"].sum())
+    rate = tokens * RNN_STEPS / (sum(r["walls"][2:]) / 1e3)
+    f32 = readings["train_lstm"]["graph"]
+    readings["train_bf16_lstm"] = {"graph": {
+        "step_p50_ms": float(np.median(r["walls"][2:])), "tokens_per_s": rate,
+        "device_busy_ms": r["breakdown"]["device_busy_ms_per_step"],
+        "device_busy_share": r["breakdown"]["device_busy_share"],
+        "memory_max_reserved_gib": r["reserved"]}}
+    _bf16_line("lstm", r, rate, "tokens/s",
+               {"rate": "%.1f tokens/s" % f32["tokens_per_s"],
+                "memory": "%.3f" % f32["memory_max_reserved_gib"]}, card)
+    add(r)
+    del model, feeds, r
+    torch.cuda.empty_cache()
+
+    # Transformer base, bf16 then fp8 products
+    main_prog, startup, loss = prof.build(prof.BASE)
+    recsys.bf16_transpiled(main_prog)
+    model = {"main": main_prog, "startup": startup, "loss": loss}
+    feeds = [prof.make_batch(prof.BASE, SEED + i) for i in range(TRAIN_STEPS)]
+    r = _bf16_run(torch, "transformer", model, feeds, COMPARE_STEPS, F32_FIRST["transformer"],
+                  BF16_RTOL, card)
+    tokens = sum(prof.target_tokens(b) for b in feeds[2:])
+    rate = tokens / (sum(r["walls"][2:]) / 1e3)
+    f32 = readings["train"]["graph"]
+    readings["train_bf16_transformer"] = {"graph": {
+        "step_p50_ms": float(np.median(r["walls"][2:])), "target_tokens_per_s": rate,
+        "device_busy_ms": r["breakdown"]["device_busy_ms_per_step"],
+        "device_busy_share": r["breakdown"]["device_busy_share"],
+        "memory_max_reserved_gib": r["reserved"]}}
+    _bf16_line("transformer", r, rate, "target tokens/s",
+               {"rate": "%.1f target tokens/s" % f32["target_tokens_per_s"],
+                "memory": "%.3f" % f32["memory_reserved_gib_after_graph_steps"]}, card)
+    add(r)
+    bf16_losses = r["losses"]
+    flags.set_flags({"fp8_matmul": True})
+    try:
+        r8 = _bf16_run(torch, "transformer fp8", model, feeds[:FP8_STEPS], FP8_STEPS,
+                       bf16_losses, FP8_LOSS_RTOL, card, n_fp8=1)
+    finally:
+        flags.set_flags({"fp8_matmul": False})
+    for k in ("quant_gemm_fp8", "e4m3_cast"):
+        if not r8["launches"].get(k):
+            raise AssertionError("transformer fp8: %s never launched (%s)" % (k, r8["launches"]))
+    log("train bf16 transformer fp8: FLAGS_fp8_matmul, %d graph steps (the warmup, the capture, "
+        "a replay), losses %s within %g relative of the bf16 steps' %s; launches %s (%s a step), "
+        "the first %d losses bit for bit op by op with the same counters; kernels at the path's "
+        "inputs: %s; step wall %s ms; card %s" % (
+            FP8_STEPS, ["%.6f" % v for v in r8["losses"]], FP8_LOSS_RTOL,
+            ["%.6f" % v for v in bf16_losses[:FP8_STEPS]], json.dumps(r8["launches"]),
+            json.dumps({"%s:%s" % k: v for k, v in r8["deltas"].items()}), FP8_STEPS, r8["held"],
+            ["%.3f" % v for v in r8["walls"]], card))
+    add(r8)
+    launches["fp8_matmul"] = r8["launches"]["quant_gemm_fp8"]
+    del model, feeds, r, r8
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
 SCHEDULES = (
     ("exponential_decay", dict(learning_rate=0.1, decay_steps=2, decay_rate=0.5),
      lambda k: 0.1 * 0.5 ** (k / 2.0)),
@@ -3363,6 +3925,7 @@ def main():
         check_paged_wide(torch, pf, device)
         kernels.update(time_paged_wide(torch, pf, device, flush))
         kernels.update(check_quant_gemm(torch, device, flush))
+        kernels.update(check_fp8_matmul(torch, device, flush))
         del flush
     torch.cuda.empty_cache()
     with Phase("serve"):
@@ -3411,15 +3974,23 @@ def main():
                 launches[name] = launches.get(name, 0) + n
             for name, err in errs.items():
                 kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    for label, phase in (("train deepfm", train_deepfm), ("train bf16", train_bf16)):
+        torch.cuda.empty_cache()
+        with Phase(label):
+            counts, errs = phase(torch, card, paths)
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            for name, err in errs.items():
+                kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     with Phase("schedules"):
         schedules(torch, card)
     # every main path on replayed CUDA graphs beside the op-by-op path
     log(json.dumps({"paths": paths, "card": card}))
     for name, n in launches.items():
         kernels[name]["launches"] = n
-    # an entry with "path": None is on no main path (quant_gemm_fp8: no pass
-    # of either package emits fp8 operands; the flash backward pair: no main
-    # path reaches its lengths): its launches are the kernel phase's own
+    # an entry with "path": None is on no main path (the flash backward
+    # pair: no main path reaches its lengths): its launches are the kernel
+    # phase's own
     if not all(k["launches"] for k in kernels.values() if k.get("path", True) is not None):
         raise AssertionError("a kernel never launched on its main path: %s"
                              % {k: v["launches"] for k, v in kernels.items()})

@@ -39,6 +39,12 @@ lengths on the device and capture with their step; a While without
 maximum_iterations reads its condition on the host, so its block runs op
 by op (Executor.stats()["op_by_op"]).
 
+DeepFM and bf16: models/deepfm.py trains with SelectedRows sparse
+embedding gradients (embedding/, ops/sparse_ops.py) when is_sparse=True,
+and transpiler.Bf16Transpiler rewrites a training Program to bf16 mixed
+precision (f32 masters); FLAGS_fp8_matmul routes its products through
+e4m3 (ops/quant_gemm.py fp8_matmul).
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
@@ -49,6 +55,7 @@ from . import (  # noqa: F401
     backward,
     clip,
     dataset,
+    embedding,
     evaluator,
     flags,
     framework,
@@ -67,6 +74,7 @@ from . import (  # noqa: F401
     reader,
     regularizer,
     serving,
+    transpiler,
     unique_name,
 )
 from .backward import append_backward  # noqa: F401

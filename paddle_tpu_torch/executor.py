@@ -222,9 +222,9 @@ def _apply_pass_pipeline(program, scope, feed_names, fetch_names, pipeline=None)
 
 
 # the flags a lowering reads while it lowers (the paged attention tier, the
-# quant GEMM tier, the pass pipeline): a captured graph holds what they chose,
-# so each value takes a graph of its own
-_LOWERING_FLAGS = ("paged_flash", "quantized_gemm", "pass_pipeline")
+# quant GEMM tier, the fp8 product policy, the pass pipeline): a captured
+# graph holds what they chose, so each value takes a graph of its own
+_LOWERING_FLAGS = ("paged_flash", "quantized_gemm", "fp8_matmul", "pass_pipeline")
 
 
 def _lowering_flags():
@@ -758,8 +758,11 @@ class Executor:
         replayed = getattr(compiled, "graph", None) is not None
         if return_numpy:
             # copies: a fetched CPU tensor may be state that a later step
-            # updates in place (the fused Adam does)
-            return [f.detach().to("cpu", copy=True).numpy() for f in fetches]
+            # updates in place (the fused Adam does). numpy has no bfloat16
+            # (the JAX package hands out ml_dtypes' type): a bf16 fetch is
+            # widened to float32, which is exact
+            return [(f.float() if f.dtype == torch.bfloat16 else f).detach()
+                    .to("cpu", copy=True).numpy() for f in fetches]
         if replayed:
             return [f.clone() for f in fetches]
         return fetches

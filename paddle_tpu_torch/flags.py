@@ -12,6 +12,12 @@ set_flags), the subset the serving and training slices read.
   wherever the copied path predicate (ops/fused.py quant_gemm_path_taken)
   accepts the shape: the kernel for tensors on a CUDA device, its plain
   version on the CPU; "off" lowers the int8 chains op by op.
+- fp8_matmul: when True, the mul / matmul lowerings cast floating operands
+  to float8_e4m3fn and contract them with f32 sums, the result in the
+  first operand's dtype (ops/quant_gemm.py fp8_matmul: on the card the
+  hand-written cast pass and e4m3 GEMM of csrc/quant_gemm.cu). A dtype
+  policy for step-time experiments, not numerics-preserving: off (default)
+  keeps the native-dtype product.
 - profile_ops: while the profiler is on (profiler.py), Executor.run and the
   GenerationEngine's variants run blocks op by op, with an event and a
   device sync per op, so the profiler table attributes time per op type,
@@ -34,6 +40,7 @@ __all__ = ["get_flags", "set_flags"]
 _DEFAULTS = {
     "paged_flash": "auto",
     "quantized_gemm": "auto",
+    "fp8_matmul": False,
     "profile_ops": False,
     "pass_pipeline": "",
     "serving_cache_dir": "",

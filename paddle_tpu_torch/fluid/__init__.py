@@ -1,11 +1,11 @@
 """`import paddle_tpu_torch.fluid as fluid`: the fluid surface of the port,
 the names of paddle_tpu/fluid/__init__.py that the port has. Names the JAX
 package exports from modules not ported yet (ParallelExecutor,
-AsyncExecutor, DistributeTranspiler and the other transpilers, PyReader's
-EOFException, DataFeedDesc, BuildStrategy, ExecutionStrategy, the
-imperative, contrib, debugger, inference, transpiler, distributed,
-resilience, embedding and native modules) are absent until their modules
-are."""
+AsyncExecutor, DistributeTranspiler and the transpilers other than
+Bf16Transpiler, PyReader's EOFException, DataFeedDesc, BuildStrategy,
+ExecutionStrategy, the imperative, contrib, debugger, inference,
+distributed, resilience and native modules) are absent until their
+modules are."""
 
 from .. import *  # noqa: F401,F403
 from .. import (  # noqa: F401
@@ -13,6 +13,7 @@ from .. import (  # noqa: F401
     backward,
     clip,
     dataset,
+    embedding,
     evaluator,
     flags,
     framework,
@@ -29,6 +30,7 @@ from .. import (  # noqa: F401
     reader,
     regularizer,
     serving,
+    transpiler,
     unique_name,
 )
 from ..batch import batch  # noqa: F401

@@ -33,6 +33,8 @@ __all__ = [
     "softmax_with_cross_entropy",
     "cross_entropy",
     "square_error_cost",
+    "sigmoid_cross_entropy_with_logits",
+    "hash",
     "topk",
     "reduce_sum",
     "reduce_mean",
@@ -176,6 +178,35 @@ def embedding(
     if getattr(input, "_len_name", None):
         tmp._len_name = input._len_name
     return tmp
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """Feature-hash integer ids into [0, hash_size) buckets (reference
+    layers/nn.py hash -> hash op): Out is [N, num_hash, 1], one bucket id per
+    hash seed, ready to feed `embedding`. See ops/core_ops.py _hash for the
+    XXH32 scheme."""
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="hash",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"num_hash": num_hash, "mod_by": hash_size},
+    )
+    out.stop_gradient = True
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x.name], "Label": [label.name]},
+        outputs={"Out": [out.name]},
+        attrs={"ignore_index": ignore_index},
+    )
+    return out
 
 
 def layer_norm(

@@ -1,11 +1,14 @@
 """Operator lowerings; importing this package registers them: the core
-ops, the sequence, control-flow, decode and loss ops, the flash attention
-ops (ops/flash_attention.py), the quantization ops (ops/quant_ops.py), and
-the fused lowerings of the kernel-substitution tier (ops/fused.py)."""
+ops, the sparse (SelectedRows) ops, which attach the lookup_table grad
+maker after core_ops registered the forward, the sequence, control-flow,
+decode and loss ops, the flash attention ops (ops/flash_attention.py), the
+quantization ops (ops/quant_ops.py), and the fused lowerings of the
+kernel-substitution tier (ops/fused.py)."""
 
+from . import core_ops  # noqa: F401  (first: sparse_ops attaches to its lookup_table)
+from . import sparse_ops  # noqa: F401
 from . import (  # noqa: F401
     control_flow_ops,
-    core_ops,
     decode_ops,
     flash_attention,
     fused,

@@ -7,17 +7,20 @@ batch_norm, and the optimizers from sgd through ftrl.
 Each lowering is a plain function over slot-keyed torch tensors; the
 executor calls them in program order. `mul`, `matmul` and `conv2d` stay
 library calls (torch.matmul, cuDNN): the JAX package computes them outside
-any Pallas kernel too. They run in full f32: every run on the card turns
-TF32 off and asks cuDNN for deterministic algorithms (registry.LowerCtx),
-and the parity tolerances and the graph-against-op-by-op bit identity
-assume it.
+any Pallas kernel too. Under FLAGS_fp8_matmul the products take
+quant_gemm.fp8_matmul (hand-written e4m3 kernels on the card), as the JAX
+package's take pallas_kernels.fp8_matmul. f32 products run in full f32:
+every run on the card turns TF32 off and asks cuDNN for deterministic
+algorithms (registry.LowerCtx), and the parity tolerances and the
+graph-against-op-by-op bit identity assume it.
 
 Gradients: most ops use the registry's generic torch.func.vjp grad. Custom
 grads exist where the JAX package has them: dropout reuses its sampled Mask,
 softmax_with_cross_entropy differentiates from the saved Softmax, and
-lookup_table scatters its cotangent rows in f32. conv2d has an explicit
-grad (dgrad and wgrad without replaying the forward), which XLA's CSE gives
-the JAX package for free.
+lookup_table scatters its cotangent rows in f32 (or, with is_sparse, emits
+a SelectedRows pair: ops/sparse_ops.py). conv2d has an explicit grad
+(dgrad and wgrad without replaying the forward), which XLA's CSE gives the
+JAX package for free.
 
 Dtype policy: float64 -> float32 and int64 -> int32 are canonicalized at the
 framework boundary, as in the JAX package, so the same Program declares the
@@ -29,7 +32,6 @@ import functools
 import numpy as np
 import torch
 
-from ..framework import OpRole
 from .gemm_epilogue import ACT_F32
 from .registry import EMPTY_VAR_NAME, bcast_y, prod, register, register_no_lower, torch_dtype
 
@@ -194,6 +196,29 @@ def _squared_l2_norm(ctx, ins, attrs):
 # ---------------------------------------------------------------------------
 
 
+def _fp8_matmul_taken(x, y):
+    """FLAGS_fp8_matmul dtype policy of the dense product lowerings (the JAX
+    package's): floating operands contract as float8_e4m3fn with f32 sums
+    (quant_gemm.fp8_matmul); integer and bool operands keep the native
+    product whatever the flag."""
+    from .. import flags as _flags
+
+    if not _flags.get_flags("fp8_matmul")["fp8_matmul"]:
+        return False
+    return torch.is_floating_point(x) and torch.is_floating_point(y)
+
+
+def _product(ctx, x, y):
+    """x @ y, through fp8_matmul where the flag takes the operands (each such
+    product one matmul_fp8 dispatch, as in the JAX package)."""
+    if ctx.device.type != "meta" and _fp8_matmul_taken(x, y):
+        from . import fused, quant_gemm
+
+        fused.note_dispatch("matmul_fp8")
+        return quant_gemm.fp8_matmul(x, y)
+    return torch.matmul(x, y)
+
+
 @register("mul")
 def _mul(ctx, ins, attrs):
     (x,) = ins["X"]
@@ -202,7 +227,7 @@ def _mul(ctx, ins, attrs):
     ync = int(attrs.get("y_num_col_dims", 1))
     x2 = x.reshape(prod(x.shape[:xnc]), -1)
     y2 = y.reshape(prod(y.shape[:ync]), -1)
-    out = torch.matmul(x2, y2)
+    out = _product(ctx, x2, y2)
     return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
 
 
@@ -219,7 +244,7 @@ def _matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = _product(ctx, x, y)
     if alpha != 1.0:
         out = out * alpha
     return {"Out": [out]}
@@ -511,6 +536,19 @@ def _cross_entropy(ctx, ins, attrs):
     return {"Y": [loss]}
 
 
+@register("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx, ins, attrs):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), the stable form; 0 where
+    label == ignore_index."""
+    (x,) = ins["X"]
+    (label,) = ins["Label"]
+    loss = torch.clamp(x, min=0) - x * label + torch.log1p(torch.exp(-torch.abs(x)))
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.where(label == ignore, torch.zeros((), dtype=loss.dtype, device=loss.device),
+                       loss)
+    return {"Out": [loss]}
+
+
 @register("square_error_cost")
 def _square_error_cost(ctx, ins, attrs):
     (x,) = ins["X"]
@@ -692,6 +730,56 @@ def _one_hot(ctx, ins, attrs):
     return {"Out": [(flat.long()[..., None] == iota).float()]}
 
 
+_XXH_PRIMES = (2654435761, 2246822519, 3266489917, 668265263, 374761393)
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(a, p):
+    """(a * p) mod 2^32 for int64 tensors a in [0, 2^32) and a constant p,
+    without int64 overflow: p split into 16-bit halves."""
+    lo, hi = p & 0xFFFF, p >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _rotl_u32(v, r):
+    return ((v << r) | (v >> (32 - r))) & _U32
+
+
+@register("hash", no_grad=True)
+def _hash(ctx, ins, attrs):
+    """Feature hashing of integer id rows (reference hash_op.cc): ids ->
+    num_hash buckets in [0, mod_by), the JAX package's XXH32 (the <16-byte
+    tail path: a per-4-byte-lane mix and the avalanche) computed in int64
+    tensors masked to 32 bits after every multiply and add, bit for bit the
+    JAX op's wrapped uint32 arithmetic. Each id hashes as 8 bytes: its low
+    32 bits, then `col >> 32` for an int64 column and 0 for an int32 one
+    (the executor's int64 -> int32 canonicalization makes that 0), as in
+    the JAX op."""
+    (x,) = ins["X"]
+    num_hash = int(attrs.get("num_hash", 1))
+    mod_by = int(attrs.get("mod_by", 1))
+    _, p2, p3, p4, p5 = _XXH_PRIMES
+    ids = x.reshape(x.shape[0], -1)
+    lanes = []
+    for c in range(ids.shape[1]):
+        col = ids[:, c].long()
+        lo = col & _U32  # two's complement low 4 bytes, as astype(uint32)
+        hi = (col >> 32) & _U32 if x.dtype == torch.int64 else torch.zeros_like(col)
+        lanes += [lo, hi]
+    nbytes = 8 * ids.shape[1]
+    outs = []
+    for seed in range(num_hash):
+        h = torch.full((ids.shape[0],), (seed + p5 + nbytes) & _U32, dtype=torch.int64,
+                       device=x.device)
+        for w in lanes:
+            h = _mul_u32(_rotl_u32((h + _mul_u32(w, p3)) & _U32, 17), p4)
+        h = _mul_u32(h ^ (h >> 15), p2)
+        h = _mul_u32(h ^ (h >> 13), p3)
+        h = h ^ (h >> 16)
+        outs.append((h % mod_by).to(x.dtype))
+    return {"Out": [torch.stack(outs, dim=1).reshape(x.shape[0], num_hash, 1)]}
+
+
 @register("reverse")
 def _reverse(ctx, ins, attrs):
     (x,) = ins["X"]
@@ -708,34 +796,9 @@ def _gather(ctx, ins, attrs):
     return {"Out": [torch.index_select(x, 0, idx.reshape(-1))]}
 
 
-def _lookup_grad_maker(op, block, grad_map):
-    """The JAX package's lookup_table grad maker (ops/sparse_ops.py), dense
-    form: lookup_table_grad over W, Ids and Out@GRAD. Its SelectedRows form
-    (is_sparse=True, lookup_table_grad_sparse) is not ported yet."""
-    if op.attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table with is_sparse=True: SelectedRows grads are not ported yet"
-        )
-    w_name = op.inputs["W"][0]
-    g_out = grad_map.get(op.outputs["Out"][0])
-    g_w = grad_map.get(w_name)
-    if g_out is None or g_w is None:
-        return []
-    return [
-        {
-            "type": "lookup_table_grad",
-            "inputs": {"W": [w_name], "Ids": [op.inputs["Ids"][0]], "Out@GRAD": [g_out]},
-            "outputs": {"W@GRAD": [g_w]},
-            "attrs": {
-                "padding_idx": int(op.attrs.get("padding_idx", -1)),
-                "param": w_name,
-                OpRole.OP_ROLE_VAR_KEY: [w_name, g_w],
-            },
-        }
-    ]
-
-
-@register("lookup_table", grad=_lookup_grad_maker)
+# the grad maker (sparse or dense per op instance) is attached by
+# ops/sparse_ops.py, as in the JAX package
+@register("lookup_table")
 def _lookup_table(ctx, ins, attrs):
     (w,) = ins["W"]
     (ids,) = ins["Ids"]

@@ -44,6 +44,7 @@ __all__ = [
     "counter_dicts",
     "gemm_path_taken",
     "ln_path_taken",
+    "note_dispatch",
     "note_op_by_op",
     "quant_gemm_path_taken",
     "reset_stats",
@@ -60,7 +61,7 @@ KERNEL_DISPATCHES = {}
 OP_BY_OP = {}
 
 
-def _note_dispatch(family):
+def note_dispatch(family):
     KERNEL_DISPATCHES[family] = KERNEL_DISPATCHES.get(family, 0) + 1
 
 
@@ -269,7 +270,7 @@ def _fused_gemm_epilogue(ctx, ops, env):
     )
     if act_op is not None:
         env[act_op.output("Out")[0]] = y2.reshape(out_shape)
-    _note_dispatch("gemm_epilogue")
+    note_dispatch("gemm_epilogue")
     return True
 
 
@@ -340,7 +341,7 @@ def _fused_quant_gemm(ctx, ops, env):
         env[add_op.output("Out")[0]] = z2.reshape(out_shape)
     if act_op is not None:
         env[act_op.output("Out")[0]] = y2.reshape(out_shape)
-    _note_dispatch("gemm_int8")
+    note_dispatch("gemm_int8")
     return True
 
 
@@ -393,7 +394,7 @@ def _fused_layer_norm(ctx, ops, env):
         env[add.output("Out")[0]] = s2.reshape(x_full.shape)
     outs = {"Y": [y2.reshape(x_full.shape)], "Mean": [mean], "Variance": [var]}
     scatter_op_outputs(ln, outs, env)
-    _note_dispatch("layer_norm")
+    note_dispatch("layer_norm")
     return True
 
 
@@ -432,7 +433,7 @@ def _fused_layer_norm_grad(ctx, ops, env):
     if bias is not None and "Bias@GRAD" in op.outputs:
         outs["Bias@GRAD"] = [db.reshape(bias.shape).to(bias.dtype)]
     scatter_op_outputs(op, outs, env)
-    _note_dispatch("layer_norm_grad")
+    note_dispatch("layer_norm_grad")
     return True
 
 
@@ -503,5 +504,5 @@ def _fused_multi_adam(ctx, ops, env):
             scatter_op_outputs(
                 op, {"ParamOut": [po], "Moment1Out": [m1o], "Moment2Out": [m2o]}, env
             )
-    _note_dispatch("multi_adam")
+    note_dispatch("multi_adam")
     return True

@@ -1,18 +1,16 @@
 """Optimizers: minimize = append_backward + regularization/clip + per-param
 optimizer ops (reference python/paddle/fluid/optimizer.py:294
 Optimizer.minimize, :197 _create_optimization_pass). A copy of
-paddle_tpu/optimizer.py; of its update ops this package lowers `adam` (and
-`scale`, which advances the beta pows) so far.
+paddle_tpu/optimizer.py. A SelectedRows grad (an is_sparse=True lookup
+table's) takes the optimizer's per-row op (sgd_sparse, adagrad_sparse,
+adam_sparse; ops/sparse_ops.py), or is densified first for an optimizer
+without one.
 
 Optimizer state (moments, accumulators) are persistable variables initialized
 in the startup program; the update ops write ParamOut/MomentOut under the SAME
 variable names, which the executor writes back to the scope (the fused
 multi-tensor Adam updates them in place, ops/fused.py).
 """
-
-# optimizer op types with a per-row (SelectedRows) update; the JAX package
-# keeps this set in ops/sparse_ops.py, which this package does not port yet
-SPARSE_OPTIMIZER_TYPES = ("sgd", "adagrad", "adam")
 
 import contextlib
 
@@ -200,6 +198,8 @@ class Optimizer:
         pass
 
     def _create_optimization_pass(self, parameters_and_grads):
+        from .ops.sparse_ops import SPARSE_OPTIMIZER_TYPES
+
         program = default_main_program()
         block = program.global_block()
         self.helper = LayerHelper(self.__class__.__name__)

@@ -5,8 +5,9 @@ chip_smoke.py's train-lstm and train-nmt phases and the tests use them:
   JAX package's benchmark shape (bench.py:265-290,
   benchmark/fluid_benchmark.py:109-126): dict 30000, emb 512, hid 512,
   stacked_num 2, 2 classes, batch 64 of 100 words (`words` a lod_level=1
-  feed with its `words@LEN` companion), Adam(2e-3), f32 (the JAX bench
-  applies its bf16 transpiler first, which the port does not have yet).
+  feed with its `words@LEN` companion), Adam(2e-3), f32 (chip_smoke.py's
+  train-bf16 phase runs it through Bf16Transpiler first, as the JAX bench
+  does).
 - NMT: the GRU attention model (models/machine_translation.py) at emb = hid
   = 512, dict 30000, 16 source words (benchmark/fluid_benchmark.py:129),
   batch 64, Adam(1e-3); beam search with beam 4 and max_out_len 16.
