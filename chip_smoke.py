@@ -230,7 +230,34 @@ Phases, each printing its own line; any failure exits non-zero:
      pass and e4m3 GEMM launched, losses within 0.1 relative of the bf16
      steps', bit for bit op by op, its first product held against the
      plain version;
- 14. the `paths` JSON line, then a `kernels` JSON line (launches on the
+ 14. train ssd: MobileNet-SSD (tools/profile_detection.py: the reference
+     era's mobilenet_ssd.py, batch 64, 3 x 300 x 300, 21 classes, 1917
+     priors, f32, random weights from a seed) under RMSProp(piecewise_decay)
+     with L2Decay(5e-5) on a fixed synthetic VOC-shaped batch staged on the
+     card: the warmup, the capture and 30 graph steps, no hand-written
+     kernel launched, the last loss under 0.7x the first
+     (tests/test_detection.py:265); the first 3 steps op by op bit for bit
+     with the same counters; step wall, images/s, busy share, memory, and
+     the op-by-op device time of ssd_loss and its grad against the
+     convolutions and batch_norm;
+ 15. eval ssd: the eval program (the for_test clone, detection_output,
+     the detection_map host op) on the trained state, 3 runs: one device
+     segment and one host call each, the segment captured at the second
+     run and replayed at the third, the detections the same bits every
+     run, the host op's mAP equal to evaluator.DetectionMAP over the
+     fetched rows; the segment's busy time and kernel nodes, the capture's
+     wall, the host op's own time;
+ 16. detection ops: each of the 18 detection ops at a published
+     detector's shapes (Faster R-CNN R50-C4 on 800 x 1333, YOLOv3 at 608,
+     SSD300's 1917 priors, FaceBoxes, EAST, a text detector's
+     perspective crops) eager on the card against the CPU (floats within
+     1e-4, integers exactly), then captured alone and replayed bit for
+     bit; each graph's capture wall, nodes and replay time;
+ 17. host ops: a Print between two device segments fires on each of 3
+     graph-path runs; FLAGS_check_nan_inf raises on a NaN feed at a
+     replay, naming the variable and its last writer; save_combine /
+     load_combine round-trip f32, int32 and bf16 vars bit for bit;
+ 18. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
      multi_adam count the Transformer's, LeNet's, the LSTM's, the NMT
      model's, DeepFM's and the bf16 runs' steps, and their max_abs_err is
@@ -3874,6 +3901,527 @@ def schedules(torch, card):
             json.dumps({k: ["%.7g" % v for v in vs] for k, vs in got.items()}), card))
 
 
+# ---------------------------------------------------------------- phase 14
+
+SSD_STEPS = 30  # graph steps of MobileNet-SSD on its fixed batch, after the warmup and capture
+SSD_FALL = 0.7  # the last loss under this share of the first (tests/test_detection.py:265)
+SSD_EVAL_RUNS = 3  # the warmup, the capture, a replay
+
+
+def _ssd_model():
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.tools import profile_detection as det
+
+    return det, det.build(fluid, det.SSD)
+
+
+def _staged(torch, feed):
+    """A feed dict of numpy arrays, staged on the card once."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in feed.items()}
+
+
+def train_ssd(torch, card, readings):
+    """MobileNet-SSD at full width (profile_detection.SSD: batch 64, 3 x 300
+    x 300, 21 classes, 1917 priors, f32; random weights from SEED) under
+    RMSProp(piecewise_decay) with L2Decay, on a fixed synthetic VOC-shaped
+    batch staged on the card: the warmup, the capture and SSD_STEPS graph
+    steps, no hand-written kernel launched and only the startup program op
+    by op; the last loss under SSD_FALL of the first; then the first
+    COMPARE_STEPS steps op by op from the same seed: the same losses bit
+    for bit and the same counters a step. Logs the step wall, images/s,
+    the device's busy share, the memory reserved and the device time of
+    ssd_loss (its grad included) against the convolutions'. Returns the
+    trained scope's state for eval_ssd."""
+    from paddle_tpu_torch import Executor
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    det, model = _ssd_model()
+    cfg = det.SSD
+    feed = _staged(torch, det.synthetic_batch(np.random.RandomState(SEED), cfg))
+    feeds = [feed] * (2 + SSD_STEPS)
+    state = {}
+
+    def keep(i, scope):
+        if i == len(feeds) - 1:
+            state.update({n: v.clone() for n, v in scope.vars.items()
+                          if isinstance(v, torch.Tensor)})
+
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_stats()  # the main path's counting window opens here
+    outs, walls, deltas, _, step, scope = _fluid_run(
+        torch, model, feeds, "training_fused", [model["loss"]],
+        check=_exact_counts({}, "ssd"), after=keep)
+    runs = dict(Executor.stats()["op_by_op"])  # and closes here
+    if runs != {"creates_persistables": 1}:
+        raise AssertionError("ssd: blocks run op by op %s (only the startup program may)" % runs)
+    reserved = torch.cuda.max_memory_reserved() / GIB
+    losses = [float(o[0]) for o in outs]
+    if not losses[-1] < SSD_FALL * losses[0]:
+        raise AssertionError("ssd: the loss did not fall under %.2fx: %s" % (SSD_FALL, losses))
+    batch = cfg["batch"]
+    graph = {"batch": batch, "step_p50_ms": float(np.median(walls[2:])),
+             "images_per_s": batch * SSD_STEPS / (sum(walls[2:]) / 1e3),
+             "memory_max_reserved_gib": reserved}
+    breakdown = prof.profile_steps(step, feeds[2:4], registry)
+    graph.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                 device_busy_share=breakdown["device_busy_share"],
+                 device_launches=breakdown["device_launches_per_step"],
+                 profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+    del step, scope
+    torch.cuda.empty_cache()
+    eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
+        torch, model, feeds[:COMPARE_STEPS], "training_fused", [model["loss"]], per_op=True)
+    _same_bits("ssd loss, graph against op by op, step", [o[0] for o in eager],
+               [o[0] for o in outs[:COMPARE_STEPS]])
+    if e_deltas != deltas[:COMPARE_STEPS]:
+        raise AssertionError("ssd: counters a step %s on the graph path, %s op by op"
+                             % (deltas[:COMPARE_STEPS], e_deltas))
+    ops = {o.type for o in model["main"].global_block().ops}
+    conv = sorted(t for t in ops if "conv2d" in t)
+    split = prof.op_device_split(estep, feeds[:1], registry,
+                                 split_by=(("ssd_loss", ("ssd_loss", "ssd_loss_grad")),
+                                           ("convolutions", tuple(conv)),
+                                           ("batch_norm", ("batch_norm", "batch_norm_grad")),
+                                           ("rmsprop", ("rmsprop",))))
+    del estep, escope
+    torch.cuda.empty_cache()
+    eager_reading = {"step_p50_ms": float(np.median(e_walls[1:])),
+                     "device_ms_by_op_type": split["device_ms_per_step"],
+                     "split": split["by_category"]}
+    readings["train_ssd"] = {"graph": graph, "op_by_op": eager_reading}
+    sl = split["by_category"]["ssd_loss"]
+    cv = split["by_category"]["convolutions"]
+    log("train ssd: MobileNet-SSD %s, RMSProp(piecewise_decay) lr %g, L2Decay(%g), f32, %d ops; "
+        "losses %s (the last %.3f of the first, gate %.2f); no hand-written kernel launched; the "
+        "first %d losses bit for bit op by op with the same counters; graph: step wall p50 %.3f "
+        "ms, %.1f images/s over the %d graph steps, device busy %s ms a step = %s of the "
+        "profiled wall p50 (%.3f ms), %s launches a step, max memory reserved %.3f GiB; op by "
+        "op: step wall p50 %.3f ms, device %.3f ms a step, ssd_loss and its grad %.3f ms "
+        "against the convolutions' %.3f ms (%s), split %s; card %s" % (
+            json.dumps(cfg), cfg["lr"], cfg["l2"], len(model["main"].global_block().ops),
+            ["%.5f" % v for v in losses], losses[-1] / losses[0], SSD_FALL, COMPARE_STEPS,
+            graph["step_p50_ms"], graph["images_per_s"], SSD_STEPS, graph["device_busy_ms"],
+            graph["device_busy_share"], breakdown["wall_ms_p50"], graph["device_launches"],
+            reserved, eager_reading["step_p50_ms"], split["device_ms_per_step"], sl, cv,
+            ", ".join(conv),
+            json.dumps({k: round(v, 3) for k, v in split["by_category"].items()}), card))
+    return model, state, feed
+
+
+def eval_ssd(torch, card, readings, model, state, feed):
+    """The eval program (the for_test clone, detection_output with
+    nms_threshold 0.45, the detection_map host op, 11-point AP) on the
+    trained state: SSD_EVAL_RUNS runs, each one device segment and one
+    host call; the device segment captured at the second run and replayed
+    at the third with no capture again; the detections the same bits on
+    every run; the host op's mAP equal to evaluator.DetectionMAP over the
+    fetched rows. Logs the eval wall, the segment's device time and
+    launches a replay (its graph's kernel nodes), the capture's wall and
+    the host op's own time."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, evaluator, scope_guard
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_detection as det
+    from paddle_tpu_torch.tools import profile_generation as pgen
+    place = CUDAPlace(0)
+    scope, exe = Scope(seed=SEED, place=place), Executor(place)
+    with scope_guard(scope):
+        exe.run(model["startup"])
+    for n, v in state.items():
+        if n in scope.vars:
+            scope.vars[n] = v
+    fetch = [model["nmsed"], model["map"], model["labels"]]
+    outs, walls, stats = [], [], []
+    with scope_guard(scope):
+        for _ in range(SSD_EVAL_RUNS):
+            fused.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(exe.run(model["test"], feed=feed, fetch_list=fetch))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            stats.append(Executor.stats())
+    segs = [s["segments"] for s in stats]
+    graphs = [s["graphs"] for s in stats]
+    if segs != [{"device": 1, "host": 1}] * SSD_EVAL_RUNS:
+        raise AssertionError("eval ssd: segments a run %s, want one device segment and one "
+                             "host call" % segs)
+    if graphs != [{}, {"captures": 1, "replays": 1}, {"replays": 1}]:
+        raise AssertionError("eval ssd: graphs a run %s (captured at the second run, "
+                             "replayed after)" % graphs)
+    _same_bits("eval ssd detections, run", [o[0] for o in outs[1:]], [outs[0][0]] * 2)
+    nmsed, m, labels = outs[-1]
+    want = det.reference_map(nmsed, labels, evaluator.DetectionMAP, det.SSD["classes"])
+    if abs(float(m[0]) - want) > 1e-6:
+        raise AssertionError("eval ssd: host op mAP %r, DetectionMAP %r" % (float(m[0]), want))
+    n_det = int((nmsed[..., 0] >= 0).sum())
+    if not n_det:
+        raise AssertionError("eval ssd: no detections")
+
+    def run():
+        w = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with scope_guard(scope):
+                exe.run(model["test"], feed=feed, fetch_list=fetch)
+            w.append((time.perf_counter() - t0) * 1e3)
+        return w
+
+    prof = pgen._windows(run, 2, True)
+    # the host op alone, on the detections the last run left in the scope
+    op = [o for o in model["test"].global_block().ops if o.type == "detection_map"][0]
+    host_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        registry.get("detection_map").host_fn(op, scope)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    reading = {"wall_ms_p50": prof["wall_ms_p50"], "capture_run_ms": walls[1],
+               "warmup_run_ms": walls[0], "replay_run_ms": walls[2],
+               "device_segment_busy_ms": prof["device_busy_ms_per_step"],
+               "device_segment_launches": prof["device_launches_per_step"],
+               "host_op_ms": float(np.median(host_ms)), "map_11point": float(m[0]),
+               "detections": n_det}
+    readings["eval_ssd"] = {"graph": reading}
+    log("eval ssd: the for_test clone + detection_output (nms_threshold %g, nms_top_k 400, "
+        "keep_top_k 200) + detection_map (11point) on the trained state, batch %d: %s a run "
+        "(one device segment, one host call); graphs a run %s; the detections the same bits on "
+        "all %d runs; %d detections; host-op mAP %.6f = DetectionMAP over the fetched rows "
+        "%.6f; wall p50 %.3f ms a run, the device segment %.3f ms busy a replay in %s launches "
+        "(its graph's kernel nodes; the NMS 400 rounds of them), capture run %.1f ms, warmup "
+        "run %.1f ms, the host op %.3f ms alone; card %s" % (
+            det.SSD["nms_threshold"], det.SSD["batch"], json.dumps(segs[0]), json.dumps(graphs),
+            SSD_EVAL_RUNS, n_det, float(m[0]), want, prof["wall_ms_p50"],
+            prof["device_busy_ms_per_step"], prof["device_launches_per_step"], walls[1],
+            walls[0], reading["host_op_ms"], card))
+
+
+def _faster_rcnn_cases(torch, registry, rng):
+    """The detection ops at a published detector's shapes: Faster R-CNN
+    (R50-C4, stride 16) on an 800 x 1333 image (a 50 x 84 map, 1024
+    channels), anchors of sizes 32-512 at ratios 0.5, 1, 2 (15 a cell),
+    pre_nms_topN 6000, post_nms_topN 1000, 256 RPN samples, 512 RoIs an
+    image, RoIAlign and RoIPool 7 x 7 at 1/16, 2 images; YOLOv3 at 608 x 608
+    (19/38/76 grids, 80 classes, the nine anchors by mask, ignore_thresh
+    0.7, 8 images of 50 boxes); SSD300 (MobileNet-SSD's 1917 priors, 21
+    classes, 64 images); FaceBoxes' density priors (1024 x 1024, a 32 x 32
+    map); EAST's geometry map (512 x 512 at 1/4); a text detector's
+    perspective crops (32 channels at 1/4 of 512 x 512, 64 quads to 8 x
+    64). Returns [(name, op, ins, attrs)]."""
+    f32 = np.float32
+    b, h, w, a, c = 2, 50, 84, 15, 1024
+    cases = []
+    feat = np.zeros((b, 8, h, w), f32)
+    sizes, ratios = [32.0, 64.0, 128.0, 256.0, 512.0], [0.5, 1.0, 2.0]
+    cases.append(("anchor_generator", "anchor_generator", {"Input": [feat]},
+                  {"anchor_sizes": sizes, "aspect_ratios": ratios, "stride": [16.0, 16.0],
+                   "variances": [1.0, 1.0, 1.0, 1.0], "offset": 0.5}))
+    # the anchors as the op makes them, for the ops that take them
+    anchors = _cpu_op(torch, registry, *cases[-1][1:])["Anchors"][0]
+    g = 20
+    gt = np.zeros((b, g, 4), f32)
+    glen = np.array([13, 20], np.int32)
+    for i in range(b):
+        xy = rng.rand(glen[i], 2) * [1000, 600]
+        wh = rng.uniform(20, 330, size=(glen[i], 2))
+        gt[i, :glen[i]] = np.concatenate([xy, np.minimum(xy + wh, [1332, 799])], 1)
+    gcls = rng.randint(1, 81, (b, g)).astype(np.int32)
+    cases.append(("generate_proposals", "generate_proposals",
+                  {"Scores": [rng.rand(b, a, h, w).astype(f32)],
+                   "BboxDeltas": [(rng.randn(b, a * 4, h, w) * 0.2).astype(f32)],
+                   "ImInfo": [np.array([[800.0, 1333.0, 1.0]] * b, f32)],
+                   "Anchors": [anchors], "Variances": [np.ones_like(anchors)]},
+                  {"pre_nms_topN": 6000, "post_nms_topN": 1000, "nms_thresh": 0.7,
+                   "min_size": 0.0}))
+    cases.append(("rpn_target_assign", "rpn_target_assign",
+                  {"Anchor": [anchors.reshape(-1, 4)], "GtBox": [gt], "GtLen": [glen]},
+                  {"rpn_positive_overlap": 0.7, "rpn_negative_overlap": 0.3,
+                   "rpn_batch_size_per_im": 256, "rpn_fg_fraction": 0.5}))
+    r = 1000
+    xy = rng.rand(b, r, 2) * [1100, 650]
+    rois = np.concatenate([xy, xy + rng.uniform(16, 300, (b, r, 2))], 2).astype(f32)
+    rois[:, -50:] = -1.0  # NMS's padding rows
+    cases.append(("generate_proposal_labels", "generate_proposal_labels",
+                  {"RpnRois": [rois], "GtClasses": [gcls], "GtBoxes": [gt], "GtLen": [glen]},
+                  {"fg_thresh": 0.5, "bg_thresh_hi": 0.5, "bg_thresh_lo": 0.0,
+                   "batch_size_per_im": 512, "fg_fraction": 0.25}))
+    x = rng.randn(b, c, h, w).astype(f32)
+    sampled = rois[:, :512].copy()
+    rlen = np.array([512, 512], np.int32)
+    for op in ("roi_align", "roi_pool"):
+        attrs = {"pooled_height": 7, "pooled_width": 7, "spatial_scale": 1.0 / 16}
+        if op == "roi_align":
+            attrs["sampling_ratio"] = -1
+        cases.append((op, op, {"X": [x], "ROIs": [sampled], "RoisLen": [rlen]}, attrs))
+    # YOLOv3 at 608 x 608, each head with its three anchors
+    anchors9 = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90, 156, 198, 373, 326]
+    yb, yg, cls = 8, 50, 80
+    ygt = np.zeros((yb, yg, 4), f32)
+    for i in range(yb):
+        n = rng.randint(5, yg + 1)
+        ygt[i, :n, :2] = rng.uniform(0.05, 0.95, (n, 2))
+        ygt[i, :n, 2:] = rng.uniform(0.02, 0.6, (n, 2))
+    ylab = rng.randint(0, cls, (yb, yg)).astype(np.int32)
+    for grid, mask in ((19, (6, 7, 8)), (38, (3, 4, 5)), (76, (0, 1, 2))):
+        anc = [v for m in mask for v in anchors9[2 * m:2 * m + 2]]
+        cases.append(("yolov3_loss_%d" % grid, "yolov3_loss",
+                      {"X": [(rng.randn(yb, 3 * (5 + cls), grid, grid) * 0.5).astype(f32)],
+                       "GTBox": [ygt], "GTLabel": [ylab]},
+                      {"anchors": anc, "class_num": cls, "ignore_thresh": 0.7}))
+    # SSD300: MobileNet-SSD's priors, 21 classes, 64 images, 16 gt an image
+    sb, m, sc, sg = 64, 1917, 21, 16
+    pxy = rng.rand(m, 2) * 0.8
+    prior = np.concatenate([pxy, pxy + rng.uniform(0.05, 0.5, (m, 2))], 1).astype(f32)
+    sgt = np.zeros((sb, sg, 4), f32)
+    slen = rng.randint(1, 9, sb).astype(np.int32)
+    for i in range(sb):
+        xy = rng.rand(slen[i], 2) * 0.6
+        sgt[i, :slen[i]] = np.concatenate([xy, xy + rng.uniform(0.1, 0.4, (slen[i], 2))], 1)
+    img = np.zeros((sb, 3, 300, 300), f32)
+    cases.append(("prior_box", "prior_box", {"Input": [np.zeros((sb, 8, 19, 19), f32)],
+                                             "Image": [img]},
+                  {"min_sizes": [60.0], "max_sizes": [], "aspect_ratios": [2.0], "flip": True,
+                   "variances": [0.1, 0.1, 0.2, 0.2], "offset": 0.5}))
+    cases.append(("density_prior_box", "density_prior_box",
+                  {"Input": [np.zeros((1, 8, 32, 32), f32)],
+                   "Image": [np.zeros((1, 3, 1024, 1024), f32)]},
+                  {"fixed_sizes": [32.0, 64.0, 128.0], "densities": [4, 2, 1],
+                   "fixed_ratios": [1.0], "clip": True}))
+    pvar = np.tile(np.array([[0.1, 0.1, 0.2, 0.2]], f32), (m, 1))
+    loc = (rng.randn(sb, m, 4) * 0.5).astype(f32)
+    cases.append(("box_coder", "box_coder", {"PriorBox": [prior], "PriorBoxVar": [pvar],
+                                             "TargetBox": [loc]},
+                  {"code_type": "decode_center_size"}))
+    cases.append(("iou_similarity", "iou_similarity", {"X": [sgt[0]], "Y": [prior]}, {}))
+    dist = _cpu_op(torch, registry, "iou_similarity", {"X": [sgt], "Y": [prior]}, {})["Out"][0]
+    dist *= (np.arange(sg)[None, :, None] < slen[:, None, None])
+    cases.append(("bipartite_match", "bipartite_match", {"DistMat": [dist]},
+                  {"match_type": "per_prediction", "dist_threshold": 0.5}))
+    match = np.where(dist.max(1) >= 0.5, dist.argmax(1), -1).astype(np.int32)
+    cases.append(("mine_hard_examples", "mine_hard_examples",
+                  {"ClsLoss": [rng.rand(sb, m).astype(f32)], "MatchIndices": [match]},
+                  {"neg_pos_ratio": 3.0}))
+    neg = np.full((sb, m), -1, np.int32)
+    neg[:, :100] = rng.randint(0, m, (sb, 100))
+    cases.append(("target_assign", "target_assign",
+                  {"X": [sgt], "MatchIndices": [match], "NegIndices": [neg]},
+                  {"mismatch_value": 0}))
+    scores = rng.rand(sb, sc, m).astype(f32)
+    scores /= scores.sum(1, keepdims=True)
+    cases.append(("multiclass_nms", "multiclass_nms",
+                  {"BBoxes": [loc * 0.1 + prior[None]], "Scores": [scores]},
+                  {"background_label": 0, "score_threshold": 0.01, "nms_top_k": 400,
+                   "nms_threshold": 0.45, "keep_top_k": 200, "normalized": True}))
+    labels = rng.randint(1, sc, (sb, sg, 1)).astype(np.int32)
+    cases.append(("ssd_loss", "ssd_loss",
+                  {"Location": [loc], "Confidence": [rng.randn(sb, m, sc).astype(f32)],
+                   "GTBox": [sgt], "GTLabel": [labels], "GTLen": [slen], "PriorBox": [prior],
+                   "PriorBoxVar": [pvar]}, {"match_type": "per_prediction"}))
+    geo = rng.randn(1, 8, 128, 128).astype(f32)
+    geo[rng.rand(*geo.shape) < 0.5] = 0.0
+    cases.append(("polygon_box_transform", "polygon_box_transform", {"Input": [geo]}, {}))
+    qxy = rng.rand(1, 64, 2) * [100, 110]
+    quad = np.concatenate([qxy, qxy + [24, 2], qxy + [25, 9], qxy + [1, 8]], 2).astype(f32)
+    cases.append(("roi_perspective_transform", "roi_perspective_transform",
+                  {"X": [rng.randn(1, 32, 128, 128).astype(f32)], "ROIs": [quad]},
+                  {"transformed_height": 8, "transformed_width": 64, "spatial_scale": 1.0}))
+    return cases
+
+
+def _cpu_op(torch, registry, op, ins, attrs):
+    """{slot: [numpy]} of one lowering on the CPU (inputs for another case)."""
+    ctx = _lower_ctx(torch, registry, "cpu")
+    outs = registry.get(op).lower(ctx, {s: [torch.from_numpy(v) for v in vs]
+                                        for s, vs in ins.items()}, dict(attrs))
+    return {s: [v.numpy() for v in vs] for s, vs in outs.items()}
+
+
+DET_TOL = 1e-4  # a lowering on the card against the CPU: f32 in another order
+DET_REPLAYS = 3  # replays of each op's graph, timed by CUDA events
+
+
+def _graph_nodes(graph):
+    """The nodes (kernels, copies, memsets) of a CUDA graph captured with
+    keep_graph=True, by libcuda's cuGraphGetNodes on its cudaGraph_t."""
+    import ctypes
+
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError("cuGraphGetNodes failed with CUresult %d" % rc)
+    return count.value
+
+
+def _lower_ctx(torch, registry, device):
+    """A lowering context on `device` with its own generators and constant
+    cache, made outside any capture (a capture cannot make a generator)."""
+    return registry.LowerCtx(device, cache={}, host_random=False,
+                             generator=torch.Generator().manual_seed(SEED),
+                             device_generator=torch.Generator(device=device).manual_seed(SEED))
+
+
+def _close_outs(name, got, want, tol):
+    """Floats within rtol = atol = tol, integers exactly (NaN where NaN)."""
+    worst = 0.0
+    for slot in want:
+        for g, w in zip(got[slot], want[slot]):
+            g, w = g.detach().cpu().numpy(), w.detach().cpu().numpy()
+            if g.shape != w.shape:
+                raise AssertionError("%s %s: shape %s, want %s" % (name, slot, g.shape, w.shape))
+            if np.issubdtype(w.dtype, np.floating):
+                np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg="%s %s" % (name,
+                                                                                         slot))
+                both = np.isfinite(w)
+                if both.any():
+                    worst = max(worst, float(np.abs(g[both] - w[both]).max()))
+            elif not np.array_equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError("%s %s: %d of %d integers differ" % (name, slot, bad, g.size))
+    return worst
+
+
+def detection_ops(torch, card):
+    """Each detection op at a published detector's shapes
+    (_faster_rcnn_cases): eager on the card against eager on the CPU
+    (floats within DET_TOL, integers exactly), then captured alone in a
+    CUDA graph and replayed: the replay's outputs equal the card's eager
+    run bit for bit. Logs each op's capture wall, replay time (CUDA events
+    over DET_REPLAYS replays) and graph nodes."""
+    from paddle_tpu_torch.executor import _on_capture_stream
+    from paddle_tpu_torch.ops import registry
+
+    device = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED)
+    rows = {}
+    for name, op, ins_np, attrs in _faster_rcnn_cases(torch, registry, rng):
+        lower = registry.get(op).lower
+        cpu_ins = {s: [torch.from_numpy(v) for v in vs] for s, vs in ins_np.items()}
+        want = lower(_lower_ctx(torch, registry, "cpu"), cpu_ins, dict(attrs))
+        ctx = _lower_ctx(torch, registry, device)
+        static = {s: [v.to(device) for v in vs] for s, vs in cpu_ins.items()}
+        with _on_capture_stream(device):
+            eager = lower(ctx, static, dict(attrs))
+        torch.cuda.synchronize()
+        err = _close_outs(name, eager, want, DET_TOL)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # _graph_nodes reads it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _on_capture_stream(device) as stream:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                captured = lower(ctx, static, dict(attrs))
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        nodes = _graph_nodes(graph)
+        graph.instantiate()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(DET_REPLAYS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        for slot in eager:
+            for g, e in zip(captured[slot], eager[slot]):
+                if g.detach().cpu().numpy().tobytes() != e.detach().cpu().numpy().tobytes():
+                    raise AssertionError("%s %s: the replay differs from the eager run"
+                                         % (name, slot))
+        rows[name] = {"max_abs_err_vs_cpu": err, "capture_ms": capture_ms,
+                      "replay_ms": start.elapsed_time(end) / DET_REPLAYS,
+                      "graph_nodes": nodes,
+                      "shapes": {s: [list(v.shape) for v in vs] for s, vs in ins_np.items()}}
+        del graph, captured, eager, static, want
+        torch.cuda.empty_cache()
+    log("detection ops: %d ops at published shapes, each eager on the card against the CPU "
+        "(floats within %g, integers exactly) and captured alone then replayed bit for bit: "
+        "%s; card %s" % (len(rows), DET_TOL, json.dumps(
+            {k: {f: (round(v, 4) if isinstance(v, float) else v) for f, v in r.items()
+                 if f != "shapes"} for k, r in rows.items()}), card))
+    log("detection ops shapes: %s" % json.dumps({k: r["shapes"] for k, r in rows.items()}))
+    return rows
+
+
+def host_ops(torch, card):
+    """Host ops on the graph path: a Print between two device segments
+    fires on each of 3 runs (the second captures, the third replays);
+    FLAGS_check_nan_inf raises on a NaN feed at a replay, naming the
+    variable and its last writer; a save_combine program and a
+    load_combine program round-trip a scope bit for bit."""
+    import io as _io
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, fluid, scope_guard
+
+    # the program as built: a pass pipeline's dead-code elimination drops a
+    # print whose output nothing reads, in both packages
+    flags.set_flags({"pass_pipeline": ""})
+    place = CUDAPlace(0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4, 8], dtype="float32", append_batch_size=False)
+        y = fluid.layers.log(fluid.layers.scale(x, scale=2.0))
+        printed = fluid.layers.Print(y, message="host_ops probe", summarize=4)
+        out = fluid.layers.reduce_sum(fluid.layers.scale(printed, scale=3.0))
+    xv = np.random.RandomState(SEED).rand(4, 8).astype("float32") + 0.5
+    scope, exe = Scope(seed=SEED, place=place), Executor(place)
+    buf = _io.StringIO()
+    with scope_guard(scope), contextlib.redirect_stdout(buf):
+        from paddle_tpu_torch.ops import fused
+
+        fused.reset_stats()
+        got = [float(exe.run(main, feed={"x": xv}, fetch_list=[out])[0].reshape(-1)[0])
+               for _ in range(3)]
+        stats = Executor.stats()
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("host_ops probe")]
+    if len(lines) != 3 or stats["graphs"] != {"captures": 2, "replays": 4}:
+        raise AssertionError("print: %d lines over 3 runs, graphs %s" % (len(lines),
+                                                                         stats["graphs"]))
+    want = float((np.log(2 * xv) * 3).sum())
+    if not np.allclose(got, want, rtol=1e-5):
+        raise AssertionError("print program: %s, want %s" % (got, want))
+    bad = xv.copy()
+    bad[0, 0] = -1.0
+    flags.set_flags({"check_nan_inf": True})
+    try:
+        with scope_guard(scope), contextlib.redirect_stdout(_io.StringIO()):
+            exe.run(main, feed={"x": bad}, fetch_list=[out])
+        raise AssertionError("check_nan_inf did not raise on a NaN feed")
+    except FloatingPointError as e:
+        msg = str(e)
+    finally:
+        flags.set_flags({"check_nan_inf": False})
+    if "last written by op reduce_sum:%s" % out.name not in msg:
+        raise AssertionError("check_nan_inf: %r names no variable and writer" % msg)
+
+    # save_combine / load_combine of a trained-size scope
+    params = {"w%d" % i: torch.randn(256, 512, device="cuda") for i in range(4)}
+    params["steps"] = torch.arange(7, dtype=torch.int32, device="cuda")
+    params["half"] = torch.randn(64, 64, device="cuda").to(torch.bfloat16)
+    path = os.path.join(tempfile.mkdtemp(), "ckpt")
+    save, load = fluid.Program(), fluid.Program()
+    for prog, op_type, slots in ((save, "save_combine", ("X", None)),
+                                 (load, "load_combine", (None, "Out"))):
+        blk = prog.global_block()
+        for n, v in params.items():
+            blk.create_var(name=n, shape=tuple(v.shape), dtype=str(v.dtype).split(".")[-1],
+                           persistable=True)
+        blk.append_op(type=op_type, inputs={slots[0]: list(params)} if slots[0] else {},
+                      outputs={slots[1]: list(params)} if slots[1] else {},
+                      attrs={"file_path": path})
+    s1, s2 = Scope(seed=SEED, place=place), Scope(seed=SEED, place=place)
+    s1.vars.update(params)
+    with scope_guard(s1):
+        exe.run(save)
+    with scope_guard(s2):
+        exe.run(load)
+    for n, v in params.items():
+        if s2.vars[n].dtype != v.dtype or not torch.equal(s2.vars[n], v):
+            raise AssertionError("save_combine / load_combine: %s differs" % n)
+    log("host ops: print fired on each of 3 graph-path runs (%s), graphs %s; check_nan_inf on a "
+        "NaN feed at a replay raised: %s; save_combine / load_combine round-tripped %d vars "
+        "(f32, int32, bf16) bit for bit; card %s" % (
+            json.dumps(lines[-1]), json.dumps(stats["graphs"]), json.dumps(msg), len(params),
+            card))
+
+
 def main():
     import torch
 
@@ -3984,6 +4532,18 @@ def main():
                 kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     with Phase("schedules"):
         schedules(torch, card)
+    torch.cuda.empty_cache()
+    with Phase("train ssd"):
+        ssd = train_ssd(torch, card, paths)
+    with Phase("eval ssd"):
+        eval_ssd(torch, card, paths, *ssd)
+    del ssd
+    torch.cuda.empty_cache()
+    with Phase("detection ops"):
+        detection_ops(torch, card)
+    torch.cuda.empty_cache()
+    with Phase("host ops"):
+        host_ops(torch, card)
     # every main path on replayed CUDA graphs beside the op-by-op path
     log(json.dumps({"paths": paths, "card": card}))
     for name, n in launches.items():

@@ -78,7 +78,7 @@ class VarFact:
 
 class OpRecord:
     """One interpreted op: the facts in and out, and a note when the
-    transfer degraded ("unregistered", "skip", "no-lowering",
+    transfer degraded ("host", "unregistered", "skip", "no-lowering",
     "opaque-inputs" or "transfer-error: ...")."""
 
     __slots__ = ("op", "block_idx", "index", "opdef", "ins", "outs", "note")
@@ -249,6 +249,8 @@ class _Analyzer:
                 note = "unregistered"
             elif opdef.skip_exec:
                 note = "skip"
+            elif opdef.is_host:
+                note = "host"
             elif opdef.lower is None:
                 note = "no-lowering"
             else:

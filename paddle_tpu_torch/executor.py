@@ -28,6 +28,15 @@ and, on the card, captures it as a CUDA graph:
   replay that fails raises; nothing carries on op by op. The graphs of one
   Executor (or of one GenerationEngine) share one memory pool, so each
   feed shape does not keep a step's intermediates of its own.
+- `_SegmentedBlock` runs a block that holds host ops (save / load,
+  detection_map) or prints at its top level: each maximal run of device
+  ops is a block of its own (a `_CompiledBlock` on the card, captured
+  under the rule above), and the host ops and prints run between the
+  replays, so a print prints on every run (the JAX package's
+  `_SegmentedBlock`). A block holding one anywhere else (inside a
+  sub-block, or served) runs op by op, under the reason "host_op".
+- FLAGS_check_nan_inf scans the fetches and the persistables a run wrote
+  once it has run (after the replay on the graph path).
 
 State model: a Scope holds name -> torch.Tensor on one device. Persistable
 vars the block reads are state; those it also writes (parameters written by
@@ -257,6 +266,32 @@ def _run_label(run):
     return "op/%s:%s" % (kind, outs[0] if outs else "")
 
 
+def _exec_ops(block):
+    """The ops of `block` an executor runs (not the feed / fetch markers);
+    raises for an op without a lowering."""
+    unknown = sorted(
+        {op.type for op in walk_ops(block.ops) if not registry.is_registered(op.type)}
+    )
+    if unknown:
+        raise NotImplementedError("ops without lowering: %s" % unknown)
+    return [op for op in block.ops if not registry.get(op.type).skip_exec]
+
+
+def _call_host(op, scope):
+    with _prof.RecordEvent("host_op/%s" % op.type):
+        registry.get(op.type).host_fn(op, scope)
+    fused.note_segment("host")
+
+
+def op_display_name(op):
+    """'<type>:<first output>': fluid ops are anonymous, so the first output
+    names the instance (the JAX package's opprof.op_display_name)."""
+    for name in op.output_arg_names:
+        if name != EMPTY_VAR_NAME:
+            return "%s:%s" % (op.type, name)
+    return op.type
+
+
 class _PerOpProfiledBlock:
     """A block prepared for straight-line execution, op by op: the op list
     in the units a run lowers and the names each unit leaves dead (dropped
@@ -268,17 +303,16 @@ class _PerOpProfiledBlock:
     a profiler event and, on the card, syncs the device after it, so the
     event holds the op's device time too (the reference's per-op tables)."""
 
-    def __init__(self, block, feed_names, fetch_names, scope):
+    def __init__(self, block, feed_names, fetch_names, scope, ops=None):
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
-        unknown = sorted(
-            {op.type for op in walk_ops(block.ops) if not registry.is_registered(op.type)}
-        )
-        if unknown:
-            raise NotImplementedError("ops without lowering: %s" % unknown)
-        self.ops = [op for op in block.ops if not registry.get(op.type).skip_exec]
+        self.ops = _exec_ops(block) if ops is None else list(ops)
         self.stochastic = any(registry.get(op.type).stochastic for op in walk_ops(self.ops))
         self.open_ended_while = any(is_open_ended_while(op) for op in walk_ops(self.ops))
+        # a host op or a print a capture would run once (Executor.run splits
+        # a block at its top-level ones instead; one inside a sub-block, or
+        # in a served block, keeps the block op by op)
+        self.host_ops = any(registry.get(op.type).splits_graph for op in walk_ops(self.ops))
         self.cache = {}
 
         # classify external inputs: fed names are args; persistable names found
@@ -321,6 +355,8 @@ class _PerOpProfiledBlock:
             self.capture_declined = "creates_persistables"
         elif self.open_ended_while:
             self.capture_declined = "open_ended_while"
+        elif self.host_ops:
+            self.capture_declined = "host_op"
         else:
             self.capture_declined = None
         self.runs = list(registry.op_runs(self.ops))
@@ -333,7 +369,8 @@ class _PerOpProfiledBlock:
         # def-use, so fail loudly
         plan = getattr(block.program, "_donation_plan", None)
         if (
-            plan
+            ops is None
+            and plan
             and not plan.get("unknown")
             and plan.get("scope_uid") == scope._uid
             and plan.get("feed") == sorted(self.feed_names)
@@ -347,9 +384,10 @@ class _PerOpProfiledBlock:
                 % (plan["mut"], plan["ro"], self.mut_names, self.ro_names)
             )
 
-    def fn(self, feeds, ro_state, mut_state, ctx, per_op=False):
+    def fn(self, feeds, ro_state, mut_state, ctx, per_op=False, scope=None):
         """Run the block: (fetches, new_mut, created). `feeds` are tensors on
-        ctx.device in their declared dtypes."""
+        ctx.device in their declared dtypes. A host op runs in line on a
+        view of `scope` (the op-by-op path of a block that holds one)."""
         env = {}
         env.update(ro_state)
         env.update(mut_state)
@@ -358,11 +396,11 @@ class _PerOpProfiledBlock:
         for run, dead in zip(self.runs, self.dead):
             if per_op:
                 with _prof.RecordEvent(_run_label(run)):
-                    registry.lower_run(ctx, run, env)
+                    self._lower(ctx, run, env, scope)
                     if sync:
                         torch.cuda.synchronize(ctx.device)
             else:
-                registry.lower_run(ctx, run, env)
+                self._lower(ctx, run, env, scope)
             # an intermediate is dropped after its last reader, so the
             # step's memory (and a captured graph's pool) holds only what
             # is live
@@ -374,6 +412,22 @@ class _PerOpProfiledBlock:
         # that actually materialized
         created = {n: env[n] for n in self.created_persistables if n in env}
         return fetches, new_mut, created
+
+    def _lower(self, ctx, run, env, scope):
+        op = run[0]
+        if not registry.get(op.type).is_host:
+            registry.lower_run(ctx, run, env)
+            return
+        # a host op sees a scratch view of the scope, so the run's
+        # intermediates do not leak into it (the JAX package's
+        # _PerOpProfiledBlock)
+        before = set(scope.vars)
+        scope.vars.update(env)
+        _call_host(op, scope)
+        env.update(scope.vars)
+        for name in set(scope.vars) - before:
+            if name not in self.mut_names and name not in self.created_persistables:
+                scope.vars.pop(name, None)
 
     def ctx(self, scope, is_test=False):
         return registry.LowerCtx(
@@ -391,7 +445,7 @@ class _PerOpProfiledBlock:
         `ro` and `mut`; `feeds` are cast onto the scope's device."""
         feeds = {n: to_tensor(v, scope.device, self.feed_dtypes.get(n))
                  for n, v in feeds.items()}
-        return self.fn(feeds, ro, mut, self.ctx(scope, is_test), per_op)
+        return self.fn(feeds, ro, mut, self.ctx(scope, is_test), per_op, scope)
 
     def __call__(self, scope, feeds, per_op=False):
         ro, mut = self.state(scope)
@@ -572,9 +626,11 @@ class _CompiledBlock:
             # to the card before the capture fills the graph's own pool
             torch.cuda.empty_cache()
             self.graph = _CudaGraph(block, feeds, ro, mut, ctx, self.pool)
+            fused.note_graph("captures")
         elif block.stochastic and ctx.device_generator is not self.graph.device_generator:
             raise RuntimeError("the scope's device generator was replaced (reseeded) after "
                                "its block was captured")
+        fused.note_graph("replays")
         return self.graph.replay(feeds, ro, mut) + ({},)
 
     def __call__(self, scope, feeds):
@@ -587,6 +643,176 @@ class _CompiledBlock:
         if self.graph is not None:
             scope.vars.update(self.graph.ro)
         return fetches
+
+
+class _SegmentedBlock:
+    """A block that holds host ops (save / load, detection_map: ops that
+    run on the host) or device ops with a host effect (print), run as
+    alternating device segments and host calls (the JAX package's
+    _SegmentedBlock, paddle_tpu/executor.py:1587).
+
+    The block is split at those ops into maximal runs of device ops. Each
+    run is a block of its own (_PerOpProfiledBlock over its ops), built at
+    its first execution so that what an earlier host op wrote is in the
+    scope by then; on the card it is a _CompiledBlock, captured as a CUDA
+    graph at its second call and replayed after, every segment into the
+    executor's one pool. The segments replay in their capture order, one at
+    a time, so a later segment's intermediates may reuse an earlier one's;
+    what a segment exports (the names a later segment, a host op or a fetch
+    reads) are its graph's own output tensors, which stay allocated, and
+    the scope holds them across the host calls. A host op runs between
+    replays on the scope; a print lowers eagerly there, so it prints on
+    every run. Feeds a device segment reads reach it through its own feed
+    buffers; feeds a host op or a print reads enter the scope."""
+
+    def __init__(self, block, feed_names, fetch_names, pool, capture, is_test=False):
+        self.block = block
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.pool = pool
+        self.capture = capture  # on the card: segments capture
+        self.is_test = is_test
+        self.ops = _exec_ops(block)
+        self.feed_dtypes = {n: _var_dtype(block, n) for n in self.feed_names}
+        # [("device", [ops]) | ("host", op)]
+        self.segments = []
+        cur = []
+        for op in self.ops:
+            if registry.get(op.type).splits_graph:
+                if cur:
+                    self.segments.append(("device", cur))
+                    cur = []
+                self.segments.append(("host", op))
+            else:
+                cur.append(op)
+        if cur:
+            self.segments.append(("device", cur))
+        # each device segment's exports: what it produces that a later
+        # segment, a host op or a fetch reads; and the feeds it reads
+        later = set(self.fetch_names)
+        fed = set(self.feed_names)
+        self._exports = [None] * len(self.segments)
+        self._feeds = [None] * len(self.segments)
+        self.scope_feeds = set()
+        for i in range(len(self.segments) - 1, -1, -1):
+            kind, payload = self.segments[i]
+            ops = payload if kind == "device" else [payload]
+            reads = {n for op in ops for n in op.input_arg_names}
+            if kind == "device":
+                produced = {n for op in ops for n in op.output_arg_names}
+                self._exports[i] = sorted((produced & later) - {EMPTY_VAR_NAME})
+                self._feeds[i] = sorted(reads & fed)
+            else:
+                self.scope_feeds |= reads & fed
+            later |= reads
+        self.scope_feeds |= fed & set(self.fetch_names)
+        self._compiled = [None] * len(self.segments)
+        # the persistables any op writes: FLAGS_check_nan_inf scans them
+        self.mut_names = sorted(
+            {n for op in self.ops for n in op.output_arg_names
+             if n != EMPTY_VAR_NAME and block.has_var_recursive(n)
+             and block._var_recursive(n).persistable})
+
+    def _segment(self, i, scope):
+        compiled = self._compiled[i]
+        if compiled is None:
+            compiled = _PerOpProfiledBlock(self.block, self._feeds[i], self._exports[i], scope,
+                                           ops=self.segments[i][1])
+            if self.capture:
+                compiled = _CompiledBlock(compiled, self.pool, self.is_test)
+            self._compiled[i] = compiled
+        return compiled
+
+    def captures(self):
+        """How many of its device segments are captured."""
+        return sum(getattr(c, "graph", None) is not None for c in self._compiled)
+
+    def __call__(self, scope, feeds):
+        for n in self.scope_feeds:
+            scope.set_var(n, to_tensor(feeds[n], scope.device, self.feed_dtypes.get(n)))
+        ctx = None
+        for i, (kind, payload) in enumerate(self.segments):
+            if kind == "host":
+                opdef = registry.get(payload.type)
+                if opdef.is_host:
+                    _call_host(payload, scope)
+                    continue
+                # a device op with a host effect, lowered eagerly between
+                # the segments
+                if ctx is None:
+                    ctx = registry.LowerCtx(
+                        scope.device, generator=scope.generator, is_test=self.is_test,
+                        device_generator=scope.device_generator, host_random=False)
+                env = {n: scope.vars[n] for n in payload.input_arg_names
+                       if n != EMPTY_VAR_NAME}
+                with _prof.RecordEvent("inline_op/%s" % payload.type):
+                    registry.lower_run(ctx, [payload], env)
+                for n in payload.output_arg_names:
+                    if n in env:
+                        scope.set_var(n, env[n])
+                fused.note_segment("inline")
+                continue
+            with _prof.RecordEvent("device_segment_%d" % i):
+                vals = self._segment(i, scope)(scope, {n: feeds[n] for n in self._feeds[i]})
+            for name, val in zip(self._exports[i], vals):
+                scope.set_var(name, val)
+            fused.note_segment("device")
+        return [scope.find_var(n) for n in self.fetch_names]
+
+
+def _splits(block):
+    """Whether `block` holds a host op or a print at its top level."""
+    return any(registry.is_registered(op.type) and registry.get(op.type).splits_graph
+               for op in block.ops)
+
+
+def _prepared(compiled):
+    """The _PerOpProfiledBlock or _SegmentedBlock behind a block form."""
+    return compiled.block if isinstance(compiled, _CompiledBlock) else compiled
+
+
+def _run_ops(compiled):
+    """The op list behind any block form, for the check_nan_inf report."""
+    return _prepared(compiled).ops
+
+
+def _written_persistables(compiled):
+    inner = _prepared(compiled)
+    return list(inner.mut_names) + list(getattr(inner, "created_persistables", ()))
+
+
+def _last_writer(compiled, name):
+    """Display name of the last op in program order that writes `name`, or
+    None: the suspect the check_nan_inf report names."""
+    found = None
+    for op in _run_ops(compiled):
+        if name in op.output_arg_names:
+            found = op_display_name(op)
+    return found
+
+
+def _check_nan_inf(compiled, scope, fetch_names, fetches, step):
+    """FLAGS_check_nan_inf (the reference's operator.cc:778; the JAX
+    package's Executor._finish_run): the fetches and the persistables the
+    block writes reduce to one flag on the device, read with one host
+    sync; only when it trips are they rescanned one by one to name the
+    variable, and its last writer, in the FloatingPointError."""
+    watched = list(zip(fetch_names, fetches)) + [
+        (n, scope.vars[n]) for n in _written_persistables(compiled)
+        if scope.vars.get(n) is not None]
+    floats = [(n, v) for n, v in watched
+              if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    if not floats:
+        return
+    if bool(torch.stack([torch.isfinite(v).all() for _, v in floats]).all()):
+        return
+    for name, val in floats:
+        if not bool(torch.isfinite(val).all()):
+            msg = "check_nan_inf: variable %r contains NaN/Inf" % name
+            writer = _last_writer(compiled, name)
+            if writer is not None:
+                msg += ", last written by op %s" % writer
+            raise FloatingPointError(msg + " (run step %d)" % step)
 
 
 class _ServeBlock:
@@ -676,6 +902,8 @@ class Executor:
         self.device = to_device(place)
         self._cache = {}
         self._pool = None
+        # counts run() calls: the step the check_nan_inf report cites
+        self._run_seq = 0
 
     def _graph_pool(self):
         """The graph pool every block of this executor captures into: one
@@ -748,14 +976,24 @@ class Executor:
             cached = use_program_cache or self.device.type == "cuda"
             compiled = self._cache.get(key) if cached else None
             if compiled is None:
-                compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
-                if self.device.type == "cuda":
-                    compiled = _CompiledBlock(compiled, self._graph_pool())
+                card = self.device.type == "cuda"
+                if _splits(block):
+                    compiled = _SegmentedBlock(block, list(feed), fetch_names,
+                                               self._graph_pool() if card else None, card)
+                else:
+                    compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
+                    if card:
+                        compiled = _CompiledBlock(compiled, self._graph_pool())
                 if cached:
                     self._cache[key] = compiled
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed)
-        replayed = getattr(compiled, "graph", None) is not None
+        self._run_seq += 1
+        if _flags.get_flags("check_nan_inf")["check_nan_inf"]:
+            _check_nan_inf(compiled, scope, fetch_names, fetches, self._run_seq)
+        # a replayed graph's fetches are its own tensors
+        replayed = (getattr(compiled, "graph", None) is not None
+                    or isinstance(compiled, _SegmentedBlock) and compiled.captures() > 0)
         if return_numpy:
             # copies: a fetched CPU tensor may be state that a later step
             # updates in place (the fused Adam does). numpy has no bfloat16
@@ -776,5 +1014,10 @@ class Executor:
         and launches none). A replayed graph counts what its capture
         counted, every replay. `op_by_op`: the runs on the card of blocks
         that were not captured, by reason ("creates_persistables",
-        "open_ended_while"); ops.fused.reset_stats() clears it too."""
-        return dict(fused.stats(), op_by_op=dict(fused.OP_BY_OP))
+        "open_ended_while", "host_op"). `segments`: what runs
+        of blocks split at host ops ran, "device" segments, "host" op calls
+        and "inline" prints between segments. `graphs`: the CUDA graphs
+        blocks and segments "captures" and "replays". ops.fused.reset_stats()
+        clears them all."""
+        return dict(fused.stats(), op_by_op=dict(fused.OP_BY_OP),
+                    segments=dict(fused.SEGMENTS), graphs=dict(fused.GRAPHS))

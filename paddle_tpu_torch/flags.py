@@ -18,6 +18,12 @@ set_flags), the subset the serving and training slices read.
   hand-written cast pass and e4m3 GEMM of csrc/quant_gemm.cu). A dtype
   policy for step-time experiments, not numerics-preserving: off (default)
   keeps the native-dtype product.
+- check_nan_inf: after every Executor.run, scan the fetches and the
+  persistables the block writes for NaN/Inf (one reduction on the device
+  and one host sync a run; a per-variable rescan only when it trips) and
+  raise FloatingPointError naming the variable and its last writer (the
+  reference's FLAGS_check_nan_inf, operator.cc:778). On the graph path the
+  scan follows the replay.
 - profile_ops: while the profiler is on (profiler.py), Executor.run and the
   GenerationEngine's variants run blocks op by op, with an event and a
   device sync per op, so the profiler table attributes time per op type,
@@ -41,6 +47,7 @@ _DEFAULTS = {
     "paged_flash": "auto",
     "quantized_gemm": "auto",
     "fp8_matmul": False,
+    "check_nan_inf": False,
     "profile_ops": False,
     "pass_pipeline": "",
     "serving_cache_dir": "",

@@ -7,8 +7,8 @@ Sub-blocks are built as in the reference (program._create_block /
 _rollback) and the completed op carries the Block as an attr; the ops run
 the sub-block inside their own lowering (ops/control_flow_ops.py). IfElse
 computes both branches over the full batch and merges them row by row with
-a masked select, as in the JAX package. `Print` is a host op and is not
-ported yet.
+a masked select, as in the JAX package. `Print` appends a print op, which
+the executor runs between graph segments so that it prints on every run.
 """
 
 import contextlib
@@ -45,6 +45,7 @@ __all__ = [
     "max_sequence_len",
     "reorder_lod_tensor_by_rank",
     "shrink_memory",
+    "Print",
 ]
 
 
@@ -788,4 +789,31 @@ def shrink_memory(x, i, table):
         outputs={"Out": [out.name]},
     )
     out.shape = x.shape
+    return out
+
+
+def Print(
+    input,
+    first_n=-1,
+    message=None,
+    summarize=20,
+    print_tensor_name=True,
+    print_tensor_type=True,
+    print_tensor_shape=True,
+    print_tensor_lod=True,
+    print_phase="both",
+):
+    """In-graph tensor printing (reference print_op.cc); forwards its input."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="print",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={
+            "message": message or input.name,
+            "summarize": summarize,
+        },
+    )
+    out.shape = input.shape
     return out

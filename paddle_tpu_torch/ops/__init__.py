@@ -1,7 +1,8 @@
 """Operator lowerings; importing this package registers them: the core
 ops, the sparse (SelectedRows) ops, which attach the lookup_table grad
 maker after core_ops registered the forward, the sequence, control-flow,
-decode and loss ops, the flash attention ops (ops/flash_attention.py), the
+decode, loss, framework (ops/frame_ops.py) and detection ops
+(ops/detection_ops.py), the flash attention ops (ops/flash_attention.py), the
 quantization ops (ops/quant_ops.py), and the fused lowerings of the
 kernel-substitution tier (ops/fused.py)."""
 
@@ -10,7 +11,9 @@ from . import sparse_ops  # noqa: F401
 from . import (  # noqa: F401
     control_flow_ops,
     decode_ops,
+    detection_ops,
     flash_attention,
+    frame_ops,
     fused,
     generation_ops,
     loss_ops,

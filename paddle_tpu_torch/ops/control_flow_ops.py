@@ -36,6 +36,7 @@ package's key(seed) does; an unseeded one draws afresh each iteration from
 the run's generator.
 """
 
+import numpy as np
 import torch
 
 from .registry import EMPTY_VAR_NAME, lower_ops, register, set_var_meta, torch_dtype
@@ -371,3 +372,31 @@ def _lod_rank_table(ctx, ins, attrs):
     (jnp.argsort's stable sort). Input is the SeqLen companion."""
     (seqlen,) = ins["X"]
     return {"Out": [torch.argsort(-seqlen.reshape(-1), stable=True).to(_I64)]}
+
+
+@register("print", infer_shape=_identity_infer, host_effect=True)
+def _print(ctx, ins, attrs):
+    """reference print_op.cc, as the JAX package prints: the message, the
+    shape, the mean and the first `summarize` values (all of them for
+    summarize < 0). It reads its input on the host, so the executor runs it
+    between graph segments (OpDef.host_effect), on every run."""
+    (x,) = ins["X"]
+    if x.device.type == "meta":
+        return {"Out": [x]}
+    msg = attrs.get("message", "")
+    first_n = int(attrs.get("summarize", 20) or 20)
+    flat = x.reshape(-1) if first_n < 0 else x.reshape(-1)[: max(first_n, 1)]
+    fmt = "%s shape=%s mean={m} first={f}" % (msg, tuple(x.shape))
+    flat = flat.detach().cpu()
+    if flat.dtype == torch.bfloat16:
+        flat = flat.float()  # numpy has no bfloat16
+    print(fmt.format(m=np.float32(x.detach().float().mean().item()), f=flat.numpy()),
+          flush=True)
+    return {"Out": [x]}
+
+
+@register("print_grad", no_grad=True)
+def _print_grad(ctx, ins, attrs):
+    """The identity on the cotangent (a print's backward prints nothing)."""
+    (g,) = ins["Out@GRAD"]
+    return {"X@GRAD": [g]}

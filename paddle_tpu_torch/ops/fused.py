@@ -39,13 +39,17 @@ from .registry import bcast_y, gather_op_inputs, register_fused, scatter_op_outp
 
 __all__ = [
     "KERNEL_DISPATCHES",
+    "GRAPHS",
     "OP_BY_OP",
+    "SEGMENTS",
     "adam_path_taken",
     "counter_dicts",
     "gemm_path_taken",
     "ln_path_taken",
     "note_dispatch",
+    "note_graph",
     "note_op_by_op",
+    "note_segment",
     "quant_gemm_path_taken",
     "reset_stats",
     "stats",
@@ -57,8 +61,16 @@ KERNEL_DISPATCHES = {}
 
 # reason -> runs of blocks the card ran op by op instead of capturing
 # (the executor's _CompiledBlock counts them: "creates_persistables",
-# "open_ended_while")
+# "open_ended_while", "host_op")
 OP_BY_OP = {}
+
+# what the executor ran of blocks split at host ops: "device" segments run,
+# "host" op calls, "inline" device ops with a host effect (print) run
+# between segments
+SEGMENTS = {}
+
+# CUDA graphs the executor's blocks captured and replayed
+GRAPHS = {}
 
 
 def note_dispatch(family):
@@ -67,6 +79,14 @@ def note_dispatch(family):
 
 def note_op_by_op(reason):
     OP_BY_OP[reason] = OP_BY_OP.get(reason, 0) + 1
+
+
+def note_segment(kind):
+    SEGMENTS[kind] = SEGMENTS.get(kind, 0) + 1
+
+
+def note_graph(event):
+    GRAPHS[event] = GRAPHS.get(event, 0) + 1
 
 
 _KERNEL_MODULES = (flash_attention, gemm_epilogue, layer_norm, multi_adam, quant_gemm)
@@ -84,6 +104,8 @@ def stats():
 def reset_stats():
     KERNEL_DISPATCHES.clear()
     OP_BY_OP.clear()
+    SEGMENTS.clear()
+    GRAPHS.clear()
     for mod in _KERNEL_MODULES:
         mod.reset_kernel_launches()
 

@@ -93,7 +93,7 @@ def torch_dtype(dtype):
 
 class OpDef:
     def __init__(self, type, lower=None, infer_shape=None, grad=None, no_grad=False,
-                 stochastic=False, skip_exec=False):
+                 stochastic=False, skip_exec=False, host_fn=None, host_effect=False):
         self.type = type
         self.lower = lower
         # infer_shape: fn(op, block), used in place of the meta-tensor run
@@ -104,12 +104,25 @@ class OpDef:
         self.no_grad = no_grad
         self.stochastic = stochastic
         self.skip_exec = skip_exec  # executor ignores (feed/fetch markers)
+        # host ops run outside any captured graph, between device segments
+        # (save / load, detection_map: the reference's non-kernel
+        # OperatorBase ops). Signature: host_fn(op, scope). The executor
+        # splits a block at host ops (executor.py _SegmentedBlock).
+        self.host_fn = host_fn
+        # a device op whose lowering has a host side effect (print): the
+        # passes treat it as any device op, but the executor runs it between
+        # graph segments, so it takes effect on every run and not once at a
+        # capture
+        self.host_effect = host_effect
 
     @property
     def is_host(self):
-        # the JAX package's host ops (RPC, listen_and_serv) are not ported;
-        # the passes read this flag
-        return False
+        return self.host_fn is not None
+
+    @property
+    def splits_graph(self):
+        """Whether the executor runs this op between device segments."""
+        return self.host_fn is not None or self.host_effect
 
 
 OPS = {}
@@ -127,6 +140,17 @@ def register(type, **kwargs):
 
 def register_no_lower(type, **kwargs):
     OPS[type] = OpDef(type, lower=None, skip_exec=True, **kwargs)
+
+
+def register_host(type, **kwargs):
+    """Decorator: @register_host("save") def run(op, scope): ... Host ops are
+    no-grad and contribute no shape inference."""
+
+    def deco(fn):
+        OPS[type] = OpDef(type, lower=None, no_grad=True, host_fn=fn, **kwargs)
+        return fn
+
+    return deco
 
 
 def register_fused(family):
@@ -195,11 +219,12 @@ class LowerCtx:
             torch.backends.cudnn.benchmark = False
             torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
 
-    def op_constant(self, make):
-        """The current op's constant tensor, made by `make()` at the op's
-        first run and kept: a replayed CUDA graph cannot upload from the
-        host, and a constant need not be uploaded every run."""
-        key = ("const", id(self.op))
+    def op_constant(self, make, tag=None):
+        """The current op's constant tensor (or tuple of them; `tag` tells
+        an op's several apart), made by `make()` at the op's first run and
+        kept: a replayed CUDA graph cannot upload from the host, and a
+        constant need not be uploaded every run."""
+        key = ("const", id(self.op), tag)
         val = self.cache.get(key)
         if val is None:
             val = self.cache[key] = make()
