@@ -168,6 +168,28 @@ Phases, each printing its own line; any failure exits non-zero:
      device busy share and launches a step, memory reserved, and the
      device time split by op type (convolution forward, dgrad and wgrad,
      batch_norm forward and backward, pooling, momentum, elementwise, fc);
+     batch_norm trains through the explicit batch_norm_grad; the same
+     model again with batch_norm's generic (vjp) grad, 4 graph steps and 2
+     op by op, gives the before-and-after step wall and batch_norm's
+     device share from the same call, its first loss equal to the explicit
+     grad's bit for bit and its second within rtol 2e-3, atol 2e-4;
+  8b. batch_norm grad: the explicit batch_norm_grad against the generic
+     grad at ResNet-50's (256, 64, 112, 112) and SE-ResNeXt-50's (64, 64,
+     112, 112) training shapes, rtol 1e-4 with atol 1e-5 of the largest
+     |grad|, repeated bit for bit, both timed beside the byte bound;
+  8c. train zoo: VGG-19 (batch 64, Momentum(0.01, 0.9), bench.py:229-260),
+     AlexNet (batch 128) and GoogLeNet (batch 128, both auxiliary heads;
+     the reference speed table's rows, Momentum(0.01, 0.9)) and
+     SE-ResNeXt-50 32x4d (batch 64, Momentum(0.1, 0.9)) at 3 x 224 x 224,
+     1000 classes, f32, training_fused (tools/profile_zoo.py): the warmup,
+     the capture and 6 graph steps, every loss finite, the same counters
+     every step with 2, 2, 2 and 32 GEMM epilogue launches; the first 3
+     steps op by op bit for bit with the same counters, the GEMM epilogue
+     held against its plain version at the inputs the first step gave it
+     (VGG-19's (64, 25088) @ (25088, 4096) and AlexNet's (128, 9216) @
+     (9216, 4096) among them); images/s and step wall p50 over graph steps
+     3-8, busy share, launches and memory reserved a step, and the device
+     time of 2 op-by-op steps split by op type;
   9. train lstm: the stacked dynamic-LSTM text model (models/stacked_lstm.py)
      at the JAX bench's shape (bench.py:265-290): dict 30000, emb 512, hid
      512, stacked_num 2, batch 64 of 100 words fed as a lod_level=1 var with
@@ -216,7 +238,8 @@ Phases, each printing its own line; any failure exits non-zero:
      bit for bit, losses and tables; then tests/test_deepfm.py's training
      (200 sparse Adam steps): the last 5 losses under 0.9x the first 5 and
      the AUC of a fresh batch of 512 above 0.65;
- 13. train bf16: ResNet-50 (batch 256, Momentum(0.1, 0.9)), the stacked
+ 13. train bf16: ResNet-50 (batch 256, Momentum(0.1, 0.9)), VGG-19 (3
+     steps, as bench.py:229-260 runs it), the stacked
      LSTM (Adam 2e-3) and Transformer base, each as its f32 phase builds
      it, rewritten by Bf16Transpiler after its startup program (the JAX
      bench's precision: f32 masters, bf16 activations and gradients) and
@@ -239,7 +262,8 @@ Phases, each printing its own line; any failure exits non-zero:
      (tests/test_detection.py:265); the first 3 steps op by op bit for bit
      with the same counters; step wall, images/s, busy share, memory, and
      the op-by-op device time of ssd_loss and its grad against the
-     convolutions and batch_norm;
+     convolutions and batch_norm; then the generic batch_norm grad's run,
+     as in train resnet50;
  15. eval ssd: the eval program (the for_test clone, detection_output,
      the detection_map host op) on the trained state, 3 runs: one device
      segment and one host call each, the segment captured at the second
@@ -256,11 +280,14 @@ Phases, each printing its own line; any failure exits non-zero:
  17. host ops: a Print between two device segments fires on each of 3
      graph-path runs; FLAGS_check_nan_inf raises on a NaN feed at a
      replay, naming the variable and its last writer; save_combine /
-     load_combine round-trip f32, int32 and bf16 vars bit for bit;
+     load_combine round-trip f32, int32 and bf16 vars bit for bit; a
+     program holding the eight reader markers (read, the create_*_reader
+     ops, open_files) runs on the graph path and fetches 16.0;
  18. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
-     multi_adam count the Transformer's, LeNet's, the LSTM's, the NMT
-     model's, DeepFM's and the bf16 runs' steps, and their max_abs_err is
+     multi_adam count the Transformer's, LeNet's, the zoo's, the LSTM's,
+     the NMT model's, DeepFM's and the bf16 runs' steps, and their
+     max_abs_err is
      the worst of their own check and the path checks; quant_gemm_fp8,
      e4m3_cast and fp8_matmul count the fp8 steps').
 The last line is {"ok": true, "device": {...}}.
@@ -316,7 +343,7 @@ TOP1_DELTA, HEAD_REL_ERR = 0.005, 0.05  # the JAX package's int8 serving gates
 INT8_TOPS = 1979e12  # H100 SXM dense int8 / fp8 tensor-core rate, NVIDIA data sheet
 
 # training kernels: tolerances against the plain versions
-GEMM_TOL = 1e-4  # k up to 2048, sums in another order
+GEMM_TOL = 1e-4  # k up to 25088 (VGG-19's fc6), sums in another order
 LN_TOL = 1e-5  # f32 statistics
 LN_SUM_RTOL, LN_SUM_ATOL = 1e-4, 1e-3  # dscale / dbias: sums over 4096 rows
 LN_BF16_TOL = 1e-2  # bf16 y and dx: one rounding of the output
@@ -3042,6 +3069,91 @@ def _running_stats(model, scope):
     return {n: scope.vars[n].detach().clone() for n in names}
 
 
+BN_AB_STEPS = 4  # graph steps of the generic-grad run, after the warmup and capture
+# a batch_norm_grad call against the generic grad on the card: rtol, and
+# atol as a share of the generic grad's largest magnitude (sums over
+# millions of values a channel, in another order)
+BN_GRAD_TOL = (1e-4, 1e-5)
+
+
+@contextlib.contextmanager
+def _generic_bn_grad():
+    """batch_norm's generic vjp grad (the forward replayed under
+    torch.func.vjp) in place of the explicit batch_norm_grad, while
+    entered: the parent's form, for the before-and-after reading. A block
+    prepared inside lowers with the generic grad."""
+    from paddle_tpu_torch.ops import registry
+
+    explicit = registry.OPS.pop("batch_norm_grad")
+    try:
+        yield
+    finally:
+        registry.OPS["batch_norm_grad"] = explicit
+
+
+def _explicit_bn_grad():
+    """Fails unless batch_norm_grad lowers through its explicit lowering."""
+    from paddle_tpu_torch.ops import core_ops, registry
+
+    if registry.get("batch_norm_grad").lower is not core_ops._batch_norm_grad:
+        raise AssertionError("batch_norm_grad does not lower through the explicit grad")
+
+
+def _bn_share(split, cats):
+    """(batch_norm's device ms a step, its share of the op-by-op device
+    time) over the categories `cats` of an op_device_split."""
+    ms = sum(split["by_category"][c] for c in cats)
+    return ms, ms / split["device_ms_per_step"]
+
+
+def _bn_grad_ab(torch, model, feeds, label, explicit_losses, split_by, cats):
+    """The model again with batch_norm's generic grad, from the same seed
+    and batches: BN_AB_STEPS graph steps after the warmup and the capture
+    (the step wall p50), and 2 op-by-op steps split by op type
+    (batch_norm's device ms and share). The first loss (one forward, no
+    grad yet) equals the explicit grad run's bit for bit and the second
+    (one update through every batch_norm grad) is within the
+    fused-vs-unfused bar; later ones are logged only: at these rates the
+    runs part by more than rounding within two updates (ResNet-50's third
+    loss by 3e-3 relative for a 1e-6 difference in the second). Returns
+    the reading."""
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    with _generic_bn_grad():
+        outs, walls, _, _, step, scope = _fluid_run(
+            torch, model, feeds[:2 + BN_AB_STEPS], "training_fused", [model["loss"]])
+        del step, scope
+        torch.cuda.empty_cache()
+        _, _, _, _, estep, escope = _fluid_run(
+            torch, model, feeds[:1], "training_fused", [model["loss"]], per_op=True)
+        split = prof.op_device_split(estep, feeds[:2], registry, split_by=split_by)
+        del estep, escope
+        torch.cuda.empty_cache()
+    losses = [float(o[0]) for o in outs]
+    if losses[0] != explicit_losses[0] or not np.isclose(
+            explicit_losses[1], losses[1], rtol=FUSED_RTOL, atol=FUSED_ATOL):
+        raise AssertionError("%s: explicit batch_norm_grad losses %s against the generic grad's "
+                             "%s (the first bit for bit, the second within rtol %g atol %g)"
+                             % (label, explicit_losses[:2], losses[:2], FUSED_RTOL, FUSED_ATOL))
+    ms, share = _bn_share(split, cats)
+    return {"step_p50_ms": float(np.median(walls[2:])), "losses": losses[:COMPARE_STEPS],
+            "op_by_op_device_ms": split["device_ms_per_step"], "batch_norm_ms": ms,
+            "batch_norm_share": share}
+
+
+def _bn_ab_line(label, explicit, generic, card):
+    log("%s batch_norm_grad before / after (the generic vjp grad, then the explicit grad, same "
+        "call, same seed and batches): graph step wall p50 %.3f / %.3f ms; op by op: batch_norm "
+        "forward + grad %.3f / %.3f ms a step = %.4f / %.4f of the device time (%.3f / %.3f ms); "
+        "first %d losses %s / %s; card %s" % (
+            label, generic["step_p50_ms"], explicit["step_p50_ms"], generic["batch_norm_ms"],
+            explicit["batch_norm_ms"], generic["batch_norm_share"], explicit["batch_norm_share"],
+            generic["op_by_op_device_ms"], explicit["op_by_op_device_ms"], COMPARE_STEPS,
+            ["%.6f" % v for v in generic["losses"]], ["%.6f" % v for v in explicit["losses"]],
+            card))
+
+
 def train_resnet50(torch, card, readings):
     """ResNet-50 at its published widths (He et al. 2016, Table 1, 50-layer:
     bottlenecks [3, 4, 6, 3], filters 64-512 (x4), 3 x 224 x 224 inputs,
@@ -3054,10 +3166,14 @@ def train_resnet50(torch, card, readings):
     3 steps op by op from the same weights: the losses and every running
     mean and variance bit for bit (cuDNN restricted to deterministic
     algorithms). Logs images/s, the step wall, the device's busy share and
-    launches, the memory reserved and the busy split by op type."""
+    launches, the memory reserved and the busy split by op type; then the
+    same model with batch_norm's generic grad (_bn_grad_ab): the step wall
+    and batch_norm's device share before and after the explicit
+    batch_norm_grad, from this call."""
     from paddle_tpu_torch.ops import fused, registry
     from paddle_tpu_torch.tools import profile_training as prof
 
+    _explicit_bn_grad()
     t0 = time.perf_counter()
     model = prof.build_resnet50()
     staged = prof.resnet50_feeds(torch.device("cuda", 0))
@@ -3111,6 +3227,14 @@ def train_resnet50(torch, card, readings):
                      "split": split["by_category"],
                      "conv_backward_by_kernel_name": split["conv_backward_by_kernel_name"]}
     readings["train_resnet50"] = {"graph": graph, "op_by_op": eager_reading}
+    bn_cats = ("batch_norm_forward", "batch_norm_backward")
+    bn_ms, bn_share = _bn_share(split, bn_cats)
+    explicit = {"step_p50_ms": graph["step_p50_ms"], "losses": losses[:COMPARE_STEPS],
+                "op_by_op_device_ms": split["device_ms_per_step"], "batch_norm_ms": bn_ms,
+                "batch_norm_share": bn_share}
+    generic = _bn_grad_ab(torch, model, feeds, "resnet50", losses, prof.SPLIT, bn_cats)
+    readings["train_resnet50"]["batch_norm_grad_ab"] = {"generic": generic, "explicit": explicit}
+    _bn_ab_line("train resnet50", explicit, generic, card)
     log("train resnet50, op by op: the top kernels of each category (ms a step) %s; card %s"
         % (json.dumps({c: {k[:70]: round(v, 3) for k, v in ks.items()}
                        for c, ks in split["top_kernels_by_category"].items()}), card))
@@ -3131,6 +3255,223 @@ def train_resnet50(torch, card, readings):
             json.dumps({k: round(v, 3) for k, v in split["by_category"].items()}),
             json.dumps({k: round(v, 3) for k, v in split["conv_backward_by_kernel_name"].items()}),
             card))
+
+
+# the batch_norm shapes of the checks: ResNet-50's largest at batch 256 (the
+# stem's output; the 256-channel maps at 56 x 56 are as large) and
+# SE-ResNeXt-50's at batch 64
+BN_GRAD_SHAPES = {"resnet50": (256, 64, 112, 112), "se_resnext50": (64, 64, 112, 112)}
+
+
+def check_batch_norm_grad(torch, card):
+    """The explicit batch_norm_grad (one native_batch_norm_backward from the
+    saved statistics) against the generic vjp grad on the same inputs, at
+    BN_GRAD_SHAPES in training mode: x, scale and bias grads within
+    BN_GRAD_TOL, repeated bit for bit; both timed (device ms a call, cold
+    L2) beside the byte bound of the explicit call (x and dy read once, dx
+    written once, over the HBM rate)."""
+    from paddle_tpu_torch.ops import registry
+
+    _explicit_bn_grad()
+    device = torch.device("cuda", 0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    for label, shape in BN_GRAD_SHAPES.items():
+        c = shape[1]
+        x = torch.randn(shape, device=device, generator=gen) * 2 + 1
+        ins = {"X": [x], "Scale": [torch.rand(c, device=device, generator=gen) + 0.5],
+               "Bias": [torch.randn(c, device=device, generator=gen)],
+               "Mean": [torch.zeros(c, device=device)], "Variance": [torch.ones(c, device=device)]}
+        attrs = {"is_test": False, "data_layout": "NCHW", "momentum": 0.9, "epsilon": 1e-5}
+        ctx = registry.LowerCtx(device)
+        fwd = registry.get("batch_norm").lower(ctx, ins, attrs)
+        gins = dict(ins, **fwd)
+        gins["Y@GRAD"] = [torch.randn(shape, device=device, generator=gen)]
+        gattrs = dict(attrs, **{registry.FWD_IN_SLOTS_ATTR: list(ins),
+                                registry.FWD_OUT_SLOTS_ATTR: list(fwd)})
+        explicit_fn = registry.get("batch_norm_grad").lower
+        generic_fn = registry._make_generic_grad(registry.get("batch_norm"))
+        got = explicit_fn(ctx, gins, gattrs)
+        again = explicit_fn(ctx, gins, gattrs)
+        want = generic_fn(ctx, gins, gattrs)
+        torch.cuda.synchronize()
+        errs = {}
+        for slot in ("X@GRAD", "Scale@GRAD", "Bias@GRAD"):
+            g, w = got[slot][0], want[slot][0]
+            if not torch.equal(g, again[slot][0]):
+                raise AssertionError("batch_norm_grad %s %s: a repeat differs" % (label, slot))
+            scale = float(w.abs().max())
+            rel = float((g - w).abs().max()) / scale
+            if not torch.allclose(g, w, rtol=BN_GRAD_TOL[0], atol=BN_GRAD_TOL[1] * scale):
+                raise AssertionError("batch_norm_grad %s %s: %g of the largest |grad| from the "
+                                     "generic grad (rtol %g, atol %g of it)"
+                                     % (label, slot, rel, *BN_GRAD_TOL))
+            errs[slot] = rel
+        del got, again, want
+        ms = time_ms(torch, lambda: explicit_fn(ctx, gins, gattrs), 5, flush, gated=True)
+        generic_ms = time_ms(torch, lambda: generic_fn(ctx, gins, gattrs), 5, flush, gated=True)
+        bound_ms = 3 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        out[label] = {"shape": list(shape), "ms": ms, "generic_ms": generic_ms,
+                      "bound_ms": bound_ms, "err_over_max": errs}
+        del x, ins, fwd, gins, ctx
+        torch.cuda.empty_cache()
+    log("batch_norm_grad: the explicit grad against the generic vjp grad (training mode), "
+        "rtol %g with atol %g of the largest |grad|, repeated bit for bit: %s; ms a call (cold "
+        "L2) explicit / generic / byte bound: %s; card %s" % (
+            BN_GRAD_TOL[0], BN_GRAD_TOL[1],
+            json.dumps({k: {s: "%.3g" % e for s, e in v["err_over_max"].items()}
+                        for k, v in out.items()}),
+            json.dumps({k: "%s: %.4f / %.4f / %.4f" % (v["shape"], v["ms"], v["generic_ms"],
+                                                      v["bound_ms"]) for k, v in out.items()}),
+            card))
+    return out
+
+
+ZOO_STEPS = 6  # replayed graph steps of each zoo model (graph steps 3-8)
+# GEMM epilogue launches a zoo step: the fcs the block rule takes (VGG-19's
+# and AlexNet's fc6 / fc7, GoogLeNet's two auxiliary 1152 -> 1024 fcs,
+# SE-ResNeXt's 16 squeeze and 16 excitation fcs); every n = 1000 head
+# declines, as in the JAX package
+ZOO_GEMM = {"vgg19": 2, "alexnet": 2, "googlenet": 2, "se_resnext50": 32}
+# the (m, k) @ (k, n) products the GEMM epilogue must take in a step
+ZOO_GEMM_SHAPES = {"vgg19": [(64, 25088, 4096), (64, 4096, 4096)],
+                   "alexnet": [(128, 9216, 4096), (128, 4096, 4096)]}
+
+
+def _time_path_gemm(torch, x, w, b, act, flush):
+    """gemm_bias_act's kernel on a path's recorded inputs, timed (device ms
+    a call, cold L2) beside its plain version and torch.addmm (the product
+    and the bias), with its 3xTF32 bound."""
+    from paddle_tpu_torch.ops import gemm_epilogue as ge
+
+    m, k = x.shape
+    n = w.shape[1]
+    b1 = b.reshape(-1)
+    ms = time_ms(torch, lambda: ge.gemm_bias_act(x, w, b, act), 10, flush, gated=True)
+    plain_ms = time_ms(torch, lambda: ge.gemm_bias_act_plain(x, w, b, act), 10, flush,
+                       gated=True)
+    lib_ms = time_ms(torch, lambda: torch.addmm(b1, x, w), 10, flush, gated=True)
+    nbytes, flops = (m * k + k * n + n + (2 if act else 1) * m * n) * 4, 2 * m * n * k
+    bound_ms, bound_by = _tf32x3_bound(nbytes, flops)
+    return {"act": act, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def train_zoo(torch, card, readings):
+    """The rest of the CNN zoo at published ImageNet widths
+    (tools/profile_zoo.py: VGG-19 batch 64, AlexNet batch 128, GoogLeNet
+    batch 128 with its auxiliary heads, SE-ResNeXt-50 32x4d batch 64; f32,
+    Momentum, synthetic batches staged on the card), each under
+    training_fused: the warmup, the capture and ZOO_STEPS graph steps,
+    every loss finite, the same counters every step with ZOO_GEMM GEMM
+    epilogue launches; images/s and the step wall p50 over graph steps 3-8,
+    the busy share, launches and memory reserved; the first 3 steps op by
+    op from the same seed: the same losses bit for bit with the same
+    counters, the GEMM epilogue held against its plain version on what the
+    first step gave it (VGG-19's (64, 25088) @ (25088, 4096) and AlexNet's
+    (128, 9216) @ (9216, 4096) among them), and 2 steps' device time split
+    by op type. Returns the kernels' launches on the graph path and their
+    worst errors."""
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.tools import profile_training as prof
+    from paddle_tpu_torch.tools import profile_zoo as zoo
+
+    _explicit_bn_grad()
+    device = torch.device("cuda", 0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    launches, errs = {}, {}
+    for name, cfg in zoo.ZOO.items():
+        t0 = time.perf_counter()
+        model = zoo.build(name)
+        staged = zoo.feeds(name, device)
+        feeds = [staged[i % len(staged)] for i in range(2 + ZOO_STEPS)]
+        batch = cfg["batch"]
+        torch.cuda.reset_peak_memory_stats()
+        fused.reset_stats()  # the main path's counting window opens here
+        outs, walls, deltas, _, step, scope = _fluid_run(
+            torch, model, feeds, "training_fused", [model["loss"]])
+        counts = {k: v for k, v in fused.stats()["launches"].items() if v}  # and closes here
+        reserved = torch.cuda.max_memory_reserved() / GIB
+        _uniform_counts(name, deltas, {("launches", "gemm_epilogue"): ZOO_GEMM[name],
+                                       ("dispatches", "gemm_epilogue"): ZOO_GEMM[name]})
+        losses = [float(o[0]) for o in outs]
+        F32_FIRST[name] = losses[:COMPARE_STEPS]
+        window = walls[2:2 + ZOO_STEPS]
+        graph = {"batch": batch, "step_p50_ms": float(np.median(window)),
+                 "images_per_s": batch * len(window) / (sum(window) / 1e3),
+                 "memory_max_reserved_gib": reserved}
+        breakdown = prof.profile_steps(step, feeds[2:4], registry)
+        graph.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                     device_busy_share=breakdown["device_busy_share"],
+                     device_launches=breakdown["device_launches_per_step"],
+                     profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+        del step, scope
+        torch.cuda.empty_cache()
+        rec = _PathInputs(ZOO_GEMM[name], n_adam=0)
+        with rec:
+            eager, e_walls, e_deltas, _, estep, escope = _fluid_run(
+                torch, model, feeds[:COMPARE_STEPS], "training_fused", [model["loss"]],
+                per_op=True)
+        _same_bits("%s loss, graph against op by op, step" % name, [o[0] for o in eager],
+                   [o[0] for o in outs[:COMPARE_STEPS]])
+        if e_deltas != deltas[:COMPARE_STEPS]:
+            raise AssertionError("%s: counters a step %s on the graph path, %s op by op"
+                                 % (name, deltas[:COMPARE_STEPS], e_deltas))
+        split = prof.op_device_split(estep, feeds[:2], registry, split_by=zoo.SPLIT)
+        del estep, escope
+        torch.cuda.empty_cache()
+        shapes = [(int(x.shape[0]), int(x.shape[1]), int(w.shape[1])) for x, w, _, _ in rec.gemm]
+        missing = [sh for sh in ZOO_GEMM_SHAPES.get(name, []) if sh not in shapes]
+        if missing:
+            raise AssertionError("%s: the GEMM epilogue never took %s (it took %s)"
+                                 % (name, missing, shapes))
+        timed = {}
+        for x, w, b, act in rec.gemm:
+            sh = (int(x.shape[0]), int(x.shape[1]), int(w.shape[1]))
+            if sh in ZOO_GEMM_SHAPES.get(name, []) and sh not in timed:
+                timed[sh] = _time_path_gemm(torch, x, w, b, act, flush)
+        e, held = rec.hold(torch, name)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        errs["gemm_epilogue"] = max(errs.get("gemm_epilogue", 0.0), e["gemm_epilogue"])
+        eager_reading = {"step_p50_ms": float(np.median(e_walls[1:])),
+                         "device_ms_by_op_type": split["device_ms_per_step"],
+                         "split": split["by_category"],
+                         "top_ops": dict(list(split["by_op"].items())[:8])}
+        readings["train_" + name] = {"graph": graph, "op_by_op": eager_reading}
+        for sh, t in timed.items():
+            log("train zoo %s: gemm_epilogue at the path's (%d, %d) @ (%d, %d) act %s: kernel "
+                "%.4f ms (device, cold L2), plain %.4f ms, torch.addmm %.4f ms (product + bias, "
+                "no act), kernel / addmm %.3f, bound %.4f ms (%s, 3xTF32 on the tensor cores), "
+                "%d launches a step; card %s" % (
+                    name, sh[0], sh[1], sh[1], sh[2], t["act"], t["ms"], t["plain_ms"],
+                    t["library_ms"], t["ms"] / t["library_ms"], t["bound_ms"], t["bound_by"],
+                    ZOO_GEMM[name], card))
+        readings["train_" + name]["gemm_epilogue"] = {"%dx%dx%d" % sh: t
+                                                      for sh, t in timed.items()}
+        log("train zoo %s: %s, images 3 x 224 x 224, 1000 classes, Momentum(%g, %g), f32, batch "
+            "%d, %d ops, training_fused, built and run in %.1f s; losses (warmup, capture, %d "
+            "graph steps) %s; the same counters every step %s; the first %d losses bit for bit "
+            "op by op with the same counters; GEMM epilogue at the path's inputs: %s; graph: "
+            "step wall p50 %.3f ms, %.1f images/s over graph steps 3-%d, device busy %s ms a "
+            "step = %s of the profiled wall p50 (%.3f ms), %s launches a step, max memory "
+            "reserved %.3f GiB; op by op: step wall p50 %.3f ms, device %.3f ms a step, split "
+            "%s, top ops %s; card %s" % (
+                name, cfg["source"], cfg["lr"], cfg["momentum"], batch,
+                len(model["main"].global_block().ops), time.perf_counter() - t0, ZOO_STEPS,
+                ["%.6f" % v for v in losses], json.dumps({"%s:%s" % k: v for k, v in
+                                                          deltas[0].items()}),
+                COMPARE_STEPS, held, graph["step_p50_ms"], graph["images_per_s"],
+                2 + ZOO_STEPS, graph["device_busy_ms"], graph["device_busy_share"],
+                graph["profiled_wall_p50_ms"], graph["device_launches"], reserved,
+                eager_reading["step_p50_ms"], split["device_ms_per_step"],
+                json.dumps({k: round(v, 3) for k, v in split["by_category"].items()}),
+                json.dumps({k: round(v, 3) for k, v in eager_reading["top_ops"].items()}),
+                card))
+        del model, staged, feeds, outs, rec
+        torch.cuda.empty_cache()
+    return launches, errs
 
 
 def _uniform_counts(label, deltas, want):
@@ -3739,10 +4080,36 @@ def _bf16_line(label, r, rate, unit, f32, card):
             f32.get("memory"), float(np.median(r["e_walls"][1:])), card))
 
 
+def _bf16_vgg19(torch, card, readings):
+    """VGG-19 as the JAX bench runs it (bench.py:229-260: Bf16Transpiler
+    after the startup program), 3 steps on the f32 zoo phase's batches,
+    held against its first losses. Returns _bf16_run's result."""
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+    from paddle_tpu_torch.tools import profile_zoo as zoo
+
+    model = zoo.build("vgg19")
+    recsys.bf16_transpiled(model["main"])
+    staged = zoo.feeds("vgg19", torch.device("cuda", 0))
+    feeds = [staged[i % len(staged)] for i in range(COMPARE_STEPS)]
+    r = _bf16_run(torch, "vgg19", model, feeds, COMPARE_STEPS, F32_FIRST["vgg19"], BF16_RTOL,
+                  card)
+    batch = zoo.ZOO["vgg19"]["batch"]
+    rate = batch * (len(r["walls"]) - 2) / (sum(r["walls"][2:]) / 1e3)
+    f32 = readings["train_vgg19"]["graph"]
+    readings["train_bf16_vgg19"] = {"graph": {
+        "step_p50_ms": float(np.median(r["walls"][2:])), "images_per_s": rate,
+        "memory_max_reserved_gib": r["reserved"]}}
+    _bf16_line("vgg19", r, rate, "images/s",
+               {"rate": "%.1f images/s" % f32["images_per_s"],
+                "memory": "%.3f" % f32["memory_max_reserved_gib"]}, card)
+    return r
+
+
 def train_bf16(torch, card, readings):
     """The JAX bench's own precision: ResNet-50 at batch 256 under
-    Momentum(0.1, 0.9), the stacked LSTM at bench.py:265-297 (Adam 2e-3)
-    and Transformer base, each built as its f32 phase built it, rewritten by
+    Momentum(0.1, 0.9), VGG-19 at batch 64 under Momentum(0.01, 0.9) (3
+    steps, bench.py:229-260), the stacked LSTM at bench.py:265-297 (Adam
+    2e-3) and Transformer base, each built as its f32 phase built it, rewritten by
     Bf16Transpiler after its startup program (f32 masters, bf16 activations
     and gradients) and trained on CUDA graphs from the same seed and
     batches; then 3 Transformer steps with FLAGS_fp8_matmul (fp8_matmul's
@@ -3783,6 +4150,9 @@ def train_bf16(torch, card, readings):
                 "memory": "%.3f" % f32["memory_max_reserved_gib"]}, card)
     add(r)
     del model, staged, feeds, r
+    torch.cuda.empty_cache()
+
+    add(_bf16_vgg19(torch, card, readings))
     torch.cuda.empty_cache()
 
     # the stacked LSTM
@@ -3930,12 +4300,15 @@ def train_ssd(torch, card, readings):
     COMPARE_STEPS steps op by op from the same seed: the same losses bit
     for bit and the same counters a step. Logs the step wall, images/s,
     the device's busy share, the memory reserved and the device time of
-    ssd_loss (its grad included) against the convolutions'. Returns the
+    ssd_loss (its grad included) against the convolutions'; then the step
+    wall and batch_norm's device share with the generic grad against the
+    explicit batch_norm_grad, from this call (_bn_grad_ab). Returns the
     trained scope's state for eval_ssd."""
     from paddle_tpu_torch import Executor
     from paddle_tpu_torch.ops import fused, registry
     from paddle_tpu_torch.tools import profile_training as prof
 
+    _explicit_bn_grad()
     det, model = _ssd_model()
     cfg = det.SSD
     feed = _staged(torch, det.synthetic_batch(np.random.RandomState(SEED), cfg))
@@ -3979,17 +4352,22 @@ def train_ssd(torch, card, readings):
                              % (deltas[:COMPARE_STEPS], e_deltas))
     ops = {o.type for o in model["main"].global_block().ops}
     conv = sorted(t for t in ops if "conv2d" in t)
-    split = prof.op_device_split(estep, feeds[:1], registry,
-                                 split_by=(("ssd_loss", ("ssd_loss", "ssd_loss_grad")),
-                                           ("convolutions", tuple(conv)),
-                                           ("batch_norm", ("batch_norm", "batch_norm_grad")),
-                                           ("rmsprop", ("rmsprop",))))
+    ssd_split = (("ssd_loss", ("ssd_loss", "ssd_loss_grad")), ("convolutions", tuple(conv)),
+                 ("batch_norm", ("batch_norm", "batch_norm_grad")), ("rmsprop", ("rmsprop",)))
+    split = prof.op_device_split(estep, feeds[:1], registry, split_by=ssd_split)
     del estep, escope
     torch.cuda.empty_cache()
     eager_reading = {"step_p50_ms": float(np.median(e_walls[1:])),
                      "device_ms_by_op_type": split["device_ms_per_step"],
                      "split": split["by_category"]}
     readings["train_ssd"] = {"graph": graph, "op_by_op": eager_reading}
+    bn_ms, bn_share = _bn_share(split, ("batch_norm",))
+    explicit = {"step_p50_ms": graph["step_p50_ms"], "losses": losses[:COMPARE_STEPS],
+                "op_by_op_device_ms": split["device_ms_per_step"], "batch_norm_ms": bn_ms,
+                "batch_norm_share": bn_share}
+    generic = _bn_grad_ab(torch, model, feeds, "ssd", losses, ssd_split, ("batch_norm",))
+    readings["train_ssd"]["batch_norm_grad_ab"] = {"generic": generic, "explicit": explicit}
+    _bn_ab_line("train ssd", explicit, generic, card)
     sl = split["by_category"]["ssd_loss"]
     cv = split["by_category"]["convolutions"]
     log("train ssd: MobileNet-SSD %s, RMSProp(piecewise_decay) lr %g, L2Decay(%g), f32, %d ops; "
@@ -4344,7 +4722,9 @@ def host_ops(torch, card):
     fires on each of 3 runs (the second captures, the third replays);
     FLAGS_check_nan_inf raises on a NaN feed at a replay, naming the
     variable and its last writer; a save_combine program and a
-    load_combine program round-trip a scope bit for bit."""
+    load_combine program round-trip a scope bit for bit; a program holding
+    the eight reader markers (read, the create_*_reader ops, open_files)
+    runs on the graph path and fetches what it computes."""
     import io as _io
     import tempfile
 
@@ -4415,11 +4795,34 @@ def host_ops(torch, card):
     for n, v in params.items():
         if s2.vars[n].dtype != v.dtype or not torch.equal(s2.vars[n], v):
             raise AssertionError("save_combine / load_combine: %s differs" % n)
+
+    # the reader ops are markers: a program holding all eight runs on the
+    # graph path and fetches what it computes (4 x 4 x 1.0 = 16)
+    markers = ("read", "create_custom_reader", "create_recordio_file_reader",
+               "create_shuffle_reader", "create_batch_reader", "create_double_buffer_reader",
+               "create_py_reader", "open_files")
+    prog, start = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, start):
+        total = fluid.layers.reduce_sum(fluid.layers.fill_constant(shape=[4, 4], dtype="float32",
+                                                                   value=1.0))
+        blk = prog.global_block()
+        for i, t in enumerate(markers):
+            blk.create_var(name="reader_%d" % i, shape=[1], dtype="float32")
+            blk.create_var(name="batch_%d" % i, shape=[4, 4], dtype="float32")
+            blk.append_op(type=t, inputs={"Reader": ["reader_%d" % i]},
+                          outputs={"Out": ["batch_%d" % i]}, attrs={})
+    fused.reset_stats()
+    with scope_guard(Scope(seed=SEED, place=place)):
+        read = [float(exe.run(prog, fetch_list=[total])[0].reshape(-1)[0]) for _ in range(3)]
+    rstats = Executor.stats()["graphs"]
+    if read != [16.0] * 3 or rstats != {"captures": 1, "replays": 2}:
+        raise AssertionError("reader markers: fetched %s, graphs %s" % (read, rstats))
     log("host ops: print fired on each of 3 graph-path runs (%s), graphs %s; check_nan_inf on a "
         "NaN feed at a replay raised: %s; save_combine / load_combine round-tripped %d vars "
-        "(f32, int32, bf16) bit for bit; card %s" % (
+        "(f32, int32, bf16) bit for bit; a program holding the %d reader markers fetched %s over "
+        "3 graph-path runs (graphs %s); card %s" % (
             json.dumps(lines[-1]), json.dumps(stats["graphs"]), json.dumps(msg), len(params),
-            card))
+            len(markers), read, json.dumps(rstats), card))
 
 
 def main():
@@ -4514,6 +4917,16 @@ def main():
             launches[name] += n
     with Phase("train resnet50"):
         train_resnet50(torch, card, paths)
+    torch.cuda.empty_cache()
+    with Phase("batch_norm grad"):
+        check_batch_norm_grad(torch, card)
+    torch.cuda.empty_cache()
+    with Phase("train zoo"):
+        counts, errs = train_zoo(torch, card, paths)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        for name, err in errs.items():
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     for label, phase in (("train lstm", train_lstm), ("train nmt", train_nmt)):
         torch.cuda.empty_cache()
         with Phase(label):

@@ -36,7 +36,8 @@ and, on the card, captures it as a CUDA graph:
   `_SegmentedBlock`). A block holding one anywhere else (inside a
   sub-block, or served) runs op by op, under the reason "host_op".
 - FLAGS_check_nan_inf scans the fetches and the persistables a run wrote
-  once it has run (after the replay on the graph path).
+  once it has run (after the replay on the graph path). FLAGS_benchmark
+  synchronizes the device before a run returns.
 
 State model: a Scope holds name -> torch.Tensor on one device. Persistable
 vars the block reads are state; those it also writes (parameters written by
@@ -988,6 +989,11 @@ class Executor:
                     self._cache[key] = compiled
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed)
+        if _flags.get_flags("benchmark")["benchmark"] and self.device.type == "cuda":
+            # FLAGS_benchmark (the reference's operator.cc:769): the run's
+            # device work is done when run returns, so a host clock around
+            # it brackets the step
+            torch.cuda.synchronize(self.device)
         self._run_seq += 1
         if _flags.get_flags("check_nan_inf")["check_nan_inf"]:
             _check_nan_inf(compiled, scope, fetch_names, fetches, self._run_seq)

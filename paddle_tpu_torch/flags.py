@@ -1,5 +1,5 @@
 """Runtime flags (reference gflags tier: FLAGS_* environment variables plus
-set_flags), the subset the serving and training slices read.
+set_flags): the JAX package's 42 names, with its defaults and coercion.
 
 - paged_flash: dispatch tier of the paged_attention op. "auto" (default)
   launches the hand-written CUDA kernel (ops/paged_flash.py) for tensors on
@@ -37,6 +37,23 @@ set_flags), the subset the serving and training slices read.
   The port has no compile cache; a GenerationEngine raises when one is set.
 - trace_dir / trace_sample / trace_slow_ms / trace_ring / flightrec_dir: the
   request tracer (observability/tracing.py), as in the JAX package.
+- benchmark: Executor.run synchronizes the run's device before it returns
+  the fetches, so a host clock around a run brackets the step's device
+  work (the reference's FLAGS_benchmark, operator.cc:769).
+- gemm_double_buffer: the JAX package's choice of GEMM tier ("auto" / "on" /
+  "off": its double-buffered k loop or the grid-pipelined one). The port
+  has one GEMM epilogue kernel (ops/gemm_epilogue.py), which runs whatever
+  the value; the value is validated and recorded.
+- cpu_deterministic, eager_delete_tensor_gb, fraction_of_gpu_memory_to_use,
+  paddle_num_threads: accepted and recorded for API compatibility, as the
+  reference documents them; storage lifetime and threading are PyTorch's
+  (the caching allocator, torch's own thread pool).
+- The flags of modules the port has not ported yet (PENDING: the RPC,
+  resilience, elastic, data, telemetry, flight-recorder and op-profiling
+  flags, the static verifier and the pass manager's debug dump) are known
+  names: setting one to its default succeeds, and any other value raises
+  NotImplementedError naming the module it waits for, so no script is told
+  that a guard is on when it is not.
 """
 
 import os
@@ -56,20 +73,93 @@ _DEFAULTS = {
     "trace_slow_ms": 500.0,
     "trace_ring": 4096,
     "flightrec_dir": "",
+    "benchmark": False,
+    "gemm_double_buffer": "auto",
+    "cpu_deterministic": False,
+    "eager_delete_tensor_gb": -1.0,
+    "fraction_of_gpu_memory_to_use": 0.92,
+    "paddle_num_threads": 1,
+    # the pending flags (PENDING), at the JAX package's defaults
+    "rpc_max_retry": 3,
+    "rpc_deadline": 120.0,
+    "rpc_op_deadline": 30.0,
+    "resilience_nan_guard": False,
+    "resilience_lr_decay": 0.5,
+    "dist_init_max_retry": 3,
+    "telemetry_dir": "",
+    "telemetry_interval_steps": 50,
+    "telemetry_log_every": 0,
+    "tensor_stats": "",
+    "nan_provenance": False,
+    "flightrec_max_bundles": 16,
+    "flightrec_min_interval_s": 2.0,
+    "data_num_workers": 0,
+    "data_ring_slots": 0,
+    "data_prefetch": 2,
+    "data_start_method": "fork",
+    "data_max_worker_restarts": 4,
+    "elastic_step_deadline_s": 0.0,
+    "elastic_nan_budget": 3,
+    "elastic_rollback_budget": 2,
+    "elastic_barrier_timeout_s": 120.0,
+    "pass_debug_dir": "",
+    "static_verify": False,
 }
 
-_CHOICES = {"paged_flash": ("auto", "off"), "quantized_gemm": ("auto", "off")}
+_CHOICES = {"paged_flash": ("auto", "off"), "quantized_gemm": ("auto", "off"),
+            "gemm_double_buffer": ("auto", "on", "off")}
+
+# flag -> the module of the JAX package that reads it and the port has not
+# ported yet, with its ROADMAP queue
+_RPC = "the RPC client (distributed/rpc.py, ROADMAP A7)"
+_RESILIENCE = "resilience/ (ROADMAP A7)"
+_ELASTIC = "resilience/elastic.py (ROADMAP A7)"
+_DATA = "the native data runtime data/ (ROADMAP A7)"
+_TELEMETRY = "observability/export.py and stepstats.py (ROADMAP A7)"
+_OPPROF = "observability/opprof.py (ROADMAP A7)"
+_FLIGHTREC = "observability/flightrec.py (ROADMAP A7)"
+PENDING = {
+    "rpc_max_retry": _RPC,
+    "rpc_deadline": _RPC,
+    "rpc_op_deadline": _RPC,
+    "resilience_nan_guard": _RESILIENCE,
+    "resilience_lr_decay": _RESILIENCE,
+    "dist_init_max_retry": "parallel/multihost.py (ROADMAP A6)",
+    "telemetry_dir": _TELEMETRY,
+    "telemetry_interval_steps": _TELEMETRY,
+    "telemetry_log_every": _TELEMETRY,
+    "tensor_stats": _OPPROF,
+    "nan_provenance": _OPPROF,
+    "flightrec_max_bundles": _FLIGHTREC,
+    "flightrec_min_interval_s": _FLIGHTREC,
+    "data_num_workers": _DATA,
+    "data_ring_slots": _DATA,
+    "data_prefetch": _DATA,
+    "data_start_method": _DATA,
+    "data_max_worker_restarts": _DATA,
+    "elastic_step_deadline_s": _ELASTIC,
+    "elastic_nan_budget": _ELASTIC,
+    "elastic_rollback_budget": _ELASTIC,
+    "elastic_barrier_timeout_s": _ELASTIC,
+    "pass_debug_dir": "the pass manager's debug dump (passes/manager.py, ROADMAP A3)",
+    "static_verify": "the static verifier (analysis/verify.py, ROADMAP A3)",
+}
 
 _flags = {}
 
 
 def _coerce(name, raw):
     if isinstance(_DEFAULTS[name], bool):
-        return str(raw).lower() in ("1", "true", "yes", "on")
-    value = type(_DEFAULTS[name])(raw)
+        value = str(raw).lower() in ("1", "true", "yes", "on")
+    else:
+        value = type(_DEFAULTS[name])(raw)
     choices = _CHOICES.get(name)
     if choices is not None and value not in choices:
         raise ValueError("FLAGS_%s must be one of %s, got %r" % (name, choices, raw))
+    if name in PENDING and value != _DEFAULTS[name]:
+        raise NotImplementedError(
+            "FLAGS_%s=%r: the port has not ported %s yet; only the default %r is accepted"
+            % (name, raw, PENDING[name], _DEFAULTS[name]))
     return value
 
 
@@ -89,6 +179,11 @@ def _init():
                 "ignoring malformed FLAGS_%s=%r (expected %s)"
                 % (name, env, type(default).__name__)
             )
+            _flags[name] = default
+        except NotImplementedError as e:
+            # nor a flag whose module is still to come: warned, left at its
+            # default
+            warnings.warn("ignoring %s" % e)
             _flags[name] = default
 
 

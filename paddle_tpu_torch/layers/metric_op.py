@@ -1,10 +1,10 @@
 """In-graph metric layers (reference python/paddle/fluid/layers/metric_op.py:
-accuracy, auc). positive_negative_pair comes with its op."""
+accuracy, auc, and the JAX package's positive_negative_pair)."""
 
 from ..layer_helper import LayerHelper
 from ..initializer import Constant
 
-__all__ = ["accuracy", "auc"]
+__all__ = ["accuracy", "auc", "positive_negative_pair"]
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -71,3 +71,34 @@ def auc(input, label, curve="ROC", num_thresholds=4095, topk=1, slide_steps=1):
     )
     auc_out.stop_gradient = True
     return auc_out, [batch_out, stat_pos, stat_neg]
+
+
+def positive_negative_pair(score, label, query_id, weight=None, column=-1):
+    """Pairwise ranking counts over within-query item pairs (the LETOR /
+    mq2007 evaluation): (positive, negative, neutral) pair counts as
+    float32 [1] tensors; the more positive pairs against negative ones,
+    the more the scorer orders items like the relevance labels."""
+    helper = LayerHelper("positive_negative_pair")
+    pos = helper.create_variable_for_type_inference(dtype="float32")
+    neg = helper.create_variable_for_type_inference(dtype="float32")
+    neu = helper.create_variable_for_type_inference(dtype="float32")
+    inputs = {
+        "Score": [score.name],
+        "Label": [label.name],
+        "QueryID": [query_id.name],
+    }
+    if weight is not None:
+        inputs["Weight"] = [weight.name]
+    helper.append_op(
+        type="positive_negative_pair",
+        inputs=inputs,
+        outputs={
+            "PositivePair": [pos.name],
+            "NegativePair": [neg.name],
+            "NeutralPair": [neu.name],
+        },
+        attrs={"column": column},
+    )
+    for v in (pos, neg, neu):
+        v.stop_gradient = True
+    return pos, neg, neu

@@ -1,11 +1,13 @@
-"""Neural-network layers: the subset of paddle_tpu/layers/nn.py that the
-GPTDecoder programs, the Transformer training program and the CNNs of
-models/ and nets.py use (reference python/paddle/fluid/layers/nn.py). Each
-layer appends the same ops with the same attrs as the JAX package's, so a
-model builder yields the same Program in both packages."""
+"""Neural-network layers: paddle_tpu/layers/nn.py's (reference
+python/paddle/fluid/layers/nn.py) but `ring_attention`, which comes with
+the mesh. Each layer appends the same ops with the same attrs as the JAX
+package's, so a model builder yields the same Program in both packages.
+`conv2d_transpose` builds its op, which has no lowering in the port yet
+(Executor.run raises "ops without lowering")."""
 
 import numpy as np
 
+from ..framework import Variable
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -62,6 +64,23 @@ __all__ = [
     "autoincreased_step_counter",
     "beam_search",
     "beam_search_decode",
+    "conv2d_transpose",
+    "smooth_l1",
+    "log_loss",
+    "split",
+    "lrn",
+    "pad",
+    "pad2d",
+    "label_smooth",
+    "stack",
+    "unstack",
+    "scatter",
+    "slice",
+    "prelu",
+    "l2_normalize",
+    "image_resize",
+    "resize_bilinear",
+    "resize_nearest",
 ]
 
 
@@ -1036,3 +1055,294 @@ def beam_search_decode(ids, scores, beam_size, end_id, name=None, parents=None):
     hyp_len.stop_gradient = True
     sentence_ids._hyp_len = hyp_len
     return sentence_ids, sentence_scores
+
+
+def conv2d_transpose(
+    input,
+    num_filters,
+    output_size=None,
+    filter_size=None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups=None,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+):
+    """Transposed 2-D convolution, NCHW, filter [C_in, num_filters /
+    groups, kh, kw]. The port has no lowering for its op yet; the output's
+    shape is set here, where the JAX package infers it from the lowering,
+    so the bias takes its width."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("filter_size or output_size required")
+        output_size = _pair(output_size)
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1) // dilation[0]
+            + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1) // dilation[1]
+            + 1,
+        ]
+    else:
+        filter_size = _pair(filter_size)
+    filter_shape = [num_channels, num_filters // groups] + filter_size
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+        },
+    )
+    if pre_bias.shape is None:
+        spatial = [
+            (d - 1) * s - 2 * p + dl * (k - 1) + 1 if d != -1 else -1
+            for d, s, p, dl, k in zip(input.shape[2:], stride, padding, dilation, filter_size)
+        ]
+        pre_bias.shape = (input.shape[0], num_filters, *spatial)
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x.name], "Y": [y.name]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight.name]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight.name]
+    helper.append_op(
+        type="smooth_l1_loss",
+        inputs=inputs,
+        outputs={"Diff": [diff.name], "Out": [loss.name]},
+        attrs={"sigma": sigma if sigma is not None else 1.0},
+    )
+    return loss
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="log_loss",
+        inputs={"Predicted": [input.name], "Labels": [label.name]},
+        outputs={"Loss": [loss.name]},
+        attrs={"epsilon": epsilon},
+    )
+    return loss
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+    else:
+        num = 0
+        sections = [int(s) for s in num_or_sections]
+    outs = [
+        helper.create_variable_for_type_inference(input.dtype)
+        for _ in range(num or len(sections))
+    ]
+    helper.append_op(
+        type="split",
+        inputs={"X": [input.name]},
+        outputs={"Out": [o.name for o in outs]},
+        attrs={"num": num, "sections": sections, "axis": dim},
+    )
+    return outs
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    helper.append_op(
+        type="lrn",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name], "MidOut": [mid.name]},
+        attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="pad",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name]},
+        attrs={"paddings": list(paddings), "pad_value": float(pad_value)},
+    )
+    return out
+
+
+def pad2d(
+    input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0, data_format="NCHW", name=None
+):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pad2d",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={
+            "paddings": list(paddings),
+            "mode": mode,
+            "pad_value": float(pad_value),
+            "data_format": data_format,
+        },
+    )
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label.name]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist.name]
+    helper.append_op(
+        type="label_smooth",
+        inputs=inputs,
+        outputs={"Out": [out.name]},
+        attrs={"epsilon": float(epsilon)},
+    )
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    if isinstance(x, Variable):
+        x = [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(
+        type="stack",
+        inputs={"X": [v.name for v in x]},
+        outputs={"Y": [out.name]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype) for _ in range(num)]
+    helper.append_op(
+        type="unstack",
+        inputs={"X": [x.name]},
+        outputs={"Y": [o.name for o in outs]},
+        attrs={"axis": axis, "num": num},
+    )
+    return outs
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input.name], "Ids": [index.name], "Updates": [updates.name]},
+        outputs={"Out": [out.name]},
+        attrs={"overwrite": overwrite},
+    )
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="slice",
+        inputs={"Input": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"axes": list(axes), "starts": list(starts), "ends": list(ends)},
+    )
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", name=name)
+    alpha_shape = [1]
+    if mode == "channel":
+        alpha_shape = [x.shape[1]]
+    elif mode == "element":
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=alpha_shape,
+        dtype=x.dtype,
+        default_initializer=Constant(0.25),
+    )
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="prelu",
+        inputs={"X": [x.name], "Alpha": [alpha.name]},
+        outputs={"Out": [out.name]},
+        attrs={"mode": mode},
+    )
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="norm",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name], "Norm": [norm.name]},
+        attrs={"axis": 1 if axis is None else axis, "epsilon": epsilon},
+    )
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None, resample="BILINEAR", actual_shape=None, align_corners=True, align_mode=1):
+    """Resize NCHW maps to out_shape (or scale times the input's). The op
+    computes jax.image.resize's half-pixel contract whatever align_corners
+    says (ops/core_ops.py _interp); the attr is recorded."""
+    helper = LayerHelper("image_resize", name=name)
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="bilinear_interp" if resample == "BILINEAR" else "nearest_interp",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={
+            "out_h": int(out_shape[0]),
+            "out_w": int(out_shape[1]),
+            "align_corners": align_corners,
+        },
+    )
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None, actual_shape=None, align_corners=True, align_mode=1):
+    return image_resize(input, out_shape, scale, name, "BILINEAR", actual_shape, align_corners, align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None, actual_shape=None, align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST", actual_shape, align_corners)

@@ -1,7 +1,6 @@
 """Composite network helpers (reference python/paddle/fluid/nets.py):
-simple_img_conv_pool, img_conv_group, sequence_conv_pool and
-scaled_dot_product_attention, as in the JAX package; glu comes with
-split."""
+simple_img_conv_pool, img_conv_group, sequence_conv_pool, glu and
+scaled_dot_product_attention, as in the JAX package."""
 
 from . import layers
 
@@ -10,6 +9,7 @@ __all__ = [
     "scaled_dot_product_attention",
     "img_conv_group",
     "sequence_conv_pool",
+    "glu",
 ]
 
 
@@ -106,6 +106,11 @@ def sequence_conv_pool(
         act=act,
     )
     return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1, dropout_rate=0.0):

@@ -17,10 +17,10 @@ graph-against-op-by-op bit identity assume it.
 Gradients: most ops use the registry's generic torch.func.vjp grad. Custom
 grads exist where the JAX package has them: dropout reuses its sampled Mask,
 softmax_with_cross_entropy differentiates from the saved Softmax, and
-lookup_table scatters its cotangent rows in f32 (or, with is_sparse, emits
-a SelectedRows pair: ops/sparse_ops.py). conv2d has an explicit grad
-(dgrad and wgrad without replaying the forward), which XLA's CSE gives the
-JAX package for free.
+lookup_table and embedding scatter their cotangent rows in f32 (or, with
+is_sparse, emit a SelectedRows pair: ops/sparse_ops.py). conv2d and
+batch_norm have explicit grads (one aten backward call each, without
+replaying the forward), which XLA's CSE gives the JAX package for free.
 
 Dtype policy: float64 -> float32 and int64 -> int32 are canonicalized at the
 framework boundary, as in the JAX package, so the same Program declares the
@@ -998,6 +998,52 @@ def _batch_norm(ctx, ins, attrs):
     }
 
 
+def _batch_norm_grad(ctx, ins, attrs):
+    """Explicit grad of batch_norm: one native_batch_norm_backward from the
+    saved batch statistics (SavedMean, and SavedVariance, which is already
+    the inverse std), without running the forward again (the generic grad
+    replays it under torch.func.vjp), and only the grads the grad op writes
+    (the output mask). With is_test or use_global_stats the running Mean
+    and Variance normalized the forward, and the backward takes them
+    (train=False). NHWC (channels last) moves the channel axis to 1 and
+    back. The sums run in f32 over f32 copies of a lower-precision X and
+    Y@GRAD, as the generic grad's do, and X@GRAD takes X's dtype."""
+    (x,) = ins["X"]
+    (scale,) = ins["Scale"]
+    (dy,) = ins["Y@GRAD"]
+    eps = float(attrs.get("epsilon", 1e-5))
+    is_test = bool(attrs.get("is_test", False)) or bool(attrs.get("use_global_stats", False))
+    nhwc = attrs.get("data_layout", "NCHW") != "NCHW" and x.dim() > 2
+    want = [_grad_wanted(ctx, s) for s in ("X@GRAD", "Scale@GRAD", "Bias@GRAD")]
+    xf, dyf = x.float(), dy.float()
+    if nhwc:
+        xf, dyf = xf.movedim(-1, 1), dyf.movedim(-1, 1)
+    if is_test:
+        (mean,) = ins["Mean"]
+        (var,) = ins["Variance"]
+        mean, var = mean.float(), var.float()
+        # the saved statistics too: the card's backward reads them where it
+        # writes no X@GRAD, whatever `train` says
+        running, saved = (mean, var), (mean, 1.0 / torch.sqrt(var + eps))
+    else:
+        running = (None, None)
+        saved = (ins["SavedMean"][0].float(), ins["SavedVariance"][0].float())
+    dx, dscale, dbias = torch.ops.aten.native_batch_norm_backward(
+        dyf, xf, scale.float(), running[0], running[1], saved[0], saved[1], not is_test, eps,
+        want)
+    out = {}
+    if want[0]:
+        out["X@GRAD"] = [(dx.movedim(1, -1) if nhwc else dx).to(x.dtype)]
+    if want[1]:
+        out["Scale@GRAD"] = [dscale.to(scale.dtype)]
+    if want[2]:
+        out["Bias@GRAD"] = [dbias.to(ins["Bias"][0].dtype)]
+    return out
+
+
+register("batch_norm_grad", no_grad=True)(_batch_norm_grad)
+
+
 @register("layer_norm")
 def _layer_norm(ctx, ins, attrs):
     (x,) = ins["X"]
@@ -1427,3 +1473,282 @@ def _chunk_eval(ctx, ins, attrs):
         "NumLabelChunks": [n_lab.to(torch.int32).reshape((1,))],
         "NumCorrectChunks": [n_cor.to(torch.int32).reshape((1,))],
     }
+
+
+# ---------------------------------------------------------------------------
+# the rest of the JAX package's core ops: prelu, the ranking / regression
+# losses, positive_negative_pair, the shape ops (split, stack, unstack,
+# squeeze, unsqueeze, slice, pad, pad2d), scatter, embedding, label_smooth,
+# norm, the interpolations, lod_reset and lrn (reference prelu_op.cc,
+# smooth_l1_loss_op.cc, log_loss_op.cc, hinge_loss_op.cc,
+# positive_negative_pair_op.cc, split_op.cc, stack_op.cc, unstack_op.cc,
+# squeeze_op.cc, unsqueeze_op.cc, slice_op.cc, scatter_op.cc, pad_op.cc,
+# pad2d_op.cc, lookup_table_op.cc, label_smooth_op.cc, norm_op.cc,
+# interpolate_op.cc, lod_reset_op.cc, lrn_op.cc). Each takes the generic
+# grad, as in the JAX package; positive_negative_pair has none.
+# ---------------------------------------------------------------------------
+
+
+@register("prelu")
+def _prelu(ctx, ins, attrs):
+    (x,) = ins["X"]
+    (alpha,) = ins["Alpha"]
+    mode = attrs.get("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "all":
+        alpha = alpha.reshape(())
+    return {"Out": [torch.where(x >= 0, x, x * alpha)]}
+
+
+@register("smooth_l1_loss")
+def _smooth_l1(ctx, ins, attrs):
+    """Out: the per-row sum of the smooth L1 of (x - y) * InsideWeight,
+    times OutsideWeight; Diff: the weighted difference."""
+    (x,) = ins["X"]
+    (y,) = ins["Y"]
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    diff = x - y
+    if "InsideWeight" in ins:
+        diff = diff * ins["InsideWeight"][0]
+    ad = torch.abs(diff)
+    val = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if "OutsideWeight" in ins:
+        val = val * ins["OutsideWeight"][0]
+    out = torch.sum(val.reshape(val.shape[0], -1), dim=1, keepdim=True)
+    return {"Out": [out], "Diff": [diff]}
+
+
+@register("log_loss")
+def _log_loss(ctx, ins, attrs):
+    (p,) = ins["Predicted"]
+    (label,) = ins["Labels"]
+    eps = attrs.get("epsilon", 1e-4)
+    out = -label * torch.log(p + eps) - (1 - label) * torch.log(1 - p + eps)
+    return {"Loss": [out]}
+
+
+@register("hinge_loss")
+def _hinge_loss(ctx, ins, attrs):
+    (logits,) = ins["Logits"]
+    (labels,) = ins["Labels"]
+    return {"Loss": [torch.clamp(1.0 - (2.0 * labels - 1.0) * logits, min=0.0)]}
+
+
+@register("positive_negative_pair", no_grad=True)
+def _positive_negative_pair(ctx, ins, attrs):
+    """Pairwise ranking counts (the LETOR evaluation): over each unordered
+    within-query pair with differing labels, positive when the higher-
+    labeled item scores higher, negative when lower, neutral on a tie; a
+    Weight weighs a pair by the mean of its two weights, and the
+    Accumulate* inputs are added. The JAX lowering's O(N^2) masked form."""
+    (score,) = ins["Score"]
+    (label,) = ins["Label"]
+    (qid,) = ins["QueryID"]
+    col = int(attrs.get("column", -1))
+    s = score.reshape(score.shape[0], -1)[:, col].float()
+    lab = label.reshape(-1).float()
+    q = qid.reshape(-1)
+    n = s.shape[0]
+    order = torch.arange(n, device=s.device)
+    pair = ((q[:, None] == q[None, :]) & (order[:, None] < order[None, :])
+            & (lab[:, None] != lab[None, :])).float()
+    if ins.get("Weight"):
+        w = ins["Weight"][0].reshape(-1).float()
+        pair = pair * 0.5 * (w[:, None] + w[None, :])
+    d = (s[:, None] - s[None, :]) * torch.sign(lab[:, None] - lab[None, :])
+    counts = {"Positive": torch.sum(pair * (d > 0)), "Negative": torch.sum(pair * (d < 0)),
+              "Neutral": torch.sum(pair * (d == 0))}
+    out = {}
+    for kind, v in counts.items():
+        acc = ins.get("Accumulate%sPair" % kind)
+        if acc:
+            v = v + acc[0].reshape(())
+        out["%sPair" % kind] = [v.reshape((1,))]
+    return out
+
+
+@register("split")
+def _split(ctx, ins, attrs):
+    """`sections` cuts at their running sums (the last section takes the
+    rest), else `num` equal parts, as jnp.split."""
+    (x,) = ins["X"]
+    axis = int(attrs.get("axis", 0))
+    sections = attrs.get("sections", [])
+    if sections:
+        cuts = [int(c) for c in np.cumsum(sections[:-1])]
+        return {"Out": list(torch.tensor_split(x, cuts, dim=axis))}
+    num = int(attrs.get("num", 0))
+    if x.shape[axis] % num:
+        raise ValueError("split: axis %d of extent %d does not divide into %d parts"
+                         % (axis, x.shape[axis], num))
+    return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+
+
+@register("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(list(ins["X"]), dim=int(attrs.get("axis", 0)))]}
+
+
+@register("unstack")
+def _unstack(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Y": list(torch.unbind(x, dim=int(attrs.get("axis", 0))))}
+
+
+@register("squeeze")
+def _squeeze(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [_squeezed(x, attrs.get("axes", []))]}
+
+
+@register("unsqueeze")
+def _unsqueeze(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [_unsqueezed(x, attrs["axes"])]}
+
+
+@register("slice")
+def _slice(ctx, ins, attrs):
+    """starts / ends per axis, negative ones from the end, both clamped to
+    the axis."""
+    (x,) = ins["Input"]
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return {"Out": [x[tuple(idx)]]}
+
+
+@register("scatter")
+def _scatter(ctx, ins, attrs):
+    """Rows of X at Ids replaced by (overwrite) or added to the rows of
+    Updates; a negative id counts from the end and one out of range is
+    dropped, as in the JAX lowering's x.at[ids]. Where an id repeats, the
+    overwrite takes its last update (the JAX lowering's order), chosen by
+    a max over the update positions, so the result does not depend on the
+    order the device writes in; the add sums them in one order every run
+    (index_put_ with accumulate)."""
+    (x,) = ins["X"]
+    (ids,) = ins["Ids"]
+    (updates,) = ins["Updates"]
+    rows = x.shape[0]
+    ids = ids.reshape(-1).long()
+    ids = torch.where(ids < 0, ids + rows, ids)
+    # ids out of range go to a spare row past the end
+    ids = torch.where((ids >= 0) & (ids < rows), ids, torch.full_like(ids, rows))
+    if attrs.get("overwrite", True):
+        pos = torch.arange(ids.shape[0], device=ids.device)
+        last = torch.full((rows + 1,), -1, dtype=torch.long, device=ids.device)
+        last = last.scatter_reduce(0, ids, pos, reduce="amax")[:rows]
+        taken = updates[last.clamp(min=0)]
+        hit = (last >= 0).reshape((rows,) + (1,) * (x.dim() - 1))
+        return {"Out": [torch.where(hit, taken, x)]}
+    spare = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out = torch.cat([x, spare]).index_put((ids,), updates, accumulate=True)
+    return {"Out": [out[:rows]]}
+
+
+@register("pad")
+def _pad(ctx, ins, attrs):
+    """`paddings` holds (before, after) for each axis, first axis first."""
+    (x,) = ins["X"]
+    p = [int(v) for v in attrs["paddings"]]
+    pairs = []
+    for i in reversed(range(x.dim())):
+        pairs += [p[2 * i], p[2 * i + 1]]
+    return {"Out": [torch.nn.functional.pad(x, pairs, value=float(attrs.get("pad_value", 0.0)))]}
+
+
+@register("pad2d")
+def _pad2d(ctx, ins, attrs):
+    """NCHW, paddings [top, bottom, left, right]; modes constant, reflect
+    and (any other) edge, as the JAX lowering."""
+    (x,) = ins["X"]
+    p = [int(v) for v in attrs["paddings"]]
+    pairs = [p[2], p[3], p[0], p[1]]
+    mode = attrs.get("mode", "constant")
+    F = torch.nn.functional
+    if mode == "constant":
+        return {"Out": [F.pad(x, pairs, value=float(attrs.get("pad_value", 0.0)))]}
+    return {"Out": [F.pad(x, pairs, mode="reflect" if mode == "reflect" else "replicate")]}
+
+
+# the same lowering as lookup_table; ops/sparse_ops.py attaches the same
+# grad maker (dense or SelectedRows), since this module registers it first
+@register("embedding")
+def _embedding(ctx, ins, attrs):
+    return _lookup_table(ctx, ins, attrs)
+
+
+@register("label_smooth")
+def _label_smooth(ctx, ins, attrs):
+    (x,) = ins["X"]
+    eps = attrs.get("epsilon", 0.1)
+    if "PriorDist" in ins:
+        return {"Out": [(1 - eps) * x + eps * ins["PriorDist"][0].reshape(-1)]}
+    return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}
+
+
+@register("norm")
+def _norm(ctx, ins, attrs):
+    (x,) = ins["X"]
+    axis = int(attrs.get("axis", 1))
+    eps = attrs.get("epsilon", 1e-10)
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True) + eps)
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+def _interp(x, attrs, mode):
+    """jax.image.resize's contract, whatever align_corners says: half-pixel
+    centres, bilinear as a triangle filter widened by the ratio when
+    downscaling (antialiased), nearest rounding half-pixel centres
+    (torch's "nearest-exact", not "nearest")."""
+    size = (int(attrs["out_h"]), int(attrs["out_w"]))
+    F = torch.nn.functional
+    if mode == "bilinear":
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False, antialias=True)
+    return F.interpolate(x, size=size, mode="nearest-exact")
+
+
+@register("bilinear_interp")
+def _bilinear_interp(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [_interp(x, attrs, "bilinear")]}
+
+
+@register("nearest_interp")
+def _nearest_interp(ctx, ins, attrs):
+    (x,) = ins["X"]
+    return {"Out": [_interp(x, attrs, "nearest")]}
+
+
+@register("lod_reset")
+def _lod_reset(ctx, ins, attrs):
+    """Padded tensors carry their lengths beside them, so the values pass
+    through (the JAX lowering)."""
+    (x,) = ins["X"]
+    return {"Out": [x]}
+
+
+@register("lrn")
+def _lrn(ctx, ins, attrs):
+    """Local response normalization across channels (NCHW): MidOut = k +
+    alpha * the sum of squares over a window of n channels, zero-padded at
+    the ends; Out = X / MidOut ** beta."""
+    (x,) = ins["X"]
+    n = int(attrs.get("n", 5))
+    k = attrs.get("k", 1.0)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    half = n // 2
+    sq = torch.nn.functional.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = sq[:, 0:c]
+    for i in range(1, n):
+        acc = acc + sq[:, i:i + c]
+    mid = k + alpha * acc
+    return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}

@@ -10,6 +10,11 @@ array with a `<path>.dtype` sidecar naming bfloat16 where a bf16 value was
 widened to f32, and an `np.savez` archive with a `__dtypes__` entry for the
 combined form, so either package loads what the other saved.
 
+The reader ops (`read`, the `create_*_reader` ops, `open_files`) are
+markers, as in the JAX package: batches enter through Executor.run's feeds,
+so an imported reference program that holds them runs, and every block
+form skips them (registry.register_no_lower).
+
 `prefetch` (a parameter-server row fetch) and `gen_nccl_id` (a collective
 rendezvous) wait for the distributed runtime.
 """
@@ -21,7 +26,7 @@ import threading
 import numpy as np
 import torch
 
-from .registry import register, register_host
+from .registry import register, register_host, register_no_lower
 
 
 def _save_path(op):
@@ -234,3 +239,18 @@ def _split_byref(ctx, ins, attrs):
         outs.append(x[start:start + s])
         start += s
     return {"Out": outs}
+
+
+# program-compat markers for the reader ops (reference reader/read_op.cc):
+# not compute, skipped by every block form
+for _t in (
+    "read",
+    "create_custom_reader",
+    "create_recordio_file_reader",
+    "create_shuffle_reader",
+    "create_batch_reader",
+    "create_double_buffer_reader",
+    "create_py_reader",
+    "open_files",
+):
+    register_no_lower(_t)
