@@ -190,6 +190,31 @@ Phases, each printing its own line; any failure exits non-zero:
      (9216, 4096) among them); images/s and step wall p50 over graph steps
      3-8, busy share, launches and memory reserved a step, and the device
      time of 2 op-by-op steps split by op type;
+  8d. deploy resnet50 (tools/profile_deploy.py): ResNet-50 at 3 x 224 x 224,
+     1000 classes, f32, trained with simulated quantization (the
+     quantize_training pass) under Momentum(0.1, 0.9) at batch 64 for 8
+     graph steps beside the f32 program's 8 (images/s, step wall p50, busy
+     share, launches and memory of each; the first 3 QAT losses op by op
+     bit for bit), batch_norm's running statistics re-estimated by 40 steps
+     at learning rate 0; then five inference legs at batch 128 on those
+     parameters: (a) the f32 test clone, (b) (a) after InferenceTranspiler,
+     (c) (b) after memory_optimize, (d) the QAT test clone after
+     freeze_program, (e) (d) after convert_to_int8, each 8 graph-path calls
+     and one op-by-op run bit for bit with the same counters, images/s,
+     wall p50 over replays 3-8, busy share, launches and memory, (a) and
+     (e) split by op type; (b) within rtol 1e-4, atol 1e-5 of (a), (c) bit
+     for bit with (b), (e) within 1e-4 of (d), (e)'s top-1 agreement with
+     (a); the quant GEMM launched once per int8_conv2d (53) every call of
+     (e) and held bit for bit against its plain version on every im2col
+     product of (e)'s op-by-op run, the stem's and two 3 x 3
+     convolutions' timed beside torch._int_mm;
+  8e. extra ops: the 46 op types of nn_extra_ops.py and compose_ops.py at
+     published models' shapes (C3D, 3D U-Net, DCGAN, FCN, SegNet, SPP-net,
+     group norm's ResNet-50, the Spatial Transformer, the train lstm and
+     nmt phases' widths and others), forward eager on the card, captured
+     and replayed bit for bit, and backward, against the CPU on the same
+     inputs (floats within rtol 1e-4 and atol 1e-4 of max(1, max |x|),
+     integers exactly; random_crop a window at one offset for the batch);
   9. train lstm: the stacked dynamic-LSTM text model (models/stacked_lstm.py)
      at the JAX bench's shape (bench.py:265-290): dict 30000, emb 512, hid
      512, stacked_num 2, batch 64 of 100 words fed as a lod_level=1 var with
@@ -289,7 +314,8 @@ Phases, each printing its own line; any failure exits non-zero:
      the NMT model's, DeepFM's and the bf16 runs' steps, and their
      max_abs_err is
      the worst of their own check and the path checks; quant_gemm_fp8,
-     e4m3_cast and fp8_matmul count the fp8 steps').
+     e4m3_cast and fp8_matmul count the fp8 steps'; quant_gemm_int8 the
+     int8 ServingEngine's calls and deploy resnet50's leg (e), 53 a call).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -4717,6 +4743,680 @@ def detection_ops(torch, card):
     return rows
 
 
+# ---------------------------------------------------------------- deploy resnet50
+
+DEPLOY_STEPS = 8  # training steps of each program: the warmup, the capture, 6 graph steps
+DEPLOY_STATS_STEPS = 40  # QAT steps at learning rate 0 before the legs (0.9^40 of stale stats)
+DEPLOY_CALLS = 8  # calls of each inference leg: the warmup, the capture, 6 replays
+DEPLOY_EAGER = 2  # op-by-op runs of legs (a) and (e), split by op type
+DEPLOY_FOLD_TOL = (1e-4, 1e-5)  # (b) against (a), rtol / atol: tests/test_transpiler.py:310
+DEPLOY_INT8_TOL = 1e-4  # (e) against (d) with exact sums, rtol = atol: tests/test_transpiler.py:397
+RESNET50_INT8_CONVS = 53  # the stem, 16 bottlenecks of 3 and 4 projection shortcuts
+DEPLOY_TIMED = {"stem 7x7 s2": (128 * 112 * 112, 160, 64),
+                "stage1 3x3": (128 * 56 * 56, 576, 64),
+                "stage4 3x3": (128 * 7 * 7, 4608, 512)}
+
+
+class _Im2colInputs:
+    """While entered, keeps a copy of the operands of the first quant GEMM
+    call at each (m, k, n) (int8_conv2d's im2col columns and filter on the
+    card), so the kernel can be held against its plain version on the main
+    path's own operands. Recording launches nothing."""
+
+    def __init__(self):
+        from paddle_tpu_torch.ops import quant_gemm as qg
+
+        self.qg, self.seen = qg, {}
+
+    def __enter__(self):
+        self.saved = call = self.qg.quant_gemm_bias_act
+
+        def rec(x2, w2, scale, bias_row=None, act=None):
+            key = (int(x2.shape[0]), int(x2.shape[1]), int(w2.shape[1]))
+            if key not in self.seen:
+                self.seen[key] = (x2.clone(), w2.clone(), scale.clone())
+            return call(x2, w2, scale, bias_row, act)
+
+        self.qg.quant_gemm_bias_act = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.qg.quant_gemm_bias_act = self.saved
+        return False
+
+
+def _deploy_train(torch, prof, registry, model, feeds, batch):
+    """DEPLOY_STEPS graph-path steps of a training program (no pass
+    pipeline): the readings over graph steps 3-8, and the scope and step."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    outs, walls, deltas, _, step, scope = _fluid_run(torch, model, feeds, "", [model["loss"]])
+    window = walls[2:]
+    reading = {"batch": batch, "losses": [float(o[0]) for o in outs],
+               "step_p50_ms": float(np.median(window)),
+               "images_per_s": batch * len(window) / (sum(window) / 1e3),
+               "memory_max_reserved_gib": torch.cuda.max_memory_reserved() / GIB,
+               "counters_a_step": {"%s:%s" % k: v for k, v in deltas[-1].items()}}
+    breakdown = prof.profile_steps(step, feeds[2:4], registry)
+    reading.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                   device_busy_share=breakdown["device_busy_share"],
+                   device_launches=breakdown["device_launches_per_step"],
+                   profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+    return reading, outs, step, scope
+
+
+def _deploy_leg(torch, dep, prof, registry, leg, prog, scope, feed, fetch, n_int8):
+    """One inference leg: DEPLOY_CALLS graph-path calls (the warmup, the
+    capture, replays), the same counters every call (leg (e): a quant GEMM
+    launch and an int8_conv2d dispatch for each of its n_int8 convolutions,
+    the other legs none); the op-by-op path's logits equal to the replays'
+    bit for bit with the same counters; legs (a) and (e) split by op type.
+    Returns (reading, logits, the im2col recorder or None)."""
+    from paddle_tpu_torch import CUDAPlace, Executor, scope_guard
+    from paddle_tpu_torch.ops import fused
+
+    exe = Executor(CUDAPlace(0))
+
+    def step(f):
+        with scope_guard(scope):
+            return exe.run(prog, feed=f, fetch_list=[fetch])[0]
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_stats()  # leg (e)'s counting window opens here
+    walls, outs, deltas = [], [], []
+    for _ in range(DEPLOY_CALLS):
+        before = fused.stats()
+        t0 = time.perf_counter()
+        outs.append(step(feed))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        deltas.append(_counter_delta(before, fused.stats()))
+    counts = {k: v for k, v in fused.stats()["launches"].items() if v}  # and closes here
+    graphs = Executor.stats()["graphs"]
+    want = ({("launches", "quant_gemm_int8"): n_int8, ("dispatches", "int8_conv2d"): n_int8}
+            if leg == "e" else {})
+    for i, d in enumerate(deltas):
+        if d != want:
+            raise AssertionError("leg %s call %d: counters %s, want %s" % (leg, i, d, want))
+    if graphs != {"captures": 1, "replays": DEPLOY_CALLS - 1}:
+        raise AssertionError("leg %s: graphs %s" % (leg, graphs))
+    peak = torch.cuda.max_memory_reserved()
+    window = walls[2:]
+    batch = feed["img"].shape[0]
+    reading = {"batch": int(batch), "wall_p50_ms": float(np.median(window)),
+               "images_per_s": batch * len(window) / (sum(window) / 1e3),
+               "memory_max_reserved_gib": peak / GIB,
+               "memory_added_by_leg_gib": (peak - base) / GIB,
+               "ops": len(prog.global_block().ops), "launches": counts}
+    breakdown = prof.profile_steps(step, [feed, feed], registry)
+    reading.update(device_busy_ms=breakdown["device_busy_ms_per_step"],
+                   device_busy_share=breakdown["device_busy_share"],
+                   device_launches=breakdown["device_launches_per_step"],
+                   profiled_wall_p50_ms=breakdown["wall_ms_p50"])
+    rec = _Im2colInputs() if leg == "e" else None
+    with rec or contextlib.nullcontext(), op_by_op():
+        before = fused.stats()
+        t0 = time.perf_counter()
+        eager = step(feed)
+        reading["op_by_op_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        e_delta = _counter_delta(before, fused.stats())
+    if eager.tobytes() != outs[-1].tobytes():
+        raise AssertionError("leg %s: graph and op-by-op logits differ by %g" % (
+            leg, float(np.abs(eager - outs[-1]).max())))
+    if e_delta != want:
+        raise AssertionError("leg %s op by op: counters %s, want %s" % (leg, e_delta, want))
+    if leg in ("a", "e"):
+        split = prof.op_device_split(step, [feed] * DEPLOY_EAGER, registry, split_by=dep.SPLIT)
+        reading["op_by_op_device_ms"] = split["device_ms_per_step"]
+        reading["split"] = split["by_category"]
+        reading["top_ops"] = dict(list(split["by_op"].items())[:8])
+        reading["top_kernels_by_op"] = {
+            o: dict(sorted(ks.items(), key=lambda kv: -kv[1])[:4])
+            for o, ks in split["kernels_by_op"].items() if o in reading["top_ops"]}
+    del exe, step
+    return reading, eager, rec
+
+
+def _exact_conv_run(torch, prog, scope, feed, fetch):
+    """One op-by-op run of `prog` with cuDNN off, so that its f32
+    convolutions are the native im2col GEMM's (exact sums of integer
+    levels here). Returns the fetch."""
+    from paddle_tpu_torch import CUDAPlace, Executor, scope_guard
+
+    with torch.backends.cudnn.flags(enabled=False, deterministic=True, allow_tf32=False), \
+            op_by_op(), scope_guard(scope):
+        out = Executor(CUDAPlace(0)).run(prog, feed=feed, fetch_list=[fetch])[0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hold_im2col(torch, qg, rec, flush):
+    """The quant GEMM kernel against its plain version, bit for bit, on each
+    recorded im2col product; DEPLOY_TIMED's shapes timed (device ms, cold
+    L2) beside the plain version and torch._int_mm over the same columns."""
+    held, timed = [], {}
+    for (m, k, n), (x2, w2, scale) in sorted(rec.seen.items()):
+        z, _ = qg.quant_gemm_bias_act(x2, w2, scale)
+        zp, _ = qg.quant_gemm_bias_act_plain(x2, w2, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(z, zp):
+            raise AssertionError("quant_gemm at the im2col product (%d, %d) @ (%d, %d): kernel "
+                                 "and plain differ by %g" % (m, k, k, n,
+                                                             float((z - zp).abs().max())))
+        held.append([m, k, n])
+    for name, (m, k, n) in DEPLOY_TIMED.items():
+        if (m, k, n) not in rec.seen:
+            raise AssertionError("int8_conv2d never gave the quant GEMM %s's product %s "
+                                 "(it gave %s)" % (name, (m, k, n), sorted(rec.seen)))
+        x2, w2, scale = rec.seen[(m, k, n)]
+        ms = time_ms(torch, lambda: qg.quant_gemm_bias_act(x2, w2, scale), 10, flush,
+                     gated=True)
+        plain_ms = time_ms(torch, lambda: qg.quant_gemm_bias_act_plain(x2, w2, scale), 3, flush,
+                           gated=True)
+        lib_ms = time_ms(torch, lambda: torch._int_mm(x2, w2), 10, flush, gated=True)
+        bound_ms, bound_by = _qgemm_bound(m, k, n, None)
+        timed[name] = {"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
+                       "int_mm_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return held, timed
+
+
+def deploy_resnet50(torch, card, readings):
+    """The CNN deployment path (tools/profile_deploy.py): ResNet-50 at its
+    published widths (3 x 224 x 224, 1000 classes, random weights from
+    SEED), f32, synthetic batches staged on the card. Quantization-aware
+    training (the quantize_training pass) under Momentum(0.1, 0.9) at batch
+    64: the warmup, the capture and 6 graph steps, every loss finite, the
+    first 3 losses op by op bit for bit; beside it the f32 program's 8
+    steps (the gap is the fake quantize / dequantize ops' cost). Then
+    DEPLOY_STATS_STEPS QAT steps at learning rate 0 re-estimate
+    batch_norm's running statistics, and the five inference legs at batch
+    128 run on those parameters, each with DEPLOY_CALLS graph-path calls
+    and one op by op (bit for bit, the same counters): (b) within the fold
+    bar of (a), (c) bit for bit with (b), (e) within DEPLOY_INT8_TOL of (d)
+    run once more with cuDNN off (its f32 convolutions over integer levels
+    then sum exactly, as (e)'s int32 sums do; (d)'s own difference is
+    reported), (e)'s top-1 agreement with (a) reported; leg (e) launches the quant GEMM once per int8_conv2d (53)
+    every call, and the kernel is held against its plain version bit for
+    bit on every im2col product its op-by-op run gave it, the stem's and
+    two 3 x 3 convolutions' timed beside torch._int_mm. Returns the quant
+    GEMM's launches over leg (e)'s graph-path calls."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.ops import quant_gemm as qg
+    from paddle_tpu_torch.tools import profile_deploy as dep
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    _explicit_bn_grad()
+    cfg = dep.RESNET50
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    plain, qat = dep.build(cfg, qat=False), dep.build(cfg, qat=True)
+    n_fake = sum(op.type == "fake_quantize_abs_max" for op in qat["main"].global_block().ops)
+    staged = dep.feeds(cfg, device, cfg["train_batch"])
+    feeds = [staged[i % len(staged)] for i in range(DEPLOY_STEPS)]
+    train = {}
+    train["qat"], outs, step, scope = _deploy_train(torch, prof, registry, qat, feeds,
+                                                    cfg["train_batch"])
+    # batch_norm's running statistics trail the weights (momentum 0.9) and
+    # a test-mode ResNet-50 on stale ones grows its activations block by
+    # block, so a deployment re-estimates them: steps at learning rate 0
+    # keep the weights as trained and bring the statistics to theirs
+    for op in qat["main"].global_block().ops:
+        if op.type == "momentum":
+            lr = op.input("LearningRate")[0]
+            scope.set_var(lr, torch.zeros_like(scope.find_var(lr)))
+    weights = {p.name: scope.find_var(p.name).clone()
+               for p in qat["main"].global_block().all_parameters() if p.trainable}
+    t_stats = time.perf_counter()
+    for i in range(DEPLOY_STATS_STEPS):
+        step(feeds[i % len(feeds)])
+    torch.cuda.synchronize()
+    t_stats = time.perf_counter() - t_stats
+    for name, w in weights.items():
+        if not torch.equal(scope.find_var(name), w):
+            raise AssertionError("deploy: %s moved at learning rate 0" % name)
+    state = {n: scope.find_var(n) for n, v in qat["main"].global_block().vars.items()
+             if v.persistable and scope.find_var(n) is not None}
+    del step, scope, weights
+    eager, _, e_deltas, _, _, _ = _fluid_run(torch, qat, feeds[:COMPARE_STEPS], "",
+                                             [qat["loss"]], per_op=True)
+    _same_bits("deploy qat loss, graph against op by op, step", [o[0] for o in eager],
+               [o[0] for o in outs[:COMPARE_STEPS]])
+    train["f32"], _, step, scope = _deploy_train(torch, prof, registry, plain, feeds,
+                                                 cfg["train_batch"])
+    del step, scope, staged, feeds
+    torch.cuda.empty_cache()
+    log("deploy resnet50 train: ResNet-50 (3 x 224 x 224, 1000 classes), Momentum(%g, %g), f32, "
+        "batch %d, quantize_training (%d fake_quantize_abs_max ops): %s; the first %d losses bit "
+        "for bit op by op; then %d steps at learning rate 0 in %.1f s re-estimate batch_norm's "
+        "running statistics, the weights unchanged; the f32 program: %s; QAT / f32 step wall "
+        "%.3f; card %s" % (
+            cfg["lr"], cfg["momentum"], cfg["train_batch"], n_fake, json.dumps(train["qat"]),
+            COMPARE_STEPS, DEPLOY_STATS_STEPS, t_stats, json.dumps(train["f32"]),
+            train["qat"]["step_p50_ms"] / train["f32"]["step_p50_ms"], card))
+
+    infer_feed = dep.feeds(cfg, device, cfg["infer_batch"], n=1, seed=SEED + 1)[0]
+    legs = dep.inference_legs(plain, qat, state, CUDAPlace(0))
+    del state
+    fetch = plain["logits"].name
+    n_int8 = dep.int8_conv_count(legs["e"][0])
+    if n_int8 != RESNET50_INT8_CONVS or dep.int8_conv_count(legs["e"][0], grouped=True):
+        raise AssertionError("leg (e) holds %d int8_conv2d ops with groups == 1, want %d"
+                             % (n_int8, RESNET50_INT8_CONVS))
+    results, logits, rec = {}, {}, None
+    launches = 0
+    # (d)'s f32 convolutions over integer levels, cuDNN's algorithms off
+    # (the native im2col GEMM sums the integer products exactly while a
+    # partial sum stays under 2^24): the same program computing what (e)'s
+    # exact int32 sums compute, where cuDNN's choice (a Winograd transform
+    # for a 3 x 3) rounds
+    logits["d_exact"] = _exact_conv_run(torch, *legs["d"], infer_feed, fetch)
+    for leg in dep.LEGS:
+        prog, scope = legs[leg]
+        results[leg], logits[leg], r = _deploy_leg(torch, dep, prof, registry, leg, prog, scope,
+                                                   infer_feed, fetch, n_int8)
+        results[leg]["name"] = dep.LEG_NAMES[leg]
+        log("deploy resnet50 leg (%s) %s, batch %d: %s; card %s" % (
+            leg, dep.LEG_NAMES[leg], cfg["infer_batch"], json.dumps(results[leg]), card))
+        if leg == "e":
+            rec = r
+            launches = results[leg]["launches"].get("quant_gemm_int8", 0)
+        torch.cuda.empty_cache()
+    del legs
+    diff = {}
+    for got, want in (("b", "a"), ("c", "b"), ("e", "d"), ("d_exact", "d"), ("e", "d_exact"),
+                      ("e", "a")):
+        d = np.abs(logits[got] - logits[want])
+        diff["%s-%s" % (got, want)] = {"max_abs": float(d.max()), "max_rel": float(
+            (d / np.maximum(np.abs(logits[want]), 1e-30)).max()),
+            "max_abs_logit": float(np.abs(logits[want]).max())}
+    top1 = float((logits["e"].argmax(1) == logits["a"].argmax(1)).mean())
+    log("deploy resnet50: logits across legs %s; top-1 agreement of (e) with (a) %.4f; card %s"
+        % (json.dumps(diff), top1, card))
+    rtol, atol = DEPLOY_FOLD_TOL
+    if not np.allclose(logits["b"], logits["a"], rtol=rtol, atol=atol):
+        raise AssertionError("leg (b) against (a): %s (rtol %g atol %g)" % (diff["b-a"], rtol,
+                                                                              atol))
+    if logits["c"].tobytes() != logits["b"].tobytes():
+        raise AssertionError("leg (c) against (b): %s, want bit for bit" % diff["c-b"])
+    if not np.allclose(logits["e"], logits["d_exact"], rtol=DEPLOY_INT8_TOL,
+                       atol=DEPLOY_INT8_TOL):
+        raise AssertionError("leg (e) against (d) with exact convolution sums: %s (rtol = atol "
+                             "= %g)" % (diff["e-d_exact"], DEPLOY_INT8_TOL))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    held, timed = _hold_im2col(torch, qg, rec, flush)
+    del rec, flush
+    torch.cuda.empty_cache()
+    # the int8_mul fc head: no pass pipeline tags int8 chains on this path,
+    # and the gemm_int8 family's block rule declines n = 1000 in any case
+    head_taken = fused.quant_gemm_path_taken(cfg["infer_batch"], cfg["classes"], 2048,
+                                             torch.int8)
+    readings["deploy_resnet50"] = {"train": train, "legs": results, "logits": diff,
+                                   "top1_e_vs_a": top1, "quant_gemm_im2col": timed}
+    for name, t in timed.items():
+        log("deploy resnet50: quant_gemm_kernel at %s's im2col product (%d, %d) @ (%d, %d), no "
+            "bias, scale 1.0: kernel %.4f ms (device, cold L2), plain (float64 product) %.4f ms, "
+            "torch._int_mm %.4f ms (kernel / _int_mm %.3f), bound %.4f ms (%s); card %s" % (
+                name, t["m"], t["k"], t["k"], t["n"], t["ms"], t["plain_ms"], t["int_mm_ms"],
+                t["ms"] / t["int_mm_ms"], t["bound_ms"], t["bound_by"], card))
+    log("deploy resnet50: quant_gemm_kernel bit for bit with its plain version on the %d im2col "
+        "products of leg (e)'s first op-by-op run %s; %d launches a leg-(e) run (one per "
+        "int8_conv2d with groups == 1), %d over its %d graph-path calls; the int8_mul fc head "
+        "(128 x 2048 @ 2048 x 1000) takes the gemm_int8 family: %s (no pass pipeline tags int8 "
+        "chains on this path, and quant_gemm_path_taken declines n = 1000 by the float GEMM's "
+        "block rule), so it runs as the float64 int8_mul; built and run in %.1f s" % (
+            len(held), json.dumps(held), n_int8, launches, DEPLOY_CALLS, head_taken,
+            time.perf_counter() - t0))
+    return {"quant_gemm_int8": launches}
+
+
+# ---------------------------------------------------------------- extra ops
+
+EXTRA_TOL = 1e-4  # rtol, and atol as a share of max(1, the CPU result's largest magnitude)
+EXTRA_REPLAYS = 3  # replays of each op's forward graph, timed by CUDA events
+
+
+def _extra_cases(torch, device, seed):
+    """(op type, inputs {slot: [tensor]}, attrs, comparison rows, {slot:
+    batch axis}, source) of each forward op type of nn_extra_ops.py and
+    compose_ops.py at a published model's shapes, one at a time, drawn on
+    `device` from `seed`. The card runs each at these shapes; the CPU
+    reference takes the first `rows` rows of the batch axis of the named
+    slots (None: the whole inputs)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=device) * s
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=device, dtype=torch.int32)
+
+    def lens(b, t):
+        out = torch.randint(1, t + 1, (b,), generator=gen, device=device, dtype=torch.int32)
+        out[0] = t
+        return out
+
+    b0 = {"X": 0}
+    yield ("conv3d", {"Input": [r(8, 3, 16, 112, 112)], "Filter": [r(64, 3, 3, 3, 3, s=0.1)]},
+           {"paddings": [1, 1, 1]}, 1, {"Input": 0}, "C3D conv1a (Tran et al. 2015), batch 8")
+    yield ("conv3d_transpose", {"Input": [r(2, 128, 16, 16, 16)],
+                                "Filter": [r(128, 128, 2, 2, 2, s=0.05)]},
+           {"strides": [2, 2, 2]}, 1, {"Input": 0},
+           "3D U-Net (Cicek et al. 2016) 2x2x2 up-convolution, 128 channels, batch 2")
+    yield ("conv2d_transpose", {"Input": [r(64, 512, 4, 4)], "Filter": [r(512, 256, 4, 4,
+                                                                          s=0.05)]},
+           {"strides": [2, 2], "paddings": [1, 1]}, 1, {"Input": 0},
+           "DCGAN generator ConvTranspose2d(512, 256, 4, 2, 1), batch 64")
+    yield ("depthwise_conv2d_transpose", {"Input": [r(16, 21, 16, 16)],
+                                          "Filter": [r(21, 1, 4, 4)]},
+           {"strides": [2, 2], "groups": 21}, 1, {"Input": 0},
+           "FCN-8s upscore2 (Long et al. 2015), group 21, batch 16")
+    yield ("pool3d", {"X": [r(8, 64, 16, 112, 112)]},
+           {"pooling_type": "max", "ksize": [1, 2, 2], "strides": [1, 2, 2]}, 1, b0,
+           "C3D pool1 1x2x2 on conv1a's output, batch 8")
+    yield ("max_pool2d_with_index", {"X": [r(4, 64, 360, 480)]},
+           {"ksize": [2, 2], "strides": [2, 2]}, 1, b0,
+           "SegNet pool1 on CamVid 360 x 480 (Badrinarayanan et al. 2017), batch 4")
+    yield ("max_pool3d_with_index", {"X": [r(8, 128, 16, 56, 56)]},
+           {"ksize": [2, 2, 2], "strides": [2, 2, 2]}, 1, b0, "C3D pool2 2x2x2, batch 8")
+    pooled = r(4, 64, 180, 240)
+    rows_, cols_ = torch.meshgrid(torch.arange(180, device=device),
+                                  torch.arange(240, device=device), indexing="ij")
+    idx = (rows_ * 960 + cols_ * 2 + ints(2, 4, 64, 180, 240) * 480
+           + ints(2, 4, 64, 180, 240)).to(torch.int32)
+    yield ("unpool", {"X": [pooled], "Indices": [idx]},
+           {"ksize": [2, 2], "strides": [2, 2]}, 1, {"X": 0, "Indices": 0},
+           "SegNet upsample4 (pool1's mask) to 360 x 480, batch 4")
+    yield ("spp", {"X": [r(32, 256, 13, 13)]}, {"pyramid_height": 4, "pooling_type": "max"}, 1,
+           b0, "SPP-net 4-level pyramid on conv5 maps (He et al. 2014), batch 32")
+    yield ("maxout", {"X": [r(128, 384, 16, 16)]}, {"groups": 2}, 1, b0,
+           "Maxout networks' CIFAR-10 conv layer, 2 pieces (Goodfellow et al. 2013)")
+    yield ("group_norm", {"X": [r(32, 256, 56, 56)], "Scale": [r(256)], "Bias": [r(256)]},
+           {"groups": 32, "epsilon": 1e-5}, 1, b0,
+           "Group Normalization's ResNet-50 res2, 32 groups (Wu and He 2018), batch 32")
+    yield ("affine_channel", {"X": [r(2, 256, 200, 336)], "Scale": [r(256)], "Bias": [r(256)]},
+           {}, 1, b0, "Detectron's frozen-BN ResNet-50 res2 at 800 x 1333, 2 images")
+    yield ("bilinear_tensor_product", {"X": [r(128, 100)], "Y": [r(128, 100)],
+                                       "Weight": [r(4, 100, 100, s=0.1)], "Bias": [r(1, 4)]},
+           {}, None, {}, "Neural Tensor Network (Socher et al. 2013), d 100, 4 slices")
+    yield ("grid_sampler", {"X": [r(64, 3, 224, 224)],
+                            "Grid": [torch.rand((64, 224, 224, 2), generator=gen,
+                                                device=device) * 2.2 - 1.1]},
+           {}, 1, {"X": 0, "Grid": 0}, "Spatial Transformer Networks at 224 x 224, batch 64")
+    yield ("affine_grid", {"Theta": [r(64, 2, 3)]}, {"output_shape": [64, 3, 224, 224]}, None,
+           {}, "Spatial Transformer Networks' affine grid at 224 x 224, batch 64")
+    yield ("minus", {"X": [r(128, 4096)], "Y": [r(128, 4096)]}, {}, None, {},
+           "VGG-16 fc7 features, batch 128")
+    yield ("l1_norm", {"X": [r(4096, 4096, s=0.01)]}, {}, None, {}, "VGG-16 fc7's weight")
+    yield ("squared_l2_distance", {"X": [r(1800, 128)], "Y": [r(1800, 128)]}, {}, None, {},
+           "FaceNet 128-d embeddings, batch 1800 (Schroff et al. 2015)")
+    yield ("selu", {"X": [r(128, 1024)]}, {}, None, {},
+           "Self-normalizing networks' 1024-unit layers (Klambauer et al. 2017)")
+    yield ("fill", {}, {"shape": [1000], "dtype": "float32", "value": r(1000).tolist()}, None,
+           {}, "a 1000-class prior")
+    yield ("is_empty", {"X": [r(128, 1000)]}, {}, None, {}, "ResNet-50's logits at batch 128")
+    yield ("multiplex", {"X": [r(128, 1000), r(128, 1000), r(128, 1000)],
+                         "Ids": [ints(3, 128, 1)]}, {}, None, {},
+           "three 1000-class heads, batch 128")
+    yield ("crop", {"X": [r(2, 21, 544, 544)]},
+           {"shape": [2, 21, 500, 500], "offsets": [0, 0, 19, 19]}, None, {},
+           "FCN-8s crop of upscore to 500 x 500 (Long et al. 2015), batch 2")
+    yield ("pad_constant_like", {"X": [r(2, 21, 544, 544)], "Y": [r(2, 21, 500, 500)]},
+           {"pad_value": 0.0}, None, {}, "FCN's 500 x 500 score padded to 544, batch 2")
+    yield ("random_crop", {"X": [r(128, 3, 256, 256)],
+                           "Seed": [torch.tensor([7], dtype=torch.int32, device=device)]},
+           {"shape": [224, 224]}, None, {}, "ImageNet 256 -> 224 crop, batch 128")
+    yield ("space_to_depth", {"X": [r(64, 64, 26, 26)]}, {"blocksize": 2}, 1, b0,
+           "YOLOv2 passthrough (reorg) layer, 26 x 26 x 64 -> 13 x 13 x 256, batch 64")
+    yield ("conv_shift", {"X": [r(64, 128)], "Y": [r(64, 3)]}, {}, None, {},
+           "Neural Turing Machine shift weighting, 128 locations, shifts -1..1, batch 64")
+    yield ("add_position_encoding", {"X": [r(16, 256, 512)]}, {"alpha": 1.0, "beta": 1.0}, 1,
+           b0, "Transformer base, 16 x 256 tokens, d_model 512")
+    yield ("mean_iou", {"Predictions": [ints(21, 16, 500, 500)],
+                        "Labels": [ints(21, 16, 500, 500)]}, {"num_classes": 21}, None, {},
+           "PASCAL VOC 21 classes at 500 x 500, batch 16")
+    yield ("similarity_focus", {"X": [r(16, 3, 48, 48)]}, {"axis": 1, "indexes": [0, 2]}, None,
+           {}, "the reference's similarity focus over 3 channels of 48 x 48 maps, batch 16")
+    yield ("fc", {"Input": [r(128, 2048)], "W": [r(2048, 1000, s=0.02)], "Bias": [r(1000)]},
+           {"in_num_col_dims": 1}, None, {}, "ResNet-50's head, 128 x 2048 -> 1000")
+    yield ("fused_elemwise_activation", {"X": [r(128, 256, 56, 56)], "Y": [r(128, 256, 56, 56)]},
+           {"functor_list": ["relu", "elementwise_add"]}, 1, {"X": 0, "Y": 0},
+           "ResNet-50 res2's residual add + relu, batch 128")
+    ssd = [(12, 19), (24, 10), (24, 5), (24, 3), (24, 2), (24, 1)]
+    yield ("fusion_transpose_flatten_concat", {"X": [r(64, c, s_, s_) for c, s_ in ssd]},
+           {"trans_axis": [0, 2, 3, 1], "flatten_axis": 1, "concat_axis": 1}, 1,
+           {"X": 0}, "MobileNet-SSD's six location heads, batch 64")
+    h = 512
+    seq = {"SeqLen": 0}
+    yield ("lstm", {"Input": [r(64, 100, 4 * h)], "Weight": [r(h, 4 * h, s=0.05)],
+                    "Bias": [r(1, 4 * h)], "SeqLen": [lens(64, 100)]},
+           {"use_peepholes": False}, 1, dict(seq, Input=0), "the train lstm phase's widths")
+    yield ("gru", {"Input": [r(64, 16, 3 * h)], "Weight": [r(h, 3 * h, s=0.05)],
+                   "Bias": [r(1, 3 * h)], "SeqLen": [lens(64, 16)]}, {}, 1,
+           dict(seq, Input=0), "the train nmt phase's GRU widths")
+    yield ("lstmp", {"Input": [r(64, 100, 4 * h)], "Weight": [r(256, 4 * h, s=0.05)],
+                     "ProjWeight": [r(h, 256, s=0.05)], "Bias": [r(1, 4 * h)],
+                     "SeqLen": [lens(64, 100)]}, {"proj_activation": "tanh"}, 1,
+           dict(seq, Input=0), "the train lstm phase's widths, a 256-wide projection")
+    from paddle_tpu_torch.ops.compose_ops import cudnn_lstm_weight_size
+
+    yield ("cudnn_lstm", {"Input": [r(100, 64, h)],
+                          "W": [r(cudnn_lstm_weight_size(h, h, 2), s=0.05)]},
+           {"hidden_size": h, "num_layers": 2}, 1, {"Input": 1},
+           "the train lstm phase's widths, 2 layers")
+    yield ("fusion_lstm", {"X": [r(64, 100, h)], "WeightX": [r(h, 4 * h, s=0.05)],
+                           "WeightH": [r(h, 4 * h, s=0.05)], "Bias": [r(1, 4 * h)],
+                           "SeqLen": [lens(64, 100)]}, {"use_peepholes": False}, 1,
+           dict(seq, X=0), "the train lstm phase's widths")
+    yield ("fusion_gru", {"X": [r(64, 16, h)], "WeightX": [r(h, 3 * h, s=0.05)],
+                          "WeightH": [r(h, 3 * h, s=0.05)], "SeqLen": [lens(64, 16)]}, {}, 1,
+           dict(seq, X=0), "the train nmt phase's GRU widths")
+    yield ("fused_embedding_fc_lstm", {"Ids": [ints(30000, 64, 100, 1)],
+                                       "Embeddings": [r(30000, 4 * h, s=0.05)],
+                                       "WeightH": [r(h, 4 * h, s=0.05)], "Bias": [r(1, 4 * h)],
+                                       "SeqLen": [lens(64, 100)]}, {"use_peepholes": False}, 1,
+           dict(seq, Ids=0), "the train lstm phase's vocabulary and widths")
+    yield ("fusion_seqconv_eltadd_relu", {"X": [r(64, 100, 300)], "Filter": [r(900, 100,
+                                                                               s=0.05)],
+                                          "Bias": [r(100)], "SeqLen": [lens(64, 100)]},
+           {"contextLength": 3, "contextStart": -1}, 1, dict(seq, X=0),
+           "Kim (2014)'s text CNN: 300-d embeddings, 100 filters of width 3")
+    yield ("fusion_seqexpand_concat_fc", {"X": [r(64, 100, h), r(64, h)],
+                                          "FCWeight": [r(2 * h, h, s=0.05)],
+                                          "FCBias": [r(h)]}, {"fc_activation": "tanh"}, 1,
+           {"X": 0}, "the train lstm phase's widths")
+    yield ("attention_lstm", {"X": [r(64, 100, h)], "SeqLen": [lens(64, 100)],
+                              "AttentionWeight": [r(2 * h, 1, s=0.05)],
+                              "LSTMWeight": [r(2 * h, 4 * h, s=0.05)],
+                              "LSTMBias": [r(1, 4 * h)]}, {}, 1, dict(seq, X=0),
+           "the train lstm phase's widths")
+    yield ("conv2d_fusion", {"Input": [r(128, 64, 56, 56)], "Filter": [r(64, 64, 3, 3, s=0.05)],
+                             "Bias": [r(64)], "ResidualData": [r(128, 64, 56, 56)]},
+           {"paddings": [1, 1], "activation": "relu"}, 1, {"Input": 0, "ResidualData": 0},
+           "ResNet-50 res2's 3x3 conv + bias + residual + relu, batch 128")
+
+
+def _rows(ins, rows, axes):
+    """CPU copies of `ins`, the slots of `axes` cut to their first `rows`
+    rows there (rows None: whole)."""
+    return {s: [(v.narrow(axes[s], 0, rows) if rows is not None and s in axes else v)
+                .contiguous().cpu() for v in vs] for s, vs in ins.items()}
+
+
+def _extra_grad_ins(registry, op, ins, attrs, outs, seed, randn):
+    """(grad op type, its inputs, attrs) of one op's backward: the explicit
+    max-pool grads through the mask, else the generic grad with cotangents
+    `randn(shape, seed)` on every floating output (`outs`: numpy arrays or
+    tensors, as `ins`)."""
+    if op in ("max_pool2d_with_index", "max_pool3d_with_index"):
+        dy = randn(tuple(outs["Out"][0].shape), seed)
+        return op + "_grad", {"X": ins["X"], "Mask": [outs["Mask"][0]], "Out@GRAD": [dy]}, attrs
+    cots = {s: [randn(tuple(v.shape), seed + j) for j, v in enumerate(vs)]
+            for s, vs in outs.items() if all(_floating(v) for v in vs)}
+    meta = {registry.FWD_IN_SLOTS_ATTR: list(ins), registry.FWD_OUT_SLOTS_ATTR: list(cots)}
+    gins = dict(ins)
+    gins.update({s + "@GRAD": vs for s, vs in cots.items()})
+    return op + "_grad", gins, dict(attrs, **meta)
+
+
+def _floating(v):
+    return np.issubdtype(v.dtype, np.floating) if isinstance(v, np.ndarray) else \
+        v.dtype.is_floating_point
+
+
+def _cpu_randn(shape, seed):
+    import torch
+
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+
+
+def _extra_close(name, got, want):
+    worst = 0.0
+    for slot in want:
+        for g, w in zip(got[slot], want[slot]):
+            if g.shape != w.shape:
+                raise AssertionError("%s %s: shape %s, want %s" % (name, slot, g.shape, w.shape))
+            if np.issubdtype(w.dtype, np.floating):
+                # spp's edge bins at pyramid level 3 hold only padding: -inf in
+                # both packages, compared as equal
+                fin = np.isfinite(w)
+                scale = max(1.0, float(np.abs(w[fin]).max()) if fin.any() else 1.0)
+                np.testing.assert_allclose(g, w, rtol=EXTRA_TOL, atol=EXTRA_TOL * scale,
+                                           err_msg="%s %s" % (name, slot))
+                if fin.any():
+                    worst = max(worst, float(np.abs(g[fin] - w[fin]).max()) / scale)
+            elif not np.array_equal(g, w):
+                raise AssertionError("%s %s: %d of %d values differ" % (name, slot,
+                                                                        int((g != w).sum()),
+                                                                        w.size))
+    return worst
+
+
+def extra_ops(torch, card):
+    """Each op type of nn_extra_ops.py and compose_ops.py (tools: the
+    reference's op library beside the zoo) at a published model's shapes
+    (_extra_cases): forward eager on the card, timed (host clock around the
+    call and a sync), then captured alone in a CUDA graph and replayed
+    (CUDA events); its backward (the generic grad, or max_pool*_with_index's
+    explicit grad op through the mask) eager on the card, timed; then both
+    against the CPU on the same inputs (the first rows of the batch where
+    the CPU would take long): floats within EXTRA_TOL, integers exactly;
+    random_crop's output a window of its input at one offset for the whole
+    batch; each replay bit for bit with the eager run."""
+    from paddle_tpu_torch.executor import _on_capture_stream
+    from paddle_tpu_torch.ops import registry
+
+    device = torch.device("cuda", 0)
+    rows_out, done = {}, set()
+
+    def to(ins, dev):
+        return {s: [(v if isinstance(v, torch.Tensor) else torch.from_numpy(v)).to(dev)
+                    for v in vs] for s, vs in ins.items()}
+
+    def np_outs(outs):
+        return {s: [v.detach().cpu().numpy() for v in vs] for s, vs in outs.items()}
+
+    def dev_randn(shape, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=device)
+
+    def run(op, ins, attrs, dev):
+        ctx = _lower_ctx(torch, registry, dev)
+        return registry.get(op).lower(ctx, to(ins, dev), dict(attrs))
+
+    for i, (op, static, attrs, rows, axes, source) in enumerate(
+            _extra_cases(torch, device, SEED + 7)):
+        opdef = registry.get(op)
+        lower = opdef.lower
+        ctx = _lower_ctx(torch, registry, device)
+        with _on_capture_stream(device):
+            lower(ctx, static, dict(attrs))  # warm: caches, the library's first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _on_capture_stream(device):
+            eager = lower(ctx, static, dict(attrs))
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        graph = torch.cuda.CUDAGraph()
+        if opdef.stochastic:
+            graph.register_generator_state(ctx.device_generator)
+        with _on_capture_stream(device) as stream:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                captured = lower(ctx, static, dict(attrs))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        graph.replay()
+        start.record()
+        for _ in range(EXTRA_REPLAYS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms = start.elapsed_time(end) / EXTRA_REPLAYS
+        row = {"source": source, "forward_ms": fwd_ms, "replay_ms": replay_ms,
+               "shapes": {s: [list(v.shape) for v in vs] for s, vs in static.items()}}
+        if not opdef.stochastic:
+            for slot in eager:
+                for g, e in zip(captured[slot], eager[slot]):
+                    if g.detach().cpu().numpy().tobytes() != e.detach().cpu().numpy().tobytes():
+                        raise AssertionError("%s %s: the replay differs from the eager run"
+                                             % (op, slot))
+        else:  # random_crop: a window of the input at one offset, for every row
+            x, out = static["X"][0], captured["Out"][0]
+            hs, ws = attrs["shape"]
+            hits = [(a, b) for a in range(x.shape[2] - hs + 1) for b in range(x.shape[3] - ws + 1)
+                    if torch.equal(out[:, :, 0, 0], x[:, :, a, b])
+                    and torch.equal(out, x[:, :, a:a + hs, b:b + ws])]
+            if len(hits) != 1:
+                raise AssertionError("random_crop: the output is a window at %s" % hits)
+            row["offset"] = list(hits[0])
+        del graph, captured
+        grad_op = None
+        if not opdef.no_grad:
+            # the full-size backward's cotangents are drawn on the card
+            grad_op, gstatic, gattrs = _extra_grad_ins(registry, op, static, attrs, eager,
+                                                       SEED + i, dev_randn)
+            gctx = _lower_ctx(torch, registry, device)
+            registry.get(grad_op).lower(gctx, gstatic, dict(gattrs))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            registry.get(grad_op).lower(gctx, gstatic, dict(gattrs))
+            torch.cuda.synchronize()
+            row["backward_ms"] = (time.perf_counter() - t0) * 1e3
+            del gstatic
+        del eager
+        if op != "random_crop":
+            cins = _rows(static, rows, axes)
+            want, got = np_outs(run(op, cins, attrs, "cpu")), np_outs(run(op, cins, attrs,
+                                                                          device))
+            row["max_err_fwd"] = _extra_close(op, got, want)
+            if grad_op is not None:
+                _, gins, gattrs = _extra_grad_ins(registry, op, cins, attrs, want, SEED + i,
+                                                  _cpu_randn)
+                gwant = np_outs(run(grad_op, gins, gattrs, "cpu"))
+                ggot = np_outs(run(grad_op, gins, gattrs, device))
+                row["max_err_grad"] = _extra_close(grad_op, ggot, gwant)
+            row["cpu_rows"] = rows
+        rows_out[op] = row
+        del static
+        done.update([op] + ([grad_op] if grad_op in ("max_pool2d_with_index_grad",
+                                                     "max_pool3d_with_index_grad") else []))
+        torch.cuda.empty_cache()
+    if len(done) != 46:
+        raise AssertionError("extra ops: %d op types run, want 46: %s" % (len(done),
+                                                                          sorted(done)))
+    log("extra ops: the %d op types of nn_extra_ops.py and compose_ops.py at published shapes "
+        "on the card against the CPU (floats within rtol %g, atol %g of max(1, max |x|); "
+        "integers exactly; forward and backward), each forward captured alone and replayed bit "
+        "for bit (ms; errors over max(1, max |x|)): %s; card %s" % (
+            len(done), EXTRA_TOL, EXTRA_TOL, json.dumps(
+                {k: {f: (v if f.startswith("max_err") or not isinstance(v, float)
+                         else round(v, 4)) for f, v in r.items() if f not in ("shapes", "source")}
+                 for k, r in rows_out.items()}), card))
+    log("extra ops sources and shapes: %s" % json.dumps(
+        {k: [r["source"], r["shapes"]] for k, r in rows_out.items()}))
+    return rows_out
+
+
 def host_ops(torch, card):
     """Host ops on the graph path: a Print between two device segments
     fires on each of 3 runs (the second captures, the third replays);
@@ -4927,6 +5627,13 @@ def main():
             launches[name] = launches.get(name, 0) + n
         for name, err in errs.items():
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    with Phase("deploy resnet50"):
+        for name, n in deploy_resnet50(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    with Phase("extra ops"):
+        extra_ops(torch, card)
     for label, phase in (("train lstm", train_lstm), ("train nmt", train_nmt)):
         torch.cuda.empty_cache()
         with Phase(label):

@@ -2,8 +2,7 @@
 python/paddle/fluid/layers/nn.py) but `ring_attention`, which comes with
 the mesh. Each layer appends the same ops with the same attrs as the JAX
 package's, so a model builder yields the same Program in both packages.
-`conv2d_transpose` builds its op, which has no lowering in the port yet
-(Executor.run raises "ops without lowering")."""
+`conv2d_transpose` builds its op, which ops/nn_extra_ops.py lowers."""
 
 import numpy as np
 
@@ -1073,7 +1072,7 @@ def conv2d_transpose(
     name=None,
 ):
     """Transposed 2-D convolution, NCHW, filter [C_in, num_filters /
-    groups, kh, kw]. The port has no lowering for its op yet; the output's
+    groups, kh, kw] (ops/nn_extra_ops.py lowers the op). The output's
     shape is set here, where the JAX package infers it from the lowering,
     so the bias takes its width."""
     helper = LayerHelper("conv2d_transpose", **locals())

@@ -5,7 +5,9 @@ Program → Graph(program) → [Pass, Pass, ...] → Program, with a lossless
 round-trip, per-pass invariant verification and telemetry. Executor.run
 applies a pipeline at one choke point before a program runs
 (executor._apply_pass_pipeline); presets live in manager.PRESETS and are
-selected with FLAGS_pass_pipeline.
+selected with FLAGS_pass_pipeline. The transpilers' rewrites
+(fold_batch_norm, memory_optimize, quantize_training; passes/ports.py) are
+registered passes that no preset runs.
 """
 
 from .graph import Graph, GraphVerifyError, OpNode, VarNode, clone_program
@@ -24,7 +26,7 @@ from .pass_base import (
     register_pass,
     registered_passes,
 )
-from . import builtin, quant  # noqa: F401  (self-registering pass battery)
+from . import builtin, ports, quant  # noqa: F401  (self-registering pass battery)
 
 __all__ = [
     "Graph",

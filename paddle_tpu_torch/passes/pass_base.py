@@ -90,4 +90,4 @@ def registered_passes():
 def _ensure_builtin():
     # the built-in battery self-registers on import; lazy so that importing
     # pass_base alone registers nothing
-    from . import builtin, quant  # noqa: F401
+    from . import builtin, ports, quant  # noqa: F401

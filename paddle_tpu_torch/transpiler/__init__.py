@@ -1,12 +1,20 @@
 """Program -> Program rewrites (reference python/paddle/fluid/transpiler/):
-Bf16Transpiler, and Float16Transpiler, its alias.
+Bf16Transpiler (and Float16Transpiler, its alias), InferenceTranspiler (the
+conv + batch_norm fold), memory_optimize / release_memory, and
+QuantizeTranspiler (quantization-aware training, freeze, int8). The fold
+and memory_optimize are shims over the registered passes of
+passes/ports.py, whose quantize_training pass runs QuantizeTranspiler's
+training rewrite.
 
-The JAX package's other transpilers (DistributeTranspiler and its pserver
-dispatchers, gradient_merge, memory_optimize, InferenceTranspiler,
-QuantizeTranspiler) rewrite programs for the mesh and the distributed
-runtime, and come with the parallel and distributed layers.
+The JAX package's DistributeTranspiler with its pserver dispatchers and
+gradient_merge rewrite programs for the mesh and the distributed runtime,
+and come with the parallel and distributed layers.
 """
 
 from .bf16_transpiler import Bf16Transpiler, Float16Transpiler  # noqa: F401
+from .inference_transpiler import InferenceTranspiler  # noqa: F401
+from .memory_optimization_transpiler import memory_optimize, release_memory  # noqa: F401
+from .quantize_transpiler import QuantizeTranspiler  # noqa: F401
 
-__all__ = ["Bf16Transpiler", "Float16Transpiler"]
+__all__ = ["Bf16Transpiler", "Float16Transpiler", "InferenceTranspiler", "QuantizeTranspiler",
+           "memory_optimize", "release_memory"]

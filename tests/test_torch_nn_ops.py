@@ -443,22 +443,24 @@ def test_layer_signature_matches_api_spec(name):
 
 
 def test_conv2d_transpose_waits_for_its_lowering():
-    """conv2d_transpose builds (filter, bias, activation), but its op has no
-    lowering in the port yet: Executor.run raises the usual error."""
-    import paddle_tpu_torch as pt
+    """conv2d_transpose builds (filter, bias, activation) and, since its op
+    has a lowering (ops/nn_extra_ops.py), runs: from the JAX package's
+    startup weights both packages fetch the same output (rtol = atol =
+    1e-5), at stride 1 and at stride 2 with padding and an output_size."""
+    from torch_rnn_cases import assert_runs_close, run_both
 
-    main, startup = pt.Program(), pt.Program()
-    with pt.unique_name.guard(), pt.program_guard(main, startup):
-        img = pt.layers.data(name="img", shape=[3, 6, 6], dtype="float32")
-        out = pt.layers.conv2d_transpose(img, num_filters=4, filter_size=3, act="relu")
-    assert out.shape == (-1, 4, 8, 8)
-    exe = pt.Executor(pt.CPUPlace())
-    scope = pt.Scope(place=pt.CPUPlace())
-    with pt.scope_guard(scope):
-        exe.run(startup)
-        with pytest.raises(NotImplementedError, match="conv2d_transpose"):
-            exe.run(main, feed={"img": np.zeros((2, 3, 6, 6), "float32")},
-                    fetch_list=[out.name])
+    img = np.random.RandomState(3).randn(2, 3, 6, 6).astype("float32")
+
+    def program(fluid):
+        x = fluid.layers.data(name="img", shape=[3, 6, 6], dtype="float32")
+        a = fluid.layers.conv2d_transpose(x, num_filters=4, filter_size=3, act="relu")
+        b = fluid.layers.conv2d_transpose(x, num_filters=2, output_size=[11, 11], stride=2,
+                                          padding=1)
+        return [a, b]
+
+    want, got, _, _ = run_both(program, {"img": img})
+    assert got[0][0].shape == (2, 4, 8, 8) and got[0][1].shape == (2, 2, 11, 11)
+    assert_runs_close(got, want, 1e-5, 1e-5, "conv2d_transpose")
 
 
 def test_every_op_type_of_the_slice_is_registered():
