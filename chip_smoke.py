@@ -2253,11 +2253,12 @@ def serve(torch, pf, engine, card, readings):
     prompts = [
         rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist() for n in PROMPT_LENS
     ]
-    traces = engine.traces
+    traces = (engine.traces, engine.captures())
     results, graph, launches = _schedule(engine, pf, prompts, NEW_TOKENS)
     launches = {k: v for k, v in launches.items() if k in KERNEL_META}
-    if engine.traces != traces:
-        raise AssertionError("variants captured after warmup: %d -> %d" % (traces, engine.traces))
+    if (engine.traces, engine.captures()) != traces:
+        raise AssertionError("variants prepared or captured after warmup: %s -> %s"
+                             % (traces, (engine.traces, engine.captures())))
     if not all(launches.values()):
         raise AssertionError("a kernel never launched on the main path: %s" % launches)
     for i in (0, len(prompts) - 1):
@@ -2267,7 +2268,7 @@ def serve(torch, pf, engine, card, readings):
     if not np.all(np.isfinite(engine.last_logits)):
         raise AssertionError("non-finite decode logits")
     log("serve: %d prompt tokens; graph path (%d variants captured at warmup): %s; kernel "
-        "launches %s; card %s" % (sum(PROMPT_LENS), engine.traces, _path_line(graph),
+        "launches %s; card %s" % (sum(PROMPT_LENS), engine.captures(), _path_line(graph),
                                   json.dumps(launches), card))
     eager = _op_by_op_serve(engine, pf, prompts, NEW_TOKENS, results, "serve", card)
     graph_vs_op_by_op(engine, pf, prompts[1], 8, "serve")
@@ -2390,11 +2391,11 @@ def serve_wide(torch, pf, card, readings=None):
         n = engine.warmup()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        traces = engine.traces
+        traces = (engine.traces, engine.captures())
         results, graph, got = _schedule(engine, pf, prompts, WIDE_NEW_TOKENS)
-        if engine.traces != traces:
-            raise AssertionError("wide-head variants captured after warmup: %d -> %d"
-                                 % (traces, engine.traces))
+        if (engine.traces, engine.captures()) != traces:
+            raise AssertionError("wide-head variants prepared or captured after warmup: %s -> %s"
+                                 % (traces, (engine.traces, engine.captures())))
         head = WIDE_MODEL["d_model"] // WIDE_MODEL["n_head"]
         keys = [pf.launch_key(shared, head, quant) for shared in (False, True)]
         if not all(got[k] for k in keys) or sum(got.values()) != sum(got[k] for k in keys):
@@ -2477,11 +2478,11 @@ def serve_int8_kv(torch, pf, f32_engine, card, readings):
     rng = np.random.RandomState(SEED + 2)
     prompts = [rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist()
                for n in PROMPT_LENS * 2]
-    traces = engine.traces
+    traces = (engine.traces, engine.captures())
     results, graph, launches = _schedule(engine, pf, prompts, NEW_TOKENS)
-    if engine.traces != traces:
-        raise AssertionError("int8 variants captured after warmup: %d -> %d"
-                             % (traces, engine.traces))
+    if (engine.traces, engine.captures()) != traces:
+        raise AssertionError("int8 variants prepared or captured after warmup: %s -> %s"
+                             % (traces, (engine.traces, engine.captures())))
     if not (launches["paged_flash_int8"] and launches["paged_flash_shared_int8"]):
         raise AssertionError("an int8 paged kernel never launched: %s" % launches)
     if launches["paged_flash"] or launches["paged_flash_shared"]:
@@ -2621,7 +2622,7 @@ def serve_int8_gemm(torch, card):
         "warmed in %.1f s; quant %s" % (n_var, time.perf_counter() - t0, json.dumps(q)))
     ok32 = ok8 = agree = tot = 0
     drift, t32, t8 = 0.0, 0.0, 0.0
-    traces = (e32.traces, e8.traces)
+    traces = [(e.traces, e.stats()["captures"]) for e in (e32, e8)]
     qg.reset_kernel_launches()  # the main path's counting window opens here
     per_call = []
 
@@ -2657,8 +2658,8 @@ def serve_int8_gemm(torch, card):
     if any(got != want for got, want in per_call) or not launches:
         raise AssertionError("quant GEMM launches per call %s, want the predicate's count"
                              % per_call)
-    if (e32.traces, e8.traces) != traces:
-        raise AssertionError("serving variants built after warmup")
+    if [(e.traces, e.stats()["captures"]) for e in (e32, e8)] != traces:
+        raise AssertionError("serving variants prepared or captured after warmup")
     delta = abs(ok32 - ok8) / tot
     if not (delta <= TOP1_DELTA and drift < HEAD_REL_ERR):
         raise AssertionError("int8 vs f32: top-1 delta %g, max relative logit error %g"
@@ -2688,6 +2689,669 @@ def serve_int8_gemm(torch, card):
                 "int8_busy_ms": {str(r): {"call": b[0], "quant_gemm": b[1]}
                                  for r, b in busy.items()}}
     return {"quant_gemm_int8": launches}, readings
+
+
+# ---------------------------------------------------------------- phase 4e
+
+# the HTTP front end over four hosted models: GPT-2 small with f32 and int8
+# KV pools, the fc head in f32 and calibrated int8
+HTTP_CLIENTS = 8
+HTTP_TIMEOUT = 300  # seconds, every client call
+HTTP_PREDICTS = 12  # :predict requests a client sends, fc_head and fc_head_int8 in turn
+HTTP_GENERATES = 2  # :generate requests a client sends, gpt2 and gpt2_int8kv in turn
+HTTP_NEW_TOKENS = 64
+HTTP_PROMPT_LENS = (40, 131, 217, 305, 388, 472, 569, 700)
+HTTP_JSON_ROWS = 16  # :predict bodies up to this many rows go as JSON, larger as npz
+HTTP_FC_SWAPS, HTTP_GPT_SWAPS = 4, 2
+HTTP_WALL_CALLS = 20  # calls timed a form for the graphs-vs-op-by-op wall
+GPT_SWAP_PARAMS = ("lnf_w", "lnf_b")  # what a gpt2 swap replaces
+
+_COLD_BOOT = r"""
+import json, sys, time
+t_import = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from paddle_tpu_torch import CUDAPlace
+from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.serving import ServingEngine
+t0 = time.perf_counter()
+md, cache, data, buckets, out_path = sys.argv[2:7]
+data = np.load(data)
+calib = [{"img": data["calib%d" % i]} for i in range(8)]
+out = {"import_s": t0 - t_import}
+ys = {}
+for name, kw in (("fc_head", {}),
+                 ("fc_head_int8", {"precision": "int8", "calibration_feeds": calib})):
+    t = time.perf_counter()
+    eng = ServingEngine(md, name=name, place=CUDAPlace(0), batch_buckets=json.loads(buckets),
+                        cache_dir=cache, **kw)
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    st = eng.stats()
+    (ys[name],) = eng.run({"img": data["x"]})
+    out[name] = {"warm_s": warm, "traces": st["traces"], "cache_hits": st["cache_hits"],
+                 "captures": st["captures"]}
+out["nvcc_built"] = sorted(_build.build_logs)
+np.savez(out_path, **ys)
+print(json.dumps(out))
+"""
+
+
+def _http_call(base, path, body=None, ctype="application/json"):
+    """(code, headers, body, ms) of one client call (HTTP_TIMEOUT)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body,
+                                 headers={"Content-Type": ctype} if body is not None else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            code, headers, out = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        code, headers, out = e.code, dict(e.headers), e.read()
+    return code, headers, out, (time.perf_counter() - t0) * 1e3
+
+
+def _predict_body(x, as_npz):
+    import io as stdio
+
+    if not as_npz:
+        return json.dumps({"inputs": {"img": x.tolist()}}).encode(), "application/json"
+    buf = stdio.BytesIO()
+    np.savez(buf, img=x)
+    return buf.getvalue(), "application/x-npz"
+
+
+def _predict_out(body, as_npz):
+    import io as stdio
+
+    if as_npz:
+        got = np.load(stdio.BytesIO(body))
+        return got[got.files[0]], None
+    doc = json.loads(body)
+    (out,) = doc["outputs"].values()
+    return np.asarray(out, np.float32), doc["model_version"]
+
+
+def _http_requests(client, means):
+    """Client `client`'s requests: :predict of 1-250 rows on the two fc
+    heads, :generate of 40-700 prompt tokens on the two GPT-2 engines,
+    greedy on even clients and seeded temperature on odd ones."""
+    rng = np.random.RandomState(1000 + client)
+    out = []
+    for j in range(HTTP_PREDICTS):
+        rows = int(rng.randint(1, 251))
+        x, _ = _head_batch(means, rng, rows)
+        out.append({"kind": "predict", "model": ("fc_head", "fc_head_int8")[j % 2], "x": x,
+                    "npz": rows > HTTP_JSON_ROWS})
+    for j in range(HTTP_GENERATES):
+        n = HTTP_PROMPT_LENS[(client + 3 * j) % len(HTTP_PROMPT_LENS)]
+        doc = {"prompt": rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist(),
+               "max_new_tokens": HTTP_NEW_TOKENS, "eos_id": NO_EOS}
+        if client % 2:
+            doc.update(temperature=0.8, seed=100 + client)
+        out.insert(1 + 6 * j, {"kind": "generate", "model": ("gpt2", "gpt2_int8kv")[j % 2],
+                               "doc": doc})
+    return out
+
+
+def _http_load(base, server, means, swap):
+    """HTTP_CLIENTS threads send their requests; `swap(done)` runs on its
+    own thread as replies come in. Returns (replies, wall s)."""
+    import threading
+
+    replies, errors, lock = [], [], threading.Lock()
+
+    def client(i):
+        try:
+            for req in _http_requests(i, means):
+                engine = server._models[req["model"]].engine
+                before = engine.model_version
+                if req["kind"] == "predict":
+                    body, ctype = _predict_body(req["x"], req["npz"])
+                    code, headers, out, ms = _http_call(
+                        base, "/v1/models/%s:predict" % req["model"], body, ctype)
+                    rec = dict(req, code=code, ms=ms, before=before)
+                    if code == 200:
+                        rec["out"], rec["version"] = _predict_out(out, req["npz"])
+                    else:
+                        rec["version"] = None
+                else:
+                    code, headers, out, ms = _http_call(
+                        base, "/v1/models/%s:generate" % req["model"],
+                        json.dumps(req["doc"]).encode())
+                    rec = dict(req, code=code, ms=ms, before=before)
+                    rec["version"] = None
+                    if code == 200:
+                        doc = json.loads(out)
+                        rec["tokens"], rec["version"] = doc["tokens"], doc["model_version"]
+                rec["client"], rec["after"] = i, engine.model_version
+                with lock:
+                    replies.append(rec)
+        except Exception as e:  # raised below, after every thread ended
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+    swapper = threading.Thread(target=swap, args=(lambda: len(replies),))
+    t0 = time.perf_counter()
+    for t in threads + [swapper]:
+        t.start()
+    for t in threads + [swapper]:
+        t.join(HTTP_TIMEOUT * 4)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads + [swapper]):
+        raise AssertionError("HTTP clients failed: %s" % errors[:4])
+    return replies, wall
+
+
+def _gpt_swap_sets(engine, n):
+    """n parameter sets of the gpt2 swaps: the final layer_norm's scale and
+    shift, perturbed from a seed (index 0: as built)."""
+    names = [p for p in engine.model.param_names() if p.endswith(GPT_SWAP_PARAMS)]
+    base = {p: engine.scope.vars[p].cpu().numpy().copy() for p in names}
+    rng = np.random.RandomState(77)
+    return [base] + [{p: (a + 0.2 * k * rng.randn(*a.shape)).astype("float32")
+                      for p, a in base.items()} for k in range(1, n + 1)]
+
+
+def _fc_swap_sets(engine, n):
+    base = {p: engine.scope.vars[p].cpu().numpy().copy() for p in engine.param_names()}
+    rng = np.random.RandomState(78)
+    return [base] + [{p: (a + 0.01 * k * rng.randn(*a.shape)).astype("float32")
+                      for p, a in base.items()} for k in range(1, n + 1)]
+
+
+def _route_line(replies, wall):
+    """requests/s over the load wall and p50 / p99 latency, by route."""
+    out = {}
+    for model in sorted({r["model"] for r in replies}):
+        ms = np.array([r["ms"] for r in replies if r["model"] == model])
+        kind = next(r["kind"] for r in replies if r["model"] == model)
+        out["%s:%s" % (model, kind)] = {
+            "requests": int(ms.size), "requests_per_s": ms.size / wall,
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+    return out
+
+
+def _at_a_served_bucket(engine, x, out, buckets):
+    """Whether `out` equals the engine's direct run of rows `x` padded to
+    one of the buckets its calls served under the load (the batcher packs
+    a request's rows with others into one bucket; a bucket's rows are
+    computed alike whatever shares it)."""
+    n = len(x)
+    for b in sorted(b for b in buckets if b >= engine.bucket_batch(n)):
+        xp = np.zeros((b,) + x.shape[1:], x.dtype)
+        xp[:n] = x
+        (y,) = engine.run({"img": xp})
+        if np.array_equal(y[:n], out):
+            return True
+    return False
+
+
+def _check_replies(torch, server, replies, fc_sets, gpt_sets, md, buckets):
+    """Every reply against the engine that served it. A :predict reply
+    equals that engine's direct run of its rows at the bucket that served
+    them and at its version's parameters, and so does a fresh engine given
+    those parameters, bit for bit (an npz reply names no version: it must
+    equal one of those live while it ran); a :generate reply whose version
+    did not move while it ran equals the scheduler's own tokens at that
+    version; versions are monotone a client."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.serving import ServingEngine
+
+    seen = {}
+    for r in replies:  # a client's replies in the order it sent them
+        v, key = r.get("version"), (r["client"], r["model"])
+        if v is None:
+            continue
+        if not r["before"] <= v <= r["after"] or v < seen.get(key, 0):
+            raise AssertionError("client %d, %s: version %d after %d (live %d..%d)" % (
+                r["client"], r["model"], v, seen.get(key, 0), r["before"], r["after"]))
+        seen[key] = v
+    compared = {"predict": 0, "generate": 0}
+    e32 = server._models["fc_head"].engine
+    fc = [r for r in replies if r["model"] == "fc_head"]
+    matched = set()
+    for k, params in enumerate(fc_sets):
+        mine = [r for r in fc if (r["version"] == k if r["version"] is not None
+                                  else r["before"] <= k <= r["after"])]
+        if not mine:
+            continue
+        e32.set_params(params, version=k)
+        fresh = ServingEngine(md, name="fc_head_fresh%d" % k, place=CUDAPlace(0),
+                              batch_buckets=HEAD_BUCKETS)
+        fresh.set_params(params)
+        for r in mine:
+            if _at_a_served_bucket(e32, r["x"], r["out"], buckets["fc_head"]) and \
+                    _at_a_served_bucket(fresh, r["x"], r["out"], buckets["fc_head"]):
+                matched.add(id(r))
+            elif r["version"] is not None:
+                raise AssertionError("fc_head reply at version %d, %d rows: not the direct "
+                                     "run's or a fresh engine's at any served bucket"
+                                     % (k, len(r["x"])))
+        del fresh
+    if len(matched) != len(fc):
+        raise AssertionError("%d fc_head replies equal no version live while they ran"
+                             % (len(fc) - len(matched)))
+    compared["predict"] += len(fc)
+    e8 = server._models["fc_head_int8"].engine
+    for r in replies:
+        if r["model"] == "fc_head_int8":
+            if not _at_a_served_bucket(e8, r["x"], r["out"], buckets["fc_head_int8"]):
+                raise AssertionError("fc_head_int8 reply of %d rows differs from its direct run"
+                                     % len(r["x"]))
+            compared["predict"] += 1
+    for model, sets in (("gpt2", gpt_sets), ("gpt2_int8kv", [None])):
+        hosted = server._models[model]
+        clean = [r for r in replies if r["model"] == model and r["before"] == r["after"]]
+        # no prefix-cache hits: the load had none, and a hit chunks a
+        # prompt's prefill differently
+        saved, hosted.engine.prefix_cache = hosted.engine.prefix_cache, None
+        try:
+            for k, params in enumerate(sets):
+                mine = [r for r in clean if r["version"] == k]
+                if params is not None:
+                    hosted.engine.set_params(params, version=k)
+                futs = [hosted.batcher.submit(**r["doc"]) for r in mine]
+                for r, f in zip(mine, futs):
+                    if f.result(HTTP_TIMEOUT).tokens != r["tokens"]:
+                        raise AssertionError("%s reply at version %d (%s) differs from the "
+                                             "scheduler's tokens" % (
+                                                 model, k, "seeded" if "seed" in r["doc"]
+                                                 else "greedy"))
+                    compared["generate"] += 1
+        finally:
+            hosted.engine.prefix_cache = saved
+    return compared
+
+
+def _cold_start(md, means, card):
+    """Two boots of fc_head and fc_head_int8 on one cache_dir, each a
+    process of its own: the second prepares nothing, hits every bucket,
+    captures every bucket and serves the same outputs."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cold_start_") as tmp:
+        rng = np.random.RandomState(3)
+        data = {"calib%d" % i: _head_batch(means, rng, 16)[0] for i in range(8)}
+        data["x"] = _head_batch(means, rng, HEAD_EVAL_ROWS)[0]
+        np.savez(os.path.join(tmp, "data.npz"), **data)
+        boots, outs = [], []
+        for boot in range(2):
+            out_path = os.path.join(tmp, "out%d.npz" % boot)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", _COLD_BOOT, os.path.dirname(os.path.abspath(__file__)),
+                 md, os.path.join(tmp, "cache"), os.path.join(tmp, "data.npz"),
+                 json.dumps(list(HEAD_BUCKETS)), out_path],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError("cold-start boot %d failed:\n%s" % (boot, proc.stderr[-4000:]))
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            rec["process_s"] = time.perf_counter() - t0
+            boots.append(rec)
+            outs.append(np.load(out_path))
+        n = len(HEAD_BUCKETS)
+        for name in ("fc_head", "fc_head_int8"):
+            first, second = boots[0][name], boots[1][name]
+            if (first["traces"], first["cache_hits"]) != (n, 0) or \
+                    (second["traces"], second["cache_hits"]) != (0, n) or \
+                    first["captures"] != n or second["captures"] != n:
+                raise AssertionError("cold start %s: %s then %s" % (name, first, second))
+            if not np.array_equal(outs[0][name], outs[1][name]):
+                raise AssertionError("cold start %s: the second boot's outputs differ" % name)
+        for boot, rec in enumerate(boots):
+            log("serve http cold start, boot %d (a process of its own, %s): imports %.2f s; "
+                "fc_head warm %.3f s (traces %d, cache hits %d, captures %d); fc_head_int8 "
+                "warm %.3f s (traces %d, cache hits %d, captures %d, calibration included); "
+                "kernels compiled by nvcc in this boot: %s; process %.1f s; card %s" % (
+                    boot + 1, "cache empty" if boot == 0 else "the first boot's cache",
+                    rec["import_s"], rec["fc_head"]["warm_s"], rec["fc_head"]["traces"],
+                    rec["fc_head"]["cache_hits"], rec["fc_head"]["captures"],
+                    rec["fc_head_int8"]["warm_s"], rec["fc_head_int8"]["traces"],
+                    rec["fc_head_int8"]["cache_hits"], rec["fc_head_int8"]["captures"],
+                    rec["nvcc_built"] or "none", rec["process_s"], card))
+        return boots
+
+
+def _unwritten_fetch_model(md_src, md_dst):
+    """A copy of a saved model whose fetch list names a declared var no op
+    writes."""
+    import shutil
+
+    shutil.copytree(md_src, md_dst)
+    path = os.path.join(md_dst, "__model__")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["blocks"][0]["vars"].append({"name": "never_written", "shape": [-1, HEAD["classes"]],
+                                     "dtype": "float32"})
+    doc["fetch_var_names"].append("never_written")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+def _static_verify_leg(torch, md, calib, card):
+    """FLAGS_static_verify on: the four engines built and warmed (the gate
+    at load, at each variant's aot_serve_lowering and each generation
+    variant) and one Transformer base training step under training_fused
+    (pass-manager stage 0 and each pass, Executor.run); the gate's wall
+    summed. A saved model whose fetch is never written raises at load."""
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, scope_guard
+    from paddle_tpu_torch import flags as pt_flags
+    from paddle_tpu_torch.analysis import StaticVerifyError
+    from paddle_tpu_torch.analysis import verify as sv
+    from paddle_tpu_torch.models import GPTDecoder
+    from paddle_tpu_torch.serving import GenerationEngine, ServingEngine
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    walls, where = [], {}
+    real = sv.static_verify
+
+    def gate(program, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(program, *a, **kw)
+        finally:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            w = kw.get("where", "direct").split(":")[0]
+            where[w] = where.get(w, 0) + 1
+
+    engines, build_s = {}, {}
+    sv.static_verify = gate
+    pt_flags.set_flags({"static_verify": True})
+    try:
+        for name, kw in (("fc_head", {}),
+                         ("fc_head_int8", {"precision": "int8", "calibration_feeds": calib})):
+            t0 = time.perf_counter()
+            engines[name] = ServingEngine(md, name=name, place=CUDAPlace(0),
+                                          batch_buckets=HEAD_BUCKETS, **kw)
+            engines[name].warmup()  # each variant's gate runs here
+            build_s[name] = time.perf_counter() - t0
+        for name, kw in (("gpt2", ENGINE), ("gpt2_int8kv", INT8_ENGINE)):
+            t0 = time.perf_counter()
+            model = GPTDecoder(**dict(GPT2_SMALL, kv_dtype="int8" if "int8" in name
+                                      else "float32"))
+            engines[name] = GenerationEngine(model, name=name, place=CUDAPlace(0), **kw)
+            if name == "gpt2_int8kv":
+                with torch.no_grad():
+                    for p in model.param_names():
+                        engines[name].scope.vars[p].copy_(engines["gpt2"].scope.vars[p])
+            engines[name].warmup()  # the generation variants' gates run here
+            build_s[name] = time.perf_counter() - t0
+        n_serving = len(walls)
+        main, startup, loss = prof.build(prof.BASE)
+        pt_flags.set_flags({"pass_pipeline": "training_fused"})
+        scope = Scope(seed=SEED, place=CUDAPlace(0))
+        with scope_guard(scope):
+            exe = Executor(CUDAPlace(0))
+            exe.run(startup)
+            (lv,) = exe.run(main, feed=prof.make_batch(prof.BASE, SEED), fetch_list=[loss.name])
+        if not np.all(np.isfinite(lv)):
+            raise AssertionError("the verified Transformer step's loss is not finite")
+        with tempfile.TemporaryDirectory(prefix="bad_model_") as tmp:
+            _unwritten_fetch_model(md, os.path.join(tmp, "m"))
+            try:
+                ServingEngine(os.path.join(tmp, "m"), name="bad_model", place=CUDAPlace(0))
+            except StaticVerifyError as e:
+                if "fetch-unwritten" not in str(e) or "never_written" not in str(e):
+                    raise
+                bad = str(e).splitlines()[1]
+            else:
+                raise AssertionError("a fetch nobody writes was served")
+    finally:
+        sv.static_verify = real
+        pt_flags.set_flags({"static_verify": False, "pass_pipeline": ""})
+    del exe, scope, main, startup
+    torch.cuda.empty_cache()
+    log("serve http static verify: FLAGS_static_verify on while the 4 engines were built "
+        "and warmed (%s s) and one Transformer base step ran (loss %.4f): %d gate runs (%s), %.1f ms in "
+        "all (%.1f ms for the serving engines, %.1f ms for the training step's); a saved "
+        "model whose fetch no op writes: StaticVerifyError at load: %s; card %s" % (
+            json.dumps({k: round(v, 2) for k, v in build_s.items()}), float(lv.reshape(-1)[0]),
+            len(walls), json.dumps(where), sum(walls), sum(walls[:n_serving]),
+            sum(walls[n_serving:]), bad, card))
+    return engines, {"gate_ms": sum(walls), "gate_runs": len(walls)}
+
+
+def _fault_leg(base, server, means):
+    """slow_response, then conn_reset, then a full queue: the client sees
+    the delay, the reset and a 503 with Retry-After; the server serves on."""
+    import threading
+    import urllib.error
+
+    from paddle_tpu_torch.resilience import faults
+
+    x, _ = _head_batch(means, np.random.RandomState(5), 4)
+    body, ctype = _predict_body(x, False)
+    path = "/v1/models/fc_head_int8:predict"
+    plain = min(_http_call(base, path, body, ctype)[3] for _ in range(3))
+    faults.install("slow_response:ms=300")
+    try:
+        code, _, _, slow = _http_call(base, path, body, ctype)
+        faults.install("conn_reset:step=1")
+        try:
+            code2 = _http_call(base, path, body, ctype)[0]
+        except (urllib.error.URLError, ConnectionError, OSError) as e:
+            reset = type(e).__name__
+        else:
+            raise AssertionError("conn_reset: the client got a reply (%d)" % code2)
+    finally:
+        faults.install(None)
+    if code != 200 or slow < 300.0:
+        raise AssertionError("slow_response: code %d after %.1f ms" % (code, slow))
+    after = _http_call(base, path, body, ctype)[0]
+    # a full queue: fc_head's engine held, its batcher cut to 256 rows takes
+    # one call in flight and one 250-row request queued; the third is refused
+    eng, batcher = server._models["fc_head"].engine, server._models["fc_head"].batcher
+    big, bctype = _predict_body(_head_batch(means, np.random.RandomState(6), 250)[0], True)
+    codes, lock = [], threading.Lock()
+
+    def client():
+        code, headers, _, _ = _http_call(base, "/v1/models/fc_head:predict", big, bctype)
+        with lock:
+            codes.append((code, headers.get("Retry-After")))
+
+    eng._swap_lock.acquire()
+    limit, batcher.max_queue_rows = batcher.max_queue_rows, 256
+    try:
+        threads = []
+        for _ in range(3):
+            threads.append(threading.Thread(target=client))
+            threads[-1].start()
+            time.sleep(0.2)
+        time.sleep(0.5)
+    finally:
+        batcher.max_queue_rows = limit
+        eng._swap_lock.release()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    full = [ra for c, ra in codes if c == 503]
+    if sorted(c for c, _ in codes) != [200, 200, 503] or not full[0] or int(full[0]) < 1:
+        raise AssertionError("full queue: replies %s" % codes)
+    if after != 200 or _http_call(base, "/healthz")[0] != 200:
+        raise AssertionError("the server stopped serving after the faults")
+    log("serve http faults: slow_response:ms=300 -> 200 after %.1f ms (%.1f ms without); "
+        "conn_reset -> the client saw %s and the next request got %d; a full queue "
+        "(fc_head's engine held, 3 x 250 rows) -> replies %s, Retry-After %s s" % (
+            slow, plain, reset, after, sorted(c for c, _ in codes), full[0]))
+
+
+def _load_launches(engines, gen0, buckets, launches):
+    """The kernels' launches over the load against what its engine calls
+    imply: per layer one decode launch a decode step and one prefill launch
+    a chunk (f32 or int8 pools), and the quant GEMM's predicate count at
+    each int8 call's bucket."""
+    n_layer = GPT2_SMALL["n_layer"]
+    e8 = engines["fc_head_int8"]
+    want = {"quant_gemm_int8": sum(_expected_qgemm_launches(e8, b) for b in buckets)}
+    for name, dec, pre in (("gpt2", "paged_flash", "paged_flash_shared"),
+                           ("gpt2_int8kv", "paged_flash_int8", "paged_flash_shared_int8")):
+        steps = engines[name]._m_steps.value() - gen0[name][0]
+        chunks = engines[name]._m_chunks.value() - gen0[name][1]
+        want[dec], want[pre] = n_layer * steps, n_layer * chunks
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want or not all(got.values()):
+        raise AssertionError("kernel launches under load %s, the requests imply %s"
+                             % (got, want))
+    return got
+
+
+def serve_http(torch, pf, card, readings):
+    """Phase 4e: one ModelServer on 127.0.0.1 (port 0) hosting gpt2 and
+    gpt2_int8kv (GPT-2 small, f32 and int8 KV) and fc_head and
+    fc_head_int8 (the fc head in f32 and calibrated int8), all warmed
+    before they are registered, built with FLAGS_static_verify on. Eight
+    client threads send :predict and :generate over urllib while another
+    hot-swaps fc_head 4 times and gpt2 twice; then the faults, the
+    graphs-vs-op-by-op call walls and two cold boots on one cache_dir.
+    Returns the paged kernels' and the quant GEMM's launches over the
+    load."""
+    import tempfile
+
+    from paddle_tpu_torch.ops import gemm_epilogue as ge
+    from paddle_tpu_torch.ops import quant_gemm as qg
+    from paddle_tpu_torch.serving import ModelServer
+
+    means = np.random.RandomState(101).randn(HEAD["classes"], HEAD["d_model"])
+    with tempfile.TemporaryDirectory(prefix="serve_http_") as tmp:
+        md = os.path.join(tmp, "fc_head")
+        _fit_head(torch, means, md)
+        rng = np.random.RandomState(3)
+        calib = [{"img": _head_batch(means, rng, 16)[0]} for _ in range(8)]
+        engines, gate = _static_verify_leg(torch, md, calib, card)
+        server = ModelServer(host="127.0.0.1", port=0, request_timeout_ms=HTTP_TIMEOUT * 1e3)
+        try:
+            t0 = time.perf_counter()
+            for name in ("fc_head", "fc_head_int8"):
+                # room for every client's largest request at once
+                server.add_model(name, engine=engines[name],
+                                 batcher_opts={"max_queue_rows": HTTP_CLIENTS * 256,
+                                               "timeout_ms": HTTP_TIMEOUT * 1e3})
+            for name in ("gpt2", "gpt2_int8kv"):
+                server.add_generation_model(name, engine=engines[name],
+                                            scheduler_opts={"timeout_ms": HTTP_TIMEOUT * 1e3})
+            torch.cuda.synchronize()
+            base = "http://127.0.0.1:%d" % server.start()
+            health = json.loads(_http_call(base, "/healthz")[2])
+            if not health["ready"] or sorted(health["models"]) != sorted(engines):
+                raise AssertionError("healthz: %s" % health)
+            log("serve http: %s up with %s warmed in %.1f s (fc variants %s; gpt2 %d and "
+                "gpt2_int8kv %d captures); memory reserved %.3f GiB; card %s" % (
+                    base, sorted(engines), time.perf_counter() - t0,
+                    {n: engines[n].stats()["captures"] for n in ("fc_head", "fc_head_int8")},
+                    engines["gpt2"].captures(), engines["gpt2_int8kv"].captures(),
+                    torch.cuda.memory_reserved() / GIB, card))
+            fc_sets = _fc_swap_sets(engines["fc_head"], HTTP_FC_SWAPS)
+            gpt_sets = _gpt_swap_sets(engines["gpt2"], HTTP_GPT_SWAPS)
+            counts0 = {n: (e.traces, e.stats()["captures"]) for n, e in engines.items()}
+            gen0 = {n: (engines[n]._m_steps.value(), engines[n]._m_chunks.value())
+                    for n in ("gpt2", "gpt2_int8kv")}
+            e8 = engines["fc_head_int8"]
+            buckets = {"fc_head": [], "fc_head_int8": []}  # each call's bucket
+
+            def counted(engine, sink):
+                real = engine._call
+
+                def call(v, padded, n, bucket, eager):
+                    sink.append(bucket)
+                    return real(v, padded, n, bucket, eager)
+
+                return call
+
+            total = HTTP_CLIENTS * (HTTP_PREDICTS + HTTP_GENERATES)
+            plan = ["fc", "gpt", "fc", "fc", "gpt", "fc"]
+            swap_log = []
+
+            def swap(done):
+                k = {"fc": 0, "gpt": 0}
+                for i, what in enumerate(plan):
+                    while done() < (i + 1) * total // (len(plan) + 2):
+                        time.sleep(0.005)
+                    k[what] += 1
+                    if what == "fc":
+                        engines["fc_head"].set_params(fc_sets[k[what]], version=k[what])
+                    else:
+                        engines["gpt2"].set_params(gpt_sets[k[what]], version=k[what])
+                    swap_log.append((what, k[what], done()))
+
+            for name in buckets:
+                engines[name]._call = counted(engines[name], buckets[name])
+            pf.reset_kernel_launches()
+            qg.reset_kernel_launches()  # the main path's counting window opens here
+            epilogue = ge.kernel_launches()["gemm_epilogue"]
+            try:
+                replies, wall = _http_load(base, server, means, swap)
+            finally:
+                for name in buckets:
+                    del engines[name]._call
+            launches = dict(pf.kernel_launches(), **qg.kernel_launches())  # and closes here
+            epilogue = ge.kernel_launches()["gemm_epilogue"] - epilogue
+            if any(r["code"] != 200 for r in replies) or len(replies) != total:
+                raise AssertionError("replies: %d of %d, codes %s" % (
+                    len(replies), total, sorted({r["code"] for r in replies})))
+            counts1 = {n: (e.traces, e.stats()["captures"]) for n, e in engines.items()}
+            if counts1 != counts0:
+                raise AssertionError("prepared or captured under load: %s -> %s"
+                                     % (counts0, counts1))
+            got = _load_launches(engines, gen0, buckets["fc_head_int8"], launches)
+            routes = _route_line(replies, wall)
+            log("serve http load: %d clients, %d requests in %.3f s (%d :predict of 1-250 rows, "
+                "JSON up to %d rows, npz past; %d :generate of 40-700 prompt tokens and %d new, "
+                "greedy and seeded temperature); hot swaps (what, version, replies done) %s; "
+                "by route %s; kernel launches %s (as the engine calls imply), the GEMM "
+                "epilogue %d (the f32 head's chains); card %s" % (
+                    HTTP_CLIENTS, len(replies), wall, HTTP_CLIENTS * HTTP_PREDICTS,
+                    HTTP_JSON_ROWS, HTTP_CLIENTS * HTTP_GENERATES, HTTP_NEW_TOKENS, swap_log,
+                    json.dumps(routes), json.dumps(got), epilogue, card))
+            prom = _http_call(base, "/metrics")[2].decode()
+            health = json.loads(_http_call(base, "/healthz")[2])
+            if 'serving_http_requests{code="200"}' not in prom or not health["ready"] or \
+                    not all(m["ready"] for m in health["models"].values()):
+                raise AssertionError("/metrics or /healthz after the load")
+            compared = _check_replies(torch, server, replies, fc_sets, gpt_sets, md,
+                                      {k: set(v) for k, v in buckets.items()})
+            copies = {n: e.stats()["state_copies"] for n, e in engines.items()}
+            if any(copies.values()):
+                raise AssertionError("replays copied parameters after a swap: %s" % copies)
+            log("serve http checks: %s replies equal the engine's direct call and a fresh "
+                "engine at their version and a bucket the load served (:predict, bit for "
+                "bit; buckets %s) or the scheduler's tokens at "
+                "their version (:generate, those whose version did not move mid-request); "
+                "versions monotone a client; state copies by replays %s; /healthz ready; "
+                "/metrics serving/http/requests by code" % (
+                    json.dumps(compared), {k: sorted(set(v)) for k, v in buckets.items()},
+                    json.dumps(copies)))
+            _fault_leg(base, server, means)
+            walls = {}
+            for name in ("fc_head", "fc_head_int8"):
+                x, _ = _head_batch(means, np.random.RandomState(9), HEAD_EVAL_ROWS)
+                eng = engines[name]
+                graph, eager = [], []
+                for _ in range(HTTP_WALL_CALLS):
+                    timed(eng.run, graph)({"img": x})
+                    timed(eng.run_op_by_op, eager)({"img": x})
+                walls[name] = {"graph_ms": float(np.median(graph)),
+                               "op_by_op_ms": float(np.median(eager))}
+            log("serve http call wall (%d rows, bucket %d, host clock to the fetch copy, median "
+                "of %d calls interleaved): %s; card %s" % (
+                    HEAD_EVAL_ROWS, engines["fc_head"].bucket_batch(HEAD_EVAL_ROWS),
+                    HTTP_WALL_CALLS, json.dumps(walls), card))
+        finally:
+            server.stop(drain=True)
+        boots = _cold_start(md, means, card)
+    readings["serve_http"] = {"routes": routes, "load_wall_s": wall, "call_wall": walls,
+                              "gemm_epilogue_launches": epilogue,
+                              "static_verify": gate,
+                              "cold_start": [{k: b[k] for k in ("import_s", "fc_head",
+                                                                "fc_head_int8")}
+                                             for b in boots]}
+    return got
 
 
 # ---------------------------------------------------------------- phase 5
@@ -5602,6 +6266,10 @@ def main():
     torch.cuda.empty_cache()
     with Phase("serve int8 GEMM"):
         launches.update(serve_int8_gemm(torch, card)[0])
+    torch.cuda.empty_cache()
+    with Phase("serve http"):
+        for name, n in serve_http(torch, pf, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
     with Phase("serve wide heads"):
         wide, launches["flash_fwd_wide"] = serve_wide(torch, pf, card, paths)

@@ -526,13 +526,17 @@ class _CudaGraph:
     offset exactly as an eager run does; the latter restart from their
     seeds before every replay. Counters: what the kernel wrappers and fused
     lowerings counted during the capture (which ran nothing) is taken back
-    out, and added at every replay."""
+    out, and added at every replay. `state_copies` counts the state
+    tensors a replay had to copy into the captured ones (a rebound value):
+    a hot swap that copies into the captured tensors itself leaves it
+    still."""
 
     def __init__(self, block, feeds, ro, mut, ctx, pool=None):
         from .ops import fused
 
         device = ctx.device
         self.ro, self.mut = dict(ro), dict(mut)
+        self.state_copies = 0
         self._ptrs = {n: t.data_ptr() for d in (ro, mut) for n, t in d.items()}
         self.stage = _FeedStage(block.feed_names, block.feed_dtypes, feeds, device)
         self.stage.fill(feeds)
@@ -582,6 +586,7 @@ class _CudaGraph:
                            cur.device))
                 with torch.no_grad():
                     cur.copy_(t)
+                self.state_copies += 1
         self.stage.fill(feeds)
         for gen, seed in self.seeded:
             gen.manual_seed(seed)
@@ -833,6 +838,10 @@ class _ServeBlock:
         """How many of its graphs are captured."""
         return sum(c.graph is not None for c in self.compiled.values())
 
+    def state_copies(self):
+        """State tensors its replays copied into the captured ones."""
+        return sum(c.graph.state_copies for c in self.compiled.values() if c.graph is not None)
+
     def eager(self, feeds, ro, mut, per_op=False):
         return self.block.run(self.scope, feeds, ro, mut, True, per_op)[:2]
 
@@ -848,6 +857,28 @@ class _ServeBlock:
         return compiled.run(self.scope, feeds, ro, mut)[:2]
 
 
+class _ServeFetches:
+    """The fetch-only serve callable of aot_serve_lowering: `fn(feeds, ro,
+    mut) -> [fetches]` through its _ServeBlock (CUDA graphs on the card,
+    the fetches the graph's own tensors until the next replay of its pool),
+    `fn.eager(...)` op by op, asked for explicitly (never a fallback)."""
+
+    def __init__(self, serve):
+        self.serve = serve
+
+    def __call__(self, feeds, ro, mut):
+        return self.serve(feeds, ro, mut)[0]
+
+    def eager(self, feeds, ro, mut):
+        return self.serve.eager(feeds, ro, mut)[0]
+
+    def captures(self):
+        return self.serve.captures()
+
+    def state_copies(self):
+        return self.serve.state_copies()
+
+
 def aot_serve_lowering(program, feed_names, fetch_names, scope,
                        pass_pipeline=None, return_state=False, graph_pool=None):
     """Forward lowering for serving: returns (serve, ro, mut) where
@@ -855,15 +886,20 @@ def aot_serve_lowering(program, feed_names, fetch_names, scope,
     read-only / block-written persistables, passed as ARGUMENTS so one
     callable serves any parameter values of the same shapes. Feeds may be
     numpy arrays or tensors; they are cast to the declared dtypes on the
-    scope's device. It runs op by op.
+    scope's device. On the card it runs as CUDA graphs (a _ServeBlock: op
+    by op at its first call, captured at its second, replayed after;
+    `serve.captures()` counts them, `serve.eager(...)` runs op by op), on
+    the CPU op by op. The graphs capture into `graph_pool`, a torch graph
+    pool handle that graphs replayed one at a time may share (None: a pool
+    each), so their fetches are valid until the next replay of any graph of
+    that pool.
 
     `return_state=True` is the decode-state mode: `serve(...) ->
     ([fetches], new_mut)`. kv_cache_write updates the pools in place, so
-    new_mut holds the same tensors the caller passed in. On the card this
-    form runs as CUDA graphs (a _ServeBlock; `serve.captures()` counts
-    them). They capture into `graph_pool`, a torch graph pool handle that
-    graphs replayed one at a time may share (None: a pool each), so their
-    fetches are valid until the next replay of any graph of that pool.
+    new_mut holds the same tensors the caller passed in.
+
+    With FLAGS_static_verify on, the program is linted in serving mode
+    first (analysis/verify.py) and an error finding raises.
 
     The JAX package runs its "inference" pass preset here; the port lowers
     the Program verbatim for None/""/"off"/"inference" (the preset's
@@ -878,6 +914,10 @@ def aot_serve_lowering(program, feed_names, fetch_names, scope,
             "aot_serve_lowering: pass pipeline %r; apply it with "
             "passes.PassManager and serve the result with 'off'" % (pass_pipeline,)
         )
+    from .analysis import maybe_static_verify
+
+    maybe_static_verify(program, list(feed_names), list(fetch_names), scope=scope,
+                        mode="serving", where="aot_serve")
     block = _PerOpProfiledBlock(
         program.global_block(), list(feed_names), list(fetch_names), scope
     )
@@ -887,11 +927,7 @@ def aot_serve_lowering(program, feed_names, fetch_names, scope,
     serve = _ServeBlock(block, scope, graph_pool)
     if return_state:
         return serve, ro, mut
-
-    def serve_fetches(feeds, ro_, mut_):
-        return serve.eager(feeds, ro_, mut_)[0]
-
-    return serve_fetches, ro, mut
+    return _ServeFetches(serve), ro, mut
 
 
 class Executor:
@@ -977,6 +1013,15 @@ class Executor:
             cached = use_program_cache or self.device.type == "cuda"
             compiled = self._cache.get(key) if cached else None
             if compiled is None:
+                # FLAGS_static_verify: prove the program against the
+                # fluidlint checkers before its block is prepared
+                from .analysis import maybe_static_verify
+
+                maybe_static_verify(
+                    program, list(feed), fetch_names, scope=scope,
+                    mode="inference" if program._is_test else "training",
+                    where="executor",
+                )
                 card = self.device.type == "cuda"
                 if _splits(block):
                     compiled = _SegmentedBlock(block, list(feed), fetch_names,

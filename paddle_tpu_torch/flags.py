@@ -33,10 +33,25 @@ set_flags): the JAX package's 42 names, with its defaults and coercion.
 - pass_pipeline: the graph-pass pipeline Executor.run applies before a
   program runs (passes/manager.py PRESETS, e.g. "training_fused", or a
   comma-separated pass list); "" (default) runs the program as built.
-- serving_cache_dir: the JAX package's persistent compile-cache directory.
-  The port has no compile cache; a GenerationEngine raises when one is set.
-- trace_dir / trace_sample / trace_slow_ms / trace_ring / flightrec_dir: the
-  request tracer (observability/tracing.py), as in the JAX package.
+- serving_cache_dir: the persistent compile cache's directory
+  (serving/compile_cache.py): a ServingEngine or GenerationEngine built
+  without cache_dir takes it from here, and stores each variant's prepared
+  block and shape facts there; "" (default) keeps no cache.
+- trace_dir / trace_sample / trace_slow_ms / trace_ring: the request tracer
+  (observability/tracing.py), as in the JAX package.
+- flightrec_dir / flightrec_max_bundles / flightrec_min_interval_s: the
+  flight recorder (observability/flightrec.py): a bundle directory per
+  trigger (the ModelServer's 5xx replies), at most max_bundles kept, one
+  per reason per min_interval_s.
+- static_verify: the compile gate of analysis/verify.py. On, Executor.run
+  (at a block's preparation), aot_serve_lowering, the serving engines at
+  load and the pass manager (stage 0 before the first pass and after each
+  pass) lint the program with the fluidlint checkers and raise
+  StaticVerifyError on an error finding; off (default) costs one flag read.
+- pass_debug_dir: the pass manager writes a graphviz .dot of the program
+  before and after each pass and a unified diff of its op list there
+  ("NN_<pass>_before.dot", "NN_<pass>_after.dot", "NN_<pass>_ops.diff");
+  "" (default) writes nothing.
 - benchmark: Executor.run synchronizes the run's device before it returns
   the fetches, so a host clock around a run brackets the step's device
   work (the reference's FLAGS_benchmark, operator.cc:769).
@@ -48,12 +63,11 @@ set_flags): the JAX package's 42 names, with its defaults and coercion.
   paddle_num_threads: accepted and recorded for API compatibility, as the
   reference documents them; storage lifetime and threading are PyTorch's
   (the caching allocator, torch's own thread pool).
-- The flags of modules the port has not ported yet (PENDING: the RPC,
-  resilience, elastic, data, telemetry, flight-recorder and op-profiling
-  flags, the static verifier and the pass manager's debug dump) are known
-  names: setting one to its default succeeds, and any other value raises
-  NotImplementedError naming the module it waits for, so no script is told
-  that a guard is on when it is not.
+- The flags of modules the port has not ported yet (PENDING, 20 names: the
+  RPC, resilience, elastic, data, telemetry and op-profiling flags) are
+  known names: setting one to its default succeeds, and any other value
+  raises NotImplementedError naming the module it waits for, so no script
+  is told that a guard is on when it is not.
 """
 
 import os
@@ -73,6 +87,10 @@ _DEFAULTS = {
     "trace_slow_ms": 500.0,
     "trace_ring": 4096,
     "flightrec_dir": "",
+    "flightrec_max_bundles": 16,
+    "flightrec_min_interval_s": 2.0,
+    "pass_debug_dir": "",
+    "static_verify": False,
     "benchmark": False,
     "gemm_double_buffer": "auto",
     "cpu_deterministic": False,
@@ -91,8 +109,6 @@ _DEFAULTS = {
     "telemetry_log_every": 0,
     "tensor_stats": "",
     "nan_provenance": False,
-    "flightrec_max_bundles": 16,
-    "flightrec_min_interval_s": 2.0,
     "data_num_workers": 0,
     "data_ring_slots": 0,
     "data_prefetch": 2,
@@ -102,8 +118,6 @@ _DEFAULTS = {
     "elastic_nan_budget": 3,
     "elastic_rollback_budget": 2,
     "elastic_barrier_timeout_s": 120.0,
-    "pass_debug_dir": "",
-    "static_verify": False,
 }
 
 _CHOICES = {"paged_flash": ("auto", "off"), "quantized_gemm": ("auto", "off"),
@@ -117,7 +131,6 @@ _ELASTIC = "resilience/elastic.py (ROADMAP A7)"
 _DATA = "the native data runtime data/ (ROADMAP A7)"
 _TELEMETRY = "observability/export.py and stepstats.py (ROADMAP A7)"
 _OPPROF = "observability/opprof.py (ROADMAP A7)"
-_FLIGHTREC = "observability/flightrec.py (ROADMAP A7)"
 PENDING = {
     "rpc_max_retry": _RPC,
     "rpc_deadline": _RPC,
@@ -130,8 +143,6 @@ PENDING = {
     "telemetry_log_every": _TELEMETRY,
     "tensor_stats": _OPPROF,
     "nan_provenance": _OPPROF,
-    "flightrec_max_bundles": _FLIGHTREC,
-    "flightrec_min_interval_s": _FLIGHTREC,
     "data_num_workers": _DATA,
     "data_ring_slots": _DATA,
     "data_prefetch": _DATA,
@@ -141,8 +152,6 @@ PENDING = {
     "elastic_nan_budget": _ELASTIC,
     "elastic_rollback_budget": _ELASTIC,
     "elastic_barrier_timeout_s": _ELASTIC,
-    "pass_debug_dir": "the pass manager's debug dump (passes/manager.py, ROADMAP A3)",
-    "static_verify": "the static verifier (analysis/verify.py, ROADMAP A3)",
 }
 
 _flags = {}

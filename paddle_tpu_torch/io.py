@@ -9,8 +9,9 @@ other writes: one `<name>.npy` per var with a `<name>.npy.dtype` sidecar
 program as JSON (`__model__`) with its feed and fetch names. Save and load
 are host-side operations on the Scope: tensors go to numpy on the host and
 come back as tensors on the scope's device. Each file is written to a temp
-name, flushed to disk and renamed into place. (The JAX package's injected
-checkpoint faults ride its resilience layer, which is not ported.)
+name, flushed to disk and renamed into place. (The JAX package's
+`ckpt_crash` fault hook between the write and the rename belongs to its
+checkpoint layer, which comes with the rest of resilience/, ROADMAP A7.)
 """
 
 import hashlib

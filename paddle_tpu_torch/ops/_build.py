@@ -26,7 +26,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["NVCC_FLAGS", "arrival_counters", "build_all", "build_logs", "load", "register"]
+__all__ = ["NVCC_FLAGS", "arrival_counters", "build_all", "build_logs", "build_tag", "load",
+           "register"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, "csrc")
@@ -63,6 +64,16 @@ def _so_path(stem):
             digest.update(f.read())
     tag = digest.hexdigest()[:16]
     return os.path.join(_BUILD_DIR, "lib%s-%s.so" % (stem, tag))
+
+
+def build_tag():
+    """One hash of every registered kernel's library name (each names its
+    source, headers and flags): what a compiled artifact that records the
+    kernels' launches is valid for (serving/compile_cache.py variant_key)."""
+    digest = hashlib.sha256()
+    for stem in sorted(_binders):
+        digest.update(os.path.basename(_so_path(stem)).encode())
+    return digest.hexdigest()[:16]
 
 
 def _compile(stems):

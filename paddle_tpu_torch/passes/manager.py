@@ -1,7 +1,6 @@
 """PassManager: ordered pass pipelines over the Graph IR (reference
 framework/ir/pass.cc Pass::Apply + BuildStrategy::Apply). A copy of
-paddle_tpu/passes/manager.py without its static-verify stage and its
-graphviz debug dumps (the analysis and debugger modules are not ported).
+paddle_tpu/passes/manager.py.
 
 `PassManager(pipeline).apply(program, ...)` returns a NEW transformed
 Program; `apply_cached` memoizes that per (program uid/version, pipeline,
@@ -13,7 +12,12 @@ caller's Program.
 Per pass, the manager re-verifies graph invariants (Graph.verify —
 def-before-use, block linkage, foreign-block attrs) and records wall-time
 and op-count telemetry through the observability registry (`passes/*`
-gauges and counters).
+gauges and counters). With FLAGS_static_verify on, the structural
+fluidlint checkers (analysis/verify.py verify_graph) run over the pristine
+graph (stage 0) and again after every pass, so a defect is named at the
+pass that made it. With FLAGS_pass_debug_dir set, each pass leaves
+"NN_<pass>_before.dot" and "NN_<pass>_after.dot" (graphviz of block 0)
+and "NN_<pass>_ops.diff" (a unified diff of every block's op list) there.
 
 Pipeline presets (FLAGS_pass_pipeline):
 - training_default: constant_fold, dead_op_eliminate, fuse_elemwise_act,
@@ -35,6 +39,8 @@ fuse_attention (causal score chains into one flash_attention op) is in no
 preset, as in the JAX package.
 """
 
+import difflib
+import os
 import time
 
 from .graph import Graph
@@ -171,20 +177,33 @@ class PassManager:
         return out
 
     def apply_to_graph(self, graph, ctx):
-        """The core loop: verify → (time, apply, verify, telemetry) per pass.
-        Mutates `graph`; returns ctx.results."""
+        """The core loop: verify → (dump, time, apply, verify, dump, diff,
+        telemetry) per pass. Mutates `graph`; returns ctx.results."""
+        from .. import flags as _flags
+        from ..analysis import verify_graph
+
+        debug_dir = _flags.get_flags("pass_debug_dir")["pass_debug_dir"]
         m = _metrics()
         graph.verify()
+        # FLAGS_static_verify stage 0: structural fluidlint over the pristine
+        # graph, so pre-existing defects are attributed to the program, not
+        # to whichever pass happens to run first
+        verify_graph(graph, ctx, stage="0")
         # "+" not "," — snapshot label strings are comma-joined pairs, so a
         # comma inside a value would be ambiguous to every label consumer
         pipeline_label = "+".join(self.pass_names)
-        for p in self.passes:
+        for i, p in enumerate(self.passes):
             name = p.name or type(p).__name__
             ops_before = graph.num_ops()
+            before_repr = None
+            if debug_dir:
+                before_repr = self._dump(graph, debug_dir, i, name, "before")
             t0 = time.perf_counter()
             p.apply(graph, ctx)
             graph.refresh()
             graph.verify()  # per-pass invariant re-verification
+            # a failure here names the pass that broke capture/fetch/donation
+            verify_graph(graph, ctx, stage=name)
             wall_ms = (time.perf_counter() - t0) * 1000.0
             ops_after = graph.num_ops()
             m["applied"].inc(**{"pass": name})
@@ -196,8 +215,48 @@ class PassManager:
             groups = (ctx.results.get(name) or {}).get("groups")
             if groups:
                 m["fusion_groups"].inc(groups)
+            if debug_dir:
+                after_repr = self._dump(graph, debug_dir, i, name, "after")
+                self._dump_diff(debug_dir, i, name, before_repr, after_repr)
         m["pipelines"].inc(pipeline=pipeline_label or "<empty>")
         return ctx.results
+
+    @staticmethod
+    def _dump(graph, debug_dir, i, name, stage):
+        """Graphviz snapshot of block 0 (op boxes wired through var
+        ellipses, the JAX package's debugger.draw_block_graphviz) and the
+        op repr list for the textual diff."""
+        os.makedirs(debug_dir, exist_ok=True)
+        lines = ["digraph G {", "  rankdir=TB;"]
+        seen = set()
+
+        def var_node(vn):
+            if vn not in seen:
+                seen.add(vn)
+                lines.append('  "v_%s" [label="%s" shape=ellipse];' % (vn, vn))
+            return '"v_%s"' % vn
+
+        for k, op in enumerate(graph.program.global_block().ops):
+            op_id = '"op_%d_%s"' % (k, op.type)
+            lines.append('  %s [label="%s" shape=box style=filled fillcolor="#d2e5ff"];'
+                         % (op_id, op.type))
+            for vn in op.input_arg_names:
+                lines.append("  %s -> %s;" % (var_node(vn), op_id))
+            for vn in op.output_arg_names:
+                lines.append("  %s -> %s;" % (op_id, var_node(vn)))
+        lines.append("}")
+        with open(os.path.join(debug_dir, "%02d_%s_%s.dot" % (i, name, stage)), "w") as f:
+            f.write("\n".join(lines))
+        return ["[b%d] %s" % (blk.idx, op) for blk in graph.program.blocks for op in blk.ops]
+
+    @staticmethod
+    def _dump_diff(debug_dir, i, name, before_repr, after_repr):
+        lines = difflib.unified_diff(
+            before_repr or [], after_repr or [],
+            fromfile="%s/before" % name, tofile="%s/after" % name, lineterm="",
+        )
+        with open(os.path.join(debug_dir, "%02d_%s_ops.diff" % (i, name)), "w") as f:
+            f.write("\n".join(lines) + "\n")
 
 
 # ---------------------------------------------------------------------------

@@ -16,19 +16,31 @@ of paddle_tpu/serving/generation.py).
   token through `paged_attention`. Idle slots ride along pointing at the
   scratch page.
 
-Each variant is built once, at warmup(), as a callable over its lowered
-block. On the card it is captured there as a CUDA graph (the JAX engine
-compiles each variant at warmup): run once op by op and then captured, both
-on feeds that touch only the scratch page (every block table entry and
-position 0), so no real page is written; the hot loop replays the graphs,
-so it never rebuilds or captures again whatever the prompt/output length
-mix (`stats()["traces"]` counts the captures, on the CPU the builds, and is
-the proof the smoke run asserts). A variant first asked for after warmup
-is built and captured where it is asked for, on the scheduler thread. The
-graphs share one memory pool: each call's fetches are copied to the host
-before the next replay. The KV pools are preallocated on the device and every variant updates them in
-place (kv_cache_write's index_copy_), the torch form of the JAX package's
-donated pool buffers.
+Each variant is prepared once, at warmup(): its program pruned to the
+fetches and the KV writes, with the shape facts of the meta-tensor analysis
+(`stats()["traces"]` counts these preparations), or loaded from the
+persistent compile cache when `cache_dir` (or FLAGS_serving_cache_dir)
+holds it (`cache_hits`; serving/compile_cache.py, keyed with
+`program_fingerprint`, the pools' shapes and the engine's geometry). On the
+card it is then captured as a CUDA graph (the JAX engine compiles each
+variant at warmup): run once op by op and then captured, both on feeds that
+touch only the scratch page (every block table entry and position 0), so
+no real page is written; the hot loop replays the graphs, so it never
+prepares or captures again whatever the prompt/output length mix
+(`stats()["captures"]`; together with `traces` the proof the smoke run
+asserts). A variant first asked for after warmup is prepared and captured
+where it is asked for, on the scheduler thread. The graphs share one
+memory pool: each call's fetches are copied to the host before the next
+replay.
+
+`set_params` hot-swaps parameters: each new value is copied once into the
+tensor the graphs captured, under the lock every variant call holds over
+its replay and its fetch copy, so a step finishes on the parameters it
+started with and no later step copies a parameter. KV pools never swap.
+
+The KV pools are preallocated on the device and every variant updates them
+in place (kv_cache_write's index_copy_), the torch form of the JAX
+package's donated pool buffers.
 On a CUDA device paged_attention runs the hand-written kernels of
 ops/paged_flash.py, over f32 pools or, for a model with kv_dtype="int8",
 over int8 level pools with per-row f32 scale pools (about a quarter of the
@@ -53,6 +65,8 @@ sampling config, seed), independent of which slot it lands in or who
 shares the batch.
 """
 
+import hashlib
+import json
 import threading
 import time
 
@@ -60,6 +74,7 @@ import numpy as np
 import torch
 
 from .. import flags as _flags
+from .. import framework
 from ..executor import Scope, aot_serve_lowering, scope_guard
 from ..ops import paged_flash as _pf
 from ..place import to_device
@@ -72,6 +87,8 @@ from .batcher import (
     ServingFuture,
     ShutdownError,
 )
+from . import compile_cache as _cc
+from .engine import _copy_once, prepare_variant
 from .kv_cache import PagedKVPool, PoolExhausted, PrefixCache
 
 __all__ = [
@@ -79,6 +96,7 @@ __all__ = [
     "GenerationScheduler",
     "GenRequest",
     "GenResult",
+    "program_fingerprint",
 ]
 
 
@@ -90,6 +108,40 @@ def _pow2_buckets(lo, hi):
         b *= 2
     out.append(hi)
     return tuple(sorted(set(out)))
+
+
+def program_fingerprint(program, scope, extra=None):
+    """Content hash of a program built in memory (no model_dir to
+    fingerprint): the op list (type, slots, attrs) and the shape and dtype
+    of every scope value the ops read. It plays
+    io.inference_model_fingerprint's role in the compile-cache key."""
+
+    def _jsonable(v):
+        if isinstance(v, np.ndarray):
+            return ["ndarray", str(v.dtype), list(v.shape),
+                    hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()]
+        if isinstance(v, (list, tuple)):
+            return [_jsonable(x) for x in v]
+        if isinstance(v, (bool, int, float, str)) or v is None:
+            return v
+        return repr(v)
+
+    ops = []
+    touched = set()
+    for op in program.global_block().ops:
+        ops.append([
+            op.type,
+            sorted((k, list(v)) for k, v in op.inputs.items()),
+            sorted((k, list(v)) for k, v in op.outputs.items()),
+            sorted((k, _jsonable(v)) for k, v in op.attrs.items()),
+        ])
+        touched.update(op.input_arg_names)
+    avals = sorted(
+        (n, list(scope.vars[n].shape), str(scope.vars[n].dtype))
+        for n in touched if scope.vars.get(n) is not None
+    )
+    doc = {"ops": ops, "avals": avals, "extra": extra}
+    return hashlib.sha256(json.dumps(doc, sort_keys=True).encode()).hexdigest()
 
 
 class GenRequest:
@@ -177,11 +229,7 @@ class GenerationEngine:
                  cache_dir=None):
         if cache_dir is None:
             cache_dir = _flags.get_flags("serving_cache_dir")["serving_cache_dir"]
-        if cache_dir:
-            raise NotImplementedError(
-                "cache_dir: the persistent compile cache is not ported; "
-                "variants are built in-process at warmup()"
-            )
+        self.cache = _cc.CompileCache(cache_dir) if cache_dir else None
         kv_dtype = getattr(model, "kv_dtype", "float32")
         self.model = model
         self.name = name
@@ -280,6 +328,8 @@ class GenerationEngine:
 
         self._variants = {}
         self._build_lock = threading.Lock()
+        self.traces = 0  # variants prepared (compile-cache misses)
+        self.cache_hits = 0  # variants loaded from the compile cache
         self._sample_counter = 0
         self.tokens_generated = 0
 
@@ -291,7 +341,7 @@ class GenerationEngine:
         self._m_prefills = reg.counter(p + "/gen_prefills", "prompts prefilled")
         self._m_steps = reg.counter(p + "/gen_steps", "decode steps executed")
         self._m_traces = reg.counter(
-            p + "/traces", "generation variants built"
+            p + "/traces", "generation variants prepared (cache misses)"
         )
         self._m_slots = reg.gauge(p + "/gen_slots_live", "live decode slots")
         self._m_slots_total = reg.gauge(
@@ -335,9 +385,14 @@ class GenerationEngine:
             "KV storage precision (0 = fp32, 1 = int8)",
         )
         self._m_precision.set(1.0 if kv_dtype == "int8" else 0.0)
-        # parameter hot swap (the JAX engine's set_params) is not ported:
-        # the version a request was served by stays 0
+        self._m_version = reg.gauge(p + "/model_version", "live hot-swapped parameter version")
+        self._m_swaps = reg.counter(p + "/hot_swaps", "set_params hot swaps applied")
+        self._m_version.set(0.0)
+        # hot swap: set_params copies into the served tensors under
+        # _swap_lock, which _call holds over each replay and its fetch copy
         self.model_version = 0
+        self.version_stamp = {}
+        self._swap_lock = threading.Lock()
 
     # ---- geometry / cache keys --------------------------------------------
     def geometry(self):
@@ -377,33 +432,54 @@ class GenerationEngine:
             self._variants[kind] = v
             return v
 
-    @property
-    def traces(self):
-        """Variants captured on the card (a lowering-flag flip captures a
-        variant again: the JAX engine's compile-cache misses), built on the
-        CPU."""
-        if self.device.type != "cuda":
-            return len(self._variants)
+    def captures(self):
+        """CUDA graphs captured over the variants (0 on the CPU): one a
+        variant at warmup, and one more for each lowering-flag value a
+        variant is later run under."""
         return sum(v.fn.captures() for v in self._variants.values())
 
     def _build_variant(self, kind, main, feed_names, fetch_names):
-        """Lower the variant's program and run it on scratch-only feeds (zero
-        tokens, positions and block tables: every row it writes lands in the
-        scratch page): on the card twice, the op-by-op warmup and then the
-        capture, on the CPU once."""
+        """Prepare the variant's program (or load it from the compile cache)
+        and run it on scratch-only feeds (zero tokens, positions and block
+        tables: every row it writes lands in the scratch page): on the card
+        twice, the op-by-op warmup and then the capture, on the CPU once."""
+        from ..analysis import maybe_static_verify
+
+        maybe_static_verify(main, feed_names, fetch_names, scope=self.scope,
+                            mode="serving", where="generation:%s" % kind)
+        block = main.global_block()
+        avals = {n: (tuple(int(d) for d in block.var(n).shape), str(block.var(n).dtype))
+                 for n in feed_names}
+        state = {n: (tuple(self._state[n].shape), str(self._state[n].dtype))
+                 for n in sorted(self._state)}
+
+        def build():
+            self.traces += 1
+            self._m_traces.inc()
+            return prepare_variant(main, avals, fetch_names, self.scope, state_names=sorted(state))
+
+        if self.cache is not None:
+            ck = _cc.variant_key(program_fingerprint(main, self.scope, extra=kind), avals,
+                                 fetch_names, state_avals=state, geometry=self.geometry())
+            artifact, hit = self.cache.get_or_build(ck, build, meta={
+                "model": self.name, "variant": kind, "geometry": self.geometry(),
+                "feeds": {n: [list(s), d] for n, (s, d) in avals.items()},
+                "fetches": list(fetch_names),
+            })
+            if hit:
+                self.cache_hits += 1
+        else:
+            artifact = build()
+        served = framework.Program.from_dict(artifact["program"])
         with scope_guard(self.scope):
             serve, ro, mut = aot_serve_lowering(
-                main, feed_names, fetch_names, self.scope, return_state=True,
+                served, feed_names, fetch_names, self.scope, return_state=True,
                 graph_pool=self._graph_pool,
             )
         v = _Variant(serve, ro, sorted(mut), list(feed_names))
-        block = main.global_block()
-        scratch = {n: np.zeros(block.var(n).shape, block.var(n).dtype) for n in feed_names}
-        cuda = self.device.type == "cuda"
-        for _ in range(2 if cuda else 1):
+        scratch = {n: np.zeros(s, d) for n, (s, d) in avals.items()}
+        for _ in range(2 if self.device.type == "cuda" else 1):
             self._call(v, scratch)
-        if not cuda:
-            self._m_traces.inc()
         return v
 
     def warmup(self):
@@ -415,19 +491,55 @@ class GenerationEngine:
             self._variant("prefill:%d" % b)
         return len(self._variants)
 
+    # ---- hot swap ---------------------------------------------------------
+    def set_params(self, updates, version=None, stamp=None):
+        """Hot-swap parameter values without preparing or capturing again,
+        and without dropping requests. KV-pool state names never swap (a
+        publisher shipping them by accident must not clobber live caches);
+        names the scope does not hold are ignored; a shape change raises
+        before anything is copied. Each distinct tensor the variants read
+        (one storage the decode step and every prefill bucket share) is
+        copied into once, under the lock each step holds, so a step in
+        flight finishes on the parameters it started with. Returns the
+        number of arrays applied."""
+        conv = {}
+        for name, val in updates.items():
+            cur = self.scope.vars.get(name)
+            if name in self._state or not isinstance(cur, torch.Tensor):
+                continue
+            if isinstance(val, torch.Tensor):
+                arr = val.detach().to(device=cur.device, dtype=cur.dtype)
+            else:
+                arr = torch.from_numpy(np.array(val)).to(device=cur.device, dtype=cur.dtype)
+            if tuple(arr.shape) != tuple(cur.shape):
+                raise ValueError(
+                    "set_params(%r): shape %s != live %s — geometry changes need a model "
+                    "reload, not a hot swap" % (name, tuple(arr.shape), tuple(cur.shape))
+                )
+            conv[name] = arr
+        with self._swap_lock:
+            pairs = [(self.scope.vars[n], arr) for n, arr in conv.items()]
+            pairs += [(v.ro[n], arr) for v in self._variants.values()
+                      for n, arr in conv.items() if n in v.ro]
+            _copy_once(pairs)
+            self.model_version = int(version) if version is not None else self.model_version + 1
+            self.version_stamp = dict(stamp or {})
+            ver = self.model_version
+        self._m_version.set(float(ver))
+        self._m_swaps.inc()
+        return len(conv)
+
     def _call(self, variant, np_feeds):
         """Run one variant (a graph replay on the card: the feeds are staged
         into its static buffers); returns its fetches as host numpy arrays
         (the copy back is the step's device sync, and ends before the next
-        replay can overwrite them)."""
+        replay, or a swap, can touch what it read)."""
         feeds = {n: np_feeds[n] for n in variant.feed_names}
-        mut_in = {n: self._state[n] for n in variant.mut_names}
-        captured = variant.fn.captures()
-        fetches, new_mut = variant.fn(feeds, variant.ro, mut_in)
-        if variant.fn.captures() != captured:
-            self._m_traces.inc(variant.fn.captures() - captured)
-        self._state.update(new_mut)
-        return [f.cpu().numpy() for f in fetches]
+        with self._swap_lock:
+            mut_in = {n: self._state[n] for n in variant.mut_names}
+            fetches, new_mut = variant.fn(feeds, variant.ro, mut_in)
+            self._state.update(new_mut)
+            return [f.cpu().numpy() for f in fetches]
 
     # ---- admission / prefill / decode / retire -----------------------------
     def prefill_bucket(self, n):
@@ -659,6 +771,9 @@ class GenerationEngine:
         out = {
             "variants": len(self._variants),
             "traces": self.traces,
+            "cache_hits": self.cache_hits,
+            "captures": self.captures(),
+            "state_copies": sum(v.fn.state_copies() for v in self._variants.values()),
             "model_version": self.model_version,
             "tokens_generated": self.tokens_generated,
             "prefill_buckets": list(self.prefill_buckets),
@@ -676,6 +791,8 @@ class GenerationEngine:
         }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()
+        if self.cache is not None:
+            out["cache"] = self.cache.stats()
         return out
 
 

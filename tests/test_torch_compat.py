@@ -141,20 +141,22 @@ PENDING = {
     "dist_init_max_retry": (1, "multihost"), "telemetry_dir": ("/tmp/t", "export"),
     "telemetry_interval_steps": (10, "export"), "telemetry_log_every": (1, "export"),
     "tensor_stats": ("*", "opprof"), "nan_provenance": (True, "opprof"),
-    "flightrec_max_bundles": (4, "flightrec"), "flightrec_min_interval_s": (0.5, "flightrec"),
     "data_num_workers": (2, "data/"), "data_ring_slots": (8, "data/"),
     "data_prefetch": (4, "data/"), "data_start_method": ("spawn", "data/"),
     "data_max_worker_restarts": (1, "data/"), "elastic_step_deadline_s": (5.0, "elastic"),
     "elastic_nan_budget": (1, "elastic"), "elastic_rollback_budget": (1, "elastic"),
-    "elastic_barrier_timeout_s": (5.0, "elastic"), "pass_debug_dir": ("/tmp/p", "pass manager"),
-    "static_verify": (True, "verify"),
+    "elastic_barrier_timeout_s": (5.0, "elastic"),
 }
+
+# flags whose module is ported: a value other than the default is taken
+PORTED = {"flightrec_max_bundles": 4, "flightrec_min_interval_s": 0.5,
+          "pass_debug_dir": "pass_dumps", "static_verify": True}
 
 
 def test_pending_table_is_the_rest_of_the_flags():
     assert sorted(PENDING) == sorted(flags.PENDING)
-    assert len(PENDING) == 24
-    assert set(PENDING) | set(RECORDED) | {
+    assert len(PENDING) == 20
+    assert set(PENDING) | set(RECORDED) | set(PORTED) | {
         "paged_flash", "quantized_gemm", "fp8_matmul", "check_nan_inf", "profile_ops",
         "pass_pipeline", "serving_cache_dir", "trace_dir", "trace_sample", "trace_slow_ms",
         "trace_ring", "flightrec_dir"} == set(jflags._DEFAULTS)
@@ -171,6 +173,18 @@ def test_pending_flag_raises_naming_its_module(name):
     with pytest.raises(NotImplementedError, match=word) as e:
         flags.set_flags({"FLAGS_" + name: value})
     assert "ROADMAP A" in str(e.value)
+    assert flags.get_flags(name)[name] == jflags._DEFAULTS[name]
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_flag_takes_its_value(name):
+    """A flag whose module this package has ported takes any value, as the
+    JAX package does, and keeps it until it is set back."""
+    try:
+        flags.set_flags({"FLAGS_" + name: PORTED[name]})
+        assert flags.get_flags(name)[name] == PORTED[name]
+    finally:
+        flags.set_flags({name: jflags._DEFAULTS[name]})
     assert flags.get_flags(name)[name] == jflags._DEFAULTS[name]
 
 

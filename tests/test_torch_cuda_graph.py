@@ -118,12 +118,13 @@ def _serve_mix(eng):
 def test_serving_graph_matches_op_by_op(cuda_device, kv_dtype):
     graph_eng = _engine(kv_dtype, "graph_" + kv_dtype)
     eager_eng = _engine(kv_dtype, "eager_" + kv_dtype)
-    traces = graph_eng.traces
-    assert traces == len(graph_eng._variants) == 1 + len(graph_eng.prefill_buckets)
+    traces, captures = graph_eng.traces, graph_eng.captures()
+    assert traces == captures == len(graph_eng._variants) == 1 + len(graph_eng.prefill_buckets)
     got = _serve_mix(graph_eng)
     with op_by_op():
         want = _serve_mix(eager_eng)
-    assert graph_eng.traces == traces, "a variant was captured again"
+    assert graph_eng.traces == traces, "a variant was prepared again"
+    assert graph_eng.captures() == captures, "a variant was captured again"
     pools = {c.graph.graph.pool() for v in graph_eng._variants.values()
              for c in v.fn.compiled.values()}
     assert len(pools) == 1, "the variants capture into one memory pool"
@@ -249,7 +250,7 @@ def test_paged_flash_flip_takes_its_own_graph(cuda_device):
     eng = _engine("float32", "flip")
     run = eng.start(GenRequest(list(range(1, 10)), max_new_tokens=12, eos_id=NO_EOS))
     try:
-        traces = eng.traces
+        captures = eng.captures()
         eng.decode_step([run])
         before = sum(pf.kernel_launches().values())
         flags.set_flags({"paged_flash": "off"})
@@ -260,10 +261,10 @@ def test_paged_flash_flip_takes_its_own_graph(cuda_device):
         finally:
             flags.set_flags({"paged_flash": "auto"})
         assert sum(pf.kernel_launches().values()) == before, "a kernel ran with paged_flash off"
-        assert eng.traces == traces + 1
+        assert eng.captures() == captures + 1
         eng.decode_step([run])
         assert sum(pf.kernel_launches().values()) > before
-        assert eng.traces == traces + 1
+        assert eng.captures() == captures + 1
     finally:
         eng.finish(run)
 

@@ -77,9 +77,13 @@ def test_explicit_cpu_place_runs():
     assert eng.generate([1, 2, 3], max_new_tokens=2).finish_reason in ("eos", "length")
 
 
-def test_cache_dir_raises():
-    with pytest.raises(NotImplementedError, match="compile cache"):
-        GenerationEngine(
-            GPTDecoder(vocab_size=8, n_layer=1, n_head=1, d_model=4, d_inner=8, max_context=8),
-            place=CPUPlace(), cache_dir="compile_cache",
-        )
+def test_cache_dir_raises(tmp_path):
+    """The engines take a compile-cache directory; a cache_dir that cannot
+    be a directory (an existing file) raises at construction."""
+    model = GPTDecoder(vocab_size=8, n_layer=1, n_head=1, d_model=4, d_inner=8, max_context=8)
+    eng = GenerationEngine(model, place=CPUPlace(), cache_dir=str(tmp_path / "cache"))
+    assert eng.cache is not None and eng.stats()["cache_hits"] == 0
+    blocker = tmp_path / "a_file"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        GenerationEngine(model, place=CPUPlace(), cache_dir=str(blocker))

@@ -522,8 +522,9 @@ def test_int8_engine_requires_calibration_feeds(tmp_path, jax_ref):
     _save_jax_fc_stack(jax_ref, md)
     with pytest.raises(ValueError):
         ServingEngine(md, place=CPUPlace(), precision="int8")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(md, place=CPUPlace(), cache_dir=str(tmp_path / "cache"))
+    # a compile cache does not stand in for calibration
+    with pytest.raises(ValueError):
+        ServingEngine(md, place=CPUPlace(), precision="int8", cache_dir=str(tmp_path / "cache"))
 
 
 # ---------------------------------------------------------------- card
