@@ -308,10 +308,26 @@ Phases, each printing its own line; any failure exits non-zero:
      load_combine round-trip f32, int32 and bf16 vars bit for bit; a
      program holding the eight reader markers (read, the create_*_reader
      ops, open_files) runs on the graph path and fetches 16.0;
- 18. the `paths` JSON line, then a `kernels` JSON line (launches on the
+ 18. train parallel: at world = the visible cards, on NCCL and CUDA
+     graphs. Past one card, a process a card first trains Transformer
+     base at dp = world (its first 3 losses within the fused bar of the
+     train phase's, every rank the same; rank 0's step profiled for its
+     NCCL kernels), then under ZeRO-1, and DeepFM at ep = world against
+     the local build bit for bit. Then in this process, a world-1 NCCL
+     group: Transformer base under training_fused through the
+     ParallelExecutor, its first 3 losses bit for bit the train phase's,
+     24 GEMM epilogue, 30 + 30 layer_norm and 1 Adam launches a step, the
+     NCCL kernels of its captured step and its step wall beside the
+     Executor's; an all-reduce captured in a CUDA graph and replayed;
+     DeepFM at 2^20 x 32 with use_distributed at ep = 1 against local bit
+     for bit; ring attention's per-step forward and backward over 4 chunks
+     at train_flash's widths against flash attention over the whole
+     sequence (out and lse within 1e-5, grads rtol 1e-4 with atol 1e-4 of
+     the largest);
+ 19. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
      multi_adam count the Transformer's, LeNet's, the zoo's, the LSTM's,
-     the NMT model's, DeepFM's and the bf16 runs' steps, and their
+     the NMT model's, DeepFM's, the bf16 runs' and the PE's steps, and their
      max_abs_err is
      the worst of their own check and the path checks; quant_gemm_fp8,
      e4m3_cast and fp8_matmul count the fp8 steps'; quant_gemm_int8 the
@@ -2711,32 +2727,42 @@ import json, sys, time
 t_import = time.perf_counter()
 sys.path.insert(0, sys.argv[1])
 import numpy as np
-import torch
-from paddle_tpu_torch import CUDAPlace
-from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.serving import ServingEngine
+import chip_smoke
 t0 = time.perf_counter()
-md, cache, data, buckets, out_path = sys.argv[2:7]
-data = np.load(data)
-calib = [{"img": data["calib%d" % i]} for i in range(8)]
-out = {"import_s": t0 - t_import}
-ys = {}
-for name, kw in (("fc_head", {}),
-                 ("fc_head_int8", {"precision": "int8", "calibration_feeds": calib})):
-    t = time.perf_counter()
-    eng = ServingEngine(md, name=name, place=CUDAPlace(0), batch_buckets=json.loads(buckets),
-                        cache_dir=cache, **kw)
-    eng.warmup()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t
-    st = eng.stats()
-    (ys[name],) = eng.run({"img": data["x"]})
-    out[name] = {"warm_s": warm, "traces": st["traces"], "cache_hits": st["cache_hits"],
-                 "captures": st["captures"]}
-out["nvcc_built"] = sorted(_build.build_logs)
-np.savez(out_path, **ys)
+out, ys = chip_smoke._boot_heads(*sys.argv[2:6])
+out["import_s"] = t0 - t_import
+np.savez(sys.argv[6], **ys)
 print(json.dumps(out))
 """
+
+
+def _boot_heads(md, cache, data, buckets):
+    """Boot fc_head and fc_head_int8 on `cache` (a ServingEngine each,
+    warmed) and serve the data's eval rows: (stats, outputs)."""
+    import torch
+
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import ServingEngine
+
+    data = np.load(data)
+    calib = [{"img": data["calib%d" % i]} for i in range(8)]
+    out, ys = {}, {}
+    built = set(_build.build_logs)
+    for name, kw in (("fc_head", {}),
+                     ("fc_head_int8", {"precision": "int8", "calibration_feeds": calib})):
+        t = time.perf_counter()
+        eng = ServingEngine(md, name=name, place=CUDAPlace(0), batch_buckets=json.loads(buckets),
+                            cache_dir=cache, **kw)
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+        st = eng.stats()
+        (ys[name],) = eng.run({"img": data["x"]})
+        out[name] = {"warm_s": warm, "traces": st["traces"], "cache_hits": st["cache_hits"],
+                     "captures": st["captures"]}
+    out["nvcc_built"] = sorted(set(_build.build_logs) - built)
+    return out, ys
 
 
 def _http_call(base, path, body=None, ctype="application/json"):
@@ -2969,9 +2995,10 @@ def _check_replies(torch, server, replies, fc_sets, gpt_sets, md, buckets):
 
 
 def _cold_start(md, means, card):
-    """Two boots of fc_head and fc_head_int8 on one cache_dir, each a
-    process of its own: the second prepares nothing, hits every bucket,
-    captures every bucket and serves the same outputs."""
+    """Two boots of fc_head and fc_head_int8 on one cache_dir: the first in
+    this process on the empty cache, the second a process of its own,
+    which prepares nothing, hits every bucket, captures every bucket and
+    serves the same outputs."""
     import subprocess
     import tempfile
 
@@ -2979,37 +3006,38 @@ def _cold_start(md, means, card):
         rng = np.random.RandomState(3)
         data = {"calib%d" % i: _head_batch(means, rng, 16)[0] for i in range(8)}
         data["x"] = _head_batch(means, rng, HEAD_EVAL_ROWS)[0]
-        np.savez(os.path.join(tmp, "data.npz"), **data)
-        boots, outs = [], []
-        for boot in range(2):
-            out_path = os.path.join(tmp, "out%d.npz" % boot)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-c", _COLD_BOOT, os.path.dirname(os.path.abspath(__file__)),
-                 md, os.path.join(tmp, "cache"), os.path.join(tmp, "data.npz"),
-                 json.dumps(list(HEAD_BUCKETS)), out_path],
-                capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError("cold-start boot %d failed:\n%s" % (boot, proc.stderr[-4000:]))
-            rec = json.loads(proc.stdout.strip().splitlines()[-1])
-            rec["process_s"] = time.perf_counter() - t0
-            boots.append(rec)
-            outs.append(np.load(out_path))
+        paths = [os.path.join(tmp, n) for n in ("data.npz", "cache")]
+        np.savez(paths[0], **data)
+        buckets = json.dumps(list(HEAD_BUCKETS))
+        t0 = time.perf_counter()
+        first, first_ys = _boot_heads(md, paths[1], paths[0], buckets)
+        first.update(import_s=0.0, process_s=time.perf_counter() - t0)
+        out_path = os.path.join(tmp, "out.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _COLD_BOOT, os.path.dirname(os.path.abspath(__file__)),
+             md, paths[1], paths[0], buckets, out_path],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError("cold-start boot 2 failed:\n%s" % proc.stderr[-4000:])
+        second = json.loads(proc.stdout.strip().splitlines()[-1])
+        second["process_s"] = time.perf_counter() - t0
+        boots, outs = [first, second], [first_ys, np.load(out_path)]
         n = len(HEAD_BUCKETS)
         for name in ("fc_head", "fc_head_int8"):
-            first, second = boots[0][name], boots[1][name]
-            if (first["traces"], first["cache_hits"]) != (n, 0) or \
-                    (second["traces"], second["cache_hits"]) != (0, n) or \
-                    first["captures"] != n or second["captures"] != n:
-                raise AssertionError("cold start %s: %s then %s" % (name, first, second))
+            a, b = first[name], second[name]
+            if (a["traces"], a["cache_hits"]) != (n, 0) or (b["traces"], b["cache_hits"]) != (0, n) \
+                    or a["captures"] != n or b["captures"] != n:
+                raise AssertionError("cold start %s: %s then %s" % (name, a, b))
             if not np.array_equal(outs[0][name], outs[1][name]):
                 raise AssertionError("cold start %s: the second boot's outputs differ" % name)
         for boot, rec in enumerate(boots):
-            log("serve http cold start, boot %d (a process of its own, %s): imports %.2f s; "
+            log("serve http cold start, boot %d (%s): imports %.2f s; "
                 "fc_head warm %.3f s (traces %d, cache hits %d, captures %d); fc_head_int8 "
                 "warm %.3f s (traces %d, cache hits %d, captures %d, calibration included); "
-                "kernels compiled by nvcc in this boot: %s; process %.1f s; card %s" % (
-                    boot + 1, "cache empty" if boot == 0 else "the first boot's cache",
+                "kernels compiled by nvcc in this boot: %s; boot %.1f s; card %s" % (
+                    boot + 1, "this process, cache empty" if boot == 0 else
+                    "a process of its own, the first boot's cache",
                     rec["import_s"], rec["fc_head"]["warm_s"], rec["fc_head"]["traces"],
                     rec["fc_head"]["cache_hits"], rec["fc_head"]["captures"],
                     rec["fc_head_int8"]["warm_s"], rec["fc_head_int8"]["traces"],
@@ -3209,8 +3237,9 @@ def serve_http(torch, pf, card, readings):
     before they are registered, built with FLAGS_static_verify on. Eight
     client threads send :predict and :generate over urllib while another
     hot-swaps fc_head 4 times and gpt2 twice; then the faults, the
-    graphs-vs-op-by-op call walls and two cold boots on one cache_dir.
-    Returns the paged kernels' and the quant GEMM's launches over the
+    graphs-vs-op-by-op call walls and two cold boots on one cache_dir (the
+    first in this process, the second a process of its own). Returns the
+    paged kernels' and the quant GEMM's launches over the
     load."""
     import tempfile
 
@@ -6189,6 +6218,397 @@ def host_ops(torch, card):
             len(markers), read, json.dumps(rstats), card))
 
 
+# ---------------------------------------------------------------- train parallel
+
+PE_STEPS = 6  # ParallelExecutor steps of Transformer base (the warmup and the capture among them)
+PE_DEEPFM_STEPS = 4  # DeepFM steps a build, use_distributed off and on
+RING_CHUNKS = 4
+RING_OUT_TOL = 1e-5  # out and lse of the ring's per-step path against the whole sequence
+RING_GRAD_TOL = 1e-4  # grads: rtol, and atol as a share of the largest
+
+
+def _pe_steps(torch, cfg, batches, check=None, reduce=False):
+    """Transformer `cfg` under training_fused through a ParallelExecutor on
+    this process's card (ZeRO-1 with `reduce`), from a Scope seeded with
+    SEED: (losses, walls, the step function, the PE)."""
+    from paddle_tpu_torch import (BuildStrategy, CUDAPlace, Executor, ParallelExecutor, Scope,
+                                  scope_guard)
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    place = CUDAPlace(torch.cuda.current_device())
+    main_prog, startup, loss = prof.build(cfg)
+    scope = Scope(seed=SEED, place=place)
+    with scope_guard(scope):
+        Executor(place).run(startup)
+    strategy = BuildStrategy()
+    strategy.pass_pipeline = "training_fused"
+    if reduce:
+        strategy.reduce_strategy = BuildStrategy.ReduceStrategy.Reduce
+    pe = ParallelExecutor(loss_name=loss.name, main_program=main_prog, build_strategy=strategy,
+                          scope=scope)
+
+    def step(feed):
+        return pe.run(fetch_list=[loss.name], feed=feed)
+
+    losses, walls = [], []
+    for i, feed in enumerate(batches):
+        before = fused.stats()
+        t0 = time.perf_counter()
+        (val,) = step(feed)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if check is not None:
+            check(i, before, fused.stats())
+        losses.append(np.asarray(val).reshape(-1)[0])
+    return losses, walls, step, pe
+
+
+def _deepfm_losses(torch, cfg, batches, use_distributed, mesh_config=None):
+    """DeepFM `cfg` (sparse tables) through the ParallelExecutor from a
+    Scope seeded with SEED: (losses, fm_emb whole, distributed lookups)."""
+    from paddle_tpu_torch import CUDAPlace, Executor, ParallelExecutor, Scope, scope_guard
+    from paddle_tpu_torch.parallel import collectives
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+
+    model = recsys.build_deepfm(cfg, True, use_distributed=use_distributed)
+    place = CUDAPlace(torch.cuda.current_device())
+    scope = Scope(seed=SEED, place=place)
+    with scope_guard(scope):
+        Executor(place).run(model["startup"])
+    pe = ParallelExecutor(loss_name=model["loss"].name, main_program=model["main"], scope=scope,
+                          mesh_config=mesh_config)
+    losses = [pe.run([model["loss"].name], feed=f)[0].reshape(-1)[0] for f in batches]
+    n_dist = [op.type for op in model["main"].global_block().ops].count(
+        "distributed_lookup_table")
+    return losses, collectives.gathered_state(scope, "fm_emb"), n_dist
+
+
+def _pe_rank_main(rank, world, store):
+    """One rank of the multi-card leg (a process a card, NCCL): Transformer
+    base at dp = world, AllReduce then ZeRO-1; DeepFM at ep = world against
+    the local build on this card. Prints its record as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.parallel import MeshConfig, init_distributed
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    init_distributed(store=dist.FileStore(store, world), world_size=world, rank=rank,
+                     backend="nccl")
+    try:
+        cfg = prof.BASE
+        batches = [prof.make_batch(cfg, SEED + i) for i in range(PE_STEPS)]
+        losses, walls, step, pe = _pe_steps(torch, cfg, batches)
+        mesh = pe.mesh.shape
+        # every rank runs the profiled steps (their collectives pair up)
+        split = prof.profile_steps(step, batches[2:4], registry)
+        by_kernel = split["device_ms_per_step_by_kernel"]
+        nccl = {k[:60]: v for k, v in by_kernel.items() if "nccl" in k.lower()}
+        profile = {"device_busy_ms": split["device_busy_ms_per_step"],
+                   "device_launches": split["device_launches_per_step"],
+                   "wall_ms_p50": split["wall_ms_p50"], "nccl": nccl,
+                   "top": [(k[:50], round(v["ms"], 4)) for k, v in list(by_kernel.items())[:6]]}
+        del step, pe
+        z1, z1_walls, _, pe = _pe_steps(torch, cfg, batches[:COMPARE_STEPS], reduce=True)
+        shards = len(pe._scope.row_shards)
+        del pe
+        torch.cuda.empty_cache()
+        rcfg = recsys.RECSYS
+        rb = recsys.recsys_batches(np.random.RandomState(SEED), rcfg["rows"], rcfg["fields"],
+                                   rcfg["batch"], PE_DEEPFM_STEPS)
+        local, local_emb, _ = _deepfm_losses(torch, rcfg, rb, False,
+                                             MeshConfig(dp=1, ep=world))
+        dist_l, dist_emb, n_dist = _deepfm_losses(torch, rcfg, rb, True,
+                                                  MeshConfig(dp=1, ep=world))
+        print(json.dumps({
+            "rank": rank, "mesh": mesh, "losses": [float(v) for v in losses], "walls": walls,
+            "profile": profile,
+            "zero1": [float(v) for v in z1], "zero1_walls": z1_walls, "zero1_shards": shards,
+            "deepfm_local": [float(v) for v in local], "deepfm_ep": [float(v) for v in dist_l],
+            "deepfm_tables_equal": bool(torch.equal(local_emb, dist_emb)),
+            "deepfm_distributed_ops": n_dist}))
+    finally:
+        dist.destroy_process_group()
+
+
+_PE_RANK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke._pe_rank_main(int(sys.argv[3]), int(sys.argv[4]), sys.argv[2])
+"""
+
+
+def _pe_ranks(world):
+    """The multi-card leg at world = the visible cards, a process a card:
+    each rank's record."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="pe_ranks_") as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _PE_RANK, os.path.dirname(os.path.abspath(__file__)), store,
+             str(r), str(world)], env=dict(os.environ, LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(world)]
+        try:
+            done = [pr.communicate(timeout=600) for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.communicate()
+        for r, (pr, (out, err)) in enumerate(zip(procs, done)):
+            if pr.returncode != 0:
+                raise AssertionError("PE rank %d failed:\n%s" % (r, err[-4000:]))
+        return [json.loads(out.strip().splitlines()[-1]) for out, _ in done]
+
+
+def _nccl_kernels(by_kernel):
+    return {k[:60]: v["launches"] for k, v in by_kernel.items() if "nccl" in k.lower()}
+
+
+def _nccl_in_graph(torch, card):
+    """One all-reduce over the world group captured in a CUDA graph beside
+    an add, replayed: its node runs in every replay, and the values are the
+    sum over the world."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    world = dist.get_world_size()
+    buf = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the communicator exists before the capture
+        dist.all_reduce(buf)
+        buf.add_(1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dist.all_reduce(buf)
+        buf.add_(1.0)
+    buf.copy_(torch.arange(1 << 20, dtype=torch.float32, device="cuda"))
+    want = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        graph.replay()
+        want = want * world + 1.0
+    torch.cuda.synchronize()
+    if not torch.equal(buf, want):
+        raise AssertionError("the captured all-reduce gave %s, want %s" % (buf[:4], want[:4]))
+    def replay():
+        t0 = time.perf_counter()
+        graph.replay()
+        return [(time.perf_counter() - t0) * 1e3]
+
+    split = prof.profile_window(replay, 1, registry)
+    nodes = _nccl_kernels(split["device_ms_per_step_by_kernel"])
+    log("train parallel: an NCCL all-reduce of 4 MiB captured in a CUDA graph at world %d, "
+        "replayed 3 times bit for bit (sum over the world, then + 1); its NCCL kernels a replay "
+        "%s; card %s" % (world, json.dumps(nodes), card))
+
+
+def _ring_per_step(torch, card):
+    """The ring's per-step forward and backward (flash kernels) over
+    RING_CHUNKS sequence chunks held in one process, at train_flash's
+    widths, against flash_forward / flash_backward over the whole sequence."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.ring_attention import ring_backward_chunks, ring_forward_chunks
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    cfg = prof.BASE_FLASH
+    b, h, t, d = cfg["batch"], cfg["n_head"], cfg["t"], cfg["d_key"]
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for causal in (False, True):
+        q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda") for _ in range(4))
+        out, lse = fa.flash_forward(q, k, v, causal, scale)
+        dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, causal, scale)
+        qs, ks, vs, dos = ([c.contiguous() for c in x.chunk(RING_CHUNKS, 2)]
+                           for x in (q, k, v, do))
+        before = fa.kernel_launches()
+        fwd = ring_forward_chunks(qs, ks, vs, causal, scale)
+        outs, lses = [o for o, _ in fwd], [s for _, s in fwd]
+        grads = ring_backward_chunks(qs, ks, vs, outs, lses, dos, causal, scale)
+        torch.cuda.synchronize()
+        after = fa.kernel_launches()
+        moved = {k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]}
+        errs = {"out": float((torch.cat(outs, 2) - out).abs().max()),
+                "lse": float((torch.cat(lses, 2) - lse).abs().max())}
+        if max(errs.values()) > RING_OUT_TOL:
+            raise AssertionError("ring per-step forward, causal=%s: %s" % (causal, errs))
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
+            got = torch.cat(got, 2)
+            lim = RING_GRAD_TOL * ref.abs() + RING_GRAD_TOL * float(ref.abs().max())
+            if not bool(((got - ref).abs() <= lim).all()):
+                raise AssertionError("ring per-step %s, causal=%s: max abs err %g" % (
+                    name, causal, float((got - ref).abs().max())))
+            errs[name] = float((got - ref).abs().max())
+        log("train parallel: ring attention's per-step path over %d chunks of %s, causal=%s, "
+            "the flash kernels (launches %s) against flash_forward / flash_backward on the whole "
+            "sequence: max abs err %s (out and lse within %g; grads within rtol %g and atol %g of "
+            "the largest); card %s" % (RING_CHUNKS, (b, h, t // RING_CHUNKS, d), causal,
+                                      json.dumps(moved), json.dumps(errs), RING_OUT_TOL,
+                                      RING_GRAD_TOL, RING_GRAD_TOL, card))
+
+
+def _deepfm_distributed(torch, card):
+    """DeepFM at profile_recsys.RECSYS (a 2^20 x 32 table) through the
+    ParallelExecutor at ep = 1: use_distributed=True equals
+    use_distributed=False bit for bit, losses and tables."""
+    from paddle_tpu_torch import CUDAPlace, Executor, ParallelExecutor, Scope, scope_guard
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+
+    cfg = recsys.RECSYS
+    batches = recsys.recsys_batches(np.random.RandomState(SEED), cfg["rows"], cfg["fields"],
+                                    cfg["batch"], PE_DEEPFM_STEPS)
+    got = {}
+    for dist_ in (False, True):
+        model = recsys.build_deepfm(cfg, True, use_distributed=dist_)
+        place = CUDAPlace(torch.cuda.current_device())
+        scope = Scope(seed=SEED, place=place)
+        with scope_guard(scope):
+            Executor(place).run(model["startup"])
+        pe = ParallelExecutor(loss_name=model["loss"].name, main_program=model["main"],
+                              scope=scope)
+        losses = [pe.run([model["loss"].name], feed=f)[0].reshape(-1)[0] for f in batches]
+        got[dist_] = (losses, scope.vars["fm_emb"].clone(), scope.vars["fm_first"].clone(),
+                      [op.type for op in model["main"].global_block().ops].count(
+                          "distributed_lookup_table"))
+        del pe, scope, model
+    _same_bits("deepfm use_distributed at ep = 1 against local, loss at step", got[True][0],
+               got[False][0])
+    for i, name in ((1, "fm_emb"), (2, "fm_first")):
+        if not torch.equal(got[True][i], got[False][i]):
+            raise AssertionError("deepfm use_distributed at ep = 1: %s differs" % name)
+    if got[True][3] != 2 or got[False][3] != 0:
+        raise AssertionError("deepfm: distributed_lookup_table ops %s" % [got[True][3],
+                                                                          got[False][3]])
+    log("train parallel: DeepFM %s through the ParallelExecutor at ep = 1, %d steps: "
+        "use_distributed=True (2 distributed_lookup_table ops, the EmbeddingEngine's tables) "
+        "equals use_distributed=False bit for bit, losses %s and both tables; card %s" % (
+            json.dumps(cfg), PE_DEEPFM_STEPS, ["%.6f" % v for v in got[True][0]], card))
+    del got
+    torch.cuda.empty_cache()
+
+
+def _multi_card(world, cfg, card, readings):
+    """The multi-card leg's records held: every rank the same losses; the
+    Transformer's first COMPARE_STEPS within the fused bar of the
+    Executor's on one card, ZeRO-1 within it of AllReduce; DeepFM at ep =
+    world equal to the local build bit for bit."""
+    recs = _pe_ranks(world)
+    r0 = recs[0]
+    for rec in recs[1:]:
+        for key in ("losses", "zero1", "deepfm_ep"):
+            _same_bits("%s, rank %d against rank 0, step" % (key, rec["rank"]), rec[key],
+                       r0[key])
+    want = np.asarray(F32_FIRST["transformer"])
+    for key, got in (("losses", r0["losses"][:COMPARE_STEPS]), ("zero1", r0["zero1"])):
+        if not np.allclose(got, want, rtol=FUSED_RTOL, atol=FUSED_ATOL):
+            raise AssertionError("PE at world %d, %s: %s against the Executor's %s"
+                                 % (world, key, got, want.tolist()))
+    _same_bits("DeepFM at ep = %d against the local build, step" % world, r0["deepfm_ep"],
+               r0["deepfm_local"])
+    if not all(r["deepfm_tables_equal"] for r in recs) or r0["deepfm_distributed_ops"] != 2:
+        raise AssertionError("DeepFM at ep = %d: tables %s, lookups %d" % (
+            world, [r["deepfm_tables_equal"] for r in recs], r0["deepfm_distributed_ops"]))
+    prof0 = r0["profile"]
+    if not prof0["nccl"]:
+        raise AssertionError("PE at world %d: no NCCL kernel in a profiled step" % world)
+    readings["train_parallel_cards"] = {"graph": dict(
+        world=world, step_p50_ms=float(np.median(r0["walls"][2:])),
+        zero1_step_ms=r0["zero1_walls"][-1], **prof0)}
+    log("train parallel: Transformer base at world %d (a process a card, NCCL, mesh %s), "
+        "global batch %d: losses %s, the first %d within rtol %g atol %g of the Executor's "
+        "%s on one card; step wall p50 %.3f ms over steps 3-%d; rank 0's profiled step: "
+        "device busy %s ms, %s launches, wall p50 %s ms, NCCL kernels (ms and launches a "
+        "step) %s, top kernels %s; ZeRO-1 (%d state tensors "
+        "sharded a rank) losses %s; DeepFM %s at ep = %d (1/%d of the table a card) equals "
+        "the local build bit for bit, losses %s and the gathered table; every rank the same "
+        "losses; card %s" % (
+            world, json.dumps(r0["mesh"]), cfg["batch"], ["%.6f" % v for v in r0["losses"]],
+            COMPARE_STEPS, FUSED_RTOL, FUSED_ATOL, ["%.6f" % v for v in want],
+            float(np.median(r0["walls"][2:])), PE_STEPS, prof0["device_busy_ms"],
+            prof0["device_launches"], prof0["wall_ms_p50"], json.dumps(prof0["nccl"]),
+            json.dumps(prof0["top"]), r0["zero1_shards"],
+            ["%.6f" % v for v in r0["zero1"]], "2^20 x 32", world, world,
+            ["%.6f" % v for v in r0["deepfm_ep"]], card))
+
+
+def train_parallel(torch, card, readings):
+    """The data-parallel path at world = the visible cards, on NCCL and
+    CUDA graphs: Transformer base under training_fused through the
+    ParallelExecutor (at one card in this process, its first
+    COMPARE_STEPS losses bit for bit the Executor phase's; past one card a
+    process a card), the launches a step of the GEMM epilogue, layer_norm
+    and Adam kernels and the NCCL kernels of its captured graph, its step
+    wall beside the Executor's; an all-reduce captured in a CUDA graph;
+    DeepFM at 2^20 x 32 with use_distributed at ep = 1 against local bit
+    for bit; ring attention's per-step path. Returns the training kernels'
+    launches over the PE's steps."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.ops import fused, registry
+    from paddle_tpu_torch.parallel import init_distributed
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    world = torch.cuda.device_count()
+    cfg = prof.BASE
+    batches = [prof.make_batch(cfg, SEED + i) for i in range(PE_STEPS)]
+    if world > 1:
+        _multi_card(world, cfg, card, readings)
+    with tempfile.TemporaryDirectory(prefix="pe_store_") as tmp:
+        t0 = time.perf_counter()
+        init_distributed(store=dist.FileStore(os.path.join(tmp, "store"), 1), world_size=1,
+                         rank=0, backend="nccl")
+        try:
+            log("train parallel: process group up in %.2f s, backend %s, world %d" % (
+                time.perf_counter() - t0, dist.get_backend(), dist.get_world_size()))
+            fused.reset_stats()  # the main path's counting window opens here
+            losses, walls, step, pe = _pe_steps(torch, cfg, batches, _launch_check(cfg))
+            launches = fused.stats()["launches"]  # and closes here
+            graphs = dict(fused.GRAPHS)
+            _same_bits("PE (world 1) against the Executor phase, loss at step",
+                       [float(v) for v in losses[:COMPARE_STEPS]], F32_FIRST["transformer"])
+            split = prof.profile_steps(step, batches[2:4], registry)
+            by_kernel = split["device_ms_per_step_by_kernel"]
+            nccl = _nccl_kernels(by_kernel)
+            exe_p50 = readings["train"]["graph"]["step_p50_ms"]
+            pe_p50 = float(np.median(walls[2:]))
+            per_kernel = {k: sum(v["launches"] for n, v in by_kernel.items() if k in n)
+                          for k in ("gemm_bias_act_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
+                                    "multi_adam_kernel")}
+            readings["train_parallel"] = {"graph": {
+                "step_p50_ms": pe_p50, "executor_step_p50_ms": exe_p50,
+                "device_busy_ms": split["device_busy_ms_per_step"],
+                "device_launches": split["device_launches_per_step"],
+                "nccl_kernels_a_step": sum(nccl.values()), "mesh": pe.mesh.shape}}
+            log("train parallel: Transformer base %s through the ParallelExecutor at world 1 "
+                "(NCCL, mesh %s), training_fused on CUDA graphs (%s), %d steps, losses %s, the "
+                "first %d bit for bit the Executor phase's; kernel launches over the steps %s "
+                "(a profiled step: %s); NCCL kernels in the captured step %s (dp = 1 averages "
+                "nothing); step wall p50 %.3f ms over steps 3-%d against the Executor's %.3f ms "
+                "(the train phase, this call); device busy %s ms a step, %s launches; card %s" % (
+                    json.dumps(cfg), json.dumps(pe.mesh.shape), json.dumps(graphs), PE_STEPS,
+                    ["%.6f" % v for v in losses], COMPARE_STEPS, json.dumps(launches),
+                    json.dumps(per_kernel), json.dumps(nccl), pe_p50, PE_STEPS, exe_p50,
+                    split["device_busy_ms_per_step"], split["device_launches_per_step"], card))
+            del step, pe
+            torch.cuda.empty_cache()
+            _nccl_in_graph(torch, card)
+            _deepfm_distributed(torch, card)
+        finally:
+            dist.destroy_process_group()
+    _ring_per_step(torch, card)
+    return {k: launches[k] for k in _per_step(cfg)[0]}
+
+
 def main():
     import torch
 
@@ -6332,6 +6752,10 @@ def main():
     torch.cuda.empty_cache()
     with Phase("host ops"):
         host_ops(torch, card)
+    torch.cuda.empty_cache()
+    with Phase("train parallel"):
+        for name, n in train_parallel(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
     # every main path on replayed CUDA graphs beside the op-by-op path
     log(json.dumps({"paths": paths, "card": card}))
     for name, n in launches.items():

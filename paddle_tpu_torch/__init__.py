@@ -45,6 +45,12 @@ and transpiler.Bf16Transpiler rewrites a training Program to bf16 mixed
 precision (f32 masters); FLAGS_fp8_matmul routes its products through
 e4m3 (ops/quant_gemm.py fp8_matmul).
 
+Data parallelism: `ParallelExecutor` runs one process per device on
+torch.distributed (NCCL on the cards, gloo on the CPU): the global batch
+split over dp, gradients averaged in coalesced buckets or the ZeRO-1 tier,
+synchronized batch_norm, ring attention over sp and row-sharded embedding
+tables over ep (parallel/, embedding/).
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
@@ -68,6 +74,7 @@ from . import (  # noqa: F401
     observability,
     ops,
     optimizer,
+    parallel,
     param_attr,
     passes,
     profiler,
@@ -92,5 +99,6 @@ from .framework import (  # noqa: F401
     program_guard,
 )
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor  # noqa: F401
+from .parallel_executor import BuildStrategy, ExecutionStrategy, ParallelExecutor  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from .place import CPUPlace, CUDAPlace, is_compiled_with_cuda  # noqa: F401

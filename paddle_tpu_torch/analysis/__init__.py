@@ -13,7 +13,8 @@ counterpart of paddle_tpu/analysis/):
   FLAGS_static_verify gate Executor.run, aot_serve_lowering, the serving
   engines and the PassManager call.
 
-Sharding layouts (a mesh) come with ROADMAP A6.
+Sharding layouts (the sharding-rules Resolver over a mesh) come with ROADMAP
+A6b.
 """
 
 from .checkers import (

@@ -16,7 +16,7 @@ filters on, and the seeded-defect tests assert. The catalog
                              (error); dead rules matching zero vars
                              (warning). The rules are `program.
                              _sharding_rules`, (pattern, spec) pairs; the
-                             divisibility warnings need a mesh (ROADMAP A6).
+                             divisibility warnings need the Resolver (ROADMAP A6b).
 - dtype-boundary   (warning) an op mixes 16-bit and 32-bit float inputs
                              without an explicit cast — silent upcast
                              drift at op edges.
@@ -252,7 +252,7 @@ def _check_sharding_rules(a):
     explicit-target rank mismatch silently resolves to replicated (error —
     the author asked for a layout the engine cannot apply). With a mesh
     bound, non-divisible static dims degrade to replication per dim
-    (warning); no mesh binds here until ROADMAP A6."""
+    (warning); no Resolver binds here until ROADMAP A6b."""
     rules = getattr(a.program, "_sharding_rules", None)
     if not rules:
         return
@@ -625,7 +625,8 @@ def lint_program(program, feed_names=(), fetch_names=(), scope=None,
         graph = program if isinstance(program, Graph) else Graph(program)
         if mesh is not None:
             raise NotImplementedError(
-                "lint_program(mesh=...): sharding layouts need the device mesh (ROADMAP A6)")
+                "lint_program(mesh=...): sharding layouts need the sharding-rules Resolver "
+                "(parallel/sharding_rules.py, ROADMAP A6b)")
         analysis = Analysis(
             program if not isinstance(program, Graph) else graph.program,
             graph, feed_names, fetch_names, scope, None, None, mode,

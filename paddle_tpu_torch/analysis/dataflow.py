@@ -18,9 +18,9 @@
   over the graph's def-use edges, which the dead-write and
   write-never-read checkers read (analysis/checkers.py).
 
-Sharding specs need a mesh, which the port does not have yet: `mesh` and
-`resolver` are None on every Analysis, and passing a mesh raises (ROADMAP
-A6).
+Sharding specs need the sharding-rules Resolver (parallel/sharding_rules.py),
+which comes with ROADMAP A6b: `mesh` and `resolver` are None on every
+Analysis, and passing a mesh raises.
 """
 
 import torch
@@ -56,7 +56,7 @@ class VarFact:
     """The abstract value of one variable: kind "tensor" (shape and dtype
     meaningful) or "opaque" (unknown, the bottom of the lattice). shape
     entries are ints or SymDims; spec is the sharding layout (always None
-    here: no mesh binds); writer is the producing (block_idx, op_index),
+    here: no Resolver binds); writer is the producing (block_idx, op_index),
     None for external values."""
 
     __slots__ = ("shape", "dtype", "lod_level", "kind", "spec", "writer")
@@ -67,7 +67,7 @@ class VarFact:
         self.dtype = dtype
         self.lod_level = lod_level
         self.kind = kind
-        self.spec = spec  # a sharding layout: None until a mesh binds (A6)
+        self.spec = spec  # a sharding layout: None until the Resolver binds (A6b)
         self.writer = writer
 
     @property
@@ -368,13 +368,14 @@ def analyze_program(program, feed_names=(), fetch_names=(), scope=None, mesh=Non
     ("training" / "inference" / "serving") is read by the determinism
     checker. `rules` is accepted for the JAX signature; without a mesh the
     sharding-rules checker reads `program._sharding_rules` itself. A mesh
-    raises: sharding layouts come with the mesh (ROADMAP A6)."""
+    raises: sharding layouts come with the Resolver (ROADMAP A6b)."""
     from ..passes.graph import Graph
 
     if mesh is not None:
         raise NotImplementedError(
-            "analyze_program(mesh=...): sharding layouts need the device mesh, which the "
-            "port has not ported yet (parallel/, ROADMAP A6)")
+            "analyze_program(mesh=...): sharding layouts need the sharding-rules "
+            "Resolver, which the port has not ported yet (parallel/sharding_rules.py, "
+            "ROADMAP A6b)")
     graph = program if isinstance(program, Graph) else Graph(program)
     program = graph.program if isinstance(program, Graph) else program
     return _Analyzer(graph, feed_names, fetch_names, scope, mode, program,

@@ -1,13 +1,16 @@
-"""paddle_tpu_torch.embedding: the SelectedRows sparse-gradient structure
-(selected_rows.py) that `is_sparse=True` lookup tables emit and the per-row
-optimizer ops (ops/sparse_ops.py) consume.
+"""paddle_tpu_torch.embedding — the sparse embedding engine for
+recsys-scale tables (the counterpart of paddle_tpu/embedding/).
 
-The JAX package's row-sharded side of this package, `EmbeddingEngine`
-(engine.py) and `sharded_embedding_lookup` (lookup.py, shard_map), shards a
-table over a mesh axis; this package has no mesh yet, and they come with
-the parallel layer.
+The replacement for the reference's pserver distributed lookup table
+(SURVEY.md §2.7.5): row-sharded tables over the mesh `ep` axis
+(EmbeddingEngine, engine.py; the gather + all-reduce lookup, lookup.py),
+SelectedRows-style sparse gradients whose cost scales with touched rows
+(selected_rows.py), and per-row optimizer updates with row-sharded moments
+(ops/sparse_ops.py).
 """
 
+from .engine import EmbeddingEngine, engines_of
+from .lookup import sharded_embedding_lookup
 from .selected_rows import (
     ROW_SENTINEL,
     densify,
@@ -18,6 +21,9 @@ from .selected_rows import (
 )
 
 __all__ = [
+    "EmbeddingEngine",
+    "engines_of",
+    "sharded_embedding_lookup",
     "ROW_SENTINEL",
     "densify",
     "is_selected_rows",

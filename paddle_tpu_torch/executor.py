@@ -98,6 +98,9 @@ class Scope:
         self._generator = None  # lazy, like the JAX package's rng key
         self._device_generator = None
         self._uid = next(Scope._uid_counter)
+        # name -> (mesh, axis) of the vars held as this rank's rows only
+        # (parallel/collectives.py shard_state: ZeRO-1 moments, ep tables)
+        self.row_shards = {}
 
     @property
     def device(self):
@@ -304,8 +307,14 @@ class _PerOpProfiledBlock:
     a profiler event and, on the card, syncs the device after it, so the
     event holds the op's device time too (the reference's per-op tables)."""
 
-    def __init__(self, block, feed_names, fetch_names, scope, ops=None):
+    def __init__(self, block, feed_names, fetch_names, scope, ops=None, mesh=None):
         self.feed_names = list(feed_names)
+        # a ParallelExecutor's block: its lowerings see this rank's mesh
+        # (ctx.mesh), and `plan` (parallel_executor._DataParallelPlan, set
+        # by the PE at dp > 1) averages the gradients over dp before the
+        # first optimizer unit and runs the ZeRO-1 updates
+        self.mesh = mesh
+        self.plan = None
         self.fetch_names = list(fetch_names)
         self.ops = _exec_ops(block) if ops is None else list(ops)
         self.stochastic = any(registry.get(op.type).stochastic for op in walk_ops(self.ops))
@@ -394,14 +403,19 @@ class _PerOpProfiledBlock:
         env.update(mut_state)
         env.update(feeds)
         sync = per_op and ctx.device.type == "cuda"
-        for run, dead in zip(self.runs, self.dead):
+        plan = self.plan
+        for i, (run, dead) in enumerate(zip(self.runs, self.dead)):
+            if plan is not None and i == plan.sync_at:
+                with _prof.RecordEvent("dp/grad_sync"):
+                    plan.sync(env)
+            lower = self._lower if plan is None or i not in plan.zero1_units else plan.lower
             if per_op:
                 with _prof.RecordEvent(_run_label(run)):
-                    self._lower(ctx, run, env, scope)
+                    lower(ctx, run, env, scope)
                     if sync:
                         torch.cuda.synchronize(ctx.device)
             else:
-                self._lower(ctx, run, env, scope)
+                lower(ctx, run, env, scope)
             # an intermediate is dropped after its last reader, so the
             # step's memory (and a captured graph's pool) holds only what
             # is live
@@ -434,7 +448,7 @@ class _PerOpProfiledBlock:
         return registry.LowerCtx(
             scope.device, generator=scope.generator, is_test=is_test,
             device_generator=scope.device_generator, cache=self.cache,
-            host_random=bool(self.created_persistables),
+            host_random=bool(self.created_persistables), mesh=self.mesh,
         )
 
     def state(self, scope):

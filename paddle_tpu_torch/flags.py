@@ -137,7 +137,6 @@ PENDING = {
     "rpc_op_deadline": _RPC,
     "resilience_nan_guard": _RESILIENCE,
     "resilience_lr_decay": _RESILIENCE,
-    "dist_init_max_retry": "parallel/multihost.py (ROADMAP A6)",
     "telemetry_dir": _TELEMETRY,
     "telemetry_interval_steps": _TELEMETRY,
     "telemetry_log_every": _TELEMETRY,

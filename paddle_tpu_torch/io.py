@@ -25,6 +25,8 @@ from . import framework
 from .executor import global_scope
 from .framework import Parameter, Program, Variable
 from .ops.registry import torch_dtype
+from .parallel.collectives import gathered_state, reshard_state
+from .parallel.multihost import barrier, host_index
 
 __all__ = [
     "save_vars",
@@ -158,16 +160,24 @@ def _var_names(program, vars, predicate):
 
 def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
               filename=None):
-    """Persist selected scope variables (reference io.py save_vars)."""
+    """Persist selected scope variables (reference io.py save_vars). Under
+    a process group every rank calls: a variable a ParallelExecutor holds
+    row-sharded (ZeRO-1 state, an ep table) is all-gathered, rank 0 writes
+    whole variables, and every rank returns once the files are written."""
     program = main_program or framework.default_main_program()
     scope = global_scope()
-    os.makedirs(dirname, exist_ok=True)
     arrays = {}
     for name in _var_names(program, vars, predicate):
-        val = scope.find_var(name)
-        if val is None:
+        if scope.find_var(name) is None:
             raise RuntimeError("variable %r has no value in scope; run startup first" % name)
-        arrays[name] = val
+        arrays[name] = gathered_state(scope, name)
+    if host_index() == 0:
+        _write_vars(dirname, arrays, filename)
+    barrier()
+
+
+def _write_vars(dirname, arrays, filename):
+    os.makedirs(dirname, exist_ok=True)
     if filename is None:
         save_arrays(dirname, arrays)
         return
@@ -205,7 +215,8 @@ def save_persistables(executor, dirname, main_program=None, filename=None):
 def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
               filename=None):
     """Load variables into the current scope, as tensors on its device (an
-    unbound process scope takes the executor's)."""
+    unbound process scope takes the executor's). A variable the scope holds
+    row-sharded takes this rank's rows of the whole value."""
     program = main_program or framework.default_main_program()
     scope = global_scope()
     if executor is not None:
@@ -228,7 +239,11 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
         else:
             arr = np.load(os.path.join(dirname, name + ".npy"))
             stored = _stored_dtype(dirname, name, meta)
-        scope.set_var(name, _to_tensor(arr, stored, scope.device))
+        val = _to_tensor(arr, stored, scope.device)
+        if name in scope.row_shards:
+            reshard_state(scope, name, val)
+        else:
+            scope.set_var(name, val)
 
 
 def load_params(executor, dirname, main_program=None, filename=None):

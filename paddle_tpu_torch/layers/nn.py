@@ -1,7 +1,7 @@
 """Neural-network layers: paddle_tpu/layers/nn.py's (reference
-python/paddle/fluid/layers/nn.py) but `ring_attention`, which comes with
-the mesh. Each layer appends the same ops with the same attrs as the JAX
-package's, so a model builder yields the same Program in both packages.
+python/paddle/fluid/layers/nn.py). Each layer appends the same ops with
+the same attrs as the JAX package's, so a model builder yields the same
+Program in both packages.
 `conv2d_transpose` builds its op, which ops/nn_extra_ops.py lowers."""
 
 import numpy as np
@@ -54,6 +54,7 @@ __all__ = [
     "log",
     "kv_cache_write",
     "paged_attention",
+    "ring_attention",
     "distributed_embedding",
     "flash_attention",
     "squeeze",
@@ -160,8 +161,8 @@ def embedding(
     dtype="float32",
 ):
     """Embedding lookup (reference layers/nn.py embedding → lookup_table op).
-    `is_distributed=True` is the row-sharded EmbeddingEngine form, ported with
-    the parallelism slice."""
+    `is_distributed=True` row-shards the table over the mesh 'ep' axis via
+    the EmbeddingEngine (distributed_embedding)."""
     if is_distributed:
         return distributed_embedding(
             input,
@@ -835,15 +836,42 @@ def paged_attention(q, k_pool, v_pool, block_table, pos, n_head, page_size,
     return out
 
 
+def ring_attention(q, k, v, causal=False, axis_name="sp", name=None):
+    """Exact attention with the sequence sharded over the mesh's `axis_name`
+    (context parallelism; parallel/ring_attention.py). q/k/v: (b, heads,
+    t, d)."""
+    helper = LayerHelper("ring_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op(
+        type="ring_attention",
+        inputs={"Q": [q.name], "K": [k.name], "V": [v.name]},
+        outputs={"Out": [out.name]},
+        attrs={"causal": causal, "axis_name": axis_name},
+    )
+    return out
+
+
 def distributed_embedding(input, size, param_attr=None, dtype="float32",
                           axis_name="ep", is_sparse=True, padding_idx=None,
                           name=None):
-    """Row-sharded embedding (the JAX package's EmbeddingEngine): ported with
-    the parallelism slice."""
-    raise NotImplementedError(
-        "distributed_embedding is ported with the parallelism slice "
-        "(ROADMAP.md queue A7)"
+    """Row-sharded embedding (the reference's distributed lookup table,
+    SURVEY.md §2.7.5) on the EmbeddingEngine (embedding/): the table shards
+    over `axis_name`, the forward is a local gather + one all-reduce, and
+    with `is_sparse` (default) the backward emits a SelectedRows pair that
+    per-row optimizer updates with row-sharded moments consume."""
+    from ..embedding import EmbeddingEngine
+
+    engine = EmbeddingEngine(
+        name=name,
+        num_rows=size[0],
+        dim=size[1],
+        dtype=dtype,
+        axis_name=axis_name,
+        padding_idx=padding_idx,
+        is_sparse=is_sparse,
+        param_attr=param_attr,
     )
+    return engine.lookup(input)
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, name=None):

@@ -8,8 +8,8 @@ Embedding routing (embedding/, ops/sparse_ops.py):
   per-row optimizer updates: cost O(batch * fields * dim), not
   O(num_features);
 - `use_distributed=True` row-shards both tables over the mesh `axis_name`
-  (the JAX package's EmbeddingEngine); this package has no mesh yet, and
-  layers.distributed_embedding raises;
+  (layers.distributed_embedding, the EmbeddingEngine) under a
+  ParallelExecutor whose mesh gives that axis an extent above 1;
 - `hash_size=N` routes raw ids through the `hash` op (XXH32 mod N) so an
   unbounded id space feeds a fixed-size table, and the tables are sized by
   hash_size instead of num_features."""

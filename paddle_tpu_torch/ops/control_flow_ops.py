@@ -205,6 +205,29 @@ def _recurrent_infer(op, block):
         _copy_meta(block, boot_name, final_name)
 
 
+def _parallel_do_infer(op, block):
+    sub = op.attrs.get("sub_block")
+    if sub is None:
+        return
+    for step_name, out_name in zip(op.attrs.get("out_names", ()), op.outputs.get("Out", ())):
+        if sub.has_var_recursive(step_name):
+            src = sub._var_recursive(step_name)
+            set_var_meta(block, out_name, src.shape, src.dtype)
+
+
+@register("parallel_do", infer_shape=_parallel_do_infer)
+def _parallel_do(ctx, ins, attrs):
+    """The deprecated intra-graph data-parallel island (reference
+    controlflow/parallel_do_op.cc: split the batch across places, run the
+    sub-block per device, gather). A ParallelExecutor already gives each
+    rank its rows of the batch, so the sub-block runs once over them (on
+    one device, over the whole batch), as the JAX package runs it once
+    under GSPMD."""
+    env = dict(zip(attrs.get("x_names", []), ins.get("X", [])))
+    lower_ops(ctx, attrs["sub_block"].ops, env)
+    return {"Out": [env[n] for n in attrs.get("out_names", [])]}
+
+
 @register("recurrent", infer_shape=_recurrent_infer)
 def _recurrent(ctx, ins, attrs):
     """A loop over time. Inputs: X stacked sequence inputs, Boot initial

@@ -28,12 +28,14 @@ same var dtypes in both.
 """
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from .gemm_epilogue import ACT_F32
-from .registry import EMPTY_VAR_NAME, bcast_y, prod, register, register_no_lower, torch_dtype
+from .registry import (EMPTY_VAR_NAME, bcast_y, mesh_over, prod, register, register_no_lower,
+                       torch_dtype)
 
 register_no_lower("feed")
 register_no_lower("fetch")
@@ -827,7 +829,10 @@ def _lookup_table_grad(ctx, ins, attrs):
     nothing. W is read for its shape only. The accumulating index_put_
     sums a repeated id's rows in one order every run (on the card it sorts
     the ids first; atomic adds would sum them in the order they land), so
-    a step gives the same bits every time it runs."""
+    a step gives the same bits every time it runs. The grad of a
+    distributed_lookup_table whose table is row-sharded over its mesh axis
+    is this rank's rows of it: W is the shard, and ids outside its rows
+    add nothing."""
     (w,) = ins["W"]
     (ids,) = ins["Ids"]
     (dout,) = ins["Out@GRAD"]
@@ -838,6 +843,10 @@ def _lookup_table_grad(ctx, ins, attrs):
     if padding_idx != -1:
         pad = padding_idx if padding_idx >= 0 else padding_idx + w.shape[0]
         mask = mask & (flat != pad)
+    shard_mesh = mesh_over(ctx, attrs["axis_name"]) if attrs.get("axis_name") else None
+    if shard_mesh is not None:
+        flat = flat - shard_mesh.index(attrs["axis_name"]) * w.shape[0]
+        mask = mask & (flat >= 0) & (flat < w.shape[0])
     rows = torch.where(mask[:, None], d2, torch.zeros((), dtype=d2.dtype, device=d2.device))
     dw = torch.zeros(tuple(w.shape), dtype=torch.float32, device=d2.device)
     dw.index_put_((torch.where(mask, flat, torch.zeros_like(flat)),), rows.float(),
@@ -975,13 +984,17 @@ def _batch_norm(ctx, ins, attrs):
     axes = tuple(i for i in range(x.dim()) if i != c_axis)
     cshape = [1] * x.dim()
     cshape[c_axis] = x.shape[c_axis]
+    dp_mesh = mesh_over(ctx, "dp")
     if is_test:
         use_mean, use_var = mean, var
         saved_mean, saved_var, mean_out, var_out = mean, var, mean, var
     else:
         xf = x.float()
-        bmean = torch.mean(xf, dim=axes)
-        bvar = torch.mean(torch.square(xf), dim=axes) - torch.square(bmean)
+        if dp_mesh is None:
+            bmean = torch.mean(xf, dim=axes)
+            bvar = torch.mean(torch.square(xf), dim=axes) - torch.square(bmean)
+        else:
+            bmean, bvar = _dp_batch_stats(xf, axes, dp_mesh)
         use_mean, use_var = bmean, bvar
         saved_mean = bmean
         saved_var = 1.0 / torch.sqrt(bvar + eps)
@@ -996,6 +1009,43 @@ def _batch_norm(ctx, ins, attrs):
         "SavedMean": [saved_mean],
         "SavedVariance": [saved_var],
     }
+
+
+def _dp_batch_stats(xf, axes, mesh):
+    """Synchronized batch statistics: the per-channel sums of x and x^2
+    all-reduced over dp in one collective, so the mean and the biased
+    variance are the global batch's (what the JAX package's GSPMD step
+    computes over the sharded batch)."""
+    from ..parallel import collectives
+
+    n = xf.numel() // math.prod(xf.shape[a] for a in range(xf.dim()) if a not in axes)
+    sums = torch.stack([xf.sum(dim=axes), torch.square(xf).sum(dim=axes)])
+    sums = collectives.all_reduce(sums, "dp", mesh=mesh)
+    n *= mesh.axis_size("dp")
+    bmean = sums[0] / n
+    return bmean, sums[1] / n - torch.square(bmean)
+
+
+def _dp_batch_norm_backward(dyf, xf, scale, mean, inv_std, want, mesh):
+    """batch_norm's backward over the global batch (NCHW f32): the
+    per-channel sums of dy and dy * xhat all-reduced over dp for dX, whose
+    mean terms are the global batch's; dScale and dBias stay this rank's
+    sums, averaged over dp with the other gradients."""
+    from ..parallel import collectives
+
+    axes = tuple(a for a in range(xf.dim()) if a != 1)
+    cshape = [1] * xf.dim()
+    cshape[1] = xf.shape[1]
+    xhat = (xf - mean.reshape(cshape)) * inv_std.reshape(cshape)
+    sum_dy = dyf.sum(dim=axes)
+    sum_dyx = (dyf * xhat).sum(dim=axes)
+    dx = None
+    if want[0]:
+        g = collectives.all_reduce(torch.stack([sum_dy, sum_dyx]), "dp", mesh=mesh)
+        n = (xf.numel() // xf.shape[1]) * mesh.axis_size("dp")
+        dx = (scale * inv_std).reshape(cshape) * (
+            dyf - (g[0] / n).reshape(cshape) - xhat * (g[1] / n).reshape(cshape))
+    return dx, sum_dyx, sum_dy
 
 
 def _batch_norm_grad(ctx, ins, attrs):
@@ -1028,9 +1078,14 @@ def _batch_norm_grad(ctx, ins, attrs):
     else:
         running = (None, None)
         saved = (ins["SavedMean"][0].float(), ins["SavedVariance"][0].float())
-    dx, dscale, dbias = torch.ops.aten.native_batch_norm_backward(
-        dyf, xf, scale.float(), running[0], running[1], saved[0], saved[1], not is_test, eps,
-        want)
+    dp_mesh = None if is_test else mesh_over(ctx, "dp")
+    if dp_mesh is not None:
+        dx, dscale, dbias = _dp_batch_norm_backward(dyf, xf, scale.float(), saved[0], saved[1],
+                                                    want, dp_mesh)
+    else:
+        dx, dscale, dbias = torch.ops.aten.native_batch_norm_backward(
+            dyf, xf, scale.float(), running[0], running[1], saved[0], saved[1], not is_test,
+            eps, want)
     out = {}
     if want[0]:
         out["X@GRAD"] = [(dx.movedim(1, -1) if nhwc else dx).to(x.dtype)]
@@ -1127,7 +1182,9 @@ def _opt_f32(fn):
     """Optimizer-lowering dtype fidelity: compute the update in f32 (bf16
     grads and states upcast), then cast every `<Slot>Out` back to its
     `<Slot>` input's dtype (the JAX package's _opt_f32, without its
-    sharding constraints: the port has no mesh yet)."""
+    sharding constraints: under ZeRO-1 the ParallelExecutor hands the
+    lowering this rank's rows of the param, grad and state, and gathers
+    the param after; parallel_executor._DataParallelPlan)."""
 
     @functools.wraps(fn)
     def wrapped(ctx, ins, attrs):

@@ -19,8 +19,10 @@ A lowering declines (returns False, and the run lowers op by op) exactly
 where the JAX one does: the path predicates below are copies of the JAX
 package's (`gemm_path_taken`, `_auto_block`, `_ln_blocks` /
 `ln_path_taken`, `adam_path_taken`), so both packages run the same ops
-through the same families. There is no mesh in this package yet, so the
-JAX package's declines for rule-sharded operands and ZeRO-1 do not arise.
+through the same families. Under ZeRO-1 the ParallelExecutor lowers the
+optimizer ops one by one, so multi_adam declines there as in the JAX
+package (a run of one); rule-sharded operands (tp / fsdp) come with
+ROADMAP A6b.
 On the card an accepted run always launches its kernel; a build or launch
 failure raises.
 

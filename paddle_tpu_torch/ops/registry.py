@@ -197,8 +197,12 @@ class LowerCtx:
     from the host."""
 
     def __init__(self, device, generator=None, is_test=False,
-                 device_generator=None, cache=None, host_random=True):
+                 device_generator=None, cache=None, host_random=True, mesh=None):
         self.device = torch.device(device)
+        # this rank's parallel.Mesh under a ParallelExecutor (None: one
+        # device): the mesh-aware lowerings (batch_norm's dp statistics,
+        # ring attention over sp, the ep-sharded table) read it
+        self.mesh = mesh
         self.generator = generator
         self.device_generator = device_generator
         self.host_random = host_random
@@ -243,6 +247,12 @@ class LowerCtx:
         # restarting with the seed it has is a no-op while a capture is under
         # way; the graph restarts it before each replay
         return entry[0].manual_seed(entry[1])
+
+
+def mesh_over(ctx, axis):
+    """ctx's mesh when its `axis` has extent above 1 (the lowering then
+    takes its distributed form), else None."""
+    return ctx.mesh if ctx.mesh is not None and ctx.mesh.axis_size(axis) > 1 else None
 
 
 def seeded_generators(cache):

@@ -17,9 +17,12 @@ touches (ids a batch, dim) rows of each.
   touched param and moment rows, update them in f32 and scatter them back
   in their storage dtype, in place (the table and moments are the ops'
   ParamOut / MomentOut under the same names, as the optimizers emit them).
-  The JAX package's mesh branch (a row-sharded table updated under
-  shard_map) needs a mesh, which this package does not have yet: an op that
-  names a mesh axis raises.
+  Under a ParallelExecutor whose mesh gives the op's `axis_name` (ep) an
+  extent above 1, the table and its moments are this rank's row shard:
+  each rank updates the touched rows it holds (the JAX package's
+  shard_map branch). The (rows, values) pair is the global batch's: the
+  executor all-gathers it over dp before the optimizer runs, as GSPMD
+  made it global in the JAX package.
 - `selected_rows_to_dense` densifies for optimizers without a sparse
   kernel (momentum, rmsprop, ...), the reference's SelectedRows ->
   LoDTensor merge before a dense update.
@@ -48,7 +51,7 @@ from ..embedding.selected_rows import (
     rows_var_name,
 )
 from ..framework import OpRole, grad_var_name
-from .registry import OPS, register
+from .registry import OPS, mesh_over, register
 
 __all__ = ["SPARSE_OPTIMIZER_TYPES"]
 
@@ -152,21 +155,26 @@ def _selected_rows_to_dense(ctx, ins, attrs):
 # --------------------------------------------------------------------------
 
 
-def _row_update(table, states, uniq, summed, height, compute):
+def _row_update(table, states, uniq, summed, height, compute, offset=0):
     """Gather the touched rows of the table and its states, apply `compute`
     in f32, and scatter the results back in their storage dtypes, in place.
+    A row-shard table holds global rows [offset, offset + its rows); rows
+    outside it are another rank's.
 
     The JAX lowering scatters with mode="drop", sending the invalid slots
-    (sentinel -> height, and the unused unique slots) out of bounds. A torch
-    scatter has no drop mode short of a host-synced boolean index, so here
-    every invalid slot writes to one anchor row the same bits that the
-    anchor's own slot writes: the first unique row (slot 0, which holds the
-    smallest row id, valid whenever any slot is), or, when no slot is valid,
-    row 0 its own unchanged value. Duplicate writes of identical bits leave
-    the result independent of their order."""
-    valid = uniq < height
-    anchor = torch.where(valid[:1], uniq[:1], torch.zeros_like(uniq[:1]))
-    gidx = torch.where(valid, uniq, anchor).long()
+    (sentinel -> height, the unused unique slots, another shard's rows) out
+    of bounds. A torch scatter has no drop mode short of a host-synced
+    boolean index, so here every invalid slot writes to one anchor row the
+    same bits that the anchor's own slot writes: the first valid slot's row
+    (slot 0 on a whole table, which holds the smallest row id, valid
+    whenever any slot is), or, when no slot is valid, row 0 its own
+    unchanged value. Duplicate writes of identical bits leave the result
+    independent of their order."""
+    local = uniq - offset
+    valid = (uniq < height) & (local >= 0) & (local < table.shape[0])
+    first = torch.argmax(valid.to(torch.int32)).reshape(1)
+    anchor = torch.where(valid[first], local[first], torch.zeros_like(local[first]))
+    gidx = torch.where(valid, local, anchor).long()
     rows_in = [torch.index_select(t, 0, gidx) for t in [table] + list(states)]
     p_rows = rows_in[0].float()
     s_rows = [r.float() for r in rows_in[1:]]
@@ -174,7 +182,8 @@ def _row_update(table, states, uniq, summed, height, compute):
     vmask = valid[:, None]
     for t, old, new in zip([table] + list(states), rows_in, [new_p] + list(new_s)):
         new = new.to(t.dtype)
-        keep = torch.where(vmask[:1], new[:1], old[:1])  # what the anchor's slot writes
+        # what the anchor's slot writes
+        keep = torch.where(vmask[first], new[first], old[first])
         t.index_put_((gidx,), torch.where(vmask, new, keep))
     return (table, *states)
 
@@ -197,25 +206,26 @@ def _owned(ctx, ins, slots, out_slots):
 def _sparse_apply(ctx, ins, attrs, state_slots, out_slots, make_compute):
     """The shared body of the *_sparse optimizer ops. state_slots name the
     row-aligned moment inputs, out_slots the outputs (ParamOut first);
-    make_compute(attrs, lr) returns the f32 per-row math."""
-    if attrs.get("axis_name"):
-        raise NotImplementedError(
-            "%s on a table sharded over mesh axis %r: row-sharded tables come with "
-            "the parallel layer" % (ctx.op.type if ctx.op is not None else "sparse update",
-                                    attrs["axis_name"]))
+    make_compute(attrs, lr) returns the f32 per-row math. On a mesh whose
+    `axis_name` extent is above 1 the table and states are this rank's row
+    shard."""
     (vals,) = ins["Grad"]
     (rows,) = ins["GradRows"]
     lr = ins["LearningRate"][0].reshape(()).float()
     table, *states = _owned(ctx, ins, ("Param",) + tuple(state_slots), out_slots)
-    height = int(table.shape[0])
+    axis = attrs.get("axis_name") or None
+    mesh = mesh_over(ctx, axis) if axis else None
+    shards = mesh.axis_size(axis) if mesh is not None else 1
+    height = int(table.shape[0]) * shards
     if ctx.device.type == "meta":
         return (table, *states)
     # merge duplicate ids once, in f32: O(cap) work against the dense path's
     # table-wide scatter
     uniq, summed = merge_rows(rows, vals, height)
     _gauges(attrs.get("param", "?"), height, int(table.shape[1]), None, vals.element_size(),
-            height * int(table.shape[1]) * table.element_size())
-    return _row_update(table, states, uniq, summed, height, make_compute(attrs, lr))
+            int(table.shape[0]) * int(table.shape[1]) * table.element_size())
+    offset = mesh.index(axis) * int(table.shape[0]) if mesh is not None else 0
+    return _row_update(table, states, uniq, summed, height, make_compute(attrs, lr), offset)
 
 
 def _pack(outs, out_slots):
@@ -320,6 +330,8 @@ def _lookup_grad_maker(op, block, grad_map):
         "param": w_name,
         OpRole.OP_ROLE_VAR_KEY: [w_name, g_w],
     }
+    if op.type == "distributed_lookup_table":
+        attrs["axis_name"] = op.attrs.get("axis_name", "ep")
     w_var = block._var_recursive(w_name)
     sparse_ok = (
         bool(op.attrs.get("is_sparse", False))

@@ -31,9 +31,10 @@ CONVERGE = dict(rows=2000, fields=6, dim=8, batch=64, layer_sizes=(64, 32), opti
                 lr=5e-3, steps=200, eval_batch=512, seed=0)
 
 
-def build_deepfm(cfg, is_sparse):
+def build_deepfm(cfg, is_sparse, use_distributed=False):
     """The DeepFM training program of `cfg`: a dict of the programs and the
-    variables a script touches."""
+    variables a script touches. use_distributed builds the EmbeddingEngine's
+    row-sharded tables (a ParallelExecutor with an ep axis shards them)."""
     from .. import fluid
     from ..models.deepfm import deepfm
 
@@ -43,7 +44,7 @@ def build_deepfm(cfg, is_sparse):
         label = fluid.layers.data(name="label", shape=[1], dtype="float32")
         loss, pred, _ = deepfm(ids, label, num_features=cfg["rows"], num_fields=cfg["fields"],
                                embedding_size=cfg["dim"], layer_sizes=cfg["layer_sizes"],
-                               is_sparse=is_sparse)
+                               is_sparse=is_sparse, use_distributed=use_distributed)
         if cfg["optimizer"] == "adam":
             fluid.optimizer.Adam(learning_rate=cfg["lr"],
                                  moment_dtype=cfg.get("moment_dtype")).minimize(loss)

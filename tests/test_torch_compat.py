@@ -138,7 +138,7 @@ def test_benchmark_flag_runs_a_program():
 PENDING = {
     "rpc_max_retry": (5, "RPC"), "rpc_deadline": (10.0, "RPC"), "rpc_op_deadline": (1.0, "RPC"),
     "resilience_nan_guard": (True, "resilience"), "resilience_lr_decay": (0.25, "resilience"),
-    "dist_init_max_retry": (1, "multihost"), "telemetry_dir": ("/tmp/t", "export"),
+    "telemetry_dir": ("/tmp/t", "export"),
     "telemetry_interval_steps": (10, "export"), "telemetry_log_every": (1, "export"),
     "tensor_stats": ("*", "opprof"), "nan_provenance": (True, "opprof"),
     "data_num_workers": (2, "data/"), "data_ring_slots": (8, "data/"),
@@ -150,12 +150,12 @@ PENDING = {
 
 # flags whose module is ported: a value other than the default is taken
 PORTED = {"flightrec_max_bundles": 4, "flightrec_min_interval_s": 0.5,
-          "pass_debug_dir": "pass_dumps", "static_verify": True}
+          "pass_debug_dir": "pass_dumps", "static_verify": True, "dist_init_max_retry": 1}
 
 
 def test_pending_table_is_the_rest_of_the_flags():
     assert sorted(PENDING) == sorted(flags.PENDING)
-    assert len(PENDING) == 20
+    assert len(PENDING) == 19
     assert set(PENDING) | set(RECORDED) | set(PORTED) | {
         "paged_flash", "quantized_gemm", "fp8_matmul", "check_nan_inf", "profile_ops",
         "pass_pipeline", "serving_cache_dir", "trace_dir", "trace_sample", "trace_slow_ms",

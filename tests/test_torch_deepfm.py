@@ -297,15 +297,27 @@ def test_deepfm_hashed_ids_run():
 
 
 def test_distributed_deepfm_raises():
+    """use_distributed=True builds the EmbeddingEngine's row-sharded tables
+    (tests/test_torch_parallel.py trains them at ep = 2); an ep mesh wider
+    than the process group raises at the ParallelExecutor."""
     import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.parallel import MeshConfig
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         ids = fluid.layers.data(name="ids", shape=[SH_FIELDS, 1], dtype="int64")
         label = fluid.layers.data(name="label", shape=[1], dtype="float32")
-        with pytest.raises(NotImplementedError):
-            _deepfm(fluid)(ids, label, num_features=SH_ROWS, num_fields=SH_FIELDS,
-                           use_distributed=True)
+        loss = _deepfm(fluid)(ids, label, num_features=SH_ROWS, num_fields=SH_FIELDS,
+                              use_distributed=True)[0]
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    block = main.global_block()
+    assert [op.type for op in block.ops].count("distributed_lookup_table") == 2
+    assert block.var("fm_emb").sharding_spec == ("ep", None)
+    scope = fluid.Scope(place=fluid.CPUPlace())
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                               mesh_config=MeshConfig(dp=1, ep=2))
 
 
 def test_sparse_step_keeps_static_shapes():

@@ -412,7 +412,8 @@ def test_int8_conv2d_counts_its_rule():
 def test_every_op_type_of_the_slice_is_registered_as_in_jax():
     """The 32 op types of nn_extra_ops.py, the 14 of compose_ops.py and
     int8_conv2d, each with the JAX package's no_grad / stochastic flags;
-    the port then lacks only the 13 parallel and distributed op types."""
+    the port then lacks only the 10 op types of the parameter server and
+    the NCCL rendezvous (ROADMAP A6b)."""
     import paddle_tpu.ops  # noqa: F401
     from paddle_tpu.ops import registry as jreg
 
@@ -427,10 +428,9 @@ def test_every_op_type_of_the_slice_is_registered_as_in_jax():
     # a generic `<type>_grad` another test made in either registry is derived
     # in the port too, and does not count as lacking
     lacking = {t for t in set(jreg.OPS) - set(registry.OPS) if not registry.is_registered(t)}
-    assert len(lacking) == 13, sorted(lacking)
-    assert lacking == {"checkpoint_notify", "distributed_lookup_table", "fake_init",
-                       "fetch_barrier", "gen_nccl_id", "listen_and_serv", "parallel_do",
-                       "prefetch", "recv", "ref_by_trainer_id", "ring_attention", "send",
+    assert len(lacking) == 10, sorted(lacking)
+    assert lacking == {"checkpoint_notify", "fake_init", "fetch_barrier", "gen_nccl_id",
+                       "listen_and_serv", "prefetch", "recv", "ref_by_trainer_id", "send",
                        "send_barrier"}
 
 

@@ -1,0 +1,440 @@
+"""Rank bodies of the ParallelExecutor tests: each test spawns 2 or 4
+processes that join a gloo group through a FileStore under the test's
+tmp_path and run one scenario of this module. It imports torch and the
+port only (a child never imports JAX); the model builders take a fluid
+module, so the JAX side of a test builds the same programs from
+paddle_tpu.fluid.
+
+`spawn(world, scenario, payload, tmp_path)` runs `scenario(rank, world,
+payload)` on every rank (one thread each, a 60 s gloo timeout, a time limit
+on the join) and returns each rank's result."""
+
+import datetime
+import os
+import pickle
+import traceback
+
+import numpy as np
+
+JOIN_TIMEOUT_S = 150
+
+# ---------------------------------------------------------------------------
+# models (either package's fluid)
+# ---------------------------------------------------------------------------
+
+
+def build_mlp(fluid, optimizer="sgd", moment_dtype=None):
+    """The JAX PE tests' MLP: fc 16 -> 32 relu -> 4, softmax cross entropy."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(x, size=32, act="relu")
+        logits = fluid.layers.fc(h, size=4)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(logits, y))
+        if optimizer == "adam":
+            kw = {"moment_dtype": moment_dtype} if moment_dtype else {}
+            fluid.optimizer.Adam(learning_rate=0.01, **kw).minimize(loss)
+        else:
+            fluid.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    return main, startup, loss
+
+
+def mlp_batches(n_steps, seed, batch=64):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_steps):
+        x = rng.randn(batch, 16).astype("float32")
+        y = np.abs(x[:, :4]).argmax(1).astype("int64").reshape(batch, 1)
+        out.append({"x": x, "y": y})
+    return out
+
+
+def build_se_resnext(fluid, models):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        net = models.se_resnext.SE_ResNeXt(depth_override=[1, 1, 1, 1],
+                                           filters_override=[32, 32, 32, 32])
+        logits = net.net(img, class_dim=4)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.Momentum(learning_rate=0.05, momentum=0.9).minimize(loss)
+    # dropout 0: the two packages' masks differ (the JAX PE Transformer
+    # test's choice)
+    for op in main.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+    return main, startup, loss
+
+
+def se_resnext_batches():
+    rng = np.random.RandomState(1)
+    return [{"img": rng.randn(8, 3, 32, 32).astype("float32"),
+             "label": rng.randint(0, 4, (8, 1)).astype("int64")} for _ in range(3)]
+
+
+TRANSFORMER_T, TRANSFORMER_VOCAB = 8, 32
+TRANSFORMER_FEEDS = ("src_word", "src_pos", "trg_word", "trg_pos", "lbl", "lbl_w")
+
+
+def build_transformer(fluid, models):
+    t, vocab = TRANSFORMER_T, TRANSFORMER_VOCAB
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds = {}
+        for name, shape, dtype in [("src_word", [t], "int64"), ("src_pos", [t], "int64"),
+                                   ("trg_word", [t], "int64"), ("trg_pos", [t], "int64"),
+                                   ("lbl", [t], "int64"), ("lbl_w", [t, 1], "float32")]:
+            feeds[name] = fluid.layers.data(name=name, shape=shape, dtype=dtype)
+        loss, _ = models.transformer.transformer(
+            feeds["src_word"], feeds["src_pos"], feeds["trg_word"], feeds["trg_pos"],
+            None, None, None, feeds["lbl"], feeds["lbl_w"],
+            src_vocab_size=vocab, trg_vocab_size=vocab, n_layer=1, n_head=2, d_model=16,
+            d_inner=32, d_key=8, d_value=8, dropout=0.0, max_length=t + 1)
+        fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    return main, startup, loss
+
+
+def transformer_batches():
+    t, vocab = TRANSFORMER_T, TRANSFORMER_VOCAB
+    rng = np.random.RandomState(2)
+    pos = np.tile(np.arange(t), (8, 1)).astype("int64")
+    out = []
+    for _ in range(5):
+        vals = (rng.randint(0, vocab, (8, t)).astype("int64"), pos,
+                rng.randint(0, vocab, (8, t)).astype("int64"), pos,
+                rng.randint(0, vocab, (8, t)).astype("int64"), np.ones((8, t, 1), "float32"))
+        out.append(dict(zip(TRANSFORMER_FEEDS, vals)))
+    return out
+
+
+MESH_VOCAB, MESH_D, MESH_HEADS, MESH_T = 64, 16, 2, 8
+
+
+def build_full_mesh(fluid):
+    """tests/test_parallel_pkg.py's model with every kind of the slice:
+    the batch over dp, a distributed_embedding over ep, ring attention over
+    sp; SGD."""
+    V, D, H, T = MESH_VOCAB, MESH_D, MESH_HEADS, MESH_T
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        tok = fluid.layers.data(name="tok", shape=[-1, T, 1], dtype="int64",
+                                append_batch_size=False)
+        label = fluid.layers.data(name="label", shape=[-1, 1], dtype="int64",
+                                  append_batch_size=False)
+        emb = fluid.layers.distributed_embedding(tok, size=[V, D])
+        qkv = fluid.layers.fc(emb, size=3 * D, num_flatten_dims=2, bias_attr=False)
+        q, k, v = fluid.layers.split(qkv, 3, dim=2)
+
+        def heads(x):
+            r = fluid.layers.reshape(x, [0, 0, H, D // H])
+            return fluid.layers.transpose(r, [0, 2, 1, 3])
+
+        att = fluid.layers.ring_attention(heads(q), heads(k), heads(v), causal=True)
+        att = fluid.layers.transpose(att, [0, 2, 1, 3])
+        att = fluid.layers.reshape(att, [0, 0, D])
+        pooled = fluid.layers.reduce_mean(att, dim=[1])
+        logits = fluid.layers.fc(pooled, size=4)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, loss
+
+
+def full_mesh_batches():
+    rng = np.random.RandomState(0)
+    return [{"tok": rng.randint(0, MESH_VOCAB, (8, MESH_T, 1)).astype("int64"),
+             "label": rng.randint(0, 4, (8, 1)).astype("int64")} for _ in range(4)]
+
+
+DFM_ROWS, DFM_FIELDS, DFM_DIM = 512, 4, 8
+
+
+def build_deepfm(fluid, models, distributed):
+    """tests/test_deepfm.py's small DeepFM under SGD: dense tables
+    (is_sparse=False), or the EmbeddingEngine's row-sharded tables with
+    sparse grads (use_distributed=True, is_sparse=True)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[DFM_FIELDS, 1], dtype="int64")
+        label = fluid.layers.data(name="label", shape=[1], dtype="float32")
+        loss = models.deepfm.deepfm(ids, label, num_features=DFM_ROWS, num_fields=DFM_FIELDS,
+                                    embedding_size=DFM_DIM, layer_sizes=(16,),
+                                    is_sparse=distributed, use_distributed=distributed)[0]
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+def deepfm_batches(n=5, batch=32):
+    rng = np.random.RandomState(7)
+    return [{"ids": rng.randint(0, DFM_ROWS, (batch, DFM_FIELDS, 1)).astype("int64"),
+             "label": (rng.rand(batch, 1) < 0.5).astype("float32")} for _ in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# port helpers
+# ---------------------------------------------------------------------------
+
+
+def _port():
+    import paddle_tpu_torch.fluid as fluid
+    import paddle_tpu_torch.models.deepfm  # noqa: F401
+    import paddle_tpu_torch.models.se_resnext  # noqa: F401
+    import paddle_tpu_torch.models.transformer  # noqa: F401
+    from paddle_tpu_torch import models
+
+    return fluid, models
+
+
+def port_state(fluid, startup, init):
+    """A CPU scope holding the port's startup state overwritten by `init`
+    (the JAX startup scope's arrays, by name)."""
+    from paddle_tpu_torch import convert
+
+    scope = fluid.Scope(seed=3, place=fluid.CPUPlace())
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    if init is not None:
+        convert.load_into_scope(scope, init, sorted(init))
+    return scope
+
+
+def pe_losses(fluid, main, loss, scope, batches, strategy=None, mesh_config=None):
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                                build_strategy=strategy, mesh_config=mesh_config)
+    out = []
+    for feed in batches:
+        (val,) = pe.run(fetch_list=[loss.name], feed=feed)
+        out.append(float(np.asarray(val).reshape(-1)[0]))
+    return out, pe
+
+
+def zero1_strategy(fluid):
+    s = fluid.BuildStrategy()
+    s.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+    return s
+
+
+# ---------------------------------------------------------------------------
+# scenarios: scenario(rank, world, payload) -> picklable result
+# ---------------------------------------------------------------------------
+
+
+def sc_mlp(rank, world, p):
+    fluid, _ = _port()
+    main, startup, loss = build_mlp(fluid)
+    losses, pe = pe_losses(fluid, main, loss, port_state(fluid, startup, p["init"]),
+                           mlp_batches(20, 0))
+    bad = None
+    try:
+        pe.run(fetch_list=[loss.name], feed=mlp_batches(1, 9, batch=world + 1)[0])
+    except ValueError as e:
+        bad = str(e)
+    return {"losses": losses, "indivisible": bad, "device_count": pe.device_count,
+            "topology": pe.topology}
+
+
+def sc_zero1(rank, world, p):
+    fluid, _ = _port()
+    out = {}
+    for name, strategy in (("allreduce", None), ("zero1", zero1_strategy(fluid))):
+        main, startup, loss = build_mlp(fluid, "adam")
+        scope = port_state(fluid, startup, p["init"])
+        out[name], _ = pe_losses(fluid, main, loss, scope, mlp_batches(6, 7), strategy)
+        out[name + "_shards"] = {n: tuple(scope.vars[n].shape) for n in sorted(scope.row_shards)}
+    return out
+
+
+def sc_zero1_ckpt(rank, world, p):
+    """3 ZeRO-1 steps, save_persistables (whole variables), a fresh scope
+    with load_persistables (resharded), 3 more steps."""
+    fluid, _ = _port()
+    batches = mlp_batches(6, 11)
+    main, startup, loss = build_mlp(fluid, "adam")
+    scope = port_state(fluid, startup, p["init"])
+    full, _ = pe_losses(fluid, main, loss, scope, batches, zero1_strategy(fluid))
+
+    main, startup, loss = build_mlp(fluid, "adam")
+    scope = port_state(fluid, startup, p["init"])
+    head, _ = pe_losses(fluid, main, loss, scope, batches[:3], zero1_strategy(fluid))
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, p["dir"], main)
+    saved = sorted(os.listdir(p["dir"]))
+
+    main, startup, loss = build_mlp(fluid, "adam")
+    scope = port_state(fluid, startup, None)
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                                build_strategy=zero1_strategy(fluid))
+    with fluid.scope_guard(scope):
+        fluid.io.load_persistables(exe, p["dir"], main)
+    tail = []
+    for feed in batches[3:]:
+        (val,) = pe.run(fetch_list=[loss.name], feed=feed)
+        tail.append(float(np.asarray(val).reshape(-1)[0]))
+    shapes = {n: tuple(np.load(os.path.join(p["dir"], n + ".npy")).shape)
+              for n in sorted(scope.row_shards)}
+    return {"full": full, "resumed": head + tail, "saved": saved, "saved_shapes": shapes}
+
+
+def sc_model(rank, world, p):
+    """losses of p["model"] under the PE from the JAX startup state."""
+    fluid, models = _port()
+    if p["model"] == "se_resnext":
+        main, startup, loss = build_se_resnext(fluid, models)
+        batches = se_resnext_batches()
+    elif p["model"] == "transformer":
+        main, startup, loss = build_transformer(fluid, models)
+        batches = transformer_batches()
+    else:
+        main, startup, loss = build_full_mesh(fluid)
+        batches = full_mesh_batches()
+    from paddle_tpu_torch.parallel import MeshConfig
+
+    mesh_config = MeshConfig(**p["mesh"]) if p.get("mesh") else None
+    losses, pe = pe_losses(fluid, main, loss, port_state(fluid, startup, p["init"]), batches,
+                           mesh_config=mesh_config)
+    return {"losses": losses, "mesh": dict(pe.mesh.shape)}
+
+
+def sc_deepfm(rank, world, p):
+    fluid, models = _port()
+    from paddle_tpu_torch.parallel import MeshConfig
+
+    main, startup, loss = build_deepfm(fluid, models, True)
+    scope = port_state(fluid, startup, p["init"])
+    losses, pe = pe_losses(fluid, main, loss, scope, deepfm_batches(),
+                           mesh_config=MeshConfig(dp=1, ep=world))
+    tables = {}
+    from paddle_tpu_torch.parallel import collectives
+
+    for n in ("fm_emb", "fm_first"):
+        tables[n] = collectives.gathered_state(scope, n).numpy()
+    shard_rows = {n: int(scope.vars[n].shape[0]) for n in sorted(scope.row_shards)}
+    if p.get("dir"):
+        from paddle_tpu_torch.embedding import engines_of
+
+        eng = [e for e in engines_of(main) if e.table.name == "fm_emb"][0]
+        manifest = eng.save_sharded(scope, p["dir"], num_shards=2, program=main)
+        before = collectives.gathered_state(scope, "fm_emb").clone()
+        scope.vars["fm_emb"].zero_()
+        eng.load_sharded(scope, p["dir"])
+        after = collectives.gathered_state(scope, "fm_emb")
+        tables["roundtrip_equal"] = bool((before == after).all())
+        tables["manifest_shards"] = None if manifest is None else manifest["num_shards"]
+    return {"losses": losses, "tables": tables, "shard_rows": shard_rows}
+
+
+def sc_ring(rank, world, p):
+    """ring_attention_sharded at sp = world against the plain form: out and
+    the q, k, v grads, causal and not (each rank returns its results)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import MeshConfig, make_mesh
+    from paddle_tpu_torch.parallel.ring_attention import attention_plain, ring_attention_sharded
+
+    mesh = make_mesh(MeshConfig(dp=1, sp=world), device="cpu")
+    out = {}
+    for causal in (False, True):
+        q, k, v, do = (torch.from_numpy(a).requires_grad_(i < 3)
+                       for i, a in enumerate(p["qkvdo"]))
+        o = ring_attention_sharded(q, k, v, mesh, causal=causal)
+        o.backward(do)
+        out[causal] = [t.detach().numpy() for t in (o, q.grad, k.grad, v.grad)]
+        qr, kr, vr = (torch.from_numpy(a).requires_grad_() for a in p["qkvdo"][:3])
+        ref = attention_plain(qr, kr, vr, causal)
+        ref.backward(do)
+        out[("plain", causal)] = [t.detach().numpy() for t in (ref, qr.grad, kr.grad, vr.grad)]
+    return out
+
+
+def sc_collectives(rank, world, p):
+    """Every wrapper on a dp=2 x sp=2 mesh, with each rank's input its
+    global rank."""
+    import torch
+
+    from paddle_tpu_torch.parallel import MeshConfig, collectives, make_mesh
+
+    mesh = make_mesh(MeshConfig(dp=2, sp=2), device="cpu")
+    x = torch.arange(4, dtype=torch.float32).reshape(4, 1) + 10 * rank
+    with mesh:
+        return {
+            "coords": (collectives.axis_index("dp"), collectives.axis_index("sp"),
+                       collectives.axis_size("dp"), collectives.axis_size("sp")),
+            "sum_dp": collectives.all_reduce(x, "dp").numpy(),
+            "max_sp": collectives.all_reduce(x, "sp", op="max").numpy(),
+            "mean_dp": collectives.all_reduce(x, "dp", op="mean").numpy(),
+            "gather_sp": collectives.all_gather(x, "sp").numpy(),
+            "gather_sp_1": collectives.all_gather(x, "sp", axis=1).numpy(),
+            "stack_dp": collectives.all_gather(x, "dp", tiled=False).numpy(),
+            "scatter_dp": collectives.reduce_scatter(x, "dp").numpy(),
+            "shift_sp": collectives.ppermute_shift(x, "sp").numpy(),
+            "bcast_dp": collectives.broadcast(x, "dp", root=1).numpy(),
+        }
+
+
+SCENARIOS = {f.__name__: f for f in (sc_mlp, sc_zero1, sc_zero1_ckpt, sc_model, sc_deepfm,
+                                     sc_ring, sc_collectives)}
+
+
+# ---------------------------------------------------------------------------
+# process plumbing
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank, world, store_path, scenario, payload, out_dir):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    path = os.path.join(out_dir, "rank%d.pkl" % rank)
+    try:
+        from paddle_tpu_torch.parallel import init_distributed
+
+        init_distributed(store=dist.FileStore(store_path, world), world_size=world, rank=rank,
+                         backend="gloo", timeout_s=60)
+        result = ("ok", SCENARIOS[scenario](rank, world, payload))
+    except BaseException:  # reported to the parent, which fails the test
+        result = ("error", traceback.format_exc())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn(world, scenario, payload, tmp_path):
+    """[each rank's result] of `scenario` run by `world` spawned ranks; a
+    rank that raised, exited badly or outlived JOIN_TIMEOUT_S fails."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out_dir = str(tmp_path / ("ranks_" + scenario))
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, store, scenario, payload, out_dir))
+             for r in range(world)]
+    for pr in procs:
+        pr.start()
+    deadline = datetime.datetime.now() + datetime.timedelta(seconds=JOIN_TIMEOUT_S)
+    for pr in procs:
+        pr.join(max(1.0, (deadline - datetime.datetime.now()).total_seconds()))
+    hung = [r for r, pr in enumerate(procs) if pr.is_alive()]
+    for pr in procs:
+        if pr.is_alive():
+            pr.kill()
+            pr.join(10)
+    if hung:
+        raise AssertionError("ranks %s of %s still running after %d s"
+                             % (hung, scenario, JOIN_TIMEOUT_S))
+    results = []
+    for r, pr in enumerate(procs):
+        path = os.path.join(out_dir, "rank%d.pkl" % r)
+        if not os.path.exists(path):
+            raise AssertionError("rank %d of %s exited %s without a result"
+                                 % (r, scenario, pr.exitcode))
+        with open(path, "rb") as f:
+            status, val = pickle.load(f)
+        if status != "ok":
+            raise AssertionError("rank %d of %s raised:\n%s" % (r, scenario, val))
+        results.append(val)
+    return results
