@@ -13,8 +13,9 @@ counterpart of paddle_tpu/analysis/):
   FLAGS_static_verify gate Executor.run, aot_serve_lowering, the serving
   engines and the PassManager call.
 
-Sharding layouts (the sharding-rules Resolver over a mesh) come with ROADMAP
-A6b.
+With a mesh, the sharding rules bind into a parallel.sharding_rules.Resolver:
+every fact carries its layout and the sharding-rules checker warns of the
+dims the mesh does not divide.
 """
 
 from .checkers import (

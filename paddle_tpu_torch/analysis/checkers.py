@@ -15,8 +15,9 @@ filters on, and the seeded-defect tests assert. The catalog
 - sharding-rules   (mixed)   rule rank exceeds an explicit target's rank
                              (error); dead rules matching zero vars
                              (warning). The rules are `program.
-                             _sharding_rules`, (pattern, spec) pairs; the
-                             divisibility warnings need the Resolver (ROADMAP A6b).
+                             _sharding_rules`, (pattern, spec) pairs, with
+                             the caller's; with a mesh bound, dims the
+                             mesh does not divide (warning).
 - dtype-boundary   (warning) an op mixes 16-bit and 32-bit float inputs
                              without an explicit cast — silent upcast
                              drift at op edges.
@@ -46,7 +47,7 @@ import re
 from ..executor import op_display_name
 from ..framework import Block as _Block
 from ..ops import registry
-from .dataflow import Analysis, analyze_program
+from .dataflow import Analysis, SymDim, analyze_program
 
 __all__ = [
     "Finding",
@@ -252,8 +253,9 @@ def _check_sharding_rules(a):
     explicit-target rank mismatch silently resolves to replicated (error —
     the author asked for a layout the engine cannot apply). With a mesh
     bound, non-divisible static dims degrade to replication per dim
-    (warning); no Resolver binds here until ROADMAP A6b."""
-    rules = getattr(a.program, "_sharding_rules", None)
+    (warning, the Resolver's documented but silent behaviour)."""
+    rules = (a.resolver.rules if a.resolver is not None and a.resolver.rules is not None
+             else getattr(a.program, "_sharding_rules", None))
     if not rules:
         return
     names = set()
@@ -292,15 +294,41 @@ def _check_sharding_rules(a):
             explicit = v is not None and (
                 getattr(v, "trainable", None) is not None or v.is_data
             )
-            if len(spec) > len(shape) and explicit:
-                op, bi, oi = _node_site(a, name)
-                yield _op_finding(
-                    "sharding-rules", ERROR,
-                    "rule %r assigns a rank-%d spec %r to %r of rank %d "
-                    "— the Resolver silently resolves it replicated"
-                    % (pattern, len(spec), spec, name, len(shape)),
-                    op=op, block_idx=bi, op_index=oi, var=name,
-                )
+            if len(spec) > len(shape):
+                if explicit:
+                    op, bi, oi = _node_site(a, name)
+                    yield _op_finding(
+                        "sharding-rules", ERROR,
+                        "rule %r assigns a rank-%d spec %r to %r of rank %d "
+                        "— the Resolver silently resolves it replicated"
+                        % (pattern, len(spec), spec, name, len(shape)),
+                        op=op, block_idx=bi, op_index=oi, var=name,
+                    )
+                continue
+            if a.mesh is None:
+                continue
+            for dim, entry in enumerate(spec):
+                axes = () if entry is None else (
+                    tuple(entry) if isinstance(entry, tuple) else (entry,))
+                kept = tuple(ax for ax in axes if a.mesh.shape.get(ax, 1) > 1)
+                if not kept:
+                    continue
+                d = shape[dim]
+                if isinstance(d, SymDim) or d < 0:
+                    continue
+                extent = 1
+                for ax in kept:
+                    extent *= a.mesh.shape[ax]
+                if int(d) % extent != 0:
+                    op, bi, oi = _node_site(a, name)
+                    yield _op_finding(
+                        "sharding-rules", WARNING,
+                        "rule %r shards dim %d of %r (extent %d) over %s "
+                        "(mesh extent %d) — not divisible, the Resolver "
+                        "silently degrades this dim to replication"
+                        % (pattern, dim, name, int(d), "x".join(kept), extent),
+                        op=op, block_idx=bi, op_index=oi, var=name,
+                    )
 
 
 # ---------------------------------------------------------------------------
@@ -623,13 +651,9 @@ def lint_program(program, feed_names=(), fetch_names=(), scope=None,
         from ..passes.graph import Graph
 
         graph = program if isinstance(program, Graph) else Graph(program)
-        if mesh is not None:
-            raise NotImplementedError(
-                "lint_program(mesh=...): sharding layouts need the sharding-rules Resolver "
-                "(parallel/sharding_rules.py, ROADMAP A6b)")
         analysis = Analysis(
             program if not isinstance(program, Graph) else graph.program,
-            graph, feed_names, fetch_names, scope, None, None, mode,
+            graph, feed_names, fetch_names, scope, mesh, None, mode,
         )
         if checks is None:
             checks = STRUCTURAL_CHECKS

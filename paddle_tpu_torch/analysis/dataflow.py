@@ -18,9 +18,10 @@
   over the graph's def-use edges, which the dead-write and
   write-never-read checkers read (analysis/checkers.py).
 
-Sharding specs need the sharding-rules Resolver (parallel/sharding_rules.py),
-which comes with ROADMAP A6b: `mesh` and `resolver` are None on every
-Analysis, and passing a mesh raises.
+With a `mesh` (a parallel.Mesh), the program's sharding rules and the
+caller's bind into a parallel.sharding_rules.Resolver, and every final
+fact carries the layout the ParallelExecutor would assign (`spec`), as in
+the JAX package.
 """
 
 import torch
@@ -67,7 +68,7 @@ class VarFact:
         self.dtype = dtype
         self.lod_level = lod_level
         self.kind = kind
-        self.spec = spec  # a sharding layout: None until the Resolver binds (A6b)
+        self.spec = spec  # the Resolver's layout (None: replicated, or no mesh bound)
         self.writer = writer
 
     @property
@@ -166,11 +167,14 @@ class Analysis:
 
 
 class _Analyzer:
-    def __init__(self, graph, feed_names, fetch_names, scope, mode, program, feed_facts=None):
+    def __init__(self, graph, feed_names, fetch_names, scope, mode, program, feed_facts=None,
+                 mesh=None, resolver=None):
         self.program = graph.program  # the graph's shadow program
         self.scope = scope
         self.feed_facts = dict(feed_facts or {})
-        self.report = Analysis(program, graph, feed_names, fetch_names, scope, None, None, mode)
+        self.resolver = resolver
+        self.report = Analysis(program, graph, feed_names, fetch_names, scope, mesh, resolver,
+                               mode)
         self._symbols = {}  # name -> SymDim
         self._by_sentinel = {}  # sentinel -> SymDim
 
@@ -356,6 +360,13 @@ class _Analyzer:
         for n in self.report.feed_names:
             env[n] = self._external_fact(n, block)
         self._run_block(block, env)
+        if self.resolver is not None:
+            for name, fact in env.items():
+                if fact.kind == "tensor" and fact.shape is not None:
+                    try:
+                        fact.spec = self.resolver.spec(name, fact.concrete_shape())
+                    except Exception:  # a symbolic dim: no layout opinion
+                        pass
         self.report.facts = env
         return self.report
 
@@ -366,17 +377,30 @@ def analyze_program(program, feed_names=(), fetch_names=(), scope=None, mesh=Non
     `program` is a Program or a passes.Graph. `feed_facts` (name ->
     VarFact) overrides feed metadata with concrete run shapes. `mode`
     ("training" / "inference" / "serving") is read by the determinism
-    checker. `rules` is accepted for the JAX signature; without a mesh the
-    sharding-rules checker reads `program._sharding_rules` itself. A mesh
-    raises: sharding layouts come with the Resolver (ROADMAP A6b)."""
+    checker. `rules` (a ShardingRules or (pattern, spec) pairs) follow the
+    program's own; with a `mesh` they bind into a Resolver, so every fact
+    carries the layout the executor would assign, and the sharding-rules
+    checker warns of the dims the mesh does not divide."""
     from ..passes.graph import Graph
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "analyze_program(mesh=...): sharding layouts need the sharding-rules "
-            "Resolver, which the port has not ported yet (parallel/sharding_rules.py, "
-            "ROADMAP A6b)")
     graph = program if isinstance(program, Graph) else Graph(program)
     program = graph.program if isinstance(program, Graph) else program
+    resolver = None
+    if mesh is not None:
+        from ..parallel.sharding_rules import Resolver, ShardingRules
+
+        combined = ShardingRules()
+        combined.extend(getattr(graph.program, "_sharding_rules", None)
+                        or getattr(program, "_sharding_rules", None))
+        if rules is not None and not isinstance(rules, ShardingRules):
+            rules = ShardingRules(rules)
+        combined.extend(rules)
+        blk = graph.program.global_block()
+
+        def var_lookup(name):
+            return blk._var_recursive(name) if blk.has_var_recursive(name) else None
+
+        resolver = Resolver(mesh, rules=combined, var_lookup=var_lookup)
+        resolver.add_aliases(blk.ops)
     return _Analyzer(graph, feed_names, fetch_names, scope, mode, program,
-                     feed_facts=feed_facts).run()
+                     feed_facts=feed_facts, mesh=mesh, resolver=resolver).run()

@@ -6,11 +6,11 @@ with is_distributed, distribute_transpiler._split_table_grad_and_add_send_vars
 sharding the table across pservers, parameter_prefetch.cc fetching rows by
 RPC. The engine collapses that machinery into one object that owns:
 
-- **table creation**: one Parameter whose `sharding_spec` is `(axis, None)`
-  (parallel.shard_parameter); the optimizer's accumulators of the table's
-  shape take the same spec, so a ParallelExecutor keeps the table and its
-  moments row-sharded over the mesh's `ep` axis (the JAX package registers
-  the same layout as a program sharding rule, which comes with ROADMAP A6b);
+- **table creation**: one Parameter whose row layout `(axis, None)` is
+  registered as a program sharding rule (parallel.sharding_rules.
+  program_rules, as in the JAX package): the anchored pattern covers the
+  table and its optimizer accumulators, so a ParallelExecutor keeps the
+  table and its moments row-sharded over the mesh's `ep` axis;
 - **forward**: the `distributed_lookup_table` op → gather over the local
   shard + one all-reduce (embedding/lookup.py) instead of an RPC prefetch;
 - **sparse backward**: `is_sparse=True` routes the grad through the
@@ -75,7 +75,9 @@ class EmbeddingEngine:
         is_sparse=True,
         param_attr=None,
     ):
-        from ..parallel import shard_parameter
+        import re
+
+        from ..parallel.sharding_rules import program_rules
 
         self.num_rows = int(num_rows)
         self.dim = int(dim)
@@ -95,10 +97,12 @@ class EmbeddingEngine:
         self.table = helper.create_parameter(
             attr=attr, shape=[self.num_rows, self.dim], dtype=dtype, is_bias=False
         )
-        # the row-sharded layout: the optimizer's accumulators of the table's
-        # shape take the spec too, so the moments shard with the rows they
-        # update
-        shard_parameter(self.table, (axis_name, None))
+        # the row-sharded layout as a program rule: the anchored `(_.*)?`
+        # suffix covers the table and its optimizer accumulators
+        # (`<table>_<slot>_acc_<k>`), so the moments shard with the rows they
+        # update (a shape-[1] accumulator prunes to replicated)
+        program_rules(self.table.block.program).add(
+            "^%s(_.*)?$" % re.escape(self.table.name), (axis_name, None))
         self.name = name if name is not None else self.table.name
         # last-touched step per row, allocated lazily on the first
         # note_touched (num_rows can be recsys-scale; pay only when the

@@ -60,6 +60,7 @@ runs on it.
 import contextlib
 import itertools
 import threading
+import types
 
 import numpy as np
 import torch
@@ -228,10 +229,17 @@ def _apply_pass_pipeline(program, scope, feed_names, fetch_names, pipeline=None)
 
     if not _pm.resolve_pipeline(pipeline):
         return program
-    return _pm.apply_cached(
+    out = _pm.apply_cached(
         program, pipeline, scope=scope,
         feed_names=feed_names, fetch_names=fetch_names,
     )
+    # the sharding rules live on the Program object (sharding_rules.
+    # program_rules): the rewritten program shares the source's rule set, so
+    # a placement survives the pipeline
+    rules = getattr(program, "_sharding_rules", None)
+    if out is not program and rules is not None:
+        out._sharding_rules = rules
+    return out
 
 
 # the flags a lowering reads while it lowers (the paged attention tier, the
@@ -310,11 +318,19 @@ class _PerOpProfiledBlock:
     def __init__(self, block, feed_names, fetch_names, scope, ops=None, mesh=None):
         self.feed_names = list(feed_names)
         # a ParallelExecutor's block: its lowerings see this rank's mesh
-        # (ctx.mesh), and `plan` (parallel_executor._DataParallelPlan, set
-        # by the PE at dp > 1) averages the gradients over dp before the
-        # first optimizer unit and runs the ZeRO-1 updates
+        # (ctx.mesh), and `plan` (parallel_executor._ParallelPlan, set by
+        # the PE past one rank or under sharding rules) brings the
+        # gradients to their parameters' layouts and averages them over
+        # the batch axes before the first optimizer unit, and runs the
+        # ZeRO-1 updates. `sharding` is the PE's Resolver (the fused
+        # families decline on what it places) and `stored` the layouts of
+        # the state this rank holds as pieces (sharding_rules.storage_specs):
+        # with any, every run follows its values' layouts
+        # (sharding_rules.Layouts)
         self.mesh = mesh
         self.plan = None
+        self.sharding = None
+        self.stored = None
         self.fetch_names = list(fetch_names)
         self.ops = _exec_ops(block) if ops is None else list(ops)
         self.stochastic = any(registry.get(op.type).stochastic for op in walk_ops(self.ops))
@@ -404,10 +420,14 @@ class _PerOpProfiledBlock:
         env.update(feeds)
         sync = per_op and ctx.device.type == "cuda"
         plan = self.plan
+        if self.stored:
+            from .parallel.sharding_rules import Layouts
+
+            ctx.layout = Layouts(self.mesh, self.stored)
         for i, (run, dead) in enumerate(zip(self.runs, self.dead)):
             if plan is not None and i == plan.sync_at:
                 with _prof.RecordEvent("dp/grad_sync"):
-                    plan.sync(env)
+                    plan.sync(env, ctx.layout)
             lower = self._lower if plan is None or i not in plan.zero1_units else plan.lower
             if per_op:
                 with _prof.RecordEvent(_run_label(run)):
@@ -421,6 +441,21 @@ class _PerOpProfiledBlock:
             # is live
             for n in dead:
                 env.pop(n, None)
+        return self._results(env, ctx)
+
+    def _results(self, env, ctx):
+        """(fetches, new_mut, created) of a run's env: a fetched piece is
+        gathered whole, written state goes back in its stored layout."""
+        layout = ctx.layout
+        if layout is not None:
+            ctx.layout = None
+            for n in self.fetch_names:
+                env[n] = layout.whole(n, env[n])
+            for n in self.mut_names:
+                want = self.stored.get(n)
+                have = layout.spec(n, env[n])
+                if have != want:
+                    env[n] = layout.convert(env[n], have, want)
         fetches = [env[n] for n in self.fetch_names]
         new_mut = {n: env[n] for n in self.mut_names}
         # an op may legally omit a declared output slot — only bind names
@@ -449,6 +484,7 @@ class _PerOpProfiledBlock:
             scope.device, generator=scope.generator, is_test=is_test,
             device_generator=scope.device_generator, cache=self.cache,
             host_random=bool(self.created_persistables), mesh=self.mesh,
+            sharding=self.sharding,
         )
 
     def state(self, scope):
@@ -507,8 +543,11 @@ class _FeedStage:
             self.bufs[n] = torch.empty(v.shape, dtype=dtypes.get(n) or v.dtype, device=device)
 
     def fill(self, feeds):
-        if self._copied is not None:
-            self._copied.synchronize()  # the pinned buffers' last copies have run
+        """Copy `feeds` into the buffers: a value already on the device by a
+        device-to-device copy, a host value through its pinned buffer,
+        waiting first (once) for the last copy out of the pinned buffers to
+        have run. A fill of device values alone never waits on the host."""
+        waited = False
         for n, buf in self.bufs.items():
             v = feeds[n]
             if not isinstance(v, torch.Tensor):
@@ -519,13 +558,17 @@ class _FeedStage:
             if v.device == buf.device:
                 buf.copy_(v)
                 continue
+            if not waited and self._copied is not None:
+                self._copied.synchronize()  # the pinned buffers' last copies have run
+            waited = True
             pin = self._pinned.get(n)
             if pin is None:
                 pin = self._pinned[n] = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
             pin.copy_(v)
             buf.copy_(pin, non_blocking=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
+        if waited:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
 
 
 class _CudaGraph:
@@ -663,6 +706,485 @@ class _CompiledBlock:
         if self.graph is not None:
             scope.vars.update(self.graph.ro)
         return fetches
+
+
+class _MultiStepBlock:
+    """k steps of one block in one call (the JAX package's _MultiStepBlock,
+    which scans the block's lowering over stacked feeds in one XLA call).
+
+    `inner` is the block form one step runs through: on the CPU a
+    _PerOpProfiledBlock, on the card the _CompiledBlock of the same cache
+    key a single-step run takes (its graph is captured at the key's second
+    step and replayed after). The stacked feeds (a leading k axis) go to
+    the device in one copy a feed, through a pinned buffer of the call's
+    own; each step's feeds are views of them, which a replay copies device
+    to device into its feed buffers, and each step's fetches are copied
+    device to device into stacked outputs. Nothing between the steps waits on the host, and
+    the call's fetches come back with one host synchronization
+    (`to_host`). The state advances through the scope as k single runs
+    advance it, the device generator's Philox offset included (a replay
+    advances it as an eager run does), so the result is k single runs bit
+    for bit."""
+
+    def __init__(self, inner, steps_per_run):
+        if steps_per_run < 1:
+            raise ValueError("steps_per_run must be >= 1")
+        prepared = _prepared(inner)
+        if prepared.created_persistables:
+            raise RuntimeError(
+                "steps_per_run>1 requires a block that creates no new persistables (run the "
+                "startup program separately first); this block creates %s"
+                % prepared.created_persistables)
+        self.inner = inner
+        self.block = prepared
+        self.steps_per_run = int(steps_per_run)
+
+    def _stage(self, stacked, device):
+        """The stacked feeds on `device`: one copy a feed."""
+        out = {}
+        for n, v in stacked.items():
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(np.asarray(v)))
+            if t.shape[:1] != (self.steps_per_run,):
+                raise ValueError("feed %r: leading axis %s, steps_per_run=%d"
+                                 % (n, tuple(t.shape[:1]), self.steps_per_run))
+            dtype = self.block.feed_dtypes.get(n) or t.dtype
+            if device.type == "cuda" and t.device.type == "cpu":
+                # a pinned buffer of this call's own: the caching host
+                # allocator records the queued copy out of it and hands the
+                # memory out again only once that copy has run, so a later
+                # call cannot overwrite a batch still waiting for the card
+                pin = torch.empty(t.shape, dtype=dtype, pin_memory=True)
+                pin.copy_(t)
+                t = pin.to(device, non_blocking=True)
+            else:
+                t = t.to(device=device, dtype=dtype)
+            out[n] = t
+        return out
+
+    def __call__(self, scope, stacked):
+        """The fetches of k steps, each stacked [k, ...] on the device."""
+        feeds = self._stage(stacked, scope.device)
+        outs = None
+        for i in range(self.steps_per_run):
+            fetches = self.inner(scope, {n: v[i] for n, v in feeds.items()})
+            if outs is None:
+                outs = [torch.empty((self.steps_per_run,) + tuple(f.shape), dtype=f.dtype,
+                                    device=f.device) for f in fetches]
+            for o, f in zip(outs, fetches):
+                o[i].copy_(f)
+        return outs
+
+    @staticmethod
+    def to_host(fetches):
+        """numpy copies of the stacked fetches after one host
+        synchronization: on the card each is copied into pinned memory
+        behind the call's work, and the host waits once."""
+        if not fetches or fetches[0].device.type != "cuda":
+            return [(f.float() if f.dtype == torch.bfloat16 else f).detach()
+                    .to("cpu", copy=True).numpy() for f in fetches]
+        host = []
+        for f in fetches:
+            f = f.float() if f.dtype == torch.bfloat16 else f
+            pin = torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+            pin.copy_(f, non_blocking=True)
+            host.append(pin)
+        torch.cuda.current_stream(fetches[0].device).synchronize()
+        return [h.numpy() for h in host]
+
+
+class _PipelinedBlock(_PerOpProfiledBlock):
+    """A training block as a microbatch pipeline over the mesh's pp axis
+    (the JAX package's _PipelinedBlock, paddle_tpu/executor.py:753).
+
+    1. The ops split by op role: the forward (Forward / Loss), the backward
+       (not run: torch.autograd differentiates each stage's lowered
+       forward), and the optimizer section (Optimize / LRSched), run after
+       the pipeline on every rank as in the single-device block, so ZeRO-1,
+       lr schedules and clipping compose unchanged.
+    2. The forward is cut into pp contiguous stages: `device_guard("pp:k")`
+       annotations (framework.PIPELINE_STAGE_ATTR) win, else
+       parallel.partition balances the analytic per-op time plus parameter
+       bytes over the legal cuts (every value crossing a cut leads with the
+       microbatch, so it can be sent a microbatch at a time). The shapes
+       come from the forward lowered once on meta tensors at the
+       microbatch's size.
+    3. Each pp rank lowers only its stage's ops, one microbatch at a time
+       (the GEMM epilogue and layer_norm kernels are differentiable,
+       flash_attention takes its autograd form under ctx.autograd), under
+       the schedule of parallel.pipeline (GPipe or 1F1B); boundary values
+       and their gradients go between pp neighbours by point-to-point
+       sends.
+    4. The microbatch gradients sum into each parameter's `@GRAD` (a stage
+       holds its own parameters' and zeros for the rest); the plan
+       (parallel_executor._ParallelPlan) sums them over pp and averages
+       them over dp, then the optimizer section runs. Every rank keeps
+       every parameter, updated alike, so a checkpoint needs no gather.
+
+    The last stage's scalar fetches (the loss first) are microbatch means
+    (exact for batch-mean losses), sent to every pp rank. Raised as in the
+    JAX package: a parameter read by two stages, a fetch not computed in
+    the last stage, a non-scalar loss, no loss (ValueError), a forward op
+    that writes state (NotImplementedError)."""
+
+    def __init__(self, block, feed_names, fetch_names, scope, mesh, loss_name=None,
+                 n_micro=None, schedule="gpipe"):
+        from .framework import OpRole
+
+        if schedule not in ("gpipe", "1f1b"):
+            raise ValueError("pipeline schedule must be 'gpipe' or '1f1b', got %r" % (schedule,))
+        if mesh.axis_size("pp") < 2:
+            raise ValueError("_PipelinedBlock needs a mesh with pp >= 2")
+        super().__init__(block, feed_names, fetch_names, scope, mesh=mesh)
+        self.schedule = schedule
+        self._n_micro = n_micro
+        self.pp = mesh.axis_size("pp")
+        self.stage = mesh.index("pp")
+
+        def role(op):
+            return int(op.attrs.get(OpRole.OP_ROLE_KEY, 0) or 0)
+
+        skip = OpRole.Backward | OpRole.Optimize | OpRole.LRSched
+        self.fwd_ops = [op for op in self.ops if not role(op) & skip]
+        self.opt_ops = [op for op in self.ops if role(op) & (OpRole.Optimize | OpRole.LRSched)]
+        self.opt_runs = list(registry.op_runs(self.opt_ops))
+        if not self.fwd_ops:
+            raise RuntimeError("pipeline lowering: block has no forward ops")
+        state = set(self.ro_names) | set(self.mut_names)
+        self.params = sorted({n for op in self.opt_ops for n in op.inputs.get("Param", ())}
+                             & state)
+        written = sorted({n for op in self.fwd_ops for n in op.output_arg_names} & state)
+        if written:
+            raise NotImplementedError(
+                "pipeline-parallel lowering cannot thread forward-op state updates (%s) "
+                "through the microbatch schedule; run these on a non-pp mesh" % (written,))
+        if loss_name is None:
+            for op in self.fwd_ops:
+                if role(op) & OpRole.Loss:
+                    outs = [n for n in op.output_arg_names if n != EMPTY_VAR_NAME]
+                    if outs:
+                        loss_name = outs[0]
+                        break
+        if loss_name is None:
+            raise ValueError("pipeline parallelism needs the loss: pass loss_name= to "
+                             "ParallelExecutor (no op in the block carries the Loss role)")
+        self.loss_name = loss_name
+        self.stage_plan = None
+        self._plan_key = None
+
+    # ------------------------------------------------------------ the cut
+    def _prepare(self, feeds, state):
+        """The stage plan for these feed shapes (once a block)."""
+        from .parallel import partition
+
+        batch = {n: v for n, v in feeds.items() if v.dim() > 0}
+        if not batch:
+            raise ValueError("pipeline lowering needs at least one batch-major feed")
+        b = next(iter(batch.values())).shape[0]
+        for n, v in batch.items():
+            if v.shape[0] != b:
+                raise ValueError("batch feeds disagree on batch size: %r has %d, expected %d"
+                                 % (n, v.shape[0], b))
+        m = int(self._n_micro or self.pp)
+        if b % m:
+            raise ValueError("dp-local batch %d not divisible into %d microbatches (set "
+                             "ExecutionStrategy.num_microbatches)" % (b, m))
+        mb = b // m
+        env = {n: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+               for n, t in state.items()}
+        for n, v in feeds.items():
+            shape = (mb,) + tuple(v.shape[1:]) if n in batch else tuple(v.shape)
+            env[n] = torch.empty(shape, dtype=v.dtype, device="meta")
+        ctx = registry.LowerCtx("meta")
+        recs = []
+        for op in self.fwd_ops:
+            registry._lower_one(ctx, op, env)
+            recs.append({n: env[n] for n in op.output_arg_names
+                         if n != EMPTY_VAR_NAME and n in env})
+        producers = {}
+        for i, rec in enumerate(recs):
+            for n, t in rec.items():
+                producers.setdefault(n, []).append((i, t))
+        if self.loss_name not in producers:
+            raise ValueError("loss %r is not produced by the forward ops" % self.loss_name)
+        loss_idx = producers[self.loss_name][-1][0]
+        n_ops = len(self.fwd_ops)
+        crossing = [dict() for _ in range(max(n_ops - 1, 0))]
+        for j, op in enumerate(self.fwd_ops):
+            for n in op.input_arg_names:
+                plist = [(i, t) for i, t in producers.get(n, []) if i < j]
+                if not plist:
+                    continue
+                i, t = plist[-1]
+                for k in range(i, min(j, n_ops - 1)):
+                    crossing[k][n] = t
+
+        def packable(t):
+            return t.dim() >= 1 and t.shape[0] == mb
+
+        legal = [k for k in range(n_ops - 1)
+                 if k < loss_idx and all(packable(t) for t in crossing[k].values())]
+        stages = partition.stages_from_attrs(self.fwd_ops, self.pp)
+        if stages is None:
+            weights = []
+            for j, op in enumerate(self.fwd_ops):
+                ins = {slot: [_aval(self._meta_of(n, j, producers, env))
+                              for n in names if n != EMPTY_VAR_NAME]
+                       for slot, names in op.inputs.items()}
+                outs = {slot: [_aval(recs[j].get(n)) for n in names]
+                        for slot, names in op.outputs.items()}
+                weights.append(partition.analytic_op_time_us(op.type, ins, outs))
+            seen = set()
+            for j, op in enumerate(self.fwd_ops):
+                for n in op.input_arg_names:
+                    if n in self.params and n not in seen:
+                        seen.add(n)
+                        t = state[n]
+                        weights[j] += t.numel() * t.element_size() / partition._PEAK_BW_BYTES_PER_US
+            stages = partition.balanced_partition(weights, legal, self.pp)
+        else:
+            legal_set = set(legal)
+            for k in range(n_ops - 1):
+                if stages[k + 1] != stages[k] and k not in legal_set:
+                    bad = {n: tuple(t.shape) for n, t in crossing[k].items() if not packable(t)}
+                    raise ValueError(
+                        "device_guard cut after op %d (%s) is illegal: values crossing it are "
+                        "not microbatch-major or the loss would leave the last stage: %s"
+                        % (k, self.fwd_ops[k].type, bad or {"loss": self.loss_name}))
+        if sorted(set(stages)) != list(range(self.pp)):
+            raise ValueError(
+                "pipeline partition produced stages %s for pp=%d; every pp rank needs a "
+                "non-empty stage (annotate with device_guard('pp:k') or lower pp)"
+                % (sorted(set(stages)), self.pp))
+        param_stage = {}
+        for j, op in enumerate(self.fwd_ops):
+            for n in op.input_arg_names:
+                if n in self.params:
+                    s0 = param_stage.setdefault(n, stages[j])
+                    if s0 != stages[j]:
+                        raise ValueError(
+                            "parameter %r is read by pipeline stages %d and %d; pin its "
+                            "consumers to one stage with device_guard" % (n, s0, stages[j]))
+        stage_ops = [[] for _ in range(self.pp)]
+        for op, s in zip(self.fwd_ops, stages):
+            stage_ops[s].append(op)
+        cuts = []
+        for s in range(self.pp - 1):
+            k = max(j for j in range(n_ops) if stages[j] == s)
+            cuts.append([(n, tuple(crossing[k][n].shape), crossing[k][n].dtype)
+                         for n in sorted(crossing[k])])
+        ext = set(feeds) | set(state)
+        scal = [self.loss_name] + [n for n in self.fetch_names if n != self.loss_name
+                                   and n in producers and n not in ext]
+        scal_entries = []
+        for n in scal:
+            i, t = producers[n][-1]
+            if stages[i] != self.pp - 1:
+                raise ValueError(
+                    "the pp lowering can only fetch values computed in the LAST pipeline "
+                    "stage; %r is computed in stage %d — pin its ops with device_guard or drop "
+                    "the fetch" % (n, stages[i]))
+            scal_entries.append((n, tuple(t.shape), t.dtype))
+        if int(np.prod(scal_entries[0][1])) != 1:
+            raise ValueError("loss %r must be scalar, got shape %s"
+                             % (self.loss_name, scal_entries[0][1]))
+        opt_out = {n for op in self.opt_ops for n in op.output_arg_names}
+        grads = {n + "@GRAD" for n in self.params}
+        for n in self.fetch_names:
+            if n in ext or n in scal or n in opt_out or n in grads:
+                continue
+            raise ValueError(
+                "fetch %r is a non-last-stage intermediate; under pp the block returns only "
+                "last-stage scalars, state, feeds and optimizer outputs" % n)
+        stage_params = [[] for _ in range(self.pp)]
+        for j, op in enumerate(self.fwd_ops):
+            for n in op.input_arg_names:
+                if n in self.params and n not in stage_params[stages[j]]:
+                    stage_params[stages[j]].append(n)
+        self._cuts, self._scal, self._stage_ops = cuts, scal_entries, stage_ops
+        self._batch, self._m, self._mb = set(batch), m, mb
+        self._stage_params = stage_params
+        self.stage_plan = {
+            "schedule": self.schedule, "n_micro": m, "microbatch": mb,
+            "op_stage": [int(s) for s in stages],
+            "stages": [[op.type for op in ops] for ops in stage_ops],
+            "stage_params": [list(ns) for ns in stage_params],
+            "boundaries": [[e[0] for e in ents] for ents in cuts],
+        }
+
+    def _meta_of(self, name, j, producers, env):
+        plist = [t for i, t in producers.get(name, []) if i < j]
+        return plist[-1] if plist else env.get(name)
+
+    # ------------------------------------------------------------ a run
+    def fn(self, feeds, ro_state, mut_state, ctx, per_op=False, scope=None):
+        from .parallel import pipeline
+        from .parallel.collectives import _sum
+
+        state = dict(ro_state)
+        state.update(mut_state)
+        key = tuple((n, tuple(v.shape), v.dtype) for n, v in sorted(feeds.items()))
+        if self._plan_key != key:
+            self._prepare(feeds, state)
+            self._plan_key = key
+        stage = _Stage(self, feeds, state, ctx)
+        with torch.enable_grad():
+            pipeline.SCHEDULES[self.schedule](stage, self._m, self.pp, self.stage)
+        env = dict(state)
+        env.update(feeds)
+        for n in self.params:
+            leaf = stage.leaves.get(n)
+            g = leaf.grad if leaf is not None else None
+            env[n + "@GRAD"] = (torch.zeros_like(state[n]) if g is None
+                                else g.detach().to(state[n].dtype))
+        last = self.stage == self.pp - 1
+        for (n, shape, dtype), acc in zip(self._scal, stage.scalars or [None] * len(self._scal)):
+            val = acc / self._m if last else torch.zeros(shape, dtype=torch.float32,
+                                                         device=ctx.device)
+            env[n] = _sum(val, "pp", self.mesh, "broadcast").to(dtype)
+        plan = self.plan
+        for i, run in enumerate(self.opt_runs):
+            if plan is not None and i == plan.sync_at:
+                with _prof.RecordEvent("pp/grad_sync"):
+                    plan.sync(env, None)
+            if plan is not None and i in plan.zero1_units:
+                plan.lower(ctx, run, env, scope)
+            else:
+                registry.lower_run(ctx, run, env)
+        fetches = [env[n] for n in self.fetch_names]
+        new_mut = {n: env[n] for n in self.mut_names}
+        return fetches, new_mut, {}
+
+
+def _aval(t):
+    """A meta tensor as the (shape, numpy dtype) record partition counts
+    (bfloat16 as float16: numpy has no bfloat16, and only the width
+    counts)."""
+    if t is None:
+        return None
+    dtype = str(t.dtype).replace("torch.", "").replace("bfloat16", "float16")
+    return types.SimpleNamespace(shape=tuple(t.shape), dtype=np.dtype(dtype))
+
+
+class _Stage:
+    """One rank's stage of a pipelined step: the eight steps the schedules
+    of parallel.pipeline call. Parameters enter as leaves that accumulate
+    their gradient over the microbatches; a received boundary value is a
+    leaf whose gradient goes back to the previous stage."""
+
+    def __init__(self, block, feeds, state, ctx):
+        import torch.distributed as dist
+
+        self.b = block
+        self.ctx = ctx
+        self.device = ctx.device
+        s = block.stage
+        self.leaves = {}
+        base = {n: t for n, t in state.items()}
+        for n in block._stage_params[s]:
+            leaf = state[n].detach().requires_grad_(True)
+            self.leaves[n] = leaf
+            base[n] = leaf
+        self.base = base
+        self.feeds = feeds
+        self.saved = {}
+        self.scalars = None
+        group = block.mesh.group("pp")
+        self.prev = dist.get_global_rank(group, s - 1) if s > 0 else None
+        self.next = dist.get_global_rank(group, s + 1) if s < block.pp - 1 else None
+        self.cut_in = block._cuts[s - 1] if s > 0 else []
+        self.cut_out = block._cuts[s] if s < block.pp - 1 else []
+        self.lower_ctx = registry.LowerCtx(
+            ctx.device, generator=ctx.generator, device_generator=ctx.device_generator,
+            cache=ctx.cache, host_random=False, mesh=None, autograd=True)
+
+    @staticmethod
+    def _floating(entries):
+        return [e for e in entries if e[2].is_floating_point]
+
+    def _recv(self, entries, peer):
+        from .parallel.collectives import send_recv
+
+        if peer is None:
+            return None
+        return send_recv(recvs=[(shape, dtype, self.device, peer) for _, shape, dtype in entries])
+
+    def _send(self, tensors, peer):
+        from .parallel.collectives import send_recv
+
+        if peer is not None:
+            send_recv(sends=[(t, peer) for t in tensors])
+
+    def recv_fwd(self, i):
+        return self._recv(self.cut_in, self.prev)
+
+    def send_fwd(self, y):
+        self._send(y or [], self.next)
+
+    def recv_bwd(self, i):
+        return self._recv(self._floating(self.cut_out), self.next)
+
+    def send_bwd(self, gx):
+        self._send(gx or [], self.prev)
+
+    def send_fwd_recv_bwd(self, y, i):
+        from .parallel.collectives import send_recv
+
+        if self.next is None:
+            return None
+        return send_recv(sends=[(t, self.next) for t in y],
+                         recvs=[(shape, dtype, self.device, self.next)
+                                for _, shape, dtype in self._floating(self.cut_out)])
+
+    def send_bwd_recv_fwd(self, gx, i):
+        from .parallel.collectives import send_recv
+
+        if self.prev is None:
+            return None
+        return send_recv(sends=[(t, self.prev) for t in gx],
+                         recvs=[(shape, dtype, self.device, self.prev)
+                                for _, shape, dtype in self.cut_in])
+
+    def fwd(self, i, x):
+        """Microbatch i's forward: its boundary values for the next stage
+        (the last stage keeps the scalars instead)."""
+        b = self.b
+        env = dict(self.base)
+        mb = b._mb
+        for n, v in self.feeds.items():
+            env[n] = v.narrow(0, i * mb, mb) if n in b._batch else v
+        inputs = []
+        for (n, _, dtype), t in zip(self.cut_in, x or []):
+            if dtype.is_floating_point:
+                t.requires_grad_(True)
+                inputs.append(t)
+            env[n] = t
+        registry.lower_ops(self.lower_ctx, b._stage_ops[b.stage], env)
+        outs = [env[n] for n, _, _ in self.cut_out]
+        if b.stage == b.pp - 1:
+            vals = [env[n].reshape(shape).float() for n, shape, _ in b._scal]
+            self.saved[i] = (vals[0], inputs)
+            vals = [v.detach() for v in vals]
+            self.scalars = vals if self.scalars is None else [
+                a + v for a, v in zip(self.scalars, vals)]
+            return None
+        self.saved[i] = (outs, inputs)
+        return [t.detach() for t in outs]
+
+    def bwd(self, i, g):
+        """Microbatch i's backward: the gradients of its received values."""
+        b = self.b
+        roots, inputs = self.saved.pop(i)
+        if b.stage == b.pp - 1:
+            roots, grads = [roots], [torch.full_like(roots, 1.0 / b._m)]
+        else:
+            flo = [t for (_, _, dtype), t in zip(self.cut_out, roots) if dtype.is_floating_point]
+            pairs = [(t, gt) for t, gt in zip(flo, g) if t.requires_grad]
+            roots, grads = [p[0] for p in pairs], [p[1] for p in pairs]
+        want = list(self.leaves.values()) + inputs
+        if roots and want:
+            torch.autograd.backward(roots, grads, inputs=want)
+        return [t.grad if t.grad is not None else torch.zeros_like(t) for t in inputs]
 
 
 class _SegmentedBlock:
@@ -978,15 +1500,35 @@ class Executor:
         scope=None,
         return_numpy=True,
         use_program_cache=True,
+        steps_per_run=1,
     ):
         """Run `program` once: on the CPU op by op; on the card as a CUDA
         graph from its second call on a cache key (the program, its version,
         the feeds' names, shapes and dtypes, the fetches, the scope and the
         lowering flags). With return_numpy=False a replayed graph's fetches
-        are cloned, so the next replay does not overwrite them."""
+        are cloned, so the next replay does not overwrite them.
+
+        steps_per_run > 1 runs k steps in one call (_MultiStepBlock): `feed`
+        is a list of k per-step dicts or a dict of arrays stacked on a
+        leading k axis, and each fetch comes back stacked [k, ...]; on the
+        card the k steps replay the single step's graph with no host
+        synchronization between them."""
         if program is None:
             program = framework.default_main_program()
+        if steps_per_run < 1:
+            raise ValueError("steps_per_run must be >= 1")
+        if isinstance(feed, (list, tuple)):
+            if steps_per_run == 1:
+                steps_per_run = len(feed)
+            if len(feed) != steps_per_run:
+                raise ValueError("feed list has %d entries but steps_per_run=%d"
+                                 % (len(feed), steps_per_run))
+            if steps_per_run == 1:
+                feed = dict(feed[0])  # single step: no stacking
+            else:
+                feed = {n: np.stack([np.asarray(d[n]) for d in feed]) for n in feed[0]}
         feed = dict(feed or {})
+        multi = steps_per_run > 1
         fetch_list = fetch_list or []
         scope = scope or global_scope()
         if scope.bind(self.device) != self.device:
@@ -1007,45 +1549,28 @@ class Executor:
         # (memoized) rewritten program
         program = _apply_pass_pipeline(program, scope, list(feed), fetch_names)
         block = program.global_block()
-        if _profile_ops():
+        step_feed = {n: np.asarray(v)[0] if not isinstance(v, torch.Tensor) else v[0]
+                     for n, v in feed.items()} if multi else feed
+        if _profile_ops() and not multi:
             # per-op attribution mode: never cached (diagnosis path)
             compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed, per_op=True)
         else:
-            key = (
-                program._uid,
-                program._version,
-                _feed_signature(feed),
-                tuple(fetch_names),
-                scope._uid,
-                _lowering_flags(),
-            )
-            # the card keeps every block it prepares: a graph is captured at
-            # its key's second call, so use_program_cache=False is taken on
-            # the CPU only
-            cached = use_program_cache or self.device.type == "cuda"
-            compiled = self._cache.get(key) if cached else None
-            if compiled is None:
-                # FLAGS_static_verify: prove the program against the
-                # fluidlint checkers before its block is prepared
-                from .analysis import maybe_static_verify
-
-                maybe_static_verify(
-                    program, list(feed), fetch_names, scope=scope,
-                    mode="inference" if program._is_test else "training",
-                    where="executor",
-                )
-                card = self.device.type == "cuda"
-                if _splits(block):
-                    compiled = _SegmentedBlock(block, list(feed), fetch_names,
-                                               self._graph_pool() if card else None, card)
-                else:
-                    compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
-                    if card:
-                        compiled = _CompiledBlock(compiled, self._graph_pool())
-                if cached:
-                    self._cache[key] = compiled
+            compiled = self._prepare(program, block, step_feed, fetch_names, scope,
+                                     use_program_cache)
+            if multi:
+                if isinstance(compiled, _SegmentedBlock):
+                    raise RuntimeError(
+                        "steps_per_run>1 cannot span host ops (save / load, prints): the k "
+                        "steps run as one call with no host re-entry")
+                key = ("multi", steps_per_run, id(compiled))
+                multi_block = self._cache.get(key)
+                if multi_block is None:
+                    multi_block = _MultiStepBlock(compiled, steps_per_run)
+                    if use_program_cache or self.device.type == "cuda":
+                        self._cache[key] = multi_block
+                compiled = multi_block
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed)
         if _flags.get_flags("benchmark")["benchmark"] and self.device.type == "cuda":
@@ -1055,7 +1580,10 @@ class Executor:
             torch.cuda.synchronize(self.device)
         self._run_seq += 1
         if _flags.get_flags("check_nan_inf")["check_nan_inf"]:
-            _check_nan_inf(compiled, scope, fetch_names, fetches, self._run_seq)
+            _check_nan_inf(compiled.inner if multi else compiled, scope, fetch_names, fetches,
+                           self._run_seq)
+        if multi:
+            return _MultiStepBlock.to_host(fetches) if return_numpy else fetches
         # a replayed graph's fetches are its own tensors
         replayed = (getattr(compiled, "graph", None) is not None
                     or isinstance(compiled, _SegmentedBlock) and compiled.captures() > 0)
@@ -1070,6 +1598,45 @@ class Executor:
             return [f.clone() for f in fetches]
         return fetches
 
+    def _prepare(self, program, block, feed, fetch_names, scope, use_program_cache):
+        """The block form of one step under its cache key (the program, its
+        version, the feeds' names, shapes and dtypes, the fetches, the scope
+        and the lowering flags), prepared at its first call."""
+        key = (
+            program._uid,
+            program._version,
+            _feed_signature(feed),
+            tuple(fetch_names),
+            scope._uid,
+            _lowering_flags(),
+        )
+        # the card keeps every block it prepares: a graph is captured at
+        # its key's second call, so use_program_cache=False is taken on
+        # the CPU only
+        cached = use_program_cache or self.device.type == "cuda"
+        compiled = self._cache.get(key) if cached else None
+        if compiled is None:
+            # FLAGS_static_verify: prove the program against the
+            # fluidlint checkers before its block is prepared
+            from .analysis import maybe_static_verify
+
+            maybe_static_verify(
+                program, list(feed), fetch_names, scope=scope,
+                mode="inference" if program._is_test else "training",
+                where="executor",
+            )
+            card = self.device.type == "cuda"
+            if _splits(block):
+                compiled = _SegmentedBlock(block, list(feed), fetch_names,
+                                           self._graph_pool() if card else None, card)
+            else:
+                compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
+                if card:
+                    compiled = _CompiledBlock(compiled, self._graph_pool())
+            if cached:
+                self._cache[key] = compiled
+        return compiled
+
     @staticmethod
     def stats():
         """Kernel counters of the training path: `dispatches`, the runs each
@@ -1082,7 +1649,10 @@ class Executor:
         "open_ended_while", "host_op"). `segments`: what runs
         of blocks split at host ops ran, "device" segments, "host" op calls
         and "inline" prints between segments. `graphs`: the CUDA graphs
-        blocks and segments "captures" and "replays". ops.fused.reset_stats()
-        clears them all."""
+        blocks and segments "captures" and "replays". `collectives`: what
+        layouts and pipelines sent, by kind and axes (a ParallelExecutor's
+        "all_reduce_fwd:tp", "all_gather:fsdp", "send"). ops.fused.
+        reset_stats() clears them all."""
         return dict(fused.stats(), op_by_op=dict(fused.OP_BY_OP),
-                    segments=dict(fused.SEGMENTS), graphs=dict(fused.GRAPHS))
+                    segments=dict(fused.SEGMENTS), graphs=dict(fused.GRAPHS),
+                    collectives=dict(fused.COLLECTIVES))

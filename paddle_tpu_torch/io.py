@@ -162,8 +162,10 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
               filename=None):
     """Persist selected scope variables (reference io.py save_vars). Under
     a process group every rank calls: a variable a ParallelExecutor holds
-    row-sharded (ZeRO-1 state, an ep table) is all-gathered, rank 0 writes
-    whole variables, and every rank returns once the files are written."""
+    in pieces (ZeRO-1 state, an ep table, a parameter and its moments a
+    sharding rule places over fsdp / tp) is all-gathered, rank 0 writes
+    whole variables, and every rank returns once the files are written;
+    load_vars cuts them to the pieces of whatever mesh loads them."""
     program = main_program or framework.default_main_program()
     scope = global_scope()
     arrays = {}

@@ -419,6 +419,10 @@ def _flash_attention_op(ctx, ins, attrs):
     declare the Lse output (those where flash_path_taken holds; the others
     drop it)."""
     q, k, v, causal, sm_scale = _op_args(ins, attrs)
+    if ctx.autograd:
+        # a pipeline stage's forward: differentiated by torch.autograd
+        # through FlashAttention (the lse stays inside it)
+        return {"Out": [FlashAttention.apply(q, k, v, causal, sm_scale)]}
     out, lse = flash_forward(q, k, v, causal, sm_scale)
     return {"Out": [out], "Lse": [lse]}
 

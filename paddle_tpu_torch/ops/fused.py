@@ -21,8 +21,10 @@ package's (`gemm_path_taken`, `_auto_block`, `_ln_blocks` /
 `ln_path_taken`, `adam_path_taken`), so both packages run the same ops
 through the same families. Under ZeRO-1 the ParallelExecutor lowers the
 optimizer ops one by one, so multi_adam declines there as in the JAX
-package (a run of one); rule-sharded operands (tp / fsdp) come with
-ROADMAP A6b.
+package (a run of one); and each family declines where a sharding rule places one of the run's operands or results
+on the mesh (`_rules_sharded`, the JAX package's check of the same name):
+the kernels take whole local tensors, and the declined ops lower one by
+one through the layout-aware path (parallel/sharding_rules.py).
 On the card an accepted run always launches its kernel; a build or launch
 failure raises.
 
@@ -74,6 +76,10 @@ SEGMENTS = {}
 # CUDA graphs the executor's blocks captured and replayed
 GRAPHS = {}
 
+# collectives that layouts and pipelines issued, by kind and axes
+# (parallel/collectives.py note), e.g. "all_reduce:tp"
+COLLECTIVES = {}
+
 
 def note_dispatch(family):
     KERNEL_DISPATCHES[family] = KERNEL_DISPATCHES.get(family, 0) + 1
@@ -108,6 +114,7 @@ def reset_stats():
     OP_BY_OP.clear()
     SEGMENTS.clear()
     GRAPHS.clear()
+    COLLECTIVES.clear()
     for mod in _KERNEL_MODULES:
         mod.reset_kernel_launches()
 
@@ -117,7 +124,7 @@ def counter_dicts():
     wrappers and fused lowerings increment (the paged kernels' among them):
     a CUDA graph takes what its capture added back out, and adds it again
     at every replay."""
-    return [KERNEL_DISPATCHES] + [m._LAUNCHES for m in _KERNEL_MODULES + (paged_flash,)]
+    return [KERNEL_DISPATCHES, COLLECTIVES] + [m._LAUNCHES for m in _KERNEL_MODULES + (paged_flash,)]
 
 
 # ---------------------------------------------------------------------------
@@ -198,11 +205,84 @@ def quant_gemm_path_taken(m, n, k, dtype, block_m=None, block_n=None, block_k=No
     return not (bm % 32 or bn % _LANES or bk % _LANES)
 
 
+def _rules_sharded(ctx, ops):
+    """True when the sharding rules bound to this run (ctx.sharding, a
+    parallel.sharding_rules.Resolver) place any of the run's operands or
+    results on this mesh (the JAX package's check, pallas_kernels.py:2094):
+    a kernel takes whole local tensors, so the run declines and its ops
+    lower one by one, each on this rank's pieces."""
+    sharding = getattr(ctx, "sharding", None)
+    if sharding is None:
+        return False
+    for op in ops:
+        for name in list(op.input_arg_names) + list(op.output_arg_names):
+            if name and sharding.rule_spec(name) is not None:
+                return True
+    return False
+
+
 def adam_path_taken(n_params, zero1=False, sharded=False):
     """Whether the multi_adam family takes a run of n_params adam ops: a
     degenerate group and the sharded tiers (ZeRO-1, rule-sharded params)
     decline."""
     return n_params >= 2 and not zero1 and not sharded
+
+
+# ---------------------------------------------------------------------------
+# the lowerings' calls of the GEMM epilogue and layer_norm kernels: a plain
+# forward where no input requires grad, and differentiable by torch.autograd
+# (a pipeline stage's forward) through the same kernels' launches
+# ---------------------------------------------------------------------------
+
+
+class _GemmBiasAct(torch.autograd.Function):
+    """gemm_bias_act's (z, y) with their backward: dz = dz_in + dy *
+    act'(z), dx = dz w^T, dw = x^T dz, db = the column sums of dz."""
+
+    @staticmethod
+    def forward(ctx, x2, w2, brow, act):
+        z, y = gemm_epilogue.gemm_bias_act(x2, w2, brow, act=act)
+        ctx.save_for_backward(x2, w2, z)
+        ctx.act = act
+        ctx.brow_shape = brow.shape
+        return (z, y) if y is not None else (z, z.detach())
+
+    @staticmethod
+    def backward(ctx, dz, dy):
+        x2, w2, z = ctx.saved_tensors
+        g = torch.zeros_like(z, dtype=torch.float32) if dz is None else dz.float()
+        if ctx.act is not None and dy is not None:
+            with torch.enable_grad():
+                zz = z.detach().float().requires_grad_(True)
+                (ga,) = torch.autograd.grad(gemm_epilogue.ACT_F32[ctx.act](zz), zz, dy.float())
+            g = g + ga
+        g = g.to(x2.dtype)
+        return (g @ w2.t(), x2.t() @ g, g.float().sum(0).reshape(ctx.brow_shape).to(x2.dtype),
+                None)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """fused_layer_norm's (s, y, mean, var), differentiable in x, the
+    residual, scale and bias; its backward launches fused_layer_norm_grad."""
+
+    @staticmethod
+    def forward(ctx, x2, r2, scale, bias, eps):
+        s, y, mean, var = layer_norm.fused_layer_norm(x2, r2, scale, bias, eps)
+        ctx.save_for_backward(x2 if s is None else s, scale, mean, var)
+        ctx.eps, ctx.residual, ctx.has_bias = eps, r2 is not None, bias is not None
+        ctx.mark_non_differentiable(mean, var)
+        return (x2 if s is None else s), y, mean, var
+
+    @staticmethod
+    def backward(ctx, ds, dy, dmean, dvar):
+        xin, scale, mean, var = ctx.saved_tensors
+        dx, dsc, db = layer_norm.fused_layer_norm_grad(
+            xin, scale, mean, var, dy.to(xin.dtype).contiguous(), ctx.eps)
+        if ds is not None:
+            dx = dx + ds
+        return (dx, dx if ctx.residual else None,
+                None if scale is None else dsc.reshape(scale.shape).to(scale.dtype),
+                db.reshape(-1).to(xin.dtype) if ctx.has_bias else None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +336,8 @@ def _fused_gemm_epilogue(ctx, ops, env):
     Out is the kernel's exact pre-activation z."""
     if len(ops) not in (2, 3) or ops[0].type not in ("mul", "matmul"):
         return False
+    if _rules_sharded(ctx, ops):
+        return False
     prod, add = ops[0], ops[1]
     act_op = ops[2] if len(ops) == 3 else None
     if add.type != "elementwise_add":
@@ -284,10 +366,8 @@ def _fused_gemm_epilogue(ctx, ops, env):
     if any(d != 1 for d in bview.shape[:split]):
         return False  # bias varying over GEMM rows is outside the epilogue
     brow = bview.expand((1,) * split + tuple(out_shape[split:])).reshape(1, n)
-    z2, y2 = gemm_epilogue.gemm_bias_act(
-        x.reshape(m, k), w.reshape(k, n), brow,
-        act=act_op.type if act_op is not None else None,
-    )
+    act = act_op.type if act_op is not None else None
+    z2, y2 = _GemmBiasAct.apply(x.reshape(m, k), w.reshape(k, n), brow, act)
     env[add.output("Out")[0]] = z2.reshape(out_shape)
     env[prod.output("Out")[0]] = (
         (z2.float() - brow.float()).to(z2.dtype).reshape(out_shape)
@@ -307,6 +387,8 @@ def _fused_quant_gemm(ctx, ops, env):
     intermediate env entries are rebuilt algebraically from z (f32 inverses
     of the epilogue), so consumers outside the run stay correct."""
     if len(ops) not in (3, 4, 5) or ops[0].type != "int8_mul":
+        return False
+    if _rules_sharded(ctx, ops):
         return False
     prod, d1, d2 = ops[0], ops[1], ops[2]
     if (
@@ -383,6 +465,8 @@ def _fused_layer_norm(ctx, ops, env):
     ln = ops[-1]
     if ln.type != "layer_norm" or len(ops) > 2:
         return False
+    if _rules_sharded(ctx, ops):
+        return False
     add = ops[0] if len(ops) == 2 else None
     if add is not None:
         if add.type != "elementwise_add" or add.output("Out")[0] != ln.input("X")[0]:
@@ -409,11 +493,10 @@ def _fused_layer_norm(ctx, ops, env):
     bias_names = ln.inputs.get("Bias") or []
     scale = env.get(scale_names[0]) if scale_names else None
     bias = env.get(bias_names[0]) if bias_names else None
-    s2, y2, mean, var = layer_norm.fused_layer_norm(
-        x_full.reshape(rows, cols),
-        None if residual_full is None else residual_full.reshape(rows, cols),
-        scale, bias, ln.attrs.get("epsilon", 1e-5),
-    )
+    args = (x_full.reshape(rows, cols),
+            None if residual_full is None else residual_full.reshape(rows, cols),
+            scale, bias, ln.attrs.get("epsilon", 1e-5))
+    s2, y2, mean, var = _LayerNorm.apply(*args)
     if add is not None:
         env[add.output("Out")[0]] = s2.reshape(x_full.shape)
     outs = {"Y": [y2.reshape(x_full.shape)], "Mean": [mean], "Variance": [var]}
@@ -428,6 +511,8 @@ def _fused_layer_norm_grad(ctx, ops, env):
     Mean/Variance. Declines when someone differentiates through the stats
     themselves (Mean@GRAD / Variance@GRAD cotangents)."""
     if len(ops) != 1 or ops[0].type != "layer_norm_grad":
+        return False
+    if _rules_sharded(ctx, ops):
         return False
     op = ops[0]
     ins = gather_op_inputs(op, env)
@@ -474,6 +559,8 @@ def _fused_multi_adam(ctx, ops, env):
     no host sync. Params and moments are updated in place where ParamOut /
     MomentOut name the input vars, as AdamOptimizer always emits them; an
     op whose outputs name other vars updates copies."""
+    if _rules_sharded(ctx, ops):
+        return False
     if len(ops) < 2 or any(op.type != "adam" for op in ops):
         return False
     a0 = ops[0].attrs

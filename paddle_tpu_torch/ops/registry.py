@@ -197,12 +197,25 @@ class LowerCtx:
     from the host."""
 
     def __init__(self, device, generator=None, is_test=False,
-                 device_generator=None, cache=None, host_random=True, mesh=None):
+                 device_generator=None, cache=None, host_random=True, mesh=None,
+                 sharding=None, layout=None, autograd=False):
         self.device = torch.device(device)
         # this rank's parallel.Mesh under a ParallelExecutor (None: one
         # device): the mesh-aware lowerings (batch_norm's dp statistics,
         # ring attention over sp, the ep-sharded table) read it
         self.mesh = mesh
+        # the sharding rules bound to the mesh (parallel.sharding_rules.
+        # Resolver, None without rules): the fused families decline on a
+        # run they place
+        self.sharding = sharding
+        # the run's layouts (sharding_rules.Layouts, None when no value is
+        # split over tp or fsdp): every op lowers through it, on this
+        # rank's pieces
+        self.layout = layout
+        # a pipeline stage's forward, differentiated by torch.autograd:
+        # flash_attention takes its autograd form, which keeps the lse
+        # inside (elsewhere the program's grad op reads the Lse output)
+        self.autograd = autograd
         self.generator = generator
         self.device_generator = device_generator
         self.host_random = host_random
@@ -378,11 +391,20 @@ def _lower_one(ctx, op, env):
     opdef = get(op.type)
     if opdef.skip_exec:
         return
+    if ctx.layout is not None:
+        ctx.layout.lower_one(ctx, op, env, opdef)
+        return
+    lower_op(ctx, op, env, opdef)
+
+
+def lower_op(ctx, op, env, opdef, attrs=None):
+    """Lower `op` through `opdef` over env (its attrs, or `attrs` in their
+    place), binding its outputs."""
     # a sub-block op lowers inside its parent op's lowering: restore the
     # parent afterwards
     parent, ctx.op = ctx.op, op
     try:
-        outs = opdef.lower(ctx, gather_op_inputs(op, env), op.attrs)
+        outs = opdef.lower(ctx, gather_op_inputs(op, env), op.attrs if attrs is None else attrs)
     finally:
         ctx.op = parent
     scatter_op_outputs(op, outs, env)

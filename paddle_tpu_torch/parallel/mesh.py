@@ -11,10 +11,13 @@ axis alone. Without a process group the mesh is the one local device, as
 the JAX ParallelExecutor uses every local device, and every axis has
 extent 1.
 
-fsdp, tp and pp above 1 raise: the sharding rules and the pipeline come
-with ROADMAP A6b.
+A layout may split one dimension over several axes at once (the
+SpecLayout embedding's ("fsdp", "tp")), and the batch is split over dp and
+fsdp together: `make_mesh` also builds the process group of every set of
+two or more axes of extent above 1, which `group(axes)` returns.
 """
 
+import itertools
 import threading
 
 import numpy as np
@@ -24,11 +27,6 @@ import torch.distributed as dist
 __all__ = ["AXES", "Mesh", "MeshConfig", "current_mesh", "make_mesh"]
 
 AXES = ("dp", "fsdp", "tp", "sp", "ep", "pp")
-
-# the axes whose layouts come with ROADMAP A6b
-_A6B = {"fsdp": "the fsdp sharding rules (parallel/sharding_rules.py)",
-        "tp": "the tp sharding rules (parallel/sharding_rules.py)",
-        "pp": "the pipeline (parallel/pipeline.py)"}
 
 
 class MeshConfig:
@@ -69,29 +67,63 @@ def current_mesh():
     return stack[-1] if stack else None
 
 
+def _axes(axes):
+    """An axis name or a tuple of them as a tuple."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
 class Mesh:
     """One rank's view of a device mesh: `shape` (axis -> extent, all six
-    axes), `index(axis)` (this rank's coordinate), `group(axis)` (the
-    process group of the ranks that share every other coordinate; None on
-    an axis of extent 1), `device` (this rank's device) and `device_mesh`
-    (the DeviceMesh, None without a process group). `with mesh:` makes it
-    the default of the collective wrappers."""
+    axes), `index(axes)` (this rank's coordinate), `group(axes)` (the
+    process group of the ranks that share every other coordinate; None
+    where the axes' extent is 1), `device` (this rank's device) and
+    `device_mesh` (the DeviceMesh, None without a process group). `axes`
+    is an axis name or a tuple of them: over a tuple the ranks are ordered
+    with its first axis outermost, as a layout that splits one dimension
+    over several axes orders its pieces. `with mesh:` makes it the default
+    of the collective wrappers."""
 
-    def __init__(self, sizes, coords, groups, device, device_mesh=None):
+    def __init__(self, sizes, coords, groups, device, device_mesh=None, rank_coords=None):
         self.shape = {a: int(sizes[a]) for a in AXES}
         self._coords = dict(coords)
         self._groups = dict(groups)
         self.device = torch.device(device)
         self.device_mesh = device_mesh
+        # global rank -> its coordinates (the members of a group, in order)
+        self._rank_coords = rank_coords or {}
 
-    def axis_size(self, axis):
-        return self.shape.get(axis, 1)
+    def axis_size(self, axes):
+        return int(np.prod([self.shape.get(a, 1) for a in _axes(axes)]))
 
-    def index(self, axis):
-        return self._coords.get(axis, 0)
+    def index(self, axes):
+        i = 0
+        for a in _axes(axes):
+            i = i * self.shape.get(a, 1) + self._coords.get(a, 0)
+        return i
 
-    def group(self, axis):
-        return self._groups.get(axis) if self.axis_size(axis) > 1 else None
+    def group(self, axes):
+        axes = _axes(axes)
+        if self.axis_size(axes) == 1:
+            return None
+        key = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+        return self._groups.get(key[0] if len(key) == 1 else key)
+
+    def group_order(self, axes):
+        """For each rank of group(axes), in the group's own rank order, its
+        index over `axes` in their order: the order in which the pieces an
+        all_gather over the group returns are put together."""
+        axes = _axes(axes)
+        key = tuple(a for a in AXES if a in axes)
+        mine = {a: c for a, c in self._coords.items() if a not in axes}
+        members = sorted(r for r, c in self._rank_coords.items()
+                         if all(c.get(a, 0) == v for a, v in mine.items()))
+        out = []
+        for r in members:
+            i = 0
+            for a in axes:
+                i = i * self.shape.get(a, 1) + self._rank_coords[r].get(a, 0)
+            out.append(i)
+        return out if key != axes else list(range(len(members)))
 
     def __enter__(self):
         stack = getattr(_active, "stack", None)
@@ -104,13 +136,22 @@ class Mesh:
         _active.stack.pop()
 
 
-def _check_axes(config):
-    """Raise for an fsdp, tp or pp extent above 1 (or left to -1)."""
-    for axis, what in _A6B.items():
-        n = config.axes[axis]
-        if n > 1 or n == -1:
-            raise NotImplementedError(
-                "mesh axis %s=%d: %s is ported with ROADMAP A6b" % (axis, n, what))
+def _combined_groups(sizes, ranks, me):
+    """The process group of every set of two or more axes of extent above 1
+    that holds this rank, keyed by the axes in AXES order. Every rank
+    creates every group, in one order, as torch.distributed asks."""
+    live = [a for a in AXES if sizes[a] > 1]
+    out = {}
+    for n in range(2, len(live) + 1):
+        for combo in itertools.combinations(live, n):
+            dims = [AXES.index(a) for a in combo]
+            moved = np.moveaxis(ranks, dims, list(range(ranks.ndim - n, ranks.ndim)))
+            for members in moved.reshape(-1, int(np.prod([sizes[a] for a in combo]))):
+                members = sorted(int(r) for r in members)
+                group = dist.new_group(members)
+                if me in members:
+                    out[combo] = group
+    return out
 
 
 def make_mesh(config=None, device=None):
@@ -119,7 +160,6 @@ def make_mesh(config=None, device=None):
     `device` is this rank's device: the CPU under gloo, else the current
     CUDA device (torchrun's LOCAL_RANK, set by init_distributed)."""
     config = config or MeshConfig()
-    _check_axes(config)
     if not (dist.is_available() and dist.is_initialized()):
         sizes = config.resolve(1)
         if device is None:
@@ -136,8 +176,11 @@ def make_mesh(config=None, device=None):
                   if device_type == "cuda" else torch.device("cpu"))
     from torch.distributed.device_mesh import DeviceMesh
 
-    dm = DeviceMesh(device_type, torch.arange(world).reshape([sizes[a] for a in AXES]),
-                    mesh_dim_names=AXES)
+    ranks = np.arange(world).reshape([sizes[a] for a in AXES])
+    dm = DeviceMesh(device_type, torch.from_numpy(ranks), mesh_dim_names=AXES)
     coords = dict(zip(AXES, dm.get_coordinate()))
     groups = {a: dm.get_group(a) for a in AXES if sizes[a] > 1}
-    return Mesh(sizes, coords, groups, device, dm)
+    groups.update(_combined_groups(sizes, ranks, dist.get_rank()))
+    rank_coords = {int(r): dict(zip(AXES, (int(c) for c in np.unravel_index(r, ranks.shape))))
+                   for r in range(world)}
+    return Mesh(sizes, coords, groups, device, dm, rank_coords)

@@ -53,6 +53,7 @@ without a CUDA device.
 import argparse
 import bisect
 import itertools
+import re
 import json
 import os
 import random
@@ -110,6 +111,67 @@ def build(cfg, lr=LEARNING_RATE):
         )
         optimizer.Adam(learning_rate=lr).minimize(loss)
     return main, startup, loss
+
+
+def tp_rules(program, layout=None):
+    """The Megatron layout of a Transformer program as sharding rules
+    (parallel.SpecLayout's column / row roles, by weight name): the Q / K /
+    V projections (a product whose output is reshaped into heads) and the
+    FFN's first product (its output goes through the bias and the
+    activation) column parallel; the attention output projection (a product
+    of the heads put back together) and the FFN's second product row
+    parallel. Found by walking the program's forward ops, so it takes
+    either package's program and any depth."""
+    from ..parallel.sharding_rules import SpecLayout
+
+    layout = layout or SpecLayout()
+    ops = program.global_block().ops
+    producer, consumers = {}, {}
+    for op in ops:
+        for n in op.output_arg_names:
+            producer.setdefault(n, op)
+        for n in op.input_arg_names:
+            consumers.setdefault(n, []).append(op)
+
+    def after(name, skip=("dropout",)):
+        """The forward consumers of `name`, through dropout."""
+        out = []
+        for op in consumers.get(name, ()):
+            if op.type.endswith("_grad"):
+                continue
+            if op.type in skip:
+                out.extend(after(op.output("Out")[0], skip))
+            else:
+                out.append(op)
+        return out
+
+    def before(name):
+        op = producer.get(name)
+        while op is not None and op.type == "dropout":
+            op = producer.get(op.input("X")[0])
+        return op
+
+    column, row = [], []
+    for op in ops:
+        if op.type != "mul" or op.type.endswith("_grad"):
+            continue
+        w = op.input("Y")[0]
+        nxt = after(op.output("Out")[0])
+        src = before(op.input("X")[0])
+        if any(o.type in ("reshape2", "reshape") and len(o.attrs["shape"]) == 4 for o in nxt):
+            column.append(w)  # split into heads
+        elif src is not None and src.type in ("reshape2", "reshape"):
+            row.append(w)
+        elif len(nxt) == 1 and nxt[0].type == "elementwise_add":
+            acts = after(nxt[0].output("Out")[0])
+            if len(acts) == 1 and acts[0].type in ("relu", "gelu"):
+                downs = [o for o in after(acts[0].output("Out")[0]) if o.type == "mul"]
+                if len(downs) == 1:
+                    column.append(w)
+                    row.append(downs[0].input("Y")[0])
+    esc = lambda n: "^%s$" % re.escape(n)  # noqa: E731
+    return layout.transformer_rules(column=[esc(n) for n in column],
+                                    row=[esc(n) for n in row])
 
 
 def make_batch(cfg, seed):

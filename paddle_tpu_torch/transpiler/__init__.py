@@ -8,7 +8,7 @@ training rewrite.
 
 gradient_merge_transpile accumulates k micro-batches' gradients before one
 optimizer step. The JAX package's DistributeTranspiler with its pserver
-dispatchers comes with the parameter server (ROADMAP A6b).
+dispatchers comes with the parameter server (ROADMAP A6b item 4).
 """
 
 from .bf16_transpiler import Bf16Transpiler, Float16Transpiler  # noqa: F401

@@ -23,7 +23,7 @@ __all__ = ["OPTIMIZER_OP_TYPES", "gradient_merge_transpile"]
 
 # the 12 optimizer update ops (reference operators/optimizers/, SURVEY.md
 # §2.5; the JAX package keeps the set in transpiler/distribute_transpiler.py,
-# which comes with ROADMAP A6b)
+# which comes with ROADMAP A6b item 4)
 OPTIMIZER_OP_TYPES = frozenset(
     [
         "sgd",

@@ -471,8 +471,23 @@ def test_live_after_and_feed_facts():
                         feed_facts={"x": VarFact(shape=(3, 8), dtype="float32")})
     assert a.facts[fetches[0]].concrete_shape() == (3, 4)
     assert a.mesh is None and a.resolver is None
-    with pytest.raises(NotImplementedError, match="A6"):
-        analyze_program(main, feeds, fetches, mesh=object())
+    # with a mesh the rules bind into a Resolver, and each fact carries its
+    # layout: the fc weight (8, 4) split over tp on its columns, a
+    # non-dividing rule degraded with a warning from the checker
+    from paddle_tpu_torch.analysis import run_checkers
+    from paddle_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"dp": 1, "fsdp": 1, "tp": 2, "sp": 1, "ep": 1, "pp": 3}, {}, {}, "cpu")
+    w = [p.name for p in main.global_block().all_parameters() if len(p.shape) == 2][0]
+    a = analyze_program(main, feeds, fetches, mesh=mesh,
+                        rules=[("^%s$" % w.replace(".", r"\."), (None, "tp"))])
+    assert a.mesh is mesh and a.resolver is not None
+    assert a.facts[w].spec == (None, "tp")
+    a = analyze_program(main, feeds, fetches, mesh=mesh,
+                        rules=[("^%s$" % w.replace(".", r"\."), ("pp", None))])
+    assert a.facts[w].spec is None
+    assert [f for f in run_checkers(a, checks=["sharding-rules"])
+            if "not divisible" in f.message]
 
 
 # ---------------------------------------------------------------------------

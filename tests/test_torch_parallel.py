@@ -203,25 +203,64 @@ def test_pe_world1_equals_executor_bit_for_bit(model):
         np.testing.assert_array_equal(a, b)
 
 
-def test_pe_raises_for_a6b_layouts():
+def test_pe_runs_the_formerly_refused_layouts():
+    """What raised before the sharding rules, the pipeline and the
+    multi-step block came runs at world 1: BuildStrategy.sharding_rules, a
+    legacy tp spec (parallel.shard_parameter) and MeshConfig's tp / fsdp /
+    pp of 1 prune to nothing, and the block is the Executor's bit for bit;
+    BuildStrategy.pipeline_stages > 1 asks for more devices than there
+    are."""
     main, startup, loss = R.build_mlp(fluid)
     scope = R.port_state(fluid, startup, None)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
-                               mesh_config=MeshConfig(dp=1, tp=2))
+    init = convert.scope_to_numpy(scope, convert.persistable_names(main))
+    exe = fluid.Executor(fluid.CPUPlace())
+    feeds = R.mlp_batches(3, 0)
+    ref = [exe.run(main, feed=f, fetch_list=[loss.name], scope=scope)[0] for f in feeds]
     s = fluid.BuildStrategy()
-    s.sharding_rules = [(".*", (None, "tp"))]
-    with pytest.raises(NotImplementedError, match="A6b"):
-        fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
-                               build_strategy=s)
-    fluid.parallel.shard_parameter(main.global_block().var("fc_0.w_0"), (None, "tp"))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope)
-    main, startup, loss = R.build_mlp(fluid)
-    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main,
-                                scope=R.port_state(fluid, startup, None))
-    with pytest.raises(NotImplementedError, match="steps_per_run"):
-        pe.run([loss.name], feed=R.mlp_batches(1, 0)[0], steps_per_run=2)
+    s.sharding_rules = [(".*w_0", (None, "tp")), ("fc_0.b_0", ("fsdp",))]
+    for strategy, spec, mesh in ((s, None, None), (None, (None, "tp"), None),
+                                 (None, None, MeshConfig(dp=1, tp=1, fsdp=1, pp=1))):
+        main, startup, loss = R.build_mlp(fluid)
+        if spec is not None:
+            fluid.parallel.shard_parameter(main.global_block().var("fc_0.w_0"), spec)
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                    scope=R.port_state(fluid, startup, init),
+                                    build_strategy=strategy, mesh_config=mesh)
+        got = [pe.run(fetch_list=[loss.name], feed=f)[0] for f in feeds]
+        assert not pe._stored
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+    s = fluid.BuildStrategy()
+    s.pipeline_stages = 2
+    with pytest.raises(ValueError, match="not divisible"):
+        fluid.ParallelExecutor(loss_name=loss.name, main_program=main, build_strategy=s,
+                               scope=R.port_state(fluid, startup, init))
+
+
+def test_pe_steps_per_run_equals_single_runs():
+    """steps_per_run=k through the ParallelExecutor at world 1: the fetches
+    stacked [k, ...], bit for bit k single runs; a feed list (per-device
+    dicts) and k < 1 are refused."""
+    feeds = R.mlp_batches(4, 1)
+    got = {}
+    for k in (1, 4):
+        main, startup, loss = R.build_mlp(fluid, "adam")
+        scope = R.port_state(fluid, startup, None)
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope)
+        if k == 1:
+            vals = np.stack([pe.run(fetch_list=[loss.name], feed=f)[0] for f in feeds])
+        else:
+            stacked = {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+            (vals,) = pe.run(fetch_list=[loss.name], feed=stacked, steps_per_run=k)
+            with pytest.raises(TypeError, match="steps_per_run"):
+                pe.run(fetch_list=[loss.name], feed=feeds, steps_per_run=k)
+            with pytest.raises(ValueError, match="steps_per_run"):
+                pe.run(fetch_list=[loss.name], feed=feeds[0], steps_per_run=0)
+        got[k] = (vals, {n: scope.vars[n].numpy().copy() for n in sorted(scope.vars)})
+    assert got[4][0].shape[0] == 4
+    np.testing.assert_array_equal(got[4][0].reshape(-1), got[1][0].reshape(-1))
+    for n, v in got[1][1].items():
+        np.testing.assert_array_equal(got[4][1][n], v)
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +421,10 @@ def test_embedding_engine_checkpoint_roundtrip(tmp_path):
     eng.load_sharded(scope, str(tmp_path))
     for n in names:
         assert torch.equal(scope.vars[n], saved[n]), n
-    assert eng.table.sharding_spec == ("ep", None)
+    # the row layout is the program's sharding rule (as in the JAX
+    # package), over the table and its accumulators
+    rules = main._sharding_rules
+    assert all(rules.match(n) == ("ep", None) for n in names)
     assert fluid.embedding.engines_of(main) == [eng]
 
 
@@ -512,9 +554,12 @@ def test_mesh_config_resolution():
     mesh = make_mesh(MeshConfig(), device="cpu")
     assert mesh.shape == {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1, "ep": 1, "pp": 1}
     assert mesh.device_mesh is None and mesh.group("dp") is None and mesh.index("sp") == 0
+    # fsdp, tp and pp take any extent the devices allow; on one device an
+    # extent of 2 is refused as any axis's is
     for axis in ("fsdp", "tp", "pp"):
-        with pytest.raises(NotImplementedError, match="A6b"):
+        with pytest.raises(ValueError, match="needs 2 devices"):
             make_mesh(MeshConfig(dp=1, **{axis: 2}), device="cpu")
+        assert make_mesh(MeshConfig(dp=1, **{axis: 1}), device="cpu").axis_size(axis) == 1
 
 
 def test_collective_wrappers(tmp_path_factory):

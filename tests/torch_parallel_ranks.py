@@ -96,6 +96,27 @@ def build_transformer(fluid, models):
     return main, startup, loss
 
 
+def build_transformer_flash(fluid, models, n_layer=2, n_head=4):
+    """A small flash Transformer (use_flash, unpadded batches, dropout 0):
+    2 layers of 4 heads of 8, d_model 32, the tp test's model."""
+    t, vocab = TRANSFORMER_T, TRANSFORMER_VOCAB
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds = {}
+        for name, shape, dtype in [("src_word", [t], "int64"), ("src_pos", [t], "int64"),
+                                   ("trg_word", [t], "int64"), ("trg_pos", [t], "int64"),
+                                   ("lbl", [t], "int64"), ("lbl_w", [t, 1], "float32")]:
+            feeds[name] = fluid.layers.data(name=name, shape=shape, dtype=dtype)
+        loss, _ = models.transformer.transformer(
+            feeds["src_word"], feeds["src_pos"], feeds["trg_word"], feeds["trg_pos"],
+            None, None, None, feeds["lbl"], feeds["lbl_w"],
+            src_vocab_size=vocab, trg_vocab_size=vocab, n_layer=n_layer, n_head=n_head,
+            d_model=32, d_inner=64, d_key=8, d_value=8, dropout=0.0, max_length=t + 1,
+            use_flash=True, padded=False)
+        fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    return main, startup, loss
+
+
 def transformer_batches():
     t, vocab = TRANSFORMER_T, TRANSFORMER_VOCAB
     rng = np.random.RandomState(2)
@@ -372,8 +393,381 @@ def sc_collectives(rank, world, p):
         }
 
 
+# ---------------------------------------------------------------------------
+# sharding rules (tp / fsdp), the pipeline, steps_per_run
+# ---------------------------------------------------------------------------
+
+
+def _strategy(fluid, p):
+    s = fluid.BuildStrategy()
+    s.sharding_rules = p.get("rules")
+    if p.get("fuse"):
+        s.pass_pipeline = "training_fused"
+    if p.get("reduce"):
+        s.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+    return s
+
+
+def _mesh(p, key="mesh"):
+    from paddle_tpu_torch.parallel import MeshConfig
+
+    return MeshConfig(**p[key]) if p.get(key) else None
+
+
+def _stored(scope):
+    """{name: (piece shape, layout)} of the scope's sharded state."""
+    return {n: (tuple(scope.vars[n].shape), e[1]) for n, e in sorted(scope.row_shards.items())}
+
+
+def sc_rules(rank, world, p):
+    """The MLP (Adam) through the PE under p["mesh"] and p["rules"]: losses,
+    the stored pieces, what the fused families dispatched and the
+    collectives a step."""
+    fluid, _ = _port()
+    from paddle_tpu_torch.ops import fused
+
+    main, startup, loss = build_mlp(fluid, "adam")
+    scope = port_state(fluid, startup, p["init"])
+    fused.reset_stats()
+    losses, pe = pe_losses(fluid, main, loss, scope, mlp_batches(p.get("steps", 6), p["seed"]),
+                           _strategy(fluid, p), _mesh(p))
+    stats = fluid.Executor.stats()
+    return {"losses": losses, "stored": _stored(scope), "dispatches": stats["dispatches"],
+            "collectives": stats["collectives"], "device_count": pe.device_count}
+
+
+def sc_rules_ckpt(rank, world, p):
+    """3 steps under p["mesh"], save_persistables (whole variables), a
+    fresh scope on p["mesh2"] with load_persistables (resharded), 3 more."""
+    fluid, _ = _port()
+    batches = mlp_batches(6, p["seed"])
+    main, startup, loss = build_mlp(fluid, "adam")
+    scope = port_state(fluid, startup, p["init"])
+    head, _ = pe_losses(fluid, main, loss, scope, batches[:3], _strategy(fluid, p), _mesh(p))
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, p["dir"], main)
+    head_stored = _stored(scope)
+    main, startup, loss = build_mlp(fluid, "adam")
+    scope = port_state(fluid, startup, None)
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                                build_strategy=_strategy(fluid, p), mesh_config=_mesh(p, "mesh2"))
+    with fluid.scope_guard(scope):
+        fluid.io.load_persistables(exe, p["dir"], main)
+    tail = []
+    for feed in batches[3:]:
+        (val,) = pe.run(fetch_list=[loss.name], feed=feed)
+        tail.append(float(np.asarray(val).reshape(-1)[0]))
+    return {"losses": head + tail, "head_stored": head_stored, "tail_stored": _stored(scope)}
+
+
+def build_pp_mlp(fluid, optimizer="sgd", guard=False):
+    """tests/test_pp_program.py's MLP: fc 16 -> 48 -> 32 -> 24 relu -> 4,
+    every layer a different width; with `guard`, its device_guard form (one
+    fc a stage over 4 stages)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        if guard:
+            with fluid.device_guard("pp:0"):
+                h = fluid.layers.fc(x, size=32, act="relu")
+            with fluid.device_guard("pp:1"):
+                h = fluid.layers.fc(h, size=24, act="relu")
+            with fluid.device_guard("pp:2"):
+                h = fluid.layers.fc(h, size=16, act="relu")
+            with fluid.device_guard("pp:3"):
+                logits = fluid.layers.fc(h, size=4)
+                loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(logits, y))
+        else:
+            h = x
+            for w in (48, 32, 24):
+                h = fluid.layers.fc(h, size=w, act="relu")
+            logits = fluid.layers.fc(h, size=4)
+            loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(logits, y))
+        if optimizer == "momentum":
+            fluid.optimizer.Momentum(learning_rate=0.05, momentum=0.9).minimize(loss)
+        else:
+            fluid.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    return main, startup, loss
+
+
+def sc_pp(rank, world, p):
+    """The pp MLP through the PE under p["mesh"] (pp > 1), each of
+    p["runs"] (schedule, n_micro, optimizer, reduce): losses and the stage
+    plan; then a run's fetch of a first-stage value and a steps_per_run > 1
+    call, which raise."""
+    fluid, _ = _port()
+    out = {}
+    for schedule, n_micro, opt, reduce in p["runs"]:
+        main, startup, loss = build_pp_mlp(fluid, opt, p.get("guard", False))
+        scope = port_state(fluid, startup, p["init"][opt])
+        es = fluid.ExecutionStrategy()
+        es.pipeline_schedule = schedule
+        es.num_microbatches = n_micro
+        bs = fluid.BuildStrategy()
+        if reduce:
+            bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                                    build_strategy=bs, exec_strategy=es,
+                                    mesh_config=_mesh(p))
+        losses = []
+        for feed in mlp_batches(p.get("steps", 6), p["seed"]):
+            (val,) = pe.run(fetch_list=[loss.name], feed=feed)
+            losses.append(float(np.asarray(val).reshape(-1)[0]))
+        plan = next(iter(pe._cache.values()))
+        plan = getattr(plan, "block", plan).stage_plan
+        out[(schedule, n_micro, opt, reduce)] = {"losses": losses, "plan": plan}
+    raised = {}
+    main, startup, loss = build_pp_mlp(fluid, guard=p.get("guard", False))
+    scope = port_state(fluid, startup, p["init"]["sgd"])
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                                mesh_config=_mesh(p))
+    feed = mlp_batches(1, p["seed"])[0]
+    first = main.global_block().ops[0].output_arg_names[0]  # the first op's: stage 0
+    for key, call in (
+            ("fetch", lambda: pe.run(fetch_list=[loss.name, first], feed=feed)),
+            ("multistep", lambda: pe.run(fetch_list=[loss.name], feed={
+                n: np.stack([v, v]) for n, v in feed.items()}, steps_per_run=2))):
+        try:
+            call()
+            raised[key] = None
+        except (ValueError, NotImplementedError) as e:
+            raised[key] = (type(e).__name__, str(e))
+    out["raised"] = raised
+    return out
+
+
+def sc_layout_collectives(rank, world, p):
+    """The layout collectives on a dp=2 x tp=2 mesh, forward and backward:
+    gather_dim / scatter_dim over tp and over (dp, tp), Megatron's
+    copy_to_axes / reduce_from_axes, send_recv between dp neighbours; each
+    rank's input its global rank."""
+    import torch
+
+    from paddle_tpu_torch.parallel import MeshConfig, collectives as C, make_mesh
+
+    mesh = make_mesh(MeshConfig(dp=2, tp=2), device="cpu")
+    out = {"coords": (mesh.index("dp"), mesh.index("tp"), mesh.index(("dp", "tp")),
+                      mesh.index(("tp", "dp")))}
+    x = (torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank).requires_grad_(True)
+    for key, fn in (("gather_tp", lambda t: C.gather_dim(t, "tp", 1, mesh)),
+                    ("gather_dptp", lambda t: C.gather_dim(t, ("dp", "tp"), 0, mesh)),
+                    ("gather_tpdp", lambda t: C.gather_dim(t, ("tp", "dp"), 0, mesh)),
+                    ("scatter_tp", lambda t: C.scatter_dim(t, "tp", 0, mesh)),
+                    ("copy_tp", lambda t: C.copy_to_axes(t, "tp", mesh)),
+                    ("reduce_tp", lambda t: C.reduce_from_axes(t, "tp", mesh))):
+        x.grad = None
+        y = fn(x)
+        (y * (1 + torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape))).sum().backward()
+        out[key] = (y.detach().numpy(), x.grad.numpy())
+    peer = 2 * (1 - mesh.index("dp")) + mesh.index("tp")
+    (got,) = C.send_recv(sends=[(x.detach() * 2, peer)],
+                         recvs=[((2, 3), torch.float32, torch.device("cpu"), peer)])
+    out["send_recv"] = got.numpy()
+    return out
+
+
+def sc_pp_ckpt(rank, world, p):
+    """The pp MLP under BuildStrategy.pipeline_stages = world (no
+    MeshConfig): 6 steps; then 3 steps, save_persistables, a fresh scope of
+    another seed with load_persistables, 3 more."""
+    fluid, _ = _port()
+    batches = mlp_batches(6, 4)
+    bs = fluid.BuildStrategy()
+    bs.pipeline_stages = world
+    exe = fluid.Executor(fluid.CPUPlace())
+
+    def steps(pe, loss, feeds):
+        return [float(np.asarray(pe.run(fetch_list=[loss.name], feed=f)[0]).reshape(-1)[0])
+                for f in feeds]
+
+    main, startup, loss = build_pp_mlp(fluid)
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, build_strategy=bs,
+                                scope=port_state(fluid, startup, p["init"]))
+    full, mesh = steps(pe, loss, batches), dict(pe.mesh.shape)
+    main, startup, loss = build_pp_mlp(fluid)
+    scope = port_state(fluid, startup, p["init"])
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, build_strategy=bs,
+                                scope=scope)
+    steps(pe, loss, batches[:3])
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, p["dir"], main)
+    main, startup, loss = build_pp_mlp(fluid)
+    scope = fluid.Scope(seed=99, place=fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    with fluid.scope_guard(scope):
+        fluid.io.load_persistables(exe, p["dir"], main)
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, build_strategy=bs,
+                                scope=scope)
+    return {"full": full, "resumed": steps(pe, loss, batches[3:]), "mesh": mesh}
+
+
+def sc_gpipe(rank, world, p):
+    """parallel.pipeline.gpipe over a stack of tanh(x w + b) stages
+    (tests/test_pipeline_parallel.py's) at each (pp, n_micro) of p["cases"]
+    (dp fills the rest): its output, the gradients of a mean-square loss
+    through it against the stages applied one after the other on this
+    rank, an SGD loop's losses, and the error an indivisible stack raises."""
+    import torch
+
+    from paddle_tpu_torch.parallel import MeshConfig, make_mesh
+    from paddle_tpu_torch.parallel.pipeline import gpipe
+
+    def stage_fn(q, x):
+        return torch.tanh(x @ q["w"] + q["b"])
+
+    def sequential(params, x):
+        for i in range(params["w"].shape[0]):
+            x = stage_fn({k: v[i] for k, v in params.items()}, x)
+        return x
+
+    out = {}
+    for pp, n_micro in p["cases"]:
+        mesh = make_mesh(MeshConfig(dp=-1, pp=pp), device="cpu")
+        params = {k: torch.from_numpy(v).requires_grad_(True) for k, v in p["params"].items()}
+        x = torch.from_numpy(p["x"])
+        y = gpipe(stage_fn, params, x, n_micro, mesh)
+        loss = ((y - torch.from_numpy(p["tgt"])) ** 2).mean()
+        loss.backward()
+        ref_params = {k: torch.from_numpy(v).requires_grad_(True) for k, v in p["params"].items()}
+        ref = sequential(ref_params, x)
+        ((ref - torch.from_numpy(p["tgt"])) ** 2).mean().backward()
+        out[(pp, n_micro)] = {
+            "y": y.detach().numpy(), "seq": ref.detach().numpy(), "mesh": dict(mesh.shape),
+            "grads": {k: v.grad.numpy() for k, v in params.items()},
+            "seq_grads": {k: v.grad.numpy() for k, v in ref_params.items()}}
+    mesh = make_mesh(MeshConfig(dp=-1, pp=world), device="cpu")
+    params = {k: torch.from_numpy(v).clone() for k, v in p["params"].items()}
+    losses = []
+    for _ in range(8):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        y = gpipe(stage_fn, leaves, torch.from_numpy(p["x"]), 4, mesh)
+        loss = ((y - 0.1 * torch.from_numpy(p["tgt"])) ** 2).mean()
+        loss.backward()
+        losses.append(float(loss))
+        params = {k: (v - 0.1 * leaves[k].grad).detach() for k, v in params.items()}
+    out["train"] = losses
+    try:
+        gpipe(stage_fn, {k: v[:6] for k, v in params.items()}, torch.from_numpy(p["x"]), 4,
+              mesh)
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def sc_transformer_tp(rank, world, p):
+    """The small flash Transformer through the PE under p["mesh"] with the
+    Megatron rules of tools.profile_training.tp_rules: losses, the head
+    counts flash_attention's forward saw, the stored pieces and the
+    collectives of the steps."""
+    fluid, models = _port()
+    from paddle_tpu_torch.ops import flash_attention, fused
+    from paddle_tpu_torch.tools import profile_training
+
+    main, startup, loss = build_transformer_flash(fluid, models)
+    scope = port_state(fluid, startup, p["init"])
+    seen = []
+    forward = flash_attention.flash_forward
+
+    def spy(q, *args, **kw):
+        seen.append(int(q.shape[1]))
+        return forward(q, *args, **kw)
+
+    flash_attention.flash_forward = spy
+    try:
+        fused.reset_stats()
+        strategy = _strategy(fluid, dict(p, rules=profile_training.tp_rules(main)))
+        losses, pe = pe_losses(fluid, main, loss, scope, transformer_batches(), strategy,
+                               _mesh(p))
+    finally:
+        flash_attention.flash_forward = forward
+    return {"losses": losses, "heads": sorted(set(seen)), "stored": _stored(scope),
+            "collectives": fluid.Executor.stats()["collectives"]}
+
+
+def sc_transformer_pp(rank, world, p):
+    """The small flash Transformer through the PE under p["mesh"] (pp > 1)
+    and each schedule of p["schedules"], under p["pipeline"] (the fused
+    families in the stages' autograd when "training_fused"): losses and the
+    stage plan."""
+    fluid, models = _port()
+    out = {}
+    for schedule in p["schedules"]:
+        main, startup, loss = build_transformer_flash(fluid, models)
+        scope = port_state(fluid, startup, p["init"])
+        es = fluid.ExecutionStrategy()
+        es.pipeline_schedule = schedule
+        es.num_microbatches = p["n_micro"]
+        bs = fluid.BuildStrategy()
+        bs.pass_pipeline = p.get("pipeline")
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                                    build_strategy=bs, exec_strategy=es, mesh_config=_mesh(p))
+        losses = []
+        for feed in transformer_batches():
+            (val,) = pe.run(fetch_list=[loss.name], feed=feed)
+            losses.append(float(np.asarray(val).reshape(-1)[0]))
+        block = next(iter(pe._cache.values()))
+        out[schedule] = {"losses": losses, "plan": getattr(block, "block", block).stage_plan}
+    return out
+
+
+def sc_multistep(rank, world, p):
+    """The JAX multi-step tests' MLP through the PE at dp = world: k steps
+    in one call (stacked feeds) against k single runs of another PE, losses
+    and final parameters."""
+    fluid, _ = _port()
+    out = {}
+    for k in (1, p["k"]):
+        main, startup, loss = build_sq_mlp(fluid, p.get("dropout", 0.0))
+        scope = port_state(fluid, startup, p["init"])
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope)
+        batches = sq_batches(p["steps"], p["seed"])
+        losses = []
+        for i in range(0, len(batches), k):
+            if k == 1:
+                (val,) = pe.run(fetch_list=[loss.name], feed=batches[i])
+                losses.append(float(np.asarray(val).reshape(-1)[0]))
+            else:
+                stacked = {n: np.stack([b[n] for b in batches[i:i + k]]) for n in batches[0]}
+                (val,) = pe.run(fetch_list=[loss.name], feed=stacked, steps_per_run=k)
+                losses.extend(float(v) for v in np.asarray(val).reshape(-1))
+        out[k] = {"losses": losses, "params": {n: scope.vars[n].numpy().copy()
+                                               for n in sorted(scope.vars) if n.startswith("fc_")}}
+    return out
+
+
+def build_sq_mlp(fluid, dropout=0.0, seed=0):
+    """tests/test_multistep.py's MLP: fc 8 -> 16 relu [-> dropout] -> 1,
+    squared error, SGD."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        h = fluid.layers.fc(x, size=16, act="relu")
+        if dropout:
+            h = fluid.layers.dropout(h, dropout_prob=dropout)
+        pred = fluid.layers.fc(h, size=1)
+        loss = fluid.layers.mean(fluid.layers.square(pred - y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    main.random_seed = seed
+    return main, startup, loss
+
+
+def sq_batches(k, seed=3, batch=16):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(k):
+        x = rng.randn(batch, 8).astype("float32")
+        out.append({"x": x, "y": (x.sum(axis=1, keepdims=True) > 0).astype("float32")})
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (sc_mlp, sc_zero1, sc_zero1_ckpt, sc_model, sc_deepfm,
-                                     sc_ring, sc_collectives)}
+                                     sc_ring, sc_collectives, sc_rules, sc_rules_ckpt, sc_pp,
+                                     sc_layout_collectives, sc_pp_ckpt, sc_gpipe, sc_transformer_tp, sc_transformer_pp,
+                                     sc_multistep)}
 
 
 # ---------------------------------------------------------------------------
