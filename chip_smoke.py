@@ -68,15 +68,19 @@ Phases, each printing its own line; any failure exits non-zero:
        1, 17, 250, 1024 x k 16, 48, 2064, 8192 x n 16, 2064, and a ragged
        128-row tile at 1000 x 2064 x 2064; the five acts, both forms), each
        call repeated bit for bit;
-     - fp8_matmul (the cast pass and the e4m3 GEMM, batched on the grid)
-       at the bf16 Transformer's products (the attention projections, q
-       k^T and p v of 16 x 8 heads, the FFN products, the vocab projection
-       at n = 37000) and edges (m 1-1024, k 1-4096 with k % 16 != 0, n
-       1-2064, an operand broadcast over a batch), f32 and bf16 operands,
-       values past 448: NaN where the plain version has NaN, f32 within
-       rtol 1e-5 of max |out|, bf16 one bf16 ulp; the cast pass's bytes
-       against the plain rounding bit for bit; timed at (4096, 512) @
-       (512, 512) bf16 beside torch._scaled_mm;
+     - fp8_matmul (fp8_gemm.cu: the forward in one launch, the cast in
+       the producer; the dx and dy forms on bf16 tensor cores) at the bf16
+       Transformer's products (the attention projections, q k^T and p v of
+       16 x 8 heads, the FFN products, the vocab projection at n = 37000)
+       and edges (m 1-1024, k 1-4096 with k % 16 != 0, n 1-2064, y
+       broadcast over x's batch and x over y's), f32 and bf16 operands,
+       values past 448: NaN where the plain version has NaN; the forward
+       f32 within rtol 1e-5 of max |out|, bf16 one bf16 ulp; the gradient
+       against the plain backward within one e4m3 ulp plus the forward's
+       f32 bar, at least 99.9 % equal; the rounding kernel against the plain rounding bit for bit;
+       the forward timed at (4096, 512) @ (512, 512) bf16 beside
+       torch._scaled_mm, dx and dy there and at the vocab product beside
+       the f32 matmuls with plain rounding they replace;
   Every serve and train phase runs its main path on replayed CUDA graphs
   (a GenerationEngine captures its decode step and prefill buckets at
   warmup(); Executor.run captures a training step at its second call) and
@@ -278,10 +282,11 @@ Phases, each printing its own line; any failure exits non-zero:
      same counters, the GEMM epilogue (bf16 operands, 2e-2) and Adam (bf16
      grads, f32 masters, bit for bit) held at the path's inputs; images/s
      or tokens/s, step wall, busy share and memory beside the f32 phase's;
-     then 3 Transformer steps with FLAGS_fp8_matmul: fp8_matmul's cast
-     pass and e4m3 GEMM launched, losses within 0.1 relative of the bf16
-     steps', bit for bit op by op, its first product held against the
-     plain version;
+     then 3 Transformer steps with FLAGS_fp8_matmul: fp8_matmul's
+     forward, dx and dy forms launched, losses within 0.1 relative of the
+     bf16 steps', bit for bit op by op, its first product held against the
+     plain version; the step wall and the op-by-op device split
+     (profile_training.fp8_step_split) beside the redesign's parent's;
  14. train ssd: MobileNet-SSD (tools/profile_detection.py: the reference
      era's mobilenet_ssd.py, batch 64, 3 x 300 x 300, 21 classes, 1917
      priors, f32, random weights from a seed) under RMSProp(piecewise_decay)
@@ -347,9 +352,11 @@ Phases, each printing its own line; any failure exits non-zero:
      the NMT model's, DeepFM's, the bf16 runs', the multi-step phase's and
      the PE's steps, and their
      max_abs_err is
-     the worst of their own check and the path checks; quant_gemm_fp8,
-     e4m3_cast and fp8_matmul count the fp8 steps'; quant_gemm_int8 the
-     int8 ServingEngine's calls and deploy resnet50's leg (e), 53 a call).
+     the worst of their own check and the path checks; fp8_matmul,
+     fp8_matmul_dx and fp8_matmul_dy count the fp8 steps'; e4m3_round and
+     quant_gemm_fp8 (on no main path) the kernel phase's; quant_gemm_int8
+     the int8 ServingEngine's calls and deploy resnet50's leg (e), 53 a
+     call).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -358,6 +365,7 @@ the script exits non-zero and prints no result.
 
 import contextlib
 import json
+import math
 import os
 import sys
 import time
@@ -1944,11 +1952,11 @@ def check_quant_gemm(torch, device, flush):
         "kernel / _scaled_mm %.3f; bound %.4f ms (%s); %d launches here" % (
             (m, k), (k, n), err, float(zp.abs().max()), ms, plain_ms, lib_ms, ms / lib_ms,
             bound_ms, bound_by, launches))
-    # its launches on a main path are fp8_matmul's products in the train
-    # bf16 phase's fp8 steps
-    entries["quant_gemm_fp8"] = _entry(
+    # no main path takes the e4m3 form (fp8_matmul has fp8_gemm.cu): its
+    # launches are this phase's own
+    entries["quant_gemm_fp8"] = dict(_entry(
         "quant_gemm_fp8", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1274", err, ms,
-        plain_ms, bound_ms, bound_by, lib_ms)
+        plain_ms, bound_ms, bound_by, lib_ms), launches=launches, path=None)
     del xf, wf, zp
     # path B's bucket (64-row CTA tiles) beside the library calls
     mb = QGEMM_BATCH
@@ -2008,16 +2016,27 @@ def _qgemm_bound(m, k, n, act):
 # products that the flag takes (the attention projections, q k^T and p v of
 # 16 x 8 heads, the FFN products the generic grads replay, the vocab
 # projection, whose n = 37000 is 8 past a multiple of 16), then edges: m 1
-# to 1024, k 1 to 4096 (4095: k % 16 != 0), n 1 to 2064, an operand
-# broadcast over a batch
+# to 1024, k 1 to 4096 (4095: k % 16 != 0), n 1 to 2064, y broadcast over
+# a batch of x (twice) and x broadcast over a batch of y
 FP8_MM_PATH = (((4096, 512), (512, 512)), ((16, 8, 256, 64), (16, 8, 64, 256)),
                ((16, 8, 256, 256), (16, 8, 256, 64)), ((4096, 512), (512, 2048)),
                ((4096, 2048), (2048, 512)), ((4096, 512), (512, 37000)))
 FP8_MM_EDGES = (((1, 1), (1, 1)), ((1, 4096), (4096, 2064)), ((17, 37), (37, 5)),
                 ((250, 48), (48, 2064)), ((1024, 4095), (4095, 33)),
-                ((1000, 2064), (2064, 2064)), ((3, 100, 20), (20, 130)))
+                ((1000, 2064), (2064, 2064)), ((3, 100, 20), (20, 130)),
+                ((4, 6, 20), (20, 5)), ((100, 20), (3, 20, 130)))
 FP8_MM_TIMED = ((4096, 512), (512, 512))  # the commonest product of an fp8 step
+FP8_MM_VOCAB = ((4096, 512), (512, 37000))  # the vocab projection, the largest
 FP8_MM_RTOL = 1e-5  # of max |out|: the same e4m3 values, f32 sums in another order
+# the gradients against the plain backward: at least this share equal, and
+# each value within one e4m3 ulp (where the two f32 sums, in another order,
+# fall on either side of a rounding boundary) plus FP8_MM_RTOL of max |out|
+# (the forward's bar on those sums: a sum that cancels to near zero keeps
+# their rounding, which one ulp there does not cover; on an H100 the plain
+# backward's own value of such a sum was an ulp off its float64 sum)
+FP8_GRAD_EQUAL = 0.999
+FP8_SOURCE = "paddle_tpu_torch/ops/csrc/fp8_gemm.cu"
+FP8_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1393"
 
 
 def _fp8_operands(torch, device, xs, ys, dtype, seed, past_448=True, scale=40.0):
@@ -2035,16 +2054,21 @@ def _fp8_operands(torch, device, xs, ys, dtype, seed, past_448=True, scale=40.0)
 
 
 def _fp8_held(torch, qg, x, y):
-    """fp8_matmul's kernels against fp8_matmul_plain: NaN where the plain
-    version has NaN, f32 within FP8_MM_RTOL of max |out|, bf16 within one
-    bf16 ulp (or that bar where it is larger); a second call equal bit for
-    bit. Returns (the max abs error over the finite outputs, that error as
-    a share of max |out|)."""
+    """fp8_matmul's forward kernel against fp8_matmul_plain: NaN where the
+    plain version has NaN, f32 within FP8_MM_RTOL of max |out|, bf16 within
+    one bf16 ulp (or that bar where it is larger); a second call equal bit
+    for bit, one launch each. Returns (the max abs error over the finite
+    outputs, that error as a share of max |out|)."""
+    before = qg.kernel_launches()
     got, again = qg.fp8_matmul(x, y), qg.fp8_matmul(x, y)
+    after = qg.kernel_launches()
     want = qg.fp8_matmul_plain(x, y)
     torch.cuda.synchronize()
     bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
     name = "fp8_matmul %s @ %s %s" % (tuple(x.shape), tuple(y.shape), x.dtype)
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if got.numel() and x.shape[-1] and moved != {"fp8_matmul": 2}:
+        raise AssertionError("%s: launches %s, want two of the forward alone" % (name, moved))
     if got.dtype != x.dtype or got.shape != want.shape:
         raise AssertionError("%s: %s %s, want %s %s" % (name, got.dtype, tuple(got.shape),
                                                         x.dtype, tuple(want.shape)))
@@ -2069,47 +2093,145 @@ def _fp8_held(torch, qg, x, y):
     return float(err.max()), float(err.max()) / max(scale, 1e-30)
 
 
+def _e4m3_ulp(torch, v):
+    """One e4m3 ulp at each |v|: 2^(exponent - 3), 2^-9 among the
+    subnormals."""
+    e = torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -6)))
+    return torch.pow(2.0, e - 3)
+
+
+def _fp8_grad_g(torch, x, y, seed, scale=40.0):
+    """A seeded g for operands ~ scale N(0, 1): scaled so that the gradients
+    are about 64 (the sums over the longest reduction, batch included),
+    inside e4m3's range but for the NaN rows and columns of values past
+    448."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    batch = torch.broadcast_shapes(tuple(x.shape[:-2]), tuple(y.shape[:-2]))
+    red = max(x.shape[-2], y.shape[-1]) * max(1, math.prod(batch))
+    return (torch.randn(tuple(batch) + (x.shape[-2], y.shape[-1]), device=x.device, generator=gen)
+            * (64.0 / (scale * math.sqrt(red)))).to(x.dtype)
+
+
+def _fp8_grads_held(torch, qg, x, y, seed):
+    """fp8_matmul's gradient (the dx and dy forms for bf16, the library
+    products and the rounding kernel for f32) against
+    fp8_matmul_grads_plain on _fp8_grad_g's g: NaN where the plain version
+    has NaN, each value within one e4m3 ulp plus FP8_MM_RTOL of max |out|,
+    at least FP8_GRAD_EQUAL of them equal; repeated bit for bit. Returns
+    ({"dx": share equal, "dy": ...}, the launches of one backward)."""
+    g = _fp8_grad_g(torch, x, y, seed)
+    xr, yr = x.detach().requires_grad_(), y.detach().requires_grad_()
+    before = qg.kernel_launches()
+    got = torch.autograd.grad(qg.fp8_matmul(xr, yr), (xr, yr), g)
+    again = torch.autograd.grad(qg.fp8_matmul(xr, yr), (xr, yr), g)
+    after = qg.kernel_launches()
+    want = qg.fp8_matmul_grads_plain(x, y, g)
+    torch.cuda.synchronize()
+    name = "fp8_matmul grad %s @ %s %s" % (tuple(x.shape), tuple(y.shape), x.dtype)
+    shares = {}
+    for label, a, b, w, t in zip(("dx", "dy"), got, again, want, (x, y)):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        if a.dtype != t.dtype or a.shape != t.shape:
+            raise AssertionError("%s %s: %s %s" % (name, label, a.dtype, tuple(a.shape)))
+        if not torch.equal(a.view(bits), b.view(bits)):
+            raise AssertionError("%s %s: differs from run to run" % (name, label))
+        a32, w32 = a.float(), w.float()
+        if not torch.equal(torch.isnan(a32), torch.isnan(w32)):
+            raise AssertionError("%s %s: NaN where the plain version has none, or none where it "
+                                 "has" % (name, label))
+        ok = ~torch.isnan(w32)
+        if not bool(ok.any()):
+            shares[label] = 1.0
+            continue
+        err = (a32 - w32)[ok].abs()
+        ulp = (_e4m3_ulp(torch, torch.maximum(a32[ok].abs(), w32[ok].abs()))
+               + FP8_MM_RTOL * float(w32[ok].abs().max()))
+        if bool((err > ulp).any()):
+            # the worst value beside its sum in float64 from the same rounded
+            # operands, before the output's rounding
+            i = int(torch.nonzero(ok.reshape(-1)).reshape(-1)[int(torch.argmax(err - ulp))])
+            x8, y8 = (qg.e4m3_round_plain(v).double() for v in (x, y))
+            exact = (torch.matmul(g.double(), y8.transpose(-1, -2)) if label == "dx"
+                     else torch.matmul(x8.transpose(-1, -2), g.double()))
+            exact = qg.reduce_grad_to_shape(exact, t.shape).reshape(-1)[i]
+            raise AssertionError("%s %s: %d values past one e4m3 ulp and the sums' bar (max abs "
+                                 "err %g); "
+                                 "the worst, flat index %d: kernel %r, plain %r, its float64 "
+                                 "sum %r" % (name, label, int((err > ulp).sum()), float(err.max()),
+                                             i, float(a32.reshape(-1)[i]),
+                                             float(w32.reshape(-1)[i]), float(exact)))
+        shares[label] = float((err == 0).float().mean())
+        if shares[label] < FP8_GRAD_EQUAL:
+            raise AssertionError("%s %s: %.5f of the values equal, under %g"
+                                 % (name, label, shares[label], FP8_GRAD_EQUAL))
+    moved = {k: (after[k] - before[k]) // 2 for k in after if after[k] != before[k]}
+    return shares, moved
+
+
+def _fp8_grad_bound(m, k, n):
+    """dx = e4m3(g @ y8^T) or dy = e4m3(x8^T @ g), the same work: g [m, n],
+    the rounded operand and the result bf16, each read or written once;
+    2mnk operations at the bf16 tensor-core rate."""
+    nbytes = 2 * (m * n + k * n + m * k)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * n * k / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_fp8_matmul(torch, device, flush):
-    """fp8_matmul (row 13: pallas_kernels.py:1393) on its two hand-written
-    kernels, the e4m3 cast pass and the e4m3 GEMM with the batch on the
-    grid: held against its plain version at the bf16 Transformer's products
-    and the edges, f32 and bf16 operands, values past 448; the cast pass's
-    bytes against the plain rounding bit for bit; both timed at
-    FP8_MM_TIMED in bf16 beside torch._scaled_mm (the product of operands
-    already in e4m3, no cast) and the saturating .to(float8_e4m3fn)."""
+    """fp8_matmul (row 15: pallas_kernels.py:1393) on fp8_gemm.cu: the
+    forward (one launch, the cast in the producer) held against its plain
+    version at the bf16 Transformer's products and the edges, f32 and bf16
+    operands, values past 448; the gradient against the plain backward at
+    the same shapes (bf16: the dx and dy forms; f32: library products and
+    the rounding kernel); the rounding kernel against e4m3_round_plain bit
+    for bit. Timed: the forward at FP8_MM_TIMED in bf16 beside
+    torch._scaled_mm (the product of operands already in e4m3, no cast),
+    dx and dy there and at the vocab shape beside the f32 torch.matmul with
+    plain rounding that they replace."""
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import quant_gemm as qg
 
-    worst, n_cases = {}, 0
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in _build.build_logs.get("fp8_gemm", "")
+             .splitlines() if "registers" in ln or "spill" in ln]
+    log("kernel fp8_gemm ptxas: %s" % " | ".join(ptxas))
+    worst, equal, n_cases, launches = {}, {}, 0, set()
     for i, (xs, ys) in enumerate(FP8_MM_PATH + FP8_MM_EDGES):
         for dtype in (torch.float32, torch.bfloat16):
             x, y = _fp8_operands(torch, device, xs, ys, dtype, SEED + 60 + i)
             rel = _fp8_held(torch, qg, x, y)[1]
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), rel)
+            shares, moved = _fp8_grads_held(torch, qg, x, y, SEED + 160 + i)
+            for k, v in shares.items():
+                key = "%s %s" % (k, str(dtype)[6:])
+                equal[key] = min(equal.get(key, 1.0), v)
+            launches.add("%s %s" % (str(dtype)[6:], sorted(moved)))
             n_cases += 1
             del x, y
-    # the cast pass alone: its bytes, widened, are the plain rounding's
+    # the rounding kernel alone: bit for bit with the plain rounding
     gen = torch.Generator(device=device).manual_seed(SEED + 70)
     t = (torch.randn(3, 37, 45, device=device, generator=gen)
          * torch.logspace(-4, 3, 45, device=device))
     t[0, 0, :6] = torch.tensor([464.0, 464.01, -448.5, float("inf"), float("nan"), -0.0])
     for dtype in (torch.float32, torch.bfloat16):
         td = t.to(dtype)
-        staged = qg._stage_e4m3(td, 40, 48)
+        got = qg._e4m3_round_cuda(td).float()
         want = qg.e4m3_round_plain(td)
         torch.cuda.synchronize()
-        got = staged.view(torch.float8_e4m3fn).float()[:, :37, :45]
-        pad_zero = bool((staged[:, 37:, :] == 0).all()) and bool((staged[:, :, 45:] == 0).all())
         ok = ~torch.isnan(want)
-        if (not pad_zero or not torch.equal(torch.isnan(got), ~ok)
+        if (not torch.equal(torch.isnan(got), ~ok)
                 or not torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))):
-            raise AssertionError("e4m3_cast %s: differs from the plain rounding" % dtype)
+            raise AssertionError("e4m3_round %s: differs from the plain rounding" % dtype)
     log("kernel fp8_matmul: %d cases (the bf16 Transformer's products %s and the edges %s, f32 "
         "and bf16 operands, values past 448) held against the plain version: NaN where it has "
-        "NaN, worst max abs err / max |out| %s (bar: f32 %g of max |out|, bf16 one bf16 ulp); "
-        "every call repeats bit for bit; the cast pass's e4m3 bytes equal the plain rounding's "
-        "bit for bit (f32 and bf16, ties, subnormals, 464 / 464.01, inf, NaN, -0) with its zero "
-        "padding" % (n_cases, [s for s in FP8_MM_PATH], [s for s in FP8_MM_EDGES],
-                     json.dumps(worst), FP8_MM_RTOL))
+        "NaN, worst max abs err / max |out| %s (bar: f32 %g of max |out|, bf16 one bf16 ulp), "
+        "one forward launch a call; the gradient against the plain backward: NaN where it "
+        "has NaN, every value within one e4m3 ulp plus the forward's f32 bar, the least share "
+        "equal %s (bar %g), the "
+        "launches of a backward %s; every call repeats bit for bit; the rounding kernel equals "
+        "the plain rounding bit for bit (f32 and bf16, ties, subnormals, 464 / 464.01, inf, "
+        "NaN, -0)" % (n_cases, [s for s in FP8_MM_PATH], [s for s in FP8_MM_EDGES],
+                      json.dumps(worst), FP8_MM_RTOL, json.dumps(equal), FP8_GRAD_EQUAL,
+                      sorted(launches)))
 
     (m, k), (_, n) = FP8_MM_TIMED
     x, y = _fp8_operands(torch, device, (m, k), (k, n), torch.bfloat16, SEED + 71,
@@ -2124,28 +2246,68 @@ def check_fp8_matmul(torch, device, flush):
                                                      out_dtype=torch.bfloat16), 20, flush,
                      gated=True)
     nbytes = 2 * (m * k + k * n + m * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * n * k / INT8_TOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * n * k / BF16_FLOPS
     bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-    cast_ms = time_ms(torch, lambda: qg._stage_e4m3(x.reshape(1, m, k), m, k), 20, flush,
-                      gated=True)
-    cast_plain_ms = time_ms(torch, lambda: qg.e4m3_round_plain(x), 10, flush, gated=True)
-    cast_lib_ms = time_ms(torch, lambda: x.to(torch.float8_e4m3fn), 20, flush, gated=True)
-    cast_bound_ms = 3.0 * m * k / HBM_BYTES_PER_S * 1e3
-    log("kernel fp8_matmul: x %s @ y %s bf16 -> bf16, max abs err %.3g; %.4f ms (device, the "
-        "two casts and the product: 3 launches), plain (the rounding, an f32 matmul) %.4f ms; "
+    log("kernel fp8_matmul: x %s @ y %s bf16 -> bf16, max abs err %.3g; %.4f ms (device, one "
+        "launch, the casts in the producer), plain (the rounding, an f32 matmul) %.4f ms; "
         "torch._scaled_mm on operands already in e4m3 (the product alone, bf16 out) %.4f ms, "
-        "fp8_matmul / _scaled_mm %.3f; bound %.4f ms (%s: %d bytes, 2mnk at the fp8 rate); the "
-        "cast pass alone on x %.4f ms, plain %.4f ms, .to(float8_e4m3fn) (saturating) %.4f ms, "
-        "bound %.4f ms (bytes)" % (
-            (m, k), (k, n), err, ms, plain_ms, lib_ms, ms / lib_ms, bound_ms, bound_by, nbytes,
-            cast_ms, cast_plain_ms, cast_lib_ms, cast_bound_ms))
-    entries = {
-        "fp8_matmul": _entry("fp8_matmul", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1393",
-                             err, ms, plain_ms, bound_ms, bound_by, lib_ms),
-        "e4m3_cast": _entry("e4m3_cast", QGEMM_SOURCE, "paddle_tpu/ops/pallas_kernels.py:1393",
-                            0.0, cast_ms, cast_plain_ms, cast_bound_ms, "bytes", cast_lib_ms),
-    }
-    del x, y, x8, y8, ycol
+        "fp8_matmul / _scaled_mm %.3f; bound %.4f ms (%s: %d bytes %.4f ms, 2mnk at the 16-bit "
+        "rate %.4f ms)" % ((m, k), (k, n), err, ms, plain_ms, lib_ms, ms / lib_ms, bound_ms,
+                           bound_by, nbytes, t_bytes * 1e3, t_ops * 1e3))
+    entries = {"fp8_matmul": _entry("fp8_matmul", FP8_SOURCE, FP8_REPLACES, err, ms, plain_ms,
+                                    bound_ms, bound_by, lib_ms)}
+    del x8, y8, ycol
+    # the gradient forms at FP8_MM_TIMED and at the vocab shape; the last
+    # shape's times go into the kernels line
+    for (m, k), (_, n) in (FP8_MM_TIMED, FP8_MM_VOCAB):
+        x, y = _fp8_operands(torch, device, (m, k), (k, n), torch.bfloat16, SEED + 72,
+                             past_448=False, scale=1.0)
+        g = _fp8_grad_g(torch, x, y, SEED + 73, scale=1.0)
+        for label, need in (("dx", (True, False)), ("dy", (False, True))):
+            ms = time_ms(torch, lambda: qg._fp8_grads_cuda(x, y, g, need), 10, flush, gated=True)
+            plain_ms = time_ms(torch, lambda: qg.fp8_matmul_grads_plain(x, y, g, need), 5, flush,
+                               gated=True)
+            # the product alone on operands already rounded, bf16 out
+            a, b = ((g, qg._e4m3_round_cuda(y).t()) if label == "dx"
+                    else (qg._e4m3_round_cuda(x).t(), g))
+            lib_ms = time_ms(torch, lambda: torch.matmul(a, b), 10, flush, gated=True)
+            bound_ms, bound_by = _fp8_grad_bound(m, k, n)
+            i = 0 if label == "dx" else 1
+            got = qg._fp8_grads_cuda(x, y, g, need)[i].float()
+            want = qg.fp8_matmul_grads_plain(x, y, g, need)[i].float()
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isnan(got), torch.isnan(want)):
+                raise AssertionError("fp8_matmul %s at %s: NaN where the plain backward has none, "
+                                     "or none where it has" % (label, ((m, k), (k, n))))
+            ok = ~torch.isnan(want)
+            gerr = float((got - want)[ok].abs().max()) if bool(ok.any()) else 0.0
+            log("kernel fp8_matmul %s: x %s @ y %s bf16, g bf16: %.4f ms (device, one launch), "
+                "the f32 torch.matmul with plain rounding it replaces %.4f ms (%.2fx); the bf16 "
+                "torch.matmul on operands already rounded (no e4m3 output) %.4f ms; bound %.4f "
+                "ms (%s); max abs err against the plain backward %.3g" % (
+                    label, (m, k), (k, n), ms, plain_ms, plain_ms / ms, lib_ms, bound_ms,
+                    bound_by, gerr))
+            entries["fp8_matmul_" + label] = _entry(
+                "fp8_matmul_" + label, FP8_SOURCE, FP8_REPLACES, gerr, ms, plain_ms, bound_ms,
+                bound_by, lib_ms)
+            del a, b, got, want
+        del x, y, g
+    # the rounding kernel at x of FP8_MM_TIMED (the f32 gradients' pass)
+    (m, k), _ = FP8_MM_TIMED
+    xr = _fp8_operands(torch, device, (m, k), (k, 1), torch.float32, SEED + 74)[0]
+    r_ms = time_ms(torch, lambda: qg._e4m3_round_cuda(xr), 20, flush, gated=True)
+    r_plain = time_ms(torch, lambda: qg.e4m3_round_plain(xr), 10, flush, gated=True)
+    r_lib = time_ms(torch, lambda: xr.to(torch.float8_e4m3fn), 20, flush, gated=True)
+    r_bound = 8.0 * m * k / HBM_BYTES_PER_S * 1e3
+    log("kernel e4m3_round: %s f32 -> f32 %.4f ms (device), plain %.4f ms, .to(float8_e4m3fn) "
+        "(saturating, 1-byte out) %.4f ms, bound %.4f ms (bytes)" % (
+            (m, k), r_ms, r_plain, r_lib, r_bound))
+    # the f32 gradients' pass: on no main path of the bf16 steps, so its
+    # launches are this phase's own
+    entries["e4m3_round"] = dict(_entry("e4m3_round", FP8_SOURCE, FP8_REPLACES, 0.0, r_ms,
+                                        r_plain, r_bound, "bytes", r_lib),
+                                 launches=qg.kernel_launches()["e4m3_round"], path=None)
+    del xr
     return entries
 
 
@@ -4736,6 +4898,17 @@ def train_deepfm(torch, card, readings):
 BF16_RTOL, BF16_ATOL = 5e-2, 2e-2  # bf16 against f32 (tests/test_transpiler.py:515)
 FP8_STEPS = 3  # graph steps of the Transformer under FLAGS_fp8_matmul
 FP8_LOSS_RTOL = 0.1  # fp8 against bf16 losses, relative
+# the fp8 Transformer step before fp8_gemm.cu (quant_gemm.cu's cast pass and
+# e4m3 GEMM, f32 library products and plain rounding in the grads): the
+# replayed step's wall and the op-by-op device ms a step split as
+# profile_training.fp8_step_split splits it
+FP8_BEFORE = {
+    "origin": "NVIDIA H100 80GB HBM3, 700.00 W: the parent tree's step through "
+              "tools/profile_training.py --model transformer_fp8 --per-op, graph wall p50 of 4",
+    "step_ms": 97.935,
+    "split": {"other ops": 37.846, "forward: fp8 kernel": 3.494, "forward: other": 0.724,
+              "grad: replayed forward": 4.269, "grad: rounding and other": 27.418,
+              "grad: products": 21.31, "device_ms": 95.059}}
 
 
 def _bf16_state_f32(torch, label, model, scope):
@@ -4752,14 +4925,17 @@ def _bf16_state_f32(torch, label, model, scope):
     return sum(torch.is_floating_point(scope.vars[n]) for n in names)
 
 
-def _bf16_run(torch, label, model, feeds, n_eager, ref, ref_rtol, card, n_fp8=0):
+def _bf16_run(torch, label, model, feeds, n_eager, ref, ref_rtol, card, n_fp8=0,
+              fp8_split=False):
     """The transpiled `model` on the graph path over `feeds`, its first 3
     losses against `ref` (rtol ref_rtol, atol BF16_ATOL), the masters f32;
-    then n_eager steps op by op from the same seed: the losses bit for bit
-    and the same counters a step, the kernels held at the path's inputs.
-    Returns (losses, walls, the main path's launches, per-step counters,
-    profiled breakdown, kernel errors, held line, op-by-op walls, max
-    reserved GiB, masters)."""
+    with fp8_split, two more steps op by op split by op type and the fp8
+    products' kernels (profile_training.fp8_step_split); then n_eager steps
+    op by op from the same seed: the losses bit for bit and the same
+    counters a step, the kernels held at the path's inputs. Returns
+    (losses, walls, the main path's launches, per-step counters, profiled
+    breakdown, kernel errors, held line, op-by-op walls, max reserved GiB,
+    masters, the split)."""
     from paddle_tpu_torch.ops import fused, registry
     from paddle_tpu_torch.tools import profile_training as prof
 
@@ -4777,6 +4953,10 @@ def _bf16_run(torch, label, model, feeds, n_eager, ref, ref_rtol, card, n_fp8=0)
         raise AssertionError("%s: losses %s against %s (rtol %g atol %g)"
                              % (label, a.tolist(), b.tolist(), ref_rtol, BF16_ATOL))
     breakdown = prof.profile_steps(step, feeds[2:4], registry) if len(feeds) >= 4 else None
+    split = None
+    if fp8_split:
+        by_op = prof.op_device_split(step, feeds[:2], registry)
+        split = dict(prof.fp8_step_split(by_op), device_ms=by_op["device_ms_per_step"])
     del step, scope
     torch.cuda.empty_cache()
     rec = _PathInputs(deltas[0].get(("launches", "gemm_epilogue"), 0), n_fp8=n_fp8,
@@ -4794,7 +4974,7 @@ def _bf16_run(torch, label, model, feeds, n_eager, ref, ref_rtol, card, n_fp8=0)
     errs, held = rec.hold(torch, label)
     return dict(losses=losses, walls=walls, launches=launches, deltas=deltas[0],
                 breakdown=breakdown, errs=errs, held=held, e_walls=e_walls,
-                reserved=reserved, masters=masters)
+                reserved=reserved, masters=masters, split=split)
 
 
 def _bf16_line(label, r, rate, unit, f32, card):
@@ -4849,10 +5029,10 @@ def train_bf16(torch, card, readings):
     2e-3) and Transformer base, each built as its f32 phase built it, rewritten by
     Bf16Transpiler after its startup program (f32 masters, bf16 activations
     and gradients) and trained on CUDA graphs from the same seed and
-    batches; then 3 Transformer steps with FLAGS_fp8_matmul (fp8_matmul's
-    cast pass and e4m3 GEMM), their losses within FP8_LOSS_RTOL of the bf16
-    steps'. Returns the kernels' launches over the main paths' steps and
-    their worst errors."""
+    batches; then 3 Transformer steps with FLAGS_fp8_matmul (fp8_gemm.cu's
+    forward, dx and dy forms), their losses within FP8_LOSS_RTOL of the
+    bf16 steps', and their op-by-op device split. Returns the kernels'
+    launches over the main paths' steps and their worst errors."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch.tools import profile_recsys as recsys
@@ -4936,22 +5116,26 @@ def train_bf16(torch, card, readings):
     flags.set_flags({"fp8_matmul": True})
     try:
         r8 = _bf16_run(torch, "transformer fp8", model, feeds[:FP8_STEPS], FP8_STEPS,
-                       bf16_losses, FP8_LOSS_RTOL, card, n_fp8=1)
+                       bf16_losses, FP8_LOSS_RTOL, card, n_fp8=1, fp8_split=True)
     finally:
         flags.set_flags({"fp8_matmul": False})
-    for k in ("quant_gemm_fp8", "e4m3_cast"):
+    for k in ("fp8_matmul", "fp8_matmul_dx", "fp8_matmul_dy"):
         if not r8["launches"].get(k):
             raise AssertionError("transformer fp8: %s never launched (%s)" % (k, r8["launches"]))
+    if r8["launches"].get("quant_gemm_fp8"):
+        raise AssertionError("transformer fp8: the e4m3 quant GEMM launched (%s)" % r8["launches"])
     log("train bf16 transformer fp8: FLAGS_fp8_matmul, %d graph steps (the warmup, the capture, "
         "a replay), losses %s within %g relative of the bf16 steps' %s; launches %s (%s a step), "
         "the first %d losses bit for bit op by op with the same counters; kernels at the path's "
-        "inputs: %s; step wall %s ms; card %s" % (
+        "inputs: %s; step walls %s ms (the replay's before the redesign: %.3f ms, %s); op by op "
+        "device ms a step %s (before: %s); card %s" % (
             FP8_STEPS, ["%.6f" % v for v in r8["losses"]], FP8_LOSS_RTOL,
             ["%.6f" % v for v in bf16_losses[:FP8_STEPS]], json.dumps(r8["launches"]),
             json.dumps({"%s:%s" % k: v for k, v in r8["deltas"].items()}), FP8_STEPS, r8["held"],
-            ["%.3f" % v for v in r8["walls"]], card))
+            ["%.3f" % v for v in r8["walls"]], FP8_BEFORE["step_ms"], FP8_BEFORE["origin"],
+            json.dumps({k: round(v, 3) for k, v in r8["split"].items()}),
+            json.dumps(FP8_BEFORE["split"]), card))
     add(r8)
-    launches["fp8_matmul"] = r8["launches"]["quant_gemm_fp8"]
     del model, feeds, r, r8
     torch.cuda.empty_cache()
     return launches, errs
@@ -6569,8 +6753,10 @@ def train_parallel(torch, card, readings):
     and Adam kernels and the NCCL kernels of its captured graph, its step
     wall beside the Executor's; an all-reduce captured in a CUDA graph;
     DeepFM at 2^20 x 32 with use_distributed at ep = 1 against local bit
-    for bit; ring attention's per-step path. Returns the training kernels'
-    launches over the PE's steps."""
+    for bit; ring attention's per-step path; then, past one card, the
+    multi-card legs (last, so that a fault there leaves every one-card
+    reading in place). Returns the training kernels' launches over the PE's
+    steps."""
     import tempfile
 
     import torch.distributed as dist
@@ -6582,11 +6768,6 @@ def train_parallel(torch, card, readings):
     world = torch.cuda.device_count()
     cfg = prof.BASE
     batches = [prof.make_batch(cfg, SEED + i) for i in range(PE_STEPS)]
-    if world > 1:
-        _multi_card(world, cfg, card, readings)
-        _a6b_cards(world, card, readings)
-        if world >= 4:
-            _ring_cards(4, card, readings)
     with tempfile.TemporaryDirectory(prefix="pe_store_") as tmp:
         t0 = time.perf_counter()
         init_distributed(store=dist.FileStore(os.path.join(tmp, "store"), 1), world_size=1,
@@ -6631,6 +6812,12 @@ def train_parallel(torch, card, readings):
         finally:
             dist.destroy_process_group()
     _ring_per_step(torch, card)
+    if world > 1:
+        torch.cuda.empty_cache()
+        _multi_card(world, cfg, card, readings)
+        _a6b_cards(world, card, readings)
+        if world >= 4:
+            _ring_cards(4, card, readings)
     return {k: launches[k] for k in _per_step(cfg)[0]}
 
 
@@ -6985,8 +7172,13 @@ def _rank_parts(log_path, rec):
     """A rank's `part(name, seconds)`: a context that writes "start name" to
     the rank's log before the part and "done name" with the record so far
     (a PARTIAL line) after it, and past `seconds` dumps every thread's
-    stack into the log and ends the process, so a hang names its part."""
+    stack into the log and ends the process, so a hang names its part. A
+    part that raises writes "failed name" and the traceback first: the
+    exception's way out (the process group's teardown) may hang in turn,
+    and the teardown runs under a deadline of its own (`part("teardown",
+    ...)`)."""
     import faulthandler
+    import traceback
 
     log_f = open(log_path, "a")
 
@@ -6998,6 +7190,10 @@ def _rank_parts(log_path, rec):
         t0 = time.perf_counter()
         try:
             yield
+        except BaseException:
+            log_f.write("failed %s\n%s" % (name, traceback.format_exc()))
+            log_f.flush()
+            raise
         finally:
             faulthandler.cancel_dump_traceback_later()
         log_f.write("done %s %.1f s\nPARTIAL %s\n" % (name, time.perf_counter() - t0,
@@ -7041,9 +7237,6 @@ def _a6b_rank_main(rank, world, store, log_path, legs):
 
         run_legs(False)
         if world >= 4:
-            from paddle_tpu_torch import (BuildStrategy, CUDAPlace, Executor,
-                                          ParallelExecutor, Scope)
-
             with part("multistep_dp", A6B_LEG_S):
                 rec["multistep_dp"] = _pe_multistep(torch, cfg, SEED + 600)
             with part("zero1_ckpt", A6B_LEG_S):
@@ -7052,7 +7245,8 @@ def _a6b_rank_main(rank, world, store, log_path, legs):
         run_legs(True)
         print(json.dumps(rec))
     finally:
-        dist.destroy_process_group()
+        with part("teardown", NCCL_TIMEOUT_S):
+            dist.destroy_process_group()
 
 
 # a rank process: chip_smoke.<argv[2]>(rank, world, store, log path, *json args)
@@ -7114,8 +7308,11 @@ def _rank_tail(stem, n=4000):
 
 
 def _last_record(stem):
+    """A rank's record: the last JSON object its stdout printed (NCCL's own
+    lines, under NCCL_DEBUG, may follow it from the teardown)."""
     with open(stem + ".out") as f:
-        return json.loads(f.read().strip().splitlines()[-1])
+        lines = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1])
 
 
 def _a6b_legs(world):
@@ -7123,7 +7320,8 @@ def _a6b_legs(world):
     legs = []
     if world >= 4:
         legs += [("dp2_tp2", dict(mesh_kw=dict(dp=2, tp=2), rules=True)),
-                 ("fsdp4", dict(mesh_kw=dict(dp=1, fsdp=4), rules=True))]
+                 ("fsdp4", dict(mesh_kw=dict(dp=1, fsdp=4), rules=True)),
+                 ("dp2_sp2", dict(mesh_kw=dict(dp=2, sp=2)))]
     pp = 4 if world >= 4 else 2
     for schedule in ("gpipe", "1f1b"):
         legs.append(("pp%d_%s" % (pp, schedule),
@@ -7203,15 +7401,18 @@ def _ring_errs(got, ref_o, ref_lse, ref_g, mesh):
 
 
 def _ring_rank_main(rank, world, store, log_path):
-    """One rank of the ring leg (ROADMAP C2): ring attention over the sp
-    axis of each of RING_MESHES at train_flash's widths, on NCCL with
-    NCCL_TIMEOUT_S. First eager on every mesh (the forward, then the
-    backward, each waited for), then on every mesh captured in one CUDA
-    graph with the ring's send / recv inside it (warmed up on a side
-    stream) and replayed; each result against flash_forward /
-    flash_backward over the whole sequence on this card. Every stage is
-    a part of the rank's log, so a hang names its stage (and NCCL's
-    timeout its collective); the record is printed as JSON."""
+    """One rank of the ring leg: ring attention over the sp axis of each of
+    RING_MESHES at train_flash's widths, on NCCL with NCCL_TIMEOUT_S. First
+    eager on every mesh (the forward, then the backward, each waited for),
+    then on every mesh captured in one CUDA graph with the ring's send /
+    recv inside it and replayed; each result against flash_forward /
+    flash_backward over the whole sequence on this card. As the executor
+    does, each capture runs on the stream its warmup ran on: the flash
+    backward's arrival counters are made per stream, outside any capture
+    (ops/_build.py arrival_counters), so a capture on a stream that no
+    warmup ran on raises (ROADMAP C2). Every stage is a part of the rank's
+    log, so a hang or a failure names its stage (and NCCL's timeout its
+    collective); the record is printed as JSON."""
     import torch
     import torch.distributed as dist
 
@@ -7253,6 +7454,7 @@ def _ring_rank_main(rank, world, store, log_path):
                     torch.cuda.synchronize()
                 errs, ok = _ring_errs((o, lse) + g, ref_o, ref_lse, ref_g, mesh)
                 rec[name] = {"errs": errs, "ok": ok}
+        capture = torch.cuda.Stream()
         for label, _ in RING_MESHES:
             mesh = meshes[label]
             for causal, (q, k, v, do, ref_o, ref_lse, ref_g) in cases.items():
@@ -7264,15 +7466,15 @@ def _ring_rank_main(rank, world, store, log_path):
                                                        scale, lse=lse)
 
                 with part(name + " warmup", RING_STAGE_S):
-                    side = torch.cuda.Stream()
-                    side.wait_stream(torch.cuda.current_stream())
-                    with torch.cuda.stream(side):
+                    capture.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(capture):
                         body()
-                    torch.cuda.current_stream().wait_stream(side)
+                    torch.cuda.current_stream().wait_stream(capture)
                     torch.cuda.synchronize()
                 graph = torch.cuda.CUDAGraph()
                 with part(name + " capture", RING_STAGE_S):
-                    with torch.cuda.graph(graph):
+                    with torch.cuda.graph(graph, stream=capture,
+                                          capture_error_mode="thread_local"):
                         got = body()
                 with part(name + " replay", RING_STAGE_S):
                     graph.replay()
@@ -7282,16 +7484,16 @@ def _ring_rank_main(rank, world, store, log_path):
                 del graph, got
         print(json.dumps(rec))
     finally:
-        dist.destroy_process_group()
+        with part("teardown", RING_STAGE_S):
+            dist.destroy_process_group()
 
 
 def _ring_cards(world, card, readings):
-    """The ring leg on four cards (ROADMAP C2), in processes of its own so
-    that a hang stays in them. Its results must be inside the ring check's
-    bars. Its known fault is expected until it is fixed: on four H100s the
-    eager ring is inside the bars on both meshes, and every rank hangs in
-    the first capture. A rank that hangs or fails is recorded with the
-    stage it stopped at and its log's last lines, and the smoke goes on."""
+    """The ring leg on four cards, in processes of its own so that a hang
+    stays in them: every rank must finish inside RING_WAIT_S with its
+    results inside the ring check's bars, eager and captured. A rank that
+    hangs or fails fails the smoke, naming the stage each rank stopped at
+    and its log's last lines."""
     rcs, stems, wall = _run_ranks("_ring_rank_main", world, [], RING_WAIT_S, "ring",
                                   env={"TORCH_NCCL_ASYNC_ERROR_HANDLING": "1",
                                        "NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT"})
@@ -7307,15 +7509,12 @@ def _ring_cards(world, card, readings):
                         elif ln.startswith("done "):
                             done.add(ln[5:].rsplit(" ", 2)[0])
             stopped[r] = next((st for st in reversed(started) if st not in done), None)
-        readings["ring_cards"] = {"graph": {"open": True, "return_codes": rcs,
-                                            "stopped_at": stopped, "wall_s": wall}}
-        log("train parallel (ring, C2 still open): ring attention over %s on %d cards did not "
-            "finish (return codes %s, after %.1f s); each rank stopped in %s; the ranks' logs "
-            "and stderr end:\n%s\ncard %s" % (
+        raise AssertionError(
+            "ring attention over %s on %d cards did not finish (return codes %s, after %.1f "
+            "s); each rank stopped in %s; the ranks' logs and stderr end:\n%s" % (
                 [m for m, _ in RING_MESHES], world, rcs, wall, json.dumps(stopped),
                 "\n".join("-- rank %d\n%s" % (r, _rank_tail(stem, 1500))
-                          for r, stem in enumerate(stems)), card))
-        return
+                          for r, stem in enumerate(stems))))
     recs = [_last_record(stem) for stem in stems]
     bad = {(rec["rank"], k): v for rec in recs for k, v in rec.items()
            if isinstance(v, dict) and not v["ok"]}
@@ -7329,7 +7528,7 @@ def _ring_cards(world, card, readings):
             if isinstance(v, dict):
                 worst[k] = {e: max(worst.get(k, {}).get(e, 0.0), x)
                             for e, x in v["errs"].items()}
-    readings["ring_cards"] = {"graph": {"open": False, "max_abs_err": worst, "wall_s": wall}}
+    readings["ring_cards"] = {"graph": {"max_abs_err": worst, "wall_s": wall}}
     log("train parallel (ring): ring attention over %s on %d cards, eager and captured in a "
         "CUDA graph with its NCCL send / recv, every rank inside the bars (out and lse %g, "
         "grads rtol %g atol %g of the largest): max abs err over the ranks %s; card %s" % (

@@ -111,6 +111,10 @@ class Scope:
             self._device = to_device(None)
         return self._device
 
+    def drop_kids(self):
+        """A no-op, as in the reference (paddle_tpu/executor.py:264): the
+        scope is flat, with no child scopes to drop."""
+
     def bind(self, device):
         """The scope's device, binding an unbound scope to `device` (the
         process scope takes the first executor's)."""

@@ -15,7 +15,7 @@ set_flags): the JAX package's 42 names, with its defaults and coercion.
 - fp8_matmul: when True, the mul / matmul lowerings cast floating operands
   to float8_e4m3fn and contract them with f32 sums, the result in the
   first operand's dtype (ops/quant_gemm.py fp8_matmul: on the card the
-  hand-written cast pass and e4m3 GEMM of csrc/quant_gemm.cu). A dtype
+  hand-written forward and gradient forms of csrc/fp8_gemm.cu). A dtype
   policy for step-time experiments, not numerics-preserving: off (default)
   keeps the native-dtype product.
 - check_nan_inf: after every Executor.run, scan the fetches and the

@@ -57,25 +57,7 @@
 // register slices, the next stages' in flight while one is stored.
 // The epilogue stages each consumer's tile in shared memory and writes z
 // (and y) as coalesced 16-byte rows, the scale and bias applied there.
-//
-// fp8_matmul (the counterpart of paddle_tpu/ops/pallas_kernels.py
-// fp8_matmul, which casts both operands to float8_e4m3fn and contracts them
-// with f32 sums, result in x's dtype, any shape) runs on the e4m3 form in
-// two launches:
-//   - e4m3_cast_pad_kernel: one elementwise pass per operand, f32 or bf16
-//     to e4m3 with round-to-nearest-even, |v| rounding past 448 (and inf)
-//     to NaN and NaN kept, as ml_dtypes / XLA convert (a saturating cast
-//     would give 448 there), written into a staging buffer whose columns
-//     (and, for w, rows) are zero-padded to multiples of 16: zeros add
-//     nothing to the sums, and the GEMM's 16-byte loads need k and n
-//     multiples of 16. Bound by bytes (4 or 2 in, 1 out an element); four
-//     elements a thread, stored as one word;
-//   - the e4m3 GEMM above with OUT 1 (f32) or 2 (bf16): no scale, bias or
-//     act, blockIdx.z walking the batch of a batched product (per-operand
-//     batch strides, 0 for an operand broadcast over the batch), and an
-//     epilogue that writes the [m, n] result at its real n and row stride,
-//     as 16- or 8-byte vectors where a row's four columns are in range and
-//     element by element at a ragged edge; bf16 rounds to nearest even.
+// (fp8_matmul has a kernel family of its own, fp8_gemm.cu.)
 //
 // Plain C interface, loaded with ctypes (ops/quant_gemm.py). The launcher
 // enqueues on the caller's stream, does not synchronize, allocates nothing,
@@ -83,7 +65,6 @@
 // cudaErrorInvalidValue).
 
 #include <cuda.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -411,28 +392,14 @@ template <int BM> constexpr size_t smem_bytes() {
 }
 static_assert(smem_bytes<128>() <= 232448, "quant GEMM ring too large");
 
-// fp8_matmul's output layout: the real n and row stride of the result, and
-// the batch strides (elements) of x, w and the result; unused by OUT 0
-struct Batch {
-  long long sx, sw, so;
-  int n_out, ldo;
-};
-
-// OUT 0: z = acc * scale + bias and y = act(z), f32 [M, N] (the quant
-// GEMM); OUT 1 / 2: the plain product in f32 / bf16 (fp8_matmul)
-template <bool FP8, int ACT, int BM, int OUT>
+// z = acc * scale + bias and y = act(z), f32 [M, N]
+template <bool FP8, int ACT, int BM>
 __global__ void __launch_bounds__(kThreads, 1)
     quant_gemm_kernel(__grid_constant__ const CUtensorMap xmap,
                       __grid_constant__ const CUtensorMap wmap, const uint8_t* __restrict__ x,
                       const uint8_t* __restrict__ w,
                       const float* __restrict__ scale, const float* __restrict__ bias,
-                      float* __restrict__ z, float* __restrict__ y, int M, int N, int K,
-                      const Batch bt) {
-  static_assert(OUT == 0 || (FP8 && ACT == kNone), "fp8_matmul runs the e4m3 form, no act");
-  if constexpr (OUT != 0) {
-    x += blockIdx.z * bt.sx;
-    w += blockIdx.z * bt.sw;
-  }
+                      float* __restrict__ z, float* __restrict__ y, int M, int N, int K) {
   constexpr int WN = staged_cols<BM>();  // a consumer's columns
   constexpr int LDC = ldc<BM>();
   constexpr int XB = BM * kBK;  // the x tile of a stage
@@ -607,44 +574,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
   constexpr int U = WN / 4;  // 16-byte units a row
-  if constexpr (OUT != 0) {
-    // fp8_matmul: the sums as they are, at the result's real n and stride
-    const bool vec_ok = (bt.ldo & 3) == 0 && (bt.so & 3) == 0;
-    for (int u = t; u < 64 * U; u += 128) {
-      const int r = u / U, cc = (u % U) * 4;
-      const int row = m0 + row0 + r, col = n0 + col0 + cc;
-      if (row >= M || col >= bt.n_out) continue;
-      const float4 a = *reinterpret_cast<const float4*>(ct + r * LDC + cc);
-      const long long at = blockIdx.z * bt.so + (long long)row * bt.ldo + col;
-      const bool full = vec_ok && col + 4 <= bt.n_out;
-      const float v[4] = {a.x, a.y, a.z, a.w};
-      if constexpr (OUT == 1) {
-        float* dst = z + at;
-        if (full) {
-          __stcs(reinterpret_cast<float4*>(dst), a);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col + e < bt.n_out) dst[e] = v[e];
-        }
-      } else {
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(z) + at;
-        if (full) {
-          const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
-          uint2 pk;
-          pk.x = *reinterpret_cast<const uint32_t*>(&lo);
-          pk.y = *reinterpret_cast<const uint32_t*>(&hi);
-          *reinterpret_cast<uint2*>(dst) = pk;
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col + e < bt.n_out) dst[e] = __float2bfloat16_rn(v[e]);
-        }
-      }
-    }
-    return;
-  }
   const float sc = *scale;
   for (int u = t; u < 64 * U; u += 128) {
     const int r = u / U, cc = (u % U) * 4;
@@ -733,11 +662,10 @@ struct Args {
   int m, n, k;
 };
 
-template <bool FP8, int ACT, int BM, int OUT = 0>
-cudaError_t launch_tile(const CUtensorMap (&maps)[2], const Args& a, cudaStream_t st,
-                        const Batch& bt = Batch{0, 0, 0, 0, 0}, int batch = 1) {
+template <bool FP8, int ACT, int BM>
+cudaError_t launch_tile(const CUtensorMap (&maps)[2], const Args& a, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<BM>();
-  auto kernel = quant_gemm_kernel<FP8, ACT, BM, OUT>;
+  auto kernel = quant_gemm_kernel<FP8, ACT, BM>;
   // the shared-memory opt-in is per device: made at the first launch on
   // each (devices 0-63; a race only repeats it)
   static std::atomic<uint64_t> opted{0};
@@ -750,9 +678,9 @@ cudaError_t launch_tile(const CUtensorMap (&maps)[2], const Args& a, cudaStream_
     if (err != cudaSuccess) return err;
     opted.fetch_or(bit, std::memory_order_relaxed);
   }
-  const dim3 grid((a.n + kBN - 1) / kBN, (a.m + BM - 1) / BM, batch);
+  const dim3 grid((a.n + kBN - 1) / kBN, (a.m + BM - 1) / BM);
   kernel<<<grid, kThreads, bytes, st>>>(maps[0], maps[1], a.x, a.w, a.scale, a.bias, a.z, a.y,
-                                        a.m, a.n, a.k, bt);
+                                        a.m, a.n, a.k);
   return cudaGetLastError();
 }
 
@@ -770,57 +698,9 @@ cudaError_t launch_act(const CUtensorMap (&maps)[2], const Args& a, int act, cud
 
 // 128-row tiles, or 64 where 128-row tiles would fill at most half of an
 // H100 SXM's 132 SMs (on another card the choice changes only the speed)
-int tile_rows(int m, int n, int batch = 1) {
-  const long tiles = (long)((m + 127) / 128) * ((n + kBN - 1) / kBN) * batch;
+int tile_rows(int m, int n) {
+  const long tiles = (long)((m + 127) / 128) * ((n + kBN - 1) / kBN);
   return tiles <= 66 ? 64 : 128;
-}
-
-// f32 -> e4m3 (float8_e4m3fn: bias 7, no infinities, NaN 0x7f, largest
-// finite 448), round to nearest even; what rounds past 448, inf and NaN
-// give NaN, with the sign kept
-__device__ __forceinline__ uint32_t f32_to_e4m3(float f) {
-  const uint32_t u = __float_as_uint(f);
-  const uint32_t sign = (u >> 24) & 0x80u;
-  const uint32_t a = u & 0x7fffffffu;
-  if (a > 0x43e80000u) return sign | 0x7fu;  // past 464 (NaN and inf too): NaN
-  if (a >= 0x3c800000u) {                    // normal: 2^-6 and up
-    const uint32_t r = a + 0x7ffffu + ((a >> 20) & 1u);  // the dropped 20 bits, to even
-    return sign | (((r >> 23) - 120u) << 3) | ((r >> 20) & 7u);
-  }
-  // subnormal: a multiple of 2^-9 (8 of them is the least normal, 0x08);
-  // scaling by 2^9 is exact
-  return sign | (uint32_t)rintf(__uint_as_float(a) * 512.0f);
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// src [batch, R, C] (row stride C, batch stride sbs) -> dst [batch, Rp,
-// Cp] e4m3 bytes, zeros past R and C; a thread writes four bytes (one word)
-template <typename T>
-__global__ void e4m3_cast_pad_kernel(const T* __restrict__ src, uint32_t* __restrict__ dst,
-                                     int R, int C, int Rp, int Cp, long long sbs,
-                                     long long words) {
-  const int wpr = Cp >> 2;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < words;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row_all = i / wpr;
-    const int cw = (int)(i - row_all * wpr);
-    const long long b = row_all / Rp;
-    const int r = (int)(row_all - b * Rp);
-    uint32_t word = 0;
-    if (r < R) {
-      const T* s = src + b * sbs + (long long)r * C;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 4 * cw + e;
-        if (c < C) word |= f32_to_e4m3(load_f32(s + c)) << (8 * e);
-      }
-    }
-    dst[i] = word;
-  }
 }
 
 }  // namespace
@@ -853,57 +733,6 @@ int quant_gemm_bias_act(const void* x, const void* w, const float* scale, const 
     err = bm == 128 ? launch_act<false, 128>(maps, a, act, st)
                     : launch_act<false, 64>(maps, a, act, st);
   return (int)err;
-}
-
-// src f32 (src_bf16 0) or bf16 (1) [batch, R, C], batch stride src_bs
-// elements -> dst [batch, Rp, Cp] e4m3 bytes, zero-padded; Cp a multiple of
-// 16, Rp >= R, dst 4-byte aligned
-int e4m3_cast_pad(const void* src, void* dst, int batch, int R, int C, int Rp, int Cp,
-                  long long src_bs, int src_bf16, void* stream) {
-  if (batch <= 0 || R < 0 || C <= 0 || Rp < R || Rp <= 0 || Cp < C || Cp % 16)
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(dst) % 4) return (int)cudaErrorInvalidValue;
-  const long long words = (long long)batch * Rp * (Cp / 4);
-  const int threads = 256;
-  const long long want = (words + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (src_bf16)
-    e4m3_cast_pad_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(src), static_cast<uint32_t*>(dst), R, C, Rp, Cp,
-        src_bs, words);
-  else
-    e4m3_cast_pad_kernel<float><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(src), static_cast<uint32_t*>(dst), R, C, Rp, Cp, src_bs,
-        words);
-  return (int)cudaGetLastError();
-}
-
-// fp8_matmul's product: x8 [batch, m, kp] @ w8 [batch, kp, np] e4m3 (from
-// e4m3_cast_pad; kp and np multiples of 16, 16-byte aligned; batch strides
-// sx, sw bytes, 0 for an operand shared by the batch) -> out [batch, m,
-// n_out] f32 (out_bf16 0) or bf16 (1), row stride ldo, batch stride so
-// elements, f32 sums
-int fp8_matmul_launch(const void* x8, const void* w8, void* out, int m, int n_out, int kp,
-                      int np, int batch, long long sx, long long sw, long long so, int ldo,
-                      int out_bf16, void* stream) {
-  if (m <= 0 || n_out <= 0 || kp <= 0 || np < n_out || kp % 16 || np % 16 || batch <= 0 ||
-      batch > 65535 || ldo < n_out || sx % 16 || sw % 16)
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(x8) % 16 || reinterpret_cast<uintptr_t>(w8) % 16)
-    return (int)cudaErrorInvalidValue;
-  const int bm = tile_rows(m, np, batch);
-  if ((m + bm - 1) / bm > 65535) return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[2] = {};
-  const Args a = {static_cast<const uint8_t*>(x8), static_cast<const uint8_t*>(w8), nullptr,
-                  nullptr, static_cast<float*>(out), nullptr, m, np, kp};
-  const Batch bt = {sx, sw, so, n_out, ldo};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    return (int)(bm == 128 ? launch_tile<true, kNone, 128, 2>(maps, a, st, bt, batch)
-                           : launch_tile<true, kNone, 64, 2>(maps, a, st, bt, batch));
-  return (int)(bm == 128 ? launch_tile<true, kNone, 128, 1>(maps, a, st, bt, batch)
-                         : launch_tile<true, kNone, 64, 1>(maps, a, st, bt, batch));
 }
 
 const char* quant_gemm_error_string(int code) {

@@ -111,10 +111,11 @@ _SORT_KEYS = {
 }
 
 
-def stop_profiler(sorted_key=None, profile_path=None):
+def stop_profiler(sorted_key=None, profile_path="/tmp/profile"):
     """Print the aggregation table (reference DisableProfiler's summary) and
     return it as {name: [calls, total_ms, min_ms, max_ms]}; with a
-    `profile_path`, also dump the raw events there as JSON."""
+    `profile_path` (the reference's default, which tools/timeline.py reads),
+    also dump the raw events there as JSON; None dumps nothing."""
     _state["on"] = False
     table, snapshot = _aggregate()
     rows = sorted(table.items(), key=_SORT_KEYS.get(sorted_key, _SORT_KEYS[None]))
@@ -143,7 +144,7 @@ def stop_profiler(sorted_key=None, profile_path=None):
 
 
 @contextlib.contextmanager
-def profiler(state="All", sorted_key=None, profile_path=None):
+def profiler(state="All", sorted_key=None, profile_path="/tmp/profile"):
     """`with profiler.profiler('All', 'total'):` (reference profiler.py:221)."""
     start_profiler(state)
     try:

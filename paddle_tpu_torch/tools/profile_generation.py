@@ -133,13 +133,13 @@ def _walls(step, n_steps):
 @contextlib.contextmanager
 def op_by_op():
     """The op-by-op path on the card: FLAGS_profile_ops set inside
-    profiler.profiler() (its per-op host table goes to a buffer)."""
+    profiler.profiler() (its per-op host table goes to a buffer, no event dump)."""
     from .. import flags, profiler
 
     flags.set_flags({"profile_ops": True})
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            with profiler.profiler():
+            with profiler.profiler(profile_path=None):
                 yield
     finally:
         flags.set_flags({"profile_ops": False})

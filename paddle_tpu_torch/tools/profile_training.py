@@ -1,7 +1,7 @@
 """Where a training step's time goes, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_training [--steps 10] \
-        [--model transformer|lenet|resnet50] [--per-op] \
+        [--model transformer|transformer_fp8|lenet|resnet50] [--per-op] \
         [--out profile_training.json]
 
 With --model transformer (the default), profiles the two Transformer
@@ -32,6 +32,14 @@ busy share of the bare wall, the launches and the top kernels). With
 --per-op, the same two and one under the op timer (the host time inside
 each op type's lowering and each fused family's lowering) on the op-by-op
 path: FLAGS_profile_ops inside profiler.profiler().
+
+With --model transformer_fp8: BASE rewritten to bf16 by Bf16Transpiler
+after its startup program (f32 masters) with FLAGS_fp8_matmul set, so its
+mul / matmul products take ops/quant_gemm.py fp8_matmul (the fp8 leg of
+chip_smoke.py's train-bf16 phase); with --per-op its op-by-op device time
+is also split by op type and, within the products and their generic
+grads, by kernel (fp8_step_split): the forward kernel, the grads' replayed
+forward products, their gradient products and the e4m3 rounding chains.
 
 With --model lenet: the fluid book script's LeNet-5 (models/lenet.py)
 under Adam 1e-3 and training_fused, fed batches of 64 from
@@ -380,11 +388,52 @@ def _tokens_per_s(res, tokens):
     return tokens / (res["wall_ms_total"] / 1e3)
 
 
-def profile_config(name, cfg, steps, card, per_op=False):
+# the products FLAGS_fp8_matmul takes, and the kernels of their forward
+# (fp8_gemm.cu's forward form; before it, quant_gemm.cu's e4m3 GEMM and its
+# cast pass) and gradient forms by name
+FP8_OPS = ("mul", "matmul")
+FP8_FORWARD_KERNELS = ("fp8_gemm_kernel<0", "quant_gemm_kernel", "e4m3_cast_pad_kernel")
+FP8_GRAD_KERNELS = ("fp8_gemm_kernel<1", "fp8_gemm_kernel<2")
+
+
+def _fp8_kernel_kind(name):
+    if any(k in name for k in FP8_FORWARD_KERNELS):
+        return "forward"
+    if any(k in name for k in FP8_GRAD_KERNELS) or "gemm" in name.lower():
+        return "products"
+    return "rounding"
+
+
+def fp8_step_split(split):
+    """Device ms a step of an fp8 step's products (op_device_split's
+    kernels_by_op): in the forward ops, the fp8 forward kernel and the
+    rest; in their generic grads, the replayed forward's kernels, the
+    gradient products (the fp8 grad forms or library GEMMs) and the rest
+    (the e4m3 rounding chains and the reductions around them); every other
+    op's time as one figure."""
+    out = defaultdict(float)
+    for op, ks in split["kernels_by_op"].items():
+        grad = op.endswith("_grad") and op[:-len("_grad")] in FP8_OPS
+        if op not in FP8_OPS and not grad:
+            out["other ops"] += sum(ks.values())
+            continue
+        for name, ms in ks.items():
+            kind = _fp8_kernel_kind(name)
+            if not grad:
+                out["forward: fp8 kernel" if kind == "forward" else "forward: other"] += ms
+            else:
+                out["grad: " + {"forward": "replayed forward", "products": "products",
+                                "rounding": "rounding and other"}[kind]] += ms
+    return dict(out)
+
+
+def profile_config(name, cfg, steps, card, per_op=False, fp8=False):
     """The breakdown of `steps` steady training steps of one configuration
-    (after two that apply the pipeline, prepare the block and capture it)."""
+    (after two that apply the pipeline, prepare the block and capture it);
+    with fp8, the configuration in bf16 with FLAGS_fp8_matmul."""
     from .. import CUDAPlace, Executor, Scope, flags, scope_guard
     from ..ops import registry
+    from .profile_recsys import bf16_transpiled
 
     main_prog, startup, loss = build(cfg)
     flags.set_flags({"pass_pipeline": PIPELINE})
@@ -398,12 +447,23 @@ def profile_config(name, cfg, steps, card, per_op=False):
 
     with scope_guard(scope):
         exe.run(startup)
-        for b in batches[:2]:
-            step(b)  # the op-by-op warmup (which applies the pipeline), then the capture
-        torch.cuda.synchronize()
-        res = profile_steps(step, batches, registry, per_op)
+        if fp8:
+            bf16_transpiled(main_prog)
+            flags.set_flags({"fp8_matmul": True})
+        try:
+            for b in batches[:2]:
+                step(b)  # the op-by-op warmup (which applies the pipeline), then the capture
+            torch.cuda.synchronize()
+            res = profile_steps(step, batches, registry, per_op)
+            if per_op and fp8:
+                exe.close()
+                torch.cuda.empty_cache()
+                res["op_by_op"]["split"] = split = op_device_split(step, batches[:2], registry)
+                res["op_by_op"]["fp8_split"] = fp8_step_split(split)
+        finally:
+            flags.set_flags({"fp8_matmul": False})
     tokens = sum(target_tokens(b) for b in batches)
-    res.update(card=card, pipeline=PIPELINE, config=cfg,
+    res.update(card=card, pipeline=PIPELINE, config=cfg, fp8_matmul=fp8,
                target_tokens_per_step=tokens / len(batches),
                target_tokens_per_s=_tokens_per_s(res, tokens))
     print("train step %s (%s, graph): wall p50 %.3f ms; %.0f target tokens/s over the %d "
@@ -422,6 +482,11 @@ def profile_config(name, cfg, steps, card, per_op=False):
                   e["op_timer_wall_ms_mean"], e["ops_host_ms_per_step"],
                   ", ".join("%s %.3f" % kv for kv in top_ops), e["device_busy_ms_per_step"],
                   e["device_busy_share"], e["device_launches_per_step"], card), flush=True)
+        if "fp8_split" in e:
+            print("train step %s (op by op): device %.3f ms a step; the fp8 products' split %s; "
+                  "card %s" % (name, e["split"]["device_ms_per_step"],
+                               json.dumps({k: round(v, 3) for k, v in e["fp8_split"].items()}),
+                               card), flush=True)
     return res
 
 
@@ -487,7 +552,7 @@ def profile_cnn(name, steps, card, per_op=False):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--model", choices=("transformer", "lenet", "resnet50"),
+    ap.add_argument("--model", choices=("transformer", "transformer_fp8", "lenet", "resnet50"),
                     default="transformer")
     ap.add_argument("--per-op", action="store_true",
                     help="also profile the op-by-op path (FLAGS_profile_ops under the profiler)")
@@ -509,6 +574,8 @@ def main(argv=None):
         for name, cfg in CONFIGS.items():
             res[name] = profile_config(name, cfg, args.steps, card, args.per_op)
             torch.cuda.empty_cache()
+    elif args.model == "transformer_fp8":
+        res["base_fp8"] = profile_config("base_fp8", BASE, args.steps, card, args.per_op, fp8=True)
     else:
         res[args.model] = profile_cnn(args.model, args.steps, card, args.per_op)
         res[args.model]["cudnn_deterministic"] = not args.cudnn_nondeterministic

@@ -64,7 +64,7 @@ def op_by_op():
     flags.set_flags({"profile_ops": True})
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            with profiler.profiler():
+            with profiler.profiler(profile_path=None):
                 yield
     finally:
         flags.set_flags({"profile_ops": False})

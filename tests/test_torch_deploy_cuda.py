@@ -49,7 +49,7 @@ def _op_by_op():
     flags.set_flags({"profile_ops": True})
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            with profiler.profiler():
+            with profiler.profiler(profile_path=None):
                 yield
     finally:
         flags.set_flags({"profile_ops": False})

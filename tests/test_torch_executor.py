@@ -155,7 +155,7 @@ def clean_profiler():
 
 def _silent_stop(sorted_key=None):
     with contextlib.redirect_stdout(io.StringIO()):
-        return profiler.stop_profiler(sorted_key)
+        return profiler.stop_profiler(sorted_key, None)
 
 
 def test_record_event_nesting_names(clean_profiler):
@@ -210,7 +210,7 @@ def test_stop_profiler_sort_keys(clean_profiler, capsys, sorted_key, expected_fi
     for name, durs in (("alpha", [0.050]), ("beta", [0.010] * 10), ("gamma", [0.001, 0.080])):
         for d in durs:
             profiler._events.append((name, now, now + d, 0))
-    profiler.stop_profiler(sorted_key)
+    profiler.stop_profiler(sorted_key, None)
     rows = [line.split()[0] for line in capsys.readouterr().out.splitlines()
             if line and line.split()[0] in ("alpha", "beta", "gamma")]
     assert rows[0] == expected_first
