@@ -6,7 +6,8 @@
 Phases, each printing its own line; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then build every kernel
      of paddle_tpu_torch/ops/csrc/ with nvcc, one process per source, all
-     at once;
+     at once, and beside them the native host runtime (libptnative, g++,
+     paddle_tpu_torch/native), logging its command line;
   2. each kernel against its plain torch version at the full-width shapes
      of the main paths, with max abs error against its tolerance and the
      kernel / plain / library-call times in ms:
@@ -149,7 +150,13 @@ Phases, each printing its own line; any failure exits non-zero:
      train multistep: the same model at dropout 0.1, 3 calls of
      steps_per_run=4 against 12 single runs from the same state: losses
      and every persistable bit for bit, one host synchronization a call
-     (torch.profiler), the same launches a step, the step walls;
+     (torch.profiler), the same launches a step, the step walls; then the
+     py_reader form: the program built with layers.py_reader + read_file,
+     Executor.run with no feed pulling 4 staged batches a call, 3 calls
+     bit for bit the stacked calls (losses and persistables), no more host
+     syncs a call and no capture beyond theirs, then EOFException; an epoch
+     of 9: calls of 4, 4 and a stacked tail of 1, then EOFException, the
+     losses bit for bit the single runs';
   7. train lenet: the fluid book script through paddle_tpu_torch.fluid
      (tests/test_mnist.py, tests/test_book.py): batch(reader.shuffle(
      dataset.mnist.train(), 500), 64) into a DataFeeder, LeNet-5
@@ -180,7 +187,15 @@ Phases, each printing its own line; any failure exits non-zero:
      model again with batch_norm's generic (vjp) grad, 4 graph steps and 2
      op by op, gives the before-and-after step wall and batch_norm's
      device share from the same call, its first loss equal to the explicit
-     grad's bit for bit and its second within rtol 2e-3, atol 2e-4;
+     grad's bit for bit and its second within rtol 2e-3, atol 2e-4; then
+     the input pipeline (bench.py's pyreader / staged ratio), each leg
+     pulling its batches (feed=None) inside the timed steps: a PyReader
+     thread over the staged batches copied to host once and cycled (pinned
+     copy, the reader's copy stream; losses bit for bit the staged steps'),
+     and the data runtime (2 decode worker processes, uint8 on the wire,
+     the shared-memory ring; its first loss against the same images fed as
+     f32 within rtol 1e-6); each leg's images/s at least 0.9 of the staged
+     steps', and one batch's staging cost beside the step;
   8b. batch_norm grad: the explicit batch_norm_grad against the generic
      grad at ResNet-50's (256, 64, 112, 112) and SE-ResNeXt-50's (64, 64,
      112, 112) training shapes, rtol 1e-4 with atol 1e-5 of the largest
@@ -270,7 +285,13 @@ Phases, each printing its own line; any failure exits non-zero:
      parity leg's shape (2048 rows, 4 fields, dim 8, batch 64, 6 batches)
      bit for bit, losses and tables; then tests/test_deepfm.py's training
      (200 sparse Adam steps): the last 5 losses under 0.9x the first 5 and
-     the AUC of a fresh batch of 512 above 0.65;
+     the AUC of a fresh batch of 512 above 0.65; then the native feed:
+     16 RECSYS batches written as MultiSlot text, parsed by libptnative's
+     C++ MultiSlotDataFeed through AsyncExecutor(CUDAPlace(0), thread_num=
+     1) (dense DeepFM: its loss means of every 4 steps bit for bit an
+     Executor fed the same assembled batches as dicts) and through
+     contrib.reader.ctr_reader with feed=None to EOFException (losses bit
+     for bit the dict-fed run's);
  13. train bf16: ResNet-50 (batch 256, Momentum(0.1, 0.9)), VGG-19 (3
      steps, as bench.py:229-260 runs it), the stacked
      LSTM (Adam 2e-3) and Transformer base, each as its f32 phase builds
@@ -4154,6 +4175,194 @@ def train_resnet50(torch, card, readings):
             json.dumps({k: round(v, 3) for k, v in split["by_category"].items()}),
             json.dumps({k: round(v, 3) for k, v in split["conv_backward_by_kernel_name"].items()}),
             card))
+    _resnet50_pipeline(torch, model, staged, losses, walls, graph, card, readings)
+
+
+PIPELINE_RATIO_MIN = 0.9  # a fed step's images/s against the staged steps' (bench.py's frac)
+PIPELINE_WORKERS = 2  # decode workers of the data-runtime leg
+PIPELINE_U8_RTOL = 1e-6
+PIPELINE_STEPS = 12  # graph steps of a fed leg: a one-off stall weighs 1/12 of its window
+
+
+def _allocator_counts(torch):
+    """(cudaMalloc calls, allocation retries, pinned host blocks created,
+    ms spent creating them) so far: the caching allocator's segments
+    allocated (torch.cuda.memory_stats) and the pinned host allocator's
+    growth (torch.cuda.host_memory_stats; zeros where the build lacks it)."""
+    stats = torch.cuda.memory_stats()
+    host = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    return (int(stats.get("num_device_alloc", stats.get("segment.all.allocated", 0))),
+            int(stats.get("num_alloc_retries", 0)), int(host.get("num_host_alloc", 0)),
+            float(host.get("host_alloc_time.total", 0)) / 1e3)
+
+
+def _resnet50_pipeline(torch, model, staged, staged_losses, staged_walls, graph, card,
+                       readings):
+    """ResNet-50 fed through the data layer, as bench.py feeds it, each leg
+    the warmup, the capture and PIPELINE_STEPS graph steps from the phase's
+    weights, Executor.run pulling each batch from the program's reader
+    (feed=None) inside the timed step:
+
+    - the thread path: a PyReader over the phase's staged batches copied
+      to host memory once and cycled (numpy's RNG out of the timed window):
+      its feeder thread copies batch k+1 into pinned memory and to the card
+      on its copy stream while step k runs. Losses bit for bit the staged
+      steps';
+    - the data-runtime path: PIPELINE_WORKERS decode worker processes (a
+      shard factory: each worker makes its shard's uint8 images once),
+      uint8 on the wire (the executor's f32 feed buffer makes the cast on
+      the card), the shared-memory ring, the drain thread's copy stream.
+      Its first batch fed again as f32 from the same weights: the first
+      loss within rtol PIPELINE_U8_RTOL.
+
+    Each leg's images/s over its graph steps against the staged steps'
+    (graph["images_per_s"]) must be at least PIPELINE_RATIO_MIN. Also
+    reported: the same ratio over the steady steps (the first replay after
+    the capture left out of both), the cudaMalloc calls and allocation
+    retries in each fed step, and the cost of staging one batch (pinned copy
+    and the copy to the card) beside the step."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.data.runtime import Stager, take
+    from paddle_tpu_torch.py_reader import PyReader
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    device = torch.device("cuda", 0)
+    batch = prof.RESNET50["batch"]
+    n = 2 + PIPELINE_STEPS
+    host = [{k: v.cpu().numpy() for k, v in b.items()} for b in staged]
+    ref_ips = graph["images_per_s"]
+    main = model["main"]
+
+    def steady_ips(walls):
+        return batch * (len(walls) - 3) / (sum(walls[3:]) / 1e3)
+
+    def fed_run(reader, first=None):
+        main._py_readers = [reader]
+        counts = [_allocator_counts(torch)]
+        try:
+            feeds = ([first] if first is not None else []) + [None] * (n - (first is not None))
+            outs, walls, _, _, step, scope = _fluid_run(
+                torch, model, feeds, "training_fused", [model["loss"]],
+                check=lambda i, before, now: counts.append(_allocator_counts(torch)))
+        finally:
+            reader.reset()
+            main._py_readers = []
+        del step, scope
+        torch.cuda.empty_cache()
+        ips = batch * PIPELINE_STEPS / (sum(walls[2:]) / 1e3)
+        per_step = [[b[j] - a[j] for a, b in zip(counts, counts[1:])] for j in range(4)]
+        return [float(o[0]) for o in outs], walls, ips, per_step
+
+    # the thread path
+    thread = PyReader(["img", "label"], capacity=2, place=CUDAPlace(0))
+    thread.decorate_tensor_provider(lambda: (host[i % len(host)] for i in range(n)))
+    thread.start()
+    t_losses, t_walls, t_ips, t_mallocs = fed_run(thread)
+    thread.close()
+    if len(staged_losses) > n:
+        raise AssertionError("%d staged losses against %d fed steps" % (len(staged_losses), n))
+    _same_bits("resnet50 fed by the PyReader thread against the staged steps, loss at step",
+               t_losses[:len(staged_losses)], staged_losses)
+
+    # the data-runtime path: uint8 on the wire from decode workers
+    per_shard = n // PIPELINE_WORKERS
+
+    def shards(shard_id, num_shards):
+        rng = np.random.RandomState(SEED + 1000 + shard_id)
+        b = {"img": rng.randint(0, 256, (batch, 3, 224, 224)).astype("uint8"),
+             "label": rng.randint(0, 1000, (batch, 1)).astype("int64")}
+        for _ in range(per_shard):
+            yield b
+
+    runtime = PyReader(["img", "label"], capacity=4, wire_dtypes={"img": "uint8"},
+                       place=CUDAPlace(0))
+    runtime.decorate_tensor_provider(shards, num_workers=PIPELINE_WORKERS,
+                                     num_shards=PIPELINE_WORKERS)
+    runtime.start()
+    first = runtime.next_batch()
+    if first["img"].dtype != torch.uint8 or first["img"].device != device:
+        raise AssertionError("the runtime staged img as %s on %s" % (first["img"].dtype,
+                                                                    first["img"].device))
+    as_f32 = {"img": first["img"].float(), "label": first["label"].clone()}
+    r_losses, r_walls, r_ips, r_mallocs = fed_run(runtime, first)
+    runtime.close()
+    f32_outs, _, _, _, step, scope = _fluid_run(torch, model, [as_f32], "training_fused",
+                                                [model["loss"]])
+    del step, scope
+    torch.cuda.empty_cache()
+    u8_err = abs(r_losses[0] - float(f32_outs[0][0])) / abs(float(f32_outs[0][0]))
+    if not np.isfinite(r_losses).all() or u8_err > PIPELINE_U8_RTOL:
+        raise AssertionError("resnet50 uint8 wire: losses %s, the first against f32 %.3g "
+                             "(bar %g)" % (r_losses, u8_err, PIPELINE_U8_RTOL))
+
+    # one batch staged: the pinned copy and the copy to the card
+    stager = Stager(device)
+    stage_ms, copy_ms = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = take(stager(host[i % len(host)]))
+        torch.cuda.current_stream().synchronize()
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+        pin = torch.empty(b["img"].shape, dtype=b["img"].dtype, pin_memory=True)
+        pin.copy_(torch.from_numpy(host[i % len(host)]["img"]))
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        b["img"].copy_(pin, non_blocking=True)
+        ev1.record()
+        ev1.synchronize()
+        copy_ms.append(ev0.elapsed_time(ev1))
+        del b, pin
+    torch.cuda.empty_cache()
+    ratios = {"pyreader_thread": t_ips / ref_ips, "data_runtime_uint8": r_ips / ref_ips}
+    ref_steady = steady_ips(staged_walls)
+    steady = {"pyreader_thread": steady_ips(t_walls) / ref_steady,
+              "data_runtime_uint8": steady_ips(r_walls) / ref_steady}
+    step_ms = graph["step_p50_ms"]
+    reading = {
+        "staged_images_per_s": ref_ips, "pyreader_images_per_s": t_ips,
+        "data_runtime_images_per_s": r_ips, "ratios": ratios, "fed_steps": PIPELINE_STEPS,
+        "staged_steady_images_per_s": ref_steady, "steady_ratios": steady,
+        "pyreader_cuda_mallocs_a_step": t_mallocs[0],
+        "pyreader_alloc_retries_a_step": t_mallocs[1],
+        "pyreader_pinned_blocks_a_step": t_mallocs[2],
+        "pyreader_pinned_alloc_ms_a_step": t_mallocs[3],
+        "data_runtime_cuda_mallocs_a_step": r_mallocs[0],
+        "data_runtime_alloc_retries_a_step": r_mallocs[1],
+        "data_runtime_pinned_blocks_a_step": r_mallocs[2],
+        "data_runtime_pinned_alloc_ms_a_step": r_mallocs[3],
+        "pyreader_step_p50_ms": float(np.median(t_walls[2:])),
+        "data_runtime_step_p50_ms": float(np.median(r_walls[2:])),
+        "pyreader_step_walls_ms": t_walls, "data_runtime_step_walls_ms": r_walls,
+        "stage_one_batch_ms_p50": float(np.median(stage_ms[1:])),
+        "h2d_copy_device_ms_p50": float(np.median(copy_ms[1:])),
+        "h2d_copy_share_of_step": float(np.median(copy_ms[1:])) / step_ms,
+        "uint8_first_loss_rel_err": u8_err}
+    readings["train_resnet50"]["pipeline"] = reading
+    log("train resnet50, input pipeline (%d fed graph steps a leg, %d staged): staged %.1f "
+        "images/s; the PyReader thread path (host batches cycled, pinned copy + copy stream) "
+        "%.1f images/s = %.4f of staged, losses bit for bit the staged steps'; the data runtime "
+        "(%d worker processes, uint8 wire, shm ring, drain thread's copy stream) %.1f images/s "
+        "= %.4f of staged, its first loss against the same images as f32 %.3g (bar %g); over "
+        "the steady steps (the first replay left out) staged %.1f images/s, ratios %.4f / "
+        "%.4f; step p50 %.3f / %.3f ms (staged %.3f), the step walls %s / %s ms (staged %s; "
+        "the warmup and the capture first); cudaMalloc calls a step %s / %s, allocation "
+        "retries %s / %s, pinned host blocks created %s / %s (%s / %s ms); staging one f32 batch (%.1f MB: pinned copy + copy to the card) "
+        "%.3f ms wall, the copy %.3f device ms = %.4f of a staged step; bar %.2f; card %s" % (
+            PIPELINE_STEPS, RESNET_STEPS, ref_ips, t_ips, ratios["pyreader_thread"],
+            PIPELINE_WORKERS, r_ips, ratios["data_runtime_uint8"], u8_err, PIPELINE_U8_RTOL,
+            ref_steady, steady["pyreader_thread"], steady["data_runtime_uint8"],
+            reading["pyreader_step_p50_ms"], reading["data_runtime_step_p50_ms"], step_ms,
+            ["%.3f" % w for w in t_walls], ["%.3f" % w for w in r_walls],
+            ["%.3f" % w for w in staged_walls], t_mallocs[0], r_mallocs[0], t_mallocs[1],
+            r_mallocs[1], t_mallocs[2], r_mallocs[2], ["%.3f" % v for v in t_mallocs[3]],
+            ["%.3f" % v for v in r_mallocs[3]], host[0]["img"].nbytes / 1e6, reading["stage_one_batch_ms_p50"],
+            reading["h2d_copy_device_ms_p50"], reading["h2d_copy_share_of_step"],
+            PIPELINE_RATIO_MIN, card))
+    low = {k: v for k, v in ratios.items() if v < PIPELINE_RATIO_MIN}
+    if low:
+        raise AssertionError("the input pipeline does not keep up: %s (bar %.2f)"
+                             % (low, PIPELINE_RATIO_MIN))
 
 
 # the batch_norm shapes of the checks: ResNet-50's largest at batch 256 (the
@@ -4890,7 +5099,142 @@ def train_deepfm(torch, card, readings):
             ["%.6f" % v for v in par[True][0]], pc["steps"], json.dumps(cc), cc["steps"], first5,
             last5, cc["eval_batch"], auc, card))
     readings["train_deepfm_sparse"]["graph"]["sparse_to_dense_step_ratio"] = ratio
+    for k, v in _deepfm_async(torch, card, readings).items():
+        launches[k] = launches.get(k, 0) + v
     return launches, errs
+
+
+ASYNC_BATCHES = 16  # DeepFM batches written as MultiSlot text, two files
+ASYNC_PERIOD = 4  # AsyncExecutor's print_period: the loss means compared
+
+
+def _multislot_files(tmp, cfg, n):
+    """`n` RECSYS batches (profile_recsys.recsys_batches from SEED) as
+    MultiSlot text in two files: a line is "16 <16 ids> 1 <label>"."""
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+
+    batches = recsys.recsys_batches(np.random.RandomState(SEED + 7), cfg["rows"], cfg["fields"],
+                                    cfg["batch"], n)
+    files = [os.path.join(tmp, "part-%d.txt" % i) for i in range(2)]
+    per = n // len(files)
+    for i, path in enumerate(files):
+        with open(path, "w") as f:
+            for b in batches[i * per:(i + 1) * per]:
+                ids = b["ids"].reshape(cfg["batch"], cfg["fields"])
+                for row, lab in zip(ids, b["label"].reshape(-1)):
+                    f.write("%d %s 1 %d\n" % (cfg["fields"], " ".join(map(str, row)), lab))
+    return files
+
+
+def _deepfm_async(torch, card, readings):
+    """DeepFM at RECSYS's widths (dense Adam) fed from MultiSlot text files
+    by the native runtime (libptnative's C++ parser):
+
+    - AsyncExecutor(CUDAPlace(0)) with thread_num=1 over ASYNC_BATCHES
+      batches in two files: its loss means of every ASYNC_PERIOD steps bit
+      for bit those of an Executor fed the same assembled batches
+      (async_executor.stream_batches) as dicts, from the same weights. The
+      assembly gives ids as (batch, 16) int64 (a sparse slot, its 16 ids a
+      line), which DeepFM's program takes as it is: it reshapes its ids to
+      one column first;
+    - contrib.reader.ctr_reader over the same files, Executor.run with no
+      feed until EOFException: its losses bit for bit the dict-fed run's.
+
+    Returns the kernel launches of the three runs."""
+    import tempfile
+
+    from paddle_tpu_torch import (AsyncExecutor, CUDAPlace, DataFeedDesc, EOFException,
+                                  Executor, Scope, flags, framework, scope_guard)
+    from paddle_tpu_torch.async_executor import stream_batches
+    from paddle_tpu_torch.contrib.reader.ctr_reader import ctr_reader
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+
+    cfg = recsys.RECSYS
+    proto = ('name: "MultiSlotDataFeed"\nbatch_size: %d\nmulti_slot_desc {\n'
+             '  slots {\n    name: "ids"\n    type: "uint64"\n    is_dense: false\n'
+             '    is_used: true\n  }\n  slots {\n    name: "label"\n    type: "float"\n'
+             '    is_dense: true\n    is_used: true\n  }\n}\n' % cfg["batch"])
+    flags.set_flags({"pass_pipeline": "training_fused"})
+    place = CUDAPlace(0)
+    launches = {}
+
+    def count(before):
+        for k, v in _launch_delta(before, fused.stats()).items():
+            launches[k] = launches.get(k, 0) + v
+
+    def fresh(model):
+        scope = Scope(seed=SEED, place=place)
+        with scope_guard(scope):
+            Executor(place).run(model["startup"])
+        return scope
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = _multislot_files(tmp, cfg, ASYNC_BATCHES)
+        write_s = time.perf_counter() - t0
+        desc = DataFeedDesc(proto)
+        # the Executor fed the assembled batches as dicts
+        assembled = list(stream_batches(desc, files, thread_num=1))
+        if len(assembled) != ASYNC_BATCHES or assembled[0]["ids"].shape != (cfg["batch"],
+                                                                           cfg["fields"]):
+            raise AssertionError("assembled %d batches, ids %s" % (
+                len(assembled), assembled[0]["ids"].shape))
+        model = recsys.build_deepfm(cfg, is_sparse=False)
+        scope, exe = fresh(model), Executor(place)
+        before = fused.stats()
+        dict_losses = [float(exe.run(model["main"], feed=b, fetch_list=[model["loss"].name],
+                                     scope=scope)[0].reshape(-1)[0]) for b in assembled]
+        count(before)
+        del scope, exe
+        want = [float(np.mean(np.asarray([[v] for v in dict_losses[i:i + ASYNC_PERIOD]]),
+                              axis=0)[0]) for i in range(0, ASYNC_BATCHES, ASYNC_PERIOD)]
+        # AsyncExecutor: the native parser, the staging PyReader, the graphs
+        model = recsys.build_deepfm(cfg, is_sparse=False)
+        scope = fresh(model)
+        captures0 = Executor.stats()["graphs"].get("captures", 0)
+        before = fused.stats()
+        t0 = time.perf_counter()
+        with scope_guard(scope):
+            means = AsyncExecutor(place).run(model["main"], desc, files, thread_num=1,
+                                             fetch=[model["loss"]], print_period=ASYNC_PERIOD)
+        async_s = time.perf_counter() - t0
+        count(before)
+        captures = Executor.stats()["graphs"].get("captures", 0) - captures0
+        del scope
+        _same_bits("AsyncExecutor's loss means against the dict-fed Executor's, period",
+                   means, want)
+        # contrib.reader.ctr_reader, feed=None until EOF
+        model = recsys.build_deepfm(cfg, is_sparse=False)
+        with framework.program_guard(model["main"], model["startup"]):
+            reader = ctr_reader(capacity=8, thread_num=1, batch_size=cfg["batch"],
+                                file_list=files, slots=desc)
+        scope, exe = fresh(model), Executor(place)
+        before = fused.stats()
+        ctr_losses = []
+        with scope_guard(scope):
+            reader.start()
+            with _raises(EOFException, "ctr_reader past its files"):
+                while True:
+                    ctr_losses.append(float(exe.run(model["main"], fetch_list=[
+                        model["loss"].name], scope=scope)[0].reshape(-1)[0]))
+            reader.reset()
+        count(before)
+        del scope, exe
+    _same_bits("ctr_reader's losses against the dict-fed Executor's, step", ctr_losses,
+               dict_losses)
+    readings["train_deepfm_async"] = {"graph": {
+        "async_executor_s": async_s, "captures": captures, "steps": ASYNC_BATCHES}}
+    log("train deepfm, native feed: %d RECSYS batches (%d x %d ids, labels) written as MultiSlot "
+        "text in 2 files in %.2f s; AsyncExecutor(CUDAPlace(0), thread_num=1) ran them in %.3f "
+        "s (the native parser, the staging PyReader, %d graph captured: one feed shape, ids "
+        "(%d, %d) in their bucket), its loss means %s bit for bit the dict-fed Executor's; "
+        "ctr_reader fed the program %d steps to EOFException, losses bit for bit the dict-fed "
+        "run's; launches %s; card %s" % (
+            ASYNC_BATCHES, cfg["batch"], cfg["fields"], write_s, async_s, captures,
+            cfg["batch"], cfg["fields"], ["%.6f" % v for v in means], len(ctr_losses),
+            json.dumps(launches), card))
+    return launches
 
 
 # ---------------------------------------------------------------- phase 13
@@ -6916,6 +7260,7 @@ def train_multistep(torch, card, readings):
     del scope, exe
     scope, exe = fresh()
     multi, mwalls, mdeltas = [], [], []
+    captures0 = Executor.stats()["graphs"].get("captures", 0)
     for c in range(MULTI_CALLS):
         stacked = {k: np.stack([b[k] for b in batches[c * MULTI_K:(c + 1) * MULTI_K]])
                    for k in batches[0]}
@@ -6929,6 +7274,7 @@ def train_multistep(torch, card, readings):
             mwalls.append((time.perf_counter() - t0) * 1e3)
         mdeltas.append(_launch_delta(before, fused.stats()))
         multi.extend(float(v) for v in vals.reshape(-1))
+    stacked_captures = Executor.stats()["graphs"].get("captures", 0) - captures0
     _same_bits("steps_per_run=%d against single runs, loss at step" % MULTI_K, multi, single)
     for k, v in want.items():
         if not torch.equal(scope.vars[k], v):
@@ -6956,16 +7302,125 @@ def train_multistep(torch, card, readings):
             ["%.6f" % v for v in multi], len(want), json.dumps(msyncs),
             json.dumps(ssyncs), json.dumps(per_step), json.dumps(sdeltas[-1]), step_ms,
             mwalls[-1], MULTI_K, single_ms, n - 1, mwalls[0], card))
-    del scope, exe, want, init
+    del scope, exe
+    rdeltas = _multistep_reader(torch, cfg, batches, init, fresh, multi, single, want,
+                                msyncs, stacked_captures, card, readings)
+    del want, init
     torch.cuda.empty_cache()
     # the phase's launches as counted: every single run's and every call's;
     # the kernels line names the fused flash backward's launches "flash_bwd"
     names = {"flash_bwd_fused": "flash_bwd", "flash_bwd_fused_causal": "flash_bwd_causal"}
     total = {}
-    for delta in sdeltas + mdeltas:
+    for delta in sdeltas + mdeltas + rdeltas:
         for k, v in delta.items():
             total[names.get(k, k)] = total.get(names.get(k, k), 0) + v
     return total
+
+
+def _multistep_reader(torch, cfg, batches, init, fresh, multi, single, want, msyncs,
+                      stacked_captures, card, readings):
+    """The py_reader form of steps_per_run on the same model: the program
+    built with layers.py_reader + read_file (profile_training.build(reader=
+    True)), Executor.run with no feed. First the phase's batches, MULTI_CALLS
+    pulls of MULTI_K: losses and every persistable bit for bit the stacked
+    calls', no more host syncs in a call than a stacked call's, and no
+    capture beyond the stacked form's. Then an epoch of 2 * MULTI_K + 1
+    batches from the start: calls of MULTI_K, MULTI_K and a stacked tail of
+    1, then EOFException, the losses bit for bit the single runs'. Returns
+    each call's kernel launches."""
+    from paddle_tpu_torch import EOFException, Executor
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    main_prog, _, loss = prof.build(cfg, reader=True)
+    reader = main_prog._py_readers[0]
+
+    def epoch(bs):
+        reader.decorate_tensor_provider(lambda: (prof.reader_feed(main_prog, b) for b in bs))
+        reader.start()
+
+    def pull():
+        return exe.run(main_prog, fetch_list=[loss.name], scope=scope, steps_per_run=MULTI_K)
+
+    deltas = []
+    scope, exe = fresh()
+    captures0 = Executor.stats()["graphs"].get("captures", 0)
+    epoch(batches)
+    pulled, walls = [], []
+    for c in range(MULTI_CALLS):
+        before = fused.stats()
+        t0 = time.perf_counter()
+        if c == MULTI_CALLS - 1:
+            (vals,), psyncs = _host_syncs(torch, pull)
+        else:
+            (vals,) = pull()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        deltas.append(_launch_delta(before, fused.stats()))
+        pulled.extend(float(v) for v in vals.reshape(-1))
+    with _raises(EOFException, "a pull past the epoch's 12 batches"):
+        pull()
+    reader.reset()
+    captures = Executor.stats()["graphs"].get("captures", 0) - captures0
+    _same_bits("steps_per_run=%d pulled from layers.py_reader against the stacked calls, loss "
+               "at step" % MULTI_K, pulled, multi)
+    for k, v in want.items():
+        if not torch.equal(scope.vars[k], v):
+            raise AssertionError("steps_per_run=%d pulled: %s differs from the stacked calls'"
+                                 % (MULTI_K, k))
+    if sum(psyncs.values()) > sum(msyncs.values()):
+        raise AssertionError("a pulling call made host syncs %s, a stacked call %s"
+                             % (psyncs, msyncs))
+    if captures != stacked_captures:
+        raise AssertionError("the pulled calls captured %d graphs, the stacked calls %d"
+                             % (captures, stacked_captures))
+    del scope, exe
+    scope, exe = fresh()
+    n_tail = 2 * MULTI_K + 1
+    epoch(batches[:n_tail])
+    tail, shapes = [], []
+    for _ in range(3):
+        before = fused.stats()
+        (vals,) = pull()
+        deltas.append(_launch_delta(before, fused.stats()))
+        shapes.append(int(vals.shape[0]))
+        tail.extend(float(v) for v in vals.reshape(-1))
+    with _raises(EOFException, "the call after the epoch's tail"):
+        pull()
+    reader.reset()
+    if shapes != [MULTI_K, MULTI_K, 1]:
+        raise AssertionError("an epoch of %d at steps_per_run=%d ran calls of %s"
+                             % (n_tail, MULTI_K, shapes))
+    _same_bits("the epoch of %d pulled (calls %s) against single runs, loss at step"
+               % (n_tail, shapes), tail, single[:n_tail])
+    del scope, exe
+    step_ms = walls[-1] / MULTI_K
+    readings["train_multistep"]["graph"].update(
+        reader_step_wall_ms=step_ms, reader_host_syncs_a_call=sum(psyncs.values()))
+    log("train multistep, py_reader form: layers.py_reader + read_file, Executor.run(feed=None, "
+        "steps_per_run=%d): %d pulled calls equal the stacked calls bit for bit (losses and all "
+        "%d persistables), then EOFException; host syncs in the last call (profiled) %s "
+        "(a stacked call's %s); graphs captured %d (the stacked calls' %d); step wall %.3f ms "
+        "(call 2's wall %.3f / %d, unprofiled); an epoch of %d: calls of %s (the tail's fetch "
+        "[1, ...]), then EOFException, losses bit for bit the single runs' %s; card %s" % (
+            MULTI_K, MULTI_CALLS, len(want), json.dumps(psyncs), json.dumps(msyncs), captures,
+            stacked_captures, step_ms, walls[-1], MULTI_K, n_tail, shapes,
+            ["%.6f" % v for v in tail], card))
+    return deltas
+
+
+class _raises:
+    """Fails unless the body raises `exc` (what names the call)."""
+
+    def __init__(self, exc, what):
+        self.exc, self.what = exc, what
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, et, ev, tb):
+        if et is None:
+            raise AssertionError("%s did not raise %s" % (self.what, self.exc.__name__))
+        return issubclass(et, self.exc)
 
 
 def _pe_multistep(torch, cfg, seed):
@@ -7576,6 +8031,38 @@ def _a6b_cards(world, card, readings):
             world, json.dumps(cfg), ["%.6f" % v for v in ref], json.dumps(summary), card))
 
 
+def _start_native_build():
+    """Build libptnative (paddle_tpu_torch/native, g++) on a thread; the
+    returned call waits for it and gives its log line (or raises its
+    error)."""
+    import threading
+
+    from paddle_tpu_torch import native
+
+    box = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            native.lib()
+        except BaseException as e:  # noqa: B036 — raised by the waiter
+            box["err"] = e
+        box["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build, daemon=True)
+    th.start()
+
+    def wait():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return "g++ build of libptnative in %.1f s (zlib: %s): %s" % (
+            box["s"], native.build_log.get("zlib"),
+            native.build_log.get("cmd", "a build of this source was already there"))
+
+    return wait
+
+
 def main():
     import torch
 
@@ -7606,8 +8093,10 @@ def main():
             sys.version.split()[0], torch.__version__, torch.version.cuda,
             hasattr(torch.cuda.CUDAGraph, "register_generator_state")))
         t0 = time.perf_counter()
+        native_build = _start_native_build()  # g++, beside the nvcc builds
         _build.build_all()  # one nvcc per source, all at once
         log("nvcc sm_90a build of %s in %.1f s" % (sorted(_build.build_logs), time.perf_counter() - t0))
+        log(native_build())
         for stem, text in sorted(_build.build_logs.items()):
             ptxas = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
                      if "registers" in ln or "spill" in ln]

@@ -51,15 +51,27 @@ split over dp, gradients averaged in coalesced buckets or the ZeRO-1 tier,
 synchronized batch_norm, ring attention over sp and row-sharded embedding
 tables over ep (parallel/, embedding/).
 
+The data layer: layers.py_reader + read_file (or a PyReader) stage
+batches on the card from a feeder thread, a copy stream of their own
+overlapping the running step, and Executor.run / ParallelExecutor.run pull
+them when given no feed (k at a time under steps_per_run); num_workers
+moves decode into worker processes behind a shared-memory ring (data/).
+The native C++ runtime (native/: RecordIO, the blocking queue, the
+MultiSlot parser) is built with g++ at first use and feeds AsyncExecutor,
+contrib.reader.ctr_reader and reader.creator.recordio.
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
 """
 
 from . import (  # noqa: F401
+    async_executor,
     average,
     backward,
     clip,
+    contrib,
+    data_feed_desc,
     dataset,
     embedding,
     evaluator,
@@ -70,6 +82,7 @@ from . import (  # noqa: F401
     layers,
     lod_tensor,
     metrics,
+    native,
     nets,
     observability,
     ops,
@@ -78,14 +91,17 @@ from . import (  # noqa: F401
     param_attr,
     passes,
     profiler,
+    py_reader,
     reader,
     regularizer,
     serving,
     transpiler,
     unique_name,
 )
+from .async_executor import AsyncExecutor  # noqa: F401
 from .backward import append_backward  # noqa: F401
 from .batch import batch  # noqa: F401
+from .data_feed_desc import DataFeedDesc  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
@@ -101,4 +117,5 @@ from .framework import (  # noqa: F401
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor  # noqa: F401
 from .parallel_executor import BuildStrategy, ExecutionStrategy, ParallelExecutor  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
-from .place import CPUPlace, CUDAPlace, is_compiled_with_cuda  # noqa: F401
+from .place import CPUPlace, CUDAPinnedPlace, CUDAPlace, is_compiled_with_cuda  # noqa: F401
+from .py_reader import EOFException  # noqa: F401

@@ -262,13 +262,20 @@ def _profile_ops():
     return _prof.is_profiling() and _flags.get_flags("profile_ops")["profile_ops"]
 
 
+def _dtype_name(v):
+    """A feed value's dtype by one name whatever holds it: a numpy array's
+    float32 and a tensor's torch.float32 are both "float32"."""
+    name = str(getattr(v, "dtype", type(v).__name__))
+    return name[len("torch."):] if name.startswith("torch.") else name
+
+
 def _feed_signature(feed):
     """(name, shape, dtype) of each feed value: a graph's feed buffers have
     one shape, so the executor keys its blocks on them as the JAX package
-    keys its compiled blocks."""
+    keys its compiled blocks. A batch pulled from a reader (tensors staged
+    on the device) keys as the same batch fed as numpy arrays."""
     return tuple(sorted(
-        (n, tuple(np.shape(v)), str(getattr(v, "dtype", type(v).__name__)))
-        for n, v in feed.items()
+        (n, tuple(np.shape(v)), _dtype_name(v)) for n, v in feed.items()
     ))
 
 
@@ -1470,6 +1477,155 @@ def aot_serve_lowering(program, feed_names, fetch_names, scope,
     return _ServeFetches(serve), ro, mut
 
 
+def _pull_reader_steps(readers, steps_per_run, adapters=None):
+    """Pull up to k staged batches from started py_readers and stack them.
+    If the epoch ends mid-pull, the completed steps are NOT discarded: the
+    call proceeds as a shorter multi-step run (the sequential path would
+    have trained on them before raising EOF) and EOFException surfaces on
+    the NEXT run, once nothing is left. Returns (stacked_feed, k_actual);
+    the feed is ALWAYS stacked [k, ...] — even a 1-batch tail keeps the
+    multi-step fetch contract (fetches come back [k, ...]). `adapters`:
+    each reader's (_reader_adapters), none by default."""
+    from .py_reader import EOFException
+
+    adapters = adapters or [None] * len(readers)
+    step_feeds = []
+    pulled = None
+    try:
+        for _ in range(steps_per_run):
+            d = {}
+            pulled = []  # (reader, batch) of this incomplete step
+            for rd, adapt in zip(readers, adapters):
+                b = rd.next_batch()
+                pulled.append((rd, b))
+                d.update(adapt(b) if adapt is not None else b)
+            pulled = None  # step completed
+            step_feeds.append(d)
+    except EOFException:
+        # one reader of the group ended mid-step: the sibling batches
+        # already pulled for the INCOMPLETE step go back to their readers
+        # (they were never trained on), and the whole group defers the EOF
+        if pulled:
+            for rd, b in pulled:
+                rd.push_back(b)
+        if not step_feeds:
+            raise
+        # tail consumed now; surface the EOF on the NEXT run
+        for rd in readers:
+            rd._eof_deferred = True
+    return _stack_feed_steps(step_feeds), len(step_feeds)
+
+
+def _started_readers(program):
+    """Started py_readers of the program; raises the EOFException a previous
+    partial multi-step pull deferred (its tail batches were trained on, so
+    the epoch end belongs to THIS call). The program's readers are treated
+    as a UNIT: a deferred EOF on any of them ends the epoch for the group —
+    proceeding with the remaining readers would silently feed steps missing
+    the exhausted reader's slots."""
+    from .py_reader import EOFException
+
+    readers, deferred = [], False
+    for rd in getattr(program, "_py_readers", []):
+        if getattr(rd, "_eof_deferred", False):
+            rd._eof_deferred = False
+            deferred = True
+        elif rd.started:
+            readers.append(rd)
+    if deferred:
+        raise EOFException(
+            "reader exhausted (tail consumed by the previous multi-step run)"
+        )
+    return readers
+
+
+def _place_readers(program, device):
+    """The executor that runs a program, or its startup program, sets the
+    device its program readers (layers.py_reader, ctr_reader) stage on from
+    their next start(), as the reference's reader takes the place of the
+    executor that runs its startup program. A PyReader made with a place
+    keeps it."""
+    for rd in (list(getattr(program, "_py_readers", ()))
+               + list(getattr(program, "_startup_readers", ()))):
+        take = getattr(rd, "_take_place", None)
+        if take is not None:
+            take(device)
+
+
+def _reader_adapters(readers, device, placement=None, localize=None):
+    """What a puller on `device` does with each started reader's batches,
+    from the (device, placement) its epoch is staged by (staged_on): None
+    where they are already the puller's, `localize` (the ParallelExecutor's
+    split of a global batch into this rank's rows) where a reader stages
+    whole batches and the puller has a placement. A batch staged on another
+    device, or by another placement, raises: the reader keeps its epoch's
+    staging until reset() and start()."""
+    out = []
+    for rd in readers:
+        on = getattr(rd, "staged_on", None)
+        dev, rows = on if on is not None else (None, None)
+        if dev is not None and dev != device:
+            raise RuntimeError(
+                "reader %r stages this epoch on %s but is pulled by an executor on %s: "
+                "reset() and start() it after running its program (or startup program) on "
+                "that executor" % (getattr(rd, "name", rd), dev, device))
+        if rows == placement:
+            out.append(None)
+        elif rows is None and localize is not None:
+            out.append(localize)
+        else:
+            raise RuntimeError(
+                "reader %r stages this epoch by another placement than its puller's: "
+                "reset() and start() it after building the ParallelExecutor that pulls it"
+                % (getattr(rd, "name", rd),))
+    return out
+
+
+def _resolve_reader_feed(program, steps_per_run, device, placement=None, localize=None):
+    """Shared Executor/ParallelExecutor path for feed=None: pull from the
+    program's started py_readers — k batches stacked for a multi-step run
+    (force_multi keeps the [k, ...] fetch contract even for a 1-batch epoch
+    tail), one batch otherwise — as the puller on `device` with `placement`
+    wants them (_reader_adapters). Returns (feed, steps_per_run,
+    force_multi)."""
+    readers = _started_readers(program)
+    adapters = _reader_adapters(readers, device, placement, localize)
+    if steps_per_run > 1 and readers:
+        feed, k = _pull_reader_steps(readers, steps_per_run, adapters)
+        return feed, k, True
+    feed = {}
+    for rd, adapt in zip(readers, adapters):
+        b = rd.next_batch()
+        feed.update(adapt(b) if adapt is not None else b)
+    return feed, steps_per_run, False
+
+
+def _stack_feed_steps(feed_list):
+    """List of k per-step feed dicts -> one dict of stacked values (leading
+    axis k). Values staged on a device stack there, on the current stream
+    (which the pull made wait on their copies)."""
+    if not feed_list:
+        raise ValueError("empty feed list")
+    names = set(feed_list[0])
+    for d in feed_list[1:]:
+        if set(d) != names:
+            raise ValueError(
+                "per-step feeds must share the same names; got %s vs %s"
+                % (sorted(names), sorted(d))
+            )
+    out = {}
+    for name in names:
+        vals = [d[name] for d in feed_list]
+        tensors = [v for v in vals if isinstance(v, torch.Tensor)]
+        if tensors:
+            device = tensors[0].device
+            out[name] = torch.stack([v if isinstance(v, torch.Tensor) else
+                                     to_tensor(v, device) for v in vals])
+        else:
+            out[name] = np.stack([np.asarray(v) for v in vals])
+    return out
+
+
 class Executor:
     """Drop-in for fluid.Executor (reference python/paddle/fluid/executor.py:256)
     on one torch device: `place` None means CUDAPlace(0)."""
@@ -1516,11 +1672,27 @@ class Executor:
         is a list of k per-step dicts or a dict of arrays stacked on a
         leading k axis, and each fetch comes back stacked [k, ...]; on the
         card the k steps replay the single step's graph with no host
-        synchronization between them."""
+        synchronization between them.
+
+        With no feed, the batches come from the program's started readers
+        (layers.py_reader, contrib.reader.ctr_reader, a PyReader in
+        program._py_readers): one batch, or with steps_per_run > 1 up to k
+        batches stacked on the device. An epoch's tail of fewer than k
+        batches still runs as a multi-step call (fetches [tail, ...]), and
+        the next call raises EOFException. A pulled batch reaches the block
+        the same batch fed as a dict of arrays reaches. The run sets the
+        device of the program's readers for their next start()
+        (_place_readers), and a pull from a reader whose epoch is staged
+        on another device raises (_reader_adapters)."""
         if program is None:
             program = framework.default_main_program()
         if steps_per_run < 1:
             raise ValueError("steps_per_run must be >= 1")
+        force_multi = False
+        _place_readers(program, self.device)
+        if not feed:
+            feed, steps_per_run, force_multi = _resolve_reader_feed(program, steps_per_run,
+                                                                    self.device)
         if isinstance(feed, (list, tuple)):
             if steps_per_run == 1:
                 steps_per_run = len(feed)
@@ -1532,7 +1704,7 @@ class Executor:
             else:
                 feed = {n: np.stack([np.asarray(d[n]) for d in feed]) for n in feed[0]}
         feed = dict(feed or {})
-        multi = steps_per_run > 1
+        multi = steps_per_run > 1 or force_multi
         fetch_list = fetch_list or []
         scope = scope or global_scope()
         if scope.bind(self.device) != self.device:

@@ -125,12 +125,11 @@ _CHOICES = {"paged_flash": ("auto", "off"), "quantized_gemm": ("auto", "off"),
 
 # flag -> the module of the JAX package that reads it and the port has not
 # ported yet, with its ROADMAP queue
-_RPC = "the RPC client (distributed/rpc.py, ROADMAP A7)"
-_RESILIENCE = "resilience/ (ROADMAP A7)"
-_ELASTIC = "resilience/elastic.py (ROADMAP A7)"
-_DATA = "the native data runtime data/ (ROADMAP A7)"
-_TELEMETRY = "observability/export.py and stepstats.py (ROADMAP A7)"
-_OPPROF = "observability/opprof.py (ROADMAP A7)"
+_RPC = "the RPC client (distributed/rpc.py, ROADMAP A item 3)"
+_RESILIENCE = "resilience/ (ROADMAP A item 2)"
+_ELASTIC = "resilience/elastic.py (ROADMAP A item 2)"
+_TELEMETRY = "observability/export.py and stepstats.py (ROADMAP A item 4)"
+_OPPROF = "observability/opprof.py (ROADMAP A item 4)"
 PENDING = {
     "rpc_max_retry": _RPC,
     "rpc_deadline": _RPC,
@@ -142,11 +141,6 @@ PENDING = {
     "telemetry_log_every": _TELEMETRY,
     "tensor_stats": _OPPROF,
     "nan_provenance": _OPPROF,
-    "data_num_workers": _DATA,
-    "data_ring_slots": _DATA,
-    "data_prefetch": _DATA,
-    "data_start_method": _DATA,
-    "data_max_worker_restarts": _DATA,
     "elastic_step_deadline_s": _ELASTIC,
     "elastic_nan_budget": _ELASTIC,
     "elastic_rollback_budget": _ELASTIC,

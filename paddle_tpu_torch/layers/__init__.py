@@ -1,8 +1,9 @@
 """Layer functions that build Programs (paddle_tpu/layers), re-exported
 flat so that `fluid.layers.fc(...)` works unchanged: the GPTDecoder, the
 Transformer, the CNN training programs, the sequence, control-flow,
-loss and learning-rate layers of the recurrent models, and the detection
-layers (`Print` among the control-flow ones)."""
+loss and learning-rate layers of the recurrent models, the detection
+layers (`Print` among the control-flow ones), and the data layer's feed
+variables and program readers (`data`, `py_reader`, `read_file`)."""
 
 from . import (  # noqa: F401
     control_flow,

@@ -341,6 +341,34 @@ class _ParallelPlan:
             env[name] = collectives.all_gather(env[name], "dp", mesh=self.mesh)
 
 
+class _BatchRows:
+    """This rank's rows of a global-batch field: its `batch_dim` split into n
+    equal parts over dp x fsdp, of which rank `me` takes one (a field with no
+    batch dim stays whole). A batch dim that n does not divide raises, as
+    the reference PE's split does. It is also the placement the PE gives
+    the program's readers (Stager), so a reader stages what _split_feed
+    would give; two PEs of one layout give equal placements."""
+
+    def __init__(self, n, me):
+        self.n, self.me = n, me
+
+    def __call__(self, arr, batch_dim=0):
+        if arr.ndim <= batch_dim:
+            return arr
+        if arr.shape[batch_dim] % self.n:
+            raise ValueError(
+                "batch dim %d not divisible by device count %d (the reference PE splits "
+                "the batch across devices the same way)" % (arr.shape[batch_dim], self.n))
+        rows = arr.shape[batch_dim] // self.n
+        return arr[(slice(None),) * batch_dim + (slice(self.me * rows, (self.me + 1) * rows),)]
+
+    def __eq__(self, other):
+        return type(other) is _BatchRows and (self.n, self.me) == (other.n, other.me)
+
+    def __hash__(self):
+        return hash((self.n, self.me))
+
+
 class ParallelExecutor:
     """Drop-in for fluid.ParallelExecutor (reference parallel_executor.py:32).
 
@@ -385,6 +413,8 @@ class ParallelExecutor:
                 "pipeline stage runs on whole parameters" % sorted(self._stored)[:4])
         self._cache = {}
         self._pool = None
+        self._reader_rows = self._reader_placement()
+        self._install_reader_placement()
 
     # ------------------------------------------------------------ set-up
     def _rules(self):
@@ -519,34 +549,30 @@ class ParallelExecutor:
     def _split_feed(self, feed, batch_dim=0):
         """This rank's rows of the global batch: split over dp x fsdp along
         `batch_dim` (1 for feeds stacked on a leading steps axis)."""
-        n = self.device_count
-        me = self._mesh.index(BATCH_AXES)
+        rows = _BatchRows(self.device_count, self._mesh.index(BATCH_AXES))
         out = {}
         for name, value in feed.items():
             arr = value if isinstance(value, torch.Tensor) else np.asarray(value)
-            if arr.ndim > batch_dim:
-                if arr.shape[batch_dim] % n:
-                    raise ValueError(
-                        "batch dim %d of feed %r not divisible by device count %d "
-                        "(the reference PE splits the batch across devices the same way)"
-                        % (arr.shape[batch_dim], name, n))
-                rows = arr.shape[batch_dim] // n
-                arr = arr[(slice(None),) * batch_dim + (slice(me * rows, (me + 1) * rows),)]
-            out[name] = arr
+            try:
+                out[name] = rows(arr, batch_dim)
+            except ValueError as e:
+                raise ValueError("feed %r: %s" % (name, e)) from e
         return out
 
-    def _cache_key(self, program, feed, fetch_names, steps_per_run):
+    def _cache_key(self, program, feed, fetch_names, steps_per_run, multi=False):
         pp = self._mesh.axis_size("pp")
         rules = self._rules()
         return (program._uid, program._version, _feed_signature(feed), tuple(fetch_names),
-                self._scope._uid, _lowering_flags(), steps_per_run,
+                self._scope._uid, _lowering_flags(), steps_per_run, multi,
                 (self._exec_strategy.pipeline_schedule, self._exec_strategy.num_microbatches)
                 if pp > 1 else None,
                 rules.fingerprint())
 
-    def _block(self, program, feed, fetch_names, steps_per_run=1, feed_signature=None):
+    def _block(self, program, feed, fetch_names, steps_per_run=1, feed_signature=None,
+               multi=False):
         block = program.global_block()
-        key = self._cache_key(program, feed_signature or feed, fetch_names, steps_per_run)
+        multi = multi or steps_per_run > 1
+        key = self._cache_key(program, feed_signature or feed, fetch_names, steps_per_run, multi)
         compiled = self._cache.get(key)
         if compiled is not None:
             return compiled
@@ -582,7 +608,7 @@ class ParallelExecutor:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             compiled = _CompiledBlock(prepared, self._pool)
-        if steps_per_run > 1:
+        if multi:
             compiled = _MultiStepBlock(compiled, steps_per_run)
         self._cache[key] = compiled
         return compiled
@@ -594,10 +620,25 @@ class ParallelExecutor:
         steps_per_run > 1 runs k steps in one call over a dict of feeds
         stacked on a leading k axis (a feed list keeps its meaning of
         per-device dicts, so it is refused there), and each fetch comes
-        back stacked [k, ...]."""
+        back stacked [k, ...]. With no feed, the program's started readers
+        give the batches as in Executor.run, each rank staging only its
+        rows (_install_reader_placement)."""
         if steps_per_run < 1:
             raise ValueError("steps_per_run must be >= 1")
         feed = feed if feed is not None else (feed_dict or {})
+        force_multi = pulled = False
+        if not feed:
+            # pull staged batches from the program's started readers, as
+            # Executor.run does; each rank gets its rows of them, staged
+            # as its rows where the reader started under this PE
+            from .executor import _resolve_reader_feed
+
+            self._install_reader_placement()
+            feed, steps_per_run, force_multi = _resolve_reader_feed(
+                self._program, steps_per_run, self._scope.device, self._reader_rows,
+                self._split_feed)
+            pulled = bool(feed)
+        multi = steps_per_run > 1 or force_multi
         if isinstance(feed, (list, tuple)):
             if steps_per_run > 1:
                 raise TypeError(
@@ -612,7 +653,7 @@ class ParallelExecutor:
                 for k, v in d.items():
                     merged.setdefault(k, []).append(np.asarray(v))
             feed = {k: np.concatenate(vs, axis=0) for k, vs in merged.items()}
-        if steps_per_run > 1 and self._mesh.axis_size("pp") > 1:
+        if multi and self._mesh.axis_size("pp") > 1:
             raise NotImplementedError(
                 "steps_per_run > 1 is not supported with pipeline parallelism yet; run one "
                 "step per call on a pp mesh")
@@ -621,24 +662,45 @@ class ParallelExecutor:
             self._program, self._scope, list(feed), fetch_names,
             pipeline=self._build_strategy.resolved_pass_pipeline())
         block = program.global_block()
-        if steps_per_run > 1:
-            local = self._split_feed(feed, batch_dim=1)
+        if multi:
+            local = feed if pulled else self._split_feed(feed, batch_dim=1)
             one = {n: (v[0] if np.ndim(v) else v) for n, v in local.items()}
             compiled = self._block(program, one, fetch_names, steps_per_run,
-                                   feed_signature=local)
+                                   feed_signature=local, multi=True)
             fetches = compiled(self._scope, local)
             fetches = [torch.stack([self._global_fetch(block, n, f[i]) for i in range(len(f))])
                        for n, f in zip(fetch_names, fetches)]
             if return_numpy:
                 return _MultiStepBlock.to_host(fetches)
         else:
-            local = self._split_feed(feed)
+            local = feed if pulled else self._split_feed(feed)
             fetches = self._block(program, local, fetch_names)(self._scope, local)
             fetches = [self._global_fetch(block, n, f) for n, f in zip(fetch_names, fetches)]
         if return_numpy:
             return [(f.float() if f.dtype == torch.bfloat16 else f).detach()
                     .to("cpu", copy=True).numpy() for f in fetches]
         return [f.clone() for f in fetches]
+
+    def _reader_placement(self):
+        """The placement callable of the program's readers (the JAX
+        package installs a NamedSharding over the data axes): each field is
+        staged as this rank's rows, the rows _split_feed gives it. None on
+        one device."""
+        n = self.device_count
+        return _BatchRows(n, self._mesh.index(BATCH_AXES)) if n > 1 else None
+
+    def _install_reader_placement(self):
+        """Give the program's readers this rank's device and placement (at
+        construction, so a reader started after it stages its rows from the
+        first batch, and again at each pull, for the readers' next epoch). A
+        reader started before keeps its epoch's staging: a pull splits its
+        whole batches (executor._reader_adapters)."""
+        for reader in getattr(self._program, "_py_readers", []):
+            take = getattr(reader, "_take_place", None)
+            if take is not None:
+                take(self._scope.device)
+            if hasattr(reader, "set_device_sharding"):
+                reader.set_device_sharding(self._reader_rows)
 
     def _global_fetch(self, block, name, val):
         """The global batch's value of a fetched var: rows all-gathered over

@@ -1,11 +1,12 @@
 """Places (reference paddle/fluid/platform/place.h:26-99 — CPUPlace,
-CUDAPlace). Here a place names a torch.device. Entry points take the card
+CUDAPlace, CUDAPinnedPlace). Here a place names a torch.device; pinned host
+memory is a CPU place, as in the JAX package. Entry points take the card
 unless the caller passes CPUPlace() explicitly: with no place and no CUDA
 device, to_device() raises instead of carrying on on the CPU."""
 
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace", "is_compiled_with_cuda", "to_device"]
+__all__ = ["CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "is_compiled_with_cuda", "to_device"]
 
 
 class Place:
@@ -40,6 +41,14 @@ class CUDAPlace(Place):
 
     def __repr__(self):
         return "CUDAPlace(%d)" % self.device_id
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory: the CPU (the data layer stages through
+    pinned buffers of its own whatever the place)."""
+
+    def __repr__(self):
+        return "CUDAPinnedPlace"
 
 
 def is_compiled_with_cuda():

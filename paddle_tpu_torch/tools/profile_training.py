@@ -89,10 +89,13 @@ LENET = dict(batch=64, lr=1e-3, shuffle=500)
 RESNET50 = dict(batch=256, lr=0.1, momentum=0.9, staged=4)
 
 
-def build(cfg, lr=LEARNING_RATE):
+def build(cfg, lr=LEARNING_RATE, reader=False):
     """(main, startup, loss): one training step of the Transformer under
     Adam, built with the port's layers, backward and optimizer. Under
-    use_flash there are no bias data vars: the model gets None."""
+    use_flash there are no bias data vars: the model gets None. With
+    reader, the feeds are the slots of one layers.py_reader (read_file),
+    `main._py_readers[0]`, whose slot of each feed name reader_feed gives;
+    the program is the same otherwise, parameters and op order included."""
     from .. import framework, layers, optimizer, unique_name
     from ..models import transformer
 
@@ -101,14 +104,26 @@ def build(cfg, lr=LEARNING_RATE):
     main, startup = framework.Program(), framework.Program()
     with unique_name.guard(), framework.program_guard(main, startup):
         v = {}
+        specs = {}
         for name in FEED_NAMES:
             if name.endswith("bias"):
-                v[name] = None if flash else layers.data(
-                    name=name, shape=[h, t, t], dtype="float32")
+                if not flash:
+                    specs[name] = ([h, t, t], "float32")
             elif name == "lbl_weight":
-                v[name] = layers.data(name=name, shape=[t, 1], dtype="float32")
+                specs[name] = ([t, 1], "float32")
             else:
-                v[name] = layers.data(name=name, shape=[t, 1], dtype="int64")
+                specs[name] = ([t, 1], "int64")
+        if reader:
+            names = [n for n in FEED_NAMES if n in specs]
+            rd = layers.py_reader(capacity=4, shapes=[[-1] + specs[n][0] for n in names],
+                                  dtypes=[specs[n][1] for n in names], name="feed_reader")
+            slots = layers.read_file(rd)
+            v = dict(zip(names, slots if isinstance(slots, list) else [slots]))
+            main._reader_slots = {n: s.name for n, s in v.items()}
+        else:
+            v = {n: layers.data(name=n, shape=specs[n][0], dtype=specs[n][1]) for n in specs}
+        for name in FEED_NAMES:
+            v.setdefault(name, None)
         loss, _ = transformer.transformer(
             *(v[n] for n in FEED_NAMES),
             src_vocab_size=cfg["vocab"], trg_vocab_size=cfg["vocab"],
@@ -119,6 +134,12 @@ def build(cfg, lr=LEARNING_RATE):
         )
         optimizer.Adam(learning_rate=lr).minimize(loss)
     return main, startup, loss
+
+
+def reader_feed(main, batch):
+    """A make_batch batch keyed by the slots of `main`'s reader
+    (build(reader=True))."""
+    return {main._reader_slots[n]: v for n, v in batch.items()}
 
 
 def tp_rules(program, layout=None):

@@ -28,13 +28,15 @@ REF, PORT = "paddle_tpu", "paddle_tpu_torch"
 # the TPU place and the JAX device / compiled HLO accessors: nothing to
 # port to a CUDA card
 NO_COUNTERPART = ("TPUPlace", "jax_device", "compiled_hlo")
-# the port's keywords beside the spec's: the device of a scope and of an
-# imported tensor
+# the port's keywords beside the spec's: the device of a scope, of an
+# imported tensor and of the data runtime's staged batches
 ADDED_KEYWORDS = {"paddle_tpu.fluid.Scope.__init__": "place",
-                  "paddle_tpu.lod_tensor.from_dlpack": "place"}
+                  "paddle_tpu.lod_tensor.from_dlpack": "place",
+                  "paddle_tpu.data.DataRuntime.__init__": "place"}
 # the port's own public names (spec names, as the reference would list them)
 PORT_ADDED = {
     "paddle_tpu.fluid.CPUPlace.torch_device", "paddle_tpu.fluid.CUDAPlace.torch_device",
+    "paddle_tpu.fluid.CUDAPinnedPlace.torch_device",
     "paddle_tpu.fluid.Executor.stats", "paddle_tpu.fluid.Scope.bind",
     "paddle_tpu.fluid.Scope.reseed", "paddle_tpu.serving.GenerationEngine.captures",
     "paddle_tpu.serving.ServingEngine.run_op_by_op",
@@ -42,15 +44,6 @@ PORT_ADDED = {
 # names of modules the port has, missing because what defines them waits in
 # ROADMAP queue A: (name prefix, the item)
 PENDING = (
-    ("paddle_tpu.fluid.AsyncExecutor.", "A1"), ("paddle_tpu.fluid.DataFeedDesc.", "A1"),
-    ("paddle_tpu.fluid.EOFException.", "A1"), ("paddle_tpu.fluid.CUDAPinnedPlace.", "A1"),
-    ("paddle_tpu.layers.batch", "A1"), ("paddle_tpu.layers.double_buffer", "A1"),
-    ("paddle_tpu.layers.py_reader", "A1"), ("paddle_tpu.layers.read_file", "A1"),
-    ("paddle_tpu.layers.shuffle", "A1"), ("paddle_tpu.layers.io.batch", "A1"),
-    ("paddle_tpu.layers.io.double_buffer", "A1"), ("paddle_tpu.layers.io.py_reader", "A1"),
-    ("paddle_tpu.layers.io.read_file", "A1"), ("paddle_tpu.layers.io.shuffle", "A1"),
-    ("paddle_tpu.reader.creator.recordio", "A1"),
-    ("paddle_tpu.reader.creator.convert_reader_to_recordio_file", "A1"),
     ("paddle_tpu.resilience.", "A2"),
     ("paddle_tpu.fluid.DistributeTranspiler", "A3"),
     ("paddle_tpu.transpiler.DistributeTranspiler", "A3"),
@@ -58,6 +51,7 @@ PENDING = (
     ("paddle_tpu.transpiler.RoundRobin.", "A3"),
     ("paddle_tpu.observability.", "A4"), ("paddle_tpu.profiler.device_op_profile", "A4"),
     ("paddle_tpu.profiler.xla_trace", "A4"),
+    ("paddle_tpu.contrib.memory_usage", "A6"), ("paddle_tpu.contrib.op_freq_statistic", "A6"),
 )
 
 

@@ -141,21 +141,21 @@ PENDING = {
     "telemetry_dir": ("/tmp/t", "export"),
     "telemetry_interval_steps": (10, "export"), "telemetry_log_every": (1, "export"),
     "tensor_stats": ("*", "opprof"), "nan_provenance": (True, "opprof"),
-    "data_num_workers": (2, "data/"), "data_ring_slots": (8, "data/"),
-    "data_prefetch": (4, "data/"), "data_start_method": ("spawn", "data/"),
-    "data_max_worker_restarts": (1, "data/"), "elastic_step_deadline_s": (5.0, "elastic"),
+    "elastic_step_deadline_s": (5.0, "elastic"),
     "elastic_nan_budget": (1, "elastic"), "elastic_rollback_budget": (1, "elastic"),
     "elastic_barrier_timeout_s": (5.0, "elastic"),
 }
 
 # flags whose module is ported: a value other than the default is taken
 PORTED = {"flightrec_max_bundles": 4, "flightrec_min_interval_s": 0.5,
-          "pass_debug_dir": "pass_dumps", "static_verify": True, "dist_init_max_retry": 1}
+          "pass_debug_dir": "pass_dumps", "static_verify": True, "dist_init_max_retry": 1,
+          "data_num_workers": 2, "data_ring_slots": 8, "data_prefetch": 4,
+          "data_start_method": "spawn", "data_max_worker_restarts": 1}
 
 
 def test_pending_table_is_the_rest_of_the_flags():
     assert sorted(PENDING) == sorted(flags.PENDING)
-    assert len(PENDING) == 19
+    assert len(PENDING) == 14
     assert set(PENDING) | set(RECORDED) | set(PORTED) | {
         "paged_flash", "quantized_gemm", "fp8_matmul", "check_nan_inf", "profile_ops",
         "pass_pipeline", "serving_cache_dir", "trace_dir", "trace_sample", "trace_slow_ms",

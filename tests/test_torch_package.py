@@ -10,8 +10,10 @@ import pytest
 import torch
 
 import paddle_tpu_torch
-from paddle_tpu_torch import CPUPlace, Executor, Scope
+from paddle_tpu_torch import AsyncExecutor, CPUPlace, Executor, Scope
+from paddle_tpu_torch.data import DataRuntime
 from paddle_tpu_torch.models import GPTDecoder
+from paddle_tpu_torch.py_reader import PyReader
 from paddle_tpu_torch.serving import GenerationEngine, ServingEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,8 +62,12 @@ def no_cuda():
                                             d_inner=8, max_context=8, kv_dtype="int8")),
         # the card is taken before the model directory is read
         lambda: ServingEngine("no_model_dir"),
+        lambda: AsyncExecutor(),
+        lambda: PyReader(["x"]),
+        lambda: DataRuntime(lambda shard: iter(()), num_shards=1),
     ],
-    ids=["Scope", "Executor", "GenerationEngine", "GenerationEngine_int8", "ServingEngine"],
+    ids=["Scope", "Executor", "GenerationEngine", "GenerationEngine_int8", "ServingEngine",
+         "AsyncExecutor", "PyReader", "DataRuntime"],
 )
 def test_entry_points_without_place_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):

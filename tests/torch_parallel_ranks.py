@@ -738,6 +738,140 @@ def sc_multistep(rank, world, p):
     return out
 
 
+def sc_multistep_reader(rank, world, p):
+    """The multi-step py_reader form through the PE at dp = world: a
+    PyReader over the global batches in the program's readers, pulled
+    steps_per_run=k at a time to the epoch's end (a shorter tail, then
+    EOFException), against the same batches fed as stacked global dicts to
+    another PE. The reader stages this rank's rows only."""
+    fluid, _ = _port()
+    from paddle_tpu_torch.py_reader import EOFException, PyReader
+
+    k = p["k"]
+    batches = sq_batches(p["steps"], p["seed"], batch=p["batch"])
+    out = {}
+    for form in ("dict", "reader"):
+        main, startup, loss = build_sq_mlp(fluid)
+        scope = port_state(fluid, startup, p["init"])
+        reader = None
+        if form == "reader":
+            reader = PyReader(["x", "y"], capacity=4, place=fluid.CPUPlace())
+            reader.decorate_tensor_provider(lambda: iter(batches))
+            main._py_readers = [reader]
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope)
+        losses, shapes = [], []
+        if form == "reader":
+            reader.start()
+            out["staged_rows"] = tuple(reader.next_batch()["x"].shape)
+            reader.reset()
+            reader.start()
+            try:
+                while True:
+                    (val,) = pe.run(fetch_list=[loss.name], steps_per_run=k)
+                    shapes.append(np.asarray(val).shape[0])
+                    losses.extend(float(v) for v in np.asarray(val).reshape(-1))
+            except EOFException:
+                out["eof"] = True
+        else:
+            for i in range(0, len(batches), k):
+                chunk = batches[i:i + k]
+                stacked = {n: np.stack([b[n] for b in chunk]) for n in batches[0]}
+                (val,) = pe.run(fetch_list=[loss.name], feed=stacked, steps_per_run=len(chunk))
+                shapes.append(np.asarray(val).shape[0])
+                losses.extend(float(v) for v in np.asarray(val).reshape(-1))
+        out[form] = {"losses": losses, "shapes": shapes,
+                     "params": {n: scope.vars[n].numpy().copy()
+                                for n in sorted(scope.vars) if n.startswith("fc_")}}
+    return out
+
+
+def sc_reader_staging(rank, world, p):
+    """The PE's pull at dp = world whatever the reader staged: a reader
+    started before the PE (its epoch staged whole and split by the pull), a
+    cache_epoch reader whose cached epoch was staged whole (staged again as
+    this rank's rows once the PE gives its placement), each against the
+    same batches fed as stacked global dicts; and an epoch that ends on a
+    batch whose rows dp does not divide, pulled from a reader started
+    before and after the PE: the pull raises ValueError, as the dict feed
+    of that batch does."""
+    fluid, _ = _port()
+    from paddle_tpu_torch.py_reader import EOFException, PyReader
+
+    k = p["k"]
+    batches = sq_batches(p["steps"], p["seed"], batch=p["batch"])
+    odd = {n: v[:p["batch"] - 1] for n, v in batches[0].items()}
+
+    def params(scope):
+        return {n: scope.vars[n].numpy().copy() for n in sorted(scope.vars) if n.startswith("fc_")}
+
+    def pe_of(main, loss, scope):
+        return fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope)
+
+    out = {}
+    main, startup, loss = build_sq_mlp(fluid)
+    scope = port_state(fluid, startup, p["init"])
+    pe, losses = pe_of(main, loss, scope), []
+    for i in range(0, len(batches), k):
+        stacked = {n: np.stack([b[n] for b in batches[i:i + k]]) for n in batches[0]}
+        (val,) = pe.run(fetch_list=[loss.name], feed=stacked,
+                        steps_per_run=len(batches[i:i + k]))
+        losses.extend(float(v) for v in np.asarray(val).reshape(-1))
+    out["dict"] = {"losses": losses, "params": params(scope)}
+    try:
+        pe.run(fetch_list=[loss.name], feed=odd)
+    except ValueError as e:
+        out["dict_odd"] = str(e)
+
+    def reader_of(epoch, cache=False):
+        reader = PyReader(["x", "y"], capacity=4, cache_epoch=cache, place=fluid.CPUPlace())
+        reader.decorate_tensor_provider(lambda: (reader.sources.append(1), iter(epoch))[1])
+        reader.sources = []
+        return reader
+
+    for form in ("before", "cached"):
+        main, startup, loss = build_sq_mlp(fluid)
+        scope = port_state(fluid, startup, p["init"])
+        reader = reader_of(batches, cache=form == "cached")
+        main._py_readers = [reader]
+        reader.start()
+        if form == "cached":  # one epoch staged whole and cached
+            try:
+                while True:
+                    reader.next_batch()
+            except EOFException:
+                pass
+        pe = pe_of(main, loss, scope)
+        if form == "cached":
+            reader.start()
+        got = {"whole": reader.staged_on[1] is None, "losses": []}
+        try:
+            while True:
+                (val,) = pe.run(fetch_list=[loss.name], steps_per_run=k)
+                got["losses"].extend(float(v) for v in np.asarray(val).reshape(-1))
+        except EOFException:
+            pass
+        got["params"], got["sources"] = params(scope), len(reader.sources)
+        out[form] = got
+    for form in ("odd_before", "odd_after"):
+        main, startup, loss = build_sq_mlp(fluid)
+        scope = port_state(fluid, startup, p["init"])
+        reader = reader_of(batches[:2] + [odd])
+        main._py_readers = [reader]
+        if form == "odd_before":
+            reader.start()
+        pe = pe_of(main, loss, scope)
+        if form == "odd_after":
+            reader.start()
+        for _ in range(2):
+            pe.run(fetch_list=[loss.name])
+        try:
+            pe.run(fetch_list=[loss.name])
+        except ValueError as e:
+            out[form] = str(e)
+        reader.reset()
+    return out
+
+
 def build_sq_mlp(fluid, dropout=0.0, seed=0):
     """tests/test_multistep.py's MLP: fc 8 -> 16 relu [-> dropout] -> 1,
     squared error, SGD."""
@@ -764,7 +898,7 @@ def sq_batches(k, seed=3, batch=16):
     return out
 
 
-SCENARIOS = {f.__name__: f for f in (sc_mlp, sc_zero1, sc_zero1_ckpt, sc_model, sc_deepfm,
+SCENARIOS = {f.__name__: f for f in (sc_multistep_reader, sc_reader_staging, sc_mlp, sc_zero1, sc_zero1_ckpt, sc_model, sc_deepfm,
                                      sc_ring, sc_collectives, sc_rules, sc_rules_ckpt, sc_pp,
                                      sc_layout_collectives, sc_pp_ckpt, sc_gpipe, sc_transformer_tp, sc_transformer_pp,
                                      sc_multistep)}
