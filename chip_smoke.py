@@ -8063,6 +8063,365 @@ def _start_native_build():
     return wait
 
 
+# ---------------------------------------------------------------- resilience
+
+RESILIENCE_STEPS = 6  # supervised graph steps of train_flash's configuration
+RESILIENCE_EVERY = 2  # a checkpoint every 2 steps, the newest 2 kept
+GUARD_STEPS = 4  # steps a turn of the guard-off / guard-on walls
+# kernel table name -> launch key of the rows a supervised step reaches
+RESILIENCE_KERNELS = {"gemm_epilogue": "gemm_epilogue", "flash_fwd": "flash_fwd",
+                      "flash_fwd_causal": "flash_fwd_causal", "flash_bwd": "flash_bwd_fused",
+                      "flash_bwd_causal": "flash_bwd_fused_causal", "layer_norm": "layer_norm",
+                      "layer_norm_grad": "layer_norm_grad", "multi_adam": "multi_adam"}
+PSERVER_STEPS = 6  # sync rounds of the DeepFM cluster
+PSERVER_RTOL, PSERVER_ATOL = 2e-3, 2e-4  # tests/test_dist_subprocess.py's bar
+
+
+def _bits_equal(torch, a, b):
+    """Whether two tensors hold the same bits (a float compared as the
+    integers of its width, so -0.0 and 0.0 or two NaNs are told apart)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float64: torch.int64, torch.float16: torch.int16}
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = ints.get(a.dtype)
+    return bool(torch.equal(a.view(view), b.view(view)) if view else torch.equal(a, b))
+
+
+def _differing(torch, got, want):
+    return sorted(n for n in want if not _bits_equal(torch, got[n], want[n]))
+
+
+def train_resilience(torch, card, readings):
+    """train_flash's configuration (Transformer base, f32, Adam, training_fused,
+    use_flash) at dropout 0 under the elastic Supervisor: RESILIENCE_STEPS graph
+    steps with a checkpoint every RESILIENCE_EVERY (AsyncCheckpointer: each
+    save's stall, state bytes, pinned buffers made and commit wall; each
+    commit verified); a fresh Scope and Executor resumed from step 4 give
+    steps 5-6's losses and every persistable bit for bit; the NaN guard's
+    step wall against the guard off, in turns; a nan_grad step rolled back
+    bit for bit with the learning rate decayed; a preempt fault (SIGTERM)
+    drained and committed. Returns the training kernels' launches over the
+    supervised steps."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.py_reader import PyReader
+    from paddle_tpu_torch.resilience import Preempted, Supervisor, async_ckpt, faults, health
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    cfg = dict(prof.BASE_FLASH, dropout=0.0)
+    main_prog, startup, loss = prof.build(cfg)
+    batches = [prof.make_batch(cfg, SEED + 200 + i) for i in range(RESILIENCE_STEPS)]
+    flags.set_flags({"pass_pipeline": "training_fused"})
+    place = CUDAPlace(0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        # the uninterrupted run, supervised, on CUDA graphs
+        root = os.path.join(tmp, "run")
+        scope, exe = Scope(seed=SEED, place=place), Executor(place)
+        sup = Supervisor(exe, root, program=main_prog, scope=scope, ckpt_every=RESILIENCE_EVERY,
+                         keep_last=2)
+        cp = sup.checkpointer
+        losses, saves = [], []
+        with scope_guard(scope):
+            if sup.resume_or_init(startup)[0] != 0:
+                raise AssertionError("train resilience: a fresh root resumed")
+            fused.reset_stats()  # the main path's counting window opens here
+            with sup:
+                for feed in batches:
+                    (lv,) = sup.run_step(program=main_prog, feed=feed, fetch_list=[loss.name])
+                    losses.append(np.asarray(lv).reshape(-1)[0])
+                    if sup.step % RESILIENCE_EVERY == 0:
+                        # join this save's writer so each commit is read and
+                        # verified on its own
+                        cp.wait()
+                        if not async_ckpt.verify_elastic_checkpoint(cp.last_commit_dir):
+                            raise AssertionError("train resilience: commit %s does not verify"
+                                                 % cp.last_commit_dir)
+                        saves.append(dict(cp.stats))
+            launches = fused.stats()["launches"]  # and closes here
+        final = {n: t.clone() for n, t in sup._state().items()}
+        moved = {k: launches.get(key, 0) for k, key in RESILIENCE_KERNELS.items()}
+        if not all(moved.values()):
+            raise AssertionError("train resilience: kernels not launched %s" % moved)
+        if not (saves[0]["pinned_blocks"] > 0 and all(s["pinned_blocks"] == 0 for s in saves[1:])):
+            raise AssertionError("train resilience: pinned buffers made a save %s"
+                                 % [s["pinned_blocks"] for s in saves])
+        # resume from step 4 in a fresh Scope (another seed: the restore
+        # must win) and Executor
+        r4 = os.path.join(tmp, "from4")
+        os.makedirs(r4)
+        os.rename(os.path.join(root, "eckpt-%08d" % 4), os.path.join(r4, "eckpt-%08d" % 4))
+        shutil.rmtree(root)
+        del sup
+        scope2, exe2 = Scope(seed=SEED + 1, place=place), Executor(place)
+        sup2 = Supervisor(exe2, r4, program=main_prog, scope=scope2, ckpt_every=0)
+        with scope_guard(scope2):
+            start, cursor = sup2.resume_or_init(startup)
+            if (start, cursor.get("batch_index")) != (4, 4):
+                raise AssertionError("train resilience: resumed at %s, cursor %s" % (start, cursor))
+            with sup2:
+                resumed = [np.asarray(sup2.run_step(program=main_prog, feed=feed,
+                                                    fetch_list=[loss.name])[0]).reshape(-1)[0]
+                           for feed in batches[4:]]
+        _same_bits("train resilience, resumed loss against the uninterrupted run's, step",
+                   resumed, losses[4:])
+        bad = _differing(torch, sup2._state(), final)
+        if bad or sorted(sup2._state()) != sorted(final):
+            raise AssertionError("train resilience: after the resume, persistables %s differ" % bad)
+        n_state = len(final)
+        del final
+
+        # the guard's finiteness test on the card: one NaN or Inf element
+        # anywhere in f32 or bf16 state is found
+        from paddle_tpu_torch.executor import _all_finite
+
+        dev = scope2.device
+        probe = [torch.randn(1 << 22, device=dev), torch.randn(4097, device=dev).bfloat16()]
+        for t, i, v in ((0, 123457, float("nan")), (1, 4096, float("inf")),
+                        (0, (1 << 22) - 1, -float("inf")), (1, 0, float("nan"))):
+            if not _all_finite(probe):
+                raise AssertionError("train resilience: finite tensors read as non-finite")
+            old = probe[t][i].clone()
+            probe[t][i] = v
+            if _all_finite(probe):
+                raise AssertionError("train resilience: %r at %d of tensor %d not found" % (v, i, t))
+            probe[t][i] = old
+        del probe
+
+        # the NaN guard: its step wall against the guard off, in turns (the
+        # graph replays), then one poisoned step rolled back
+        walls = {False: [], True: []}
+        with scope_guard(scope2):
+            for on in (False, True, False, True):
+                flags.set_flags({"resilience_nan_guard": on})
+                for j in range(GUARD_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (lv,) = exe2.run(main_prog, feed=batches[j], fetch_list=[loss.name])
+                    walls[on].append((time.perf_counter() - t0) * 1e3)
+            health.reset()
+            before = {n: t.clone() for n, t in sup2._state().items()}
+            faults.install("nan_grad:step=1")
+            try:
+                (lv,) = exe2.run(main_prog, feed=batches[0], fetch_list=[loss.name])
+            finally:
+                faults.install(None)
+            decay = flags.get_flags("resilience_lr_decay")["resilience_lr_decay"]
+            after = sup2._state()
+            lr_names = [n for n in before if n.rsplit("/", 1)[-1].startswith("learning_rate")]
+            want = dict(before, **{n: before[n] * decay for n in lr_names})
+            bad = _differing(torch, after, want)
+            if not np.isnan(lv).all() or bad or not lr_names:
+                raise AssertionError("train resilience: the guarded step left %s changed (loss %r, "
+                                     "lr vars %s)" % (bad, lv, lr_names))
+            if health.get("nan_steps_skipped") != 1:
+                raise AssertionError("train resilience: nan_steps_skipped %d"
+                                     % health.get("nan_steps_skipped"))
+            # the next replay copies the rolled-back values into the graph's
+            # own tensors and trains from them
+            (lv,) = exe2.run(main_prog, feed=batches[1], fetch_list=[loss.name])
+            if not np.isfinite(lv).all():
+                raise AssertionError("train resilience: the step after the rollback gave %r" % lv)
+            flags.set_flags({"resilience_nan_guard": False})
+        del before, want, after
+
+        # preemption: SIGTERM at the second supervised step drains the
+        # reader and commits the step it stopped at
+        proot = os.path.join(tmp, "preempt")
+        reader = PyReader(["x"], return_device_arrays=False, place=place)
+        reader.decorate_paddle_reader(
+            lambda: iter([[(np.full(4, i, "float32"),) for i in range(2)] for _ in range(8)]))
+        reader.start()
+        sup3 = Supervisor(exe2, proot, program=main_prog, scope=scope2, ckpt_every=0,
+                          reader=reader)
+        sup3.step = 7
+        faults.install("preempt:step=2")
+        preempted = None
+        try:
+            with scope_guard(scope2), sup3:
+                for feed in batches:
+                    sup3.run_step(program=main_prog, feed=feed, fetch_list=[loss.name])
+        except Preempted as e:
+            preempted = str(e)
+        finally:
+            faults.install(None)
+        found = async_ckpt.latest_valid_elastic(proot)
+        if preempted is None or found is None or found[0] != sup3.step or \
+                health.get("preemptions") != 1:
+            raise AssertionError("train resilience: preemption %r, commit %r at step %d"
+                                 % (preempted, found, sup3.step))
+        dropped = health.get("drain_batches_dropped")
+        del sup2, sup3, scope2, exe2, scope, exe
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    p50 = {on: float(np.median(w)) for on, w in walls.items()}
+    reading = {"saves": saves, "guard_off_step_p50_ms": p50[False],
+               "guard_on_step_p50_ms": p50[True], "preempt_commit_step": found[0],
+               "launches": moved}
+    readings["train_resilience"] = reading
+    log("train resilience: Transformer base flash at dropout 0 (%s), %d supervised graph steps, "
+        "losses %s; saves (AsyncCheckpointer, every %d, keep 2): %s; each commit verified; "
+        "resumed from step 4 in a fresh Scope and Executor: steps 5-6's losses and all %d "
+        "persistables bit for bit; NaN guard: step wall p50 %.3f ms on, %.3f ms off (%d steps a "
+        "turn, 2 turns each, in turns; the device copy of the state a step), a nan_grad step "
+        "rolled back bit for bit with %s x %g, nan_steps_skipped 1; preempt: SIGTERM at step %d "
+        "drained the reader (%d batches dropped) and committed step %d (%s); kernel launches "
+        "over the supervised steps %s; card %s" % (
+            json.dumps(cfg), RESILIENCE_STEPS, ["%.6f" % v for v in losses], RESILIENCE_EVERY,
+            json.dumps(saves), n_state, p50[True], p50[False], GUARD_STEPS,
+            "the learning rate", decay, found[0], dropped, found[0], preempted,
+            json.dumps(moved), card))
+    return moved
+
+
+def _free_endpoints(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    eps = ["127.0.0.1:%d" % s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return eps
+
+
+def _outside(torch, got, scope, init):
+    """name -> {max_abs_err, elements outside the phase's bar, of; the worst
+    element's cluster, one-process and initial values} of the cluster's
+    parameters `got` against a one-process scope."""
+    out = {}
+    for name, g in got.items():
+        want = scope.vars[name].detach().cpu()
+        diff = (g - want).abs()
+        bad = diff > PSERVER_ATOL + PSERVER_RTOL * want.abs()
+        flat = int(torch.argmax(diff))
+        out[name] = {"max_abs_err": float(diff.max()), "elements": int(bad.sum()),
+                     "of": int(bad.numel()), "worst": [float(g.reshape(-1)[flat]),
+                                                       float(want.reshape(-1)[flat]),
+                                                       float(init[name].reshape(-1)[flat])]}
+    return out
+
+
+def train_pserver(torch, card, readings):
+    """DeepFM at the recsys widths (profile_recsys.RECSYS, the dense form)
+    transpiled by DistributeTranspiler (sync, min_block_size 1) to 2 pservers
+    and 2 trainers, each a process on this card (tools/pserver_cluster.py),
+    PSERVER_STEPS rounds from one shared initialization. The mean of the
+    trainers' losses against the one-process Executor on the concatenated
+    batches (minimizing 2 x the loss, whose gradient is the trainers' sum,
+    with the beta pows frozen as on the pservers), and the losses and the
+    parameters the pservers write by checkpoint_notify against the
+    one-process run grouped as the pservers group (local_grouped: each
+    trainer's batch at its shapes, the gradients summed, the updates on
+    the sums); the concatenated run's parameters are read beside. The
+    trainers' step wall, bytes and send / recv share, and their GEMM
+    epilogue launches."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace, flags, fluid, io
+    from paddle_tpu_torch.tools import pserver_cluster as pc
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+
+    cfg = recsys.RECSYS
+    place = CUDAPlace(0)
+    flags.set_flags({"pass_pipeline": "training_fused"})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pserver_")
+    try:
+        t0 = time.perf_counter()
+        init = pc.init_arrays(fluid, "deepfm", cfg["lr"], 2, place, cfg=cfg)
+        init_dir, ckpt_dir = os.path.join(tmp, "init"), os.path.join(tmp, "ckpt")
+        io.save_arrays(init_dir, init)
+        full = {n: v for n, v in init.items() if ".block" not in n}
+        del init
+        t_init = time.perf_counter() - t0
+        cluster = pc.Cluster(_free_endpoints(2), n_trainers=2,
+                             cwd=os.path.dirname(os.path.abspath(__file__)), model="deepfm",
+                             steps=PSERVER_STEPS, lr=cfg["lr"], place="cuda",
+                             pipeline="training_fused")
+        t0 = time.perf_counter()
+        try:
+            res = cluster.run(pserver_args={"load_dir": init_dir},
+                              trainer_args={"load_dir": init_dir, "save_dir": ckpt_dir,
+                                            "save_after": PSERVER_STEPS}, timeout=600)
+        finally:
+            cluster.cleanup()
+        t_cluster = time.perf_counter() - t0
+        dist = np.mean([r["losses"] for r in res], axis=0)
+        saved = io.load_arrays(ckpt_dir)
+        cluster_params = {}
+        for name in full:
+            parts = sorted((int(k.rpartition(".block")[2]), v) for k, v in saved.items()
+                           if k.rpartition(".block")[0] == name)
+            cluster_params[name] = torch.cat([v for _, v in parts]) if parts else saved[name]
+        del saved
+        # the one-process run on the concatenated batches: the losses gate;
+        # its parameters are read (Adam turns a gradient element that rounds
+        # to the other sign into a step of the other sign)
+        concat, cscope = pc.local_losses(fluid, "deepfm", cfg["lr"], 2, PSERVER_STEPS, place,
+                                         init=full, cfg=cfg, summed=True)
+        if not np.allclose(dist, concat, rtol=PSERVER_RTOL, atol=PSERVER_ATOL):
+            raise AssertionError("train pserver: cluster losses %s, one process on the "
+                                 "concatenated batches %s" % (dist.tolist(), concat))
+        concat_params = _outside(torch, cluster_params, cscope, full)
+        del cscope
+        torch.cuda.empty_cache()
+        # the one-process run grouped as the pservers group: losses and
+        # parameters gate
+        grouped, gscope = pc.local_grouped(fluid, "deepfm", cfg["lr"], 2, PSERVER_STEPS, place,
+                                           init=full, cfg=cfg)
+        if not np.allclose(dist, grouped, rtol=PSERVER_RTOL, atol=PSERVER_ATOL):
+            raise AssertionError("train pserver: cluster losses %s, one process grouped as the "
+                                 "pservers %s" % (dist.tolist(), grouped))
+        grouped_params = _outside(torch, cluster_params, gscope, full)
+        del gscope, cluster_params
+        if any(v["elements"] for v in grouped_params.values()):
+            raise AssertionError("train pserver: parameters outside rtol %g atol %g of the "
+                                 "grouped one-process run: %s" % (PSERVER_RTOL, PSERVER_ATOL,
+                                                                   json.dumps(grouped_params)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    trainers = []
+    for r in res:
+        rd = r["readings"]
+        gemm = (rd["launches"].get("gemm_epilogue", 0), rd["dispatches"].get("gemm_epilogue", 0))
+        if gemm != (3 * PSERVER_STEPS,) * 2:
+            raise AssertionError("train pserver: a trainer launched and dispatched gemm_epilogue "
+                                 "%s times, want %d" % (gemm, 3 * PSERVER_STEPS))
+        walls = rd["walls_ms"]
+        rpc_s = {k: v[1] for k, v in rd["host_ops"].items()}
+        trainers.append({
+            "step_p50_ms": float(np.median(walls[2:])),
+            "bytes_sent_per_step": rd["bytes_sent"] / PSERVER_STEPS,
+            "bytes_received_per_step": rd["bytes_received"] / PSERVER_STEPS,
+            "send_share": rpc_s.get("send", 0.0) * 1e3 / sum(walls),
+            "recv_share": rpc_s.get("recv", 0.0) * 1e3 / sum(walls),
+            "barrier_share": (rpc_s.get("send_barrier", 0.0) + rpc_s.get("fetch_barrier", 0.0))
+            * 1e3 / sum(walls),
+            "walls_ms": walls, "launches": rd["launches"]})
+    readings["train_pserver"] = {"trainers": trainers, "grouped_params": grouped_params,
+                                 "concatenated_params": concat_params}
+    log("train pserver: DeepFM %s, dense, DistributeTranspiler sync min_block_size 1, 2 pservers "
+        "x 2 trainers as processes on this card, %d rounds; losses (trainer mean) %s; one process "
+        "on the concatenated batches %s, grouped as the pservers %s (rtol %g atol %g); the "
+        "pservers' checkpoint_notify parameters against the grouped run %s, against the "
+        "concatenated run %s ([cluster, one process, init] at the worst element); trainers: %s; "
+        "shared init %.1f s, the cluster's life %.1f s; card %s" % (
+            json.dumps(cfg), PSERVER_STEPS, ["%.6f" % v for v in dist],
+            ["%.6f" % v for v in concat], ["%.6f" % v for v in grouped], PSERVER_RTOL,
+            PSERVER_ATOL, json.dumps(grouped_params), json.dumps(concat_params),
+            json.dumps([{k: v for k, v in t.items() if k != "walls_ms"} for t in trainers]),
+            t_init, t_cluster, card))
+    return {"gemm_epilogue": sum(t["launches"].get("gemm_epilogue", 0) for t in trainers)}
+
+
 def main():
     import torch
 
@@ -8212,6 +8571,14 @@ def main():
     torch.cuda.empty_cache()
     with Phase("host ops"):
         host_ops(torch, card)
+    torch.cuda.empty_cache()
+    with Phase("train resilience"):
+        for name, n in train_resilience(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    with Phase("train pserver"):
+        for name, n in train_pserver(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
     with Phase("train parallel"):
         for name, n in train_parallel(torch, card, paths).items():

@@ -38,6 +38,16 @@ and, on the card, captures it as a CUDA graph:
 - FLAGS_check_nan_inf scans the fetches and the persistables a run wrote
   once it has run (after the replay on the graph path). FLAGS_benchmark
   synchronizes the device before a run returns.
+- The resilience step guard (FLAGS_resilience_nan_guard, the JAX package's
+  Executor._skip_nan_step): before a run that updates persistables, each
+  of them is copied on its device into a buffer the executor keeps; a run
+  whose fetches or updated state hold a NaN or an Inf (one device
+  reduction, one host sync) is rolled back to those copies bit for bit,
+  its `learning_rate*` and `*loss_scaling*` vars are multiplied by
+  FLAGS_resilience_lr_decay, and health counts `nan_steps_skipped` and
+  `lr_decays`. The `nan_grad` fault (resilience/faults.py) poisons the
+  first floating feed of such a run before it reaches the block. Every run
+  entry beats the elastic watchdog (resilience/elastic.py heartbeat).
 
 State model: a Scope holds name -> torch.Tensor on one device. Persistable
 vars the block reads are state; those it also writes (parameters written by
@@ -401,12 +411,14 @@ class _PerOpProfiledBlock:
             self.runs, set(self.fetch_names) | set(self.mut_names) | set(self.created_persistables))
 
         # cross-check against the inplace_donation_plan pass when one rode in
-        # on this program AND it analyzed this exact run (same scope, feed,
+        # on this program AND it analyzed this exact run (the global block,
+        # not a pserver's optimize sub-block; same scope, feed,
         # fetch, nothing unanalyzable): divergence means a pass corrupted
         # def-use, so fail loudly
         plan = getattr(block.program, "_donation_plan", None)
         if (
             ops is None
+            and block.idx == 0  # the plan analyzed the global block
             and plan
             and not plan.get("unknown")
             and plan.get("scope_uid") == scope._uid
@@ -1344,6 +1356,67 @@ def _last_writer(compiled, name):
     return found
 
 
+def _mutated(compiled):
+    """The persistables a run of `compiled` updates: the guard's snapshot
+    set (empty for a startup program, which only creates)."""
+    inner = compiled.block if isinstance(compiled, (_CompiledBlock, _MultiStepBlock)) \
+        else compiled
+    return list(getattr(inner, "mut_names", ()) or ())
+
+
+def _elastic_heartbeat():
+    from .resilience.elastic import heartbeat
+
+    heartbeat()
+
+
+def _floating(v):
+    if isinstance(v, torch.Tensor):
+        return v.is_floating_point()
+    return np.asarray(v).dtype.kind == "f"
+
+
+def _poison_nan(feed):
+    """The `nan_grad` fault's payload: the first floating feed (by name)
+    filled with NaN, which reaches the loss, the gradients and every updated
+    parameter. Returns (feed, poison_after): poison_after means no feed is
+    floating (an integer-only model), and the caller poisons the updated
+    state after the run instead."""
+    out = dict(feed)
+    for name in sorted(out):
+        v = out[name]
+        if not _floating(v):
+            continue
+        if isinstance(v, torch.Tensor):
+            out[name] = torch.full_like(v, float("nan"))
+        else:
+            out[name] = np.full_like(np.asarray(v), np.nan)
+        return out, False
+    return out, True
+
+
+def _poison_scope_state(scope, names):
+    """The fallback payload: the first floating updated persistable NaN."""
+    for name in sorted(names):
+        v = scope.vars.get(name)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            scope.vars[name] = torch.full_like(v, float("nan"))
+            return
+
+
+def _all_finite(values):
+    """True iff every floating tensor of `values` is finite, with one host
+    sync: the max-abs norms of all of them in one multi-tensor call (a NaN
+    or an Inf element makes its norm NaN or Inf, and a finite tensor's is
+    finite), then one reduction."""
+    floats = [v for v in values
+              if isinstance(v, torch.Tensor) and v.is_floating_point() and v.numel()]
+    if not floats:
+        return True
+    norms = torch._foreach_norm(floats, float("inf"), dtype=torch.float32)
+    return bool(torch.isfinite(torch.stack(norms)).all())
+
+
 def _check_nan_inf(compiled, scope, fetch_names, fetches, step):
     """FLAGS_check_nan_inf (the reference's operator.cc:778; the JAX
     package's Executor._finish_run): the fetches and the persistables the
@@ -1353,13 +1426,11 @@ def _check_nan_inf(compiled, scope, fetch_names, fetches, step):
     watched = list(zip(fetch_names, fetches)) + [
         (n, scope.vars[n]) for n in _written_persistables(compiled)
         if scope.vars.get(n) is not None]
-    floats = [(n, v) for n, v in watched
-              if isinstance(v, torch.Tensor) and v.is_floating_point()]
-    if not floats:
+    if _all_finite([v for _, v in watched]):
         return
-    if bool(torch.stack([torch.isfinite(v).all() for _, v in floats]).all()):
-        return
-    for name, val in floats:
+    for name, val in watched:
+        if not (isinstance(val, torch.Tensor) and val.is_floating_point()):
+            continue
         if not bool(torch.isfinite(val).all()):
             msg = "check_nan_inf: variable %r contains NaN/Inf" % name
             writer = _last_writer(compiled, name)
@@ -1637,6 +1708,8 @@ class Executor:
         self._pool = None
         # counts run() calls: the step the check_nan_inf report cites
         self._run_seq = 0
+        # name -> the NaN guard's pre-step copy, reused run to run
+        self._guard_bufs = {}
 
     def _graph_pool(self):
         """The graph pool every block of this executor captures into: one
@@ -1648,7 +1721,19 @@ class Executor:
         return self._pool
 
     def close(self):
+        """Drop the prepared blocks and the guard's buffers, then tell every
+        pserver this process talked to that it is done (the reference's
+        Executor::Close, executor.cc:111-119: SendComplete lets their sync
+        loops exit)."""
         self._cache.clear()
+        self._guard_bufs.clear()
+        from .distributed.rpc import RPCClient
+
+        client = RPCClient._instance
+        if client is not None:
+            for ep in list(client._socks):
+                client.send_complete(ep)
+            client.close()
 
     def run(
         self,
@@ -1688,6 +1773,9 @@ class Executor:
             program = framework.default_main_program()
         if steps_per_run < 1:
             raise ValueError("steps_per_run must be >= 1")
+        # every run entry is a progress beat of the elastic watchdog (one
+        # list probe when no Supervisor watches)
+        _elastic_heartbeat()
         force_multi = False
         _place_readers(program, self.device)
         if not feed:
@@ -1730,6 +1818,7 @@ class Executor:
         if _profile_ops() and not multi:
             # per-op attribution mode: never cached (diagnosis path)
             compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
+            feed, guard = self._guard_begin(compiled, scope, feed)
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed, per_op=True)
         else:
@@ -1747,6 +1836,7 @@ class Executor:
                     if use_program_cache or self.device.type == "cuda":
                         self._cache[key] = multi_block
                 compiled = multi_block
+            feed, guard = self._guard_begin(compiled, scope, feed)
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed)
         if _flags.get_flags("benchmark")["benchmark"] and self.device.type == "cuda":
@@ -1755,7 +1845,8 @@ class Executor:
             # it brackets the step
             torch.cuda.synchronize(self.device)
         self._run_seq += 1
-        if _flags.get_flags("check_nan_inf")["check_nan_inf"]:
+        nan_ok = self._guard_end(guard, scope, fetches)
+        if not nan_ok and _flags.get_flags("check_nan_inf")["check_nan_inf"]:
             _check_nan_inf(compiled.inner if multi else compiled, scope, fetch_names, fetches,
                            self._run_seq)
         if multi:
@@ -1773,6 +1864,84 @@ class Executor:
         if replayed:
             return [f.clone() for f in fetches]
         return fetches
+
+    def _guard_begin(self, compiled, scope, feed):
+        """(feed, guard) of a run about to start: a run that updates
+        persistables draws the `nan_grad` fault (poisoning its feed), and
+        under FLAGS_resilience_nan_guard copies each of them into the
+        executor's snapshot buffer on its device. A startup program or an
+        eval run passes untouched."""
+        names = _mutated(compiled)
+        if not names:
+            return feed, None
+        from .resilience import faults
+
+        poison_after = False
+        if faults.fires("nan_grad"):
+            feed, poison_after = _poison_nan(feed)
+        snapshot = None
+        if _flags.get_flags("resilience_nan_guard")["resilience_nan_guard"]:
+            snapshot = {}
+            for n in names:
+                v = scope.vars.get(n)
+                if not isinstance(v, torch.Tensor):
+                    continue
+                buf = self._guard_bufs.get(n)
+                if (buf is None or buf.shape != v.shape or buf.dtype != v.dtype
+                        or buf.device != v.device):
+                    buf = self._guard_bufs[n] = torch.empty_like(v)
+                snapshot[n] = buf
+            if snapshot:  # one multi-tensor copy of the whole state
+                with torch.no_grad():
+                    torch._foreach_copy_(list(snapshot.values()),
+                                         [scope.vars[n] for n in snapshot])
+        return feed, (names, poison_after, snapshot)
+
+    def _guard_end(self, guard, scope, fetches):
+        """After the run: the fallback poisoning, then the guard's check and
+        rollback. True when the guard handled this run's NaNs (so
+        FLAGS_check_nan_inf does not raise over them)."""
+        if guard is None:
+            return False
+        names, poison_after, snapshot = guard
+        if poison_after:
+            _poison_scope_state(scope, names)
+        if snapshot is None:
+            return False
+        watched = list(fetches) + [scope.vars[n] for n in names if scope.vars.get(n) is not None]
+        if _all_finite(watched):
+            return False
+        from .observability import flightrec
+
+        flightrec.trigger("nan_guard", step=self._run_seq)
+        return self._skip_nan_step(scope, snapshot)
+
+    def _skip_nan_step(self, scope, snapshot):
+        """The NaN/Inf step guard tripped: roll the updated persistables back
+        to their pre-step values, multiply every learning-rate and
+        loss-scale var by FLAGS_resilience_lr_decay (repeated NaNs usually
+        mean the scale or the rate is too hot), and count the event. The run
+        returns its poisoned fetches, but the model's state is as if the
+        step never ran. A rolled-back name is rebound to its snapshot buffer
+        (the buffer leaves the executor's set), so on the card a captured
+        graph copies it into its own tensor at its next replay."""
+        from .resilience import health
+
+        for name, saved in snapshot.items():
+            scope.vars[name] = saved
+            self._guard_bufs.pop(name, None)
+        decay = float(_flags.get_flags("resilience_lr_decay")["resilience_lr_decay"])
+        decayed = 0
+        for name, val in list(scope.vars.items()):
+            base = name.rsplit("/", 1)[-1]
+            if isinstance(val, torch.Tensor) and (
+                    base.startswith("learning_rate") or "loss_scaling" in base):
+                scope.vars[name] = val * decay
+                decayed += 1
+        if decayed:
+            health.incr("lr_decays", decayed)
+        health.incr("nan_steps_skipped")
+        return True
 
     def _prepare(self, program, block, feed, fetch_names, scope, use_program_cache):
         """The block form of one step under its cache key (the program, its

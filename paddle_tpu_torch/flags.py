@@ -63,11 +63,22 @@ set_flags): the JAX package's 42 names, with its defaults and coercion.
   paddle_num_threads: accepted and recorded for API compatibility, as the
   reference documents them; storage lifetime and threading are PyTorch's
   (the caching allocator, torch's own thread pool).
-- The flags of modules the port has not ported yet (PENDING, 20 names: the
-  RPC, resilience, elastic, data, telemetry and op-profiling flags) are
-  known names: setting one to its default succeeds, and any other value
-  raises NotImplementedError naming the module it waits for, so no script
-  is told that a guard is on when it is not.
+- rpc_max_retry / rpc_deadline / rpc_op_deadline: the RPC client's retry
+  policy (distributed/rpc.py: attempts, the overall budget, the reply
+  deadline of one attempt), as in the JAX package.
+- resilience_nan_guard / resilience_lr_decay: Executor.run's step guard
+  (executor.py): a run that updates persistables and yields a NaN or an Inf
+  is rolled back to its pre-step state, and the learning-rate and
+  loss-scale vars are multiplied by the decay.
+- elastic_step_deadline_s / elastic_nan_budget / elastic_rollback_budget /
+  elastic_barrier_timeout_s: the elastic Supervisor's watchdog deadline, NaN
+  and rollback budgets, and the elastic checkpoint's commit-barrier timeout
+  (resilience/elastic.py, async_ckpt.py).
+- The flags of modules the port has not ported yet (PENDING, 5 names: the
+  telemetry and op-profiling flags) are known names: setting one to its
+  default succeeds, and any other value raises NotImplementedError naming
+  the module it waits for, so no script is told that a guard is on when it
+  is not.
 """
 
 import os
@@ -97,7 +108,8 @@ _DEFAULTS = {
     "eager_delete_tensor_gb": -1.0,
     "fraction_of_gpu_memory_to_use": 0.92,
     "paddle_num_threads": 1,
-    # the pending flags (PENDING), at the JAX package's defaults
+    # the flags of the RPC, resilience, data and telemetry modules (the
+    # telemetry ones still PENDING), at the JAX package's defaults
     "rpc_max_retry": 3,
     "rpc_deadline": 120.0,
     "rpc_op_deadline": 30.0,
@@ -125,26 +137,14 @@ _CHOICES = {"paged_flash": ("auto", "off"), "quantized_gemm": ("auto", "off"),
 
 # flag -> the module of the JAX package that reads it and the port has not
 # ported yet, with its ROADMAP queue
-_RPC = "the RPC client (distributed/rpc.py, ROADMAP A item 3)"
-_RESILIENCE = "resilience/ (ROADMAP A item 2)"
-_ELASTIC = "resilience/elastic.py (ROADMAP A item 2)"
 _TELEMETRY = "observability/export.py and stepstats.py (ROADMAP A item 4)"
 _OPPROF = "observability/opprof.py (ROADMAP A item 4)"
 PENDING = {
-    "rpc_max_retry": _RPC,
-    "rpc_deadline": _RPC,
-    "rpc_op_deadline": _RPC,
-    "resilience_nan_guard": _RESILIENCE,
-    "resilience_lr_decay": _RESILIENCE,
     "telemetry_dir": _TELEMETRY,
     "telemetry_interval_steps": _TELEMETRY,
     "telemetry_log_every": _TELEMETRY,
     "tensor_stats": _OPPROF,
     "nan_provenance": _OPPROF,
-    "elastic_step_deadline_s": _ELASTIC,
-    "elastic_nan_budget": _ELASTIC,
-    "elastic_rollback_budget": _ELASTIC,
-    "elastic_barrier_timeout_s": _ELASTIC,
 }
 
 _flags = {}

@@ -1,8 +1,7 @@
 """`import paddle_tpu_torch.fluid as fluid`: the fluid surface of the port,
 the names of paddle_tpu/fluid/__init__.py that the port has. Names the JAX
-package exports from modules not ported yet (DistributeTranspiler and its
-config, the imperative, debugger, inference, distributed and resilience
-modules) are absent until their modules are."""
+package exports from modules not ported yet (the imperative, debugger and
+inference modules) are absent until their modules are."""
 
 from .. import *  # noqa: F401,F403
 from .. import (  # noqa: F401
@@ -13,6 +12,7 @@ from .. import (  # noqa: F401
     contrib,
     data_feed_desc,
     dataset,
+    distributed,
     embedding,
     evaluator,
     flags,
@@ -32,6 +32,7 @@ from .. import (  # noqa: F401
     py_reader,
     reader,
     regularizer,
+    resilience,
     serving,
     transpiler,
     unique_name,
@@ -46,4 +47,10 @@ from ..lod_tensor import create_lod_tensor, create_random_int_lodtensor  # noqa:
 from ..place import CUDAPinnedPlace  # noqa: F401
 from ..py_reader import EOFException  # noqa: F401
 from ..parallel_executor import BuildStrategy, ExecutionStrategy, ParallelExecutor  # noqa: F401
-from ..transpiler import InferenceTranspiler, memory_optimize, release_memory  # noqa: F401
+from ..transpiler import (  # noqa: F401
+    DistributeTranspiler,
+    DistributeTranspilerConfig,
+    InferenceTranspiler,
+    memory_optimize,
+    release_memory,
+)

@@ -9,9 +9,10 @@ other writes: one `<name>.npy` per var with a `<name>.npy.dtype` sidecar
 program as JSON (`__model__`) with its feed and fetch names. Save and load
 are host-side operations on the Scope: tensors go to numpy on the host and
 come back as tensors on the scope's device. Each file is written to a temp
-name, flushed to disk and renamed into place. (The JAX package's
-`ckpt_crash` fault hook between the write and the rename belongs to its
-checkpoint layer, which comes with the rest of resilience/, ROADMAP A7.)
+name, flushed to disk and renamed into place; save_arrays carries the
+`ckpt_crash` fault hook (resilience/faults.py) between the first temp write
+and its rename, drawn once a save call, so a fault plan tears whole
+checkpoints as it does in the JAX package.
 """
 
 import hashlib
@@ -82,26 +83,37 @@ def _to_tensor(arr, stored, device):
     return t.to(device=device, dtype=dt)
 
 
-def _atomic_write(path, write):
+def _atomic_write(path, write, crash=False):
     tmp = "%s.tmp.%d" % (path, os.getpid())
     with open(tmp, "wb") as f:
         write(f)
         f.flush()
         os.fsync(f.fileno())
+    if crash:
+        # the injected death: the temp exists, the rename never happens
+        from .resilience import faults
+
+        raise faults.InjectedFault("ckpt_crash during save of %r" % path)
     os.replace(tmp, path)
 
 
 def save_arrays(dirname, arrays):
     """Per-var `<name>.npy` of a name -> array/tensor dict, each with its
     `<name>.npy.dtype` sidecar, written atomically (the layout load_vars
-    reads)."""
+    reads; also the pserver's shard checkpoint and the manifest
+    checkpoint's payload). The `ckpt_crash` fault is drawn once a call and
+    fires between the first temp write and its rename: the torn state a
+    checkpoint's verification must skip."""
+    from .resilience import faults
+
     os.makedirs(dirname, exist_ok=True)
+    crash_now = faults.fires("ckpt_crash")
     dirs_touched = set()
     for name, val in arrays.items():
         arr, orig_dtype = _to_numpy(val)
         path = os.path.join(dirname, name + ".npy")
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        _atomic_write(path, lambda f: np.save(f, arr))
+        _atomic_write(path, lambda f: np.save(f, arr), crash_now)
         _atomic_write(path + ".dtype", lambda f: f.write((orig_dtype or "").encode()))
         dirs_touched.add(os.path.dirname(path))
     for d in sorted(dirs_touched):

@@ -3,8 +3,8 @@ ops, the mesh-aware ops (ops/parallel_ops.py: ring attention and the
 row-sharded lookup), the sparse (SelectedRows) ops, which attach the
 lookup_table grad maker after core_ops and parallel_ops registered the
 forwards, the sequence, control-flow,
-decode, loss, framework (ops/frame_ops.py) and detection ops
-(ops/detection_ops.py), the flash attention ops (ops/flash_attention.py), the
+decode, loss, framework (ops/frame_ops.py), distributed RPC
+(ops/dist_ops.py) and detection ops (ops/detection_ops.py), the flash attention ops (ops/flash_attention.py), the
 quantization ops (ops/quant_ops.py), the secondary NN ops
 (ops/nn_extra_ops.py), the fused and composite ops (ops/compose_ops.py, after
 sequence_ops: its lstm / gru aliases read dynamic_lstm / dynamic_gru), and the
@@ -19,6 +19,7 @@ from . import (  # noqa: F401
     control_flow_ops,
     decode_ops,
     detection_ops,
+    dist_ops,
     flash_attention,
     frame_ops,
     fused,

@@ -15,8 +15,9 @@ markers, as in the JAX package: batches enter through Executor.run's feeds,
 so an imported reference program that holds them runs, and every block
 form skips them (registry.register_no_lower).
 
-`prefetch` (a parameter-server row fetch) and `gen_nccl_id` (a collective
-rendezvous) wait for the distributed runtime.
+`prefetch` (a parameter-server row fetch over distributed/rpc.py) and
+`gen_nccl_id` (a collective rendezvous: a checked no-op, since the port's
+rendezvous is torch.distributed's, parallel/multihost.py) are host ops too.
 """
 
 import ast
@@ -239,6 +240,50 @@ def _split_byref(ctx, ins, attrs):
         outs.append(x[start:start + s])
         start += s
     return {"Out": outs}
+
+
+@register_host("prefetch")
+def _prefetch(op, scope):
+    """Remote sparse-table row fetch (reference distributed_ops/prefetch_op.cc
+    + parameter_prefetch.cc:26): send the id vector, receive the rows. Served
+    by the pserver's __prefetch__ GET channel (distributed/listen_and_serv.py)."""
+    from ..distributed.rpc import RPCClient
+    from ..executor import to_tensor
+
+    client = RPCClient.instance(int(op.attrs.get("trainer_id", 0)))
+    in_names = op.input("X")
+    out_names = op.output("Out")
+    epmap = op.attrs["epmap"]
+    table = op.attrs.get("table_name")
+    if not table:
+        names = op.attrs.get("table_names")
+        table = names[0] if isinstance(names, (list, tuple)) and names else ""
+    for ids_name, out_name, ep in zip(in_names, out_names, epmap):
+        ids = scope.find_var(ids_name)
+        ids = ids.reshape(-1) if isinstance(ids, torch.Tensor) else np.asarray(ids).reshape(-1)
+        client.async_send_var(ep, "__prefetch_ids__:%s:%s" % (table, out_name), ids)
+    client.wait()
+    futures = [
+        (out_name, ep, client.async_get_var(ep, "__prefetch_out__:%s:%s" % (table, out_name)))
+        for out_name, ep in zip(out_names, epmap)
+    ]
+    for out_name, ep, f in futures:
+        rows = f.result(timeout=client.timeout)
+        if rows is None:
+            raise RuntimeError("prefetch: pserver %s returned no rows" % ep)
+        scope.set_var(out_name, to_tensor(rows, scope.device))
+
+
+@register_host("gen_nccl_id")
+def _gen_nccl_id(op, scope):
+    """Collective rendezvous (reference gen_nccl_id_op.cc gossiped an
+    ncclUniqueId over a temporary gRPC server). Here torch.distributed's
+    process-group init owns rendezvous (parallel/multihost.py
+    init_distributed, at process start), so this op is a checked no-op kept
+    so transpiled NCCL2-mode startup programs execute."""
+    slot = "NCCLID" if op.outputs.get("NCCLID") else "Out"
+    for out in op.output(slot):
+        scope.set_var(out, torch.zeros((1,), dtype=torch.int32, device=scope.device))
 
 
 # program-compat markers for the reader ops (reference reader/read_op.cc):

@@ -17,6 +17,18 @@ Spec grammar (comma-separated `kind:args`, args joined with `@`):
 A bare `kind` with no args always fires.
 
 Hook points wired in this package:
+  rpc_drop / rpc_delay      distributed/rpc.py   RPCClient._rpc, pre-send
+  master_conn_drop          distributed/master.py  server conn handler
+  snapshot_crash            distributed/master.py  between tmp write + rename
+  ckpt_crash                io.py save_arrays      between tmp write + rename
+  manifest_crash            resilience/checkpoint.py  before MANIFEST commit
+  nan_grad                  executor.py            poisons a training step
+  worker_die                trainer loops          hard-exits
+  eckpt_commit_crash        resilience/async_ckpt.py  before the commit marker
+  preempt                   resilience/elastic.py  SIGTERM to self (the cloud
+                            preemption notice, injectable)
+  hang                      resilience/elastic.py  sleeps spec.ms inside the
+                            supervised step window (trips the watchdog)
   replica_kill              serving/server.py      SIGKILLs the serving
                             process before it answers (a replica dying
                             mid-request)
@@ -26,9 +38,6 @@ Hook points wired in this package:
                             never processed the request)
   slow_response             serving/server.py      sleeps spec.ms before
                             handling (a browned-out replica)
-The training-side kinds of the same grammar (rpc_drop, nan_grad,
-ckpt_crash, preempt, hang, ...) name hooks of modules still to come
-(ROADMAP A7); a plan naming them parses and never fires here.
 
 Every decision is made from per-kind invocation counters plus a per-kind
 seeded RNG, so the same plan + the same call sequence replays the same

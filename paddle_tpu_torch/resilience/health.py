@@ -8,8 +8,7 @@ named "health/<name>", so the same events ride `/metrics`
 (observability/flightrec.py reads `snapshot()`). A copy of the JAX
 package's resilience/health.py.
 
-Well-known counter names (incremented by the hook points of the JAX
-package; the port's modules that increment them are still to come):
+Well-known counter names:
   nan_steps_skipped   executor NaN/Inf step guard fired
   lr_decays           guard decayed the learning rate / loss scale
   rpc_retries         RPCClient retried a call

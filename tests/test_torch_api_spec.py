@@ -2,7 +2,8 @@
 reference's API-stability gate, tests/test_api_spec.py), on the CPU:
 tools/print_signatures.py lists the port's counterpart of every module it
 lists, and each name of those modules must be in the port with the spec's
-signature. The differences it allows are named here: what needs no
+signature (a class of the port named in a default is read under the JAX
+package's name). The differences it allows are named here: what needs no
 counterpart off a TPU, the port's two added keywords, the port's own
 additions, and the names whose modules still wait in ROADMAP queue A (each
 must still be missing, so the list shrinks as they land). Also Scope's
@@ -44,11 +45,6 @@ PORT_ADDED = {
 # names of modules the port has, missing because what defines them waits in
 # ROADMAP queue A: (name prefix, the item)
 PENDING = (
-    ("paddle_tpu.resilience.", "A2"),
-    ("paddle_tpu.fluid.DistributeTranspiler", "A3"),
-    ("paddle_tpu.transpiler.DistributeTranspiler", "A3"),
-    ("paddle_tpu.transpiler.HashName.", "A3"), ("paddle_tpu.transpiler.PSDispatcher.", "A3"),
-    ("paddle_tpu.transpiler.RoundRobin.", "A3"),
     ("paddle_tpu.observability.", "A4"), ("paddle_tpu.profiler.device_op_profile", "A4"),
     ("paddle_tpu.profiler.xla_trace", "A4"),
     ("paddle_tpu.contrib.memory_usage", "A6"), ("paddle_tpu.contrib.op_freq_statistic", "A6"),
@@ -87,7 +83,10 @@ def _listing():
     got = {}
     for ln in lines:
         name, sig = ln.split(" ", 1)
-        got[REF + name[len(PORT):]] = sig
+        # a default that is a class of the port prints its module path
+        # (RetryPolicy's fatal=(<class '...resilience.retry.FatalError'>,)):
+        # the spec names the JAX package's module at the same path
+        got[REF + name[len(PORT):]] = sig.replace(PORT + ".", REF + ".")
     return got, ref_modules, ported
 
 

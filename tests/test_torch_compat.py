@@ -136,26 +136,25 @@ def test_benchmark_flag_runs_a_program():
 # a value other than the default for each flag whose module is missing,
 # and a word of the module the error names
 PENDING = {
-    "rpc_max_retry": (5, "RPC"), "rpc_deadline": (10.0, "RPC"), "rpc_op_deadline": (1.0, "RPC"),
-    "resilience_nan_guard": (True, "resilience"), "resilience_lr_decay": (0.25, "resilience"),
     "telemetry_dir": ("/tmp/t", "export"),
     "telemetry_interval_steps": (10, "export"), "telemetry_log_every": (1, "export"),
     "tensor_stats": ("*", "opprof"), "nan_provenance": (True, "opprof"),
-    "elastic_step_deadline_s": (5.0, "elastic"),
-    "elastic_nan_budget": (1, "elastic"), "elastic_rollback_budget": (1, "elastic"),
-    "elastic_barrier_timeout_s": (5.0, "elastic"),
 }
 
 # flags whose module is ported: a value other than the default is taken
 PORTED = {"flightrec_max_bundles": 4, "flightrec_min_interval_s": 0.5,
           "pass_debug_dir": "pass_dumps", "static_verify": True, "dist_init_max_retry": 1,
           "data_num_workers": 2, "data_ring_slots": 8, "data_prefetch": 4,
-          "data_start_method": "spawn", "data_max_worker_restarts": 1}
+          "data_start_method": "spawn", "data_max_worker_restarts": 1,
+          "rpc_max_retry": 5, "rpc_deadline": 10.0, "rpc_op_deadline": 1.0,
+          "resilience_nan_guard": True, "resilience_lr_decay": 0.25,
+          "elastic_step_deadline_s": 5.0, "elastic_nan_budget": 1,
+          "elastic_rollback_budget": 1, "elastic_barrier_timeout_s": 5.0}
 
 
 def test_pending_table_is_the_rest_of_the_flags():
     assert sorted(PENDING) == sorted(flags.PENDING)
-    assert len(PENDING) == 14
+    assert len(PENDING) == 5
     assert set(PENDING) | set(RECORDED) | set(PORTED) | {
         "paged_flash", "quantized_gemm", "fp8_matmul", "check_nan_inf", "profile_ops",
         "pass_pipeline", "serving_cache_dir", "trace_dir", "trace_sample", "trace_slow_ms",

@@ -898,7 +898,50 @@ def sq_batches(k, seed=3, batch=16):
     return out
 
 
-SCENARIOS = {f.__name__: f for f in (sc_multistep_reader, sc_reader_staging, sc_mlp, sc_zero1, sc_zero1_ckpt, sc_model, sc_deepfm,
+def sc_elastic_pe(rank, world, p):
+    """tests/elastic_runner.py's pe_train on gloo ranks: the elastic MLP
+    (SGD) under a ZeRO-1 ParallelExecutor at dp = world, resumed from the
+    elastic checkpoints under p["root"] (any saved dp), checkpointing every
+    p["every"] steps as host `rank` of `world`; the loss of each step as
+    hex."""
+    fluid, _ = _port()
+    from paddle_tpu_torch.resilience import Supervisor, elastic
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        h = fluid.layers.fc(input=x, size=16, act="relu")
+        pred = fluid.layers.fc(input=h, size=1)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    scope = fluid.Scope(seed=1, place=fluid.CPUPlace())
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        start, cursor = elastic.resume_or_init(exe, startup, p["root"], scope=scope,
+                                               program=main)
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main, scope=scope,
+                                    build_strategy=zero1_strategy(fluid))
+        sup = Supervisor(exe, p["root"], program=main, scope=scope, num_hosts=world,
+                         host_id=rank, topology=pe.topology, ckpt_every=p["every"])
+        sup.step = start
+        steps = {}
+        with sup:
+            for s in range(start, p["steps"]):
+                rng = np.random.RandomState(s)
+                xb = rng.randn(16, 8).astype(np.float32)
+                feed = {"x": xb, "y": np.abs(xb).sum(axis=1, keepdims=True).astype(np.float32)}
+                (lv,) = pe.run(fetch_list=[loss.name], feed=feed)
+                sup.step += 1
+                sup.cursor["batch_index"] += 1
+                if p["every"] and sup.step % p["every"] == 0:
+                    sup.save()
+                steps[s] = float(np.asarray(lv).reshape(-1)[0]).hex()
+            sup.checkpointer.wait()
+    return {"dp": pe.device_count, "resumed": start, "steps": steps}
+
+
+SCENARIOS = {f.__name__: f for f in (sc_elastic_pe, sc_multistep_reader, sc_reader_staging, sc_mlp, sc_zero1, sc_zero1_ckpt, sc_model, sc_deepfm,
                                      sc_ring, sc_collectives, sc_rules, sc_rules_ckpt, sc_pp,
                                      sc_layout_collectives, sc_pp_ckpt, sc_gpipe, sc_transformer_tp, sc_transformer_pp,
                                      sc_multistep)}
