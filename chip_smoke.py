@@ -38,7 +38,7 @@ Phases, each printing its own line; any failure exits non-zero:
        sums repeat bit for bit, the arrival counters back at 0;
      - multi-tensor Adam over the model's 183 tensors (f32 moments, bit for
        bit; bf16 moments, one bf16 ulp), a ragged-tail set and views at odd
-       element offsets (bit for bit), timed against torch._fused_adam_ in 7
+       element offsets (bit for bit), timed against torch._fused_adam_ in 5
        interleaved rounds (medians);
      - flash attention, forward and backward, at the train-flash path's
        (16, 8, 256, 64) f32 as strided views, causal and not, where the
@@ -338,6 +338,31 @@ Phases, each printing its own line; any failure exits non-zero:
      load_combine round-trip f32, int32 and bf16 vars bit for bit; a
      program holding the eight reader markers (read, the create_*_reader
      ops, open_files) runs on the graph path and fetches 16.0;
+ 17a. eager: the LeNet-5 of models/lenet.py built from imperative.nn
+     (conv 1 -> 6 5x5 pad 2 relu, pool 2, conv 6 -> 16 5x5 relu, pool 2,
+     fc 400 -> 120 -> 84 -> 10, a log-softmax loss Layer), 60 eager Adam
+     steps of batch 64 on fluid.dataset.mnist's batches, a guard a step:
+     the gates of tests/test_mnist.py:64-67, the first 3 losses against
+     the port's own CPU run from the same weights (rtol 2e-3, atol 2e-4);
+     BatchNorm (train, then eval), LayerNorm, Embedding with padding_idx,
+     a PyLayer and Layer.jit() (torch.compile, inductor) once each on the
+     card against the CPU at rtol 1e-4; DataParallel at world 1 bit for
+     bit the plain layer; the step wall p50 and the device busy share;
+ 17b. telemetry: train_flash's Transformer base (f32, training_fused),
+     6 graph steps fed through layers.py_reader with FLAGS_telemetry_dir
+     (interval 2) against the same steps with it off: 6 step records and
+     their fields, the feed-stall the collector recorded, the Prometheus
+     file parsed by promparse equal to the registry, the shard merged,
+     equal host syncs a step, the same losses, the step wall p50 of each;
+     FLAGS_tensor_stats="*layer_norm*": one capture more, one host sync
+     more a replay, its rows against the same outputs fetched op by op
+     from the same state (rtol 1e-5, atol 1e-5 of absmax, nonfinite
+     counts exactly); FLAGS_nan_provenance with the guard and the
+     nan_grad fault: the record names the first op reading the poisoned
+     feed, the rollback bit for bit; one op-by-op step under
+     profiler.xla_trace: device_op_profile's per-op device ms within 5 %
+     of the trace's kernel time, the top rows with the H100's Roof%; a
+     replayed step's trace raises;
  18. train parallel: at world = the visible cards, on NCCL and CUDA
      graphs. Past one card, a process a card first trains Transformer
      base at dp = world (its first 3 losses within the fused bar of the
@@ -914,7 +939,7 @@ def _adam_check(torch, ma, name, device, shapes, moment_dtype, seed):
     return err, kern
 
 
-ADAM_ROUNDS = 7  # interleaved kernel / torch._fused_adam_ rounds, medians compared
+ADAM_ROUNDS = 5  # interleaved kernel / torch._fused_adam_ rounds, medians compared
 
 
 def _adam_views(torch, ma, device):
@@ -2920,7 +2945,7 @@ HTTP_NEW_TOKENS = 64
 HTTP_PROMPT_LENS = (40, 131, 217, 305, 388, 472, 569, 700)
 HTTP_JSON_ROWS = 16  # :predict bodies up to this many rows go as JSON, larger as npz
 HTTP_FC_SWAPS, HTTP_GPT_SWAPS = 4, 2
-HTTP_WALL_CALLS = 20  # calls timed a form for the graphs-vs-op-by-op wall
+HTTP_WALL_CALLS = 10  # calls timed a form for the graphs-vs-op-by-op wall
 GPT_SWAP_PARAMS = ("lnf_w", "lnf_b")  # what a gpt2 swap replaces
 
 _COLD_BOOT = r"""
@@ -3855,7 +3880,7 @@ LENET_TEST_BATCH = 16
 LENET_PER_STEP = {"gemm_epilogue": 3, "multi_adam": 1}
 # ResNet-50 at bench.py's batch 256 (bench.py:39), the first rung of its
 # ladder (256, 128, 64, 32; bench.py:3945)
-RESNET_STEPS = 6  # graph steps after the warmup (op by op) and the capture
+RESNET_STEPS = 4  # graph steps after the warmup (op by op) and the capture
 
 
 def _exact_counts(want, label):
@@ -4181,7 +4206,7 @@ def train_resnet50(torch, card, readings):
 PIPELINE_RATIO_MIN = 0.9  # a fed step's images/s against the staged steps' (bench.py's frac)
 PIPELINE_WORKERS = 2  # decode workers of the data-runtime leg
 PIPELINE_U8_RTOL = 1e-6
-PIPELINE_STEPS = 12  # graph steps of a fed leg: a one-off stall weighs 1/12 of its window
+PIPELINE_STEPS = 8  # graph steps of a fed leg: a one-off stall weighs 1/8 of its window
 
 
 def _allocator_counts(torch):
@@ -4436,7 +4461,7 @@ def check_batch_norm_grad(torch, card):
     return out
 
 
-ZOO_STEPS = 6  # replayed graph steps of each zoo model (graph steps 3-8)
+ZOO_STEPS = 4  # replayed graph steps of each zoo model (graph steps 3-6)
 # GEMM epilogue launches a zoo step: the fcs the block rule takes (VGG-19's
 # and AlexNet's fc6 / fc7, GoogLeNet's two auxiliary 1152 -> 1024 fcs,
 # SE-ResNeXt's 16 squeeze and 16 excitation fcs); every n = 1000 head
@@ -4473,7 +4498,7 @@ def train_zoo(torch, card, readings):
     Momentum, synthetic batches staged on the card), each under
     training_fused: the warmup, the capture and ZOO_STEPS graph steps,
     every loss finite, the same counters every step with ZOO_GEMM GEMM
-    epilogue launches; images/s and the step wall p50 over graph steps 3-8,
+    epilogue launches; images/s and the step wall p50 over graph steps 3-6,
     the busy share, launches and memory reserved; the first 3 steps op by
     op from the same seed: the same losses bit for bit with the same
     counters, the GEMM epilogue held against its plain version on what the
@@ -8067,13 +8092,13 @@ def _start_native_build():
 
 RESILIENCE_STEPS = 6  # supervised graph steps of train_flash's configuration
 RESILIENCE_EVERY = 2  # a checkpoint every 2 steps, the newest 2 kept
-GUARD_STEPS = 4  # steps a turn of the guard-off / guard-on walls
+GUARD_STEPS = 3  # steps a turn of the guard-off / guard-on walls
 # kernel table name -> launch key of the rows a supervised step reaches
 RESILIENCE_KERNELS = {"gemm_epilogue": "gemm_epilogue", "flash_fwd": "flash_fwd",
                       "flash_fwd_causal": "flash_fwd_causal", "flash_bwd": "flash_bwd_fused",
                       "flash_bwd_causal": "flash_bwd_fused_causal", "layer_norm": "layer_norm",
                       "layer_norm_grad": "layer_norm_grad", "multi_adam": "multi_adam"}
-PSERVER_STEPS = 6  # sync rounds of the DeepFM cluster
+PSERVER_STEPS = 4  # sync rounds of the DeepFM cluster
 PSERVER_RTOL, PSERVER_ATOL = 2e-3, 2e-4  # tests/test_dist_subprocess.py's bar
 
 
@@ -8422,6 +8447,597 @@ def train_pserver(torch, card, readings):
     return {"gemm_epilogue": sum(t["launches"].get("gemm_epilogue", 0) for t in trainers)}
 
 
+# ---------------------------------------------------------------- eager mode
+
+EAGER_STEPS = 60  # eager LeNet steps (tests/test_mnist.py's 60, its gates)
+EAGER_CPU_STEPS = 3  # of them held against the port's own CPU run
+EAGER_LAYER_TOL = 1e-4  # a layer on the card against the CPU, rtol (atol of the largest)
+EAGER_BUSY_STEPS = 5  # eager steps profiled for the device busy share
+EAGER_LR = 5e-3  # the eager Adam's rate (the JAX package's eager LeNet test's)
+
+
+def _eager_lenet(imp, nn):
+    """LeNet-5 at paddle_tpu/models/lenet.py's widths built from
+    imperative.nn: conv 1 -> 6 5x5 pad 2 relu, max pool 2, conv 6 -> 16 5x5
+    relu, max pool 2, fc 400 -> 120 relu, fc 120 -> 84 relu, fc 84 -> 10, a
+    log-softmax loss Layer. A call gives (logits, loss)."""
+    import torch
+
+    class Loss(imp.Layer):
+        def forward(self, logits, label):
+            logp = torch.log_softmax(logits, dim=-1)
+            return -logp.gather(1, label.long().reshape(-1, 1)).mean()
+
+    class LeNet(imp.Layer):
+        def __init__(self):
+            super().__init__()
+            self.convs = [self.add_sublayer(nn.Conv2D(1, 6, 5, padding=2, act="relu")),
+                          self.add_sublayer(nn.Conv2D(6, 16, 5, act="relu"))]
+            self.pool = nn.Pool2D(2)
+            self.fcs = [self.add_sublayer(nn.FC(120, 400, act="relu")),
+                        self.add_sublayer(nn.FC(84, 120, act="relu")),
+                        self.add_sublayer(nn.FC(10, 84))]
+            self.loss = Loss()
+
+        def __call__(self, img, label):
+            h = img
+            for conv in self.convs:
+                h = self.pool(conv(h))
+            for fc in self.fcs:
+                h = fc(h)
+            return h, self.loss(h, imp.Variable(label, stop_gradient=True))
+
+    return LeNet()
+
+
+def _eager_batches(n):
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    out = []
+    for b in prof.mnist_reader()():
+        out.append((np.stack([s[0] for s in b]).astype(np.float32),
+                    np.asarray([s[1] for s in b], np.int64).reshape(-1, 1)))
+        if len(out) == n:
+            return out
+    raise AssertionError("the mnist reader gave %d batches, want %d" % (len(out), n))
+
+
+def _eager_train(imp, nn, net, place, batches, walls=None):
+    """Eager Adam steps (EAGER_LR) of `net` over `batches`, a guard a step:
+    (losses, accuracies)."""
+    opt = nn.AdamOptimizer(net.parameters(), learning_rate=EAGER_LR)
+    losses, accs = [], []
+    for img, label in batches:
+        t0 = time.perf_counter()
+        with imp.guard(place):
+            logits, loss = net(img, label)
+            loss.backward()
+            opt.step()
+            opt.clear_gradients()
+        losses.append(float(loss.numpy()))
+        if walls is not None:
+            walls.append((time.perf_counter() - t0) * 1e3)
+        accs.append(float((logits.numpy().argmax(-1) == label.reshape(-1)).mean()))
+    return losses, accs
+
+
+def _eager_close(torch, name, got, want):
+    """got (card) against want (CPU), numpy: rtol EAGER_LAYER_TOL, atol of
+    the largest magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    if got.shape != want.shape or not np.allclose(got, want, rtol=EAGER_LAYER_TOL,
+                                                  atol=EAGER_LAYER_TOL * scale):
+        raise AssertionError("eager %s: card against CPU max abs err %g (shape %s / %s)"
+                             % (name, err, got.shape, want.shape))
+    return err
+
+
+def _eager_layer_cases(torch, imp, nn):
+    """(name, make() -> layer, [inputs], steps, then eval) of the layers held
+    once on the card against the CPU."""
+    rng = np.random.RandomState(SEED + 7)
+
+    class Tanh(imp.PyLayer):
+        @staticmethod
+        def forward(x, s):
+            Tanh.saved = (x, s)
+            return np.tanh(x) * s
+
+        @staticmethod
+        def backward(dy):
+            x, s = Tanh.saved
+            return dy * (1.0 - np.tanh(x) ** 2) * s, dy * np.tanh(x)
+
+    class MLP(imp.Layer):
+        def __init__(self):
+            super().__init__()
+            self.w1 = self.create_parameter([512, 1024])
+            self.b1 = self.create_parameter([1024], initializer=0.0)
+            self.w2 = self.create_parameter([1024, 512])
+
+        def forward(self, x, w1, b1, w2):
+            return torch.relu(x @ w1 + b1) @ w2
+
+    x4 = (rng.randn(64, 32, 14, 14) * 2 + 1).astype(np.float32)
+    return [
+        ("batch_norm", lambda: nn.BatchNorm(32), [x4], 2, True),
+        ("layer_norm", lambda: nn.LayerNorm(512), [rng.randn(256, 512).astype(np.float32)], 1,
+         False),
+        ("embedding_padding_idx", lambda: nn.Embedding(size=[1000, 128], padding_idx=0),
+         [rng.randint(0, 1000, (64, 20)).astype(np.int64) * (rng.rand(64, 20) > 0.2)], 1, False),
+        ("pylayer", lambda: Tanh, [rng.randn(256, 64).astype(np.float32),
+                                  rng.randn(256, 64).astype(np.float32)], 1, False),
+        ("jit", lambda: MLP().jit(), [rng.randn(256, 512).astype(np.float32)], 1, False),
+    ]
+
+
+def _eager_layer_run(torch, imp, layer, inputs, place, pylayer):
+    """(output, input grad, [param grads]) of one traced call under a
+    weighted-sum loss."""
+    with imp.guard(place):
+        xs = [imp.to_variable(a) for a in inputs]
+        if pylayer:
+            xs[1].stop_gradient = True
+            y = layer.apply(*xs)
+        else:
+            y = layer(*xs)
+        w = torch.from_numpy(np.random.RandomState(SEED + 9).randn(*y.shape).astype(np.float32))
+
+        class Weighted(imp.Layer):
+            def forward(self, t):
+                return (t * w.to(t.device)).sum()
+
+        Weighted()(y).backward()
+        params = [] if pylayer else [p.gradient() for p in layer.parameters()]
+        xg = xs[0].gradient() if xs[0].value.is_floating_point() else None
+    return y.numpy(), xg, params
+
+
+def eager(torch, card, readings):
+    """Eager mode on the card: the LeNet-5 of models/lenet.py built from
+    imperative.nn, EAGER_STEPS steps of batch 64 with the eager Adam on
+    fluid.dataset.mnist's batches as train lenet reads them (a guard a
+    step), the gates of tests/test_mnist.py:64-67, the first EAGER_CPU_STEPS
+    losses against the port's own CPU run from the same weights (rtol 2e-3,
+    atol 2e-4); BatchNorm (train, then eval, its running statistics),
+    LayerNorm, Embedding with padding_idx, a PyLayer (a stop_gradient
+    input) and Layer.jit() (torch.compile, inductor) once each on the card
+    against the CPU at rtol 1e-4; DataParallel at world 1 bit for bit the
+    plain layer. Readings: the step wall p50 and the device busy share."""
+    import itertools
+
+    from paddle_tpu_torch import CUDAPlace, CPUPlace, convert, imperative as imp
+    from paddle_tpu_torch.imperative import nn
+
+    card_place, cpu = CUDAPlace(0), CPUPlace()
+    batches = _eager_batches(EAGER_STEPS)
+    state = np.random.get_state()
+    np.random.seed(SEED)
+    try:
+        with imp.guard(cpu):
+            cpu_net = _eager_lenet(imp, nn)
+    finally:
+        np.random.set_state(state)
+    init = [p.numpy() for p in cpu_net.parameters()]
+
+    def card_net():
+        with imp.guard(card_place):
+            return convert.load_imperative(_eager_lenet(imp, nn), init)
+
+    net = card_net()
+    if net.parameters()[0].value.device.type != card_place.torch_device().type:
+        raise AssertionError("eager: the LeNet's parameters are not on the card")
+    walls = []
+    losses, accs = _eager_train(imp, nn, net, card_place, batches, walls)
+    first5, last5, acc5 = (float(np.mean(losses[:5])), float(np.mean(losses[-5:])),
+                           float(np.mean(accs[-5:])))
+    if not (last5 < 0.7 * first5 and acc5 > 0.5):
+        raise AssertionError("eager lenet did not learn: loss %.4f -> %.4f, accuracy %.3f"
+                             % (first5, last5, acc5))
+    cpu_losses, _ = _eager_train(imp, nn, cpu_net, cpu, batches[:EAGER_CPU_STEPS])
+    if not np.allclose(losses[:EAGER_CPU_STEPS], cpu_losses, rtol=FUSED_RTOL, atol=FUSED_ATOL):
+        raise AssertionError("eager lenet: card losses %s against the CPU's %s"
+                             % (losses[:EAGER_CPU_STEPS], cpu_losses))
+    # the device busy share over a few more steps (torch.profiler's kernels
+    # and copies, summed)
+    step_batches = itertools.cycle(batches[:EAGER_BUSY_STEPS])
+    opt = nn.AdamOptimizer(net.parameters(), learning_rate=EAGER_LR)
+
+    def one():
+        img, label = next(step_batches)
+        with imp.guard(card_place):
+            _, loss = net(img, label)
+            loss.backward()
+            opt.step()
+            opt.clear_gradients()
+        return float(loss.numpy())
+
+    busy_ms = profiled_device_ms(torch, one, EAGER_BUSY_STEPS)
+    wall_p50 = float(np.median(walls[2:]))
+
+    # DataParallel at world 1: the plain layer bit for bit
+    plain, wrapped = card_net(), imp.DataParallel(card_net())
+    img, label = batches[0]
+    outs = []
+    for model in (plain, wrapped):
+        with imp.guard(card_place):
+            _, loss = model(img, label)
+            loss.backward()
+            if model is wrapped:
+                model.apply_collective_grads()
+        outs.append([loss.value] + [p._grad for p in model.parameters()])
+    if not all(_bits_equal(torch, a, b) for a, b in zip(*outs)):
+        raise AssertionError("eager: DataParallel at world 1 differs from the plain layer")
+
+    # the other layers, once each on the card against the CPU
+    errs = {}
+    for name, make, inputs, steps, then_eval in _eager_layer_cases(torch, imp, nn):
+        pylayer = name == "pylayer"
+        state = np.random.get_state()
+        np.random.seed(SEED + 3)
+        try:
+            with imp.guard(cpu):
+                ref = make()
+        finally:
+            np.random.set_state(state)
+        with imp.guard(card_place):
+            got = make()
+        if not pylayer:
+            convert.load_imperative(got, [p.numpy() for p in ref.parameters()])
+        err = 0.0
+        for _ in range(steps):
+            want = _eager_layer_run(torch, imp, ref, inputs, cpu, pylayer)
+            have = _eager_layer_run(torch, imp, got, inputs, card_place, pylayer)
+            for i, (h, w) in enumerate(zip(have[:2] + tuple(have[2]), want[:2] + tuple(want[2]))):
+                if w is not None:
+                    err = max(err, _eager_close(torch, "%s output %d" % (name, i), h, w))
+        if name == "batch_norm":
+            for (gm, gv), (wm, wv) in zip(convert.running_stats(got), convert.running_stats(ref)):
+                err = max(err, _eager_close(torch, "batch_norm running mean", gm, wm),
+                          _eager_close(torch, "batch_norm running var", gv, wv))
+        if then_eval:
+            ref.eval()
+            got.eval()
+            err = max(err, _eager_close(torch, "%s eval" % name,
+                                        _eager_layer_run(torch, imp, got, inputs, card_place,
+                                                         pylayer)[0],
+                                        _eager_layer_run(torch, imp, ref, inputs, cpu,
+                                                         pylayer)[0]))
+        if name == "embedding_padding_idx":
+            out = _eager_layer_run(torch, imp, got, inputs, card_place, pylayer)[0]
+            if np.abs(out[inputs[0].reshape(out.shape[:2]) == 0]).max() != 0:
+                raise AssertionError("eager embedding: padding rows are not zero")
+        errs[name] = err
+    readings["eager"] = {"eager": {
+        "step_p50_ms": wall_p50, "images_per_s": 64 / (wall_p50 / 1e3),
+        "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_p50}}
+    log("eager: LeNet-5 (imperative.nn, the widths of models/lenet.py) %d eager Adam steps of "
+        "batch 64 on the card, a guard a step: losses %.4f -> %.4f (first and last 5), accuracy "
+        "of the last 5 %.3f; the first %d losses %s against the CPU's %s (rtol %g atol %g); step "
+        "wall p50 %.3f ms (steps 3-%d, the loss read each step), %.1f images/s; device busy "
+        "%.3f ms a step (torch.profiler, %d steps), busy share %.3f; DataParallel at world 1 "
+        "bit for bit the plain layer (loss and every grad); card against CPU, max abs err %s "
+        "(rtol %g, atol of the largest); card %s" % (
+            EAGER_STEPS, first5, last5, acc5, EAGER_CPU_STEPS,
+            ["%.6f" % v for v in losses[:EAGER_CPU_STEPS]], ["%.6f" % v for v in cpu_losses],
+            FUSED_RTOL, FUSED_ATOL, wall_p50, EAGER_STEPS, 64 / (wall_p50 / 1e3), busy_ms,
+            EAGER_BUSY_STEPS, busy_ms / wall_p50, json.dumps({k: float("%.3g" % v)
+                                                               for k, v in errs.items()}),
+            EAGER_LAYER_TOL, card))
+
+
+# ---------------------------------------------------------------- telemetry
+
+TELEMETRY_STEPS = 6  # graph steps of train_flash fed through layers.py_reader, each form
+TELEMETRY_INTERVAL = 2  # FLAGS_telemetry_interval_steps
+TENSOR_STATS_GLOB = "*layer_norm*"
+TENSOR_STATS_TOL = 1e-5  # rtol, and atol as a share of each row's absmax
+OP_PROFILE_COVERAGE = 0.95  # per-op device ms against the trace's kernel time
+TELEMETRY_METRICS = ("steps_total", "step_ms", "input/feed_stall_ms_total",
+                     "compile_cache/hits", "compile_cache/misses", "nan_guard/trips")
+
+
+def _tstat_rows(torch, tensors):
+    """[mean, std, absmax, nonfinite] of each tensor, as the executor
+    computes them on the device."""
+    rows = []
+    for t in tensors:
+        x = t.detach().float()
+        rows.append(torch.stack([x.mean(), x.std(correction=0), x.abs().amax(),
+                                 (~torch.isfinite(x)).sum().float()]))
+    return torch.stack(rows).cpu().numpy()
+
+
+def _telemetry_reader_steps(torch, exe, main_prog, scope, loss, batches, reader, prof, walls,
+                            deltas):
+    """One step a batch pulled from the program's layers.py_reader; the
+    last one profiled for its host syncs. Returns (losses, its syncs)."""
+    from paddle_tpu_torch.ops import fused
+
+    reader.decorate_tensor_provider(lambda: (prof.reader_feed(main_prog, b) for b in batches))
+    reader.start()
+    losses, syncs = [], None
+    for i in range(len(batches)):
+        before = fused.stats()
+        t0 = time.perf_counter()
+        if i == len(batches) - 1:
+            (lv,), syncs = _host_syncs(torch, lambda: exe.run(main_prog, fetch_list=[loss.name],
+                                                              scope=scope))
+        else:
+            (lv,) = exe.run(main_prog, fetch_list=[loss.name], scope=scope)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        deltas.append(_launch_delta(before, fused.stats()))
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    reader.reset()
+    return losses, syncs
+
+
+def telemetry(torch, card, readings):
+    """Step telemetry and op-level attribution on train_flash's path
+    (Transformer base, f32, training_fused, use_flash):
+    - TELEMETRY_STEPS graph steps fed through layers.py_reader with
+      FLAGS_telemetry_dir set (interval TELEMETRY_INTERVAL), against the
+      same steps with telemetry off in the same call: the step records and
+      their fields, the feed-stall the collector recorded, the Prometheus
+      file parsed by promparse equal to default_registry().snapshot() (the
+      telemetry metrics), the shard merged by rank 0, equal host syncs a
+      step on and off, the same losses; the step wall p50 of each;
+    - FLAGS_tensor_stats="*layer_norm*" on the feed-dict form: the flag
+      change captures a new graph, a replay makes one host sync more than a
+      step without it, and its rows equal the statistics of the same
+      outputs fetched on the op-by-op path from the same state and
+      generator state (rtol 1e-5 with atol 1e-5 of absmax; nonfinite
+      counts exactly);
+    - FLAGS_nan_provenance with the NaN guard and the nan_grad fault: the
+      record names the first op that reads the poisoned feed, the rollback
+      bit for bit, the replay's wall;
+    - one op-by-op step under profiler.xla_trace: device_op_profile's
+      per-op device ms within 5 % of the trace's kernel time, the top rows
+      with the H100's Roof%; a replayed step's trace raises.
+    Returns the kernels' launches over the telemetry-on steps."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, profiler
+    from paddle_tpu_torch.executor import _run_ops
+    from paddle_tpu_torch.observability import export, opprof, promparse, registry, stepstats
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.resilience import faults, health
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    cfg = prof.BASE_FLASH
+    place = CUDAPlace(0)
+    flags.set_flags({"pass_pipeline": "training_fused"})
+    main_prog, startup, loss = prof.build(cfg, reader=True)
+    reader = main_prog._py_readers[0]
+    init = _startup_state(startup)
+    batches = [prof.make_batch(cfg, SEED + 300 + i) for i in range(TELEMETRY_STEPS)]
+
+    def fresh():
+        scope = Scope(seed=SEED, place=place)
+        for name, value in init.items():
+            scope.set_var(name, value.clone())
+        return scope, Executor(place)
+
+    col = stepstats.collector()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        # telemetry off, then on, each from the startup state
+        walls, deltas, losses, syncs = {}, {}, {}, {}
+        for on in (False, True):
+            if on:
+                col.close()
+                col.reset()
+                flags.set_flags({"telemetry_dir": tmp,
+                                 "telemetry_interval_steps": TELEMETRY_INTERVAL})
+                stall0 = sum(registry.default_registry().snapshot().get(
+                    "input/feed_stall_ms_total", {}).get("values", {"": 0.0}).values())
+            scope, exe = fresh()
+            walls[on], deltas[on] = [], []
+            if on:
+                fused.reset_stats()  # the main path's counting window opens here
+            losses[on], syncs[on] = _telemetry_reader_steps(
+                torch, exe, main_prog, scope, loss, batches, reader, prof, walls[on], deltas[on])
+            del scope, exe
+        snap = registry.default_registry().snapshot()
+        flags.set_flags({"telemetry_dir": ""})
+        col.close()
+        _same_bits("telemetry on against off, loss at step", losses[True], losses[False])
+        if syncs[True] != syncs[False]:
+            raise AssertionError("telemetry: host syncs a step %s on, %s off"
+                                 % (syncs[True], syncs[False]))
+        recs = export.read_records(os.path.join(tmp, "telemetry-host0.jsonl"))
+        steps = [r for r in recs if r["kind"] == "step"]
+        fields = {"kind", "step", "ts", "host", "wall_ms", "n_steps", "feed_stall_ms",
+                  "cache_hit", "nan_trip", "training", "loss"}
+        if len(steps) != TELEMETRY_STEPS or any(set(r) != fields for r in steps) or \
+                [r["step"] for r in steps] != list(range(1, TELEMETRY_STEPS + 1)) or \
+                not all(r["training"] and not r["nan_trip"] for r in steps) or \
+                [r["cache_hit"] for r in steps] != [False] + [True] * (TELEMETRY_STEPS - 1):
+            raise AssertionError("telemetry: step records %s" % steps)
+        np.testing.assert_allclose([r["loss"] for r in steps], losses[True], rtol=1e-6)
+        stall = sum(snap["input/feed_stall_ms_total"]["values"].values()) - stall0
+        stalls = [r["feed_stall_ms"] for r in steps]
+        if not stall > 0 or abs(sum(stalls) - stall) > 1e-3 * max(1.0, stall):
+            raise AssertionError("telemetry: feed-stall %r ms in the counter, %r in the records"
+                                 % (stall, stalls))
+        snaps = [r for r in recs if r["kind"] == "snapshot"]
+        if len(snaps) != TELEMETRY_STEPS // TELEMETRY_INTERVAL:
+            raise AssertionError("telemetry: %d snapshot records" % len(snaps))
+        with open(os.path.join(tmp, "metrics-host0.prom")) as f:
+            parsed = promparse.parse(f.read())
+        # (a metric with no sample has no line in the file)
+        mine = {n: snap[n] for n in TELEMETRY_METRICS
+                if n in snap and (snap[n]["kind"] == "histogram" or snap[n].get("values"))}
+        if {n: parsed.get(n) for n in mine} != mine:
+            raise AssertionError("telemetry: the Prometheus file reads back %s, the registry "
+                                 "holds %s" % ({n: parsed.get(n) for n in mine}, mine))
+        merged = export.merge_host_shards(tmp)
+        if export.read_records(merged) != sorted(recs, key=lambda r: (r["ts"], r["host"])):
+            raise AssertionError("telemetry: the merged view differs from the shard")
+        p50 = {on: float(np.median(w[2:])) for on, w in walls.items()}
+        launches = {}
+        names = {"flash_bwd_fused": "flash_bwd", "flash_bwd_fused_causal": "flash_bwd_causal"}
+        for delta in deltas[True]:
+            for k, v in delta.items():
+                launches[names.get(k, k)] = launches.get(names.get(k, k), 0) + v
+
+        # FLAGS_tensor_stats on the feed-dict form
+        fmain, fstartup, floss = prof.build(cfg)
+        fbatches = [prof.make_batch(cfg, SEED + 400 + i) for i in range(4)]
+        scope, exe = fresh()
+
+        def run(feed, fetch=None, **kw):
+            return exe.run(fmain, feed=feed, fetch_list=fetch or [floss.name], scope=scope, **kw)
+
+        def replay_walls():
+            walls = []
+            for b in fbatches:
+                t0 = time.perf_counter()
+                run(b)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(walls))
+
+        run(fbatches[0])
+        run(fbatches[1])  # captured
+        plain_ms = replay_walls()
+        (_,), plain_syncs = _host_syncs(torch, lambda: run(fbatches[2]))
+        captures0 = Executor.stats()["graphs"].get("captures", 0)
+        flags.set_flags({"tensor_stats": TENSOR_STATS_GLOB})
+        run(fbatches[0])  # a new block: the warmup
+        run(fbatches[1])  # its capture
+        if Executor.stats()["graphs"].get("captures", 0) - captures0 != 1:
+            raise AssertionError("tensor_stats: the flag change captured %d graphs"
+                                 % (Executor.stats()["graphs"].get("captures", 0) - captures0))
+        stat_ms = replay_walls()
+        state = {n: t.clone() for n, t in scope.vars.items() if n in init}
+        gen = scope.device_generator.get_state()
+        (_,), stat_syncs = _host_syncs(torch, lambda: run(fbatches[2]))
+        rows = opprof.last_tensor_stats()
+        if sum(stat_syncs.values()) != sum(plain_syncs.values()) + 1:
+            raise AssertionError("tensor_stats: a replay made host syncs %s, without it %s"
+                                 % (stat_syncs, plain_syncs))
+        # the same step op by op from the same state: the matched outputs
+        # fetched, their statistics computed by the same expressions
+        for n, t in state.items():
+            scope.vars[n].copy_(t)
+        scope.device_generator.set_state(gen)
+        flags.set_flags({"tensor_stats": ""})
+        names_spec = [name for name in rows]
+        vars_ = [name.split(":", 1)[1] for name in names_spec]
+        with op_by_op():
+            fetched = run(fbatches[2], [floss.name] + vars_, return_numpy=False)
+        want = _tstat_rows(torch, fetched[1:])
+        got = np.asarray([[rows[n]["mean"], rows[n]["std"], rows[n]["absmax"],
+                           rows[n]["nonfinite"]] for n in names_spec])
+        for (name, g, w) in zip(names_spec, got, want):
+            if g[3] != w[3] or not np.allclose(g[:3], w[:3], rtol=TENSOR_STATS_TOL,
+                                               atol=TENSOR_STATS_TOL * max(w[2], 1e-30)):
+                raise AssertionError("tensor_stats %s: %s on the graph, %s op by op"
+                                     % (name, g.tolist(), w.tolist()))
+        stats_err = float(np.abs(got[:, :3] - want[:, :3]).max())
+
+        # FLAGS_nan_provenance with the guard and the nan_grad fault
+        flags.set_flags({"nan_provenance": True, "resilience_nan_guard": True})
+        try:
+            t0 = time.perf_counter()
+            run(fbatches[3])
+            guard_ms = (time.perf_counter() - t0) * 1e3
+            before = {n: scope.vars[n].clone() for n in init}
+            health.reset()
+            faults.install("nan_grad:step=1")
+            t0 = time.perf_counter()
+            try:
+                (lv,) = run(fbatches[3])
+            finally:
+                faults.install(None)
+            prov_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            flags.set_flags({"nan_provenance": False, "resilience_nan_guard": False})
+        decay = flags.get_flags("resilience_lr_decay")["resilience_lr_decay"]
+        lr_names = [n for n in before if n.rsplit("/", 1)[-1].startswith("learning_rate")]
+        bad = _differing(torch, {n: scope.vars[n] for n in before},
+                         dict(before, **{n: before[n] * decay for n in lr_names}))
+        if bad or not lr_names or not np.isnan(lv).all():
+            raise AssertionError("nan_provenance: the guarded step left %s changed (loss %r)"
+                                 % (bad, lv))
+        prov = opprof.last_provenance()
+        if prov is None or health.get("nan_provenance") != 1:
+            raise AssertionError("nan_provenance: no record (health %d)"
+                                 % health.get("nan_provenance"))
+        ops = next(_run_ops(c) for c in exe._cache.values()
+                   if any(opprof.op_display_name(op) == prov["op"] for op in _run_ops(c)))
+        poisoned = sorted(n for n, v in fbatches[3].items() if np.asarray(v).dtype.kind == "f")[0]
+        first = next(op for op in ops if poisoned in op.input_arg_names)
+        if prov["op"] != opprof.op_display_name(first):
+            raise AssertionError("nan_provenance: the record names %s, the first op reading %s "
+                                 "is %s" % (prov["op"], poisoned, opprof.op_display_name(first)))
+        del before
+
+        # one op-by-op step under xla_trace, and a replayed one
+        trace_dir = os.path.join(tmp, "trace")
+        with op_by_op(), profiler.xla_trace(trace_dir):
+            t0 = time.perf_counter()
+            run(fbatches[0])
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        table = profiler.device_op_profile(trace_dir, print_table=False)
+        total = sum(r[1] for r in table.values())
+        per_op = sum(r[1] for k, r in table.items() if not k.startswith("kernel:"))
+        outside = sorted(((r[1], k) for k, r in table.items() if k.startswith("kernel:")),
+                         reverse=True)[:8]
+        if not total or per_op / total < OP_PROFILE_COVERAGE:
+            raise AssertionError("device_op_profile: per-op %.3f of %.3f kernel ms; the largest "
+                                 "outside every op range: %s" % (per_op, total, outside))
+        avals = {n: np.asarray(v) for n, v in fbatches[0].items()}
+        rec = opprof.device_profile(exe, trace_dir, block=fmain.global_block(), feed_avals=avals)
+        graph_dir = os.path.join(tmp, "graph_trace")
+        with profiler.xla_trace(graph_dir):
+            run(fbatches[1])
+        with _raises(RuntimeError, "device_op_profile over a replayed graph's trace"):
+            profiler.device_op_profile(graph_dir, print_table=False)
+        del scope, exe
+    finally:
+        flags.set_flags({"telemetry_dir": "", "tensor_stats": "", "nan_provenance": False,
+                         "resilience_nan_guard": False})
+        col.close()
+        col.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    readings["telemetry"] = {"graph": {
+        "step_p50_ms_telemetry_on": p50[True], "step_p50_ms_telemetry_off": p50[False],
+        "host_syncs_a_step": sum(syncs[True].values()),
+        "tensor_stats_step_p50_ms": stat_ms, "tensor_stats_off_step_p50_ms": plain_ms,
+        "tensor_stats_host_syncs": sum(stat_syncs.values()),
+        "provenance_step_ms": prov_ms, "guarded_step_ms": guard_ms,
+        "op_profile_coverage": per_op / total}}
+    log("telemetry: train_flash %s, %d graph steps through layers.py_reader with "
+        "FLAGS_telemetry_dir (interval %d) against the same steps off: losses bit for bit, host "
+        "syncs a step %s on and %s off, %d step records (%s), %d snapshot records, feed-stall "
+        "%.3f ms over the steps (records %s), the Prometheus file read back by promparse equal to "
+        "the registry's %s, the shard merged; step wall p50 %.3f ms on, %.3f ms off (steps "
+        "3-%d); tensor_stats %r: one capture more, replay wall p50 %.3f ms against %.3f ms "
+        "without (%d replays each), host syncs %s (without: %s), %d rows against the op-by-op fetches, max abs err %.3g (rtol %g, atol %g of "
+        "absmax), nonfinite counts equal; nan_provenance with the guard and nan_grad: the "
+        "record names %s (the first op reading %r), the tripped step with the replay %.3f ms "
+        "against a guarded step %.3f ms; one op-by-op step under xla_trace (%.3f ms): per-op "
+        "device ms %.3f of %.3f kernel ms (%.2f %%; outside every op range, the largest: %s), "
+        "a replayed step's trace raises; card %s"
+        % (json.dumps(cfg), TELEMETRY_STEPS, TELEMETRY_INTERVAL, json.dumps(syncs[True]),
+           json.dumps(syncs[False]), len(steps), sorted(fields), len(snaps), stall,
+           ["%.3f" % s for s in stalls], list(mine), p50[True], p50[False], TELEMETRY_STEPS,
+           TENSOR_STATS_GLOB, stat_ms, plain_ms, len(fbatches), json.dumps(stat_syncs),
+           json.dumps(plain_syncs),
+           len(names_spec), stats_err, TENSOR_STATS_TOL, TENSOR_STATS_TOL, prov["op"], poisoned,
+           prov_ms, guard_ms, traced_ms, per_op, total, 100.0 * per_op / total,
+           [(round(ms, 4), k) for ms, k in outside], card))
+    log("telemetry: the op-by-op step's device profile (torch.profiler, Roof%% against the "
+        "H100's %g TFLOP/s and %g GB/s)\n%s" % (rec["peak_tflops"], rec["peak_bw_gbs"],
+                                                opprof.render_table(rec, top=12)))
+    return launches
+
+
 def main():
     import torch
 
@@ -8578,6 +9194,13 @@ def main():
     torch.cuda.empty_cache()
     with Phase("train pserver"):
         for name, n in train_pserver(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    with Phase("eager"):
+        eager(torch, card, paths)
+    torch.cuda.empty_cache()
+    with Phase("telemetry"):
+        for name, n in telemetry(torch, card, paths).items():
             launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
     with Phase("train parallel"):

@@ -77,6 +77,7 @@ from . import (  # noqa: F401
     evaluator,
     flags,
     framework,
+    imperative,
     initializer,
     io,
     layers,

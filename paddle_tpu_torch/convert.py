@@ -7,6 +7,12 @@ every name, shape and dtype is checked and a missing or extra name raises.
 Arrays travel as numpy (`{name: np.asarray(jax_scope.vars[name])}`), so
 neither side imports the other; `scope_to_numpy` carries the port's scope
 back, so that both packages' state can be compared after N steps.
+
+Eager layers (imperative.Layer) carry their state by position instead:
+`load_imperative` copies a JAX Layer's `parameters()`, given in order as
+numpy arrays, into the port's Layer of the same structure, with the
+running statistics of its BatchNorms (`running_stats`, which reads them
+from either package's layer tree).
 """
 
 import numpy as np
@@ -14,7 +20,8 @@ import torch
 
 from .ops.registry import torch_dtype
 
-__all__ = ["load_into_scope", "params_from_jax", "persistable_names", "scope_to_numpy"]
+__all__ = ["load_imperative", "load_into_scope", "params_from_jax", "persistable_names",
+           "running_stats", "scope_to_numpy"]
 
 
 def params_from_jax(arrays, device):
@@ -90,3 +97,47 @@ def load_into_scope(scope, arrays, names):
     with torch.no_grad():
         for name in sorted(want):
             scope.vars[name].copy_(tensors[name])
+
+
+def _stat_layers(layer):
+    """The layers of an eager layer tree (pre-order: a layer, then its
+    sublayers) that keep running statistics (BatchNorm's `_mean`, `_var`),
+    in either package."""
+    out = [layer] if hasattr(layer, "_mean") and hasattr(layer, "_var") else []
+    for sub in getattr(layer, "_sublayers", ()):
+        out.extend(_stat_layers(sub))
+    return out
+
+
+def running_stats(layer):
+    """[(mean, var)] numpy copies of the running statistics of every
+    BatchNorm in an eager layer tree of either package, in tree order."""
+    return [(np.array(np.asarray(s._mean)), np.array(np.asarray(s._var)))
+            for s in _stat_layers(layer)]
+
+
+def load_imperative(layer, arrays, stats=None):
+    """Copy `arrays` (numpy, in the order of the source layer's
+    parameters()) into the port's eager `layer`'s parameters, on each
+    parameter's device, and `stats` (running_stats of the source, or None
+    to leave them) into its BatchNorms. The count, every shape and every
+    dtype must match; returns the layer."""
+    params = layer.parameters()
+    if len(arrays) != len(params):
+        raise ValueError("%d arrays for %d parameters" % (len(arrays), len(params)))
+    for i, (p, a) in enumerate(zip(params, arrays)):
+        a = np.array(a)
+        dt = torch_dtype(a.dtype)
+        if tuple(a.shape) != tuple(p.value.shape) or dt != p.value.dtype:
+            raise ValueError("parameter %d: got %s %s, the layer holds %s %s"
+                             % (i, a.shape, dt, tuple(p.value.shape), p.value.dtype))
+        p.value = torch.from_numpy(a).to(device=p.value.device, dtype=dt)
+    if stats is not None:
+        layers = _stat_layers(layer)
+        if len(stats) != len(layers):
+            raise ValueError("%d running statistics for %d BatchNorms"
+                             % (len(stats), len(layers)))
+        for bn, (mean, var) in zip(layers, stats):
+            bn._mean = np.array(mean, dtype=bn._mean.dtype)
+            bn._var = np.array(var, dtype=bn._var.dtype)
+    return layer

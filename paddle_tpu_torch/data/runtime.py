@@ -27,9 +27,8 @@ real kill.
 Observability: the runtime feeds the metric registry
 (observability/registry.py) — data/ring_occupancy, data/bytes_per_sec,
 per-worker data/worker_busy_frac and data/batches_total,
-data/worker_restarts. The JAX package also records the time next_batch
-blocks as feed-stall in observability.stepstats, which the port has not
-ported yet (ROADMAP A item 4).
+data/worker_restarts, and the time next_batch blocks is recorded as
+feed-stall in observability.stepstats.
 """
 
 import collections
@@ -396,11 +395,15 @@ class DataRuntime:
 
     # -------------------------------------------------------------- consumer
     def next_batch(self):
-        """Next staged batch; raises EOFException at epoch end."""
+        """Next staged batch; raises EOFException at epoch end. Blocking time
+        here IS the input pipeline failing to keep up: it is recorded as
+        feed-stall (stepstats) while telemetry is active."""
+        from ..observability import stepstats
         from ..py_reader import EOFException
 
         if not self._started:
             raise RuntimeError("DataRuntime epoch not started")
+        t0 = time.perf_counter() if stepstats.active() else None
         while True:
             try:
                 item = self._staged.get(timeout=5.0)
@@ -413,6 +416,8 @@ class DataRuntime:
             if isinstance(item, tuple) and item[0] != self._gen:
                 continue
             break
+        if t0 is not None:
+            stepstats.collector().add_feed_stall((time.perf_counter() - t0) * 1e3)
         if isinstance(item, _Eof):
             self._started = False
             raise EOFException("data runtime epoch exhausted")

@@ -48,6 +48,16 @@ and, on the card, captures it as a CUDA graph:
   `lr_decays`. The `nan_grad` fault (resilience/faults.py) poisons the
   first floating feed of such a run before it reaches the block. Every run
   entry beats the elastic watchdog (resilience/elastic.py heartbeat).
+- Observability (observability/): with telemetry active (FLAGS_telemetry_
+  dir or _log_every) every run records a step (host wall, cache hit, the
+  guard's trip, the loss when the fetch is already on the host: no sync of
+  its own). FLAGS_tensor_stats instruments the matched ops' outputs: their
+  [mean, std, absmax, nonfinite] are computed on the device as each value
+  is final, inside the captured graph on the card, and read with one host
+  sync a run; the pattern is part of the cache key. FLAGS_nan_provenance:
+  when the guard or FLAGS_check_nan_inf trips, the step is replayed op by
+  op from its pre-step state and the generator state it started from
+  (_localize_nan), naming the first op with a non-finite output.
 
 State model: a Scope holds name -> torch.Tensor on one device. Persistable
 vars the block reads are state; those it also writes (parameters written by
@@ -69,7 +79,9 @@ runs on it.
 
 import contextlib
 import itertools
+import sys
 import threading
+import time
 import types
 
 import numpy as np
@@ -79,6 +91,7 @@ from . import flags as _flags
 from . import framework
 from . import profiler as _prof
 from .framework import Variable
+from .observability.opprof import op_display_name
 from .ops import fused, registry
 from .ops.control_flow_ops import is_open_ended_while, walk_ops
 from .ops.registry import EMPTY_VAR_NAME
@@ -316,13 +329,20 @@ def _call_host(op, scope):
     fused.note_segment("host")
 
 
-def op_display_name(op):
-    """'<type>:<first output>': fluid ops are anonymous, so the first output
-    names the instance (the JAX package's opprof.op_display_name)."""
-    for name in op.output_arg_names:
-        if name != EMPTY_VAR_NAME:
-            return "%s:%s" % (op.type, name)
-    return op.type
+def _flags_opprof():
+    return _flags.get_flags(("tensor_stats", "nan_provenance"))
+
+
+def _stat_row(v):
+    """[mean, std, absmax, nonfinite] of a float tensor as one f32 tensor on
+    its device (FLAGS_tensor_stats; None for anything else)."""
+    if not (isinstance(v, torch.Tensor) and v.is_floating_point()):
+        return None
+    x = v.detach().float()
+    if not x.numel():
+        return torch.zeros(4, dtype=torch.float32, device=x.device)
+    return torch.stack([x.mean(), x.std(correction=0), x.abs().amax(),
+                        (~torch.isfinite(x)).sum().float()])
 
 
 class _PerOpProfiledBlock:
@@ -336,7 +356,8 @@ class _PerOpProfiledBlock:
     a profiler event and, on the card, syncs the device after it, so the
     event holds the op's device time too (the reference's per-op tables)."""
 
-    def __init__(self, block, feed_names, fetch_names, scope, ops=None, mesh=None):
+    def __init__(self, block, feed_names, fetch_names, scope, ops=None, mesh=None,
+                 tensor_stats=""):
         self.feed_names = list(feed_names)
         # a ParallelExecutor's block: its lowerings see this rank's mesh
         # (ctx.mesh), and `plan` (parallel_executor._ParallelPlan, set by
@@ -406,6 +427,16 @@ class _PerOpProfiledBlock:
             self.capture_declined = "host_op"
         else:
             self.capture_declined = None
+        # FLAGS_tensor_stats: (display name, var) of the matched ops'
+        # outputs, whose statistics a run computes on the device as each
+        # value is final (before it is dropped, or at the end), stacked
+        # into one [n, 4] tensor (`tstat`: (names, tensor) of the last run)
+        self.tstat_spec = ()
+        if tensor_stats:
+            from .observability import opprof
+
+            self.tstat_spec = opprof.stats_spec(self.ops, tensor_stats)
+        self.tstat = None
         self.runs = list(registry.op_runs(self.ops))
         self.dead = registry.dead_after(
             self.runs, set(self.fetch_names) | set(self.mut_names) | set(self.created_persistables))
@@ -443,6 +474,8 @@ class _PerOpProfiledBlock:
         env.update(feeds)
         sync = per_op and ctx.device.type == "cuda"
         plan = self.plan
+        stats = {} if self.tstat_spec else None
+        watched = {var for _, var in self.tstat_spec}
         if self.stored:
             from .parallel.sharding_rules import Layouts
 
@@ -463,8 +496,21 @@ class _PerOpProfiledBlock:
             # step's memory (and a captured graph's pool) holds only what
             # is live
             for n in dead:
+                if stats is not None and n in watched:
+                    stats[n] = _stat_row(env.get(n))
                 env.pop(n, None)
+        if stats is not None:
+            self._stack_stats(stats, env)
         return self._results(env, ctx)
+
+    def _stack_stats(self, stats, env):
+        for _, var in self.tstat_spec:
+            if var not in stats:
+                stats[var] = _stat_row(env.get(var))
+        present = [(name, stats[var]) for name, var in self.tstat_spec
+                   if stats[var] is not None]
+        self.tstat = (tuple(n for n, _ in present),
+                      torch.stack([r for _, r in present])) if present else None
 
     def _results(self, env, ctx):
         """(fetches, new_mut, created) of a run's env: a fetched piece is
@@ -640,6 +686,9 @@ class _CudaGraph:
                     elif t.shape != held.shape or t.stride() != held.stride():
                         raise RuntimeError("%r: written as a different view of its storage" % n)
         self.fetches = fetches
+        # FLAGS_tensor_stats: the capture's stats tensor, which every replay
+        # rewrites
+        self.tstat = block.tstat
         self.delta = []
         for d, b in zip(self._counters, before):
             self.delta.append({k: v - b.get(k, 0) for k, v in d.items() if v != b.get(k, 0)})
@@ -718,6 +767,10 @@ class _CompiledBlock:
                                "its block was captured")
         fused.note_graph("replays")
         return self.graph.replay(feeds, ro, mut) + ({},)
+
+    def tensor_stats(self):
+        """(names, [n, 4] tensor) of the last call's FLAGS_tensor_stats."""
+        return self.graph.tstat if self.graph is not None else self.block.tstat
 
     def __call__(self, scope, feeds):
         """One Executor.run over the scope's state: the fetches. From the
@@ -1417,7 +1470,7 @@ def _all_finite(values):
     return bool(torch.isfinite(torch.stack(norms)).all())
 
 
-def _check_nan_inf(compiled, scope, fetch_names, fetches, step):
+def _check_nan_inf(compiled, scope, fetch_names, fetches, step, provenance=None):
     """FLAGS_check_nan_inf (the reference's operator.cc:778; the JAX
     package's Executor._finish_run): the fetches and the persistables the
     block writes reduce to one flag on the device, read with one host
@@ -1436,7 +1489,126 @@ def _check_nan_inf(compiled, scope, fetch_names, fetches, step):
             writer = _last_writer(compiled, name)
             if writer is not None:
                 msg += ", last written by op %s" % writer
-            raise FloatingPointError(msg + " (run step %d)" % step)
+            msg += " (run step %d)" % step
+            # FLAGS_nan_provenance: the step replayed op by op (from the
+            # state it left: right for a feed or activation NaN,
+            # approximate for one born inside the update)
+            prov = provenance() if provenance is not None else None
+            if prov is not None:
+                msg += "; first non-finite output at op #%s %s" % (
+                    prov.get("op_index"), prov.get("op"))
+            raise FloatingPointError(msg)
+
+
+def _generator_states(scope):
+    """(host, device) generator states of the scope, as a step starts."""
+    return (scope.generator.get_state(), scope.device_generator.get_state())
+
+
+def _localize_nan(compiled, scope, feed, gen_states, reason, step=None, mut_override=None):
+    """FLAGS_nan_provenance: replay the failed step's feed through
+    opprof.localize_nonfinite over the block's op list, op by op, against
+    the step's PRE-state (`mut_override` = the guard's pre-step copies when
+    it has them, else the scope as it is) and the generator states it
+    started from (`gen_states`, else the scope's as they are). Returns the
+    written provenance record or None; never raises (diagnosis must not
+    mask the original failure)."""
+    if isinstance(compiled, _MultiStepBlock):
+        # a k-step call's feed is stacked [k, ...]; replaying it as one
+        # step would walk the wrong shapes: provenance needs steps_per_run=1
+        if not getattr(_localize_nan, "_warned_multi", False):
+            _localize_nan._warned_multi = True
+            print("[nan_provenance] skipped: steps_per_run>1 runs cannot be replayed per-op "
+                  "(rerun the failing step with steps_per_run=1)", file=sys.stderr)
+        return None
+    from .observability import opprof
+
+    try:
+        block = _prepared(compiled)
+        env = {n: v for n, v in scope.vars.items() if isinstance(v, torch.Tensor)}
+        if mut_override:
+            env.update(mut_override)
+        dtypes = getattr(block, "feed_dtypes", {})
+        for n, v in (feed or {}).items():
+            env[n] = to_tensor(v, scope.device, dtypes.get(n))
+        host = torch.Generator()
+        dev = torch.Generator(device=scope.device)
+        if gen_states is None:
+            gen_states = _generator_states(scope)
+        host.set_state(gen_states[0])
+        dev.set_state(gen_states[1])
+        ctx = registry.LowerCtx(
+            scope.device, generator=host, device_generator=dev, cache={},
+            host_random=bool(getattr(block, "created_persistables", ())),
+            mesh=getattr(block, "mesh", None))
+        prov = opprof.localize_nonfinite(_run_ops(compiled), env, ctx, step=step)
+        if prov is None:
+            return None
+        return opprof.write_provenance(prov, reason=reason)
+    except Exception as e:
+        if not getattr(_localize_nan, "_warned", False):
+            _localize_nan._warned = True
+            print("[nan_provenance] replay failed: %r" % e, file=sys.stderr)
+        return None
+
+
+def _record_tensor_stats(compiled):
+    """FLAGS_tensor_stats: the run's [n, 4] statistics to the host (the
+    leg's one sync a run) and into opprof's record, gauges and telemetry.
+    A failure is reported once and never fails the step."""
+    src = compiled.tensor_stats() if isinstance(compiled, _CompiledBlock) \
+        else getattr(compiled, "tstat", None)
+    if src is None:
+        return
+    from .observability import opprof
+
+    try:
+        names, t = src
+        opprof.record_tensor_stats(names, t.detach().cpu().numpy())
+    except Exception as e:
+        if not getattr(_record_tensor_stats, "_warned", False):
+            _record_tensor_stats._warned = True
+            print("tensor_stats record failed (disabled for this message): %r" % e,
+                  file=sys.stderr)
+
+
+def _telemetry_begin():
+    """(collector, t0) when telemetry is active, else (None, None): the
+    disabled path costs one flags lookup a run (observability.stepstats)."""
+    from .observability import stepstats
+
+    if not stepstats.active():
+        return None, None
+    return stepstats.collector(), time.perf_counter()
+
+
+def _telemetry_record(obs, t0, compiled, cache_hit, nan_trip, n_steps, result, return_numpy,
+                      pp=None, n_micro=None, schedule=None):
+    """The Executor / ParallelExecutor step record. The loss is read from
+    the first fetch ONLY when it is already on the host (return_numpy):
+    telemetry adds no device sync of its own. A telemetry failure (say,
+    export-dir IO) is reported once and never fails the step."""
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    loss = None
+    if return_numpy and result:
+        try:
+            a = np.asarray(result[0])
+            if a.size >= 1 and a.dtype.kind == "f":
+                # multi-step fetches come back [k, ...]: report the last step
+                loss = float(a.reshape(-1)[-1])
+        except (TypeError, ValueError):
+            pass
+    try:
+        obs.record_step(
+            wall_ms, n_steps=n_steps, cache_hit=cache_hit, nan_trip=nan_trip,
+            pp=pp, n_micro=n_micro, schedule=schedule, loss=loss,
+            training=bool(_mutated(compiled)),
+        )
+    except Exception as e:
+        if not getattr(_telemetry_record, "_warned", False):
+            _telemetry_record._warned = True
+            print("telemetry record failed (disabled for this message): %r" % e,
+                  file=sys.stderr)
 
 
 class _ServeBlock:
@@ -1776,6 +1948,7 @@ class Executor:
         # every run entry is a progress beat of the elastic watchdog (one
         # list probe when no Supervisor watches)
         _elastic_heartbeat()
+        obs, t0 = _telemetry_begin()
         force_multi = False
         _place_readers(program, self.device)
         if not feed:
@@ -1815,15 +1988,20 @@ class Executor:
         block = program.global_block()
         step_feed = {n: np.asarray(v)[0] if not isinstance(v, torch.Tensor) else v[0]
                      for n, v in feed.items()} if multi else feed
+        opf = _flags_opprof()
+        self._cache_hit = False
         if _profile_ops() and not multi:
-            # per-op attribution mode: never cached (diagnosis path)
-            compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
+            # per-op attribution mode: never cached (diagnosis path), and
+            # no step record, as in the JAX package
+            obs = None
+            compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope,
+                                           tensor_stats=opf["tensor_stats"])
             feed, guard = self._guard_begin(compiled, scope, feed)
             with _prof.RecordEvent("run/block0"):
                 fetches = compiled(scope, feed, per_op=True)
         else:
             compiled = self._prepare(program, block, step_feed, fetch_names, scope,
-                                     use_program_cache)
+                                     use_program_cache, opf["tensor_stats"])
             if multi:
                 if isinstance(compiled, _SegmentedBlock):
                     raise RuntimeError(
@@ -1845,25 +2023,38 @@ class Executor:
             # it brackets the step
             torch.cuda.synchronize(self.device)
         self._run_seq += 1
-        nan_ok = self._guard_end(guard, scope, fetches)
+        nan_ok = self._guard_end(guard, scope, fetches, feed, compiled)
         if not nan_ok and _flags.get_flags("check_nan_inf")["check_nan_inf"]:
-            _check_nan_inf(compiled.inner if multi else compiled, scope, fetch_names, fetches,
-                           self._run_seq)
+            pre = guard[3] if guard is not None else None
+            _check_nan_inf(
+                compiled.inner if multi else compiled, scope, fetch_names, fetches,
+                self._run_seq,
+                provenance=lambda: _localize_nan(compiled, scope, feed, pre, "check_nan_inf",
+                                                 step=self._run_seq)
+                if opf["nan_provenance"] else None)
+        if not multi and opf["tensor_stats"]:
+            _record_tensor_stats(compiled)
         if multi:
-            return _MultiStepBlock.to_host(fetches) if return_numpy else fetches
-        # a replayed graph's fetches are its own tensors
-        replayed = (getattr(compiled, "graph", None) is not None
-                    or isinstance(compiled, _SegmentedBlock) and compiled.captures() > 0)
-        if return_numpy:
-            # copies: a fetched CPU tensor may be state that a later step
-            # updates in place (the fused Adam does). numpy has no bfloat16
-            # (the JAX package hands out ml_dtypes' type): a bf16 fetch is
-            # widened to float32, which is exact
-            return [(f.float() if f.dtype == torch.bfloat16 else f).detach()
-                    .to("cpu", copy=True).numpy() for f in fetches]
-        if replayed:
-            return [f.clone() for f in fetches]
-        return fetches
+            result = _MultiStepBlock.to_host(fetches) if return_numpy else fetches
+        else:
+            # a replayed graph's fetches are its own tensors
+            replayed = (getattr(compiled, "graph", None) is not None
+                        or isinstance(compiled, _SegmentedBlock) and compiled.captures() > 0)
+            if return_numpy:
+                # copies: a fetched CPU tensor may be state that a later step
+                # updates in place (the fused Adam does). numpy has no
+                # bfloat16 (the JAX package hands out ml_dtypes' type): a
+                # bf16 fetch is widened to float32, which is exact
+                result = [(f.float() if f.dtype == torch.bfloat16 else f).detach()
+                          .to("cpu", copy=True).numpy() for f in fetches]
+            elif replayed:
+                result = [f.clone() for f in fetches]
+            else:
+                result = fetches
+        if obs is not None:
+            _telemetry_record(obs, t0, compiled, self._cache_hit, nan_ok,
+                              steps_per_run if multi else 1, result, return_numpy)
+        return result
 
     def _guard_begin(self, compiled, scope, feed):
         """(feed, guard) of a run about to start: a run that updates
@@ -1876,6 +2067,10 @@ class Executor:
             return feed, None
         from .resilience import faults
 
+        # FLAGS_nan_provenance replays a tripped step from the generator
+        # state it started from (a replayed graph advances the device
+        # generator's Philox offset as an eager run does)
+        pre_gen = _generator_states(scope) if _flags_opprof()["nan_provenance"] else None
         poison_after = False
         if faults.fires("nan_grad"):
             feed, poison_after = _poison_nan(feed)
@@ -1895,15 +2090,17 @@ class Executor:
                 with torch.no_grad():
                     torch._foreach_copy_(list(snapshot.values()),
                                          [scope.vars[n] for n in snapshot])
-        return feed, (names, poison_after, snapshot)
+        return feed, (names, poison_after, snapshot, pre_gen)
 
-    def _guard_end(self, guard, scope, fetches):
+    def _guard_end(self, guard, scope, fetches, feed, compiled):
         """After the run: the fallback poisoning, then the guard's check and
         rollback. True when the guard handled this run's NaNs (so
-        FLAGS_check_nan_inf does not raise over them)."""
+        FLAGS_check_nan_inf does not raise over them). Under
+        FLAGS_nan_provenance a trip first replays the step op by op from its
+        pre-step state to name the first op with a non-finite output."""
         if guard is None:
             return False
-        names, poison_after, snapshot = guard
+        names, poison_after, snapshot, pre_gen = guard
         if poison_after:
             _poison_scope_state(scope, names)
         if snapshot is None:
@@ -1914,6 +2111,9 @@ class Executor:
         from .observability import flightrec
 
         flightrec.trigger("nan_guard", step=self._run_seq)
+        if pre_gen is not None:
+            _localize_nan(compiled, scope, feed, pre_gen, "resilience_nan_guard",
+                          step=self._run_seq, mut_override=snapshot)
         return self._skip_nan_step(scope, snapshot)
 
     def _skip_nan_step(self, scope, snapshot):
@@ -1943,10 +2143,13 @@ class Executor:
         health.incr("nan_steps_skipped")
         return True
 
-    def _prepare(self, program, block, feed, fetch_names, scope, use_program_cache):
+    def _prepare(self, program, block, feed, fetch_names, scope, use_program_cache,
+                 tensor_stats=""):
         """The block form of one step under its cache key (the program, its
-        version, the feeds' names, shapes and dtypes, the fetches, the scope
-        and the lowering flags), prepared at its first call."""
+        version, the feeds' names, shapes and dtypes, the fetches, the scope,
+        the lowering flags and FLAGS_tensor_stats: toggling it prepares and
+        captures anew, never replays a graph of the other form), prepared at
+        its first call."""
         key = (
             program._uid,
             program._version,
@@ -1954,12 +2157,14 @@ class Executor:
             tuple(fetch_names),
             scope._uid,
             _lowering_flags(),
+            tensor_stats,
         )
         # the card keeps every block it prepares: a graph is captured at
         # its key's second call, so use_program_cache=False is taken on
         # the CPU only
         cached = use_program_cache or self.device.type == "cuda"
         compiled = self._cache.get(key) if cached else None
+        self._cache_hit = compiled is not None
         if compiled is None:
             # FLAGS_static_verify: prove the program against the
             # fluidlint checkers before its block is prepared
@@ -1975,7 +2180,8 @@ class Executor:
                 compiled = _SegmentedBlock(block, list(feed), fetch_names,
                                            self._graph_pool() if card else None, card)
             else:
-                compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope)
+                compiled = _PerOpProfiledBlock(block, list(feed), fetch_names, scope,
+                                               tensor_stats=tensor_stats)
                 if card:
                     compiled = _CompiledBlock(compiled, self._graph_pool())
             if cached:

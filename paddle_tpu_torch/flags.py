@@ -74,11 +74,20 @@ set_flags): the JAX package's 42 names, with its defaults and coercion.
   elastic_barrier_timeout_s: the elastic Supervisor's watchdog deadline, NaN
   and rollback budgets, and the elastic checkpoint's commit-barrier timeout
   (resilience/elastic.py, async_ckpt.py).
-- The flags of modules the port has not ported yet (PENDING, 5 names: the
-  telemetry and op-profiling flags) are known names: setting one to its
-  default succeeds, and any other value raises NotImplementedError naming
-  the module it waits for, so no script is told that a guard is on when it
-  is not.
+- telemetry_dir / telemetry_interval_steps / telemetry_log_every: step
+  telemetry (observability/stepstats.py, export.py): a dir makes every
+  Executor / ParallelExecutor run append a step record to
+  telemetry-host<rank>.jsonl and, every interval, a snapshot record and the
+  Prometheus file; log_every > 0 prints a health line to stderr that often.
+- tensor_stats: a glob of op names (observability/opprof.py); the matched
+  ops' outputs get [mean, std, absmax, nonfinite] computed on the device
+  inside the step (inside the captured graph), read with one host sync a
+  run. Part of the block's cache key: a change prepares and captures anew.
+- nan_provenance: when the NaN guard or check_nan_inf trips, the step is
+  replayed op by op from its pre-step state and generator state, and the
+  first op with a non-finite output is recorded (opprof.write_provenance).
+- Every flag acts: PENDING, the flags of modules still to port, is empty
+  since observability came.
 """
 
 import os
@@ -108,8 +117,8 @@ _DEFAULTS = {
     "eager_delete_tensor_gb": -1.0,
     "fraction_of_gpu_memory_to_use": 0.92,
     "paddle_num_threads": 1,
-    # the flags of the RPC, resilience, data and telemetry modules (the
-    # telemetry ones still PENDING), at the JAX package's defaults
+    # the flags of the RPC, resilience, data and telemetry modules, at the
+    # JAX package's defaults
     "rpc_max_retry": 3,
     "rpc_deadline": 120.0,
     "rpc_op_deadline": 30.0,
@@ -136,16 +145,8 @@ _CHOICES = {"paged_flash": ("auto", "off"), "quantized_gemm": ("auto", "off"),
             "gemm_double_buffer": ("auto", "on", "off")}
 
 # flag -> the module of the JAX package that reads it and the port has not
-# ported yet, with its ROADMAP queue
-_TELEMETRY = "observability/export.py and stepstats.py (ROADMAP A item 4)"
-_OPPROF = "observability/opprof.py (ROADMAP A item 4)"
-PENDING = {
-    "telemetry_dir": _TELEMETRY,
-    "telemetry_interval_steps": _TELEMETRY,
-    "telemetry_log_every": _TELEMETRY,
-    "tensor_stats": _OPPROF,
-    "nan_provenance": _OPPROF,
-}
+# ported yet: none, every flag acts
+PENDING = {}
 
 _flags = {}
 
@@ -158,10 +159,6 @@ def _coerce(name, raw):
     choices = _CHOICES.get(name)
     if choices is not None and value not in choices:
         raise ValueError("FLAGS_%s must be one of %s, got %r" % (name, choices, raw))
-    if name in PENDING and value != _DEFAULTS[name]:
-        raise NotImplementedError(
-            "FLAGS_%s=%r: the port has not ported %s yet; only the default %r is accepted"
-            % (name, raw, PENDING[name], _DEFAULTS[name]))
     return value
 
 
@@ -181,11 +178,6 @@ def _init():
                 "ignoring malformed FLAGS_%s=%r (expected %s)"
                 % (name, env, type(default).__name__)
             )
-            _flags[name] = default
-        except NotImplementedError as e:
-            # nor a flag whose module is still to come: warned, left at its
-            # default
-            warnings.warn("ignoring %s" % e)
             _flags[name] = default
 
 

@@ -1,6 +1,6 @@
 """`import paddle_tpu_torch.fluid as fluid`: the fluid surface of the port,
 the names of paddle_tpu/fluid/__init__.py that the port has. Names the JAX
-package exports from modules not ported yet (the imperative, debugger and
+package exports from modules not ported yet (the debugger and
 inference modules) are absent until their modules are."""
 
 from .. import *  # noqa: F401,F403
@@ -17,6 +17,7 @@ from .. import (  # noqa: F401
     evaluator,
     flags,
     framework,
+    imperative,
     initializer,
     io,
     layers,

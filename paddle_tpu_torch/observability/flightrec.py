@@ -21,9 +21,13 @@ one per FLAGS_flightrec_min_interval_s.
 
 Trigger sites (each passes reason-specific context):
 - ``http_5xx``            a replica answered 5xx (serving/server.py)
+- ``nan_guard``           the resilience NaN guard skipped a step (executor)
+- ``watchdog_stall``      a supervised step blew its deadline (resilience/
+                          elastic.py)
+- ``slo_alert``           an SLO burn-rate alert or drift sentinel fired
+                          (observability/slo.py)
 The JAX package's other reasons (router_5xx, breaker_transition,
-nan_guard, watchdog_stall, staleness_throttle, slo_alert) belong to its
-fleet, elastic, online and SLO modules, still to come (ROADMAP A7).
+staleness_throttle) belong to its fleet and online modules, still to come.
 
 The module-level ``trigger(reason, **info)`` is the only call sites use; it
 is a near-free no-op when FLAGS_flightrec_dir is unset and must NEVER raise
@@ -45,7 +49,7 @@ BUNDLE_PREFIX = "bundle-"
 class FlightRecorder:
     def __init__(self, out_dir, max_bundles=16, min_interval_s=2.0):
         from . import registry as _registry
-        from .tracing import _process_index
+        from .export import _process_index
 
         self.out_dir = out_dir
         self.max_bundles = max(int(max_bundles), 1)

@@ -309,6 +309,8 @@ class Tracer:
         self.slow_ms = float(slow_ms)
         self.ring = deque(maxlen=max(int(ring), 16))
         self.max_bytes = int(max_bytes)
+        from .export import _process_index
+
         self._host = _process_index()
         self._pid = os.getpid()
         self._lock = threading.Lock()
@@ -486,35 +488,6 @@ class Tracer:
                 self._fh = None
 
 
-def _process_index():
-    """This process's rank: torch.distributed's when a process group is up,
-    else 0 (one process per host, the single-card serving case)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return int(dist.get_rank())
-    return 0
-
-
-def _read_records(path):
-    """Parse one JSONL file, skipping torn trailing lines (a crash mid-append
-    leaves at most one)."""
-    out = []
-    try:
-        with open(path) as f:
-            for line in f:
-                line = line.strip()
-                if not line:
-                    continue
-                try:
-                    out.append(json.loads(line))
-                except ValueError:
-                    continue
-    except OSError:
-        pass
-    return out
-
-
 # ---- process singleton ----------------------------------------------------
 _tracer = None
 _tracer_lock = threading.Lock()
@@ -585,7 +558,9 @@ atexit.register(_atexit_drain)
 def load_spans(path):
     """Span records from one JSONL shard file, or every ``trace-*.jsonl*``
     shard under a directory, ts-sorted. Torn trailing lines are skipped
-    (_read_records)."""
+    (export.read_records)."""
+    from .export import read_records
+
     if os.path.isdir(path):
         paths = sorted(glob.glob(os.path.join(path, SHARD_PATTERN)))
     else:
@@ -593,7 +568,7 @@ def load_spans(path):
     records = []
     for p in paths:
         records.extend(
-            r for r in _read_records(p) if r.get("kind") == "span"
+            r for r in read_records(p) if r.get("kind") == "span"
         )
     records.sort(key=lambda r: (r.get("ts", 0), r.get("pid", 0)))
     return records

@@ -225,16 +225,7 @@ class LowerCtx:
         # own dict): constants uploaded once, pinned-seed generators
         self.cache = {} if cache is None else cache
         if self.device.type == "cuda":
-            # full f32 products on the card, whatever the default or a
-            # caller set: the parity tolerances assume no TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            # cuDNN's algorithms chosen by its heuristics, never by timing,
-            # and only deterministic ones (no atomic sums in dgrad or
-            # wgrad): a step gives the same bits on the graph path and op
-            # by op
-            torch.backends.cudnn.benchmark = False
-            torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
+            card_math()
 
     def op_constant(self, make, tag=None):
         """The current op's constant tensor (or tuple of them; `tag` tells
@@ -260,6 +251,19 @@ class LowerCtx:
         # restarting with the seed it has is a no-op while a capture is under
         # way; the graph restarts it before each replay
         return entry[0].manual_seed(entry[1])
+
+
+def card_math():
+    """The card's math settings, which every run on it (a block's and an
+    eager guard's) takes: full f32 products, whatever the default or a
+    caller set (the parity tolerances assume no TF32); cuDNN's algorithms
+    chosen by its heuristics, never by timing, and only deterministic ones
+    (no atomic sums in dgrad or wgrad), so a step gives the same bits on
+    the graph path and op by op."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
 
 
 def mesh_over(ctx, axis):

@@ -34,15 +34,11 @@ stage's step, sends and receives included, captures as a CUDA graph.
 import torch
 import torch.distributed as dist
 
+# the fill-and-drain bubble (pp-1)/(m+pp-1), re-exported as the JAX
+# package's pipeline module does
+from ..observability.stepstats import analytic_bubble  # noqa: F401
+
 __all__ = ["SCHEDULES", "analytic_bubble", "gpipe", "gpipe_schedule", "one_f_one_b_schedule"]
-
-
-def analytic_bubble(pp, n_micro):
-    """(pp - 1) / (n_micro + pp - 1): the share of a step a stage waits in
-    the fill and the drain of either schedule (the JAX package's
-    observability/stepstats.analytic_bubble, kept here until that module
-    is ported)."""
-    return (pp - 1) / float(n_micro + pp - 1)
 
 
 def gpipe_schedule(stage, n_micro, pp, rank):

@@ -74,8 +74,12 @@ from .executor import (
     _PipelinedBlock,
     _apply_pass_pipeline,
     _feed_signature,
+    _flags_opprof,
     _lowering_flags,
+    _record_tensor_stats,
     _splits,
+    _telemetry_begin,
+    _telemetry_record,
     global_scope,
 )
 from .framework import OpRole, Variable, grad_var_name
@@ -572,8 +576,12 @@ class ParallelExecutor:
                multi=False):
         block = program.global_block()
         multi = multi or steps_per_run > 1
-        key = self._cache_key(program, feed_signature or feed, fetch_names, steps_per_run, multi)
+        # toggling FLAGS_tensor_stats prepares and captures anew
+        tensor_stats = _flags_opprof()["tensor_stats"]
+        key = self._cache_key(program, feed_signature or feed, fetch_names, steps_per_run,
+                              multi) + (tensor_stats,)
         compiled = self._cache.get(key)
+        self._cache_hit = compiled is not None
         if compiled is not None:
             return compiled
         if _splits(block):
@@ -595,7 +603,7 @@ class ParallelExecutor:
                                           runs=prepared.opt_runs)
         else:
             prepared = _PerOpProfiledBlock(block, list(feed), fetch_names, self._scope,
-                                           mesh=self._mesh)
+                                           mesh=self._mesh, tensor_stats=tensor_stats)
             prepared.sharding = self._resolver if len(self._resolver.rules or ()) else None
             prepared.stored = {n: s for n, s in self._stored.items()
                                if n in prepared.ro_names or n in prepared.mut_names}
@@ -625,6 +633,7 @@ class ParallelExecutor:
         rows (_install_reader_placement)."""
         if steps_per_run < 1:
             raise ValueError("steps_per_run must be >= 1")
+        obs, t0 = _telemetry_begin()
         feed = feed if feed is not None else (feed_dict or {})
         force_multi = pulled = False
         if not feed:
@@ -670,16 +679,32 @@ class ParallelExecutor:
             fetches = compiled(self._scope, local)
             fetches = [torch.stack([self._global_fetch(block, n, f[i]) for i in range(len(f))])
                        for n, f in zip(fetch_names, fetches)]
-            if return_numpy:
-                return _MultiStepBlock.to_host(fetches)
+            result = _MultiStepBlock.to_host(fetches) if return_numpy else fetches
         else:
             local = feed if pulled else self._split_feed(feed)
-            fetches = self._block(program, local, fetch_names)(self._scope, local)
+            compiled = self._block(program, local, fetch_names)
+            fetches = compiled(self._scope, local)
             fetches = [self._global_fetch(block, n, f) for n, f in zip(fetch_names, fetches)]
-        if return_numpy:
-            return [(f.float() if f.dtype == torch.bfloat16 else f).detach()
-                    .to("cpu", copy=True).numpy() for f in fetches]
-        return [f.clone() for f in fetches]
+            if _flags_opprof()["tensor_stats"]:
+                _record_tensor_stats(compiled)
+            if return_numpy:
+                result = [(f.float() if f.dtype == torch.bfloat16 else f).detach()
+                          .to("cpu", copy=True).numpy() for f in fetches]
+            else:
+                result = [f.clone() for f in fetches]
+        if obs is not None:
+            # pp runs carry their schedule, so the collector groups step
+            # times by (pp, schedule, m) for the two-m-slope bubble gauge
+            pp = self._mesh.axis_size("pp")
+            inner = compiled.block if isinstance(compiled, (_CompiledBlock, _MultiStepBlock)) \
+                else compiled
+            piped = isinstance(inner, _PipelinedBlock)
+            _telemetry_record(obs, t0, compiled, self._cache_hit, False,
+                              steps_per_run if multi else 1, result, return_numpy,
+                              pp=pp if piped else None,
+                              n_micro=getattr(inner, "_m", None) if piped else None,
+                              schedule=inner.schedule if piped else None)
+        return result
 
     def _reader_placement(self):
         """The placement callable of the program's readers (the JAX

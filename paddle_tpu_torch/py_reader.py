@@ -18,6 +18,7 @@ CPU), resolved when the reader starts.
 
 import queue as Queue
 import threading
+import time
 
 import numpy as np
 
@@ -495,9 +496,18 @@ class PyReader:
             return pushed.popleft()
         if self._runtime_active:
             return self._runtime_next()
-        # the JAX package records the time blocked here as feed-stall in
-        # observability.stepstats, which the port has not ported yet
-        item = self._queue.get()
+        # telemetry: time blocked on the staging queue is the input pipeline
+        # failing to keep up (the device would idle exactly this long),
+        # recorded as feed-stall on the next step (observability.stepstats;
+        # only while telemetry is active)
+        from .observability import stepstats
+
+        if stepstats.active():
+            t0 = time.perf_counter()
+            item = self._queue.get()
+            stepstats.collector().add_feed_stall((time.perf_counter() - t0) * 1e3)
+        else:
+            item = self._queue.get()
         if isinstance(item, _FeederError):
             self._started = False
             raise item.exc

@@ -45,8 +45,6 @@ PORT_ADDED = {
 # names of modules the port has, missing because what defines them waits in
 # ROADMAP queue A: (name prefix, the item)
 PENDING = (
-    ("paddle_tpu.observability.", "A4"), ("paddle_tpu.profiler.device_op_profile", "A4"),
-    ("paddle_tpu.profiler.xla_trace", "A4"),
     ("paddle_tpu.contrib.memory_usage", "A6"), ("paddle_tpu.contrib.op_freq_statistic", "A6"),
 )
 

@@ -7,9 +7,9 @@ torch port, on the CPU:
   block split at a print);
 - `set_flags` takes every one of the JAX package's 42 flag names at its
   default; FLAGS_benchmark and the recorded compatibility flags take other
-  values; a flag whose module the port has not ported yet raises
-  NotImplementedError naming that module for any value but its default;
-  an unknown name still raises KeyError.
+  values; no flag waits for a module any more (the telemetry and
+  op-profiling flags that did take other values now); an unknown name
+  still raises KeyError.
 """
 
 import importlib
@@ -133,12 +133,11 @@ def test_benchmark_flag_runs_a_program():
     assert [float(v[0]) for v in _fetch("paddle_tpu_torch", "read", False)] == [16.0, 16.0]
 
 
-# a value other than the default for each flag whose module is missing,
-# and a word of the module the error names
-PENDING = {
-    "telemetry_dir": ("/tmp/t", "export"),
-    "telemetry_interval_steps": (10, "export"), "telemetry_log_every": (1, "export"),
-    "tensor_stats": ("*", "opprof"), "nan_provenance": (True, "opprof"),
+# the flags that waited for observability (ROADMAP A item 4) until it was
+# ported: a value other than the default for each
+WERE_PENDING = {
+    "telemetry_dir": "/tmp/t", "telemetry_interval_steps": 10, "telemetry_log_every": 1,
+    "tensor_stats": "*", "nan_provenance": True,
 }
 
 # flags whose module is ported: a value other than the default is taken
@@ -153,25 +152,29 @@ PORTED = {"flightrec_max_bundles": 4, "flightrec_min_interval_s": 0.5,
 
 
 def test_pending_table_is_the_rest_of_the_flags():
-    assert sorted(PENDING) == sorted(flags.PENDING)
-    assert len(PENDING) == 5
-    assert set(PENDING) | set(RECORDED) | set(PORTED) | {
+    """No flag waits for a module any more: PENDING is empty, and every flag
+    is one the tables below take."""
+    assert flags.PENDING == {}
+    assert set(WERE_PENDING) | set(RECORDED) | set(PORTED) | {
         "paged_flash", "quantized_gemm", "fp8_matmul", "check_nan_inf", "profile_ops",
         "pass_pipeline", "serving_cache_dir", "trace_dir", "trace_sample", "trace_slow_ms",
         "trace_ring", "flightrec_dir"} == set(jflags._DEFAULTS)
 
 
-@pytest.mark.parametrize("name", sorted(PENDING))
+@pytest.mark.parametrize("name", sorted(WERE_PENDING))
 def test_pending_flag_raises_naming_its_module(name):
-    """Set to anything but its default, a flag whose module is still to
-    come raises NotImplementedError naming the module and its ROADMAP
-    queue (the JAX package takes the value), and the flag keeps its
-    default."""
-    value, word = PENDING[name]
+    """A flag that raised NotImplementedError while its module was missing
+    (the telemetry and op-profiling flags) takes a value other than its
+    default now, as the JAX package does, and keeps it until it is set
+    back (tests/test_torch_observability.py shows each one act)."""
+    value = WERE_PENDING[name]
     jflags.set_flags({name: value})
-    with pytest.raises(NotImplementedError, match=word) as e:
+    try:
         flags.set_flags({"FLAGS_" + name: value})
-    assert "ROADMAP A" in str(e.value)
+        assert flags.get_flags(name)[name] == jflags.get_flags(name)[name] == value
+    finally:
+        flags.set_flags({name: jflags._DEFAULTS[name]})
+        jflags.set_flags({name: jflags._DEFAULTS[name]})
     assert flags.get_flags(name)[name] == jflags._DEFAULTS[name]
 
 

@@ -941,10 +941,69 @@ def sc_elastic_pe(rank, world, p):
     return {"dp": pe.device_count, "resumed": start, "steps": steps}
 
 
+def imperative_mlp(imp, nn, din=8, hidden=16):
+    """An eager MLP whose forward is its squared-error loss (the JAX
+    package's tests/test_imperative_parallel.py MLP)."""
+    import torch
+
+    class MLP(imp.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = self.add_sublayer(nn.FC(size=hidden, input_dim=din))
+            self.fc2 = self.add_sublayer(nn.FC(size=1, input_dim=hidden))
+
+        def forward(self, x, y, w1, b1, w2, b2):
+            h = torch.relu(x @ w1 + b1)
+            return ((h @ w2 + b2 - y) ** 2).mean()
+
+    return MLP()
+
+
+def imperative_dp_train(imp, nn, place, parallel, steps=3, rank=0, world=1):
+    """3 eager SGD steps of imperative_mlp from numpy seed 3 on batches of
+    32 rows (seed 7), a guard a step; past world 1 this rank trains on its
+    chunk of each batch (chunks[rank] of world) through DataParallel."""
+    rng = np.random.RandomState(7)
+    state = np.random.get_state()
+    np.random.seed(3)
+    try:
+        with imp.guard(place):
+            net = imperative_mlp(imp, nn)
+    finally:
+        np.random.set_state(state)
+    env = imp.ParallelEnv()
+    model = imp.DataParallel(net) if parallel else net
+    opt = nn.SGDOptimizer(model.parameters(), learning_rate=0.05)
+    losses = []
+    for _ in range(steps):
+        x = rng.randn(32, 8).astype("float32")
+        y = x.sum(axis=1, keepdims=True)
+        x, y = np.array_split(x, world)[rank], np.array_split(y, world)[rank]
+        with imp.guard(place):
+            loss = model(x, y)
+            loss.backward()
+            if parallel:
+                model.apply_collective_grads()
+            opt.step()
+            opt.clear_gradients()
+        losses.append(float(loss.numpy()))
+    return {"params": [p.numpy() for p in net.parameters()], "losses": losses,
+            "nranks": env.nranks, "local_rank": env.local_rank}
+
+
+def sc_imperative_dp(rank, world, p):
+    from paddle_tpu_torch import imperative
+    from paddle_tpu_torch.imperative import nn
+    from paddle_tpu_torch.place import CPUPlace
+
+    return imperative_dp_train(imperative, nn, CPUPlace(), parallel=True, rank=rank,
+                               world=world)
+
+
 SCENARIOS = {f.__name__: f for f in (sc_elastic_pe, sc_multistep_reader, sc_reader_staging, sc_mlp, sc_zero1, sc_zero1_ckpt, sc_model, sc_deepfm,
                                      sc_ring, sc_collectives, sc_rules, sc_rules_ckpt, sc_pp,
                                      sc_layout_collectives, sc_pp_ckpt, sc_gpipe, sc_transformer_tp, sc_transformer_pp,
-                                     sc_multistep)}
+                                     sc_multistep, sc_imperative_dp)}
 
 
 # ---------------------------------------------------------------------------
