@@ -38,7 +38,7 @@ Phases, each printing its own line; any failure exits non-zero:
        sums repeat bit for bit, the arrival counters back at 0;
      - multi-tensor Adam over the model's 183 tensors (f32 moments, bit for
        bit; bf16 moments, one bf16 ulp), a ragged-tail set and views at odd
-       element offsets (bit for bit), timed against torch._fused_adam_ in 5
+       element offsets (bit for bit), timed against torch._fused_adam_ in 3
        interleaved rounds (medians);
      - flash attention, forward and backward, at the train-flash path's
        (16, 8, 256, 64) f32 as strided views, causal and not, where the
@@ -363,6 +363,29 @@ Phases, each printing its own line; any failure exits non-zero:
      profiler.xla_trace: device_op_profile's per-op device ms within 5 %
      of the trace's kernel time, the top rows with the H100's Roof%; a
      replayed step's trace raises;
+ 17c. online: DeepFM at 2^20 x 32 (16 fields, batch 512, layer_sizes (32,
+     16), sparse and use_distributed, SGD 0.05, training_fused on CUDA
+     graphs) under an OnlineTrainer publishing a version every 5 steps
+     (60 steps: a base and 11 deltas of the touched rows) while a
+     ModelServer in this process serves the saved model and a HotReloader
+     lands each version under 4 urllib :predict clients: every reply 200,
+     each client's versions monotone, every version applied with no
+     reload error, the staleness within StalenessContract(50), 4 served
+     versions restored from load_with_deltas bit for bit, the GEMM
+     epilogue 3 launches a step; the trainer's rows/s, the publish and
+     reload walls of a base and a delta, a delta's bytes each way, the
+     :predict p50 / p99;
+ 17d. fleet: 3 replica processes of paddle_tpu_torch.fleet.replica on the
+     card (GPT-2 small :generate, the f32 fc head :predict, seeded the
+     same) behind a Router gated on a published version: steady traffic
+     (3 :predict, 2 greedy :generate clients), replica_kill in r0 in the
+     middle of a request, failover, its restart and rejoin once it acked
+     the version, conn_reset in r1 and slow_response in r2 (each breaker
+     opens and closes again), hedged :predict against slowed r2: every
+     reply 200, every routed :generate reply the tokens of one replica
+     called directly, each replica's paged launches reported at its exit;
+     p99 by round and route, kill to rejoin, retries and hedges, each
+     replica's boot seconds and memory reserved;
  18. train parallel: at world = the visible cards, on NCCL and CUDA
      graphs. Past one card, a process a card first trains Transformer
      base at dp = world (its first 3 losses within the fused bar of the
@@ -402,7 +425,9 @@ Phases, each printing its own line; any failure exits non-zero:
      fp8_matmul_dx and fp8_matmul_dy count the fp8 steps'; e4m3_round and
      quant_gemm_fp8 (on no main path) the kernel phase's; quant_gemm_int8
      the int8 ServingEngine's calls and deploy resnet50's leg (e), 53 a
-     call).
+     call; gemm_epilogue also the online trainer's steps, paged_flash and
+     paged_flash_shared also the fleet replicas' serving, as each reports
+     at its exit).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -939,7 +964,7 @@ def _adam_check(torch, ma, name, device, shapes, moment_dtype, seed):
     return err, kern
 
 
-ADAM_ROUNDS = 5  # interleaved kernel / torch._fused_adam_ rounds, medians compared
+ADAM_ROUNDS = 3  # interleaved kernel / torch._fused_adam_ rounds, medians compared
 
 
 def _adam_views(torch, ma, device):
@@ -2945,7 +2970,7 @@ HTTP_NEW_TOKENS = 64
 HTTP_PROMPT_LENS = (40, 131, 217, 305, 388, 472, 569, 700)
 HTTP_JSON_ROWS = 16  # :predict bodies up to this many rows go as JSON, larger as npz
 HTTP_FC_SWAPS, HTTP_GPT_SWAPS = 4, 2
-HTTP_WALL_CALLS = 10  # calls timed a form for the graphs-vs-op-by-op wall
+HTTP_WALL_CALLS = 6  # calls timed a form for the graphs-vs-op-by-op wall
 GPT_SWAP_PARAMS = ("lnf_w", "lnf_b")  # what a gpt2 swap replaces
 
 _COLD_BOOT = r"""
@@ -8092,7 +8117,7 @@ def _start_native_build():
 
 RESILIENCE_STEPS = 6  # supervised graph steps of train_flash's configuration
 RESILIENCE_EVERY = 2  # a checkpoint every 2 steps, the newest 2 kept
-GUARD_STEPS = 3  # steps a turn of the guard-off / guard-on walls
+GUARD_STEPS = 2  # steps a turn of the guard-off / guard-on walls
 # kernel table name -> launch key of the rows a supervised step reaches
 RESILIENCE_KERNELS = {"gemm_epilogue": "gemm_epilogue", "flash_fwd": "flash_fwd",
                       "flash_fwd_causal": "flash_fwd_causal", "flash_bwd": "flash_bwd_fused",
@@ -9038,6 +9063,635 @@ def telemetry(torch, card, readings):
     return launches
 
 
+ONLINE_STEPS = 60  # stream batches (bench.py run_online_bench: interval * (10 swaps + 2))
+ONLINE_INTERVAL = 5  # steps between publishes: 12 versions, 1 base and 11 deltas
+ONLINE_CLIENTS = 4  # urllib :predict clients while the trainer publishes
+ONLINE_MAX_STALENESS = 50  # StalenessContract(max_staleness_steps)
+ONLINE_PARITY = 4  # served versions restored from load_with_deltas, bit for bit
+ONLINE_GEMM_PER_STEP = 3  # the DeepFM fc chain's GEMM epilogue launches a step
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def online(torch, card, readings):
+    """The online loop at DeepFM's full widths (bench.py run_online_bench
+    over profile_recsys.RECSYS: 2^20 x 32 table, 16 fields, batch 512,
+    layer_sizes (32, 16); is_sparse and use_distributed, SGD 0.05, on CUDA
+    graphs under training_fused): an OnlineTrainer publishes every
+    ONLINE_INTERVAL steps into a repository on local disk (a base, then
+    deltas of the touched rows; StalenessContract(50)); one ModelServer in
+    this process serves the saved inference model from a ServingEngine on
+    CUDA graphs (bucket 2: a reply's batch is its request's) while a
+    HotReloader lands every version and ONLINE_CLIENTS urllib clients post
+    :predict. Gates: every reply 200; each client's versions monotone;
+    every published version applied, reload_errors 0; the staleness gauge
+    within the contract; at ONLINE_PARITY served versions a fresh engine
+    restored from load_with_deltas(upto_step=k) gives the served reply bit
+    for bit; the GEMM epilogue launched 3 times a step. Returns the
+    launches of the threaded steps."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.observability import registry
+    from paddle_tpu_torch.online import (HotReloader, ModelPublisher, OnlineTrainer,
+                                         StalenessContract, read_latest)
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.resilience import async_ckpt
+    from paddle_tpu_torch.serving import ModelServer, ServingEngine
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+
+    cfg = dict(recsys.RECSYS, optimizer="sgd", lr=0.05)
+    model = recsys.build_deepfm(cfg, is_sparse=True, use_distributed=True)
+    main_prog, loss = model["main"], model["loss"]
+    flags.set_flags({"pass_pipeline": "training_fused"})
+    place = CUDAPlace(0)
+    contract = StalenessContract(max_staleness_steps=ONLINE_MAX_STALENESS)
+    rng = np.random.RandomState(SEED + 11)
+    batches = recsys.recsys_batches(rng, cfg["rows"], cfg["fields"], cfg["batch"], ONLINE_STEPS)
+    feed_ids = rng.randint(0, cfg["rows"], (2, cfg["fields"], 1)).astype("int64")
+    payload = json.dumps({"inputs": {"ids": feed_ids.tolist()}}).encode()
+    work = tempfile.mkdtemp(prefix="chip_smoke_online_")
+    srv = reloader = None
+    try:
+        repo, model_dir = os.path.join(work, "repo"), os.path.join(work, "model")
+        exe, scope = Executor(place), Scope(seed=SEED, place=place)
+        with scope_guard(scope):
+            exe.run(model["startup"])
+            pio.save_inference_model(model_dir, ["ids"], [model["pred"]], exe,
+                                     main_program=main_prog)
+        srv = ModelServer(port=0)
+        eng = srv.add_model("ctr", model_dir, place=place, batch_buckets=(2,),
+                            batcher_opts={"max_batch_delay_ms": 1.0})
+        base_url = "http://127.0.0.1:%d" % srv.start()
+        trainer = OnlineTrainer(exe, main_prog, repo, eng.param_names(),
+                                publisher=ModelPublisher(repo, max_chain=ONLINE_STEPS,
+                                                         contract=contract),
+                                publish_interval=ONLINE_INTERVAL, scope=scope)
+        publishes = []  # (version, kind, wall ms)
+        orig_publish = trainer.publisher.publish
+
+        def timed_publish(*a, **kw):
+            t0 = time.perf_counter()
+            ptr = orig_publish(*a, **kw)
+            if ptr is not None:
+                publishes.append((ptr["version"], ptr["kind"], (time.perf_counter() - t0) * 1e3))
+            return ptr
+
+        trainer.publisher.publish = timed_publish
+        reloader = HotReloader(repo, {"ctr": eng}, consumer="smoke", poll_interval_s=0.02,
+                               contract=contract)
+        stream = iter(batches)
+        # the first interval alone: the step's warmup and capture, and the
+        # base, before any other thread touches the card
+        with scope_guard(scope):
+            curve = trainer.run(stream, fetch_list=[loss.name], max_steps=ONLINE_INTERVAL)
+        if reloader.check_once() != 1:
+            raise AssertionError("online: the base version did not land")
+        reloader.start()
+
+        stop = threading.Event()
+        per_client = [[] for _ in range(ONLINE_CLIENTS)]  # (version, out, ms)
+        errors, stale = [], []
+
+        def client(i):
+            while not stop.is_set():
+                req = urllib.request.Request(base_url + "/v1/models/ctr:predict", data=payload,
+                                             headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+                        code, doc = r.status, json.loads(r.read())
+                except Exception as e:
+                    errors.append(repr(e))
+                    continue
+                ms = (time.perf_counter() - t0) * 1e3
+                if code != 200:
+                    errors.append(code)
+                    continue
+                (out,) = doc["outputs"].values()
+                per_client[i].append((int(doc["model_version"]), np.asarray(out, np.float32), ms))
+
+        def sample_staleness():
+            # the reloader's gauge, and the steps the served version trails
+            # the newest published one
+            snap = registry.default_registry().snapshot()
+            for v in ((snap.get("online/serving_staleness_steps") or {}).get("values")
+                      or {}).values():
+                stale.append(float(v))
+            latest = read_latest(repo)
+            if latest:
+                stale.append(float(latest["version"] - eng.model_version))
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(ONLINE_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        torch.cuda.synchronize()
+        fused.reset_stats()  # the main path's counting window opens here
+        wall = []
+
+        def train():
+            t0 = time.perf_counter()
+            with scope_guard(scope):
+                curve.extend(trainer.run(stream, fetch_list=[loss.name], max_steps=ONLINE_STEPS))
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+
+        tthread = threading.Thread(target=train, daemon=True)
+        tthread.start()
+        while tthread.is_alive():
+            tthread.join(0.05)
+            sample_staleness()
+        launches = dict(fused.stats()["launches"])  # and closes here
+        if not wall:
+            raise AssertionError("online: the trainer thread failed")
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline:
+            latest = read_latest(repo)
+            if latest and reloader.applied_version == latest["version"]:
+                break
+            time.sleep(0.05)
+            sample_staleness()
+        time.sleep(0.3)  # replies against the final version
+        stop.set()
+        for t in threads:
+            t.join(HTTP_TIMEOUT)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("online: a client did not stop")
+        reloader.stop()
+        srv.stop(drain=True)
+        srv = None
+
+        steps_threaded = ONLINE_STEPS - ONLINE_INTERVAL
+        want = ONLINE_GEMM_PER_STEP * steps_threaded
+        if launches.get("gemm_epilogue") != want:
+            raise AssertionError("online: gemm_epilogue launched %s times over %d steps, want %d"
+                                 % (launches.get("gemm_epilogue"), steps_threaded, want))
+        published = [v for v, _, _ in publishes]
+        applied = [h["version"] for h in reloader.history]
+        kinds = [h["kind"] for h in reloader.history]
+        samples = [s for cs in per_client for s in cs]
+        if errors:
+            raise AssertionError("online: %d failed replies: %s" % (len(errors), errors[:5]))
+        for i, cs in enumerate(per_client):
+            vs = [v for v, _, _ in cs]
+            if not cs or vs != sorted(vs):
+                raise AssertionError("online: client %d saw versions %s" % (i, vs))
+        if published != list(range(ONLINE_INTERVAL, ONLINE_STEPS + 1, ONLINE_INTERVAL)) or \
+                applied != published or kinds != ["base"] + ["delta"] * (len(published) - 1):
+            raise AssertionError("online: published %s, applied %s (%s)"
+                                 % (published, applied, kinds))
+        if reloader.errors or reloader.reloads != len(published):
+            raise AssertionError("online: reload errors %d, reloads %d"
+                                 % (reloader.errors, reloader.reloads))
+        table_bytes = cfg["rows"] * cfg["dim"] * 4
+        moved = [(h["version"], h["h2d_bytes"]) for h in reloader.history if h["kind"] == "delta"]
+        if any(not 0 < h2d < table_bytes for _, h2d in moved):
+            raise AssertionError("online: deltas copied (version, bytes) %s to the card, want "
+                                 "only their rows (a table is %d bytes)" % (moved, table_bytes))
+        if max(stale or [0.0]) > contract.max_staleness_steps:
+            raise AssertionError("online: staleness %s steps past the contract's %d"
+                                 % (max(stale), contract.max_staleness_steps))
+        if not all(np.isfinite(curve)) or len(curve) != len(published):
+            raise AssertionError("online: loss curve %s" % curve)
+
+        by_version = {}
+        for v, out, _ in samples:
+            by_version.setdefault(v, out)
+        check = sorted(v for v in by_version if v > 0)[-ONLINE_PARITY:]
+        if len(check) < ONLINE_PARITY:
+            raise AssertionError("online: clients saw only versions %s" % sorted(by_version))
+        for k in check:
+            step_k, arrays, _ = async_ckpt.load_with_deltas(repo, upto_step=k)
+            off = ServingEngine(model_dir, name="online_off%d" % k, place=place,
+                                batch_buckets=(2,))
+            off.set_params(arrays, version=k)
+            off.warmup()
+            (out_k,) = off.run({"ids": feed_ids})
+            if step_k != k or np.asarray(out_k, np.float32).tobytes() != by_version[k].tobytes():
+                raise AssertionError("online: version %d served %s, restored %s"
+                                     % (k, by_version[k].ravel(), np.asarray(out_k).ravel()))
+            del off, arrays
+        torch.cuda.empty_cache()
+    finally:
+        if reloader is not None:
+            reloader.stop()
+        if srv is not None:
+            srv.stop(drain=False)
+        shutil.rmtree(work, ignore_errors=True)
+
+    lat = [ms for _, _, ms in samples]
+    deltas = [h for h in reloader.history if h["kind"] == "delta"]
+    pub_ms = {k: [ms for _, kind, ms in publishes if kind == k] for k in ("base", "delta")}
+    reading = {
+        "rows_per_s_while_serving": cfg["batch"] * steps_threaded / wall[0],
+        "steps": ONLINE_STEPS, "versions": published,
+        "publish_ms": {"base": pub_ms["base"][0], "delta_p50": float(np.median(pub_ms["delta"]))},
+        "reload_ms": {"base": reloader.history[0]["ms"],
+                      "delta_p50": float(np.median([h["ms"] for h in deltas])),
+                      "delta_read_p50": float(np.median([h["read_ms"] for h in deltas]))},
+        "delta_h2d_bytes": deltas[0]["h2d_bytes"],
+        "predict_p50_ms": _pct(lat, 50), "predict_p99_ms": _pct(lat, 99),
+        "requests": len(samples), "max_staleness_steps_seen": max(stale or [0.0]),
+        "parity_versions": check, "launches": {"gemm_epilogue": launches["gemm_epilogue"]},
+        "losses": curve,
+    }
+    readings["online"] = reading
+    log("online: DeepFM %s, is_sparse and use_distributed, SGD(0.05), training_fused on CUDA "
+        "graphs; %d steps, a version every %d (1 base + %d deltas, StalenessContract(%d)): "
+        "trainer %.1f rows/s while serving (%d steps threaded, %.3f s); publish wall base %.1f ms, "
+        "delta p50 %.2f ms; reload wall base %.1f ms, delta p50 %.2f ms (%.2f ms of it reading the "
+        "delta's files; the first delta %d bytes host to device, none back: its rows "
+        "scattered into the served table); %d :predict "
+        "replies from %d clients, all 200, versions monotone per client, p50 %.3f ms, p99 %.3f ms; "
+        "every version applied, reload_errors 0; staleness at most %s steps; versions %s restored "
+        "from load_with_deltas give the served replies bit for bit; gemm_epilogue %d launches "
+        "(%d a step); loss means %s; card %s" % (
+            json.dumps({k: cfg[k] for k in ("rows", "dim", "fields", "batch", "layer_sizes")}),
+            ONLINE_STEPS, ONLINE_INTERVAL, len(published) - 1, ONLINE_MAX_STALENESS,
+            reading["rows_per_s_while_serving"], steps_threaded, wall[0],
+            reading["publish_ms"]["base"], reading["publish_ms"]["delta_p50"],
+            reading["reload_ms"]["base"], reading["reload_ms"]["delta_p50"],
+            reading["reload_ms"]["delta_read_p50"],
+            reading["delta_h2d_bytes"], len(samples), ONLINE_CLIENTS,
+            reading["predict_p50_ms"], reading["predict_p99_ms"],
+            reading["max_staleness_steps_seen"], check, launches["gemm_epilogue"],
+            ONLINE_GEMM_PER_STEP, ["%.5f" % v for v in curve], card))
+    return {"gemm_epilogue": launches["gemm_epilogue"]}
+
+
+FLEET_REPLICAS = 3
+FLEET_PREDICT_CLIENTS = 3
+FLEET_GENERATE_CLIENTS = 2
+FLEET_PREDICT_ROWS = 4  # rows of each fc-head :predict, its replicas' one bucket (a call is a
+# request, so every reply is the same bits)
+FLEET_CROSS_PROMPTS = (0, 6)  # PROMPT_LENS entries every replica decodes, called directly
+FLEET_STEADY_GENERATES = 1  # :generate replies a generate client gets in the steady round
+FLEET_FAILOVER_S = 1.0  # traffic on two replicas after the kill, before the restart
+FLEET_RECOVERED_S = 1.5  # traffic on three replicas after the rejoin
+FLEET_ROUND_CAP_S = 40.0  # a breaker round's bound
+FLEET_HEDGES = 3  # hedges won against slowed r2 in the hedged leg
+FLEET_SLOW_MS = 1200  # slow_response's delay: past the breaker router's 0.4 s attempt timeout
+FLEET_BOOT_S = 300.0  # a replica's boot bound (wait_ready)
+
+
+def _fleet_spec(name, md, repo, work):
+    return {
+        "name": name, "place": "cuda", "request_timeout_ms": HTTP_TIMEOUT * 1e3,
+        "predict": {"model": "fc_head", "model_dir": md,
+                    "batch_buckets": [FLEET_PREDICT_ROWS]},
+        "generate": {"model": "gpt2", "model_kw": GPT2_SMALL, "seed": SEED,
+                     "max_slots": ENGINE["max_slots"], "page_size": ENGINE["page_size"],
+                     "max_context": ENGINE["max_context"]},
+        "repo": repo, "poll_interval_s": 0.2,
+        "exit_file": os.path.join(work, "%s.exit.json" % name),
+        "fault_file": os.path.join(work, "%s.faults" % name),
+    }
+
+
+def _arm(rep, plan):
+    """Install (or with None, drop) a fault plan in a running replica."""
+    path = rep.spec["fault_file"]
+    if plan is None:
+        if os.path.exists(path):
+            os.remove(path)
+    else:
+        with open(path + ".tmp", "w") as f:
+            f.write(plan)
+        os.replace(path + ".tmp", path)
+    time.sleep(0.3)  # the replica polls its fault file every 50 ms
+
+
+def _breaker_round(router, url, body, armed, cap_s):
+    """:predict requests one at a time through `router` until the armed
+    replica's breaker has opened and closed again. Returns (codes, opens)."""
+    from paddle_tpu_torch.fleet import CLOSED
+
+    codes, opened = [], False
+    deadline = time.monotonic() + cap_s
+    br = router.replicas()[armed].breaker
+    while time.monotonic() < deadline:
+        codes.append(_http_call(url, "", body)[0])
+        if br.stats()["opens"] >= 1:
+            opened = True
+            if br.state == CLOSED:
+                return codes, br.stats()["opens"]
+        time.sleep(0.01)
+    raise AssertionError("fleet: %s's breaker opened %s, never closed again in %.0f s (codes %s)"
+                         % (armed, opened, cap_s, codes[-8:]))
+
+
+def fleet(torch, card, readings):
+    """The serving fleet at full width (bench.py run_fleet_bench): 3
+    ReplicaProcess children of paddle_tpu_torch.fleet.replica on this card,
+    seeded the same, each serving GPT-2 small :generate (GPT2_SMALL /
+    ENGINE: f32 KV, 8 slots, page size 16) and the f32 fc head (bench.py
+    :2031-2064, fitted here as serve_http fits it) on :predict, behind one
+    Router with the staleness gate on a repository holding a published
+    version of the head. 3 :predict clients (hedged) and 2 greedy
+    :generate clients (PROMPT_LENS, 32 new tokens) through the router:
+    steady; replica_kill armed in r0 (it dies in the middle of a request);
+    failover; r0 restarted and rejoined once it acked the version; then
+    conn_reset armed in r1 and slow_response in r2, each through a router
+    without hedging (attempt timeout 0.4 s) until that replica's breaker
+    opened and closed again, and hedged :predict through the main router
+    against slowed r2. Gates: every reply 200 (served fraction 1.0); r0
+    down and rejoined at the target version; both breakers open and close;
+    every routed :generate reply the same prompt's tokens from one replica
+    called directly, all replicas alike; each replica reports paged_flash
+    and paged_flash_shared launches at its exit. The parent built the
+    kernels (build phase) before any replica starts. Returns the replicas'
+    paged launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch import CPUPlace
+    from paddle_tpu_torch.fleet import ReplicaProcess, Router
+    from paddle_tpu_torch.online import ModelPublisher
+    from paddle_tpu_torch.serving import ServingEngine
+
+    means = np.random.RandomState(101).randn(HEAD["classes"], HEAD["d_model"])
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    reps, routers = [], []
+    try:
+        md, repo = os.path.join(work, "fc_head"), os.path.join(work, "repo")
+        _fit_head(torch, means, md)
+        head = ServingEngine(md, name="fleet_head_cpu", place=CPUPlace(), batch_buckets=(1,))
+        ModelPublisher(repo).publish({n: head.scope.vars[n] for n in head.param_names()}, 1)
+        target = 1
+        del head
+        reps = [ReplicaProcess(_fleet_spec("r%d" % i, md, repo, work), work)
+                for i in range(FLEET_REPLICAS)]
+        t0 = time.perf_counter()
+        for r in reps:
+            r.start()
+        boot_wall = {}
+        for r in reps:
+            r.wait_ready(timeout=FLEET_BOOT_S)
+            boot_wall[r.name] = time.perf_counter() - t0
+        infos = {r.name: r.info() for r in reps}
+        for name, info in infos.items():
+            if info["package"] != "paddle_tpu_torch" or not info["device"].startswith("cuda"):
+                raise AssertionError("fleet: replica %s runs %s on %s"
+                                     % (name, info["package"], info["device"]))
+        router = Router(port=0, hedge=True, probe_interval_s=0.2, down_after=2,
+                        total_deadline_s=HTTP_TIMEOUT, attempt_timeout_s=60.0,
+                        repo=repo, repo_model="fc_head", seed=SEED)
+        routers.append(router)
+        base = "http://127.0.0.1:%d" % router.start()
+        for r in reps:
+            router.register(r.name, r.url)
+        router.probe_once()
+        if sorted(router.stats()["routable"]) != ["r0", "r1", "r2"]:
+            raise AssertionError("fleet: routable %s" % router.stats())
+
+        rng = np.random.RandomState(SEED + 21)
+        prompts = [rng.randint(2, GPT2_SMALL["vocab_size"], size=n).tolist() for n in PROMPT_LENS]
+        gen_bodies = [json.dumps({"prompt": p, "max_new_tokens": NEW_TOKENS, "eos_id": NO_EOS})
+                      .encode() for p in prompts]
+        x, _ = _head_batch(means, np.random.RandomState(SEED + 22), FLEET_PREDICT_ROWS)
+        p_body = json.dumps({"inputs": {"img": x.tolist()}}).encode()
+        # the reference tokens: every prompt from r1, called directly
+        ref = {}
+        for i, body in enumerate(gen_bodies):
+            code, _, out, _ = _http_call(reps[1].url, "/v1/models/gpt2:generate", body)
+            if code != 200:
+                raise AssertionError("fleet: direct :generate on r1 gave %d" % code)
+            ref[i] = json.loads(out)["tokens"]
+        code, _, out, _ = _http_call(reps[1].url, "/v1/models/fc_head:predict", p_body)
+        p_ref = json.loads(out)["outputs"]
+
+        phase = ["steady"]
+        samples, errors, mismatched = [], [], []
+        counts = {"generate": [0] * FLEET_GENERATE_CLIENTS}
+        stop = threading.Event()
+
+        def client(kind, i):
+            j = i
+            while not stop.is_set():
+                if kind == "predict":
+                    code, _, out, ms = _http_call(base, "/v1/models/fc_head:predict", p_body)
+                else:
+                    k = j % len(gen_bodies)
+                    code, _, out, ms = _http_call(base, "/v1/models/gpt2:generate", gen_bodies[k])
+                    j += FLEET_GENERATE_CLIENTS
+                if code != 200:
+                    errors.append((phase[0], kind, code, out[:200]))
+                    continue
+                doc = json.loads(out)
+                if kind == "generate":
+                    counts["generate"][i] += 1
+                    if doc["tokens"] != ref[k]:
+                        mismatched.append((phase[0], k))
+                elif doc["outputs"] != p_ref:
+                    mismatched.append((phase[0], "predict"))
+                samples.append((phase[0], kind, ms))
+
+        threads = [threading.Thread(target=client, args=("predict", i), daemon=True)
+                   for i in range(FLEET_PREDICT_CLIENTS)]
+        threads += [threading.Thread(target=client, args=("generate", i), daemon=True)
+                    for i in range(FLEET_GENERATE_CLIENTS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120
+        while min(counts["generate"]) < FLEET_STEADY_GENERATES and not errors and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        # round 2: r0 dies at its second POST after the plan lands, in the
+        # middle of that request
+        phase[0] = "failover"
+        _arm(reps[0], "replica_kill:step=2")
+        deadline = time.monotonic() + 60
+        while reps[0].alive() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        if reps[0].alive():
+            raise AssertionError("fleet: r0 survived its replica_kill plan")
+        t_kill = time.perf_counter()
+        os.remove(reps[0].spec["fault_file"])
+        time.sleep(FLEET_FAILOVER_S)
+        router.probe_once()
+        router.probe_once()
+        down = router.replicas()["r0"].stats()["state"]
+        if down != "down" or "r0" in router.stats()["routable"]:
+            raise AssertionError("fleet: the killed r0 is %s at the router" % down)
+        # round 4: restart, rejoin gated on the ack of the target version
+        t_restart = time.perf_counter()
+        reps[0].restart()
+        reps[0].wait_ready(timeout=FLEET_BOOT_S)
+        restart_boot = time.perf_counter() - t_restart
+        router.register("r0", reps[0].url)
+        rejoined = None
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            router.probe_once()
+            if "r0" in router.stats()["routable"]:
+                rejoined = router.replicas()["r0"].version_for_gate("fc_head")
+                break
+            time.sleep(0.1)
+        if rejoined is None or rejoined < target:
+            raise AssertionError("fleet: r0 rejoined at %s, target %d" % (rejoined, target))
+        kill_to_rejoin = time.perf_counter() - t_kill
+        infos["r0"] = reps[0].info()
+        phase[0] = "recovered"
+        time.sleep(FLEET_RECOVERED_S)
+        stop.set()
+        for t in threads:
+            t.join(HTTP_TIMEOUT)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("fleet: a client did not stop")
+
+        # the routers share the process's metric registry: the main rounds'
+        # counts now, the later legs' as deltas
+        retries = router._m_retries.value(kind="predict") + router._m_retries.value(
+            kind="generate")
+        hedges = (router._m_hedges.value(event="launched"), router._m_hedges.value(event="won"))
+        # rounds 5 and 6: one fault armed in one replica, a router without
+        # hedging whose attempt timeout a slowed reply exceeds
+        breaker_rounds = {}
+        for kind, armed, plan in (("conn_reset", "r1", "conn_reset:every=2"),
+                                  ("slow_response", "r2",
+                                   "slow_response:every=2@ms=%d" % FLEET_SLOW_MS)):
+            crouter = Router(port=0, hedge=False, probe_interval_s=0.2, total_deadline_s=20.0,
+                             attempt_timeout_s=0.4, repo=repo, repo_model="fc_head", seed=1,
+                             breaker_opts=dict(failure_threshold=3, error_rate_threshold=0.5,
+                                               min_requests=4, open_for_s=0.3,
+                                               success_threshold=1))
+            routers.append(crouter)
+            curl = "http://127.0.0.1:%d/v1/models/fc_head:predict" % crouter.start()
+            for r in reps:
+                crouter.register(r.name, r.url)
+            crouter.probe_once()
+            _arm(reps[int(armed[1])], plan)
+            codes, opens = _breaker_round(crouter, curl, p_body, armed, FLEET_ROUND_CAP_S)
+            if kind == "slow_response":
+                # hedged :predict through the main router against slowed r2
+                hrouter = Router(port=0, hedge=True, hedge_delay_ms=80.0,
+                                 hedge_after_observations=10 ** 9, probe_interval_s=0.2,
+                                 total_deadline_s=20.0, attempt_timeout_s=5.0,
+                                 repo=repo, repo_model="fc_head", seed=2)
+                routers.append(hrouter)
+                hurl = "http://127.0.0.1:%d/v1/models/fc_head:predict" % hrouter.start()
+                for r in reps:
+                    hrouter.register(r.name, r.url)
+                hrouter.probe_once()
+                hedged = []
+                won0 = hrouter._m_hedges.value(event="won")
+                launched0 = hrouter._m_hedges.value(event="launched")
+                while hrouter._m_hedges.value(event="won") - won0 < FLEET_HEDGES and \
+                        len(hedged) < 60:
+                    launched = hrouter._m_hedges.value(event="launched")
+                    code, _, out, ms = _http_call(hurl, "", p_body)
+                    hedged.append((code, ms))
+                    if code != 200 or json.loads(out)["outputs"] != p_ref:
+                        raise AssertionError("fleet: hedged :predict gave %d" % code)
+                    if hrouter._m_hedges.value(event="launched") > launched:
+                        # the cancelled leg's thread waits out r2's slowed
+                        # reply, and r2 stays out of least-inflight picks
+                        # until it ends
+                        time.sleep(FLEET_SLOW_MS / 1e3)
+                breaker_rounds["hedged"] = {
+                    "requests": len(hedged),
+                    "launched": hrouter._m_hedges.value(event="launched") - launched0,
+                    "won": hrouter._m_hedges.value(event="won") - won0,
+                    "p99_ms": _pct([ms for _, ms in hedged], 99)}
+                if breaker_rounds["hedged"]["won"] < FLEET_HEDGES:
+                    raise AssertionError("fleet: no hedge won against slowed r2 %s"
+                                         % breaker_rounds["hedged"])
+            _arm(reps[int(armed[1])], None)
+            if any(c != 200 for c in codes):
+                raise AssertionError("fleet: %s round codes %s" % (kind, codes))
+            breaker_rounds[kind] = {"replica": armed, "requests": len(codes), "opens": opens}
+
+        # every replica decodes as r1 did, called directly
+        for r in reps:
+            for i in FLEET_CROSS_PROMPTS:
+                code, _, out, _ = _http_call(r.url, "/v1/models/gpt2:generate", gen_bodies[i])
+                if code != 200 or json.loads(out)["tokens"] != ref[i]:
+                    raise AssertionError("fleet: %s decodes prompt %d otherwise than r1"
+                                         % (r.name, i))
+        stats = router.stats()
+        for rt in routers:
+            rt.stop()
+        routers = []
+        reports = {}
+        for r in reps:
+            rc = r.terminate(timeout=60.0)
+            with open(r.spec["exit_file"]) as f:
+                reports[r.name] = json.load(f)
+            if rc != 0:
+                raise AssertionError("fleet: %s exited %s" % (r.name, rc))
+    except BaseException:
+        for r in reps:  # what each replica said, before its folder goes
+            try:
+                with open(r.log_path) as f:
+                    log("fleet: %s's log ends: %s" % (r.name, f.read()[-3000:]))
+            except OSError:
+                pass
+        raise
+    finally:
+        for rt in routers:
+            rt.stop()
+        for r in reps:
+            try:
+                r.kill()
+            except Exception:
+                pass
+        shutil.rmtree(work, ignore_errors=True)
+    if errors or mismatched:
+        raise AssertionError("fleet: %d failed replies %s, %d replies off the reference %s"
+                             % (len(errors), errors[:4], len(mismatched), mismatched[:4]))
+    launches = {"paged_flash": 0, "paged_flash_shared": 0}
+    for name, rep in reports.items():
+        got = {k: rep["paged_launches"].get(k, 0) for k in launches}
+        if not all(got.values()):
+            raise AssertionError("fleet: replica %s reports paged launches %s" % (name, got))
+        for k, v in got.items():
+            launches[k] += v
+    phases = ("steady", "failover", "recovered")
+    p99 = {kind: {ph: _pct([ms for p, k, ms in samples if p == ph and k == kind], 99)
+                  for ph in phases} for kind in ("predict", "generate")}
+    reading = {
+        "requests": len(samples), "served_fraction": 1.0, "p99_ms": p99,
+        "kill_to_rejoin_s": kill_to_rejoin, "restart_boot_s": restart_boot,
+        "rejoined_at_version": rejoined, "retries": retries,
+        "hedges_launched": hedges[0], "hedges_won": hedges[1], "breaker_rounds": breaker_rounds,
+        "boot_s": {n: i["boot_s"] for n, i in infos.items()},
+        "boot_wall_s": boot_wall,
+        "memory_reserved_gib": {n: i["memory_reserved_bytes"] / GIB for n, i in infos.items()},
+        "replica_launches": {n: rep["paged_launches"] for n, rep in reports.items()},
+        "routable_at_end": stats["routable"],
+    }
+    readings["fleet"] = reading
+    log("fleet: %d replicas of paddle_tpu_torch.fleet.replica on this card (GPT-2 small "
+        ":generate, f32 KV, %d slots, page size %d; the f32 fc head on :predict), the staleness "
+        "gate at version %d; %d replies through the router, served fraction 1.0, zero 5xx; p99 "
+        "ms steady / failover / recovered: :predict %s, :generate %s; r0 killed mid-request, "
+        "down, restarted (boot "
+        "%.1f s) and rejoined at version %s %.1f s after the kill; retries %d, hedges launched %d "
+        "won %d; breaker rounds %s; every routed :generate reply the tokens of r1 called "
+        "directly, and all 3 replicas decode prompts %s alike; boot s %s (parallel wall %s); "
+        "memory reserved GiB %s; paged launches a replica %s; card %s" % (
+            FLEET_REPLICAS, ENGINE["max_slots"], ENGINE["page_size"], target, len(samples),
+            *[" / ".join("%.1f" % v if v is not None else "n/a" for v in p99[k].values())
+              for k in ("predict", "generate")],
+            restart_boot, rejoined, kill_to_rejoin, retries, hedges[0], hedges[1],
+            json.dumps(breaker_rounds), [PROMPT_LENS[i] for i in FLEET_CROSS_PROMPTS],
+            json.dumps({k: round(v, 2) for k, v in
+                                                    reading["boot_s"].items()}),
+            json.dumps({k: round(v, 2) for k, v in boot_wall.items()}),
+            json.dumps({k: round(v, 3) for k, v in reading["memory_reserved_gib"].items()}),
+            json.dumps(reading["replica_launches"]), card))
+    return launches
+
+
 def main():
     import torch
 
@@ -9201,6 +9855,14 @@ def main():
     torch.cuda.empty_cache()
     with Phase("telemetry"):
         for name, n in telemetry(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    with Phase("online"):
+        for name, n in online(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    with Phase("fleet"):
+        for name, n in fleet(torch, card, paths).items():
             launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
     with Phase("train parallel"):

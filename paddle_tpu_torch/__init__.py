@@ -73,6 +73,7 @@ from . import (  # noqa: F401
     contrib,
     data_feed_desc,
     dataset,
+    debugger,
     embedding,
     evaluator,
     flags,

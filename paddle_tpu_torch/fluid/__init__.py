@@ -1,7 +1,7 @@
 """`import paddle_tpu_torch.fluid as fluid`: the fluid surface of the port,
-the names of paddle_tpu/fluid/__init__.py that the port has. Names the JAX
-package exports from modules not ported yet (the debugger and
-inference modules) are absent until their modules are."""
+the names of paddle_tpu/fluid/__init__.py that the port has. The JAX
+package's `inference` module (built on jax.export artifacts) is not ported
+yet, so fluid.inference is absent until it is."""
 
 from .. import *  # noqa: F401,F403
 from .. import (  # noqa: F401
@@ -12,6 +12,7 @@ from .. import (  # noqa: F401
     contrib,
     data_feed_desc,
     dataset,
+    debugger,
     distributed,
     embedding,
     evaluator,

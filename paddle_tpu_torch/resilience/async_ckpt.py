@@ -727,12 +727,10 @@ def resolve_delta_chain(root, upto_step=None):
     return base_step, base_dir, chain
 
 
-def apply_delta(delta_dir, arrays):
-    """Replay one delta onto a full name->array dict (from load_elastic or a
-    previous apply_delta): dense entries overwrite whole arrays, table
-    entries scatter touched-row values at their ids. Never mutates the input
-    dict's arrays — touched tables are copied first (the reader-side
-    copy-on-publish). Returns (step, new arrays dict, manifest)."""
+def read_delta(delta_dir):
+    """(manifest, dense, rows) of one delta, as stored (bf16 widened to
+    f32): `dense` maps name -> whole value, `rows` maps table name ->
+    (touched row ids, their values)."""
     manifest = _read_manifest(delta_dir)
     meta = manifest["arrays"]
     num_hosts = manifest["num_hosts"]
@@ -770,11 +768,23 @@ def apply_delta(delta_dir, arrays):
                     buf[...] = np.asarray(z[key]).reshape(buf.shape)
                 else:
                     buf[rng[0]:rng[1]] = z[key]
+    dense = {n: buffers[n] for n, m in meta.items() if m["kind"] == "dense"}
+    rows = {n: (buffers[n + ROWS_KEY], buffers[n])
+            for n, m in meta.items() if m["kind"] == "rows"}
+    return manifest, dense, rows
 
+
+def apply_delta(delta_dir, arrays):
+    """Replay one delta onto a full name->array dict (from load_elastic or a
+    previous apply_delta): dense entries overwrite whole arrays, table
+    entries scatter touched-row values at their ids. Never mutates the input
+    dict's arrays — touched tables are copied first (the reader-side
+    copy-on-publish). Returns (step, new arrays dict, manifest)."""
+    manifest, dense, rows = read_delta(delta_dir)
     out = dict(arrays)
-    for name, m in meta.items():
+    for name, m in manifest["arrays"].items():
         if m["kind"] == "dense":
-            full = buffers[name]
+            full = dense[name]
             out[name] = _bf16(full) if "bfloat16" in m["dtype"] else full
         else:
             if name not in out:
@@ -782,8 +792,7 @@ def apply_delta(delta_dir, arrays):
                     "delta %s updates rows of %r, absent from the base"
                     % (delta_dir, name)
                 )
-            ids = buffers[name + ROWS_KEY]
-            vals = buffers[name]
+            ids, vals = rows[name]
             base, _dt = _widen(out[name])
             base = np.array(base)  # copy-on-publish
             if list(base.shape) != list(m["shape"]):

@@ -36,7 +36,9 @@ Hot swap: set_params copies each new value into the served tensor itself,
 once, under the lock every call holds over its replay and its fetch's copy
 to the host. The graphs read those tensors, so no later call copies a
 parameter, and an in-flight call finishes on the parameters it started
-with: its reply's version (last_served_version) names them.
+with: its reply's version (last_served_version) names them. Its `rows`
+scatters a table's changed rows into the served table in place (an
+online delta), so only those rows cross to the card.
 
 Declared-dynamic TRAILING dims (-1 in a feed's var shape, such as sequence
 lengths) follow the `trailing_pad` policy: "exact" (default) never pads
@@ -356,15 +358,22 @@ class ServingEngine:
         with self._swap_lock:
             return sorted(set(self._ro) | set(self._mut))
 
-    def set_params(self, updates, version=None, stamp=None):
+    def set_params(self, updates, version=None, stamp=None, rows=None):
         """Hot-swap parameter values without preparing or capturing again,
         and without dropping requests. `updates` maps name -> new full
-        array; names the served block does not read are ignored. Values are
-        cast to the served dtype on the engine's device; a shape mismatch
-        raises before anything is copied (a geometry change is a new model).
-        Each distinct tensor is copied into once, under the call lock, so
-        no call straddles two versions and no later replay copies state.
-        Returns the number of arrays applied."""
+        array; `rows` maps a table's name -> (row ids, their new values),
+        scattered into the served table in place; names the served block
+        does not read are ignored. Values are cast to the served dtype on
+        the engine's device; a shape mismatch, or row ids that repeat or
+        fall outside the table, raise before anything is copied (a
+        geometry change is a new model). Each distinct tensor is written
+        once, under the call lock, so no call straddles two versions and no
+        later replay copies state. Returns the number of arrays applied."""
+        scatter = []
+        for name, (ids, vals) in (rows or {}).items():
+            held = self._ro.get(name, self._mut.get(name))
+            if held is not None:
+                scatter.append(_row_update(name, held, ids, vals))
         conv = {}
         for name, val in updates.items():
             held = self._ro.get(name, self._mut.get(name))
@@ -383,12 +392,13 @@ class ServingEngine:
             conv[name] = (held, arr)
         with self._swap_lock:
             _copy_once(conv.values())
+            _scatter_once(scatter)
             self.model_version = int(version) if version is not None else self.model_version + 1
             self.version_stamp = dict(stamp or {})
             ver = self.model_version
         self._m_version.set(float(ver))
         self._m_swaps.inc()
-        return len(conv)
+        return len(conv) + len(scatter)
 
     def last_served_version(self):
         """The model_version the CALLING thread's most recent engine call
@@ -528,3 +538,34 @@ def _copy_once(pairs):
                 continue
             seen.add(key)
             held.copy_(arr)
+
+
+def _row_update(name, held, ids, vals):
+    """(held, ids, rows) of one table's row scatter, on held's device and
+    in its dtype; raises ValueError on ids that repeat or fall outside the
+    table, and on rows of another width, before anything is copied."""
+    ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1)
+    vals = torch.as_tensor(vals)
+    want = (ids.numel(),) + tuple(held.shape[1:])
+    if tuple(vals.shape) != want:
+        raise ValueError("set_params(rows=%r): rows of shape %s, want %s"
+                         % (name, tuple(vals.shape), want))
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= held.shape[0]
+                        or torch.unique(ids).numel() != ids.numel()):
+        raise ValueError("set_params(rows=%r): row ids repeat or fall outside "
+                         "the table's %d rows" % (name, held.shape[0]))
+    return held, ids.to(held.device), vals.to(device=held.device, dtype=held.dtype)
+
+
+def _scatter_once(triples):
+    """index_copy_ each (held, ids, rows) triple's rows into `held`, each
+    distinct storage once (unique ids: numpy's row assignment, bit for
+    bit)."""
+    seen = set()
+    with torch.no_grad():
+        for held, ids, vals in triples:
+            key = (held.device, held.data_ptr())
+            if key in seen:
+                continue
+            seen.add(key)
+            held.index_copy_(0, ids, vals)

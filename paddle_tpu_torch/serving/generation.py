@@ -36,7 +36,8 @@ replay.
 `set_params` hot-swaps parameters: each new value is copied once into the
 tensor the graphs captured, under the lock every variant call holds over
 its replay and its fetch copy, so a step finishes on the parameters it
-started with and no later step copies a parameter. KV pools never swap.
+started with and no later step copies a parameter. Its `rows` scatters a
+table's changed rows in place. KV pools never swap.
 
 The KV pools are preallocated on the device and every variant updates them
 in place (kv_cache_write's index_copy_), the torch form of the JAX
@@ -88,7 +89,7 @@ from .batcher import (
     ShutdownError,
 )
 from . import compile_cache as _cc
-from .engine import _copy_once, prepare_variant
+from .engine import _copy_once, _row_update, _scatter_once, prepare_variant
 from .kv_cache import PagedKVPool, PoolExhausted, PrefixCache
 
 __all__ = [
@@ -492,16 +493,23 @@ class GenerationEngine:
         return len(self._variants)
 
     # ---- hot swap ---------------------------------------------------------
-    def set_params(self, updates, version=None, stamp=None):
+    def set_params(self, updates, version=None, stamp=None, rows=None):
         """Hot-swap parameter values without preparing or capturing again,
-        and without dropping requests. KV-pool state names never swap (a
-        publisher shipping them by accident must not clobber live caches);
-        names the scope does not hold are ignored; a shape change raises
-        before anything is copied. Each distinct tensor the variants read
-        (one storage the decode step and every prefill bucket share) is
-        copied into once, under the lock each step holds, so a step in
-        flight finishes on the parameters it started with. Returns the
-        number of arrays applied."""
+        and without dropping requests. `rows` maps a table's name -> (row
+        ids, their new values), scattered into the live table in place.
+        KV-pool state names never swap (a publisher shipping them by
+        accident must not clobber live caches); names the scope does not
+        hold are ignored; a shape change, or row ids that repeat or fall
+        outside the table, raise before anything is copied. Each distinct
+        tensor the variants read (one storage the decode step and every
+        prefill bucket share) is written once, under the lock each step
+        holds, so a step in flight finishes on the parameters it started
+        with. Returns the number of arrays applied."""
+        scatter = {}
+        for name, (ids, vals) in (rows or {}).items():
+            cur = self.scope.vars.get(name)
+            if name not in self._state and isinstance(cur, torch.Tensor):
+                scatter[name] = _row_update(name, cur, ids, vals)[1:]
         conv = {}
         for name, val in updates.items():
             cur = self.scope.vars.get(name)
@@ -522,12 +530,15 @@ class GenerationEngine:
             pairs += [(v.ro[n], arr) for v in self._variants.values()
                       for n, arr in conv.items() if n in v.ro]
             _copy_once(pairs)
+            _scatter_once([(held, ids, vals) for n, (ids, vals) in scatter.items()
+                           for held in [self.scope.vars[n]] + [
+                               v.ro[n] for v in self._variants.values() if n in v.ro]])
             self.model_version = int(version) if version is not None else self.model_version + 1
             self.version_stamp = dict(stamp or {})
             ver = self.model_version
         self._m_version.set(float(ver))
         self._m_swaps.inc()
-        return len(conv)
+        return len(conv) + len(scatter)
 
     def _call(self, variant, np_feeds):
         """Run one variant (a graph replay on the card: the feeds are staged

@@ -4,7 +4,7 @@ tools/print_signatures.py lists the port's counterpart of every module it
 lists, and each name of those modules must be in the port with the spec's
 signature (a class of the port named in a default is read under the JAX
 package's name). The differences it allows are named here: what needs no
-counterpart off a TPU, the port's two added keywords, the port's own
+counterpart off a TPU, the port's added keywords, the port's own
 additions, and the names whose modules still wait in ROADMAP queue A (each
 must still be missing, so the list shrinks as they land). Also Scope's
 drop_kids and the host profiler's defaults, as in the reference.
@@ -30,10 +30,14 @@ REF, PORT = "paddle_tpu", "paddle_tpu_torch"
 # port to a CUDA card
 NO_COUNTERPART = ("TPUPlace", "jax_device", "compiled_hlo")
 # the port's keywords beside the spec's: the device of a scope, of an
-# imported tensor and of the data runtime's staged batches
+# imported tensor and of the data runtime's staged batches, and a hot
+# swap's table rows, scattered in place (an online delta's rows reach a
+# table on the card without the whole table crossing back to the host)
 ADDED_KEYWORDS = {"paddle_tpu.fluid.Scope.__init__": "place",
                   "paddle_tpu.lod_tensor.from_dlpack": "place",
-                  "paddle_tpu.data.DataRuntime.__init__": "place"}
+                  "paddle_tpu.data.DataRuntime.__init__": "place",
+                  "paddle_tpu.serving.ServingEngine.set_params": "rows",
+                  "paddle_tpu.serving.GenerationEngine.set_params": "rows"}
 # the port's own public names (spec names, as the reference would list them)
 PORT_ADDED = {
     "paddle_tpu.fluid.CPUPlace.torch_device", "paddle_tpu.fluid.CUDAPlace.torch_device",
@@ -41,12 +45,20 @@ PORT_ADDED = {
     "paddle_tpu.fluid.Executor.stats", "paddle_tpu.fluid.Scope.bind",
     "paddle_tpu.fluid.Scope.reseed", "paddle_tpu.serving.GenerationEngine.captures",
     "paddle_tpu.serving.ServingEngine.run_op_by_op",
+    # the child's port file (package, device, boot seconds, memory
+    # reserved): how a parent shows its replicas run this package
+    "paddle_tpu.fleet.ReplicaProcess.info",
 }
+# keys of a replica spec (fleet/replica.py's "Spec (JSON)") beside the JAX
+# package's: the device a replica serves on (the card unless "cpu"; the JAX
+# package forces its replicas onto the CPU platform instead), the file its
+# SIGTERM exit reports its kernel launches into, and a fault plan a parent
+# arms and disarms while the replica runs (a replica on the card boots in
+# tens of seconds, too long to restart one for each fault)
+REPLICA_SPEC_ADDED = {"place", "exit_file", "fault_file"}
 # names of modules the port has, missing because what defines them waits in
 # ROADMAP queue A: (name prefix, the item)
-PENDING = (
-    ("paddle_tpu.contrib.memory_usage", "A6"), ("paddle_tpu.contrib.op_freq_statistic", "A6"),
-)
+PENDING = ()
 
 
 def _spec():
@@ -140,6 +152,27 @@ def test_api_port_additions_are_the_listed_ones(api):
     got, _ = api
     spec = _spec()
     assert {n for n in got if n not in spec} == PORT_ADDED
+
+
+def _spec_keys(package):
+    """The top-level keys a replica spec documents in `package`'s
+    fleet/replica.py."""
+    text = open(os.path.join(HERE, "..", package, "fleet", "replica.py")).read()
+    doc = text.split("Spec (JSON):", 1)[1].split('"""', 1)[0]
+    keys = set()
+    for ln in doc.splitlines():
+        if ln.startswith("  ") and not ln.startswith("   "):
+            head = ln.split()[0]
+            keys.update(k.strip(",:") for k in head.split(",") if k.strip(",:"))
+            if head.endswith(","):
+                keys.add(ln.split()[1].strip(",:"))
+    return keys
+
+
+def test_replica_spec_keys_are_the_reference_ones_and_the_listed_ones():
+    ref, port = _spec_keys(REF), _spec_keys(PORT)
+    assert "predict" in ref and "repo" in ref
+    assert port == ref | REPLICA_SPEC_ADDED
 
 
 def test_scope_drop_kids_is_a_noop():

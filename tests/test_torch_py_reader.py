@@ -335,8 +335,11 @@ def _port_losses(n, init, feeds):
 
 
 def test_pyreader_overlaps_feed_with_compute():
-    """The feeder thread stages batch N+1 while step N runs: the wall of a
-    reader-fed epoch lands well below feed + compute done in turn."""
+    """The feeder thread stages batch N+1 while step N runs: judged from the
+    feeder's and the steps' own timestamps (when the feeder began each
+    batch, when each step began and ended), so a loaded machine that slows
+    both sides does not change the verdict. Fed in turns, the feeder would
+    begin batch N+1 only after step N ended."""
     delay, steps = 0.08, 6
     main, startup, loss = _mlp(fluid, 512)
     exe = fluid.Executor(CPU)
@@ -344,30 +347,26 @@ def test_pyreader_overlaps_feed_with_compute():
     exe.run(startup, scope=scope)
     batch = {"x": np.random.RandomState(0).rand(64, 512).astype("float32")}
     exe.run(main, feed=batch, fetch_list=[loss.name], scope=scope)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        exe.run(main, feed=batch, fetch_list=[loss.name], scope=scope)
-    step_time = (time.perf_counter() - t0) / 3
+    began = []
 
     def slow_reader():
         for _ in range(steps):
+            began.append(time.perf_counter())
             time.sleep(delay)
             yield dict(batch)
 
     reader = PyReader(["x"], capacity=2, place=CPU)
     reader.decorate_tensor_provider(slow_reader)
     reader.start()
-    t0 = time.perf_counter()
-    n = 0
+    runs = []
     for feed in reader():
+        t0 = time.perf_counter()
         exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
-        n += 1
-    wall = time.perf_counter() - t0
-    assert n == steps
-    sequential = steps * (delay + step_time)
-    overlapped = steps * max(delay, step_time)
-    budget = overlapped + 0.6 * (sequential - overlapped) + 0.15
-    assert wall < budget, (wall, sequential, overlapped)
+        runs.append((t0, time.perf_counter()))
+    assert len(runs) == steps and len(began) == steps
+    # the feeder was at work on batch n + 1 before step n ended
+    overlapped = [n for n in range(steps - 1) if began[n + 1] < runs[n][1]]
+    assert len(overlapped) >= steps - 2, (began, runs)
 
 
 def test_uint8_wire_against_f32_and_the_jax_package():
