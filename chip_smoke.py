@@ -415,11 +415,33 @@ Phases, each printing its own line; any failure exits non-zero:
      ring attention over dp 2 x sp 2 and sp 4, eager and captured, within
      the bars above, or, while its known hang stands, the stage each rank
      stopped at;
- 19. the `paths` JSON line, then a `kernels` JSON line (launches on the
+ 19. artifacts: compiled artifacts on torch.export, the hand kernels as
+     the paddle_tpu_torch torch.library ops. (a) Transformer base
+     train_flash under training_fused, exported after its startup program
+     (train_export.export_train_step) at dropout 0 and at 0.1; a fresh
+     process that imports only paddle_tpu_torch.train_export and numpy
+     loads each artifact: at dropout 0 its first 3 losses bit for bit
+     Executor.run's from the same state, the loss falling over 6 steps,
+     every step's launches (24 GEMM epilogue, 30 + 30 layer_norm, 1 Adam,
+     12 + 6 flash forward and 12 + 6 fused flash backward) and its step
+     wall beside the Executor's; at dropout 0.1 the runner restored from
+     its save_state continues the run it made before, bit for bit. (b) the
+     same model's inference program (the for_test clone pruned to the
+     37000-wide logits) served by inference.Predictor and by
+     load_compiled(export_compiled(...)): fetches bit for bit between the
+     two and between the artifact's first (op by op) call and its graph
+     replays, 12 + 6 flash forward launches a call, both walls. (c) the
+     contrib decoder at NMT's widths (profile_rnn.DECODER) trains 3 steps
+     and beam-decodes (beam 4, max length 16) on the card and on the CPU
+     from the same weights: losses at rtol 2e-3 atol 2e-4, ids equal on
+     every row but where the CPU's top-k had a tie within 1e-5 (at the
+     first step the card selects otherwise, both selections' scores agree
+     within 1e-5; those rows counted);
+ 20. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
      multi_adam count the Transformer's, LeNet's, the zoo's, the LSTM's,
-     the NMT model's, DeepFM's, the bf16 runs', the multi-step phase's and
-     the PE's steps, and their
+     the NMT model's, DeepFM's, the bf16 runs', the multi-step phase's,
+     the PE's and the train artifact's steps, and their
      max_abs_err is
      the worst of their own check and the path checks; fp8_matmul,
      fp8_matmul_dx and fp8_matmul_dy count the fp8 steps'; e4m3_round and
@@ -964,7 +986,7 @@ def _adam_check(torch, ma, name, device, shapes, moment_dtype, seed):
     return err, kern
 
 
-ADAM_ROUNDS = 3  # interleaved kernel / torch._fused_adam_ rounds, medians compared
+ADAM_ROUNDS = 2  # interleaved kernel / torch._fused_adam_ rounds, medians compared
 
 
 def _adam_views(torch, ma, device):
@@ -1009,7 +1031,7 @@ def check_adam(torch, ma, device, flush, shapes):
     err, kset = _adam_check(torch, ma, "multi_adam", device, shapes, "float32", SEED + 15)
     # the plain version is ~2700 launches a call: summed device time instead
     plain_ms = profiled_device_ms(
-        torch, lambda: ma.multi_tensor_adam_plain(*kset, 0.9, 0.999, 1e-8), 2)
+        torch, lambda: ma.multi_tensor_adam_plain(*kset, 0.9, 0.999, 1e-8), 1)
     p, g, m1, m2, _ = kset
     steps = [torch.ones((), device=device) for _ in p]
     rounds = {"kernel": [], "fused_adam": []}
@@ -9691,6 +9713,360 @@ def fleet(torch, card, readings):
             json.dumps(reading["replica_launches"]), card))
     return launches
 
+# ---------------------------------------------------------------- phase 19
+
+ARTIFACT_STEPS = 6  # runner steps at dropout 0; the first 3 against Executor.run's
+RESUME_STEPS = 2  # dropout-0.1 runner steps before and after its save_state
+INFER_CALLS = 4  # Predictor and loaded-artifact calls (op by op, capture, replays)
+DECODER_STEPS = 3
+DECODER_TIE = 1e-5  # selections this close (relative): a top-k tie the card may break
+
+_ARTIFACT_CHILD = r"""
+import json, sys, time
+import numpy as np
+root, spec = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+from paddle_tpu_torch.train_export import load_train_step
+
+data = np.load(spec["batches"])
+
+
+def feed(i):
+    pre = "%d/" % i
+    return {k[len(pre):]: data[k] for k in data.files if k.startswith(pre)}
+
+
+import torch
+from paddle_tpu_torch.ops import fused
+
+out = {}
+t0 = time.perf_counter()
+runner = load_train_step(spec["art0"])
+out["load_s"] = time.perf_counter() - t0
+fused.reset_stats()
+losses, walls, deltas = [], [], []
+for i in range(spec["steps"]):
+    before = fused.stats()["launches"]
+    t0 = time.perf_counter()
+    (loss,) = runner.run(feed(i))
+    walls.append((time.perf_counter() - t0) * 1e3)
+    after = fused.stats()["launches"]
+    deltas.append({k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)})
+    losses.append(float(np.asarray(loss).reshape(-1)[0]))
+out.update(losses=[v.hex() for v in losses], walls=walls, deltas=deltas,
+           launches=fused.stats()["launches"])
+del runner
+torch.cuda.empty_cache()
+runner = load_train_step(spec["art1"])
+for i in range(spec["resume"]):
+    runner.run(feed(i))
+ckpt = runner.save_state(spec["ckpt"])
+tails = []
+for _ in range(2):  # the unbroken run, then the runner restored from its checkpoint
+    tails.append([float(np.asarray(runner.run(feed(spec["resume"] + i))[0]).reshape(-1)[0])
+                  for i in range(spec["resume"])])
+    runner.load_state(ckpt)
+tail_a, tail_b = tails
+out.update(tail_a=[v.hex() for v in tail_a], tail_b=[v.hex() for v in tail_b],
+           foreign=sorted(m for m in ("jax", "paddle_tpu") if m in sys.modules))
+print(json.dumps(out))
+"""
+
+
+def _artifact_train(torch, card, tmp):
+    """(a): the train artifact at dropout 0 against Executor.run, and at
+    dropout 0.1 resumed from save_state, in a fresh process. Returns the
+    runner's launches over its steps."""
+    import subprocess
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
+    from paddle_tpu_torch.train_export import export_train_step
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    flags.set_flags({"pass_pipeline": "training_fused"})
+    place = CUDAPlace(0)
+    cfg0 = dict(prof.BASE_FLASH, dropout=0.0)
+    # one batch, so the loss falls within the steps (random batches need
+    # more steps than these to move it)
+    batches = [prof.make_batch(cfg0, SEED + 200)] * ARTIFACT_STEPS
+    np.savez(os.path.join(tmp, "batches.npz"),
+             **{"%d/%s" % (i, n): v for i, b in enumerate(batches) for n, v in b.items()})
+    arts, export_s = [], []
+    for k, cfg in enumerate((cfg0, prof.BASE_FLASH)):
+        main_prog, startup, loss = prof.build(cfg)
+        scope, exe = Scope(seed=SEED + k, place=place), Executor(place)
+        with scope_guard(scope):
+            exe.run(startup)
+        t0 = time.perf_counter()
+        arts.append(export_train_step(os.path.join(tmp, "train%d" % k), batches[0], [loss],
+                                      program=main_prog, scope=scope))
+        export_s.append(time.perf_counter() - t0)
+        log("artifacts (a): dropout %g exported and written in %.1f s" % (cfg["dropout"],
+                                                                         export_s[-1]))
+        if k == 0:
+            # Executor.run from the state the artifact holds
+            e_losses, e_walls = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                with scope_guard(scope):
+                    (v,) = exe.run(main_prog, feed=b, fetch_list=[loss.name])
+                e_walls.append((time.perf_counter() - t0) * 1e3)
+                e_losses.append(float(np.asarray(v).reshape(-1)[0]))
+        del scope, exe
+        torch.cuda.empty_cache()
+    sizes = [os.path.getsize(a) for a in arts]
+    spec = {"art0": arts[0], "art1": arts[1], "batches": os.path.join(tmp, "batches.npz"),
+            "ckpt": os.path.join(tmp, "ckpt"), "steps": ARTIFACT_STEPS, "resume": RESUME_STEPS}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, root, json.dumps(spec)],
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("train artifact runner failed (rc %d):\n%s" % (
+            proc.returncode, proc.stderr[-4000:]))
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if got["foreign"]:
+        raise AssertionError("the runner's process imported %s" % got["foreign"])
+    losses = [float.fromhex(v) for v in got["losses"]]
+    if got["losses"][:COMPARE_STEPS] != [v.hex() for v in e_losses[:COMPARE_STEPS]]:
+        raise AssertionError("train artifact: runner losses %s, Executor.run %s (first %d bit "
+                             "for bit)" % (losses, e_losses, COMPARE_STEPS))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("train artifact: loss %r -> %r does not fall" % (losses[0],
+                                                                           losses[-1]))
+    if got["tail_a"] != got["tail_b"]:
+        raise AssertionError("train artifact at dropout 0.1: a restored runner's losses %s, "
+                             "the unbroken run's %s" % (got["tail_b"], got["tail_a"]))
+    fused_want, flash_want = _per_step(cfg0)
+    want = {k: n for k, n in dict(fused_want, **flash_want).items() if n}
+    for i, d in enumerate(got["deltas"]):
+        if d != want:
+            raise AssertionError("train artifact step %d: launches %s, want %s" % (i, d, want))
+    log("artifacts (a): Transformer base train_flash under training_fused exported after its "
+        "startup program in %s s (dropout 0 / 0.1), %s bytes each; a fresh process importing "
+        "only paddle_tpu_torch.train_export and numpy (no %s) loaded the dropout-0 artifact in "
+        "%.1f s and trained %d steps: losses %s, the first %d bit for bit Executor.run's from "
+        "the same state (%s), falling; launches a step %s; step wall p50 %.3f ms over steps "
+        "3-%d (step 1 op by op %.1f ms, step 2 captured %.1f ms) against Executor.run's %.3f "
+        "ms in this call; at dropout 0.1 a runner restored from save_state after %d steps "
+        "(the same runner, its graph captured) continued the unbroken run bit for bit (%s); the "
+        "child took %.1f s; card %s" % (
+            ["%.1f" % v for v in export_s], sizes, "jax", got["load_s"], ARTIFACT_STEPS,
+            ["%.6f" % v for v in losses], COMPARE_STEPS,
+            ["%.6f" % v for v in e_losses[:COMPARE_STEPS]], json.dumps(want),
+            float(np.median(got["walls"][2:])), ARTIFACT_STEPS, got["walls"][0],
+            got["walls"][1], float(np.median(e_walls[2:])), RESUME_STEPS,
+            ["%.6f" % float.fromhex(v) for v in got["tail_a"]], child_s, card))
+    return {"flash_fwd": got["launches"]["flash_fwd"],
+            "flash_fwd_causal": got["launches"]["flash_fwd_causal"],
+            "flash_bwd": got["launches"]["flash_bwd_fused"],
+            "flash_bwd_causal": got["launches"]["flash_bwd_fused_causal"],
+            "gemm_epilogue": got["launches"]["gemm_epilogue"],
+            "layer_norm": got["launches"]["layer_norm"],
+            "layer_norm_grad": got["launches"]["layer_norm_grad"],
+            "multi_adam": got["launches"]["multi_adam"]}
+
+
+def _artifact_infer(torch, card, tmp):
+    """(b): Transformer base train_flash's inference program served by the
+    Predictor and by the loaded export_compiled artifact. Returns the
+    artifact's flash forward launches."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, inference, io, scope_guard
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.tools import profile_training as prof
+
+    # both serve the program as saved (the artifact's lowering runs no pass)
+    flags.set_flags({"pass_pipeline": ""})
+    cfg = dict(prof.BASE_FLASH, dropout=0.0)
+    main_prog, startup, _ = prof.build(cfg)
+    ce = next(op for op in main_prog.global_block().ops
+              if op.type == "softmax_with_cross_entropy")
+    logits = main_prog.global_block().var(ce.input("Logits")[0])
+    names = ["src_word", "src_pos", "trg_word", "trg_pos"]
+    model_dir = os.path.join(tmp, "infer")
+    exe = Executor(CUDAPlace(0))
+    with scope_guard(Scope(seed=SEED, place=CUDAPlace(0))):
+        exe.run(startup)
+        io.save_inference_model(model_dir, names, [logits], exe,
+                                main_program=main_prog.clone(for_test=True))
+    del exe
+    batch = prof.make_batch(cfg, SEED + 300)
+    feed = {n: batch[n] for n in names}
+
+    def calls(run):
+        outs, walls, deltas = [], [], []
+        for _ in range(INFER_CALLS):
+            before = fused.stats()["launches"]
+            t0 = time.perf_counter()
+            (o,) = run(feed)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            after = fused.stats()["launches"]
+            deltas.append({k: v - before.get(k, 0) for k, v in after.items()
+                           if v != before.get(k, 0)})
+            outs.append(o)
+        return outs, walls, deltas
+
+    pred = inference.Predictor(model_dir, place=CUDAPlace(0))
+    p_outs, p_walls, p_deltas = calls(pred.run)
+    del pred
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    path = inference.export_compiled(model_dir, feed, os.path.join(tmp, "infer_art"),
+                                     place=CUDAPlace(0))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = inference.load_compiled(path)
+    load_s = time.perf_counter() - t0
+    fused.reset_stats()  # the artifact's counting window
+    a_outs, a_walls, a_deltas = calls(art.run)
+    launches = fused.stats()["launches"]
+    del art
+    torch.cuda.empty_cache()
+    want = {"flash_fwd": 2 * cfg["n_layer"], "flash_fwd_causal": cfg["n_layer"]}
+    for label, deltas in (("Predictor", p_deltas), ("artifact", a_deltas)):
+        for i, d in enumerate(deltas):
+            if d != want:
+                raise AssertionError("%s call %d: launches %s, want %s" % (label, i, d, want))
+    ref = p_outs[0]
+    if ref.shape != (cfg["batch"] * cfg["t"], cfg["vocab"]) or not np.isfinite(ref).all():
+        raise AssertionError("inference logits: shape %s, finite %s" % (
+            ref.shape, bool(np.isfinite(ref).all())))
+    for label, outs in (("Predictor", p_outs), ("artifact", a_outs)):
+        for i, o in enumerate(outs):
+            if o.tobytes() != ref.tobytes():
+                raise AssertionError("%s call %d: logits differ from the Predictor's first "
+                                     "(max abs %g)" % (label, i, float(np.abs(o - ref).max())))
+    log("artifacts (b): Transformer base train_flash's inference program (the for_test clone "
+        "pruned to the %d-wide logits, %s) exported in %.1f s (%d bytes), loaded in %.1f s; "
+        "Predictor (Executor.run, CUDA graphs) and the loaded artifact (call 1 op by op, call 2 "
+        "captured, then replays) %d calls each, every fetch bit for bit the Predictor's first; "
+        "launches a call %s; wall p50 over calls 3-%d: Predictor %.3f ms, artifact %.3f ms "
+        "(calls 1-2: %.1f / %.1f ms and %.1f / %.1f ms); card %s" % (
+            cfg["vocab"], tuple(ref.shape), export_s, os.path.getsize(path), load_s,
+            INFER_CALLS, json.dumps(want), INFER_CALLS, float(np.median(p_walls[2:])),
+            float(np.median(a_walls[2:])), p_walls[0], p_walls[1], a_walls[0], a_walls[1], card))
+    return {"flash_fwd": launches["flash_fwd"], "flash_fwd_causal": launches["flash_fwd_causal"]}
+
+
+def _decoder_run(cfg, m, place, init, feed, dfeed, trained=None):
+    """(losses over DECODER_STEPS steps, trained state, decode, decode wall
+    ms) of the contrib decoder on `place` from `init`, the decode from
+    `trained` where given (else from its own trained state). `decode`: the
+    decoded (ids, scores) and each step's selected ids, scores and parent
+    slots ([max_out_len, batch * beam] each, the While's arrays)."""
+    from paddle_tpu_torch import Executor, Scope, convert, scope_guard
+
+    scope, exe = Scope(seed=SEED, place=place), Executor(place)
+    names = sorted(init)
+    arrays = next(op for op in m["infer"].global_block().ops
+                  if op.type == "beam_search_decode")
+    fetch = [m["ids"].name, m["scores"].name] + [arrays.input(slot)[0] for slot in
+                                                 ("Ids", "Scores", "Parents")]
+    with scope_guard(scope):
+        exe.run(m["startup"])
+        convert.load_into_scope(scope, init, names)
+        losses = [float(np.asarray(exe.run(m["main"], feed=feed,
+                                           fetch_list=[m["loss"].name])[0]).reshape(-1)[0])
+                  for _ in range(DECODER_STEPS)]
+        state = convert.scope_to_numpy(scope, names)
+        if trained is not None:
+            convert.load_into_scope(scope, trained, names)
+        t0 = time.perf_counter()
+        outs = exe.run(m["infer"], feed=dfeed, fetch_list=fetch, return_numpy=False)
+        wall = (time.perf_counter() - t0) * 1e3
+    # a tensor array fetches as its (buffer, size)
+    outs = [(o[0] if isinstance(o, tuple) else o).detach().cpu().numpy() for o in outs]
+    steps = [o.reshape(cfg["max_out_len"], -1) for o in outs[2:]]
+    return losses, state, outs[:2] + steps, wall
+
+
+def _decoder_ties(cfg, card, cpu):
+    """(rows whose decoded ids differ, of them the rows the CPU's selection
+    explains by a tie): a row's ids may differ only where, at the first
+    step the card selects other (id, parent) pairs than the CPU, the two
+    selections' scores agree within DECODER_TIE (relative): the CPU's top-k
+    had a tie there, which rounding on the card may break the other way."""
+    beam, rows = cfg["beam_size"], cfg["batch"]
+    differ = ~(card[0].reshape(rows, -1) == cpu[0].reshape(rows, -1)).all(axis=1)
+    tied = np.zeros(rows, dtype=bool)
+    for r in np.nonzero(differ)[0]:
+        sl = slice(r * beam, (r + 1) * beam)
+        for t in range(cfg["max_out_len"]):
+            picked = [sorted(zip(ids[t, sl].tolist(), par[t, sl].tolist()))
+                      for ids, par in ((card[2], card[4]), (cpu[2], cpu[4]))]
+            if picked[0] != picked[1]:
+                a, b = np.sort(card[3][t, sl]), np.sort(cpu[3][t, sl])
+                tied[r] = bool(np.allclose(a, b, rtol=DECODER_TIE, atol=DECODER_TIE))
+                break
+    return differ, tied
+
+
+def _artifact_decoder(torch, card):
+    """(c): the contrib decoder at NMT's widths on the card against the
+    port's CPU run from the same weights."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, ParamAttr, convert, flags
+    from paddle_tpu_torch.contrib import decoder
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import profile_rnn as rnn
+
+    flags.set_flags({"pass_pipeline": "training_fused"})
+    cfg = rnn.DECODER
+    m = rnn.build_contrib_decoder(fluid, decoder, ParamAttr, cfg)
+    feed, dfeed = rnn.decoder_batch(cfg, SEED)
+    init = {n: v.detach().cpu().numpy() for n, v in _startup_state(m["startup"]).items()
+            if n in set(convert.persistable_names(m["main"]))}
+    t0 = time.perf_counter()
+    card_losses, trained, dec, card_wall = _decoder_run(cfg, m, CUDAPlace(0), init, feed,
+                                                        dfeed)
+    card_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_losses, _, cdec, cpu_wall = _decoder_run(cfg, m, CPUPlace(), init, feed, dfeed,
+                                                 trained=trained)
+    cpu_s = time.perf_counter() - t0
+    a, b = np.asarray(card_losses), np.asarray(cpu_losses)
+    if not (np.isfinite(a).all() and np.allclose(a, b, rtol=FUSED_RTOL, atol=FUSED_ATOL)):
+        raise AssertionError("contrib decoder losses: card %s, CPU %s" % (a.tolist(), b.tolist()))
+    if dec[0].shape != cdec[0].shape or dec[0].shape[:2] != (cfg["batch"], cfg["beam_size"]):
+        raise AssertionError("contrib decoder ids: card %s, CPU %s" % (dec[0].shape,
+                                                                      cdec[0].shape))
+    differ, tied = _decoder_ties(cfg, dec, cdec)
+    if (differ & ~tied).any():
+        raise AssertionError("contrib decoder: rows %s decode other ids on the card with no "
+                             "tie within %g on the CPU" % (np.nonzero(differ & ~tied)[0].tolist(),
+                                                           DECODER_TIE))
+    log("artifacts (c): the contrib decoder (InitState, StateCell, TrainingDecoder, "
+        "BeamSearchDecoder) at %s: %d Adam steps on the card, losses %s, against the CPU's "
+        "from the same weights %s (rtol %g atol %g); beam %d decode, max length %d, from the "
+        "card's trained weights on both: %d of %d rows' ids equal, %d ties (rows whose first "
+        "other selection on the card had the CPU's scores within %g); card %.1f s (decode "
+        "%.1f ms, op by op: its While has no maximum_iterations), CPU %.1f s (decode %.1f "
+        "ms); card %s" % (
+            json.dumps(cfg), DECODER_STEPS, ["%.6f" % v for v in a], ["%.6f" % v for v in b],
+            FUSED_RTOL, FUSED_ATOL, cfg["beam_size"], cfg["max_out_len"],
+            int((~differ).sum()), cfg["batch"], int(tied.sum()), DECODER_TIE, card_s,
+            card_wall, cpu_s, cpu_wall, card))
+
+
+def artifacts(torch, card, readings):
+    """Compiled artifacts on the card (see the module docstring, phase 19).
+    Returns the train and inference artifacts' kernel launches."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="artifacts_")
+    try:
+        launches = _artifact_train(torch, card, tmp)
+        torch.cuda.empty_cache()
+        for k, n in _artifact_infer(torch, card, tmp).items():
+            launches[k] += n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _artifact_decoder(torch, card)
+    return launches
+
 
 def main():
     import torch
@@ -9867,6 +10243,10 @@ def main():
     torch.cuda.empty_cache()
     with Phase("train parallel"):
         for name, n in train_parallel(torch, card, paths).items():
+            launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    with Phase("artifacts"):
+        for name, n in artifacts(torch, card, paths).items():
             launches[name] = launches.get(name, 0) + n
     # every main path on replayed CUDA graphs beside the op-by-op path
     log(json.dumps({"paths": paths, "card": card}))

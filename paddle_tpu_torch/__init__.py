@@ -60,6 +60,11 @@ The native C++ runtime (native/: RecordIO, the blocking queue, the
 MultiSlot parser) is built with g++ at first use and feeds AsyncExecutor,
 contrib.reader.ctr_reader and reader.creator.recordio.
 
+Compiled artifacts: inference.export_compiled / load_compiled and
+train_export.export_train_step / load_train_step write and run a
+torch.export program of the block Executor.run prepares, the hand
+kernels of the training path recorded as torch.library ops.
+
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of
 paddle_tpu.
@@ -79,6 +84,7 @@ from . import (  # noqa: F401
     flags,
     framework,
     imperative,
+    inference,
     initializer,
     io,
     layers,

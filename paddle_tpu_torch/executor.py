@@ -71,10 +71,10 @@ state name rebound in the scope (io.load_*, scope.set_var) to a tensor of
 the same shape and dtype is copied into the captured one before a replay,
 and any other change raises.
 
-Placement: Executor and Scope take the card (CUDAPlace(0)) unless given a
-place; with no CUDA device and no explicit CPUPlace() they raise. The
-process scope (global_scope()) takes the device of the first executor that
-runs on it.
+Placement: an Executor takes the card (CUDAPlace(0)) unless given a
+place; with no CUDA device and no explicit CPUPlace() it raises. A Scope
+made without a place, the process scope (global_scope()) among them, takes
+the device of the first executor that runs on it.
 """
 
 import contextlib
@@ -103,20 +103,20 @@ __all__ = [
     "global_scope",
     "scope_guard",
     "aot_serve_lowering",
+    "export_block",
 ]
-
-# the place of a scope that takes its device from the first executor that
-# runs on it (the process scope)
-_UNBOUND = object()
 
 class Scope:
     """name -> device tensor store (reference scope.h:134, flat) on one
-    device, plus the torch.Generators that random ops draw from."""
+    device, plus the torch.Generators that random ops draw from. A scope
+    made without a place takes the device of the first executor that runs
+    on it (as the reference's Scope(seed) has none); `place=` binds it at
+    once."""
 
     _uid_counter = itertools.count()
 
     def __init__(self, seed=0, place=None):
-        self._device = None if place is _UNBOUND else to_device(place)
+        self._device = None if place is None else to_device(place)
         self.vars = {}
         self._seed = seed
         self._generator = None  # lazy, like the JAX package's rng key
@@ -210,7 +210,7 @@ def global_scope():
     if st:
         return st[-1]
     if _global_scope is None:
-        _global_scope = Scope(place=_UNBOUND)
+        _global_scope = Scope()
     return _global_scope
 
 
@@ -640,6 +640,29 @@ class _FeedStage:
             self._copied.record()
 
 
+@contextlib.contextmanager
+def _counted_capture():
+    """Around a CUDA graph capture (which runs nothing): takes what the
+    kernel wrappers and fused lowerings counted during it back out, into
+    the [(counter dict, counts)] it yields, which _add_counts adds again at
+    every replay."""
+    counts = []
+    before = [(d, dict(d)) for d in fused.counter_dicts()]
+    try:
+        yield counts
+    finally:
+        for d, b in before:
+            counts.append((d, {k: v - b.get(k, 0) for k, v in d.items() if v != b.get(k, 0)}))
+            d.clear()
+            d.update(b)
+
+
+def _add_counts(counts):
+    for d, delta in counts:
+        for k, v in delta.items():
+            d[k] = d.get(k, 0) + v
+
+
 class _CudaGraph:
     """One prepared block captured as a CUDA graph over static feed buffers
     and the state tensors given at capture, replayed by `replay`. Its
@@ -673,9 +696,7 @@ class _CudaGraph:
             self.graph.register_generator_state(self.device_generator)
         for gen, _ in self.seeded:
             self.graph.register_generator_state(gen)
-        self._counters = fused.counter_dicts()
-        before = [dict(d) for d in self._counters]
-        with _on_capture_stream(device) as stream:
+        with _counted_capture() as self.counts, _on_capture_stream(device) as stream:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 fetches, new_mut, _ = block.fn(self.stage.bufs, self.ro, self.mut, ctx)
@@ -689,11 +710,6 @@ class _CudaGraph:
         # FLAGS_tensor_stats: the capture's stats tensor, which every replay
         # rewrites
         self.tstat = block.tstat
-        self.delta = []
-        for d, b in zip(self._counters, before):
-            self.delta.append({k: v - b.get(k, 0) for k, v in d.items() if v != b.get(k, 0)})
-            d.clear()
-            d.update(b)
 
     def replay(self, feeds, ro, mut):
         """(fetches, mut) of one replay over `feeds`; `ro` and `mut` are the
@@ -720,9 +736,7 @@ class _CudaGraph:
         for gen, seed in self.seeded:
             gen.manual_seed(seed)
         self.graph.replay()
-        for d, delta in zip(self._counters, self.delta):
-            for k, v in delta.items():
-                d[k] = d.get(k, 0) + v
+        _add_counts(self.counts)
         return self.fetches, self.mut
 
 
@@ -1718,6 +1732,165 @@ def aot_serve_lowering(program, feed_names, fetch_names, scope,
     if return_state:
         return serve, ro, mut
     return _ServeFetches(serve), ro, mut
+
+
+# ---------------------------------------------------------------------------
+# compiled artifacts: a prepared block as a torch.export program
+# (inference.py, train_export.py)
+# ---------------------------------------------------------------------------
+
+
+def _sorted(d):
+    return {k: d[k] for k in sorted(d)}
+
+
+class _BlockStep(torch.nn.Module):
+    """forward(feeds, ro, mut) -> (fetches, new_mut) over a traced step:
+    the dict signature torch.export keeps, around `gm`, the flat graph of
+    one run of a block (export_block)."""
+
+    def __init__(self, gm, names, n_fetches):
+        super().__init__()
+        self.gm, self.names, self.n_fetches = gm, names, n_fetches
+
+    def forward(self, feeds, ro, mut):
+        outs = self.gm(*(d[n] for d, group in zip((feeds, ro, mut), self.names)
+                         for n in group))
+        return list(outs[:self.n_fetches]), dict(zip(self.names[2], outs[self.n_fetches:]))
+
+
+def export_block(block, feeds, ro, mut, device, is_test=False):
+    """torch.export of one op-by-op run of a prepared block
+    (_PerOpProfiledBlock) over `feeds` (tensors on `device` in their
+    declared dtypes) and the state `ro` / `mut`, which stay arguments of
+    the program: its graph holds the hand kernels as the paddle_tpu_torch
+    ops, and the in-place updates of `mut` (the fused Adam's) as input
+    mutations. The run's random ops draw from the device's default
+    generator (a torch.Generator inside an exported graph does not survive
+    torch.export.load), whose state the exported runners set and read
+    around each call.
+
+    The run is first traced over fake tensors into a flat aten graph
+    (make_fx: it records the generic grads' torch.func.vjp op by op, which
+    torch.export's own tracer does not), its dead ops dropped, and that
+    graph is exported.
+    Raises for a block no graph can hold: one that creates persistables
+    (run the startup program first), holds host ops or an open-ended while,
+    or an op that pins a random seed (its own generator would be a constant
+    of the graph)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    if block.created_persistables:
+        raise RuntimeError(
+            "block creates persistables %s: run the startup program before exporting"
+            % block.created_persistables)
+    if block.host_ops or block.open_ended_while:
+        raise RuntimeError("block holds %s, which an exported graph cannot run" % (
+            "host ops" if block.host_ops else "an open-ended while"))
+    names = tuple(tuple(sorted(d)) for d in (feeds, ro, mut))
+    cache = {}  # the lowerings' constants, made for this trace alone
+
+    def run(*flat):
+        parts, i = [], 0
+        for group in names:
+            parts.append(dict(zip(group, flat[i:i + len(group)])))
+            i += len(group)
+        ctx = registry.LowerCtx(device, is_test=is_test, cache=cache, host_random=False)
+        fetches, new_mut, _ = block.fn(*parts, ctx)
+        return tuple(fetches) + tuple(new_mut[n] for n in names[2])
+
+    flat = [d[n] for d, group in zip((feeds, ro, mut), names) for n in group]
+    # a frame summary a node is much of a trace's time: off, where this
+    # torch has the switch
+    emit = getattr(torch.fx.config, "do_not_emit_stack_traces", None)
+    if emit is not None:
+        torch.fx.config.do_not_emit_stack_traces = True
+    try:
+        gm = make_fx(run, tracing_mode="fake")(*flat)
+        if registry.seeded_generators(cache):
+            raise RuntimeError("an op of the block pins a random seed: its generator cannot "
+                               "be carried by an exported graph")
+        _drop_dead(gm)
+        step = _BlockStep(gm, names, len(block.fetch_names))
+        exported = torch.export.export(step, tuple(_sorted(d) for d in (feeds, ro, mut)),
+                                       strict=False)
+        # the state goes beside the program (compile_cache.write_artifact),
+        # not a second time inside it as the trace's example inputs
+        exported.example_inputs = None
+        return exported
+    finally:
+        if emit is not None:
+            torch.fx.config.do_not_emit_stack_traces = emit
+
+
+def _drop_dead(gm):
+    """Erase the traced ops no result reads (the generic grads' replayed
+    forwards whose values their vjp does not need), keeping every op that
+    mutates (the fused Adam) or draws random numbers (so the generator's
+    offsets advance as Executor.run's do)."""
+    for node in reversed(list(gm.graph.nodes)):
+        if node.op != "call_function" or node.users:
+            continue
+        target = node.target
+        if isinstance(target, torch._ops.OpOverload) and (
+                target._schema.is_mutable or torch.Tag.nondeterministic_seeded in target.tags):
+            continue
+        if node.is_impure():
+            continue
+        gm.graph.erase_node(node)
+    gm.recompile()
+
+
+class _ExportedRun:
+    """An exported block's module (torch.export.load(...).module()) run as
+    _CompiledBlock runs a block: on the CPU op by op every call; on the card
+    call 1 op by op on the capture stream, call 2 captured as a CUDA graph
+    (the default generator registered, as every capture registers it) and
+    replayed, later calls replay. The state tensors it is given keep their
+    addresses: a written value the module returns as a new tensor is copied
+    into the held one (inside the graph on the card). Launch counters
+    count as on _CudaGraph (_counted_capture)."""
+
+    def __init__(self, module, feed_dtypes, device):
+        self.module = module
+        self.feed_dtypes = dict(feed_dtypes)
+        self.device = torch.device(device)
+        self._warm = False
+        self.graph = None
+
+    def _call(self, feeds, ro, mut):
+        fetches, new_mut = self.module(_sorted(feeds), _sorted(ro), _sorted(mut))
+        for n, t in new_mut.items():
+            if t.data_ptr() != mut[n].data_ptr():
+                mut[n].copy_(t)
+        return fetches
+
+    def __call__(self, feeds, ro, mut):
+        """The fetches of one call over `feeds` (host or device values) and
+        the held state `ro` / `mut`, which a call updates in place."""
+        if self.device.type != "cuda" or not self._warm:
+            feeds = {n: to_tensor(v, self.device, self.feed_dtypes.get(n))
+                     for n, v in feeds.items()}
+            if self.device.type != "cuda":
+                return self._call(feeds, ro, mut)
+            with _on_capture_stream(self.device):
+                fetches = self._call(feeds, ro, mut)
+            self._warm = True
+            return fetches
+        if self.graph is None:
+            torch.cuda.empty_cache()
+            self.stage = _FeedStage(sorted(feeds), self.feed_dtypes, feeds, self.device)
+            self.stage.fill(feeds)
+            self.graph = torch.cuda.CUDAGraph()
+            with _counted_capture() as self.counts, _on_capture_stream(self.device) as stream:
+                with torch.cuda.graph(self.graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.fetches = self._call(self.stage.bufs, ro, mut)
+        else:
+            self.stage.fill(feeds)
+        self.graph.replay()
+        _add_counts(self.counts)
+        return self.fetches
 
 
 def _pull_reader_steps(readers, steps_per_run, adapters=None):

@@ -1,7 +1,5 @@
 """`import paddle_tpu_torch.fluid as fluid`: the fluid surface of the port,
-the names of paddle_tpu/fluid/__init__.py that the port has. The JAX
-package's `inference` module (built on jax.export artifacts) is not ported
-yet, so fluid.inference is absent until it is."""
+the names of paddle_tpu/fluid/__init__.py."""
 
 from .. import *  # noqa: F401,F403
 from .. import (  # noqa: F401
@@ -19,6 +17,7 @@ from .. import (  # noqa: F401
     flags,
     framework,
     imperative,
+    inference,
     initializer,
     io,
     layers,

@@ -74,6 +74,13 @@ def _to_numpy(val):
     return a, None
 
 
+def _host_copy(t):
+    """A tensor as a numpy array of its own (a CPU tensor's numpy() shares
+    its memory), bf16 widened to float32."""
+    arr = _to_numpy(t)[0]
+    return np.array(arr) if t.device.type == "cpu" else arr
+
+
 def _to_tensor(arr, stored, device):
     """A loaded array as a tensor on `device`, bf16 where the save tagged
     it, else in the framework dtype of its numpy dtype (a copy: the array's

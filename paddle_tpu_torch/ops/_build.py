@@ -27,7 +27,7 @@ import subprocess
 import threading
 
 __all__ = ["NVCC_FLAGS", "arrival_counters", "build_all", "build_logs", "build_tag", "load",
-           "register"]
+           "refuse_trace", "register"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, "csrc")
@@ -67,11 +67,12 @@ def _so_path(stem):
 
 
 def build_tag():
-    """One hash of every registered kernel's library name (each names its
-    source, headers and flags): what a compiled artifact that records the
-    kernels' launches is valid for (serving/compile_cache.py variant_key)."""
+    """One hash of every kernel source's library name (each names its
+    source, headers and flags), whichever wrappers a process imported: what
+    a compiled artifact that records the kernels' launches is valid for
+    (serving/compile_cache.py)."""
     digest = hashlib.sha256()
-    for stem in sorted(_binders):
+    for stem in sorted(n[:-3] for n in os.listdir(_SRC_DIR) if n.endswith(".cu")):
         digest.update(os.path.basename(_so_path(stem)).encode())
     return digest.hexdigest()[:16]
 
@@ -102,6 +103,20 @@ def _compile(stems):
     if failed:
         raise RuntimeError("nvcc failed for %s:\n%s" % (
             failed, "\n".join(build_logs[s] for s in failed)))
+
+
+def refuse_trace(kernel, *tensors):
+    """Raise, naming `kernel`, where a trace (torch.export, make_fx) reaches
+    a kernel launched by a direct ctypes call rather than a torch.library
+    op: its tensors are fake and have no data pointer to launch on, and the
+    graph could not record the launch. The paged, quant GEMM and fp8
+    kernels are launched so."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if any(t is not None and is_fake(t) for t in tensors):
+        raise RuntimeError(
+            "%s is launched by a direct call, not as a torch.library op: an exported "
+            "graph cannot hold it" % kernel)
 
 
 def register(stem, bind):

@@ -36,14 +36,17 @@ program declares the `Lse` output (layers.flash_attention, the
 fuse_attention pass), so both packages build the same programs; they do not
 decide how the CUDA kernels tile.
 
-Dispatch: `flash_forward` / `flash_backward` launch the kernels for tensors
-on a CUDA device and raise if they cannot be built or launched; they run
-the plain versions for
-tensors on the CPU and on the meta device (shape inference). Nothing falls
-back silently.
+Dispatch: `flash_forward` / `flash_backward` check the operands and call
+the torch.library ops `paddle_tpu_torch::flash_forward` / `flash_backward`,
+whose CUDA implementations launch the kernels (and count the launches) and
+raise if they cannot be built or launched, whose CPU implementations are
+the plain versions, and whose fakes give shapes and dtypes alone (the meta
+device's shape inference, and torch.export, which records the ops in its
+graphs). Nothing falls back silently.
 """
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -316,11 +319,55 @@ def _launch(fn_name, prm, device, *ptrs):
 
 def flash_forward(q, k, v, causal, sm_scale):
     """(out, lse) of flash attention over (b, h, t, d) operands: out in q's
-    dtype, contiguous (b, h, tq, d); lse (b, h, tq) f32. CUDA tensors launch
-    the forward kernel; CPU and meta tensors run flash_forward_plain."""
-    if q.device.type != "cuda":
-        return flash_forward_plain(q, k, v, causal, sm_scale)
-    b, h, tq, tk, d = _check(q, k, v)
+    dtype, contiguous (b, h, tq, d); lse (b, h, tq) f32. Checks the
+    operands, then calls the op paddle_tpu_torch::flash_forward: CUDA
+    tensors launch the forward kernel; CPU tensors run flash_forward_plain
+    (meta tensors take the op's fake)."""
+    if q.device.type == "cuda":
+        _check(q, k, v)
+    return _flash_forward_op(q, k, v, bool(causal), float(sm_scale))
+
+
+def flash_backward(q, k, v, out, lse, dout, causal, sm_scale):
+    """(dq, dk, dv) of flash attention from the saved out and lse (each in
+    its operand's dtype, contiguous). Checks the operands, then calls the
+    op paddle_tpu_torch::flash_backward: CUDA tensors launch the fused
+    kernel where flash_bwd_fused_ok holds (its dQ summed by the last key
+    tile of each (b, h)), else the pair: delta once per query row into an
+    f32 scratch, then the dK/dV and the dQ kernels; CPU tensors run
+    flash_backward_plain."""
+    if q.device.type == "cuda":
+        b, h, tq, tk, d = _check(q, k, v)
+        for name, t in (("out", out), ("dout", dout)):
+            if tuple(t.shape) != (b, h, tq, d) or t.dtype != q.dtype or t.device != q.device:
+                raise ValueError("flash_backward: %s is %s %s on %s, q %s %s on %s" % (
+                    name, tuple(t.shape), t.dtype, t.device, tuple(q.shape), q.dtype, q.device))
+        if (tuple(lse.shape) != (b, h, tq) or lse.dtype != torch.float32
+                or lse.device != q.device):
+            raise ValueError("flash_backward: lse must be (%d, %d, %d) f32 on %s, got %s %s"
+                             % (b, h, tq, q.device, tuple(lse.shape), lse.dtype))
+    return _flash_backward_op(q, k, v, out, lse, dout, bool(causal), float(sm_scale))
+
+
+# the ops: one entry for the executor, CUDA graphs, eager mode and
+# torch.export (whose graphs record them by name). Their callers that
+# differentiate go through FlashAttention (below) or ring attention's own
+# autograd Function, so the ops register no backward of their own.
+@torch.library.custom_op("paddle_tpu_torch::flash_forward", mutates_args=(), device_types="cpu")
+def _flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                      sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_forward_plain(q, k, v, causal, sm_scale)
+
+
+@_flash_forward_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    b, h, tq, d = q.shape
+    return q.new_empty((b, h, tq, d)), q.new_empty((b, h, tq), dtype=torch.float32)
+
+
+@_flash_forward_op.register_kernel("cuda")
+def _(q, k, v, causal, sm_scale):
+    b, h, tq, d = q.shape
     q, k, v = _operand(q), _operand(k), _operand(v)
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -330,23 +377,22 @@ def flash_forward(q, k, v, causal, sm_scale):
     return out, lse
 
 
-def flash_backward(q, k, v, out, lse, dout, causal, sm_scale):
-    """(dq, dk, dv) of flash attention from the saved out and lse (each in
-    its operand's dtype, contiguous). CUDA tensors launch the fused kernel
-    where flash_bwd_fused_ok holds (its dQ summed by the last key tile of
-    each (b, h)), else the pair: delta once per query row into an f32
-    scratch, then the dK/dV and the dQ kernels; CPU and meta tensors run
-    flash_backward_plain."""
-    if q.device.type != "cuda":
-        return flash_backward_plain(q, k, v, out, lse, dout, causal, sm_scale)
-    b, h, tq, tk, d = _check(q, k, v)
-    for name, t in (("out", out), ("dout", dout)):
-        if tuple(t.shape) != (b, h, tq, d) or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError("flash_backward: %s is %s %s on %s, q %s %s on %s" % (
-                name, tuple(t.shape), t.dtype, t.device, tuple(q.shape), q.dtype, q.device))
-    if tuple(lse.shape) != (b, h, tq) or lse.dtype != torch.float32 or lse.device != q.device:
-        raise ValueError("flash_backward: lse must be (%d, %d, %d) f32 on %s, got %s %s"
-                         % (b, h, tq, q.device, tuple(lse.shape), lse.dtype))
+@torch.library.custom_op("paddle_tpu_torch::flash_backward", mutates_args=(), device_types="cpu")
+def _flash_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                       lse: torch.Tensor, dout: torch.Tensor, causal: bool,
+                       sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_backward_plain(q, k, v, out, lse, dout, causal, sm_scale)
+
+
+@_flash_backward_op.register_fake
+def _(q, k, v, out, lse, dout, causal, sm_scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@_flash_backward_op.register_kernel("cuda")
+def _(q, k, v, out, lse, dout, causal, sm_scale):
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
     q, k, v, out, dout = (_operand(t) for t in (q, k, v, out, dout))
     lse = lse.contiguous()
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)

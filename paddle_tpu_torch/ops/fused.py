@@ -597,8 +597,9 @@ def _fused_multi_adam(ctx, ops, env):
         key = (p.dtype, g.dtype, m1.dtype, m2.dtype)
         by_dtype.setdefault(key, []).append((op, i, state, g.contiguous()))
     for dkey, group in by_dtype.items():
-        # a group's lr_t rows and pointer table are uploaded once, into the
-        # prepared block's cache, where a replayed CUDA graph finds them
+        # a group's lr_t rows are uploaded once, into the prepared block's
+        # cache, where a replayed CUDA graph finds them (the kernel's
+        # pointer table is kept by multi_adam itself)
         cache = ctx.cache.setdefault(("multi_adam", id(ops[0]), dkey), {})
         lr_g = lr_t
         if len(group) != len(recs):
@@ -609,7 +610,7 @@ def _fused_multi_adam(ctx, ops, env):
         multi_adam.multi_tensor_adam(
             [r[2][0] for r in group], [r[3] for r in group],
             [r[2][1] for r in group], [r[2][2] for r in group],
-            lr_g, b1, b2, eps, table_cache=cache.setdefault("table", {}),
+            lr_g, b1, b2, eps,
         )
         for op, _, (po, m1o, m2o), _ in group:
             scatter_op_outputs(

@@ -10,13 +10,17 @@ saved stats, dscale and dbias summed over all rows in f32 in a fixed order
 (per-CTA partials in a scratch the wrapper allocates, summed by the last
 CTAs to finish), the same bits on every run.
 
-Dispatch: `fused_layer_norm` / `fused_layer_norm_grad` launch the kernels
-for tensors on a CUDA device and raise if they cannot be built or launched;
-they run the plain versions only for tensors on the CPU. Nothing falls back
-silently.
+Dispatch: `fused_layer_norm` / `fused_layer_norm_grad` check the operands
+and call the torch.library ops `paddle_tpu_torch::fused_layer_norm` /
+`fused_layer_norm_grad`, whose CUDA implementations launch the kernels
+(and count the launches) and raise if they cannot be built or launched,
+whose CPU implementations are the plain versions, and whose fakes give
+shapes and dtypes alone, so torch.export records the ops in its graphs.
+Nothing falls back silently.
 """
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -91,23 +95,51 @@ def fused_layer_norm(x2, residual2, scale, bias, eps):
     """layer_norm(x2 [+ residual2]) over the (rows, cols) view. Returns
     (s, y, mean, var): s = x2 + residual2 in the input dtype (None when no
     residual), y in the input dtype, mean/var the f32 per-row stats (biased
-    variance). scale/bias of None behave as ones/zeros. CUDA tensors launch
-    the kernel; CPU tensors run fused_layer_norm_plain."""
-    if x2.device.type != "cuda":
-        return fused_layer_norm_plain(x2, residual2, scale, bias, eps)
-    if x2.dim() != 2 or x2.dtype not in _DTYPE_CODE:
-        raise TypeError("fused_layer_norm: x2 must be 2-D f32 or bf16, got %s %s"
-                        % (tuple(x2.shape), x2.dtype))
-    rows, cols = x2.shape
-    xc = x2.contiguous()
-    rc = None
-    if residual2 is not None:
-        if residual2.shape != x2.shape or residual2.dtype != x2.dtype:
+    variance). scale/bias of None behave as ones/zeros. Checks the operands,
+    then calls the op paddle_tpu_torch::fused_layer_norm: CUDA tensors
+    launch the kernel; CPU tensors run fused_layer_norm_plain."""
+    if x2.device.type == "cuda":
+        if x2.dim() != 2 or x2.dtype not in _DTYPE_CODE:
+            raise TypeError("fused_layer_norm: x2 must be 2-D f32 or bf16, got %s %s"
+                            % (tuple(x2.shape), x2.dtype))
+        if residual2 is not None and (residual2.shape != x2.shape
+                                      or residual2.dtype != x2.dtype):
             raise ValueError("fused_layer_norm: residual %s %s vs x %s %s" % (
                 tuple(residual2.shape), residual2.dtype, tuple(x2.shape), x2.dtype))
-        rc = residual2.contiguous()
+        for v in (scale, bias):
+            _vec(v, x2.shape[1], x2.device)
+    s, y, mean, var = _fused_layer_norm_op(x2, residual2, scale, bias, float(eps))
+    return (None if residual2 is None else s), y, mean, var
+
+
+# the ops: one entry for the executor, CUDA graphs, eager mode and
+# torch.export (whose graphs record them by name); s is an empty tensor
+# without a residual (an op's outputs are tensors)
+@torch.library.custom_op("paddle_tpu_torch::fused_layer_norm", mutates_args=(),
+                         device_types="cpu")
+def _fused_layer_norm_op(x2: torch.Tensor, residual2: Optional[torch.Tensor],
+                         scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                         eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    s, y, mean, var = fused_layer_norm_plain(x2, residual2, scale, bias, eps)
+    return (x2.new_empty(0) if s is None else s), y, mean, var
+
+
+@_fused_layer_norm_op.register_fake
+def _(x2, residual2, scale, bias, eps):
+    rows = x2.shape[0]
+    s = x2.new_empty(0) if residual2 is None else x2.new_empty(x2.shape)
+    return (s, x2.new_empty(x2.shape), x2.new_empty(rows, dtype=torch.float32),
+            x2.new_empty(rows, dtype=torch.float32))
+
+
+@_fused_layer_norm_op.register_kernel("cuda")
+def _(x2, residual2, scale, bias, eps):
+    rows, cols = x2.shape
+    xc = x2.contiguous()
+    rc = None if residual2 is None else residual2.contiguous()
     sc, bc = _vec(scale, cols, x2.device), _vec(bias, cols, x2.device)
-    s = torch.empty_like(xc) if rc is not None else None
+    s = torch.empty_like(xc) if rc is not None else x2.new_empty(0)
     y = torch.empty_like(xc)
     mean = torch.empty(rows, dtype=torch.float32, device=x2.device)
     var = torch.empty_like(mean)
@@ -116,7 +148,7 @@ def fused_layer_norm(x2, residual2, scale, bias, eps):
         err = lib.layer_norm_fwd(
             xc.data_ptr(), None if rc is None else rc.data_ptr(),
             None if sc is None else sc.data_ptr(), None if bc is None else bc.data_ptr(),
-            None if s is None else s.data_ptr(), y.data_ptr(), mean.data_ptr(),
+            None if rc is None else s.data_ptr(), y.data_ptr(), mean.data_ptr(),
             var.data_ptr(), rows, cols, float(eps), _DTYPE_CODE[x2.dtype],
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
@@ -144,21 +176,43 @@ def fused_layer_norm_grad(x2, scale, mean, var, dy2, eps):
     """Backward of the fused layer_norm over the (rows, cols) view. Returns
     (dx, dscale, dbias): dx in x2's dtype, dscale/dbias (cols,) f32 sums
     over all rows (the caller casts them to the param dtypes). scale of
-    None behaves as ones. CUDA tensors launch the kernel (one launch); CPU
-    tensors run fused_layer_norm_grad_plain."""
-    if x2.device.type != "cuda":
-        return fused_layer_norm_grad_plain(x2, scale, mean, var, dy2, eps)
-    if x2.dim() != 2 or x2.dtype not in _DTYPE_CODE:
-        raise TypeError("fused_layer_norm_grad: x2 must be 2-D f32 or bf16, got %s %s"
-                        % (tuple(x2.shape), x2.dtype))
+    None behaves as ones. Checks the operands, then calls the op
+    paddle_tpu_torch::fused_layer_norm_grad: CUDA tensors launch the kernel
+    (one launch); CPU tensors run fused_layer_norm_grad_plain."""
+    if x2.device.type == "cuda":
+        if x2.dim() != 2 or x2.dtype not in _DTYPE_CODE:
+            raise TypeError("fused_layer_norm_grad: x2 must be 2-D f32 or bf16, got %s %s"
+                            % (tuple(x2.shape), x2.dtype))
+        rows, cols = x2.shape
+        if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
+            raise ValueError("fused_layer_norm_grad: dy %s %s vs x %s %s" % (
+                tuple(dy2.shape), dy2.dtype, tuple(x2.shape), x2.dtype))
+        for name, st in (("mean", mean), ("var", var)):
+            if st.numel() != rows or st.dtype != torch.float32 or st.device != x2.device:
+                raise ValueError("fused_layer_norm_grad: %s must be (%d,) f32 on %s"
+                                 % (name, rows, x2.device))
+        _vec(scale, cols, x2.device)
+    return _fused_layer_norm_grad_op(x2, scale, mean, var, dy2, float(eps))
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_layer_norm_grad", mutates_args=(),
+                         device_types="cpu")
+def _fused_layer_norm_grad_op(x2: torch.Tensor, scale: Optional[torch.Tensor],
+                              mean: torch.Tensor, var: torch.Tensor, dy2: torch.Tensor,
+                              eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return fused_layer_norm_grad_plain(x2, scale, mean, var, dy2, eps)
+
+
+@_fused_layer_norm_grad_op.register_fake
+def _(x2, scale, mean, var, dy2, eps):
+    cols = x2.shape[1]
+    return (x2.new_empty(x2.shape), x2.new_empty(cols, dtype=torch.float32),
+            x2.new_empty(cols, dtype=torch.float32))
+
+
+@_fused_layer_norm_grad_op.register_kernel("cuda")
+def _(x2, scale, mean, var, dy2, eps):
     rows, cols = x2.shape
-    if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
-        raise ValueError("fused_layer_norm_grad: dy %s %s vs x %s %s" % (
-            tuple(dy2.shape), dy2.dtype, tuple(x2.shape), x2.dtype))
-    for name, st in (("mean", mean), ("var", var)):
-        if st.numel() != rows or st.dtype != torch.float32 or st.device != x2.device:
-            raise ValueError("fused_layer_norm_grad: %s must be (%d,) f32 on %s"
-                             % (name, rows, x2.device))
     xc, dyc = x2.contiguous(), dy2.contiguous()
     mc, vc = mean.reshape(-1).contiguous(), var.reshape(-1).contiguous()
     sc = _vec(scale, cols, x2.device)

@@ -165,6 +165,8 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
             q, k_pool, v_pool, block_table, pos, n_head=n_head,
             page_size=page_size, sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
         )
+    _build.refuse_trace("paged_flash (paged_decode_kernel, paged_flash_shared_tc_kernel, "
+                        "paged_wide_kernel)", q, k_pool)
     rows, feat = q.shape
     d = feat // n_head
     scale = float(sm_scale or 0.0) or d ** -0.5

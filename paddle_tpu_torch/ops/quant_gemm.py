@@ -163,6 +163,7 @@ def quant_gemm_bias_act(x2, w2, scale, bias_row=None, act=None):
                          % (tuple(x2.shape), tuple(w2.shape)))
     if x2.device.type != "cuda":
         return quant_gemm_bias_act_plain(x2, w2, scale, bias_row, act)
+    _build.refuse_trace("quant_gemm_kernel", x2, w2)
     m, k = x2.shape
     n = w2.shape[1]
     if k % 16 or n % 16:
@@ -268,6 +269,7 @@ def _raise_if(err, what):
 
 def _e4m3_round_cuda(t):
     """t (f32 or bf16) rounded to e4m3 by e4m3_round_kernel, in t's dtype."""
+    _build.refuse_trace("e4m3_round_kernel", t)
     if t.dtype not in _MM_DTYPES:
         raise TypeError("e4m3_round: f32 or bf16, got %s" % t.dtype)
     src = t.contiguous()
@@ -341,6 +343,7 @@ def _fp8_gemm(form, a, b, load_dtype, out, rows, cols, red, nr=1):
 
 
 def _check_cuda(x, y):
+    _build.refuse_trace("fp8_gemm_kernel", x, y)
     if x.dtype not in _MM_DTYPES or y.dtype not in _MM_DTYPES:
         raise TypeError("fp8_matmul: the kernel takes f32 or bf16 operands, got %s and %s"
                         % (x.dtype, y.dtype))

@@ -24,17 +24,28 @@ content-keyed, so replicas sharing a directory race only to write equal
 bytes; a torn or incompatible entry counts as a miss. Hits and misses ride
 the registry as `serving/compile_cache/{hits,misses}`.
 
-`export_compiled`'s artifact layout (the JAX module's lines 232-291) comes
-with inference.py (ROADMAP A7).
+The compiled artifacts of inference.export_compiled and
+train_export.export_train_step (the JAX module's lines 225-291) are one
+`.npz` each (`artifact_path`, `write_artifact`, `read_artifact`):
+torch.export.save's bytes of the exported program in place of the JAX
+package's StableHLO, the feed and fetch names, the feeds' dtypes, the
+`ro:` / `mut:` state (bf16 stored as f32 with a dtype record) and the
+stack it was made on (`_versions`): reading it on another stack raises and
+names what differs.
 """
 
 import hashlib
+import io
 import json
 import os
 
-__all__ = ["CompileCache", "variant_key"]
+import numpy as np
+
+__all__ = ["CompileCache", "artifact_path", "read_artifact", "variant_key", "write_artifact"]
 
 ARTIFACT_SUFFIX = ".variant.json"
+# a compiled artifact's file (np.savez appends it where it is missing)
+EXPORT_SUFFIX = ".npz"
 FORMAT = 1
 
 
@@ -151,3 +162,98 @@ class CompileCache:
 
     def stats(self):
         return {"hits": int(self._hits.value()), "misses": int(self._misses.value())}
+
+
+# ---------------------------------------------------------------------------
+# compiled artifacts (inference.export_compiled, train_export): one .npz
+# ---------------------------------------------------------------------------
+
+
+def artifact_path(out_path):
+    """The path np.savez actually writes for `out_path` (it appends `.npz`
+    when missing)."""
+    return out_path if out_path.endswith(EXPORT_SUFFIX) else out_path + EXPORT_SUFFIX
+
+
+def write_artifact(out_path, program, feed_names, fetch_names, ro, mut, feed_dtypes, device,
+                   extra=None):
+    """Write one compiled artifact and return the path written: the
+    exported program (torch.export.ExportedProgram), the feed and fetch
+    names, each feed's dtype, the state `ro` / `mut` ({name: tensor}), the
+    type of the device it runs on, the stack it was made on, and `extra`
+    arrays ({"__rng__": ...}) as they are."""
+    import torch
+
+    from .. import io as _io
+
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    arrays, dtypes = {}, {}
+    for prefix, group in (("ro:", ro), ("mut:", mut)):
+        for k, v in group.items():
+            arrays[prefix + k], stored = _io._to_numpy(v)
+            if stored:
+                dtypes[prefix + k] = stored
+    path = artifact_path(out_path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(
+        path,
+        __torch_export__=np.frombuffer(buf.getvalue(), np.uint8),
+        __feed_names__=np.array(list(feed_names)),
+        __fetch_names__=np.array(list(fetch_names)),
+        __feed_dtypes__=np.array(json.dumps({n: str(d).replace("torch.", "")
+                                             for n, d in feed_dtypes.items() if d})),
+        __param_dtypes__=np.array(json.dumps(dtypes)),
+        __device__=np.array(device.type),
+        __versions__=np.array(json.dumps(_versions(), sort_keys=True)),
+        **dict(extra or {}),
+        **arrays,
+    )
+    return path
+
+
+def read_artifact(path):
+    """Inverse of write_artifact: {program (the loaded ExportedProgram),
+    feed_names, fetch_names, feed_dtypes, ro, mut (tensors on the device the
+    artifact runs on), device, extra}. Raises where the artifact was made
+    on another stack (torch, CUDA, the device's name, the kernels' build),
+    naming each difference."""
+    import torch
+
+    from .. import io as _io
+    from ..place import to_device
+
+    data = np.load(artifact_path(path))
+    made = json.loads(str(data["__versions__"]))
+    here = _versions()
+    diff = ["%s %r, here %r" % (k, made.get(k), here.get(k))
+            for k in sorted(set(made) | set(here)) if made.get(k) != here.get(k)]
+    if diff:
+        raise RuntimeError("compiled artifact %s was made on another stack: %s"
+                           % (path, "; ".join(diff)))
+    from ..place import CPUPlace, CUDAPlace
+
+    device = to_device(CUDAPlace(0) if str(data["__device__"]) == "cuda" else CPUPlace())
+    dtypes = json.loads(str(data["__param_dtypes__"]))
+    program = torch.export.load(io.BytesIO(data["__torch_export__"].tobytes()))
+
+    def _state(prefix):
+        return {k[len(prefix):]: _io._to_tensor(data[k], dtypes.get(k), device)
+                for k in data.files if k.startswith(prefix)}
+
+    return {
+        "program": program,
+        "feed_names": [str(s) for s in data["__feed_names__"]],
+        "fetch_names": [str(s) for s in data["__fetch_names__"]],
+        "feed_dtypes": {n: getattr(torch, d) for n, d in
+                        json.loads(str(data["__feed_dtypes__"])).items()},
+        "ro": _state("ro:"),
+        "mut": _state("mut:"),
+        "device": device,
+        "extra": {k: data[k] for k in data.files
+                  if k.startswith("__") and k not in _LAYOUT_KEYS},
+    }
+
+
+_LAYOUT_KEYS = ("__torch_export__", "__feed_names__", "__fetch_names__", "__feed_dtypes__",
+                "__param_dtypes__", "__device__", "__versions__")

@@ -13,6 +13,10 @@ chip_smoke.py's train-lstm and train-nmt phases and the tests use them:
   batch 64, Adam(1e-3); beam search with beam 4 and max_out_len 16.
 - COPY: the copy task of tests/test_machine_translation.py (vocab 12, 5
   words, batch 8, Adam(1e-2), 150 steps, beam 3).
+- DECODER: the contrib class-based decoder (contrib/decoder) on
+  tests/test_contrib_decoder.py's scenario at NMT's widths (dict 30000,
+  emb = hid = 512, batch 64 of 16 words, beam 4, max length 16):
+  build_contrib_decoder takes either package's fluid and decoder modules.
 
 rnn_device_split divides the op-by-op path's device time into the
 recurrent products, the gates' elementwise work, the generic grad's
@@ -31,6 +35,8 @@ NMT = dict(dict_size=30000, emb_dim=512, hid_dim=512, seq_len=16, batch=64, lr=1
            beam_size=4, max_out_len=16)
 COPY = dict(dict_size=12, emb_dim=32, hid_dim=32, seq_len=5, batch=8, lr=1e-2, beam_size=3,
             max_out_len=6, steps=150)
+DECODER = dict(dict_size=30000, emb_dim=512, hid_dim=512, seq_len=16, batch=64, lr=5e-3,
+               beam_size=4, max_out_len=16, topk=50)
 START, END = 0, 1
 
 RECURRENT = ("dynamic_lstm", "dynamic_gru", "recurrent")
@@ -147,6 +153,97 @@ def build_nmt_infer(cfg):
             beam_size=cfg["beam_size"], max_out_len=cfg["max_out_len"], start_id=START,
             end_id=END)
     return dict(main=main, ids=ids, scores=scores, hyp_len=ids._hyp_len)
+
+
+def _decoder_encoder(fluid, ParamAttr, cfg, src_word):
+    emb = fluid.layers.embedding(src_word, size=[cfg["dict_size"], cfg["emb_dim"]],
+                                 param_attr=ParamAttr(name="src_emb"))
+    fc1 = fluid.layers.fc(emb, size=cfg["hid_dim"] * 4, act="tanh", num_flatten_dims=2)
+    fc1._len_name = getattr(src_word, "_len_name", None) or src_word.name + "@LEN"
+    h, _ = fluid.layers.dynamic_lstm(fc1, size=cfg["hid_dim"] * 4)
+    return fluid.layers.sequence_last_step(h)
+
+
+def _decoder_cell(fluid, dec, ParamAttr, cfg, context):
+    cell = dec.StateCell(inputs={"x": None},
+                         states={"h": dec.InitState(init=context, need_reorder=True)},
+                         out_state="h")
+
+    @cell.state_updater
+    def updater(cell):
+        h = fluid.layers.fc(
+            fluid.layers.concat([cell.get_state("h"), cell.get_input("x")], axis=1),
+            size=cfg["hid_dim"], act="tanh", param_attr=ParamAttr(name="dec_fc_w"),
+            bias_attr=ParamAttr(name="dec_fc_b"))
+        cell.set_state("h", h)
+
+    return cell
+
+
+def build_contrib_decoder(fluid, dec, ParamAttr, cfg):
+    """tests/test_contrib_decoder.py's model at `cfg`'s widths, built with
+    `fluid` and its contrib `dec` (decoder) module: an embedding + fc +
+    dynamic_lstm encoder, a StateCell whose fc updater TrainingDecoder
+    trains under Adam and BeamSearchDecoder decodes (parameters shared by
+    name). Returns {"main", "startup", "loss", "infer", "ids", "scores"};
+    feeds from decoder_batch."""
+    b, v, e = cfg["batch"], cfg["dict_size"], cfg["emb_dim"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src_word = fluid.layers.data(name="src_word", shape=[1], dtype="int64", lod_level=1)
+        cell = _decoder_cell(fluid, dec, ParamAttr, cfg,
+                             _decoder_encoder(fluid, ParamAttr, cfg, src_word))
+        trg_word = fluid.layers.data(name="trg_word", shape=[1], dtype="int64", lod_level=1)
+        trg_emb = fluid.layers.embedding(trg_word, size=[v, e],
+                                         param_attr=ParamAttr(name="bsd_trg_emb"))
+        trg_emb._len_name = trg_word.name + "@LEN"
+        decoder = dec.TrainingDecoder(cell)
+        with decoder.block():
+            word = fluid.layers.reshape(decoder.step_input(trg_emb), [-1, e])
+            decoder.state_cell.compute_state(inputs={"x": word})
+            score = fluid.layers.fc(decoder.state_cell.get_state("h"), size=v, act="softmax",
+                                    param_attr=ParamAttr(name="bsd_out_w"),
+                                    bias_attr=ParamAttr(name="bsd_out_b"))
+            decoder.state_cell.update_states()
+            decoder.output(score)
+        probs = decoder()
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64", lod_level=1)
+        ce = fluid.layers.cross_entropy(fluid.layers.reshape(probs, [-1, v]),
+                                        fluid.layers.reshape(label, [-1, 1]))
+        loss = fluid.layers.mean(ce)
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    infer, infer_startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(infer, infer_startup):
+        src_word = fluid.layers.data(name="src_word", shape=[1], dtype="int64", lod_level=1)
+        cell = _decoder_cell(fluid, dec, ParamAttr, cfg,
+                             _decoder_encoder(fluid, ParamAttr, cfg, src_word))
+        init_ids = fluid.layers.data(name="init_ids", shape=[b, 1], dtype="int64",
+                                     append_batch_size=False)
+        init_scores = fluid.layers.data(name="init_scores", shape=[b, 1], dtype="float32",
+                                        append_batch_size=False)
+        bsd = dec.BeamSearchDecoder(
+            state_cell=cell, init_ids=init_ids, init_scores=init_scores, target_dict_dim=v,
+            word_dim=e, topk_size=cfg["topk"], sparse_emb=False, max_len=cfg["max_out_len"],
+            beam_size=cfg["beam_size"], end_id=END, name="bsd")
+        bsd.decode()
+        ids, scores = bsd()
+    return {"main": main, "startup": startup, "loss": loss, "infer": infer, "ids": ids,
+            "scores": scores}
+
+
+def decoder_batch(cfg, seed):
+    """(train feed, decode feed): source words from `seed`, the target and
+    label the source (the echo task of tests/test_contrib_decoder.py), every
+    sequence seq_len long; the decode starts every row from id 0, score 0."""
+    rng = np.random.RandomState(seed)
+    b, t = cfg["batch"], cfg["seq_len"]
+    lens = np.full((b,), t, "int32")
+    src = rng.randint(2, cfg["dict_size"], (b, t, 1)).astype("int64")
+    train = {"src_word": src, "src_word@LEN": lens, "trg_word": src.copy(),
+             "trg_word@LEN": lens, "label": src.copy(), "label@LEN": lens}
+    decode = {"src_word": src, "src_word@LEN": lens, "init_ids": np.zeros((b, 1), "int64"),
+              "init_scores": np.zeros((b, 1), "float32")}
+    return train, decode
 
 
 def copied(src, src_len, ids, hyp_len):

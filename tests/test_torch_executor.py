@@ -110,10 +110,10 @@ def no_cuda():
 def test_card_entry_points_still_raise_without_a_card(no_cuda, fresh_process_scope):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.Executor(pt.CUDAPlace(0))
+    # a scope made without a place, and the unbound process scope, asked
+    # for their device before any executor ran on them take the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        pt.Scope()
-    # the unbound process scope asked for its device before any executor
-    # ran on it takes the card
+        pt.Scope().device
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.global_scope().device
 

@@ -54,7 +54,9 @@ def no_cuda():
 @pytest.mark.parametrize(
     "entry",
     [
-        lambda: Scope(),
+        # a scope made without a place binds no device until an executor
+        # runs on it; asked for its device first, it takes the card
+        lambda: Scope().device,
         lambda: Executor(),
         lambda: GenerationEngine(GPTDecoder(vocab_size=8, n_layer=1, n_head=1, d_model=4,
                                             d_inner=8, max_context=8)),
