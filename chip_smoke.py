@@ -7,7 +7,9 @@ Phases, each printing its own line; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then build every kernel
      of paddle_tpu_torch/ops/csrc/ with nvcc, one process per source, all
      at once, and beside them the native host runtime (libptnative, g++,
-     paddle_tpu_torch/native), logging its command line;
+     paddle_tpu_torch/native), logging its command line; while they build,
+     the phases that launch no hand-written kernel run (8b, 8e, 14, 15 and
+     16 below), then the run waits for the builds;
   2. each kernel against its plain torch version at the full-width shapes
      of the main paths, with max abs error against its tolerance and the
      kernel / plain / library-call times in ms:
@@ -115,6 +117,15 @@ Phases, each printing its own line; any failure exits non-zero:
      launched; logits against the f32 pools within a relative drift of 0.05
      on shared contexts; the kernel path against paged_flash off on the
      same int8 pools within 1e-4;
+  4b'. paged export: for the f32 engine and the int8 one, its decode
+     program and the 32-row prefill-chunk program exported
+     (GenerationEngine.export_variant: aot_serve_lowering(return_state=
+     True), executor.export_block, the KV pools the written state), one
+     paddle_tpu_torch.paged_flash_attention node a layer; a 32-token
+     request alone, one chunk and 8 decode steps on the engine's graph
+     path, replayed by the exported programs on copies of the pools as they
+     were before it: every call's logits and every pool bit for bit, 12
+     shared-table and 96 per-slot launches;
   4c. serve int8 GEMM (path B): the fc head of the JAX package's int8
      serving bench (3 x fc(2048 -> 2048, relu), fc(2048 -> 16)) fitted 30
      steps by the port's Executor + Adam, saved by io.py, served by an f32
@@ -230,7 +241,11 @@ Phases, each printing its own line; any failure exits non-zero:
      (a); the quant GEMM launched once per int8_conv2d (53) every call of
      (e) and held bit for bit against its plain version on every im2col
      product of (e)'s op-by-op run, the stem's and two 3 x 3
-     convolutions' timed beside torch._int_mm;
+     convolutions' timed beside torch._int_mm; then (e)'s program saved by
+     io.save_inference_model and served by inference.Predictor and by
+     load_compiled(export_compiled(...)), 4 calls each: every fetch bit
+     for bit the Predictor's first and that one leg (e)'s, 53
+     quant_gemm_bias_act nodes in the graph and 53 launches a call;
   8e. extra ops: the 46 op types of nn_extra_ops.py and compose_ops.py at
      published models' shapes (C3D, 3D U-Net, DCGAN, FCN, SegNet, SPP-net,
      group norm's ResNet-50, the Spatial Transformer, the train lstm and
@@ -424,8 +439,9 @@ Phases, each printing its own line; any failure exits non-zero:
      Executor.run's from the same state, the loss falling over 6 steps,
      every step's launches (24 GEMM epilogue, 30 + 30 layer_norm, 1 Adam,
      12 + 6 flash forward and 12 + 6 fused flash backward) and its step
-     wall beside the Executor's; at dropout 0.1 the runner restored from
-     its save_state continues the run it made before, bit for bit. (b) the
+     wall beside the Executor's; at dropout 0.1 (2 layers of Transformer
+     base's widths) the runner restored from its save_state continues the
+     run it made before, bit for bit. (b) the
      same model's inference program (the for_test clone pruned to the
      37000-wide logits) served by inference.Predictor and by
      load_compiled(export_compiled(...)): fetches bit for bit between the
@@ -436,20 +452,27 @@ Phases, each printing its own line; any failure exits non-zero:
      from the same weights: losses at rtol 2e-3 atol 2e-4, ids equal on
      every row but where the CPU's top-k had a tie within 1e-5 (at the
      first step the card selects otherwise, both selections' scores agree
-     within 1e-5; those rows counted);
+     within 1e-5; those rows counted). (e) Transformer base (dropout 0)
+     rewritten to bf16 under FLAGS_fp8_matmul and training_fused (train
+     bf16's fp8 configuration), exported by export_train_step and run by
+     TrainStepRunner in this process: 3 losses bit for bit Executor.run's
+     from the same state, fp8_matmul and fp8_matmul_grads nodes in the
+     graph, the fp8 forward, dx and dy launches a step of both, the
+     export and load times and the file size;
  20. the `paths` JSON line, then a `kernels` JSON line (launches on the
      graph path, error, times, bound per kernel; gemm_epilogue and
      multi_adam count the Transformer's, LeNet's, the zoo's, the LSTM's,
      the NMT model's, DeepFM's, the bf16 runs', the multi-step phase's,
-     the PE's and the train artifact's steps, and their
+     the PE's and the train artifacts' steps, and their
      max_abs_err is
      the worst of their own check and the path checks; fp8_matmul,
-     fp8_matmul_dx and fp8_matmul_dy count the fp8 steps'; e4m3_round and
-     quant_gemm_fp8 (on no main path) the kernel phase's; quant_gemm_int8
-     the int8 ServingEngine's calls and deploy resnet50's leg (e), 53 a
-     call; gemm_epilogue also the online trainer's steps, paged_flash and
-     paged_flash_shared also the fleet replicas' serving, as each reports
-     at its exit).
+     fp8_matmul_dx and fp8_matmul_dy count the fp8 steps' and the fp8
+     artifact's; e4m3_round and quant_gemm_fp8 (on no main path) the
+     kernel phase's; quant_gemm_int8 the int8 ServingEngine's calls, deploy
+     resnet50's leg (e) and its artifact, 53 a call; gemm_epilogue also
+     the online trainer's steps, paged_flash and paged_flash_shared also
+     the fleet replicas' serving, as each reports at its exit, and the
+     paged forms the exported programs' calls).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the paddle_tpu_torch package beside it,
@@ -2307,7 +2330,7 @@ def check_fp8_matmul(torch, device, flush):
     t[0, 0, :6] = torch.tensor([464.0, 464.01, -448.5, float("inf"), float("nan"), -0.0])
     for dtype in (torch.float32, torch.bfloat16):
         td = t.to(dtype)
-        got = qg._e4m3_round_cuda(td).float()
+        got = qg.e4m3_round(td).float()
         want = qg.e4m3_round_plain(td)
         torch.cuda.synchronize()
         ok = ~torch.isnan(want)
@@ -2361,8 +2384,8 @@ def check_fp8_matmul(torch, device, flush):
             plain_ms = time_ms(torch, lambda: qg.fp8_matmul_grads_plain(x, y, g, need), 5, flush,
                                gated=True)
             # the product alone on operands already rounded, bf16 out
-            a, b = ((g, qg._e4m3_round_cuda(y).t()) if label == "dx"
-                    else (qg._e4m3_round_cuda(x).t(), g))
+            a, b = ((g, qg.e4m3_round(y).t()) if label == "dx"
+                    else (qg.e4m3_round(x).t(), g))
             lib_ms = time_ms(torch, lambda: torch.matmul(a, b), 10, flush, gated=True)
             bound_ms, bound_by = _fp8_grad_bound(m, k, n)
             i = 0 if label == "dx" else 1
@@ -2388,7 +2411,7 @@ def check_fp8_matmul(torch, device, flush):
     # the rounding kernel at x of FP8_MM_TIMED (the f32 gradients' pass)
     (m, k), _ = FP8_MM_TIMED
     xr = _fp8_operands(torch, device, (m, k), (k, 1), torch.float32, SEED + 74)[0]
-    r_ms = time_ms(torch, lambda: qg._e4m3_round_cuda(xr), 20, flush, gated=True)
+    r_ms = time_ms(torch, lambda: qg.e4m3_round(xr), 20, flush, gated=True)
     r_plain = time_ms(torch, lambda: qg.e4m3_round_plain(xr), 10, flush, gated=True)
     r_lib = time_ms(torch, lambda: xr.to(torch.float8_e4m3fn), 20, flush, gated=True)
     r_bound = 8.0 * m * k / HBM_BYTES_PER_S * 1e3
@@ -2739,6 +2762,116 @@ def _stepwise(engine, prompt, n_new):
     return list(run.tokens), rows
 
 
+def _op_nodes(program):
+    """{paddle_tpu_torch op name: its nodes} in an exported program's graph."""
+    out = {}
+    for n in program.graph.nodes:
+        t = str(n.target)
+        if t.startswith("paddle_tpu_torch."):
+            name = t.split(".")[1]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+PAGED_EXPORT_PROMPT = 32  # tokens of the exported request's prompt: one chunk, the largest bucket
+PAGED_EXPORT_STEPS = 8  # decode steps after it
+
+
+def paged_export(torch, pf, engine, label, card):
+    """(f) of the compiled artifacts: the engine's decode program and one
+    prefill-chunk program exported (GenerationEngine.export_variant:
+    aot_serve_lowering(return_state=True), executor.export_block, the KV
+    pools the written state), one paddle_tpu_torch.paged_flash_attention
+    node a layer. A request alone (a PAGED_EXPORT_PROMPT-token prompt, no
+    prefix-cache hit: one prefill chunk, then PAGED_EXPORT_STEPS decode
+    steps) on the engine's graph path, the pools kept after every call;
+    then the exported programs (executor._ExportedRun: call 1 op by op,
+    then a CUDA graph) replay those calls on copies of the pools as they
+    were before it: every call's logits and every pool bit for bit. Returns
+    (the exported programs' paged kernel launches, the record)."""
+    from paddle_tpu_torch.executor import _ExportedRun
+    from paddle_tpu_torch.serving import GenRequest
+
+    rng = np.random.RandomState(SEED + 7)
+    prompt = rng.randint(2, engine.model.vocab_size, size=PAGED_EXPORT_PROMPT).tolist()
+    chunk = "prefill:%d" % engine.prefill_bucket(len(prompt))
+    start = {n: t.clone() for n, t in engine._state.items()}
+    calls, call = [], engine._call
+
+    def recorded(variant, feeds):
+        kind = next(k for k, v in engine._variants.items() if v is variant)
+        held = {n: np.array(feeds[n]) for n in variant.feed_names}
+        out = call(variant, feeds)
+        calls.append((kind, held, [np.array(o) for o in out],
+                      {n: engine._state[n].clone() for n in variant.mut_names}))
+        return out
+
+    saved, engine.prefix_cache = engine.prefix_cache, None
+    engine._call = recorded
+    try:
+        run = engine.start(GenRequest(prompt, max_new_tokens=PAGED_EXPORT_STEPS + 1,
+                                      eos_id=NO_EOS))
+        for _ in range(PAGED_EXPORT_STEPS):
+            engine.decode_step([run])
+        engine.finish(run)
+    finally:
+        engine.prefix_cache = saved
+        del engine._call
+    kinds = [c[0] for c in calls]
+    if kinds != [chunk] + ["decode"] * PAGED_EXPORT_STEPS:
+        raise AssertionError("%s export: the request made calls %s" % (label, kinds))
+    exported, export_s, nodes = {}, {}, {}
+    for kind in (chunk, "decode"):
+        feeds = next(c[1] for c in calls if c[0] == kind)
+        t0 = time.perf_counter()
+        program, ro, mut_names, dtypes = engine.export_variant(kind, feeds)
+        export_s[kind] = time.perf_counter() - t0
+        nodes[kind] = _op_nodes(program).get("paged_flash_attention", 0)
+        if nodes[kind] != engine.model.n_layer:
+            raise AssertionError("%s export %s: %d paged_flash_attention nodes, want %d"
+                                 % (label, kind, nodes[kind], engine.model.n_layer))
+        exported[kind] = (_ExportedRun(program.module(), dtypes, engine.device), ro, mut_names)
+    pools = start
+    pf.reset_kernel_launches()  # the exported programs' counting window
+    walls = []
+    for i, (kind, feeds, want, want_pools) in enumerate(calls):
+        fn, ro, mut_names = exported[kind]
+        t0 = time.perf_counter()
+        got = [o.cpu().numpy() for o in fn(feeds, ro, {n: pools[n] for n in mut_names})]
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.tobytes() != w.tobytes():
+                raise AssertionError("%s export, call %d (%s): logits differ from the engine's "
+                                     "(max abs %g)" % (label, i, kind, float(np.abs(g - w).max())))
+        bad = [n for n in mut_names if not torch.equal(pools[n], want_pools[n])]
+        if bad:
+            raise AssertionError("%s export, call %d (%s): pools %s differ from the engine's"
+                                 % (label, i, kind, bad[:4]))
+    launches = {k: v for k, v in pf.kernel_launches().items() if v}
+    decode_key = pf.launch_key(False, engine.model.d_model // engine.model.n_head,
+                               engine.kv_dtype == "int8")
+    shared_key = pf.launch_key(True, engine.model.d_model // engine.model.n_head,
+                               engine.kv_dtype == "int8")
+    want_launches = {shared_key: engine.model.n_layer,
+                     decode_key: engine.model.n_layer * PAGED_EXPORT_STEPS}
+    if launches != want_launches:
+        raise AssertionError("%s export: launches %s, want %s" % (label, launches, want_launches))
+    record = {"export_s": export_s, "nodes": nodes, "launches": launches,
+              "exported_call_walls_ms": walls}
+    log("paged export %s: %s and decode (%d slots) exported by GenerationEngine.export_variant "
+        "in %s s, %s paged_flash_attention nodes; a %d-token prompt and %d decode steps on the "
+        "engine's graph path replayed by the exported programs (call 1 op by op, then a CUDA "
+        "graph) on copies of the pools: logits and all %d pool tensors bit for bit after every "
+        "call; launches %s; exported call walls %s ms; card %s" % (
+            label, chunk, engine.max_slots, json.dumps({k: round(v, 1) for k, v in
+                                                        export_s.items()}),
+            json.dumps(nodes), len(prompt), PAGED_EXPORT_STEPS, len(start), json.dumps(launches),
+            ["%.2f" % w for w in walls], card))
+    del exported, calls, start, pools
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def serve_int8_kv(torch, pf, f32_engine, card, readings):
     """Path A: GPT-2 small over int8 KV pools at 16 slots, the f32 engine's
     weights copied in by name; 16 concurrent requests through the
@@ -2746,7 +2879,7 @@ def serve_int8_kv(torch, pf, f32_engine, card, readings):
     on both bit for bit, then the last-step logits against the f32 pools
     and the kernel path against the plain one (paged_flash off) on the
     same int8 pools. Returns the int8 paged kernels' launches over the
-    graph path's requests."""
+    graph path's requests, and the engine."""
     from paddle_tpu_torch import CUDAPlace, flags
     from paddle_tpu_torch.models import GPTDecoder
     from paddle_tpu_torch.serving import GenerationEngine
@@ -2816,8 +2949,7 @@ def serve_int8_kv(torch, pf, f32_engine, card, readings):
         "same int8 pools over %d steps max abs logit err %.3g (atol=rtol=%g)" % (
             drift, INT8_DRIFT, steps, len(prompts[::4]), same, total, len(rows_k), kerr,
             LOGIT_ATOL))
-    del engine
-    return {k: launches[k] for k in INT8_KERNEL_META}
+    return {k: launches[k] for k in INT8_KERNEL_META}, engine
 
 
 def _head_batch(means, rng, bs):
@@ -6232,6 +6364,86 @@ def _hold_im2col(torch, qg, rec, flush):
     return held, timed
 
 
+def _deploy_artifact(torch, prog, scope, feed, fetch, n_int8, want, card):
+    """(d) of the compiled artifacts: leg (e)'s int8 program (frozen,
+    convert_to_int8) saved by io.save_inference_model, then served by
+    inference.Predictor and by load_compiled(export_compiled(...)), each
+    INFER_CALLS calls: every fetch bit for bit the Predictor's first, and
+    that one bit for bit leg (e)'s op-by-op logits `want`; the exported
+    graph holds one quant_gemm_bias_act node, and each call launches the
+    quant GEMM once, per int8_conv2d. Returns (the artifact's quant GEMM
+    launches, its record)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import CUDAPlace, Executor, inference, io, scope_guard
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.serving import compile_cache
+
+    tmp = tempfile.mkdtemp(prefix="deploy_artifact_")
+    try:
+        model_dir = os.path.join(tmp, "int8")
+        with scope_guard(scope):
+            io.save_inference_model(model_dir, ["img"], [prog.global_block().var(fetch)],
+                                    Executor(CUDAPlace(0)), main_program=prog)
+        host = {"img": feed["img"].cpu().numpy()}
+        pred = inference.Predictor(model_dir, place=CUDAPlace(0))
+        p_outs, p_walls, p_deltas = _infer_calls(pred.run, host)
+        del pred
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        path = inference.export_compiled(model_dir, host, os.path.join(tmp, "art"),
+                                         place=CUDAPlace(0))
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        nodes = _op_nodes(compile_cache.read_artifact(path)["program"]).get(
+            "quant_gemm_bias_act", 0)
+        t0 = time.perf_counter()
+        art = inference.load_compiled(path)
+        load_s = time.perf_counter() - t0
+        fused.reset_stats()  # the artifact's counting window
+        a_outs, a_walls, a_deltas = _infer_calls(art.run, host)
+        launches = fused.stats()["launches"].get("quant_gemm_int8", 0)
+        del art
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    want_counts = {"quant_gemm_int8": n_int8}
+    for label, deltas in (("Predictor", p_deltas), ("artifact", a_deltas)):
+        for i, d in enumerate(deltas):
+            if d != want_counts:
+                raise AssertionError("deploy artifact, %s call %d: launches %s, want %s"
+                                     % (label, i, d, want_counts))
+    if nodes != n_int8:
+        raise AssertionError("deploy artifact: %d quant_gemm_bias_act nodes, want %d"
+                             % (nodes, n_int8))
+    ref = p_outs[0]
+    if ref.tobytes() != want.tobytes():
+        raise AssertionError("deploy artifact: the Predictor's logits differ from leg (e)'s "
+                             "(max abs %g)" % float(np.abs(ref - want).max()))
+    for label, outs in (("Predictor", p_outs), ("artifact", a_outs)):
+        for i, o in enumerate(outs):
+            if o.tobytes() != ref.tobytes():
+                raise AssertionError("deploy artifact, %s call %d: logits differ from the "
+                                     "Predictor's first (max abs %g)"
+                                     % (label, i, float(np.abs(o - ref).max())))
+    record = {"export_s": export_s, "load_s": load_s, "bytes": size, "nodes": nodes,
+              "predictor_wall_p50_ms": float(np.median(p_walls[2:])),
+              "artifact_wall_p50_ms": float(np.median(a_walls[2:])),
+              "artifact_walls_1_2_ms": a_walls[:2], "launches_a_call": want_counts}
+    log("deploy resnet50 artifact (d): leg (e)'s int8 program (%d int8_conv2d) saved by "
+        "io.save_inference_model, exported by inference.export_compiled in %.1f s (%d bytes, %d "
+        "paddle_tpu_torch.quant_gemm_bias_act nodes), loaded in %.1f s; Predictor and loaded "
+        "artifact %d calls each at batch %d, every fetch bit for bit the Predictor's first, "
+        "and that one leg (e)'s; "
+        "launches a call %s, %d over the artifact's calls; wall p50 over calls 3-%d: Predictor "
+        "%.3f ms, artifact %.3f ms (artifact calls 1-2: %.1f / %.1f ms); card %s" % (
+            n_int8, export_s, size, nodes, load_s, INFER_CALLS, host["img"].shape[0],
+            json.dumps(want_counts), launches, INFER_CALLS, record["predictor_wall_p50_ms"],
+            record["artifact_wall_p50_ms"], a_walls[0], a_walls[1], card))
+    return launches, record
+
+
 def deploy_resnet50(torch, card, readings):
     """The CNN deployment path (tools/profile_deploy.py): ResNet-50 at its
     published widths (3 x 224 x 224, 1000 classes, random weights from
@@ -6334,6 +6546,8 @@ def deploy_resnet50(torch, card, readings):
             rec = r
             launches = results[leg]["launches"].get("quant_gemm_int8", 0)
         torch.cuda.empty_cache()
+    art_launches, artifact = _deploy_artifact(torch, *legs["e"], infer_feed, fetch, n_int8,
+                                              logits["e"], card)
     del legs
     diff = {}
     for got, want in (("b", "a"), ("c", "b"), ("e", "d"), ("d_exact", "d"), ("e", "d_exact"),
@@ -6364,7 +6578,8 @@ def deploy_resnet50(torch, card, readings):
     head_taken = fused.quant_gemm_path_taken(cfg["infer_batch"], cfg["classes"], 2048,
                                              torch.int8)
     readings["deploy_resnet50"] = {"train": train, "legs": results, "logits": diff,
-                                   "top1_e_vs_a": top1, "quant_gemm_im2col": timed}
+                                   "top1_e_vs_a": top1, "quant_gemm_im2col": timed,
+                                   "artifact": artifact}
     for name, t in timed.items():
         log("deploy resnet50: quant_gemm_kernel at %s's im2col product (%d, %d) @ (%d, %d), no "
             "bias, scale 1.0: kernel %.4f ms (device, cold L2), plain (float64 product) %.4f ms, "
@@ -6379,7 +6594,7 @@ def deploy_resnet50(torch, card, readings):
         "block rule), so it runs as the float64 int8_mul; built and run in %.1f s" % (
             len(held), json.dumps(held), n_int8, launches, DEPLOY_CALLS, head_taken,
             time.perf_counter() - t0))
-    return {"quant_gemm_int8": launches}
+    return {"quant_gemm_int8": launches + art_launches}
 
 
 # ---------------------------------------------------------------- extra ops
@@ -8103,34 +8318,66 @@ def _a6b_cards(world, card, readings):
             world, json.dumps(cfg), ["%.6f" % v for v in ref], json.dumps(summary), card))
 
 
-def _start_native_build():
-    """Build libptnative (paddle_tpu_torch/native, g++) on a thread; the
-    returned call waits for it and gives its log line (or raises its
-    error)."""
+def _on_thread(fn):
+    """Run fn() on a thread; the returned call waits for it and gives (its
+    result, its seconds), or raises its error."""
     import threading
-
-    from paddle_tpu_torch import native
 
     box = {}
 
-    def build():
+    def run():
         t0 = time.perf_counter()
         try:
-            native.lib()
+            box["out"] = fn()
         except BaseException as e:  # noqa: B036 — raised by the waiter
             box["err"] = e
         box["s"] = time.perf_counter() - t0
 
-    th = threading.Thread(target=build, daemon=True)
+    th = threading.Thread(target=run, daemon=True)
     th.start()
 
     def wait():
         th.join()
         if "err" in box:
             raise box["err"]
+        return box["out"], box["s"]
+
+    return wait
+
+
+def _start_native_build():
+    """Build libptnative (paddle_tpu_torch/native, g++) on a thread; the
+    returned call waits for it and gives its log line (or raises its
+    error)."""
+    from paddle_tpu_torch import native
+
+    done = _on_thread(native.lib)
+
+    def wait():
+        _, secs = done()
         return "g++ build of libptnative in %.1f s (zlib: %s): %s" % (
-            box["s"], native.build_log.get("zlib"),
+            secs, native.build_log.get("zlib"),
             native.build_log.get("cmd", "a build of this source was already there"))
+
+    return wait
+
+
+def _start_nvcc_build():
+    """Build every kernel of ops/csrc/ (one nvcc per source, all at once) on
+    a thread; the returned call waits for it and gives its log lines (or
+    raises its error). A kernel launched meanwhile waits for its library."""
+    from paddle_tpu_torch.ops import _build
+
+    done = _on_thread(_build.build_all)
+
+    def wait():
+        _, secs = done()
+        lines = ["nvcc sm_90a build of %s in %.1f s" % (sorted(_build.build_logs), secs)]
+        for stem, text in sorted(_build.build_logs.items()):
+            ptxas = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            lines.append("ptxas %s: %s" % (stem, " | ".join(ptxas)))
+        return lines
 
     return wait
 
@@ -9717,6 +9964,7 @@ def fleet(torch, card, readings):
 
 ARTIFACT_STEPS = 6  # runner steps at dropout 0; the first 3 against Executor.run's
 RESUME_STEPS = 2  # dropout-0.1 runner steps before and after its save_state
+RESUME_LAYERS = 2  # layers of the dropout-0.1 resume leg (the dropout-0 leg keeps 6)
 INFER_CALLS = 4  # Predictor and loaded-artifact calls (op by op, capture, replays)
 DECODER_STEPS = 3
 DECODER_TIE = 1e-5  # selections this close (relative): a top-k tie the card may break
@@ -9773,10 +10021,12 @@ print(json.dumps(out))
 """
 
 
-def _artifact_train(torch, card, tmp):
+def _artifact_train(torch, card, tmp, beside=None):
     """(a): the train artifact at dropout 0 against Executor.run, and at
-    dropout 0.1 resumed from save_state, in a fresh process. Returns the
-    runner's launches over its steps."""
+    dropout 0.1 resumed from save_state, in a fresh process, while
+    `beside()` runs in this one (host work: (e)'s export, so the child's
+    graph replays share the card with nothing). Returns (the runner's
+    launches over its steps, what beside returned)."""
     import subprocess
 
     from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
@@ -9792,7 +10042,9 @@ def _artifact_train(torch, card, tmp):
     np.savez(os.path.join(tmp, "batches.npz"),
              **{"%d/%s" % (i, n): v for i, b in enumerate(batches) for n, v in b.items()})
     arts, export_s = [], []
-    for k, cfg in enumerate((cfg0, prof.BASE_FLASH)):
+    # the resume leg at Transformer base's widths, cut in depth
+    cfg1 = dict(prof.BASE_FLASH, n_layer=RESUME_LAYERS)
+    for k, cfg in enumerate((cfg0, cfg1)):
         main_prog, startup, loss = prof.build(cfg)
         scope, exe = Scope(seed=SEED + k, place=place), Executor(place)
         with scope_guard(scope):
@@ -9819,13 +10071,20 @@ def _artifact_train(torch, card, tmp):
             "ckpt": os.path.join(tmp, "ckpt"), "steps": ARTIFACT_STEPS, "resume": RESUME_STEPS}
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, root, json.dumps(spec)],
-                          capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen([sys.executable, "-c", _ARTIFACT_CHILD, root, json.dumps(spec)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        side = beside() if beside is not None else None
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     child_s = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError("train artifact runner failed (rc %d):\n%s" % (
-            proc.returncode, proc.stderr[-4000:]))
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
+            proc.returncode, stderr[-4000:]))
+    got = json.loads(stdout.strip().splitlines()[-1])
     if got["foreign"]:
         raise AssertionError("the runner's process imported %s" % got["foreign"])
     losses = [float.fromhex(v) for v in got["losses"]]
@@ -9851,7 +10110,7 @@ def _artifact_train(torch, card, tmp):
         "3-%d (step 1 op by op %.1f ms, step 2 captured %.1f ms) against Executor.run's %.3f "
         "ms in this call; at dropout 0.1 a runner restored from save_state after %d steps "
         "(the same runner, its graph captured) continued the unbroken run bit for bit (%s); the "
-        "child took %.1f s; card %s" % (
+        "child took %.1f s, beside (e)'s export here; card %s" % (
             ["%.1f" % v for v in export_s], sizes, "jax", got["load_s"], ARTIFACT_STEPS,
             ["%.6f" % v for v in losses], COMPARE_STEPS,
             ["%.6f" % v for v in e_losses[:COMPARE_STEPS]], json.dumps(want),
@@ -9865,7 +10124,137 @@ def _artifact_train(torch, card, tmp):
             "gemm_epilogue": got["launches"]["gemm_epilogue"],
             "layer_norm": got["launches"]["layer_norm"],
             "layer_norm_grad": got["launches"]["layer_norm_grad"],
-            "multi_adam": got["launches"]["multi_adam"]}
+            "multi_adam": got["launches"]["multi_adam"]}, side
+
+
+def _infer_calls(run, feed, n=INFER_CALLS):
+    """n calls of an inference callable `run(feed) -> [one fetch]`: (the
+    fetches, walls ms, each call's kernel launches)."""
+    from paddle_tpu_torch.ops import fused
+
+    outs, walls, deltas = [], [], []
+    for _ in range(n):
+        before = fused.stats()["launches"]
+        t0 = time.perf_counter()
+        (o,) = run(feed)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = fused.stats()["launches"]
+        deltas.append({k: v - before.get(k, 0) for k, v in after.items()
+                       if v != before.get(k, 0)})
+        outs.append(o)
+    return outs, walls, deltas
+
+
+ARTIFACT_FP8_STEPS = 3  # (e)'s runner and Executor.run steps, all compared bit for bit
+ARTIFACT_FP8_KERNELS = ("fp8_matmul", "fp8_matmul_dx", "fp8_matmul_dy")
+
+
+def _fp8_export(tmp):
+    """(e)'s export: Transformer base (dropout 0) rewritten to bf16 by
+    Bf16Transpiler, its startup program run, then export_train_step under
+    FLAGS_fp8_matmul and training_fused (train_bf16's fp8 configuration).
+    Host work but for the startup program. Returns what _artifact_fp8
+    runs: the path, the export's seconds and the state it was made from."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope, flags, scope_guard
+    from paddle_tpu_torch.tools import profile_recsys as recsys
+    from paddle_tpu_torch.tools import profile_training as prof
+    from paddle_tpu_torch.train_export import export_train_step
+
+    place = CUDAPlace(0)
+    cfg = dict(prof.BASE, dropout=0.0)
+    batches = [prof.make_batch(cfg, SEED + 400 + i) for i in range(ARTIFACT_FP8_STEPS)]
+    main_prog, startup, loss = prof.build(cfg)
+    recsys.bf16_transpiled(main_prog)
+    flags.set_flags({"pass_pipeline": "training_fused", "fp8_matmul": True})
+    try:
+        scope, exe = Scope(seed=SEED, place=place), Executor(place)
+        with scope_guard(scope):
+            exe.run(startup)
+        t0 = time.perf_counter()
+        path = export_train_step(os.path.join(tmp, "fp8"), batches[0], [loss],
+                                 program=main_prog, scope=scope)
+        export_s = time.perf_counter() - t0
+    finally:
+        flags.set_flags({"fp8_matmul": False})
+    return dict(path=path, export_s=export_s, batches=batches, main=main_prog, loss=loss,
+                scope=scope, exe=exe)
+
+
+def _artifact_fp8(torch, card, exported):
+    """(e): the exported bf16 fp8 step of _fp8_export, loaded by
+    TrainStepRunner in this process: its ARTIFACT_FP8_STEPS losses bit for
+    bit Executor.run's from the state it was exported from, under the same
+    flag and transpile; the fp8 launches a step of both. Returns the
+    runner's launches over its steps and the record."""
+    from paddle_tpu_torch import flags, scope_guard
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.serving import compile_cache
+    from paddle_tpu_torch.train_export import TrainStepRunner
+
+    path, export_s, batches = exported["path"], exported["export_s"], exported["batches"]
+    main_prog, loss, scope, exe = (exported.pop(k) for k in ("main", "loss", "scope", "exe"))
+    flags.set_flags({"pass_pipeline": "training_fused", "fp8_matmul": True})
+    try:
+        e_losses, e_walls, e_deltas = [], [], []
+        for b in batches:
+            before = fused.stats()
+            t0 = time.perf_counter()
+            with scope_guard(scope):
+                (v,) = exe.run(main_prog, feed=b, fetch_list=[loss.name])
+            e_walls.append((time.perf_counter() - t0) * 1e3)
+            e_deltas.append(_launch_delta(before, fused.stats()))
+            e_losses.append(float(np.asarray(v).reshape(-1)[0]))
+    finally:
+        flags.set_flags({"fp8_matmul": False})
+    del scope, exe
+    torch.cuda.empty_cache()
+    size = os.path.getsize(path)
+    graph = _op_nodes(compile_cache.read_artifact(path)["program"])
+    t0 = time.perf_counter()
+    runner = TrainStepRunner.load(path)
+    load_s = time.perf_counter() - t0
+    fused.reset_stats()  # the runner's counting window
+    r_losses, r_walls, r_deltas = [], [], []
+    for b in batches:
+        before = fused.stats()
+        t0 = time.perf_counter()
+        (v,) = runner.run(b)
+        r_walls.append((time.perf_counter() - t0) * 1e3)
+        r_deltas.append(_launch_delta(before, fused.stats()))
+        r_losses.append(float(np.asarray(v).reshape(-1)[0]))
+    launches = {k: v for k, v in fused.stats()["launches"].items() if v}
+    del runner
+    torch.cuda.empty_cache()
+    if [v.hex() for v in r_losses] != [v.hex() for v in e_losses]:
+        raise AssertionError("fp8 artifact: runner losses %s, Executor.run %s (bit for bit)"
+                             % (r_losses, e_losses))
+    if not np.isfinite(r_losses).all():
+        raise AssertionError("fp8 artifact: losses %s" % r_losses)
+    for name in ("fp8_matmul", "fp8_matmul_grads"):
+        if not graph.get(name):
+            raise AssertionError("fp8 artifact: no %s node in the exported step (%s)"
+                                 % (name, graph))
+    if any(d != r_deltas[0] for d in r_deltas) or any(d != e_deltas[0] for d in e_deltas):
+        raise AssertionError("fp8 artifact: launches a step vary: runner %s, Executor %s"
+                             % (r_deltas, e_deltas))
+    for k in ARTIFACT_FP8_KERNELS:
+        if not r_deltas[0].get(k):
+            raise AssertionError("fp8 artifact: %s never launched a runner step (%s)"
+                                 % (k, r_deltas[0]))
+    fp8 = {k: (r_deltas[0].get(k, 0), e_deltas[0].get(k, 0)) for k in ARTIFACT_FP8_KERNELS}
+    log("artifacts (e): Transformer base (dropout 0) rewritten to bf16 under FLAGS_fp8_matmul "
+        "and training_fused, exported by export_train_step in %.1f s (%d bytes; nodes %s), "
+        "loaded by TrainStepRunner in this process in %.1f s; %d runner steps (1 op by op, 2 "
+        "captured, then replays), losses %s, bit for bit Executor.run's from the same state; "
+        "fp8 launches a step (runner, Executor.run) %s; all launches a runner step %s, an "
+        "Executor step %s; step walls runner %s ms, Executor.run %s ms; card %s" % (
+            export_s, size, json.dumps(graph), load_s, ARTIFACT_FP8_STEPS,
+            ["%.6f" % v for v in r_losses], json.dumps(fp8), json.dumps(r_deltas[0]),
+            json.dumps(e_deltas[0]), ["%.1f" % w for w in r_walls],
+            ["%.1f" % w for w in e_walls], card))
+    return launches, {"export_s": export_s, "load_s": load_s, "bytes": size,
+                      "fp8_a_step_runner_executor": fp8,
+                      "runner_walls_ms": r_walls, "executor_walls_ms": e_walls}
 
 
 def _artifact_infer(torch, card, tmp):
@@ -9893,22 +10282,8 @@ def _artifact_infer(torch, card, tmp):
     del exe
     batch = prof.make_batch(cfg, SEED + 300)
     feed = {n: batch[n] for n in names}
-
-    def calls(run):
-        outs, walls, deltas = [], [], []
-        for _ in range(INFER_CALLS):
-            before = fused.stats()["launches"]
-            t0 = time.perf_counter()
-            (o,) = run(feed)
-            walls.append((time.perf_counter() - t0) * 1e3)
-            after = fused.stats()["launches"]
-            deltas.append({k: v - before.get(k, 0) for k, v in after.items()
-                           if v != before.get(k, 0)})
-            outs.append(o)
-        return outs, walls, deltas
-
     pred = inference.Predictor(model_dir, place=CUDAPlace(0))
-    p_outs, p_walls, p_deltas = calls(pred.run)
+    p_outs, p_walls, p_deltas = _infer_calls(pred.run, feed)
     del pred
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -9919,7 +10294,7 @@ def _artifact_infer(torch, card, tmp):
     art = inference.load_compiled(path)
     load_s = time.perf_counter() - t0
     fused.reset_stats()  # the artifact's counting window
-    a_outs, a_walls, a_deltas = calls(art.run)
+    a_outs, a_walls, a_deltas = _infer_calls(art.run, feed)
     launches = fused.stats()["launches"]
     del art
     torch.cuda.empty_cache()
@@ -10057,7 +10432,12 @@ def artifacts(torch, card, readings):
 
     tmp = tempfile.mkdtemp(prefix="artifacts_")
     try:
-        launches = _artifact_train(torch, card, tmp)
+        launches, fp8 = _artifact_train(torch, card, tmp, beside=lambda: _fp8_export(tmp))
+        torch.cuda.empty_cache()
+        counts, readings["artifact_fp8"] = _artifact_fp8(torch, card, fp8)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        del fp8
         torch.cuda.empty_cache()
         for k, n in _artifact_infer(torch, card, tmp).items():
             launches[k] += n
@@ -10076,9 +10456,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from paddle_tpu_torch import CUDAPlace
+        from paddle_tpu_torch import CUDAPlace, flags
         from paddle_tpu_torch.models import GPTDecoder
-        from paddle_tpu_torch.ops import _build
         from paddle_tpu_torch.ops import paged_flash as pf
         from paddle_tpu_torch.serving import GenerationEngine
         from paddle_tpu_torch.tools import profile_training as prof
@@ -10097,15 +10476,32 @@ def main():
         log("python %s, torch %s (CUDA %s); CUDAGraph.register_generator_state: %s" % (
             sys.version.split()[0], torch.__version__, torch.version.cuda,
             hasattr(torch.cuda.CUDAGraph, "register_generator_state")))
-        t0 = time.perf_counter()
         native_build = _start_native_build()  # g++, beside the nvcc builds
-        _build.build_all()  # one nvcc per source, all at once
-        log("nvcc sm_90a build of %s in %.1f s" % (sorted(_build.build_logs), time.perf_counter() - t0))
+        nvcc_build = _start_nvcc_build()
+    # the phases that launch no hand-written kernel run while nvcc builds
+    # (one that reached a kernel would wait for its library); the flags
+    # they set are put back for the phases after them
+    saved_flags = flags.get_flags()
+    with Phase("batch_norm grad"):
+        check_batch_norm_grad(torch, card)
+    torch.cuda.empty_cache()
+    with Phase("extra ops"):
+        extra_ops(torch, card)
+    torch.cuda.empty_cache()
+    with Phase("train ssd"):
+        ssd = train_ssd(torch, card, paths)
+    with Phase("eval ssd"):
+        eval_ssd(torch, card, paths, *ssd)
+    del ssd
+    torch.cuda.empty_cache()
+    with Phase("detection ops"):
+        detection_ops(torch, card)
+    torch.cuda.empty_cache()
+    flags.set_flags(saved_flags)
+    with Phase("build wait"):
+        for line in nvcc_build():
+            log(line)
         log(native_build())
-        for stem, text in sorted(_build.build_logs.items()):
-            ptxas = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
-                     if "registers" in ln or "spill" in ln]
-            log("ptxas %s: %s" % (stem, " | ".join(ptxas)))
     with Phase("kernels vs plain"):
         kernels = check_kernels(torch, pf, device)
         main_prog = prof.build(prof.BASE)[0]
@@ -10142,8 +10538,15 @@ def main():
     with Phase("paged vs dense"):
         paged_vs_dense(torch, engine)
     with Phase("serve int8 KV"):
-        launches.update(serve_int8_kv(torch, pf, engine, card, paths))
-    del engine
+        counts, engine8 = serve_int8_kv(torch, pf, engine, card, paths)
+        launches.update(counts)
+    with Phase("paged export"):
+        for label, eng in (("f32", engine), ("int8", engine8)):
+            counts, paths.setdefault("paged_export", {})[label] = paged_export(
+                torch, pf, eng, label, card)
+            for name, n in counts.items():
+                launches[name] += n
+    del engine, engine8
     torch.cuda.empty_cache()
     with Phase("serve int8 GEMM"):
         launches.update(serve_int8_gemm(torch, card)[0])
@@ -10171,9 +10574,6 @@ def main():
     with Phase("train resnet50"):
         train_resnet50(torch, card, paths)
     torch.cuda.empty_cache()
-    with Phase("batch_norm grad"):
-        check_batch_norm_grad(torch, card)
-    torch.cuda.empty_cache()
     with Phase("train zoo"):
         counts, errs = train_zoo(torch, card, paths)
         for name, n in counts.items():
@@ -10184,9 +10584,6 @@ def main():
     with Phase("deploy resnet50"):
         for name, n in deploy_resnet50(torch, card, paths).items():
             launches[name] = launches.get(name, 0) + n
-    torch.cuda.empty_cache()
-    with Phase("extra ops"):
-        extra_ops(torch, card)
     for label, phase in (("train lstm", train_lstm), ("train nmt", train_nmt)):
         torch.cuda.empty_cache()
         with Phase(label):
@@ -10205,15 +10602,6 @@ def main():
                 kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     with Phase("schedules"):
         schedules(torch, card)
-    torch.cuda.empty_cache()
-    with Phase("train ssd"):
-        ssd = train_ssd(torch, card, paths)
-    with Phase("eval ssd"):
-        eval_ssd(torch, card, paths, *ssd)
-    del ssd
-    torch.cuda.empty_cache()
-    with Phase("detection ops"):
-        detection_ops(torch, card)
     torch.cuda.empty_cache()
     with Phase("host ops"):
         host_ops(torch, card)

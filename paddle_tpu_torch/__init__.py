@@ -62,8 +62,10 @@ contrib.reader.ctr_reader and reader.creator.recordio.
 
 Compiled artifacts: inference.export_compiled / load_compiled and
 train_export.export_train_step / load_train_step write and run a
-torch.export program of the block Executor.run prepares, the hand
-kernels of the training path recorded as torch.library ops.
+torch.export program of the block Executor.run prepares, and
+GenerationEngine.export_variant exports a decode or prefill program with
+its KV pools as written state. Every hand kernel is a torch.library op
+(namespace paddle_tpu_torch), so an exported graph records it.
 
 Entry points run on the card (CUDAPlace(0)) unless the caller passes
 CPUPlace(). The package imports torch and never jax, and nothing of

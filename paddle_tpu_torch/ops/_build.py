@@ -27,7 +27,7 @@ import subprocess
 import threading
 
 __all__ = ["NVCC_FLAGS", "arrival_counters", "build_all", "build_logs", "build_tag", "load",
-           "refuse_trace", "register"]
+           "register"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, "csrc")
@@ -103,20 +103,6 @@ def _compile(stems):
     if failed:
         raise RuntimeError("nvcc failed for %s:\n%s" % (
             failed, "\n".join(build_logs[s] for s in failed)))
-
-
-def refuse_trace(kernel, *tensors):
-    """Raise, naming `kernel`, where a trace (torch.export, make_fx) reaches
-    a kernel launched by a direct ctypes call rather than a torch.library
-    op: its tensors are fake and have no data pointer to launch on, and the
-    graph could not record the launch. The paged, quant GEMM and fp8
-    kernels are launched so."""
-    from torch._subclasses.fake_tensor import is_fake
-
-    if any(t is not None and is_fake(t) for t in tensors):
-        raise RuntimeError(
-            "%s is launched by a direct call, not as a torch.library op: an exported "
-            "graph cannot hold it" % kernel)
 
 
 def register(stem, bind):

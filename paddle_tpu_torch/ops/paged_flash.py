@@ -19,10 +19,15 @@ splits merged the same way. The plain version (`paged_attention_plain`) is the d
 gather + where-mask safe softmax of the JAX dense lowering
 (paddle_tpu/ops/generation_ops.py:134-183).
 
-Dispatch: `paged_flash_attention` launches the kernel for tensors on a CUDA
-device and raises if it cannot be built or launched; it runs the plain
-version only for tensors on the CPU (or on the meta device, during shape
-inference). Nothing falls back silently.
+Dispatch: `paged_flash_attention` checks the operands and calls the
+torch.library op `paddle_tpu_torch::paged_flash_attention` (one op for
+both table forms and both pool types), whose CUDA implementation launches
+the kernel (and counts the launch) and raises if it cannot be built or
+launched, whose CPU implementation is the plain version, and whose fake
+gives the output's shape and dtype alone, so torch.export records the op.
+The op only reads the pools (kv_cache_write writes them, in place, before
+it); its scratch (the per-split partials, the arrival counters) is private
+to a launch. Nothing falls back silently.
 
 Build: `nvcc` for sm_90a at first use, from the source in this checkout,
 into a shared library with a plain C interface loaded with ctypes
@@ -30,6 +35,7 @@ into a shared library with a plain C interface loaded with ctypes
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -155,22 +161,19 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
     live context (positions 0..pos inclusive, pos < 0 emits zeros). Returns
     [rows, n_head*d] f32.
 
-    CUDA tensors launch the kernel (and raise if it cannot be built or
-    launched); CPU tensors run paged_attention_plain."""
+    Checks the operands, then calls the op
+    paddle_tpu_torch::paged_flash_attention: CUDA tensors launch the kernel
+    (and raise if it cannot be built or launched); CPU tensors run
+    paged_attention_plain."""
     quant = k_scales is not None
     if quant != (v_scales is not None):
         raise ValueError("paged_flash: k_scales and v_scales go together")
+    sm_scale = float(sm_scale or 0.0)
     if q.device.type != "cuda":
-        return paged_attention_plain(
-            q, k_pool, v_pool, block_table, pos, n_head=n_head,
-            page_size=page_size, sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
-        )
-    _build.refuse_trace("paged_flash (paged_decode_kernel, paged_flash_shared_tc_kernel, "
-                        "paged_wide_kernel)", q, k_pool)
+        return _paged_op(q, k_pool, v_pool, block_table, pos, int(n_head), int(page_size),
+                         sm_scale, k_scales, v_scales)
     rows, feat = q.shape
-    d = feat // n_head
-    scale = float(sm_scale or 0.0) or d ** -0.5
-    if d * n_head != feat:
+    if (feat // n_head) * n_head != feat:
         raise ValueError("q width %d is not n_head=%d heads" % (feat, n_head))
     pool_dtype = torch.int8 if quant else torch.float32
     for name, t, dt in (("q", q, torch.float32), ("k_pool", k_pool, pool_dtype),
@@ -196,25 +199,61 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, pos, *, n_head,
                 raise ValueError(
                     "paged_flash: %s must be %d contiguous float32 values on %s, got %s %s"
                     % (name, pool_rows, q.device, tuple(t.shape), t.dtype))
-    shared = block_table.dim() == 1
-    if not shared and (block_table.dim() != 2 or block_table.shape[0] != rows):
+    if block_table.dim() not in (1, 2) or (block_table.dim() == 2
+                                            and block_table.shape[0] != rows):
         raise ValueError(
             "paged_flash: block table %s does not match %d query rows"
             % (tuple(block_table.shape), rows)
         )
-    n_pages = block_table.shape[-1]
-    if torch.cuda.is_current_stream_capturing() and (
-            block_table.device != q.device or pos.device != q.device):
+    if pos.numel() != rows:
+        raise ValueError("paged_flash: %d positions for %d rows" % (pos.numel(), rows))
+    if (block_table.device != q.device or pos.device != q.device) and (
+            torch.cuda.is_current_stream_capturing()):
         # a graph replays a host-to-device copy from the address it captured
         raise ValueError("paged_flash: the block table and positions must be on %s "
                          "during a CUDA graph capture, got %s and %s"
                          % (q.device, block_table.device, pos.device))
-    qc = q.contiguous()
     # no-ops for the executor's feeds: int32 tensors on the card already
     bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     pv = pos.reshape(-1).to(device=q.device, dtype=torch.int32).contiguous()
-    if pv.shape[0] != rows:
-        raise ValueError("paged_flash: %d positions for %d rows" % (pv.shape[0], rows))
+    return _paged_op(q, k_pool, v_pool, bt, pv, int(n_head), int(page_size), sm_scale,
+                     k_scales, v_scales)
+
+
+# the op: one entry for the executor, CUDA graphs and torch.export (whose
+# graphs record it by name). sm_scale 0.0 means d ** -0.5. It reads the
+# pools and writes nothing it is given: mutates_args is empty.
+@torch.library.custom_op("paddle_tpu_torch::paged_flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _paged_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+              block_table: torch.Tensor, pos: torch.Tensor, n_head: int, page_size: int,
+              sm_scale: float, k_scales: Optional[torch.Tensor],
+              v_scales: Optional[torch.Tensor]) -> torch.Tensor:
+    return paged_attention_plain(
+        q, k_pool, v_pool, block_table, pos, n_head=n_head, page_size=page_size,
+        sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
+    ).contiguous()
+
+
+@_paged_op.register_fake
+def _(q, k_pool, v_pool, block_table, pos, n_head, page_size, sm_scale, k_scales, v_scales):
+    return q.new_empty(q.shape)
+
+
+@_paged_op.register_kernel("cuda")
+def _(q, k_pool, v_pool, block_table, pos, n_head, page_size, sm_scale, k_scales, v_scales):
+    quant = k_scales is not None
+    rows, feat = q.shape
+    d = feat // n_head
+    scale = sm_scale or d ** -0.5
+    for name, t in (("block_table", block_table), ("pos", pos)):
+        if t.device != q.device or t.dtype != torch.int32:
+            raise ValueError("paged_flash: the op takes %s as int32 on %s, got %s on %s"
+                             % (name, q.device, t.dtype, t.device))
+    shared = block_table.dim() == 1
+    n_pages = block_table.shape[-1]
+    pool_rows = k_pool.shape[0]
+    qc, bt, pv = q.contiguous(), block_table.contiguous(), pos.reshape(-1).contiguous()
     out = torch.empty_like(qc)
     lib = _build.load("paged_flash")
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -18,17 +18,23 @@ bf16 operands and g its gradients are that family's dx and dy forms
 g (or a partly broadcast operand) takes f32 library matmuls rounded by
 the family's e4m3_round_kernel.
 
-Dispatch: `quant_gemm_bias_act` and `fp8_matmul` launch their kernels for
-tensors on a CUDA device and raise if they cannot be built or launched, or
-if the shape is one the kernel does not take (quant_gemm_bias_act: k or n
-not a multiple of 16; fp8_matmul: more than 65535 matrices a batch); they
-run their plain versions (`quant_gemm_bias_act_plain`, `fp8_matmul_plain`,
-`e4m3_round_plain`, `fp8_matmul_grads_plain`) only for tensors on the CPU
-or the meta device.
+Dispatch: `quant_gemm_bias_act`, `fp8_matmul` and `e4m3_round` check their
+operands and call torch.library ops of the namespace paddle_tpu_torch
+(`quant_gemm_bias_act`, `fp8_matmul`, `fp8_matmul_grads`, `e4m3_round`),
+whose CUDA implementations launch the kernels (and count the launches) and
+raise if they cannot be built or launched, or if the shape is one the
+kernel does not take (quant_gemm_bias_act: k or n not a multiple of 16;
+fp8_matmul: more than 65535 matrices a batch); whose CPU implementations
+are the plain versions (`quant_gemm_bias_act_plain`, `fp8_matmul_plain`,
+`fp8_matmul_grads_plain`, `e4m3_round_plain`); and whose fakes give shapes
+and dtypes alone, so torch.export records the ops. fp8_matmul's autograd
+Function calls the forward op and the gradient op, so an exported training
+step holds both.
 """
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +43,7 @@ from .gemm_epilogue import ACT_F32
 from .registry import reduce_grad_to_shape
 
 __all__ = [
+    "e4m3_round",
     "e4m3_round_plain",
     "e4m3_round_twin",
     "fp8_matmul",
@@ -151,8 +158,9 @@ def quant_gemm_bias_act(x2, w2, scale, bias_row=None, act=None):
     operands of one dtype; scale is one f32 value (a tensor, on the
     operands' device), bias_row n values or None. Returns (z, y) in f32: z
     the post-bias pre-activation value, y = act(z), None when act is None.
-    CUDA tensors launch the kernel; CPU tensors run
-    quant_gemm_bias_act_plain."""
+    Checks the operands, then calls the op
+    paddle_tpu_torch::quant_gemm_bias_act: CUDA tensors launch the kernel;
+    CPU tensors run quant_gemm_bias_act_plain."""
     if act not in _ACT_CODE:
         raise ValueError("quant_gemm_bias_act: unknown act %r" % (act,))
     if x2.dtype != w2.dtype or x2.dtype not in _FORMS:
@@ -161,30 +169,57 @@ def quant_gemm_bias_act(x2, w2, scale, bias_row=None, act=None):
     if x2.dim() != 2 or w2.dim() != 2 or x2.shape[1] != w2.shape[0]:
         raise ValueError("quant_gemm_bias_act: shapes %s @ %s"
                          % (tuple(x2.shape), tuple(w2.shape)))
-    if x2.device.type != "cuda":
-        return quant_gemm_bias_act_plain(x2, w2, scale, bias_row, act)
-    _build.refuse_trace("quant_gemm_kernel", x2, w2)
-    m, k = x2.shape
-    n = w2.shape[1]
+    if x2.device.type == "cuda":
+        _check_quant(x2, w2, scale, bias_row)
+    z, y = _quant_gemm_op(x2, w2, scale, bias_row, act)
+    return z, (y if act else None)
+
+
+def _check_quant(x2, w2, scale, bias_row):
+    k, n = w2.shape
     if k % 16 or n % 16:
         raise ValueError("quant_gemm_bias_act: the kernel takes k and n multiples of 16, "
                          "got k=%d n=%d" % (k, n))
-    bias = (torch.zeros(n, dtype=torch.float32, device=x2.device) if bias_row is None
-            else bias_row.reshape(-1).to(torch.float32).contiguous())
-    if bias.numel() != n:
-        raise ValueError("quant_gemm_bias_act: %d bias values for n=%d" % (bias.numel(), n))
-    s = scale.reshape(-1).to(torch.float32).contiguous()
-    if s.numel() != 1:
-        raise ValueError("quant_gemm_bias_act: scale must be one value, got %d" % s.numel())
-    for name, t in (("w2", w2), ("bias", bias), ("scale", s)):
-        if t.device != x2.device:
+    if bias_row is not None and bias_row.numel() != n:
+        raise ValueError("quant_gemm_bias_act: %d bias values for n=%d" % (bias_row.numel(), n))
+    if scale.numel() != 1:
+        raise ValueError("quant_gemm_bias_act: scale must be one value, got %d" % scale.numel())
+    for name, t in (("w2", w2), ("bias", bias_row), ("scale", scale)):
+        if t is not None and t.device != x2.device:
             raise ValueError("quant_gemm_bias_act: %s is on %s, x2 on %s"
                              % (name, t.device, x2.device))
+
+
+# the op: one entry for the executor, CUDA graphs and torch.export (whose
+# graphs record it by name); y is an empty f32 tensor when act is None
+@torch.library.custom_op("paddle_tpu_torch::quant_gemm_bias_act", mutates_args=(),
+                         device_types="cpu")
+def _quant_gemm_op(x2: torch.Tensor, w2: torch.Tensor, scale: torch.Tensor,
+                   bias_row: Optional[torch.Tensor],
+                   act: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    z, y = quant_gemm_bias_act_plain(x2, w2, scale, bias_row, act)
+    return z, (y if act else z.new_empty(0))
+
+
+@_quant_gemm_op.register_fake
+def _(x2, w2, scale, bias_row, act):
+    z = x2.new_empty((x2.shape[0], w2.shape[1]), dtype=torch.float32)
+    return z, (torch.empty_like(z) if act else z.new_empty(0))
+
+
+@_quant_gemm_op.register_kernel("cuda")
+def _(x2, w2, scale, bias_row, act):
+    m, k = x2.shape
+    n = w2.shape[1]
+    bias = (torch.zeros(n, dtype=torch.float32, device=x2.device) if bias_row is None
+            else bias_row.reshape(-1).to(torch.float32).contiguous())
+    s = scale.reshape(-1).to(torch.float32).contiguous()
     xc, wc = x2.contiguous(), w2.contiguous()
     if xc.data_ptr() % 16 or wc.data_ptr() % 16:
+        # the TMA descriptors' base addresses
         raise ValueError("quant_gemm_bias_act: operands must be 16-byte aligned")
     z = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    y = torch.empty_like(z) if act else None
+    y = torch.empty_like(z) if act else z.new_empty(0)
     lib = _build.load("quant_gemm")
     with torch.cuda.device(x2.device):
         err = lib.quant_gemm_bias_act(
@@ -267,11 +302,27 @@ def _raise_if(err, what):
                            % (what, _lib8().fp8_gemm_error_string(err).decode()))
 
 
-def _e4m3_round_cuda(t):
-    """t (f32 or bf16) rounded to e4m3 by e4m3_round_kernel, in t's dtype."""
-    _build.refuse_trace("e4m3_round_kernel", t)
+def e4m3_round(t):
+    """t (f32 or bf16) rounded to e4m3 as e4m3_round_plain rounds it, in t's
+    dtype. Calls the op paddle_tpu_torch::e4m3_round: CUDA tensors launch
+    e4m3_round_kernel; CPU tensors run e4m3_round_plain."""
     if t.dtype not in _MM_DTYPES:
         raise TypeError("e4m3_round: f32 or bf16, got %s" % t.dtype)
+    return _e4m3_round_op(t)
+
+
+@torch.library.custom_op("paddle_tpu_torch::e4m3_round", mutates_args=(), device_types="cpu")
+def _e4m3_round_op(t: torch.Tensor) -> torch.Tensor:
+    return e4m3_round_plain(t).to(t.dtype).contiguous()
+
+
+@_e4m3_round_op.register_fake
+def _(t):
+    return t.new_empty(t.shape)
+
+
+@_e4m3_round_op.register_kernel("cuda")
+def _(t):
     src = t.contiguous()
     dst = torch.empty_like(src)
     if src.numel() == 0:
@@ -343,7 +394,6 @@ def _fp8_gemm(form, a, b, load_dtype, out, rows, cols, red, nr=1):
 
 
 def _check_cuda(x, y):
-    _build.refuse_trace("fp8_gemm_kernel", x, y)
     if x.dtype not in _MM_DTYPES or y.dtype not in _MM_DTYPES:
         raise TypeError("fp8_matmul: the kernel takes f32 or bf16 operands, got %s and %s"
                         % (x.dtype, y.dtype))
@@ -354,7 +404,6 @@ def _check_cuda(x, y):
 def _fp8_matmul_cuda(x, y):
     """The forward: one launch, both operands read in their dtype (a bf16
     one beside an f32 one widened to f32 first, exactly)."""
-    _check_cuda(x, y)
     m, k = x.shape[-2:]
     n = y.shape[-1]
     batch = torch.broadcast_shapes(tuple(x.shape[:-2]), tuple(y.shape[:-2]))
@@ -380,7 +429,6 @@ def _fp8_grads_cuda(x, y, g, need):
     """The gradients on the card: bf16 x, y and g through the dx and dy
     forms (an operand shared by the batch summed over batch x its rows in
     the kernel); otherwise f32 library products rounded by e4m3_round."""
-    _check_cuda(x, y)
     m, k = x.shape[-2:]
     n = y.shape[-1]
     batch = tuple(g.shape[:-2])
@@ -414,16 +462,56 @@ def _fp8_grads_cuda(x, y, g, need):
 
 def _fp8_grads_library(x, y, g, need):
     """f32 library products (XLA's dots in the JAX package), each rounding
-    by the e4m3_round kernel."""
+    by the e4m3_round op (its kernel)."""
     g32 = g.float()
     dx = dy = None
     if need[0]:
-        dx = torch.matmul(g32, _e4m3_round_cuda(y).float().transpose(-1, -2))
-        dx = _e4m3_round_cuda(reduce_grad_to_shape(dx, x.shape)).to(x.dtype)
+        dx = torch.matmul(g32, _e4m3_round_op(y).float().transpose(-1, -2))
+        dx = _e4m3_round_op(reduce_grad_to_shape(dx, x.shape)).to(x.dtype)
     if need[1]:
-        dy = torch.matmul(_e4m3_round_cuda(x).float().transpose(-1, -2), g32)
-        dy = _e4m3_round_cuda(reduce_grad_to_shape(dy, y.shape)).to(y.dtype)
+        dy = torch.matmul(_e4m3_round_op(x).float().transpose(-1, -2), g32)
+        dy = _e4m3_round_op(reduce_grad_to_shape(dy, y.shape)).to(y.dtype)
     return dx, dy
+
+
+# the ops: the forward and the gradients (an empty tensor for a gradient
+# not asked for), called by _Fp8Matmul, so a trace of a training step
+# records both
+@torch.library.custom_op("paddle_tpu_torch::fp8_matmul", mutates_args=(), device_types="cpu")
+def _fp8_matmul_op(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return fp8_matmul_plain(x, y).contiguous()
+
+
+@_fp8_matmul_op.register_fake
+def _(x, y):
+    batch = torch.broadcast_shapes(tuple(x.shape[:-2]), tuple(y.shape[:-2]))
+    return x.new_empty(tuple(batch) + (x.shape[-2], y.shape[-1]))
+
+
+@_fp8_matmul_op.register_kernel("cuda")
+def _(x, y):
+    return _fp8_matmul_cuda(x, y)
+
+
+@torch.library.custom_op("paddle_tpu_torch::fp8_matmul_grads", mutates_args=(),
+                         device_types="cpu")
+def _fp8_grads_op(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, need_x: bool,
+                  need_y: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    dx, dy = fp8_matmul_grads_plain(x, y, g, (need_x, need_y))
+    return (dx.contiguous() if need_x else x.new_empty(0),
+            dy.contiguous() if need_y else y.new_empty(0))
+
+
+@_fp8_grads_op.register_fake
+def _(x, y, g, need_x, need_y):
+    return (x.new_empty(x.shape if need_x else 0),
+            y.new_empty(y.shape if need_y else 0))
+
+
+@_fp8_grads_op.register_kernel("cuda")
+def _(x, y, g, need_x, need_y):
+    dx, dy = _fp8_grads_cuda(x, y, g, (need_x, need_y))
+    return (dx if need_x else x.new_empty(0)), (dy if need_y else y.new_empty(0))
 
 
 class _Fp8Matmul(torch.autograd.Function):
@@ -436,9 +524,7 @@ class _Fp8Matmul(torch.autograd.Function):
 
     @staticmethod
     def forward(x, y):
-        if x.device.type != "cuda":
-            return fp8_matmul_plain(x, y)
-        return _fp8_matmul_cuda(x, y)
+        return _fp8_matmul_op(x, y)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -447,19 +533,22 @@ class _Fp8Matmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        need = tuple(ctx.needs_input_grad[:2])
-        if x.device.type != "cuda":
-            return fp8_matmul_grads_plain(x, y, g, need)
-        return _fp8_grads_cuda(x, y, g, need)
+        need_x, need_y = (bool(n) for n in ctx.needs_input_grad[:2])
+        dx, dy = _fp8_grads_op(x, y, g, need_x, need_y)
+        return (dx if need_x else None), (dy if need_y else None)
 
 
 def fp8_matmul(x, y):
     """x @ y with both operands cast to float8_e4m3fn and f32 sums, the result
     in x's dtype. x is (..., m, k), y (..., k, n), leading dims broadcast as
-    in torch.matmul. CUDA tensors launch fp8_gemm.cu (f32 or bf16
-    operands); CPU tensors run fp8_matmul_plain."""
+    in torch.matmul. Checks the operands, then goes through the ops
+    paddle_tpu_torch::fp8_matmul (and fp8_matmul_grads for the gradient):
+    CUDA tensors launch fp8_gemm.cu (f32 or bf16 operands); CPU tensors run
+    fp8_matmul_plain."""
     if not (torch.is_floating_point(x) and torch.is_floating_point(y)):
         raise TypeError("fp8_matmul: floating operands, got %s and %s" % (x.dtype, y.dtype))
     if x.dim() < 2 or y.dim() < 2 or x.shape[-1] != y.shape[-2]:
         raise ValueError("fp8_matmul: shapes %s @ %s" % (tuple(x.shape), tuple(y.shape)))
+    if x.device.type == "cuda":
+        _check_cuda(x, y)
     return _Fp8Matmul.apply(x, y)

@@ -19,18 +19,20 @@ the float64 sums are exact integers, rounded once to f32, which is the JAX
 package's i32 -> f32. The fused gemm_int8 family (ops/fused.py) runs the
 same chains through the quant GEMM kernel instead.
 
-int8_conv2d on the CPU (and on meta tensors) is the same: a float64
-conv2d of the levels, rounded once to f32. On the card a convolution with
-groups == 1 is an int8 im2col (its columns zero-padded to a multiple of 16,
-which keeps every sum exact) through the hand-written quant GEMM
-(quant_gemm.quant_gemm_bias_act at scale 1.0, no bias, no activation:
-__int2float_rn of the i32 sums, the same f32 bits); a build or launch
-failure raises. A grouped one (a converted depthwise_conv2d) takes the
-float64 cuDNN convolution, exact as well: the kernel takes one product per
-call, and a grouped convolution is many small ones. That is a coverage
-rule (`int8_conv2d_path_taken`), not a fallback; ops.fused.stats() counts
-the calls of each rule under the dispatches "int8_conv2d" and
-"int8_conv2d_grouped".
+int8_conv2d with groups == 1 is an int8 im2col (its columns zero-padded to
+a multiple of 16, which keeps every sum exact) through the quant GEMM op
+(quant_gemm.quant_gemm_bias_act at scale 1.0, no bias, no activation): on
+the card its hand-written kernel (__int2float_rn of the i32 sums), whose
+build or launch failure raises; on the CPU its plain version, a float64
+product of the levels rounded once to f32. Both give the bits of a float64
+conv2d rounded once, and an exported program holds the op on either
+device. A grouped one (a converted depthwise_conv2d) takes the float64
+convolution (cuDNN's on the card), exact as well: the kernel takes one
+product per call, and a grouped convolution is many small ones. That is a
+coverage rule (`int8_conv2d_path_taken`), not a fallback;
+ops.fused.stats() counts the calls of each rule under the dispatches
+"int8_conv2d" and "int8_conv2d_grouped". Meta tensors (shape inference)
+take an f32 conv2d.
 """
 
 import torch
@@ -170,7 +172,7 @@ def _int8_im2col(x, kh, kw, strides, paddings, dilations, k_pad):
 
 
 def _int8_conv2d_gemm(x, w, strides, paddings, dilations):
-    """The card's groups == 1 form: im2col, the quant GEMM kernel, NCHW."""
+    """The groups == 1 form: im2col, the quant GEMM op, NCHW."""
     o, c, kh, kw = w.shape
     k = c * kh * kw
     k_pad, n_pad = quant_gemm._round16(k), quant_gemm._round16(o)
@@ -198,7 +200,7 @@ def _int8_conv2d(ctx, ins, attrs):
                                     groups)]}
     taken = int8_conv2d_path_taken(groups)
     note_dispatch("int8_conv2d" if taken else "int8_conv2d_grouped")
-    if x.device.type == "cuda" and taken:
+    if taken:
         return {"Output": [_int8_conv2d_gemm(x, w, strides, paddings, dilations)]}
     out = F.conv2d(x.double(), w.double(), None, strides, paddings, dilations, groups)
     return {"Output": [out.float()]}

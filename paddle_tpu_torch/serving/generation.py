@@ -42,6 +42,13 @@ table's changed rows in place. KV pools never swap.
 The KV pools are preallocated on the device and every variant updates them
 in place (kv_cache_write's index_copy_), the torch form of the JAX
 package's donated pool buffers.
+
+`export_variant` exports a variant's block as a torch.export program (the
+JAX engine exports every variant it builds with jax.export): the pools are
+its written state, their in-place writes input mutations, and the paged
+attention one `paddle_tpu_torch::paged_flash_attention` node a layer. The
+engine itself keeps serving its prepared variants; its compile cache keeps
+its stored-program format (serving/compile_cache.py says why).
 On a CUDA device paged_attention runs the hand-written kernels of
 ops/paged_flash.py, over f32 pools or, for a model with kv_dtype="int8",
 over int8 level pools with per-row f32 scale pools (about a quarter of the
@@ -76,7 +83,7 @@ import torch
 
 from .. import flags as _flags
 from .. import framework
-from ..executor import Scope, aot_serve_lowering, scope_guard
+from ..executor import Scope, aot_serve_lowering, export_block, scope_guard, to_tensor
 from ..ops import paged_flash as _pf
 from ..place import to_device
 from ..observability import tracing as _tracing
@@ -482,6 +489,23 @@ class GenerationEngine:
         for _ in range(2 if self.device.type == "cuda" else 1):
             self._call(v, scratch)
         return v
+
+    def export_variant(self, kind, feeds):
+        """torch.export of the variant `kind` ('decode' or
+        'prefill:<bucket>'): the block aot_serve_lowering(return_state=True)
+        prepared for it, traced over `feeds` (host arrays at the variant's
+        feed shapes) by executor.export_block, its parameters read-only
+        state and the KV pools (with their int8 scale pools) written state.
+        Returns (program, ro, mut names, feed dtypes): executor._ExportedRun
+        runs the program over ro and a dict of pools, which a call updates
+        in place."""
+        v = self._variant(kind)
+        block = v.fn.block
+        tensors = {n: to_tensor(feeds[n], self.device, block.feed_dtypes.get(n))
+                   for n in v.feed_names}
+        mut = {n: self._state[n] for n in v.mut_names}
+        program = export_block(block, tensors, v.ro, mut, self.device, is_test=True)
+        return program, v.ro, list(v.mut_names), dict(block.feed_dtypes)
 
     def warmup(self):
         """Build the decode step and every prefill bucket (captured on the

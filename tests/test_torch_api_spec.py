@@ -48,6 +48,9 @@ PORT_ADDED = {
     # the child's port file (package, device, boot seconds, memory
     # reserved): how a parent shows its replicas run this package
     "paddle_tpu.fleet.ReplicaProcess.info",
+    # a decode or prefill program as a torch.export program (the JAX engine
+    # exports each variant it builds with jax.export, inside the engine)
+    "paddle_tpu.serving.GenerationEngine.export_variant",
 }
 # keys of a replica spec (fleet/replica.py's "Spec (JSON)") beside the JAX
 # package's: the device a replica serves on (the card unless "cpu"; the JAX
